@@ -5,6 +5,9 @@ Run from the root of the repository, with no arguments::
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --kaisa-only`` builds the kernels and runs the
+KAISA phase (5 below) alone, for a machine with a card per rank.
+
 It needs one CUDA card and ``nvcc`` (``sm_90a``), and imports nothing of
 JAX or of the JAX package.  Phases, each of which exits non-zero when it
 fails:
@@ -22,18 +25,40 @@ fails:
    steps on one fixed synthetic batch through ``KFACPreconditioner``,
    counting kernel launches, checking one step's preconditioned
    gradients against a rerun of the same state through the plain
-   version, and timing the step and its stages.
+   version, and timing the step and its stages;
+4. the sharded kernel (``fused_eigen_precondition_sharded``) on one
+   rank's MEM-OPT shard shapes of ResNet-32 at world 4: times of the
+   kernel, its plain version and the cuBLAS chain on one step's six
+   shards;
+5. the KAISA path: four ranks (``torch.multiprocessing`` spawn; NCCL
+   when there is a card per rank, gloo otherwise, so on one card all
+   four share it) train ResNet-32 wrapped in ``DistributedDataParallel``
+   at a global batch of 128 for 12 steps under each of COMM-OPT,
+   HYBRID-OPT and MEM-OPT, twice: a timing pass with each collective
+   synchronized and timed, then the checked pass, which runs the path
+   as a user does and gives the step times.  Each rank checks a finite,
+   falling loss, parameters bitwise equal across ranks after every
+   step, kernel launches equal to steps x buckets, the refresh step's
+   preconditioned gradients against a single-process rerun from the
+   same averaged factors and raw gradients, and the sharded kernel
+   against its plain version through the rank's grid row in f32 and
+   bf16.  Step and
+   collective times there are correctness-path times, not a scaling
+   result.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 #: H100 SXM figures (NVIDIA data sheet, 700 W): HBM bytes/s, f32
@@ -53,6 +78,12 @@ TRAIN_STEPS = 20
 BATCH = 128
 DEVICE = 'cuda'
 CHECK_STEP = 10  # an inverse-update step: refresh + precondition
+KAISA_WORLD = 4
+KAISA_STEPS = 12  # crosses the refresh at step 10
+KAISA_STRATEGIES = ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT')
+KAISA_TIMEOUT_S = 600
+#: ResNet-32's MEM-OPT segments at world 4 (slots per column, plan order).
+MEM_OPT_SEGS = [3, 1, 4, 5, 1, 1]
 
 
 def fail(msg: str) -> None:
@@ -98,9 +129,9 @@ def graph_ms(torch, calls, reps: int = 20) -> float:
 
 
 def precond_bound(L, gp, ap, itemsize):
-    """``(bound_ms, bound_by)`` of one fused call: every input read once,
-    ``pg`` and ``clip`` written once, against the four contractions plus
-    the elementwise scale and clip product."""
+    """``(bound_ms, bytes_ms, ops_ms)`` of one fused call: every input
+    read once, ``pg`` and ``clip`` written once, against the four
+    contractions plus the elementwise scale and clip product."""
     nbytes = itemsize * L * (2 * gp * ap + ap * ap + gp * gp)
     nbytes += 4 * L * gp * ap + 4 * L
     flops = 2 * L * (gp * gp * ap * 2 + gp * ap * ap * 2) + 3 * L * gp * ap
@@ -110,19 +141,53 @@ def precond_bound(L, gp, ap, itemsize):
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
-def make_case(torch, L, gp, ap, seed):
+def make_case(torch, L, gp, ap, seed, device=None):
     """Realistic operands: orthonormal eigenbases, Gaussian gradient,
-    positive eigenvalue grid."""
-    gen = torch.Generator(device=DEVICE)
+    positive eigenvalue grid (on ``device``, default ``DEVICE``)."""
+    device = DEVICE if device is None else device
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
     def orth(n):
-        a = torch.randn(L, n, n, generator=gen, device=DEVICE)
+        a = torch.randn(L, n, n, generator=gen, device=device)
         return torch.linalg.qr(a)[0].contiguous()
 
-    g = torch.randn(L, gp, ap, generator=gen, device=DEVICE)
-    dgda = torch.rand(L, gp, ap, generator=gen, device=DEVICE) * 0.9 + 0.1
+    g = torch.randn(L, gp, ap, generator=gen, device=device)
+    dgda = torch.rand(L, gp, ap, generator=gen, device=device) * 0.9 + 0.1
     return [g, orth(ap), orth(gp), dgda]
+
+
+def library_chain(g, qa, qg, dgda):
+    """The cuBLAS ``torch.matmul`` chain of the same function."""
+    return qg @ ((qg.mT @ g @ qa) * dgda) @ qa.mT
+
+
+def time_case(torch, kernel, plain, args):
+    """``(ms, plain_ms, library_ms)`` of one call on ``args``."""
+    return (time_ms(torch, lambda: kernel(*args)),
+            time_ms(torch, lambda: plain(*args)),
+            time_ms(torch, lambda: library_chain(*args)))
+
+
+def step_entry(name, replaces, timed, max_err):
+    """A kernels-line entry summed over one step's f32 calls; ``timed``
+    holds ``((L, gp, ap), ms, plain_ms, library_ms)`` per call."""
+    bounds = [precond_bound(L, gp, ap, 4) for (L, gp, ap), *_ in timed]
+    t_bytes = sum(b[1] for b in bounds)
+    t_ops = sum(b[2] for b in bounds)
+    return {
+        'name': name,
+        'route': 'cuda',
+        'source': 'kfac_pytorch_tpu_torch/csrc/fused_eigen_precond.cu',
+        'replaces': replaces,
+        'launches': None,  # filled from the path's run
+        'max_abs_err': max_err,
+        'ms': sum(t[1] for t in timed),
+        'plain_ms': sum(t[2] for t in timed),
+        'bound_ms': sum(b[0] for b in bounds),
+        'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+        'library_ms': sum(t[3] for t in timed),
+    }
 
 
 def phase_kernels(torch, ops):
@@ -130,14 +195,8 @@ def phase_kernels(torch, ops):
     (times summed over the main path's six bucket calls of one step)."""
     kernel = ops.fused_eigen_precondition
     plain = ops.fused_eigen_precondition_reference
-
-    def library(g, qa, qg, dgda):
-        return qg @ ((qg.mT @ g @ qa) * dgda) @ qa.mT
-
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                  t_bytes=0.0, t_ops=0.0)
     max_err = 0.0
-    step_calls = []
+    step_calls, timed = [], []
     for i, (L, gp, ap) in enumerate(MAIN_PATH_CASES + EXTRA_CASES):
         args = make_case(torch, L, gp, ap, seed=100 + i)
         pg, clip = kernel(*args)
@@ -167,11 +226,9 @@ def phase_kernels(torch, ops):
         if not rel32 < 0.05 or not rel16 < 1e-3:
             fail(f'case {(L, gp, ap)} bf16: mean rel err {rel32:.3e} vs '
                  f'f32, {rel16:.3e} vs plain bf16')
-        ms = time_ms(torch, lambda: kernel(*args))
-        plain_ms = time_ms(torch, lambda: plain(*args))
-        library_ms = time_ms(torch, lambda: library(*args))
+        ms, plain_ms, library_ms = time_case(torch, kernel, plain, args)
         ms16 = time_ms(torch, lambda: kernel(*bf))
-        bound, t_bytes, t_ops = precond_bound(L, gp, ap, 4)
+        bound = precond_bound(L, gp, ap, 4)[0]
         bound16 = precond_bound(L, gp, ap, 2)[0]
         print(f'case L={L} gp={gp} ap={ap}: f32 max_abs_err={err:.3e} '
               f'clip_rel_err={clip_err:.3e} kernel_ms={ms:.5f} '
@@ -180,33 +237,17 @@ def phase_kernels(torch, ops):
               f'kernel_ms={ms16:.5f} bound_ms={bound16:.6f}', flush=True)
         if (L, gp, ap) in MAIN_PATH_CASES:
             step_calls.append(lambda a=args: kernel(*a))
+            timed.append(((L, gp, ap), ms, plain_ms, library_ms))
             max_err = max(max_err, err)
-            for key, v in (('ms', ms), ('plain_ms', plain_ms),
-                           ('library_ms', library_ms), ('bound_ms', bound),
-                           ('t_bytes', t_bytes), ('t_ops', t_ops)):
-                totals[key] += v
-    step_graph_ms = graph_ms(torch, step_calls)
-    print(f'kernel: one step\'s {len(step_calls)} calls: {totals["ms"]:.5f} '
-          f'ms issued one by one, {step_graph_ms:.5f} ms replayed as one '
-          'CUDA graph (device time)', flush=True)
-    return {
-        'name': 'fused_eigen_precondition',
-        'route': 'cuda',
-        'source': 'kfac_pytorch_tpu_torch/csrc/fused_eigen_precond.cu',
-        'replaces': 'kfac_pytorch_tpu/ops/pallas_precond.py:43',
-        'launches': None,  # filled from the main path's run
-        'max_abs_err': max_err,
-        'ms': totals['ms'],
-        'kernel_ms': totals['ms'],
-        'graph_ms': step_graph_ms,
-        'plain_ms': totals['plain_ms'],
-        'bound_ms': totals['bound_ms'],
-        'bound_by': (
-            'operations' if totals['t_ops'] >= totals['t_bytes']
-            else 'bytes'
-        ),
-        'library_ms': totals['library_ms'],
-    }
+    entry = step_entry('fused_eigen_precondition',
+                       'kfac_pytorch_tpu/ops/pallas_precond.py:43', timed,
+                       max_err)
+    entry['kernel_ms'] = entry['ms']
+    entry['graph_ms'] = graph_ms(torch, step_calls)
+    print(f'kernel: one step\'s {len(step_calls)} calls: {entry["ms"]:.5f} '
+          f'ms issued one by one, {entry["graph_ms"]:.5f} ms replayed as '
+          'one CUDA graph (device time)', flush=True)
+    return entry
 
 
 def phase_train(torch, kt):
@@ -329,6 +370,366 @@ def phase_train(torch, kt):
     return launches
 
 
+
+def mem_opt_shards(kt):
+    """``(seg, gp, ap)`` of one rank's MEM-OPT shard of each ResNet-32
+    bucket at world 4, in plan order."""
+    from kfac_pytorch_tpu_torch.capture import ModelCapture
+    from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
+
+    helpers = ModelCapture(kt.models.resnet32(device=DEVICE)).helpers
+    plan = make_bucket_plan(helpers, n_cols=KAISA_WORLD)
+    segs = [b.seg for b in plan.buckets]
+    if segs != MEM_OPT_SEGS:
+        fail(f'MEM-OPT segments {segs}, expected {MEM_OPT_SEGS}')
+    return [(b.seg, b.g_pad, b.a_pad) for b in plan.buckets]
+
+
+def phase_sharded_kernel(torch, kt):
+    """The sharded form on one rank's MEM-OPT shards, timed alone on the
+    card (no gather: one process holds no row group); returns the
+    kernels-line entry, summed over one step's six shard calls."""
+    sharded = kt.ops.fused_eigen_precondition_sharded
+    plain = kt.ops.fused_eigen_precondition_sharded_reference
+    max_err = 0.0
+    timed = []
+    shards = mem_opt_shards(kt)
+    for i, (L, gp, ap) in enumerate(shards):
+        args = make_case(torch, L, gp, ap, seed=200 + i)
+        pg, clip = sharded(*args)
+        want, want_clip = plain(*args)
+        torch.cuda.synchronize()
+        err = float((pg - want).abs().max())
+        bad = (pg - want).abs() > 1e-4 + 1e-5 * want.abs()
+        if not torch.isfinite(pg).all() or bool(bad.any()):
+            fail(f'sharded shard {(L, gp, ap)}: kernel disagrees with plain '
+                 f'(max abs err {err:.3e})')
+        max_err = max(max_err, err)
+        ms, plain_ms, library_ms = time_case(torch, sharded, plain, args)
+        timed.append(((L, gp, ap), ms, plain_ms, library_ms))
+        print(f'sharded shard L={L} gp={gp} ap={ap}: max_abs_err={err:.3e} '
+              f'kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} '
+              f'library_ms={library_ms:.5f} '
+              f'bound_ms={precond_bound(L, gp, ap, 4)[0]:.6f}', flush=True)
+    entry = step_entry('fused_eigen_precondition_sharded',
+                       'kfac_pytorch_tpu/ops/pallas_precond.py:151', timed,
+                       max_err)
+    entry['shard_shapes'] = shards
+    return entry
+
+
+def kaisa_rank(rank, world, backend, device_type, workdir):
+    """One rank of the KAISA phase; writes ``rank{rank}.pt`` to
+    ``workdir`` and raises on a failed check.  ``device_type`` is
+    ``'cuda'`` on the card (``'cpu'`` rehearses the phase)."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch.parallel import collectives
+    from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
+    from kfac_pytorch_tpu_torch.parallel.second_order import (
+        BucketedSecondOrder,
+    )
+    from kfac_pytorch_tpu_torch.state import LayerKFACState
+
+    if device_type == 'cuda':
+        dev = torch.device(
+            'cuda',
+            rank % torch.cuda.device_count() if backend == 'nccl' else 0,
+        )
+        torch.cuda.set_device(dev)
+        sync = torch.cuda.synchronize
+    else:
+        dev = torch.device('cpu')
+
+        def sync(device=None):
+            pass
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300),
+    )
+    ops = kt.ops
+    # Host-clock timers around the three KAISA collectives, with the
+    # card synchronized on both sides of each call; on only in the timing
+    # pass, so the checked pass runs the path without those syncs.
+    timings = {'factor all-reduce': [], 'decomposition gather': [],
+               'gradient gather': []}
+    timing = {'on': False}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            if not timing['on']:
+                return fn(*a, **k)
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync(dev)
+            timings[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    collectives.all_reduce_mean = timed(
+        'factor all-reduce', collectives.all_reduce_mean)
+    collectives.all_gather_decompositions = timed(
+        'decomposition gather', collectives.all_gather_decompositions)
+    collectives.all_gather_preconditioned = timed(
+        'gradient gather', collectives.all_gather_preconditioned)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn(BATCH, 3, 32, 32, generator=gen, device=dev)
+    y = torch.randint(0, 10, (BATCH,), generator=gen, device=dev)
+    q = BATCH // world
+    xl, yl = x[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
+
+    def train(strategy):
+        """``KAISA_STEPS`` steps from the seeded weights; the launches
+        are counted from 0 over exactly these steps."""
+        model = kt.models.resnet32(device=dev, seed=0)
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=None if dev.index is None else [dev.index],
+        )
+        precond = kt.KFACPreconditioner(
+            ddp, factor_update_steps=1, inv_update_steps=10, damping=0.003,
+            kl_clip=0.001, lr=0.1,
+            grad_worker_fraction=kt.DistributedStrategy[strategy],
+        )
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        run = dict(precond=precond, losses=[], step_s=[], equal=[])
+        sync(dev)
+        ops.fused_eigen_precondition.launches = 0
+        for step in range(KAISA_STEPS):
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = F.cross_entropy(ddp(xl), yl)
+            loss.backward()
+            if step == CHECK_STEP:
+                run['raw'] = {n: h.get_grad().clone()
+                              for n, h in precond.helpers.items()}
+            precond.step()
+            if step == CHECK_STEP:
+                run['got'] = {n: h.get_grad().clone()
+                              for n, h in precond.helpers.items()}
+                run['factors'] = {
+                    n: LayerKFACState(a_factor=st.a_factor.clone(),
+                                      g_factor=st.g_factor.clone())
+                    for n, st in precond.layers.items()
+                }
+            opt.step()
+            sync(dev)
+            run['step_s'].append(time.perf_counter() - t0)
+            run['losses'].append(float(loss.detach()))
+            flat = torch.cat([p.detach().reshape(-1)
+                              for p in model.parameters()])
+            every = [torch.empty_like(flat) for _ in range(world)]
+            dist.all_gather(every, flat)
+            run['equal'].append(all(torch.equal(flat, o) for o in every))
+        run['launches'] = ops.fused_eigen_precondition.launches
+        return run
+
+    report = {}
+    for strategy in KAISA_STRATEGIES:
+        # The timing pass first, so the checked pass that follows is the
+        # one whose launches are read.
+        for v in timings.values():
+            v.clear()
+        timing['on'] = True
+        train(strategy)
+        timing['on'] = False
+        times = {k: list(v) for k, v in timings.items()}
+        run = train(strategy)
+        precond, losses, launches = run['precond'], run['losses'], \
+            run['launches']
+        n_buckets = len(precond.plan.buckets)
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f'{strategy} rank {rank}: non-finite loss '
+                               f'{losses}')
+        if not all(run['equal']):
+            raise RuntimeError(
+                f'{strategy} rank {rank}: parameters differ across ranks '
+                f'after steps '
+                f'{[i for i, e in enumerate(run["equal"]) if not e]}')
+        # CPU tensors run the plain version, which counts nothing.
+        want_n = KAISA_STEPS * n_buckets if dev.type == 'cuda' else 0
+        if launches != want_n:
+            raise RuntimeError(
+                f'{strategy} rank {rank}: {launches} kernel launches, '
+                f'expected {want_n} ({n_buckets} buckets x {KAISA_STEPS} '
+                'steps)')
+        raw, got, factors = run['raw'], run['got'], run['factors']
+
+        # The refresh step rerun in this one process: no grid, the whole
+        # plan, the same averaged factors and raw gradients.
+        single = BucketedSecondOrder(
+            make_bucket_plan(precond.helpers, n_cols=1), device=dev,
+        )
+        want, _ = single.precondition(
+            single.compute(factors, 0.003), raw, 0.001, 0.1,
+        )
+        worst = max(
+            float((got[n] - w).norm() / w.norm().clamp_min(1e-30))
+            for n, w in want.items()
+        )
+        # Both sides run their own batched eigh, so the eigenbases come
+        # from different cuSOLVER calls; the preconditioned action is
+        # what is compared.
+        if not worst < 1e-4:
+            raise RuntimeError(f'{strategy} rank {rank}: step {CHECK_STEP} '
+                               f'rel err vs single-process rerun {worst:.3e}')
+
+        # The sharded form against its plain version through this rank's
+        # row, at this rank's shard shapes.
+        f32_err, bf16_err = 0.0, 0.0
+        for i, b in enumerate(precond.plan.buckets):
+            args = make_case(torch, b.seg, b.g_pad, b.a_pad,
+                             seed=300 + 10 * rank + i, device=dev)
+            row = precond.grid.row_group
+            pg, clip = ops.fused_eigen_precondition_sharded(*args, group=row)
+            ref, ref_clip = ops.fused_eigen_precondition_sharded_reference(
+                *args, group=row)
+            bad = (pg - ref).abs() > 1e-4 + 1e-5 * ref.abs()
+            if bool(bad.any()) or not torch.isfinite(pg).all():
+                raise RuntimeError(
+                    f'{strategy} rank {rank} bucket {b.key}: sharded kernel '
+                    f'disagrees with its plain version '
+                    f'({int(bad.sum())} elements)')
+            f32_err = max(f32_err, float((pg - ref).abs().max()))
+            pg16, _ = ops.fused_eigen_precondition_sharded(
+                *[a.to(torch.bfloat16) for a in args], group=row)
+            rel = float((pg16 - ref).abs().mean() / ref.abs().mean())
+            if not rel < 0.05:
+                raise RuntimeError(
+                    f'{strategy} rank {rank} bucket {b.key}: bf16 mean rel '
+                    f'err {rel:.3e}')
+            bf16_err = max(bf16_err, rel)
+        report[strategy] = dict(
+            grid=(precond.grid.rows, precond.grid.cols, precond.grid.row,
+                  precond.grid.col),
+            shards=[(b.key, tuple(precond.buckets[b.key].qa.shape[:1])
+                     + (b.g_pad, b.a_pad)) for b in precond.plan.buckets],
+            losses=losses, step_s=run['step_s'], times=times,
+            launches=launches, n_buckets=n_buckets,
+            check_rel_err=worst, f32_err=f32_err, bf16_err=bf16_err,
+            memory=precond.memory_usage(),
+        )
+        del run, precond
+        if dev.type == 'cuda':
+            torch.cuda.empty_cache()
+    torch.save(report, os.path.join(workdir, f'rank{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_kaisa(torch, kt):
+    """Four ranks on the KAISA grid; returns the kernel's launches over
+    the checked passes (every rank, every strategy) and the MEM-OPT
+    gradient gather's time per step over its timing pass (all calls)."""
+    import torch.multiprocessing as mp
+
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    world = KAISA_WORLD
+    if DEVICE == 'cuda':
+        backend = default_backend(world)
+        share = (f'all four ranks share cuda:0, '
+                 f'{torch.cuda.get_device_name(0)}' if backend == 'gloo'
+                 else 'one card per rank')
+        where = f'{torch.cuda.device_count()} card(s): {share}'
+    else:
+        backend, where = 'gloo', 'CPU rehearsal'
+    print(f'kaisa: world {world}, backend {backend} ({where}); the times '
+          'below are correctness-path times, not a scaling result',
+          flush=True)
+    ctx = mp.get_context('spawn')
+    with tempfile.TemporaryDirectory(prefix='kaisa_') as workdir:
+        procs = [ctx.Process(target=kaisa_rank,
+                             args=(rank, world, backend, DEVICE, workdir))
+                 for rank in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + KAISA_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if hung:
+            fail(f'kaisa ranks {hung} did not finish in {KAISA_TIMEOUT_S} s')
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f'kaisa ranks exited with {codes}')
+        ranks = [torch.load(os.path.join(workdir, f'rank{r}.pt'))
+                 for r in range(world)]
+    total_launches = 0
+    mem_gather_ms = None
+    for strategy in KAISA_STRATEGIES:
+        runs = [r[strategy] for r in ranks]
+        losses = [statistics.fmean(v) for v in zip(*(r['losses']
+                                                      for r in runs))]
+        if not losses[-1] < losses[0]:
+            fail(f'kaisa {strategy}: mean loss did not fall: {losses}')
+        total_launches += sum(r['launches'] for r in runs)
+        rows, cols = runs[0]['grid'][:2]
+        print(f'kaisa {strategy}: grid {rows}x{cols}; mean loss '
+              f'{losses[0]:.6f} -> {losses[-1]:.6f} over {KAISA_STEPS} '
+              f'steps; parameters bitwise equal across ranks after every '
+              'step', flush=True)
+        step_ms = statistics.median(
+            ms for r in runs for ms in r['step_s'][1:]) * 1e3
+        print(f'kaisa {strategy}: median step {step_ms:.4f} ms (steps '
+              f'1-{KAISA_STEPS - 1}, all ranks, host clock, synchronized at '
+              'the step end; collectives untimed)', flush=True)
+        idle = {'decomposition gather': rows == 1,
+                'gradient gather': cols == 1}
+        for name in ('factor all-reduce', 'decomposition gather',
+                     'gradient gather'):
+            if idle.get(name):
+                print(f'kaisa {strategy}: {name}: nothing moves (grid axis '
+                      'of 1)', flush=True)
+                continue
+            calls = [t * 1e3 for r in runs for t in r['times'][name]]
+            steps = KAISA_STEPS * len(runs)
+            # The sum holds every stall (the first call on a group also
+            # sets it up); the median-based figure leaves them out.
+            total = sum(calls) / steps
+            at_median = statistics.median(calls) * len(calls) / steps
+            print(f'kaisa {strategy}: {name}: median '
+                  f'{statistics.median(calls):.4f} ms per call over '
+                  f'{len(calls)} calls (all ranks; max {max(calls):.4f} '
+                  f'ms); per step {total:.4f} ms in all, {at_median:.4f} ms '
+                  'at the median (timing pass)', flush=True)
+            if strategy == 'MEM_OPT' and name == 'gradient gather':
+                mem_gather_ms = total
+        for rank, r in enumerate(runs):
+            print(f'kaisa {strategy} rank {rank}: grid (row, col) = '
+                  f'{r["grid"][2:]}, shards launched (seg, gp, ap) '
+                  f'{[s for _, s in r["shards"]]}, launches {r["launches"]} '
+                  f'({r["n_buckets"]} buckets x {KAISA_STEPS} steps), '
+                  f'step {CHECK_STEP} rel err vs single-process rerun '
+                  f'{r["check_rel_err"]:.3e}, sharded vs plain f32 max abs '
+                  f'err {r["f32_err"]:.3e}, bf16 mean rel err '
+                  f'{r["bf16_err"]:.3e}, second-order bytes '
+                  f'{r["memory"]["second_order"]}', flush=True)
+    if [s[1][0] for s in ranks[0]['MEM_OPT']['shards']] != MEM_OPT_SEGS:
+        fail(f'MEM-OPT shards {ranks[0]["MEM_OPT"]["shards"]}')
+    return total_launches, mem_gather_ms
+
+
+def device_record(torch) -> dict:
+    """The last line: ``{"ok": true, "device": {...}}``."""
+    return {'ok': True, 'device': {
+        'platform': 'gpu',
+        'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count(),
+    }}
+
+
 def main() -> int:
     try:
         import torch
@@ -350,6 +751,10 @@ def main() -> int:
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'python {sys.version.split()[0]}', flush=True)
 
+    kaisa_only = sys.argv[1:] == ['--kaisa-only']
+    if sys.argv[1:] and not kaisa_only:
+        fail(f'unknown arguments {sys.argv[1:]}; the only one is '
+             '--kaisa-only')
     t0 = time.perf_counter()
     _build.build_all()
     print(f'build: {time.perf_counter() - t0:.2f} s for '
@@ -362,15 +767,18 @@ def main() -> int:
         for ln in usage:
             print(f'  ptxas: {ln}', flush=True)
 
+    if kaisa_only:
+        phase_kaisa(torch, kt)
+        print(card, flush=True)
+        print(json.dumps(device_record(torch)), flush=True)
+        return 0
     entry = phase_kernels(torch, kt.ops)
     entry['launches'] = phase_train(torch, kt)
+    sharded = phase_sharded_kernel(torch, kt)
+    sharded['launches'], sharded['gather_ms'] = phase_kaisa(torch, kt)
     print(card, flush=True)
-    print(json.dumps({'kernels': [entry]}), flush=True)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu',
-        'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count(),
-    }}), flush=True)
+    print(json.dumps({'kernels': [entry, sharded]}), flush=True)
+    print(json.dumps(device_record(torch)), flush=True)
     return 0
 
 

@@ -2,11 +2,13 @@
 
 The JAX package beside this one is the reference; this package imports
 ``torch`` and nothing of JAX or of the JAX package.  It covers the main
-path on one device: Linear/Conv2d capture through module hooks, factor
-EMAs, the bucketed eigendecomposition refresh and the fused
-eigen-preconditioning chain, which runs as a hand-written CUDA kernel on
-CUDA tensors (``csrc/fused_eigen_precond.cu``) and as its plain PyTorch
-version on CPU tensors.  ``ROADMAP.md`` lists what is not ported yet.
+path on one device and data-parallel across ``torch.distributed`` ranks
+on the KAISA grid (COMM-OPT, HYBRID-OPT, MEM-OPT): Linear/Conv2d capture
+through module hooks, factor EMAs averaged over the world, the bucketed
+eigendecomposition refresh and the fused eigen-preconditioning chain,
+which runs as a hand-written CUDA kernel on CUDA tensors
+(``csrc/fused_eigen_precond.cu``) and as its plain PyTorch version on
+CPU tensors.  ``ROADMAP.md`` lists what is not ported yet.
 """
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch import ops

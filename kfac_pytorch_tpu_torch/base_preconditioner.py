@@ -1,11 +1,20 @@
-"""Single-device K-FAC preconditioner core.
+"""K-FAC preconditioner core, on one device or data-parallel.
 
-Port of the bucketed single-device path of ``BaseKFACPreconditioner``
+Port of the bucketed path of ``BaseKFACPreconditioner``
 (``kfac_pytorch_tpu/base_preconditioner.py``): registration through
 :class:`~kfac_pytorch_tpu_torch.capture.ModelCapture`, per-layer factor
-EMAs, the bucketed second-order stage, and the write-back of the
-preconditioned gradients into each layer's ``.grad``.  State lives on
-the device of the model's parameters.
+EMAs, the bucketed second-order stage on the KAISA grid, and the
+write-back of the preconditioned gradients into each layer's ``.grad``.
+State lives on the device of the model's parameters.
+
+Across ranks the world is the default ``torch.distributed`` group, and
+every rank is assumed to differentiate the mean loss of its own local
+batch, as under ``DistributedDataParallel``.  Its captured output
+gradients are then ``world`` times those of the global batch's mean
+loss, so they are scaled by ``1 / world`` before the G covariance; the
+factors of every rank are then averaged before the EMA, which gives the
+global batch's factors when the local batches have equal size (checked
+on every factor update).
 """
 from __future__ import annotations
 
@@ -16,7 +25,9 @@ import torch
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.capture import ModelCapture
 from kfac_pytorch_tpu_torch.engine import KFACEngineMixin
+from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
+from kfac_pytorch_tpu_torch.parallel.mesh import kaisa_grid
 from kfac_pytorch_tpu_torch.parallel.second_order import BucketedSecondOrder
 from kfac_pytorch_tpu_torch.state import LayerKFACState
 from kfac_pytorch_tpu_torch.state import init_layer_state
@@ -29,7 +40,10 @@ class BaseKFACPreconditioner(KFACEngineMixin):
 
     Attributes:
         layers: layer name -> :class:`LayerKFACState` (the factor EMAs).
-        buckets: bucket key -> stacked decompositions
+        grid: this rank's place on the KAISA grid
+            (:class:`~kfac_pytorch_tpu_torch.parallel.mesh.KaisaGrid`).
+        plan: the bucket plan, with ``grid.cols`` columns.
+        buckets: bucket key -> this rank's stacked decompositions
             (:class:`~kfac_pytorch_tpu_torch.parallel.second_order.\
 BucketSecond`).
         last_kl_scale: the kl-clip scale applied by the latest step
@@ -50,6 +64,7 @@ BucketSecond`).
         inv_dtype: torch.dtype = torch.float32,
         precond_dtype: torch.dtype = torch.float32,
         cov_dtype: torch.dtype | None = None,
+        grad_worker_fraction: float = 1.0,
         loglevel: int = logging.DEBUG,
     ) -> None:
         self._capture = capture
@@ -79,10 +94,11 @@ BucketSecond`).
             )
             for name, h in self.helpers.items()
         }
-        self.plan = make_bucket_plan(self.helpers, n_cols=1)
+        self.grid = kaisa_grid(grad_worker_fraction)
+        self.plan = make_bucket_plan(self.helpers, n_cols=self.grid.cols)
         self._second_order = BucketedSecondOrder(
             self.plan, inv_dtype=inv_dtype,
-            precond_dtype=precond_dtype, device=self.device,
+            precond_dtype=precond_dtype, device=self.device, grid=self.grid,
         )
         self.buckets = self._second_order.init_buckets()
         self.last_kl_scale: torch.Tensor | None = None
@@ -100,6 +116,7 @@ BucketSecond`).
             f'{type(self).__name__}(',
             f'  steps={self._steps},',
             f'  layers={list(self.helpers)},',
+            f'  grid={self.grid.rows}x{self.grid.cols},',
             f'  factor_update_steps={self._factor_update_steps},',
             f'  inv_update_steps={self._inv_update_steps},',
             ')',
@@ -116,20 +133,49 @@ BucketSecond`).
 
         A module applied several times contributes the mean of its
         per-call factors.  Captures are cast to ``cov_dtype`` before the
-        covariance; factors are kept in ``factor_dtype``.
+        covariance; factors are kept in ``factor_dtype``.  Across ranks
+        the output gradients are scaled by ``1 / world`` and the new
+        factors are averaged over the world (one fused all-reduce).
         """
         captured = self._capture.take()
         decay = self.factor_decay
+        world = self.grid.world
+        new_a, new_g, rows = [], [], []
         for name, helper in self.helpers.items():
             acts, grads = captured[name]
-            a_new = torch.stack([
+            if world > 1:
+                grads = [g / world for g in grads]
+            new_a.append(torch.stack([
                 helper.get_a_factor(a.to(self.cov_dtype))
                 .to(self.factor_dtype) for a in acts
-            ]).mean(0)
-            g_new = torch.stack([
+            ]).mean(0))
+            new_g.append(torch.stack([
                 helper.get_g_factor(g.to(self.cov_dtype))
                 .to(self.factor_dtype) for g in grads
-            ]).mean(0)
+            ]).mean(0))
+            rows.append(sum(a.shape[0] for a in acts))
+        if world > 1:
+            # The row counts and their squares ride in the all-reduce
+            # (f64: exact sums), so every rank reaches the same verdict:
+            # world * sum(r^2) == sum(r)^2 iff every rank's r is equal.
+            counts = torch.tensor(
+                rows + [r * r for r in rows], dtype=torch.float64,
+                device=self.device,
+            )
+            *factors, counts = collectives.all_reduce_mean(
+                new_a + new_g + [counts],
+            )
+            sums = [round(v * world) for v in counts.tolist()]
+            n = len(rows)
+            if any(world * s2 != s1 * s1
+                   for s1, s2 in zip(sums[:n], sums[n:])):
+                raise RuntimeError(
+                    'local batch sizes differ across ranks (this rank: '
+                    f'{rows}, sum over ranks: {sums[:n]}); K-FAC across '
+                    'ranks needs equal local batches',
+                )
+            new_a, new_g = factors[:len(new_a)], factors[len(new_a):]
+        for name, a_new, g_new in zip(self.helpers, new_a, new_g):
             st = self.layers[name]
             st.a_factor = ops.ema_update_factor(
                 st.a_factor, a_new, decay, first_update,
@@ -155,3 +201,20 @@ BucketSecond`).
         for name, helper in self.helpers.items():
             helper.set_grad(out[name])
         self.last_kl_scale = scale
+
+    def memory_usage(self) -> dict[str, int]:
+        """Bytes of K-FAC state on this rank: the factor EMAs and this
+        rank's slice of the stacked decompositions."""
+        sizes = {
+            'a_factors': sum(
+                st.a_factor.numel() * st.a_factor.element_size()
+                for st in self.layers.values()
+            ),
+            'g_factors': sum(
+                st.g_factor.numel() * st.g_factor.element_size()
+                for st in self.layers.values()
+            ),
+            'second_order': self._second_order.memory_usage(self.buckets),
+        }
+        sizes['total'] = sum(sizes.values())
+        return sizes

@@ -1,0 +1,53 @@
+"""Small test models: port of ``kfac_pytorch_tpu/models/tiny.py``.
+
+``TinyModel`` and ``LeNet`` carry the Flax models' module names, so
+:func:`kfac_pytorch_tpu_torch.convert.flax_to_torch_state_dict` maps
+their variables one to one.  Neither has BatchNorm, so a data-parallel
+run normalizes nothing per rank and matches the global-batch run.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class TinyModel(nn.Module):
+    """Two dense layers, the second without bias; input ``[N, in]``."""
+
+    def __init__(self, in_features: int = 10, hidden: int = 20,
+                 out: int = 10) -> None:
+        super().__init__()
+        self.linear1 = nn.Linear(in_features, hidden)
+        self.linear2 = nn.Linear(hidden, out, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(F.relu(self.linear1(x)))
+
+
+class LeNet(nn.Module):
+    """LeNet-style CNN; input ``[N, in_channels, H, W]`` with ``H`` and
+    ``W`` equal to ``image_size``.
+
+    The feature map is flattened in NHWC order, as the Flax model
+    flattens it, so ``fc1``'s input features run ``(h, w, c)`` and its
+    bridged weight and A factor need no reordering.
+    """
+
+    def __init__(self, num_classes: int = 10, in_channels: int = 1,
+                 image_size: int = 28) -> None:
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, 6, 3, padding=1)
+        self.conv2 = nn.Conv2d(6, 16, 3, padding=1)
+        side = image_size // 4
+        self.fc1 = nn.Linear(16 * side * side, 120)
+        self.fc2 = nn.Linear(120, 84)
+        self.fc3 = nn.Linear(84, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.max_pool2d(F.relu(self.conv1(x)), 2, 2)
+        x = F.max_pool2d(F.relu(self.conv2(x)), 2, 2)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = F.relu(self.fc1(x))
+        x = F.relu(self.fc2(x))
+        return self.fc3(x)

@@ -21,6 +21,12 @@ from kfac_pytorch_tpu_torch.ops.fused_precond import (
 from kfac_pytorch_tpu_torch.ops.fused_precond import (
     fused_eigen_precondition_reference,
 )
+from kfac_pytorch_tpu_torch.ops.fused_precond import (
+    fused_eigen_precondition_sharded,
+)
+from kfac_pytorch_tpu_torch.ops.fused_precond import (
+    fused_eigen_precondition_sharded_reference,
+)
 from kfac_pytorch_tpu_torch.ops.update import ema_update_factor
 from kfac_pytorch_tpu_torch.ops.update import grad_scale_sum
 from kfac_pytorch_tpu_torch.ops.update import kl_clip_scale

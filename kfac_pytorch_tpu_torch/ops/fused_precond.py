@@ -1,8 +1,7 @@
 """Fused two-sided eigenbasis preconditioning of bucket stacks.
 
 Port of ``kfac_pytorch_tpu/ops/pallas_precond.py`` (the TPU kernel
-``_kernel``/``_call`` behind ``fused_eigen_precondition``).  Per stacked
-layer slot ``l``::
+``_kernel``/``_call``).  Per stacked layer slot ``l``::
 
     v1 = qg^T g qa ;  v2 = v1 * dgda ;  pg = qg v2 qa^T
     clip[l] = sum(v1 * v2)          (== <pg[l], g[l]>)
@@ -13,6 +12,11 @@ by :mod:`._build`); on CPU tensors it runs
 :func:`fused_eigen_precondition_reference`, the plain PyTorch chain.
 A CUDA launch that fails raises — it never falls back.  Unlike the TPU
 kernel there is no shape gate: every ``(gp, ap)`` is taken.
+
+:func:`fused_eigen_precondition_sharded` is the KAISA form (the JAX
+package's ``shard_map`` over the grid's column axis): the same kernel on
+this rank's column slice of a bucket, then the all-gather of ``pg`` and
+the clip terms over the rank's grid row.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import ctypes
 import torch
 
 from kfac_pytorch_tpu_torch.ops import _build
+from kfac_pytorch_tpu_torch.parallel import collectives
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -152,3 +157,42 @@ def fused_eigen_precondition(
 #: Kernel launches since the count was last set to 0 (CPU calls run the
 #: plain version and are not counted).
 fused_eigen_precondition.launches = 0
+
+
+def fused_eigen_precondition_sharded(
+    g: torch.Tensor,
+    qa: torch.Tensor,
+    qg: torch.Tensor,
+    dgda: torch.Tensor,
+    group=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """KAISA phases 3 and 4 for one bucket.
+
+    Args:
+        g, qa, qg, dgda: this rank's ``[seg, ...]`` column slice of the
+            bucket stacks (the operands of :func:`fused_eigen_precondition`).
+        group: the rank's grid row (ranks ordered by column), or ``None``
+            for a grid of one column: nothing to gather.
+
+    Returns:
+        ``(pg [cols * seg, gp, ap] f32, clip [cols * seg] f32)``, every
+        column's slots in column order — the bucket's full stacks.
+
+    The kernel runs on the local slice (CUDA tensors, counted in
+    ``fused_eigen_precondition.launches``; CPU tensors run the plain
+    version).
+    """
+    pg, clip = fused_eigen_precondition(g, qa, qg, dgda)
+    return collectives.all_gather_preconditioned(pg, clip, group)
+
+
+def fused_eigen_precondition_sharded_reference(
+    g: torch.Tensor,
+    qa: torch.Tensor,
+    qg: torch.Tensor,
+    dgda: torch.Tensor,
+    group=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_eigen_precondition_sharded` through the plain chain."""
+    pg, clip = fused_eigen_precondition_reference(g, qa, qg, dgda)
+    return collectives.all_gather_preconditioned(pg, clip, group)

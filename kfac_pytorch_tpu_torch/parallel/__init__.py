@@ -1,7 +1,14 @@
-"""Bucketing and the bucketed second-order stage (one device)."""
+"""Bucketing, the KAISA grid and collectives, and the bucketed
+second-order stage."""
+from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketLayout
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketPlan
 from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
 from kfac_pytorch_tpu_torch.parallel.bucketing import pad_dim
+from kfac_pytorch_tpu_torch.parallel.mesh import data_world
+from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+from kfac_pytorch_tpu_torch.parallel.mesh import grid_shape
+from kfac_pytorch_tpu_torch.parallel.mesh import kaisa_grid
+from kfac_pytorch_tpu_torch.parallel.mesh import KaisaGrid
 from kfac_pytorch_tpu_torch.parallel.second_order import BucketedSecondOrder
 from kfac_pytorch_tpu_torch.parallel.second_order import BucketSecond

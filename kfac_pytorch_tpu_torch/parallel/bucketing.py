@@ -4,9 +4,13 @@ Port of ``kfac_pytorch_tpu/parallel/bucketing.py:43-112,259-335``.
 Layers are grouped into buckets of equal padded factor shape
 ``(a_pad, g_pad)`` so each bucket's decompositions and rotations run as
 one batched call over an ``[L, n, n]`` stack.  Bucket keys, bucket
-order and slot order are the JAX package's.  This slice runs on one
-device, so plans have one column (``n_cols=1``); the column-major
-layout is kept for the multi-rank slice.
+order and slot order are the JAX package's.
+
+Slots are laid out column-major over the KAISA grid's ``n_cols``
+gradient-worker columns: column ``c`` owns ``slots[c*seg:(c+1)*seg]``.
+Each bucket's layers go one by one to the least-loaded column, with the
+loads carried across buckets, so later buckets can come out unevenly
+padded; that is the JAX layout and is kept as it is.
 """
 from __future__ import annotations
 
@@ -57,6 +61,10 @@ class BucketLayout:
     def n_slots(self) -> int:
         return len(self.slots)
 
+    def column_slots(self, col: int) -> tuple[str | None, ...]:
+        """The ``seg`` slots column ``col`` owns."""
+        return self.slots[col * self.seg:(col + 1) * self.seg]
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketPlan:
@@ -64,11 +72,13 @@ class BucketPlan:
 
     Attributes:
         buckets: all buckets, in descending per-slot cost order.
-        n_cols: gradient-worker columns (1 on one device).
+        n_cols: gradient-worker columns of the KAISA grid.
+        slot_of: layer name -> ``(bucket_key, slot_index)``.
     """
 
     buckets: tuple[BucketLayout, ...]
     n_cols: int
+    slot_of: Mapping[str, tuple[str, int]]
 
 
 def make_bucket_plan(
@@ -95,6 +105,7 @@ def make_bucket_plan(
     )
     col_loads = [0.0] * n_cols
     buckets: list[BucketLayout] = []
+    slot_of: dict[str, tuple[str, int]] = {}
     for (a_pad, g_pad), names in ordered:
         cost = float(a_pad ** 3 + g_pad ** 3)
         per_col: list[list[str]] = [[] for _ in range(n_cols)]
@@ -107,8 +118,11 @@ def make_bucket_plan(
         for col in per_col:
             slots.extend(col)
             slots.extend([None] * (seg - len(col)))
+        key = f'a{a_pad}g{g_pad}'
         buckets.append(BucketLayout(
-            key=f'a{a_pad}g{g_pad}', a_pad=a_pad, g_pad=g_pad,
-            slots=tuple(slots), seg=seg,
+            key=key, a_pad=a_pad, g_pad=g_pad, slots=tuple(slots), seg=seg,
         ))
-    return BucketPlan(buckets=tuple(buckets), n_cols=n_cols)
+        for i, name in enumerate(slots):
+            if name is not None:
+                slot_of[name] = (key, i)
+    return BucketPlan(buckets=tuple(buckets), n_cols=n_cols, slot_of=slot_of)

@@ -1,0 +1,140 @@
+"""The KAISA grid as ``torch.distributed`` process groups.
+
+Port of ``kfac_pytorch_tpu/parallel/mesh.py``.  The ranks of the default
+process group form an ``m x n`` grid, ``m = grad_workers`` rows
+(gradient-receiver groups) and ``n = world / m`` columns
+(gradient-worker groups).  Rank ``k`` sits at row ``k // n`` and column
+``k % n`` — the partitions of
+:meth:`~kfac_pytorch_tpu_torch.assignment.KAISAAssignment.\
+partition_grad_workers` and ``partition_grad_receivers``.  Where the JAX
+package reshards arrays over a device mesh and lets GSPMD insert the
+collectives, the port issues them itself on two groups per rank: its
+column (the decomposition all-gather) and its row (the preconditioned
+gradient all-gather).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from kfac_pytorch_tpu_torch.assignment import KAISAAssignment
+
+
+def data_world() -> int:
+    """K-FAC world size: the default process group's size when
+    ``torch.distributed`` is initialized, else 1."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def default_backend(world_size: int) -> str:
+    """``'nccl'`` when every rank can have a card of its own
+    (``torch.cuda.device_count() >= world_size``), else ``'gloo'``.
+
+    NCCL refuses two ranks on one device; gloo takes CUDA tensors and
+    moves them through host memory, so it runs any number of ranks on
+    one card (a correctness path, not a scaling one).
+    """
+    if torch.cuda.is_available() and torch.cuda.device_count() >= world_size:
+        return 'nccl'
+    return 'gloo'
+
+
+def grid_shape(
+    world_size: int, grad_worker_fraction: float,
+) -> tuple[int, int]:
+    """``(rows, cols)`` of the KAISA grid for a fraction.
+
+    ``rows = grad_workers = max(1, world * fraction)``; COMM-OPT
+    (fraction 1) is one column of ``world`` rows, MEM-OPT (fraction
+    ``1/world``) one row of ``world`` columns.
+    """
+    if not 0 <= grad_worker_fraction <= 1:
+        raise ValueError('grad_worker_fraction must be in [0, 1]')
+    rows = max(1, round(world_size * grad_worker_fraction))
+    if world_size % rows != 0:
+        raise ValueError(
+            f'grad_worker_fraction {grad_worker_fraction} does not evenly '
+            f'partition world size {world_size}',
+        )
+    return rows, world_size // rows
+
+
+@dataclasses.dataclass(frozen=True)
+class KaisaGrid:
+    """One rank's place on the KAISA grid.
+
+    Attributes:
+        rows: gradient workers per column (grid rows).
+        cols: gradient-worker columns.
+        rank: this rank in the default process group.
+        row_group: the ranks of this rank's row, ordered by column (the
+            gradient all-gather); ``None`` when ``cols == 1``.
+        col_group: the ranks of this rank's column, ordered by row (the
+            decomposition all-gather); ``None`` when ``rows == 1``.
+    """
+
+    rows: int
+    cols: int
+    rank: int
+    row_group: Any = None
+    col_group: Any = None
+
+    @property
+    def world(self) -> int:
+        return self.rows * self.cols
+
+    @property
+    def row(self) -> int:
+        return self.rank // self.cols
+
+    @property
+    def col(self) -> int:
+        return self.rank % self.cols
+
+
+def kaisa_grid(grad_worker_fraction: float) -> KaisaGrid:
+    """Build this rank's grid over the default process group.
+
+    Every rank creates every row group and then every column group, in
+    the same order (``dist.new_group`` is collective).  A grid axis of
+    extent 1 needs no group and gets none; that depends on the grid
+    only, so all ranks skip alike.  Without ``torch.distributed`` the
+    grid is ``1 x 1``.
+    """
+    world = data_world()
+    rows, cols = grid_shape(world, grad_worker_fraction)
+    if world == 1:
+        return KaisaGrid(rows=1, cols=1, rank=0)
+    rank = dist.get_rank()
+    # Rows are the gradient-receiver groups, columns the gradient-worker
+    # groups; sorted, a row lists its ranks by column, a column by row.
+    row_ranks = sorted(
+        sorted(g) for g in KAISAAssignment.partition_grad_receivers(
+            world, rows,
+        )
+    )
+    col_ranks = sorted(
+        sorted(g) for g in KAISAAssignment.partition_grad_workers(
+            world, rows,
+        )
+    )
+    row_group = col_group = None
+    if cols > 1:
+        for ranks in row_ranks:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                row_group = g
+    if rows > 1:
+        for ranks in col_ranks:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                col_group = g
+    return KaisaGrid(
+        rows=rows, cols=cols, rank=rank,
+        row_group=row_group, col_group=col_group,
+    )

@@ -1,8 +1,7 @@
 """K-FAC preconditioner (main user entry point).
 
-Port of ``kfac_pytorch_tpu/preconditioner.py`` for one device.  The
-keyword names and defaults are the JAX package's; the call sequence is
-PyTorch's own::
+Port of ``kfac_pytorch_tpu/preconditioner.py``.  The keyword names and
+defaults are the JAX package's; the call sequence is PyTorch's own::
 
     model = resnet32()                     # on the GPU
     precond = KFACPreconditioner(
@@ -15,6 +14,12 @@ PyTorch's own::
         F.cross_entropy(model(x), y).backward()
         precond.step()                     # preconditions .grad in place
         opt.step()
+
+Across ranks (``torchrun --nproc-per-node N``), initialize
+``torch.distributed``, wrap the model in ``DistributedDataParallel`` and
+pass the wrapper or the bare module; ``grad_worker_fraction`` picks
+COMM-OPT, HYBRID-OPT or MEM-OPT on the KAISA grid of the default group.
+Every rank must take a local batch of the same size.
 
 Every JAX option this slice does not port raises ``NotImplementedError``
 naming its ``ROADMAP.md`` item; none is silently ignored.  The JAX
@@ -36,6 +41,7 @@ from kfac_pytorch_tpu_torch.enums import AssignmentStrategy
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.enums import DistributedStrategy
 from kfac_pytorch_tpu_torch.enums import resolve_grad_worker_fraction
+from kfac_pytorch_tpu_torch.parallel.mesh import data_world
 
 
 def _unported(option: str, item: str) -> NotImplementedError:
@@ -49,8 +55,10 @@ class KFACPreconditioner(BaseKFACPreconditioner):
     """K-FAC preconditioner for ``nn.Linear``/``nn.Conv2d`` layers.
 
     Args:
-        model: the module to precondition; the K-FAC state lives on the
-            device of its parameters.
+        model: the module to precondition, bare or wrapped in
+            ``DistributedDataParallel`` (layer names are the inner
+            module's either way); the K-FAC state lives on the device of
+            its parameters.
         factor_update_steps: steps between factor EMA updates (callable
             of the step for a schedule).
         inv_update_steps: steps between eigendecomposition refreshes.
@@ -58,8 +66,13 @@ class KFACPreconditioner(BaseKFACPreconditioner):
         factor_decay: running-average weight of the factor EMAs.
         kl_clip: kl-clip bound, ``None`` to disable the scaling.
         lr: learning rate used by the kl-clip scale.
-        assignment_strategy, colocate_factors, grad_worker_fraction:
-            KAISA placement knobs; on one device they place nothing.
+        assignment_strategy, colocate_factors: KAISA placement knobs of
+            the JAX package; the bucket plan places layers by cost
+            either way.
+        grad_worker_fraction: the KAISA knob (a
+            :class:`DistributedStrategy` or a float), resolved at the
+            world size of ``torch.distributed``'s default group (1 when
+            it is not initialized).
         compute_method: ``'eigen'`` (the only method ported).
         compute_eigenvalue_outer_product: predivide
             ``1/(dg ⊗ da + damping)`` at refresh time (must be True).
@@ -147,7 +160,6 @@ class KFACPreconditioner(BaseKFACPreconditioner):
             ('compute_eigenvalue_outer_product=False',
              not compute_eigenvalue_outer_product, 'item 4b'),
             ('bucketed=False', bucketed is False, 'item 4b'),
-            ('mesh', mesh is not None, 'item 7'),
             ('topology', topology is not None, 'item 29'),
             ('accumulation_steps > 1', accumulation_steps != 1, 'item 14'),
             ("kfac_approx other than 'expand'", kfac_approx != 'expand',
@@ -171,6 +183,14 @@ class KFACPreconditioner(BaseKFACPreconditioner):
         for option, requested, item in unported:
             if requested:
                 raise _unported(option, f'Queue A {item}')
+        if mesh is not None:
+            raise NotImplementedError(
+                'mesh has no counterpart in the PyTorch package: the port '
+                'takes its world from the default torch.distributed '
+                'process group (wrap the model in DistributedDataParallel '
+                'and pick the strategy with grad_worker_fraction; '
+                'ROADMAP.md Queue A item 7)',
+            )
         if use_pallas is not None:
             raise NotImplementedError(
                 'use_pallas has no counterpart in the PyTorch package: '
@@ -178,12 +198,14 @@ class KFACPreconditioner(BaseKFACPreconditioner):
                 'tensors its plain version (ROADMAP.md Queue B item 1)',
             )
         self.grad_worker_fraction, self.distributed_strategy = (
-            resolve_grad_worker_fraction(grad_worker_fraction, 1)
+            resolve_grad_worker_fraction(grad_worker_fraction, data_world())
         )
         self.assignment_strategy = assignment_strategy
         self.colocate_factors = colocate_factors
         self.compute_method = compute_method
         self.skip_layers = tuple(skip_layers)
+        if isinstance(model, nn.parallel.DistributedDataParallel):
+            model = model.module
         capture = ModelCapture(
             model,
             skip_layers=self.skip_layers,
@@ -205,5 +227,6 @@ class KFACPreconditioner(BaseKFACPreconditioner):
                 torch.float32 if precond_dtype is None else precond_dtype
             ),
             cov_dtype=cov_dtype,
+            grad_worker_fraction=self.grad_worker_fraction,
             loglevel=loglevel,
         )

@@ -1,0 +1,333 @@
+"""The port's K-FAC across four ranks against the JAX package's mesh run.
+
+Four gloo ranks on the CPU, launched as subprocesses of this file
+(``python tests/test_torch_distributed.py --worker RANK WORLD INIT OUT``;
+they import no JAX), run COMM-OPT, HYBRID-OPT and MEM-OPT in turn on
+``TinyModel`` (``[16, 10]`` inputs) and ``LeNet`` (16x16, for the conv
+buckets).  Each rank wraps the model in ``DistributedDataParallel``,
+takes its quarter of the global batch of 16 and trains 5 SGD steps
+(lr 0.1) with ``factor_update_steps=1, inv_update_steps=2``, so the
+trajectory crosses refreshes at steps 0, 2 and 4.  The reference is the
+JAX ``KFACPreconditioner`` on a 4-device mesh over the global batch, from
+the same bridged weights, applying its own gradients with the same SGD
+update.  Neither model has BatchNorm, so the local batches normalize
+nothing per rank.
+
+Compared at every step, on every rank: the preconditioned gradients
+(max abs difference ``< 2e-4``) and the factor EMAs (``rtol 1e-5, atol
+1e-6``) — the bars of ``tests/test_parallel.py``; the parameters of all
+ranks bitwise equal; each rank's decomposition stacks holding only its
+grid column's ``seg`` slots.  A spawn that outlives its time limit is
+killed and fails its tests.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent.parent
+if str(ROOT) not in sys.path:  # worker processes run this file directly
+    sys.path.insert(0, str(ROOT))
+
+from kfac_pytorch_tpu_torch import DistributedStrategy  # noqa: E402
+from kfac_pytorch_tpu_torch import KFACPreconditioner  # noqa: E402
+from kfac_pytorch_tpu_torch.models import LeNet  # noqa: E402
+from kfac_pytorch_tpu_torch.models import TinyModel  # noqa: E402
+
+pytestmark = pytest.mark.torch_port
+
+WORLD = 4
+STEPS = 5
+LR = 0.1
+HP = dict(factor_update_steps=1, inv_update_steps=2, damping=0.003,
+          kl_clip=0.001, lr=LR)
+MODELS = ('tiny', 'lenet')
+STRATEGIES = ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT')
+SPAWN_TIMEOUT_S = 150
+#: Local batch size of each rank, per case.
+UNEQUAL_BATCHES = {'one_short': (4, 4, 4, 3), 'mean_equal': (3, 4, 5, 4)}
+
+
+def data(name: str) -> tuple[np.ndarray, np.ndarray]:
+    """The global batch of 16 (NHWC images for LeNet)."""
+    rng = np.random.default_rng(21)
+    shape = (16, 10) if name == 'tiny' else (16, 16, 16, 1)
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x, rng.integers(0, 10, size=(16,))
+
+
+def port_model(name: str) -> torch.nn.Module:
+    return TinyModel() if name == 'tiny' else LeNet(image_size=16)
+
+
+def port_input(x: np.ndarray) -> torch.Tensor:
+    x = x.transpose(0, 3, 1, 2) if x.ndim == 4 else x
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
+    """One rank: every (model, strategy) trajectory, saved to ``out``."""
+    dist.init_process_group(
+        'gloo', init_method=f'file://{init}', rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=60),
+    )
+    weights = torch.load(out / 'init.pt')
+    results = {}
+    for name in MODELS:
+        x, y = data(name)
+        q = len(x) // world
+        xl = port_input(x[rank * q:(rank + 1) * q])
+        yl = torch.from_numpy(y[rank * q:(rank + 1) * q])
+        for strategy in STRATEGIES:
+            model = port_model(name)
+            model.load_state_dict(weights[name], strict=True)
+            ddp = torch.nn.parallel.DistributedDataParallel(model)
+            precond = KFACPreconditioner(
+                ddp, grad_worker_fraction=DistributedStrategy[strategy],
+                **HP,
+            )
+            opt = torch.optim.SGD(model.parameters(), lr=LR)
+            steps = []
+            for _ in range(STEPS):
+                opt.zero_grad()
+                F.cross_entropy(ddp(xl), yl).backward()
+                precond.step()
+                grads = {
+                    n: p.grad.clone() for n, p in model.named_parameters()
+                }
+                factors = {
+                    n: (st.a_factor.clone(), st.g_factor.clone())
+                    for n, st in precond.layers.items()
+                }
+                opt.step()
+                flat = torch.cat(
+                    [p.detach().reshape(-1) for p in model.parameters()],
+                )
+                every = [torch.empty_like(flat) for _ in range(world)]
+                dist.all_gather(every, flat)
+                steps.append(dict(
+                    grads=grads, factors=factors,
+                    params_equal=all(torch.equal(flat, o) for o in every),
+                ))
+            grid = precond.grid
+            results[name, strategy] = dict(
+                steps=steps,
+                grid=(grid.rows, grid.cols, grid.row, grid.col),
+                held={
+                    b.key: (b.seg, tuple(precond.buckets[b.key].qa.shape),
+                            tuple(precond.buckets[b.key].dgda.shape),
+                            precond._second_order.local_slots(b))
+                    for b in precond.plan.buckets
+                },
+                second_order_bytes=precond.memory_usage()['second_order'],
+            )
+    # Unequal local batches raise on every rank, so no rank goes on into
+    # a collective that the others skip.  In the second case the mean
+    # count equals ranks 1 and 3's own.
+    x, y = data('tiny')
+    for case, sizes in UNEQUAL_BATCHES.items():
+        ddp = torch.nn.parallel.DistributedDataParallel(TinyModel())
+        precond = KFACPreconditioner(ddp, **HP)
+        n = sizes[rank]
+        F.cross_entropy(
+            ddp(port_input(x[:n])), torch.from_numpy(y[:n]),
+        ).backward()
+        try:
+            precond.step()
+            results['unequal', case] = 'no error'
+        except RuntimeError as exc:
+            results['unequal', case] = str(exc)
+    torch.save(results, out / f'rank{rank}.pt')
+    dist.destroy_process_group()
+
+
+def spawn(script: str, world: int, out: Path) -> list[subprocess.Popen]:
+    """Start ``world`` gloo ranks of ``script`` (``--worker RANK WORLD
+    INIT OUT``); they meet through a file under ``out``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS='1')
+    return [
+        subprocess.Popen(
+            [sys.executable, script, '--worker', str(rank), str(world),
+             str(out / 'pg_init'), str(out)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in range(world)
+    ]
+
+
+def join(procs: list[subprocess.Popen], deadline: float) -> None:
+    """Wait for every rank until ``deadline``; kill them all and fail on
+    a timeout or a non-zero exit."""
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.time()))
+            logs.append(out)
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        pytest.fail('worker ranks timed out and were killed')
+    bad = [(i, p.returncode, log[-3000:])
+           for i, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    if bad:
+        pytest.fail(f'worker ranks failed: {bad}')
+
+
+@pytest.fixture(scope='module')
+def runs(tmp_path_factory):
+    """``(jax trajectories, per-rank port results)``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from kfac_pytorch_tpu.enums import DistributedStrategy as JaxStrategy
+    from kfac_pytorch_tpu.models.tiny import LeNet as JaxLeNet
+    from kfac_pytorch_tpu.models.tiny import TinyModel as JaxTiny
+    from kfac_pytorch_tpu.preconditioner import (
+        KFACPreconditioner as JaxPreconditioner,
+    )
+    from kfac_pytorch_tpu_torch.convert import flax_to_torch_state_dict
+
+    out = tmp_path_factory.mktemp('kaisa')
+    jax_models = {'tiny': JaxTiny(), 'lenet': JaxLeNet()}
+    variables = {
+        name: jax.tree.map(np.asarray, m.init(
+            jax.random.PRNGKey(2), data(name)[0],
+        ))
+        for name, m in jax_models.items()
+    }
+    torch.save(
+        {n: flax_to_torch_state_dict(v) for n, v in variables.items()},
+        out / 'init.pt',
+    )
+    deadline = time.time() + SPAWN_TIMEOUT_S
+    procs = spawn(__file__, WORLD, out)
+
+    def xent(logits, labels):
+        logp = jax.nn.log_softmax(logits)
+        return -jnp.mean(jnp.take_along_axis(logp, labels[:, None], axis=1))
+
+    mesh = Mesh(np.array(jax.devices()[:WORLD]), ('data',))
+    shard = NamedSharding(mesh, P('data'))
+    ref = {}
+    try:
+        for name, model in jax_models.items():
+            x, y = data(name)
+            xs = jax.device_put(x, shard)
+            ys = jax.device_put(jnp.asarray(y), shard)
+            for strategy in STRATEGIES:
+                precond = JaxPreconditioner(
+                    model, loss_fn=xent, mesh=mesh,
+                    grad_worker_fraction=JaxStrategy[strategy], **HP,
+                )
+                state = precond.init(variables[name], x)
+                params = variables[name]['params']
+                steps = []
+                for _ in range(STEPS):
+                    _, _, grads, state = precond.step(
+                        {'params': params}, state, xs, loss_args=(ys,),
+                    )
+                    grads = jax.tree.map(np.asarray, grads)
+                    params = jax.tree.map(
+                        lambda w, g: w - LR * g, params, grads,
+                    )
+                    steps.append(dict(
+                        grads=flax_to_torch_state_dict({'params': grads}),
+                        factors={
+                            base: (np.asarray(state[base].a_factor),
+                                   np.asarray(state[base].g_factor))
+                            for base in state.layers
+                        },
+                    ))
+                ref[name, strategy] = steps
+    finally:
+        join(procs, deadline)
+    ranks = [torch.load(out / f'rank{r}.pt') for r in range(WORLD)]
+    return ref, ranks
+
+
+CASES = [(m, s) for m in MODELS for s in STRATEGIES]
+IDS = [f'{m}-{s}' for m, s in CASES]
+
+
+@pytest.mark.parametrize('name,strategy', CASES, ids=IDS)
+def test_preconditioned_grads_match_jax(runs, name, strategy):
+    ref, ranks = runs
+    for rank, res in enumerate(ranks):
+        for step, (got, want) in enumerate(zip(
+                res[name, strategy]['steps'], ref[name, strategy])):
+            assert set(got['grads']) == set(want['grads'])
+            diff = max(
+                float((got['grads'][n] - want['grads'][n]).abs().max())
+                for n in want['grads']
+            )
+            assert diff < 2e-4, (rank, step, diff)
+
+
+@pytest.mark.parametrize('name,strategy', CASES, ids=IDS)
+def test_factor_emas_match_jax(runs, name, strategy):
+    ref, ranks = runs
+    for res in ranks:
+        for got, want in zip(res[name, strategy]['steps'],
+                             ref[name, strategy]):
+            assert set(got['factors']) == set(want['factors'])
+            for layer, (a, g) in want['factors'].items():
+                np.testing.assert_allclose(
+                    got['factors'][layer][0].numpy(), a, rtol=1e-5,
+                    atol=1e-6,
+                )
+                np.testing.assert_allclose(
+                    got['factors'][layer][1].numpy(), g, rtol=1e-5,
+                    atol=1e-6,
+                )
+
+
+@pytest.mark.parametrize('name,strategy', CASES, ids=IDS)
+def test_parameters_bitwise_equal_across_ranks(runs, name, strategy):
+    _, ranks = runs
+    for rank, res in enumerate(ranks):
+        flags = [s['params_equal'] for s in res[name, strategy]['steps']]
+        assert flags == [True] * STEPS, (rank, flags)
+
+
+@pytest.mark.parametrize('name,strategy', CASES, ids=IDS)
+def test_rank_holds_its_column_slots(runs, name, strategy):
+    _, ranks = runs
+    rows, cols = {'COMM_OPT': (4, 1), 'HYBRID_OPT': (2, 2),
+                  'MEM_OPT': (1, 4)}[strategy]
+    for rank, res in enumerate(ranks):
+        run = res[name, strategy]
+        assert run['grid'] == (rows, cols, rank // cols, rank % cols)
+        total = 0
+        for key, (seg, qa_shape, dgda_shape, slots) in run['held'].items():
+            assert qa_shape[0] == seg and dgda_shape[0] == seg, key
+            assert len(slots) == seg
+            total += 4 * (qa_shape[0] * qa_shape[1] * qa_shape[2]
+                          + seg * dgda_shape[1] ** 2
+                          + seg * dgda_shape[1] * dgda_shape[2])
+        assert run['second_order_bytes'] == total
+
+
+@pytest.mark.parametrize('case', list(UNEQUAL_BATCHES))
+def test_unequal_local_batches_raise_on_every_rank(runs, case):
+    _, ranks = runs
+    for rank, res in enumerate(ranks):
+        assert 'local batch sizes differ' in res['unequal', case], rank
+
+
+if __name__ == '__main__' and sys.argv[1:2] == ['--worker']:
+    _, _, rank_s, world_s, init_s, out_s = sys.argv
+    torch.set_num_threads(1)
+    run_rank(int(rank_s), int(world_s), Path(init_s), Path(out_s))

@@ -1,4 +1,4 @@
-"""The weight bridge and the port's CIFAR ResNet against the Flax model.
+"""The weight bridge and the port's models against the Flax models.
 
 Flax variables made from a fixed key are converted with
 :func:`kfac_pytorch_tpu_torch.convert.flax_to_torch_state_dict` and
@@ -17,9 +17,13 @@ import pytest
 import torch
 
 from kfac_pytorch_tpu.models import resnet20 as jax_resnet20
+from kfac_pytorch_tpu.models.tiny import LeNet as JaxLeNet
+from kfac_pytorch_tpu.models.tiny import TinyModel as JaxTinyModel
 from kfac_pytorch_tpu_torch.convert import flax_to_torch_state_dict
+from kfac_pytorch_tpu_torch.models import LeNet
 from kfac_pytorch_tpu_torch.models import resnet20
 from kfac_pytorch_tpu_torch.models import resnet32
+from kfac_pytorch_tpu_torch.models import TinyModel
 
 pytestmark = pytest.mark.torch_port
 
@@ -49,6 +53,31 @@ def test_logits_match_flax(bridged, train):
         port.eval()
     with torch.no_grad():
         got = port(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize('name,shape', [
+    ('tiny', (6, 10)), ('lenet', (6, 28, 28, 1)), ('lenet16', (6, 16, 16, 1)),
+])
+def test_tiny_models_match_flax(name, shape):
+    """TinyModel and LeNet (NHWC flatten before ``fc1``) through the
+    bridge; same ``atol 1e-4`` bar, f32, no BatchNorm."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if name == 'tiny':
+        jax_model, port = JaxTinyModel(), TinyModel()
+    else:
+        jax_model, port = JaxLeNet(), LeNet(image_size=shape[1])
+    variables = jax_model.init(jax.random.PRNGKey(6), x)
+    port.load_state_dict(
+        flax_to_torch_state_dict(jax.tree.map(np.asarray, variables)),
+        strict=True,
+    )
+    want = jax_model.apply(variables, x)
+    xt = x.transpose(0, 3, 1, 2) if x.ndim == 4 else x
+    with torch.no_grad():
+        got = port(torch.from_numpy(np.ascontiguousarray(xt)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=0)
 
