@@ -20,7 +20,16 @@ fails:
    bf16 (against f32: mean relative error < 0.05), with two runs giving
    bitwise-equal outputs; times of the kernel, its plain version and
    the cuBLAS ``torch.matmul`` chain, with CUDA events, and the device
-   time of one step's kernel calls replayed as one CUDA graph;
+   time of one step's kernel calls replayed as one CUDA graph; per case
+   a ``profile`` line with the device time of each CUDA kernel the call
+   issued (``torch.profiler``; the kernel names carry the tiling),
+   failing if the profiler sees none or a main-path call issues more
+   than two; the kernels line's ``kernels_per_call`` is that count.
+   The bound is the least time of
+   an f32-exact result, the larger of the bytes and the lesser of the
+   f32 CUDA-core FMA and 3xTF32 tensor-core times; the bound with every
+   operation on the CUDA cores is printed beside it
+   (``bound_cuda_core_ms``);
 3. the main path: CIFAR ResNet-32 at batch 128 trained for 20 K-FAC
    steps on one fixed synthetic batch through ``KFACPreconditioner``,
    counting kernel launches, checking one step's preconditioned
@@ -29,7 +38,7 @@ fails:
 4. the sharded kernel (``fused_eigen_precondition_sharded``) on one
    rank's MEM-OPT shard shapes of ResNet-32 at world 4: times of the
    kernel, its plain version and the cuBLAS chain on one step's six
-   shards;
+   shards, each with its ``profile`` line (at most two kernels);
 5. the KAISA path: four ranks (``torch.multiprocessing`` spawn; NCCL
    when there is a card per rank, gloo otherwise, so on one card all
    four share it) train ResNet-32 wrapped in ``DistributedDataParallel``
@@ -62,9 +71,10 @@ import tempfile
 import time
 
 #: H100 SXM figures (NVIDIA data sheet, 700 W): HBM bytes/s, f32
-#: CUDA-core FLOP/s, dense bf16 tensor-core FLOP/s.
+#: CUDA-core FLOP/s, dense TF32 and bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 
 #: ResNet-32's bucket stacks ``(L, gp, ap)`` in plan order, then
@@ -128,17 +138,67 @@ def graph_ms(torch, calls, reps: int = 20) -> float:
     return time_ms(torch, graph.replay, reps)
 
 
-def precond_bound(L, gp, ap, itemsize):
-    """``(bound_ms, bytes_ms, ops_ms)`` of one fused call: every input
-    read once, ``pg`` and ``clip`` written once, against the four
-    contractions plus the elementwise scale and clip product."""
+def precond_work(L, gp, ap, itemsize):
+    """``(bytes, matmul FLOPs, elementwise FLOPs)`` of one fused call:
+    every input read once, ``pg`` and ``clip`` written once; the four
+    contractions; the scale and the clip product."""
     nbytes = itemsize * L * (2 * gp * ap + ap * ap + gp * gp)
     nbytes += 4 * L * gp * ap + 4 * L
-    flops = 2 * L * (gp * gp * ap * 2 + gp * ap * ap * 2) + 3 * L * gp * ap
-    peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
+    mm = 2 * L * (gp * gp * ap * 2 + gp * ap * ap * 2)
+    return nbytes, mm, 3 * L * gp * ap
+
+
+def precond_bound(L, gp, ap, itemsize):
+    """``(bound_ms, bytes_ms, ops_ms)`` of one fused call.  The
+    operations take the least time of a result as exact as the plain
+    version's: for f32 operands the f32 CUDA-core FMA rate or 3xTF32 on
+    the tensor cores (three TF32 products per f32 product), whichever is
+    less; for bf16 operands the bf16 tensor-core rate."""
+    nbytes, mm, ew = precond_work(L, gp, ap, itemsize)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    if itemsize == 4:
+        t_ops = min((mm + ew) / F32_FLOPS,
+                    3 * mm / TF32_FLOPS + ew / F32_FLOPS) * 1e3
+    else:
+        t_ops = (mm + ew) / BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), t_bytes, t_ops
+
+
+def precond_bound_cuda_core(L, gp, ap):
+    """The bound of an f32 call with every operation at the f32 CUDA-core
+    FMA rate, or the bytes, whichever takes longer (ms)."""
+    nbytes, mm, ew = precond_work(L, gp, ap, 4)
+    return max(nbytes / HBM_BYTES_PER_S, (mm + ew) / F32_FLOPS) * 1e3
+
+
+def kernel_device_times(torch, fn, sessions: int = 3):
+    """``([(kernel, device ms)], sessions used)`` of every CUDA kernel
+    one call of ``fn`` issues, from ``torch.profiler`` (CUPTI sees
+    kernels launched through ctypes).  A profiler session now and then
+    delivers no device activity at all, so up to ``sessions`` are
+    opened, one call each, until one does; the list is empty if none
+    did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for used in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = []
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(evt, 'device_time', None)
+            if us is None:
+                us = evt.cuda_time
+            name = evt.name.replace('(anonymous namespace)::', '')
+            out.append((name.split('(')[0], us / 1e3))
+        if out:
+            break
+    return out, used
 
 
 def make_case(torch, L, gp, ap, seed, device=None):
@@ -169,9 +229,10 @@ def time_case(torch, kernel, plain, args):
             time_ms(torch, lambda: library_chain(*args)))
 
 
-def step_entry(name, replaces, timed, max_err):
+def step_entry(name, replaces, timed, max_err, kernels_per_call):
     """A kernels-line entry summed over one step's f32 calls; ``timed``
-    holds ``((L, gp, ap), ms, plain_ms, library_ms)`` per call."""
+    holds ``((L, gp, ap), ms, plain_ms, library_ms)`` per call and
+    ``kernels_per_call`` the CUDA kernels the profiler saw in each."""
     bounds = [precond_bound(L, gp, ap, 4) for (L, gp, ap), *_ in timed]
     t_bytes = sum(b[1] for b in bounds)
     t_ops = sum(b[2] for b in bounds)
@@ -187,7 +248,33 @@ def step_entry(name, replaces, timed, max_err):
         'bound_ms': sum(b[0] for b in bounds),
         'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
         'library_ms': sum(t[3] for t in timed),
+        'kernels_per_call': kernels_per_call,
     }
+
+
+def step_bound_cuda_core(timed):
+    """:func:`precond_bound_cuda_core` summed over one step's calls."""
+    return sum(precond_bound_cuda_core(*shape) for shape, *_ in timed)
+
+
+def profile_case(torch, kernel, args, shape, at_most=None):
+    """One line with the device time of each CUDA kernel one call issued
+    (the names carry the tiling: ``Tile<rows, cols, ...>`` for the fused
+    pair, ``wide_pass`` for the large-gp chain); returns how many there
+    were.  Fails if the profiler saw none, or more than ``at_most``."""
+    L, gp, ap = shape
+    seen, sessions = kernel_device_times(torch, lambda: kernel(*args))
+    if not seen:
+        fail(f'profile {shape}: the profiler saw no CUDA kernel in the '
+             f'call ({sessions} sessions)')
+    per = ', '.join(f'{name} {ms:.5f} ms' for name, ms in seen)
+    print(f'profile L={L} gp={gp} ap={ap}: {len(seen)} kernels per call: '
+          f'{per}; sum {sum(ms for _, ms in seen):.5f} ms (torch.profiler, '
+          f'one f32 call, profiler session {sessions})', flush=True)
+    if at_most is not None and len(seen) > at_most:
+        fail(f'profile {shape}: {len(seen)} kernels per call on the path '
+             f'(at most {at_most})')
+    return len(seen)
 
 
 def phase_kernels(torch, ops):
@@ -196,7 +283,7 @@ def phase_kernels(torch, ops):
     kernel = ops.fused_eigen_precondition
     plain = ops.fused_eigen_precondition_reference
     max_err = 0.0
-    step_calls, timed = [], []
+    step_calls, timed, per_call = [], [], []
     for i, (L, gp, ap) in enumerate(MAIN_PATH_CASES + EXTRA_CASES):
         args = make_case(torch, L, gp, ap, seed=100 + i)
         pg, clip = kernel(*args)
@@ -233,20 +320,30 @@ def phase_kernels(torch, ops):
         print(f'case L={L} gp={gp} ap={ap}: f32 max_abs_err={err:.3e} '
               f'clip_rel_err={clip_err:.3e} kernel_ms={ms:.5f} '
               f'plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} '
-              f'bound_ms={bound:.5f} | bf16 mean_rel_err_vs_f32={rel32:.3e} '
-              f'kernel_ms={ms16:.5f} bound_ms={bound16:.6f}', flush=True)
-        if (L, gp, ap) in MAIN_PATH_CASES:
+              f'bound_ms={bound:.6f} share_of_bound={bound / ms:.3f} '
+              f'bound_cuda_core_ms='
+              f'{precond_bound_cuda_core(L, gp, ap):.6f} | bf16 '
+              f'mean_rel_err_vs_f32={rel32:.3e} kernel_ms={ms16:.5f} '
+              f'bound_ms={bound16:.6f}', flush=True)
+        on_path = (L, gp, ap) in MAIN_PATH_CASES
+        n = profile_case(torch, kernel, args, (L, gp, ap),
+                         at_most=2 if on_path else None)
+        if on_path:
             step_calls.append(lambda a=args: kernel(*a))
             timed.append(((L, gp, ap), ms, plain_ms, library_ms))
+            per_call.append(n)
             max_err = max(max_err, err)
     entry = step_entry('fused_eigen_precondition',
                        'kfac_pytorch_tpu/ops/pallas_precond.py:43', timed,
-                       max_err)
+                       max_err, per_call)
     entry['kernel_ms'] = entry['ms']
     entry['graph_ms'] = graph_ms(torch, step_calls)
     print(f'kernel: one step\'s {len(step_calls)} calls: {entry["ms"]:.5f} '
           f'ms issued one by one, {entry["graph_ms"]:.5f} ms replayed as '
-          'one CUDA graph (device time)', flush=True)
+          'one CUDA graph (device time); cuBLAS chain '
+          f'{entry["library_ms"]:.5f} ms issued one by one; bound '
+          f'{entry["bound_ms"]:.6f} ms ({entry["bound_by"]}), CUDA-core '
+          f'bound {step_bound_cuda_core(timed):.6f} ms', flush=True)
     return entry
 
 
@@ -392,7 +489,7 @@ def phase_sharded_kernel(torch, kt):
     sharded = kt.ops.fused_eigen_precondition_sharded
     plain = kt.ops.fused_eigen_precondition_sharded_reference
     max_err = 0.0
-    timed = []
+    timed, per_call = [], []
     shards = mem_opt_shards(kt)
     for i, (L, gp, ap) in enumerate(shards):
         args = make_case(torch, L, gp, ap, seed=200 + i)
@@ -410,11 +507,21 @@ def phase_sharded_kernel(torch, kt):
         print(f'sharded shard L={L} gp={gp} ap={ap}: max_abs_err={err:.3e} '
               f'kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} '
               f'library_ms={library_ms:.5f} '
-              f'bound_ms={precond_bound(L, gp, ap, 4)[0]:.6f}', flush=True)
+              f'bound_ms={precond_bound(L, gp, ap, 4)[0]:.6f} '
+              f'bound_cuda_core_ms={precond_bound_cuda_core(L, gp, ap):.6f}',
+              flush=True)
+        # Without a row group the sharded form is the local kernel call.
+        per_call.append(profile_case(torch, sharded, args, (L, gp, ap),
+                                     at_most=2))
     entry = step_entry('fused_eigen_precondition_sharded',
                        'kfac_pytorch_tpu/ops/pallas_precond.py:151', timed,
-                       max_err)
+                       max_err, per_call)
     entry['shard_shapes'] = shards
+    print(f'sharded: one step\'s {len(shards)} shard calls: '
+          f'{entry["ms"]:.5f} ms issued one by one; cuBLAS chain '
+          f'{entry["library_ms"]:.5f} ms; bound {entry["bound_ms"]:.6f} ms, '
+          f'CUDA-core bound {step_bound_cuda_core(timed):.6f} ms',
+          flush=True)
     return entry
 
 

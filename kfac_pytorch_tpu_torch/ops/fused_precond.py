@@ -89,11 +89,11 @@ def _kernel_library() -> ctypes.CDLL:
     fn = lib.kfac_fused_eigen_precond
     if fn.argtypes is None:  # first use: declare the C signatures
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
-        tiles = lib.kfac_fused_eigen_precond_tiles
-        tiles.argtypes = [i, i]
-        tiles.restype = i
+        ws = lib.kfac_fused_eigen_precond_workspace
+        ws.argtypes = [i, i, i]
+        ws.restype = ctypes.c_longlong
     return lib
 
 
@@ -129,21 +129,20 @@ def fused_eigen_precondition(
             raise ValueError(f'{name} must be contiguous')
     lib = _kernel_library()
     L, gp, ap = g.shape
-    tiles = lib.kfac_fused_eigen_precond_tiles(gp, ap)
     with torch.cuda.device(g.device):
         pg = torch.empty((L, gp, ap), dtype=torch.float32, device=g.device)
         clip = torch.empty((L,), dtype=torch.float32, device=g.device)
-        scratch = torch.empty(
-            (2, L, gp, ap), dtype=torch.float32, device=g.device,
-        )
-        partials = torch.empty(
-            (L, tiles), dtype=torch.float32, device=g.device,
+        # The v2 plane and the clip partials (plus a second plane when
+        # gp > 64), as the kernel sizes them.
+        workspace = torch.empty(
+            (lib.kfac_fused_eigen_precond_workspace(L, gp, ap),),
+            dtype=torch.float32, device=g.device,
         )
         stream = torch.cuda.current_stream(g.device).cuda_stream
         rc = lib.kfac_fused_eigen_precond(
             g.data_ptr(), qa.data_ptr(), qg.data_ptr(), dgda.data_ptr(),
-            pg.data_ptr(), clip.data_ptr(), scratch.data_ptr(),
-            partials.data_ptr(), L, gp, ap, _DTYPE_CODES[g.dtype], stream,
+            pg.data_ptr(), clip.data_ptr(), workspace.data_ptr(), L, gp, ap,
+            _DTYPE_CODES[g.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(

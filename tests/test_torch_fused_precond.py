@@ -123,3 +123,81 @@ def test_rejects_mismatched_operands():
         fused_eigen_precondition(
             g.double(), qa.double(), qg.double(), dgda.double(),
         )
+
+
+#: The six ResNet-32 bucket shapes (a576g64, a320g64, a320g32, a192g32,
+#: a128g32, a32g32) at small L, for the CUDA kernel's arithmetic.
+BUCKET_SHAPES = [
+    (2, 64, 576), (1, 64, 320), (2, 32, 320), (2, 32, 192), (1, 32, 128),
+    (1, 32, 32),
+]
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 by the ``cvt.rna.tf32.f32`` rule: keep 10 mantissa
+    bits, round to nearest with ties away from zero (add half of the
+    dropped 13 bits to the magnitude, then drop them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 value an MMA reads from an f32 register: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernel's tensor cores form it from f32 operands:
+    ``hi`` is ``x`` rounded to TF32, ``lo = x - hi`` (exact in f32, read
+    by the MMA truncated to TF32), then ``lo·hi + hi·lo + hi·hi`` in
+    f32."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_trunc(a - a_hi), _tf32_trunc(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _kernel_arithmetic(g, qa, qg, dgda):
+    """The CUDA kernel's chain, reassociated as it runs:
+    ``v1 = qg^T (g qa)``, ``pg = qg (v2 qa^T)``, every product 3xTF32."""
+    v1 = _mm_3xtf32(qg.mT, _mm_3xtf32(g, qa))
+    v2 = v1 * dgda
+    clip = torch.sum(v1 * v2, dim=(1, 2))
+    pg = _mm_3xtf32(qg, _mm_3xtf32(v2, qa.mT))
+    return pg, clip
+
+
+def test_tf32_rounding_rules():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0])
+    np.testing.assert_array_equal(
+        _tf32_rna(x).numpy(),
+        np.array([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10),
+                  1.0, 3.0], dtype=np.float32),
+    )
+    np.testing.assert_array_equal(
+        _tf32_trunc(x).numpy(),
+        np.array([1.0, 1.0 + 2.0 ** -10, -1.0, 1.0, 3.0], dtype=np.float32),
+    )
+
+
+@pytest.mark.parametrize('L,gp,ap', BUCKET_SHAPES)
+def test_kernel_arithmetic_matches_jax_kernel(L, gp, ap):
+    # The CUDA kernel's numbers (3xTF32 split, reassociated chain) against
+    # the Pallas kernel at the card's f32 gate, before any card run.
+    arrays = rand_inputs(L, gp, ap, seed=7 * L + gp + ap)
+    want_pg, want_clip = jax_fused(
+        *[jnp.asarray(a) for a in arrays], interpret=True,
+    )
+    pg, clip = _kernel_arithmetic(*torch_args(arrays))
+    np.testing.assert_allclose(
+        pg.numpy(), np.asarray(want_pg), rtol=1e-5, atol=1e-4,
+    )
+    np.testing.assert_allclose(
+        clip.numpy(), np.asarray(want_clip), rtol=1e-5,
+    )
+    # One TF32 product alone misses the gate at the widest contraction.
+    if ap == 576:
+        g, qa = torch_args(arrays)[:2]
+        one = _tf32_rna(g) @ _tf32_rna(qa)
+        exact = g.double() @ qa.double()
+        assert float((one.double() - exact).abs().max()) > 1e-4

@@ -9,7 +9,8 @@ Imports nothing of JAX, so on a machine without JAX it runs as::
 Tolerance: f32 at ``tests/test_pallas.py``'s bar (``rtol 1e-5, atol
 1e-4``) for orthonormal eigenbases, where every intermediate is O(1)
 and the two sides differ only in summation order; clips bitwise equal
-across two runs (the kernel sums without atomics).
+across two runs (the kernel sums without atomics); bf16 operands
+within a mean relative error of 1e-3 of the plain bf16 chain.
 """
 from __future__ import annotations
 
@@ -37,20 +38,36 @@ def _inputs(L, gp, ap, device, seed=0):
             for a in arrays]
 
 
-@pytest.mark.parametrize(
-    'L,gp,ap', [(9, 64, 576), (1, 32, 32), (3, 40, 70)],
-)
-def test_kernel_matches_plain_on_card(L, gp, ap):
+#: ResNet-32's six bucket stacks at full L, two shapes whose rows are
+#: not 16-byte multiples (the masked copy path), and one that takes the
+#: large-gp tiling (four launches); bf16 at two of them.
+CASES = [
+    (9, 64, 576, 'f32'), (1, 64, 320, 'f32'), (9, 32, 320, 'f32'),
+    (11, 32, 192, 'f32'), (1, 32, 128, 'f32'), (1, 32, 32, 'f32'),
+    (3, 40, 70, 'f32'), (2, 33, 100, 'f32'), (2, 256, 1152, 'f32'),
+    (9, 64, 576, 'bf16'), (2, 33, 100, 'bf16'),
+]
+
+
+@pytest.mark.parametrize('L,gp,ap,dtype', CASES)
+def test_kernel_matches_plain_on_card(L, gp, ap, dtype):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernel has no CPU mode')
     torch.backends.cuda.matmul.allow_tf32 = False
     args = _inputs(L, gp, ap, 'cuda', seed=L + gp + ap)
+    if dtype == 'bf16':
+        args = [a.to(torch.bfloat16) for a in args]
     before = fused_eigen_precondition.launches
     pg, clip = fused_eigen_precondition(*args)
     pg2, clip2 = fused_eigen_precondition(*args)
     torch.cuda.synchronize()
     assert fused_eigen_precondition.launches == before + 2
     want_pg, want_clip = fused_eigen_precondition_reference(*args)
+    assert torch.equal(clip, clip2) and torch.equal(pg, pg2)
+    if dtype == 'bf16':
+        # Against the plain bf16 chain (v2 rounded at the same point).
+        err = (pg - want_pg).abs().mean() / want_pg.abs().mean()
+        assert float(err) < 1e-3
+        return
     torch.testing.assert_close(pg, want_pg, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(clip, want_clip, rtol=1e-5, atol=1e-3)
-    assert torch.equal(clip, clip2) and torch.equal(pg, pg2)
