@@ -51,9 +51,32 @@ fails:
    preconditioned gradients against a single-process rerun from the
    same averaged factors and raw gradients, and the sharded kernel
    against its plain version through the rank's grid row in f32 and
-   bf16.  Step and
+   bf16.  Then ``compute_method='inverse'`` and ``'iterative'`` under
+   HYBRID-OPT (a column and a row gather), one checked pass of 12 steps
+   each, with the same gates (no fused-kernel launch; the iterative
+   rerun replays both refreshes, so its warm seeds match).  Step and
    collective times there are correctness-path times, not a scaling
-   result.
+   result;
+6. the other methods: ResNet-32 as in phase 3 with
+   ``compute_method='inverse'``, ``'iterative'`` and
+   ``compute_eigenvalue_outer_product=False``: a finite, falling loss,
+   no fused-kernel launch (cuSOLVER and cuBLAS calls, as the JAX
+   package runs these paths outside its Pallas kernel), the refresh
+   step's buckets and preconditioned gradients against a CPU rerun
+   from the same factor EMAs, warm seeds and raw gradients (relative
+   Frobenius error ``< 1e-4`` per slot and per layer), stage times; for
+   the iterative method the depths run (30, then 3) and the residuals:
+   every slot within ``tol`` after the bootstrap, and after the warm
+   refresh every slot whose warm seed the gate took (a slot it sends
+   back to a cold seed gets the warm depth only, as in the JAX package,
+   and is printed);
+7. checkpoint and resume: eigen and inverse saved after step 10 (model,
+   SGD, ``precond.state_dict()`` dense and packed as upper triangles)
+   and resumed for steps 11-19 must end bitwise equal to the
+   uninterrupted run (cuDNN held to its deterministic algorithms); the
+   iterative restore must refresh at bootstrap depth and train on.
+
+A ``phases:`` line gives each phase's time.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -91,6 +114,8 @@ CHECK_STEP = 10  # an inverse-update step: refresh + precondition
 KAISA_WORLD = 4
 KAISA_STEPS = 12  # crosses the refresh at step 10
 KAISA_STRATEGIES = ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT')
+#: ``(strategy, compute_method)`` runs of the other methods (checked pass).
+KAISA_METHOD_RUNS = (('HYBRID_OPT', 'inverse'), ('HYBRID_OPT', 'iterative'))
 KAISA_TIMEOUT_S = 600
 #: ResNet-32's MEM-OPT segments at world 4 (slots per column, plan order).
 MEM_OPT_SEGS = [3, 1, 4, 5, 1, 1]
@@ -347,25 +372,31 @@ def phase_kernels(torch, ops):
     return entry
 
 
-def phase_train(torch, kt):
-    """ResNet-32, batch 128, 20 K-FAC steps on one fixed batch."""
+TRAIN_HP = dict(factor_update_steps=1, inv_update_steps=10, damping=0.003,
+                kl_clip=0.001, lr=0.1)
+
+
+def fixed_batch(torch, device=None):
+    """The one synthetic CIFAR batch every single-card run trains on."""
+    device = DEVICE if device is None else device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    x = torch.randn(BATCH, 3, 32, 32, generator=gen, device=device)
+    y = torch.randint(0, 10, (BATCH,), generator=gen, device=device)
+    return x, y
+
+
+def train_resnet32(torch, kt, **kfac_kw):
+    """ResNet-32, batch 128, ``TRAIN_STEPS`` K-FAC steps on one fixed
+    batch, with the stages timed by CUDA events and the fused kernel's
+    launches counted from 0 over exactly these steps.  At ``CHECK_STEP``
+    (a refresh step) it keeps the raw and the preconditioned gradients,
+    the factor EMAs and the buckets before and after the refresh."""
     import torch.nn.functional as F
 
-    from kfac_pytorch_tpu_torch.parallel.second_order import (
-        BucketedSecondOrder,
-    )
-    from kfac_pytorch_tpu_torch.parallel.second_order import BucketSecond
-
     model = kt.models.resnet32(device=DEVICE, seed=0)
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(1)
-    x = torch.randn(BATCH, 3, 32, 32, generator=gen, device=DEVICE)
-    y = torch.randint(0, 10, (BATCH,), generator=gen, device=DEVICE)
-    precond = kt.KFACPreconditioner(
-        model, factor_update_steps=1, inv_update_steps=10, damping=0.003,
-        kl_clip=0.001, lr=0.1,
-    )
-    n_buckets = len(precond.plan.buckets)
+    x, y = fixed_batch(torch)
+    precond = kt.KFACPreconditioner(model, **TRAIN_HP, **kfac_kw)
     opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
 
     events: dict[str, list] = {
@@ -397,8 +428,7 @@ def phase_train(torch, kt):
         return loss
 
     fwd_bwd_timed = timed('capture (fwd+bwd)', fwd_bwd)
-    losses, step_s = [], []
-    check = None
+    run = dict(precond=precond, losses=[], step_s=[])
     kernel = kt.ops.fused_eigen_precondition
     torch.cuda.synchronize()
     kernel.launches = 0
@@ -406,53 +436,87 @@ def phase_train(torch, kt):
         t0 = time.perf_counter()
         loss = fwd_bwd_timed()
         if step == CHECK_STEP:
-            raw = {n: h.get_grad().clone()
-                   for n, h in precond.helpers.items()}
+            run['raw'] = {n: h.get_grad().clone()
+                          for n, h in precond.helpers.items()}
+            run['prev'] = precond.buckets
         precond.step()
         if step == CHECK_STEP:
-            check = (raw, {n: h.get_grad().clone()
-                           for n, h in precond.helpers.items()})
+            run['got'] = {n: h.get_grad().clone()
+                          for n, h in precond.helpers.items()}
+            run['factors'] = {n: (st.a_factor.clone(), st.g_factor.clone())
+                              for n, st in precond.layers.items()}
+            run['buckets'] = precond.buckets
         opt.step()
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(loss.detach()))
-    launches = kernel.launches
-
+        run['step_s'].append(time.perf_counter() - t0)
+        run['losses'].append(float(loss.detach()))
+    run['launches'] = kernel.launches
+    losses = run['losses']
     if not all(math.isfinite(v) for v in losses):
-        fail(f'non-finite loss: {losses}')
+        fail(f'{kfac_kw or "eigen"}: non-finite loss: {losses}')
     if not losses[-1] < losses[0]:
-        fail(f'loss did not fall: first {losses[0]}, last {losses[-1]}')
+        fail(f'{kfac_kw or "eigen"}: loss did not fall: first {losses[0]}, '
+             f'last {losses[-1]}')
+    run['stage_ms'] = {
+        name: (statistics.median([s.elapsed_time(e) for s, e in evs]),
+               len(evs))
+        for name, evs in events.items()
+    }
+    run['refresh_ms'] = [s.elapsed_time(e) for s, e in events['eigh refresh']]
+    return run
+
+
+def cpu_second_order(kt, precond):
+    """A CPU ``BucketedSecondOrder`` of the same plan and method (CPU
+    tensors take every plain version)."""
+    from kfac_pytorch_tpu_torch.parallel.second_order import (
+        BucketedSecondOrder,
+    )
+
+    so = precond._second_order
+    return BucketedSecondOrder(
+        precond.plan, compute_method=so.compute_method,
+        prediv_eigenvalues=so.prediv, iterative_config=so.iterative,
+        device='cpu',
+    )
+
+
+def to_cpu(buckets):
+    from kfac_pytorch_tpu_torch.parallel.second_order import BucketSecond
+
+    return {k: BucketSecond(**{f: t.cpu() for f, t in b.tensors().items()})
+            for k, b in buckets.items()}
+
+
+def rel_frob(got, want) -> float:
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def phase_train(torch, kt):
+    """Phase 3: ResNet-32, batch 128, 20 K-FAC steps on one fixed
+    batch, the default eigen method through the fused kernel."""
+    run = train_resnet32(torch, kt)
+    precond, losses, launches = run['precond'], run['losses'], \
+        run['launches']
+    n_buckets = len(precond.plan.buckets)
     if launches != TRAIN_STEPS * n_buckets:
         fail(f'kernel launched {launches} times in {TRAIN_STEPS} steps, '
              f'expected {TRAIN_STEPS * n_buckets} ({n_buckets} buckets)')
 
     # Rerun the check step's precondition from the same state through the
     # plain version (CPU tensors take it): same kl-clip, same buckets.
-    raw, got = check
-    cpu_so = BucketedSecondOrder(precond.plan, device='cpu')
-    cpu_buckets = {
-        k: BucketSecond(qa=b.qa.cpu(), qg=b.qg.cpu(), dgda=b.dgda.cpu())
-        for k, b in precond.buckets.items()
-    }
-    want, _ = cpu_so.precondition(
-        cpu_buckets, {n: g.cpu() for n, g in raw.items()}, 0.001, 0.1,
+    want, _ = cpu_second_order(kt, precond).precondition(
+        to_cpu(run['buckets']), {n: g.cpu() for n, g in run['raw'].items()},
+        0.003, 0.001, 0.1,
     )
-    worst = 0.0
-    for name, w in want.items():
-        g = got[name].cpu()
-        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
-        worst = max(worst, rel)
+    worst = max(rel_frob(run['got'][n].cpu(), w) for n, w in want.items())
     # Same eigenbases on both sides; only the f32 summation order of the
     # 576-long contractions differs (relative norm error ~1e-6).
     if not worst < 1e-4:
         fail(f'step {CHECK_STEP}: kernel path vs plain rerun relative '
              f'norm error {worst:.3e}')
 
-    steady = step_s[1:]
-    stage_ms = {}
-    for name, evs in events.items():
-        ts = [s.elapsed_time(e) for s, e in evs]
-        stage_ms[name] = (statistics.median(ts), len(ts))
+    steady = run['step_s'][1:]
     print(f'train: losses first={losses[0]:.6f} last={losses[-1]:.6f} '
           f'all={[round(v, 5) for v in losses]}', flush=True)
     print(f'train: launches={launches} ({n_buckets} buckets x '
@@ -460,12 +524,303 @@ def phase_train(torch, kt):
           f'plain rerun {worst:.3e}', flush=True)
     print(f'train: median step {statistics.median(steady) * 1e3:.4f} ms '
           f'(steps 1-{TRAIN_STEPS - 1}, host clock, synchronized); first '
-          f'step {step_s[0] * 1e3:.2f} ms', flush=True)
-    for name, (ms, n) in stage_ms.items():
+          f'step {run["step_s"][0] * 1e3:.2f} ms', flush=True)
+    for name, (ms, n) in run['stage_ms'].items():
         print(f'train: stage {name}: median {ms:.4f} ms over {n} calls '
               '(CUDA events)', flush=True)
     return launches
 
+
+#: Phase 6's methods: label -> ``KFACPreconditioner`` keywords.
+METHODS = {
+    'inverse': dict(compute_method='inverse'),
+    'iterative': dict(compute_method='iterative'),
+    'eigen_noprediv': dict(compute_eigenvalue_outer_product=False),
+}
+
+
+def newton_schulz_spy(kt, calls):
+    """Wrap ``kt.ops.batched_newton_schulz_inverse`` to keep, per call,
+    the depth, the final residuals and the inputs (no host sync: the
+    refresh stays timed as a user runs it); returns the original, to put
+    back."""
+    orig = kt.ops.batched_newton_schulz_inverse
+
+    def spy(stack, damping, **kw):
+        out = orig(stack, damping, **kw)
+        calls.append(dict(kw, stack=stack, damping=damping,
+                          res=out.residual))
+        return out
+
+    kt.ops.batched_newton_schulz_inverse = spy
+    return orig
+
+
+def seed_taken(torch, kt, call) -> list[bool]:
+    """Which slots of a recorded call had their warm seed taken by the
+    gate, recomputed from the call's own inputs."""
+    warm = call.get('warm_start')
+    if warm is None:
+        return [False] * call['stack'].shape[0]
+    s = kt.ops.damped_stack(call['stack'], call['damping'])
+    eye = torch.eye(s.shape[-1], device=s.device)
+    res0 = torch.linalg.matrix_norm(s @ warm.float() - eye)
+    return (res0 < call['warm_restart_gate']).tolist()
+
+
+def check_refresh(torch, kt, run, label):
+    """Phase 6's check of the refresh step against a CPU rerun from the
+    same factor EMAs (and, iterative, the same warm seeds) and raw
+    gradients: every layer's preconditioned gradient, and every slot of
+    the refreshed buckets — inverses directly (``< 1e-4``); for eigen
+    the clamped eigenvalues, never the eigenvectors themselves (they
+    rotate within near-degenerate eigenspaces).  An f32 eigensolver is
+    backward stable to a small multiple of ``n eps``: cuSOLVER's ``eigh``
+    on the card reaches it (eigenvalues 8.6e-5 off LAPACK's at n = 576,
+    ``|Q^T Q - I|`` 1.1e-4, where LAPACK keeps 2e-6), so eigenvalues are
+    held to ``max(1e-4, 4 n eps)`` and the eigenvectors to
+    orthonormality within ``1e-3``; how far each side's
+    ``q diag(d) q^T`` lies from the factor is printed.
+    Returns ``(buckets err, grads err, eigen details or None)``."""
+    from kfac_pytorch_tpu_torch.state import LayerKFACState
+
+    precond = run['precond']
+    cpu_so = cpu_second_order(kt, precond)
+    layers = {n: LayerKFACState(a_factor=a.cpu(), g_factor=g.cpu())
+              for n, (a, g) in run['factors'].items()}
+    want_b = cpu_so.compute(layers, 0.003, prev=to_cpu(run['prev']))
+    got_b = to_cpu(run['buckets'])
+    worst_b, over, eig = 0.0, 0.0, None
+    for key, w in want_b.items():
+        g = got_b[key]
+        if w.a_inv is not None:
+            pairs = [(g.a_inv, w.a_inv), (g.g_inv, w.g_inv)]
+        else:
+            pairs = [(g.da, w.da), (g.dg, w.dg)]
+            eig = eig or dict(orth=0.0, card=0.0, cpu=0.0)
+            for side, (q, d, wq, wd) in enumerate((
+                    (g.qa, g.da, w.qa, w.da), (g.qg, g.dg, w.qg, w.dg))):
+                n = q.shape[-1]
+                orth = float((q.mT @ q - torch.eye(n)).abs().max())
+                if not orth < 1e-3:
+                    fail(f'{label}: {key} eigenvectors off orthonormal by '
+                         f'{orth:.3e} (n = {n})')
+                eig['orth'] = max(eig['orth'], orth)
+                for i, name in enumerate(precond.plan.buckets[
+                        [b.key for b in precond.plan.buckets].index(key)
+                ].slots):
+                    if name is None:
+                        continue
+                    f = run['factors'][name][side].cpu()
+                    k = f.shape[-1]
+                    for which, qq, dd in (('card', q, d), ('cpu', wq, wd)):
+                        rebuilt = (qq[i] @ torch.diag(dd[i]) @ qq[i].mT)
+                        eig[which] = max(eig[which],
+                                         rel_frob(rebuilt[:k, :k], f))
+        for got, want in pairs:
+            bar = 1e-4 if eig is None else max(
+                1e-4, 4 * want.shape[-1] * 1.1920929e-07)
+            for i in range(want.shape[0]):
+                err = rel_frob(got[i], want[i])
+                worst_b = max(worst_b, err)
+                over = max(over, err / bar)
+    want, _ = cpu_so.precondition(
+        want_b, {n: t.cpu() for n, t in run['raw'].items()},
+        0.003, 0.001, 0.1,
+    )
+    worst_g = max(rel_frob(run['got'][n].cpu(), w) for n, w in want.items())
+    if not (over < 1 and worst_g < 1e-4):
+        fail(f'{label}: step {CHECK_STEP} vs CPU rerun: buckets rel err '
+             f'{worst_b:.3e}, preconditioned grads rel err {worst_g:.3e}')
+    return worst_b, worst_g, eig
+
+
+def phase_methods(torch, kt):
+    """Phase 6: the inverse, iterative and non-prediv eigen methods on
+    ResNet-32 as phase 3 trains it.  None launches the fused kernel."""
+    tol = kt.IterativeConfig().tol
+    for label, kw in METHODS.items():
+        calls = []
+        orig = (newton_schulz_spy(kt, calls) if label == 'iterative'
+                else None)
+        try:
+            run = train_resnet32(torch, kt, **kw)
+        finally:
+            if orig is not None:
+                kt.ops.batched_newton_schulz_inverse = orig
+        if run['launches'] != 0:
+            fail(f'methods {label}: the fused kernel launched '
+                 f'{run["launches"]} times (expected 0)')
+        worst_b, worst_g, eig = check_refresh(torch, kt, run,
+                                              f'methods {label}')
+        losses = run['losses']
+        what = ('eigenvalues' if eig is not None else 'inverses')
+        extra = ('' if eig is None else
+                 f'; eigenvectors |Q^T Q - I| max {eig["orth"]:.3e}; '
+                 'q diag(d) q^T against the factor: card '
+                 f'{eig["card"]:.3e}, CPU {eig["cpu"]:.3e}')
+        print(f'methods {label}: losses first={losses[0]:.6f} '
+              f'last={losses[-1]:.6f}; fused-kernel launches 0; step '
+              f'{CHECK_STEP} vs CPU rerun, worst slot or layer: {what} '
+              f'rel err {worst_b:.3e}{extra}, preconditioned grads rel err '
+              f'{worst_g:.3e}', flush=True)
+        if label == 'iterative':
+            report_iterative(torch, kt, calls, tol,
+                             len(run['precond'].plan.buckets))
+        ms = {k: v[0] for k, v in run['stage_ms'].items()}
+        refresh = ', '.join(f'{t:.4f}' for t in run['refresh_ms'])
+        print(f'methods {label}: median step '
+              f'{statistics.median(run["step_s"][1:]) * 1e3:.4f} ms; stage '
+              f'medians (CUDA events): factors {ms["factors (cov+EMA)"]:.4f}'
+              f' ms, precondition {ms["precondition"]:.4f} ms; refresh at '
+              f'steps 0 and {CHECK_STEP}: {refresh} ms', flush=True)
+
+
+def report_iterative(torch, kt, calls, tol, n_buckets):
+    """The iterative run's two refreshes: depths 30 then 3; after the
+    bootstrap every slot within ``tol``, after the warm refresh every
+    slot whose warm seed the gate took.  A slot the gate sent back to a
+    cold seed gets only the warm depth, as in the JAX package, and is
+    reported."""
+    per = 2 * n_buckets
+    if len(calls) != 2 * per:
+        fail(f'iterative: {len(calls)} Newton-Schulz calls, expected '
+             f'{2 * per}')
+    depths = sorted({c['iters'] for c in calls[:per]}), \
+        sorted({c['iters'] for c in calls[per:]})
+    if depths != ([30], [3]):
+        fail(f'iterative: depths {depths}, expected [30] then [3]')
+    boot = max(float(c['res'].max()) for c in calls[:per])
+    warm = [(r, t, c['stack'].shape[-1]) for c in calls[per:]
+            for r, t in zip(c['res'].tolist(), seed_taken(torch, kt, c))]
+    taken = [r for r, t, _ in warm if t]
+    cold = [r for r, t, _ in warm if not t]
+    above = [(round(r, 4), n) for r, t, n in warm if not t and r > tol]
+    if not boot <= tol or (taken and not max(taken) <= tol):
+        fail(f'iterative: residual above tol {tol}: bootstrap max {boot}, '
+             f'warm max {max(taken) if taken else None}')
+    print(f'iterative: depths run {depths[0][0]} (bootstrap, step 0) and '
+          f'{depths[1][0]} (warm, step {CHECK_STEP}); bootstrap: all {per} '
+          f'calls\' slots within tol {tol}, largest residual {boot:.3e}; '
+          f'warm refresh: {len(taken)} slot side(s) warm-seeded (largest '
+          f'residual {max(taken, default=float("nan")):.3e}), {len(cold)} '
+          'restarted cold because the gate rejected the seed (largest '
+          f'residual within tol '
+          f'{max((r for r in cold if r <= tol), default=float("nan")):.3e}),'
+          f' of which {len(above)} above tol at the warm depth: '
+          f'(residual, n) {above}', flush=True)
+
+
+def resume_run(torch, kt, method_kw, start=0, stop=TRAIN_STEPS,
+               ckpt=None, save_at=None):
+    """ResNet-32 steps ``[start, stop)`` on the fixed batch from fresh
+    objects, or from ``ckpt``; with ``save_at``, checkpoints (the model,
+    SGD and the preconditioner, dense and packed as upper triangles,
+    through ``torch.save``/``torch.load``) taken after that step.
+    Returns ``(parameters, losses, checkpoints, launches, buckets)``."""
+    import io
+
+    import torch.nn.functional as F
+
+    model = kt.models.resnet32(device=DEVICE, seed=0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    precond = kt.KFACPreconditioner(model, **TRAIN_HP, **method_kw)
+    x, y = fixed_batch(torch)
+    kernel = kt.ops.fused_eigen_precondition
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    if ckpt is not None:
+        model.load_state_dict(ckpt['model'])
+        opt.load_state_dict(ckpt['opt'])
+        precond.load_state_dict(ckpt['kfac'])
+        start = precond.steps
+    losses, saved = [], {}
+    for step in range(start, stop):
+        opt.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        precond.step()
+        opt.step()
+        losses.append(float(loss.detach()))
+        if step == save_at:
+            for triu in (False, True):
+                buf = io.BytesIO()
+                torch.save({
+                    'model': model.state_dict(), 'opt': opt.state_dict(),
+                    'kfac': precond.state_dict(compress_symmetric=triu),
+                }, buf)
+                buf.seek(0)
+                saved['triu' if triu else 'dense'] = torch.load(
+                    buf, map_location=DEVICE,
+                )
+    torch.cuda.synchronize()
+    params = [p.detach().clone() for p in model.parameters()]
+    return params, losses, saved, kernel.launches, len(precond.plan.buckets)
+
+
+def phase_resume(torch, kt):
+    """Phase 7: checkpoint after step 10 (a refresh step, so the saved
+    factor EMAs are the ones that refresh decomposed) and resume steps
+    11-19 from it.  Eigen and inverse must end bitwise equal to the
+    uninterrupted 20 steps (cuDNN held to its deterministic algorithms
+    for the phase); the iterative restore must refresh at bootstrap
+    depth and train on with a finite, falling loss."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, kw in (('eigen', {}), ('inverse', METHODS['inverse'])):
+            full, _, saved, launches, n_buckets = resume_run(
+                torch, kt, kw, save_at=CHECK_STEP,
+            )
+            for form, ckpt in saved.items():
+                got, losses, _, resumed_launches, _ = resume_run(
+                    torch, kt, kw, ckpt=ckpt,
+                )
+                diff = max(float((a - b).abs().max())
+                           for a, b in zip(full, got))
+                equal = all(torch.equal(a, b) for a, b in zip(full, got))
+                if not equal:
+                    fail(f'resume {label} {form}: parameters after step '
+                         f'{TRAIN_STEPS - 1} differ from the uninterrupted '
+                         f'run (max abs diff {diff:.3e})')
+                want = ((TRAIN_STEPS - CHECK_STEP - 1) * n_buckets
+                        if label == 'eigen' else 0)
+                if resumed_launches != want:
+                    fail(f'resume {label} {form}: {resumed_launches} kernel '
+                         f'launches, expected {want}')
+                print(f'resume {label} {form}: steps {CHECK_STEP + 1}-'
+                      f'{TRAIN_STEPS - 1} from the step-{CHECK_STEP} '
+                      f'checkpoint end bitwise equal to the uninterrupted '
+                      f'run; losses {losses[0]:.6f} -> {losses[-1]:.6f}; '
+                      f'kernel launches {resumed_launches} (uninterrupted '
+                      f'run: {launches})', flush=True)
+        calls = []
+        _, _, saved, _, _ = resume_run(
+            torch, kt, METHODS['iterative'], stop=CHECK_STEP + 1,
+            save_at=CHECK_STEP,
+        )
+        orig = newton_schulz_spy(kt, calls)
+        try:
+            _, losses, _, _, _ = resume_run(
+                torch, kt, METHODS['iterative'], ckpt=saved['dense'],
+            )
+        finally:
+            kt.ops.batched_newton_schulz_inverse = orig
+        depths = sorted({c['iters'] for c in calls})
+        if depths != [30] or len(calls) != 12:
+            fail(f'resume iterative: the restore refresh ran {len(calls)} '
+                 f'Newton-Schulz calls at depths {depths}, expected 12 at '
+                 '[30]')
+        if not (all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0]):
+            fail(f'resume iterative: losses {losses}')
+        print(f'resume iterative: the restore refresh ran at depth '
+              f'{depths[0]} ({len(calls)} calls; largest residual '
+              f'{max(float(c["res"].max()) for c in calls):.3e}); steps '
+              f'{CHECK_STEP + 1}-{TRAIN_STEPS - 1} losses {losses[0]:.6f} '
+              f'-> {losses[-1]:.6f}', flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
 
 
 def mem_opt_shards(kt):
@@ -593,7 +948,7 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
     q = BATCH // world
     xl, yl = x[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
 
-    def train(strategy):
+    def train(strategy, method='eigen'):
         """``KAISA_STEPS`` steps from the seeded weights; the launches
         are counted from 0 over exactly these steps."""
         model = kt.models.resnet32(device=dev, seed=0)
@@ -602,7 +957,7 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
         )
         precond = kt.KFACPreconditioner(
             ddp, factor_update_steps=1, inv_update_steps=10, damping=0.003,
-            kl_clip=0.001, lr=0.1,
+            kl_clip=0.001, lr=0.1, compute_method=method,
             grad_worker_fraction=kt.DistributedStrategy[strategy],
         )
         opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
@@ -618,14 +973,15 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
                 run['raw'] = {n: h.get_grad().clone()
                               for n, h in precond.helpers.items()}
             precond.step()
-            if step == CHECK_STEP:
-                run['got'] = {n: h.get_grad().clone()
-                              for n, h in precond.helpers.items()}
-                run['factors'] = {
+            if step in (0, CHECK_STEP):  # the two refresh steps
+                run[f'factors{step}'] = {
                     n: LayerKFACState(a_factor=st.a_factor.clone(),
                                       g_factor=st.g_factor.clone())
                     for n, st in precond.layers.items()
                 }
+            if step == CHECK_STEP:
+                run['got'] = {n: h.get_grad().clone()
+                              for n, h in precond.helpers.items()}
             opt.step()
             sync(dev)
             run['step_s'].append(time.perf_counter() - t0)
@@ -637,6 +993,31 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
             run['equal'].append(all(torch.equal(flat, o) for o in every))
         run['launches'] = ops.fused_eigen_precondition.launches
         return run
+
+    def single_rerun(precond, run, label):
+        """The refresh step rerun in this one process: no grid, the whole
+        plan, the same averaged factors and raw gradients (the iterative
+        method replays both refreshes, so its warm seeds match).  Both
+        sides run their own batched decompositions, so the eigenbases
+        come from different cuSOLVER calls; the preconditioned action
+        is what is compared."""
+        so = precond._second_order
+        single = BucketedSecondOrder(
+            make_bucket_plan(precond.helpers, n_cols=1), device=dev,
+            compute_method=so.compute_method, iterative_config=so.iterative,
+        )
+        buckets = single.compute(run['factors0'], 0.003, bootstrap=True)
+        buckets = single.compute(run[f'factors{CHECK_STEP}'], 0.003,
+                                 prev=buckets)
+        want, _ = single.precondition(buckets, run['raw'], 0.003, 0.001, 0.1)
+        worst = max(
+            float((run['got'][n] - w).norm() / w.norm().clamp_min(1e-30))
+            for n, w in want.items()
+        )
+        if not worst < 1e-4:
+            raise RuntimeError(f'{label}: step {CHECK_STEP} rel err vs '
+                               f'single-process rerun {worst:.3e}')
+        return worst
 
     report = {}
     for strategy in KAISA_STRATEGIES:
@@ -667,26 +1048,7 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
                 f'{strategy} rank {rank}: {launches} kernel launches, '
                 f'expected {want_n} ({n_buckets} buckets x {KAISA_STEPS} '
                 'steps)')
-        raw, got, factors = run['raw'], run['got'], run['factors']
-
-        # The refresh step rerun in this one process: no grid, the whole
-        # plan, the same averaged factors and raw gradients.
-        single = BucketedSecondOrder(
-            make_bucket_plan(precond.helpers, n_cols=1), device=dev,
-        )
-        want, _ = single.precondition(
-            single.compute(factors, 0.003), raw, 0.001, 0.1,
-        )
-        worst = max(
-            float((got[n] - w).norm() / w.norm().clamp_min(1e-30))
-            for n, w in want.items()
-        )
-        # Both sides run their own batched eigh, so the eigenbases come
-        # from different cuSOLVER calls; the preconditioned action is
-        # what is compared.
-        if not worst < 1e-4:
-            raise RuntimeError(f'{strategy} rank {rank}: step {CHECK_STEP} '
-                               f'rel err vs single-process rerun {worst:.3e}')
+        worst = single_rerun(precond, run, f'{strategy} rank {rank}')
 
         # The sharded form against its plain version through this rank's
         # row, at this rank's shard shapes.
@@ -726,6 +1088,27 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
         del run, precond
         if dev.type == 'cuda':
             torch.cuda.empty_cache()
+    for strategy, method in KAISA_METHOD_RUNS:
+        label = f'{strategy} {method} rank {rank}'
+        run = train(strategy, method)
+        if not all(math.isfinite(v) for v in run['losses']):
+            raise RuntimeError(f'{label}: non-finite loss {run["losses"]}')
+        if not all(run['equal']):
+            raise RuntimeError(
+                f'{label}: parameters differ across ranks after steps '
+                f'{[i for i, e in enumerate(run["equal"]) if not e]}')
+        if run['launches'] != 0:
+            raise RuntimeError(f'{label}: {run["launches"]} fused-kernel '
+                               'launches, expected 0')
+        precond = run['precond']
+        report[strategy, method] = dict(
+            grid=(precond.grid.rows, precond.grid.cols, precond.grid.row,
+                  precond.grid.col),
+            losses=run['losses'], step_s=run['step_s'],
+            check_rel_err=single_rerun(precond, run, label),
+            memory=precond.memory_usage(),
+        )
+        del run, precond
     torch.save(report, os.path.join(workdir, f'rank{rank}.pt'))
     dist.barrier()
     dist.destroy_process_group()
@@ -823,6 +1206,24 @@ def phase_kaisa(torch, kt):
                   f'err {r["f32_err"]:.3e}, bf16 mean rel err '
                   f'{r["bf16_err"]:.3e}, second-order bytes '
                   f'{r["memory"]["second_order"]}', flush=True)
+    for strategy, method in KAISA_METHOD_RUNS:
+        runs = [r[strategy, method] for r in ranks]
+        losses = [statistics.fmean(v) for v in zip(*(r['losses']
+                                                      for r in runs))]
+        if not losses[-1] < losses[0]:
+            fail(f'kaisa {strategy} {method}: mean loss did not fall: '
+                 f'{losses}')
+        rows, cols = runs[0]['grid'][:2]
+        step_ms = statistics.median(
+            ms for r in runs for ms in r['step_s'][1:]) * 1e3
+        errs = ', '.join(f'{r["check_rel_err"]:.3e}' for r in runs)
+        print(f'kaisa {strategy} {method}: grid {rows}x{cols}; mean loss '
+              f'{losses[0]:.6f} -> {losses[-1]:.6f} over {KAISA_STEPS} '
+              'steps; parameters bitwise equal across ranks after every '
+              f'step; fused-kernel launches 0; median step {step_ms:.4f} '
+              f'ms; step {CHECK_STEP} rel err vs single-process rerun per '
+              f'rank {errs}; second-order bytes per rank '
+              f'{runs[0]["memory"]["second_order"]}', flush=True)
     if [s[1][0] for s in ranks[0]['MEM_OPT']['shards']] != MEM_OPT_SEGS:
         fail(f'MEM-OPT shards {ranks[0]["MEM_OPT"]["shards"]}')
     return total_launches, mem_gather_ms
@@ -838,6 +1239,7 @@ def device_record(torch) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -874,15 +1276,30 @@ def main() -> int:
         for ln in usage:
             print(f'  ptxas: {ln}', flush=True)
 
+    took = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = time.perf_counter() - t
+        return out
+
     if kaisa_only:
-        phase_kaisa(torch, kt)
+        phase('5 kaisa', phase_kaisa, torch, kt)
         print(card, flush=True)
         print(json.dumps(device_record(torch)), flush=True)
         return 0
-    entry = phase_kernels(torch, kt.ops)
-    entry['launches'] = phase_train(torch, kt)
-    sharded = phase_sharded_kernel(torch, kt)
-    sharded['launches'], sharded['gather_ms'] = phase_kaisa(torch, kt)
+    entry = phase('1-2 kernels', phase_kernels, torch, kt.ops)
+    entry['launches'] = phase('3 train', phase_train, torch, kt)
+    sharded = phase('4 sharded', phase_sharded_kernel, torch, kt)
+    sharded['launches'], sharded['gather_ms'] = phase(
+        '5 kaisa', phase_kaisa, torch, kt,
+    )
+    phase('6 methods', phase_methods, torch, kt)
+    phase('7 resume', phase_resume, torch, kt)
+    print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
+          + f'; total since start {time.perf_counter() - t_start:.2f} s',
+          flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': [entry, sharded]}), flush=True)
     print(json.dumps(device_record(torch)), flush=True)

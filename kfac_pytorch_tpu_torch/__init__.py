@@ -1,18 +1,24 @@
 """K-FAC in PyTorch for NVIDIA Hopper: the port of ``kfac_pytorch_tpu``.
 
 The JAX package beside this one is the reference; this package imports
-``torch`` and nothing of JAX or of the JAX package.  It covers the main
-path on one device and data-parallel across ``torch.distributed`` ranks
-on the KAISA grid (COMM-OPT, HYBRID-OPT, MEM-OPT): Linear/Conv2d capture
-through module hooks, factor EMAs averaged over the world, the bucketed
-eigendecomposition refresh and the fused eigen-preconditioning chain,
-which runs as a hand-written CUDA kernel on CUDA tensors
-(``csrc/fused_eigen_precond.cu``) and as its plain PyTorch version on
-CPU tensors.  ``ROADMAP.md`` lists what is not ported yet.
+``torch`` and nothing of JAX or of the JAX package.  It covers the
+bucketed path on one device and data-parallel across
+``torch.distributed`` ranks on the KAISA grid (COMM-OPT, HYBRID-OPT,
+MEM-OPT): Linear/Conv2d capture through module hooks, factor EMAs
+averaged over the world, and a bucketed second-order refresh by one of
+three methods — eigen (the fused eigen-preconditioning chain runs as a
+hand-written CUDA kernel on CUDA tensors, ``csrc/fused_eigen_precond.cu``,
+and as its plain PyTorch version on CPU tensors; without the predivided
+eigenvalues, a matmul chain), inverse (damped Cholesky) and iterative
+(warm-started Newton–Schulz).  ``state_dict``/``load_state_dict``
+checkpoint and resume, and :class:`LambdaParamScheduler` schedules the
+hyperparameters.  ``ROADMAP.md`` lists what is not ported yet.
 """
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.enums import AssignmentStrategy
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.enums import DistributedStrategy
+from kfac_pytorch_tpu_torch.ops import IterativeConfig
 from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
+from kfac_pytorch_tpu_torch.scheduler import LambdaParamScheduler

@@ -3,8 +3,9 @@
 Port of the bucketed path of ``BaseKFACPreconditioner``
 (``kfac_pytorch_tpu/base_preconditioner.py``): registration through
 :class:`~kfac_pytorch_tpu_torch.capture.ModelCapture`, per-layer factor
-EMAs, the bucketed second-order stage on the KAISA grid, and the
-write-back of the preconditioned gradients into each layer's ``.grad``.
+EMAs, the bucketed second-order stage on the KAISA grid (eigen,
+inverse or iterative), the write-back of the preconditioned gradients
+into each layer's ``.grad``, and the checkpoint hooks of the engine.
 State lives on the device of the model's parameters.
 
 Across ranks the world is the default ``torch.distributed`` group, and
@@ -25,6 +26,8 @@ import torch
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.capture import ModelCapture
 from kfac_pytorch_tpu_torch.engine import KFACEngineMixin
+from kfac_pytorch_tpu_torch.engine import unpack_factor
+from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
 from kfac_pytorch_tpu_torch.parallel.mesh import kaisa_grid
@@ -65,9 +68,13 @@ BucketSecond`).
         precond_dtype: torch.dtype = torch.float32,
         cov_dtype: torch.dtype | None = None,
         grad_worker_fraction: float = 1.0,
+        compute_method: ComputeMethod = ComputeMethod.EIGEN,
+        prediv_eigenvalues: bool = True,
+        iterative_config: ops.IterativeConfig | None = None,
         loglevel: int = logging.DEBUG,
     ) -> None:
         self._capture = capture
+        self.compute_method = compute_method
         self.factor_dtype = factor_dtype
         self.inv_dtype = inv_dtype
         self.precond_dtype = precond_dtype
@@ -97,9 +104,12 @@ BucketSecond`).
         self.grid = kaisa_grid(grad_worker_fraction)
         self.plan = make_bucket_plan(self.helpers, n_cols=self.grid.cols)
         self._second_order = BucketedSecondOrder(
-            self.plan, inv_dtype=inv_dtype,
+            self.plan, compute_method=compute_method,
+            prediv_eigenvalues=prediv_eigenvalues,
+            iterative_config=iterative_config, inv_dtype=inv_dtype,
             precond_dtype=precond_dtype, device=self.device, grid=self.grid,
         )
+        self.iterative_config = self._second_order.iterative
         self.buckets = self._second_order.init_buckets()
         self.last_kl_scale: torch.Tensor | None = None
         self._init_engine(
@@ -186,21 +196,65 @@ BucketSecond`).
 
     @torch.no_grad()
     def _refresh(self, damping: float) -> None:
-        """Recompute the bucketed eigendecompositions."""
-        self.buckets = self._second_order.compute(self.layers, damping)
+        """Recompute the bucketed second-order state; the iterative
+        method warm-starts from the current roots."""
+        self.buckets = self._second_order.compute(
+            self.layers, damping, prev=self.buckets,
+            bootstrap=self._refresh_needs_bootstrap(),
+        )
+
+    def _refresh_needs_bootstrap(self) -> bool:
+        """Whether the next refresh runs the iterative method's deep
+        cold-capable depth: until the first refresh of a run, and after
+        a restore without a recompute.  Always False for the other
+        methods."""
+        return (
+            self.compute_method == ComputeMethod.ITERATIVE
+            and not self._iter_bootstrapped
+        )
 
     @torch.no_grad()
-    def _precondition(self, kl_clip: float | None, lr: float) -> None:
+    def _precondition(
+        self, damping: float, kl_clip: float | None, lr: float,
+    ) -> None:
         """Precondition every registered layer's ``.grad`` in place."""
         combined = {
             name: helper.get_grad() for name, helper in self.helpers.items()
         }
         out, scale = self._second_order.precondition(
-            self.buckets, combined, kl_clip, lr,
+            self.buckets, combined, damping, kl_clip, lr,
         )
         for name, helper in self.helpers.items():
             helper.set_grad(out[name])
         self.last_kl_scale = scale
+
+    def _checkpoint_layer_states(self) -> dict[str, LayerKFACState]:
+        return self.layers
+
+    @torch.no_grad()
+    def _restore_factors(self, layers) -> None:
+        """Load checkpointed factor EMAs onto ``self.device`` in
+        ``factor_dtype``."""
+        for base, factors in layers.items():
+            st = self.layers[base]
+            st.a_factor = unpack_factor(
+                factors['A'], self.factor_dtype, self.device,
+            )
+            st.g_factor = unpack_factor(
+                factors['G'], self.factor_dtype, self.device,
+            )
+
+    def _topology_descriptor(self) -> str:
+        """World and bucket layout, e.g. ``'world=4 grid=2x2
+        buckets=[a576g64:10 slots, ...]'``, which a mismatched restore
+        names."""
+        buckets = ', '.join(
+            f'{b.key}:{b.n_slots} slots' for b in self.plan.buckets
+        )
+        return (
+            f'world={self.grid.world} grid={self.grid.rows}x'
+            f'{self.grid.cols} buckets=[{buckets}]'
+        )
 
     def memory_usage(self) -> dict[str, int]:
         """Bytes of K-FAC state on this rank: the factor EMAs and this

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's Flax variables -> a torch state dict.
+"""Bridges from the JAX package: Flax variables -> a torch state dict,
+and a K-FAC checkpoint -> the port's ``load_state_dict`` payload.
 
 Takes the variables as nested mappings of array-likes (numpy arrays —
 convert JAX arrays with ``np.asarray`` first) and returns a
@@ -10,6 +11,10 @@ modules carry the Flax module names:
 * BatchNorm ``scale/bias`` (``params``) and ``mean/var``
   (``batch_stats``) -> ``weight/bias/running_mean/running_var``, with
   ``num_batches_tracked`` set to 0.
+
+:func:`jax_kfac_state_dict_to_torch` carries a JAX
+``KFACPreconditioner.state_dict(...)`` across, so a JAX run resumes in
+the port.
 """
 from __future__ import annotations
 
@@ -61,4 +66,26 @@ def flax_to_torch_state_dict(
         out[f'{name}.running_mean'] = _t(leaves['mean'])
         out[f'{name}.running_var'] = _t(leaves['var'])
         out[f'{name}.num_batches_tracked'] = torch.tensor(0)
+    return out
+
+
+def jax_kfac_state_dict_to_torch(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """A JAX ``KFACPreconditioner.state_dict(...)`` as the port's
+    ``load_state_dict`` payload: layer names go from ``/`` to ``.``,
+    numpy arrays become tensors (triu dicts keep their form), and the
+    counters and hyperparameters pass through."""
+    def tensor(x: Any) -> torch.Tensor:
+        return torch.from_numpy(np.array(x, copy=True))
+
+    def factor(x: Any) -> Any:
+        if isinstance(x, Mapping) and 'triu' in x:
+            return {'triu': tensor(x['triu']), 'dim': int(x['dim'])}
+        return tensor(x)
+
+    out = {k: v for k, v in sd.items() if k != 'layers'}
+    if 'layers' in sd:
+        out['layers'] = {
+            name.replace('/', '.'): {k: factor(v) for k, v in f.items()}
+            for name, f in sd['layers'].items()
+        }
     return out

@@ -1,4 +1,5 @@
-"""The K-FAC step engine: cadence, hyperparameters and the step body.
+"""The K-FAC step engine: cadence, hyperparameters, the step body and
+checkpoints.
 
 Port of the single-device core of ``KFACEngineMixin``
 (``kfac_pytorch_tpu/engine.py``).  The JAX engine dispatches one of four
@@ -8,27 +9,177 @@ order of ``engine.py:1463-1556``:
 1. on factor-update steps, factor contributions from the captured
    activations and output gradients, folded into the EMAs (the first
    update starts from the identity);
-2. on inverse-update steps, the bucketed eigendecomposition refresh;
+2. on inverse-update steps, the bucketed second-order refresh;
 3. every step, preconditioning of each layer's gradient and one global
    kl-clip scale, written back into the layers' ``.grad``.
 
 The call sequence is PyTorch's: ``loss.backward(); precond.step();
-optimizer.step()``.
+optimizer.step()``.  Checkpoints follow ``engine.py:102-292,2482-2700``:
+:meth:`KFACEngineMixin.state_dict` holds the step counter, the
+non-callable hyperparameters and the factor EMAs (never the
+decompositions, which a restore recomputes), in the JAX payload's keys.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Mapping
 
+import numpy as np
+import torch
+
+from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.hyperparams import resolve
 from kfac_pytorch_tpu_torch.hyperparams import validate_damping
+from kfac_pytorch_tpu_torch.scheduler import post_restore_bootstrapped
+
+#: The schedulable hyperparameters a checkpoint holds (when not callable).
+HYPERPARAM_KEYS = (
+    'factor_update_steps',
+    'inv_update_steps',
+    'damping',
+    'factor_decay',
+    'kl_clip',
+    'lr',
+)
+
+
+def save_hyperparams(precond: Any, sd: dict[str, Any]) -> None:
+    """Write the non-callable hyperparameters of ``precond`` into ``sd``."""
+    for name in HYPERPARAM_KEYS:
+        value = getattr(precond, f'_{name}')
+        if not callable(value):
+            sd[name] = value
+
+
+def load_hyperparams(precond: Any, sd: Mapping[str, Any]) -> None:
+    """Restore hyperparameters saved by :func:`save_hyperparams`."""
+    for name in HYPERPARAM_KEYS:
+        if name in sd:
+            setattr(precond, f'_{name}', sd[name])
+
+
+def pack_factor(factor: torch.Tensor, compress_symmetric: bool) -> Any:
+    """Checkpoint encoding of one factor EMA: a CPU tensor, or with
+    ``compress_symmetric`` the packed upper triangle
+    ``{'triu': [n(n+1)/2], 'dim': n}``."""
+    if compress_symmetric and factor.ndim >= 2:
+        return {
+            'triu': ops.get_triu(factor).cpu(),
+            'dim': int(factor.shape[-1]),
+        }
+    return factor.detach().cpu().clone()
+
+
+def unpack_factor(
+    packed: Any, dtype: torch.dtype, device: torch.device | str = 'cpu',
+) -> torch.Tensor:
+    """Inverse of :func:`pack_factor`, onto ``device`` in ``dtype``."""
+    if isinstance(packed, Mapping) and 'triu' in packed:
+        triu = torch.as_tensor(packed['triu'], device=device)
+        dim = int(packed['dim'])
+        shape = tuple(triu.shape[:-1]) + (dim, dim)
+        return ops.fill_triu(shape, triu).to(dtype)
+    return torch.as_tensor(packed).to(device=device, dtype=dtype)
+
+
+def saved_factor_shape(packed: Any) -> tuple[int, ...]:
+    """Logical (unpacked) shape of one checkpointed factor entry,
+    without unpacking it."""
+    if isinstance(packed, Mapping) and 'triu' in packed:
+        dim = int(packed['dim'])
+        return tuple(np.shape(packed['triu'])[:-1]) + (dim, dim)
+    return tuple(np.shape(packed))
+
+
+def validate_saved_factor_shapes(
+    layers: Mapping[str, Any],
+    registered: Mapping[str, Any],
+    saved_topology: str | None = None,
+    expected_topology: str | None = None,
+) -> None:
+    """Raise a per-layer error on factor-shape mismatches, naming the
+    saved and live topologies when they are known."""
+    def topology_hint() -> str:
+        parts = []
+        if saved_topology is not None:
+            parts.append(f'saved topology: {saved_topology}')
+        if expected_topology is not None:
+            parts.append(f'live topology: {expected_topology}')
+        return ' [' + '; '.join(parts) + ']' if parts else ''
+
+    for base, factors in layers.items():
+        st = registered[base]
+        for key, attr in (('A', 'a_factor'), ('G', 'g_factor')):
+            if not isinstance(factors, Mapping) or key not in factors:
+                continue
+            packed = factors[key]
+            if isinstance(packed, Mapping) and 'triu' in packed:
+                dim = int(packed['dim'])
+                expect = dim * (dim + 1) // 2
+                got = np.shape(packed['triu'])[-1]
+                if got != expect:
+                    raise ValueError(
+                        'checkpoint factor payload corrupt for layer '
+                        f'{base!r} (factor {key}): packed triu length '
+                        f'{got} != dim*(dim+1)/2 = {expect} for '
+                        f'dim={dim}' + topology_hint(),
+                    )
+            saved = saved_factor_shape(packed)
+            want = tuple(getattr(st, attr).shape)
+            if saved != want:
+                raise ValueError(
+                    f'checkpoint factor shape mismatch for layer {base!r} '
+                    f'(factor {key}): saved {saved} vs expected {want} — '
+                    'was this state dict saved under a different model '
+                    'configuration or world size / bucket layout?'
+                    + topology_hint(),
+                )
+
+
+def begin_load_state_dict(
+    precond: Any,
+    state_dict: Mapping[str, Any],
+    registered: Mapping[str, Any],
+    compute_inverses: bool,
+) -> Mapping[str, Any] | None:
+    """The head of ``load_state_dict``: restores the step counter and
+    hyperparameters, then returns the validated ``layers`` payload, or
+    ``None`` for a dict saved with ``include_factors=False`` (which
+    raises if ``compute_inverses``)."""
+    precond._steps = int(state_dict['steps'])
+    precond._last_inv_step = int(
+        state_dict.get('sketch_step', state_dict['steps']),
+    )
+    load_hyperparams(precond, state_dict)
+    layers = state_dict.get('layers')
+    if layers is None:
+        if compute_inverses:
+            raise ValueError(
+                'Cannot compute inverses from a state dict saved with '
+                'include_factors=False',
+            )
+        return None
+    unknown = set(layers) - set(registered)
+    if unknown:
+        raise ValueError(
+            f'state dict contains unregistered layers {sorted(unknown)}'
+            f' (registered: {sorted(registered)})',
+        )
+    validate_saved_factor_shapes(
+        layers, registered,
+        saved_topology=state_dict.get('topology'),
+        expected_topology=precond._topology_descriptor(),
+    )
+    return layers
 
 
 class KFACEngineMixin:
-    """Step cadence and hyperparameter resolution.
+    """Step cadence, hyperparameter resolution and checkpoints.
 
     Subclasses provide ``_update_factors(first_update)``,
-    ``_refresh(damping)`` and ``_precondition(kl_clip, lr)``,
-    and arm their capture through ``_arm_capture(bool)``.
+    ``_refresh(damping)``, ``_precondition(damping, kl_clip, lr)``,
+    ``_checkpoint_layer_states()``, ``_restore_factors(layers)`` and
+    ``_topology_descriptor()``, and arm their capture through
+    ``_arm_capture(bool)``.
     """
 
     def _init_engine(
@@ -50,7 +201,12 @@ class KFACEngineMixin:
         self._kl_clip = kl_clip
         self._lr = lr
         self._steps = 0
+        self._last_inv_step = 0
         self._factors_initialized = False
+        # The iterative method's warm-start flag: False until a refresh
+        # has produced roots in every slot (scheduler.
+        # iterative_refresh_iters reads it; inert for the other methods).
+        self._iter_bootstrapped = False
         self._arm_capture(self._step_gating()[0])
 
     @property
@@ -111,9 +267,79 @@ class KFACEngineMixin:
             self._factors_initialized = True
         if update_inverses:
             self._refresh(self.damping)
-        self._precondition(self.kl_clip, self.lr)
+            self._last_inv_step = self._steps
+            self._iter_bootstrapped = True
+        self._precondition(self.damping, self.kl_clip, self.lr)
         self._steps += 1
         # Arm (or disarm) the hooks for the NEXT forward/backward.
+        self._arm_capture(self._step_gating()[0])
+
+    # -- checkpoints ----------------------------------------------------
+
+    def state_dict(
+        self,
+        include_factors: bool = True,
+        compress_symmetric: bool = False,
+        include_topology: bool = False,
+    ) -> dict[str, Any]:
+        """A checkpointable dict, in the JAX payload's keys.
+
+        ``steps``, ``sketch_step`` (the last inverse-update step), the
+        non-callable hyperparameters and, with ``include_factors``,
+        ``layers: {name: {'A', 'G'}}`` — CPU tensors, or with
+        ``compress_symmetric`` packed upper triangles ``{'triu',
+        'dim'}``.  ``include_topology`` records the world and bucket
+        layout under ``topology``, which a mismatched restore names.
+        Across ranks every rank holds the same averaged factor EMAs, so
+        every rank's dict is the same.
+        """
+        sd: dict[str, Any] = {
+            'steps': self._steps,
+            'sketch_step': self._last_inv_step,
+        }
+        save_hyperparams(self, sd)
+        if include_topology:
+            sd['topology'] = self._topology_descriptor()
+        if include_factors:
+            sd['layers'] = {
+                base: {
+                    'A': pack_factor(st.a_factor, compress_symmetric),
+                    'G': pack_factor(st.g_factor, compress_symmetric),
+                }
+                for base, st in self._checkpoint_layer_states().items()
+            }
+        return sd
+
+    def load_state_dict(
+        self,
+        state_dict: Mapping[str, Any],
+        compute_inverses: bool = True,
+    ) -> None:
+        """Restore from :meth:`state_dict` (or from a JAX checkpoint
+        carried across by :func:`~kfac_pytorch_tpu_torch.convert.
+        jax_kfac_state_dict_to_torch`).
+
+        Factor EMAs load by layer name.  With ``compute_inverses`` the
+        second-order state is recomputed at once, the iterative method
+        at its bootstrap depth, after which its refreshes run warm;
+        without, the next refresh runs at bootstrap depth.  Across ranks
+        this is collective: every rank calls it, and the recompute runs
+        the column gather.  The capture hooks are re-armed for the next
+        step.
+        """
+        layers = begin_load_state_dict(
+            self, state_dict, self._checkpoint_layer_states(),
+            compute_inverses,
+        )
+        if layers is not None:
+            self._restore_factors(layers)
+            self._factors_initialized = True
+            if compute_inverses:
+                self._iter_bootstrapped = False
+                self._refresh(self.damping)
+            self._iter_bootstrapped = post_restore_bootstrapped(
+                full_recompute=compute_inverses,
+            )
         self._arm_capture(self._step_gating()[0])
 
     # -- hooks the preconditioner provides ------------------------------
@@ -127,5 +353,16 @@ class KFACEngineMixin:
     def _refresh(self, damping: float) -> None:
         raise NotImplementedError
 
-    def _precondition(self, kl_clip: float | None, lr: float) -> None:
+    def _precondition(
+        self, damping: float, kl_clip: float | None, lr: float,
+    ) -> None:
+        raise NotImplementedError
+
+    def _checkpoint_layer_states(self) -> Mapping[str, Any]:
+        raise NotImplementedError
+
+    def _restore_factors(self, layers: Mapping[str, Any]) -> None:
+        raise NotImplementedError
+
+    def _topology_descriptor(self) -> str | None:
         raise NotImplementedError

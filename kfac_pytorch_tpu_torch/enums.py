@@ -21,7 +21,7 @@ class ComputeMethod(Enum):
 
     EIGEN preconditions in the factor eigenbasis; INVERSE uses explicit
     damped inverses; ITERATIVE computes the same inverses by
-    Newton–Schulz.  This port implements EIGEN only.
+    Newton–Schulz.
     """
 
     EIGEN = 1

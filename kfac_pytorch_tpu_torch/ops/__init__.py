@@ -1,4 +1,5 @@
-"""K-FAC math on tensors: covariances, EMA/kl-clip, eigen, fused kernel."""
+"""K-FAC math on tensors: covariances, EMA/kl-clip, eigen, inverse,
+Newton–Schulz, triu packing, fused kernel."""
 from kfac_pytorch_tpu_torch.ops.cov import append_bias_ones
 from kfac_pytorch_tpu_torch.ops.cov import conv2d_a_factor
 from kfac_pytorch_tpu_torch.ops.cov import conv2d_a_rows
@@ -27,6 +28,23 @@ from kfac_pytorch_tpu_torch.ops.fused_precond import (
 from kfac_pytorch_tpu_torch.ops.fused_precond import (
     fused_eigen_precondition_sharded_reference,
 )
+from kfac_pytorch_tpu_torch.ops.inverse import batched_damped_inv
+from kfac_pytorch_tpu_torch.ops.inverse import compute_factor_inv
+from kfac_pytorch_tpu_torch.ops.inverse import compute_factor_inv_general
+from kfac_pytorch_tpu_torch.ops.inverse import precondition_grad_inverse
+from kfac_pytorch_tpu_torch.ops.iterative import (
+    batched_newton_schulz_inv_sqrt,
+)
+from kfac_pytorch_tpu_torch.ops.iterative import (
+    batched_newton_schulz_inverse,
+)
+from kfac_pytorch_tpu_torch.ops.iterative import damped_stack
+from kfac_pytorch_tpu_torch.ops.iterative import IterativeConfig
+from kfac_pytorch_tpu_torch.ops.iterative import NewtonSchulzResult
+from kfac_pytorch_tpu_torch.ops.iterative import spectral_norm_bound
+from kfac_pytorch_tpu_torch.ops.triu import fill_triu
+from kfac_pytorch_tpu_torch.ops.triu import get_triu
+from kfac_pytorch_tpu_torch.ops.triu import NonSquareTensorError
 from kfac_pytorch_tpu_torch.ops.update import ema_update_factor
 from kfac_pytorch_tpu_torch.ops.update import grad_scale_sum
 from kfac_pytorch_tpu_torch.ops.update import kl_clip_scale

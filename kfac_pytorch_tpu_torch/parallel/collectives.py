@@ -13,8 +13,9 @@ issued by hand:
   precondition their column's slots and gather the other columns'.
 
 Every all-gather moves equal sizes from every rank: uneven shares are
-padded with identity slots (eigenvectors) and zero slots (eigenvalue
-grids), and bucket plans already pad every column to ``seg`` slots
+padded with identity slots (eigenvectors, inverses) and zero slots
+(eigenvalues, per-slot vectors), and bucket plans already pad every
+column to ``seg`` slots
 (zero gradient slots).  For the all-gathers a group of ``None`` (a
 grid axis of extent 1, which gets no group) or of one rank moves
 nothing; for the all-reduce ``None`` is the default group, the world.
@@ -121,31 +122,33 @@ def _pad_slots(x: torch.Tensor, per: int, identity: bool) -> torch.Tensor:
 
 
 def all_gather_decompositions(
-    shares: Sequence[tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    shares: Sequence[tuple[torch.Tensor, ...]],
     segs: Sequence[int],
     group,
-) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """Phase 2: every bucket's ``(qa, qg, dgda)`` over a grid column.
+    identity: Sequence[bool],
+) -> list[tuple[torch.Tensor, ...]]:
+    """Phase 2: every bucket's decomposition stacks over a grid column.
 
     ``shares[i]`` holds this rank's slots of bucket ``i``'s column slice
-    (:func:`share_bounds` of ``segs[i]`` over the column's ranks).  Each
-    share is padded to ``ceil(seg / rows)`` slots, all buckets go in one
+    (:func:`share_bounds` of ``segs[i]`` over the column's ranks): one
+    ``[share, ...]`` stack per field of the method, such as ``(qa, qg,
+    dgda)`` or ``(a_inv, g_inv)``.  ``identity[j]`` says whether field
+    ``j`` pads with identity blocks (square stacks: eigenvectors,
+    inverses) or with zeros (eigenvalues, per-slot vectors).  Each share
+    is padded to ``ceil(seg / rows)`` slots, all buckets go in one
     all-gather, and the result is trimmed back to ``seg`` slots.
     """
     if not _gathers(group):
-        return list(shares)
+        return [tuple(s) for s in shares]
     n = _group_size(group)
+    k = len(identity)
     flat: list[torch.Tensor] = []
-    for (qa, qg, dgda), seg in zip(shares, segs):
+    for share, seg in zip(shares, segs):
         per = -(-seg // n)
-        flat += [
-            _pad_slots(qa, per, identity=True),
-            _pad_slots(qg, per, identity=True),
-            _pad_slots(dgda, per, identity=False),
-        ]
+        flat += [_pad_slots(t, per, eye) for t, eye in zip(share, identity)]
     gathered = all_gather_stacks(flat, group)
     return [
-        tuple(t[:seg] for t in gathered[3 * i:3 * i + 3])
+        tuple(t[:seg] for t in gathered[k * i:k * (i + 1)])
         for i, seg in enumerate(segs)
     ]
 

@@ -15,6 +15,11 @@ defaults are the JAX package's; the call sequence is PyTorch's own::
         precond.step()                     # preconditions .grad in place
         opt.step()
 
+Checkpoints are the stateful calls of the original torch library::
+
+    torch.save({'precond': precond.state_dict(), ...}, path)
+    precond.load_state_dict(torch.load(path)['precond'])  # recomputes
+
 Across ranks (``torchrun --nproc-per-node N``), initialize
 ``torch.distributed``, wrap the model in ``DistributedDataParallel`` and
 pass the wrapper or the bare module; ``grad_worker_fraction`` picks
@@ -41,6 +46,7 @@ from kfac_pytorch_tpu_torch.enums import AssignmentStrategy
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.enums import DistributedStrategy
 from kfac_pytorch_tpu_torch.enums import resolve_grad_worker_fraction
+from kfac_pytorch_tpu_torch.ops import IterativeConfig
 from kfac_pytorch_tpu_torch.parallel.mesh import data_world
 
 
@@ -73,9 +79,18 @@ class KFACPreconditioner(BaseKFACPreconditioner):
             :class:`DistributedStrategy` or a float), resolved at the
             world size of ``torch.distributed``'s default group (1 when
             it is not initialized).
-        compute_method: ``'eigen'`` (the only method ported).
-        compute_eigenvalue_outer_product: predivide
-            ``1/(dg ⊗ da + damping)`` at refresh time (must be True).
+        compute_method: ``'eigen'`` (eigenbasis preconditioning),
+            ``'inverse'`` (damped Cholesky inverses) or ``'iterative'``
+            (the same inverses by warm-started Newton–Schulz, matmuls
+            only; needs the bucketed stage).
+        iterative_config: the Newton–Schulz knobs
+            (:class:`~kfac_pytorch_tpu_torch.ops.IterativeConfig`;
+            default ``IterativeConfig()``); only with
+            ``compute_method='iterative'``.
+        compute_eigenvalue_outer_product: eigen only: predivide
+            ``1/(dg ⊗ da + damping)`` at refresh time and run the fused
+            kernel (requires ``colocate_factors``), or keep the clamped
+            eigenvalues and divide by the live damping every step.
         bucketed: the bucketed second-order stage (must be True or None).
         factor_dtype, inv_dtype: dtypes of the factor EMAs and of the
             decompositions (default f32).
@@ -151,14 +166,25 @@ class KFACPreconditioner(BaseKFACPreconditioner):
                 'colocate_factors must be True to use '
                 'compute_eigenvalue_outer_product',
             )
-        if compute_method == ComputeMethod.INVERSE:
-            raise _unported("compute_method='inverse'", 'Queue A item 8')
         if compute_method == ComputeMethod.ITERATIVE:
-            raise _unported("compute_method='iterative'", 'Queue A item 9')
+            if bucketed is False:
+                raise ValueError(
+                    "compute_method='iterative' requires the bucketed "
+                    'second-order stage: the Newton–Schulz refresh is a '
+                    'batched matmul iteration over the bucket stacks',
+                )
+            if iterative_config is None:
+                iterative_config = IterativeConfig()
+            elif not isinstance(iterative_config, IterativeConfig):
+                raise TypeError(
+                    'iterative_config must be an IterativeConfig or '
+                    f'None, got {type(iterative_config).__name__}',
+                )
+        elif iterative_config is not None:
+            raise ValueError(
+                "iterative_config requires compute_method='iterative'",
+            )
         unported = [
-            ('iterative_config', iterative_config is not None, 'item 9'),
-            ('compute_eigenvalue_outer_product=False',
-             not compute_eigenvalue_outer_product, 'item 4b'),
             ('bucketed=False', bucketed is False, 'item 4b'),
             ('topology', topology is not None, 'item 29'),
             ('accumulation_steps > 1', accumulation_steps != 1, 'item 14'),
@@ -202,7 +228,6 @@ class KFACPreconditioner(BaseKFACPreconditioner):
         )
         self.assignment_strategy = assignment_strategy
         self.colocate_factors = colocate_factors
-        self.compute_method = compute_method
         self.skip_layers = tuple(skip_layers)
         if isinstance(model, nn.parallel.DistributedDataParallel):
             model = model.module
@@ -228,5 +253,8 @@ class KFACPreconditioner(BaseKFACPreconditioner):
             ),
             cov_dtype=cov_dtype,
             grad_worker_fraction=self.grad_worker_fraction,
+            compute_method=compute_method,
+            prediv_eigenvalues=compute_eigenvalue_outer_product,
+            iterative_config=iterative_config,
             loglevel=loglevel,
         )

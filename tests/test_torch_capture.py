@@ -179,10 +179,8 @@ def test_step_without_backward_raises():
 
 
 @pytest.mark.parametrize('kwargs,item', [
-    (dict(compute_method='inverse'), 'item 8'),
-    (dict(compute_method='iterative'), 'item 9'),
-    (dict(compute_eigenvalue_outer_product=False), 'item 4b'),
     (dict(bucketed=False), 'item 4b'),
+    (dict(compute_method='inverse', bucketed=False), 'item 4b'),
     (dict(mesh=object()), 'item 7'),
     (dict(accumulation_steps=2), 'item 14'),
     (dict(lowrank_rank=8), 'item 10'),

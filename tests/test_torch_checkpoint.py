@@ -1,0 +1,363 @@
+"""Checkpoints of the port: ``state_dict`` / ``load_state_dict``.
+
+* A JAX ``KFACPreconditioner.state_dict(...)`` carried across by
+  ``jax_kfac_state_dict_to_torch`` and loaded into the port gives the
+  same next-step preconditioned gradients as the JAX engine loaded from
+  the same dict (LeNet at 16x16, batch 8; factor EMAs from two steps,
+  the restore refresh at the iterative method's bootstrap depth; the
+  next step runs at the initial weights on the first batch).  Relative
+  Frobenius error ``<= 1e-4`` per parameter, the bar of
+  ``tests/test_torch_preconditioner.py``.  The bridge's renaming of
+  nested layers (``layer1_0/conv1``) is checked on its own.
+* The port's dict round-trips through ``torch.save``/``torch.load``,
+  dense and packed as upper triangles, bit for bit.
+* A resume on the CPU equals the uninterrupted run bit for bit: saved
+  right after a refresh step, the restore's recompute decomposes the
+  same factor EMAs the saving run held.
+* The iterative method's restore recomputes its roots cold at bootstrap
+  depth (30 iterations), where the saving run held warm roots (3
+  iterations from the previous interval's): on ``TinyModel`` they agree
+  at ``atol 1e-4``.  The JAX package's own test of this
+  (``tests/test_iterative.py::TestWarmStart::
+  test_restore_forces_bootstrap_depth``) asks ``atol 1e-6`` and fails
+  on the reference itself (8.8e-6 apart there), so that bar is not
+  copied.
+"""
+from __future__ import annotations
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from kfac_pytorch_tpu.models.tiny import LeNet as JaxLeNet
+from kfac_pytorch_tpu.preconditioner import (
+    KFACPreconditioner as JaxPreconditioner,
+)
+from kfac_pytorch_tpu_torch import KFACPreconditioner
+from kfac_pytorch_tpu_torch import ops
+from kfac_pytorch_tpu_torch.convert import flax_to_torch_state_dict
+from kfac_pytorch_tpu_torch.convert import jax_kfac_state_dict_to_torch
+from kfac_pytorch_tpu_torch.models import LeNet
+from kfac_pytorch_tpu_torch.models import resnet20
+from kfac_pytorch_tpu_torch.models import TinyModel
+
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.torch_port
+
+HP = dict(factor_update_steps=1, inv_update_steps=2, damping=0.003,
+          kl_clip=0.001, lr=0.1)
+
+
+def batches(n):
+    rng = np.random.default_rng(11)
+    return [
+        (rng.standard_normal((4, 16, 16, 3)).astype(np.float32),
+         rng.integers(0, 10, size=(4,)))
+        for _ in range(n)
+    ]
+
+
+def torch_x(x):
+    return torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
+
+
+def rel_err(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# -- a JAX checkpoint resumes in the port ---------------------------------
+
+JAX_CASES = [('eigen', False), ('iterative', True)]
+JAX_IDS = [f'{m}-{"triu" if t else "dense"}' for m, t in JAX_CASES]
+
+
+def lenet_batches(n):
+    rng = np.random.default_rng(3)
+    return [
+        (rng.standard_normal((8, 16, 16, 1)).astype(np.float32),
+         rng.integers(0, 10, size=(8,)))
+        for _ in range(n)
+    ]
+
+
+def jax_xent(logits, labels):
+    logp = jax.nn.log_softmax(logits)
+    return -jnp.mean(jnp.take_along_axis(logp, labels[:, None], axis=1))
+
+
+@pytest.mark.parametrize('method,triu', JAX_CASES, ids=JAX_IDS)
+def test_jax_checkpoint_resumes_in_the_port(method, triu):
+    model = JaxLeNet()
+    data = lenet_batches(2)
+    variables = jax.tree.map(
+        np.asarray, model.init(jax.random.PRNGKey(4), data[0][0]),
+    )
+
+    def engine():
+        return JaxPreconditioner(model, loss_fn=jax_xent,
+                                 compute_method=method, **HP)
+
+    saver = engine()
+    state = saver.init(variables, data[0][0])
+    for x, y in data:
+        _, _, _, state = saver.step(variables, state, x,
+                                    loss_args=(jnp.asarray(y),))
+    sd = saver.state_dict(state, compress_symmetric=triu)
+
+    x, y = data[0]
+    loader = engine()
+    lstate = loader.load_state_dict(
+        sd, loader.init(variables, x), compute_inverses=True,
+    )
+    _, _, grads, _ = loader.step(variables, lstate, x,
+                                 loss_args=(jnp.asarray(y),))
+    want = flax_to_torch_state_dict({'params': jax.tree.map(np.asarray,
+                                                            grads)})
+
+    net = LeNet(image_size=16)
+    net.load_state_dict(flax_to_torch_state_dict(variables), strict=True)
+    precond = KFACPreconditioner(net, compute_method=method, **HP)
+    precond.load_state_dict(jax_kfac_state_dict_to_torch(sd))
+    assert precond.steps == sd['steps'] == 2
+    for name, st in precond.layers.items():
+        np.testing.assert_array_equal(st.a_factor.numpy(),
+                                      np.asarray(state[name].a_factor))
+    F.cross_entropy(net(torch_x(x)), torch.from_numpy(y)).backward()
+    precond.step()
+    for name, p in net.named_parameters():
+        err = rel_err(p.grad.numpy(), want[name].numpy())
+        assert err <= 1e-4, (name, err)
+
+
+def test_bridge_converts_names_arrays_and_triu():
+    sd = {
+        'steps': 7, 'sketch_step': 6, 'damping': 0.003, 'lr': 0.1,
+        'layers': {
+            'layer1_0/conv1': {
+                'A': np.eye(3, dtype=np.float32),
+                'G': {'triu': np.arange(3, dtype=np.float32), 'dim': 2},
+            },
+        },
+    }
+    out = jax_kfac_state_dict_to_torch(sd)
+    assert {k: out[k] for k in ('steps', 'sketch_step', 'damping', 'lr')} \
+        == {'steps': 7, 'sketch_step': 6, 'damping': 0.003, 'lr': 0.1}
+    layer = out['layers']['layer1_0.conv1']
+    assert torch.equal(layer['A'], torch.eye(3))
+    assert torch.equal(layer['G']['triu'], torch.arange(3.0))
+    assert layer['G']['dim'] == 2
+
+
+# -- the port's own checkpoints -------------------------------------------
+
+RESUME_STEPS = 8
+SAVE_AT = 3  # a refresh step with inv_update_steps=3
+RESUME_HP = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
+                 kl_clip=0.001, lr=0.1)
+METHODS = {
+    'eigen': {},
+    'inverse': dict(compute_method='inverse'),
+    'eigen_noprediv': dict(compute_eigenvalue_outer_product=False),
+}
+
+
+def train(method, steps, save=None, resume=None):
+    """ResNet-20, SGD with momentum, ``steps`` K-FAC steps.  ``save``:
+    ``(step, compress_symmetric)``, a checkpoint taken after that step;
+    ``resume``: a checkpoint to start from.  Returns the final
+    parameters, the checkpoint, the preconditioner and its buckets at
+    the save."""
+    torch.manual_seed(0)
+    net = resnet20(device='cpu', seed=0)
+    opt = torch.optim.SGD(net.parameters(), lr=0.1, momentum=0.9)
+    precond = KFACPreconditioner(net, **RESUME_HP, **METHODS[method])
+    start, ckpt, held = 0, None, None
+    if resume is not None:
+        net.load_state_dict(resume['model'])
+        opt.load_state_dict(resume['opt'])
+        precond.load_state_dict(resume['kfac'])
+        start = precond.steps
+    data = batches(steps)
+    for step in range(start, steps):
+        x, y = data[step]
+        opt.zero_grad()
+        F.cross_entropy(net(torch_x(x)), torch.from_numpy(y)).backward()
+        precond.step()
+        opt.step()
+        if save is not None and step == save[0]:
+            ckpt = copy.deepcopy({
+                'model': net.state_dict(), 'opt': opt.state_dict(),
+                'kfac': precond.state_dict(compress_symmetric=save[1]),
+            })
+            held = copy.deepcopy(precond.buckets)
+    params = [p.detach().clone() for p in net.parameters()]
+    return params, ckpt, precond, held
+
+
+@pytest.fixture(scope='module')
+def runs():
+    """``(method, triu) -> (uninterrupted, checkpoint, saving run's
+    buckets, resumed)``, each run once."""
+    cache = {}
+
+    def get(method, triu):
+        if (method, triu) not in cache:
+            full, ckpt, _, held = train(
+                method, RESUME_STEPS, save=(SAVE_AT, triu),
+            )
+            resumed, _, precond, _ = train(method, RESUME_STEPS,
+                                           resume=ckpt)
+            cache[method, triu] = (full, ckpt, held, resumed, precond)
+        return cache[method, triu]
+    return get
+
+
+RESUME_CASES = [('eigen', False), ('eigen', True), ('inverse', False),
+                ('inverse', True), ('eigen_noprediv', False)]
+
+
+@pytest.mark.parametrize(
+    'method,triu', RESUME_CASES,
+    ids=[f'{m}-{"triu" if t else "dense"}' for m, t in RESUME_CASES],
+)
+def test_resume_equals_uninterrupted_run_bitwise(runs, method, triu):
+    full, ckpt, _, resumed, precond = runs(method, triu)
+    assert ckpt['kfac']['steps'] == SAVE_AT + 1
+    assert precond.steps == RESUME_STEPS
+    assert all(torch.equal(a, b) for a, b in zip(full, resumed))
+
+
+@pytest.mark.parametrize('triu', [False, True], ids=['dense', 'triu'])
+def test_state_dict_round_trips_through_torch_save(tmp_path, triu):
+    net = resnet20(device='cpu', seed=0)
+    precond = KFACPreconditioner(net, **RESUME_HP)
+    x, y = batches(1)[0]
+    for _ in range(2):
+        F.cross_entropy(net(torch_x(x)), torch.from_numpy(y)).backward()
+        precond.step()
+    sd = precond.state_dict(compress_symmetric=triu, include_topology=True)
+    torch.save(sd, tmp_path / 'kfac.pt')
+    loaded = torch.load(tmp_path / 'kfac.pt')
+    other = KFACPreconditioner(resnet20(device='cpu', seed=1), **RESUME_HP)
+    other.load_state_dict(loaded)
+    assert other.steps == 2 and other._factors_initialized
+    for key in ('damping', 'lr', 'kl_clip', 'factor_decay',
+                'factor_update_steps', 'inv_update_steps'):
+        assert getattr(other, f'_{key}') == getattr(precond, f'_{key}')
+    for name, st in precond.layers.items():
+        assert torch.equal(other.layers[name].a_factor, st.a_factor)
+        assert torch.equal(other.layers[name].g_factor, st.g_factor)
+    entry = sd['layers']['layer3_2.conv2']['A']
+    if triu:
+        n = entry['dim']
+        assert entry['triu'].shape == (n * (n + 1) // 2,)
+    else:
+        assert entry.device.type == 'cpu' and entry.shape == (576, 576)
+    assert sd['topology'].startswith('world=1 grid=1x1 buckets=[a576g64')
+
+
+def test_restore_recomputes_the_decompositions():
+    """``compute_inverses=True`` refreshes at once; without it the
+    restored engine keeps its stacks until the next refresh step."""
+    net = resnet20(device='cpu', seed=0)
+    precond = KFACPreconditioner(net, **RESUME_HP)
+    x, y = batches(1)[0]
+    F.cross_entropy(net(torch_x(x)), torch.from_numpy(y)).backward()
+    precond.step()
+    sd = precond.state_dict()
+    fresh = KFACPreconditioner(resnet20(device='cpu', seed=0), **RESUME_HP)
+    fresh.load_state_dict(sd, compute_inverses=False)
+    assert all(not bs.qa.any() for bs in fresh.buckets.values())
+    fresh.load_state_dict(sd)
+    for key, bs in fresh.buckets.items():
+        assert torch.equal(bs.dgda, precond.buckets[key].dgda)
+
+
+def test_restore_rearms_capture_for_the_next_step():
+    net = resnet20(device='cpu', seed=0)
+    precond = KFACPreconditioner(
+        net, **dict(RESUME_HP, factor_update_steps=2),
+    )
+    assert precond._capture.armed
+    sd = dict(precond.state_dict(), steps=3)
+    precond.load_state_dict(sd, compute_inverses=False)
+    assert not precond._capture.armed  # step 3 updates no factors
+    precond.load_state_dict(dict(sd, steps=4), compute_inverses=False)
+    assert precond._capture.armed
+
+
+def test_restore_rejects_bad_payloads():
+    precond = KFACPreconditioner(resnet20(device='cpu', seed=0), **RESUME_HP)
+    sd = precond.state_dict(include_topology=True)
+    with pytest.raises(ValueError, match='include_factors=False'):
+        precond.load_state_dict(precond.state_dict(include_factors=False))
+    precond.load_state_dict(precond.state_dict(include_factors=False),
+                            compute_inverses=False)
+    with pytest.raises(ValueError, match='unregistered layers'):
+        precond.load_state_dict(dict(sd, layers={'nope': {}}))
+    bad = copy.deepcopy(sd)
+    bad['layers']['conv1']['A'] = torch.zeros(5, 5)
+    with pytest.raises(ValueError, match="'conv1'.*topology"):
+        precond.load_state_dict(bad)
+    short = copy.deepcopy(sd)
+    short['layers']['conv1']['G'] = {'triu': torch.zeros(4), 'dim': 16}
+    with pytest.raises(ValueError, match='corrupt'):
+        precond.load_state_dict(short)
+
+
+def test_iterative_restore_roots_match_the_saved_run():
+    """``TinyModel`` as the JAX test runs it (batch 16, refreshes at
+    steps 0 and 2, saved after step 2).  The restore refresh runs at
+    bootstrap depth and leaves the engine warm; its cold roots agree
+    with the saving run's warm ones at ``atol 1e-4``.  A restore without
+    a recompute leaves the next refresh at bootstrap depth."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((16, 10)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=(16,)))
+    torch.manual_seed(2)
+    hp = dict(compute_method='iterative', **HP)
+    net = TinyModel()
+    saver = KFACPreconditioner(net, **hp)
+    for _ in range(3):
+        net.zero_grad()
+        F.cross_entropy(net(x), y).backward()
+        saver.step()
+    sd = saver.state_dict()
+    depths = []
+    orig = ops.batched_newton_schulz_inverse
+
+    def spy(*a, **k):
+        depths.append(k['iters'])
+        return orig(*a, **k)
+
+    ops.batched_newton_schulz_inverse = spy
+    try:
+        warm = KFACPreconditioner(TinyModel(), **hp)
+        warm.load_state_dict(sd)
+        n = len(warm.plan.buckets)
+        assert depths == [30] * (2 * n)
+        assert not warm._refresh_needs_bootstrap()
+        for key, bs in warm.buckets.items():
+            for side in ('a_inv', 'g_inv'):
+                np.testing.assert_allclose(
+                    getattr(bs, side).numpy(),
+                    getattr(saver.buckets[key], side).numpy(),
+                    rtol=0, atol=1e-4, err_msg=f'{key} {side}',
+                )
+            assert float(bs.iter_res_a.max()) <= 5e-2
+        cold = KFACPreconditioner(TinyModel(), **hp)
+        cold.load_state_dict(sd, compute_inverses=False)
+        assert cold._refresh_needs_bootstrap()
+        depths.clear()
+        cold._refresh(cold.damping)
+        assert depths == [30] * (2 * n)
+    finally:
+        ops.batched_newton_schulz_inverse = orig

@@ -4,7 +4,10 @@ Four gloo ranks on the CPU, launched as subprocesses of this file
 (``python tests/test_torch_distributed.py --worker RANK WORLD INIT OUT``;
 they import no JAX), run COMM-OPT, HYBRID-OPT and MEM-OPT in turn on
 ``TinyModel`` (``[16, 10]`` inputs) and ``LeNet`` (16x16, for the conv
-buckets).  Each rank wraps the model in ``DistributedDataParallel``,
+buckets), then ``compute_method='inverse'`` and ``'iterative'`` under
+HYBRID-OPT on ``TinyModel`` (a column gather of the inverses and a row
+gather of the gradients).  Each rank wraps the model in
+``DistributedDataParallel``,
 takes its quarter of the global batch of 16 and trains 5 SGD steps
 (lr 0.1) with ``factor_update_steps=1, inv_update_steps=2``, so the
 trajectory crosses refreshes at steps 0, 2 and 4.  The reference is the
@@ -53,6 +56,9 @@ HP = dict(factor_update_steps=1, inv_update_steps=2, damping=0.003,
           kl_clip=0.001, lr=LR)
 MODELS = ('tiny', 'lenet')
 STRATEGIES = ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT')
+#: ``(model, strategy, compute_method)`` runs of the other methods.
+METHOD_CASES = [('tiny', 'HYBRID_OPT', 'inverse'),
+                ('tiny', 'HYBRID_OPT', 'iterative')]
 SPAWN_TIMEOUT_S = 150
 #: Local batch size of each rank, per case.
 UNEQUAL_BATCHES = {'one_short': (4, 4, 4, 3), 'mean_equal': (3, 4, 5, 4)}
@@ -75,6 +81,46 @@ def port_input(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+def train_rank(rank, world, weights, name, strategy, method='eigen'):
+    """One rank's trajectory of ``name`` under ``strategy``."""
+    x, y = data(name)
+    q = len(x) // world
+    xl = port_input(x[rank * q:(rank + 1) * q])
+    yl = torch.from_numpy(y[rank * q:(rank + 1) * q])
+    model = port_model(name)
+    model.load_state_dict(weights[name], strict=True)
+    ddp = torch.nn.parallel.DistributedDataParallel(model)
+    precond = KFACPreconditioner(
+        ddp, grad_worker_fraction=DistributedStrategy[strategy],
+        compute_method=method, **HP,
+    )
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+    steps = []
+    for _ in range(STEPS):
+        opt.zero_grad()
+        F.cross_entropy(ddp(xl), yl).backward()
+        precond.step()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        factors = {
+            n: (st.a_factor.clone(), st.g_factor.clone())
+            for n, st in precond.layers.items()
+        }
+        opt.step()
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        every = [torch.empty_like(flat) for _ in range(world)]
+        dist.all_gather(every, flat)
+        steps.append(dict(
+            grads=grads, factors=factors,
+            params_equal=all(torch.equal(flat, o) for o in every),
+        ))
+    grid = precond.grid
+    return precond, dict(
+        steps=steps,
+        grid=(grid.rows, grid.cols, grid.row, grid.col),
+        second_order_bytes=precond.memory_usage()['second_order'],
+    )
+
+
 def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
     """One rank: every (model, strategy) trajectory, saved to ``out``."""
     dist.init_process_group(
@@ -84,53 +130,24 @@ def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
     weights = torch.load(out / 'init.pt')
     results = {}
     for name in MODELS:
-        x, y = data(name)
-        q = len(x) // world
-        xl = port_input(x[rank * q:(rank + 1) * q])
-        yl = torch.from_numpy(y[rank * q:(rank + 1) * q])
         for strategy in STRATEGIES:
-            model = port_model(name)
-            model.load_state_dict(weights[name], strict=True)
-            ddp = torch.nn.parallel.DistributedDataParallel(model)
-            precond = KFACPreconditioner(
-                ddp, grad_worker_fraction=DistributedStrategy[strategy],
-                **HP,
-            )
-            opt = torch.optim.SGD(model.parameters(), lr=LR)
-            steps = []
-            for _ in range(STEPS):
-                opt.zero_grad()
-                F.cross_entropy(ddp(xl), yl).backward()
-                precond.step()
-                grads = {
-                    n: p.grad.clone() for n, p in model.named_parameters()
-                }
-                factors = {
-                    n: (st.a_factor.clone(), st.g_factor.clone())
-                    for n, st in precond.layers.items()
-                }
-                opt.step()
-                flat = torch.cat(
-                    [p.detach().reshape(-1) for p in model.parameters()],
-                )
-                every = [torch.empty_like(flat) for _ in range(world)]
-                dist.all_gather(every, flat)
-                steps.append(dict(
-                    grads=grads, factors=factors,
-                    params_equal=all(torch.equal(flat, o) for o in every),
-                ))
-            grid = precond.grid
-            results[name, strategy] = dict(
-                steps=steps,
-                grid=(grid.rows, grid.cols, grid.row, grid.col),
-                held={
-                    b.key: (b.seg, tuple(precond.buckets[b.key].qa.shape),
-                            tuple(precond.buckets[b.key].dgda.shape),
-                            precond._second_order.local_slots(b))
-                    for b in precond.plan.buckets
-                },
-                second_order_bytes=precond.memory_usage()['second_order'],
-            )
+            precond, res = train_rank(rank, world, weights, name, strategy)
+            res['held'] = {
+                b.key: (b.seg, tuple(precond.buckets[b.key].qa.shape),
+                        tuple(precond.buckets[b.key].dgda.shape),
+                        precond._second_order.local_slots(b))
+                for b in precond.plan.buckets
+            }
+            results[name, strategy] = res
+    for name, strategy, method in METHOD_CASES:
+        precond, res = train_rank(
+            rank, world, weights, name, strategy, method,
+        )
+        res['held'] = {
+            k: {f: tuple(t.shape) for f, t in bs.tensors().items()}
+            for k, bs in precond.buckets.items()
+        }
+        results[name, strategy, method] = res
     # Unequal local batches raise on every rank, so no rank goes on into
     # a collective that the others skip.  In the second case the mean
     # count equals ranks 1 and 3's own.
@@ -252,6 +269,33 @@ def runs(tmp_path_factory):
                         },
                     ))
                 ref[name, strategy] = steps
+        for name, strategy, method in METHOD_CASES:
+            x, y = data(name)
+            precond = JaxPreconditioner(
+                jax_models[name], loss_fn=xent, mesh=mesh,
+                grad_worker_fraction=JaxStrategy[strategy],
+                compute_method=method, **HP,
+            )
+            state = precond.init(variables[name], x)
+            params = variables[name]['params']
+            steps = []
+            for _ in range(STEPS):
+                _, _, grads, state = precond.step(
+                    {'params': params}, state,
+                    jax.device_put(x, shard),
+                    loss_args=(jax.device_put(jnp.asarray(y), shard),),
+                )
+                grads = jax.tree.map(np.asarray, grads)
+                params = jax.tree.map(lambda w, g: w - LR * g, params, grads)
+                steps.append(dict(
+                    grads=flax_to_torch_state_dict({'params': grads}),
+                    factors={
+                        base: (np.asarray(state[base].a_factor),
+                               np.asarray(state[base].g_factor))
+                        for base in state.layers
+                    },
+                ))
+            ref[name, strategy, method] = steps
     finally:
         join(procs, deadline)
     ranks = [torch.load(out / f'rank{r}.pt') for r in range(WORLD)]
@@ -314,9 +358,69 @@ def test_rank_holds_its_column_slots(runs, name, strategy):
         for key, (seg, qa_shape, dgda_shape, slots) in run['held'].items():
             assert qa_shape[0] == seg and dgda_shape[0] == seg, key
             assert len(slots) == seg
+            # qa, qg, dgda and bake_damping, all f32.
             total += 4 * (qa_shape[0] * qa_shape[1] * qa_shape[2]
                           + seg * dgda_shape[1] ** 2
-                          + seg * dgda_shape[1] * dgda_shape[2])
+                          + seg * dgda_shape[1] * dgda_shape[2] + seg)
+        assert run['second_order_bytes'] == total
+
+
+METHOD_IDS = [f'{m}-{s}-{c}' for m, s, c in METHOD_CASES]
+
+
+@pytest.mark.parametrize('case', METHOD_CASES, ids=METHOD_IDS)
+def test_methods_preconditioned_grads_match_jax(runs, case):
+    ref, ranks = runs
+    for rank, res in enumerate(ranks):
+        for step, (got, want) in enumerate(zip(res[case]['steps'],
+                                               ref[case])):
+            assert set(got['grads']) == set(want['grads'])
+            diff = max(
+                float((got['grads'][n] - want['grads'][n]).abs().max())
+                for n in want['grads']
+            )
+            assert diff < 2e-4, (rank, step, diff)
+
+
+@pytest.mark.parametrize('case', METHOD_CASES, ids=METHOD_IDS)
+def test_methods_factor_emas_match_jax(runs, case):
+    ref, ranks = runs
+    for res in ranks:
+        for got, want in zip(res[case]['steps'], ref[case]):
+            for layer, (a, g) in want['factors'].items():
+                for side, w in enumerate((a, g)):
+                    np.testing.assert_allclose(
+                        got['factors'][layer][side].numpy(), w, rtol=1e-5,
+                        atol=1e-6,
+                    )
+
+
+@pytest.mark.parametrize('case', METHOD_CASES, ids=METHOD_IDS)
+def test_methods_parameters_bitwise_equal_across_ranks(runs, case):
+    _, ranks = runs
+    for rank, res in enumerate(ranks):
+        flags = [s['params_equal'] for s in res[case]['steps']]
+        assert flags == [True] * STEPS, (rank, flags)
+
+
+@pytest.mark.parametrize('case', METHOD_CASES, ids=METHOD_IDS)
+def test_methods_hold_their_fields_on_column_slots(runs, case):
+    """Each rank keeps its column's ``seg`` slots of the method's fields
+    (square inverses, and per-slot residual vectors when iterative)."""
+    _, ranks = runs
+    fields = {'a_inv', 'g_inv'}
+    if case[2] == 'iterative':
+        fields |= {f'iter_{k}_{s}' for k in ('res', 'bound', 'stale')
+                   for s in 'ag'}
+    for res in ranks:
+        run = res[case]
+        assert run['grid'][:2] == (2, 2)
+        total = 0
+        for key, shapes in run['held'].items():
+            assert set(shapes) == fields, key
+            seg = shapes['a_inv'][0]
+            assert all(shape[0] == seg for shape in shapes.values())
+            total += sum(4 * np.prod(shape) for shape in shapes.values())
         assert run['second_order_bytes'] == total
 
 

@@ -23,6 +23,8 @@ from kfac_pytorch_tpu.ops.pallas_precond import (
 from kfac_pytorch_tpu_torch.ops import fused_eigen_precondition
 from kfac_pytorch_tpu_torch.ops import fused_eigen_precondition_reference
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch_port
 
 #: test_pallas.py's shapes, then the six ResNet-32 bucket shapes

@@ -25,6 +25,8 @@ from kfac_pytorch_tpu_torch.models import resnet20
 from kfac_pytorch_tpu_torch.models import resnet32
 from kfac_pytorch_tpu_torch.models import TinyModel
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch_port
 
 

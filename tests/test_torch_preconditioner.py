@@ -35,6 +35,8 @@ from kfac_pytorch_tpu_torch import KFACPreconditioner
 from kfac_pytorch_tpu_torch.convert import flax_to_torch_state_dict
 from kfac_pytorch_tpu_torch.models import resnet20
 
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch_port
 
 STEPS = 3

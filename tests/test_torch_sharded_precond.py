@@ -13,7 +13,10 @@ mode under ``shard_map`` on a 4-device column mesh, as
 eigenbases are orthonormal, as every eigenbasis is, so ``pg`` is O(1).
 
 The same spawn gathers an uneven decomposition split (5 slots over a
-column of 4 ranks, shares padded to 2 slots) and checks it slot for slot.
+column of 4 ranks, shares padded to 2 slots) and checks it slot for slot,
+once as the eigen triple and once as a mixed tuple of two buckets
+(identity- and zero-padded square stacks, f32 and int32 per-slot
+vectors; 5 and 2 slots, so two ranks hold an empty share of the second).
 """
 from __future__ import annotations
 
@@ -67,6 +70,20 @@ def slot_stack(slots, n):
         -1, 1, 1).expand(-1, n, n).contiguous()
 
 
+#: Pad rules of :func:`mixed_share`'s fields.
+MIXED_IDENTITY = (True, False, False, False)
+
+
+def mixed_share(seg: int, world: int, rank: int) -> tuple:
+    """This rank's share of a ``seg``-slot column in four fields: a
+    square stack, a zero-padded square stack, an f32 and an int32
+    ``[share]`` vector, each slot ``i`` holding ``i + 1``."""
+    share = range(*collectives.share_bounds(seg, world, rank))
+    vec = torch.tensor([float(i + 1) for i in share])
+    return (slot_stack(share, 3), slot_stack(share, 2), vec,
+            vec.to(torch.int32))
+
+
 def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
     dist.init_process_group(
         'gloo', init_method=f'file://{init}', rank=rank, world_size=world,
@@ -96,9 +113,13 @@ def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
     (got,) = collectives.all_gather_decompositions(
         [(slot_stack(share, 4), slot_stack(share, 2),
           slot_stack(share, 2)[:, :, :1].expand(-1, 2, 4).contiguous())],
-        [UNEVEN_SEG], col.col_group,
+        [UNEVEN_SEG], col.col_group, identity=(True, True, False),
     )
     results['uneven'] = got
+    results['mixed'] = collectives.all_gather_decompositions(
+        [mixed_share(UNEVEN_SEG, world, rank), mixed_share(2, world, rank)],
+        [UNEVEN_SEG, 2], col.col_group, identity=MIXED_IDENTITY,
+    )
     torch.save(results, out / f'rank{rank}.pt')
     dist.destroy_process_group()
 
@@ -168,6 +189,27 @@ def test_uneven_decomposition_split_gathers_in_slot_order(runs):
         assert torch.equal(qg, slot_stack(slots, 2))
         assert torch.equal(dgda[:, 0, 0], torch.arange(1.0, 6.0))
         assert tuple(dgda.shape) == (UNEVEN_SEG, 2, 4)
+
+
+@pytest.mark.parametrize('bucket,seg', [(0, UNEVEN_SEG), (1, 2)])
+def test_mixed_decomposition_tuple_gathers_in_slot_order(runs, bucket, seg):
+    _, ranks = runs
+    want = mixed_share(seg, 1, 0)
+    for res in ranks:
+        got = res['mixed'][bucket]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_padding_rule_per_field():
+    """Identity fields pad with identity blocks, the others with zeros."""
+    x = slot_stack(range(1), 3)
+    v = torch.ones(1, dtype=torch.int32)
+    assert torch.equal(collectives._pad_slots(x, 3, True)[1:],
+                       torch.eye(3).expand(2, 3, 3))
+    assert not collectives._pad_slots(x, 3, False)[1:].any()
+    assert collectives._pad_slots(v, 3, False).tolist() == [1, 0, 0]
 
 
 def test_one_column_gathers_nothing():
