@@ -74,7 +74,23 @@ fails:
    SGD, ``precond.state_dict()`` dense and packed as upper triangles)
    and resumed for steps 11-19 must end bitwise equal to the
    uninterrupted run (cuDNN held to its deterministic algorithms); the
-   iterative restore must refresh at bootstrap depth and train on.
+   iterative restore must refresh at bootstrap depth and train on;
+8. the transformer path: GPT-125M at its published widths (vocab 50304,
+   12 layers, 12 heads, ``d_model`` 768, ``d_ff`` 3072, bf16 compute,
+   f32 parameters) on one synthetic batch of 4 x 2048 tokens, 12 steps
+   with full coverage (``layer_types`` with ``'embedding'`` and
+   ``'layernorm'``, ``tied_weights=('wte',)``): a finite, falling loss,
+   kernel launches equal to steps x 5 buckets, one factor set for the
+   tied embedding, and at the refresh step 10 every layer's
+   preconditioned gradient (embedding and LayerNorms included) and the
+   kl-clip scale against a rerun on the card from the same
+   decompositions through the plain version (relative Frobenius error
+   ``< 1e-4``); the step and stage medians, the kernel's share,
+   ``torch.cuda.max_memory_allocated()`` and ``memory_usage()``.  Then 3
+   steps with the default coverage (48 Dense layers, 4 buckets).  Phase
+   2 holds the kernel against its plain version at GPT-125M's five
+   bucket shapes too, at most four CUDA kernels per call there (every
+   GPT bucket has ``gp > 64``).
 
 A ``phases:`` line gives each phase's time.
 
@@ -107,6 +123,11 @@ MAIN_PATH_CASES = [
     (1, 32, 128), (1, 32, 32),
 ]
 EXTRA_CASES = [(2, 512, 4608)]
+#: GPT-125M's bucket stacks under full coverage, in plan order: fc_out,
+#: fc_in, qkv, proj (12 slots each; ``pad_dim`` takes 769 to 896 and 3073
+#: to 3200) and the LayerNorms (25 slots).  Every one has ``gp > 64``.
+GPT_CASES = [(12, 768, 3200), (12, 3072, 896), (12, 2304, 896),
+             (12, 768, 896), (25, 768, 32)]
 TRAIN_STEPS = 20
 BATCH = 128
 DEVICE = 'cuda'
@@ -302,60 +323,73 @@ def profile_case(torch, kernel, args, shape, at_most=None):
     return len(seen)
 
 
+def check_case(torch, kernel, plain, shape, seed, at_most):
+    """One bucket shape: the kernel against plain in f32 and bf16, two
+    runs bitwise equal, times, a ``case`` line and a ``profile`` line
+    held to ``at_most`` kernels.  Returns ``(max abs err, (shape, ms,
+    plain_ms, library_ms), kernels per call, args)``."""
+    L, gp, ap = shape
+    args = make_case(torch, L, gp, ap, seed=seed)
+    pg, clip = kernel(*args)
+    pg2, clip2 = kernel(*args)
+    want_pg, want_clip = plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(clip, clip2) and torch.equal(pg, pg2)):
+        fail(f'case {shape}: two kernel runs differ bitwise')
+    err = float((pg - want_pg).abs().max())
+    bad = (pg - want_pg).abs() > 1e-4 + 1e-5 * want_pg.abs()
+    if not torch.isfinite(pg).all() or bool(bad.any()):
+        fail(f'case {shape} f32: kernel disagrees with plain '
+             f'(max abs err {err:.3e}, {int(bad.sum())} elements)')
+    clip_err = float(((clip - want_clip).abs()
+                      / want_clip.abs().clamp_min(1e-6)).max())
+    if clip_err > 1e-3:
+        fail(f'case {shape}: clip rel err {clip_err:.3e}')
+    bf = [a.to(torch.bfloat16) for a in args]
+    pg16, clip16 = kernel(*bf)
+    pg16b, clip16b = kernel(*bf)
+    want16, _ = plain(*bf)
+    torch.cuda.synchronize()
+    if not (torch.equal(clip16, clip16b) and torch.equal(pg16, pg16b)):
+        fail(f'case {shape} bf16: two runs differ bitwise')
+    rel32 = float((pg16 - want_pg).abs().mean() / want_pg.abs().mean())
+    rel16 = float((pg16 - want16).abs().mean() / want16.abs().mean())
+    if not rel32 < 0.05 or not rel16 < 1e-3:
+        fail(f'case {shape} bf16: mean rel err {rel32:.3e} vs f32, '
+             f'{rel16:.3e} vs plain bf16')
+    del pg, pg2, want_pg, pg16, pg16b, want16
+    ms, plain_ms, library_ms = time_case(torch, kernel, plain, args)
+    ms16 = time_ms(torch, lambda: kernel(*bf))
+    bound = precond_bound(L, gp, ap, 4)[0]
+    bound16 = precond_bound(L, gp, ap, 2)[0]
+    print(f'case L={L} gp={gp} ap={ap}: f32 max_abs_err={err:.3e} '
+          f'clip_rel_err={clip_err:.3e} kernel_ms={ms:.5f} '
+          f'plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} '
+          f'bound_ms={bound:.6f} share_of_bound={bound / ms:.3f} '
+          f'bound_cuda_core_ms='
+          f'{precond_bound_cuda_core(L, gp, ap):.6f} | bf16 '
+          f'mean_rel_err_vs_f32={rel32:.3e} kernel_ms={ms16:.5f} '
+          f'bound_ms={bound16:.6f}', flush=True)
+    n = profile_case(torch, kernel, args, shape, at_most=at_most)
+    return err, (shape, ms, plain_ms, library_ms), n, args
+
+
 def phase_kernels(torch, ops):
-    """Kernel against plain on the card; returns the kernels-line entry
-    (times summed over the main path's six bucket calls of one step)."""
+    """Kernel against plain on the card; returns the kernels-line entries
+    of ResNet-32's path (times summed over its six bucket calls of one
+    step) and of GPT-125M's (its five bucket calls).  A ResNet call may
+    issue two CUDA kernels, a ``gp > 64`` call (every GPT bucket) four."""
     kernel = ops.fused_eigen_precondition
     plain = ops.fused_eigen_precondition_reference
     max_err = 0.0
     step_calls, timed, per_call = [], [], []
-    for i, (L, gp, ap) in enumerate(MAIN_PATH_CASES + EXTRA_CASES):
-        args = make_case(torch, L, gp, ap, seed=100 + i)
-        pg, clip = kernel(*args)
-        pg2, clip2 = kernel(*args)
-        want_pg, want_clip = plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(clip, clip2) and torch.equal(pg, pg2)):
-            fail(f'case {(L, gp, ap)}: two kernel runs differ bitwise')
-        err = float((pg - want_pg).abs().max())
-        bad = (pg - want_pg).abs() > 1e-4 + 1e-5 * want_pg.abs()
-        if not torch.isfinite(pg).all() or bool(bad.any()):
-            fail(f'case {(L, gp, ap)} f32: kernel disagrees with plain '
-                 f'(max abs err {err:.3e}, {int(bad.sum())} elements)')
-        clip_err = float(((clip - want_clip).abs()
-                          / want_clip.abs().clamp_min(1e-6)).max())
-        if clip_err > 1e-3:
-            fail(f'case {(L, gp, ap)}: clip rel err {clip_err:.3e}')
-        bf = [a.to(torch.bfloat16) for a in args]
-        pg16, clip16 = kernel(*bf)
-        pg16b, clip16b = kernel(*bf)
-        want16, _ = plain(*bf)
-        torch.cuda.synchronize()
-        if not (torch.equal(clip16, clip16b) and torch.equal(pg16, pg16b)):
-            fail(f'case {(L, gp, ap)} bf16: two runs differ bitwise')
-        rel32 = float((pg16 - want_pg).abs().mean() / want_pg.abs().mean())
-        rel16 = float((pg16 - want16).abs().mean() / want16.abs().mean())
-        if not rel32 < 0.05 or not rel16 < 1e-3:
-            fail(f'case {(L, gp, ap)} bf16: mean rel err {rel32:.3e} vs '
-                 f'f32, {rel16:.3e} vs plain bf16')
-        ms, plain_ms, library_ms = time_case(torch, kernel, plain, args)
-        ms16 = time_ms(torch, lambda: kernel(*bf))
-        bound = precond_bound(L, gp, ap, 4)[0]
-        bound16 = precond_bound(L, gp, ap, 2)[0]
-        print(f'case L={L} gp={gp} ap={ap}: f32 max_abs_err={err:.3e} '
-              f'clip_rel_err={clip_err:.3e} kernel_ms={ms:.5f} '
-              f'plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} '
-              f'bound_ms={bound:.6f} share_of_bound={bound / ms:.3f} '
-              f'bound_cuda_core_ms='
-              f'{precond_bound_cuda_core(L, gp, ap):.6f} | bf16 '
-              f'mean_rel_err_vs_f32={rel32:.3e} kernel_ms={ms16:.5f} '
-              f'bound_ms={bound16:.6f}', flush=True)
-        on_path = (L, gp, ap) in MAIN_PATH_CASES
-        n = profile_case(torch, kernel, args, (L, gp, ap),
-                         at_most=2 if on_path else None)
+    for i, shape in enumerate(MAIN_PATH_CASES + EXTRA_CASES):
+        on_path = shape in MAIN_PATH_CASES
+        err, t, n, args = check_case(torch, kernel, plain, shape, 100 + i,
+                                     2 if on_path else None)
         if on_path:
             step_calls.append(lambda a=args: kernel(*a))
-            timed.append(((L, gp, ap), ms, plain_ms, library_ms))
+            timed.append(t)
             per_call.append(n)
             max_err = max(max_err, err)
     entry = step_entry('fused_eigen_precondition',
@@ -369,7 +403,25 @@ def phase_kernels(torch, ops):
           f'{entry["library_ms"]:.5f} ms issued one by one; bound '
           f'{entry["bound_ms"]:.6f} ms ({entry["bound_by"]}), CUDA-core '
           f'bound {step_bound_cuda_core(timed):.6f} ms', flush=True)
-    return entry
+    del step_calls
+    gpt_err, gpt_timed, gpt_per_call = 0.0, [], []
+    for i, shape in enumerate(GPT_CASES):
+        err, t, n, _ = check_case(torch, kernel, plain, shape, 400 + i, 4)
+        gpt_err = max(gpt_err, err)
+        gpt_timed.append(t)
+        gpt_per_call.append(n)
+        torch.cuda.empty_cache()
+    gpt = step_entry('fused_eigen_precondition, GPT-125M buckets',
+                     'kfac_pytorch_tpu/ops/pallas_precond.py:43', gpt_timed,
+                     gpt_err, gpt_per_call)
+    gpt['shapes'] = GPT_CASES
+    print(f'kernel gpt: one step\'s {len(GPT_CASES)} calls: '
+          f'{gpt["ms"]:.5f} ms issued one by one; plain {gpt["plain_ms"]:.5f}'
+          f' ms; cuBLAS chain {gpt["library_ms"]:.5f} ms; bound '
+          f'{gpt["bound_ms"]:.6f} ms ({gpt["bound_by"]}), CUDA-core bound '
+          f'{step_bound_cuda_core(gpt_timed):.6f} ms; kernels per call '
+          f'{gpt_per_call}', flush=True)
+    return entry, gpt
 
 
 TRAIN_HP = dict(factor_update_steps=1, inv_update_steps=10, damping=0.003,
@@ -821,6 +873,228 @@ def phase_resume(torch, kt):
               f'-> {losses[-1]:.6f}', flush=True)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+
+
+#: Phase 8: ``examples/tiny_gpt_lm.py``'s defaults (lr 0.3, damping
+#: 0.003, plain SGD; kl-clip the preconditioner's default 0.001) with a
+#: factor update every step and a refresh every 10.  The rehearsal on the
+#: CPU sets ``GPT_MODEL = 'gpt_tiny'`` and a small ``GPT_BATCH``.
+GPT_HP = dict(factor_update_steps=1, inv_update_steps=10, damping=0.003,
+              kl_clip=0.001, lr=0.3)
+GPT_MODEL = 'gpt_125m'
+GPT_BATCH = (4, 2048)  # sequences x tokens: the 125M config's max_seq_len
+GPT_STEPS = 12
+GPT_DEFAULT_STEPS = 3
+GPT_FULL = dict(layer_types=('linear', 'conv2d', 'embedding', 'layernorm'),
+                tied_weights=('wte',))
+
+
+def gpt_tokens(torch, vocab):
+    """The one synthetic token batch phase 8 trains on."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    return torch.randint(0, vocab, GPT_BATCH, generator=gen, device=DEVICE)
+
+
+def train_gpt(torch, kt, steps, check_step=None, **kfac_kw):
+    """``steps`` K-FAC steps of the GPT on the fixed batch (next-token
+    cross entropy), stages timed by CUDA events, the fused kernel's
+    launches counted from 0 over exactly these steps and its calls timed
+    by events around each.  At ``check_step`` (a refresh step) it keeps
+    the combined gradients before and after ``precond.step()``."""
+    import torch.nn.functional as F
+
+    model = getattr(kt.models, GPT_MODEL)(device=DEVICE, seed=0)
+    tokens = gpt_tokens(torch, model.config.vocab_size)
+    precond = kt.KFACPreconditioner(model, **GPT_HP, **kfac_kw)
+    opt = torch.optim.SGD(model.parameters(), lr=GPT_HP['lr'])
+    events: dict[str, list] = {
+        'capture (fwd+bwd)': [], 'factors (cov+EMA)': [],
+        'refresh': [], 'precondition': [], 'kernel': [],
+    }
+
+    def timed(name, fn):
+        def run(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            events[name].append((s, e))
+            return out
+        return run
+
+    precond._update_factors = timed('factors (cov+EMA)',
+                                    precond._update_factors)
+    precond._refresh = timed('refresh', precond._refresh)
+    precond._precondition = timed('precondition', precond._precondition)
+
+    def fwd_bwd():
+        opt.zero_grad()
+        logits = model(tokens)
+        loss = F.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]),
+            tokens[:, 1:].reshape(-1),
+        )
+        loss.backward()
+        return loss
+
+    fwd_bwd_timed = timed('capture (fwd+bwd)', fwd_bwd)
+    sharded = kt.ops.fused_eigen_precondition_sharded
+    kt.ops.fused_eigen_precondition_sharded = timed('kernel', sharded)
+    run = dict(precond=precond, losses=[], step_s=[])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kt.ops.fused_eigen_precondition.launches = 0
+        for step in range(steps):
+            t0 = time.perf_counter()
+            loss = fwd_bwd_timed()
+            if step == check_step:
+                run['raw'] = {n: h.get_grad().clone()
+                              for n, h in precond.helpers.items()}
+            precond.step()
+            if step == check_step:
+                run['got'] = {n: h.get_grad().clone()
+                              for n, h in precond.helpers.items()}
+                run['scale'] = precond.last_kl_scale
+            opt.step()
+            torch.cuda.synchronize()
+            run['step_s'].append(time.perf_counter() - t0)
+            run['losses'].append(float(loss.detach()))
+        run['launches'] = kt.ops.fused_eigen_precondition.launches
+        run['peak_bytes'] = torch.cuda.max_memory_allocated()
+    finally:
+        kt.ops.fused_eigen_precondition_sharded = sharded
+    losses = run['losses']
+    if not all(math.isfinite(v) for v in losses):
+        fail(f'gpt: non-finite loss: {losses}')
+    if not losses[-1] < losses[0]:
+        fail(f'gpt: loss did not fall: first {losses[0]}, last {losses[-1]}')
+    n_buckets = len(precond.plan.buckets)
+    if run['launches'] != steps * n_buckets:
+        fail(f'gpt: kernel launched {run["launches"]} times in {steps} '
+             f'steps, expected {steps * n_buckets} ({n_buckets} buckets)')
+    per_step = len(events['kernel']) // steps
+    run['kernel_step_ms'] = [
+        sum(s.elapsed_time(e) for s, e in events['kernel'][i:i + per_step])
+        for i in range(0, len(events['kernel']), per_step)
+    ]
+    run['stage_ms'] = {
+        name: (statistics.median([s.elapsed_time(e) for s, e in evs]),
+               len(evs))
+        for name, evs in events.items() if name != 'kernel'
+    }
+    run['refresh_ms'] = [s.elapsed_time(e) for s, e in events['refresh']]
+    return run
+
+
+def phase_gpt(torch, kt):
+    """Phase 8: GPT-125M at its published widths, full coverage (48
+    Dense layers and 25 LayerNorms in five buckets, the tied embedding
+    on the diagonal side path), ``GPT_STEPS`` steps with refreshes at 0
+    and ``CHECK_STEP``; then the default coverage (48 Dense layers, four
+    buckets) for ``GPT_DEFAULT_STEPS`` steps.  Returns the full-coverage
+    run's kernel launches."""
+    run = train_gpt(torch, kt, GPT_STEPS, check_step=CHECK_STEP, **GPT_FULL)
+    precond, losses = run['precond'], run['losses']
+    cfg = precond._capture.model.config
+    n_blocks = cfg.n_layers
+    keys = [f'{b.key}:{b.n_slots}' for b in precond.plan.buckets]
+    # The tied group holds one factor set: one 'wte' layer whose A is the
+    # [V] diagonal, no layer for the head, and the head's call captured.
+    wte = precond.layers.get('wte')
+    if (wte is None or tuple(wte.a_factor.shape) != (cfg.vocab_size,)
+            or len(precond.layers) != 4 * n_blocks + 2 * n_blocks + 2
+            or 'head' in precond.layers
+            or list(precond._capture.attend) != ['wte']
+            or precond.diag_layers != ('wte',)):
+        fail(f'gpt: the tied group is not one factor set: layers '
+             f'{len(precond.layers)}, diagonal {precond.diag_layers}, '
+             f'attend {list(precond._capture.attend)}')
+
+    # The check step rerun on the card from the same decompositions and
+    # raw gradients, the plain version in place of the kernel.
+    sharded = kt.ops.fused_eigen_precondition_sharded
+    kt.ops.fused_eigen_precondition_sharded = (
+        kt.ops.fused_eigen_precondition_sharded_reference)
+    launches = kt.ops.fused_eigen_precondition.launches
+    try:
+        want, scale = precond.precondition_combined(
+            run['raw'], GPT_HP['damping'], GPT_HP['kl_clip'], GPT_HP['lr'],
+        )
+    finally:
+        kt.ops.fused_eigen_precondition_sharded = sharded
+    if kt.ops.fused_eigen_precondition.launches != launches:
+        fail('gpt: the plain rerun launched the kernel')
+    errs = {n: rel_frob(run['got'][n], w) for n, w in want.items()}
+    worst = max(errs, key=errs.get)
+    scale_err = abs(float(scale) - float(run['scale'])) / float(scale)
+    if not (set(errs) == set(precond.helpers) and errs[worst] < 1e-4
+            and scale_err < 1e-4):
+        fail(f'gpt: step {CHECK_STEP} kernel path vs plain rerun: worst '
+             f'layer {worst} rel err {errs[worst]:.3e}, kl-clip scale rel '
+             f'err {scale_err:.3e}')
+    by_kind = {}
+    for n, e in errs.items():
+        kind = type(precond.helpers[n]).__name__
+        by_kind[kind] = max(by_kind.get(kind, 0.0), e)
+
+    steady = run['step_s'][1:]
+    print(f'gpt: {GPT_MODEL} (vocab {cfg.vocab_size}, {n_blocks} layers, '
+          f'{cfg.n_heads} heads, d_model {cfg.d_model}, d_ff {cfg.d_ff}, '
+          f'{cfg.dtype} compute), batch {GPT_BATCH[0]} x {GPT_BATCH[1]} '
+          f'tokens, full coverage: {len(precond.layers)} layers, buckets '
+          f'{keys}, diagonal side path {list(precond.diag_layers)}',
+          flush=True)
+    print(f'gpt: losses first={losses[0]:.6f} last={losses[-1]:.6f} '
+          f'all={[round(v, 5) for v in losses]}', flush=True)
+    print(f'gpt: launches={run["launches"]} ({len(keys)} buckets x '
+          f'{GPT_STEPS} steps); step {CHECK_STEP} vs plain rerun on the '
+          f'card, worst layer {worst} {errs[worst]:.3e}, worst by kind '
+          + ', '.join(f'{k} {v:.3e}' for k, v in sorted(by_kind.items()))
+          + f'; kl-clip scale {float(scale):.6e} (rel err '
+          f'{scale_err:.3e})', flush=True)
+    ms = {k: v[0] for k, v in run['stage_ms'].items()}
+    kernel_ms = statistics.median(run['kernel_step_ms'])
+    print(f'gpt: median step {statistics.median(steady) * 1e3:.4f} ms '
+          f'(steps 1-{GPT_STEPS - 1}, host clock, synchronized; the '
+          f'refresh step {CHECK_STEP} included); first step '
+          f'{run["step_s"][0] * 1e3:.2f} ms; stage medians (CUDA events): '
+          f'capture (fwd+bwd) {ms["capture (fwd+bwd)"]:.4f} ms, factors '
+          f'{ms["factors (cov+EMA)"]:.4f} ms, precondition '
+          f'{ms["precondition"]:.4f} ms of which the kernel\'s '
+          f'{len(keys)} calls {kernel_ms:.4f} ms; refresh at steps 0 and '
+          f'{CHECK_STEP}: '
+          + ', '.join(f'{t:.2f}' for t in run['refresh_ms']) + ' ms',
+          flush=True)
+    mem = precond.memory_usage()
+    print(f'gpt: torch.cuda.max_memory_allocated {run["peak_bytes"]} bytes '
+          f'({run["peak_bytes"] / 2**30:.3f} GiB); memory_usage {mem}',
+          flush=True)
+    launches = run['launches']
+    del run, precond, want
+    torch.cuda.empty_cache()
+
+    run = train_gpt(torch, kt, GPT_DEFAULT_STEPS)
+    precond = run['precond']
+    keys = [f'{b.key}:{b.n_slots}' for b in precond.plan.buckets]
+    if len(precond.layers) != 4 * n_blocks or len(keys) != 4:
+        fail(f'gpt default coverage: {len(precond.layers)} layers, '
+             f'buckets {keys}')
+    ms = {k: v[0] for k, v in run['stage_ms'].items()}
+    print(f'gpt default coverage: {len(precond.layers)} Dense layers, '
+          f'buckets {keys}; losses {[round(v, 5) for v in run["losses"]]}; '
+          f'launches {run["launches"]} ({len(keys)} buckets x '
+          f'{GPT_DEFAULT_STEPS} steps); median step '
+          f'{statistics.median(run["step_s"][1:]) * 1e3:.4f} ms; factors '
+          f'{ms["factors (cov+EMA)"]:.4f} ms, precondition '
+          f'{ms["precondition"]:.4f} ms (kernel '
+          f'{statistics.median(run["kernel_step_ms"]):.4f} ms), refresh '
+          f'at step 0 {run["refresh_ms"][0]:.2f} ms', flush=True)
+    del run, precond
+    torch.cuda.empty_cache()
+    return launches
 
 
 def mem_opt_shards(kt):
@@ -1289,7 +1563,7 @@ def main() -> int:
         print(card, flush=True)
         print(json.dumps(device_record(torch)), flush=True)
         return 0
-    entry = phase('1-2 kernels', phase_kernels, torch, kt.ops)
+    entry, gpt = phase('1-2 kernels', phase_kernels, torch, kt.ops)
     entry['launches'] = phase('3 train', phase_train, torch, kt)
     sharded = phase('4 sharded', phase_sharded_kernel, torch, kt)
     sharded['launches'], sharded['gather_ms'] = phase(
@@ -1297,11 +1571,12 @@ def main() -> int:
     )
     phase('6 methods', phase_methods, torch, kt)
     phase('7 resume', phase_resume, torch, kt)
+    gpt['launches'] = phase('8 gpt', phase_gpt, torch, kt)
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
           flush=True)
     print(card, flush=True)
-    print(json.dumps({'kernels': [entry, sharded]}), flush=True)
+    print(json.dumps({'kernels': [entry, sharded, gpt]}), flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0
 

@@ -4,7 +4,9 @@ The JAX package beside this one is the reference; this package imports
 ``torch`` and nothing of JAX or of the JAX package.  It covers the
 bucketed path on one device and data-parallel across
 ``torch.distributed`` ranks on the KAISA grid (COMM-OPT, HYBRID-OPT,
-MEM-OPT): Linear/Conv2d capture through module hooks, factor EMAs
+MEM-OPT): Linear/Conv2d capture through module hooks (and, for
+transformers, embeddings with an exact diagonal A factor, LayerNorm
+scale+bias and a tied LM head), factor EMAs
 averaged over the world, and a bucketed second-order refresh by one of
 three methods — eigen (the fused eigen-preconditioning chain runs as a
 hand-written CUDA kernel on CUDA tensors, ``csrc/fused_eigen_precond.cu``,

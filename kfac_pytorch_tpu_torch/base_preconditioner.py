@@ -8,6 +8,15 @@ inverse or iterative), the write-back of the preconditioned gradients
 into each layer's ``.grad``, and the checkpoint hooks of the engine.
 State lives on the device of the model's parameters.
 
+Layers with a diagonal A factor (embeddings) sit outside the bucket
+stacks, as in ``base_preconditioner.py:683-821`` of the JAX package:
+every rank refreshes and preconditions them itself (a real ``eigh`` or
+inverse of G, a snapshot of the ``[V]`` diagonal), their factors ride
+the same factor all-reduce, and their kl-clip terms join the one global
+sum after the buckets'.  A tied embedding's factors are the mean of the
+lookup's and the attend call's contributions, the attend's with the
+roles swapped.
+
 Across ranks the world is the default ``torch.distributed`` group, and
 every rank is assumed to differentiate the mean loss of its own local
 batch, as under ``DistributedDataParallel``.  Its captured output
@@ -84,6 +93,12 @@ BucketSecond`).
         self.helpers = capture.helpers
         for name, helper in self.helpers.items():
             logger.log(loglevel, f'Registered name="{name}": {helper!r}')
+        for base, (head, helper) in capture.attend.items():
+            logger.log(
+                loglevel,
+                f'Registered name="{head}" as the attend call of the tied '
+                f'embedding "{base}": {helper!r}',
+            )
         for name in capture.skipped:
             logger.log(loglevel, f'Skipped name="{name}" (skip_layers)')
         for name, reason in capture.rejected.items():
@@ -98,11 +113,19 @@ BucketSecond`).
             name: init_layer_state(
                 h.a_factor_shape[0], h.g_factor_shape[0],
                 factor_dtype=factor_dtype, device=self.device,
+                diag_a=h.diagonal_a,
             )
             for name, h in self.helpers.items()
         }
+        # Sorted: the order of their kl-clip terms in the global sum.
+        self.diag_layers = tuple(sorted(
+            name for name, h in self.helpers.items() if h.diagonal_a
+        ))
         self.grid = kaisa_grid(grad_worker_fraction)
-        self.plan = make_bucket_plan(self.helpers, n_cols=self.grid.cols)
+        self.plan = make_bucket_plan(
+            {n: h for n, h in self.helpers.items() if not h.diagonal_a},
+            n_cols=self.grid.cols,
+        )
         self._second_order = BucketedSecondOrder(
             self.plan, compute_method=compute_method,
             prediv_eigenvalues=prediv_eigenvalues,
@@ -142,28 +165,37 @@ BucketSecond`).
         """Fold this step's captured statistics into the factor EMAs.
 
         A module applied several times contributes the mean of its
-        per-call factors.  Captures are cast to ``cov_dtype`` before the
-        covariance; factors are kept in ``factor_dtype``.  Across ranks
-        the output gradients are scaled by ``1 / world`` and the new
-        factors are averaged over the world (one fused all-reduce).
+        per-call factors, and a tied embedding the mean over its lookup
+        and attend calls (the attend's A from its output gradients, its
+        G from its inputs).  Float captures are cast to ``cov_dtype``
+        before the covariance, integer token ids never; factors are kept
+        in ``factor_dtype``.  Across ranks the output gradients are
+        scaled by ``1 / world`` and the new factors are averaged over
+        the world (one fused all-reduce).
         """
         captured = self._capture.take()
         decay = self.factor_decay
         world = self.grid.world
         new_a, new_g, rows = [], [], []
-        for name, helper in self.helpers.items():
-            acts, grads = captured[name]
-            if world > 1:
-                grads = [g / world for g in grads]
-            new_a.append(torch.stack([
-                helper.get_a_factor(a.to(self.cov_dtype))
-                .to(self.factor_dtype) for a in acts
-            ]).mean(0))
-            new_g.append(torch.stack([
-                helper.get_g_factor(g.to(self.cov_dtype))
-                .to(self.factor_dtype) for g in grads
-            ]).mean(0))
-            rows.append(sum(a.shape[0] for a in acts))
+        for name in self.helpers:
+            a_list, g_list, n_rows = [], [], 0
+            for helper, acts, grads in captured[name]:
+                if world > 1:
+                    grads = [g / world for g in grads]
+                a_src, g_src = ((grads, acts) if helper.swap_capture
+                                else (acts, grads))
+                a_list += [
+                    helper.get_a_factor(self._cov_input(a, helper))
+                    .to(self.factor_dtype) for a in a_src
+                ]
+                g_list += [
+                    helper.get_g_factor(g.to(self.cov_dtype))
+                    .to(self.factor_dtype) for g in g_src
+                ]
+                n_rows += sum(a.shape[0] for a in acts)
+            new_a.append(torch.stack(a_list).mean(0))
+            new_g.append(torch.stack(g_list).mean(0))
+            rows.append(n_rows)
         if world > 1:
             # The row counts and their squares ride in the all-reduce
             # (f64: exact sums), so every rank reaches the same verdict:
@@ -194,14 +226,50 @@ BucketSecond`).
                 st.g_factor, g_new, decay, first_update,
             )
 
+    def _cov_input(self, x: torch.Tensor, helper) -> torch.Tensor:
+        """A capture as the A-side covariance input: integer token ids
+        as they are; the attend call's output gradients as they are when
+        ``cov_dtype`` is no narrower (the widening is exact, and
+        :func:`~kfac_pytorch_tpu_torch.ops.attend_a_diag` widens them
+        chunk by chunk instead of copying the ``[B, T, V]`` tensor);
+        anything else cast to ``cov_dtype``."""
+        if not x.is_floating_point():
+            return x
+        if (helper.swap_capture
+                and x.dtype.itemsize <= self.cov_dtype.itemsize):
+            return x
+        return x.to(self.cov_dtype)
+
     @torch.no_grad()
     def _refresh(self, damping: float) -> None:
-        """Recompute the bucketed second-order state; the iterative
-        method warm-starts from the current roots."""
+        """Recompute the second-order state: the diagonal-A layers' own,
+        then the buckets'; the iterative method warm-starts from the
+        current roots."""
+        for name in self.diag_layers:
+            self._refresh_diag(self.layers[name], damping)
         self.buckets = self._second_order.compute(
             self.layers, damping, prev=self.buckets,
             bootstrap=self._refresh_needs_bootstrap(),
         )
+
+    def _refresh_diag(self, st: LayerKFACState, damping: float) -> None:
+        """One diagonal-A layer's decompositions: G by ``eigh`` (eigen)
+        or a damped Cholesky inverse (inverse and iterative, as the JAX
+        package does); the ``[V]`` diagonal is snapshotted (``da``, or
+        ``a_inv = 1 / (a + damping)``), so until the next refresh the
+        layer preconditions with it and not with the moving EMA."""
+        if self.compute_method == ComputeMethod.EIGEN:
+            st.qg, st.dg = ops.compute_factor_eigen(
+                st.g_factor, self.inv_dtype,
+            )
+            st.da = st.a_factor.to(self.inv_dtype, copy=True)
+        else:
+            st.g_inv = ops.compute_factor_inv(
+                st.g_factor, damping, self.inv_dtype,
+            )
+            st.a_inv = (
+                1.0 / (st.a_factor.float() + damping)
+            ).to(self.inv_dtype)
 
     def _refresh_needs_bootstrap(self) -> bool:
         """Whether the next refresh runs the iterative method's deep
@@ -221,12 +289,51 @@ BucketSecond`).
         combined = {
             name: helper.get_grad() for name, helper in self.helpers.items()
         }
-        out, scale = self._second_order.precondition(
-            self.buckets, combined, damping, kl_clip, lr,
+        out, scale = self.precondition_combined(
+            combined, damping, kl_clip, lr,
         )
         for name, helper in self.helpers.items():
             helper.set_grad(out[name])
         self.last_kl_scale = scale
+
+    def precondition_combined(
+        self,
+        combined: dict[str, torch.Tensor],
+        damping: float,
+        kl_clip: float | None,
+        lr: float,
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor | None]:
+        """Preconditioned, kl-clip-scaled copies of the combined
+        gradients ``{layer: [out, in(+1)]}`` from the current
+        decompositions, and the scale (``None`` without kl-clip); no
+        ``.grad`` is touched."""
+        diag_pg, extra = {}, []
+        for name in self.diag_layers:
+            g = combined[name]
+            pg = self._precondition_diag(self.layers[name], g, damping)
+            diag_pg[name] = pg
+            if kl_clip is not None:
+                extra.append(ops.grad_scale_sum(pg, g, lr))
+        out, scale = self._second_order.precondition(
+            self.buckets,
+            {n: g for n, g in combined.items() if n not in diag_pg},
+            damping, kl_clip, lr, extra_clip_terms=extra,
+        )
+        for name, pg in diag_pg.items():
+            out[name] = (pg if scale is None
+                         else (pg.float() * scale).to(pg.dtype))
+        return out, scale
+
+    def _precondition_diag(
+        self, st: LayerKFACState, g: torch.Tensor, damping: float,
+    ) -> torch.Tensor:
+        """One diagonal-A layer's preconditioned gradient, from the
+        refresh-time snapshot of its A diagonal."""
+        if self.compute_method == ComputeMethod.EIGEN:
+            return ops.precondition_grad_eigen_diag_a(
+                g, st.da, st.qg, st.dg, damping,
+            )
+        return ops.precondition_grad_inverse_diag_a(g, st.a_inv, st.g_inv)
 
     def _checkpoint_layer_states(self) -> dict[str, LayerKFACState]:
         return self.layers
@@ -234,12 +341,15 @@ BucketSecond`).
     @torch.no_grad()
     def _restore_factors(self, layers) -> None:
         """Load checkpointed factor EMAs onto ``self.device`` in
-        ``factor_dtype``."""
+        ``factor_dtype``.  A dense ``[V, V]`` A of a diagonal-A layer (a
+        checkpoint from before the diagonal storage) loads through its
+        diagonal, which is the whole factor."""
         for base, factors in layers.items():
             st = self.layers[base]
-            st.a_factor = unpack_factor(
-                factors['A'], self.factor_dtype, self.device,
-            )
+            a = unpack_factor(factors['A'], self.factor_dtype, self.device)
+            if st.a_factor.ndim == 1 and a.ndim == 2:
+                a = torch.diagonal(a).clone()
+            st.a_factor = a
             st.g_factor = unpack_factor(
                 factors['G'], self.factor_dtype, self.device,
             )
@@ -257,8 +367,9 @@ BucketSecond`).
         )
 
     def memory_usage(self) -> dict[str, int]:
-        """Bytes of K-FAC state on this rank: the factor EMAs and this
-        rank's slice of the stacked decompositions."""
+        """Bytes of K-FAC state on this rank: the factor EMAs, and this
+        rank's slice of the stacked decompositions with the diagonal-A
+        layers' own."""
         sizes = {
             'a_factors': sum(
                 st.a_factor.numel() * st.a_factor.element_size()
@@ -268,7 +379,10 @@ BucketSecond`).
                 st.g_factor.numel() * st.g_factor.element_size()
                 for st in self.layers.values()
             ),
-            'second_order': self._second_order.memory_usage(self.buckets),
+            'second_order': self._second_order.memory_usage(self.buckets)
+            + sum(t.numel() * t.element_size()
+                  for name in self.diag_layers
+                  for t in self.layers[name].decompositions().values()),
         }
         sizes['total'] = sum(sizes.values())
         return sizes

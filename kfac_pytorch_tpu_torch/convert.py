@@ -8,13 +8,16 @@ modules carry the Flax module names:
 
 * Dense ``kernel [in, out]`` -> ``weight [out, in]``;
 * Conv ``kernel`` HWIO -> ``weight`` OIHW;
-* BatchNorm ``scale/bias`` (``params``) and ``mean/var``
+* BatchNorm and LayerNorm ``scale/bias`` (``params``) and ``mean/var``
   (``batch_stats``) -> ``weight/bias/running_mean/running_var``, with
-  ``num_batches_tracked`` set to 0.
+  ``num_batches_tracked`` set to 0;
+* Embed ``embedding [V, D]`` -> ``weight [V, D]``;
+* a bare parameter (the GPT's positional table ``wpe``) -> itself.
 
 :func:`jax_kfac_state_dict_to_torch` carries a JAX
 ``KFACPreconditioner.state_dict(...)`` across, so a JAX run resumes in
-the port.
+the port; an embedding's ``[V]`` diagonal A factor goes across as it
+is.
 """
 from __future__ import annotations
 
@@ -45,9 +48,16 @@ def flax_to_torch_state_dict(
     out: dict[str, torch.Tensor] = {}
     for path, leaves in _walk(variables.get('params', {})):
         name = '.'.join(path)
-        if 'scale' in leaves:  # BatchNorm affine pair
+        if 'scale' in leaves:  # BatchNorm / LayerNorm affine pair
             out[f'{name}.weight'] = _t(leaves['scale'])
             out[f'{name}.bias'] = _t(leaves['bias'])
+            continue
+        if 'embedding' in leaves:
+            out[f'{name}.weight'] = _t(leaves['embedding'])
+            continue
+        if 'kernel' not in leaves:  # bare parameters of a module
+            for key, value in leaves.items():
+                out['.'.join(path + (key,))] = _t(value)
             continue
         kernel = np.asarray(leaves['kernel'])
         if kernel.ndim == 4:

@@ -125,7 +125,10 @@ def validate_saved_factor_shapes(
                     )
             saved = saved_factor_shape(packed)
             want = tuple(getattr(st, attr).shape)
-            if saved != want:
+            # A dense [V, V] A of a diagonal-A layer (a checkpoint from
+            # before the diagonal storage) loads through its diagonal.
+            legacy_diag = key == 'A' and len(want) == 1 and saved == want * 2
+            if saved != want and not legacy_diag:
                 raise ValueError(
                     f'checkpoint factor shape mismatch for layer {base!r} '
                     f'(factor {key}): saved {saved} vs expected {want} — '

@@ -48,6 +48,22 @@ class LayerHelper:
         """Shape of the G (output-grad covariance) factor."""
         return (self.out_features, self.out_features)
 
+    @property
+    def diagonal_a(self) -> bool:
+        """Whether the A factor is stored as its exact ``[n]`` diagonal
+        (embeddings): such layers skip the A-side decomposition, sit
+        outside the bucket stacks and precondition by per-column
+        scaling."""
+        return False
+
+    @property
+    def swap_capture(self) -> bool:
+        """Whether this call's captured pair feeds the factors with the
+        roles swapped, A from the output gradients and G from the
+        inputs: a tied embedding's attend call, whose weight is the
+        lookup's transpose."""
+        return False
+
     def get_a_factor(self, a: torch.Tensor) -> torch.Tensor:
         """A-factor contribution from input activations."""
         raise NotImplementedError
@@ -56,14 +72,18 @@ class LayerHelper:
         """G-factor contribution from output gradients."""
         raise NotImplementedError
 
-    def get_grad(self) -> torch.Tensor:
-        """Combined ``[out, in(+1)]`` gradient from the module's ``.grad``."""
+    def _weight_grad(self) -> torch.Tensor:
         w = self.module.weight.grad
         if w is None:
             raise RuntimeError(
                 f'layer {self.name!r} has no gradient: call backward() '
                 'before step()',
             )
+        return w
+
+    def get_grad(self) -> torch.Tensor:
+        """Combined ``[out, in(+1)]`` gradient from the module's ``.grad``."""
+        w = self._weight_grad()
         g = w.reshape(w.shape[0], -1)
         if self.has_bias:
             g = torch.cat([g, self.module.bias.grad[:, None]], dim=1)
@@ -88,6 +108,38 @@ class DenseHelper(LayerHelper):
 
     def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
         return cov.linear_g_factor(g)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EmbedHelper(LayerHelper):
+    """Helper for ``nn.Embedding``, the lookup as the dense layer
+    ``out = onehot(ids) @ W``.
+
+    A is the one-hot input covariance, exactly ``diag(token_freq)``,
+    kept as its ``[V]`` diagonal; G is the usual output-gradient
+    covariance.  The weight is ``[V, D]``, so the combined gradient is
+    its transpose ``[D, V]``; there is no bias.
+    """
+
+    @property
+    def a_factor_shape(self) -> tuple[int]:
+        return (self.in_features,)
+
+    @property
+    def diagonal_a(self) -> bool:
+        return True
+
+    def get_a_factor(self, a: torch.Tensor) -> torch.Tensor:
+        return cov.embed_a_diag(a, self.in_features)
+
+    def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
+        return cov.linear_g_factor(g)
+
+    def get_grad(self) -> torch.Tensor:
+        return self._weight_grad().T
+
+    def set_grad(self, combined: torch.Tensor) -> None:
+        self.module.weight.grad.copy_(combined.T)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

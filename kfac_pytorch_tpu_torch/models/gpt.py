@@ -1,0 +1,261 @@
+"""GPT-style decoder-only transformer.
+
+Port of ``kfac_pytorch_tpu/models/gpt.py``: pre-LN blocks of causal
+multi-head self-attention and a GELU MLP, a learned positional table
+``wpe`` and an LM head tied to the token embedding ``wte``.  Module
+names are the Flax model's (``h_0.attn.qkv`` is ``h_0/attn/qkv``), so
+:func:`kfac_pytorch_tpu_torch.convert.flax_to_torch_state_dict` maps its
+variables one to one.
+
+The compute dtype is written out in the modules, as Flax applies it,
+so an f32 model and a bf16 one run the same code:
+
+* :class:`Dense` casts its input, weight and bias to ``compute_dtype``;
+* :class:`LayerNorm` normalizes in f32 with epsilon 1e-6 (Flax's, where
+  torch's default is 1e-5) and returns ``compute_dtype``;
+* :class:`Embed` looks up in the parameter dtype and returns
+  ``compute_dtype``;
+* attention takes its softmax in f32 (``scaled_dot_product_attention``
+  on f32 operands, ``q`` scaled in its own dtype first);
+* GELU is the tanh approximation (Flax ``nn.gelu``'s default);
+* the head casts ``x`` to the parameter dtype and then, as Flax's
+  ``Embed.attend`` does, both operands to ``compute_dtype``; the logits
+  are returned in f32.
+
+Parameters are ``param_dtype`` (f32).  The head is a
+:class:`~kfac_pytorch_tpu_torch.layers.TiedAttend` module, so K-FAC can
+capture the tied call (``tied_weights=('wte',)``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kfac_pytorch_tpu_torch.layers.coverage import TiedAttend
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    """Model hyperparameters; :func:`gpt_125m` is the GPT-NeoX small
+    configuration the JAX package mirrors."""
+
+    vocab_size: int = 50304
+    n_layers: int = 12
+    n_heads: int = 12
+    d_model: int = 768
+    d_ff: int = 3072
+    max_seq_len: int = 2048
+    dropout_rate: float = 0.0
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = False
+    attention_impl: str = 'dense'
+    seq_axis: str | None = None
+
+    def __post_init__(self) -> None:
+        if self.attention_impl not in ('dense', 'ring'):
+            raise ValueError(
+                "attention_impl must be 'dense' or 'ring', got "
+                f'{self.attention_impl!r}',
+            )
+        if self.attention_impl == 'ring' or self.seq_axis is not None:
+            raise NotImplementedError(
+                "attention_impl='ring' and seq_axis are not ported to the "
+                'PyTorch package yet (ROADMAP.md Queue A item 27: ring '
+                'attention)',
+            )
+        if self.remat:
+            raise NotImplementedError(
+                'remat is not ported to the PyTorch package yet (ROADMAP.md '
+                'Queue A item 26): a recomputed forward would run the '
+                'capture hooks twice',
+            )
+        if self.d_model % self.n_heads:
+            raise ValueError(
+                f'd_model {self.d_model} is not a multiple of n_heads '
+                f'{self.n_heads}',
+            )
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (Flax ``Dense`` with
+    ``dtype``): input, weight and bias are cast before the product."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype) -> None:
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with Flax's epsilon (1e-6), normalizing in f32
+    and returning ``compute_dtype``."""
+
+    def __init__(self, features: int, compute_dtype: torch.dtype) -> None:
+        super().__init__(features, eps=1e-6)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), self.normalized_shape, self.weight.float(),
+            self.bias.float(), self.eps,
+        ).to(self.compute_dtype)
+
+
+class Embed(nn.Embedding):
+    """``nn.Embedding`` returning ``compute_dtype``."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 compute_dtype: torch.dtype) -> None:
+        super().__init__(num_embeddings, features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)
+
+
+class Attention(nn.Module):
+    """Causal multi-head self-attention: ``qkv`` projection, softmax
+    attention in f32, ``proj``."""
+
+    def __init__(self, config: GPTConfig) -> None:
+        super().__init__()
+        self.config = config
+        d, cd = config.d_model, config.dtype
+        self.qkv = Dense(d, 3 * d, cd)
+        self.proj = Dense(d, d, cd)
+        self.drop = nn.Dropout(config.dropout_rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        q, k, v = self.qkv(x).split(cfg.d_model, dim=-1)
+        B, T, _ = q.shape
+
+        def heads(t):
+            return t.reshape(B, T, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+
+        out = F.scaled_dot_product_attention(
+            heads(q * cfg.head_dim ** -0.5).float(), heads(k).float(),
+            heads(v).float(), is_causal=True, scale=1.0,
+        )
+        out = out.to(q.dtype).transpose(1, 2).reshape(B, T, cfg.d_model)
+        return self.drop(self.proj(out))
+
+
+class MLP(nn.Module):
+    """``fc_in``, tanh GELU, ``fc_out``."""
+
+    def __init__(self, config: GPTConfig) -> None:
+        super().__init__()
+        cd = config.dtype
+        self.fc_in = Dense(config.d_model, config.d_ff, cd)
+        self.fc_out = Dense(config.d_ff, config.d_model, cd)
+        self.drop = nn.Dropout(config.dropout_rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(self.fc_in(x), approximate='tanh')
+        return self.drop(self.fc_out(h))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block."""
+
+    def __init__(self, config: GPTConfig) -> None:
+        super().__init__()
+        self.ln_1 = LayerNorm(config.d_model, config.dtype)
+        self.attn = Attention(config)
+        self.ln_2 = LayerNorm(config.d_model, config.dtype)
+        self.mlp = MLP(config)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
+
+class GPT(nn.Module):
+    """Decoder-only LM: ``forward(tokens [B, T]) -> logits [B, T, V]``
+    in f32."""
+
+    def __init__(self, config: GPTConfig) -> None:
+        super().__init__()
+        self.config = config
+        cd = config.dtype
+        self.wte = Embed(config.vocab_size, config.d_model, cd)
+        self.wpe = nn.Parameter(
+            torch.empty(config.max_seq_len, config.d_model),
+        )
+        self.drop = nn.Dropout(config.dropout_rate)
+        self.block_names = [f'h_{i}' for i in range(config.n_layers)]
+        for name in self.block_names:
+            self.add_module(name, Block(config))
+        self.ln_f = LayerNorm(config.d_model, cd)
+        self.head = TiedAttend('wte', dtype=cd)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        T = tokens.shape[1]
+        x = self.wte(tokens) + self.wpe[None, :T].to(cfg.dtype)
+        x = self.drop(x)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        x = self.ln_f(x)
+        logits = self.head(x.to(cfg.param_dtype), self.wte.weight)
+        return logits.float()
+
+
+def init_weights(model: GPT, generator: torch.Generator) -> None:
+    """The JAX model's initialization from ``generator``: dense kernels
+    and the token table normal(0, 0.02), ``wpe`` normal(0, 0.01), zero
+    biases, unit LayerNorm scales."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                if isinstance(m, nn.Linear):
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        model.wpe.normal_(0.0, 0.01, generator=generator)
+
+
+def _build(config: GPTConfig, device: Any, seed: int) -> GPT:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'no CUDA device: pass device="cpu" to build the model '
+                'on the CPU',
+            )
+        device = 'cuda'
+    model = GPT(config).to(device=device, dtype=config.param_dtype)
+    gen = torch.Generator(device=model.wpe.device)
+    gen.manual_seed(seed)
+    init_weights(model, gen)
+    return model
+
+
+def gpt_125m(device=None, seed: int = 0, **overrides: Any) -> GPT:
+    """GPT-NeoX small: vocab 50304, 12 layers, 12 heads, ``d_model``
+    768, ``d_ff`` 3072, 2048 positions, bf16 compute."""
+    return _build(GPTConfig(**overrides), device, seed)
+
+
+def gpt_tiny(device=None, seed: int = 0, **overrides: Any) -> GPT:
+    """Test scale: vocab 256, 2 layers, 2 heads, ``d_model`` 32,
+    ``d_ff`` 64, 128 positions, f32 compute."""
+    defaults = dict(vocab_size=256, n_layers=2, n_heads=2, d_model=32,
+                    d_ff=64, max_seq_len=128, dtype=torch.float32)
+    defaults.update(overrides)
+    return _build(GPTConfig(**defaults), device, seed)

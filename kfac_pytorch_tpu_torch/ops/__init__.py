@@ -1,21 +1,31 @@
 """K-FAC math on tensors: covariances, EMA/kl-clip, eigen, inverse,
 Newton–Schulz, triu packing, fused kernel."""
 from kfac_pytorch_tpu_torch.ops.cov import append_bias_ones
+from kfac_pytorch_tpu_torch.ops.cov import attend_a_diag
+from kfac_pytorch_tpu_torch.ops.cov import attend_g_factor
 from kfac_pytorch_tpu_torch.ops.cov import conv2d_a_factor
 from kfac_pytorch_tpu_torch.ops.cov import conv2d_a_rows
 from kfac_pytorch_tpu_torch.ops.cov import conv2d_g_factor
 from kfac_pytorch_tpu_torch.ops.cov import conv2d_g_rows
 from kfac_pytorch_tpu_torch.ops.cov import cov_from_rows
+from kfac_pytorch_tpu_torch.ops.cov import embed_a_diag
 from kfac_pytorch_tpu_torch.ops.cov import extract_patches
 from kfac_pytorch_tpu_torch.ops.cov import get_cov
+from kfac_pytorch_tpu_torch.ops.cov import layernorm_normalized
 from kfac_pytorch_tpu_torch.ops.cov import linear_a_factor
 from kfac_pytorch_tpu_torch.ops.cov import linear_a_rows
 from kfac_pytorch_tpu_torch.ops.cov import linear_g_factor
 from kfac_pytorch_tpu_torch.ops.cov import linear_g_rows
+from kfac_pytorch_tpu_torch.ops.cov import linear_reduce_a_rows
+from kfac_pytorch_tpu_torch.ops.cov import linear_reduce_g_rows
+from kfac_pytorch_tpu_torch.ops.cov import reduce_sum_shared
+from kfac_pytorch_tpu_torch.ops.cov import scale_bias_a_factor
+from kfac_pytorch_tpu_torch.ops.cov import scale_bias_a_rows
 from kfac_pytorch_tpu_torch.ops.eigen import compute_dgda
 from kfac_pytorch_tpu_torch.ops.eigen import compute_factor_eigen
 from kfac_pytorch_tpu_torch.ops.eigen import EigenFactors
 from kfac_pytorch_tpu_torch.ops.eigen import precondition_grad_eigen
+from kfac_pytorch_tpu_torch.ops.eigen import precondition_grad_eigen_diag_a
 from kfac_pytorch_tpu_torch.ops.fused_precond import (
     fused_eigen_precondition,
 )
@@ -32,6 +42,9 @@ from kfac_pytorch_tpu_torch.ops.inverse import batched_damped_inv
 from kfac_pytorch_tpu_torch.ops.inverse import compute_factor_inv
 from kfac_pytorch_tpu_torch.ops.inverse import compute_factor_inv_general
 from kfac_pytorch_tpu_torch.ops.inverse import precondition_grad_inverse
+from kfac_pytorch_tpu_torch.ops.inverse import (
+    precondition_grad_inverse_diag_a,
+)
 from kfac_pytorch_tpu_torch.ops.iterative import (
     batched_newton_schulz_inv_sqrt,
 )

@@ -4,6 +4,11 @@ Port of ``kfac_pytorch_tpu/ops/cov.py``.  Activations and output
 gradients arrive in PyTorch's layout (NCHW for convolutions); the
 factor definitions, normalizations and feature orders are the JAX
 package's, so factors from the same data agree between the two.
+
+The transformer statistics of the full-coverage subsystem
+(arXiv:2311.00636) are here too: the embedding's exact ``[V]``
+diagonal A factor, the LayerNorm scale+bias ``[2, 2]`` A factor, a
+tied embedding's attend-side contributions and the KFAC-reduce rows.
 """
 from __future__ import annotations
 
@@ -103,6 +108,14 @@ def expand_flatten(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1])
 
 
+def reduce_sum_shared(x: torch.Tensor) -> torch.Tensor:
+    """Sum a ``[batch, *shared, D]`` tensor over its shared axes (the
+    KFAC-reduce reduction); a 2D input is returned untouched."""
+    if x.ndim <= 2:
+        return x
+    return torch.sum(x, dim=tuple(range(1, x.ndim - 1)))
+
+
 def linear_a_rows(
     a: torch.Tensor, has_bias: bool = True,
 ) -> tuple[torch.Tensor, float]:
@@ -116,6 +129,22 @@ def linear_a_rows(
 def linear_g_rows(g: torch.Tensor) -> tuple[torch.Tensor, float]:
     """G-side rows for a dense layer: ``([N, out], norm=1)``."""
     return expand_flatten(g), 1.0
+
+
+def linear_reduce_a_rows(
+    a: torch.Tensor, has_bias: bool = True,
+) -> tuple[torch.Tensor, float]:
+    """KFAC-reduce A-side rows: the bias column is appended before the
+    shared axes are summed, so it carries the shared-application count;
+    on a 2D input this is the dense path's rows."""
+    if has_bias:
+        a = append_bias_ones(a)
+    return reduce_sum_shared(a), 1.0
+
+
+def linear_reduce_g_rows(g: torch.Tensor) -> tuple[torch.Tensor, float]:
+    """KFAC-reduce G-side rows: ``([N, out], norm=1)``, shared summed."""
+    return reduce_sum_shared(g), 1.0
 
 
 def conv2d_a_rows(
@@ -177,3 +206,72 @@ def conv2d_a_factor(
 def conv2d_g_factor(g: torch.Tensor) -> torch.Tensor:
     """G factor for a 2D conv layer from its NCHW output gradient."""
     return cov_from_rows(*conv2d_g_rows(g))
+
+
+def embed_a_diag(ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Diagonal of the embedding A factor: the ``[V]`` token-frequency
+    vector (the one-hot input covariance is exactly diagonal).
+
+    The integer ids are counted as they are, never cast to a float, and
+    clipped to ``[0, vocab)`` first, as the JAX package clips them.
+    """
+    flat = ids.reshape(-1).clamp(0, vocab_size - 1)
+    counts = torch.bincount(flat, minlength=vocab_size)
+    return counts.to(torch.float32) / flat.shape[0]
+
+
+def layernorm_normalized(x: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """The normalized input ``x̂`` a LayerNorm's affine pair consumes,
+    recomputed in f32 from the pre-normalization input with Flax's fast
+    variance (``E[x^2] - E[x]^2``) over the last axis."""
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True) - mean.square()
+    return (x - mean) * torch.rsqrt(var + epsilon)
+
+
+def scale_bias_a_rows(
+    x: torch.Tensor, epsilon: float,
+) -> tuple[torch.Tensor, float]:
+    """A-side rows of a LayerNorm scale+bias pair: ``([R, 2], 1.0)``,
+    one row ``(x̂, 1)`` per (example, position, feature) site."""
+    xhat = layernorm_normalized(x, epsilon)
+    return append_bias_ones(xhat.reshape(-1, 1)), 1.0
+
+
+def scale_bias_a_factor(x: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """``[2, 2]`` A factor of a LayerNorm scale+bias pair."""
+    return cov_from_rows(*scale_bias_a_rows(x, epsilon))
+
+
+#: Rows per chunk of :func:`attend_a_diag`'s reduction.
+ATTEND_ROWS_PER_CHUNK = 1024
+
+
+def attend_a_diag(cots: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Diagonal A contribution of a tied embedding's attend application:
+    the mean over rows of the squared ``[..., V]`` output gradients, in
+    f32 (in the lookup layout the roles swap, so the attend's cotangents
+    feed the ``V`` side).
+
+    Reduced over chunks of :data:`ATTEND_ROWS_PER_CHUNK` rows, each
+    widened to f32 on its own, so a bf16 ``[B, T, V]`` cotangent is never
+    copied whole.
+    """
+    rows = expand_flatten(cots)
+    if rows.shape[-1] != vocab_size:
+        raise ValueError(
+            f'attend cotangents have {rows.shape[-1]} columns, expected '
+            f'vocab_size={vocab_size}',
+        )
+    acc = torch.zeros(vocab_size, dtype=torch.float32, device=rows.device)
+    for chunk in rows.split(ATTEND_ROWS_PER_CHUNK):
+        acc += torch.sum(torch.square(chunk.float()), dim=0)
+    return acc / rows.shape[0]
+
+
+def attend_g_factor(x: torch.Tensor) -> torch.Tensor:
+    """G contribution of a tied embedding's attend application: the
+    covariance of its input activations (the out side in the lookup
+    layout)."""
+    return cov_from_rows(*linear_g_rows(x))

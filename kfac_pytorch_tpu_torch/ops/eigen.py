@@ -65,3 +65,27 @@ def precondition_grad_eigen(
             raise ValueError('da/dg must be provided when dgda is None')
         v2 = v1 / (dg[..., :, None] * da[..., None, :] + damping)
     return (qg @ v2 @ qa.mT).to(grad_dtype)
+
+
+def precondition_grad_eigen_diag_a(
+    grad: torch.Tensor,
+    a_diag: torch.Tensor,
+    qg: torch.Tensor,
+    dg: torch.Tensor,
+    damping: float = 0.001,
+) -> torch.Tensor:
+    """Eigen preconditioning with an exactly diagonal A factor.
+
+    ``diag(a_diag)`` is its own eigendecomposition (identity rotation),
+    so only the G side rotates: ``qg @ ((qg^T @ grad) / (dg ⊗ a_diag +
+    damping))``, the division in f32.  ``grad`` is the combined
+    ``[out, V]`` layout of an embedding.
+    """
+    grad_dtype = grad.dtype
+    grad = grad.to(qg.dtype)
+    v1 = qg.mT @ grad
+    v2 = (
+        v1.float()
+        / (dg.float()[:, None] * a_diag.float()[None, :] + damping)
+    ).to(qg.dtype)
+    return (qg @ v2).to(grad_dtype)

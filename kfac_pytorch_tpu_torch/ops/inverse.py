@@ -63,3 +63,18 @@ def precondition_grad_inverse(
     """``g_inv @ grad @ a_inv`` of a combined ``[out, in(+1)]`` gradient,
     in the inverses' dtype, returned in the gradient's."""
     return (g_inv @ grad.to(a_inv.dtype) @ a_inv).to(grad.dtype)
+
+
+def precondition_grad_inverse_diag_a(
+    grad: torch.Tensor,
+    a_inv_diag: torch.Tensor,
+    g_inv: torch.Tensor,
+) -> torch.Tensor:
+    """Inverse-method preconditioning with an exactly diagonal A:
+    ``a_inv_diag`` is the refresh-time ``1 / (a + damping)``, so the
+    right-hand product is a per-column scaling."""
+    grad_dtype = grad.dtype
+    grad = grad.to(g_inv.dtype)
+    return (
+        (g_inv @ grad) * a_inv_diag[None, :].to(g_inv.dtype)
+    ).to(grad_dtype)

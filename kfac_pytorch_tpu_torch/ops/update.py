@@ -18,11 +18,13 @@ def ema_update_factor(
 ) -> torch.Tensor:
     """Exponential moving average update of a Kronecker factor.
 
-    On the first update the running average starts from the identity,
-    so the result is ``alpha * I + (1 - alpha) * new``; afterwards
+    On the first update the running average starts from the identity
+    (all ones for a diagonal ``[n]`` factor), so the result is ``alpha * I + (1 - alpha) * new``; afterwards
     ``alpha * old + (1 - alpha) * new``.
     """
-    if first_update:
+    if first_update and new.ndim == 1:  # a diagonal factor's identity
+        old = torch.ones_like(factor)
+    elif first_update:
         old = torch.eye(
             new.shape[-1], dtype=factor.dtype, device=factor.device,
         ).expand_as(factor)

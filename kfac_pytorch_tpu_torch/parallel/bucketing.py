@@ -15,9 +15,10 @@ padded; that is the JAX layout and is kept as it is.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, TYPE_CHECKING
 
-from kfac_pytorch_tpu_torch.layers.helpers import LayerHelper
+if TYPE_CHECKING:  # the layers package imports this one through ops
+    from kfac_pytorch_tpu_torch.layers.helpers import LayerHelper
 
 
 def pad_dim(n: int) -> int:

@@ -32,7 +32,7 @@ On one device the grid is ``1 x 1`` and no collective runs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
 
@@ -371,6 +371,7 @@ class BucketedSecondOrder:
         damping: float,
         kl_clip: float | None,
         lr: float,
+        extra_clip_terms: Sequence[torch.Tensor] = (),
     ) -> tuple[dict[str, torch.Tensor], torch.Tensor | None]:
         """Precondition all layers' combined gradients at once.
 
@@ -379,6 +380,10 @@ class BucketedSecondOrder:
         returns every layer.  ``damping`` is the live damping, which the
         non-prediv eigen path divides by.  Scaling after the row gather
         gives the same bits as scaling before it.
+        ``extra_clip_terms`` are the ``<pg, g> * lr^2`` terms of layers
+        preconditioned outside the stacks (diagonal A), summed after the
+        buckets' terms, as ``second_order.py:1575`` of the JAX package
+        sums them.
         """
         stacked = {}
         terms = []
@@ -388,6 +393,7 @@ class BucketedSecondOrder:
             )
             stacked[b.key] = pg
             terms.append(torch.sum(clips) * float(lr) ** 2)
+        terms.extend(extra_clip_terms)
         scale = (
             ops.kl_clip_scale(terms, kl_clip) if kl_clip is not None
             else None

@@ -58,7 +58,9 @@ def _unported(option: str, item: str) -> NotImplementedError:
 
 
 class KFACPreconditioner(BaseKFACPreconditioner):
-    """K-FAC preconditioner for ``nn.Linear``/``nn.Conv2d`` layers.
+    """K-FAC preconditioner for ``nn.Linear``/``nn.Conv2d`` layers, and
+    on request ``nn.Embedding`` (diagonal A) and ``nn.LayerNorm``
+    (scale+bias) layers and a tied LM head.
 
     Args:
         model: the module to precondition, bare or wrapped in
@@ -99,7 +101,24 @@ class KFACPreconditioner(BaseKFACPreconditioner):
         cov_dtype: input dtype of the covariance products (default
             ``factor_dtype``).
         skip_layers: regexes of layer names / class names to skip.
-        layer_types: kinds to register (default ``{'linear', 'conv2d'}``).
+        layer_types: kinds to register (default ``{'linear', 'conv2d'}``;
+            also ``'embedding'`` and ``'layernorm'``; ``'dense_general'``
+            raises, not ported).
+        kfac_approx: ``'expand'``, ``'reduce'`` or a ``{regex: mode}``
+            mapping on linear layers' names and class names.
+        tied_weights: names of ``nn.Embedding`` modules shared with a
+            :class:`~kfac_pytorch_tpu_torch.layers.TiedAttend` head
+            (needs ``'embedding'``): one factor set for both calls.
+
+    A transformer with full coverage, as ``examples/tiny_gpt_lm.py``
+    configures it::
+
+        model = kt.models.gpt_125m()
+        precond = KFACPreconditioner(
+            model, layer_types=('linear', 'conv2d', 'embedding',
+                                'layernorm'),
+            tied_weights=('wte',),
+        )
     """
 
     def __init__(
@@ -188,9 +207,6 @@ class KFACPreconditioner(BaseKFACPreconditioner):
             ('bucketed=False', bucketed is False, 'item 4b'),
             ('topology', topology is not None, 'item 29'),
             ('accumulation_steps > 1', accumulation_steps != 1, 'item 14'),
-            ("kfac_approx other than 'expand'", kfac_approx != 'expand',
-             'item 12'),
-            ('tied_weights', bool(tied_weights), 'item 12'),
             ('lowrank_rank', lowrank_rank is not None, 'item 10'),
             ('ekfac', bool(ekfac), 'item 10'),
             ('adaptive_refresh', adaptive_refresh is not None, 'item 10'),
@@ -237,6 +253,8 @@ class KFACPreconditioner(BaseKFACPreconditioner):
             layer_types=(
                 DEFAULT_LAYER_TYPES if layer_types is None else layer_types
             ),
+            kfac_approx=kfac_approx,
+            tied_weights=tied_weights,
         )
         super().__init__(
             capture,

@@ -74,7 +74,9 @@ def test_capture_only_when_armed_training_and_recording():
     fwd_bwd(model)
     got = cap.take()
     assert set(got) == {'conv', 'fc', 'head'}
-    assert all(len(a) == len(g) == 1 for a, g in got.values())
+    # One role per layer (no tied attend call here), one call each.
+    assert all(len(roles) == 1 for roles in got.values())
+    assert all(len(a) == len(g) == 1 for ((_, a, g),) in got.values())
     with pytest.raises(RuntimeError, match='forward call'):
         cap.take()  # cleared, and nothing captured since
 
@@ -195,8 +197,9 @@ def test_step_without_backward_raises():
     (dict(watchdog=object()), 'item 21'),
     (dict(observe=object()), 'item 23'),
     (dict(flight=object()), 'item 23'),
-    (dict(kfac_approx='reduce'), 'item 12'),
-    (dict(layer_types=('linear', 'embedding')), 'items 11-12'),
+    (dict(layer_types=('linear', 'dense_general')), 'item 12'),
+    (dict(layer_types=('linear', 'embedding', 'dense_general')),
+     'items 11-12'),
     (dict(use_pallas=True), 'Queue B item 1'),
 ])
 def test_unported_options_raise(kwargs, item):

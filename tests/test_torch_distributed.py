@@ -6,7 +6,11 @@ they import no JAX), run COMM-OPT, HYBRID-OPT and MEM-OPT in turn on
 ``TinyModel`` (``[16, 10]`` inputs) and ``LeNet`` (16x16, for the conv
 buckets), then ``compute_method='inverse'`` and ``'iterative'`` under
 HYBRID-OPT on ``TinyModel`` (a column gather of the inverses and a row
-gather of the gradients).  Each rank wraps the model in
+gather of the gradients), then ``gpt_tiny`` with full coverage (the
+tied embedding's diagonal A on the side path every rank runs itself,
+the LayerNorm and Dense layers in the buckets) under HYBRID-OPT with
+the eigen and the inverse method, 16 sequences of 8 tokens, next-token
+cross entropy.  Each rank wraps the model in
 ``DistributedDataParallel``,
 takes its quarter of the global batch of 16 and trains 5 SGD steps
 (lr 0.1) with ``factor_update_steps=1, inv_update_steps=2``, so the
@@ -44,6 +48,7 @@ if str(ROOT) not in sys.path:  # worker processes run this file directly
 
 from kfac_pytorch_tpu_torch import DistributedStrategy  # noqa: E402
 from kfac_pytorch_tpu_torch import KFACPreconditioner  # noqa: E402
+from kfac_pytorch_tpu_torch.models import gpt_tiny  # noqa: E402
 from kfac_pytorch_tpu_torch.models import LeNet  # noqa: E402
 from kfac_pytorch_tpu_torch.models import TinyModel  # noqa: E402
 
@@ -59,26 +64,44 @@ STRATEGIES = ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT')
 #: ``(model, strategy, compute_method)`` runs of the other methods.
 METHOD_CASES = [('tiny', 'HYBRID_OPT', 'inverse'),
                 ('tiny', 'HYBRID_OPT', 'iterative')]
+#: ``(model, strategy, compute_method)`` runs of the full-coverage GPT.
+GPT_CASES = [('gpt', 'HYBRID_OPT', 'eigen'), ('gpt', 'HYBRID_OPT', 'inverse')]
+GPT_KW = dict(layer_types=('linear', 'conv2d', 'embedding', 'layernorm'),
+              tied_weights=('wte',))
 SPAWN_TIMEOUT_S = 150
 #: Local batch size of each rank, per case.
 UNEQUAL_BATCHES = {'one_short': (4, 4, 4, 3), 'mean_equal': (3, 4, 5, 4)}
 
 
 def data(name: str) -> tuple[np.ndarray, np.ndarray]:
-    """The global batch of 16 (NHWC images for LeNet)."""
+    """The global batch of 16 (NHWC images for LeNet; for the GPT 8
+    tokens per sequence, which are their own labels)."""
     rng = np.random.default_rng(21)
+    if name == 'gpt':
+        tokens = rng.integers(0, 256, size=(16, 8)).astype(np.int32)
+        return tokens, tokens
     shape = (16, 10) if name == 'tiny' else (16, 16, 16, 1)
     x = rng.standard_normal(shape).astype(np.float32)
     return x, rng.integers(0, 10, size=(16,))
 
 
 def port_model(name: str) -> torch.nn.Module:
+    if name == 'gpt':
+        return gpt_tiny(device='cpu')
     return TinyModel() if name == 'tiny' else LeNet(image_size=16)
 
 
 def port_input(x: np.ndarray) -> torch.Tensor:
     x = x.transpose(0, 3, 1, 2) if x.ndim == 4 else x
-    return torch.from_numpy(np.ascontiguousarray(x))
+    x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.long() if not x.is_floating_point() else x
+
+
+def port_loss(name, out, y):
+    """Cross entropy; next-token for the GPT (``y`` is the tokens)."""
+    if name == 'gpt':
+        out, y = out[:, :-1].reshape(-1, out.shape[-1]), y[:, 1:].reshape(-1)
+    return F.cross_entropy(out, y)
 
 
 def train_rank(rank, world, weights, name, strategy, method='eigen'):
@@ -86,19 +109,19 @@ def train_rank(rank, world, weights, name, strategy, method='eigen'):
     x, y = data(name)
     q = len(x) // world
     xl = port_input(x[rank * q:(rank + 1) * q])
-    yl = torch.from_numpy(y[rank * q:(rank + 1) * q])
+    yl = torch.from_numpy(y[rank * q:(rank + 1) * q]).long()
     model = port_model(name)
     model.load_state_dict(weights[name], strict=True)
     ddp = torch.nn.parallel.DistributedDataParallel(model)
     precond = KFACPreconditioner(
         ddp, grad_worker_fraction=DistributedStrategy[strategy],
-        compute_method=method, **HP,
+        compute_method=method, **HP, **(GPT_KW if name == 'gpt' else {}),
     )
     opt = torch.optim.SGD(model.parameters(), lr=LR)
     steps = []
     for _ in range(STEPS):
         opt.zero_grad()
-        F.cross_entropy(ddp(xl), yl).backward()
+        port_loss(name, ddp(xl), yl).backward()
         precond.step()
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
         factors = {
@@ -148,6 +171,15 @@ def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
             for k, bs in precond.buckets.items()
         }
         results[name, strategy, method] = res
+    for case in GPT_CASES:
+        precond, res = train_rank(rank, world, weights, *case)
+        res['diag'] = {
+            n: {f: tuple(t.shape) for f, t in
+                precond.layers[n].decompositions().items()}
+            for n in precond.diag_layers
+        }
+        res['buckets'] = [b.key for b in precond.plan.buckets]
+        results[case] = res
     # Unequal local batches raise on every rank, so no rank goes on into
     # a collective that the others skip.  In the second case the mean
     # count equals ranks 1 and 3's own.
@@ -209,7 +241,10 @@ def runs(tmp_path_factory):
     import jax.numpy as jnp
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+    import flax.linen as fnn
+
     from kfac_pytorch_tpu.enums import DistributedStrategy as JaxStrategy
+    from kfac_pytorch_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
     from kfac_pytorch_tpu.models.tiny import LeNet as JaxLeNet
     from kfac_pytorch_tpu.models.tiny import TinyModel as JaxTiny
     from kfac_pytorch_tpu.preconditioner import (
@@ -218,11 +253,12 @@ def runs(tmp_path_factory):
     from kfac_pytorch_tpu_torch.convert import flax_to_torch_state_dict
 
     out = tmp_path_factory.mktemp('kaisa')
-    jax_models = {'tiny': JaxTiny(), 'lenet': JaxLeNet()}
+    jax_models = {'tiny': JaxTiny(), 'lenet': JaxLeNet(),
+                  'gpt': jax_gpt_tiny()}
     variables = {
-        name: jax.tree.map(np.asarray, m.init(
+        name: jax.tree.map(np.asarray, fnn.meta.unbox(m.init(
             jax.random.PRNGKey(2), data(name)[0],
-        ))
+        )))
         for name, m in jax_models.items()
     }
     torch.save(
@@ -236,11 +272,16 @@ def runs(tmp_path_factory):
         logp = jax.nn.log_softmax(logits)
         return -jnp.mean(jnp.take_along_axis(logp, labels[:, None], axis=1))
 
+    def lm_loss(logits, tokens):
+        logp = jax.nn.log_softmax(logits[:, :-1])
+        return -jnp.mean(jnp.take_along_axis(logp, tokens[:, 1:, None], -1))
+
     mesh = Mesh(np.array(jax.devices()[:WORLD]), ('data',))
     shard = NamedSharding(mesh, P('data'))
     ref = {}
     try:
-        for name, model in jax_models.items():
+        for name in MODELS:
+            model = jax_models[name]
             x, y = data(name)
             xs = jax.device_put(x, shard)
             ys = jax.device_put(jnp.asarray(y), shard)
@@ -269,12 +310,13 @@ def runs(tmp_path_factory):
                         },
                     ))
                 ref[name, strategy] = steps
-        for name, strategy, method in METHOD_CASES:
+        for name, strategy, method in METHOD_CASES + GPT_CASES:
             x, y = data(name)
             precond = JaxPreconditioner(
-                jax_models[name], loss_fn=xent, mesh=mesh,
-                grad_worker_fraction=JaxStrategy[strategy],
+                jax_models[name], loss_fn=lm_loss if name == 'gpt' else xent,
+                mesh=mesh, grad_worker_fraction=JaxStrategy[strategy],
                 compute_method=method, **HP,
+                **(GPT_KW if name == 'gpt' else {}),
             )
             state = precond.init(variables[name], x)
             params = variables[name]['params']
@@ -290,8 +332,9 @@ def runs(tmp_path_factory):
                 steps.append(dict(
                     grads=flax_to_torch_state_dict({'params': grads}),
                     factors={
-                        base: (np.asarray(state[base].a_factor),
-                               np.asarray(state[base].g_factor))
+                        base.replace('/', '.'): (
+                            np.asarray(state[base].a_factor),
+                            np.asarray(state[base].g_factor))
                         for base in state.layers
                     },
                 ))
@@ -422,6 +465,56 @@ def test_methods_hold_their_fields_on_column_slots(runs, case):
             assert all(shape[0] == seg for shape in shapes.values())
             total += sum(4 * np.prod(shape) for shape in shapes.values())
         assert run['second_order_bytes'] == total
+
+
+GPT_IDS = [f'{m}-{s}-{c}' for m, s, c in GPT_CASES]
+
+
+@pytest.mark.parametrize('case', GPT_CASES, ids=GPT_IDS)
+def test_gpt_preconditioned_grads_match_jax(runs, case):
+    ref, ranks = runs
+    for rank, res in enumerate(ranks):
+        for step, (got, want) in enumerate(zip(res[case]['steps'],
+                                               ref[case])):
+            assert set(got['grads']) == set(want['grads'])
+            for n in want['grads']:
+                diff = float((got['grads'][n] - want['grads'][n]).abs().max())
+                assert diff < 2e-4, (rank, step, n, diff)
+
+
+@pytest.mark.parametrize('case', GPT_CASES, ids=GPT_IDS)
+def test_gpt_factor_emas_match_jax(runs, case):
+    """The tied embedding's ``[V]`` diagonal and ``[D, D]`` G ride the
+    factor all-reduce with the buckets' factors."""
+    ref, ranks = runs
+    for res in ranks:
+        for got, want in zip(res[case]['steps'], ref[case]):
+            assert set(got['factors']) == set(want['factors'])
+            assert got['factors']['wte'][0].shape == (256,)
+            for layer, (a, g) in want['factors'].items():
+                for side, w in enumerate((a, g)):
+                    np.testing.assert_allclose(
+                        got['factors'][layer][side].numpy(), w, rtol=1e-5,
+                        atol=1e-6,
+                    )
+
+
+@pytest.mark.parametrize('case', GPT_CASES, ids=GPT_IDS)
+def test_gpt_side_path_is_replicated(runs, case):
+    """Every rank holds the diagonal layer's whole decomposition (the
+    side path is not sharded) and keeps it out of the buckets; the
+    parameters stay bitwise equal across ranks."""
+    _, ranks = runs
+    fields = ({'qg': (32, 32), 'dg': (32,), 'da': (256,)}
+              if case[2] == 'eigen' else
+              {'g_inv': (32, 32), 'a_inv': (256,)})
+    for rank, res in enumerate(ranks):
+        run = res[case]
+        assert run['diag'] == {'wte': fields}
+        assert run['buckets'] == ['a64g128', 'a128g32', 'a64g64', 'a64g32',
+                                  'a32g32']
+        flags = [s['params_equal'] for s in run['steps']]
+        assert flags == [True] * STEPS, (rank, flags)
 
 
 @pytest.mark.parametrize('case', list(UNEQUAL_BATCHES))

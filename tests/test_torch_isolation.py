@@ -47,6 +47,9 @@ def test_scan_finds_the_port():
     files = _port_files()
     assert len(files) > 15
     assert all(f.is_file() for f in files)
+    port = ROOT / 'kfac_pytorch_tpu_torch'
+    for module in ('layers/coverage.py', 'models/gpt.py'):
+        assert port / module in files, module
 
 
 @pytest.mark.parametrize(

@@ -40,12 +40,16 @@ def _inputs(L, gp, ap, device, seed=0):
 
 #: ResNet-32's six bucket stacks at full L, two shapes whose rows are
 #: not 16-byte multiples (the masked copy path), and one that takes the
-#: large-gp tiling (four launches); bf16 at two of them.
+#: large-gp tiling (four launches); bf16 at two of them.  Then GPT-125M's
+#: five bucket stacks under full coverage (all large-gp), bf16 at two.
 CASES = [
     (9, 64, 576, 'f32'), (1, 64, 320, 'f32'), (9, 32, 320, 'f32'),
     (11, 32, 192, 'f32'), (1, 32, 128, 'f32'), (1, 32, 32, 'f32'),
     (3, 40, 70, 'f32'), (2, 33, 100, 'f32'), (2, 256, 1152, 'f32'),
     (9, 64, 576, 'bf16'), (2, 33, 100, 'bf16'),
+    (12, 768, 3200, 'f32'), (12, 3072, 896, 'f32'), (12, 2304, 896, 'f32'),
+    (12, 768, 896, 'f32'), (25, 768, 32, 'f32'),
+    (12, 3072, 896, 'bf16'), (25, 768, 32, 'bf16'),
 ]
 
 
