@@ -15,8 +15,9 @@ fails:
 1. the card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel from ``kfac_pytorch_tpu_torch/csrc`` and its time;
 2. every kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (ResNet-32's six bucket stacks) plus
-   ResNet-50's largest bucket, in f32 (``rtol 1e-5, atol 1e-4``) and in
+   shapes the main paths give it (ResNet-32's six bucket stacks, and
+   GPT-125M's five and ResNet-50's 21 below), in f32 (``rtol 1e-5, atol
+   1e-4``) and in
    bf16 (against f32: mean relative error < 0.05), with two runs giving
    bitwise-equal outputs; times of the kernel, its plain version and
    the cuBLAS ``torch.matmul`` chain, with CUDA events, and the device
@@ -90,7 +91,25 @@ fails:
    steps with the default coverage (48 Dense layers, 4 buckets).  Phase
    2 holds the kernel against its plain version at GPT-125M's five
    bucket shapes too, at most four CUDA kernels per call there (every
-   GPT bucket has ``gp > 64``).
+   GPT bucket has ``gp > 64``);
+9. the ImageNet CNN path: ResNet-50 at its published widths (1000
+   classes, 54 layers in 21 buckets) at batch 32 on 224x224 synthetic
+   images, f32, ``factor_update_steps=10, inv_update_steps=100``: 21
+   steps (factor steps 0, 10 and 20, the refresh at 0), then 11 steps
+   with ``accumulation_steps=4`` at micro-batches of 8.  Each run: a
+   finite, falling loss, kernel launches equal to steps x 21 buckets,
+   and at step 0 every layer's preconditioned gradient and the kl-clip
+   scale against a rerun on the card through the plain version
+   (relative Frobenius error ``< 1e-4``); stage medians, peak memory and
+   ``memory_usage()``.  Then the factors of one factor step taken in 4
+   micro-batches of 8 against one batch of 32 (BatchNorm in eval mode
+   for this check, so the splits normalize alike; relative ``< 1e-5``;
+   A equal, G equal to 4^2 times the whole batch's, as the JAX
+   package's accumulation takes each micro-batch's G from the gradients
+   of its own mean loss),
+   and one ``kfac_pytorch_tpu_torch.bench`` line for ResNet-50 and
+   ResNet-32 at a shortened cycle (inv 20, one cycle).  Phase 2 holds
+   the kernel at ResNet-50's 21 bucket shapes.
 
 A ``phases:`` line gives each phase's time.
 
@@ -104,7 +123,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -116,13 +134,21 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 
-#: ResNet-32's bucket stacks ``(L, gp, ap)`` in plan order, then
-#: ResNet-50's largest bucket (a4608g512) at L=2.
+#: ResNet-32's bucket stacks ``(L, gp, ap)`` in plan order.
 MAIN_PATH_CASES = [
     (9, 64, 576), (1, 64, 320), (9, 32, 320), (11, 32, 192),
     (1, 32, 128), (1, 32, 32),
 ]
-EXTRA_CASES = [(2, 512, 4608)]
+#: ResNet-50's 21 bucket stacks (54 layers) in plan order: the 3x3 convs
+#: of layer4 (a4608g512) first, the fc head (2049 -> 2176, 1000 -> 1024)
+#: third, the stem (147 -> 192) second to last.
+RN50_CASES = [
+    (3, 512, 4608), (6, 256, 2304), (1, 1024, 2176), (1, 2048, 1024),
+    (2, 512, 2048), (3, 2048, 512), (4, 128, 1152), (1, 512, 1024),
+    (1, 1024, 512), (5, 256, 1024), (6, 1024, 256), (3, 64, 576),
+    (1, 256, 512), (1, 512, 256), (3, 128, 512), (4, 512, 128),
+    (1, 128, 256), (2, 64, 256), (4, 256, 64), (1, 64, 192), (1, 64, 64),
+]
 #: GPT-125M's bucket stacks under full coverage, in plan order: fc_out,
 #: fc_in, qkv, proj (12 slots each; ``pad_dim`` takes 769 to 896 and 3073
 #: to 3200) and the LayerNorms (25 slots).  Every one has ``gp > 64``.
@@ -148,14 +174,12 @@ def fail(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0 or not out.stdout.strip():
-        fail(f'nvidia-smi failed: {out.stderr.strip()}')
-    return out.stdout.strip().splitlines()[0]
+    from kfac_pytorch_tpu_torch.utils.backend import card_power_line
+
+    line = card_power_line()
+    if line is None:
+        fail('nvidia-smi --query-gpu=name,power.limit failed')
+    return line
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -377,21 +401,19 @@ def check_case(torch, kernel, plain, shape, seed, at_most):
 def phase_kernels(torch, ops):
     """Kernel against plain on the card; returns the kernels-line entries
     of ResNet-32's path (times summed over its six bucket calls of one
-    step) and of GPT-125M's (its five bucket calls).  A ResNet call may
-    issue two CUDA kernels, a ``gp > 64`` call (every GPT bucket) four."""
+    step), of GPT-125M's (its five bucket calls) and of ResNet-50's (its
+    21).  A call with ``gp <= 64`` may issue two CUDA kernels, a
+    ``gp > 64`` call (every GPT bucket, most of ResNet-50's) four."""
     kernel = ops.fused_eigen_precondition
     plain = ops.fused_eigen_precondition_reference
     max_err = 0.0
     step_calls, timed, per_call = [], [], []
-    for i, shape in enumerate(MAIN_PATH_CASES + EXTRA_CASES):
-        on_path = shape in MAIN_PATH_CASES
-        err, t, n, args = check_case(torch, kernel, plain, shape, 100 + i,
-                                     2 if on_path else None)
-        if on_path:
-            step_calls.append(lambda a=args: kernel(*a))
-            timed.append(t)
-            per_call.append(n)
-            max_err = max(max_err, err)
+    for i, shape in enumerate(MAIN_PATH_CASES):
+        err, t, n, args = check_case(torch, kernel, plain, shape, 100 + i, 2)
+        step_calls.append(lambda a=args: kernel(*a))
+        timed.append(t)
+        per_call.append(n)
+        max_err = max(max_err, err)
     entry = step_entry('fused_eigen_precondition',
                        'kfac_pytorch_tpu/ops/pallas_precond.py:43', timed,
                        max_err, per_call)
@@ -421,7 +443,32 @@ def phase_kernels(torch, ops):
           f'{gpt["bound_ms"]:.6f} ms ({gpt["bound_by"]}), CUDA-core bound '
           f'{step_bound_cuda_core(gpt_timed):.6f} ms; kernels per call '
           f'{gpt_per_call}', flush=True)
-    return entry, gpt
+    rn_err, rn_timed, rn_per_call = 0.0, [], []
+    for i, shape in enumerate(RN50_CASES):
+        err, t, n, _ = check_case(torch, kernel, plain, shape, 500 + i,
+                                  2 if shape[1] <= 64 else 4)
+        rn_err = max(rn_err, err)
+        rn_timed.append(t)
+        rn_per_call.append(n)
+        torch.cuda.empty_cache()
+    rn50 = step_entry('fused_eigen_precondition, ResNet-50 buckets',
+                      'kfac_pytorch_tpu/ops/pallas_precond.py:43', rn_timed,
+                      rn_err, rn_per_call)
+    rn50['shapes'] = RN50_CASES
+    rn50['per_bucket'] = [
+        dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=precond_bound(*shape, 4)[0])
+        for shape, ms, plain_ms, lib_ms in rn_timed
+    ]
+    print(f'kernel resnet50: one step\'s {len(RN50_CASES)} calls: '
+          f'{rn50["ms"]:.5f} ms issued one by one; plain '
+          f'{rn50["plain_ms"]:.5f} ms; cuBLAS chain {rn50["library_ms"]:.5f} '
+          f'ms; bound {rn50["bound_ms"]:.6f} ms ({rn50["bound_by"]}), '
+          f'CUDA-core bound {step_bound_cuda_core(rn_timed):.6f} ms; kernels '
+          f'per call {rn_per_call}; buckets where cuBLAS is faster: '
+          + str([shape for shape, ms, _, lib in rn_timed if lib < ms]),
+          flush=True)
+    return entry, gpt, rn50
 
 
 TRAIN_HP = dict(factor_update_steps=1, inv_update_steps=10, damping=0.003,
@@ -1503,6 +1550,263 @@ def phase_kaisa(torch, kt):
     return total_launches, mem_gather_ms
 
 
+#: Phase 9: ImageNet ResNet-50 at its published widths, the ImageNet
+#: trainer's cadence (``bench.py:1803-1830``).  The rehearsal on the CPU
+#: sets a small ``RN50_IMAGE`` and fewer steps.
+RN50_HP = dict(factor_update_steps=10, inv_update_steps=100, damping=0.003,
+               kl_clip=0.001, lr=0.1)
+RN50_BATCH = 32
+RN50_IMAGE = 224
+RN50_STEPS = 21  # factor steps 0, 10 and 20; the refresh at step 0
+RN50_ACCUM = 4  # micro-batches of RN50_BATCH // RN50_ACCUM rows
+RN50_ACCUM_STEPS = 11  # factor steps 0 and 10
+#: The bench line's shortened cycle.
+RN50_BENCH = dict(inv_steps=20, cycles=1)
+
+
+def rn50_batch(torch):
+    """The one synthetic ImageNet batch phase 9 trains on."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    x = torch.randn(RN50_BATCH, 3, RN50_IMAGE, RN50_IMAGE, generator=gen,
+                    device=DEVICE)
+    y = torch.randint(0, 1000, (RN50_BATCH,), generator=gen, device=DEVICE)
+    return x, y
+
+
+def train_resnet50(torch, kt, steps, accumulation=1):
+    """``steps`` K-FAC steps of ResNet-50 on the fixed batch, split into
+    ``accumulation`` micro-batches (each loss divided by their number),
+    stages timed by CUDA events, the fused kernel's launches counted from
+    0 over exactly these steps and its calls timed by events around each.
+    At step 0 (a refresh step) it keeps the combined gradients before and
+    after ``precond.step()`` and the kl-clip scale."""
+    import torch.nn.functional as F
+
+    model = kt.models.resnet50(device=DEVICE, seed=0)
+    x, y = rn50_batch(torch)
+    xs, ys = x.chunk(accumulation), y.chunk(accumulation)
+    precond = kt.KFACPreconditioner(model, accumulation_steps=accumulation,
+                                    **RN50_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=RN50_HP['lr'],
+                          momentum=0.9)
+    events: dict[str, list] = {
+        'capture (fwd+bwd)': [], 'factors (cov+EMA)': [],
+        'refresh': [], 'precondition': [], 'kernel': [],
+    }
+
+    def timed(name, fn):
+        def run(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            events[name].append((s, e))
+            return out
+        return run
+
+    precond._update_factors = timed('factors (cov+EMA)',
+                                    precond._update_factors)
+    precond._refresh = timed('refresh', precond._refresh)
+    precond._precondition = timed('precondition', precond._precondition)
+
+    def fwd_bwd():
+        opt.zero_grad()
+        losses = []
+        for xm, ym in zip(xs, ys):
+            loss = F.cross_entropy(model(xm), ym)
+            (loss / accumulation).backward()
+            losses.append(loss.detach())
+        return sum(losses) / accumulation
+
+    fwd_bwd_timed = timed('capture (fwd+bwd)', fwd_bwd)
+    sharded = kt.ops.fused_eigen_precondition_sharded
+    kt.ops.fused_eigen_precondition_sharded = timed('kernel', sharded)
+    run = dict(precond=precond, losses=[], step_s=[])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kt.ops.fused_eigen_precondition.launches = 0
+        for step in range(steps):
+            t0 = time.perf_counter()
+            loss = fwd_bwd_timed()
+            if step == 0:
+                run['raw'] = {n: h.get_grad().clone()
+                              for n, h in precond.helpers.items()}
+            precond.step()
+            if step == 0:
+                run['got'] = {n: h.get_grad().clone()
+                              for n, h in precond.helpers.items()}
+                run['scale'] = precond.last_kl_scale
+            opt.step()
+            torch.cuda.synchronize()
+            run['step_s'].append(time.perf_counter() - t0)
+            run['losses'].append(float(loss))
+        run['launches'] = kt.ops.fused_eigen_precondition.launches
+        run['peak_bytes'] = torch.cuda.max_memory_allocated()
+    finally:
+        kt.ops.fused_eigen_precondition_sharded = sharded
+    label = f'resnet50 accumulation {accumulation}'
+    losses = run['losses']
+    if not all(math.isfinite(v) for v in losses):
+        fail(f'{label}: non-finite loss: {losses}')
+    if not losses[-1] < losses[0]:
+        fail(f'{label}: loss did not fall: first {losses[0]}, last '
+             f'{losses[-1]}')
+    shapes = [(b.n_slots, b.g_pad, b.a_pad) for b in precond.plan.buckets]
+    if shapes != RN50_CASES or len(precond.layers) != 54:
+        fail(f'{label}: {len(precond.layers)} layers in buckets {shapes}, '
+             f'expected 54 in {RN50_CASES}')
+    if run['launches'] != steps * len(shapes):
+        fail(f'{label}: kernel launched {run["launches"]} times in {steps} '
+             f'steps, expected {steps * len(shapes)} ({len(shapes)} '
+             'buckets)')
+    per_step = len(events['kernel']) // steps
+    run['kernel_step_ms'] = [
+        sum(s.elapsed_time(e) for s, e in events['kernel'][i:i + per_step])
+        for i in range(0, len(events['kernel']), per_step)
+    ]
+    run['stage_ms'] = {
+        name: (statistics.median([s.elapsed_time(e) for s, e in evs]),
+               len(evs))
+        for name, evs in events.items() if name != 'kernel'
+    }
+    run['refresh_ms'] = [s.elapsed_time(e) for s, e in events['refresh']]
+
+    # Step 0 rerun on the card from the same decompositions (no refresh
+    # after step 0 in this run) and raw gradients, the plain version in
+    # place of the kernel.
+    kt.ops.fused_eigen_precondition_sharded = (
+        kt.ops.fused_eigen_precondition_sharded_reference)
+    launches = kt.ops.fused_eigen_precondition.launches
+    try:
+        want, scale = precond.precondition_combined(
+            run['raw'], RN50_HP['damping'], RN50_HP['kl_clip'],
+            RN50_HP['lr'],
+        )
+    finally:
+        kt.ops.fused_eigen_precondition_sharded = sharded
+    if kt.ops.fused_eigen_precondition.launches != launches:
+        fail(f'{label}: the plain rerun launched the kernel')
+    errs = {n: rel_frob(run['got'][n], w) for n, w in want.items()}
+    worst = max(errs, key=errs.get)
+    scale_err = abs(float(scale) - float(run['scale'])) / float(scale)
+    if not (set(errs) == set(precond.helpers) and errs[worst] < 1e-4
+            and scale_err < 1e-4):
+        fail(f'{label}: step 0 kernel path vs plain rerun: worst layer '
+             f'{worst} rel err {errs[worst]:.3e}, kl-clip scale rel err '
+             f'{scale_err:.3e}')
+    run['check'] = (worst, errs[worst], float(scale), scale_err)
+    del run['raw'], run['got']
+    return run
+
+
+def rn50_factors_split(torch, kt, accumulation):
+    """The factor contributions of one factor step on the fixed batch, in
+    ``accumulation`` micro-batches (``factor_decay=0``, so the EMA is the
+    contribution itself, and no refresh: ``inv_update_steps=0``),
+    BatchNorm in eval mode (so every split normalizes alike)."""
+    import torch.nn.functional as F
+
+    model = kt.models.resnet50(device=DEVICE, seed=0)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.eval()
+    x, y = rn50_batch(torch)
+    precond = kt.KFACPreconditioner(
+        model, accumulation_steps=accumulation,
+        **dict(RN50_HP, factor_decay=0.0, inv_update_steps=0, kl_clip=None),
+    )
+    for xm, ym in zip(x.chunk(accumulation), y.chunk(accumulation)):
+        (F.cross_entropy(model(xm), ym) / accumulation).backward()
+    precond.step()
+    out = {n: (st.a_factor, st.g_factor) for n, st in precond.layers.items()}
+    del precond, model
+    return out
+
+
+def phase_resnet50(torch, kt):
+    """Phase 9: ImageNet ResNet-50 at its published widths (1000
+    classes, batch ``RN50_BATCH`` at ``RN50_IMAGE``), 54 layers in 21
+    buckets, f32 with TF32 off: ``RN50_STEPS`` steps, then
+    ``RN50_ACCUM_STEPS`` steps of ``RN50_ACCUM`` micro-batches; the
+    accumulated factors against one whole batch's; one bench line at a
+    shortened cycle.  Returns the first run's kernel launches."""
+    from kfac_pytorch_tpu_torch import bench
+
+    launches = None
+    for steps, accumulation in ((RN50_STEPS, 1),
+                                (RN50_ACCUM_STEPS, RN50_ACCUM)):
+        run = train_resnet50(torch, kt, steps, accumulation)
+        precond, losses = run['precond'], run['losses']
+        label = (f'resnet50: batch {RN50_BATCH} at {RN50_IMAGE}x{RN50_IMAGE}'
+                 f', accumulation {accumulation} x '
+                 f'{RN50_BATCH // accumulation} rows')
+        worst, err, scale, scale_err = run['check']
+        ms = {k: v[0] for k, v in run['stage_ms'].items()}
+        print(f'{label}: {len(precond.layers)} layers, '
+              f'{len(RN50_CASES)} buckets; losses first={losses[0]:.6f} '
+              f'last={losses[-1]:.6f} all={[round(v, 5) for v in losses]}',
+              flush=True)
+        print(f'{label}: launches={run["launches"]} ({len(RN50_CASES)} '
+              f'buckets x {steps} steps); step 0 vs plain rerun on the card, '
+              f'worst layer {worst} {err:.3e}; kl-clip scale {scale:.6e} '
+              f'(rel err {scale_err:.3e})', flush=True)
+        print(f'{label}: median step '
+              f'{statistics.median(run["step_s"][1:]) * 1e3:.4f} ms (steps '
+              f'1-{steps - 1}, host clock, synchronized; factor steps '
+              f'included); first step {run["step_s"][0] * 1e3:.2f} ms; stage '
+              'medians (CUDA events): capture (fwd+bwd) '
+              f'{ms["capture (fwd+bwd)"]:.4f} ms, factors '
+              f'{ms["factors (cov+EMA)"]:.4f} ms over '
+              f'{run["stage_ms"]["factors (cov+EMA)"][1]} factor steps, '
+              f'precondition {ms["precondition"]:.4f} ms of which the '
+              f'kernel\'s {len(RN50_CASES)} calls '
+              f'{statistics.median(run["kernel_step_ms"]):.4f} ms; refresh '
+              'at step 0: '
+              + ', '.join(f'{t:.2f}' for t in run['refresh_ms']) + ' ms',
+              flush=True)
+        print(f'{label}: torch.cuda.max_memory_allocated {run["peak_bytes"]}'
+              f' bytes ({run["peak_bytes"] / 2**30:.3f} GiB); memory_usage '
+              f'{precond.memory_usage()}', flush=True)
+        if launches is None:
+            launches = run['launches']
+        del run, precond
+        torch.cuda.empty_cache()
+
+    # The JAX package's accumulation takes each micro-batch's factors from
+    # the gradients of that micro-batch's own mean loss, which are N times
+    # the whole batch's per row: A (a mean over rows) is the whole batch's,
+    # and G (a mean of squares of those gradients) is N^2 times it.
+    whole = rn50_factors_split(torch, kt, 1)
+    split = rn50_factors_split(torch, kt, RN50_ACCUM)
+    errs = {(n, side): rel_frob(split[n][side],
+                                whole[n][side] * RN50_ACCUM ** (2 * side))
+            for n in whole for side in (0, 1)}
+    worst = max(errs, key=errs.get)
+    if not errs[worst] < 1e-5:
+        fail(f'resnet50: accumulated factors vs one batch: {worst} rel err '
+             f'{errs[worst]:.3e}')
+    print(f'resnet50: factors of {RN50_ACCUM} x {RN50_BATCH // RN50_ACCUM} '
+          f'micro-batches vs one batch of {RN50_BATCH} (BatchNorm in eval '
+          f'mode, first factor step, A against A and G against '
+          f'{RN50_ACCUM}^2 G): worst {worst[0]} {"AG"[worst[1]]} rel err '
+          f'{errs[worst]:.3e} over {len(errs)} factors', flush=True)
+    del whole, split
+    torch.cuda.empty_cache()
+
+    line = bench.run(['resnet50', 'resnet32_cifar'], DEVICE, **RN50_BENCH)
+    print(f'bench (inv {RN50_BENCH["inv_steps"]}, {RN50_BENCH["cycles"]} '
+          f'cycle): {json.dumps(line)}', flush=True)
+    for name in ('resnet50', 'resnet32_cifar'):
+        d = line['detail']
+        if not (d[f'{name}_sgd_ms'] > 0 and d[f'{name}_kfac_ms_amortized']
+                > 0 and math.isfinite(d[f'{name}_ratio'])):
+            fail(f'bench {name}: {d}')
+    return launches
+
+
 def device_record(torch) -> dict:
     """The last line: ``{"ok": true, "device": {...}}``."""
     return {'ok': True, 'device': {
@@ -1563,7 +1867,7 @@ def main() -> int:
         print(card, flush=True)
         print(json.dumps(device_record(torch)), flush=True)
         return 0
-    entry, gpt = phase('1-2 kernels', phase_kernels, torch, kt.ops)
+    entry, gpt, rn50 = phase('1-2 kernels', phase_kernels, torch, kt.ops)
     entry['launches'] = phase('3 train', phase_train, torch, kt)
     sharded = phase('4 sharded', phase_sharded_kernel, torch, kt)
     sharded['launches'], sharded['gather_ms'] = phase(
@@ -1572,11 +1876,12 @@ def main() -> int:
     phase('6 methods', phase_methods, torch, kt)
     phase('7 resume', phase_resume, torch, kt)
     gpt['launches'] = phase('8 gpt', phase_gpt, torch, kt)
+    rn50['launches'] = phase('9 resnet50', phase_resnet50, torch, kt)
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
           flush=True)
     print(card, flush=True)
-    print(json.dumps({'kernels': [entry, sharded, gpt]}), flush=True)
+    print(json.dumps({'kernels': [entry, sharded, gpt, rn50]}), flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0
 

@@ -12,9 +12,13 @@ three methods — eigen (the fused eigen-preconditioning chain runs as a
 hand-written CUDA kernel on CUDA tensors, ``csrc/fused_eigen_precond.cu``,
 and as its plain PyTorch version on CPU tensors; without the predivided
 eigenvalues, a matmul chain), inverse (damped Cholesky) and iterative
-(warm-started Newton–Schulz).  ``state_dict``/``load_state_dict``
+(warm-started Newton–Schulz).  ``accumulation_steps`` accumulates
+micro-batches between steps; ``state_dict``/``load_state_dict``
 checkpoint and resume, and :class:`LambdaParamScheduler` schedules the
-hyperparameters.  ``ROADMAP.md`` lists what is not ported yet.
+hyperparameters.  The models are the CIFAR ResNets, the ImageNet
+ResNets and the GPT; ``examples/`` holds the CIFAR and ImageNet
+trainers and ``bench`` the K-FAC/SGD step-time bench.  ``ROADMAP.md``
+lists what is not ported yet.
 """
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch import ops

@@ -21,10 +21,25 @@ Across ranks the world is the default ``torch.distributed`` group, and
 every rank is assumed to differentiate the mean loss of its own local
 batch, as under ``DistributedDataParallel``.  Its captured output
 gradients are then ``world`` times those of the global batch's mean
-loss, so they are scaled by ``1 / world`` before the G covariance; the
+loss, so the G side is scaled by ``1 / world`` (as ``1 / world^2`` on
+the factor, which is quadratic in the gradients); the
 factors of every rank are then averaged before the EMA, which gives the
 global batch's factors when the local batches have equal size (checked
 on every factor update).
+
+Gradient accumulation (``accumulation_steps = N > 1``) follows the
+original torch library's idiom: the caller runs N forward/backward
+passes, each loss divided by N (under ``model.no_sync()`` for all but
+the last when wrapped in DDP), then calls :meth:`~kfac_pytorch_tpu_torch.
+engine.KFACEngineMixin.step` once, which is the JAX ``finalize``
+(``kfac_pytorch_tpu/engine.py:2250``).  Each finished micro-batch's
+factor contributions are folded into per-layer sums
+(:class:`~kfac_pytorch_tpu_torch.state.AccumState`) at the next
+forward, so no micro-batch's activations outlive it; the step divides
+each sum by its count, runs the factor all-reduce once on the averages
+and leaves a layer with count 0 untouched (``engine.py:2374-2400``).
+The output gradients the hooks see are those of the loss divided by N,
+so the G side is scaled by N as well as by ``1 / world``.
 """
 from __future__ import annotations
 
@@ -41,6 +56,7 @@ from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
 from kfac_pytorch_tpu_torch.parallel.mesh import kaisa_grid
 from kfac_pytorch_tpu_torch.parallel.second_order import BucketedSecondOrder
+from kfac_pytorch_tpu_torch.state import AccumState
 from kfac_pytorch_tpu_torch.state import LayerKFACState
 from kfac_pytorch_tpu_torch.state import init_layer_state
 
@@ -60,6 +76,7 @@ class BaseKFACPreconditioner(KFACEngineMixin):
 BucketSecond`).
         last_kl_scale: the kl-clip scale applied by the latest step
             (a device scalar), or ``None`` with ``kl_clip=None``.
+        accumulation_steps: forward/backward passes per :meth:`step`.
     """
 
     def __init__(
@@ -72,6 +89,7 @@ BucketSecond`).
         factor_decay,
         kl_clip,
         lr,
+        accumulation_steps: int = 1,
         factor_dtype: torch.dtype = torch.float32,
         inv_dtype: torch.dtype = torch.float32,
         precond_dtype: torch.dtype = torch.float32,
@@ -82,7 +100,13 @@ BucketSecond`).
         iterative_config: ops.IterativeConfig | None = None,
         loglevel: int = logging.DEBUG,
     ) -> None:
+        if accumulation_steps < 1:
+            raise ValueError('accumulation_steps must be >= 1')
         self._capture = capture
+        self.accumulation_steps = int(accumulation_steps)
+        self._accum: dict[str, AccumState] = {}
+        if self.accumulation_steps > 1:
+            capture.fold = self._fold_captures
         self.compute_method = compute_method
         self.factor_dtype = factor_dtype
         self.inv_dtype = inv_dtype
@@ -160,71 +184,127 @@ BucketSecond`).
         if not on:
             self._capture.clear()
 
+    def reset_batch(self) -> None:
+        """Drop the micro-batch sums and any held captures (JAX
+        ``reset_batch``, ``kfac_pytorch_tpu/engine.py:2472``)."""
+        self._capture.clear()
+        self._accum = {}
+
     @torch.no_grad()
-    def _update_factors(self, first_update: bool) -> None:
-        """Fold this step's captured statistics into the factor EMAs.
+    def _fold_captures(self) -> None:
+        """Fold the captured forward/backward pass into the micro-batch
+        sums, one contribution per layer.
 
         A module applied several times contributes the mean of its
         per-call factors, and a tied embedding the mean over its lookup
         and attend calls (the attend's A from its output gradients, its
         G from its inputs).  Float captures are cast to ``cov_dtype``
         before the covariance, integer token ids never; factors are kept
-        in ``factor_dtype``.  Across ranks the output gradients are
-        scaled by ``1 / world`` and the new factors are averaged over
-        the world (one fused all-reduce).
+        in ``factor_dtype``.  The output-gradient side is scaled by
+        ``(accumulation_steps / world)^2``: every factor is quadratic in
+        the output gradients, so this equals scaling the gradients by
+        ``accumulation_steps / world`` without copying them.
         """
-        captured = self._capture.take()
+        device_type = self.device.type
+        with torch.autocast(device_type, enabled=False):
+            captured = self._capture.take()
+            scale = (self.accumulation_steps / self.grid.world) ** 2
+            for name in self.helpers:
+                a_list, g_list, n_rows = [], [], 0
+                for helper, acts, grads in captured[name]:
+                    a_src, g_src = ((grads, acts) if helper.swap_capture
+                                    else (acts, grads))
+                    a_f = [
+                        helper.get_a_factor(self._cov_input(a, helper))
+                        .to(self.factor_dtype) for a in a_src
+                    ]
+                    g_f = [
+                        helper.get_g_factor(g.to(self.cov_dtype))
+                        .to(self.factor_dtype) for g in g_src
+                    ]
+                    if scale != 1:
+                        # The attend call's A comes from its output
+                        # gradients, every other role's G does.
+                        if helper.swap_capture:
+                            a_f = [f * scale for f in a_f]
+                        else:
+                            g_f = [f * scale for f in g_f]
+                    a_list += a_f
+                    g_list += g_f
+                    n_rows += sum(a.shape[0] for a in acts)
+                self._accum.setdefault(name, AccumState()).add(
+                    torch.stack(a_list).mean(0),
+                    torch.stack(g_list).mean(0), n_rows,
+                )
+
+    @torch.no_grad()
+    def _update_factors(self, first_update: bool) -> None:
+        """Fold the step's statistics into the factor EMAs: the last
+        captured pass first, then each layer's mean over its
+        micro-batches.  Across ranks the means are averaged over the
+        world (one fused all-reduce, once per step), and every rank
+        checks that the local batches, counted over every micro-batch,
+        were equal.  A layer with no micro-batch (count 0, e.g. after
+        :meth:`reset_batch`) keeps its EMA.
+        """
+        if self.accumulation_steps == 1 or self._capture.pending():
+            self._fold_captures()
+        accum, self._accum = self._accum, {}
         decay = self.factor_decay
         world = self.grid.world
-        new_a, new_g, rows = [], [], []
+        new_a, new_g, rows, counts = [], [], [], []
         for name in self.helpers:
-            a_list, g_list, n_rows = [], [], 0
-            for helper, acts, grads in captured[name]:
-                if world > 1:
-                    grads = [g / world for g in grads]
-                a_src, g_src = ((grads, acts) if helper.swap_capture
-                                else (acts, grads))
-                a_list += [
-                    helper.get_a_factor(self._cov_input(a, helper))
-                    .to(self.factor_dtype) for a in a_src
-                ]
-                g_list += [
-                    helper.get_g_factor(g.to(self.cov_dtype))
-                    .to(self.factor_dtype) for g in g_src
-                ]
-                n_rows += sum(a.shape[0] for a in acts)
-            new_a.append(torch.stack(a_list).mean(0))
-            new_g.append(torch.stack(g_list).mean(0))
-            rows.append(n_rows)
+            st = self.layers[name]
+            acc = accum.get(name, AccumState())
+            new_a.append(self._mean(acc.a_batch, acc.a_count, st.a_factor))
+            new_g.append(self._mean(acc.g_batch, acc.g_count, st.g_factor))
+            rows.append(acc.rows)
+            counts.append((acc.a_count, acc.g_count))
         if world > 1:
             # The row counts and their squares ride in the all-reduce
             # (f64: exact sums), so every rank reaches the same verdict:
             # world * sum(r^2) == sum(r)^2 iff every rank's r is equal.
-            counts = torch.tensor(
-                rows + [r * r for r in rows], dtype=torch.float64,
+            # So do the micro-batch counts, which decide the zero-count
+            # guard the same way on every rank.
+            flat = [c for pair in counts for c in pair]
+            stats = torch.tensor(
+                rows + [r * r for r in rows] + flat, dtype=torch.float64,
                 device=self.device,
             )
-            *factors, counts = collectives.all_reduce_mean(
-                new_a + new_g + [counts],
+            *factors, stats = collectives.all_reduce_mean(
+                new_a + new_g + [stats],
             )
-            sums = [round(v * world) for v in counts.tolist()]
+            sums = [round(v * world) for v in stats.tolist()]
             n = len(rows)
             if any(world * s2 != s1 * s1
-                   for s1, s2 in zip(sums[:n], sums[n:])):
+                   for s1, s2 in zip(sums[:n], sums[n:2 * n])):
                 raise RuntimeError(
                     'local batch sizes differ across ranks (this rank: '
                     f'{rows}, sum over ranks: {sums[:n]}); K-FAC across '
                     'ranks needs equal local batches',
                 )
             new_a, new_g = factors[:len(new_a)], factors[len(new_a):]
-        for name, a_new, g_new in zip(self.helpers, new_a, new_g):
+            counts = list(zip(sums[2 * n::2], sums[2 * n + 1::2]))
+        for name, a_new, g_new, (a_count, g_count) in zip(
+            self.helpers, new_a, new_g, counts,
+        ):
             st = self.layers[name]
-            st.a_factor = ops.ema_update_factor(
-                st.a_factor, a_new, decay, first_update,
-            )
-            st.g_factor = ops.ema_update_factor(
-                st.g_factor, g_new, decay, first_update,
-            )
+            if a_count > 0:
+                st.a_factor = ops.ema_update_factor(
+                    st.a_factor, a_new, decay, first_update,
+                )
+            if g_count > 0:
+                st.g_factor = ops.ema_update_factor(
+                    st.g_factor, g_new, decay, first_update,
+                )
+
+    @staticmethod
+    def _mean(total, count: int, like: torch.Tensor) -> torch.Tensor:
+        """A micro-batch sum over its count; zeros of ``like``'s shape
+        for a count of 0 (so every rank all-reduces the same tensors)."""
+        if count == 0:
+            return torch.zeros_like(like)
+        return total if count == 1 else total / count
 
     def _cov_input(self, x: torch.Tensor, helper) -> torch.Tensor:
         """A capture as the A-side covariance input: integer token ids

@@ -1,0 +1,256 @@
+"""K-FAC step time against an SGD step on the card: the port's bench.
+
+Port of the K-FAC/SGD ratio of ``bench.py``.  Each configuration trains
+one model on one fixed batch made from a seed, first with
+``torch.optim.SGD`` alone, then with ``KFACPreconditioner`` in front of
+the same optimizer, and reports the step times and their ratio:
+
+* ``resnet50``, the headline: ImageNet ResNet-50 at batch 32, 224x224,
+  ``factor_update_steps=10, inv_update_steps=100``, damping 0.003, lr
+  0.1 (``bench.py:1803-1830``, the ImageNet trainer's cadence);
+* ``resnet32_cifar``: CIFAR ResNet-32 at batch 128, factor 1, inv 10;
+* ``gpt125m``: GPT-125M at 4 x 2048 tokens with full coverage, factor 1,
+  inv 10, lr 0.3, as ``chip_smoke.py`` phase 8 trains it.
+
+The K-FAC time is amortized as ``time_kfac_cycles`` does it
+(``bench.py:97-116``): after a warm-up, the run is aligned to an
+inverse-update boundary, whole cycles of ``inv_update_steps`` steps are
+timed, each ended by ``torch.cuda.synchronize()``, and the least per-step
+mean over the cycles is kept.  The SGD step is timed the same way, after
+``SGD_WARMUP`` steps, as the least mean over ``SGD_WINDOWS`` windows of
+``sgd_iters`` steps.  The last line of the output is one JSON object
+with ``bench.py``'s keys: ``metric``, ``value`` (the ResNet-50 ratio),
+``unit``, ``vs_baseline`` (1.5 / value) and ``detail`` (per
+configuration ``*_sgd_ms``, ``*_kfac_ms_amortized`` and ``*_ratio``, and
+``env``, the environment with the card's name and power limit).
+Numbers are not rounded.
+
+On the card::
+
+    python -m kfac_pytorch_tpu_torch.bench
+
+It raises without a card unless ``--device cpu`` is given.  The
+JAX bench's micro-MLP, stagger, low-rank and EKFAC stages and its MFU
+are not carried over (``ROADMAP.md`` Queue A items 10, 15 and 16).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Any, Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from kfac_pytorch_tpu_torch import models
+from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
+from kfac_pytorch_tpu_torch.utils.backend import environment_summary
+
+METRIC = 'kfac_step_overhead_resnet50_imagenet_b32'
+TARGET = 1.5
+WARMUP = 3
+SGD_WARMUP = 10
+SGD_WINDOWS = 5
+
+#: name -> configuration.  ``batch`` is images for the ResNets and
+#: ``(sequences, tokens)`` for the GPT.
+CONFIGS: dict[str, dict[str, Any]] = {
+    'resnet50': dict(
+        model='resnet50', batch=32, image=224, classes=1000,
+        factor_steps=10, inv_steps=100, damping=0.003, lr=0.1,
+        sgd_iters=20, cycles=2,
+        note='factor=10 inv=100 (ref ImageNet defaults)',
+    ),
+    'resnet32_cifar': dict(
+        model='resnet32', batch=128, image=32, classes=10,
+        factor_steps=1, inv_steps=10, damping=0.003, lr=0.1,
+        sgd_iters=30, cycles=3,
+        note='factor=1 inv=10 (ref CIFAR defaults)',
+    ),
+    'gpt125m': dict(
+        model='gpt_125m', batch=(4, 2048), factor_steps=1, inv_steps=10,
+        damping=0.003, lr=0.3, sgd_iters=10, cycles=2,
+        kfac_kw=dict(layer_types=('linear', 'conv2d', 'embedding',
+                                  'layernorm'), tied_weights=('wte',)),
+        note='factor=1 inv=10, full coverage (chip_smoke.py phase 8)',
+    ),
+}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def time_kfac_cycles(step_fn: Callable[[], Any], precond: Any,
+                     inv_steps: int, cycles: int,
+                     device: torch.device) -> float:
+    """Seconds per K-FAC step: the least mean over ``cycles`` whole
+    inverse-update cycles, each started on a cycle boundary and ended by
+    a synchronize."""
+    best = float('inf')
+    for _ in range(cycles):
+        while precond.steps % inv_steps != 0:
+            step_fn()
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(inv_steps):
+            step_fn()
+        _sync(device)
+        best = min(best, (time.perf_counter() - t0) / inv_steps)
+    return best
+
+
+def _setup(cfg: dict, device: torch.device):
+    """``(model, inputs, loss of (model, inputs))`` of one configuration,
+    the batch made from seed 1."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    if cfg['model'].startswith('gpt'):
+        model = getattr(models, cfg['model'])(device=device, seed=0)
+        tokens = torch.randint(0, model.config.vocab_size, cfg['batch'],
+                               generator=gen, device=device)
+
+        def loss_of(m, batch):
+            logits = m(batch)
+            return F.cross_entropy(
+                logits[:, :-1].reshape(-1, logits.shape[-1]),
+                batch[:, 1:].reshape(-1),
+            )
+        return model, tokens, loss_of
+    model = getattr(models, cfg['model'])(
+        num_classes=cfg['classes'], device=device, seed=0,
+    )
+    x = torch.randn(cfg['batch'], 3, cfg['image'], cfg['image'],
+                    generator=gen, device=device)
+    y = torch.randint(0, cfg['classes'], (cfg['batch'],), generator=gen,
+                      device=device)
+
+    def loss_of(m, batch):
+        return F.cross_entropy(m(batch[0]), batch[1])
+    return model, (x, y), loss_of
+
+
+def measure(
+    cfg: dict,
+    device: torch.device | str = 'cuda',
+    *,
+    inv_steps: int | None = None,
+    cycles: int | None = None,
+) -> dict[str, Any]:
+    """``{'sgd_ms', 'kfac_ms', 'inv_steps', 'cycles'}`` of one
+    configuration (a :data:`CONFIGS` entry or one of that form);
+    ``inv_steps`` and ``cycles`` override the entry's."""
+    device = torch.device(device)
+    inv_steps = cfg['inv_steps'] if inv_steps is None else inv_steps
+    cycles = cfg['cycles'] if cycles is None else cycles
+    sgd_iters = cfg['sgd_iters']
+    model, batch, loss_of = _setup(cfg, device)
+    model.train()
+
+    sgd = torch.optim.SGD(model.parameters(), lr=cfg['lr'])
+
+    def sgd_step():
+        sgd.zero_grad(set_to_none=True)
+        loss = loss_of(model, batch)
+        loss.backward()
+        sgd.step()
+        return loss
+
+    for _ in range(SGD_WARMUP):
+        sgd_step()
+    t_sgd = float('inf')
+    for _ in range(SGD_WINDOWS):
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(sgd_iters):
+            sgd_step()
+        _sync(device)
+        t_sgd = min(t_sgd, (time.perf_counter() - t0) / sgd_iters)
+
+    precond = KFACPreconditioner(
+        model, factor_update_steps=cfg['factor_steps'],
+        inv_update_steps=inv_steps, damping=cfg['damping'], lr=cfg['lr'],
+        **cfg.get('kfac_kw', {}),
+    )
+    opt = torch.optim.SGD(model.parameters(), lr=cfg['lr'])
+
+    def kfac_step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model, batch)
+        loss.backward()
+        precond.step()
+        opt.step()
+        return loss
+
+    # Warm every variant: step 0 refreshes, steps up to the factor
+    # interval run without factors, the next one with.
+    for _ in range(max(cfg['factor_steps'], 1) + WARMUP):
+        kfac_step()
+    _sync(device)
+    t_kfac = time_kfac_cycles(kfac_step, precond, inv_steps, cycles, device)
+    out = {'sgd_ms': t_sgd * 1e3, 'kfac_ms': t_kfac * 1e3,
+           'inv_steps': inv_steps, 'cycles': cycles}
+    del precond, opt, sgd, model
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    return out
+
+
+def result_line(results: dict[str, dict | None], env: dict) -> dict:
+    """The JSON line: ``bench.py``'s keys from the per-configuration
+    results (``None`` for a configuration not run)."""
+    detail: dict[str, Any] = {}
+    for name, res in results.items():
+        cfg = CONFIGS.get(name, {})
+        detail[f'{name}_sgd_ms'] = res['sgd_ms'] if res else None
+        detail[f'{name}_kfac_ms_amortized'] = res['kfac_ms'] if res else None
+        detail[f'{name}_ratio'] = (res['kfac_ms'] / res['sgd_ms']
+                                   if res else None)
+        detail[f'{name}_config'] = (
+            f"{cfg.get('note', name)}; timed inv={res['inv_steps']} x "
+            f"{res['cycles']} cycles" if res else None
+        )
+    detail['env'] = env
+    ratio = detail.get('resnet50_ratio')
+    return {
+        'metric': METRIC,
+        'value': ratio,
+        'unit': 'x_sgd_step_time',
+        'vs_baseline': TARGET / ratio if ratio else None,
+        'detail': detail,
+    }
+
+
+def run(names: Sequence[str], device: torch.device | str = 'cuda',
+        **overrides: Any) -> dict:
+    """Measure the named configurations in turn and return the line."""
+    results = {name: measure(CONFIGS[name], device, **overrides)
+               for name in names}
+    env = environment_summary()
+    env['allow_tf32'] = {
+        'matmul': torch.backends.cuda.matmul.allow_tf32,
+        'cudnn': torch.backends.cudnn.allow_tf32,
+    }
+    return result_line(results, env)
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument('--device', default=None,
+                   help="'cuda' (default; raises without a card) or 'cpu'")
+    args = p.parse_args(argv)
+    if args.device in (None, 'cuda') and not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device: the bench measures the card; pass --device '
+            'cpu to run it on the CPU',
+        )
+    device = args.device or 'cuda'
+    line = run(list(CONFIGS), device)
+    print(json.dumps(line), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

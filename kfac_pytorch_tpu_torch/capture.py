@@ -18,6 +18,11 @@ the mechanism of the original torch library:
 A module applied several times in one forward pass yields one capture
 per call; the engine averages the factor contributions over calls.
 
+Under gradient accumulation the owner sets :attr:`ModelCapture.fold`:
+the first recording forward pre-hook after a backward pass calls it, so
+the finished micro-batch's captures are folded into running sums (and
+released) before the next micro-batch records.
+
 A tied embedding (``tied_weights``) has a second application, the LM
 head ``x @ E^T``, which JAX intercepts as ``Embed.attend``.  In PyTorch
 the head is a :class:`~kfac_pytorch_tpu_torch.layers.coverage.TiedAttend`
@@ -29,7 +34,7 @@ them into the lookup's lists would pair the two applications crosswise.)
 from __future__ import annotations
 
 import re
-from typing import Any, Iterable, Sequence
+from typing import Any, Callable, Iterable, Sequence
 
 import torch
 from torch import nn
@@ -143,6 +148,10 @@ class ModelCapture:
         skipped: names matched by ``skip_layers``.
         rejected: layer name -> reason it cannot be preconditioned.
         armed: capture switch; the hooks record only while it is True.
+        fold: ``None``, or a callable that consumes the captures of a
+            finished forward/backward pass (through :meth:`take`); it
+            runs in the first recording pre-hook after output gradients
+            have arrived.
     """
 
     def __init__(
@@ -166,10 +175,14 @@ class ModelCapture:
         self.skipped: list[str] = []
         self.rejected: dict[str, str] = {}
         self.armed = False
+        self.fold: Callable[[], None] | None = None
         self._acts: dict[str, list[torch.Tensor]] = {}
         self._grads: dict[str, list[torch.Tensor]] = {}
         self._attend_acts: dict[str, list[torch.Tensor]] = {}
         self._attend_grads: dict[str, list[torch.Tensor]] = {}
+        # Set by the first output gradient after a take() or clear(): a
+        # backward pass has run since, so the next forward may fold.
+        self._grads_arrived = False
         self._register()
 
     def _skipped(self, name: str, module: nn.Module, tied: str | None):
@@ -345,6 +358,8 @@ class ModelCapture:
         def hook(module, inputs):
             if not self._recording(module):
                 return
+            if self.fold is not None and self._grads_arrived:
+                self.fold()
             if weight is not None and inputs[1] is not weight:
                 raise RuntimeError(
                     f'{type(module).__name__} tied to {name!r} was called '
@@ -357,6 +372,7 @@ class ModelCapture:
     def _make_fwd_hook(self, store: str, name: str):
         def grad_hook(grad):
             getattr(self, store).setdefault(name, []).append(grad.detach())
+            self._grads_arrived = True
 
         def hook(module, inputs, output):
             if self._recording(module) and output.requires_grad:
@@ -394,8 +410,18 @@ class ModelCapture:
         self.clear()
         return out
 
+    def pending(self) -> bool:
+        """Whether any capture is held (not yet taken)."""
+        return any(
+            any(store.values()) for store in (
+                self._acts, self._grads, self._attend_acts,
+                self._attend_grads,
+            )
+        )
+
     def clear(self) -> None:
         self._acts = {}
         self._grads = {}
         self._attend_acts = {}
         self._attend_grads = {}
+        self._grads_arrived = False

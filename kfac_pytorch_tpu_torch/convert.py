@@ -14,6 +14,9 @@ modules carry the Flax module names:
 * Embed ``embedding [V, D]`` -> ``weight [V, D]``;
 * a bare parameter (the GPT's positional table ``wpe``) -> itself.
 
+So a JAX ResNet-50's ``params`` and ``batch_stats`` load strictly into
+the port's ``resnet50``, and a JAX GPT's into ``gpt_125m``.
+
 :func:`jax_kfac_state_dict_to_torch` carries a JAX
 ``KFACPreconditioner.state_dict(...)`` across, so a JAX run resumes in
 the port; an embedding's ``[V]`` diagonal A factor goes across as it

@@ -179,6 +179,7 @@ class KFACEngineMixin:
     """Step cadence, hyperparameter resolution and checkpoints.
 
     Subclasses provide ``_update_factors(first_update)``,
+    ``reset_batch()``,
     ``_refresh(damping)``, ``_precondition(damping, kl_clip, lr)``,
     ``_checkpoint_layer_states()``, ``_restore_factors(layers)`` and
     ``_topology_descriptor()``, and arm their capture through
@@ -328,8 +329,10 @@ class KFACEngineMixin:
         without, the next refresh runs at bootstrap depth.  Across ranks
         this is collective: every rank calls it, and the recompute runs
         the column gather.  The capture hooks are re-armed for the next
-        step.
+        step.  Micro-batch sums are not checkpointed (as in the JAX
+        package); a restore drops them.
         """
+        self.reset_batch()
         layers = begin_load_state_dict(
             self, state_dict, self._checkpoint_layer_states(),
             compute_inverses,
@@ -351,6 +354,9 @@ class KFACEngineMixin:
         raise NotImplementedError
 
     def _update_factors(self, first_update: bool) -> None:
+        raise NotImplementedError
+
+    def reset_batch(self) -> None:
         raise NotImplementedError
 
     def _refresh(self, damping: float) -> None:

@@ -8,7 +8,9 @@ zero-pad) shortcuts, global average pool, linear head.  Module names
 so :mod:`kfac_pytorch_tpu_torch.convert` maps its variables one to one.
 BatchNorm uses eps 1e-5 and momentum 0.1 (Flax ``momentum=0.9`` keeps
 0.9 of the old running value; torch's ``momentum`` is the new value's
-weight).
+weight).  ``dtype`` is the compute dtype, cast in the modules as in
+:mod:`~kfac_pytorch_tpu_torch.models.layers` (f32 parameters, f32
+logits).
 """
 from __future__ import annotations
 
@@ -18,24 +20,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def _bn(planes: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(planes, eps=1e-5, momentum=0.1)
+from kfac_pytorch_tpu_torch.models.layers import BatchNorm2d
+from kfac_pytorch_tpu_torch.models.layers import Conv2d
+from kfac_pytorch_tpu_torch.models.layers import Dense
 
 
 class BasicBlock(nn.Module):
     """Two 3x3 convs + BN with an option-A (identity) shortcut."""
 
-    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride = stride
         self.pad = planes - in_planes
-        self.conv1 = nn.Conv2d(
-            in_planes, planes, 3, stride=stride, padding=1, bias=False,
-        )
-        self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = _bn(planes)
+        self.conv1 = Conv2d(in_planes, planes, 3, stride=stride, padding=1,
+                            compute_dtype=dtype)
+        self.bn1 = BatchNorm2d(planes, dtype)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1,
+                            compute_dtype=dtype)
+        self.bn2 = BatchNorm2d(planes, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -54,26 +57,29 @@ class BasicBlock(nn.Module):
 class CifarResNet(nn.Module):
     """Stage-structured CIFAR ResNet; input ``[N, 3, H, W]``."""
 
-    def __init__(self, layers: Sequence[int], num_classes: int = 10):
+    def __init__(self, layers: Sequence[int], num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 16, 3, padding=1, bias=False)
-        self.bn1 = _bn(16)
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, 16, 3, padding=1, compute_dtype=dtype)
+        self.bn1 = BatchNorm2d(16, dtype)
         self.block_names: list[str] = []
         in_planes = 16
         for stage, (planes, blocks) in enumerate(zip((16, 32, 64), layers)):
             for i in range(blocks):
                 stride = 2 if (stage > 0 and i == 0) else 1
                 name = f'layer{stage + 1}_{i}'
-                self.add_module(name, BasicBlock(in_planes, planes, stride))
+                self.add_module(name, BasicBlock(in_planes, planes, stride,
+                                                 dtype))
                 self.block_names.append(name)
                 in_planes = planes
-        self.linear = nn.Linear(64, num_classes)
+        self.linear = Dense(64, num_classes, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
         for name in self.block_names:
             x = getattr(self, name)(x)
-        return self.linear(x.mean(dim=(2, 3)))
+        return self.linear(x.mean(dim=(2, 3))).float()
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -102,6 +108,7 @@ def _build(
     num_classes: int,
     device: torch.device | str | None,
     seed: int,
+    dtype: torch.dtype = torch.float32,
 ) -> CifarResNet:
     if device is None:
         if not torch.cuda.is_available():
@@ -110,17 +117,20 @@ def _build(
                 'on the CPU',
             )
         device = 'cuda'
-    model = CifarResNet(layers, num_classes=num_classes).to(device)
+    model = CifarResNet(layers, num_classes=num_classes,
+                        dtype=dtype).to(device)
     gen = torch.Generator(device=model.conv1.weight.device)
     gen.manual_seed(seed)
     init_weights(model, gen)
     return model
 
 
-def resnet20(num_classes=10, device=None, seed=0) -> CifarResNet:
-    return _build((3, 3, 3), num_classes, device, seed)
+def resnet20(num_classes=10, device=None, seed=0,
+             dtype=torch.float32) -> CifarResNet:
+    return _build((3, 3, 3), num_classes, device, seed, dtype)
 
 
-def resnet32(num_classes=10, device=None, seed=0) -> CifarResNet:
-    return _build((5, 5, 5), num_classes, device, seed)
+def resnet32(num_classes=10, device=None, seed=0,
+             dtype=torch.float32) -> CifarResNet:
+    return _build((5, 5, 5), num_classes, device, seed, dtype)
 

@@ -10,7 +10,8 @@ variables one to one.
 The compute dtype is written out in the modules, as Flax applies it,
 so an f32 model and a bf16 one run the same code:
 
-* :class:`Dense` casts its input, weight and bias to ``compute_dtype``;
+* :class:`~kfac_pytorch_tpu_torch.models.layers.Dense` casts its input,
+  weight and bias to ``compute_dtype``;
 * :class:`LayerNorm` normalizes in f32 with epsilon 1e-6 (Flax's, where
   torch's default is 1e-5) and returns ``compute_dtype``;
 * :class:`Embed` looks up in the parameter dtype and returns
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kfac_pytorch_tpu_torch.layers.coverage import TiedAttend
+from kfac_pytorch_tpu_torch.models.layers import Dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,20 +85,6 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
-
-
-class Dense(nn.Linear):
-    """``nn.Linear`` computing in ``compute_dtype`` (Flax ``Dense`` with
-    ``dtype``): input, weight and bias are cast before the product."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype) -> None:
-        super().__init__(in_features, out_features)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cd = self.compute_dtype
-        return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
 
 
 class LayerNorm(nn.LayerNorm):

@@ -67,13 +67,21 @@ def find_nvcc() -> str:
     return found
 
 
+def library_paths() -> dict[str, Path]:
+    """``{stem: library path}`` of every ``csrc/*.cu`` for the sources
+    as they are now, built or not."""
+    sources = _sources()
+    out_dir = BUILD_ROOT / _source_hash(sources)
+    return {src.stem: out_dir / f'lib{src.stem}.so' for src in sources}
+
+
 def build_all() -> dict[str, Path]:
     """Build every ``csrc/*.cu`` that has no library yet; return
     ``{stem: library path}``.  Raises ``RuntimeError`` on a failed build.
     """
     sources = _sources()
-    out_dir = BUILD_ROOT / _source_hash(sources)
-    libs = {src.stem: out_dir / f'lib{src.stem}.so' for src in sources}
+    libs = library_paths()
+    out_dir = next(iter(libs.values())).parent if libs else BUILD_ROOT
     todo = [src for src in sources if not libs[src.stem].is_file()]
     for src in sources:
         if src not in todo:

@@ -15,6 +15,18 @@ defaults are the JAX package's; the call sequence is PyTorch's own::
         precond.step()                     # preconditions .grad in place
         opt.step()
 
+Gradient accumulation (``accumulation_steps=N``) is the original torch
+library's idiom; ``step()`` is the JAX ``finalize``::
+
+    for i, (x, y) in enumerate(micro_batches):          # N of them
+        ctx = ddp.no_sync() if i < N - 1 else nullcontext()
+        with ctx:
+            (F.cross_entropy(ddp(x), y) / N).backward()
+    precond.step()                         # folds the N micro-batches
+    opt.step()
+
+``precond.reset_batch()`` drops the micro-batch sums.
+
 Checkpoints are the stateful calls of the original torch library::
 
     torch.save({'precond': precond.state_dict(), ...}, path)
@@ -74,6 +86,8 @@ class KFACPreconditioner(BaseKFACPreconditioner):
         factor_decay: running-average weight of the factor EMAs.
         kl_clip: kl-clip bound, ``None`` to disable the scaling.
         lr: learning rate used by the kl-clip scale.
+        accumulation_steps: forward/backward passes per :meth:`step`
+            (gradient accumulation, see below).
         assignment_strategy, colocate_factors: KAISA placement knobs of
             the JAX package; the bucket plan places layers by cost
             either way.
@@ -206,7 +220,6 @@ class KFACPreconditioner(BaseKFACPreconditioner):
         unported = [
             ('bucketed=False', bucketed is False, 'item 4b'),
             ('topology', topology is not None, 'item 29'),
-            ('accumulation_steps > 1', accumulation_steps != 1, 'item 14'),
             ('lowrank_rank', lowrank_rank is not None, 'item 10'),
             ('ekfac', bool(ekfac), 'item 10'),
             ('adaptive_refresh', adaptive_refresh is not None, 'item 10'),
@@ -264,6 +277,7 @@ class KFACPreconditioner(BaseKFACPreconditioner):
             factor_decay=factor_decay,
             kl_clip=kl_clip,
             lr=lr,
+            accumulation_steps=accumulation_steps,
             factor_dtype=factor_dtype,
             inv_dtype=inv_dtype,
             precond_dtype=(

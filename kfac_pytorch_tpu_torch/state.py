@@ -1,6 +1,7 @@
 """K-FAC preconditioner state.
 
-Port of ``kfac_pytorch_tpu/state.py:19-131``.  The JAX package threads
+Port of ``kfac_pytorch_tpu/state.py:19-131``, with ``AccumState``
+(``state.py:55``).  The JAX package threads
 immutable pytrees through jitted steps; here the preconditioner owns its
 state and updates it between steps.
 """
@@ -60,3 +61,34 @@ def init_layer_state(
         g_factor=torch.zeros((g_dim, g_dim), dtype=factor_dtype,
                              device=device),
     )
+
+
+@dataclasses.dataclass
+class AccumState:
+    """Micro-batch accumulation sums of one layer (``accumulation_steps
+    > 1``; JAX ``AccumState``, ``kfac_pytorch_tpu/state.py:55``).
+
+    ``a_batch``/``g_batch`` sum the per-micro-batch factor contributions
+    (``None`` until the first fold); ``a_count``/``g_count`` count them,
+    and the step divides each sum by its own count.  ``rows`` sums the
+    micro-batches' activation rows, for the equal-local-batch check
+    across ranks.
+    """
+
+    a_batch: torch.Tensor | None = None
+    g_batch: torch.Tensor | None = None
+    a_count: int = 0
+    g_count: int = 0
+    rows: int = 0
+
+    def add(self, a: torch.Tensor, g: torch.Tensor, rows: int) -> None:
+        """Fold one micro-batch's contributions in (in place after the
+        first)."""
+        if self.a_batch is None:
+            self.a_batch, self.g_batch = a, g
+        else:
+            self.a_batch.add_(a)
+            self.g_batch.add_(g)
+        self.a_count += 1
+        self.g_count += 1
+        self.rows += rows

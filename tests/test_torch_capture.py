@@ -184,7 +184,6 @@ def test_step_without_backward_raises():
     (dict(bucketed=False), 'item 4b'),
     (dict(compute_method='inverse', bucketed=False), 'item 4b'),
     (dict(mesh=object()), 'item 7'),
-    (dict(accumulation_steps=2), 'item 14'),
     (dict(lowrank_rank=8), 'item 10'),
     (dict(ekfac=True), 'item 10'),
     (dict(stagger_refresh=2), 'item 15'),

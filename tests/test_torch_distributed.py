@@ -10,7 +10,11 @@ gather of the gradients), then ``gpt_tiny`` with full coverage (the
 tied embedding's diagonal A on the side path every rank runs itself,
 the LayerNorm and Dense layers in the buckets) under HYBRID-OPT with
 the eigen and the inverse method, 16 sequences of 8 tokens, next-token
-cross entropy.  Each rank wraps the model in
+cross entropy, then LeNet under COMM-OPT with gradient accumulation
+(``accumulation_steps=2``: the global batch of 16 as two micro-batches
+of 8, each rank's 2 rows of each under ``no_sync()`` for the first,
+against the JAX ``accumulate``/``finalize`` on the mesh).  Each rank
+wraps the model in
 ``DistributedDataParallel``,
 takes its quarter of the global batch of 16 and trains 5 SGD steps
 (lr 0.1) with ``factor_update_steps=1, inv_update_steps=2``, so the
@@ -29,6 +33,7 @@ killed and fails its tests.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import subprocess
@@ -68,6 +73,9 @@ METHOD_CASES = [('tiny', 'HYBRID_OPT', 'inverse'),
 GPT_CASES = [('gpt', 'HYBRID_OPT', 'eigen'), ('gpt', 'HYBRID_OPT', 'inverse')]
 GPT_KW = dict(layer_types=('linear', 'conv2d', 'embedding', 'layernorm'),
               tied_weights=('wte',))
+#: ``(model, strategy, accumulation_steps)`` runs with gradient
+#: accumulation.
+ACCUM_CASES = [('lenet', 'COMM_OPT', 2)]
 SPAWN_TIMEOUT_S = 150
 #: Local batch size of each rank, per case.
 UNEQUAL_BATCHES = {'one_short': (4, 4, 4, 3), 'mean_equal': (3, 4, 5, 4)}
@@ -104,24 +112,36 @@ def port_loss(name, out, y):
     return F.cross_entropy(out, y)
 
 
-def train_rank(rank, world, weights, name, strategy, method='eigen'):
-    """One rank's trajectory of ``name`` under ``strategy``."""
+def train_rank(rank, world, weights, name, strategy, method='eigen',
+               accumulation=1):
+    """One rank's trajectory of ``name`` under ``strategy``; with
+    ``accumulation`` micro-batches per step (the global batch split in
+    order, each rank taking its share of each)."""
     x, y = data(name)
-    q = len(x) // world
-    xl = port_input(x[rank * q:(rank + 1) * q])
-    yl = torch.from_numpy(y[rank * q:(rank + 1) * q]).long()
+    n = len(x) // accumulation
+    q = n // world
+    micro = [
+        (port_input(x[m * n + rank * q:m * n + (rank + 1) * q]),
+         torch.from_numpy(y[m * n + rank * q:m * n + (rank + 1) * q]).long())
+        for m in range(accumulation)
+    ]
     model = port_model(name)
     model.load_state_dict(weights[name], strict=True)
     ddp = torch.nn.parallel.DistributedDataParallel(model)
     precond = KFACPreconditioner(
         ddp, grad_worker_fraction=DistributedStrategy[strategy],
-        compute_method=method, **HP, **(GPT_KW if name == 'gpt' else {}),
+        compute_method=method, accumulation_steps=accumulation, **HP,
+        **(GPT_KW if name == 'gpt' else {}),
     )
     opt = torch.optim.SGD(model.parameters(), lr=LR)
     steps = []
     for _ in range(STEPS):
         opt.zero_grad()
-        port_loss(name, ddp(xl), yl).backward()
+        for i, (xl, yl) in enumerate(micro):
+            sync = i == accumulation - 1
+            with (contextlib.nullcontext() if sync else ddp.no_sync()):
+                loss = port_loss(name, ddp(xl), yl)
+                (loss / accumulation if accumulation > 1 else loss).backward()
         precond.step()
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
         factors = {
@@ -180,6 +200,10 @@ def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
         }
         res['buckets'] = [b.key for b in precond.plan.buckets]
         results[case] = res
+    for name, strategy, n_accum in ACCUM_CASES:
+        _, res = train_rank(rank, world, weights, name, strategy,
+                            accumulation=n_accum)
+        results[name, strategy, n_accum] = res
     # Unequal local batches raise on every rank, so no rank goes on into
     # a collective that the others skip.  In the second case the mean
     # count equals ranks 1 and 3's own.
@@ -339,6 +363,43 @@ def runs(tmp_path_factory):
                     },
                 ))
             ref[name, strategy, method] = steps
+        for name, strategy, n_accum in ACCUM_CASES:
+            x, y = data(name)
+            n = len(x) // n_accum
+            precond = JaxPreconditioner(
+                jax_models[name], loss_fn=xent, mesh=mesh,
+                grad_worker_fraction=JaxStrategy[strategy],
+                accumulation_steps=n_accum, **HP,
+            )
+            state = precond.init(variables[name], x)
+            accum = precond.init_accum()
+            params = variables[name]['params']
+            steps = []
+            for _ in range(STEPS):
+                total = None
+                for m in range(n_accum):
+                    _, _, grads, accum = precond.accumulate(
+                        {'params': params}, state, accum,
+                        jax.device_put(x[m * n:(m + 1) * n], shard),
+                        loss_args=(jax.device_put(
+                            jnp.asarray(y[m * n:(m + 1) * n]), shard),),
+                    )
+                    total = grads if total is None else jax.tree.map(
+                        jnp.add, total, grads)
+                grads, state, accum = precond.finalize(
+                    state, jax.tree.map(lambda g: g / n_accum, total), accum,
+                )
+                grads = jax.tree.map(np.asarray, grads)
+                params = jax.tree.map(lambda w, g: w - LR * g, params, grads)
+                steps.append(dict(
+                    grads=flax_to_torch_state_dict({'params': grads}),
+                    factors={
+                        base: (np.asarray(state[base].a_factor),
+                               np.asarray(state[base].g_factor))
+                        for base in state.layers
+                    },
+                ))
+            ref[name, strategy, n_accum] = steps
     finally:
         join(procs, deadline)
     ranks = [torch.load(out / f'rank{r}.pt') for r in range(WORLD)]
@@ -514,6 +575,40 @@ def test_gpt_side_path_is_replicated(runs, case):
         assert run['buckets'] == ['a64g128', 'a128g32', 'a64g64', 'a64g32',
                                   'a32g32']
         flags = [s['params_equal'] for s in run['steps']]
+        assert flags == [True] * STEPS, (rank, flags)
+
+
+ACCUM_IDS = [f'{m}-{s}-N{n}' for m, s, n in ACCUM_CASES]
+
+
+@pytest.mark.parametrize('case', ACCUM_CASES, ids=ACCUM_IDS)
+def test_accumulation_matches_jax_finalize(runs, case):
+    """Preconditioned gradients (max abs ``< 2e-4``) and factor EMAs
+    (``rtol 1e-5, atol 1e-6``) of N backwards then ``step()`` on every
+    rank against the JAX mesh's ``accumulate`` x N then ``finalize``."""
+    ref, ranks = runs
+    for rank, res in enumerate(ranks):
+        for step, (got, want) in enumerate(zip(res[case]['steps'],
+                                               ref[case])):
+            assert set(got['grads']) == set(want['grads'])
+            diff = max(
+                float((got['grads'][n] - want['grads'][n]).abs().max())
+                for n in want['grads']
+            )
+            assert diff < 2e-4, (rank, step, diff)
+            for layer, (a, g) in want['factors'].items():
+                for side, w in enumerate((a, g)):
+                    np.testing.assert_allclose(
+                        got['factors'][layer][side].numpy(), w, rtol=1e-5,
+                        atol=1e-6,
+                    )
+
+
+@pytest.mark.parametrize('case', ACCUM_CASES, ids=ACCUM_IDS)
+def test_accumulation_parameters_bitwise_equal_across_ranks(runs, case):
+    _, ranks = runs
+    for rank, res in enumerate(ranks):
+        flags = [s['params_equal'] for s in res[case]['steps']]
         assert flags == [True] * STEPS, (rank, flags)
 
 

@@ -1,10 +1,11 @@
 """Isolation guard: the PyTorch port never imports JAX or the JAX package.
 
-An AST scan of every module of ``kfac_pytorch_tpu_torch/`` and of
-``chip_smoke.py`` fails on any import of ``jax``, ``jaxlib``, ``flax``,
-``optax`` or ``kfac_pytorch_tpu[.*]``; a fresh interpreter that imports
-the whole port must add neither ``jax`` nor ``kfac_pytorch_tpu`` to
-``sys.modules``.
+An AST scan of every module of ``kfac_pytorch_tpu_torch/`` (the
+trainers and the bench included) and of ``chip_smoke.py`` fails on any
+import of ``jax``, ``jaxlib``, ``flax``, ``optax`` or
+``kfac_pytorch_tpu[.*]``; a fresh interpreter that imports the whole
+port, or parses the trainers' and the bench's command lines, must add
+neither ``jax`` nor ``kfac_pytorch_tpu`` to ``sys.modules``.
 """
 from __future__ import annotations
 
@@ -48,7 +49,14 @@ def test_scan_finds_the_port():
     assert len(files) > 15
     assert all(f.is_file() for f in files)
     port = ROOT / 'kfac_pytorch_tpu_torch'
-    for module in ('layers/coverage.py', 'models/gpt.py'):
+    for module in ('layers/coverage.py', 'models/gpt.py', 'models/resnet.py',
+                   'models/layers.py',
+                   'bench.py', 'utils/backend.py', 'utils/metrics.py',
+                   'examples/utils.py', 'examples/cifar10_resnet.py',
+                   'examples/imagenet_resnet.py',
+                   'examples/cnn_utils/datasets.py',
+                   'examples/cnn_utils/engine.py',
+                   'examples/cnn_utils/optimizers.py'):
         assert port / module in files, module
 
 
@@ -81,6 +89,38 @@ def test_importing_the_port_loads_no_jax():
         '    importlib.import_module(m.name)\n'
         'bad = sorted(n for n in set(sys.modules) - before\n'
         '             if n.split(".")[0] in ("jax", "kfac_pytorch_tpu"))\n'
+        'print(bad)\n'
+        'sys.exit(1 if bad else 0)\n'
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, '-c', code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_load_no_jax():
+    """The trainers' and the bench's command lines parse, and the help of
+    each prints, in a fresh interpreter that loads neither JAX nor the
+    JAX package."""
+    code = (
+        'import sys, contextlib, io\n'
+        'from kfac_pytorch_tpu_torch import bench\n'
+        'from kfac_pytorch_tpu_torch.examples import cifar10_resnet\n'
+        'from kfac_pytorch_tpu_torch.examples import imagenet_resnet\n'
+        'cifar10_resnet.parse_args([])\n'
+        'imagenet_resnet.parse_args([])\n'
+        'for main in (bench.main, cifar10_resnet.parse_args,\n'
+        '             imagenet_resnet.parse_args):\n'
+        '    with contextlib.redirect_stdout(io.StringIO()):\n'
+        '        try:\n'
+        '            main(["--help"])\n'
+        '        except SystemExit as e:\n'
+        '            assert e.code == 0, e.code\n'
+        'bad = sorted(n for n in sys.modules\n'
+        '             if n.split(".")[0] in ("jax", "flax", "optax",\n'
+        '                                    "kfac_pytorch_tpu"))\n'
         'print(bad)\n'
         'sys.exit(1 if bad else 0)\n'
     )

@@ -42,6 +42,7 @@ def _inputs(L, gp, ap, device, seed=0):
 #: not 16-byte multiples (the masked copy path), and one that takes the
 #: large-gp tiling (four launches); bf16 at two of them.  Then GPT-125M's
 #: five bucket stacks under full coverage (all large-gp), bf16 at two.
+#: Then ImageNet ResNet-50's 21 bucket stacks, bf16 at two.
 CASES = [
     (9, 64, 576, 'f32'), (1, 64, 320, 'f32'), (9, 32, 320, 'f32'),
     (11, 32, 192, 'f32'), (1, 32, 128, 'f32'), (1, 32, 32, 'f32'),
@@ -50,6 +51,14 @@ CASES = [
     (12, 768, 3200, 'f32'), (12, 3072, 896, 'f32'), (12, 2304, 896, 'f32'),
     (12, 768, 896, 'f32'), (25, 768, 32, 'f32'),
     (12, 3072, 896, 'bf16'), (25, 768, 32, 'bf16'),
+    (3, 512, 4608, 'f32'), (6, 256, 2304, 'f32'), (1, 1024, 2176, 'f32'),
+    (1, 2048, 1024, 'f32'), (2, 512, 2048, 'f32'), (3, 2048, 512, 'f32'),
+    (4, 128, 1152, 'f32'), (1, 512, 1024, 'f32'), (1, 1024, 512, 'f32'),
+    (5, 256, 1024, 'f32'), (6, 1024, 256, 'f32'), (3, 64, 576, 'f32'),
+    (1, 256, 512, 'f32'), (1, 512, 256, 'f32'), (3, 128, 512, 'f32'),
+    (4, 512, 128, 'f32'), (1, 128, 256, 'f32'), (2, 64, 256, 'f32'),
+    (4, 256, 64, 'f32'), (1, 64, 192, 'f32'), (1, 64, 64, 'f32'),
+    (3, 512, 4608, 'bf16'), (4, 256, 64, 'bf16'),
 ]
 
 

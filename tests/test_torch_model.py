@@ -5,9 +5,8 @@ Flax variables made from a fixed key are converted with
 loaded strictly; logits on the same numpy batch must agree within
 ``atol 1e-4`` (f32 on both sides; the convolutions, batch statistics and
 pooling sum in different orders over ~20 layers of O(1) activations).
-In train mode the running BatchNorm statistics are not compared: Flax
-updates them with the biased batch variance and torch with the unbiased
-one.
+The port's BatchNorm updates its running statistics as Flax does, with
+the biased batch variance; ``tests/test_torch_resnet.py`` compares them.
 """
 from __future__ import annotations
 
