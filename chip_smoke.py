@@ -16,8 +16,8 @@ fails:
    every CUDA kernel from ``kfac_pytorch_tpu_torch/csrc`` and its time;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (ResNet-32's six bucket stacks, and
-   GPT-125M's five and ResNet-50's 21 below), in f32 (``rtol 1e-5, atol
-   1e-4``) and in
+   GPT-125M's five, ResNet-50's 21, ViT-B/16's six and BERT-large's six
+   below), in f32 (``rtol 1e-5, atol 1e-4``) and in
    bf16 (against f32: mean relative error < 0.05), with two runs giving
    bitwise-equal outputs; times of the kernel, its plain version and
    the cuBLAS ``torch.matmul`` chain, with CUDA events, and the device
@@ -110,6 +110,25 @@ fails:
    and one ``kfac_pytorch_tpu_torch.bench`` line for ResNet-50 and
    ResNet-32 at a shortened cycle (inv 20, one cycle).  Phase 2 holds
    the kernel at ResNet-50's 21 bucket shapes.
+10. the vision transformer: ViT-B/16 at its published widths and depth
+    (224x224 images, 16x16 patches, 1000 classes, 12 layers, bf16
+    compute, f32 parameters) at batch 32 on one synthetic batch, 12
+    steps with full coverage (``layer_types=('linear', 'conv2d',
+    'layernorm')``: the patchify conv, 48 Dense layers, the head and 25
+    LayerNorms in six buckets), refreshes at 0 and 10: the gates of
+    phase 8 (a finite, falling loss, launches equal to steps x buckets,
+    the refresh step 10 against a plain rerun on the card for every
+    layer), the buckets equal to phase 2's shapes, the stage medians,
+    peak memory, ``memory_usage()`` and ``coverage_report()`` (only
+    ``pos_embed`` uncovered);
+11. the BERT-large encoder (vocab 30522, 24 layers, 16 heads, ``d_model``
+    1024, bf16 compute) on 4 x 384 tokens, the last 64 positions of two
+    rows masked, no type ids, the span loss, ``examples/squad_bert.py``'s
+    damping and kl-clip, 7 steps with full coverage (``layer_types=(
+    'linear', 'embedding', 'layernorm')``: 96 Dense layers, ``qa_head``
+    and 49 LayerNorms in six buckets, ``wte`` on the diagonal side
+    path), refreshes at 0 and 5, with phase 10's gates and lines (only
+    ``wpe`` uncovered).
 
 A ``phases:`` line gives each phase's time.
 
@@ -119,6 +138,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 import math
 import os
@@ -154,6 +174,17 @@ RN50_CASES = [
 #: to 3200) and the LayerNorms (25 slots).  Every one has ``gp > 64``.
 GPT_CASES = [(12, 768, 3200), (12, 3072, 896), (12, 2304, 896),
              (12, 768, 896), (25, 768, 32)]
+#: ViT-B/16's bucket stacks under full coverage, in plan order: fc_out
+#: (3073 -> 3200), fc_in, qkv, the head (769 -> 896, 1000 -> 1024), the
+#: patchify conv with the 12 proj layers (768 + 1 -> 896) and the 25
+#: LayerNorms.
+VIT_CASES = [(12, 768, 3200), (12, 3072, 896), (12, 2304, 896),
+             (1, 1024, 896), (13, 768, 896), (25, 768, 32)]
+#: BERT-large's under full coverage: fc_out (4097 -> 4224), fc_in, qkv,
+#: proj, qa_head (2 -> 32: the narrow path at ap 1152) and the 49
+#: LayerNorms; ``wte`` takes the diagonal side path.
+BERT_CASES = [(24, 1024, 4224), (24, 4096, 1152), (24, 3072, 1152),
+              (24, 1024, 1152), (1, 32, 1152), (49, 1024, 32)]
 TRAIN_STEPS = 20
 BATCH = 128
 DEVICE = 'cuda'
@@ -241,13 +272,16 @@ def precond_bound_cuda_core(L, gp, ap):
     return max(nbytes / HBM_BYTES_PER_S, (mm + ew) / F32_FLOPS) * 1e3
 
 
-def kernel_device_times(torch, fn, sessions: int = 3):
+def kernel_device_times(torch, fn, sessions: int = 3, calls: int = 3):
     """``([(kernel, device ms)], sessions used)`` of every CUDA kernel
     one call of ``fn`` issues, from ``torch.profiler`` (CUPTI sees
     kernels launched through ctypes).  A profiler session now and then
     delivers no device activity at all, so up to ``sessions`` are
-    opened, one call each, until one does; the list is empty if none
-    did."""
+    opened until one does; the list is empty if none did.  A session
+    may also miss a kernel here and there, so each runs ``calls`` calls
+    and a kernel seen ``n`` times counts ``ceil(n / calls)`` times per
+    call (the kernels of one call have distinct names: their template
+    arguments differ), at its median device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -255,20 +289,23 @@ def kernel_device_times(torch, fn, sessions: int = 3):
     for used in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        out = []
-        for evt in prof.events():
+        by_name: dict[str, list[float]] = {}
+        for evt in sorted(prof.events(), key=lambda e: e.time_range.start):
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             us = getattr(evt, 'device_time', None)
             if us is None:
                 us = evt.cuda_time
             name = evt.name.replace('(anonymous namespace)::', '')
-            out.append((name.split('(')[0], us / 1e3))
-        if out:
-            break
-    return out, used
+            by_name.setdefault(name.split('(')[0], []).append(us / 1e3)
+        if by_name:
+            return [(name, statistics.median(ms))
+                    for name, ms in by_name.items()
+                    for _ in range(math.ceil(len(ms) / calls))], used
+    return [], sessions
 
 
 def make_case(torch, L, gp, ap, seed, device=None):
@@ -340,7 +377,8 @@ def profile_case(torch, kernel, args, shape, at_most=None):
     per = ', '.join(f'{name} {ms:.5f} ms' for name, ms in seen)
     print(f'profile L={L} gp={gp} ap={ap}: {len(seen)} kernels per call: '
           f'{per}; sum {sum(ms for _, ms in seen):.5f} ms (torch.profiler, '
-          f'one f32 call, profiler session {sessions})', flush=True)
+          f'medians over three f32 calls, profiler session {sessions})',
+          flush=True)
     if at_most is not None and len(seen) > at_most:
         fail(f'profile {shape}: {len(seen)} kernels per call on the path '
              f'(at most {at_most})')
@@ -401,9 +439,9 @@ def check_case(torch, kernel, plain, shape, seed, at_most):
 def phase_kernels(torch, ops):
     """Kernel against plain on the card; returns the kernels-line entries
     of ResNet-32's path (times summed over its six bucket calls of one
-    step), of GPT-125M's (its five bucket calls) and of ResNet-50's (its
-    21).  A call with ``gp <= 64`` may issue two CUDA kernels, a
-    ``gp > 64`` call (every GPT bucket, most of ResNet-50's) four."""
+    step), then GPT-125M's (its five bucket calls), ResNet-50's (its 21),
+    ViT-B/16's (six) and BERT-large's (six).  A call with ``gp <= 64``
+    may issue two CUDA kernels, a ``gp > 64`` call four."""
     kernel = ops.fused_eigen_precondition
     plain = ops.fused_eigen_precondition_reference
     max_err = 0.0
@@ -426,49 +464,46 @@ def phase_kernels(torch, ops):
           f'{entry["bound_ms"]:.6f} ms ({entry["bound_by"]}), CUDA-core '
           f'bound {step_bound_cuda_core(timed):.6f} ms', flush=True)
     del step_calls
-    gpt_err, gpt_timed, gpt_per_call = 0.0, [], []
-    for i, shape in enumerate(GPT_CASES):
-        err, t, n, _ = check_case(torch, kernel, plain, shape, 400 + i, 4)
-        gpt_err = max(gpt_err, err)
-        gpt_timed.append(t)
-        gpt_per_call.append(n)
+    paths = [bucket_entry(torch, kernel, plain, label, cases, seed)
+             for label, cases, seed in (('GPT-125M', GPT_CASES, 400),
+                                        ('ResNet-50', RN50_CASES, 500),
+                                        ('ViT-B/16', VIT_CASES, 600),
+                                        ('BERT-large', BERT_CASES, 700))]
+    return [entry] + paths
+
+
+def bucket_entry(torch, kernel, plain, label, cases, seed):
+    """The kernels-line entry of one model's path: :func:`check_case` at
+    each of its bucket shapes (at most two CUDA kernels per call for
+    ``gp <= 64``, four above), times summed over one step's calls, and a
+    ``kernel <label>:`` line that names the buckets where the cuBLAS
+    chain is faster."""
+    err, timed, per_call = 0.0, [], []
+    for i, shape in enumerate(cases):
+        e, t, n, _ = check_case(torch, kernel, plain, shape, seed + i,
+                                2 if shape[1] <= 64 else 4)
+        err = max(err, e)
+        timed.append(t)
+        per_call.append(n)
         torch.cuda.empty_cache()
-    gpt = step_entry('fused_eigen_precondition, GPT-125M buckets',
-                     'kfac_pytorch_tpu/ops/pallas_precond.py:43', gpt_timed,
-                     gpt_err, gpt_per_call)
-    gpt['shapes'] = GPT_CASES
-    print(f'kernel gpt: one step\'s {len(GPT_CASES)} calls: '
-          f'{gpt["ms"]:.5f} ms issued one by one; plain {gpt["plain_ms"]:.5f}'
-          f' ms; cuBLAS chain {gpt["library_ms"]:.5f} ms; bound '
-          f'{gpt["bound_ms"]:.6f} ms ({gpt["bound_by"]}), CUDA-core bound '
-          f'{step_bound_cuda_core(gpt_timed):.6f} ms; kernels per call '
-          f'{gpt_per_call}', flush=True)
-    rn_err, rn_timed, rn_per_call = 0.0, [], []
-    for i, shape in enumerate(RN50_CASES):
-        err, t, n, _ = check_case(torch, kernel, plain, shape, 500 + i,
-                                  2 if shape[1] <= 64 else 4)
-        rn_err = max(rn_err, err)
-        rn_timed.append(t)
-        rn_per_call.append(n)
-        torch.cuda.empty_cache()
-    rn50 = step_entry('fused_eigen_precondition, ResNet-50 buckets',
-                      'kfac_pytorch_tpu/ops/pallas_precond.py:43', rn_timed,
-                      rn_err, rn_per_call)
-    rn50['shapes'] = RN50_CASES
-    rn50['per_bucket'] = [
+    out = step_entry(f'fused_eigen_precondition, {label} buckets',
+                     'kfac_pytorch_tpu/ops/pallas_precond.py:43', timed, err,
+                     per_call)
+    out['shapes'] = cases
+    out['per_bucket'] = [
         dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              bound_ms=precond_bound(*shape, 4)[0])
-        for shape, ms, plain_ms, lib_ms in rn_timed
+        for shape, ms, plain_ms, lib_ms in timed
     ]
-    print(f'kernel resnet50: one step\'s {len(RN50_CASES)} calls: '
-          f'{rn50["ms"]:.5f} ms issued one by one; plain '
-          f'{rn50["plain_ms"]:.5f} ms; cuBLAS chain {rn50["library_ms"]:.5f} '
-          f'ms; bound {rn50["bound_ms"]:.6f} ms ({rn50["bound_by"]}), '
-          f'CUDA-core bound {step_bound_cuda_core(rn_timed):.6f} ms; kernels '
-          f'per call {rn_per_call}; buckets where cuBLAS is faster: '
-          + str([shape for shape, ms, _, lib in rn_timed if lib < ms]),
+    print(f'kernel {label}: one step\'s {len(cases)} calls: '
+          f'{out["ms"]:.5f} ms issued one by one; plain '
+          f'{out["plain_ms"]:.5f} ms; cuBLAS chain {out["library_ms"]:.5f} '
+          f'ms; bound {out["bound_ms"]:.6f} ms ({out["bound_by"]}), '
+          f'CUDA-core bound {step_bound_cuda_core(timed):.6f} ms; kernels '
+          f'per call {per_call}; buckets where cuBLAS is faster: '
+          + str([shape for shape, ms, _, lib in timed if lib < ms]),
           flush=True)
-    return entry, gpt, rn50
+    return out
 
 
 TRAIN_HP = dict(factor_update_steps=1, inv_update_steps=10, damping=0.003,
@@ -943,18 +978,21 @@ def gpt_tokens(torch, vocab):
     return torch.randint(0, vocab, GPT_BATCH, generator=gen, device=DEVICE)
 
 
-def train_gpt(torch, kt, steps, check_step=None, **kfac_kw):
-    """``steps`` K-FAC steps of the GPT on the fixed batch (next-token
-    cross entropy), stages timed by CUDA events, the fused kernel's
+def train_path(torch, kt, label, model, fwd_bwd, hp, steps, check_step=None,
+               momentum=0.0, **kfac_kw):
+    """``steps`` K-FAC steps of ``model`` on a fixed batch, as a user runs
+    them: ``fwd_bwd()`` (the forward and backward passes, returning the
+    detached loss), ``precond.step()``, ``opt.step()`` (SGD at
+    ``hp['lr']``).  Stages are timed by CUDA events, the fused kernel's
     launches counted from 0 over exactly these steps and its calls timed
-    by events around each.  At ``check_step`` (a refresh step) it keeps
-    the combined gradients before and after ``precond.step()``."""
-    import torch.nn.functional as F
-
-    model = getattr(kt.models, GPT_MODEL)(device=DEVICE, seed=0)
-    tokens = gpt_tokens(torch, model.config.vocab_size)
-    precond = kt.KFACPreconditioner(model, **GPT_HP, **kfac_kw)
-    opt = torch.optim.SGD(model.parameters(), lr=GPT_HP['lr'])
+    by events around each.  Fails on a non-finite or unfallen loss, or
+    launches other than steps x buckets.  At ``check_step`` (a refresh
+    step) every layer's preconditioned gradient and the kl-clip scale are
+    held against a rerun on the card from the same decompositions and raw
+    gradients through the plain version (relative Frobenius error
+    ``< 1e-4``; ``run['check']``)."""
+    precond = kt.KFACPreconditioner(model, **hp, **kfac_kw)
+    opt = torch.optim.SGD(model.parameters(), lr=hp['lr'], momentum=momentum)
     events: dict[str, list] = {
         'capture (fwd+bwd)': [], 'factors (cov+EMA)': [],
         'refresh': [], 'precondition': [], 'kernel': [],
@@ -976,21 +1014,19 @@ def train_gpt(torch, kt, steps, check_step=None, **kfac_kw):
     precond._refresh = timed('refresh', precond._refresh)
     precond._precondition = timed('precondition', precond._precondition)
 
-    def fwd_bwd():
+    def step_fwd_bwd():
         opt.zero_grad()
-        logits = model(tokens)
-        loss = F.cross_entropy(
-            logits[:, :-1].reshape(-1, logits.shape[-1]),
-            tokens[:, 1:].reshape(-1),
-        )
-        loss.backward()
-        return loss
+        return fwd_bwd()
 
-    fwd_bwd_timed = timed('capture (fwd+bwd)', fwd_bwd)
+    fwd_bwd_timed = timed('capture (fwd+bwd)', step_fwd_bwd)
     sharded = kt.ops.fused_eigen_precondition_sharded
     kt.ops.fused_eigen_precondition_sharded = timed('kernel', sharded)
     run = dict(precond=precond, losses=[], step_s=[])
     try:
+        # An earlier run's preconditioner sits in a reference cycle (its
+        # timed stage wrappers hold its bound methods): collect it so
+        # the peak is this run's alone.
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kt.ops.fused_eigen_precondition.launches = 0
@@ -1008,19 +1044,20 @@ def train_gpt(torch, kt, steps, check_step=None, **kfac_kw):
             opt.step()
             torch.cuda.synchronize()
             run['step_s'].append(time.perf_counter() - t0)
-            run['losses'].append(float(loss.detach()))
+            run['losses'].append(float(loss))
         run['launches'] = kt.ops.fused_eigen_precondition.launches
         run['peak_bytes'] = torch.cuda.max_memory_allocated()
     finally:
         kt.ops.fused_eigen_precondition_sharded = sharded
     losses = run['losses']
     if not all(math.isfinite(v) for v in losses):
-        fail(f'gpt: non-finite loss: {losses}')
+        fail(f'{label}: non-finite loss: {losses}')
     if not losses[-1] < losses[0]:
-        fail(f'gpt: loss did not fall: first {losses[0]}, last {losses[-1]}')
+        fail(f'{label}: loss did not fall: first {losses[0]}, last '
+             f'{losses[-1]}')
     n_buckets = len(precond.plan.buckets)
     if run['launches'] != steps * n_buckets:
-        fail(f'gpt: kernel launched {run["launches"]} times in {steps} '
+        fail(f'{label}: kernel launched {run["launches"]} times in {steps} '
              f'steps, expected {steps * n_buckets} ({n_buckets} buckets)')
     per_step = len(events['kernel']) // steps
     run['kernel_step_ms'] = [
@@ -1033,7 +1070,98 @@ def train_gpt(torch, kt, steps, check_step=None, **kfac_kw):
         for name, evs in events.items() if name != 'kernel'
     }
     run['refresh_ms'] = [s.elapsed_time(e) for s, e in events['refresh']]
+    if check_step is None:
+        return run
+
+    # The check step rerun on the card from the same decompositions and
+    # raw gradients, the plain version in place of the kernel.
+    kt.ops.fused_eigen_precondition_sharded = (
+        kt.ops.fused_eigen_precondition_sharded_reference)
+    launches = kt.ops.fused_eigen_precondition.launches
+    try:
+        want, scale = precond.precondition_combined(
+            run['raw'], hp['damping'], hp['kl_clip'], hp['lr'],
+        )
+    finally:
+        kt.ops.fused_eigen_precondition_sharded = sharded
+    if kt.ops.fused_eigen_precondition.launches != launches:
+        fail(f'{label}: the plain rerun launched the kernel')
+    errs = {n: rel_frob(run['got'][n], w) for n, w in want.items()}
+    worst = max(errs, key=errs.get)
+    scale_err = abs(float(scale) - float(run['scale'])) / float(scale)
+    if not (set(errs) == set(precond.helpers) and errs[worst] < 1e-4
+            and scale_err < 1e-4):
+        fail(f'{label}: step {check_step} kernel path vs plain rerun: worst '
+             f'layer {worst} rel err {errs[worst]:.3e}, kl-clip scale rel '
+             f'err {scale_err:.3e}')
+    by_kind = {}
+    for n, e in errs.items():
+        kind = type(precond.helpers[n]).__name__
+        by_kind[kind] = max(by_kind.get(kind, 0.0), e)
+    run['check'] = dict(step=check_step, worst=worst, err=errs[worst],
+                        scale=float(scale), scale_err=scale_err,
+                        by_kind=by_kind)
+    del run['raw'], run['got'], want
     return run
+
+
+def report_path(label, run, steps, note=''):
+    """The lines every training phase prints: losses; launches and the
+    check step; step and stage medians with the kernel's share; peak
+    memory and ``memory_usage()``."""
+    precond, losses = run['precond'], run['losses']
+    keys = [f'{b.key}:{b.n_slots}' for b in precond.plan.buckets]
+    print(f'{label}: losses first={losses[0]:.6f} last={losses[-1]:.6f} '
+          f'all={[round(v, 5) for v in losses]}', flush=True)
+    line = (f'{label}: launches={run["launches"]} ({len(keys)} buckets x '
+            f'{steps} steps)')
+    chk = run.get('check')
+    if chk is not None:
+        line += (f'; step {chk["step"]} vs plain rerun on the card, worst '
+                 f'layer {chk["worst"]} {chk["err"]:.3e}, worst by kind '
+                 + ', '.join(f'{k} {v:.3e}'
+                             for k, v in sorted(chk['by_kind'].items()))
+                 + f'; kl-clip scale {chk["scale"]:.6e} (rel err '
+                 f'{chk["scale_err"]:.3e})')
+    print(line, flush=True)
+    ms = {k: v[0] for k, v in run['stage_ms'].items()}
+    kernel_ms = statistics.median(run['kernel_step_ms'])
+    print(f'{label}: median step '
+          f'{statistics.median(run["step_s"][1:]) * 1e3:.4f} ms (steps '
+          f'1-{steps - 1}, host clock, synchronized{note}); first step '
+          f'{run["step_s"][0] * 1e3:.2f} ms; stage medians (CUDA events): '
+          f'capture (fwd+bwd) {ms["capture (fwd+bwd)"]:.4f} ms, factors '
+          f'{ms["factors (cov+EMA)"]:.4f} ms over '
+          f'{run["stage_ms"]["factors (cov+EMA)"][1]} factor steps, '
+          f'precondition {ms["precondition"]:.4f} ms of which the kernel\'s '
+          f'{len(keys)} calls {kernel_ms:.4f} ms '
+          f'({kernel_ms / ms["precondition"]:.3f}); refresh: '
+          + ', '.join(f'{t:.2f}' for t in run['refresh_ms']) + ' ms',
+          flush=True)
+    print(f'{label}: torch.cuda.max_memory_allocated {run["peak_bytes"]} '
+          f'bytes ({run["peak_bytes"] / 2**30:.3f} GiB); memory_usage '
+          f'{precond.memory_usage()}', flush=True)
+
+
+def train_gpt(torch, kt, steps, check_step=None, **kfac_kw):
+    """``steps`` K-FAC steps of the GPT on the fixed batch (next-token
+    cross entropy) through :func:`train_path`."""
+    import torch.nn.functional as F
+
+    model = getattr(kt.models, GPT_MODEL)(device=DEVICE, seed=0)
+    tokens = gpt_tokens(torch, model.config.vocab_size)
+
+    def fwd_bwd():
+        logits = model(tokens)
+        loss = F.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]),
+            tokens[:, 1:].reshape(-1),
+        )
+        loss.backward()
+        return loss.detach()
+
+    return train_path(torch, kt, 'gpt', model, fwd_bwd, GPT_HP, steps,
+                      check_step, **kfac_kw)
 
 
 def phase_gpt(torch, kt):
@@ -1044,7 +1172,7 @@ def phase_gpt(torch, kt):
     buckets) for ``GPT_DEFAULT_STEPS`` steps.  Returns the full-coverage
     run's kernel launches."""
     run = train_gpt(torch, kt, GPT_STEPS, check_step=CHECK_STEP, **GPT_FULL)
-    precond, losses = run['precond'], run['losses']
+    precond = run['precond']
     cfg = precond._capture.model.config
     n_blocks = cfg.n_layers
     keys = [f'{b.key}:{b.n_slots}' for b in precond.plan.buckets]
@@ -1059,68 +1187,16 @@ def phase_gpt(torch, kt):
         fail(f'gpt: the tied group is not one factor set: layers '
              f'{len(precond.layers)}, diagonal {precond.diag_layers}, '
              f'attend {list(precond._capture.attend)}')
-
-    # The check step rerun on the card from the same decompositions and
-    # raw gradients, the plain version in place of the kernel.
-    sharded = kt.ops.fused_eigen_precondition_sharded
-    kt.ops.fused_eigen_precondition_sharded = (
-        kt.ops.fused_eigen_precondition_sharded_reference)
-    launches = kt.ops.fused_eigen_precondition.launches
-    try:
-        want, scale = precond.precondition_combined(
-            run['raw'], GPT_HP['damping'], GPT_HP['kl_clip'], GPT_HP['lr'],
-        )
-    finally:
-        kt.ops.fused_eigen_precondition_sharded = sharded
-    if kt.ops.fused_eigen_precondition.launches != launches:
-        fail('gpt: the plain rerun launched the kernel')
-    errs = {n: rel_frob(run['got'][n], w) for n, w in want.items()}
-    worst = max(errs, key=errs.get)
-    scale_err = abs(float(scale) - float(run['scale'])) / float(scale)
-    if not (set(errs) == set(precond.helpers) and errs[worst] < 1e-4
-            and scale_err < 1e-4):
-        fail(f'gpt: step {CHECK_STEP} kernel path vs plain rerun: worst '
-             f'layer {worst} rel err {errs[worst]:.3e}, kl-clip scale rel '
-             f'err {scale_err:.3e}')
-    by_kind = {}
-    for n, e in errs.items():
-        kind = type(precond.helpers[n]).__name__
-        by_kind[kind] = max(by_kind.get(kind, 0.0), e)
-
-    steady = run['step_s'][1:]
     print(f'gpt: {GPT_MODEL} (vocab {cfg.vocab_size}, {n_blocks} layers, '
           f'{cfg.n_heads} heads, d_model {cfg.d_model}, d_ff {cfg.d_ff}, '
           f'{cfg.dtype} compute), batch {GPT_BATCH[0]} x {GPT_BATCH[1]} '
           f'tokens, full coverage: {len(precond.layers)} layers, buckets '
           f'{keys}, diagonal side path {list(precond.diag_layers)}',
           flush=True)
-    print(f'gpt: losses first={losses[0]:.6f} last={losses[-1]:.6f} '
-          f'all={[round(v, 5) for v in losses]}', flush=True)
-    print(f'gpt: launches={run["launches"]} ({len(keys)} buckets x '
-          f'{GPT_STEPS} steps); step {CHECK_STEP} vs plain rerun on the '
-          f'card, worst layer {worst} {errs[worst]:.3e}, worst by kind '
-          + ', '.join(f'{k} {v:.3e}' for k, v in sorted(by_kind.items()))
-          + f'; kl-clip scale {float(scale):.6e} (rel err '
-          f'{scale_err:.3e})', flush=True)
-    ms = {k: v[0] for k, v in run['stage_ms'].items()}
-    kernel_ms = statistics.median(run['kernel_step_ms'])
-    print(f'gpt: median step {statistics.median(steady) * 1e3:.4f} ms '
-          f'(steps 1-{GPT_STEPS - 1}, host clock, synchronized; the '
-          f'refresh step {CHECK_STEP} included); first step '
-          f'{run["step_s"][0] * 1e3:.2f} ms; stage medians (CUDA events): '
-          f'capture (fwd+bwd) {ms["capture (fwd+bwd)"]:.4f} ms, factors '
-          f'{ms["factors (cov+EMA)"]:.4f} ms, precondition '
-          f'{ms["precondition"]:.4f} ms of which the kernel\'s '
-          f'{len(keys)} calls {kernel_ms:.4f} ms; refresh at steps 0 and '
-          f'{CHECK_STEP}: '
-          + ', '.join(f'{t:.2f}' for t in run['refresh_ms']) + ' ms',
-          flush=True)
-    mem = precond.memory_usage()
-    print(f'gpt: torch.cuda.max_memory_allocated {run["peak_bytes"]} bytes '
-          f'({run["peak_bytes"] / 2**30:.3f} GiB); memory_usage {mem}',
-          flush=True)
+    report_path('gpt', run, GPT_STEPS,
+                f'; the refresh step {CHECK_STEP} included')
     launches = run['launches']
-    del run, precond, want
+    del run, precond
     torch.cuda.empty_cache()
 
     run = train_gpt(torch, kt, GPT_DEFAULT_STEPS)
@@ -1575,44 +1651,18 @@ def rn50_batch(torch):
 
 
 def train_resnet50(torch, kt, steps, accumulation=1):
-    """``steps`` K-FAC steps of ResNet-50 on the fixed batch, split into
-    ``accumulation`` micro-batches (each loss divided by their number),
-    stages timed by CUDA events, the fused kernel's launches counted from
-    0 over exactly these steps and its calls timed by events around each.
-    At step 0 (a refresh step) it keeps the combined gradients before and
-    after ``precond.step()`` and the kl-clip scale."""
+    """``steps`` K-FAC steps of ResNet-50 on the fixed batch through
+    :func:`train_path`, split into ``accumulation`` micro-batches (each
+    loss divided by their number), SGD with momentum 0.9, step 0 (a
+    refresh step) checked against the plain version; also fails unless
+    the plan is ``RN50_CASES``."""
     import torch.nn.functional as F
 
     model = kt.models.resnet50(device=DEVICE, seed=0)
     x, y = rn50_batch(torch)
     xs, ys = x.chunk(accumulation), y.chunk(accumulation)
-    precond = kt.KFACPreconditioner(model, accumulation_steps=accumulation,
-                                    **RN50_HP)
-    opt = torch.optim.SGD(model.parameters(), lr=RN50_HP['lr'],
-                          momentum=0.9)
-    events: dict[str, list] = {
-        'capture (fwd+bwd)': [], 'factors (cov+EMA)': [],
-        'refresh': [], 'precondition': [], 'kernel': [],
-    }
-
-    def timed(name, fn):
-        def run(*a, **k):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = fn(*a, **k)
-            e.record()
-            events[name].append((s, e))
-            return out
-        return run
-
-    precond._update_factors = timed('factors (cov+EMA)',
-                                    precond._update_factors)
-    precond._refresh = timed('refresh', precond._refresh)
-    precond._precondition = timed('precondition', precond._precondition)
 
     def fwd_bwd():
-        opt.zero_grad()
         losses = []
         for xm, ym in zip(xs, ys):
             loss = F.cross_entropy(model(xm), ym)
@@ -1620,85 +1670,15 @@ def train_resnet50(torch, kt, steps, accumulation=1):
             losses.append(loss.detach())
         return sum(losses) / accumulation
 
-    fwd_bwd_timed = timed('capture (fwd+bwd)', fwd_bwd)
-    sharded = kt.ops.fused_eigen_precondition_sharded
-    kt.ops.fused_eigen_precondition_sharded = timed('kernel', sharded)
-    run = dict(precond=precond, losses=[], step_s=[])
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kt.ops.fused_eigen_precondition.launches = 0
-        for step in range(steps):
-            t0 = time.perf_counter()
-            loss = fwd_bwd_timed()
-            if step == 0:
-                run['raw'] = {n: h.get_grad().clone()
-                              for n, h in precond.helpers.items()}
-            precond.step()
-            if step == 0:
-                run['got'] = {n: h.get_grad().clone()
-                              for n, h in precond.helpers.items()}
-                run['scale'] = precond.last_kl_scale
-            opt.step()
-            torch.cuda.synchronize()
-            run['step_s'].append(time.perf_counter() - t0)
-            run['losses'].append(float(loss))
-        run['launches'] = kt.ops.fused_eigen_precondition.launches
-        run['peak_bytes'] = torch.cuda.max_memory_allocated()
-    finally:
-        kt.ops.fused_eigen_precondition_sharded = sharded
     label = f'resnet50 accumulation {accumulation}'
-    losses = run['losses']
-    if not all(math.isfinite(v) for v in losses):
-        fail(f'{label}: non-finite loss: {losses}')
-    if not losses[-1] < losses[0]:
-        fail(f'{label}: loss did not fall: first {losses[0]}, last '
-             f'{losses[-1]}')
+    run = train_path(torch, kt, label, model, fwd_bwd, RN50_HP, steps,
+                     check_step=0, momentum=0.9,
+                     accumulation_steps=accumulation)
+    precond = run['precond']
     shapes = [(b.n_slots, b.g_pad, b.a_pad) for b in precond.plan.buckets]
     if shapes != RN50_CASES or len(precond.layers) != 54:
         fail(f'{label}: {len(precond.layers)} layers in buckets {shapes}, '
              f'expected 54 in {RN50_CASES}')
-    if run['launches'] != steps * len(shapes):
-        fail(f'{label}: kernel launched {run["launches"]} times in {steps} '
-             f'steps, expected {steps * len(shapes)} ({len(shapes)} '
-             'buckets)')
-    per_step = len(events['kernel']) // steps
-    run['kernel_step_ms'] = [
-        sum(s.elapsed_time(e) for s, e in events['kernel'][i:i + per_step])
-        for i in range(0, len(events['kernel']), per_step)
-    ]
-    run['stage_ms'] = {
-        name: (statistics.median([s.elapsed_time(e) for s, e in evs]),
-               len(evs))
-        for name, evs in events.items() if name != 'kernel'
-    }
-    run['refresh_ms'] = [s.elapsed_time(e) for s, e in events['refresh']]
-
-    # Step 0 rerun on the card from the same decompositions (no refresh
-    # after step 0 in this run) and raw gradients, the plain version in
-    # place of the kernel.
-    kt.ops.fused_eigen_precondition_sharded = (
-        kt.ops.fused_eigen_precondition_sharded_reference)
-    launches = kt.ops.fused_eigen_precondition.launches
-    try:
-        want, scale = precond.precondition_combined(
-            run['raw'], RN50_HP['damping'], RN50_HP['kl_clip'],
-            RN50_HP['lr'],
-        )
-    finally:
-        kt.ops.fused_eigen_precondition_sharded = sharded
-    if kt.ops.fused_eigen_precondition.launches != launches:
-        fail(f'{label}: the plain rerun launched the kernel')
-    errs = {n: rel_frob(run['got'][n], w) for n, w in want.items()}
-    worst = max(errs, key=errs.get)
-    scale_err = abs(float(scale) - float(run['scale'])) / float(scale)
-    if not (set(errs) == set(precond.helpers) and errs[worst] < 1e-4
-            and scale_err < 1e-4):
-        fail(f'{label}: step 0 kernel path vs plain rerun: worst layer '
-             f'{worst} rel err {errs[worst]:.3e}, kl-clip scale rel err '
-             f'{scale_err:.3e}')
-    run['check'] = (worst, errs[worst], float(scale), scale_err)
-    del run['raw'], run['got']
     return run
 
 
@@ -1739,37 +1719,13 @@ def phase_resnet50(torch, kt):
     for steps, accumulation in ((RN50_STEPS, 1),
                                 (RN50_ACCUM_STEPS, RN50_ACCUM)):
         run = train_resnet50(torch, kt, steps, accumulation)
-        precond, losses = run['precond'], run['losses']
+        precond = run['precond']
         label = (f'resnet50: batch {RN50_BATCH} at {RN50_IMAGE}x{RN50_IMAGE}'
                  f', accumulation {accumulation} x '
                  f'{RN50_BATCH // accumulation} rows')
-        worst, err, scale, scale_err = run['check']
-        ms = {k: v[0] for k, v in run['stage_ms'].items()}
         print(f'{label}: {len(precond.layers)} layers, '
-              f'{len(RN50_CASES)} buckets; losses first={losses[0]:.6f} '
-              f'last={losses[-1]:.6f} all={[round(v, 5) for v in losses]}',
-              flush=True)
-        print(f'{label}: launches={run["launches"]} ({len(RN50_CASES)} '
-              f'buckets x {steps} steps); step 0 vs plain rerun on the card, '
-              f'worst layer {worst} {err:.3e}; kl-clip scale {scale:.6e} '
-              f'(rel err {scale_err:.3e})', flush=True)
-        print(f'{label}: median step '
-              f'{statistics.median(run["step_s"][1:]) * 1e3:.4f} ms (steps '
-              f'1-{steps - 1}, host clock, synchronized; factor steps '
-              f'included); first step {run["step_s"][0] * 1e3:.2f} ms; stage '
-              'medians (CUDA events): capture (fwd+bwd) '
-              f'{ms["capture (fwd+bwd)"]:.4f} ms, factors '
-              f'{ms["factors (cov+EMA)"]:.4f} ms over '
-              f'{run["stage_ms"]["factors (cov+EMA)"][1]} factor steps, '
-              f'precondition {ms["precondition"]:.4f} ms of which the '
-              f'kernel\'s {len(RN50_CASES)} calls '
-              f'{statistics.median(run["kernel_step_ms"]):.4f} ms; refresh '
-              'at step 0: '
-              + ', '.join(f'{t:.2f}' for t in run['refresh_ms']) + ' ms',
-              flush=True)
-        print(f'{label}: torch.cuda.max_memory_allocated {run["peak_bytes"]}'
-              f' bytes ({run["peak_bytes"] / 2**30:.3f} GiB); memory_usage '
-              f'{precond.memory_usage()}', flush=True)
+              f'{len(RN50_CASES)} buckets', flush=True)
+        report_path(label, run, steps, '; factor steps included')
         if launches is None:
             launches = run['launches']
         del run, precond
@@ -1804,6 +1760,153 @@ def phase_resnet50(torch, kt):
         if not (d[f'{name}_sgd_ms'] > 0 and d[f'{name}_kfac_ms_amortized']
                 > 0 and math.isfinite(d[f'{name}_ratio'])):
             fail(f'bench {name}: {d}')
+    return launches
+
+
+#: Phases 10 and 11: the transformer encoders at their published widths
+#: and depths, f32 parameters, the models' bf16 compute, SGD, a factor
+#: update every step.  The rehearsal on the CPU sets ``VIT_MODEL =
+#: 'vit_tiny'``, ``BERT_MODEL = 'bert_tiny'`` and small batches.
+VIT_HP = dict(factor_update_steps=1, inv_update_steps=10, damping=0.003,
+              kl_clip=0.001, lr=0.1)
+VIT_MODEL = 'vit_b16'
+VIT_BATCH = 32
+VIT_STEPS = 12  # refreshes at 0 and CHECK_STEP
+VIT_FULL = dict(layer_types=('linear', 'conv2d', 'layernorm'))
+#: ``examples/squad_bert.py``'s damping and kl-clip, 4 x 384 tokens.
+BERT_HP = dict(factor_update_steps=1, inv_update_steps=5, damping=0.001,
+               kl_clip=0.001, lr=0.1)
+BERT_MODEL = 'bert_large'
+BERT_BATCH = (4, 384)  # sequences x tokens
+BERT_MASKED = 64  # the last positions of rows 0 and 1
+BERT_STEPS = 7
+BERT_CHECK_STEP = 5  # the second refresh
+BERT_FULL = dict(layer_types=('linear', 'embedding', 'layernorm'))
+
+
+def report_coverage(label, precond, want_uncovered):
+    """Prints ``coverage_report()``; fails on an unsupported layer, a
+    count other than the registered layers, or other uncovered
+    parameters than ``want_uncovered``."""
+    rep = precond.coverage_report()
+    if (rep['unsupported'] or rep['registered'] != len(precond.layers)
+            or rep['uncovered'] != want_uncovered
+            or not precond._uses_coverage_helpers()):
+        fail(f'{label}: coverage report {rep}')
+    print(f'{label}: coverage_report registered={rep["registered"]} '
+          f'skipped={rep["skipped"]} unsupported={rep["unsupported"]} '
+          f'tied={rep["tied"]} params {rep["params_covered"]}/'
+          f'{rep["params_total"]} param_fraction={rep["param_fraction"]:.6f}'
+          f' uncovered={rep["uncovered"]}', flush=True)
+
+
+def check_plan(label, precond, cases, full_size):
+    """The plan's ``(L, gp, ap)`` stacks; at the published widths they
+    must be the shapes phase 2 held the kernel at."""
+    shapes = [(b.n_slots, b.g_pad, b.a_pad) for b in precond.plan.buckets]
+    if full_size and shapes != cases:
+        fail(f'{label}: buckets {shapes}, phase 2 checked {cases}')
+    return shapes
+
+
+def phase_vit(torch, kt):
+    """Phase 10: ViT-B/16 at its published widths and depth (224x224
+    images, 1000 classes, 12 layers) at batch ``VIT_BATCH``, full
+    coverage (the patchify conv, 48 Dense layers, the head and 25
+    LayerNorms in six buckets), ``VIT_STEPS`` steps with refreshes at 0
+    and ``CHECK_STEP``.  Returns the kernel launches."""
+    import torch.nn.functional as F
+
+    model = getattr(kt.models, VIT_MODEL)(device=DEVICE, seed=0)
+    cfg = model.config
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    x = torch.randn(VIT_BATCH, 3, cfg.image_size, cfg.image_size,
+                    generator=gen, device=DEVICE)
+    y = torch.randint(0, cfg.num_classes, (VIT_BATCH,), generator=gen,
+                      device=DEVICE)
+
+    def fwd_bwd():
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        return loss.detach()
+
+    run = train_path(torch, kt, 'vit', model, fwd_bwd, VIT_HP, VIT_STEPS,
+                     CHECK_STEP, **VIT_FULL)
+    precond = run['precond']
+    n = cfg.n_layers
+    if len(precond.layers) != 1 + 4 * n + 1 + 2 * n + 1:
+        fail(f'vit: {len(precond.layers)} layers registered')
+    shapes = check_plan('vit', precond, VIT_CASES, VIT_MODEL == 'vit_b16')
+    print(f'vit: {VIT_MODEL} ({cfg.image_size}x{cfg.image_size} images, '
+          f'patch {cfg.patch_size}, {cfg.num_classes} classes, {n} layers, '
+          f'{cfg.n_heads} heads, d_model {cfg.d_model}, d_ff {cfg.d_ff}, '
+          f'{cfg.dtype} compute, {cfg.pool} pool), batch {VIT_BATCH}, full '
+          f'coverage: {len(precond.layers)} layers, buckets (L, gp, ap) '
+          f'{shapes}', flush=True)
+    report_path('vit', run, VIT_STEPS,
+                f'; the refresh step {CHECK_STEP} included')
+    report_coverage('vit', precond, ['pos_embed'])
+    launches = run['launches']
+    del run, precond, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bert(torch, kt):
+    """Phase 11: BERT-large at its published widths and depth (vocab
+    30522, 24 layers, 16 heads, ``d_model`` 1024) on ``BERT_BATCH``
+    tokens, the last ``BERT_MASKED`` positions of two rows masked, no
+    type ids (as ``examples/squad_bert.py`` passes none), span loss on
+    random starts and ends, full coverage (96 Dense layers, ``qa_head``
+    and 49 LayerNorms in six buckets, ``wte`` on the diagonal side path),
+    ``BERT_STEPS`` steps with refreshes at 0 and ``BERT_CHECK_STEP``.
+    Returns the kernel launches."""
+    import torch.nn.functional as F
+
+    model = getattr(kt.models, BERT_MODEL)(device=DEVICE, seed=0)
+    cfg = model.config
+    B, T = BERT_BATCH
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=DEVICE)
+    mask = torch.ones(B, T, dtype=torch.bool, device=DEVICE)
+    mask[:2, T - BERT_MASKED:] = False
+    starts, ends = torch.randint(0, T - BERT_MASKED, (2, B), generator=gen,
+                                 device=DEVICE)
+
+    def fwd_bwd():
+        start, end = model(tokens, None, mask)
+        loss = (F.cross_entropy(start, starts)
+                + F.cross_entropy(end, ends)) / 2
+        loss.backward()
+        return loss.detach()
+
+    run = train_path(torch, kt, 'bert', model, fwd_bwd, BERT_HP, BERT_STEPS,
+                     BERT_CHECK_STEP, **BERT_FULL)
+    precond = run['precond']
+    n = cfg.n_layers
+    if (len(precond.layers) != 2 + 6 * n + 1
+            or precond.diag_layers != ('wte',)
+            or tuple(precond.layers['wte'].a_factor.shape)
+            != (cfg.vocab_size,)):
+        fail(f'bert: {len(precond.layers)} layers, diagonal '
+             f'{precond.diag_layers}')
+    shapes = check_plan('bert', precond, BERT_CASES,
+                        BERT_MODEL == 'bert_large')
+    print(f'bert: {BERT_MODEL} (vocab {cfg.vocab_size}, {n} layers, '
+          f'{cfg.n_heads} heads, d_model {cfg.d_model}, d_ff {cfg.d_ff}, '
+          f'{cfg.dtype} compute), batch {B} x {T} tokens, last '
+          f'{BERT_MASKED} masked in rows 0-1, full coverage: '
+          f'{len(precond.layers)} layers, buckets (L, gp, ap) {shapes}, '
+          f'diagonal side path {list(precond.diag_layers)}', flush=True)
+    report_path('bert', run, BERT_STEPS,
+                f'; the refresh step {BERT_CHECK_STEP} included')
+    report_coverage('bert', precond, ['wpe'])
+    launches = run['launches']
+    del run, precond, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1867,7 +1970,8 @@ def main() -> int:
         print(card, flush=True)
         print(json.dumps(device_record(torch)), flush=True)
         return 0
-    entry, gpt, rn50 = phase('1-2 kernels', phase_kernels, torch, kt.ops)
+    entry, gpt, rn50, vit, bert = phase('1-2 kernels', phase_kernels,
+                                        torch, kt.ops)
     entry['launches'] = phase('3 train', phase_train, torch, kt)
     sharded = phase('4 sharded', phase_sharded_kernel, torch, kt)
     sharded['launches'], sharded['gather_ms'] = phase(
@@ -1877,11 +1981,14 @@ def main() -> int:
     phase('7 resume', phase_resume, torch, kt)
     gpt['launches'] = phase('8 gpt', phase_gpt, torch, kt)
     rn50['launches'] = phase('9 resnet50', phase_resnet50, torch, kt)
+    vit['launches'] = phase('10 vit', phase_vit, torch, kt)
+    bert['launches'] = phase('11 bert', phase_bert, torch, kt)
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
           flush=True)
     print(card, flush=True)
-    print(json.dumps({'kernels': [entry, sharded, gpt, rn50]}), flush=True)
+    print(json.dumps({'kernels': [entry, sharded, gpt, rn50, vit, bert]}),
+          flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0
 

@@ -44,6 +44,7 @@ so the G side is scaled by N as well as by ``1 / world``.
 from __future__ import annotations
 
 import logging
+from typing import Any
 
 import torch
 
@@ -132,6 +133,14 @@ BucketSecond`).
             f'Registration summary: {len(self.helpers)} registered, '
             f'{len(capture.skipped)} skipped, {len(capture.rejected)} '
             'rejected',
+        )
+        cov_rep = capture.coverage
+        logger.log(
+            loglevel,
+            'Coverage: %.2f%% of parameters preconditioned (%d/%d '
+            'elements); uncovered: %s',
+            100.0 * cov_rep['param_fraction'], cov_rep['params_covered'],
+            cov_rep['params_total'], cov_rep['uncovered'] or 'none',
         )
         self.layers: dict[str, LayerKFACState] = {
             name: init_layer_state(
@@ -466,3 +475,29 @@ BucketSecond`).
         }
         sizes['total'] = sum(sizes.values())
         return sizes
+
+    def coverage_report(self) -> dict[str, Any]:
+        """Structured preconditioned-parameter coverage of the model
+        (:meth:`~kfac_pytorch_tpu_torch.capture.ModelCapture.\
+_coverage_report`): registered / skipped / unsupported counters, the
+        tied-head count, and the preconditioned-parameter fraction with
+        every uncovered parameter named.  Registration runs when the
+        preconditioner is built, so the report is never empty here."""
+        return dict(self._capture.coverage)
+
+    def _uses_coverage_helpers(self) -> bool:
+        """Whether any registered layer rides the full-coverage helpers
+        (LayerNorm, tied embedding, DenseGeneral, an explicit
+        expand/reduce choice); False for every default registration."""
+        from kfac_pytorch_tpu_torch.layers import coverage as cov_layers
+
+        kinds = (
+            cov_layers.ScaleBiasHelper,
+            cov_layers.TiedEmbedHelper,
+            cov_layers.DenseGeneralHelper,
+            cov_layers.KfacReduceHelper,
+            cov_layers.KfacExpandHelper,
+        )
+        return bool(self._capture.attend) or any(
+            isinstance(h, kinds) for h in self.helpers.values()
+        )

@@ -6,9 +6,14 @@ the mechanism of the original torch library:
 
 * **registration** walks ``model.named_modules()`` and builds a helper
   for every module of a kind in ``layer_types``: ``nn.Linear``,
-  ``nn.Conv2d``, ``nn.Embedding`` and ``nn.LayerNorm`` (``skip_layers``
-  regexes skip by name or class name; ``kfac_approx`` picks expand or
-  reduce per linear layer);
+  ``nn.Conv2d``, ``nn.Embedding``, ``nn.LayerNorm`` and the port's
+  :class:`~kfac_pytorch_tpu_torch.models.layers.DenseGeneral`
+  (``skip_layers`` regexes skip by name or class name; ``kfac_approx``
+  picks expand or reduce per linear and ``dense_general`` layer).  A
+  layer it cannot precondition is rejected with a reason and a warning,
+  and trains on its raw gradient; among them the ``nn.Linear``
+  submodules of ``torch.nn.MultiheadAttention``, whose forward never
+  runs as a module call;
 * **capture** uses a forward pre-hook that stores each layer's input
   and a forward hook that puts a tensor hook on the layer's output, so
   the backward pass delivers ``d(loss)/d(output)``.  Both do nothing
@@ -33,12 +38,16 @@ them into the lookup's lists would pair the two applications crosswise.)
 """
 from __future__ import annotations
 
+import math
 import re
+import warnings
 from typing import Any, Callable, Iterable, Sequence
 
 import torch
 from torch import nn
 
+from kfac_pytorch_tpu_torch.layers.coverage import DenseGeneralHelper
+from kfac_pytorch_tpu_torch.layers.coverage import DenseGeneralReduceHelper
 from kfac_pytorch_tpu_torch.layers.coverage import KfacExpandHelper
 from kfac_pytorch_tpu_torch.layers.coverage import KfacReduceHelper
 from kfac_pytorch_tpu_torch.layers.coverage import ScaleBiasHelper
@@ -49,14 +58,26 @@ from kfac_pytorch_tpu_torch.layers.helpers import ConvHelper
 from kfac_pytorch_tpu_torch.layers.helpers import DenseHelper
 from kfac_pytorch_tpu_torch.layers.helpers import EmbedHelper
 from kfac_pytorch_tpu_torch.layers.helpers import LayerHelper
+from kfac_pytorch_tpu_torch.models.layers import DenseGeneral
 
-#: The JAX package's kinds.  ``dense_general`` (Flax's multi-head
-#: attention projections) is not ported and raises.
+#: The JAX package's kinds; ``layernorm`` and ``dense_general`` (the
+#: multi-head attention projections) are the opt-in full-coverage ones.
 KNOWN_MODULES = frozenset({
     'linear', 'conv2d', 'embedding', 'layernorm', 'dense_general',
 })
 DEFAULT_LAYER_TYPES = frozenset({'linear', 'conv2d'})
 KNOWN_APPROX = ('expand', 'reduce')
+
+#: Why the ``nn.Linear`` inside ``torch.nn.MultiheadAttention`` is
+#: rejected.
+MHA_REASON = (
+    'a projection of torch.nn.MultiheadAttention, which runs inside '
+    'F.multi_head_attention_forward from the raw weights, where module '
+    'hooks see neither its input nor its output gradient; build the '
+    'attention from kfac_pytorch_tpu_torch.models.layers.'
+    "MultiHeadDotProductAttention and add 'dense_general' to layer_types "
+    'to precondition it'
+)
 
 #: ``(helper, activations, output gradients)`` of one role of a layer:
 #: its own calls, or a tied embedding's attend calls.
@@ -79,6 +100,8 @@ def _module_kind(module: nn.Module) -> str | None:
         return 'embedding'
     if isinstance(module, nn.LayerNorm):
         return 'layernorm'
+    if isinstance(module, DenseGeneral):
+        return 'dense_general'
     return None
 
 
@@ -97,12 +120,6 @@ def _check_options(
         raise ValueError(
             f'Unknown layer types {sorted(unknown)}; known: '
             f'{sorted(KNOWN_MODULES)}',
-        )
-    if 'dense_general' in layer_types:
-        raise NotImplementedError(
-            "layer_types 'dense_general' is not ported to the PyTorch "
-            "package yet (ROADMAP.md Queue A item 12: Flax's multi-head "
-            'attention projections, the part of items 11-12 still queued)',
         )
     modes = (
         {'': kfac_approx} if isinstance(kfac_approx, str)
@@ -129,12 +146,11 @@ class ModelCapture:
         model: the module to instrument.
         skip_layers: regexes; a layer whose name or class name matches
             one is not registered.
-        layer_types: kinds to register (a subset of ``KNOWN_MODULES``
-            without ``'dense_general'``).
+        layer_types: kinds to register (a subset of ``KNOWN_MODULES``).
         kfac_approx: ``'expand'`` (default), ``'reduce'``, or a mapping
             of regexes (on the layer name and class name) to those
-            modes, for linear layers; a pattern that selects no linear
-            layer raises.
+            modes, for linear and ``dense_general`` layers; a pattern
+            that selects none of them raises.
         tied_weights: names of ``nn.Embedding`` modules whose weight a
             :class:`~kfac_pytorch_tpu_torch.layers.coverage.TiedAttend`
             head shares; needs ``'embedding'`` in ``layer_types``.  A
@@ -147,6 +163,7 @@ class ModelCapture:
             TiedAttendHelper)``.
         skipped: names matched by ``skip_layers``.
         rejected: layer name -> reason it cannot be preconditioned.
+        coverage: the coverage report (:meth:`_coverage_report`).
         armed: capture switch; the hooks record only while it is True.
         fold: ``None``, or a callable that consumes the captures of a
             finished forward/backward pass (through :meth:`take`); it
@@ -184,6 +201,13 @@ class ModelCapture:
         # backward pass has run since, so the next forward may fold.
         self._grads_arrived = False
         self._register()
+        for name, reason in self.rejected.items():
+            warnings.warn(
+                f'K-FAC capture cannot precondition layer {name!r}: '
+                f'{reason}; it will train on its raw gradient.',
+                stacklevel=3,
+            )
+        self.coverage = self._coverage_report()
 
     def _skipped(self, name: str, module: nn.Module, tied: str | None):
         if not self.skip_layers or not any_match(
@@ -202,8 +226,8 @@ class ModelCapture:
         return True
 
     def _approx_for(self, name: str, module: nn.Module) -> tuple[str, bool]:
-        """``(mode, explicit)`` of a linear layer; ``explicit`` marks a
-        mapping match."""
+        """``(mode, explicit)`` of a linear or ``dense_general`` layer;
+        ``explicit`` marks a mapping match."""
         if isinstance(self.kfac_approx, str):
             return self.kfac_approx, False
         for pattern, mode in dict(self.kfac_approx).items():
@@ -233,6 +257,8 @@ class ModelCapture:
                     'table (drop the declaration rather than feed the '
                     'factor set a phantom application)',
                 )
+        mha = tuple(name + '.' for name, m in modules.items()
+                    if isinstance(m, nn.MultiheadAttention))
         for name, module in modules.items():
             kind = _module_kind(module)
             if kind is None or kind not in self.layer_types:
@@ -240,6 +266,9 @@ class ModelCapture:
             tied = name if name in self.tied_weights else None
             if self._skipped(name, module, tied):
                 self.skipped.append(name)
+                continue
+            if kind == 'linear' and name.startswith(mha):
+                self.rejected[name] = MHA_REASON
                 continue
             helper, reason = self._make_helper(kind, name, module)
             if helper is None:
@@ -277,9 +306,44 @@ class ModelCapture:
             if unmatched:
                 raise ValueError(
                     f'kfac_approx patterns {sorted(unmatched)} matched no '
-                    'registered linear layer (matched on the layer name '
-                    'and class name); fix the pattern or drop the entry',
+                    'registered linear/dense_general layer (matched on the '
+                    'layer name and class name); fix the pattern or drop '
+                    'the entry',
                 )
+
+    def _coverage_report(self) -> dict[str, Any]:
+        """Preconditioned-parameter coverage of the model (the JAX
+        ``ModelCapture._coverage_report``, with the same keys).
+
+        ``registered`` counts the registered layers and tied heads,
+        ``tied`` the heads; ``param_fraction`` is the fraction of the
+        trainable parameter elements whose gradient the preconditioner
+        transforms, and ``uncovered`` names every parameter that trains
+        on its raw gradient (a bare parameter such as a position table,
+        and those of skipped and rejected layers).  Counted from the
+        module tree: a module applied twice is one layer here, where the
+        JAX registration trace counts each call.
+        """
+        # A model that is itself a layer registers as '' and owns all.
+        prefixes = tuple(f'{name}.' if name else '' for name in self.helpers)
+        total = covered = 0
+        uncovered: list[str] = []
+        for name, p in self.model.named_parameters():
+            total += p.numel()
+            if name.startswith(prefixes):
+                covered += p.numel()
+            else:
+                uncovered.append(name)
+        return {
+            'registered': len(self.helpers) + len(self.attend),
+            'skipped': len(self.skipped),
+            'unsupported': len(self.rejected),
+            'tied': len(self.attend),
+            'params_total': total,
+            'params_covered': covered,
+            'param_fraction': (covered / total) if total else 0.0,
+            'uncovered': sorted(uncovered),
+        }
 
     def _make_helper(
         self, kind: str, name: str, module: nn.Module,
@@ -292,6 +356,23 @@ class ModelCapture:
                 name=name, module=module, has_bias=module.bias is not None,
                 in_features=module.in_features,
                 out_features=module.out_features,
+            ), None
+        if kind == 'dense_general':
+            if not module.trailing:
+                return None, (
+                    f'DenseGeneral with non-trailing contraction axes '
+                    f'{module.axis!r} is unsupported (the factor math '
+                    'flattens trailing axes only)'
+                )
+            mode, _ = self._approx_for(name, module)
+            cls = (DenseGeneralReduceHelper if mode == 'reduce'
+                   else DenseGeneralHelper)
+            return cls(
+                name=name, module=module, has_bias=module.bias is not None,
+                in_features=math.prod(module.in_shape),
+                out_features=math.prod(module.features),
+                kernel_in_ndim=len(module.in_shape),
+                kernel_out_ndim=len(module.features),
             ), None
         if kind == 'embedding':
             if module.sparse:

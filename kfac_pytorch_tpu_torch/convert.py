@@ -7,15 +7,21 @@ convert JAX arrays with ``np.asarray`` first) and returns a
 modules carry the Flax module names:
 
 * Dense ``kernel [in, out]`` -> ``weight [out, in]``;
-* Conv ``kernel`` HWIO -> ``weight`` OIHW;
+* a rank-3 DenseGeneral ``kernel`` (the multi-head attention
+  projections: ``[D, heads, head_dim]``, ``[heads, head_dim, D]``) ->
+  ``kernel``, unchanged;
+* Conv ``kernel`` HWIO -> ``weight`` OIHW (the ViT's patchify stem);
 * BatchNorm and LayerNorm ``scale/bias`` (``params``) and ``mean/var``
   (``batch_stats``) -> ``weight/bias/running_mean/running_var``, with
   ``num_batches_tracked`` set to 0;
 * Embed ``embedding [V, D]`` -> ``weight [V, D]``;
-* a bare parameter (the GPT's positional table ``wpe``) -> itself.
+* a bare parameter (the positional tables ``wpe`` and ``pos_embed``,
+  the ViT's ``cls``) -> itself.
 
 So a JAX ResNet-50's ``params`` and ``batch_stats`` load strictly into
-the port's ``resnet50``, and a JAX GPT's into ``gpt_125m``.
+the port's ``resnet50``, a JAX GPT's into ``gpt_125m``, a ViT's into
+``vit_b16`` and a BERT's into ``bert_large``.  :func:`flax_to_torch_names`
+gives the name map, for comparing reports that name parameters.
 
 :func:`jax_kfac_state_dict_to_torch` carries a JAX
 ``KFACPreconditioner.state_dict(...)`` across, so a JAX run resumes in
@@ -44,42 +50,64 @@ def _t(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
+def _convert(variables: Mapping[str, Any]):
+    """Yield ``(Flax leaf path, torch name, tensor)`` for every leaf."""
+    for path, leaves in _walk(variables.get('params', {})):
+        name = '.'.join(path)
+
+        def leaf(key, torch_key, value):
+            return '/'.join(path + (key,)), f'{name}.{torch_key}', value
+
+        if 'scale' in leaves:  # BatchNorm / LayerNorm affine pair
+            yield leaf('scale', 'weight', _t(leaves['scale']))
+            yield leaf('bias', 'bias', _t(leaves['bias']))
+            continue
+        if 'embedding' in leaves:
+            yield leaf('embedding', 'weight', _t(leaves['embedding']))
+            continue
+        if 'kernel' not in leaves:  # bare parameters of a module
+            for key, value in leaves.items():
+                yield '/'.join(path + (key,)), '.'.join(path + (key,)), \
+                    _t(value)
+            continue
+        kernel = np.asarray(leaves['kernel'])
+        if kernel.ndim == 3:
+            yield leaf('kernel', 'kernel', _t(kernel))
+        elif kernel.ndim == 4:
+            yield leaf('kernel', 'weight', _t(kernel.transpose(3, 2, 0, 1)))
+        elif kernel.ndim == 2:
+            yield leaf('kernel', 'weight', _t(kernel.T))
+        else:
+            raise ValueError(
+                f'{name}: kernel of rank {kernel.ndim} has no torch '
+                'counterpart here (Dense is rank 2, a multi-head '
+                'DenseGeneral rank 3, Conv2d rank 4)',
+            )
+        if 'bias' in leaves:
+            yield leaf('bias', 'bias', _t(leaves['bias']))
+    for path, leaves in _walk(variables.get('batch_stats', {})):
+        name = '.'.join(path)
+        for key, torch_key in (('mean', 'running_mean'),
+                               ('var', 'running_var')):
+            yield ('/'.join(('batch_stats',) + path + (key,)),
+                   f'{name}.{torch_key}', _t(leaves[key]))
+        yield None, f'{name}.num_batches_tracked', torch.tensor(0)
+
+
 def flax_to_torch_state_dict(
     variables: Mapping[str, Any],
 ) -> dict[str, torch.Tensor]:
     """Convert ``{'params': ..., 'batch_stats': ...}`` to a state dict."""
-    out: dict[str, torch.Tensor] = {}
-    for path, leaves in _walk(variables.get('params', {})):
-        name = '.'.join(path)
-        if 'scale' in leaves:  # BatchNorm / LayerNorm affine pair
-            out[f'{name}.weight'] = _t(leaves['scale'])
-            out[f'{name}.bias'] = _t(leaves['bias'])
-            continue
-        if 'embedding' in leaves:
-            out[f'{name}.weight'] = _t(leaves['embedding'])
-            continue
-        if 'kernel' not in leaves:  # bare parameters of a module
-            for key, value in leaves.items():
-                out['.'.join(path + (key,))] = _t(value)
-            continue
-        kernel = np.asarray(leaves['kernel'])
-        if kernel.ndim == 4:
-            out[f'{name}.weight'] = _t(kernel.transpose(3, 2, 0, 1))
-        elif kernel.ndim == 2:
-            out[f'{name}.weight'] = _t(kernel.T)
-        else:
-            raise ValueError(
-                f'{name}: kernel of rank {kernel.ndim} has no torch '
-                'counterpart here (Dense is rank 2, Conv2d rank 4)',
-            )
-        if 'bias' in leaves:
-            out[f'{name}.bias'] = _t(leaves['bias'])
-    for path, leaves in _walk(variables.get('batch_stats', {})):
-        name = '.'.join(path)
-        out[f'{name}.running_mean'] = _t(leaves['mean'])
-        out[f'{name}.running_var'] = _t(leaves['var'])
-        out[f'{name}.num_batches_tracked'] = torch.tensor(0)
-    return out
+    return {name: t for _, name, t in _convert(variables)}
+
+
+def flax_to_torch_names(variables: Mapping[str, Any]) -> dict[str, str]:
+    """The bridge's name map: each ``'/'``-joined Flax parameter path
+    (``block_0/ln_attn/scale``; ``batch_stats/...`` for the statistics)
+    -> the port's parameter or buffer name (``block_0.ln_attn.weight``).
+    """
+    return {path: name for path, name, _ in _convert(variables)
+            if path is not None}
 
 
 def jax_kfac_state_dict_to_torch(sd: Mapping[str, Any]) -> dict[str, Any]:

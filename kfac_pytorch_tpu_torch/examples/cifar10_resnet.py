@@ -1,8 +1,9 @@
 """CIFAR-10 ResNet trainer with K-FAC, on the card.
 
 Port of ``examples/cifar10_resnet.py``: the same flags and defaults
-(batch 128 per rank, lr 0.1 x world, decay at epochs 35, 75 and 90, 100
-epochs, K-FAC factor/inverse updates every 1/10 steps, damping 0.003),
+(``--model`` resnet20, resnet32 or vit_tiny; batch 128 per rank, lr
+0.1 x world, decay at epochs 35, 75 and 90, 100 epochs, K-FAC
+factor/inverse updates every 1/10 steps, damping 0.003),
 plus ``--device``.  ``--batches-per-allreduce N`` accumulates N
 micro-batches per optimizer step.  Training resumes from the newest
 ``checkpoint_{epoch}`` in ``--log-dir``, and the run's environment is the
@@ -37,7 +38,7 @@ from kfac_pytorch_tpu_torch.examples.cnn_utils import optimizers
 from kfac_pytorch_tpu_torch.utils.backend import environment_summary
 from kfac_pytorch_tpu_torch.utils.metrics import MetricsWriter
 
-CIFAR_MODELS = ('resnet20', 'resnet32')
+CIFAR_MODELS = ('resnet20', 'resnet32', 'vit_tiny')
 
 
 def add_kfac_args(p: argparse.ArgumentParser, *, inv: int, factor: int,
@@ -86,8 +87,8 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
                    help='bf16 compute and activations (f32 parameters and '
                         'factor EMAs)')
     p.add_argument('--model', default='resnet32', type=str,
-                   help='resnet20 or resnet32 (vit_tiny is not ported: '
-                        'ROADMAP.md Queue A item 26)')
+                   help='resnet20, resnet32 or vit_tiny (the 32x32 '
+                        'ViT)')
     p.add_argument('--batch-size', default=128, type=int,
                    help='per-rank batch size')
     p.add_argument('--val-batch-size', default=128, type=int)
@@ -106,11 +107,6 @@ def parse_args(argv: Sequence[str] | None = None) -> argparse.Namespace:
 
 def build_model(args, choices, device, **kw) -> torch.nn.Module:
     if args.model not in choices:
-        if args.model == 'vit_tiny':
-            raise NotImplementedError(
-                'vit_tiny is not ported to the PyTorch package yet '
-                '(ROADMAP.md Queue A item 26)',
-            )
         raise ValueError(f'--model must be one of {choices}, got '
                          f'{args.model!r}')
     return getattr(models, args.model)(

@@ -1,4 +1,6 @@
 """Per-layer-type K-FAC helpers."""
+from kfac_pytorch_tpu_torch.layers.coverage import DenseGeneralHelper
+from kfac_pytorch_tpu_torch.layers.coverage import DenseGeneralReduceHelper
 from kfac_pytorch_tpu_torch.layers.coverage import KfacExpandHelper
 from kfac_pytorch_tpu_torch.layers.coverage import KfacReduceHelper
 from kfac_pytorch_tpu_torch.layers.coverage import ScaleBiasHelper

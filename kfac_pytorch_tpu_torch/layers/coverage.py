@@ -1,11 +1,12 @@
 """Full-coverage transformer helpers: KFAC-expand / KFAC-reduce,
 LayerNorm scale+bias and tied embeddings.
 
-Port of ``kfac_pytorch_tpu/layers/coverage.py`` (arXiv:2311.00636)
-without its ``DenseGeneral`` helpers, which serve Flax's multi-head
-attention (ROADMAP.md Queue A item 12).  Square factors enter the
-bucket stacks like any dense layer's; the tied embedding's diagonal A
-takes the embedding side path.
+Port of ``kfac_pytorch_tpu/layers/coverage.py`` (arXiv:2311.00636).
+Square factors enter the bucket stacks like any dense layer's; the tied
+embedding's diagonal A takes the embedding side path.  The
+``DenseGeneral`` helpers serve the multi-head attention projections of
+:class:`~kfac_pytorch_tpu_torch.models.layers.MultiHeadDotProductAttention`,
+whose kernels keep Flax's multi-axis layout.
 
 A tied LM head computes ``x @ wte.weight^T`` with no module of its own
 in PyTorch, so the capture cannot hook it.  :class:`TiedAttend` is that
@@ -118,3 +119,75 @@ class TiedAttendHelper(EmbedHelper):
 
     def get_g_factor(self, x: torch.Tensor) -> torch.Tensor:
         return cov.attend_g_factor(x)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DenseGeneralHelper(DenseHelper):
+    """:class:`~kfac_pytorch_tpu_torch.models.layers.DenseGeneral` with
+    trailing contraction axes.
+
+    The projection type inside multi-head attention: q/k/v kernels are
+    ``[D, heads, head_dim]`` (out axes split per head), the out
+    projection ``[heads, head_dim, D]`` (in axes split).  Factor math is
+    the Dense expand math over the flattened in/out dims; only the
+    kernel (un)flattening differs: ``kernel_in_ndim``/``kernel_out_ndim``
+    record the split so ``get_grad``/``set_grad`` round-trip the kernel
+    exactly.
+    """
+
+    kernel_in_ndim: int = 1
+    kernel_out_ndim: int = 1
+
+    def _flatten_in(self, a: torch.Tensor) -> torch.Tensor:
+        """Collapse the trailing contraction axes to ``in_features``."""
+        return a.reshape(*a.shape[:a.dim() - self.kernel_in_ndim],
+                         self.in_features)
+
+    def _flatten_out(self, g: torch.Tensor) -> torch.Tensor:
+        """Collapse the trailing feature axes to ``out_features``."""
+        return g.reshape(*g.shape[:g.dim() - self.kernel_out_ndim],
+                         self.out_features)
+
+    def get_a_factor(self, a: torch.Tensor) -> torch.Tensor:
+        return super().get_a_factor(self._flatten_in(a))
+
+    def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
+        return super().get_g_factor(self._flatten_out(g))
+
+    def _weight_grad(self) -> torch.Tensor:
+        k = self.module.kernel.grad
+        if k is None:
+            raise RuntimeError(
+                f'layer {self.name!r} has no gradient: call backward() '
+                'before step()',
+            )
+        return k
+
+    def get_grad(self) -> torch.Tensor:
+        g = self._weight_grad().reshape(self.in_features,
+                                        self.out_features).T
+        if self.has_bias:
+            g = torch.cat([g, self.module.bias.grad.reshape(-1, 1)], dim=1)
+        return g
+
+    def set_grad(self, combined: torch.Tensor) -> None:
+        k = self.module.kernel
+        w = combined[:, :-1] if self.has_bias else combined
+        k.grad.copy_(w.T.reshape(k.shape))
+        if self.has_bias:
+            b = self.module.bias
+            b.grad.copy_(combined[:, -1].reshape(b.shape))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DenseGeneralReduceHelper(DenseGeneralHelper):
+    """KFAC-reduce variant of :class:`DenseGeneralHelper`."""
+
+    def get_a_factor(self, a: torch.Tensor) -> torch.Tensor:
+        return cov.cov_from_rows(*cov.linear_reduce_a_rows(
+            self._flatten_in(a), has_bias=self.has_bias,
+        ))
+
+    def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
+        return cov.cov_from_rows(
+            *cov.linear_reduce_g_rows(self._flatten_out(g)))

@@ -23,6 +23,7 @@ from torch import nn
 from kfac_pytorch_tpu_torch.models.layers import BatchNorm2d
 from kfac_pytorch_tpu_torch.models.layers import Conv2d
 from kfac_pytorch_tpu_torch.models.layers import Dense
+from kfac_pytorch_tpu_torch.models.layers import resolve_device
 
 
 class BasicBlock(nn.Module):
@@ -110,15 +111,8 @@ def _build(
     seed: int,
     dtype: torch.dtype = torch.float32,
 ) -> CifarResNet:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                'no CUDA device: pass device="cpu" to build the model '
-                'on the CPU',
-            )
-        device = 'cuda'
     model = CifarResNet(layers, num_classes=num_classes,
-                        dtype=dtype).to(device)
+                        dtype=dtype).to(resolve_device(device))
     gen = torch.Generator(device=model.conv1.weight.device)
     gen.manual_seed(seed)
     init_weights(model, gen)

@@ -12,10 +12,11 @@ so an f32 model and a bf16 one run the same code:
 
 * :class:`~kfac_pytorch_tpu_torch.models.layers.Dense` casts its input,
   weight and bias to ``compute_dtype``;
-* :class:`LayerNorm` normalizes in f32 with epsilon 1e-6 (Flax's, where
-  torch's default is 1e-5) and returns ``compute_dtype``;
-* :class:`Embed` looks up in the parameter dtype and returns
-  ``compute_dtype``;
+* :class:`~kfac_pytorch_tpu_torch.models.layers.LayerNorm` normalizes
+  in f32 with epsilon 1e-6 (Flax's, where torch's default is 1e-5) and
+  returns ``compute_dtype``;
+* :class:`~kfac_pytorch_tpu_torch.models.layers.Embed` looks up in the
+  parameter dtype and returns ``compute_dtype``;
 * attention takes its softmax in f32 (``scaled_dot_product_attention``
   on f32 operands, ``q`` scaled in its own dtype first);
 * GELU is the tanh approximation (Flax ``nn.gelu``'s default);
@@ -38,6 +39,10 @@ from torch import nn
 
 from kfac_pytorch_tpu_torch.layers.coverage import TiedAttend
 from kfac_pytorch_tpu_torch.models.layers import Dense
+from kfac_pytorch_tpu_torch.models.layers import Embed
+from kfac_pytorch_tpu_torch.models.layers import LayerNorm
+from kfac_pytorch_tpu_torch.models.layers import resolve_device
+from kfac_pytorch_tpu_torch.models.layers import split_heads_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,33 +92,6 @@ class GPTConfig:
         return self.d_model // self.n_heads
 
 
-class LayerNorm(nn.LayerNorm):
-    """``nn.LayerNorm`` with Flax's epsilon (1e-6), normalizing in f32
-    and returning ``compute_dtype``."""
-
-    def __init__(self, features: int, compute_dtype: torch.dtype) -> None:
-        super().__init__(features, eps=1e-6)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(
-            x.float(), self.normalized_shape, self.weight.float(),
-            self.bias.float(), self.eps,
-        ).to(self.compute_dtype)
-
-
-class Embed(nn.Embedding):
-    """``nn.Embedding`` returning ``compute_dtype``."""
-
-    def __init__(self, num_embeddings: int, features: int,
-                 compute_dtype: torch.dtype) -> None:
-        super().__init__(num_embeddings, features)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return super().forward(ids).to(self.compute_dtype)
-
-
 class Attention(nn.Module):
     """Causal multi-head self-attention: ``qkv`` projection, softmax
     attention in f32, ``proj``."""
@@ -129,16 +107,7 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         q, k, v = self.qkv(x).split(cfg.d_model, dim=-1)
-        B, T, _ = q.shape
-
-        def heads(t):
-            return t.reshape(B, T, cfg.n_heads, cfg.head_dim).transpose(1, 2)
-
-        out = F.scaled_dot_product_attention(
-            heads(q * cfg.head_dim ** -0.5).float(), heads(k).float(),
-            heads(v).float(), is_causal=True, scale=1.0,
-        )
-        out = out.to(q.dtype).transpose(1, 2).reshape(B, T, cfg.d_model)
+        out = split_heads_attention(q, k, v, cfg.n_heads, is_causal=True)
         return self.drop(self.proj(out))
 
 
@@ -220,14 +189,8 @@ def init_weights(model: GPT, generator: torch.Generator) -> None:
 
 
 def _build(config: GPTConfig, device: Any, seed: int) -> GPT:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                'no CUDA device: pass device="cpu" to build the model '
-                'on the CPU',
-            )
-        device = 'cuda'
-    model = GPT(config).to(device=device, dtype=config.param_dtype)
+    model = GPT(config).to(device=resolve_device(device),
+                           dtype=config.param_dtype)
     gen = torch.Generator(device=model.wpe.device)
     gen.manual_seed(seed)
     init_weights(model, gen)

@@ -18,7 +18,6 @@ logits come back in f32.  Parameters stay f32.
 """
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
@@ -28,10 +27,8 @@ from torch import nn
 from kfac_pytorch_tpu_torch.models.layers import BatchNorm2d
 from kfac_pytorch_tpu_torch.models.layers import Conv2d
 from kfac_pytorch_tpu_torch.models.layers import Dense
-
-#: Flax ``lecun_normal``: a normal truncated at two standard deviations,
-#: rescaled so the variance is ``1 / fan_in``.
-_TRUNC_STD = 0.87962566103423978
+from kfac_pytorch_tpu_torch.models.layers import lecun_normal_
+from kfac_pytorch_tpu_torch.models.layers import resolve_device
 
 
 class Bottleneck(nn.Module):
@@ -106,10 +103,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
+                lecun_normal_(m.weight, m.weight[0].numel(), generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
@@ -122,14 +116,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def _build(layers: Sequence[int], num_classes: int, device, seed: int,
            dtype: torch.dtype) -> ResNet:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                'no CUDA device: pass device="cpu" to build the model '
-                'on the CPU',
-            )
-        device = 'cuda'
-    model = ResNet(layers, num_classes=num_classes, dtype=dtype).to(device)
+    model = ResNet(layers, num_classes=num_classes,
+                   dtype=dtype).to(resolve_device(device))
     gen = torch.Generator(device=model.conv1.weight.device)
     gen.manual_seed(seed)
     init_weights(model, gen)

@@ -116,10 +116,15 @@ class KFACPreconditioner(BaseKFACPreconditioner):
             ``factor_dtype``).
         skip_layers: regexes of layer names / class names to skip.
         layer_types: kinds to register (default ``{'linear', 'conv2d'}``;
-            also ``'embedding'`` and ``'layernorm'``; ``'dense_general'``
-            raises, not ported).
+            also ``'embedding'``, ``'layernorm'`` and ``'dense_general'``,
+            the projections of
+            :class:`~kfac_pytorch_tpu_torch.models.layers.\
+MultiHeadDotProductAttention`; the ``nn.Linear`` inside
+            ``torch.nn.MultiheadAttention`` is rejected with a warning,
+            as its forward runs no module call).
         kfac_approx: ``'expand'``, ``'reduce'`` or a ``{regex: mode}``
-            mapping on linear layers' names and class names.
+            mapping on linear and ``dense_general`` layers' names and
+            class names.
         tied_weights: names of ``nn.Embedding`` modules shared with a
             :class:`~kfac_pytorch_tpu_torch.layers.TiedAttend` head
             (needs ``'embedding'``): one factor set for both calls.
@@ -133,6 +138,9 @@ class KFACPreconditioner(BaseKFACPreconditioner):
                                 'layernorm'),
             tied_weights=('wte',),
         )
+
+    ``precond.coverage_report()`` says which parameters the registration
+    covers.
     """
 
     def __init__(

@@ -196,9 +196,8 @@ def test_step_without_backward_raises():
     (dict(watchdog=object()), 'item 21'),
     (dict(observe=object()), 'item 23'),
     (dict(flight=object()), 'item 23'),
-    (dict(layer_types=('linear', 'dense_general')), 'item 12'),
-    (dict(layer_types=('linear', 'embedding', 'dense_general')),
-     'items 11-12'),
+    (dict(topology=object()), 'item 29'),
+    (dict(compile_budget=4), 'item 31'),
     (dict(use_pallas=True), 'Queue B item 1'),
 ])
 def test_unported_options_raise(kwargs, item):

@@ -321,11 +321,11 @@ CONFIG_ERRORS = {
         lambda: ModelCapture(gpt_tiny(device='cpu'),
                              kfac_approx={'nope': 'reduce'}),
         ValueError, 'matched no'),
-    'dense_general_not_ported': (
-        lambda: KFACPreconditioner(
-            gpt_tiny(device='cpu'),
-            layer_types=('linear', 'dense_general')),
-        NotImplementedError, 'item 12'),
+    'approx_pattern_matches_only_other_kinds': (
+        lambda: ModelCapture(gpt_tiny(device='cpu'), layer_types=FULL,
+                             tied_weights=('wte',),
+                             kfac_approx={'ln_1': 'reduce'}),
+        ValueError, 'linear/dense_general'),
     'unknown_kind': (
         lambda: ModelCapture(gpt_tiny(device='cpu'), layer_types=('rnn',)),
         ValueError, 'Unknown layer types'),

@@ -11,7 +11,8 @@ the JAX package's.
   16 (the synthetic set cut to 48 training and 16 test images) on
   ``--device cpu`` with ``resnet20``, with 1 and 2 micro-batches per
   step (a trailing partial group), and a second call resumes from the
-  newest checkpoint.
+  newest checkpoint; one epoch with ``--model vit_tiny``; an unported
+  model raises.
 * ``bench.measure`` at ``device='cpu'`` on a tiny configuration gives
   finite positive times, and the result line carries ``bench.py``'s
   keys.
@@ -269,9 +270,25 @@ def test_cifar_trainer_resumes_from_the_newest_checkpoint(
 
 def test_cifar_trainer_rejects_unported_models(tmp_path, small_cifar):
     args = _cifar(tmp_path)
-    args[args.index('--model') + 1] = 'vit_tiny'
-    with pytest.raises(NotImplementedError, match='item 26'):
+    args[args.index('--model') + 1] = 'resnet56'
+    with pytest.raises(ValueError, match='vit_tiny'):
         cifar10_resnet.main(args)
+
+
+def test_cifar_trainer_runs_vit_tiny(tmp_path, small_cifar, capsys):
+    """``--model vit_tiny``, the JAX trainer's choice: one synthetic
+    epoch with the default K-FAC registration (patchify, 8 Dense
+    layers, head)."""
+    args = _cifar(tmp_path)
+    args[args.index('--model') + 1] = 'vit_tiny'
+    cifar10_resnet.main(args)
+    out = capsys.readouterr().out
+    assert 'model=vit_tiny' in out
+    assert math.isfinite(float(out.split('train_loss=')[1].split()[0]))
+    payload = utils.load_checkpoint(str(tmp_path / 'log' / 'checkpoint_0'))
+    assert payload['kfac']['steps'] == 3
+    assert len(payload['kfac']['layers']) == 10
+    assert 'block_1.fc_out.weight' in payload['train_state']['model']
 
 
 def test_trainer_flags_and_defaults_match_jax(monkeypatch):

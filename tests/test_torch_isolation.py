@@ -50,7 +50,7 @@ def test_scan_finds_the_port():
     assert all(f.is_file() for f in files)
     port = ROOT / 'kfac_pytorch_tpu_torch'
     for module in ('layers/coverage.py', 'models/gpt.py', 'models/resnet.py',
-                   'models/layers.py',
+                   'models/layers.py', 'models/vit.py', 'models/bert.py',
                    'bench.py', 'utils/backend.py', 'utils/metrics.py',
                    'examples/utils.py', 'examples/cifar10_resnet.py',
                    'examples/imagenet_resnet.py',

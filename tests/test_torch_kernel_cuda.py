@@ -42,7 +42,10 @@ def _inputs(L, gp, ap, device, seed=0):
 #: not 16-byte multiples (the masked copy path), and one that takes the
 #: large-gp tiling (four launches); bf16 at two of them.  Then GPT-125M's
 #: five bucket stacks under full coverage (all large-gp), bf16 at two.
-#: Then ImageNet ResNet-50's 21 bucket stacks, bf16 at two.
+#: Then ImageNet ResNet-50's 21 bucket stacks, bf16 at two.  Then two
+#: of BERT-large's: ``qa_head`` (``a1152g32``, the two-launch narrow path
+#: at ``ap`` 1152) and ``fc_out`` (``a4224g1024``, at L=2), bf16 at the
+#: first.
 CASES = [
     (9, 64, 576, 'f32'), (1, 64, 320, 'f32'), (9, 32, 320, 'f32'),
     (11, 32, 192, 'f32'), (1, 32, 128, 'f32'), (1, 32, 32, 'f32'),
@@ -59,6 +62,7 @@ CASES = [
     (4, 512, 128, 'f32'), (1, 128, 256, 'f32'), (2, 64, 256, 'f32'),
     (4, 256, 64, 'f32'), (1, 64, 192, 'f32'), (1, 64, 64, 'f32'),
     (3, 512, 4608, 'bf16'), (4, 256, 64, 'bf16'),
+    (1, 32, 1152, 'f32'), (2, 1024, 4224, 'f32'), (1, 32, 1152, 'bf16'),
 ]
 
 
