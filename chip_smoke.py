@@ -71,9 +71,11 @@ fails:
    refresh every slot whose warm seed the gate took (a slot it sends
    back to a cold seed gets the warm depth only, as in the JAX package,
    and is printed);
-7. checkpoint and resume: eigen and inverse saved after step 10 (model,
-   SGD, ``precond.state_dict()`` dense and packed as upper triangles)
-   and resumed for steps 11-19 must end bitwise equal to the
+7. checkpoint and resume: eigen, inverse, low-rank eigen
+   (``lowrank_rank=64``: five of ResNet-32's six buckets truncate their
+   A side) and EKFAC (its scales in the checkpoint) saved after step 10
+   (model, SGD, ``precond.state_dict()`` dense and packed as upper
+   triangles) and resumed for steps 11-19 must end bitwise equal to the
    uninterrupted run (cuDNN held to its deterministic algorithms); the
    iterative restore must refresh at bootstrap depth and train on;
 8. the transformer path: GPT-125M at its published widths (vocab 50304,
@@ -128,7 +130,28 @@ fails:
     'linear', 'embedding', 'layernorm')``: 96 Dense layers, ``qa_head``
     and 49 LayerNorms in six buckets, ``wte`` on the diagonal side
     path), refreshes at 0 and 5, with phase 10's gates and lines (only
-    ``wpe`` uncovered).
+    ``wpe`` uncovered);
+12. randomized low-rank eigen on ResNet-50: phase 9's batch,
+    ``lowrank_rank=512`` (oversample 32, two power iterations), a factor
+    update every step, refreshes at 0, 5 and 10, 11 steps.  The
+    truncated sides must be the eleven buckets of ``RN50_LOWRANK_SIDES``
+    and the fused kernel must launch 10 times a step, at the ten exact
+    buckets (phase 2 holds it there too), matching its plain version at
+    step 10; at the step-10 refresh every truncated side's Ritz values
+    must lie below the float64 eigenvalues of the same factor, a rerun
+    from the same factors and sketch step must give the same bits, and
+    the truncated buckets' preconditioned gradients must agree with a
+    float64 CPU evaluation of the same code on the card's sketches
+    (``RN50_LOWRANK_F64_GATE``); phase 9's lines, the captured trace
+    fraction, and the refresh and ``memory_usage()`` beside phase 9's;
+13. EKFAC on ResNet-50 with ``AdaptiveRefresh(threshold=0.2,
+    min_interval=4)``: phase 9's batch, a factor update every step,
+    inv 100, 12 steps.  No fused-kernel launch (EKFAC keeps no
+    ``dgda``); ``skron == dg ⊗ da`` bitwise after every refresh; step
+    2's scale update against a float64 CPU recompute from the captured
+    rows and basis (``<= 1e-5``); at least one refresh the drift asked
+    for, off the cadence; the drift at every factor step, the stage
+    medians and the ``ekfac scales`` stage.
 
 A ``phases:`` line gives each phase's time.
 
@@ -440,7 +463,8 @@ def phase_kernels(torch, ops):
     """Kernel against plain on the card; returns the kernels-line entries
     of ResNet-32's path (times summed over its six bucket calls of one
     step), then GPT-125M's (its five bucket calls), ResNet-50's (its 21),
-    ViT-B/16's (six) and BERT-large's (six).  A call with ``gp <= 64``
+    ViT-B/16's (six), BERT-large's (six) and the low-rank ResNet-50's
+    (the ten exact buckets of phase 12).  A call with ``gp <= 64``
     may issue two CUDA kernels, a ``gp > 64`` call four."""
     kernel = ops.fused_eigen_precondition
     plain = ops.fused_eigen_precondition_reference
@@ -465,10 +489,12 @@ def phase_kernels(torch, ops):
           f'bound {step_bound_cuda_core(timed):.6f} ms', flush=True)
     del step_calls
     paths = [bucket_entry(torch, kernel, plain, label, cases, seed)
-             for label, cases, seed in (('GPT-125M', GPT_CASES, 400),
-                                        ('ResNet-50', RN50_CASES, 500),
-                                        ('ViT-B/16', VIT_CASES, 600),
-                                        ('BERT-large', BERT_CASES, 700))]
+             for label, cases, seed in (
+                 ('GPT-125M', GPT_CASES, 400),
+                 ('ResNet-50', RN50_CASES, 500),
+                 ('ViT-B/16', VIT_CASES, 600),
+                 ('BERT-large', BERT_CASES, 700),
+                 ('ResNet-50 low-rank exact', RN50_LOWRANK_CASES, 800))]
     return [entry] + paths
 
 
@@ -849,9 +875,10 @@ def resume_run(torch, kt, method_kw, start=0, stop=TRAIN_STEPS,
                ckpt=None, save_at=None):
     """ResNet-32 steps ``[start, stop)`` on the fixed batch from fresh
     objects, or from ``ckpt``; with ``save_at``, checkpoints (the model,
-    SGD and the preconditioner, dense and packed as upper triangles,
-    through ``torch.save``/``torch.load``) taken after that step.
-    Returns ``(parameters, losses, checkpoints, launches, buckets)``."""
+    SGD and the preconditioner, dense and packed as upper triangles, with
+    the EKFAC scales under ``ekfac``, through ``torch.save``/
+    ``torch.load``) taken after that step.  Returns ``(parameters,
+    losses, checkpoints, launches, buckets that launch the kernel)``."""
     import io
 
     import torch.nn.functional as F
@@ -881,7 +908,10 @@ def resume_run(torch, kt, method_kw, start=0, stop=TRAIN_STEPS,
                 buf = io.BytesIO()
                 torch.save({
                     'model': model.state_dict(), 'opt': opt.state_dict(),
-                    'kfac': precond.state_dict(compress_symmetric=triu),
+                    'kfac': precond.state_dict(
+                        compress_symmetric=triu,
+                        include_ekfac_scales=bool(method_kw.get('ekfac')),
+                    ),
                 }, buf)
                 buf.seek(0)
                 saved['triu' if triu else 'dense'] = torch.load(
@@ -889,7 +919,14 @@ def resume_run(torch, kt, method_kw, start=0, stop=TRAIN_STEPS,
                 )
     torch.cuda.synchronize()
     params = [p.detach().clone() for p in model.parameters()]
-    return params, losses, saved, kernel.launches, len(precond.plan.buckets)
+    return params, losses, saved, kernel.launches, kernel_buckets(precond)
+
+
+#: Phase 7's bitwise resumes: label -> ``KFACPreconditioner`` keywords.
+RESUME_RUNS = {
+    'eigen': {}, 'inverse': METHODS['inverse'],
+    'lowrank64': dict(lowrank_rank=64), 'ekfac': dict(ekfac=True),
+}
 
 
 def phase_resume(torch, kt):
@@ -897,12 +934,15 @@ def phase_resume(torch, kt):
     factor EMAs are the ones that refresh decomposed) and resume steps
     11-19 from it.  Eigen and inverse must end bitwise equal to the
     uninterrupted 20 steps (cuDNN held to its deterministic algorithms
-    for the phase); the iterative restore must refresh at bootstrap
+    for the phase), and so must low-rank eigen at ``lowrank_rank=64``
+    (five of the six buckets truncate their A side; the restore draws
+    the saved refresh step's sketches again) and EKFAC with its scales
+    in the checkpoint; the iterative restore must refresh at bootstrap
     depth and train on with a finite, falling loss."""
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        for label, kw in (('eigen', {}), ('inverse', METHODS['inverse'])):
+        for label, kw in RESUME_RUNS.items():
             full, _, saved, launches, n_buckets = resume_run(
                 torch, kt, kw, save_at=CHECK_STEP,
             )
@@ -917,8 +957,7 @@ def phase_resume(torch, kt):
                     fail(f'resume {label} {form}: parameters after step '
                          f'{TRAIN_STEPS - 1} differ from the uninterrupted '
                          f'run (max abs diff {diff:.3e})')
-                want = ((TRAIN_STEPS - CHECK_STEP - 1) * n_buckets
-                        if label == 'eigen' else 0)
+                want = (TRAIN_STEPS - CHECK_STEP - 1) * n_buckets
                 if resumed_launches != want:
                     fail(f'resume {label} {form}: {resumed_launches} kernel '
                          f'launches, expected {want}')
@@ -979,19 +1018,25 @@ def gpt_tokens(torch, vocab):
 
 
 def train_path(torch, kt, label, model, fwd_bwd, hp, steps, check_step=None,
-               momentum=0.0, **kfac_kw):
+               momentum=0.0, on_precond=None, keep_check=False, **kfac_kw):
     """``steps`` K-FAC steps of ``model`` on a fixed batch, as a user runs
     them: ``fwd_bwd()`` (the forward and backward passes, returning the
     detached loss), ``precond.step()``, ``opt.step()`` (SGD at
     ``hp['lr']``).  Stages are timed by CUDA events, the fused kernel's
     launches counted from 0 over exactly these steps and its calls timed
     by events around each.  Fails on a non-finite or unfallen loss, or
-    launches other than steps x buckets.  At ``check_step`` (a refresh
+    launches other than steps x the buckets that keep ``dgda`` (every
+    bucket on the default path; the exact ones under ``lowrank_rank``;
+    none under EKFAC).  At ``check_step`` (a refresh
     step) every layer's preconditioned gradient and the kl-clip scale are
     held against a rerun on the card from the same decompositions and raw
     gradients through the plain version (relative Frobenius error
-    ``< 1e-4``; ``run['check']``)."""
+    ``< 1e-4``; ``run['check']``; ``keep_check`` keeps the raw gradients
+    as ``run['raw']``).  ``on_precond(precond)`` runs before the stages
+    are wrapped."""
     precond = kt.KFACPreconditioner(model, **hp, **kfac_kw)
+    if on_precond is not None:
+        on_precond(precond)
     opt = torch.optim.SGD(model.parameters(), lr=hp['lr'], momentum=momentum)
     events: dict[str, list] = {
         'capture (fwd+bwd)': [], 'factors (cov+EMA)': [],
@@ -1055,15 +1100,16 @@ def train_path(torch, kt, label, model, fwd_bwd, hp, steps, check_step=None,
     if not losses[-1] < losses[0]:
         fail(f'{label}: loss did not fall: first {losses[0]}, last '
              f'{losses[-1]}')
-    n_buckets = len(precond.plan.buckets)
+    n_buckets = kernel_buckets(precond)
     if run['launches'] != steps * n_buckets:
         fail(f'{label}: kernel launched {run["launches"]} times in {steps} '
-             f'steps, expected {steps * n_buckets} ({n_buckets} buckets)')
+             f'steps, expected {steps * n_buckets} ({n_buckets} buckets '
+             'that keep dgda)')
     per_step = len(events['kernel']) // steps
     run['kernel_step_ms'] = [
         sum(s.elapsed_time(e) for s, e in events['kernel'][i:i + per_step])
         for i in range(0, len(events['kernel']), per_step)
-    ]
+    ] if per_step else [0.0]
     run['stage_ms'] = {
         name: (statistics.median([s.elapsed_time(e) for s, e in evs]),
                len(evs))
@@ -1101,8 +1147,17 @@ def train_path(torch, kt, label, model, fwd_bwd, hp, steps, check_step=None,
     run['check'] = dict(step=check_step, worst=worst, err=errs[worst],
                         scale=float(scale), scale_err=scale_err,
                         by_kind=by_kind)
-    del run['raw'], run['got'], want
+    del run['got'], want
+    if not keep_check:
+        del run['raw']
     return run
+
+
+def kernel_buckets(precond) -> int:
+    """The buckets whose every step launches the fused kernel: those that
+    keep ``dgda``."""
+    so = precond._second_order
+    return sum(so.bucket_prediv(b.key) for b in precond.plan.buckets)
 
 
 def report_path(label, run, steps, note=''):
@@ -1113,8 +1168,9 @@ def report_path(label, run, steps, note=''):
     keys = [f'{b.key}:{b.n_slots}' for b in precond.plan.buckets]
     print(f'{label}: losses first={losses[0]:.6f} last={losses[-1]:.6f} '
           f'all={[round(v, 5) for v in losses]}', flush=True)
-    line = (f'{label}: launches={run["launches"]} ({len(keys)} buckets x '
-            f'{steps} steps)')
+    line = (f'{label}: launches={run["launches"]} '
+            f'({kernel_buckets(precond)} of {len(keys)} buckets x {steps} '
+            'steps)')
     chk = run.get('check')
     if chk is not None:
         line += (f'; step {chk["step"]} vs plain rerun on the card, worst '
@@ -1134,7 +1190,7 @@ def report_path(label, run, steps, note=''):
           f'{ms["factors (cov+EMA)"]:.4f} ms over '
           f'{run["stage_ms"]["factors (cov+EMA)"][1]} factor steps, '
           f'precondition {ms["precondition"]:.4f} ms of which the kernel\'s '
-          f'{len(keys)} calls {kernel_ms:.4f} ms '
+          f'{kernel_buckets(precond)} calls {kernel_ms:.4f} ms '
           f'({kernel_ms / ms["precondition"]:.3f}); refresh: '
           + ', '.join(f'{t:.2f}' for t in run['refresh_ms']) + ' ms',
           flush=True)
@@ -1638,6 +1694,46 @@ RN50_ACCUM = 4  # micro-batches of RN50_BATCH // RN50_ACCUM rows
 RN50_ACCUM_STEPS = 11  # factor steps 0 and 10
 #: The bench line's shortened cycle.
 RN50_BENCH = dict(inv_steps=20, cycles=1)
+#: Phase 9's exact refresh times and ``memory_usage()`` in this run,
+#: printed beside phases 12 and 13.
+RN50_EXACT: dict = {}
+
+#: Phase 12: ResNet-50 at ``lowrank_rank=512`` with the JAX defaults
+#: (oversample 32, two power iterations), a factor update every step and
+#: refreshes at 0, 5 and ``RN50_LOWRANK_CHECK``.
+RN50_LOWRANK_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=5)
+RN50_LOWRANK_RANK = 512
+RN50_LOWRANK_STEPS = 11
+RN50_LOWRANK_CHECK = 10
+#: Which sides of ResNet-50's buckets truncate at rank 512 (``(A, G)``);
+#: the other ten buckets stay exact and keep the fused kernel.
+RN50_LOWRANK_SIDES = {
+    'a4608g512': (True, False), 'a2304g256': (True, False),
+    'a2048g512': (True, False), 'a1152g128': (True, False),
+    'a1024g512': (True, False), 'a1024g256': (True, False),
+    'a512g2048': (False, True), 'a512g1024': (False, True),
+    'a256g1024': (False, True), 'a2176g1024': (True, True),
+    'a1024g2048': (True, True),
+}
+#: The exact buckets' stacks ``(L, gp, ap)``, phase 2's kernel cases of
+#: the low-rank path.
+RN50_LOWRANK_CASES = [c for c in RN50_CASES
+                      if f'a{c[2]}g{c[1]}' not in RN50_LOWRANK_SIDES]
+#: The gate of the truncated buckets' preconditioned gradients against a
+#: float64 CPU evaluation of the same code on the same sketch (relative
+#: Frobenius error per layer).
+RN50_LOWRANK_F64_GATE = 1e-4
+
+#: Phase 13: ResNet-50 under EKFAC, a factor update every step, the
+#: cadence's refresh at 0 only (inv 100), and the drift controller with
+#: the stated threshold and least interval.
+RN50_EKFAC_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=100)
+RN50_EKFAC_STEPS = 12
+RN50_DRIFT = dict(threshold=0.2, min_interval=4)
+#: The factor step (no refresh) whose scale update is recomputed in
+#: float64 on the CPU, and the buckets whose first layer it checks.
+RN50_EKFAC_CHECK = 2
+RN50_EKFAC_CHECK_BUCKETS = ('a576g64', 'a4608g512', 'a2176g1024')
 
 
 def rn50_batch(torch):
@@ -1728,6 +1824,8 @@ def phase_resnet50(torch, kt):
         report_path(label, run, steps, '; factor steps included')
         if launches is None:
             launches = run['launches']
+            RN50_EXACT.update(refresh_ms=run['refresh_ms'],
+                              memory=precond.memory_usage())
         del run, precond
         torch.cuda.empty_cache()
 
@@ -1760,6 +1858,352 @@ def phase_resnet50(torch, kt):
         if not (d[f'{name}_sgd_ms'] > 0 and d[f'{name}_kfac_ms_amortized']
                 > 0 and math.isfinite(d[f'{name}_ratio'])):
             fail(f'bench {name}: {d}')
+    return launches
+
+
+def rn50_fwd_bwd(torch, model):
+    """Phase 9's fixed batch, cross entropy, backward; the detached loss."""
+    import torch.nn.functional as F
+
+    x, y = rn50_batch(torch)
+
+    def fwd_bwd():
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        return loss.detach()
+    return fwd_bwd
+
+
+def padded_factor(torch, factor, pad):
+    """A factor zero-padded to ``pad``, as a low-rank bucket stacks it."""
+    d = factor.shape[-1]
+    return torch.nn.functional.pad(factor, (0, pad - d, 0, pad - d))
+
+
+def lowrank_f64_reference(torch, kt, precond, layers, raw, step, damping):
+    """Per layer of a truncated bucket, its preconditioned gradient from a
+    float64 CPU evaluation of the port's own low-rank code on the same
+    factors, raw gradients and sketches: each sketch is drawn once, by
+    the card's generator, and moved (a CPU generator draws another
+    stream)."""
+    from kfac_pytorch_tpu_torch.ops import lowrank
+
+    so = precond._second_order
+    real = lowrank.draw_sketch
+    lowrank.draw_sketch = (
+        lambda seed, side, st, slot, n, m, device:
+        real(seed, side, st, slot, n, m, DEVICE).to(device))
+    out = {}
+    try:
+        for b in precond.plan.buckets:
+            sides = so.lowrank_sides(b.key)
+            if not any(sides):
+                continue
+            dims = so._slot_dims[b.key]
+            decomp = []
+            for side, (pad, lowrank_side) in enumerate(
+                    zip((b.a_pad, b.g_pad), sides)):
+                stack = torch.stack([
+                    padded_factor(torch, (layers[n].a_factor,
+                                          layers[n].g_factor)[side]
+                                  .cpu().double(), pad)
+                    if n else torch.zeros(pad, pad, dtype=torch.float64)
+                    for n in b.slots
+                ])
+                decomp.append(lowrank.decompose_stack(
+                    stack, lowrank_side, RN50_LOWRANK_RANK,
+                    oversample=so.lowrank_oversample,
+                    power_iters=so.lowrank_power_iters,
+                    seed=so._bucket_seed[b.key], side=side, step=step,
+                    slots=range(b.n_slots), effective_dims=dims[side],
+                ))
+            grads = torch.stack([
+                torch.nn.functional.pad(
+                    raw[n].cpu().double(),
+                    (0, b.a_pad - raw[n].shape[1],
+                     0, b.g_pad - raw[n].shape[0]))
+                if n else torch.zeros(b.g_pad, b.a_pad, dtype=torch.float64)
+                for n in b.slots
+            ])
+            pg = lowrank.precondition_grad_lowrank(
+                grads, decomp[0], decomp[1], damping,
+                lowrank_a=sides[0], lowrank_g=sides[1],
+            )
+            for i, n in enumerate(b.slots):
+                if n:
+                    go, ga = raw[n].shape
+                    out[n] = pg[i, :go, :ga]
+    finally:
+        lowrank.draw_sketch = real
+    return out
+
+
+def phase_resnet50_lowrank(torch, kt):
+    """Phase 12: ResNet-50 at ``lowrank_rank=512`` on phase 9's batch:
+    ``RN50_LOWRANK_STEPS`` steps, refreshes at 0, 5 and 10.  Gates: the
+    truncated sides are ``RN50_LOWRANK_SIDES``; the fused kernel runs
+    10 times a step (its exact buckets) and matches its plain version at
+    the step-10 refresh; every truncated side's Ritz values at step 10
+    lie below the exact eigenvalues of the same factor (``d_i <= lambda_i
+    (1 + 1e-3) + 1e-6 lambda_max``, a float64 ``eigvalsh`` on the card);
+    rerunning that refresh from the same factors and sketch step gives
+    the same bits; the truncated buckets' preconditioned gradients
+    against a float64 CPU evaluation on the same sketches (relative
+    ``< RN50_LOWRANK_F64_GATE``); a finite, falling loss.  Returns the
+    kernel launches."""
+    from kfac_pytorch_tpu_torch.state import LayerKFACState
+
+    snap = {}
+
+    def on_precond(precond):
+        refresh = precond._refresh
+
+        def keep(damping):
+            if precond.steps == RN50_LOWRANK_CHECK:
+                snap['layers'] = {
+                    n: LayerKFACState(a_factor=st.a_factor,
+                                      g_factor=st.g_factor)
+                    for n, st in precond.layers.items()}
+                snap['prev'] = precond.buckets
+                snap['damping'] = damping
+            out = refresh(damping)
+            if precond.steps == RN50_LOWRANK_CHECK:
+                snap['buckets'] = precond.buckets
+                snap['sketch_step'] = precond._last_inv_step
+            return out
+        precond._refresh = keep
+
+    model = kt.models.resnet50(device=DEVICE, seed=0)
+    label = (f'resnet50 lowrank {RN50_LOWRANK_RANK}: batch {RN50_BATCH} at '
+             f'{RN50_IMAGE}x{RN50_IMAGE}')
+    run = train_path(torch, kt, label, model, rn50_fwd_bwd(torch, model),
+                     RN50_LOWRANK_HP, RN50_LOWRANK_STEPS,
+                     check_step=RN50_LOWRANK_CHECK, momentum=0.9,
+                     on_precond=on_precond, keep_check=True,
+                     lowrank_rank=RN50_LOWRANK_RANK)
+    precond = run['precond']
+    so = precond._second_order
+    sides = {b.key: so.lowrank_sides(b.key) for b in precond.plan.buckets}
+    truncated = {k: v for k, v in sides.items() if any(v)}
+    exact = [(b.n_slots, b.g_pad, b.a_pad) for b in precond.plan.buckets
+             if not any(sides[b.key])]
+    if truncated != RN50_LOWRANK_SIDES or exact != RN50_LOWRANK_CASES:
+        fail(f'{label}: truncated sides {truncated}, exact buckets {exact}')
+    if snap.get('sketch_step') != RN50_LOWRANK_CHECK:
+        fail(f'{label}: the step-{RN50_LOWRANK_CHECK} refresh was not seen '
+             f'({snap.get("sketch_step")})')
+
+    # Rayleigh-Ritz: the Ritz values of a subspace lie below the matching
+    # exact eigenvalues; the captured share of each factor's trace.
+    worst, fracs = -math.inf, []
+    for b in precond.plan.buckets:
+        for side, lowrank_side in enumerate(sides[b.key]):
+            if not lowrank_side:
+                continue
+            pad = (b.a_pad, b.g_pad)[side]
+            bs = snap['buckets'][b.key]
+            d_all = (bs.da, bs.dg)[side]
+            for i, name in enumerate(b.slots):
+                if name is None:
+                    continue
+                st = snap['layers'][name]
+                f = padded_factor(torch, (st.a_factor, st.g_factor)[side]
+                                  .double(), pad)
+                lam = torch.linalg.eigvalsh(f).flip(0)[:d_all.shape[-1]]
+                d = d_all[i].double().sort(descending=True).values
+                over = d - lam * (1 + 1e-3) - 1e-6 * lam[0]
+                worst = max(worst, float((over / lam[0]).max()))
+                if bool((over > 0).any()):
+                    fail(f'{label}: {b.key} slot {i} side {"AG"[side]}: a '
+                         f'Ritz value above its eigenvalue by '
+                         f'{float(over.max()):.3e} (lambda_max '
+                         f'{float(lam[0]):.3e})')
+                fracs.append(float(d.sum() / torch.diagonal(f).sum()))
+    again = so.compute(snap['layers'], snap['damping'], prev=snap['prev'],
+                       sketch_step=snap['sketch_step'])
+    for key in truncated:
+        for field, t in again[key].tensors().items():
+            if not torch.equal(t, snap['buckets'][key].tensors()[field]):
+                fail(f'{label}: rerunning the step-{RN50_LOWRANK_CHECK} '
+                     f'refresh changed {key}.{field}')
+
+    # The card's preconditioned gradients of the truncated buckets (no
+    # kl-clip) against the float64 CPU evaluation.
+    got, _ = precond.precondition_combined(
+        run['raw'], snap['damping'], None, RN50_LOWRANK_HP['lr'])
+    want = lowrank_f64_reference(torch, kt, precond, snap['layers'],
+                                 run['raw'], snap['sketch_step'],
+                                 snap['damping'])
+    errs = {n: rel_frob(got[n].double().cpu(), w) for n, w in want.items()}
+    f64_worst = max(errs, key=errs.get)
+    if not errs[f64_worst] < RN50_LOWRANK_F64_GATE:
+        fail(f'{label}: truncated buckets vs float64 CPU: {f64_worst} rel '
+             f'err {errs[f64_worst]:.3e} (gate {RN50_LOWRANK_F64_GATE})')
+    n_truncated = sum(len(b.slots) for b in precond.plan.buckets
+                      if any(sides[b.key]))
+    print(f'{label}: {len(precond.layers)} layers in '
+          f'{len(precond.plan.buckets)} buckets, truncated '
+          f'{sorted(truncated)} ({n_truncated} slots), exact {len(exact)} '
+          f'buckets {exact}', flush=True)
+    report_path(label, run, RN50_LOWRANK_STEPS,
+                '; factor steps and refreshes 0, 5, 10 included')
+    print(f'{label}: step {RN50_LOWRANK_CHECK} refresh: Ritz values below '
+          f'the exact float64 eigenvalues on every truncated side (largest '
+          f'(d - lambda (1 + 1e-3) - 1e-6 lambda_max) / lambda_max '
+          f'{worst:.3e}); captured trace fraction sum(d) / tr over '
+          f'{len(fracs)} slot sides min {min(fracs):.6f} median '
+          f'{statistics.median(fracs):.6f} max {max(fracs):.6f}; rerun from '
+          f'the same factors and sketch step bitwise equal; truncated '
+          f'buckets vs float64 CPU on the card\'s sketches: worst layer '
+          f'{f64_worst} rel err {errs[f64_worst]:.3e} over {len(errs)} '
+          'layers', flush=True)
+    exact_ms = RN50_EXACT.get('refresh_ms')
+    print(f'{label}: refreshes {[round(t, 2) for t in run["refresh_ms"]]} '
+          f'ms against phase 9\'s exact refresh '
+          f'{[round(t, 2) for t in exact_ms] if exact_ms else "not run"} ms; '
+          f'memory_usage {precond.memory_usage()} against phase 9\'s '
+          f'{RN50_EXACT.get("memory", "not run")}', flush=True)
+    launches = run['launches']
+    del run, precond, model, snap, again, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_resnet50_ekfac(torch, kt):
+    """Phase 13: ResNet-50 under EKFAC with an ``AdaptiveRefresh`` of
+    ``RN50_DRIFT`` on phase 9's batch, ``RN50_EKFAC_STEPS`` steps.  Gates:
+    no fused-kernel launch; right after every refresh ``skron == dg ⊗
+    da`` bitwise; the scale update of step ``RN50_EKFAC_CHECK`` against a
+    float64 CPU recompute from the same captured rows and basis
+    (relative ``<= 1e-5``, the first layer of each of
+    ``RN50_EKFAC_CHECK_BUCKETS``); at least one refresh triggered by the
+    drift, off the cadence; a finite, falling loss.  Prints the drift
+    at every factor step and the stage medians with the scales' own."""
+    ar = kt.AdaptiveRefresh(**RN50_DRIFT)
+    seen = dict(refreshes=[], reseed=[], drift=[], check={}, scale_ev=[])
+    names = {}
+
+    def timed_scales(fn):
+        def run(*a, **k):
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            out = fn(*a, **k)
+            e_ev.record()
+            seen['scale_ev'].append((seen['step'], s_ev, e_ev))
+            return out
+        return run
+
+    def on_precond(precond):
+        so = precond._second_order
+        for key in RN50_EKFAC_CHECK_BUCKETS:
+            b = next(b for b in precond.plan.buckets if b.key == key)
+            names[b.slots[0]] = key
+        seen['step'] = 0
+        refresh, fold = precond._refresh, precond._ekfac_fold
+        update = so.ekfac_update
+
+        def on_refresh(damping):
+            out = refresh(damping)
+            seen['refreshes'].append(precond.steps)
+            seen['reseed'].append(all(
+                torch.equal(bs.skron, bs.dg.float()[:, :, None]
+                            * bs.da.float()[:, None, :])
+                for bs in precond.buckets.values()))
+            return out
+
+        def on_fold(name, roles, scale):
+            seen['step'] = precond.steps
+            if precond.steps == RN50_EKFAC_CHECK and name in names:
+                key, slot = so.local_slot(name)
+                bs = precond.buckets[key]
+                seen['check'][name] = dict(
+                    roles=[(h, [a.double().cpu() for a in acts],
+                            [g.double().cpu() for g in grads])
+                           for h, acts, grads in roles],
+                    scale=scale, qa=bs.qa[slot].double().cpu(),
+                    qg=bs.qg[slot].double().cpu(),
+                    old=bs.skron[slot].double().cpu(), slot=slot, key=key)
+            return fold(name, roles, scale)
+
+        def on_update(buckets, contribs, decay):
+            out = update(buckets, contribs, decay)
+            if precond.steps == RN50_EKFAC_CHECK:
+                for name, rec in seen['check'].items():
+                    rec['new'] = buckets[rec['key']].skron[rec['slot']] \
+                        .double().cpu()
+                    rec['decay'] = decay
+            return out
+
+        def on_drift(divergence, step):
+            seen['drift'].append((step, divergence))
+            return real_update(divergence, step)
+
+        real_update = ar.update
+        ar.update = on_drift
+        precond._refresh = on_refresh
+        precond._ekfac_fold = on_fold
+        so.ekfac_contrib = timed_scales(so.ekfac_contrib)
+        so.ekfac_update = timed_scales(on_update)
+        so.ekfac_divergence = timed_scales(so.ekfac_divergence)
+
+    model = kt.models.resnet50(device=DEVICE, seed=0)
+    label = (f'resnet50 ekfac: batch {RN50_BATCH} at {RN50_IMAGE}x'
+             f'{RN50_IMAGE}')
+    run = train_path(torch, kt, label, model, rn50_fwd_bwd(torch, model),
+                     RN50_EKFAC_HP, RN50_EKFAC_STEPS, momentum=0.9,
+                     on_precond=on_precond, ekfac=True, adaptive_refresh=ar)
+    precond = run['precond']
+    if not (seen['reseed'] and all(seen['reseed'])):
+        fail(f'{label}: skron after the refreshes at {seen["refreshes"]} '
+             f'equal to dg x da bitwise: {seen["reseed"]}')
+    inv = RN50_EKFAC_HP['inv_update_steps']
+    off = [s for s in seen['refreshes'] if s % inv]
+    if not (off and ar.triggers >= 1 and seen['refreshes'][0] == 0):
+        fail(f'{label}: refreshes at {seen["refreshes"]}, {ar.triggers} '
+             'drift trigger(s): none off the cadence')
+    errs = {}
+    for name, rec in seen['check'].items():
+        calls = []
+        for helper, acts, grads in rec['roles']:
+            for a, g in zip(acts, grads):
+                a_rows, an = helper.get_a_rows(a)
+                g_rows, gn = helper.get_g_rows(g)
+                calls.append(kt.ops.ekfac_scale_contrib(
+                    a_rows, g_rows, rec['qa'][:a_rows.shape[1]],
+                    rec['qg'][:g_rows.shape[1]], an, gn) * rec['scale'])
+        contrib = torch.stack(calls).mean(0)
+        want = rec['decay'] * rec['old'] + (1 - rec['decay']) * contrib
+        errs[name] = rel_frob(rec['new'], want)
+    if set(errs) != set(names) or not max(errs.values()) <= 1e-5:
+        fail(f'{label}: step {RN50_EKFAC_CHECK} scale update vs float64 CPU '
+             f'recompute: {errs} (layers {sorted(names)})')
+    by_step: dict[int, float] = {}
+    for step, s_ev, e_ev in seen['scale_ev']:
+        by_step[step] = by_step.get(step, 0.0) + s_ev.elapsed_time(e_ev)
+    report_path(label, run, RN50_EKFAC_STEPS,
+                '; factor steps and refreshes included')
+    print(f'{label}: drift controller threshold {RN50_DRIFT["threshold"]} '
+          f'min_interval {RN50_DRIFT["min_interval"]}: divergence at every '
+          f'factor step '
+          + ', '.join(f'{s}: {d:.6f}' for s, d in seen['drift'])
+          + f'; refreshes at steps {seen["refreshes"]} ({len(off)} off the '
+          f'cadence of inv {inv}, from {ar.triggers} drift request(s), a '
+          'request at the last step running at the next); skron == dg x da '
+          f'bitwise after each; fused-kernel launches {run["launches"]}',
+          flush=True)
+    print(f'{label}: step {RN50_EKFAC_CHECK} scale EMA vs float64 CPU '
+          'recompute from the captured rows and basis: '
+          + ', '.join(f'{n} ({names[n]}) {e:.3e}' for n, e in errs.items())
+          + '; stage ekfac scales (projections, EMA, drift) median '
+          f'{statistics.median(by_step.values()):.4f} ms a factor step over '
+          f'{len(by_step)} steps (CUDA events; inside the factors stage); '
+          f'refreshes {[round(t, 2) for t in run["refresh_ms"]]} ms; '
+          f'memory_usage {precond.memory_usage()} against phase 9\'s '
+          f'{RN50_EXACT.get("memory", "not run")}', flush=True)
+    launches = run['launches']
+    del run, precond, model, seen
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1970,8 +2414,8 @@ def main() -> int:
         print(card, flush=True)
         print(json.dumps(device_record(torch)), flush=True)
         return 0
-    entry, gpt, rn50, vit, bert = phase('1-2 kernels', phase_kernels,
-                                        torch, kt.ops)
+    entry, gpt, rn50, vit, bert, rn50_lr = phase(
+        '1-2 kernels', phase_kernels, torch, kt.ops)
     entry['launches'] = phase('3 train', phase_train, torch, kt)
     sharded = phase('4 sharded', phase_sharded_kernel, torch, kt)
     sharded['launches'], sharded['gather_ms'] = phase(
@@ -1983,12 +2427,18 @@ def main() -> int:
     rn50['launches'] = phase('9 resnet50', phase_resnet50, torch, kt)
     vit['launches'] = phase('10 vit', phase_vit, torch, kt)
     bert['launches'] = phase('11 bert', phase_bert, torch, kt)
+    rn50_lr['launches'] = phase('12 resnet50 lowrank',
+                                phase_resnet50_lowrank, torch, kt)
+    ekfac_launches = phase('13 resnet50 ekfac', phase_resnet50_ekfac,
+                           torch, kt)
+    print(f'resnet50 ekfac: the fused kernel launched {ekfac_launches} '
+          'times (EKFAC keeps no dgda)', flush=True)
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
           flush=True)
     print(card, flush=True)
-    print(json.dumps({'kernels': [entry, sharded, gpt, rn50, vit, bert]}),
-          flush=True)
+    print(json.dumps({'kernels': [entry, sharded, gpt, rn50, vit, bert,
+                                  rn50_lr]}), flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0
 

@@ -12,7 +12,9 @@ three methods — eigen (the fused eigen-preconditioning chain runs as a
 hand-written CUDA kernel on CUDA tensors, ``csrc/fused_eigen_precond.cu``,
 and as its plain PyTorch version on CPU tensors; without the predivided
 eigenvalues, a matmul chain), inverse (damped Cholesky) and iterative
-(warm-started Newton–Schulz).  ``accumulation_steps`` accumulates
+(warm-started Newton–Schulz); eigen also runs randomized low-rank
+(``lowrank_rank``) and EKFAC (``ekfac``, with a drift-triggered refresh,
+:class:`AdaptiveRefresh`).  ``accumulation_steps`` accumulates
 micro-batches between steps; ``state_dict``/``load_state_dict``
 checkpoint and resume, and :class:`LambdaParamScheduler` schedules the
 hyperparameters.  The models are the CIFAR ResNets, the ImageNet
@@ -22,6 +24,7 @@ lists what is not ported yet.
 """
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch import ops
+from kfac_pytorch_tpu_torch.adaptive import AdaptiveRefresh
 from kfac_pytorch_tpu_torch.enums import AssignmentStrategy
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.enums import DistributedStrategy

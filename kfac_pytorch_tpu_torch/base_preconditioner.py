@@ -40,6 +40,16 @@ each sum by its count, runs the factor all-reduce once on the averages
 and leaves a layer with count 0 untouched (``engine.py:2374-2400``).
 The output gradients the hooks see are those of the loss divided by N,
 so the G side is scaled by N as well as by ``1 / world``.
+
+EKFAC (``ekfac=True``) builds each call's A and G rows once, derives the
+factors from them (``ops.cov_from_rows``, the same algebra) and projects
+the rows in the current eigenbasis into the layer's ``[g_pad, a_pad]``
+scale contribution, which is quadratic in the G rows and takes the G
+side's scale; under accumulation each micro-batch is projected at its
+fold, as ``_ekfac_accum_contribs`` (``base_preconditioner.py:1950``)
+does.  The contributions ride the factor all-reduce, and the scale EMA
+runs after the factor EMA and before the step's refresh, which reseeds
+the scales (``_apply_ema``, ``base_preconditioner.py:1544``).
 """
 from __future__ import annotations
 
@@ -99,10 +109,25 @@ BucketSecond`).
         compute_method: ComputeMethod = ComputeMethod.EIGEN,
         prediv_eigenvalues: bool = True,
         iterative_config: ops.IterativeConfig | None = None,
+        lowrank_rank: int | None = None,
+        lowrank_oversample: int = 32,
+        lowrank_power_iters: int = 2,
+        ekfac: bool = False,
+        adaptive_refresh: Any = None,
         loglevel: int = logging.DEBUG,
     ) -> None:
         if accumulation_steps < 1:
             raise ValueError('accumulation_steps must be >= 1')
+        if ekfac:
+            for name, helper in capture.helpers.items():
+                if not helper.supports_ekfac:
+                    raise ValueError(
+                        f'ekfac: layer {name!r} ({type(helper).__name__}) '
+                        'has no EKFAC row statistics (supported: linear, '
+                        'conv2d)',
+                    )
+        self.ekfac = bool(ekfac)
+        self.lowrank_rank = lowrank_rank
         self._capture = capture
         self.accumulation_steps = int(accumulation_steps)
         self._accum: dict[str, AccumState] = {}
@@ -164,6 +189,13 @@ BucketSecond`).
             prediv_eigenvalues=prediv_eigenvalues,
             iterative_config=iterative_config, inv_dtype=inv_dtype,
             precond_dtype=precond_dtype, device=self.device, grid=self.grid,
+            slot_dims={
+                n: (h.a_factor_shape[0], h.g_factor_shape[0])
+                for n, h in self.helpers.items()
+            },
+            lowrank_rank=lowrank_rank,
+            lowrank_oversample=lowrank_oversample,
+            lowrank_power_iters=lowrank_power_iters, ekfac=ekfac,
         )
         self.iterative_config = self._second_order.iterative
         self.buckets = self._second_order.init_buckets()
@@ -175,6 +207,7 @@ BucketSecond`).
             factor_decay=factor_decay,
             kl_clip=kl_clip,
             lr=lr,
+            adaptive_refresh=adaptive_refresh,
         )
 
     def __repr__(self) -> str:
@@ -212,13 +245,18 @@ BucketSecond`).
         in ``factor_dtype``.  The output-gradient side is scaled by
         ``(accumulation_steps / world)^2``: every factor is quadratic in
         the output gradients, so this equals scaling the gradients by
-        ``accumulation_steps / world`` without copying them.
+        ``accumulation_steps / world`` without copying them.  Under
+        EKFAC the layer's scale contribution is folded too
+        (:meth:`_ekfac_fold`).
         """
         device_type = self.device.type
         with torch.autocast(device_type, enabled=False):
             captured = self._capture.take()
             scale = (self.accumulation_steps / self.grid.world) ** 2
             for name in self.helpers:
+                if self.ekfac:
+                    self._ekfac_fold(name, captured[name], scale)
+                    continue
                 a_list, g_list, n_rows = [], [], 0
                 for helper, acts, grads in captured[name]:
                     a_src, g_src = ((grads, acts) if helper.swap_capture
@@ -246,6 +284,34 @@ BucketSecond`).
                     torch.stack(g_list).mean(0), n_rows,
                 )
 
+    def _ekfac_fold(self, name: str, roles, scale: float) -> None:
+        """:meth:`_fold_captures` of one EKFAC layer: each call's rows
+        once, the factors from them, and the scale contribution in the
+        slot's current basis (``BucketedSecondOrder.ekfac_contrib``),
+        the G factor and the scales times ``scale``."""
+        a_list, g_list, calls, n_rows = [], [], [], 0
+        for helper, acts, grads in roles:
+            for a, g in zip(acts, grads):
+                a_rows, a_norm = helper.get_a_rows(self._cov_input(a, helper))
+                g_rows, g_norm = helper.get_g_rows(g.to(self.cov_dtype))
+                a_list.append(ops.cov_from_rows(a_rows, a_norm)
+                              .to(self.factor_dtype))
+                g_list.append(ops.cov_from_rows(g_rows, g_norm)
+                              .to(self.factor_dtype))
+                calls.append((a_rows, g_rows, a_norm, g_norm))
+                n_rows += a.shape[0]
+        key, slot = self._second_order.local_slot(name)
+        contrib = self._second_order.ekfac_contrib(
+            self.buckets[key], slot, calls,
+        )
+        g_new = torch.stack(g_list).mean(0)
+        if scale != 1:
+            g_new = g_new * scale
+            contrib = contrib * scale
+        self._accum.setdefault(name, AccumState()).add(
+            torch.stack(a_list).mean(0), g_new, n_rows, contrib,
+        )
+
     @torch.no_grad()
     def _update_factors(self, first_update: bool) -> None:
         """Fold the step's statistics into the factor EMAs: the last
@@ -254,14 +320,16 @@ BucketSecond`).
         world (one fused all-reduce, once per step), and every rank
         checks that the local batches, counted over every micro-batch,
         were equal.  A layer with no micro-batch (count 0, e.g. after
-        :meth:`reset_batch`) keeps its EMA.
+        :meth:`reset_batch`) keeps its EMA.  Under EKFAC the layers'
+        mean scale contributions ride the same all-reduce, and the scale
+        EMA follows the factor EMA (a count of 0 keeps the scales).
         """
         if self.accumulation_steps == 1 or self._capture.pending():
             self._fold_captures()
         accum, self._accum = self._accum, {}
         decay = self.factor_decay
         world = self.grid.world
-        new_a, new_g, rows, counts = [], [], [], []
+        new_a, new_g, new_s, rows, counts = [], [], [], [], []
         for name in self.helpers:
             st = self.layers[name]
             acc = accum.get(name, AccumState())
@@ -269,6 +337,11 @@ BucketSecond`).
             new_g.append(self._mean(acc.g_batch, acc.g_count, st.g_factor))
             rows.append(acc.rows)
             counts.append((acc.a_count, acc.g_count))
+            if self.ekfac:
+                key, _ = self.plan.slot_of[name]
+                like = self.buckets[key].skron[0]
+                new_s.append(self._mean(acc.s_batch, acc.s_count, like))
+                counts[-1] += (acc.s_count,)
         if world > 1:
             # The row counts and their squares ride in the all-reduce
             # (f64: exact sums), so every rank reaches the same verdict:
@@ -281,7 +354,7 @@ BucketSecond`).
                 device=self.device,
             )
             *factors, stats = collectives.all_reduce_mean(
-                new_a + new_g + [stats],
+                new_a + new_g + new_s + [stats],
             )
             sums = [round(v * world) for v in stats.tolist()]
             n = len(rows)
@@ -292,9 +365,12 @@ BucketSecond`).
                     f'{rows}, sum over ranks: {sums[:n]}); K-FAC across '
                     'ranks needs equal local batches',
                 )
-            new_a, new_g = factors[:len(new_a)], factors[len(new_a):]
-            counts = list(zip(sums[2 * n::2], sums[2 * n + 1::2]))
-        for name, a_new, g_new, (a_count, g_count) in zip(
+            k = len(counts[0])
+            new_a, new_g, new_s = (factors[:n], factors[n:2 * n],
+                                   factors[2 * n:])
+            counts = [tuple(sums[2 * n + i * k:2 * n + (i + 1) * k])
+                      for i in range(n)]
+        for name, a_new, g_new, (a_count, g_count, *_) in zip(
             self.helpers, new_a, new_g, counts,
         ):
             st = self.layers[name]
@@ -306,6 +382,11 @@ BucketSecond`).
                 st.g_factor = ops.ema_update_factor(
                     st.g_factor, g_new, decay, first_update,
                 )
+        if self.ekfac:
+            self._second_order.ekfac_update(self.buckets, {
+                name: s_new for name, s_new, c in zip(
+                    self.helpers, new_s, counts) if c[2] > 0
+            }, decay)
 
     @staticmethod
     def _mean(total, count: int, like: torch.Tensor) -> torch.Tensor:
@@ -333,12 +414,14 @@ BucketSecond`).
     def _refresh(self, damping: float) -> None:
         """Recompute the second-order state: the diagonal-A layers' own,
         then the buckets'; the iterative method warm-starts from the
-        current roots."""
+        current roots, and low-rank buckets draw their sketches for the
+        inverse-update step ``_last_inv_step``."""
         for name in self.diag_layers:
             self._refresh_diag(self.layers[name], damping)
         self.buckets = self._second_order.compute(
             self.layers, damping, prev=self.buckets,
             bootstrap=self._refresh_needs_bootstrap(),
+            sketch_step=self._last_inv_step,
         )
 
     def _refresh_diag(self, st: LayerKFACState, damping: float) -> None:
@@ -426,6 +509,28 @@ BucketSecond`).
 
     def _checkpoint_layer_states(self) -> dict[str, LayerKFACState]:
         return self.layers
+
+    def _ekfac_divergence(self) -> torch.Tensor | None:
+        """The scale grids' drift from their refresh seed (a device
+        scalar), ``None`` without EKFAC."""
+        if not self.ekfac:
+            return None
+        return self._second_order.ekfac_divergence(self.buckets)
+
+    def _ekfac_scales(self) -> dict[str, torch.Tensor] | None:
+        """The scale grids by bucket key, ``None`` without EKFAC."""
+        if not self.ekfac:
+            return None
+        return {k: bs.skron for k, bs in self.buckets.items()
+                if bs.skron is not None} or None
+
+    def _with_ekfac_scales(self, scales) -> None:
+        """Install saved scale grids (checked by the engine) on
+        ``self.device``."""
+        for key, skron in scales.items():
+            self.buckets[key].skron = torch.as_tensor(skron).to(
+                device=self.device, dtype=torch.float32,
+            )
 
     @torch.no_grad()
     def _restore_factors(self, layers) -> None:

@@ -10,7 +10,12 @@ the same optimizer, and reports the step times and their ratio:
   0.1 (``bench.py:1803-1830``, the ImageNet trainer's cadence);
 * ``resnet32_cifar``: CIFAR ResNet-32 at batch 128, factor 1, inv 10;
 * ``gpt125m``: GPT-125M at 4 x 2048 tokens with full coverage, factor 1,
-  inv 10, lr 0.3, as ``chip_smoke.py`` phase 8 trains it.
+  inv 10, lr 0.3, as ``chip_smoke.py`` phase 8 trains it;
+* ``resnet50_lowrank512`` and ``resnet50_ekfac``: the headline
+  configuration with ``lowrank_rank=512`` or ``ekfac=True``
+  (``bench.py:1849-1894``, ``secondary_rn50_lowrank512`` and
+  ``secondary_rn50_ekfac``).  They run only when named (``--configs``),
+  so the default line keeps its keys.
 
 The K-FAC time is amortized as ``time_kfac_cycles`` does it
 (``bench.py:97-116``): after a warm-up, the run is aligned to an
@@ -28,10 +33,12 @@ Numbers are not rounded.
 On the card::
 
     python -m kfac_pytorch_tpu_torch.bench
+    python -m kfac_pytorch_tpu_torch.bench --configs resnet50 \
+        resnet50_lowrank512 resnet50_ekfac
 
 It raises without a card unless ``--device cpu`` is given.  The
-JAX bench's micro-MLP, stagger, low-rank and EKFAC stages and its MFU
-are not carried over (``ROADMAP.md`` Queue A items 10, 15 and 16).
+JAX bench's micro-MLP, stagger and drift-adaptive stagger stages and its
+MFU are not carried over (``ROADMAP.md`` Queue A items 15 and 16).
 """
 from __future__ import annotations
 
@@ -76,6 +83,14 @@ CONFIGS: dict[str, dict[str, Any]] = {
         note='factor=1 inv=10, full coverage (chip_smoke.py phase 8)',
     ),
 }
+for _name, _kw in (('resnet50_lowrank512', dict(lowrank_rank=512)),
+                   ('resnet50_ekfac', dict(ekfac=True))):
+    CONFIGS[_name] = dict(
+        CONFIGS['resnet50'], cycles=1, kfac_kw=_kw,
+        note=f'factor=10 inv=100, {_kw} (the JAX secondary stage)',
+    )
+#: The configurations a run without ``--configs`` measures.
+DEFAULT_CONFIGS = ('resnet50', 'resnet32_cifar', 'gpt125m')
 
 
 def _sync(device: torch.device) -> None:
@@ -240,6 +255,9 @@ def main(argv: Sequence[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--device', default=None,
                    help="'cuda' (default; raises without a card) or 'cpu'")
+    p.add_argument('--configs', nargs='+', default=list(DEFAULT_CONFIGS),
+                   choices=list(CONFIGS),
+                   help='configurations to measure, in order')
     args = p.parse_args(argv)
     if args.device in (None, 'cuda') and not torch.cuda.is_available():
         raise RuntimeError(
@@ -247,7 +265,7 @@ def main(argv: Sequence[str] | None = None) -> int:
             'cpu to run it on the CPU',
         )
     device = args.device or 'cuda'
-    line = run(list(CONFIGS), device)
+    line = run(args.configs, device)
     print(json.dumps(line), flush=True)
     return 0
 

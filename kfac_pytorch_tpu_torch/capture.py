@@ -451,13 +451,21 @@ class ModelCapture:
         return hook
 
     def _make_fwd_hook(self, store: str, name: str):
-        def grad_hook(grad):
-            getattr(self, store).setdefault(name, []).append(grad.detach())
-            self._grads_arrived = True
-
+        """Registers a gradient hook on the output that files the
+        call's output gradient at the call's own index, so the i-th
+        gradient pairs with the i-th activation whatever order backward
+        delivers them in (EKFAC pairs rows across the two)."""
         def hook(module, inputs, output):
-            if self._recording(module) and output.requires_grad:
-                output.register_hook(grad_hook)
+            if not (self._recording(module) and output.requires_grad):
+                return
+            grads = getattr(self, store).setdefault(name, [])
+            index = len(grads)
+            grads.append(None)
+
+            def grad_hook(grad):
+                grads[index] = grad.detach()
+                self._grads_arrived = True
+            output.register_hook(grad_hook)
         return hook
 
     def take(self) -> dict[str, list[Role]]:
@@ -478,7 +486,7 @@ class ModelCapture:
             out[name] = []
             for h, acts_by, grads_by, called in roles:
                 acts = acts_by.get(name, [])
-                grads = grads_by.get(name, [])
+                grads = [g for g in grads_by.get(name, []) if g is not None]
                 if not acts or len(acts) != len(grads):
                     self.clear()
                     raise RuntimeError(

@@ -14,7 +14,11 @@ order of ``engine.py:1463-1556``:
    kl-clip scale, written back into the layers' ``.grad``.
 
 The call sequence is PyTorch's: ``loss.backward(); precond.step();
-optimizer.step()``.  Checkpoints follow ``engine.py:102-292,2482-2700``:
+optimizer.step()``.  Under EKFAC the step's factor update also moves the
+scale grids, and with an :class:`~kfac_pytorch_tpu_torch.adaptive.
+AdaptiveRefresh` the drift read after a factor step can request a
+refresh at the next step, off the cadence (``engine.py:733-738,
+1368-1390``).  Checkpoints follow ``engine.py:102-292,2482-2700``:
 :meth:`KFACEngineMixin.state_dict` holds the step counter, the
 non-callable hyperparameters and the factor EMAs (never the
 decompositions, which a restore recomputes), in the JAX payload's keys.
@@ -179,10 +183,12 @@ class KFACEngineMixin:
     """Step cadence, hyperparameter resolution and checkpoints.
 
     Subclasses provide ``_update_factors(first_update)``,
-    ``reset_batch()``,
-    ``_refresh(damping)``, ``_precondition(damping, kl_clip, lr)``,
-    ``_checkpoint_layer_states()``, ``_restore_factors(layers)`` and
-    ``_topology_descriptor()``, and arm their capture through
+    ``reset_batch()``, ``_refresh(damping)`` (whose low-rank sketches
+    are drawn for ``_last_inv_step``), ``_precondition(damping, kl_clip,
+    lr)``, ``_checkpoint_layer_states()``,
+    ``_restore_factors(layers)`` and ``_topology_descriptor()``, under
+    EKFAC ``_ekfac_divergence()``, ``_ekfac_scales()`` and
+    ``_with_ekfac_scales(scales)``, and arm their capture through
     ``_arm_capture(bool)``.
     """
 
@@ -195,9 +201,16 @@ class KFACEngineMixin:
         factor_decay: Callable[[int], float] | float,
         kl_clip: Callable[[int], float] | float | None,
         lr: Callable[[int], float] | float,
+        adaptive_refresh: Any = None,
     ) -> None:
         if not callable(damping):
             validate_damping(damping)
+        # The drift-triggered refresh (EKFAC only): fed the scale drift
+        # after every factor step; a request runs the refresh at the
+        # next step once factors exist.
+        self._adaptive_refresh = adaptive_refresh
+        self._refresh_requested = False
+        self._last_ekfac_divergence: torch.Tensor | None = None
         self._factor_update_steps = factor_update_steps
         self._inv_update_steps = inv_update_steps
         self._damping = damping
@@ -217,6 +230,13 @@ class KFACEngineMixin:
     def steps(self) -> int:
         """Completed :meth:`step` calls."""
         return self._steps
+
+    @property
+    def last_ekfac_divergence(self) -> torch.Tensor | None:
+        """The latest EKFAC scale drift (a device scalar, from the last
+        factor step), kept across steps; ``None`` before the first
+        factor step or without EKFAC."""
+        return self._last_ekfac_divergence
 
     @property
     def factor_update_steps(self) -> int:
@@ -250,16 +270,18 @@ class KFACEngineMixin:
         """``(update_factors, update_inverses)`` for the current step.
 
         Inverses never update before the first factor update
-        (decomposing zeros is meaningless).
+        (decomposing zeros is meaningless); a refresh the drift
+        controller requested runs once factors exist.
         """
         fus = self.factor_update_steps
         ius = self.inv_update_steps
         update_factors = fus > 0 and self._steps % fus == 0
+        have_factors = self._factors_initialized or update_factors
         update_inverses = (
-            ius > 0
-            and self._steps % ius == 0
-            and (self._factors_initialized or update_factors)
+            ius > 0 and self._steps % ius == 0 and have_factors
         )
+        if self._refresh_requested and have_factors:
+            update_inverses = True
         return update_factors, update_inverses
 
     def step(self) -> None:
@@ -270,13 +292,44 @@ class KFACEngineMixin:
             self._update_factors(first_update=not self._factors_initialized)
             self._factors_initialized = True
         if update_inverses:
-            self._refresh(self.damping)
+            # Recorded first: the refresh draws its low-rank sketches
+            # for this step, and a checkpoint keeps it to draw them again.
             self._last_inv_step = self._steps
+            self._refresh(self.damping)
             self._iter_bootstrapped = True
         self._precondition(self.damping, self.kl_clip, self.lr)
+        step_index = self._steps
         self._steps += 1
+        self._post_step_refresh_feed(
+            self._ekfac_divergence() if update_factors else None,
+            step_index, update_factors, update_inverses,
+        )
         # Arm (or disarm) the hooks for the NEXT forward/backward.
         self._arm_capture(self._step_gating()[0])
+
+    def _post_step_refresh_feed(
+        self,
+        divergence: torch.Tensor | None,
+        step_index: int,
+        update_factors: bool,
+        update_inverses: bool,
+    ) -> None:
+        """Feed the drift controller after a step
+        (``_post_step_refresh_feed``, ``engine.py:1368-1390``): a
+        refresh clears a pending request and resets the controller's
+        clock; after a factor step the drift, read back to the host only
+        when a controller is set, may request the next refresh."""
+        if divergence is not None:
+            self._last_ekfac_divergence = divergence
+        ar = self._adaptive_refresh
+        if update_inverses:
+            self._refresh_requested = False
+            if ar is not None:
+                ar.note_refresh(step_index)
+        if ar is None or not update_factors or divergence is None:
+            return
+        if ar.update(float(divergence), step_index):
+            self._refresh_requested = True
 
     # -- checkpoints ----------------------------------------------------
 
@@ -284,18 +337,25 @@ class KFACEngineMixin:
         self,
         include_factors: bool = True,
         compress_symmetric: bool = False,
+        include_ekfac_scales: bool = False,
         include_topology: bool = False,
     ) -> dict[str, Any]:
         """A checkpointable dict, in the JAX payload's keys.
 
-        ``steps``, ``sketch_step`` (the last inverse-update step), the
-        non-callable hyperparameters and, with ``include_factors``,
-        ``layers: {name: {'A', 'G'}}`` — CPU tensors, or with
-        ``compress_symmetric`` packed upper triangles ``{'triu',
-        'dim'}``.  ``include_topology`` records the world and bucket
-        layout under ``topology``, which a mismatched restore names.
-        Across ranks every rank holds the same averaged factor EMAs, so
-        every rank's dict is the same.
+        ``steps``, ``sketch_step`` (the last inverse-update step, whose
+        sketches a restore draws again), the non-callable
+        hyperparameters, the drift controller's state
+        (``adaptive_refresh``) when one is set, and, with
+        ``include_factors``, ``layers: {name: {'A', 'G'}}`` — CPU
+        tensors, or with ``compress_symmetric`` packed upper triangles
+        ``{'triu', 'dim'}``.  ``include_ekfac_scales`` also keeps the
+        EKFAC scale grids by bucket key (``ekfac_scales``), so a resume
+        continues their EMA instead of reseeding it; they live in the
+        basis of the saved factors, so this needs ``include_factors``.
+        ``include_topology`` records the world and bucket layout under
+        ``topology``, which a mismatched restore names.  Across ranks
+        every rank holds the same averaged factor EMAs, so every rank's
+        dict is the same.
         """
         sd: dict[str, Any] = {
             'steps': self._steps,
@@ -304,6 +364,8 @@ class KFACEngineMixin:
         save_hyperparams(self, sd)
         if include_topology:
             sd['topology'] = self._topology_descriptor()
+        if self._adaptive_refresh is not None:
+            sd['adaptive_refresh'] = self._adaptive_refresh.state_dict()
         if include_factors:
             sd['layers'] = {
                 base: {
@@ -311,6 +373,22 @@ class KFACEngineMixin:
                     'G': pack_factor(st.g_factor, compress_symmetric),
                 }
                 for base, st in self._checkpoint_layer_states().items()
+            }
+        if include_ekfac_scales:
+            if not include_factors:
+                raise ValueError(
+                    'include_ekfac_scales requires include_factors: the '
+                    'scales live in the eigenbasis of the saved factors',
+                )
+            scales = self._ekfac_scales()
+            if scales is None:
+                raise ValueError(
+                    'include_ekfac_scales: this preconditioner has no '
+                    'EKFAC scale state (ekfac=False or unsupported '
+                    'flavour)',
+                )
+            sd['ekfac_scales'] = {
+                k: v.detach().cpu().clone() for k, v in scales.items()
             }
         return sd
 
@@ -328,10 +406,26 @@ class KFACEngineMixin:
         at its bootstrap depth, after which its refreshes run warm;
         without, the next refresh runs at bootstrap depth.  Across ranks
         this is collective: every rank calls it, and the recompute runs
-        the column gather.  The capture hooks are re-armed for the next
+        the column gather.  The recompute draws the low-rank sketches of
+        the saved ``sketch_step``, so it reproduces the decompositions
+        the saving run held.  Saved EKFAC scales are installed after it
+        (and rejected without ``compute_inverses``: they need the
+        recomputed basis).  The capture hooks are re-armed for the next
         step.  Micro-batch sums are not checkpointed (as in the JAX
-        package); a restore drops them.
+        package); a restore drops them, and a pending drift-triggered
+        refresh.
         """
+        scales = state_dict.get('ekfac_scales')
+        if scales is not None and not compute_inverses:
+            raise ValueError(
+                'state_dict carries ekfac_scales but '
+                'compute_inverses=False: the scales can only be applied '
+                'on top of a recomputed basis',
+            )
+        ar_sd = state_dict.get('adaptive_refresh')
+        if ar_sd is not None and self._adaptive_refresh is not None:
+            self._adaptive_refresh.load_state_dict(ar_sd)
+        self._refresh_requested = False
         self.reset_batch()
         layers = begin_load_state_dict(
             self, state_dict, self._checkpoint_layer_states(),
@@ -343,10 +437,39 @@ class KFACEngineMixin:
             if compute_inverses:
                 self._iter_bootstrapped = False
                 self._refresh(self.damping)
+                if scales is not None:
+                    self._restore_ekfac_scales(scales)
             self._iter_bootstrapped = post_restore_bootstrapped(
                 full_recompute=compute_inverses,
             )
         self._arm_capture(self._step_gating()[0])
+
+    def _restore_ekfac_scales(self, scales: Mapping[str, Any]) -> None:
+        """Check saved scale grids against this configuration's both
+        ways (a slot left at the reseed would be an unsignalled mixed
+        state; ``engine.py:1300-1337``) and install them."""
+        current = self._ekfac_scales() or {}
+        missing = set(current) - set(scales)
+        if missing:
+            raise ValueError(
+                'ekfac_scales: saved dict does not cover bucket(s) '
+                f'{sorted(missing)} present in this configuration (layer '
+                'set / bucket plan changed?)',
+            )
+        for name, saved in scales.items():
+            slot = current.get(name)
+            if slot is None:
+                raise ValueError(
+                    'ekfac_scales: no EKFAC scale slot for bucket '
+                    f'{name!r} in this configuration',
+                )
+            if tuple(slot.shape) != tuple(np.shape(saved)):
+                raise ValueError(
+                    f'ekfac_scales: shape mismatch for bucket {name!r}: '
+                    f'saved {tuple(np.shape(saved))} vs state '
+                    f'{tuple(slot.shape)}',
+                )
+        self._with_ekfac_scales(scales)
 
     # -- hooks the preconditioner provides ------------------------------
 
@@ -374,4 +497,13 @@ class KFACEngineMixin:
         raise NotImplementedError
 
     def _topology_descriptor(self) -> str | None:
+        raise NotImplementedError
+
+    def _ekfac_divergence(self) -> torch.Tensor | None:
+        return None
+
+    def _ekfac_scales(self) -> Mapping[str, torch.Tensor] | None:
+        return None
+
+    def _with_ekfac_scales(self, scales: Mapping[str, Any]) -> None:
         raise NotImplementedError

@@ -58,10 +58,11 @@ def add_kfac_args(p: argparse.ArgumentParser, *, inv: int, factor: int,
     p.add_argument('--kfac-damping-decay', nargs='+', type=int,
                    default=None)
     p.add_argument('--kfac-lowrank-rank', default=None, type=int,
-                   help='randomized low-rank eigen rank (not ported: '
-                        'ROADMAP.md Queue A item 10)')
+                   help='randomized low-rank eigen rank (sides at least '
+                        'twice as wide truncate)')
     p.add_argument('--kfac-ekfac', action='store_true',
-                   help='EKFAC (not ported: ROADMAP.md Queue A item 10)')
+                   help='EKFAC scales in the eigenbasis (COMM-OPT only '
+                        'across ranks)')
     p.add_argument('--kfac-kl-clip', default=0.001, type=float)
     p.add_argument('--kfac-skip-layers', nargs='+', type=str, default=[])
     p.add_argument('--kfac-colocate-factors', action='store_true',

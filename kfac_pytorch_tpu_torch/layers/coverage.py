@@ -68,12 +68,16 @@ class KfacReduceHelper(DenseHelper):
     outer product (arXiv:2311.00636 §3.2)."""
 
     def get_a_factor(self, a: torch.Tensor) -> torch.Tensor:
-        return cov.cov_from_rows(
-            *cov.linear_reduce_a_rows(a, has_bias=self.has_bias),
-        )
+        return cov.cov_from_rows(*self.get_a_rows(a))
 
     def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
-        return cov.cov_from_rows(*cov.linear_reduce_g_rows(g))
+        return cov.cov_from_rows(*self.get_g_rows(g))
+
+    def get_a_rows(self, a: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return cov.linear_reduce_a_rows(a, has_bias=self.has_bias)
+
+    def get_g_rows(self, g: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return cov.linear_reduce_g_rows(g)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -154,6 +158,12 @@ class DenseGeneralHelper(DenseHelper):
     def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
         return super().get_g_factor(self._flatten_out(g))
 
+    def get_a_rows(self, a: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return super().get_a_rows(self._flatten_in(a))
+
+    def get_g_rows(self, g: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return super().get_g_rows(self._flatten_out(g))
+
     def _weight_grad(self) -> torch.Tensor:
         k = self.module.kernel.grad
         if k is None:
@@ -184,10 +194,15 @@ class DenseGeneralReduceHelper(DenseGeneralHelper):
     """KFAC-reduce variant of :class:`DenseGeneralHelper`."""
 
     def get_a_factor(self, a: torch.Tensor) -> torch.Tensor:
-        return cov.cov_from_rows(*cov.linear_reduce_a_rows(
-            self._flatten_in(a), has_bias=self.has_bias,
-        ))
+        return cov.cov_from_rows(*self.get_a_rows(a))
 
     def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
-        return cov.cov_from_rows(
-            *cov.linear_reduce_g_rows(self._flatten_out(g)))
+        return cov.cov_from_rows(*self.get_g_rows(g))
+
+    def get_a_rows(self, a: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return cov.linear_reduce_a_rows(
+            self._flatten_in(a), has_bias=self.has_bias,
+        )
+
+    def get_g_rows(self, g: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return cov.linear_reduce_g_rows(self._flatten_out(g))

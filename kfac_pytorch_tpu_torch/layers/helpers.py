@@ -72,6 +72,21 @@ class LayerHelper:
         """G-factor contribution from output gradients."""
         raise NotImplementedError
 
+    @property
+    def supports_ekfac(self) -> bool:
+        """Whether EKFAC row statistics exist for this layer type."""
+        return False
+
+    def get_a_rows(self, a: torch.Tensor) -> tuple[torch.Tensor, float]:
+        """Raw A-side rows and their norm, for EKFAC
+        (:mod:`kfac_pytorch_tpu_torch.ops.ekfac`)."""
+        raise NotImplementedError
+
+    def get_g_rows(self, g: torch.Tensor) -> tuple[torch.Tensor, float]:
+        """Raw G-side rows and their norm, row-aligned with the A
+        side's."""
+        raise NotImplementedError
+
     def _weight_grad(self) -> torch.Tensor:
         w = self.module.weight.grad
         if w is None:
@@ -108,6 +123,16 @@ class DenseHelper(LayerHelper):
 
     def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
         return cov.linear_g_factor(g)
+
+    @property
+    def supports_ekfac(self) -> bool:
+        return True
+
+    def get_a_rows(self, a: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return cov.linear_a_rows(a, has_bias=self.has_bias)
+
+    def get_g_rows(self, g: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return cov.linear_g_rows(g)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -170,3 +195,16 @@ class ConvHelper(LayerHelper):
 
     def get_g_factor(self, g: torch.Tensor) -> torch.Tensor:
         return cov.conv2d_g_factor(g)
+
+    @property
+    def supports_ekfac(self) -> bool:
+        return True
+
+    def get_a_rows(self, a: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return cov.conv2d_a_rows(
+            a, self.kernel_size, self.strides, self.padding,
+            has_bias=self.has_bias,
+        )
+
+    def get_g_rows(self, g: torch.Tensor) -> tuple[torch.Tensor, float]:
+        return cov.conv2d_g_rows(g)

@@ -1,8 +1,9 @@
 """Small test models: port of ``kfac_pytorch_tpu/models/tiny.py``.
 
-``TinyModel`` and ``LeNet`` carry the Flax models' module names, so
+``TinyModel``, ``MLP`` and ``LeNet`` carry the Flax models' module
+names, so
 :func:`kfac_pytorch_tpu_torch.convert.flax_to_torch_state_dict` maps
-their variables one to one.  Neither has BatchNorm, so a data-parallel
+their variables one to one.  None has BatchNorm, so a data-parallel
 run normalizes nothing per rank and matches the global-batch run.
 """
 from __future__ import annotations
@@ -23,6 +24,25 @@ class TinyModel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear2(F.relu(self.linear1(x)))
+
+
+class MLP(nn.Module):
+    """Dense layers ``fc0, fc1, ...`` with ReLU and a ``head``; the input
+    is flattened to ``[N, in_features]``."""
+
+    def __init__(self, in_features: int,
+                 features: tuple[int, ...] = (64, 64, 10)) -> None:
+        super().__init__()
+        widths = (in_features, *features)
+        for i in range(len(features) - 1):
+            self.add_module(f'fc{i}', nn.Linear(widths[i], widths[i + 1]))
+        self.head = nn.Linear(widths[-2], widths[-1])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1)
+        for name, layer in self.named_children():
+            x = layer(x) if name == 'head' else F.relu(layer(x))
+        return x
 
 
 class LeNet(nn.Module):

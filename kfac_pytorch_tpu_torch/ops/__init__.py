@@ -1,5 +1,6 @@
-"""K-FAC math on tensors: covariances, EMA/kl-clip, eigen, inverse,
-Newton–Schulz, triu packing, fused kernel."""
+"""K-FAC math on tensors: covariances, EMA/kl-clip, eigen, randomized
+low-rank eigen, EKFAC scales, inverse, Newton–Schulz, triu packing,
+fused kernel."""
 from kfac_pytorch_tpu_torch.ops.cov import append_bias_ones
 from kfac_pytorch_tpu_torch.ops.cov import attend_a_diag
 from kfac_pytorch_tpu_torch.ops.cov import attend_g_factor
@@ -26,6 +27,10 @@ from kfac_pytorch_tpu_torch.ops.eigen import compute_factor_eigen
 from kfac_pytorch_tpu_torch.ops.eigen import EigenFactors
 from kfac_pytorch_tpu_torch.ops.eigen import precondition_grad_eigen
 from kfac_pytorch_tpu_torch.ops.eigen import precondition_grad_eigen_diag_a
+from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_divergence
+from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_divergence_info
+from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_scale_contrib
+from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_scale_contrib_stacked
 from kfac_pytorch_tpu_torch.ops.fused_precond import (
     fused_eigen_precondition,
 )
@@ -55,6 +60,14 @@ from kfac_pytorch_tpu_torch.ops.iterative import damped_stack
 from kfac_pytorch_tpu_torch.ops.iterative import IterativeConfig
 from kfac_pytorch_tpu_torch.ops.iterative import NewtonSchulzResult
 from kfac_pytorch_tpu_torch.ops.iterative import spectral_norm_bound
+from kfac_pytorch_tpu_torch.ops.lowrank import batched_randomized_eigh
+from kfac_pytorch_tpu_torch.ops.lowrank import decompose_stack
+from kfac_pytorch_tpu_torch.ops.lowrank import draw_sketch
+from kfac_pytorch_tpu_torch.ops.lowrank import lowrank_engages
+from kfac_pytorch_tpu_torch.ops.lowrank import LowRankEigen
+from kfac_pytorch_tpu_torch.ops.lowrank import precondition_grad_lowrank
+from kfac_pytorch_tpu_torch.ops.lowrank import randomized_eigh
+from kfac_pytorch_tpu_torch.ops.lowrank import thin_eigen_fields
 from kfac_pytorch_tpu_torch.ops.triu import fill_triu
 from kfac_pytorch_tpu_torch.ops.triu import get_triu
 from kfac_pytorch_tpu_torch.ops.triu import NonSquareTensorError

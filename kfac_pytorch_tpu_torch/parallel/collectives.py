@@ -13,10 +13,11 @@ issued by hand:
   precondition their column's slots and gather the other columns'.
 
 Every all-gather moves equal sizes from every rank: uneven shares are
-padded with identity slots (eigenvectors, inverses) and zero slots
-(eigenvalues, per-slot vectors), and bucket plans already pad every
-column to ``seg`` slots
-(zero gradient slots).  For the all-gathers a group of ``None`` (a
+padded with identity slots (square eigenvector and inverse stacks) and
+zero slots (eigenvalues, per-slot vectors, EKFAC scales and the thin
+``[a, k]`` eigenvector stacks of low-rank buckets), and bucket plans
+already pad every column to ``seg`` slots (zero gradient slots).  For
+the all-gathers a group of ``None`` (a
 grid axis of extent 1, which gets no group) or of one rank moves
 nothing; for the all-reduce ``None`` is the default group, the world.
 Collectives take CUDA tensors on NCCL and on gloo alike.
@@ -110,10 +111,14 @@ def share_bounds(n_slots: int, parts: int, index: int) -> tuple[int, int]:
 
 
 def _pad_slots(x: torch.Tensor, per: int, identity: bool) -> torch.Tensor:
+    """``x`` padded to ``per`` slots: identity blocks when ``identity``
+    and the blocks are square, zeros otherwise (a thin ``[a, k]``
+    low-rank eigenvector stack has no identity; its padding slots reach
+    no result, so zeros serve)."""
     k = x.shape[0]
     if k == per:
         return x
-    if identity:
+    if identity and x.ndim == 3 and x.shape[-1] == x.shape[-2]:
         pad = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
         pad = pad.expand(per - k, *x.shape[1:])
     else:
@@ -125,31 +130,31 @@ def all_gather_decompositions(
     shares: Sequence[tuple[torch.Tensor, ...]],
     segs: Sequence[int],
     group,
-    identity: Sequence[bool],
+    identity: Sequence[Sequence[bool]],
 ) -> list[tuple[torch.Tensor, ...]]:
     """Phase 2: every bucket's decomposition stacks over a grid column.
 
     ``shares[i]`` holds this rank's slots of bucket ``i``'s column slice
     (:func:`share_bounds` of ``segs[i]`` over the column's ranks): one
     ``[share, ...]`` stack per field of the method, such as ``(qa, qg,
-    dgda)`` or ``(a_inv, g_inv)``.  ``identity[j]`` says whether field
-    ``j`` pads with identity blocks (square stacks: eigenvectors,
-    inverses) or with zeros (eigenvalues, per-slot vectors).  Each share
+    dgda)`` or ``(a_inv, g_inv)``.  ``identity[i][j]`` says whether
+    field ``j`` of bucket ``i`` pads with identity blocks (square stacks:
+    eigenvectors, inverses) or with zeros (eigenvalues, per-slot
+    vectors; :func:`_pad_slots`).  Each share
     is padded to ``ceil(seg / rows)`` slots, all buckets go in one
     all-gather, and the result is trimmed back to ``seg`` slots.
     """
     if not _gathers(group):
         return [tuple(s) for s in shares]
     n = _group_size(group)
-    k = len(identity)
     flat: list[torch.Tensor] = []
-    for share, seg in zip(shares, segs):
+    for share, seg, eyes in zip(shares, segs, identity):
         per = -(-seg // n)
-        flat += [_pad_slots(t, per, eye) for t, eye in zip(share, identity)]
-    gathered = all_gather_stacks(flat, group)
+        flat += [_pad_slots(t, per, eye) for t, eye in zip(share, eyes)]
+    gathered = iter(all_gather_stacks(flat, group))
     return [
-        tuple(t[:seg] for t in gathered[k * i:k * (i + 1)])
-        for i, seg in enumerate(segs)
+        tuple(next(gathered)[:seg] for _ in share)
+        for share, seg in zip(shares, segs)
     ]
 
 

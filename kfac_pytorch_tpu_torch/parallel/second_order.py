@@ -27,17 +27,30 @@ phases of the JAX module run as explicit collectives
    when ``cols == 1``, COMM-OPT), then one global kl-clip scale whose
    terms are summed in plan order, so every rank computes the same bits.
 
+Eigen also runs two additive variants of the JAX package: randomized
+low-rank eigen (``lowrank_rank``: a bucket side at least twice the rank
+keeps its top eigenpairs and the mean of its trailing spectrum,
+:mod:`~kfac_pytorch_tpu_torch.ops.lowrank`; a bucket with a truncated
+side is zero-padded, keeps ``da``/``dg`` and preconditions by thin
+matmuls, while exact buckets keep ``dgda`` and the fused kernel) and
+EKFAC (``ekfac``: every bucket keeps ``da``/``dg`` and a scale grid
+``skron [seg, g, a]``, reseeded to ``dg ⊗ da`` at each refresh and moved
+every factor step by :meth:`BucketedSecondOrder.ekfac_update`;
+:mod:`~kfac_pytorch_tpu_torch.ops.ekfac`).
+
 On one device the grid is ``1 x 1`` and no collective runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Mapping, Sequence
 
 import torch
 
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
+from kfac_pytorch_tpu_torch.ops import lowrank as lowrank_ops
 from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketLayout
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketPlan
@@ -46,7 +59,8 @@ from kfac_pytorch_tpu_torch.scheduler import iterative_refresh_iters
 from kfac_pytorch_tpu_torch.state import LayerKFACState
 
 #: Fields padded with identity blocks when a column's share is gathered
-#: (square stacks); every other field pads with zeros.
+#: and its blocks are square; every other field, and the thin low-rank
+#: eigenvector stacks, pad with zeros.
 IDENTITY_PADDED = frozenset({'qa', 'qg', 'a_inv', 'g_inv'})
 
 
@@ -63,8 +77,12 @@ class BucketSecond:
     also: per slot the final residual ``||M - I||_F``, the spectral-norm
     bound of the cold normalization and the iterations still above
     tolerance (``iter_*_a``/``iter_*_g``, ``[seg]``); the roots are the
-    next refresh's warm seeds.  Fields a method does not use are
-    ``None``.
+    next refresh's warm seeds.  Low-rank buckets: thin ``qa [seg, a,
+    ka]`` / ``qg [seg, g, kg]`` (``k`` the rank on a truncated side, the
+    padded dim on an exact one), ``da``/``dg`` and the trailing-spectrum
+    means ``sa``/``sg`` ``[seg]`` of the truncated sides.  EKFAC:
+    ``da``/``dg`` and ``skron [seg, g, a]`` (f32), the scale grid.
+    Fields a method does not use are ``None``.
     """
 
     qa: torch.Tensor | None = None
@@ -73,6 +91,8 @@ class BucketSecond:
     dg: torch.Tensor | None = None
     dgda: torch.Tensor | None = None
     bake_damping: torch.Tensor | None = None
+    sa: torch.Tensor | None = None
+    sg: torch.Tensor | None = None
     a_inv: torch.Tensor | None = None
     g_inv: torch.Tensor | None = None
     iter_res_a: torch.Tensor | None = None
@@ -81,6 +101,7 @@ class BucketSecond:
     iter_bound_g: torch.Tensor | None = None
     iter_stale_a: torch.Tensor | None = None
     iter_stale_g: torch.Tensor | None = None
+    skron: torch.Tensor | None = None
 
     def tensors(self) -> dict[str, torch.Tensor]:
         """The fields that are set, in declaration order."""
@@ -126,6 +147,16 @@ class BucketedSecondOrder:
         device: where the stacks live.
         grid: this rank's place on the KAISA grid (default: one device);
             ``grid.cols`` must equal ``plan.n_cols``.
+        slot_dims: layer name -> logical ``(a_dim, g_dim)`` (default: the
+            padded dims); ``sigma`` averages over them, and the EKFAC
+            drift masks the padding with them.
+        lowrank_rank: eigen only: truncate each bucket side whose padded
+            dim engages (:func:`~kfac_pytorch_tpu_torch.ops.lowrank.\
+lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
+        lowrank_oversample, lowrank_power_iters: the sketch's extra
+            columns and QR power iterations.
+        ekfac: eigen only: EKFAC scale grids (exclusive with
+            ``lowrank_rank``).
     """
 
     def __init__(
@@ -139,6 +170,11 @@ class BucketedSecondOrder:
         precond_dtype: torch.dtype = torch.float32,
         device: torch.device | str = 'cpu',
         grid: KaisaGrid | None = None,
+        slot_dims: Mapping[str, tuple[int, int]] | None = None,
+        lowrank_rank: int | None = None,
+        lowrank_oversample: int = 32,
+        lowrank_power_iters: int = 2,
+        ekfac: bool = False,
     ) -> None:
         grid = KaisaGrid(rows=1, cols=1, rank=0) if grid is None else grid
         if grid.cols != plan.n_cols:
@@ -151,6 +187,39 @@ class BucketedSecondOrder:
                 iterative_config = ops.IterativeConfig()
         else:
             iterative_config = None
+        if lowrank_rank is not None and compute_method != ComputeMethod.EIGEN:
+            raise ValueError('lowrank_rank requires the eigen method')
+        if ekfac and compute_method != ComputeMethod.EIGEN:
+            raise ValueError('ekfac requires the eigen method')
+        if ekfac and lowrank_rank is not None:
+            raise ValueError(
+                'ekfac and lowrank_rank are mutually exclusive (EKFAC '
+                'scales need the complete eigenvalue grid)',
+            )
+        self.lowrank_rank = lowrank_rank
+        self.lowrank_oversample = int(lowrank_oversample)
+        self.lowrank_power_iters = int(lowrank_power_iters)
+        self.ekfac = bool(ekfac)
+        slot_dims = slot_dims or {}
+
+        def engages(pad: int) -> bool:
+            return lowrank_ops.lowrank_engages(
+                pad, lowrank_rank, self.lowrank_oversample,
+            )
+
+        # Per bucket: which sides truncate, each slot's logical dims
+        # (the padded dim for an empty slot) and a stable seed that
+        # decorrelates the sketch draws across buckets.
+        self._lowrank: dict[str, tuple[bool, bool]] = {}
+        self._slot_dims: dict[str, tuple[tuple[int, ...], ...]] = {}
+        self._bucket_seed: dict[str, int] = {}
+        for b in plan.buckets:
+            self._lowrank[b.key] = (engages(b.a_pad), engages(b.g_pad))
+            dims = [slot_dims.get(n, (b.a_pad, b.g_pad)) if n else
+                    (b.a_pad, b.g_pad) for n in b.slots]
+            self._slot_dims[b.key] = (tuple(d[0] for d in dims),
+                                      tuple(d[1] for d in dims))
+            self._bucket_seed[b.key] = zlib.crc32(b.key.encode())
         self.plan = plan
         self.grid = grid
         self.compute_method = compute_method
@@ -166,6 +235,28 @@ class BucketedSecondOrder:
         """The slots of bucket ``b`` this rank holds: its column's."""
         return b.column_slots(self.grid.col)
 
+    def local_slot(self, name: str) -> tuple[str, int]:
+        """``(bucket key, index among this rank's slots)`` of a layer
+        in this rank's column."""
+        key, slot = self.plan.slot_of[name]
+        seg = next(b.seg for b in self.plan.buckets if b.key == key)
+        return key, slot - self.grid.col * seg
+
+    def lowrank_sides(self, key: str) -> tuple[bool, bool]:
+        """``(A truncated, G truncated)`` of bucket ``key``."""
+        if self.compute_method != ComputeMethod.EIGEN:
+            return (False, False)
+        return self._lowrank[key]
+
+    def bucket_prediv(self, key: str) -> bool:
+        """Whether bucket ``key`` keeps ``dgda`` and runs the fused
+        kernel: prediv eigen, unless a side truncates (no dense
+        ``[g, a]`` eigenvalue grid) or EKFAC (the scale grid moves every
+        factor step, so a cached ``1 / (grid + damping)`` would be
+        stale)."""
+        return (self.prediv and not self.ekfac
+                and not any(self._lowrank[key]))
+
     def _zero_fields(self, b: BucketLayout, n: int) -> dict[str, torch.Tensor]:
         """``n`` slots of bucket ``b``'s state, in the method's fields:
         zero stacks, with the iterative residuals at ``+inf`` (a zero
@@ -176,12 +267,21 @@ class BucketedSecondOrder:
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
         if self.compute_method == ComputeMethod.EIGEN:
-            out = dict(qa=zeros(n, a, a), qg=zeros(n, g, g))
-            if self.prediv:
+            lr_a, lr_g = self._lowrank[b.key]
+            ka = self.lowrank_rank if lr_a else a
+            kg = self.lowrank_rank if lr_g else g
+            out = dict(qa=zeros(n, a, ka), qg=zeros(n, g, kg))
+            if self.bucket_prediv(b.key):
                 out.update(dgda=zeros(n, g, a),
                            bake_damping=zeros(n, dtype=torch.float32))
             else:
-                out.update(da=zeros(n, a), dg=zeros(n, g))
+                out.update(da=zeros(n, ka), dg=zeros(n, kg))
+            if lr_a:
+                out['sa'] = zeros(n)
+            if lr_g:
+                out['sg'] = zeros(n)
+            if self.ekfac:
+                out['skron'] = zeros(n, g, a, dtype=torch.float32)
             return out
         out = dict(a_inv=zeros(n, a, a), g_inv=zeros(n, g, g))
         if self.compute_method == ComputeMethod.ITERATIVE:
@@ -207,32 +307,91 @@ class BucketedSecondOrder:
         layers: Mapping[str, LayerKFACState],
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Padded ``(A, G)`` f32 factor stacks of ``slots`` of bucket
-        ``b``; padding slots and padded dims get identity blocks (a
-        well-conditioned input that never reaches an unpadded result)."""
+        ``b``.  Exact buckets pad slots and dims with identity blocks (a
+        well-conditioned input that never reaches an unpadded result);
+        low-rank buckets with zeros, which land at the bottom of the
+        spectrum, where an identity pad would add spurious eigenvalue-1
+        directions to the truncated top and inflate ``sigma``."""
+        zero_pad = any(self.lowrank_sides(b.key))
+
+        def pad(factor, p):
+            if not zero_pad:
+                return _pad_factor(factor, p)
+            d = factor.shape[-1]
+            return torch.nn.functional.pad(factor, (0, p - d, 0, p - d))
+
+        def fill(p):
+            if zero_pad:
+                return torch.zeros((p, p), device=self.device)
+            return torch.eye(p, device=self.device)
+
         a_list, g_list = [], []
         for name in slots:
             if name is None:
-                a_list.append(torch.eye(b.a_pad, device=self.device))
-                g_list.append(torch.eye(b.g_pad, device=self.device))
+                a_list.append(fill(b.a_pad))
+                g_list.append(fill(b.g_pad))
             else:
                 st = layers[name]
-                a_list.append(_pad_factor(st.a_factor.float(), b.a_pad))
-                g_list.append(_pad_factor(st.g_factor.float(), b.g_pad))
+                a_list.append(pad(st.a_factor.float(), b.a_pad))
+                g_list.append(pad(st.g_factor.float(), b.g_pad))
         return torch.stack(a_list), torch.stack(g_list)
+
+    def _compute_lowrank(
+        self,
+        b: BucketLayout,
+        A: torch.Tensor,
+        G: torch.Tensor,
+        slots: Sequence[int],
+        sketch_step: int,
+    ) -> dict[str, torch.Tensor]:
+        """Phase 1 of one low-rank bucket share (``slots``: the share's
+        indices in the whole bucket stack): each truncated side by
+        :func:`~kfac_pytorch_tpu_torch.ops.lowrank.batched_randomized_eigh`
+        with sketches drawn for (bucket seed, side, ``sketch_step``,
+        slot), each exact side by a clamped ``eigh``."""
+        a_dims, g_dims = self._slot_dims[b.key]
+        out = {}
+        for side, (name, stack, lowrank, dims) in enumerate((
+            ('a', A, self._lowrank[b.key][0], a_dims),
+            ('g', G, self._lowrank[b.key][1], g_dims),
+        )):
+            q, d, sigma = lowrank_ops.decompose_stack(
+                stack, lowrank, self.lowrank_rank,
+                oversample=self.lowrank_oversample,
+                power_iters=self.lowrank_power_iters,
+                seed=self._bucket_seed[b.key], side=side, step=sketch_step,
+                slots=slots, effective_dims=[dims[i] for i in slots],
+            )
+            out[f'q{name}'] = q.to(self.inv_dtype)
+            out[f'd{name}'] = d.to(self.inv_dtype)
+            if lowrank:
+                out[f's{name}'] = sigma.to(self.inv_dtype)
+        return out
 
     def _decompose(
         self,
+        b: BucketLayout,
         A: torch.Tensor,
         G: torch.Tensor,
         damping: float,
         warm: tuple[torch.Tensor, torch.Tensor] | None,
         iters: int,
+        slots: Sequence[int],
+        sketch_step: int,
     ) -> dict[str, torch.Tensor]:
         """Phase 1 of one bucket share: the method's fields."""
         if self.compute_method == ComputeMethod.EIGEN:
+            if any(self._lowrank[b.key]):
+                return self._compute_lowrank(b, A, G, slots, sketch_step)
             qa, da = ops.compute_factor_eigen(A, self.inv_dtype)
             qg, dg = ops.compute_factor_eigen(G, self.inv_dtype)
-            if not self.prediv:
+            if self.ekfac:
+                # The scale grid restarts at the Kronecker eigenvalue
+                # grid, plain K-FAC's scales in the fresh basis (the old
+                # EMA lived in the old basis).
+                skron = dg.float()[:, :, None] * da.float()[:, None, :]
+                return dict(qa=qa, qg=qg, da=da, dg=dg, skron=skron)
+            if not self.bucket_prediv(b.key):
                 return dict(qa=qa, qg=qg, da=da, dg=dg)
             return dict(
                 qa=qa, qg=qg, dgda=ops.compute_dgda(dg, da, damping),
@@ -266,10 +425,15 @@ class BucketedSecondOrder:
         damping: float,
         prev: Mapping[str, BucketSecond] | None = None,
         bootstrap: bool = False,
+        sketch_step: int = 0,
     ) -> dict[str, BucketSecond]:
         """Recompute this rank's decompositions (inverse-update step):
         phase 1 on this rank's share of its column, phase 2 over the
         column.
+
+        Low-rank buckets draw their sketches for ``sketch_step`` (the
+        inverse-update step) and each slot's index in the whole bucket
+        stack, so every grid draws what one device draws.
 
         Iterative method: ``prev``'s roots are the Newton–Schulz warm
         seeds.  A rank's share is a slice of its own column's stacks, so
@@ -283,8 +447,7 @@ class BucketedSecondOrder:
             iterative_refresh_iters(self.iterative, not bootstrap)
             if self.iterative is not None else 0
         )
-        names = None
-        shares = []
+        names, shares = [], []
         for b in self.plan.buckets:
             start, stop = collectives.share_bounds(b.seg, grid.rows, grid.row)
             mine = self.local_slots(b)[start:stop]
@@ -296,18 +459,23 @@ class BucketedSecondOrder:
                 if prev is not None and self.iterative is not None:
                     pb = prev[b.key]
                     warm = (pb.a_inv[start:stop], pb.g_inv[start:stop])
-                fields = self._decompose(A, G, damping, warm, iters)
-            # Declaration order, the same for every bucket and rank.
+                first = grid.col * b.seg + start
+                fields = self._decompose(
+                    b, A, G, damping, warm, iters,
+                    range(first, first + len(mine)), sketch_step,
+                )
+            # Declaration order: a bucket's fields are the same on every
+            # rank (low-rank and exact buckets keep different ones).
             share = BucketSecond(**fields).tensors()
-            names = tuple(share)
+            names.append(tuple(share))
             shares.append(tuple(share.values()))
         shares = collectives.all_gather_decompositions(
             shares, [b.seg for b in self.plan.buckets], grid.col_group,
-            [n in IDENTITY_PADDED for n in names],
+            [[n in IDENTITY_PADDED for n in ns] for ns in names],
         )
         return {
-            b.key: BucketSecond(**dict(zip(names, share)))
-            for b, share in zip(self.plan.buckets, shares)
+            b.key: BucketSecond(**dict(zip(ns, share)))
+            for b, ns, share in zip(self.plan.buckets, names, shares)
         }
 
     def _rotate_bucket(
@@ -323,6 +491,9 @@ class BucketedSecondOrder:
         Prediv eigen takes the per-slot sums of the fused kernel (in the
         eigenbasis, ``Σ v1 ⊙ v2``); non-prediv eigen divides by
         ``dg ⊗ da + damping`` in f32 and sums ``v1 ⊙ v2`` the same way;
+        EKFAC divides by ``skron + damping`` instead; low-rank buckets
+        run :func:`~kfac_pytorch_tpu_torch.ops.lowrank.\
+precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
         inverse and iterative take ``pg = g_inv · g · a_inv`` and sum
         ``pg ⊙ g``.  Padded regions are zero in ``g``, so each term
         equals the unpadded layer's inner product.
@@ -350,13 +521,23 @@ class BucketedSecondOrder:
         def rounded(t):  # pdt operands, f32 products
             return t.to(pdt).float()
 
-        if bs.qa is not None:
+        lr_a, lr_g = self.lowrank_sides(b.key)
+        if lr_a or lr_g:
+            zeros = torch.zeros(g.shape[0], device=self.device)
+            pg = lowrank_ops.precondition_grad_lowrank(
+                g, (bs.qa, bs.da, zeros if bs.sa is None else bs.sa),
+                (bs.qg, bs.dg, zeros if bs.sg is None else bs.sg), damping,
+                lowrank_a=lr_a, lowrank_g=lr_g, compute_dtype=pdt,
+            )
+            clip = torch.sum(pg * g, dim=(1, 2))
+        elif bs.qa is not None:
             qa, qg = rounded(bs.qa), rounded(bs.qg)
             v1 = qg.mT @ rounded(g) @ qa
-            v2 = rounded(v1 / (
-                bs.dg.float()[:, :, None] * bs.da.float()[:, None, :]
-                + damping
-            ))
+            if bs.skron is not None:
+                grid = bs.skron
+            else:
+                grid = bs.dg.float()[:, :, None] * bs.da.float()[:, None, :]
+            v2 = rounded(v1 / (grid + damping))
             pg = qg @ v2 @ qa.mT
             clip = torch.sum(v1 * v2, dim=(1, 2))
         else:
@@ -409,6 +590,92 @@ class BucketedSecondOrder:
                 go, ga = combined_grads[name].shape
                 out[name] = pg[i, :go, :ga].to(combined_grads[name].dtype)
         return out, scale
+
+    # -- EKFAC scales ---------------------------------------------------
+
+    def ekfac_contrib(
+        self,
+        bs: BucketSecond,
+        slot: int,
+        calls: Sequence[tuple[torch.Tensor, torch.Tensor, float, float]],
+    ) -> torch.Tensor:
+        """One layer's ``[g_pad, a_pad]`` scale contribution from its
+        calls' ``(a_rows, g_rows, a_norm, g_norm)``, projected in the
+        current basis of local slot ``slot``; a module called several
+        times contributes the mean over its calls.  The basis rows past
+        the layer's dims are sliced off, which equals zero-padding the
+        rows, so pure-pad directions get zero scale (their gradient is
+        zero too)."""
+        contribs = [
+            ops.ekfac_scale_contrib(
+                ar, gr, bs.qa[slot][:ar.shape[1]], bs.qg[slot][:gr.shape[1]],
+                a_norm=an, g_norm=gn,
+            )
+            for ar, gr, an, gn in calls
+        ]
+        if len(contribs) == 1:
+            return contribs[0]
+        return torch.stack(contribs).mean(0)
+
+    def ekfac_update(
+        self,
+        buckets: Mapping[str, BucketSecond],
+        contribs: Mapping[str, torch.Tensor],
+        decay: float,
+    ) -> None:
+        """EMA of the scale grids, in place of each bucket's ``skron``:
+        ``decay * old + (1 - decay) * contrib`` for every layer in
+        ``contribs`` (its mean contribution of the step); a slot without
+        one keeps its scales."""
+        for b in self.plan.buckets:
+            bs = buckets[b.key]
+            names = self.local_slots(b)
+            if bs.skron is None or not any(n in contribs for n in names):
+                continue
+            bs.skron = torch.stack([
+                decay * old + (1.0 - decay) * contribs[n]
+                if n in contribs else old
+                for n, old in zip(names, bs.skron)
+            ])
+
+    def ekfac_divergence(
+        self, buckets: Mapping[str, BucketSecond],
+    ) -> torch.Tensor:
+        """Relative Frobenius drift of the scale grids from their refresh
+        seed, ``sqrt(sum ||S - dg ⊗ da||^2 / sum ||dg ⊗ da||^2)`` over
+        the logical entries of occupied slots (a device scalar).  Padded
+        dims are masked out: their seed is the identity pad's eigenvalue
+        1 while their projections are zero, so they would read as drift.
+        """
+        num = torch.zeros((), device=self.device)
+        den = torch.zeros((), device=self.device)
+        for b in self.plan.buckets:
+            bs = buckets[b.key]
+            if bs.skron is None:
+                continue
+            names = self.local_slots(b)
+            first = self.grid.col * b.seg
+            a_dims, g_dims = self._slot_dims[b.key]
+            occ = torch.tensor(
+                [n is not None for n in names], device=self.device,
+            )[:, None, None]
+            ad = torch.tensor(a_dims[first:first + len(names)],
+                              device=self.device)[:, None, None]
+            gd = torch.tensor(g_dims[first:first + len(names)],
+                              device=self.device)[:, None, None]
+            mask = (
+                (torch.arange(b.g_pad, device=self.device)[None, :, None]
+                 < gd)
+                & (torch.arange(b.a_pad, device=self.device)[None, None, :]
+                   < ad)
+                & occ
+            ).float()
+            seed = bs.dg.float()[:, :, None] * bs.da.float()[:, None, :]
+            seed = seed * mask
+            drift = bs.skron * mask - seed
+            num = num + torch.sum(drift * drift)
+            den = den + torch.sum(seed * seed)
+        return torch.sqrt(num / (den + 1e-30))
 
     def memory_usage(self, buckets: Mapping[str, BucketSecond]) -> int:
         """Bytes of stacked second-order state on this rank: every field

@@ -27,6 +27,17 @@ library's idiom; ``step()`` is the JAX ``finalize``::
 
 ``precond.reset_batch()`` drops the micro-batch sums.
 
+Two additive eigen variants of the JAX package: ``lowrank_rank=k``
+(randomized low-rank eigen on every bucket side at least ``2k`` wide;
+exact buckets keep the fused kernel) and ``ekfac=True`` (per-step
+re-estimated scales in the K-FAC eigenbasis), the latter with an
+optional drift-triggered refresh::
+
+    precond = KFACPreconditioner(
+        model, ekfac=True, inv_update_steps=100,
+        adaptive_refresh=AdaptiveRefresh(threshold=0.25, min_interval=10),
+    )
+
 Checkpoints are the stateful calls of the original torch library::
 
     torch.save({'precond': precond.state_dict(), ...}, path)
@@ -60,6 +71,7 @@ from kfac_pytorch_tpu_torch.enums import DistributedStrategy
 from kfac_pytorch_tpu_torch.enums import resolve_grad_worker_fraction
 from kfac_pytorch_tpu_torch.ops import IterativeConfig
 from kfac_pytorch_tpu_torch.parallel.mesh import data_world
+from kfac_pytorch_tpu_torch.parallel.mesh import grid_shape
 
 
 def _unported(option: str, item: str) -> NotImplementedError:
@@ -128,6 +140,24 @@ MultiHeadDotProductAttention`; the ``nn.Linear`` inside
         tied_weights: names of ``nn.Embedding`` modules shared with a
             :class:`~kfac_pytorch_tpu_torch.layers.TiedAttend` head
             (needs ``'embedding'``): one factor set for both calls.
+        lowrank_rank: eigen only: truncate every bucket side whose padded
+            dim is at least ``2 * lowrank_rank`` (and above ``rank +
+            oversample``) to its top eigenpairs by randomized subspace
+            iteration (:mod:`~kfac_pytorch_tpu_torch.ops.lowrank`); such
+            buckets precondition by thin matmuls, the others keep the
+            exact path.  Runs on every KAISA grid.
+        lowrank_oversample, lowrank_power_iters: the sketch's extra
+            columns (default 32) and QR power iterations (default 2).
+        ekfac: eigen only: EKFAC (:mod:`~kfac_pytorch_tpu_torch.ops.\
+ekfac`), the eigenbasis refreshed at the cadence and the scales
+            re-estimated from each factor step's rows; linear and conv2d
+            layers only; exclusive with ``lowrank_rank``.  Across ranks
+            COMM-OPT only (``grid.cols == 1``): a grid with more columns
+            raises ``NotImplementedError`` (``ROADMAP.md`` Queue A item
+            10b).
+        adaptive_refresh: an :class:`~kfac_pytorch_tpu_torch.adaptive.\
+AdaptiveRefresh` that requests a refresh when the EKFAC scales drift
+            (needs ``ekfac``).
 
     A transformer with full coverage, as ``examples/tiny_gpt_lm.py``
     configures it::
@@ -176,6 +206,8 @@ MultiHeadDotProductAttention`; the ``nn.Linear`` inside
         tied_weights: Sequence[str] = (),
         use_pallas: bool | None = None,
         lowrank_rank: int | None = None,
+        lowrank_oversample: int = 32,
+        lowrank_power_iters: int = 2,
         cov_dtype: torch.dtype | None = None,
         ekfac: bool = False,
         adaptive_refresh: Any = None,
@@ -225,12 +257,36 @@ MultiHeadDotProductAttention`; the ``nn.Linear`` inside
             raise ValueError(
                 "iterative_config requires compute_method='iterative'",
             )
+        # The JAX validation of the eigen variants
+        # (base_preconditioner.py:440-475).
+        if adaptive_refresh is not None and not ekfac:
+            raise ValueError(
+                'adaptive_refresh requires ekfac=True (the drift signal '
+                'is the EKFAC scale EMA divergence)',
+            )
+        if lowrank_rank is not None:
+            if compute_method != ComputeMethod.EIGEN:
+                raise ValueError('lowrank_rank requires the EIGEN method')
+            if bucketed is False:
+                raise ValueError(
+                    'lowrank_rank requires the bucketed second-order stage',
+                )
+            if lowrank_rank < 1:
+                raise ValueError('lowrank_rank must be >= 1')
+        if ekfac:
+            if compute_method != ComputeMethod.EIGEN:
+                raise ValueError('ekfac requires the EIGEN method')
+            if lowrank_rank is not None:
+                raise ValueError(
+                    'ekfac and lowrank_rank are mutually exclusive',
+                )
+            if bucketed is False:
+                raise ValueError(
+                    'ekfac requires the bucketed second-order stage',
+                )
         unported = [
             ('bucketed=False', bucketed is False, 'item 4b'),
             ('topology', topology is not None, 'item 29'),
-            ('lowrank_rank', lowrank_rank is not None, 'item 10'),
-            ('ekfac', bool(ekfac), 'item 10'),
-            ('adaptive_refresh', adaptive_refresh is not None, 'item 10'),
             ('adaptive', adaptive is not None, 'item 16'),
             ('stagger_refresh', stagger_refresh is not None, 'item 15'),
             ('overlap_comm', bool(overlap_comm), 'item 17'),
@@ -263,6 +319,15 @@ MultiHeadDotProductAttention`; the ``nn.Linear`` inside
         self.grad_worker_fraction, self.distributed_strategy = (
             resolve_grad_worker_fraction(grad_worker_fraction, data_world())
         )
+        rows, cols = grid_shape(data_world(), self.grad_worker_fraction)
+        if ekfac and cols > 1:
+            raise NotImplementedError(
+                f'ekfac on a KAISA grid with {cols} columns ({rows}x{cols}) '
+                'is not ported to the PyTorch package yet: a rank holds '
+                "only its column's eigenbases, and the scale contributions "
+                'of the other columns\' layers need them (ROADMAP.md Queue '
+                'A item 10b); use COMM-OPT (grad_worker_fraction=1)',
+            )
         self.assignment_strategy = assignment_strategy
         self.colocate_factors = colocate_factors
         self.skip_layers = tuple(skip_layers)
@@ -296,5 +361,10 @@ MultiHeadDotProductAttention`; the ``nn.Linear`` inside
             compute_method=compute_method,
             prediv_eigenvalues=compute_eigenvalue_outer_product,
             iterative_config=iterative_config,
+            lowrank_rank=lowrank_rank,
+            lowrank_oversample=lowrank_oversample,
+            lowrank_power_iters=lowrank_power_iters,
+            ekfac=ekfac,
+            adaptive_refresh=adaptive_refresh,
             loglevel=loglevel,
         )

@@ -1,7 +1,8 @@
 """K-FAC preconditioner state.
 
 Port of ``kfac_pytorch_tpu/state.py:19-131``, with ``AccumState``
-(``state.py:55``).  The JAX package threads
+(``state.py:55``), with the EKFAC scale sums (``state.py:69``).  The
+JAX package threads
 immutable pytrees through jitted steps; here the preconditioner owns its
 state and updates it between steps.
 """
@@ -72,7 +73,9 @@ class AccumState:
     (``None`` until the first fold); ``a_count``/``g_count`` count them,
     and the step divides each sum by its own count.  ``rows`` sums the
     micro-batches' activation rows, for the equal-local-batch check
-    across ranks.
+    across ranks.  Under EKFAC ``s_batch`` sums the micro-batches'
+    ``[g_pad, a_pad]`` scale contributions, each projected in the basis
+    current at its fold, and ``s_count`` counts them.
     """
 
     a_batch: torch.Tensor | None = None
@@ -80,10 +83,13 @@ class AccumState:
     a_count: int = 0
     g_count: int = 0
     rows: int = 0
+    s_batch: torch.Tensor | None = None
+    s_count: int = 0
 
-    def add(self, a: torch.Tensor, g: torch.Tensor, rows: int) -> None:
+    def add(self, a: torch.Tensor, g: torch.Tensor, rows: int,
+            s: torch.Tensor | None = None) -> None:
         """Fold one micro-batch's contributions in (in place after the
-        first)."""
+        first); ``s`` is its EKFAC scale contribution, if any."""
         if self.a_batch is None:
             self.a_batch, self.g_batch = a, g
         else:
@@ -92,3 +98,9 @@ class AccumState:
         self.a_count += 1
         self.g_count += 1
         self.rows += rows
+        if s is not None:
+            if self.s_batch is None:
+                self.s_batch = s
+            else:
+                self.s_batch.add_(s)
+            self.s_count += 1

@@ -184,8 +184,8 @@ def test_step_without_backward_raises():
     (dict(bucketed=False), 'item 4b'),
     (dict(compute_method='inverse', bucketed=False), 'item 4b'),
     (dict(mesh=object()), 'item 7'),
-    (dict(lowrank_rank=8), 'item 10'),
-    (dict(ekfac=True), 'item 10'),
+    (dict(lowrank_rank=8, stagger_refresh=2), 'item 15'),
+    (dict(ekfac=True, overlap_comm=True), 'item 17'),
     (dict(stagger_refresh=2), 'item 15'),
     (dict(adaptive=object()), 'item 16'),
     (dict(overlap_comm=True), 'item 17'),

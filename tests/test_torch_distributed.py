@@ -13,7 +13,16 @@ the eigen and the inverse method, 16 sequences of 8 tokens, next-token
 cross entropy, then LeNet under COMM-OPT with gradient accumulation
 (``accumulation_steps=2``: the global batch of 16 as two micro-batches
 of 8, each rank's 2 rows of each under ``no_sync()`` for the first,
-against the JAX ``accumulate``/``finalize`` on the mesh).  Each rank
+against the JAX ``accumulate``/``finalize`` on the mesh), then LeNet
+with ``lowrank_rank=16`` under HYBRID-OPT (the truncated buckets' sketch
+draws are the JAX package's, computed by the parent and looked up by
+each rank under the slot's index in the whole bucket, so a rank that
+decomposes a share of its column draws what the mesh run draws) and
+with ``ekfac=True`` under COMM-OPT (the scale contributions ride the
+factor all-reduce; the scales are compared at a relative Frobenius
+``<= 1e-4``, since they live in an ``eigh`` basis), and finally EKFAC
+on the HYBRID-OPT grid, which must raise ``NotImplementedError`` naming
+Queue A item 10b on every rank.  Each rank
 wraps the model in
 ``DistributedDataParallel``,
 takes its quarter of the global batch of 16 and trains 5 SGD steps
@@ -76,7 +85,11 @@ GPT_KW = dict(layer_types=('linear', 'conv2d', 'embedding', 'layernorm'),
 #: ``(model, strategy, accumulation_steps)`` runs with gradient
 #: accumulation.
 ACCUM_CASES = [('lenet', 'COMM_OPT', 2)]
-SPAWN_TIMEOUT_S = 150
+#: ``(model, strategy, variant)`` runs of the eigen variants.
+VARIANT_CASES = [('lenet', 'HYBRID_OPT', 'lowrank'),
+                 ('lenet', 'COMM_OPT', 'ekfac')]
+VARIANT_KW = {'lowrank': dict(lowrank_rank=16), 'ekfac': dict(ekfac=True)}
+SPAWN_TIMEOUT_S = 180
 #: Local batch size of each rank, per case.
 UNEQUAL_BATCHES = {'one_short': (4, 4, 4, 3), 'mean_equal': (3, 4, 5, 4)}
 
@@ -113,7 +126,7 @@ def port_loss(name, out, y):
 
 
 def train_rank(rank, world, weights, name, strategy, method='eigen',
-               accumulation=1):
+               accumulation=1, **kfac_kw):
     """One rank's trajectory of ``name`` under ``strategy``; with
     ``accumulation`` micro-batches per step (the global batch split in
     order, each rank taking its share of each)."""
@@ -131,7 +144,7 @@ def train_rank(rank, world, weights, name, strategy, method='eigen',
     precond = KFACPreconditioner(
         ddp, grad_worker_fraction=DistributedStrategy[strategy],
         compute_method=method, accumulation_steps=accumulation, **HP,
-        **(GPT_KW if name == 'gpt' else {}),
+        **(GPT_KW if name == 'gpt' else {}), **kfac_kw,
     )
     opt = torch.optim.SGD(model.parameters(), lr=LR)
     steps = []
@@ -155,6 +168,8 @@ def train_rank(rank, world, weights, name, strategy, method='eigen',
         steps.append(dict(
             grads=grads, factors=factors,
             params_equal=all(torch.equal(flat, o) for o in every),
+            skron={k: bs.skron.clone() for k, bs in precond.buckets.items()
+                   if bs.skron is not None},
         ))
     grid = precond.grid
     return precond, dict(
@@ -204,6 +219,32 @@ def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
         _, res = train_rank(rank, world, weights, name, strategy,
                             accumulation=n_accum)
         results[name, strategy, n_accum] = res
+    from kfac_pytorch_tpu_torch.ops import lowrank
+
+    draws = torch.load(out / 'draws.pt')
+    real_draw = lowrank.draw_sketch
+    lowrank.draw_sketch = (
+        lambda seed, side, step, slot, n, m, device:
+        draws[seed, side, step, slot, n, m].to(device))
+    try:
+        for name, strategy, variant in VARIANT_CASES:
+            precond, res = train_rank(rank, world, weights, name, strategy,
+                                      **VARIANT_KW[variant])
+            res['held'] = {
+                k: {f: tuple(t.shape) for f, t in bs.tensors().items()}
+                for k, bs in precond.buckets.items()
+            }
+            results[name, strategy, variant] = res
+    finally:
+        lowrank.draw_sketch = real_draw
+    try:
+        KFACPreconditioner(
+            torch.nn.parallel.DistributedDataParallel(LeNet(image_size=16)),
+            ekfac=True, grad_worker_fraction=DistributedStrategy.HYBRID_OPT,
+        )
+        results['ekfac_cols'] = 'no error'
+    except NotImplementedError as exc:
+        results['ekfac_cols'] = str(exc)
     # Unequal local batches raise on every rank, so no rank goes on into
     # a collective that the others skip.  In the second case the mean
     # count equals ranks 1 and 3's own.
@@ -289,6 +330,7 @@ def runs(tmp_path_factory):
         {n: flax_to_torch_state_dict(v) for n, v in variables.items()},
         out / 'init.pt',
     )
+    torch.save(jax_lowrank_draws(), out / 'draws.pt')
     deadline = time.time() + SPAWN_TIMEOUT_S
     procs = spawn(__file__, WORLD, out)
 
@@ -400,10 +442,77 @@ def runs(tmp_path_factory):
                     },
                 ))
             ref[name, strategy, n_accum] = steps
+        for name, strategy, variant in VARIANT_CASES:
+            x, y = data(name)
+            precond = JaxPreconditioner(
+                jax_models[name], loss_fn=xent, mesh=mesh,
+                grad_worker_fraction=JaxStrategy[strategy], **HP,
+                **VARIANT_KW[variant],
+            )
+            state = precond.init(variables[name], x)
+            params = variables[name]['params']
+            steps = []
+            for _ in range(STEPS):
+                _, _, grads, state = precond.step(
+                    {'params': params}, state, jax.device_put(x, shard),
+                    loss_args=(jax.device_put(jnp.asarray(y), shard),),
+                )
+                grads = jax.tree.map(np.asarray, grads)
+                params = jax.tree.map(lambda w, g: w - LR * g, params, grads)
+                steps.append(dict(
+                    grads=flax_to_torch_state_dict({'params': grads}),
+                    factors={
+                        base: (np.asarray(state[base].a_factor),
+                               np.asarray(state[base].g_factor))
+                        for base in state.layers
+                    },
+                    skron={k: np.asarray(bs.skron)
+                           for k, bs in state.buckets.items()
+                           if bs.skron is not None},
+                    lowrank=dict(precond._second_order._lowrank),
+                ))
+            ref[name, strategy, variant] = steps
     finally:
         join(procs, deadline)
     ranks = [torch.load(out / f'rank{r}.pt') for r in range(WORLD)]
     return ref, ranks
+
+
+def jax_lowrank_draws() -> dict:
+    """The JAX bucketed stage's sketch for every ``(bucket seed, side,
+    step, slot, n, m)`` LeNet's low-rank run can draw (its buckets'
+    padded dims, both sides, the refresh steps, up to four slots):
+    ``normal(fold_in(fold_in(fold_in(PRNGKey(seed), side), step),
+    slot), (n, n_sketch))`` as torch tensors."""
+    import zlib
+
+    import jax
+    import jax.numpy as jnp
+
+    from kfac_pytorch_tpu_torch.capture import ModelCapture
+    from kfac_pytorch_tpu_torch.parallel.bucketing import pad_dim
+
+    k = VARIANT_KW['lowrank']['lowrank_rank']
+    m = k + 32
+    helpers = ModelCapture(LeNet(image_size=16), skip_layers=(),
+                           layer_types=('linear', 'conv2d'),
+                           kfac_approx='expand', tied_weights=()).helpers
+    out = {}
+    for h in helpers.values():
+        a, g = pad_dim(h.a_factor_shape[0]), pad_dim(h.g_factor_shape[0])
+        seed = zlib.crc32(f'a{a}g{g}'.encode())
+        for side, n in enumerate((a, g)):
+            if not (n >= 2 * k and m < n):
+                continue
+            for step in range(0, STEPS, HP['inv_update_steps']):
+                for slot in range(4):
+                    key = jax.random.fold_in(jax.random.fold_in(
+                        jax.random.fold_in(jax.random.PRNGKey(seed), side),
+                        step), slot)
+                    out[seed, side, step, slot, n, m] = torch.from_numpy(
+                        np.array(jax.random.normal(key, (n, m),
+                                                   jnp.float32)))
+    return out
 
 
 CASES = [(m, s) for m in MODELS for s in STRATEGIES]
@@ -610,6 +719,65 @@ def test_accumulation_parameters_bitwise_equal_across_ranks(runs, case):
     for rank, res in enumerate(ranks):
         flags = [s['params_equal'] for s in res[case]['steps']]
         assert flags == [True] * STEPS, (rank, flags)
+
+
+VARIANT_IDS = [f'{m}-{s}-{v}' for m, s, v in VARIANT_CASES]
+
+
+@pytest.mark.parametrize('case', VARIANT_CASES, ids=VARIANT_IDS)
+def test_variants_match_jax_mesh(runs, case):
+    """Preconditioned gradients (max abs ``< 2e-4``), factor EMAs
+    (``rtol 1e-5, atol 1e-6``) and, under EKFAC, every bucket's scales
+    (relative Frobenius ``<= 1e-4``) on every rank against the JAX mesh
+    run; parameters bitwise equal across ranks."""
+    ref, ranks = runs
+    for rank, res in enumerate(ranks):
+        for step, (got, want) in enumerate(zip(res[case]['steps'],
+                                               ref[case])):
+            assert set(got['grads']) == set(want['grads'])
+            diff = max(
+                float((got['grads'][n] - want['grads'][n]).abs().max())
+                for n in want['grads']
+            )
+            assert diff < 2e-4, (rank, step, diff)
+            for layer, (a, g) in want['factors'].items():
+                for side, w in enumerate((a, g)):
+                    np.testing.assert_allclose(
+                        got['factors'][layer][side].numpy(), w, rtol=1e-5,
+                        atol=1e-6,
+                    )
+            assert set(got['skron']) == set(want['skron'])
+            for key, s in want['skron'].items():
+                err = float(np.linalg.norm(got['skron'][key].numpy() - s)
+                            / np.linalg.norm(s))
+                assert err <= 1e-4, (rank, step, key, err)
+            assert got['params_equal'], (rank, step)
+
+
+def test_lowrank_holds_thin_column_slots(runs):
+    """HYBRID-OPT: each rank keeps its column's ``seg`` slots of the thin
+    stacks (and of ``dgda`` on the exact bucket), truncated as the JAX
+    plan truncates."""
+    ref, ranks = runs
+    case = ('lenet', 'HYBRID_OPT', 'lowrank')
+    engaged = ref[case][0]['lowrank']
+    assert any(la or lg for la, lg in engaged.values())
+    for res in ranks:
+        assert res[case]['grid'][:2] == (2, 2)
+        for key, shapes in res[case]['held'].items():
+            la, lg = engaged[key]
+            assert ('dgda' in shapes) == (not (la or lg)), key
+            a, g = (int(v) for v in key[1:].split('g'))
+            assert shapes['qa'][1:] == (a, 16 if la else a), key
+            assert shapes['qg'][1:] == (g, 16 if lg else g), key
+            assert ('sa' in shapes) == la and ('sg' in shapes) == lg
+
+
+def test_ekfac_off_comm_opt_raises_on_every_rank(runs):
+    _, ranks = runs
+    for rank, res in enumerate(ranks):
+        assert 'item 10b' in res['ekfac_cols'], (rank, res['ekfac_cols'])
+        assert 'NotImplementedError' not in res['ekfac_cols']
 
 
 @pytest.mark.parametrize('case', list(UNEQUAL_BATCHES))

@@ -143,8 +143,11 @@ def test_optimizer_lr_and_kfac_schedules_match_jax():
     precond._steps = 3  # epoch 1: the damping decay epoch
     kfac_sched.step()
     assert precond.damping == pytest.approx(damping * 0.5)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        optimizers.get_optimizer(TinyModel(), _args(kfac_lowrank_rank=4), 3)
+    lowrank = optimizers.get_optimizer(
+        TinyModel(), _args(kfac_lowrank_rank=4), 3)[2]
+    assert lowrank.lowrank_rank == 4 and not lowrank.ekfac
+    assert optimizers.get_optimizer(
+        TinyModel(), _args(kfac_ekfac=True), 3)[2].ekfac
     no_kfac = optimizers.get_optimizer(
         TinyModel(), _args(kfac_inv_update_steps=0), 3)
     assert no_kfac[2] is None and no_kfac[3] is None
@@ -253,6 +256,37 @@ def test_cifar_trainer_runs_one_epoch(tmp_path, small_cifar, capsys,
     assert json.loads(lines[0])['tag'] == 'env'
 
 
+@pytest.mark.parametrize('flags,want', [
+    (('--kfac-lowrank-rank', '16'), dict(lowrank_rank=16, ekfac=False)),
+    (('--kfac-ekfac',), dict(lowrank_rank=None, ekfac=True)),
+], ids=['lowrank', 'ekfac'])
+def test_cifar_trainer_runs_eigen_variants(tmp_path, small_cifar, capsys,
+                                           monkeypatch, flags, want):
+    """One synthetic epoch with ``--kfac-lowrank-rank`` (ResNet-20's wide
+    conv buckets truncate) and with ``--kfac-ekfac``."""
+    made = []
+    real = optimizers.KFACPreconditioner
+
+    def spy(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(optimizers, 'KFACPreconditioner', spy)
+    cifar10_resnet.main(_cifar(tmp_path, *flags))
+    out = capsys.readouterr().out
+    assert math.isfinite(float(out.split('train_loss=')[1].split()[0]))
+    (precond,) = made
+    assert {k: getattr(precond, k) for k in want} == want
+    assert precond.steps == 3
+    so = precond._second_order
+    if want['lowrank_rank']:
+        assert any(any(so.lowrank_sides(b.key)) for b in precond.plan.buckets)
+    else:
+        assert all(bs.skron is not None for bs in precond.buckets.values())
+    payload = utils.load_checkpoint(str(tmp_path / 'log' / 'checkpoint_0'))
+    assert payload['kfac']['steps'] == 3
+
+
 def test_cifar_trainer_resumes_from_the_newest_checkpoint(
         tmp_path, small_cifar, capsys):
     cifar10_resnet.main(_cifar(tmp_path))
@@ -332,6 +366,25 @@ def test_bench_measures_on_the_cpu():
                 f'{name}_ratio'} <= set(d)
     assert d['gpt125m_ratio'] is None and 'nvidia_smi' in d['env']
     json.dumps(line)
+
+
+@pytest.mark.parametrize('name', ['resnet50_lowrank512', 'resnet50_ekfac'])
+def test_bench_eigen_variants_on_the_cpu(name, monkeypatch):
+    """The bench's low-rank and EKFAC configurations at a tiny size (the
+    headline's cadence cut to inv 2, rank 512 cut to 16 so ResNet-20's
+    wide buckets still truncate): finite times under their own keys, and
+    outside the default set."""
+    cfg = dict(bench.CONFIGS[name], model='resnet20', batch=4, image=16,
+               classes=10, factor_steps=1, inv_steps=2, sgd_iters=2)
+    if 'lowrank' in name:
+        cfg['kfac_kw'] = dict(lowrank_rank=16)
+    assert name not in bench.DEFAULT_CONFIGS
+    monkeypatch.setitem(bench.CONFIGS, name, cfg)
+    line = bench.run([name], 'cpu')
+    d = line['detail']
+    assert d[f'{name}_sgd_ms'] > 0 and d[f'{name}_kfac_ms_amortized'] > 0
+    assert math.isfinite(d[f'{name}_ratio'])
+    assert line['value'] is None
 
 
 # -- no card ---------------------------------------------------------------

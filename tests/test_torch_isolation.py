@@ -56,7 +56,8 @@ def test_scan_finds_the_port():
                    'examples/imagenet_resnet.py',
                    'examples/cnn_utils/datasets.py',
                    'examples/cnn_utils/engine.py',
-                   'examples/cnn_utils/optimizers.py'):
+                   'examples/cnn_utils/optimizers.py', 'ops/lowrank.py',
+                   'ops/ekfac.py', 'adaptive.py'):
         assert port / module in files, module
 
 

@@ -113,12 +113,12 @@ def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
     (got,) = collectives.all_gather_decompositions(
         [(slot_stack(share, 4), slot_stack(share, 2),
           slot_stack(share, 2)[:, :, :1].expand(-1, 2, 4).contiguous())],
-        [UNEVEN_SEG], col.col_group, identity=(True, True, False),
+        [UNEVEN_SEG], col.col_group, identity=[(True, True, False)],
     )
     results['uneven'] = got
     results['mixed'] = collectives.all_gather_decompositions(
         [mixed_share(UNEVEN_SEG, world, rank), mixed_share(2, world, rank)],
-        [UNEVEN_SEG, 2], col.col_group, identity=MIXED_IDENTITY,
+        [UNEVEN_SEG, 2], col.col_group, identity=[MIXED_IDENTITY] * 2,
     )
     torch.save(results, out / f'rank{rank}.pt')
     dist.destroy_process_group()
