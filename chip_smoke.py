@@ -151,7 +151,41 @@ fails:
     2's scale update against a float64 CPU recompute from the captured
     rows and basis (``<= 1e-5``); at least one refresh the drift asked
     for, off the cadence; the drift at every factor step, the stage
-    medians and the ``ekfac scales`` stage.
+    medians and the ``ekfac scales`` stage;
+14. the staggered refresh on ResNet-50: phase 9's batch, a factor update
+    every step, inv 10, ``stagger_refresh=5``, 31 steps, then the same
+    31 steps monolithic.  Gates: the cadence (the monolithic bootstrap
+    at step 0, then shard ``s % 10`` at every phase below 5: shards 1-4
+    at steps 1-4, 0-4 at 10-14, 20-24 and 30; never a monolithic refresh
+    again), 21 kernel launches a step, finite falling losses, the
+    shard-0 step against a plain rerun; on the last factors, a sweep of
+    the five shards against one monolithic refresh (every slot's ``dgda``
+    and ``q diag(d) q^T`` within ``max(1e-4, 4 n eps)``, eigenvectors
+    orthonormal within ``1e-3``); a checkpoint after step 12 resumed to
+    step 16 by fresh objects bitwise equal to the same run restored in
+    place, on the shard cadence.  Prints each mode's step p50/p95/max,
+    every shard refresh's time and the plan's costs;
+15. the drift-adaptive staggered refresh: phase 14's configuration with
+    ``AdaptiveRefreshConfig(threshold=0.2, staleness_factor=3,
+    record_events=True)``, 40 steps, twice.  Gates from the controller's
+    events: at most one refresh per shard per interval, every age at a
+    decision at most ``3 * 10 - 1``, the rerun's decisions identical; 21
+    launches a step.  Prints the counters and the host reads of the
+    drift per factor step.
+
+Phase 5 also trains ResNet-32 at world 4 under each strategy with
+``factor_comm='bf16_triu'`` (a timing pass of the factor all-reduce,
+then a checked pass: the first factor step's EMAs against the dense
+run's within ``rtol 0.02, atol 0.02 max|F|``; the wire bytes of the
+packed factors against the dense ones), under HYBRID-OPT with
+``stagger_refresh=2`` at inv 4 (the shard cadence; the sharded kernel;
+a shard sweep against a monolithic refresh by their preconditioned
+gradients, within the eigen gate) and with the adaptive cadence (every
+rank decides the same).  Phase 6 also runs the replicated engine
+(``bucketed=False``: eigen, eigen without prediv, inverse; no kernel
+launch; the refresh step against the bucketed engine from the same
+factors) and ``compute_factor_eig_general`` on a non-symmetric card
+tensor against ``numpy.linalg.eig``.
 
 A ``phases:`` line gives each phase's time.
 
@@ -834,6 +868,118 @@ def phase_methods(torch, kt):
               f'medians (CUDA events): factors {ms["factors (cov+EMA)"]:.4f}'
               f' ms, precondition {ms["precondition"]:.4f} ms; refresh at '
               f'steps 0 and {CHECK_STEP}: {refresh} ms', flush=True)
+        del run
+    for label, kw in REPLICATED.items():
+        run = train_resnet32(torch, kt, bucketed=False, **kw)
+        if run['launches'] != 0:
+            fail(f'methods replicated {label}: the fused kernel launched '
+                 f'{run["launches"]} times (expected 0)')
+        worst_d, worst_g = check_replicated(
+            torch, kt, run, f'methods replicated {label}')
+        losses = run['losses']
+        print(f'methods replicated {label} (bucketed=False): losses '
+              f'first={losses[0]:.6f} last={losses[-1]:.6f}; fused-kernel '
+              f'launches 0; step {CHECK_STEP} vs the bucketed engine from '
+              f'the same factors: decompositions {worst_d:.3f} and '
+              f'preconditioned grads {worst_g:.3f} of their gates; median '
+              f'step {statistics.median(run["step_s"][1:]) * 1e3:.4f} ms; '
+              'refresh at steps 0 and 10: '
+              + ', '.join(f'{t:.4f}' for t in run['refresh_ms']) + ' ms',
+              flush=True)
+        del run
+    err = check_eig_general(torch, kt)
+    print(f'methods: compute_factor_eig_general on a seeded non-symmetric '
+          f'96 x 96 card tensor vs numpy.linalg.eig: clamped real spectrum '
+          f'rel err {err:.3e}, result on the card', flush=True)
+
+
+#: Phase 6's replicated engine (``bucketed=False``): label -> keywords.
+REPLICATED = {
+    'eigen': {}, 'eigen_noprediv': METHODS['eigen_noprediv'],
+    'inverse': METHODS['inverse'],
+}
+
+
+def check_replicated(torch, kt, run, label):
+    """The replicated run's refresh step against the bucketed engine's
+    on the card from the same factor EMAs and raw gradients: every
+    preconditioned gradient (the bucketed stage decomposes padded stacks
+    in one batched call, the replicated engine each layer alone, so the
+    eigenbases differ inside near-degenerate clusters: eigen within
+    :func:`eigen_gate` of the bucket's pad, inverse ``< 1e-4``); without
+    prediv each layer's eigenvalues, with the identity pad's 1s added,
+    against the bucket slot's (eigen gate), and the inverses against the
+    slot's top-left blocks (``< 1e-4``); every eigenvector stack
+    orthonormal within ``1e-3``.  Returns ``(worst decomposition, worst
+    gradient)`` as ratios to their gates (no decomposition compared
+    under prediv: ``dgda`` orders the padded spectra)."""
+    from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
+    from kfac_pytorch_tpu_torch.parallel.second_order import (
+        BucketedSecondOrder,
+    )
+    from kfac_pytorch_tpu_torch.state import LayerKFACState
+
+    precond = run['precond']
+    plan = make_bucket_plan(precond.helpers)
+    bucketed = BucketedSecondOrder(
+        plan, compute_method=precond.compute_method,
+        prediv_eigenvalues=precond.prediv_eigenvalues, device=DEVICE,
+    )
+    layers = {n: LayerKFACState(a_factor=a, g_factor=g)
+              for n, (a, g) in run['factors'].items()}
+    buckets = bucketed.compute(layers, 0.003)
+    want, _ = bucketed.precondition(buckets, run['raw'], 0.003, 0.001, 0.1)
+    worst_d = worst_g = 0.0
+    for name, st in precond.layers.items():
+        key, i = plan.slot_of[name]
+        b, bs = plan.bucket(key), buckets[key]
+        a, g = st.a_factor.shape[-1], st.g_factor.shape[-1]
+        if st.a_inv is not None:
+            gate = 1e-4
+            pairs = [(st.a_inv, bs.a_inv[i, :a, :a]),
+                     (st.g_inv, bs.g_inv[i, :g, :g])]
+        else:
+            gate = eigen_gate(max(b.a_pad, b.g_pad))
+            pairs = []
+            if st.da is not None:
+                for d, ref, pad in ((st.da, bs.da[i], b.a_pad - a),
+                                    (st.dg, bs.dg[i], b.g_pad - g)):
+                    ones = torch.ones(pad, device=d.device)
+                    pairs.append((torch.cat([d, ones]).sort().values, ref))
+            for q in (st.qa, st.qg):
+                eye = torch.eye(q.shape[-1], device=q.device)
+                if not float((q.mT @ q - eye).abs().max()) < 1e-3:
+                    fail(f'{label}: {name} eigenvectors off orthonormal')
+        for got, ref in pairs:
+            worst_d = max(worst_d, rel_frob(got, ref) / gate)
+        worst_g = max(worst_g, rel_frob(run['got'][name], want[name]) / gate)
+    if not (worst_d <= 1 and worst_g <= 1):
+        fail(f'{label}: step {CHECK_STEP} vs the bucketed engine: '
+             f'decompositions {worst_d:.3f} and preconditioned grads '
+             f'{worst_g:.3f} of their gates')
+    return worst_d, worst_g
+
+
+def check_eig_general(torch, kt):
+    """``compute_factor_eig_general`` on a seeded non-symmetric 96 x 96
+    card tensor (the host eig, as the JAX package runs it) against
+    ``numpy.linalg.eig``: the clamped real spectra, sorted, ``rtol
+    1e-5``; the result comes back on the card.  Returns the error."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    f = rng.standard_normal((96, 96)).astype(np.float32)
+    q, d = kt.ops.compute_factor_eig_general(
+        torch.from_numpy(f).to(DEVICE))
+    want = np.sort(np.clip(np.linalg.eig(f)[0].real.astype(np.float32),
+                           0.0, None))
+    got = np.sort(d.cpu().numpy())
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    if not (q.device.type == d.device.type == torch.device(DEVICE).type
+            and err <= 1e-5 and (d >= 0).all()):
+        fail(f'compute_factor_eig_general: spectrum rel err {err:.3e}, '
+             f'on {q.device}')
+    return err
 
 
 def report_iterative(torch, kt, calls, tol, n_buckets):
@@ -1393,6 +1539,10 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
         'decomposition gather', collectives.all_gather_decompositions)
     collectives.all_gather_preconditioned = timed(
         'gradient gather', collectives.all_gather_preconditioned)
+    # Under factor_comm the factor all-reduce is two calls a step: the
+    # bf16 triangles, then the dense rest (the row counts at least).
+    collectives.all_reduce_sum_triu = timed(
+        'factor all-reduce', collectives.all_reduce_sum_triu)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1401,7 +1551,7 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
     q = BATCH // world
     xl, yl = x[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
 
-    def train(strategy, method='eigen'):
+    def train(strategy, method='eigen', inv=10, **kfac_kw):
         """``KAISA_STEPS`` steps from the seeded weights; the launches
         are counted from 0 over exactly these steps."""
         model = kt.models.resnet32(device=dev, seed=0)
@@ -1409,12 +1559,14 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
             model, device_ids=None if dev.index is None else [dev.index],
         )
         precond = kt.KFACPreconditioner(
-            ddp, factor_update_steps=1, inv_update_steps=10, damping=0.003,
+            ddp, factor_update_steps=1, inv_update_steps=inv, damping=0.003,
             kl_clip=0.001, lr=0.1, compute_method=method,
             grad_worker_fraction=kt.DistributedStrategy[strategy],
+            **kfac_kw,
         )
         opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
-        run = dict(precond=precond, losses=[], step_s=[], equal=[])
+        run = dict(precond=precond, losses=[], step_s=[], equal=[],
+                   actions=[])
         sync(dev)
         ops.fused_eigen_precondition.launches = 0
         for step in range(KAISA_STEPS):
@@ -1426,6 +1578,7 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
                 run['raw'] = {n: h.get_grad().clone()
                               for n, h in precond.helpers.items()}
             precond.step()
+            run['actions'].append(precond.last_refresh)
             if step in (0, CHECK_STEP):  # the two refresh steps
                 run[f'factors{step}'] = {
                     n: LayerKFACState(a_factor=st.a_factor.clone(),
@@ -1472,7 +1625,22 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
                                f'single-process rerun {worst:.3e}')
         return worst
 
-    report = {}
+    def checked(run, label, launches_per_step):
+        """The gates every extra run shares: finite losses, parameters
+        bitwise equal across ranks, the kernel's launches."""
+        if not all(math.isfinite(v) for v in run['losses']):
+            raise RuntimeError(f'{label}: non-finite loss {run["losses"]}')
+        if not all(run['equal']):
+            raise RuntimeError(
+                f'{label}: parameters differ across ranks after steps '
+                f'{[i for i, e in enumerate(run["equal"]) if not e]}')
+        want_n = (KAISA_STEPS * launches_per_step if dev.type == 'cuda'
+                  else 0)
+        if run['launches'] != want_n:
+            raise RuntimeError(f'{label}: {run["launches"]} kernel '
+                               f'launches, expected {want_n}')
+
+    report, dense_f0 = {}, {}
     for strategy in KAISA_STRATEGIES:
         # The timing pass first, so the checked pass that follows is the
         # one whose launches are read.
@@ -1538,6 +1706,7 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
             check_rel_err=worst, f32_err=f32_err, bf16_err=bf16_err,
             memory=precond.memory_usage(),
         )
+        dense_f0[strategy] = run['factors0']
         del run, precond
         if dev.type == 'cuda':
             torch.cuda.empty_cache()
@@ -1562,6 +1731,87 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
             memory=precond.memory_usage(),
         )
         del run, precond
+    # factor_comm='bf16_triu': the first factor step's EMAs (the same
+    # weights and batch as the dense run's) within the compressed path's
+    # bar of the CPU test, rtol 0.02 and atol 0.02 * max|F| (JAX's own
+    # bar for its compressed path against the dense one).
+    for strategy in KAISA_STRATEGIES:
+        label = f'{strategy} bf16_triu rank {rank}'
+        for v in timings.values():
+            v.clear()
+        timing['on'] = True
+        train(strategy, factor_comm='bf16_triu')
+        timing['on'] = False
+        reduce_s = list(timings['factor all-reduce'])
+        run = train(strategy, factor_comm='bf16_triu')
+        precond = run['precond']
+        checked(run, label, len(precond.plan.buckets))
+        worst = 0.0
+        for n, st in run['factors0'].items():
+            d = dense_f0[strategy][n]
+            for got, want in ((st.a_factor, d.a_factor),
+                              (st.g_factor, d.g_factor)):
+                bar = 0.02 * want.abs() + 0.02 * want.abs().max()
+                worst = max(worst, float(((got - want).abs() / bar).max()))
+        if not worst <= 1:
+            raise RuntimeError(f'{label}: step-0 factors off the dense '
+                               f'run by {worst:.3f} of the bf16 bar')
+        dims = [d for n in precond._compressed
+                for d in (precond.layers[n].a_factor.shape[-1],
+                          precond.layers[n].g_factor.shape[-1])]
+        every = [t.numel() for st in precond.layers.values()
+                 for t in (st.a_factor, st.g_factor)]
+        report[strategy, 'bf16_triu'] = dict(
+            grid=(precond.grid.rows, precond.grid.cols),
+            losses=run['losses'], launches=run['launches'], bar=worst,
+            wire=(sum(d * (d + 1) // 2 * 2 for d in dims),
+                  sum(d * d * 4 for d in dims), sum(every) * 4),
+            step_s=run['step_s'], reduce_s=reduce_s,
+        )
+        del run, precond
+    # stagger_refresh=2 at inv 4 under HYBRID-OPT: the shard cadence, the
+    # sharded kernel, and on the last factors a sweep of both shards
+    # against one monolithic refresh, compared by their action on the
+    # check step's raw gradients (eigen gate at the widest pad, 576).
+    label = f'HYBRID_OPT stagger rank {rank}'
+    run = train('HYBRID_OPT', inv=4, stagger_refresh=2)
+    precond = run['precond']
+    checked(run, label, len(precond.plan.buckets))
+    want_actions = stagger_cadence(KAISA_STEPS, 4, 2)
+    if run['actions'] != want_actions:
+        raise RuntimeError(f'{label}: refreshes {run["actions"]}, expected '
+                           f'{want_actions}')
+    so = precond._second_order
+    mono = so.compute(precond.layers, 0.003)
+    swept = precond.buckets
+    for k in range(precond.stagger.n_shards):
+        swept = so.compute_shard(precond.layers, 0.003, k, swept)
+    want, _ = so.precondition(mono, run['raw'], 0.003, 0.001, 0.1)
+    got, _ = so.precondition(swept, run['raw'], 0.003, 0.001, 0.1)
+    sweep_err = max(rel_frob(got[n], w) for n, w in want.items())
+    if not sweep_err <= eigen_gate(576):
+        raise RuntimeError(f'{label}: shard sweep vs monolithic refresh, '
+                           f'preconditioned grads rel err {sweep_err:.3e}')
+    report['stagger'] = dict(actions=run['actions'], losses=run['losses'],
+                             launches=run['launches'], sweep_err=sweep_err,
+                             grid=(precond.grid.rows, precond.grid.cols))
+    del run, precond, mono, swept, want, got
+    # The drift-adaptive cadence on the same grid: the parent checks that
+    # every rank decided the same.
+    label = f'HYBRID_OPT adaptive rank {rank}'
+    run = train('HYBRID_OPT', inv=4, stagger_refresh=2,
+                adaptive=kt.AdaptiveRefreshConfig(
+                    threshold=0.2, staleness_factor=3, record_events=True))
+    precond = run['precond']
+    checked(run, label, len(precond.plan.buckets))
+    ctl = precond.adaptive_controller
+    sketch, digest = precond._adaptive_last_drift
+    report['adaptive'] = dict(
+        events=list(ctl.events), counters=ctl.counters(),
+        syncs=precond.adaptive_host_syncs, losses=run['losses'],
+        launches=run['launches'], sketch=sketch.cpu(), digest=digest.cpu(),
+    )
+    del run, precond, ctl
     torch.save(report, os.path.join(workdir, f'rank{rank}.pt'))
     dist.barrier()
     dist.destroy_process_group()
@@ -1677,6 +1927,63 @@ def phase_kaisa(torch, kt):
               f'ms; step {CHECK_STEP} rel err vs single-process rerun per '
               f'rank {errs}; second-order bytes per rank '
               f'{runs[0]["memory"]["second_order"]}', flush=True)
+    for strategy in KAISA_STRATEGIES:
+        runs = [r[strategy, 'bf16_triu'] for r in ranks]
+        losses = [statistics.fmean(v) for v in zip(*(r['losses']
+                                                      for r in runs))]
+        if not losses[-1] < losses[0]:
+            fail(f'kaisa {strategy} bf16_triu: mean loss did not fall: '
+                 f'{losses}')
+        total_launches += sum(r['launches'] for r in runs)
+        packed, dense, every = runs[0]['wire']
+        step_ms = statistics.median(
+            ms for r in runs for ms in r['step_s'][1:]) * 1e3
+        reduce_ms = (sum(t for r in runs for t in r['reduce_s']) * 1e3
+                     / (KAISA_STEPS * len(runs)))
+        print(f'kaisa {strategy} bf16_triu: grid {runs[0]["grid"]}; mean '
+              f'loss {losses[0]:.6f} -> {losses[-1]:.6f}; parameters '
+              'bitwise equal across ranks after every step; launches '
+              f'{[r["launches"] for r in runs]}; step-0 factors vs the '
+              'dense run, worst per rank '
+              + ', '.join(f'{r["bar"]:.3f}' for r in runs)
+              + ' of the bf16 bar (rtol 0.02, atol 0.02 max|F|); wire '
+              f'bytes of the packed factors {packed} against {dense} dense '
+              f'f32 (ratio {packed / dense:.4f}; d(d+1)/2 x 2 against d^2 '
+              f'x 4), of all factors {packed + every - dense} against '
+              f'{every}; factor all-reduce {reduce_ms:.4f} ms per step in '
+              'all (timing pass: the bf16 triangles and the dense rest); '
+              f'median step {step_ms:.4f} ms (checked pass)', flush=True)
+    runs = [r['stagger'] for r in ranks]
+    total_launches += sum(r['launches'] for r in runs)
+    losses = [statistics.fmean(v) for v in zip(*(r['losses'] for r in runs))]
+    if not losses[-1] < losses[0]:
+        fail(f'kaisa HYBRID_OPT stagger: mean loss did not fall: {losses}')
+    print(f'kaisa HYBRID_OPT stagger_refresh=2 (inv 4): grid '
+          f'{runs[0]["grid"]}; refreshes per step {runs[0]["actions"]} on '
+          'every rank; the sharded kernel launched '
+          f'{[r["launches"] for r in runs]} times; mean loss '
+          f'{losses[0]:.6f} -> {losses[-1]:.6f}; shard sweep vs one '
+          'monolithic refresh on the last factors, preconditioned grads '
+          'rel err per rank '
+          + ', '.join(f'{r["sweep_err"]:.3e}' for r in runs)
+          + f' (gate {eigen_gate(576):.3e})', flush=True)
+    runs = [r['adaptive'] for r in ranks]
+    total_launches += sum(r['launches'] for r in runs)
+    for rank, r in enumerate(runs[1:], 1):
+        if not (r['events'] == runs[0]['events']
+                and torch.equal(r['digest'], runs[0]['digest'])
+                and torch.equal(r['sketch'], runs[0]['sketch'])):
+            fail(f'kaisa HYBRID_OPT adaptive: rank {rank} decided '
+                 f'{r["events"]}, rank 0 {runs[0]["events"]}')
+    bad = adaptive_invariants(runs[0]['events'], 4, 12)
+    if bad:
+        fail(f'kaisa HYBRID_OPT adaptive: contract violations {bad}')
+    print(f'kaisa HYBRID_OPT adaptive (stagger 2, inv 4, threshold 0.2, '
+          f'floor 3x): every rank made the same decisions from the same '
+          f'digest and sketch: {runs[0]["events"]}; counters '
+          f'{runs[0]["counters"]}; host reads of the drift '
+          f'{runs[0]["syncs"]} per rank over {KAISA_STEPS} factor steps; '
+          f'launches {[r["launches"] for r in runs]}', flush=True)
     if [s[1][0] for s in ranks[0]['MEM_OPT']['shards']] != MEM_OPT_SEGS:
         fail(f'MEM-OPT shards {ranks[0]["MEM_OPT"]["shards"]}')
     return total_launches, mem_gather_ms
@@ -2207,6 +2514,361 @@ def phase_resnet50_ekfac(torch, kt):
     return launches
 
 
+#: Phase 14: ResNet-50 with the staggered refresh, a factor update every
+#: step, a refresh interval of 10 split into ``RN50_STAGGER`` shards;
+#: 31 steps staggered, then the same 31 monolithic.
+RN50_STAGGER_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=10)
+RN50_STAGGER = 5
+RN50_STAGGER_STEPS = 31
+RN50_STAGGER_CHECK = 30  # the last refresh (shard 0): the kernel vs a rerun
+#: The checkpoint of phase 14's resume, and the last resumed step.
+RN50_STAGGER_SAVE = 12
+RN50_STAGGER_RESUME_TO = 16
+#: Phase 15: the drift-adaptive cadence on phase 14's configuration.
+RN50_ADAPTIVE = dict(threshold=0.2, staleness_factor=3, record_events=True)
+RN50_ADAPTIVE_STEPS = 40
+
+
+def stagger_cadence(steps, inv, shards):
+    """The fixed staggered cadence: the monolithic bootstrap at step 0,
+    then shard ``s % inv`` at every step whose phase is below
+    ``shards``."""
+    return ['full' if s == 0 else (s % inv if s % inv < shards else None)
+            for s in range(steps)]
+
+
+def eigen_gate(n: int) -> float:
+    """The card's eigen gate at padded dim ``n``: ``max(1e-4, 4 n eps)``
+    (cuSOLVER's f32 ``eigh`` is backward stable to a small multiple of
+    ``n eps``; phase 6)."""
+    return max(1e-4, 4 * n * 1.1920929e-07)
+
+
+def recorded_steps(precond, actions):
+    """Record what each ``precond.step()`` refreshed (``last_refresh``)
+    into ``actions``."""
+    step = precond.step
+
+    def run():
+        step()
+        actions.append(precond.last_refresh)
+    precond.step = run
+
+
+def step_spread(step_s):
+    """``(p50, p95, max)`` in ms of host-clock step times (linear
+    interpolation, as the bench's percentile)."""
+    from kfac_pytorch_tpu_torch.bench import percentile
+
+    ordered = sorted(t * 1e3 for t in step_s)
+    return (percentile(ordered, 0.5), percentile(ordered, 0.95),
+            ordered[-1])
+
+
+def stagger_sweep_check(torch, kt, precond, label):
+    """On frozen factors (the run's last EMAs), a sweep of every shard
+    against one monolithic refresh: the engine's own prediv stacks
+    (``dgda`` per slot) and, from a stage without prediv on the same plan
+    and shards, every occupied slot's ``q diag(d) q^T`` on both sides,
+    held to :func:`eigen_gate`; every eigenvector stack orthonormal
+    within ``1e-3``.  cuSOLVER may pick another algorithm for a
+    sub-stack than for the whole stack, so nothing here is bitwise.
+    Returns the worst ratios to the gates."""
+    from kfac_pytorch_tpu_torch.parallel.second_order import (
+        BucketedSecondOrder,
+    )
+
+    layers, damping = precond.layers, RN50_STAGGER_HP['damping']
+    n_shards = precond.stagger.n_shards
+    so = precond._second_order
+    plain = BucketedSecondOrder(
+        precond.plan, prediv_eigenvalues=False, device=so.device,
+        grid=so.grid, stagger=precond.stagger,
+    )
+    out = dict(dgda=0.0, recon=0.0, orth=0.0)
+    for stage in (so, plain):
+        mono = stage.compute(layers, damping)
+        swept = stage.init_buckets()
+        for k in range(n_shards):
+            swept = stage.compute_shard(layers, damping, k, swept)
+        for b in precond.plan.buckets:
+            m, w = mono[b.key], swept[b.key]
+            for q in (m.qa, m.qg, w.qa, w.qg):
+                eye = torch.eye(q.shape[-1], device=q.device)
+                out['orth'] = max(out['orth'], float(
+                    (q.mT @ q - eye).abs().max()))
+            gate = eigen_gate(max(b.a_pad, b.g_pad))
+            for i, name in enumerate(b.slots):
+                if name is None:
+                    continue
+                a, g = (layers[name].a_factor.shape[-1],
+                        layers[name].g_factor.shape[-1])
+                if stage is so:
+                    err = rel_frob(w.dgda[i, :g, :a], m.dgda[i, :g, :a])
+                    out['dgda'] = max(out['dgda'], err / gate)
+                    continue
+                for q, d, k in ((w.qa, w.da, a), (w.qg, w.dg, g)):
+                    mq, md = (m.qa, m.da) if q is w.qa else (m.qg, m.dg)
+                    rebuilt = q[i] @ torch.diag(d[i]) @ q[i].mT
+                    ref = mq[i] @ torch.diag(md[i]) @ mq[i].mT
+                    err = rel_frob(rebuilt[:k, :k], ref[:k, :k])
+                    out['recon'] = max(out['recon'], err / gate)
+        del mono, swept
+    if not (out['dgda'] <= 1 and out['recon'] <= 1 and out['orth'] < 1e-3):
+        fail(f'{label}: a sweep of {n_shards} shards vs one monolithic '
+             f'refresh on frozen factors: worst dgda {out["dgda"]:.3f} and '
+             f'q diag(d) q^T {out["recon"]:.3f} of the eigen gate, '
+             f'|Q^T Q - I| {out["orth"]:.3e}')
+    return out
+
+
+def rn50_stagger_resume(torch, kt):
+    """Phase 14's checkpoint: a staggered run saved after step
+    ``RN50_STAGGER_SAVE`` (model, SGD with momentum, the preconditioner's
+    state, through ``torch.save``) and continued to
+    ``RN50_STAGGER_RESUME_TO`` twice: by the same objects after
+    ``load_state_dict`` in place, and by fresh objects from the
+    checkpoint.  A restore recomputes every slot from the saved factors
+    (the JAX restore invariant), so both resume on the shard cadence
+    from the same state and must end bitwise equal; cuDNN is held to
+    its deterministic algorithms.  Returns ``(max abs diff, the two
+    cadences after the restore)``."""
+    import io
+
+    import torch.nn.functional as F
+
+    x, y = rn50_batch(torch)
+
+    def build():
+        model = kt.models.resnet50(device=DEVICE, seed=0)
+        opt = torch.optim.SGD(model.parameters(), lr=RN50_STAGGER_HP['lr'],
+                              momentum=0.9)
+        precond = kt.KFACPreconditioner(model, stagger_refresh=RN50_STAGGER,
+                                        **RN50_STAGGER_HP)
+        return model, opt, precond
+
+    def steps(model, opt, precond, start, stop):
+        acts = []
+        for _ in range(start, stop):
+            opt.zero_grad()
+            F.cross_entropy(model(x), y).backward()
+            precond.step()
+            opt.step()
+            acts.append(precond.last_refresh)
+        return acts
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, opt, precond = build()
+        steps(model, opt, precond, 0, RN50_STAGGER_SAVE + 1)
+        buf = io.BytesIO()
+        torch.save({'model': model.state_dict(), 'opt': opt.state_dict(),
+                    'kfac': precond.state_dict()}, buf)
+        buf.seek(0)
+        ckpt = torch.load(buf, map_location=DEVICE)
+        precond.load_state_dict(ckpt['kfac'])
+        cadences = [steps(model, opt, precond, RN50_STAGGER_SAVE + 1,
+                          RN50_STAGGER_RESUME_TO + 1)]
+        ref = [p.detach().clone() for p in model.parameters()]
+        del model, opt, precond
+        model, opt, precond = build()
+        model.load_state_dict(ckpt['model'])
+        opt.load_state_dict(ckpt['opt'])
+        precond.load_state_dict(ckpt['kfac'])
+        cadences.append(steps(model, opt, precond, precond.steps,
+                              RN50_STAGGER_RESUME_TO + 1))
+        got = [p.detach() for p in model.parameters()]
+        diff = max(float((a - b).abs().max()) for a, b in zip(ref, got))
+        equal = all(torch.equal(a, b) for a, b in zip(ref, got))
+        del model, opt, precond, ckpt, ref, got
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = stagger_cadence(RN50_STAGGER_RESUME_TO + 1, 10, RN50_STAGGER)[
+        RN50_STAGGER_SAVE + 1:]
+    if not (equal and cadences == [want, want]):
+        fail(f'resnet50 stagger resume: steps {RN50_STAGGER_SAVE + 1}-'
+             f'{RN50_STAGGER_RESUME_TO} from the step-{RN50_STAGGER_SAVE} '
+             f'checkpoint: bitwise {equal} (max abs diff {diff:.3e}), '
+             f'cadences {cadences}, expected {want}')
+    return diff, cadences
+
+
+def phase_resnet50_stagger(torch, kt):
+    """Phase 14: ResNet-50 on phase 9's batch with ``stagger_refresh=
+    RN50_STAGGER`` (factor 1, inv 10), ``RN50_STAGGER_STEPS`` steps, then
+    the same steps monolithic.  Gates: the cadence (the bootstrap at 0,
+    then shard ``s % 10`` at every phase below 5, never a monolithic
+    refresh again), 21 kernel launches a step, finite falling losses,
+    the shard-0 step against a plain rerun, a shard sweep on frozen
+    factors against one monolithic refresh (:func:`stagger_sweep_check`),
+    and the resume (:func:`rn50_stagger_resume`).  Prints per-step
+    p50/p95/max of both modes, every shard refresh's time and the plan's
+    costs.  Returns the staggered run's launches."""
+    label = (f'resnet50 stagger: batch {RN50_BATCH} at {RN50_IMAGE}x'
+             f'{RN50_IMAGE}, stagger_refresh={RN50_STAGGER}')
+    actions, shard_ev = [], []
+
+    def on_precond(precond):
+        recorded_steps(precond, actions)
+        real = precond._refresh_shard
+
+        def timed(damping, shard):
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            out = real(damping, shard)
+            e_ev.record()
+            shard_ev.append((precond.steps, shard, s_ev, e_ev))
+            return out
+        precond._refresh_shard = timed
+
+    model = kt.models.resnet50(device=DEVICE, seed=0)
+    run = train_path(torch, kt, label, model, rn50_fwd_bwd(torch, model),
+                     RN50_STAGGER_HP, RN50_STAGGER_STEPS,
+                     check_step=RN50_STAGGER_CHECK, momentum=0.9,
+                     on_precond=on_precond, stagger_refresh=RN50_STAGGER)
+    precond = run['precond']
+    want = stagger_cadence(RN50_STAGGER_STEPS, 10, RN50_STAGGER)
+    if actions != want:
+        fail(f'{label}: refreshes per step {actions}, expected {want}')
+    report_path(label, run, RN50_STAGGER_STEPS,
+                '; factor steps and shard refreshes included')
+    stagger = precond.stagger
+    print(f'{label}: plan: {stagger.n_shards} shards, costs (sum of '
+          f'a_pad^3 + g_pad^3) {[int(c) for c in stagger.costs]}, largest '
+          f'/ total {max(stagger.costs) / sum(stagger.costs):.4f}; slots '
+          + '; '.join(f'shard {k}: ' + ', '.join(
+              f'{key}{list(v)}' for key, v in sh.items())
+              for k, sh in enumerate(stagger.shards)), flush=True)
+    by_shard: dict[int, list] = {}
+    for step, shard, s_ev, e_ev in shard_ev:
+        by_shard.setdefault(shard, []).append(
+            (step, s_ev.elapsed_time(e_ev)))
+    print(f'{label}: monolithic bootstrap {run["refresh_ms"][0]:.2f} ms; '
+          'shard refreshes (step: ms) '
+          + '; '.join(f'shard {k}: ' + ', '.join(
+              f'{st}: {ms:.2f}' for st, ms in v)
+              for k, v in sorted(by_shard.items())), flush=True)
+    stag_spread = step_spread(run['step_s'][1:])
+    sweep = stagger_sweep_check(torch, kt, precond, label)
+    launches = run['launches']
+    del run, precond, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mono_label = f'resnet50 monolithic (phase 14): inv 10'
+    model = kt.models.resnet50(device=DEVICE, seed=0)
+    mono = train_path(torch, kt, mono_label, model,
+                      rn50_fwd_bwd(torch, model), RN50_STAGGER_HP,
+                      RN50_STAGGER_STEPS, momentum=0.9)
+    mono_spread = step_spread(mono['step_s'][1:])
+    print(f'{mono_label}: refreshes '
+          f'{[round(t, 2) for t in mono["refresh_ms"]]} ms; launches '
+          f'{mono["launches"]}', flush=True)
+    del mono, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, (p50, p95, mx) in (('staggered', stag_spread),
+                                 ('monolithic', mono_spread)):
+        print(f'resnet50 stagger: {name} steps 1-{RN50_STAGGER_STEPS - 1} '
+              f'(host clock, synchronized): p50 {p50:.4f} ms, p95 '
+              f'{p95:.4f} ms, max {mx:.4f} ms, max/p50 {mx / p50:.3f}',
+              flush=True)
+    print(f'resnet50 stagger: sweep of {RN50_STAGGER} shards vs one '
+          'monolithic refresh on frozen factors: worst dgda '
+          f'{sweep["dgda"]:.3f} and q diag(d) q^T {sweep["recon"]:.3f} of '
+          f'the eigen gate max(1e-4, 4 n eps); |Q^T Q - I| max '
+          f'{sweep["orth"]:.3e}', flush=True)
+    diff, cadences = rn50_stagger_resume(torch, kt)
+    print(f'resnet50 stagger resume: steps {RN50_STAGGER_SAVE + 1}-'
+          f'{RN50_STAGGER_RESUME_TO} from the step-{RN50_STAGGER_SAVE} '
+          'checkpoint by fresh objects end bitwise equal to the same run '
+          f'restored in place (max abs diff {diff:.1e}); refreshes after '
+          f'the restore {cadences[1]} (the restore recomputed every slot, '
+          'so the shard cadence resumes with no monolithic refresh)',
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def adaptive_invariants(events, inv, floor):
+    """The controller's contracts on its own event log: at most one
+    refresh per shard per interval, and every age at decision time at
+    most ``floor - 1``.  Returns the violations."""
+    bad, seen = [], set()
+    for step, kind, shard, age in events:
+        if kind == 'full':
+            continue
+        if age > floor - 1:
+            bad.append((step, kind, shard, age, 'age'))
+        if shard is not None:
+            if (step // inv, shard) in seen:
+                bad.append((step, kind, shard, age, 'budget'))
+            seen.add((step // inv, shard))
+    return bad
+
+
+def phase_resnet50_adaptive(torch, kt):
+    """Phase 15: phase 14's configuration with ``adaptive=
+    AdaptiveRefreshConfig(**RN50_ADAPTIVE)``, ``RN50_ADAPTIVE_STEPS``
+    steps, twice (cuDNN held to its deterministic algorithms).  Gates
+    from the controller's events: at most one refresh per shard per
+    interval, every age at decision time at most ``3 * 10 - 1``, the
+    rerun's decisions identical; 21 kernel launches a step; finite
+    falling losses.  Prints the counters and the host reads of the drift
+    per factor step.  Returns the first run's launches."""
+    inv = RN50_STAGGER_HP['inv_update_steps']
+    floor = RN50_ADAPTIVE['staleness_factor'] * inv
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for attempt in range(2):
+            label = (f'resnet50 adaptive (run {attempt + 1}): '
+                     f'stagger_refresh={RN50_STAGGER}, {RN50_ADAPTIVE}')
+            model = kt.models.resnet50(device=DEVICE, seed=0)
+            run = train_path(
+                torch, kt, label, model, rn50_fwd_bwd(torch, model),
+                RN50_STAGGER_HP, RN50_ADAPTIVE_STEPS, momentum=0.9,
+                stagger_refresh=RN50_STAGGER,
+                adaptive=kt.AdaptiveRefreshConfig(**RN50_ADAPTIVE),
+            )
+            precond = run['precond']
+            ctl = precond.adaptive_controller
+            if attempt == 0:
+                report_path(label, run, RN50_ADAPTIVE_STEPS,
+                            '; factor steps and refreshes included')
+            runs.append(dict(events=list(ctl.events),
+                             counters=ctl.counters(),
+                             syncs=precond.adaptive_host_syncs,
+                             launches=run['launches'],
+                             refresh_ms=run['refresh_ms']))
+            del run, precond, model, ctl
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    first = runs[0]
+    bad = adaptive_invariants(first['events'], inv, floor)
+    if bad:
+        fail(f'resnet50 adaptive: contract violations {bad}')
+    if runs[1]['events'] != first['events']:
+        fail(f'resnet50 adaptive: the rerun decided {runs[1]["events"]}, '
+             f'the first run {first["events"]}')
+    ages = [age for _, kind, _, age in first['events'] if kind != 'full']
+    print(f'resnet50 adaptive: counters {first["counters"]}; decisions '
+          f'(step, kind, shard, max age) {first["events"]}; the largest '
+          f'age at a decision {max(ages)} (floor {floor}, gate '
+          f'<= {floor - 1}); at most one refresh per shard per interval; '
+          'the rerun decided identically; host reads of the drift '
+          f'{first["syncs"]} over {RN50_ADAPTIVE_STEPS} factor steps '
+          f'({first["syncs"] / RN50_ADAPTIVE_STEPS:.3f} per factor step)',
+          flush=True)
+    return first['launches']
+
+
 #: Phases 10 and 11: the transformer encoders at their published widths
 #: and depths, f32 parameters, the models' bf16 compute, SGD, a factor
 #: update every step.  The rehearsal on the CPU sets ``VIT_MODEL =
@@ -2433,12 +3095,25 @@ def main() -> int:
                            torch, kt)
     print(f'resnet50 ekfac: the fused kernel launched {ekfac_launches} '
           'times (EKFAC keeps no dgda)', flush=True)
+    rn50_stagger = dict(
+        rn50, name='fused_eigen_precondition, ResNet-50 buckets, staggered '
+        'refresh (phase 14)',
+        launches=phase('14 resnet50 stagger', phase_resnet50_stagger,
+                       torch, kt),
+    )
+    rn50_adaptive = dict(
+        rn50, name='fused_eigen_precondition, ResNet-50 buckets, '
+        'drift-adaptive staggered refresh (phase 15)',
+        launches=phase('15 resnet50 adaptive', phase_resnet50_adaptive,
+                       torch, kt),
+    )
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
           flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': [entry, sharded, gpt, rn50, vit, bert,
-                                  rn50_lr]}), flush=True)
+                                  rn50_lr, rn50_stagger, rn50_adaptive]}),
+          flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0
 

@@ -15,7 +15,11 @@ eigenvalues, a matmul chain), inverse (damped Cholesky) and iterative
 (warm-started Newton–Schulz); eigen also runs randomized low-rank
 (``lowrank_rank``) and EKFAC (``ekfac``, with a drift-triggered refresh,
 :class:`AdaptiveRefresh`).  ``accumulation_steps`` accumulates
-micro-batches between steps; ``state_dict``/``load_state_dict``
+micro-batches between steps; ``stagger_refresh`` spreads a refresh over
+several steps, optionally choosing shards by drift
+(:class:`AdaptiveRefreshConfig`); ``factor_comm='bf16_triu'``
+compresses the factor all-reduce; ``bucketed=False`` runs the
+replicated per-layer engine; ``state_dict``/``load_state_dict``
 checkpoint and resume, and :class:`LambdaParamScheduler` schedules the
 hyperparameters.  The models are the CIFAR ResNets, the ImageNet
 ResNets and the GPT; ``examples/`` holds the CIFAR and ImageNet
@@ -30,4 +34,5 @@ from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.enums import DistributedStrategy
 from kfac_pytorch_tpu_torch.ops import IterativeConfig
 from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
+from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
 from kfac_pytorch_tpu_torch.scheduler import LambdaParamScheduler

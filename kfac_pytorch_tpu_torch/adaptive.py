@@ -1,6 +1,9 @@
-"""Curvature-drift-driven eigenbasis refresh (EKFAC only).
+"""Curvature-drift signals: the EKFAC drift-triggered refresh and the
+per-layer drift feed of the adaptive staggered refresh.
 
-Port of ``AdaptiveRefresh`` (``kfac_pytorch_tpu/adaptive.py:154-251``).
+Port of ``AdaptiveRefresh`` (``kfac_pytorch_tpu/adaptive.py:154-251``)
+and ``drift_info`` (``:272-394``), with the port's own copy of the
+digest helpers of ``kfac_pytorch_tpu/consistency.py:167-262``.
 A fixed ``inv_update_steps`` answers "how stale is the basis?" with a
 clock.  EKFAC's scale grid answers it with a measurement: ``skron``
 starts at the refresh seed ``dg ⊗ da`` and drifts as the projected
@@ -24,7 +27,12 @@ back to the host there, and only when a controller is set).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any, Mapping, Sequence
+
+import torch
+import torch.distributed as dist
 
 
 class AdaptiveRefresh:
@@ -101,3 +109,148 @@ class AdaptiveRefresh:
             f'divergence={None if d is None else round(d, 4)}, '
             f'triggers={self.triggers})'
         )
+
+
+# -- the drift feed of the adaptive staggered refresh --------------------
+#
+# Per layer, a digest of the factor-EMA state (exact: equal digests mean
+# bitwise equal state) and an f32 sketch ``(fro², max-abs,
+# ns_residual)``, which :class:`~kfac_pytorch_tpu_torch.scheduler.
+# AdaptiveRefreshController` turns into a per-shard drift.  The digest
+# is u32 arithmetic in the JAX package; torch has little of it, so the
+# port holds each u32 value in an int64 and masks the modular sum to 32
+# bits.
+
+_NAN_SENTINEL = 1.5e38
+_POSINF_SENTINEL = 2.5e38
+_NEGINF_SENTINEL = -2.5e38
+_U32 = 0xFFFFFFFF
+
+
+def sanitize(x: torch.Tensor) -> torch.Tensor:
+    """f32 copy of ``x`` with NaN and infinities mapped to finite
+    sentinels (JAX ``consistency.sanitize``)."""
+    return torch.nan_to_num(
+        x.float(), nan=_NAN_SENTINEL, posinf=_POSINF_SENTINEL,
+        neginf=_NEGINF_SENTINEL,
+    )
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """The f32 bit patterns of ``x`` as int32 (the u32 patterns modulo
+    2^32)."""
+    return x.float().contiguous().view(torch.int32)
+
+
+def _maxabs_bits(s: torch.Tensor) -> torch.Tensor:
+    """The bit pattern of ``max(|s|)`` (0 for an empty ``s``) as an
+    int64; nonnegative f32 values order as their bit patterns do."""
+    m = s.abs().max() if s.numel() else s.new_zeros(())
+    return m.reshape(1).view(torch.int32).to(torch.int64)[0]
+
+
+def array_digest(x: torch.Tensor) -> torch.Tensor:
+    """``[2]`` int64 digest of one array (JAX ``array_digest``): the sum
+    of the f32 bit patterns modulo 2^32 (any flipped bit changes it)
+    and the bit pattern of the sanitized max-abs."""
+    total = torch.sum(_bits(x), dtype=torch.int64) & _U32
+    return torch.stack([total, _maxabs_bits(sanitize(x))])
+
+
+def _fold(digests: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Fold per-array digests: the sums add modulo 2^32, the maxes max."""
+    out = digests[0]
+    for d in digests[1:]:
+        out = torch.stack([(out[0] + d[0]) & _U32, torch.maximum(out[1], d[1])])
+    return out
+
+
+def _array_fields(node: Any) -> list[tuple[str, torch.Tensor]]:
+    """The set tensor fields of a state dataclass, sorted by name."""
+    out = []
+    for f in sorted(dataclasses.fields(node), key=lambda f: f.name):
+        v = getattr(node, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append((f.name, v))
+    return out
+
+
+def drift_info(
+    layer_states: Mapping[str, Any],
+    buckets: Mapping[str, Any],
+    layouts: Sequence[Any],
+    grid: Any = None,
+) -> dict[str, torch.Tensor]:
+    """Per-layer drift signals of the adaptive cadence (JAX
+    ``adaptive.drift_info``), as device tensors:
+
+    * ``adaptive/digest``: ``[n, 2]`` int64 holding u32 values, the
+      ``(bit-pattern sum, max-abs)`` digest of each layer's factor-EMA
+      state (every set field of its ``LayerKFACState``, sorted by name;
+      a diagonal-A layer's decompositions included, as in JAX);
+    * ``adaptive/sketch``: ``[n, 3]`` f32 ``(fro², max-abs,
+      ns_residual)``, the last the layer's Newton–Schulz residual under
+      ``compute_method='iterative'`` (its bucket slot's, the larger of
+      the A and G sides), else 0.
+
+    Layers go in ``sorted(layer_states)`` order.  ``buckets`` are this
+    rank's stacks of the bucket ``layouts`` (its grid column's slots).
+    Across ranks (``grid.world > 1``) both ride one ``all_reduce(MAX)``
+    of their int64 view over the world (the sketch as its f32 bit
+    patterns, which order as the nonnegative values do): it assembles
+    the residuals of every column and gives every rank the same
+    decision inputs.
+    """
+    names = tuple(sorted(layer_states))
+    n = len(names)
+    world = 1 if grid is None else grid.world
+    if n == 0:
+        if world > 1:
+            raise ValueError(
+                'drift_info: no layer to digest on a grid of '
+                f'{world} ranks (an empty drift feed would make every '
+                "rank's adaptive decision blind)",
+            )
+        return {}
+    row_of = {name: i for i, name in enumerate(names)}
+    col = 0 if grid is None else grid.col
+    digests, fro2, mx = [], [], []
+    for name in names:
+        arrays = [a for _, a in _array_fields(layer_states[name])]
+        digests.append(_fold([array_digest(a) for a in arrays]))
+        s = [sanitize(a) for a in arrays]
+        total = None
+        for v in s:
+            term = torch.sum(v * v)
+            total = term if total is None else total + term
+        fro2.append(total)
+        mx.append(torch.max(torch.stack([
+            v.abs().max() if v.numel() else v.new_zeros(()) for v in s
+        ])))
+    device = fro2[0].device
+    residual = torch.zeros(n + 1, device=device)  # row n: dropped
+    for b in layouts:
+        bs = buckets[b.key]
+        if getattr(bs, 'iter_res_a', None) is None:
+            continue
+        rows = torch.tensor(
+            [row_of.get(s, n) if s is not None else n
+             for s in b.column_slots(col)],
+            device=device,
+        )
+        res = torch.maximum(bs.iter_res_a, bs.iter_res_g).float()
+        residual = residual.scatter_reduce(0, rows, res, reduce='amax')
+    digest = torch.stack(digests)
+    sketch = torch.stack(
+        [torch.stack(fro2), torch.stack(mx), residual[:n]], dim=1,
+    ).float()
+    if world > 1:
+        vec = torch.cat([
+            digest.reshape(-1),
+            sketch.contiguous().view(torch.int32).to(torch.int64)
+            .reshape(-1),
+        ])
+        dist.all_reduce(vec, op=dist.ReduceOp.MAX)
+        digest = vec[:2 * n].reshape(n, 2)
+        sketch = vec[2 * n:].to(torch.int32).view(torch.float32).reshape(n, 3)
+    return {'adaptive/digest': digest, 'adaptive/sketch': sketch}

@@ -50,6 +50,25 @@ fold, as ``_ekfac_accum_contribs`` (``base_preconditioner.py:1950``)
 does.  The contributions ride the factor all-reduce, and the scale EMA
 runs after the factor EMA and before the step's refresh, which reseeds
 the scales (``_apply_ema``, ``base_preconditioner.py:1544``).
+
+Under ``stagger_refresh=K`` the bucket slots are split into ``K`` LPT
+shards (:func:`~kfac_pytorch_tpu_torch.parallel.bucketing.\
+make_stagger_plan`) and a shard step re-decomposes one of them
+(``BucketedSecondOrder.compute_shard``); the diagonal-A layers refresh
+with shard 0 (``base_preconditioner.py:1663-1697``).  With ``adaptive``
+every factor step feeds the controller the per-layer drift of
+:func:`~kfac_pytorch_tpu_torch.adaptive.drift_info`.
+
+``factor_comm='bf16_triu'`` reduces the factors of the row-statistics
+layers (linear, conv2d) as bf16 packed upper triangles
+(:func:`~kfac_pytorch_tpu_torch.parallel.collectives.\
+all_reduce_sum_triu`); everything else rides the dense all-reduce.
+
+``bucketed=False`` is the replicated engine (``base_preconditioner.py:
+1310-1340, 1436-1481``): no bucket stacks; every rank decomposes and
+preconditions every layer itself, the decompositions held in its
+:class:`~kfac_pytorch_tpu_torch.state.LayerKFACState`, and a helper
+with non-symmetric factors takes the general eig or an LU inverse.
 """
 from __future__ import annotations
 
@@ -58,15 +77,19 @@ from typing import Any
 
 import torch
 
+from kfac_pytorch_tpu_torch import adaptive as adaptive_lib
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.capture import ModelCapture
 from kfac_pytorch_tpu_torch.engine import KFACEngineMixin
 from kfac_pytorch_tpu_torch.engine import unpack_factor
+from kfac_pytorch_tpu_torch.engine import validate_adaptive
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
+from kfac_pytorch_tpu_torch.parallel.bucketing import make_stagger_plan
 from kfac_pytorch_tpu_torch.parallel.mesh import kaisa_grid
 from kfac_pytorch_tpu_torch.parallel.second_order import BucketedSecondOrder
+from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshController
 from kfac_pytorch_tpu_torch.state import AccumState
 from kfac_pytorch_tpu_torch.state import LayerKFACState
 from kfac_pytorch_tpu_torch.state import init_layer_state
@@ -81,10 +104,13 @@ class BaseKFACPreconditioner(KFACEngineMixin):
         layers: layer name -> :class:`LayerKFACState` (the factor EMAs).
         grid: this rank's place on the KAISA grid
             (:class:`~kfac_pytorch_tpu_torch.parallel.mesh.KaisaGrid`).
-        plan: the bucket plan, with ``grid.cols`` columns.
+        plan: the bucket plan, with ``grid.cols`` columns (``None`` on
+            the replicated engine).
         buckets: bucket key -> this rank's stacked decompositions
             (:class:`~kfac_pytorch_tpu_torch.parallel.second_order.\
-BucketSecond`).
+BucketSecond`; empty on the replicated engine).
+        stagger: the :class:`~kfac_pytorch_tpu_torch.parallel.bucketing.\
+StaggerPlan` of ``stagger_refresh`` (``None`` without).
         last_kl_scale: the kl-clip scale applied by the latest step
             (a device scalar), or ``None`` with ``kl_clip=None``.
         accumulation_steps: forward/backward passes per :meth:`step`.
@@ -114,10 +140,17 @@ BucketSecond`).
         lowrank_power_iters: int = 2,
         ekfac: bool = False,
         adaptive_refresh: Any = None,
+        bucketed: bool = True,
+        stagger_refresh: int | None = None,
+        adaptive: Any = None,
+        factor_comm: str | None = None,
         loglevel: int = logging.DEBUG,
     ) -> None:
         if accumulation_steps < 1:
             raise ValueError('accumulation_steps must be >= 1')
+        validate_adaptive(adaptive, stagger_refresh, adaptive_refresh)
+        self.bucketed = bool(bucketed)
+        self.factor_comm = factor_comm
         if ekfac:
             for name, helper in capture.helpers.items():
                 if not helper.supports_ekfac:
@@ -179,26 +212,60 @@ BucketSecond`).
         self.diag_layers = tuple(sorted(
             name for name, h in self.helpers.items() if h.diagonal_a
         ))
+        self.prediv_eigenvalues = bool(prediv_eigenvalues)
+        # Non-symmetric custom helpers (the general-eig escape hatch)
+        # need the replicated engine; a diagonal-A layer's side path
+        # takes the general decomposition itself.
+        asym = sorted(
+            name for name, h in self.helpers.items()
+            if not h.symmetric_factors and not h.diagonal_a
+        )
+        if asym and self.bucketed:
+            raise ValueError(
+                f'layers {asym} have non-symmetric factors; the bucketed '
+                'engine batches symmetric eigh: use bucketed=False for '
+                'the general-eig escape hatch',
+            )
+        # The linear and conv2d layers, whose factors the compressed
+        # collective reduces (JAX base_preconditioner.py:886-911).
+        self._compressed = frozenset(
+            name for name, h in self.helpers.items()
+            if factor_comm is not None and h.supports_ekfac
+            and h.symmetric_factors and not h.diagonal_a
+        )
         self.grid = kaisa_grid(grad_worker_fraction)
-        self.plan = make_bucket_plan(
-            {n: h for n, h in self.helpers.items() if not h.diagonal_a},
-            n_cols=self.grid.cols,
-        )
-        self._second_order = BucketedSecondOrder(
-            self.plan, compute_method=compute_method,
-            prediv_eigenvalues=prediv_eigenvalues,
-            iterative_config=iterative_config, inv_dtype=inv_dtype,
-            precond_dtype=precond_dtype, device=self.device, grid=self.grid,
-            slot_dims={
-                n: (h.a_factor_shape[0], h.g_factor_shape[0])
-                for n, h in self.helpers.items()
-            },
-            lowrank_rank=lowrank_rank,
-            lowrank_oversample=lowrank_oversample,
-            lowrank_power_iters=lowrank_power_iters, ekfac=ekfac,
-        )
-        self.iterative_config = self._second_order.iterative
-        self.buckets = self._second_order.init_buckets()
+        self.plan = None
+        self._second_order = None
+        self.stagger = None
+        self.iterative_config = iterative_config
+        self.buckets = {}
+        controller = None
+        if self.bucketed:
+            self.plan = make_bucket_plan(
+                {n: h for n, h in self.helpers.items() if not h.diagonal_a},
+                n_cols=self.grid.cols,
+            )
+            if stagger_refresh is not None:
+                self.stagger = make_stagger_plan(self.plan, stagger_refresh)
+            self._second_order = BucketedSecondOrder(
+                self.plan, compute_method=compute_method,
+                prediv_eigenvalues=prediv_eigenvalues,
+                iterative_config=iterative_config, inv_dtype=inv_dtype,
+                precond_dtype=precond_dtype, device=self.device,
+                grid=self.grid,
+                slot_dims={
+                    n: (h.a_factor_shape[0], h.g_factor_shape[0])
+                    for n, h in self.helpers.items()
+                },
+                lowrank_rank=lowrank_rank,
+                lowrank_oversample=lowrank_oversample,
+                lowrank_power_iters=lowrank_power_iters, ekfac=ekfac,
+                stagger=self.stagger,
+            )
+            self.iterative_config = self._second_order.iterative
+            self.buckets = self._second_order.init_buckets()
+            if adaptive is not None:
+                controller = self._adaptive_controller_for(adaptive)
         self.last_kl_scale: torch.Tensor | None = None
         self._init_engine(
             factor_update_steps=factor_update_steps,
@@ -208,6 +275,29 @@ BucketSecond`).
             kl_clip=kl_clip,
             lr=lr,
             adaptive_refresh=adaptive_refresh,
+            stagger_refresh=stagger_refresh,
+            adaptive_controller=controller,
+        )
+
+    def _adaptive_controller_for(self, config) -> AdaptiveRefreshController:
+        """The drift-adaptive controller of the stagger plan (JAX
+        ``_install_adaptive_controller``): each shard's layers are its
+        slots' (padding dropped), the diagonal-A layers ride shard 0,
+        and the rows are ``sorted(self.helpers)``, the order of
+        :func:`~kfac_pytorch_tpu_torch.adaptive.drift_info`."""
+        shard_layers = []
+        for k, shard in enumerate(self.stagger.shards):
+            names = [
+                self.plan.bucket(key).slots[i]
+                for key, slots in shard.items() for i in slots
+                if self.plan.bucket(key).slots[i] is not None
+            ]
+            if k == 0:
+                names.extend(self.diag_layers)
+            shard_layers.append(tuple(sorted(set(names))))
+        return AdaptiveRefreshController(
+            config, layer_names=tuple(sorted(self.helpers)),
+            shard_layers=shard_layers,
         )
 
     def __repr__(self) -> str:
@@ -353,11 +443,28 @@ BucketSecond`).
                 rows + [r * r for r in rows] + flat, dtype=torch.float64,
                 device=self.device,
             )
+            n = len(rows)
+            comp = [i for i, name in enumerate(self.helpers)
+                    if name in self._compressed]
+            if comp:
+                # factor_comm: each rank's share of the mean, summed as
+                # bf16 packed triangles.  Dividing by a power-of-two
+                # world is exact, so each share's bf16 value is the one
+                # a JAX shard gets from contracting its local rows at
+                # the global scale.
+                packed = collectives.all_reduce_sum_triu(
+                    [new_a[i] / world for i in comp]
+                    + [new_g[i] / world for i in comp],
+                )
+                for j, i in enumerate(comp):
+                    new_a[i] = packed[j].to(new_a[i].dtype)
+                    new_g[i] = packed[len(comp) + j].to(new_g[i].dtype)
+            dense = [i for i in range(n) if i not in comp]
             *factors, stats = collectives.all_reduce_mean(
-                new_a + new_g + new_s + [stats],
+                [new_a[i] for i in dense] + [new_g[i] for i in dense]
+                + new_s + [stats],
             )
             sums = [round(v * world) for v in stats.tolist()]
-            n = len(rows)
             if any(world * s2 != s1 * s1
                    for s1, s2 in zip(sums[:n], sums[n:2 * n])):
                 raise RuntimeError(
@@ -366,8 +473,10 @@ BucketSecond`).
                     'ranks needs equal local batches',
                 )
             k = len(counts[0])
-            new_a, new_g, new_s = (factors[:n], factors[n:2 * n],
-                                   factors[2 * n:])
+            m = len(dense)
+            for j, i in enumerate(dense):
+                new_a[i], new_g[i] = factors[j], factors[m + j]
+            new_s = factors[2 * m:]
             counts = [tuple(sums[2 * n + i * k:2 * n + (i + 1) * k])
                       for i in range(n)]
         for name, a_new, g_new, (a_count, g_count, *_) in zip(
@@ -415,30 +524,93 @@ BucketSecond`).
         """Recompute the second-order state: the diagonal-A layers' own,
         then the buckets'; the iterative method warm-starts from the
         current roots, and low-rank buckets draw their sketches for the
-        inverse-update step ``_last_inv_step``."""
+        inverse-update step ``_last_inv_step``.  The replicated engine
+        decomposes every layer in turn instead."""
+        if not self.bucketed:
+            self._refresh_replicated(damping)
+            return
         for name in self.diag_layers:
-            self._refresh_diag(self.layers[name], damping)
+            self._refresh_diag(name, damping)
         self.buckets = self._second_order.compute(
             self.layers, damping, prev=self.buckets,
             bootstrap=self._refresh_needs_bootstrap(),
             sketch_step=self._last_inv_step,
         )
 
-    def _refresh_diag(self, st: LayerKFACState, damping: float) -> None:
+    @torch.no_grad()
+    def _refresh_shard(self, damping: float, shard: int) -> None:
+        """Re-decompose one stagger shard's slots; the diagonal-A layers
+        ride shard 0, so they keep the once-per-interval staleness of
+        every slot."""
+        if shard == 0:
+            for name in self.diag_layers:
+                self._refresh_diag(name, damping)
+        self.buckets = self._second_order.compute_shard(
+            self.layers, damping, shard, self.buckets,
+        )
+
+    def _stagger_shard_empty(self, shard: int) -> bool:
+        """Whether a stagger shard holds nothing to refresh (shard 0 is
+        never empty while diagonal-A layers are registered)."""
+        if self.stagger is None:
+            return False
+        if shard == 0 and self.diag_layers:
+            return False
+        return not self.stagger.shards[shard]
+
+    def _adaptive_drift_emit(self) -> dict[str, torch.Tensor]:
+        """The drift feed of every layer's factor-EMA state
+        (:func:`~kfac_pytorch_tpu_torch.adaptive.drift_info`), one
+        ``all_reduce(MAX)`` across ranks."""
+        return adaptive_lib.drift_info(
+            self.layers, self.buckets, self.plan.buckets, self.grid,
+        )
+
+    def _refresh_replicated(self, damping: float) -> None:
+        """The replicated engine's refresh (JAX ``base_preconditioner.
+        py:1310-1340``): per layer, eigen (``qa``/``qg`` and ``dgda``, or
+        ``da``/``dg`` without prediv) or damped inverses; a helper with
+        non-symmetric factors takes the general eig or an LU inverse."""
+        for name, helper in self.helpers.items():
+            if helper.diagonal_a:
+                self._refresh_diag(name, damping)
+                continue
+            st = self.layers[name]
+            sym = helper.symmetric_factors
+            if self.compute_method == ComputeMethod.EIGEN:
+                eig = (ops.compute_factor_eigen if sym
+                       else ops.compute_factor_eig_general)
+                st.qa, da = eig(st.a_factor, self.inv_dtype)
+                st.qg, dg = eig(st.g_factor, self.inv_dtype)
+                if self.prediv_eigenvalues:
+                    st.dgda = ops.compute_dgda(dg, da, damping)
+                else:
+                    st.da, st.dg = da, dg
+            else:
+                inv = (ops.compute_factor_inv if sym
+                       else ops.compute_factor_inv_general)
+                st.a_inv = inv(st.a_factor, damping, self.inv_dtype)
+                st.g_inv = inv(st.g_factor, damping, self.inv_dtype)
+
+    def _refresh_diag(self, name: str, damping: float) -> None:
         """One diagonal-A layer's decompositions: G by ``eigh`` (eigen)
         or a damped Cholesky inverse (inverse and iterative, as the JAX
-        package does); the ``[V]`` diagonal is snapshotted (``da``, or
-        ``a_inv = 1 / (a + damping)``), so until the next refresh the
-        layer preconditions with it and not with the moving EMA."""
+        package does), the general eig or an LU inverse for a helper
+        with non-symmetric factors; the ``[V]`` diagonal is snapshotted
+        (``da``, or ``a_inv = 1 / (a + damping)``), so until the next
+        refresh the layer preconditions with it and not with the moving
+        EMA."""
+        st = self.layers[name]
+        sym = self.helpers[name].symmetric_factors
         if self.compute_method == ComputeMethod.EIGEN:
-            st.qg, st.dg = ops.compute_factor_eigen(
-                st.g_factor, self.inv_dtype,
-            )
+            eig = (ops.compute_factor_eigen if sym
+                   else ops.compute_factor_eig_general)
+            st.qg, st.dg = eig(st.g_factor, self.inv_dtype)
             st.da = st.a_factor.to(self.inv_dtype, copy=True)
         else:
-            st.g_inv = ops.compute_factor_inv(
-                st.g_factor, damping, self.inv_dtype,
-            )
+            inv = (ops.compute_factor_inv if sym
+                   else ops.compute_factor_inv_general)
+            st.g_inv = inv(st.g_factor, damping, self.inv_dtype)
             st.a_inv = (
                 1.0 / (st.a_factor.float() + damping)
             ).to(self.inv_dtype)
@@ -479,6 +651,10 @@ BucketSecond`).
         gradients ``{layer: [out, in(+1)]}`` from the current
         decompositions, and the scale (``None`` without kl-clip); no
         ``.grad`` is touched."""
+        if not self.bucketed:
+            return self._precondition_replicated(
+                combined, damping, kl_clip, lr,
+            )
         diag_pg, extra = {}, []
         for name in self.diag_layers:
             g = combined[name]
@@ -496,6 +672,40 @@ BucketSecond`).
                          else (pg.float() * scale).to(pg.dtype))
         return out, scale
 
+    def _precondition_replicated(
+        self,
+        combined: dict[str, torch.Tensor],
+        damping: float,
+        kl_clip: float | None,
+        lr: float,
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor | None]:
+        """The replicated engine's preconditioning (JAX
+        ``base_preconditioner.py:1436-1481``): each layer by its own
+        decompositions through the matmul chain (the fused kernel is a
+        bucket-stack kernel and is not launched, as in JAX), the kl-clip
+        terms summed in registration order."""
+        out = {}
+        for name, helper in self.helpers.items():
+            st, g = self.layers[name], combined[name]
+            if helper.diagonal_a:
+                out[name] = self._precondition_diag(st, g, damping)
+            elif self.compute_method == ComputeMethod.EIGEN:
+                out[name] = ops.precondition_grad_eigen(
+                    g, st.qa, st.qg, da=st.da, dg=st.dg, dgda=st.dgda,
+                    damping=damping,
+                )
+            else:
+                out[name] = ops.precondition_grad_inverse(
+                    g, st.a_inv, st.g_inv,
+                )
+        if kl_clip is None:
+            return out, None
+        scale = ops.kl_clip_scale(
+            [ops.grad_scale_sum(out[n], combined[n], lr) for n in out],
+            kl_clip,
+        )
+        return {n: pg * scale for n, pg in out.items()}, scale
+
     def _precondition_diag(
         self, st: LayerKFACState, g: torch.Tensor, damping: float,
     ) -> torch.Tensor:
@@ -509,6 +719,9 @@ BucketSecond`).
 
     def _checkpoint_layer_states(self) -> dict[str, LayerKFACState]:
         return self.layers
+
+    def _symmetric_layers(self) -> set[str]:
+        return {n for n, h in self.helpers.items() if h.symmetric_factors}
 
     def _ekfac_divergence(self) -> torch.Tensor | None:
         """The scale grids' drift from their refresh seed (a device
@@ -552,9 +765,12 @@ BucketSecond`).
         """World and bucket layout, e.g. ``'world=4 grid=2x2
         buckets=[a576g64:10 slots, ...]'``, which a mismatched restore
         names."""
-        buckets = ', '.join(
-            f'{b.key}:{b.n_slots} slots' for b in self.plan.buckets
-        )
+        if self.plan is None:
+            buckets = 'replicated'
+        else:
+            buckets = ', '.join(
+                f'{b.key}:{b.n_slots} slots' for b in self.plan.buckets
+            )
         return (
             f'world={self.grid.world} grid={self.grid.rows}x'
             f'{self.grid.cols} buckets=[{buckets}]'
@@ -573,10 +789,13 @@ BucketSecond`).
                 st.g_factor.numel() * st.g_factor.element_size()
                 for st in self.layers.values()
             ),
-            'second_order': self._second_order.memory_usage(self.buckets)
-            + sum(t.numel() * t.element_size()
-                  for name in self.diag_layers
-                  for t in self.layers[name].decompositions().values()),
+            'second_order': sum(
+                t.numel() * t.element_size()
+                for name in (self.diag_layers if self.bucketed
+                             else self.layers)
+                for t in self.layers[name].decompositions().values()
+            ) + (self._second_order.memory_usage(self.buckets)
+                 if self.bucketed else 0),
         }
         sizes['total'] = sum(sizes.values())
         return sizes

@@ -17,6 +17,24 @@ the same optimizer, and reports the step times and their ratio:
   ``secondary_rn50_ekfac``).  They run only when named (``--configs``),
   so the default line keeps its keys.
 
+Two stages of the JAX bench's refresh cadences run only when named too,
+each through ``KFACPreconditioner.step()``, and put their own dict under
+``detail[name]``:
+
+* ``stagger_flatness`` (``bench.py:311-406``): a deep MLP (10 layers of
+  192, batch 128, factor 1, inv 10) with the monolithic refresh and
+  with ``stagger_refresh=10``; each interval phase's step is timed alone
+  (ended by a synchronize), the least over 3 intervals is kept, and the
+  p50, p95 and max of the phases are reported per mode with
+  ``max_over_p50``, the refresh spike;
+* ``adaptive_refresh`` (``bench.py:410-538``): an MLP of 8 layers of
+  128 on a stationary task (fresh Gaussian inputs and random labels
+  every step), inv 8, ``stagger_refresh=2``, 200 steps, with the fixed
+  cadence and with ``AdaptiveRefreshConfig(0.2, staleness_factor=3)``:
+  the shard refreshes of each (the fixed count analytic, the adaptive
+  one from the controller's counters), ``refresh_reduction``, the mean
+  step times and the final losses, and the controller's events.
+
 The K-FAC time is amortized as ``time_kfac_cycles`` does it
 (``bench.py:97-116``): after a warm-up, the run is aligned to an
 inverse-update boundary, whole cycles of ``inv_update_steps`` steps are
@@ -35,10 +53,12 @@ On the card::
     python -m kfac_pytorch_tpu_torch.bench
     python -m kfac_pytorch_tpu_torch.bench --configs resnet50 \
         resnet50_lowrank512 resnet50_ekfac
+    python -m kfac_pytorch_tpu_torch.bench --configs stagger_flatness \
+        adaptive_refresh
 
 It raises without a card unless ``--device cpu`` is given.  The
-JAX bench's micro-MLP, stagger and drift-adaptive stagger stages and its
-MFU are not carried over (``ROADMAP.md`` Queue A items 15 and 16).
+JAX bench's micro-MLP and ``precond_tail`` stages and its MFU are not
+carried over (``ROADMAP.md`` Queue A items 6 and 18).
 """
 from __future__ import annotations
 
@@ -52,6 +72,7 @@ import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
+from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
 from kfac_pytorch_tpu_torch.utils.backend import environment_summary
 
 METRIC = 'kfac_step_overhead_resnet50_imagenet_b32'
@@ -213,11 +234,177 @@ def measure(
     return out
 
 
+def percentile(ordered: Sequence[float], q: float) -> float:
+    """Linear-interpolation percentile of a sorted sample (the JAX
+    package's ``tracing.percentile``)."""
+    pos = q * (len(ordered) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(ordered) - 1)
+    frac = pos - lo
+    return ordered[lo] * (1.0 - frac) + ordered[hi] * frac
+
+
+def _mlp_step(model, precond, opt, x, y):
+    opt.zero_grad(set_to_none=True)
+    loss = F.cross_entropy(model(x), y)
+    loss.backward()
+    precond.step()
+    opt.step()
+    return loss
+
+
+def measure_stagger_flatness(
+    device: torch.device | str = 'cuda',
+    *,
+    n_layers: int = 10,
+    width: int = 192,
+    batch: int = 128,
+    inv_steps: int = 10,
+    intervals: int = 3,
+) -> dict[str, Any]:
+    """The step-time spread of the monolithic and the staggered refresh
+    on the same model and cadence (JAX ``measure_stagger_flatness``).
+
+    Each interval phase's step is timed alone and the least over
+    ``intervals`` repeats kept; per mode ``p50_ms``, ``p95_ms`` and
+    ``max_ms`` of the phases, and each mode's ``max/p50``.  The MLP puts
+    ``n_layers`` equal slots in one bucket, so the monolithic spike
+    grows with the slot count while a shard stays one slot.
+    """
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    x = torch.randn(batch, width, generator=gen, device=device)
+    y = torch.randint(0, 10, (batch,), generator=gen, device=device)
+
+    def run(stagger):
+        model = models.MLP(width, (width,) * n_layers + (10,)).to(device)
+        precond = KFACPreconditioner(
+            model, factor_update_steps=1, inv_update_steps=inv_steps,
+            damping=0.001, lr=0.1, stagger_refresh=stagger,
+        )
+        opt = torch.optim.SGD(model.parameters(), lr=0.1)
+        for _ in range(inv_steps + 1):  # the bootstrap and every shard
+            _mlp_step(model, precond, opt, x, y)
+        while precond.steps % inv_steps:
+            _mlp_step(model, precond, opt, x, y)
+        phase_ms = [float('inf')] * inv_steps
+        for _ in range(intervals):
+            for phase in range(inv_steps):
+                _sync(device)
+                t0 = time.perf_counter()
+                _mlp_step(model, precond, opt, x, y)
+                _sync(device)
+                phase_ms[phase] = min(
+                    phase_ms[phase], (time.perf_counter() - t0) * 1e3,
+                )
+        ordered = sorted(phase_ms)
+        return {
+            'p50_ms': percentile(ordered, 0.50),
+            'p95_ms': percentile(ordered, 0.95),
+            'max_ms': ordered[-1],
+            'phase_ms': phase_ms,
+        }
+
+    mono = run(None)
+    stag = run(inv_steps)
+    return {
+        'config': f'MLP {n_layers}x{width} b{batch}, factor=1 '
+                  f'inv={inv_steps}, stagger={inv_steps}',
+        'monolithic': mono,
+        'staggered': stag,
+        'mono_max_over_p50': mono['max_ms'] / mono['p50_ms'],
+        'stag_max_over_p50': stag['max_ms'] / stag['p50_ms'],
+    }
+
+
+def measure_adaptive_refresh(
+    device: torch.device | str = 'cuda',
+    *,
+    n_layers: int = 8,
+    width: int = 128,
+    batch: int = 128,
+    inv_steps: int = 8,
+    stagger: int = 2,
+    steps: int = 200,
+    threshold: float = 0.2,
+    staleness_factor: int = 3,
+) -> dict[str, Any]:
+    """Shard refreshes the drift-adaptive cadence saves on a stationary
+    task (JAX ``measure_adaptive_refresh``): fresh Gaussian inputs and
+    random labels every step, the fixed stagger cadence against the
+    adaptive one from the same weights and the same batches.  The fixed
+    count is analytic (one shard per opportunity step after the
+    bootstrap); the adaptive one is the controller's counters."""
+    device = torch.device(device)
+
+    def run(adaptive):
+        torch.manual_seed(2)
+        model = models.MLP(width, (width,) * n_layers + (10,)).to(device)
+        precond = KFACPreconditioner(
+            model, factor_update_steps=1, inv_update_steps=inv_steps,
+            damping=0.001, lr=0.1, stagger_refresh=stagger,
+            adaptive=adaptive,
+        )
+        opt = torch.optim.SGD(model.parameters(), lr=0.1)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        loss = None
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            x = torch.randn(batch, width, generator=gen, device=device)
+            y = torch.randint(0, 10, (batch,), generator=gen, device=device)
+            loss = _mlp_step(model, precond, opt, x, y)
+        final = float(loss.detach())
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        return precond, final, wall_ms
+
+    _, fixed_loss, fixed_ms = run(None)
+    adapt, adapt_loss, adapt_ms = run(AdaptiveRefreshConfig(
+        threshold, staleness_factor=staleness_factor, record_events=True,
+    ))
+    ctl = adapt.adaptive_controller
+    fixed_count = sum(1 for s in range(1, steps)
+                      if s % inv_steps < ctl.n_shards)
+    c = ctl.counters()
+    adaptive_count = c['early'] + c['forced'] + c['scheduled']
+    return {
+        'config': f'MLP {n_layers}x{width} b{batch} stationary task, '
+                  f'factor=1 inv={inv_steps}, stagger={stagger}, '
+                  f'threshold={threshold}, floor={staleness_factor}x, '
+                  f'{steps} steps',
+        'geometry': {'inv_steps': inv_steps, 'n_shards': ctl.n_shards,
+                     'steps': steps, 'threshold': threshold,
+                     'staleness_factor': staleness_factor},
+        'fixed': {'refreshes': fixed_count, 'final_loss': fixed_loss,
+                  'step_ms_mean': fixed_ms / steps},
+        'adaptive': {
+            'refreshes': adaptive_count, 'counters': c,
+            'final_loss': adapt_loss, 'step_ms_mean': adapt_ms / steps,
+            'host_syncs': adapt.adaptive_host_syncs,
+            'events': [list(e) for e in ctl.events],
+        },
+        'refresh_reduction': 1.0 - adaptive_count / fixed_count,
+        'final_loss_gap': abs(adapt_loss - fixed_loss),
+    }
+
+
+#: The refresh-cadence stages: name -> measure function.
+STAGES: dict[str, Callable[..., dict]] = {
+    'stagger_flatness': measure_stagger_flatness,
+    'adaptive_refresh': measure_adaptive_refresh,
+}
+
+
 def result_line(results: dict[str, dict | None], env: dict) -> dict:
     """The JSON line: ``bench.py``'s keys from the per-configuration
     results (``None`` for a configuration not run)."""
     detail: dict[str, Any] = {}
     for name, res in results.items():
+        if name in STAGES:
+            detail[name] = res
+            continue
         cfg = CONFIGS.get(name, {})
         detail[f'{name}_sgd_ms'] = res['sgd_ms'] if res else None
         detail[f'{name}_kfac_ms_amortized'] = res['kfac_ms'] if res else None
@@ -241,8 +428,11 @@ def result_line(results: dict[str, dict | None], env: dict) -> dict:
 def run(names: Sequence[str], device: torch.device | str = 'cuda',
         **overrides: Any) -> dict:
     """Measure the named configurations in turn and return the line."""
-    results = {name: measure(CONFIGS[name], device, **overrides)
-               for name in names}
+    results = {
+        name: (STAGES[name](device) if name in STAGES
+               else measure(CONFIGS[name], device, **overrides))
+        for name in names
+    }
     env = environment_summary()
     env['allow_tf32'] = {
         'matmul': torch.backends.cuda.matmul.allow_tf32,
@@ -256,7 +446,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     p.add_argument('--device', default=None,
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument('--configs', nargs='+', default=list(DEFAULT_CONFIGS),
-                   choices=list(CONFIGS),
+                   choices=list(CONFIGS) + list(STAGES),
                    help='configurations to measure, in order')
     args = p.parse_args(argv)
     if args.device in (None, 'cuda') and not torch.cuda.is_available():

@@ -13,6 +13,14 @@ order of ``engine.py:1463-1556``:
 3. every step, preconditioning of each layer's gradient and one global
    kl-clip scale, written back into the layers' ``.grad``.
 
+Under ``stagger_refresh=K`` step 2 is planned by
+:meth:`KFACEngineMixin._refresh_plan` (``engine.py:776-825``): the
+first refresh is monolithic, after which interval phase ``p < K``
+refreshes shard ``p``; with ``adaptive`` the
+:class:`~kfac_pytorch_tpu_torch.scheduler.AdaptiveRefreshController`
+picks the shard (or none) from the drift read back at the decision,
+and commits the decision only after the step's work ran.
+
 The call sequence is PyTorch's: ``loss.backward(); precond.step();
 optimizer.step()``.  Under EKFAC the step's factor update also moves the
 scale grids, and with an :class:`~kfac_pytorch_tpu_torch.adaptive.
@@ -33,7 +41,9 @@ import torch
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.hyperparams import resolve
 from kfac_pytorch_tpu_torch.hyperparams import validate_damping
+from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
 from kfac_pytorch_tpu_torch.scheduler import post_restore_bootstrapped
+from kfac_pytorch_tpu_torch.scheduler import stagger_refresh_action
 
 #: The schedulable hyperparameters a checkpoint holds (when not callable).
 HYPERPARAM_KEYS = (
@@ -179,6 +189,31 @@ def begin_load_state_dict(
     return layers
 
 
+def validate_adaptive(
+    adaptive: Any, stagger_refresh: int | None, adaptive_refresh: Any,
+) -> None:
+    """The JAX engine's checks of ``adaptive`` (``engine.py:391-410``)."""
+    if adaptive is None:
+        return
+    if not isinstance(adaptive, AdaptiveRefreshConfig):
+        raise TypeError(
+            'adaptive must be a scheduler.AdaptiveRefreshConfig, '
+            f'got {type(adaptive).__name__}',
+        )
+    if stagger_refresh is None:
+        raise ValueError(
+            'adaptive refresh is a per-stagger-shard cadence: pass '
+            'stagger_refresh=K (K >= 1) alongside '
+            'adaptive=AdaptiveRefreshConfig(...)',
+        )
+    if adaptive_refresh is not None:
+        raise ValueError(
+            'adaptive and adaptive_refresh are two cadence controllers '
+            'fighting over the same refresh schedule: pass one or the '
+            'other',
+        )
+
+
 class KFACEngineMixin:
     """Step cadence, hyperparameter resolution and checkpoints.
 
@@ -188,8 +223,10 @@ class KFACEngineMixin:
     lr)``, ``_checkpoint_layer_states()``,
     ``_restore_factors(layers)`` and ``_topology_descriptor()``, under
     EKFAC ``_ekfac_divergence()``, ``_ekfac_scales()`` and
-    ``_with_ekfac_scales(scales)``, and arm their capture through
-    ``_arm_capture(bool)``.
+    ``_with_ekfac_scales(scales)``, under ``stagger_refresh``
+    ``_refresh_shard(damping, shard)`` and ``_stagger_shard_empty(
+    shard)``, under ``adaptive`` ``_adaptive_drift_emit()``, and arm
+    their capture through ``_arm_capture(bool)``.
     """
 
     def _init_engine(
@@ -202,9 +239,22 @@ class KFACEngineMixin:
         kl_clip: Callable[[int], float] | float | None,
         lr: Callable[[int], float] | float,
         adaptive_refresh: Any = None,
+        stagger_refresh: int | None = None,
+        adaptive_controller: Any = None,
     ) -> None:
         if not callable(damping):
             validate_damping(damping)
+        # The staggered refresh: False until the first monolithic
+        # refresh (and again after a restore without a recompute).
+        self._stagger_refresh = stagger_refresh
+        self._stagger_bootstrapped = False
+        # The drift-adaptive cadence: the controller, and the latest
+        # drift feed as device tensors, read back to the host only at an
+        # opportunity step (counted in _adaptive_host_syncs).
+        self._adaptive_controller = adaptive_controller
+        self._adaptive_last_drift: tuple | None = None
+        self._adaptive_host_syncs = 0
+        self._last_refresh: str | int | None = None
         # The drift-triggered refresh (EKFAC only): fed the scale drift
         # after every factor step; a request runs the refresh at the
         # next step once factors exist.
@@ -237,6 +287,18 @@ class KFACEngineMixin:
         factor step), kept across steps; ``None`` before the first
         factor step or without EKFAC."""
         return self._last_ekfac_divergence
+
+    @property
+    def last_refresh(self) -> str | int | None:
+        """What the latest :meth:`step` refreshed: ``'full'``, a stagger
+        shard index, or ``None``."""
+        return self._last_refresh
+
+    @property
+    def adaptive_controller(self) -> Any:
+        """The :class:`~kfac_pytorch_tpu_torch.scheduler.\
+AdaptiveRefreshController` (``None`` without ``adaptive``)."""
+        return self._adaptive_controller
 
     @property
     def factor_update_steps(self) -> int:
@@ -284,10 +346,68 @@ class KFACEngineMixin:
             update_inverses = True
         return update_factors, update_inverses
 
+    def _refresh_plan(self) -> tuple[bool, bool, int | None]:
+        """``(update_factors, update_inverses, refresh_shard)`` of the
+        current step (JAX ``engine.py:776-825``).
+
+        Without ``stagger_refresh`` this is :meth:`_step_gating` with no
+        shard.  With it, :func:`~kfac_pytorch_tpu_torch.scheduler.\
+stagger_refresh_action` keeps the first due refresh monolithic and then
+        gives each interval phase below ``K`` its shard; under
+        ``adaptive`` the controller picks the shard (or none) at those
+        same steps, from the drift read back here, as a pending decision
+        that :meth:`step` commits after the step's work.  An empty shard
+        runs a plain step.
+        """
+        update_factors, update_inverses = self._step_gating()
+        if self._stagger_refresh is None:
+            return update_factors, update_inverses, None
+        action = stagger_refresh_action(
+            self._steps,
+            self.inv_update_steps,
+            self._stagger_refresh,
+            factors_ready=self._factors_initialized or update_factors,
+            monolithic_due=update_inverses,
+            bootstrapped=self._stagger_bootstrapped,
+        )
+        ctl = self._adaptive_controller
+        if ctl is not None:
+            if action == 'full':
+                sketch, digest = self._adaptive_drift_host()
+                ctl.note_full(self._steps, sketch=sketch, digest=digest)
+            elif action is not None:
+                sketch, digest = self._adaptive_drift_host()
+                action = ctl.decide(
+                    self._steps, self.inv_update_steps,
+                    sketch=sketch, digest=digest,
+                )
+        if action == 'full':
+            return update_factors, True, None
+        if action is None or self._stagger_shard_empty(action):
+            return update_factors, False, None
+        return update_factors, False, action
+
+    def _adaptive_drift_host(self) -> tuple[Any, Any]:
+        """Host copies of the latest drift feed, ``(sketch, digest)``
+        numpy arrays, or ``(None, None)`` before the first factor step
+        fed one.  This read is the adaptive cadence's one host sync,
+        made only at opportunity steps."""
+        if self._adaptive_last_drift is None:
+            return None, None
+        self._adaptive_host_syncs += 1
+        sketch, digest = self._adaptive_last_drift
+        return sketch.cpu().numpy(), digest.cpu().numpy()
+
+    @property
+    def adaptive_host_syncs(self) -> int:
+        """Host reads of the drift feed so far (one per opportunity step
+        after the first factor step)."""
+        return self._adaptive_host_syncs
+
     def step(self) -> None:
         """Precondition the gradients now in the registered layers'
         ``.grad`` (call after ``backward()``, before the optimizer)."""
-        update_factors, update_inverses = self._step_gating()
+        update_factors, update_inverses, shard = self._refresh_plan()
         if update_factors:
             self._update_factors(first_update=not self._factors_initialized)
             self._factors_initialized = True
@@ -297,7 +417,22 @@ class KFACEngineMixin:
             self._last_inv_step = self._steps
             self._refresh(self.damping)
             self._iter_bootstrapped = True
+        elif shard is not None:
+            self._refresh_shard(self.damping, shard)
         self._precondition(self.damping, self.kl_clip, self.lr)
+        ctl = self._adaptive_controller
+        if ctl is not None:
+            if update_factors:
+                # The factor EMAs move only on factor steps.
+                drift = self._adaptive_drift_emit()
+                if drift:
+                    self._adaptive_last_drift = (
+                        drift['adaptive/sketch'], drift['adaptive/digest'],
+                    )
+            ctl.commit(self._steps)
+        if update_inverses:
+            self._stagger_bootstrapped = True
+        self._last_refresh = 'full' if update_inverses else shard
         step_index = self._steps
         self._steps += 1
         self._post_step_refresh_feed(
@@ -345,7 +480,8 @@ class KFACEngineMixin:
         ``steps``, ``sketch_step`` (the last inverse-update step, whose
         sketches a restore draws again), the non-callable
         hyperparameters, the drift controller's state
-        (``adaptive_refresh``) when one is set, and, with
+        (``adaptive_refresh``) and the adaptive cadence's counters
+        (``adaptive``) when they are set, and, with
         ``include_factors``, ``layers: {name: {'A', 'G'}}`` — CPU
         tensors, or with ``compress_symmetric`` packed upper triangles
         ``{'triu', 'dim'}``.  ``include_ekfac_scales`` also keeps the
@@ -366,11 +502,20 @@ class KFACEngineMixin:
             sd['topology'] = self._topology_descriptor()
         if self._adaptive_refresh is not None:
             sd['adaptive_refresh'] = self._adaptive_refresh.state_dict()
+        if self._adaptive_controller is not None:
+            # Counters only: ages and references describe the live
+            # stacks, which a restore recomputes.
+            sd['adaptive'] = self._adaptive_controller.state_dict()
         if include_factors:
+            # A helper with non-symmetric factors keeps them dense: the
+            # restore mirrors a packed upper triangle.
+            sym = self._symmetric_layers()
             sd['layers'] = {
                 base: {
-                    'A': pack_factor(st.a_factor, compress_symmetric),
-                    'G': pack_factor(st.g_factor, compress_symmetric),
+                    'A': pack_factor(st.a_factor,
+                                     compress_symmetric and base in sym),
+                    'G': pack_factor(st.g_factor,
+                                     compress_symmetric and base in sym),
                 }
                 for base, st in self._checkpoint_layer_states().items()
             }
@@ -408,7 +553,11 @@ class KFACEngineMixin:
         this is collective: every rank calls it, and the recompute runs
         the column gather.  The recompute draws the low-rank sketches of
         the saved ``sketch_step``, so it reproduces the decompositions
-        the saving run held.  Saved EKFAC scales are installed after it
+        the saving run held.  A staggered engine then resumes on the
+        shard cadence (the recompute is its bootstrap); without the
+        recompute its next due refresh is monolithic.  The adaptive
+        cadence keeps its counters and restarts its ages and references.
+        Saved EKFAC scales are installed after it
         (and rejected without ``compute_inverses``: they need the
         recomputed basis).  The capture hooks are re-armed for the next
         step.  Micro-batch sums are not checkpointed (as in the JAX
@@ -426,6 +575,14 @@ class KFACEngineMixin:
         if ar_sd is not None and self._adaptive_refresh is not None:
             self._adaptive_refresh.load_state_dict(ar_sd)
         self._refresh_requested = False
+        ctl = self._adaptive_controller
+        if ctl is not None:
+            # Ages and references never survive a restore; the counters
+            # are run statistics and do (engine.py:2605-2616).
+            ctl.reset()
+            if state_dict.get('adaptive') is not None:
+                ctl.load_state_dict(state_dict['adaptive'])
+            self._adaptive_last_drift = None
         self.reset_batch()
         layers = begin_load_state_dict(
             self, state_dict, self._checkpoint_layer_states(),
@@ -439,7 +596,13 @@ class KFACEngineMixin:
                 self._refresh(self.damping)
                 if scales is not None:
                     self._restore_ekfac_scales(scales)
+            # The restore invariant: only a restore-time recompute lets
+            # the shard cadence and the warm start resume; otherwise the
+            # next due refresh is the monolithic bootstrap.
             self._iter_bootstrapped = post_restore_bootstrapped(
+                full_recompute=compute_inverses,
+            )
+            self._stagger_bootstrapped = post_restore_bootstrapped(
                 full_recompute=compute_inverses,
             )
         self._arm_capture(self._step_gating()[0])
@@ -501,6 +664,18 @@ class KFACEngineMixin:
 
     def _ekfac_divergence(self) -> torch.Tensor | None:
         return None
+
+    def _symmetric_layers(self) -> set[str]:
+        return set(self._checkpoint_layer_states())
+
+    def _refresh_shard(self, damping: float, shard: int) -> None:
+        raise NotImplementedError
+
+    def _stagger_shard_empty(self, shard: int) -> bool:
+        return False
+
+    def _adaptive_drift_emit(self) -> dict[str, torch.Tensor]:
+        return {}
 
     def _ekfac_scales(self) -> Mapping[str, torch.Tensor] | None:
         return None

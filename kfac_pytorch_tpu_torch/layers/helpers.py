@@ -57,6 +57,15 @@ class LayerHelper:
         return False
 
     @property
+    def symmetric_factors(self) -> bool:
+        """Whether the factors are symmetric (every built-in helper's
+        are).  A custom helper with non-symmetric statistics needs the
+        replicated engine (``bucketed=False``), which decomposes it with
+        :func:`~kfac_pytorch_tpu_torch.ops.compute_factor_eig_general`
+        or an LU inverse."""
+        return True
+
+    @property
     def swap_capture(self) -> bool:
         """Whether this call's captured pair feeds the factors with the
         roles swapped, A from the output gradients and G from the

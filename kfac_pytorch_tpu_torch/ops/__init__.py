@@ -9,6 +9,7 @@ from kfac_pytorch_tpu_torch.ops.cov import conv2d_a_rows
 from kfac_pytorch_tpu_torch.ops.cov import conv2d_g_factor
 from kfac_pytorch_tpu_torch.ops.cov import conv2d_g_rows
 from kfac_pytorch_tpu_torch.ops.cov import cov_from_rows
+from kfac_pytorch_tpu_torch.ops.cov import cov_psum_compressed
 from kfac_pytorch_tpu_torch.ops.cov import embed_a_diag
 from kfac_pytorch_tpu_torch.ops.cov import extract_patches
 from kfac_pytorch_tpu_torch.ops.cov import get_cov
@@ -23,6 +24,7 @@ from kfac_pytorch_tpu_torch.ops.cov import reduce_sum_shared
 from kfac_pytorch_tpu_torch.ops.cov import scale_bias_a_factor
 from kfac_pytorch_tpu_torch.ops.cov import scale_bias_a_rows
 from kfac_pytorch_tpu_torch.ops.eigen import compute_dgda
+from kfac_pytorch_tpu_torch.ops.eigen import compute_factor_eig_general
 from kfac_pytorch_tpu_torch.ops.eigen import compute_factor_eigen
 from kfac_pytorch_tpu_torch.ops.eigen import EigenFactors
 from kfac_pytorch_tpu_torch.ops.eigen import precondition_grad_eigen

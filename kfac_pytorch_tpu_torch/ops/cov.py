@@ -180,6 +180,30 @@ def cov_from_rows(rows: torch.Tensor, norm: float) -> torch.Tensor:
     return get_cov(rows, scale=float(rows.shape[0]) * norm ** 2)
 
 
+def cov_psum_compressed(
+    rows: torch.Tensor,
+    norm: float,
+    group=None,
+    comm_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Covariance factor of the rows of every rank of ``group`` (default
+    the world) through the compressed all-reduce (JAX
+    ``ops/cov.py:423-496``, the ``factor_comm='bf16_triu'`` wire form).
+
+    Each rank contracts its local ``[R, d]`` rows in f32 at the global
+    scale ``world * R * norm^2`` (equal local batches), and
+    :func:`~kfac_pytorch_tpu_torch.parallel.collectives.\
+all_reduce_sum_triu` sums the ``comm_dtype`` packed upper triangles and
+    returns the f32 ``[d, d]`` factor.  Lossy on the wire by design: the
+    sum runs in ``comm_dtype``.
+    """
+    from kfac_pytorch_tpu_torch.parallel import collectives
+
+    world = collectives.group_size(group)
+    cov = get_cov(rows, scale=float(rows.shape[0]) * norm ** 2 * world)
+    return collectives.all_reduce_sum_triu([cov], group, comm_dtype)[0]
+
+
 def linear_a_factor(a: torch.Tensor, has_bias: bool = True) -> torch.Tensor:
     """A factor for a dense layer from its input activations."""
     return cov_from_rows(*linear_a_rows(a, has_bias=has_bias))

@@ -1,6 +1,6 @@
 """Shape bucketing and slot layout for stacked K-FAC layer state.
 
-Port of ``kfac_pytorch_tpu/parallel/bucketing.py:43-112,259-335``.
+Port of ``kfac_pytorch_tpu/parallel/bucketing.py:43-193,259-335``.
 Layers are grouped into buckets of equal padded factor shape
 ``(a_pad, g_pad)`` so each bucket's decompositions and rotations run as
 one batched call over an ``[L, n, n]`` stack.  Bucket keys, bucket
@@ -11,6 +11,9 @@ gradient-worker columns: column ``c`` owns ``slots[c*seg:(c+1)*seg]``.
 Each bucket's layers go one by one to the least-loaded column, with the
 loads carried across buckets, so later buckets can come out unevenly
 padded; that is the JAX layout and is kept as it is.
+
+:func:`make_stagger_plan` partitions every bucket slot into ``K``
+cost-balanced refresh shards for ``stagger_refresh=K``.
 """
 from __future__ import annotations
 
@@ -81,6 +84,12 @@ class BucketPlan:
     n_cols: int
     slot_of: Mapping[str, tuple[str, int]]
 
+    def bucket(self, key: str) -> BucketLayout:
+        for b in self.buckets:
+            if b.key == key:
+                return b
+        raise KeyError(key)
+
 
 def make_bucket_plan(
     helpers: Mapping[str, LayerHelper],
@@ -127,3 +136,74 @@ def make_bucket_plan(
             if name is not None:
                 slot_of[name] = (key, i)
     return BucketPlan(buckets=tuple(buckets), n_cols=n_cols, slot_of=slot_of)
+
+
+@dataclasses.dataclass(frozen=True)
+class StaggerPlan:
+    """Cost-balanced partition of all bucket slots into refresh shards
+    (``stagger_refresh=K``; JAX ``parallel/bucketing.py:115-146``).
+
+    Attributes:
+        n_shards: number of refresh shards ``K``.
+        shards: ``shards[k]`` maps bucket key -> the sorted slot indices
+            (in the whole bucket) shard ``k`` refreshes; buckets without
+            slots in a shard are absent.  Every slot, padding slots
+            included, lies in exactly one shard, so a sweep of shards
+            ``0..K-1`` recomputes what one monolithic refresh does.
+        costs: per-shard summed ``a_pad^3 + g_pad^3``.
+    """
+
+    n_shards: int
+    shards: tuple[Mapping[str, tuple[int, ...]], ...]
+    costs: tuple[float, ...]
+
+    def shard_of(self, bucket_key: str, slot: int) -> int:
+        for k, shard in enumerate(self.shards):
+            if slot in shard.get(bucket_key, ()):
+                return k
+        raise KeyError((bucket_key, slot))
+
+
+def make_stagger_plan(plan: BucketPlan, n_shards: int) -> StaggerPlan:
+    """Partition a bucket plan's slots into ``n_shards`` LPT shards
+    (JAX ``parallel/bucketing.py:149-193``).
+
+    One slot of bucket ``(a_pad, g_pad)`` costs ``a_pad^3 + g_pad^3``
+    (two ``eigh`` calls); the partition is
+    :meth:`~kfac_pytorch_tpu_torch.assignment.KAISAAssignment.\
+greedy_assignment` with one worker group per shard, so shards and costs
+    are the JAX package's slot for slot.  Padding slots cost as much as
+    occupied ones (their identity blocks are decomposed either way) and
+    take part in the balance.  Shards come out empty when ``n_shards``
+    exceeds the slot count; the engine runs a plain step on those.
+    """
+    if n_shards < 1:
+        raise ValueError(f'n_shards must be >= 1, got {n_shards}')
+    from kfac_pytorch_tpu_torch.assignment import KAISAAssignment
+
+    work = {
+        f'{b.key}:{i}': {'AG': float(b.a_pad ** 3 + b.g_pad ** 3)}
+        for b in plan.buckets
+        for i in range(b.n_slots)
+    }
+    assignments = KAISAAssignment.greedy_assignment(
+        work,
+        worker_groups=[[k] for k in range(n_shards)],
+        world_size=n_shards,
+        colocate_factors=True,
+    )
+    shards: list[dict[str, list[int]]] = [{} for _ in range(n_shards)]
+    costs = [0.0] * n_shards
+    for name, factors in assignments.items():
+        key, slot = name.rsplit(':', 1)
+        k = factors['AG']
+        shards[k].setdefault(key, []).append(int(slot))
+        costs[k] += work[name]['AG']
+    return StaggerPlan(
+        n_shards=n_shards,
+        shards=tuple(
+            {key: tuple(sorted(slots)) for key, slots in sorted(s.items())}
+            for s in shards
+        ),
+        costs=tuple(costs),
+    )

@@ -7,6 +7,8 @@ issued by hand:
 
 * :func:`all_reduce_mean` — the factor all-reduce over the world, all
   factors through one flat buffer per dtype;
+* :func:`all_reduce_sum_triu` — its compressed form
+  (``factor_comm='bf16_triu'``): packed upper triangles summed in bf16;
 * :func:`all_gather_decompositions` — phase 2: a column's ranks each
   decompose a share of the column's slots and gather the rest;
 * :func:`all_gather_preconditioned` — phase 4: a row's ranks each
@@ -30,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 
-def _group_size(group) -> int:
+def group_size(group) -> int:
     """Ranks in ``group`` (``None``: the default group); 1 without
     ``torch.distributed``."""
     if not (dist.is_available() and dist.is_initialized()):
@@ -39,7 +41,7 @@ def _group_size(group) -> int:
 
 
 def _gathers(group) -> bool:
-    return group is not None and _group_size(group) > 1
+    return group is not None and group_size(group) > 1
 
 
 def _by_dtype(tensors: Sequence[torch.Tensor]) -> dict:
@@ -56,7 +58,7 @@ def all_reduce_mean(
 ) -> list[torch.Tensor]:
     """Mean of each tensor over the ranks of ``group`` (default: the
     world), one ``all_reduce`` per dtype over a flat buffer."""
-    n = _group_size(group)
+    n = group_size(group)
     if n == 1:
         return list(tensors)
     out: list[torch.Tensor] = [None] * len(tensors)
@@ -72,6 +74,47 @@ def all_reduce_mean(
     return out
 
 
+def all_reduce_sum_triu(
+    factors: Sequence[torch.Tensor],
+    group=None,
+    comm_dtype: torch.dtype = torch.bfloat16,
+) -> list[torch.Tensor]:
+    """Sum of each symmetric ``[d, d]`` factor over the ranks of
+    ``group`` (default: the world) on a compressed wire (the reduction
+    of JAX ``ops.cov.cov_psum_compressed``): each factor is symmetrized,
+    its upper triangle packed and cast to ``comm_dtype``, all of them go
+    through one ``all_reduce(SUM)`` in ``comm_dtype``, and each comes
+    back unpacked in f32.  The wire moves ``d(d+1)/2`` elements of 2
+    bytes per factor instead of ``d^2`` of 4.
+
+    The sum runs in ``comm_dtype`` on purpose.  A backend that refuses
+    the dtype raises: an upcast to f32 would be a different, lossless
+    result.
+    """
+    from kfac_pytorch_tpu_torch.ops.triu import fill_triu
+    from kfac_pytorch_tpu_torch.ops.triu import get_triu
+
+    packed = [get_triu(0.5 * (f + f.mT)).to(comm_dtype) for f in factors]
+    flat = torch.cat(packed)
+    if group_size(group) > 1:
+        try:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        except (RuntimeError, ValueError) as exc:
+            raise RuntimeError(
+                f'the {dist.get_backend(group)} backend refused an '
+                f'all_reduce in {comm_dtype} (factor_comm needs the sum '
+                'on the wire in that dtype; an f32 upcast would be a '
+                f'different, lossless result): {exc}',
+            ) from exc
+    out, offset = [], 0
+    for f, p in zip(factors, packed):
+        out.append(fill_triu(
+            tuple(f.shape), flat[offset:offset + p.numel()].float(),
+        ))
+        offset += p.numel()
+    return out
+
+
 def all_gather_stacks(
     stacks: Sequence[torch.Tensor], group,
 ) -> list[torch.Tensor]:
@@ -81,7 +124,7 @@ def all_gather_stacks(
     shapes."""
     if not _gathers(group):
         return list(stacks)
-    n = _group_size(group)
+    n = group_size(group)
     out: list[torch.Tensor] = [None] * len(stacks)
     for idx in _by_dtype(stacks).values():
         local = torch.cat([stacks[i].reshape(-1) for i in idx])
@@ -146,7 +189,7 @@ def all_gather_decompositions(
     """
     if not _gathers(group):
         return [tuple(s) for s in shares]
-    n = _group_size(group)
+    n = group_size(group)
     flat: list[torch.Tensor] = []
     for share, seg, eyes in zip(shares, segs, identity):
         per = -(-seg // n)

@@ -38,6 +38,11 @@ EKFAC (``ekfac``: every bucket keeps ``da``/``dg`` and a scale grid
 every factor step by :meth:`BucketedSecondOrder.ekfac_update`;
 :mod:`~kfac_pytorch_tpu_torch.ops.ekfac`).
 
+With a :class:`~kfac_pytorch_tpu_torch.parallel.bucketing.StaggerPlan`
+(``stagger_refresh``), :meth:`BucketedSecondOrder.compute_shard`
+re-decomposes one shard's slots and scatters them into the existing
+stacks (phases 1 and 2 on the shard's slots only).
+
 On one device the grid is ``1 x 1`` and no collective runs.
 """
 from __future__ import annotations
@@ -54,6 +59,7 @@ from kfac_pytorch_tpu_torch.ops import lowrank as lowrank_ops
 from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketLayout
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketPlan
+from kfac_pytorch_tpu_torch.parallel.bucketing import StaggerPlan
 from kfac_pytorch_tpu_torch.parallel.mesh import KaisaGrid
 from kfac_pytorch_tpu_torch.scheduler import iterative_refresh_iters
 from kfac_pytorch_tpu_torch.state import LayerKFACState
@@ -157,6 +163,8 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             columns and QR power iterations.
         ekfac: eigen only: EKFAC scale grids (exclusive with
             ``lowrank_rank``).
+        stagger: the refresh shards of ``stagger_refresh``
+            (:meth:`compute_shard`); exclusive with ``lowrank_rank``.
     """
 
     def __init__(
@@ -175,6 +183,7 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         lowrank_oversample: int = 32,
         lowrank_power_iters: int = 2,
         ekfac: bool = False,
+        stagger: StaggerPlan | None = None,
     ) -> None:
         grid = KaisaGrid(rows=1, cols=1, rank=0) if grid is None else grid
         if grid.cols != plan.n_cols:
@@ -196,6 +205,11 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
                 'ekfac and lowrank_rank are mutually exclusive (EKFAC '
                 'scales need the complete eigenvalue grid)',
             )
+        if stagger is not None and lowrank_rank is not None:
+            raise ValueError(
+                'stagger_refresh and lowrank_rank are mutually exclusive',
+            )
+        self.stagger = stagger
         self.lowrank_rank = lowrank_rank
         self.lowrank_oversample = int(lowrank_oversample)
         self.lowrank_power_iters = int(lowrank_power_iters)
@@ -239,8 +253,7 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         """``(bucket key, index among this rank's slots)`` of a layer
         in this rank's column."""
         key, slot = self.plan.slot_of[name]
-        seg = next(b.seg for b in self.plan.buckets if b.key == key)
-        return key, slot - self.grid.col * seg
+        return key, slot - self.grid.col * self.plan.bucket(key).seg
 
     def lowrank_sides(self, key: str) -> tuple[bool, bool]:
         """``(A truncated, G truncated)`` of bucket ``key``."""
@@ -477,6 +490,89 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             b.key: BucketSecond(**dict(zip(ns, share)))
             for b, ns, share in zip(self.plan.buckets, names, shares)
         }
+
+    def compute_shard(
+        self,
+        layers: Mapping[str, LayerKFACState],
+        damping: float,
+        shard: int,
+        prev: Mapping[str, BucketSecond],
+    ) -> dict[str, BucketSecond]:
+        """Re-decompose one stagger shard's slots (JAX ``compute_shard``,
+        ``second_order.py:1075-1230``) and scatter them into ``prev``'s
+        stacks at their slot indices; every other slot passes through.
+
+        The shard's slots are stacked through the same identity padding
+        as :meth:`compute` and decomposed by the same method code, so a
+        sweep of shards ``0..K-1`` over unchanged factors gives what one
+        monolithic refresh gives: eigen with prediv ``qa``, ``qg``,
+        ``dgda`` and ``bake_damping``; without it ``qa``, ``qg``, ``da``
+        and ``dg``; EKFAC also ``skron`` reseeded to the fresh ``dg ⊗
+        da``; inverse ``a_inv``/``g_inv``; iterative the roots and their
+        residuals, always at warm depth from the slots' own roots (the
+        monolithic bootstrap came first).
+
+        On the KAISA grid a shard's slots lie in several columns: each
+        rank takes the shard's slots of its own column, the column's
+        ranks split them as :meth:`compute` splits a column, and gather
+        them over the column.  Which collectives run depends on the grid
+        and the shard index only, the same on every rank of a column.
+        """
+        if self.stagger is None:
+            raise ValueError('compute_shard requires a StaggerPlan')
+        if not 0 <= shard < self.stagger.n_shards:
+            raise ValueError(
+                f'shard {shard} out of range for '
+                f'{self.stagger.n_shards} shards',
+            )
+        grid = self.grid
+        iters = self.iterative.warm_iters if self.iterative is not None else 0
+        picked, names, shares = [], [], []
+        for b in self.plan.buckets:
+            first = grid.col * b.seg
+            local = [i - first for i in self.stagger.shards[shard].get(
+                b.key, ()) if first <= i < first + b.seg]
+            if not local:  # the same on every rank of this column
+                continue
+            start, stop = collectives.share_bounds(
+                len(local), grid.rows, grid.row,
+            )
+            mine = local[start:stop]
+            if not mine:
+                fields = self._zero_fields(b, 0)
+            else:
+                column = self.local_slots(b)
+                A, G = self._stack_bucket_factors(
+                    b, tuple(column[i] for i in mine), layers,
+                )
+                warm = None
+                if self.iterative is not None:
+                    pb = prev[b.key]
+                    sel = torch.tensor(mine, device=self.device)
+                    warm = (pb.a_inv[sel], pb.g_inv[sel])
+                fields = self._decompose(
+                    b, A, G, damping, warm, iters,
+                    [first + i for i in mine], 0,
+                )
+            share = BucketSecond(**fields).tensors()
+            picked.append((b, local))
+            names.append(tuple(share))
+            shares.append(tuple(share.values()))
+        shares = collectives.all_gather_decompositions(
+            shares, [len(local) for _, local in picked], grid.col_group,
+            [[n in IDENTITY_PADDED for n in ns] for ns in names],
+        )
+        out = dict(prev)
+        for (b, local), ns, share in zip(picked, names, shares):
+            bs = prev[b.key]
+            sel = torch.tensor(local, device=self.device)
+            out[b.key] = dataclasses.replace(bs, **{
+                n: getattr(bs, n).index_copy(
+                    0, sel, t.to(getattr(bs, n).dtype),
+                )
+                for n, t in zip(ns, share)
+            })
+        return out
 
     def _rotate_bucket(
         self,

@@ -49,6 +49,14 @@ pass the wrapper or the bare module; ``grad_worker_fraction`` picks
 COMM-OPT, HYBRID-OPT or MEM-OPT on the KAISA grid of the default group.
 Every rank must take a local batch of the same size.
 
+``stagger_refresh=K`` spreads each refresh over ``K`` steps, with an
+optional drift-adaptive choice of the shard::
+
+    precond = KFACPreconditioner(
+        model, inv_update_steps=10, stagger_refresh=5,
+        adaptive=AdaptiveRefreshConfig(threshold=0.2, staleness_factor=3),
+    )
+
 Every JAX option this slice does not port raises ``NotImplementedError``
 naming its ``ROADMAP.md`` item; none is silently ignored.  The JAX
 ``loss_fn``/``apply_kwargs`` have no counterpart: the caller runs the
@@ -57,6 +65,7 @@ forward and backward passes itself.
 from __future__ import annotations
 
 import logging
+import warnings
 from typing import Any, Callable, Sequence
 
 import torch
@@ -119,7 +128,14 @@ class KFACPreconditioner(BaseKFACPreconditioner):
             ``1/(dg ⊗ da + damping)`` at refresh time and run the fused
             kernel (requires ``colocate_factors``), or keep the clamped
             eigenvalues and divide by the live damping every step.
-        bucketed: the bucketed second-order stage (must be True or None).
+        bucketed: the bucketed second-order stage (default), or with
+            ``False`` the replicated engine: every rank refreshes and
+            preconditions every layer by itself, per layer (the fused
+            kernel is not launched, as in JAX), and custom helpers with
+            non-symmetric factors take the general eig
+            (:func:`~kfac_pytorch_tpu_torch.ops.\
+compute_factor_eig_general`, on the host as in JAX) or an LU inverse.
+            Eigen (prediv or not) and inverse only.
         factor_dtype, inv_dtype: dtypes of the factor EMAs and of the
             decompositions (default f32).
         precond_dtype: operand dtype of the rotation chain (default f32;
@@ -158,6 +174,26 @@ ekfac`), the eigenbasis refreshed at the cadence and the scales
         adaptive_refresh: an :class:`~kfac_pytorch_tpu_torch.adaptive.\
 AdaptiveRefresh` that requests a refresh when the EKFAC scales drift
             (needs ``ekfac``).
+        stagger_refresh: ``K`` refresh shards: after the monolithic
+            first refresh, interval phase ``p < K`` re-decomposes shard
+            ``p`` (an LPT partition of every bucket slot,
+            :func:`~kfac_pytorch_tpu_torch.parallel.bucketing.\
+make_stagger_plan`), so the refresh spike spreads over ``K`` steps;
+            ``1 <= K <= inv_update_steps``, bucketed only, exclusive with
+            ``lowrank_rank``.
+        adaptive: an :class:`~kfac_pytorch_tpu_torch.scheduler.\
+AdaptiveRefreshConfig` (needs ``stagger_refresh``, exclusive with
+            ``adaptive_refresh``): each opportunity step refreshes the
+            shard whose factors drifted most, or none, under the budget
+            and staleness contracts of
+            :class:`~kfac_pytorch_tpu_torch.scheduler.\
+AdaptiveRefreshController`.
+        factor_comm: ``'bf16_triu'`` reduces the symmetric factors of
+            linear and conv2d layers as packed upper triangles summed in
+            bf16 (lossy; about a quarter of the dense bytes); other
+            layers, the diagonal-A ``[V]`` vectors and the row-count
+            check stay dense.  Exclusive with ``ekfac``; ignored with a
+            warning on one rank.
 
     A transformer with full coverage, as ``examples/tiny_gpt_lm.py``
     configures it::
@@ -284,14 +320,66 @@ AdaptiveRefresh` that requests a refresh when the EKFAC scales drift
                 raise ValueError(
                     'ekfac requires the bucketed second-order stage',
                 )
+        if stagger_refresh is not None:
+            # JAX base_preconditioner.py:247-300: the shards are slices
+            # of the bucket stacks; paths with more per-refresh state
+            # are excluded.
+            if stagger_refresh < 1:
+                raise ValueError(
+                    f'stagger_refresh must be >= 1, got {stagger_refresh}',
+                )
+            if bucketed is False:
+                raise ValueError(
+                    'stagger_refresh requires the bucketed second-order '
+                    'stage (the shards are slices of the bucket stacks)',
+                )
+            if lowrank_rank is not None:
+                raise ValueError(
+                    'stagger_refresh and lowrank_rank are mutually '
+                    'exclusive',
+                )
+            if health is not None:
+                raise ValueError(
+                    'stagger_refresh and health guardrails are mutually '
+                    'exclusive',
+                )
+            if callable(inv_update_steps):
+                interval = f'inv_update_steps(0)={inv_update_steps(0)!r}'
+                at0 = inv_update_steps(0)
+            else:
+                interval = f'inv_update_steps={inv_update_steps}'
+                at0 = inv_update_steps
+            if stagger_refresh > at0:
+                raise ValueError(
+                    f'stagger_refresh={stagger_refresh} exceeds {interval}: '
+                    'shard phases beyond the interval would never run',
+                )
+        # The compressed factor collective (JAX
+        # base_preconditioner.py:474-499).
+        if factor_comm not in (None, 'bf16_triu'):
+            raise ValueError(
+                "factor_comm must be None or 'bf16_triu', got "
+                f'{factor_comm!r}',
+            )
+        if factor_comm is not None:
+            if ekfac:
+                raise ValueError(
+                    'factor_comm and ekfac are mutually exclusive: the '
+                    'EKFAC scale contributions would still reduce '
+                    'dense, mixing compressed and uncompressed '
+                    'statistics of the same rows',
+                )
+            if data_world() == 1:
+                warnings.warn(
+                    'factor_comm has no collective to compress without '
+                    'several torch.distributed ranks; ignoring.',
+                    stacklevel=2,
+                )
+                factor_comm = None
         unported = [
-            ('bucketed=False', bucketed is False, 'item 4b'),
             ('topology', topology is not None, 'item 29'),
-            ('adaptive', adaptive is not None, 'item 16'),
-            ('stagger_refresh', stagger_refresh is not None, 'item 15'),
             ('overlap_comm', bool(overlap_comm), 'item 17'),
             ('pipeline_grads', bool(pipeline_grads), 'item 18'),
-            ('factor_comm', factor_comm is not None, 'item 13'),
             ('health', health is not None, 'item 19'),
             ('consistency', consistency is not None, 'item 21'),
             ('watchdog', watchdog is not None, 'item 21'),
@@ -366,5 +454,9 @@ AdaptiveRefresh` that requests a refresh when the EKFAC scales drift
             lowrank_power_iters=lowrank_power_iters,
             ekfac=ekfac,
             adaptive_refresh=adaptive_refresh,
+            bucketed=bucketed is not False,
+            stagger_refresh=stagger_refresh,
+            adaptive=adaptive,
+            factor_comm=factor_comm,
             loglevel=loglevel,
         )

@@ -145,6 +145,11 @@ def test_cadence_and_schedules():
 
 
 def test_precondition_changes_only_registered_grads():
+    # Tiny's weights come from the global RNG, whose state depends on the
+    # tests run before this one in the process; on about 2% of states the
+    # ReLUs after `conv` are all dead, its raw gradient is exactly zero
+    # and any preconditioner leaves it so.  Seed the weights.
+    torch.manual_seed(0)
     model = Tiny()
     precond = KFACPreconditioner(model, skip_layers=('head',))
     fwd_bwd(model)
@@ -201,8 +206,41 @@ def test_step_without_backward_raises():
     (dict(use_pallas=True), 'Queue B item 1'),
 ])
 def test_unported_options_raise(kwargs, item):
+    if item in PORTED:
+        check_ported_option(kwargs)
+        return
     with pytest.raises(NotImplementedError, match=item):
         KFACPreconditioner(Tiny(), **kwargs)
+
+
+#: Queue A items ported since these cases were written: each case now
+#: checks the option's ported behaviour (the default ``inv_update_steps``
+#: is 1, below ``stagger_refresh=2``).
+PORTED = ('item 4b', 'item 13', 'item 15', 'item 16')
+
+
+def check_ported_option(kwargs):
+    if kwargs.get('bucketed') is False:
+        precond = KFACPreconditioner(Tiny(), **kwargs)
+        assert not precond.bucketed and precond.buckets == {}
+    elif 'lowrank_rank' in kwargs:
+        with pytest.raises(ValueError, match='mutually exclusive'):
+            KFACPreconditioner(Tiny(), **kwargs)
+    elif 'stagger_refresh' in kwargs:
+        with pytest.raises(ValueError, match='exceeds'):
+            KFACPreconditioner(Tiny(), **kwargs)
+        KFACPreconditioner(Tiny(), inv_update_steps=2, **kwargs)
+    elif 'adaptive' in kwargs:
+        with pytest.raises(TypeError, match='AdaptiveRefreshConfig'):
+            KFACPreconditioner(Tiny(), stagger_refresh=1, **kwargs)
+        from kfac_pytorch_tpu_torch import AdaptiveRefreshConfig
+
+        with pytest.raises(ValueError, match='stagger_refresh'):
+            KFACPreconditioner(Tiny(), adaptive=AdaptiveRefreshConfig())
+    else:
+        with pytest.warns(UserWarning, match='factor_comm'):
+            precond = KFACPreconditioner(Tiny(), **kwargs)
+        assert precond.factor_comm is None
 
 
 def test_colocate_factors_required_for_prediv():
