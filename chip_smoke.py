@@ -173,6 +173,38 @@ fails:
     launches a step.  Prints the counters and the host reads of the
     drift per factor step.
 
+16. the deferred refresh (``overlap_comm=True``) on ResNet-50 with
+    phase 9's batch: on frozen weights (no optimizer step; factor 1, inv
+    5, 12 steps, cuDNN deterministic) a synchronous and an overlap run
+    side by side, the overlap stacks after every step ``t >= 1`` bitwise
+    the synchronous stacks after ``t - 1``, the preconditioned gradients
+    bitwise equal off the due steps and different on them, the factor
+    EMAs equal; then phase 14's configuration (factor 1, inv 10, SGD with
+    momentum), 32 steps: monolithic (the bootstrap in band at 0, the
+    refreshes due at 10, 20 and 30 installed at 11, 21 and 31), the same
+    run under ``torch.profiler`` around each deferred refresh (how much of
+    the side stream's device time ran while another stream ran), and
+    staggered at ``stagger_refresh=5`` (each shard one step after its
+    due step), whose state after step 12 (shard 2 pending) restored by
+    fresh objects drops the pending refresh: with the recompute the
+    shard cadence resumes deferred, without it the next due refresh (20)
+    runs in band.  Gates: the cadences, 21 launches a step, finite
+    falling losses.  Prints the step p50/p95/max beside phase 14's
+    synchronous runs and each deferred refresh's device time (CUDA events
+    on the side stream) beside phase 14's in-band ones;
+17. the pipelined gradient gather on ResNet-50 at world 4 on one card
+    over gloo (phase 5's spawn), 8 images per rank: under HYBRID-OPT and
+    MEM-OPT, factor 10, inv 100, 11 steps with the synchronous tail and
+    11 with ``pipeline_grads=True`` (cuDNN deterministic): the pipelined
+    run's preconditioned gradients and parameters bitwise the
+    synchronous run's at every step, parameters bitwise equal across
+    ranks, 21 launches a step on every rank, finite falling losses; the
+    tail's time (the precondition stage between two synchronizes) and
+    the step medians of both; then 7 steps with ``overlap_comm`` and
+    ``pipeline_grads`` together under HYBRID-OPT (factor 5, inv 5): the
+    cadence and the pending decisions identical on every rank.  The
+    kernels line's entry is timed at rank 0's HYBRID-OPT shard shapes.
+
 Phase 5 also trains ResNet-32 at world 4 under each strategy with
 ``factor_comm='bf16_triu'`` (a timing pass of the factor all-reduce,
 then a checked pass: the first factor step's EMAs against the dense
@@ -181,7 +213,10 @@ packed factors against the dense ones), under HYBRID-OPT with
 ``stagger_refresh=2`` at inv 4 (the shard cadence; the sharded kernel;
 a shard sweep against a monolithic refresh by their preconditioned
 gradients, within the eigen gate) and with the adaptive cadence (every
-rank decides the same).  Phase 6 also runs the replicated engine
+rank decides the same), and under each strategy with
+``pipeline_grads=True`` (every step's pipelined tail bitwise the
+synchronous tail on the same state; the asynchronous row gathers, none
+under COMM-OPT).  Phase 6 also runs the replicated engine
 (``bucketed=False``: eigen, eigen without prediv, inverse; no kernel
 launch; the refresh step against the bucketed engine from the same
 factors) and ``compute_factor_eig_general`` on a non-symmetric card
@@ -1551,9 +1586,35 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
     q = BATCH // world
     xl, yl = x[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
 
+    # The asynchronous gathers the pipelined tail issues (a gather of a
+    # group of one or of None issues none).
+    async_gathers = [0]
+    real_gather_flat = collectives._gather_flat
+
+    def counted_gather_flat(stacks, group, async_op):
+        if async_op:
+            async_gathers[0] += 1
+        return real_gather_flat(stacks, group, async_op)
+    collectives._gather_flat = counted_gather_flat
+
+    def tail_check(precond, raw, got):
+        """The synchronous tail on the same state and raw gradients as
+        the pipelined step just run: bitwise equal, or False.  Its
+        launches are not the path's and are taken off the count."""
+        so = precond._second_order
+        order, so.pipeline_order = so.pipeline_order, None
+        launches = ops.fused_eigen_precondition.launches
+        try:
+            want, _ = precond.precondition_combined(raw, 0.003, 0.001, 0.1)
+        finally:
+            so.pipeline_order = order
+            ops.fused_eigen_precondition.launches = launches
+        return all(torch.equal(got[n], w) for n, w in want.items())
+
     def train(strategy, method='eigen', inv=10, **kfac_kw):
         """``KAISA_STEPS`` steps from the seeded weights; the launches
-        are counted from 0 over exactly these steps."""
+        are counted from 0 over exactly these steps.  A pipelined run
+        holds every step against :func:`tail_check`."""
         model = kt.models.resnet32(device=dev, seed=0)
         ddp = torch.nn.parallel.DistributedDataParallel(
             model, device_ids=None if dev.index is None else [dev.index],
@@ -1566,18 +1627,23 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
         )
         opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
         run = dict(precond=precond, losses=[], step_s=[], equal=[],
-                   actions=[])
+                   actions=[], tails_equal=[])
+        pipelined = kfac_kw.get('pipeline_grads', False)
         sync(dev)
         ops.fused_eigen_precondition.launches = 0
+        async_gathers[0] = 0
         for step in range(KAISA_STEPS):
             t0 = time.perf_counter()
             opt.zero_grad()
             loss = F.cross_entropy(ddp(xl), yl)
             loss.backward()
-            if step == CHECK_STEP:
+            if step == CHECK_STEP or pipelined:
                 run['raw'] = {n: h.get_grad().clone()
                               for n, h in precond.helpers.items()}
             precond.step()
+            if pipelined:
+                run['tails_equal'].append(tail_check(precond, run['raw'], {
+                    n: h.get_grad() for n, h in precond.helpers.items()}))
             run['actions'].append(precond.last_refresh)
             if step in (0, CHECK_STEP):  # the two refresh steps
                 run[f'factors{step}'] = {
@@ -1598,6 +1664,7 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
             dist.all_gather(every, flat)
             run['equal'].append(all(torch.equal(flat, o) for o in every))
         run['launches'] = ops.fused_eigen_precondition.launches
+        run['async_gathers'] = async_gathers[0]
         return run
 
     def single_rerun(precond, run, label):
@@ -1812,6 +1879,33 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
         launches=run['launches'], sketch=sketch.cpu(), digest=digest.cpu(),
     )
     del run, precond, ctl
+    # pipeline_grads under every strategy: each step's pipelined tail
+    # against the synchronous tail on the same state, bitwise; the
+    # asynchronous row gathers, none under COMM-OPT (a grid of one
+    # column).
+    for strategy in KAISA_STRATEGIES:
+        label = f'{strategy} pipelined rank {rank}'
+        run = train(strategy, pipeline_grads=True)
+        precond = run['precond']
+        n_buckets = len(precond.plan.buckets)
+        checked(run, label, n_buckets)
+        if not all(run['tails_equal']):
+            raise RuntimeError(
+                f'{label}: the pipelined tail differs from the synchronous '
+                'one at steps '
+                f'{[i for i, e in enumerate(run["tails_equal"]) if not e]}')
+        want_gathers = (KAISA_STEPS * n_buckets if precond.grid.cols > 1
+                        else 0)
+        if run['async_gathers'] != want_gathers:
+            raise RuntimeError(f'{label}: {run["async_gathers"]} async '
+                               f'gathers, expected {want_gathers}')
+        report[strategy, 'pipelined'] = dict(
+            grid=(precond.grid.rows, precond.grid.cols),
+            losses=run['losses'], launches=run['launches'],
+            gathers=run['async_gathers'], step_s=run['step_s'],
+            order=precond._second_order.pipeline_order,
+        )
+        del run, precond
     torch.save(report, os.path.join(workdir, f'rank{rank}.pt'))
     dist.barrier()
     dist.destroy_process_group()
@@ -1984,6 +2078,25 @@ def phase_kaisa(torch, kt):
           f'{runs[0]["counters"]}; host reads of the drift '
           f'{runs[0]["syncs"]} per rank over {KAISA_STEPS} factor steps; '
           f'launches {[r["launches"] for r in runs]}', flush=True)
+    for strategy in KAISA_STRATEGIES:
+        runs = [r[strategy, 'pipelined'] for r in ranks]
+        total_launches += sum(r['launches'] for r in runs)
+        losses = [statistics.fmean(v)
+                  for v in zip(*(r['losses'] for r in runs))]
+        if not losses[-1] < losses[0]:
+            fail(f'kaisa {strategy} pipelined: mean loss did not fall: '
+                 f'{losses}')
+        step_ms = statistics.median(
+            ms for r in runs for ms in r['step_s'][1:]) * 1e3
+        print(f'kaisa {strategy} pipeline_grads: grid {runs[0]["grid"]}; '
+              f'issue order {list(runs[0]["order"])}; every step\'s '
+              'pipelined tail bitwise equal to the synchronous tail on the '
+              'same state, every rank; parameters bitwise equal across '
+              f'ranks; async row gathers per rank '
+              f'{[r["gathers"] for r in runs]}; launches '
+              f'{[r["launches"] for r in runs]}; mean loss {losses[0]:.6f} '
+              f'-> {losses[-1]:.6f}; median step {step_ms:.4f} ms (with the '
+              'per-step tail check)', flush=True)
     if [s[1][0] for s in ranks[0]['MEM_OPT']['shards']] != MEM_OPT_SEGS:
         fail(f'MEM-OPT shards {ranks[0]["MEM_OPT"]["shards"]}')
     return total_launches, mem_gather_ms
@@ -2766,6 +2879,9 @@ def phase_resnet50_stagger(torch, kt):
     print(f'{mono_label}: refreshes '
           f'{[round(t, 2) for t in mono["refresh_ms"]]} ms; launches '
           f'{mono["launches"]}', flush=True)
+    RN50_STAGGER_TIMES.update(
+        mono=mono_spread, stagger=stag_spread, shards=by_shard,
+        mono_refresh=[round(t, 2) for t in mono['refresh_ms']])
     del mono, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2867,6 +2983,698 @@ def phase_resnet50_adaptive(torch, kt):
           f'({first["syncs"] / RN50_ADAPTIVE_STEPS:.3f} per factor step)',
           flush=True)
     return first['launches']
+
+
+#: Phase 16: ResNet-50 with ``overlap_comm=True`` on phase 9's batch.  The
+#: shift check freezes the weights (no optimizer step: the same weights
+#: and batch every step, as JAX's ``run_pair``), factor 1, inv 5; the
+#: training runs take phase 14's configuration (factor 1, inv 10, SGD
+#: with momentum 0.9), 32 steps, monolithic and at ``stagger_refresh=5``.
+RN50_SHIFT_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=5)
+RN50_SHIFT_STEPS = 12
+RN50_OVERLAP_STEPS = 32
+#: The staggered run is saved after this step (shard 2, due at step 12,
+#: pending) and restored by fresh objects.
+RN50_OVERLAP_SAVE = 12
+#: Without a recompute the restored run's next due refresh is the
+#: monolithic one at step 20, in band.
+RN50_OVERLAP_INBAND = 20
+#: Phase 14's numbers of this run (step spreads, shard refresh ms, the
+#: monolithic refreshes), printed beside phase 16's.
+RN50_STAGGER_TIMES: dict = {}
+
+
+def main_stream_sync(torch):
+    """Wait for the current stream only: a device-wide synchronize would
+    also wait for the deferred refresh's side stream and take the
+    overlap away."""
+    if DEVICE == 'cuda':
+        torch.cuda.current_stream().synchronize()
+
+
+def overlap_cadence(sync):
+    """The refreshes of an ``overlap_comm`` run whose synchronous run
+    refreshes ``sync``: the bootstrap (step 0) in band, every later
+    refresh reported one step late as ``overlap_inv`` /
+    ``overlap_shard<k>``."""
+    out = []
+    for s in range(len(sync)):
+        prev = sync[s - 1] if s > 1 else None
+        if s == 0:
+            out.append(sync[0])
+        elif prev == 'full':
+            out.append('overlap_inv')
+        elif isinstance(prev, int):
+            out.append(f'overlap_shard{prev}')
+        else:
+            out.append(None)
+    return out
+
+
+def rn50_overlap_shift(torch, kt):
+    """The one-step shift on frozen weights: a synchronous and an
+    ``overlap_comm`` preconditioner, each on its own ResNet-50 from the
+    same seed, step side by side on the same batch with no optimizer
+    step (cuDNN held to its deterministic algorithms).  Gates: after
+    every step ``t >= 1`` the overlap run's stacks equal the synchronous
+    run's after ``t - 1`` bitwise; the preconditioned gradients bitwise
+    equal off the refresh-due steps and different on them; the factor
+    EMAs equal; the cadences.  Returns the line's facts."""
+    import torch.nn.functional as F
+
+    x, y = rn50_batch(torch)
+    runs = []
+    for overlap in (False, True):
+        model = kt.models.resnet50(device=DEVICE, seed=0)
+        runs.append((model, kt.KFACPreconditioner(
+            model, overlap_comm=overlap, **RN50_SHIFT_HP)))
+    inv = RN50_SHIFT_HP['inv_update_steps']
+    prev, worst, problems, actions = None, 0.0, [], ([], [])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for t in range(RN50_SHIFT_STEPS):
+            grads = []
+            for (model, precond), acts in zip(runs, actions):
+                model.zero_grad()
+                F.cross_entropy(model(x), y).backward()
+                precond.step()
+                acts.append(precond.last_refresh)
+                grads.append([p.grad for p in model.parameters()])
+            (_, sync), (_, over) = runs
+            same = all(torch.equal(a, b) for a, b in zip(*grads))
+            due = t > 0 and t % inv == 0
+            if same == due:
+                problems.append(f'step {t}: grads equal {same}, due {due}')
+            for n, st in sync.layers.items():
+                o = over.layers[n]
+                if not (torch.equal(st.a_factor, o.a_factor)
+                        and torch.equal(st.g_factor, o.g_factor)):
+                    problems.append(f'step {t}: factors of {n} differ')
+            if prev is not None:
+                for key, fields in prev.items():
+                    got = over.buckets[key].tensors()
+                    for f, want in fields.items():
+                        if not torch.equal(got[f], want):
+                            worst = max(worst, rel_frob(got[f], want))
+                            problems.append(f'step {t}: {key}.{f} is not '
+                                            f'the synchronous step {t - 1}\'s')
+            prev = {k: {f: v.clone() for f, v in bs.tensors().items()}
+                    for k, bs in sync.buckets.items()}
+        runs[1][1].join_deferred_refresh()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = ['full' if s % inv == 0 else None for s in range(RN50_SHIFT_STEPS)]
+    if actions[0] != want or actions[1] != overlap_cadence(want):
+        problems.append(f'cadences {actions}')
+    if problems:
+        fail(f'resnet50 overlap shift: {problems[:6]} ({len(problems)} in '
+             f'all; worst bucket rel err {worst:.3e}, eigen gate at 4608 '
+             f'{eigen_gate(4608):.3e})')
+    del runs, prev
+    gc.collect()
+    return actions
+
+
+def interval_union(spans):
+    """Sorted, merged ``[start, end)`` spans."""
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def intersect_len(a, b) -> float:
+    """Total length of the intersection of two merged span lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if hi > lo:
+            total += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def side_stream_concurrency(torch, prof):
+    """From one profiler window: ``(side-stream device ms, ms of it that
+    ran while a kernel or copy of another stream ran)``, the side stream
+    found by the ``spin_kernel`` marker the deferred refresh launched
+    first; ``None`` when the window holds no marker (the profiler
+    delivered no activity for it)."""
+    acts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    marker = [e for e in acts if 'spin_kernel' in e.name]
+    if not marker:
+        return None
+    side = marker[0].device_resource_id
+    mine = interval_union([(e.time_range.start, e.time_range.end)
+                           for e in acts if e.device_resource_id == side])
+    other = interval_union([(e.time_range.start, e.time_range.end)
+                            for e in acts if e.device_resource_id != side])
+    busy = sum(e - s for s, e in mine)
+    return busy / 1e3, intersect_len(mine, other) / 1e3
+
+
+def overlap_train(torch, kt, label, steps, profile_at=(), save=None,
+                  **kfac_kw):
+    """``steps`` steps of ResNet-50 with ``overlap_comm=True`` in phase
+    14's configuration, as a user runs them; each step's host time ends
+    with the current stream synchronized.  The deferred refreshes' device
+    times come from CUDA events on the side stream (around the worker's
+    ``_refresh_state``); with ``profile_at`` (due steps ``R``) steps ``R``
+    and ``R + 1`` run under ``torch.profiler`` and each window's
+    side-stream concurrency is measured; ``save = (step, fn)`` calls
+    ``fn(precond, model, opt)`` after that step.  Gates: finite falling
+    losses, 21 launches a step."""
+    import threading
+
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = rn50_batch(torch)
+    model = kt.models.resnet50(device=DEVICE, seed=0)
+    precond = kt.KFACPreconditioner(model, overlap_comm=True,
+                                    **RN50_STAGGER_HP, **kfac_kw)
+    opt = torch.optim.SGD(model.parameters(), lr=RN50_STAGGER_HP['lr'],
+                          momentum=0.9)
+    deferred_ev = []
+    real = precond._refresh_state
+
+    def timed_state(*args):
+        if threading.current_thread() is threading.main_thread():
+            return real(*args)  # the in-band bootstrap
+        if DEVICE == 'cuda' and profile_at:
+            torch.cuda._sleep(1000)  # the side stream's marker
+        s_ev = torch.cuda.Event(enable_timing=True)
+        e_ev = torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        out = real(*args)
+        e_ev.record()
+        deferred_ev.append((precond.steps - 1, args[3], s_ev, e_ev))
+        return out
+    precond._refresh_state = timed_state
+    run = dict(losses=[], step_s=[], actions=[], windows={})
+    gc.collect()
+    torch.cuda.synchronize()
+    kt.ops.fused_eigen_precondition.launches = 0
+    prof = None
+    for step in range(steps):
+        if step in profile_at:
+            # Device activity only (host events would slow the window's
+            # parse by seconds); the CPU rehearsal has none to record.
+            prof = profile(activities=[ProfilerActivity.CUDA]
+                           if DEVICE == 'cuda' else [ProfilerActivity.CPU])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        precond.step()
+        opt.step()
+        main_stream_sync(torch)
+        run['step_s'].append(time.perf_counter() - t0)
+        run['losses'].append(float(loss.detach()))
+        run['actions'].append(precond.last_refresh)
+        if save is not None and step == save[0]:
+            save[1](precond, model, opt)
+        if prof is not None and step - 1 in profile_at:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            run['windows'][step - 1] = side_stream_concurrency(torch, prof)
+            prof = None
+    run['launches'] = kt.ops.fused_eigen_precondition.launches
+    precond.join_deferred_refresh()
+    torch.cuda.synchronize()
+    run['deferred_ms'] = [(step, shard, s.elapsed_time(e))
+                          for step, shard, s, e in deferred_ev]
+    losses = run['losses']
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f'{label}: losses {losses}')
+    n_buckets = kernel_buckets(precond)
+    if run['launches'] != steps * n_buckets:
+        fail(f'{label}: kernel launched {run["launches"]} times in {steps} '
+             f'steps, expected {steps * n_buckets}')
+    run['precond'], run['model'], run['opt'] = precond, model, opt
+    return run
+
+
+def rn50_overlap_restore(torch, kt, run):
+    """The staggered overlap run's state after step ``RN50_OVERLAP_SAVE``
+    (shard 2 pending) restored by fresh objects: the pending refresh is
+    dropped.  With the recompute the shard cadence resumes deferred
+    (shard 3, due at 13, installed at 14); without it the next due
+    refresh is the monolithic bootstrap at ``RN50_OVERLAP_INBAND``, in
+    band.  Returns both cadences."""
+    import torch.nn.functional as F
+
+    x, y = rn50_batch(torch)
+    ckpt = run['ckpt']
+    out = {}
+    for recompute in (True, False):
+        model = kt.models.resnet50(device=DEVICE, seed=0)
+        model.load_state_dict(ckpt['model'])
+        opt = torch.optim.SGD(model.parameters(), lr=RN50_STAGGER_HP['lr'],
+                              momentum=0.9)
+        opt.load_state_dict(ckpt['opt'])
+        precond = kt.KFACPreconditioner(
+            model, overlap_comm=True, stagger_refresh=RN50_STAGGER,
+            **RN50_STAGGER_HP)
+        precond.load_state_dict(ckpt['kfac'], compute_inverses=recompute)
+        if precond.overlap_pending is not None:
+            fail('resnet50 overlap restore: a pending refresh survived')
+        stop = 15 if recompute else RN50_OVERLAP_INBAND + 1
+        acts = []
+        for _ in range(RN50_OVERLAP_SAVE + 1, stop):
+            opt.zero_grad()
+            F.cross_entropy(model(x), y).backward()
+            precond.step()
+            opt.step()
+            acts.append(precond.last_refresh)
+        precond.join_deferred_refresh()
+        out[recompute] = acts
+        del model, opt, precond
+    want = {True: [None, 'overlap_shard3'],
+            False: [None] * (RN50_OVERLAP_INBAND - RN50_OVERLAP_SAVE - 1)
+            + ['full']}
+    if out != want:
+        fail(f'resnet50 overlap restore: refreshes after the restore {out}, '
+             f'expected {want}')
+    return out
+
+
+def phase_resnet50_overlap(torch, kt):
+    """Phase 16: ResNet-50 with ``overlap_comm=True``.  The shift check on
+    frozen weights (:func:`rn50_overlap_shift`); a monolithic training run
+    (factor 1, inv 10, 32 steps: the bootstrap in band at 0, the refreshes
+    due at 10, 20 and 30 installed at 11, 21 and 31), timed, then the
+    same run again under ``torch.profiler`` around each deferred refresh
+    for its side-stream concurrency; a staggered one (``stagger_refresh=
+    5``: each shard one step after its due step), whose state after step
+    12 is restored by fresh objects (:func:`rn50_overlap_restore`).
+    Gates: the cadences, 21 launches a step, finite falling losses.
+    Prints the step p50/p95/max beside phase 14's synchronous runs and
+    each deferred refresh's device time beside phase 14's.  Returns the
+    timed monolithic run's launches."""
+    import io
+
+    shift = rn50_overlap_shift(torch, kt)
+    print(f'resnet50 overlap shift (frozen weights, factor 1, inv 5, '
+          f'{RN50_SHIFT_STEPS} steps, cuDNN deterministic): after every step '
+          't >= 1 the overlap stacks equal the synchronous stacks of step '
+          't - 1 bitwise; preconditioned gradients bitwise equal off the '
+          'due steps and different on them; factor EMAs bitwise equal; '
+          f'refreshes sync {shift[0]}, overlap {shift[1]}', flush=True)
+    sync = ['full' if s % 10 == 0 else None for s in range(RN50_OVERLAP_STEPS)]
+    label = 'resnet50 overlap monolithic (factor 1, inv 10)'
+    mono = overlap_train(torch, kt, label, RN50_OVERLAP_STEPS)
+    want = overlap_cadence(sync)
+    if mono['actions'] != want:
+        fail(f'{label}: refreshes {mono["actions"]}, expected {want}')
+    launches = mono['launches']
+    p50, p95, mx = step_spread(mono['step_s'][1:])
+    ref = RN50_STAGGER_TIMES.get('mono')
+    print(f'{label}: losses {mono["losses"][0]:.6f} -> '
+          f'{mono["losses"][-1]:.6f}; refreshes {mono["actions"]}; '
+          f'launches {launches} (21 x {RN50_OVERLAP_STEPS}); steps 1-'
+          f'{RN50_OVERLAP_STEPS - 1} (host clock, current stream '
+          f'synchronized): p50 {p50:.4f} ms, p95 {p95:.4f} ms, max '
+          f'{mx:.4f} ms; steps 1-30: '
+          + '{:.4f} / {:.4f} / {:.4f} ms'.format(
+              *step_spread(mono['step_s'][1:31]))
+          + (' against phase 14\'s synchronous monolithic run (steps 1-30) '
+             '{:.4f} / {:.4f} / {:.4f} ms'.format(*ref) if ref else '')
+          + '; the steps that install a refresh: '
+          + ', '.join(f'{s}: {mono["step_s"][s] * 1e3:.2f} ms'
+                      for s in (11, 21, 31) if s < RN50_OVERLAP_STEPS)
+          + '; the deferred refreshes on the side stream (issued at the end '
+          'of step: device ms) '
+          + ', '.join(f'{s}: {ms:.2f}' for s, _, ms in mono['deferred_ms'])
+          + (f' (phase 14\'s in-band refreshes '
+             f'{RN50_STAGGER_TIMES["mono_refresh"]} ms)'
+             if 'mono_refresh' in RN50_STAGGER_TIMES else ''), flush=True)
+    del mono
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = overlap_train(torch, kt, f'{label}, profiled', RN50_OVERLAP_STEPS,
+                         profile_at=(10, 20, 30))
+    parts = []
+    for due, found in sorted(prof['windows'].items()):
+        if found is None:
+            parts.append(f'due {due}: not measured (the profiler delivered '
+                         'no side-stream activity)')
+            continue
+        busy, conc = found
+        parts.append(f'due {due}: side-stream device time {busy:.2f} ms, of '
+                     f'which {conc:.2f} ms ({conc / busy:.3f}) ran while '
+                     'another stream ran')
+    print(f'{label}: torch.profiler around steps R and R+1 of each deferred '
+          'refresh: ' + '; '.join(parts), flush=True)
+    del prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    label = f'resnet50 overlap stagger_refresh={RN50_STAGGER}'
+    ckpt = {}
+
+    def save_at(precond, model, opt):
+        buf = io.BytesIO()
+        torch.save({'model': model.state_dict(), 'opt': opt.state_dict(),
+                    'kfac': precond.state_dict()}, buf)
+        buf.seek(0)
+        ckpt.update(torch.load(buf, map_location=DEVICE))
+
+    stag = overlap_train(torch, kt, label, RN50_OVERLAP_STEPS,
+                         stagger_refresh=RN50_STAGGER,
+                         save=(RN50_OVERLAP_SAVE, save_at))
+    want = overlap_cadence(stagger_cadence(RN50_OVERLAP_STEPS, 10,
+                                           RN50_STAGGER))
+    if stag['actions'] != want:
+        fail(f'{label}: refreshes {stag["actions"]}, expected {want}')
+    launches_stag = stag['launches']
+    p50, p95, mx = step_spread(stag['step_s'][1:31])
+    ref = RN50_STAGGER_TIMES.get('stagger')
+    by_shard: dict[int, list] = {}
+    for step, shard, ms in stag['deferred_ms']:
+        by_shard.setdefault(shard, []).append((step, ms))
+    ref_shards = RN50_STAGGER_TIMES.get('shards', {})
+    print(f'{label}: losses {stag["losses"][0]:.6f} -> '
+          f'{stag["losses"][-1]:.6f}; refreshes {stag["actions"]}; launches '
+          f'{launches_stag}; steps 1-30 p50 {p50:.4f} ms, p95 {p95:.4f} ms, '
+          f'max {mx:.4f} ms'
+          + (' against phase 14\'s synchronous staggered run '
+             '{:.4f} / {:.4f} / {:.4f} ms'.format(*ref) if ref else '')
+          + '; deferred shard refreshes on the side stream (due step: device '
+          'ms) ' + '; '.join(
+              f'shard {k}: ' + ', '.join(f'{s}: {ms:.2f}' for s, ms in v)
+              + (' (phase 14 in band: ' + ', '.join(
+                  f'{s}: {ms:.2f}' for s, ms in ref_shards[k]) + ')'
+                 if k in ref_shards else '')
+              for k, v in sorted(by_shard.items())), flush=True)
+    stag['ckpt'] = ckpt
+    del stag['precond'], stag['model'], stag['opt']
+    gc.collect()
+    torch.cuda.empty_cache()
+    restored = rn50_overlap_restore(torch, kt, stag)
+    print(f'resnet50 overlap restore: the state after step '
+          f'{RN50_OVERLAP_SAVE} (shard 2 pending) restored by fresh objects '
+          'drops the pending refresh; with the recompute the refreshes of '
+          f'steps {RN50_OVERLAP_SAVE + 1}-14 are {restored[True]} (the shard '
+          'cadence resumes deferred), without it steps '
+          f'{RN50_OVERLAP_SAVE + 1}-{RN50_OVERLAP_INBAND} are '
+          f'{restored[False]} (the next due refresh in band)', flush=True)
+    del stag
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: Phase 17: ResNet-50 at world 4 on one card over gloo (phase 5's
+#: spawn), 8 images per rank (global batch 32 at 224x224), factor 10,
+#: inv 100, ``RN50_PIPE_STEPS`` steps with the synchronous tail and then
+#: with ``pipeline_grads=True`` under each strategy; then one pass of
+#: ``RN50_PIPE_OVERLAP_STEPS`` steps with ``overlap_comm`` and
+#: ``pipeline_grads`` together under HYBRID-OPT at factor 5, inv 5 (the
+#: refresh due at 5 installed at 6).  The steps are cut (11: the factor
+#: steps 0 and 10; the overlap pass to 7, factor steps every fifth) to
+#: keep the phase near a minute and a half; the widths are ResNet-50's.
+RN50_PIPE_STEPS = 11
+RN50_PIPE_OVERLAP_STEPS = 7
+RN50_PIPE_STRATEGIES = ('HYBRID_OPT', 'MEM_OPT')
+RN50_PIPE_OVERLAP_HP = dict(RN50_HP, factor_update_steps=5,
+                            inv_update_steps=5)
+RN50_PIPE_TIMEOUT_S = 600
+#: The model of phase 17 and its classes (the CPU rehearsal may take a
+#: smaller one).
+PIPE_MODEL = ('resnet50', 1000)
+
+
+def pipeline_rank(rank, world, backend, device_type, workdir, image, batch,
+                  model_name):
+    """One rank of phase 17; writes ``pipe{rank}.pt`` to ``workdir`` and
+    raises on a failed check.  ``device_type`` is ``'cuda'`` on the card
+    (``'cpu'`` rehearses the phase at the given ``image``, ``batch`` and
+    ``model_name = (name, classes)``)."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+
+    if device_type == 'cuda':
+        dev = torch.device(
+            'cuda',
+            rank % torch.cuda.device_count() if backend == 'nccl' else 0,
+        )
+        torch.cuda.set_device(dev)
+        sync = torch.cuda.synchronize
+    else:
+        dev = torch.device('cpu')
+
+        def sync(device=None):
+            pass
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Both tails must see the same forward and backward bits.
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300),
+    )
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn(batch, 3, image, image, generator=gen, device=dev)
+    y = torch.randint(0, model_name[1], (batch,), generator=gen,
+                      device=dev)
+    q = batch // world
+    xl, yl = x[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
+    fused = kt.ops.fused_eigen_precondition
+
+    def checksum(flat):
+        """Exact and order-free: the int64 sum of the f32 bit patterns."""
+        return flat.view(torch.int32).to(torch.int64).sum()
+
+    def run(strategy, hp, ref=None, steps=RN50_PIPE_STEPS, **kfac_kw):
+        model = getattr(kt.models, model_name[0])(device=dev, seed=0)
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=None if dev.index is None else [dev.index],
+        )
+        precond = kt.KFACPreconditioner(
+            ddp, grad_worker_fraction=kt.DistributedStrategy[strategy],
+            **hp, **kfac_kw)
+        opt = torch.optim.SGD(model.parameters(), lr=hp['lr'], momentum=0.9)
+        tail_s = []
+        real = precond._precondition
+
+        def timed(*a):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = real(*a)
+            sync(dev)
+            tail_s.append(time.perf_counter() - t0)
+            return out
+        precond._precondition = timed
+        out = dict(grads=[], params=[], step_s=[], losses=[], pending=[],
+                   actions=[], mismatch=[], ranks_equal=[])
+        sync(dev)
+        fused.launches = 0
+        for step in range(steps):
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = F.cross_entropy(ddp(xl), yl)
+            loss.backward()
+            precond.step()
+            grads = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+            opt.step()
+            sync(dev)
+            out['step_s'].append(time.perf_counter() - t0)
+            out['losses'].append(float(loss.detach()))
+            out['pending'].append(precond.overlap_pending)
+            out['actions'].append(precond.last_refresh)
+            params = torch.cat([p.detach().reshape(-1)
+                                for p in model.parameters()])
+            if ref is None:
+                out['grads'].append(grads)
+                out['params'].append(params)
+            elif not (torch.equal(grads, ref['grads'][step])
+                      and torch.equal(params, ref['params'][step])):
+                out['mismatch'].append(step)
+            sums = [torch.zeros((), dtype=torch.int64, device=dev)
+                    for _ in range(world)]
+            dist.all_gather(sums, checksum(params))
+            out['ranks_equal'].append(all(bool(s == sums[0]) for s in sums))
+        out['launches'] = fused.launches
+        precond.join_deferred_refresh()
+        every = [torch.empty_like(params) for _ in range(world)]
+        dist.all_gather(every, params)
+        out['final_equal'] = all(torch.equal(params, o) for o in every)
+        out['tail_s'] = tail_s
+        out['n_buckets'] = sum(precond._second_order.bucket_prediv(b.key)
+                               for b in precond.plan.buckets)
+        out['grid'] = (precond.grid.rows, precond.grid.cols)
+        out['shards'] = [tuple(precond.buckets[b.key].qa.shape[:1])
+                         + (b.g_pad, b.a_pad) for b in precond.plan.buckets]
+        out['order'] = precond._second_order.pipeline_order
+        del precond, ddp, model, opt, every
+        return out
+
+    report = {}
+    keep = ('step_s', 'losses', 'pending', 'actions', 'mismatch',
+            'ranks_equal', 'launches', 'final_equal', 'tail_s',
+            'n_buckets', 'grid', 'shards', 'order')
+    for strategy in RN50_PIPE_STRATEGIES:
+        ref = run(strategy, RN50_HP)
+        pipe = run(strategy, RN50_HP, ref=ref, pipeline_grads=True)
+        report[strategy] = {
+            'sync': {k: ref[k] for k in keep},
+            'pipe': {k: pipe[k] for k in keep},
+        }
+        del ref, pipe
+        if dev.type == 'cuda':
+            torch.cuda.empty_cache()
+    both = run('HYBRID_OPT', RN50_PIPE_OVERLAP_HP,
+               steps=RN50_PIPE_OVERLAP_STEPS, overlap_comm=True,
+               pipeline_grads=True)
+    report['overlap'] = {k: both[k] for k in keep}
+    del both
+    torch.save(report, os.path.join(workdir, f'pipe{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_resnet50_pipelined(torch, kt):
+    """Phase 17: four ranks of :func:`pipeline_rank` on the card.  Gates,
+    per strategy: the pipelined run's preconditioned gradients and
+    parameters bitwise equal to the synchronous run's at every step,
+    parameters bitwise equal across ranks (a checksum every step, the
+    whole vector at the end), the fused kernel launched steps x 21 on
+    every rank in both runs, finite falling mean losses; the overlap pass:
+    the cadence, identical pending decisions on every rank, a finite
+    falling loss.  Prints the tail's time (the precondition stage between
+    two synchronizes) and the step medians of both tails, and returns
+    ``(launches of the pipelined runs, the kernels-line entry)``, the
+    entry timed at rank 0's HYBRID-OPT shard shapes."""
+    import torch.multiprocessing as mp
+
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    world = KAISA_WORLD
+    backend = default_backend(world) if DEVICE == 'cuda' else 'gloo'
+    print(f'resnet50 pipelined: world {world}, backend {backend}, batch '
+          f'{RN50_BATCH // world} per rank at {RN50_IMAGE}x{RN50_IMAGE}; '
+          'times are correctness-path times on one shared card, not a '
+          'scaling result', flush=True)
+    ctx = mp.get_context('spawn')
+    with tempfile.TemporaryDirectory(prefix='pipe_') as workdir:
+        procs = [ctx.Process(target=pipeline_rank,
+                             args=(rank, world, backend, DEVICE, workdir,
+                                   RN50_IMAGE, RN50_BATCH, PIPE_MODEL))
+                 for rank in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + RN50_PIPE_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if hung:
+            fail(f'resnet50 pipelined ranks {hung} did not finish in '
+                 f'{RN50_PIPE_TIMEOUT_S} s')
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f'resnet50 pipelined ranks exited with {codes}')
+        ranks = [torch.load(os.path.join(workdir, f'pipe{r}.pt'))
+                 for r in range(world)]
+    launches = 0
+    n_buckets = ranks[0]['HYBRID_OPT']['sync']['n_buckets']
+    if PIPE_MODEL[0] == 'resnet50' and n_buckets != 21:
+        fail(f'resnet50 pipelined: {n_buckets} buckets keep dgda, not 21')
+    per_step = n_buckets if DEVICE == 'cuda' else 0
+    want_n = RN50_PIPE_STEPS * per_step
+    for strategy in RN50_PIPE_STRATEGIES:
+        stats = {}
+        for mode in ('sync', 'pipe'):
+            runs = [r[strategy][mode] for r in ranks]
+            label = f'resnet50 pipelined {strategy} {mode}'
+            for i, r in enumerate(runs):
+                if r['mismatch']:
+                    fail(f'{label} rank {i}: gradients or parameters differ '
+                         f'from the synchronous tail at steps {r["mismatch"]}')
+                if not (all(r['ranks_equal']) and r['final_equal']):
+                    fail(f'{label} rank {i}: parameters differ across ranks')
+                if r['launches'] != want_n:
+                    fail(f'{label} rank {i}: {r["launches"]} launches, '
+                         f'expected {want_n}')
+            losses = [statistics.fmean(v)
+                      for v in zip(*(r['losses'] for r in runs))]
+            if not (all(map(math.isfinite, losses))
+                    and losses[-1] < losses[0]):
+                fail(f'{label}: mean losses {losses}')
+            if mode == 'pipe':
+                launches += sum(r['launches'] for r in runs)
+            stats[mode] = dict(
+                step=statistics.median(t for r in runs
+                                       for t in r['step_s'][1:]) * 1e3,
+                tail=statistics.median(t for r in runs
+                                       for t in r['tail_s'][1:]) * 1e3,
+                losses=losses, grid=runs[0]['grid'],
+                order=runs[0]['order'])
+        s, p = stats['sync'], stats['pipe']
+        print(f'resnet50 pipelined {strategy}: grid {s["grid"]}; issue order '
+              f'{list(p["order"])}; gradients and parameters of the '
+              f'pipelined tail bitwise equal to the synchronous tail\'s at '
+              f'all {RN50_PIPE_STEPS} steps on every rank; parameters bitwise '
+              f'equal across ranks; launches {want_n} per rank per run; mean '
+              f'loss {p["losses"][0]:.6f} -> {p["losses"][-1]:.6f}; the tail '
+              f'(precondition stage between two synchronizes, median of '
+              f'steps 1-{RN50_PIPE_STEPS - 1}, all ranks) sync '
+              f'{s["tail"]:.4f} ms, pipelined {p["tail"]:.4f} ms '
+              f'(pipelined/sync {p["tail"] / s["tail"]:.4f}); median step '
+              f'sync {s["step"]:.4f} ms, pipelined {p["step"]:.4f} ms',
+              flush=True)
+    runs = [r['overlap'] for r in ranks]
+    label = 'resnet50 pipelined HYBRID_OPT overlap_comm'
+    sync_cadence = ['full' if s % 5 == 0 else None
+                    for s in range(RN50_PIPE_OVERLAP_STEPS)]
+    for i, r in enumerate(runs):
+        if r['pending'] != runs[0]['pending']:
+            fail(f'{label}: rank {i} deferred {r["pending"]}, rank 0 '
+                 f'{runs[0]["pending"]}')
+        if r['actions'] != overlap_cadence(sync_cadence):
+            fail(f'{label} rank {i}: refreshes {r["actions"]}')
+        if not (all(r['ranks_equal']) and r['final_equal']):
+            fail(f'{label} rank {i}: parameters differ across ranks')
+        if r['launches'] != RN50_PIPE_OVERLAP_STEPS * per_step:
+            fail(f'{label} rank {i}: {r["launches"]} launches')
+    losses = [statistics.fmean(v) for v in zip(*(r['losses'] for r in runs))]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail(f'{label}: mean losses {losses}')
+    launches += sum(r['launches'] for r in runs)
+    step_ms = statistics.median(
+        t for r in runs for t in r['step_s'][1:]) * 1e3
+    print(f'{label} (factor 5, inv 5): refreshes {runs[0]["actions"]} and '
+          f'pending decisions {runs[0]["pending"]} identical on every rank; '
+          f'mean loss {losses[0]:.6f} -> {losses[-1]:.6f}; median step '
+          f'{step_ms:.4f} ms', flush=True)
+    cases = [tuple(c) for c in ranks[0]['HYBRID_OPT']['pipe']['shards']]
+    entry = bucket_entry(torch, kt.ops.fused_eigen_precondition,
+                         kt.ops.fused_eigen_precondition_reference,
+                         'ResNet-50 HYBRID-OPT shards (rank 0)', cases, 900)
+    entry.update(
+        name='fused_eigen_precondition_sharded_async, ResNet-50 at world 4, '
+             'pipelined gradient gather (phase 17)',
+        replaces='kfac_pytorch_tpu/ops/pallas_precond.py:151',
+        launches=launches)
+    return entry
 
 
 #: Phases 10 and 11: the transformer encoders at their published widths
@@ -3107,12 +3915,21 @@ def main() -> int:
         launches=phase('15 resnet50 adaptive', phase_resnet50_adaptive,
                        torch, kt),
     )
+    rn50_overlap = dict(
+        rn50, name='fused_eigen_precondition, ResNet-50 buckets, deferred '
+        'refresh on a side stream (phase 16)',
+        launches=phase('16 resnet50 overlap', phase_resnet50_overlap,
+                       torch, kt),
+    )
+    rn50_pipelined = phase('17 resnet50 pipelined', phase_resnet50_pipelined,
+                           torch, kt)
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
           flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': [entry, sharded, gpt, rn50, vit, bert,
-                                  rn50_lr, rn50_stagger, rn50_adaptive]}),
+                                  rn50_lr, rn50_stagger, rn50_adaptive,
+                                  rn50_overlap, rn50_pipelined]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

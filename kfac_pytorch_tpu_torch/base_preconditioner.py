@@ -69,6 +69,15 @@ all_reduce_sum_triu`); everything else rides the dense all-reduce.
 preconditions every layer itself, the decompositions held in its
 :class:`~kfac_pytorch_tpu_torch.state.LayerKFACState`, and a helper
 with non-symmetric factors takes the general eig or an LU inverse.
+
+``overlap_comm`` defers each due refresh but the bootstrap by one step:
+the refresh is built from a snapshot of the factor references into new
+bucket stacks and new diagonal-A fields on a side stream
+(:mod:`~kfac_pytorch_tpu_torch.overlap`), and installed at the top of
+the next step; ``pipeline_grads`` issues each bucket's gradient gather
+as soon as the bucket is rotated (``BucketedSecondOrder.precondition``).
+Both need the bucketed stage; ``overlap_comm`` excludes ``lowrank_rank``
+and ``ekfac`` (JAX ``base_preconditioner.py:293-336``).
 """
 from __future__ import annotations
 
@@ -84,6 +93,7 @@ from kfac_pytorch_tpu_torch.engine import KFACEngineMixin
 from kfac_pytorch_tpu_torch.engine import unpack_factor
 from kfac_pytorch_tpu_torch.engine import validate_adaptive
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
+from kfac_pytorch_tpu_torch.overlap import DeferredRefresh
 from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
 from kfac_pytorch_tpu_torch.parallel.bucketing import make_stagger_plan
@@ -95,6 +105,44 @@ from kfac_pytorch_tpu_torch.state import LayerKFACState
 from kfac_pytorch_tpu_torch.state import init_layer_state
 
 logger = logging.getLogger(__name__)
+
+
+def validate_overlap(
+    overlap_comm: bool,
+    pipeline_grads: bool,
+    *,
+    bucketed: bool,
+    lowrank_rank: int | None,
+    ekfac: bool,
+) -> None:
+    """The JAX engine's checks of ``overlap_comm`` and ``pipeline_grads``
+    (``base_preconditioner.py:293-336``; ``health`` is checked by the
+    front end, which holds it)."""
+    if overlap_comm:
+        if not bucketed:
+            raise ValueError(
+                'overlap_comm requires the bucketed second-order '
+                'stage (the deferred refresh is the bucket-stack '
+                'program)',
+            )
+        if lowrank_rank is not None:
+            raise ValueError(
+                'overlap_comm and lowrank_rank are mutually '
+                'exclusive: the randomized sketch draw is keyed to '
+                'the refresh step, which deferral would shift',
+            )
+        if ekfac:
+            raise ValueError(
+                'overlap_comm and ekfac are mutually exclusive: the '
+                'EKFAC scale re-seed must stay atomic with the EMA '
+                'projection of the step that triggered the refresh',
+            )
+    if pipeline_grads and not bucketed:
+        raise ValueError(
+            'pipeline_grads requires the bucketed second-order '
+            'stage (the pipelined tail is bucket-granular by '
+            'construction) — drop bucketed=False or pipeline_grads',
+        )
 
 
 class BaseKFACPreconditioner(KFACEngineMixin):
@@ -144,11 +192,15 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         stagger_refresh: int | None = None,
         adaptive: Any = None,
         factor_comm: str | None = None,
+        overlap_comm: bool = False,
+        pipeline_grads: bool = False,
         loglevel: int = logging.DEBUG,
     ) -> None:
         if accumulation_steps < 1:
             raise ValueError('accumulation_steps must be >= 1')
         validate_adaptive(adaptive, stagger_refresh, adaptive_refresh)
+        validate_overlap(overlap_comm, pipeline_grads, bucketed=bucketed,
+                         lowrank_rank=lowrank_rank, ekfac=ekfac)
         self.bucketed = bool(bucketed)
         self.factor_comm = factor_comm
         if ekfac:
@@ -260,7 +312,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
                 lowrank_rank=lowrank_rank,
                 lowrank_oversample=lowrank_oversample,
                 lowrank_power_iters=lowrank_power_iters, ekfac=ekfac,
-                stagger=self.stagger,
+                stagger=self.stagger, pipeline_grads=pipeline_grads,
             )
             self.iterative_config = self._second_order.iterative
             self.buckets = self._second_order.init_buckets()
@@ -277,7 +329,10 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             adaptive_refresh=adaptive_refresh,
             stagger_refresh=stagger_refresh,
             adaptive_controller=controller,
+            overlap_comm=overlap_comm,
         )
+        # The side stream of the deferred refresh, made at its first use.
+        self._side_stream = None
 
     def _adaptive_controller_for(self, config) -> AdaptiveRefreshController:
         """The drift-adaptive controller of the stagger plan (JAX
@@ -529,24 +584,82 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         if not self.bucketed:
             self._refresh_replicated(damping)
             return
-        for name in self.diag_layers:
-            self._refresh_diag(name, damping)
-        self.buckets = self._second_order.compute(
-            self.layers, damping, prev=self.buckets,
-            bootstrap=self._refresh_needs_bootstrap(),
-            sketch_step=self._last_inv_step,
-        )
+        self._install_refresh(self._refresh_state(
+            self.layers, self.buckets, damping, None,
+            self._refresh_needs_bootstrap(), self._last_inv_step,
+        ))
 
     @torch.no_grad()
     def _refresh_shard(self, damping: float, shard: int) -> None:
         """Re-decompose one stagger shard's slots; the diagonal-A layers
         ride shard 0, so they keep the once-per-interval staleness of
         every slot."""
-        if shard == 0:
-            for name in self.diag_layers:
-                self._refresh_diag(name, damping)
-        self.buckets = self._second_order.compute_shard(
-            self.layers, damping, shard, self.buckets,
+        self._install_refresh(self._refresh_state(
+            self.layers, self.buckets, damping, shard,
+        ))
+
+    def _refresh_state(
+        self,
+        layers,
+        prev,
+        damping: float,
+        shard: int | None = None,
+        bootstrap: bool = False,
+        sketch_step: int = 0,
+    ) -> tuple[dict, dict]:
+        """``(diagonal-A fields by layer, bucket stacks)`` of a refresh
+        from ``layers``' factor EMAs and the ``prev`` stacks (the
+        monolithic refresh, or stagger shard ``shard``), built into new
+        objects: nothing of ``self`` is read or written but the plan and
+        the method."""
+        diag = {}
+        if shard is None or shard == 0:
+            diag = {name: self._diag_fields(name, layers[name], damping)
+                    for name in self.diag_layers}
+        if shard is None:
+            buckets = self._second_order.compute(
+                layers, damping, prev=prev, bootstrap=bootstrap,
+                sketch_step=sketch_step,
+            )
+        else:
+            buckets = self._second_order.compute_shard(
+                layers, damping, shard, prev,
+            )
+        return diag, buckets
+
+    def _install_refresh(self, state: tuple[dict, dict]) -> None:
+        """Install a :meth:`_refresh_state`: the diagonal-A layers'
+        fields, then the bucket stacks."""
+        diag, buckets = state
+        for name, fields in diag.items():
+            for field, t in fields.items():
+                setattr(self.layers[name], field, t)
+        self.buckets = buckets
+
+    def _issue_deferred_refresh(
+        self, pending: tuple, damping: float,
+    ) -> DeferredRefresh:
+        """Start the refresh ``pending`` (``('inv',)`` or ``('shard',
+        k)``) off the step: the factor references and the current stacks
+        are taken now (the factor update rebinds the EMAs, so the refresh
+        reads the ones this step left), and the new state is built on a
+        worker thread, on the side stream on CUDA.  A deferred monolithic
+        refresh is never the bootstrap, so the iterative method runs it
+        at warm depth."""
+        layers = {
+            name: LayerKFACState(a_factor=st.a_factor, g_factor=st.g_factor)
+            for name, st in self.layers.items()
+        }
+        shard = None if pending[0] == 'inv' else pending[1]
+        args = (layers, self.buckets, damping, shard,
+                self._refresh_needs_bootstrap(), self._last_inv_step)
+        stream = None
+        if self.device.type == 'cuda':
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(self.device)
+            stream = self._side_stream
+        return DeferredRefresh(
+            lambda: self._refresh_state(*args), self.device, stream,
         )
 
     def _stagger_shard_empty(self, shard: int) -> bool:
@@ -593,27 +706,35 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
                 st.g_inv = inv(st.g_factor, damping, self.inv_dtype)
 
     def _refresh_diag(self, name: str, damping: float) -> None:
-        """One diagonal-A layer's decompositions: G by ``eigh`` (eigen)
-        or a damped Cholesky inverse (inverse and iterative, as the JAX
-        package does), the general eig or an LU inverse for a helper
-        with non-symmetric factors; the ``[V]`` diagonal is snapshotted
-        (``da``, or ``a_inv = 1 / (a + damping)``), so until the next
-        refresh the layer preconditions with it and not with the moving
-        EMA."""
-        st = self.layers[name]
+        """Refresh one diagonal-A layer's decompositions in place
+        (:meth:`_diag_fields`)."""
+        for field, t in self._diag_fields(
+                name, self.layers[name], damping).items():
+            setattr(self.layers[name], field, t)
+
+    def _diag_fields(
+        self, name: str, st: LayerKFACState, damping: float,
+    ) -> dict[str, torch.Tensor]:
+        """One diagonal-A layer's decompositions from ``st``'s factors:
+        G by ``eigh`` (eigen) or a damped Cholesky inverse (inverse and
+        iterative, as the JAX package does), the general eig or an LU
+        inverse for a helper with non-symmetric factors; the ``[V]``
+        diagonal is snapshotted (``da``, or ``a_inv = 1 / (a +
+        damping)``), so until the next refresh the layer preconditions
+        with it and not with the moving EMA."""
         sym = self.helpers[name].symmetric_factors
         if self.compute_method == ComputeMethod.EIGEN:
             eig = (ops.compute_factor_eigen if sym
                    else ops.compute_factor_eig_general)
-            st.qg, st.dg = eig(st.g_factor, self.inv_dtype)
-            st.da = st.a_factor.to(self.inv_dtype, copy=True)
-        else:
-            inv = (ops.compute_factor_inv if sym
-                   else ops.compute_factor_inv_general)
-            st.g_inv = inv(st.g_factor, damping, self.inv_dtype)
-            st.a_inv = (
-                1.0 / (st.a_factor.float() + damping)
-            ).to(self.inv_dtype)
+            qg, dg = eig(st.g_factor, self.inv_dtype)
+            return dict(qg=qg, dg=dg,
+                        da=st.a_factor.to(self.inv_dtype, copy=True))
+        inv = (ops.compute_factor_inv if sym
+               else ops.compute_factor_inv_general)
+        return dict(
+            g_inv=inv(st.g_factor, damping, self.inv_dtype),
+            a_inv=(1.0 / (st.a_factor.float() + damping)).to(self.inv_dtype),
+        )
 
     def _refresh_needs_bootstrap(self) -> bool:
         """Whether the next refresh runs the iterative method's deep

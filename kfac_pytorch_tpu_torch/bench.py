@@ -17,9 +17,8 @@ the same optimizer, and reports the step times and their ratio:
   ``secondary_rn50_ekfac``).  They run only when named (``--configs``),
   so the default line keeps its keys.
 
-Two stages of the JAX bench's refresh cadences run only when named too,
-each through ``KFACPreconditioner.step()``, and put their own dict under
-``detail[name]``:
+Three stages of the JAX bench run only when named too, through
+``KFACPreconditioner``, and put their own dict under ``detail[name]``:
 
 * ``stagger_flatness`` (``bench.py:311-406``): a deep MLP (10 layers of
   192, batch 128, factor 1, inv 10) with the monolithic refresh and
@@ -33,7 +32,18 @@ each through ``KFACPreconditioner.step()``, and put their own dict under
   cadence and with ``AdaptiveRefreshConfig(0.2, staleness_factor=3)``:
   the shard refreshes of each (the fixed count analytic, the adaptive
   one from the controller's counters), ``refresh_reduction``, the mean
-  step times and the final losses, and the controller's events.
+  step times and the final losses, and the controller's events;
+* ``precond_tail`` (``bench.py:540-638``): the precondition tail alone
+  (rotations, kl-clip, gradient gathers) of two otherwise equal
+  preconditioners on the MLP ``(64, 64, 32, 32, 10)`` (three buckets)
+  at input 64 and batch 64, synchronous against ``pipeline_grads=
+  True``: two real steps first, then the tail on the same raw gradients,
+  runs of 20 calls ended by a synchronize, the two modes in turns, the
+  least mean of four runs each; ``bucket_shapes``, ``issue_order``,
+  ``sync_ms``, ``pipelined_ms`` and ``pipelined_over_sync``.  On one
+  rank nothing is gathered, so the ratio reads about 1.0; under
+  ``torch.distributed`` with several ranks the run shards at HYBRID-OPT
+  (0.5).
 
 The K-FAC time is amortized as ``time_kfac_cycles`` does it
 (``bench.py:97-116``): after a warm-up, the run is aligned to an
@@ -54,11 +64,11 @@ On the card::
     python -m kfac_pytorch_tpu_torch.bench --configs resnet50 \
         resnet50_lowrank512 resnet50_ekfac
     python -m kfac_pytorch_tpu_torch.bench --configs stagger_flatness \
-        adaptive_refresh
+        adaptive_refresh precond_tail
 
 It raises without a card unless ``--device cpu`` is given.  The
-JAX bench's micro-MLP and ``precond_tail`` stages and its MFU are not
-carried over (``ROADMAP.md`` Queue A items 6 and 18).
+JAX bench's micro-MLP stage and its MFU are not carried over
+(``ROADMAP.md`` Queue A item 6).
 """
 from __future__ import annotations
 
@@ -390,10 +400,84 @@ def measure_adaptive_refresh(
     }
 
 
-#: The refresh-cadence stages: name -> measure function.
+def measure_precond_tail(
+    device: torch.device | str = 'cuda',
+    *,
+    widths: tuple[int, ...] = (64, 64, 32, 32, 10),
+    in_dim: int = 64,
+    batch: int = 64,
+    iters: int = 20,
+    repeats: int = 4,
+) -> dict[str, Any]:
+    """The precondition tail alone, synchronous against pipelined (JAX
+    ``measure_precond_tail``): per mode, two real steps so the stacks
+    hold live decompositions, then the tail
+    (``precondition_combined``) on the same raw gradients, ``iters``
+    calls per run; the two modes take turns, which goes first
+    alternating, and each keeps its least mean over ``repeats`` runs.
+    Across ranks the run shards at HYBRID-OPT (0.5); on one rank no
+    gather moves anything."""
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    x = torch.randn(batch, in_dim, generator=gen, device=device)
+    y = torch.randint(0, widths[-1], (batch,), generator=gen, device=device)
+
+    def setup(pipeline):
+        torch.manual_seed(2)
+        model = models.MLP(in_dim, widths).to(device)
+        precond = KFACPreconditioner(
+            model, factor_update_steps=1, inv_update_steps=1, damping=0.001,
+            lr=0.1, grad_worker_fraction=0.5 if world > 1 else 1.0,
+            pipeline_grads=pipeline,
+        )
+        opt = torch.optim.SGD(model.parameters(), lr=0.1)
+        for _ in range(2):
+            _mlp_step(model, precond, opt, x, y)
+        opt.zero_grad(set_to_none=True)
+        F.cross_entropy(model(x), y).backward()
+        raw = {n: h.get_grad() for n, h in precond.helpers.items()}
+
+        def tail():
+            return precond.precondition_combined(
+                raw, precond.damping, precond.kl_clip, precond.lr)
+        tail()
+        return tail, precond
+
+    tails = {mode: setup(mode) for mode in (False, True)}
+    best = {False: float('inf'), True: float('inf')}
+    for r in range(repeats):
+        for mode in ((False, True) if r % 2 == 0 else (True, False)):
+            tail = tails[mode][0]
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                tail()
+            _sync(device)
+            best[mode] = min(best[mode], (time.perf_counter() - t0) / iters)
+    precond = tails[True][1]
+    sync_ms, pipelined_ms = best[False] * 1e3, best[True] * 1e3
+    return {
+        'config': (f'MLP {widths} b{batch}, world {world}'
+                   + (' (hybrid 0.5)' if world > 1 else ' (one rank)')),
+        'bucket_shapes': [[b.n_slots, b.a_pad, b.g_pad]
+                          for b in precond.plan.buckets],
+        'issue_order': list(precond._second_order.pipeline_order),
+        'sync_ms': sync_ms,
+        'pipelined_ms': pipelined_ms,
+        'pipelined_over_sync': pipelined_ms / sync_ms,
+    }
+
+
+#: The refresh-cadence and tail stages: name -> measure function.
 STAGES: dict[str, Callable[..., dict]] = {
     'stagger_flatness': measure_stagger_flatness,
     'adaptive_refresh': measure_adaptive_refresh,
+    'precond_tail': measure_precond_tail,
 }
 
 

@@ -21,6 +21,15 @@ refreshes shard ``p``; with ``adaptive`` the
 picks the shard (or none) from the drift read back at the decision,
 and commits the decision only after the step's work ran.
 
+Under ``overlap_comm`` :meth:`KFACEngineMixin._overlap_plan`
+(``engine.py:825-876``) defers every due refresh but the bootstrap by one
+step (:func:`~kfac_pytorch_tpu_torch.scheduler.overlap_defer_action`): it
+is issued at the end of the due step's :meth:`KFACEngineMixin.step`, runs
+on a worker thread and a side stream
+(:mod:`~kfac_pytorch_tpu_torch.overlap`) while the next step's forward
+and backward are enqueued, and is installed at the top of the next
+:meth:`KFACEngineMixin.step`.
+
 The call sequence is PyTorch's: ``loss.backward(); precond.step();
 optimizer.step()``.  Under EKFAC the step's factor update also moves the
 scale grids, and with an :class:`~kfac_pytorch_tpu_torch.adaptive.
@@ -33,6 +42,7 @@ decompositions, which a restore recomputes), in the JAX payload's keys.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -42,6 +52,7 @@ from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.hyperparams import resolve
 from kfac_pytorch_tpu_torch.hyperparams import validate_damping
 from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
+from kfac_pytorch_tpu_torch.scheduler import overlap_defer_action
 from kfac_pytorch_tpu_torch.scheduler import post_restore_bootstrapped
 from kfac_pytorch_tpu_torch.scheduler import stagger_refresh_action
 
@@ -225,8 +236,10 @@ class KFACEngineMixin:
     EKFAC ``_ekfac_divergence()``, ``_ekfac_scales()`` and
     ``_with_ekfac_scales(scales)``, under ``stagger_refresh``
     ``_refresh_shard(damping, shard)`` and ``_stagger_shard_empty(
-    shard)``, under ``adaptive`` ``_adaptive_drift_emit()``, and arm
-    their capture through ``_arm_capture(bool)``.
+    shard)``, under ``adaptive`` ``_adaptive_drift_emit()``, under
+    ``overlap_comm`` ``_issue_deferred_refresh(pending, damping)`` and
+    ``_install_refresh(state)``, and arm their capture through
+    ``_arm_capture(bool)``.
     """
 
     def _init_engine(
@@ -241,9 +254,20 @@ class KFACEngineMixin:
         adaptive_refresh: Any = None,
         stagger_refresh: int | None = None,
         adaptive_controller: Any = None,
+        overlap_comm: bool = False,
     ) -> None:
         if not callable(damping):
             validate_damping(damping)
+        # The deferred refresh (overlap_comm): the descriptor the last
+        # step deferred, ('inv',) or ('shard', k), and its work in
+        # flight, issued at that step's end and installed at the top of
+        # the next step; the bootstrap flag gates deferral like
+        # _stagger_bootstrapped (set by any in-band monolithic refresh,
+        # reset by a restore without a recompute).
+        self._overlap_comm = bool(overlap_comm)
+        self._overlap_pending: tuple | None = None
+        self._overlap_inflight: Any = None
+        self._overlap_bootstrapped = False
         # The staggered refresh: False until the first monolithic
         # refresh (and again after a restore without a recompute).
         self._stagger_refresh = stagger_refresh
@@ -291,8 +315,17 @@ class KFACEngineMixin:
     @property
     def last_refresh(self) -> str | int | None:
         """What the latest :meth:`step` refreshed: ``'full'``, a stagger
-        shard index, or ``None``."""
+        shard index, or ``None``; under ``overlap_comm`` the step that
+        installs a deferred refresh reports ``'overlap_inv'`` or
+        ``'overlap_shard<k>'`` (the JAX step variants' names)."""
         return self._last_refresh
+
+    @property
+    def overlap_pending(self) -> tuple | None:
+        """The refresh the latest step deferred (``('inv',)`` or
+        ``('shard', k)``), in flight until the next :meth:`step` installs
+        it; ``None`` without ``overlap_comm``."""
+        return self._overlap_pending
 
     @property
     def adaptive_controller(self) -> Any:
@@ -387,6 +420,85 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             return update_factors, False, None
         return update_factors, False, action
 
+    def _overlap_plan(
+        self,
+    ) -> tuple[bool, bool, int | None, tuple | None, tuple | None]:
+        """``(update_factors, update_inverses, refresh_shard, deferred,
+        pending)`` (JAX ``engine.py:825-863``).
+
+        Without ``overlap_comm`` this is :meth:`_refresh_plan` with
+        ``deferred = pending = None``.  With it,
+        :func:`~kfac_pytorch_tpu_torch.scheduler.overlap_defer_action`
+        keeps the bootstrap in band and turns every other due refresh
+        into ``pending``, which the step defers; ``deferred`` is the
+        previous step's, which this step installs.  No state changes
+        here: :meth:`_overlap_commit` takes ``pending`` only after the
+        step's work ran.
+        """
+        update_factors, update_inverses, shard = self._refresh_plan()
+        if not self._overlap_comm:
+            return update_factors, update_inverses, shard, None, None
+        deferred = self._overlap_pending
+        in_band, pending = overlap_defer_action(
+            monolithic_due=update_inverses,
+            shard_due=shard,
+            bootstrapped=self._overlap_bootstrapped,
+        )
+        if in_band:
+            if deferred is not None:
+                raise RuntimeError(
+                    f'a deferred refresh {deferred} is pending on an engine '
+                    'that is not bootstrapped',
+                )
+            return update_factors, True, None, None, None
+        return update_factors, False, None, deferred, pending
+
+    def _overlap_commit(self, pending: tuple | None) -> None:
+        """Take the step's deferral (after its work ran; JAX
+        ``engine.py:865-876``) and commit the adaptive controller's
+        pending decision, which advances its ages by one step."""
+        self._overlap_pending = pending
+        if self._adaptive_controller is not None:
+            self._adaptive_controller.commit(self._steps)
+
+    def _overlap_collect(self, deferred: tuple) -> None:
+        """Install the refresh the previous step deferred: wait for its
+        work (the current stream waits on the side stream) and install
+        the new state.  Once installed it is no longer pending, so a step
+        that raises after this point does not run it again."""
+        if not self._overlap_bootstrapped:
+            raise RuntimeError(
+                f'a deferred refresh {deferred} is pending on an engine '
+                'that is not bootstrapped',
+            )
+        work, self._overlap_inflight = self._overlap_inflight, None
+        if work is None:
+            raise RuntimeError(
+                f'the deferred refresh {deferred} is pending but was never '
+                'issued',
+            )
+        self._overlap_pending = None
+        self._install_refresh(work.wait())
+
+    def join_deferred_refresh(self) -> None:
+        """Wait until the deferred refresh in flight (``overlap_comm``)
+        has run on its worker; the next :meth:`step` still installs it.
+        Call it after the last step, before ``torch.distributed`` is torn
+        down or the process ends: across ranks the refresh runs column
+        gathers of its own."""
+        if self._overlap_inflight is not None:
+            self._overlap_inflight.join()
+
+    def _overlap_drop(self) -> None:
+        """Drop a pending refresh (a restore): its work is waited on, so
+        no collective or kernel of it is left running, and its state,
+        or the error it raised, is discarded."""
+        work, self._overlap_inflight = self._overlap_inflight, None
+        self._overlap_pending = None
+        if work is not None:
+            with contextlib.suppress(RuntimeError):
+                work.wait()
+
     def _adaptive_drift_host(self) -> tuple[Any, Any]:
         """Host copies of the latest drift feed, ``(sketch, digest)``
         numpy arrays, or ``(None, None)`` before the first factor step
@@ -406,8 +518,15 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
 
     def step(self) -> None:
         """Precondition the gradients now in the registered layers'
-        ``.grad`` (call after ``backward()``, before the optimizer)."""
-        update_factors, update_inverses, shard = self._refresh_plan()
+        ``.grad`` (call after ``backward()``, before the optimizer).
+
+        Under ``overlap_comm`` it first installs the refresh the previous
+        step deferred, and it ends by issuing the one this step defers."""
+        update_factors, update_inverses, shard, deferred, pending = (
+            self._overlap_plan()
+        )
+        if deferred is not None:
+            self._overlap_collect(deferred)
         if update_factors:
             self._update_factors(first_update=not self._factors_initialized)
             self._factors_initialized = True
@@ -420,27 +539,40 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         elif shard is not None:
             self._refresh_shard(self.damping, shard)
         self._precondition(self.damping, self.kl_clip, self.lr)
-        ctl = self._adaptive_controller
-        if ctl is not None:
-            if update_factors:
-                # The factor EMAs move only on factor steps.
-                drift = self._adaptive_drift_emit()
-                if drift:
-                    self._adaptive_last_drift = (
-                        drift['adaptive/sketch'], drift['adaptive/digest'],
-                    )
-            ctl.commit(self._steps)
+        if self._adaptive_controller is not None and update_factors:
+            # The factor EMAs move only on factor steps.
+            drift = self._adaptive_drift_emit()
+            if drift:
+                self._adaptive_last_drift = (
+                    drift['adaptive/sketch'], drift['adaptive/digest'],
+                )
+        self._overlap_commit(pending)
         if update_inverses:
             self._stagger_bootstrapped = True
-        self._last_refresh = 'full' if update_inverses else shard
+            self._overlap_bootstrapped = True
+        if deferred is not None:
+            self._last_refresh = (
+                'overlap_inv' if deferred[0] == 'inv'
+                else f'overlap_shard{deferred[1]}'
+            )
+        else:
+            self._last_refresh = 'full' if update_inverses else shard
         step_index = self._steps
         self._steps += 1
         self._post_step_refresh_feed(
             self._ekfac_divergence() if update_factors else None,
-            step_index, update_factors, update_inverses,
+            step_index, update_factors,
+            update_inverses or deferred is not None,
         )
         # Arm (or disarm) the hooks for the NEXT forward/backward.
         self._arm_capture(self._step_gating()[0])
+        if pending is not None:
+            # The issue point: after the counter moved, so the deferred
+            # refresh takes the next step's damping, as the JAX refresh
+            # reads the hyperparameters of the program it runs in.
+            self._overlap_inflight = self._issue_deferred_refresh(
+                pending, self.damping,
+            )
 
     def _post_step_refresh_feed(
         self,
@@ -561,8 +693,10 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         (and rejected without ``compute_inverses``: they need the
         recomputed basis).  The capture hooks are re-armed for the next
         step.  Micro-batch sums are not checkpointed (as in the JAX
-        package); a restore drops them, and a pending drift-triggered
-        refresh.
+        package); a restore drops them, a pending drift-triggered
+        refresh and a pending deferred refresh (``overlap_comm``: its
+        work is joined and discarded); the next due refresh defers only
+        if the restore recomputed.
         """
         scales = state_dict.get('ekfac_scales')
         if scales is not None and not compute_inverses:
@@ -575,6 +709,11 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         if ar_sd is not None and self._adaptive_refresh is not None:
             self._adaptive_refresh.load_state_dict(ar_sd)
         self._refresh_requested = False
+        # A pending deferred refresh was scheduled against the state
+        # before the restore: it is dropped, never checkpointed (JAX
+        # engine.py:2599-2604), and the restore invariant below decides
+        # whether the next due refresh may defer.
+        self._overlap_drop()
         ctl = self._adaptive_controller
         if ctl is not None:
             # Ages and references never survive a restore; the counters
@@ -603,6 +742,9 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
                 full_recompute=compute_inverses,
             )
             self._stagger_bootstrapped = post_restore_bootstrapped(
+                full_recompute=compute_inverses,
+            )
+            self._overlap_bootstrapped = post_restore_bootstrapped(
                 full_recompute=compute_inverses,
             )
         self._arm_capture(self._step_gating()[0])
@@ -673,6 +815,12 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
 
     def _stagger_shard_empty(self, shard: int) -> bool:
         return False
+
+    def _issue_deferred_refresh(self, pending: tuple, damping: float) -> Any:
+        raise NotImplementedError
+
+    def _install_refresh(self, state: Any) -> None:
+        raise NotImplementedError
 
     def _adaptive_drift_emit(self) -> dict[str, torch.Tensor]:
         return {}

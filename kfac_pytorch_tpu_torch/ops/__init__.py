@@ -43,6 +43,9 @@ from kfac_pytorch_tpu_torch.ops.fused_precond import (
     fused_eigen_precondition_sharded,
 )
 from kfac_pytorch_tpu_torch.ops.fused_precond import (
+    fused_eigen_precondition_sharded_async,
+)
+from kfac_pytorch_tpu_torch.ops.fused_precond import (
     fused_eigen_precondition_sharded_reference,
 )
 from kfac_pytorch_tpu_torch.ops.inverse import batched_damped_inv

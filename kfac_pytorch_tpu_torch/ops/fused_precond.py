@@ -17,6 +17,9 @@ kernel there is no shape gate: every ``(gp, ap)`` is taken.
 package's ``shard_map`` over the grid's column axis): the same kernel on
 this rank's column slice of a bucket, then the all-gather of ``pg`` and
 the clip terms over the rank's grid row.
+:func:`fused_eigen_precondition_sharded_async` launches the same kernel
+and issues that gather asynchronously (``pipeline_grads``), returning the
+gather's handle.
 """
 from __future__ import annotations
 
@@ -183,6 +186,22 @@ def fused_eigen_precondition_sharded(
     """
     pg, clip = fused_eigen_precondition(g, qa, qg, dgda)
     return collectives.all_gather_preconditioned(pg, clip, group)
+
+
+def fused_eigen_precondition_sharded_async(
+    g: torch.Tensor,
+    qa: torch.Tensor,
+    qg: torch.Tensor,
+    dgda: torch.Tensor,
+    group=None,
+) -> collectives.GatherHandle:
+    """:func:`fused_eigen_precondition_sharded` with the row gather issued
+    asynchronously: the kernel runs on the local slice (counted as one
+    launch), then the gather is issued and its handle returned; the
+    handle's ``wait()`` gives the ``(pg, clip)`` the synchronous form
+    returns, bit for bit.  ``group=None`` gives a handle already done."""
+    pg, clip = fused_eigen_precondition(g, qa, qg, dgda)
+    return collectives.all_gather_preconditioned_async(pg, clip, group)
 
 
 def fused_eigen_precondition_sharded_reference(

@@ -13,7 +13,9 @@ loads carried across buckets, so later buckets can come out unevenly
 padded; that is the JAX layout and is kept as it is.
 
 :func:`make_stagger_plan` partitions every bucket slot into ``K``
-cost-balanced refresh shards for ``stagger_refresh=K``.
+cost-balanced refresh shards for ``stagger_refresh=K``, and
+:func:`make_pipeline_order` orders the buckets for the pipelined gradient
+gather of ``pipeline_grads``.
 """
 from __future__ import annotations
 
@@ -206,4 +208,19 @@ greedy_assignment` with one worker group per shard, so shards and costs
             for s in shards
         ),
         costs=tuple(costs),
+    )
+
+
+def make_pipeline_order(plan: BucketPlan) -> tuple[str, ...]:
+    """The issue order of the pipelined gradient gather
+    (``pipeline_grads``; JAX ``parallel/bucketing.py:196-216``): bucket
+    keys by descending gather payload ``n_slots * g_pad * a_pad``, the key
+    breaking ties.  Each bucket's gather is issued as soon as its rotation
+    is done, so the next bucket's rotation hides it; the one gather that
+    nothing hides, the last, is then the cheapest bucket's."""
+    return tuple(
+        b.key for b in sorted(
+            plan.buckets,
+            key=lambda b: (-float(b.n_slots * b.g_pad * b.a_pad), b.key),
+        )
     )

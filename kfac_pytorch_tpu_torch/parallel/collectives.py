@@ -14,6 +14,15 @@ issued by hand:
 * :func:`all_gather_preconditioned` — phase 4: a row's ranks each
   precondition their column's slots and gather the other columns'.
 
+:func:`all_gather_stacks_async` and :func:`all_gather_preconditioned_async`
+issue the same gathers with ``async_op=True`` (``pipeline_grads``): they
+return a :class:`GatherHandle` whose ``wait()`` gives what the
+synchronous call returns, the same bytes in the same order.  Waiting on a
+handle orders the caller's current CUDA stream after the gather (the
+backend's work handle does that for NCCL and for gloo's CUDA path alike).
+A backend that refuses an asynchronous gather raises; nothing falls back
+to the synchronous call.
+
 Every all-gather moves equal sizes from every rank: uneven shares are
 padded with identity slots (square eigenvector and inverse stacks) and
 zero slots (eigenvalues, per-slot vectors, EKFAC scales and the thin
@@ -115,6 +124,78 @@ def all_reduce_sum_triu(
     return out
 
 
+class GatherHandle:
+    """An asynchronous gather: :meth:`wait` waits on the backend's work
+    handles (none for a gather that moved nothing), then returns the
+    result ``finish()`` builds from the gathered buffers."""
+
+    def __init__(self, works: Sequence, finish) -> None:
+        self._works = list(works)
+        self._finish = finish
+        self._done = False
+        self._result = None
+
+    def wait(self):
+        if not self._done:
+            for work in self._works:
+                work.wait()
+            self._result = self._finish()
+            self._done = True
+            self._works = []
+            self._finish = None
+        return self._result
+
+
+def _gather_flat(stacks, group, async_op: bool):
+    """The gathers of :func:`all_gather_stacks`: ``(works, finish)``,
+    ``finish()`` slicing the gathered flat buffers back into stacks."""
+    n = group_size(group)
+    out: list[torch.Tensor] = [None] * len(stacks)
+    works, pieces = [], []
+    for idx in _by_dtype(stacks).values():
+        local = torch.cat([stacks[i].reshape(-1) for i in idx])
+        gathered = torch.empty(
+            n * local.numel(), dtype=local.dtype, device=local.device,
+        )
+        if not async_op:
+            dist.all_gather_into_tensor(gathered, local, group=group)
+        else:
+            try:
+                work = dist.all_gather_into_tensor(
+                    gathered, local, group=group, async_op=True,
+                )
+            except (RuntimeError, ValueError) as exc:
+                raise RuntimeError(
+                    f'the {dist.get_backend(group)} backend refused an '
+                    f'asynchronous all_gather_into_tensor of '
+                    f'{local.device.type} tensors (pipeline_grads issues '
+                    'every gradient gather asynchronously and does not '
+                    f'fall back to the synchronous call): {exc}',
+                ) from exc
+            if work is None:
+                raise RuntimeError(
+                    f'the {dist.get_backend(group)} backend returned no work '
+                    'handle for an asynchronous all_gather_into_tensor',
+                )
+            # The buffers stay referenced until the handle is waited on.
+            works.append(work)
+        pieces.append((idx, local, gathered))
+
+    def finish() -> list[torch.Tensor]:
+        for idx, local, gathered in pieces:
+            gathered = gathered.view(n, local.numel())
+            offset = 0
+            for i in idx:
+                t = stacks[i]
+                numel = t.numel()
+                out[i] = gathered[:, offset:offset + numel].reshape(
+                    n * t.shape[0], *t.shape[1:],
+                )
+                offset += numel
+        return out
+    return works, finish
+
+
 def all_gather_stacks(
     stacks: Sequence[torch.Tensor], group,
 ) -> list[torch.Tensor]:
@@ -124,24 +205,19 @@ def all_gather_stacks(
     shapes."""
     if not _gathers(group):
         return list(stacks)
-    n = group_size(group)
-    out: list[torch.Tensor] = [None] * len(stacks)
-    for idx in _by_dtype(stacks).values():
-        local = torch.cat([stacks[i].reshape(-1) for i in idx])
-        gathered = torch.empty(
-            n * local.numel(), dtype=local.dtype, device=local.device,
-        )
-        dist.all_gather_into_tensor(gathered, local, group=group)
-        gathered = gathered.view(n, local.numel())
-        offset = 0
-        for i in idx:
-            t = stacks[i]
-            numel = t.numel()
-            out[i] = gathered[:, offset:offset + numel].reshape(
-                n * t.shape[0], *t.shape[1:],
-            )
-            offset += numel
-    return out
+    _, finish = _gather_flat(stacks, group, async_op=False)
+    return finish()
+
+
+def all_gather_stacks_async(
+    stacks: Sequence[torch.Tensor], group,
+) -> GatherHandle:
+    """:func:`all_gather_stacks` issued with ``async_op=True``: a handle
+    whose ``wait()`` returns the same stacks.  A group of ``None`` or of
+    one rank gives a handle that is already done."""
+    if not _gathers(group):
+        return GatherHandle((), lambda: list(stacks))
+    return GatherHandle(*_gather_flat(stacks, group, async_op=True))
 
 
 def share_bounds(n_slots: int, parts: int, index: int) -> tuple[int, int]:
@@ -212,7 +288,28 @@ def all_gather_preconditioned(
     seg = pg.shape[0]
     packed = torch.cat([pg.reshape(seg, -1), clip[:, None]], dim=1)
     (full,) = all_gather_stacks([packed], group)
+    return _unpack_preconditioned(full, pg.shape)
+
+
+def _unpack_preconditioned(full, shape) -> tuple[torch.Tensor, torch.Tensor]:
     return (
-        full[:, :-1].reshape(full.shape[0], *pg.shape[1:]),
+        full[:, :-1].reshape(full.shape[0], *shape[1:]),
         full[:, -1].contiguous(),
+    )
+
+
+def all_gather_preconditioned_async(
+    pg: torch.Tensor, clip: torch.Tensor, group,
+) -> GatherHandle:
+    """:func:`all_gather_preconditioned` issued with ``async_op=True``: a
+    handle whose ``wait()`` returns the same ``(pg, clip)``, the same bytes
+    in the same column order.  A group of ``None`` or of one rank gives a
+    handle that is already done."""
+    if not _gathers(group):
+        return GatherHandle((), lambda: (pg, clip))
+    seg = pg.shape[0]
+    packed = torch.cat([pg.reshape(seg, -1), clip[:, None]], dim=1)
+    works, finish = _gather_flat([packed], group, async_op=True)
+    return GatherHandle(
+        works, lambda: _unpack_preconditioned(finish()[0], pg.shape),
     )

@@ -41,7 +41,18 @@ every factor step by :meth:`BucketedSecondOrder.ekfac_update`;
 With a :class:`~kfac_pytorch_tpu_torch.parallel.bucketing.StaggerPlan`
 (``stagger_refresh``), :meth:`BucketedSecondOrder.compute_shard`
 re-decomposes one shard's slots and scatters them into the existing
-stacks (phases 1 and 2 on the shard's slots only).
+stacks (phases 1 and 2 on the shard's slots only).  Both build new
+stacks and leave the ones they are given untouched, so a refresh can run
+off the step (``overlap_comm``) while the step preconditions through the
+old ones.
+
+With ``pipeline_grads`` phases 3 and 4 run bucket by bucket in
+:attr:`BucketedSecondOrder.pipeline_order` (JAX ``second_order.py:
+1505-1600``): each bucket's row gather is issued asynchronously as soon
+as its rotation is done, so the next bucket's rotation runs while it
+moves; every handle is waited on before the kl-clip sum, whose terms are
+added in plan order, so the result is the synchronous tail's, bit for
+bit.
 
 On one device the grid is ``1 x 1`` and no collective runs.
 """
@@ -59,6 +70,7 @@ from kfac_pytorch_tpu_torch.ops import lowrank as lowrank_ops
 from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketLayout
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketPlan
+from kfac_pytorch_tpu_torch.parallel.bucketing import make_pipeline_order
 from kfac_pytorch_tpu_torch.parallel.bucketing import StaggerPlan
 from kfac_pytorch_tpu_torch.parallel.mesh import KaisaGrid
 from kfac_pytorch_tpu_torch.scheduler import iterative_refresh_iters
@@ -165,6 +177,9 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             ``lowrank_rank``).
         stagger: the refresh shards of ``stagger_refresh``
             (:meth:`compute_shard`); exclusive with ``lowrank_rank``.
+        pipeline_grads: run :meth:`precondition`'s tail bucket by bucket
+            in :attr:`pipeline_order`, each row gather issued
+            asynchronously after its bucket's rotation.
     """
 
     def __init__(
@@ -184,6 +199,7 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         lowrank_power_iters: int = 2,
         ekfac: bool = False,
         stagger: StaggerPlan | None = None,
+        pipeline_grads: bool = False,
     ) -> None:
         grid = KaisaGrid(rows=1, cols=1, rank=0) if grid is None else grid
         if grid.cols != plan.n_cols:
@@ -210,6 +226,11 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
                 'stagger_refresh and lowrank_rank are mutually exclusive',
             )
         self.stagger = stagger
+        #: The pipelined tail's bucket issue order (``None``: the
+        #: synchronous tail).
+        self.pipeline_order = (
+            make_pipeline_order(plan) if pipeline_grads else None
+        )
         self.lowrank_rank = lowrank_rank
         self.lowrank_oversample = int(lowrank_oversample)
         self.lowrank_power_iters = int(lowrank_power_iters)
@@ -574,26 +595,11 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             })
         return out
 
-    def _rotate_bucket(
-        self,
-        b: BucketLayout,
-        bs: BucketSecond,
-        combined_grads: Mapping[str, torch.Tensor],
-        damping: float,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One bucket's phases 3 and 4: ``(pg [L, g, a] f32, clip [L])``
-        over all ``L`` slots, ``clip[l] = <pg[l], g[l]>``.
-
-        Prediv eigen takes the per-slot sums of the fused kernel (in the
-        eigenbasis, ``Σ v1 ⊙ v2``); non-prediv eigen divides by
-        ``dg ⊗ da + damping`` in f32 and sums ``v1 ⊙ v2`` the same way;
-        EKFAC divides by ``skron + damping`` instead; low-rank buckets
-        run :func:`~kfac_pytorch_tpu_torch.ops.lowrank.\
-precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
-        inverse and iterative take ``pg = g_inv · g · a_inv`` and sum
-        ``pg ⊙ g``.  Padded regions are zero in ``g``, so each term
-        equals the unpadded layer's inner product.
-        """
+    def _grad_stack(
+        self, b: BucketLayout, combined_grads: Mapping[str, torch.Tensor],
+    ) -> torch.Tensor:
+        """This rank's column of bucket ``b``'s gradients, ``[seg, g, a]``
+        f32, zero-padded (zero slots for padding slots)."""
         g_list = []
         for name in self.local_slots(b):
             if name is None:
@@ -605,14 +611,30 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
                 g_list.append(_pad_grad(
                     combined_grads[name].float(), b.g_pad, b.a_pad,
                 ))
-        g = torch.stack(g_list)
+        return torch.stack(g_list)
+
+    def _rotate_bucket(
+        self,
+        b: BucketLayout,
+        bs: BucketSecond,
+        g: torch.Tensor,
+        damping: float,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Phase 3 of one bucket that keeps no ``dgda`` (JAX
+        ``_rotate_bucket``, ``second_order.py:1602-1627``, shared by both
+        tails): ``(pg [seg, g, a] f32, clip [seg])`` on this rank's
+        column ``g``, ``clip[l] = <pg[l], g[l]>``.
+
+        Non-prediv eigen divides by ``dg ⊗ da + damping`` in f32 and sums
+        ``v1 ⊙ v2`` in the eigenbasis; EKFAC divides by ``skron +
+        damping`` instead; low-rank buckets run
+        :func:`~kfac_pytorch_tpu_torch.ops.lowrank.\
+precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
+        inverse and iterative take ``pg = g_inv · g · a_inv`` and sum
+        ``pg ⊙ g``.  Padded regions are zero in ``g``, so each term equals
+        the unpadded layer's inner product.
+        """
         pdt = self.precond_dtype
-        row = self.grid.row_group
-        if bs.dgda is not None:
-            args = [
-                t.to(pdt).contiguous() for t in (g, bs.qa, bs.qg, bs.dgda)
-            ]
-            return ops.fused_eigen_precondition_sharded(*args, group=row)
 
         def rounded(t):  # pdt operands, f32 products
             return t.to(pdt).float()
@@ -639,6 +661,38 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
         else:
             pg = rounded(bs.g_inv) @ rounded(g) @ rounded(bs.a_inv)
             clip = torch.sum(pg * g, dim=(1, 2))
+        return pg, clip
+
+    def _bucket_tail(
+        self,
+        b: BucketLayout,
+        bs: BucketSecond,
+        combined_grads: Mapping[str, torch.Tensor],
+        damping: float,
+        pipelined: bool,
+    ):
+        """One bucket's phases 3 and 4: ``(pg [L, g, a] f32, clip [L])``
+        over all ``L`` slots, or with ``pipelined`` a handle whose
+        ``wait()`` gives them (the gather issued asynchronously).  Prediv
+        eigen goes through the fused kernel's sharded entry point, which
+        takes the per-slot sums from the kernel (``Σ v1 ⊙ v2`` in the
+        eigenbasis); every other bucket through :meth:`_rotate_bucket`
+        and the row gather."""
+        g = self._grad_stack(b, combined_grads)
+        row = self.grid.row_group
+        if bs.dgda is not None:
+            args = [
+                t.to(self.precond_dtype).contiguous()
+                for t in (g, bs.qa, bs.qg, bs.dgda)
+            ]
+            if pipelined:
+                return ops.fused_eigen_precondition_sharded_async(
+                    *args, group=row,
+                )
+            return ops.fused_eigen_precondition_sharded(*args, group=row)
+        pg, clip = self._rotate_bucket(b, bs, g, damping)
+        if pipelined:
+            return collectives.all_gather_preconditioned_async(pg, clip, row)
         return collectives.all_gather_preconditioned(pg, clip, row)
 
     def precondition(
@@ -661,15 +715,33 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
         preconditioned outside the stacks (diagonal A), summed after the
         buckets' terms, as ``second_order.py:1575`` of the JAX package
         sums them.
+
+        The synchronous tail rotates and gathers each bucket in plan
+        order.  The pipelined one (``pipeline_order`` set) issues each
+        bucket's gather asynchronously right after its rotation, in
+        :attr:`pipeline_order`, and waits on every handle afterwards; the
+        per-bucket work is the same code, and the clip terms are summed
+        in plan order either way (float summation order is part of the
+        bitwise equality of the two tails).
         """
-        stacked = {}
-        terms = []
-        for b in self.plan.buckets:
-            pg, clips = self._rotate_bucket(
-                b, buckets[b.key], combined_grads, damping,
-            )
-            stacked[b.key] = pg
-            terms.append(torch.sum(clips) * float(lr) ** 2)
+        stacked, clips = {}, {}
+        if self.pipeline_order is None:
+            for b in self.plan.buckets:
+                stacked[b.key], clips[b.key] = self._bucket_tail(
+                    b, buckets[b.key], combined_grads, damping, False,
+                )
+        else:
+            handles = {
+                key: self._bucket_tail(
+                    self.plan.bucket(key), buckets[key], combined_grads,
+                    damping, True,
+                )
+                for key in self.pipeline_order
+            }
+            for key, handle in handles.items():
+                stacked[key], clips[key] = handle.wait()
+        terms = [torch.sum(clips[b.key]) * float(lr) ** 2
+                 for b in self.plan.buckets]
         terms.extend(extra_clip_terms)
         scale = (
             ops.kl_clip_scale(terms, kl_clip) if kl_clip is not None

@@ -57,6 +57,13 @@ optional drift-adaptive choice of the shard::
         adaptive=AdaptiveRefreshConfig(threshold=0.2, staleness_factor=3),
     )
 
+Two schedules hide communication and refresh time behind the step:
+``overlap_comm=True`` runs each due refresh but the first one step late,
+on a side CUDA stream while the next forward and backward are enqueued
+(the due step preconditions through the previous decompositions), and
+``pipeline_grads=True`` issues each bucket's gradient gather across
+ranks as soon as that bucket is rotated.
+
 Every JAX option this slice does not port raises ``NotImplementedError``
 naming its ``ROADMAP.md`` item; none is silently ignored.  The JAX
 ``loss_fn``/``apply_kwargs`` have no counterpart: the caller runs the
@@ -188,6 +195,31 @@ AdaptiveRefreshConfig` (needs ``stagger_refresh``, exclusive with
             and staleness contracts of
             :class:`~kfac_pytorch_tpu_torch.scheduler.\
 AdaptiveRefreshController`.
+        overlap_comm: defer every due refresh but the bootstrap by one
+            step (:func:`~kfac_pytorch_tpu_torch.scheduler.\
+overlap_defer_action`): it is issued at the end of the due step's
+            :meth:`step`, after the step counter moved (so it takes the
+            next step's damping), runs on a worker thread and, on CUDA, a
+            side stream (:mod:`~kfac_pytorch_tpu_torch.overlap`), reading
+            the factor EMAs the due step left, and is installed at the
+            top of the next :meth:`step`, whose ``last_refresh`` reads
+            ``'overlap_inv'`` or ``'overlap_shard<k>'``.  The due step
+            preconditions through the previous decompositions; from the
+            next step on the trajectory is the synchronous one.  Composes
+            with ``stagger_refresh`` (each shard defers by one step),
+            ``adaptive``, ``compute_method='iterative'`` (a deferred
+            refresh runs at warm depth), accumulation and
+            ``pipeline_grads``; bucketed only, exclusive with
+            ``lowrank_rank``, ``ekfac`` and ``health``.  A restore drops
+            a pending refresh.
+        pipeline_grads: issue each bucket's gradient gather over the
+            grid row asynchronously right after its rotation, buckets in
+            :func:`~kfac_pytorch_tpu_torch.parallel.bucketing.\
+make_pipeline_order`'s order (descending gather bytes), so the next
+            bucket's rotation runs while it moves; the kl-clip scale is
+            applied after every gather is waited on, with the clip terms
+            summed in plan order, so the result is the synchronous
+            tail's bit for bit.  Bucketed only.
         factor_comm: ``'bf16_triu'`` reduces the symmetric factors of
             linear and conv2d layers as packed upper triangles summed in
             bf16 (lossy; about a quarter of the dense bytes); other
@@ -354,6 +386,15 @@ AdaptiveRefreshController`.
                     f'stagger_refresh={stagger_refresh} exceeds {interval}: '
                     'shard phases beyond the interval would never run',
                 )
+        if overlap_comm and health is not None:
+            # JAX base_preconditioner.py:325-330; the rest of the
+            # overlap_comm and pipeline_grads checks are the engine's
+            # (base_preconditioner.validate_overlap).
+            raise ValueError(
+                'overlap_comm and health guardrails are mutually '
+                'exclusive (the retry/fallback verdict ordering is '
+                'defined for the in-band refresh only)',
+            )
         # The compressed factor collective (JAX
         # base_preconditioner.py:474-499).
         if factor_comm not in (None, 'bf16_triu'):
@@ -378,8 +419,6 @@ AdaptiveRefreshController`.
                 factor_comm = None
         unported = [
             ('topology', topology is not None, 'item 29'),
-            ('overlap_comm', bool(overlap_comm), 'item 17'),
-            ('pipeline_grads', bool(pipeline_grads), 'item 18'),
             ('health', health is not None, 'item 19'),
             ('consistency', consistency is not None, 'item 21'),
             ('watchdog', watchdog is not None, 'item 21'),
@@ -458,5 +497,7 @@ AdaptiveRefreshController`.
             stagger_refresh=stagger_refresh,
             adaptive=adaptive,
             factor_comm=factor_comm,
+            overlap_comm=overlap_comm,
+            pipeline_grads=pipeline_grads,
             loglevel=loglevel,
         )

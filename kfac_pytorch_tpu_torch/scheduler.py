@@ -1,12 +1,13 @@
 """Hyperparameter scheduling, the refresh cadences and the iterative
 method's warm-start rule.
 
-Port of ``kfac_pytorch_tpu/scheduler.py`` without the overlap and
-watchdog cadences (``ROADMAP.md`` Queue A items 17 and 21):
+Port of ``kfac_pytorch_tpu/scheduler.py`` without the watchdog cadence
+(``ROADMAP.md`` Queue A item 21):
 :class:`AdaptiveRefreshConfig` and :class:`AdaptiveRefreshController`
 (``:33-405``, the drift-adaptive staggered refresh),
 :func:`stagger_refresh_action` (``:409-470``),
 :func:`post_restore_bootstrapped` (``:472-517``),
+:func:`overlap_defer_action` (``:523-578``, ``overlap_comm``),
 :func:`iterative_refresh_iters` (``:614-634``) and
 :class:`LambdaParamScheduler` (``:637-734``).  The decisions are host
 arithmetic on step counts and on the drift read back from the card.
@@ -412,6 +413,37 @@ def post_restore_bootstrapped(
     if topology_changed or not decompositions_installed:
         return False
     return bool(saved_bootstrapped)
+
+
+def overlap_defer_action(
+    *,
+    monolithic_due: bool,
+    shard_due: int | None,
+    bootstrapped: bool,
+) -> tuple[bool, tuple | None]:
+    """The deferral of one step's due refresh under ``overlap_comm``:
+    ``(execute_in_band, pending)``, ``pending`` being ``('inv',)``, ``('shard',
+    k)`` or ``None``.
+
+    A refresh due at step ``R`` runs one step late, from the factor EMAs
+    as they stood at the end of step ``R`` (the input the synchronous
+    refresh at ``R`` reads); step ``R`` preconditions through the previous
+    decompositions, and from ``R + 1`` on the trajectory is the
+    synchronous engine's.  The first refresh of a run, and the first
+    after a restore that left no live decompositions
+    (:func:`post_restore_bootstrapped`), always runs in band: deferring it
+    would precondition a step through the zero stacks.  A stagger shard is
+    only ever due after that bootstrap, so a due shard always defers, and
+    under ``compute_method='iterative'`` a deferred refresh is always the
+    warm-depth one.
+    """
+    if monolithic_due:
+        if not bootstrapped:
+            return True, None
+        return False, ('inv',)
+    if shard_due is not None:
+        return False, ('shard', shard_due)
+    return False, None
 
 
 def iterative_refresh_iters(config: Any, bootstrapped: bool) -> int:

@@ -216,7 +216,7 @@ def test_unported_options_raise(kwargs, item):
 #: Queue A items ported since these cases were written: each case now
 #: checks the option's ported behaviour (the default ``inv_update_steps``
 #: is 1, below ``stagger_refresh=2``).
-PORTED = ('item 4b', 'item 13', 'item 15', 'item 16')
+PORTED = ('item 4b', 'item 13', 'item 15', 'item 16', 'item 17', 'item 18')
 
 
 def check_ported_option(kwargs):
@@ -237,6 +237,16 @@ def check_ported_option(kwargs):
 
         with pytest.raises(ValueError, match='stagger_refresh'):
             KFACPreconditioner(Tiny(), adaptive=AdaptiveRefreshConfig())
+    elif kwargs.get('ekfac'):
+        with pytest.raises(ValueError, match='overlap_comm and ekfac'):
+            KFACPreconditioner(Tiny(), **kwargs)
+    elif 'overlap_comm' in kwargs:
+        precond = KFACPreconditioner(Tiny(), **kwargs)
+        assert precond._overlap_comm and precond.overlap_pending is None
+    elif 'pipeline_grads' in kwargs:
+        precond = KFACPreconditioner(Tiny(), **kwargs)
+        assert precond._second_order.pipeline_order == tuple(
+            b.key for b in precond.plan.buckets)
     else:
         with pytest.warns(UserWarning, match='factor_comm'):
             precond = KFACPreconditioner(Tiny(), **kwargs)
