@@ -204,6 +204,30 @@ fails:
     ``pipeline_grads`` together under HYBRID-OPT (factor 5, inv 5): the
     cadence and the pending decisions identical on every rank.  The
     kernels line's entry is timed at rank 0's HYBRID-OPT shard shapes.
+18. EKFAC across the grid on ResNet-50 at world 4 on one card over
+    gloo, 8 images per rank, factor 1, inv 4, 6 steps under COMM-OPT,
+    HYBRID-OPT and MEM-OPT (the last two stepped with COMM-OPT's
+    preconditioned gradients, so all three see the same weights; cuDNN
+    deterministic): the grids' losses and preconditioned gradients
+    within 1e-4 of COMM-OPT's, ``ekfac_divergence`` bitwise on every
+    rank, no fused-kernel launch, finite falling losses, and a
+    state-dict round trip at ``cols > 1`` (saved before step 5)
+    resuming bitwise.  Prints the counted bytes of the three designs of
+    EKFAC with several columns at both grids and the second-order bytes
+    a rank holds;
+19. the fused training path on ResNet-50 with phase 9's batch and
+    cadence and ``damping=AdaptiveDamping(0.003, interval=5)``, 15
+    steps through ``make_train_step``, through ``train_loop`` and
+    through ``step()`` fed by hand from ``last_step_info['vg_sum']``
+    and a loss-only forward: the fused runs bitwise the hand-fed one
+    (losses, damping, ``rho``, ``vg_sum``, parameters and BatchNorm
+    buffers), 21 launches a step, finite falling losses, the damping
+    moved.  Prints the damping and ``rho`` sequences and the loss-only
+    forward's device time as a share of the step.
+
+Then the bench's ``micro_mlp``, ``inverse_root`` and
+``secondary_rn50_inverse`` stages run once (the K-FAC ones at inv 20,
+one cycle), each K-FAC step through ``train_loop``.
 
 Phase 5 also trains ResNet-32 at world 4 under each strategy with
 ``factor_comm='bf16_triu'`` (a timing pass of the factor all-reduce,
@@ -1911,12 +1935,44 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
     dist.destroy_process_group()
 
 
+def spawn_ranks(torch, target, world, backend, args, timeout_s, label,
+                stem):
+    """Run ``target(rank, world, backend, DEVICE, workdir, *args)`` in
+    ``world`` spawned processes, each writing ``{stem}{rank}.pt`` to a
+    temporary ``workdir``; kill any still alive after ``timeout_s`` and
+    fail naming ``label`` if one hung or exited non-zero; return the
+    ranks' saved reports in rank order."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context('spawn')
+    with tempfile.TemporaryDirectory(prefix=f'{stem}_') as workdir:
+        procs = [ctx.Process(target=target,
+                             args=(rank, world, backend, DEVICE, workdir,
+                                   *args))
+                 for rank in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + timeout_s
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if hung:
+            fail(f'{label} ranks {hung} did not finish in {timeout_s} s')
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f'{label} ranks exited with {codes}')
+        return [torch.load(os.path.join(workdir, f'{stem}{r}.pt'))
+                for r in range(world)]
+
+
 def phase_kaisa(torch, kt):
     """Four ranks on the KAISA grid; returns the kernel's launches over
     the checked passes (every rank, every strategy) and the MEM-OPT
     gradient gather's time per step over its timing pass (all calls)."""
-    import torch.multiprocessing as mp
-
     from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
 
     world = KAISA_WORLD
@@ -1931,28 +1987,8 @@ def phase_kaisa(torch, kt):
     print(f'kaisa: world {world}, backend {backend} ({where}); the times '
           'below are correctness-path times, not a scaling result',
           flush=True)
-    ctx = mp.get_context('spawn')
-    with tempfile.TemporaryDirectory(prefix='kaisa_') as workdir:
-        procs = [ctx.Process(target=kaisa_rank,
-                             args=(rank, world, backend, DEVICE, workdir))
-                 for rank in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.time() + KAISA_TIMEOUT_S
-        for p in procs:
-            p.join(max(1.0, deadline - time.time()))
-        hung = [i for i, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        if hung:
-            fail(f'kaisa ranks {hung} did not finish in {KAISA_TIMEOUT_S} s')
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            fail(f'kaisa ranks exited with {codes}')
-        ranks = [torch.load(os.path.join(workdir, f'rank{r}.pt'))
-                 for r in range(world)]
+    ranks = spawn_ranks(torch, kaisa_rank, world, backend, (),
+                        KAISA_TIMEOUT_S, 'kaisa', 'rank')
     total_launches = 0
     mem_gather_ms = None
     for strategy in KAISA_STRATEGIES:
@@ -3560,8 +3596,6 @@ def phase_resnet50_pipelined(torch, kt):
     two synchronizes) and the step medians of both tails, and returns
     ``(launches of the pipelined runs, the kernels-line entry)``, the
     entry timed at rank 0's HYBRID-OPT shard shapes."""
-    import torch.multiprocessing as mp
-
     from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
 
     world = KAISA_WORLD
@@ -3570,30 +3604,9 @@ def phase_resnet50_pipelined(torch, kt):
           f'{RN50_BATCH // world} per rank at {RN50_IMAGE}x{RN50_IMAGE}; '
           'times are correctness-path times on one shared card, not a '
           'scaling result', flush=True)
-    ctx = mp.get_context('spawn')
-    with tempfile.TemporaryDirectory(prefix='pipe_') as workdir:
-        procs = [ctx.Process(target=pipeline_rank,
-                             args=(rank, world, backend, DEVICE, workdir,
-                                   RN50_IMAGE, RN50_BATCH, PIPE_MODEL))
-                 for rank in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.time() + RN50_PIPE_TIMEOUT_S
-        for p in procs:
-            p.join(max(1.0, deadline - time.time()))
-        hung = [i for i, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        if hung:
-            fail(f'resnet50 pipelined ranks {hung} did not finish in '
-                 f'{RN50_PIPE_TIMEOUT_S} s')
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            fail(f'resnet50 pipelined ranks exited with {codes}')
-        ranks = [torch.load(os.path.join(workdir, f'pipe{r}.pt'))
-                 for r in range(world)]
+    ranks = spawn_ranks(torch, pipeline_rank, world, backend,
+                        (RN50_IMAGE, RN50_BATCH, PIPE_MODEL),
+                        RN50_PIPE_TIMEOUT_S, 'resnet50 pipelined', 'pipe')
     launches = 0
     n_buckets = ranks[0]['HYBRID_OPT']['sync']['n_buckets']
     if PIPE_MODEL[0] == 'resnet50' and n_buckets != 21:
@@ -3675,6 +3688,533 @@ def phase_resnet50_pipelined(torch, kt):
         replaces='kfac_pytorch_tpu/ops/pallas_precond.py:151',
         launches=launches)
     return entry
+
+
+#: Phase 18: EKFAC across the grid (ROADMAP item 10b), ResNet-50 at
+#: world 4 on one card over gloo, 8 images a rank, factor 1, inv 4 (cut
+#: from inv 5 and 8 steps for time); the round trip saves before step
+#: ``RN50_GRID_SAVE`` and resumes the last five steps, across the
+#: refresh of step 4.  The save follows the refresh of step 0: a state
+#: dict carries the factors, not the bases, and the restore recomputes
+#: the bases from them, which gives the saved run's bits only while the
+#: factors are those the last refresh decomposed.
+RN50_GRID_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=4)
+RN50_GRID_STEPS = 6
+RN50_GRID_SAVE = 1
+RN50_GRID_STRATEGIES = ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT')
+#: The EKFAC trajectory tolerance (``tests/test_torch_ekfac.py``).
+RN50_GRID_TOL = 1e-4
+RN50_GRID_TIMEOUT_S = 600
+#: ``(model, classes)`` of phase 18 (a CPU rehearsal takes a smaller one).
+GRID_MODEL = ('resnet50', 1000)
+
+
+def ekfac_design_bytes(torch, kt, batch, image, world, fraction):
+    """Counted bytes of the three designs of EKFAC on a grid with
+    several columns (``PERF.md`` §6), from the shapes each sends,
+    f32 everywhere; ResNet-50's rows per example come from a forward on
+    the meta device (no compute).
+
+    ``L``, ``seg``, ``A``, ``G``: a bucket's slots, slots a column,
+    padded A and G dims; ``R_l``: a layer's rows on one rank (batch x
+    output positions), ``a_l``/``g_l`` its row widths.
+
+    * ``gather_bases`` (chosen): each refresh all-gathers every column's
+      ``qa``/``qg`` over the grid row (a rank receives ``(cols - 1) *
+      seg * (A^2 + G^2)`` per bucket, a column's padding slots
+      included); each factor step all-reduces the ``[G, A]`` scale
+      contribution of every layer over the world, as COMM-OPT does (the
+      payload; a ring moves ``2 (world - 1) / world`` of it through each
+      rank), plus the ``(num, den)`` drift pairs; a rank holds the bases
+      of every occupied slot, padding dropped after the gather.
+    * ``rows_to_column``: each factor step every rank sends its rows
+      ``R_l (a_l + g_l)`` of each layer to every rank of the layer's
+      column (an all-to-all), whose ranks then project all ``world``
+      ranks' rows themselves; nothing moves at a refresh; a rank holds
+      its column's bases and, in flight, the rows of its column's
+      layers from every rank.
+    * ``project_at_owner``: each factor step every rank sends its rows
+      of each layer to the one rank of the layer's column in its own
+      grid row, which projects them; the column's ranks then all-reduce
+      the ``[G, A]`` contributions of their layers over the column.
+      Under MEM-OPT (one rank a column) it is ``rows_to_column``.
+
+    Returns per design ``{'factor_step': bytes a rank receives (the
+    largest over ranks), 'refresh': ..., 'held': second-order bytes a
+    rank holds (the largest), 'in_flight': transient receive buffers}``.
+    """
+    from kfac_pytorch_tpu_torch.capture import ModelCapture
+    from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
+    from kfac_pytorch_tpu_torch.parallel.mesh import grid_shape
+
+    model = kt.models.resnet50(device='cpu', seed=0).to('meta').eval()
+    cap = ModelCapture(model)
+    positions = {}
+    hooks = [h.module.register_forward_hook(
+        lambda m, i, o, n=n: positions.__setitem__(
+            n, math.prod(o.shape[2:]) if o.ndim == 4 else 1))
+        for n, h in cap.helpers.items()]
+    model(torch.empty(1, 3, image, image, device='meta'))
+    for h in hooks:
+        h.remove()
+    rows, cols = grid_shape(world, fraction)
+    plan = make_bucket_plan(cap.helpers, n_cols=cols)
+    f32 = 4
+    dims = {n: (h.a_factor_shape[0], h.g_factor_shape[0])
+            for n, h in cap.helpers.items()}
+    row_bytes = {n: batch * positions[n] * (a + g) * f32
+                 for n, (a, g) in dims.items()}
+    contrib = {}
+    for b in plan.buckets:
+        for n in b.slots:
+            if n is not None:
+                contrib[n] = b.g_pad * b.a_pad * f32
+    column = [[] for _ in range(cols)]  # layers of each column
+    col_state = [0] * cols  # qa, qg, da, dg, skron of a column's slots
+    sent = kept = 0  # bases on the wire (padding too) and held
+    for b in plan.buckets:
+        per = (b.a_pad ** 2 + b.g_pad ** 2 + b.a_pad + b.g_pad
+               + b.g_pad * b.a_pad) * f32
+        square = (b.a_pad ** 2 + b.g_pad ** 2) * f32
+        sent += b.n_slots * square
+        kept += sum(n is not None for n in b.slots) * square
+        for c in range(cols):
+            col_state[c] += b.seg * per
+            column[c] += [n for n in b.column_slots(c) if n is not None]
+    gather = {}
+    payload = sum(contrib.values())
+    ring = 2 * (world - 1) / world
+    n_buckets = len(plan.buckets)
+    gather['factor_step'] = ring * payload + (
+        (cols - 1) * n_buckets * 2 * f32 if cols > 1 else 0)
+    gather['refresh'] = (cols - 1) / cols * sent
+    gather['held'] = max(col_state) + (kept if cols > 1 else 0)
+    gather['in_flight'] = 0
+    gather['payload'] = payload
+    to_col = {}
+    recv = [sum((world - 1) * row_bytes[n] for n in column[c])
+            for c in range(cols)]
+    to_col['factor_step'] = max(recv)
+    to_col['refresh'] = 0
+    to_col['held'] = max(col_state)
+    to_col['in_flight'] = max(recv[c] + sum(row_bytes[n] for n in column[c])
+                              for c in range(cols))
+    owner = {}
+    recv = [sum((cols - 1) * row_bytes[n] for n in column[c])
+            for c in range(cols)]
+    reduce = [(2 * (rows - 1) / rows) * sum(contrib[n] for n in column[c])
+              for c in range(cols)]
+    owner['factor_step'] = max(r + s for r, s in zip(recv, reduce))
+    owner['refresh'] = 0
+    owner['held'] = max(col_state)
+    owner['in_flight'] = max(recv[c] + sum(row_bytes[n] for n in column[c])
+                             for c in range(cols))
+    return {'grid': (rows, cols), 'gather_bases': gather,
+            'rows_to_column': to_col, 'project_at_owner': owner}
+
+
+def ekfac_grid_rank(rank, world, backend, device_type, workdir, image,
+                    batch, model_name):
+    """One rank of phase 18; writes ``grid{rank}.pt`` to ``workdir``.
+    ``device_type`` ``'cpu'`` rehearses the phase at the given ``image``,
+    ``batch`` and ``model_name = (name, classes)``."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+
+    if device_type == 'cuda':
+        dev = torch.device(
+            'cuda',
+            rank % torch.cuda.device_count() if backend == 'nccl' else 0,
+        )
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+    else:
+        dev = torch.device('cpu')
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300),
+    )
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn(batch, 3, image, image, generator=gen, device=dev)
+    y = torch.randint(0, model_name[1], (batch,), generator=gen, device=dev)
+    q = batch // world
+    xl, yl = x[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
+    fused = kt.ops.fused_eigen_precondition
+
+    def make(ddp, strategy):
+        return kt.KFACPreconditioner(
+            ddp, grad_worker_fraction=kt.DistributedStrategy[strategy],
+            ekfac=True, **RN50_GRID_HP)
+
+    def train(model, ddp, precond, opt, steps, save=None, feed=None,
+              start=0):
+        """``feed``: COMM-OPT's preconditioned gradients by step, which
+        the optimizer applies in place of the run's own (after they are
+        recorded), so every strategy sees the same weights."""
+        out = dict(grads=[], losses=[], divs=[], step_s=[])
+        for step in range(steps):
+            if save is not None and step == RN50_GRID_SAVE:
+                save['sd'] = precond.state_dict(include_ekfac_scales=True)
+                save['model'] = {k: v.clone()
+                                 for k, v in model.state_dict().items()}
+                save['opt'] = opt.state_dict()
+                save['opt']['state'] = {
+                    k: {n: t.clone() for n, t in v.items()}
+                    for k, v in save['opt']['state'].items()}
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = F.cross_entropy(ddp(xl), yl)
+            loss.backward()
+            precond.step()
+            out['grads'].append(torch.cat(
+                [p.grad.reshape(-1) for p in model.parameters()]))
+            if feed is not None:
+                offset = 0
+                for p in model.parameters():
+                    p.grad.copy_(feed[start + step][
+                        offset:offset + p.numel()].view_as(p))
+                    offset += p.numel()
+            opt.step()
+            mean = loss.detach().clone()
+            dist.all_reduce(mean)
+            out['losses'].append(float(mean) / world)
+            out['divs'].append(float(precond.last_ekfac_divergence))
+            if dev.type == 'cuda':
+                torch.cuda.synchronize(dev)
+            out['step_s'].append(time.perf_counter() - t0)
+        return out
+
+    report, ref = {}, None
+    for strategy in RN50_GRID_STRATEGIES:
+        model = getattr(kt.models, model_name[0])(device=dev, seed=0)
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=None if dev.index is None else [dev.index])
+        precond = make(ddp, strategy)
+        opt = torch.optim.SGD(model.parameters(), lr=RN50_GRID_HP['lr'],
+                              momentum=0.9)
+        fused.launches = 0
+        save = {} if strategy != 'COMM_OPT' else None
+        feed = None if ref is None else ref['grads']
+        run = train(model, ddp, precond, opt, RN50_GRID_STEPS, save, feed)
+        rec = dict(
+            losses=run['losses'], divs=run['divs'], step_s=run['step_s'],
+            launches=fused.launches,
+            grid=(precond.grid.rows, precond.grid.cols),
+            second_order=precond.memory_usage()['second_order'],
+            bases=sum(bs.basis_qa.numel() * bs.basis_qa.element_size()
+                      + bs.basis_qg.numel() * bs.basis_qg.element_size()
+                      for bs in precond.buckets.values()
+                      if bs.basis_qa is not None),
+        )
+        if ref is None:
+            ref = run
+        else:
+            rec['grad_err'] = [
+                float(torch.linalg.vector_norm(g - r)
+                      / torch.linalg.vector_norm(r))
+                for g, r in zip(run['grads'], ref['grads'])]
+            rec['loss_err'] = [abs(a - b) / abs(b) for a, b in
+                               zip(run['losses'], ref['losses'])]
+            # The round trip on the same DDP wrapper (a new wrapper's
+            # first all-reduce sums in another bucket layout).
+            precond._capture.armed = False
+            model.load_state_dict(save['model'])
+            opt.load_state_dict(save['opt'])
+            again = make(ddp, strategy)
+            again.load_state_dict(save['sd'])
+            tail = train(model, ddp, again, opt,
+                         RN50_GRID_STEPS - RN50_GRID_SAVE, feed=feed,
+                         start=RN50_GRID_SAVE)
+            rec['resume_bitwise'] = all(
+                torch.equal(a, b) for a, b in zip(
+                    tail['grads'], run['grads'][RN50_GRID_SAVE:])) and (
+                tail['divs'] == run['divs'][RN50_GRID_SAVE:])
+            del again, tail
+        report[strategy] = rec
+        if run is not ref:
+            del run
+        del precond, ddp, model, opt
+        if dev.type == 'cuda':
+            torch.cuda.empty_cache()
+    torch.save(report, os.path.join(workdir, f'grid{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_resnet50_ekfac_grid(torch, kt):
+    """Phase 18: four ranks of :func:`ekfac_grid_rank` on the card, EKFAC
+    on ResNet-50 under COMM-OPT, HYBRID-OPT and MEM-OPT.  The grids with
+    several columns step their weights with COMM-OPT's preconditioned
+    gradients, so all three see the same weights at every step (a free
+    trajectory on one memorized batch amplifies a last-bit difference
+    about tenfold a step: 1e-7 at step 1, 0.2 by step 6 on a CPU
+    rehearsal with ResNet-32); the EKFAC state of each grid evolves by
+    itself.  Gates: under the two grids with several columns every
+    step's preconditioned gradients (relative Frobenius over the whole
+    model) within ``RN50_GRID_TOL`` of COMM-OPT's, ``ekfac_divergence``
+    bitwise equal on all four ranks at every step, no fused-kernel
+    launch, finite falling losses, and the state-dict round trip (saved
+    before step ``RN50_GRID_SAVE``, resumed across the refresh of step 4)
+    resuming bitwise.  The losses are held to the same bar, but under
+    this feeding the weights, and so the losses, equal COMM-OPT's by
+    construction: that gate only shows the feeding took (it reads 0).  Prints the three designs'
+    counted bytes (:func:`ekfac_design_bytes`) and the second-order
+    bytes a rank holds."""
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    world = KAISA_WORLD
+    backend = default_backend(world) if DEVICE == 'cuda' else 'gloo'
+    local = RN50_BATCH // world
+    print(f'resnet50 ekfac grid: world {world}, backend {backend}, batch '
+          f'{local} per rank at {RN50_IMAGE}x{RN50_IMAGE}, factor 1, inv '
+          f'{RN50_GRID_HP["inv_update_steps"]}, {RN50_GRID_STEPS} steps; '
+          'times are correctness-path times on one shared card',
+          flush=True)
+    for fraction in (0.5, 0.25):
+        counted = ekfac_design_bytes(torch, kt, local, RN50_IMAGE, world,
+                                     fraction)
+        grid = counted.pop('grid')
+        print(f'resnet50 ekfac grid bytes {grid[0]}x{grid[1]} (f32, per '
+              'rank; factor_step and refresh are bytes received, held the '
+              'second-order state, in_flight the receive buffers): '
+              + json.dumps(counted), flush=True)
+    ranks = spawn_ranks(torch, ekfac_grid_rank, world, backend,
+                        (RN50_IMAGE, RN50_BATCH, GRID_MODEL),
+                        RN50_GRID_TIMEOUT_S, 'resnet50 ekfac grid', 'grid')
+    for strategy in RN50_GRID_STRATEGIES:
+        runs = [r[strategy] for r in ranks]
+        label = f'resnet50 ekfac grid {strategy}'
+        first = runs[0]
+        for i, r in enumerate(runs):
+            if r['launches']:
+                fail(f'{label} rank {i}: the fused kernel launched '
+                     f'{r["launches"]} times (EKFAC keeps no dgda)')
+            if r['divs'] != first['divs']:
+                fail(f'{label}: rank {i} read the drift {r["divs"]}, rank 0 '
+                     f'{first["divs"]}')
+            if r['losses'] != first['losses']:
+                fail(f'{label}: rank {i} mean losses differ from rank 0\'s')
+        losses = first['losses']
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            fail(f'{label}: mean losses {losses}')
+        step_ms = statistics.median(
+            t for r in runs for t in r['step_s'][1:]) * 1e3
+        line = (f'{label}: grid {first["grid"]}; mean loss {losses[0]:.6f} '
+                f'-> {losses[-1]:.6f}; ekfac_divergence bitwise equal on '
+                f'all {world} ranks at every step {first["divs"]}; 0 fused '
+                f'launches; second-order bytes a rank holds '
+                f'{first["second_order"]} (of them the bases of every '
+                f'occupied slot {first["bases"]}); median step '
+                f'{step_ms:.4f} ms')
+        if strategy != 'COMM_OPT':
+            grad_err = max(max(r['grad_err']) for r in runs)
+            loss_err = max(max(r['loss_err']) for r in runs)
+            if grad_err > RN50_GRID_TOL or loss_err > RN50_GRID_TOL:
+                fail(f'{label}: against COMM-OPT the preconditioned '
+                     f'gradients differ by {grad_err:.3e} and the losses by '
+                     f'{loss_err:.3e} (relative; the bar '
+                     f'{RN50_GRID_TOL:g})')
+            if not all(r['resume_bitwise'] for r in runs):
+                fail(f'{label}: the state-dict round trip saved before step '
+                     f'{RN50_GRID_SAVE} did not resume bitwise')
+            line += (f'; against COMM-OPT: gradients max relative Frobenius '
+                     f'{grad_err:.3e}, losses max relative {loss_err:.3e} '
+                     '(equal by construction: the same fed weights) '
+                     f'(bar {RN50_GRID_TOL:g}); the state-dict round trip '
+                     f'saved before step {RN50_GRID_SAVE} resumes bitwise '
+                     'on every rank')
+        print(line, flush=True)
+
+
+#: Phase 19: the fused training path with Levenberg–Marquardt damping on
+#: ResNet-50 (phase 9's batch and hyperparameters), an adaptation every
+#: ``RN50_FUSED_INTERVAL`` steps.
+RN50_FUSED_STEPS = 15
+RN50_FUSED_INTERVAL = 5
+
+
+def rn50_fused_run(torch, kt, mode):
+    """``RN50_FUSED_STEPS`` steps of ResNet-50 with
+    ``damping=AdaptiveDamping(0.003, interval=5)``: through
+    ``make_train_step`` (``mode='train_step'``), ``train_loop``
+    (``'train_loop'``) or ``step()`` fed by hand (``'hand'``: the
+    documented recipe, ``vg_sum`` from ``last_step_info`` and a loss-only
+    forward under ``no_grad`` with BatchNorm's buffers restored).  The
+    loss-only forwards are timed with CUDA events (``loss_only_ms``)."""
+    import torch.nn.functional as F
+
+    model = kt.models.resnet50(device=DEVICE, seed=0)
+    x, y = rn50_batch(torch)
+    ad = kt.AdaptiveDamping(RN50_HP['damping'], interval=RN50_FUSED_INTERVAL)
+    precond = kt.KFACPreconditioner(model, **dict(RN50_HP, damping=ad))
+    opt = torch.optim.SGD(model.parameters(), lr=RN50_HP['lr'],
+                          momentum=0.9)
+    bn = [b for m in model.modules()
+          if isinstance(m, torch.nn.BatchNorm2d) for b in m.buffers()]
+    out = dict(losses=[], damping=[], rho=[], step_ms=[], loss_only_ms=[],
+               vg=[])
+    real = precond._loss_only
+
+    def timed_loss_only(*a):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        s.record()
+        loss = real(*a)
+        e.record()
+        out['events'].append((s, e))
+        return loss
+    out['events'] = []
+    precond._loss_only = timed_loss_only
+    if mode == 'train_step':
+        step = precond.make_train_step(opt, F.cross_entropy)
+    elif mode == 'train_loop':
+        step = precond.train_loop(opt, F.cross_entropy).step
+    else:
+        def step(xb, loss_args):
+            opt.zero_grad()
+            before = F.cross_entropy(model(xb), *loss_args)
+            before.backward()
+            index = precond.steps
+            precond.step()
+            opt.step()
+            if ad.should_adapt(index):
+                s, e = torch.cuda.Event(enable_timing=True), \
+                    torch.cuda.Event(enable_timing=True)
+                s.record()
+                with torch.no_grad():
+                    saved = [b.clone() for b in bn]
+                    after = F.cross_entropy(model(xb), *loss_args)
+                    for b, v in zip(bn, saved):
+                        b.copy_(v)
+                e.record()
+                out['events'].append((s, e))
+                lr = RN50_HP['lr']
+                predicted = (-lr + 0.5 * lr * lr) * float(
+                    precond.last_step_info['vg_sum'])
+                ad.update(float(after) - float(before.detach()), predicted)
+            return before.detach(), None
+    kt.ops.fused_eigen_precondition.launches = 0
+    for _ in range(RN50_FUSED_STEPS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        s.record()
+        loss, _ = step(x, loss_args=(y,))
+        e.record()
+        e.synchronize()
+        out['step_ms'].append(s.elapsed_time(e))
+        out['losses'].append(float(loss))
+        out['damping'].append(ad.damping)
+        out['rho'].append(ad.rho)
+        out['vg'].append(float(precond.last_step_info['vg_sum']))
+    torch.cuda.synchronize()
+    out['launches'] = kt.ops.fused_eigen_precondition.launches
+    out['loss_only_ms'] = [s.elapsed_time(e) for s, e in out.pop('events')]
+    out['params'] = torch.cat([p.detach().reshape(-1)
+                               for p in model.parameters()])
+    out['buffers'] = torch.cat([b.detach().float().reshape(-1)
+                                for b in model.buffers()])
+    out['buckets'] = kernel_buckets(precond)
+    del precond, model, opt
+    return out
+
+
+def phase_resnet50_fused(torch, kt):
+    """Phase 19: the fused path (``make_train_step``, then
+    ``train_loop``) against ``step()`` fed by hand from
+    ``last_step_info['vg_sum']`` and the same loss-only forward, each
+    from the same weights.  Gates: every run bitwise equal to the
+    hand-fed one (losses, damping and ``rho`` at every step, the final
+    parameters and BatchNorm buffers), 21 kernel launches a step, finite
+    falling losses, at least one adaptation that moved the damping.
+    Prints the damping sequence, ``rho``, and the loss-only forward's
+    device time beside the step's."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {mode: rn50_fused_run(torch, kt, mode)
+                for mode in ('hand', 'train_step', 'train_loop')}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    hand = runs['hand']
+    per_step = hand['buckets'] if DEVICE == 'cuda' else 0
+    if DEVICE == 'cuda' and per_step != 21:
+        fail(f'resnet50 fused: {per_step} buckets keep dgda, not 21')
+    launches = 0
+    for mode, run in runs.items():
+        label = f'resnet50 fused {mode}'
+        if run['launches'] != RN50_FUSED_STEPS * per_step:
+            fail(f'{label}: {run["launches"]} launches, expected '
+                 f'{RN50_FUSED_STEPS * per_step}')
+        losses = run['losses']
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            fail(f'{label}: losses {losses}')
+        for key in ('losses', 'damping', 'rho', 'vg'):
+            if run[key] != hand[key]:
+                fail(f'{label}: {key} {run[key]} differ from the hand-fed '
+                     f'step() run\'s {hand[key]}')
+        for key in ('params', 'buffers'):
+            if not torch.equal(run[key], hand[key]):
+                fail(f'{label}: the final {key} differ from the hand-fed '
+                     'step() run\'s')
+        if mode != 'hand':
+            launches += run['launches']
+    if len(set(hand['damping'])) < 2:
+        fail(f'resnet50 fused: the damping never moved: {hand["damping"]}')
+    step_ms = statistics.median(hand['step_ms'][1:])
+    lo_ms = statistics.median(runs['train_step']['loss_only_ms'])
+    print(f'resnet50 fused: make_train_step and train_loop bitwise equal to '
+          f'step() fed by hand ({RN50_FUSED_STEPS} steps each: losses, '
+          f'damping, rho, vg_sum, final parameters and BatchNorm buffers); '
+          f'{per_step} launches a step; losses {hand["losses"][0]:.6f} -> '
+          f'{hand["losses"][-1]:.6f}; damping {hand["damping"]}; rho '
+          f'{hand["rho"]}',
+          flush=True)
+    print(f'resnet50 fused: the loss-only forward (CUDA events, median of '
+          f'{len(runs["train_step"]["loss_only_ms"])} adapting steps) '
+          f'{lo_ms:.4f} ms against the median step {step_ms:.4f} ms '
+          f'(steps 1-{RN50_FUSED_STEPS - 1}, CUDA events): share '
+          f'{lo_ms / step_ms:.4f} of a step, '
+          f'{lo_ms / step_ms / RN50_FUSED_INTERVAL:.4f} amortized over '
+          f'the interval of {RN50_FUSED_INTERVAL}; make_train_step median '
+          f'step '
+          f'{statistics.median(runs["train_step"]["step_ms"][1:]):.4f} ms, '
+          f'train_loop '
+          f'{statistics.median(runs["train_loop"]["step_ms"][1:]):.4f} ms',
+          flush=True)
+    return launches
+
+
+#: The three JAX bench stages of ``bench.py`` item 6, cut in steps (the
+#: K-FAC cycles at inv 20, one cycle; widths as the stages define them).
+BENCH_STAGE_CUT = dict(inv_steps=20, cycles=1)
+
+
+def phase_bench_stages(torch, kt):
+    """The bench's ``micro_mlp``, ``inverse_root`` and
+    ``secondary_rn50_inverse`` stages once (the K-FAC stages at
+    ``BENCH_STAGE_CUT``), each timed through ``train_loop``; fails on a
+    non-finite time."""
+    from kfac_pytorch_tpu_torch import bench
+
+    out = {
+        'micro_mlp': bench.measure_micro_mlp(DEVICE, **BENCH_STAGE_CUT),
+        'inverse_root': bench.measure_inverse_root(DEVICE),
+        'secondary_rn50_inverse': bench.measure_secondary_rn50_inverse(
+            DEVICE, **BENCH_STAGE_CUT),
+    }
+    times = [out['micro_mlp']['sgd_ms'], out['micro_mlp']['kfac_ms'],
+             out['secondary_rn50_inverse']['kfac_ms']] + [
+        s[k] for s in out['inverse_root']['shapes']
+        for k in ('eigh_ms', 'cholesky_ms', 'ns_cold_ms', 'ns_warm_ms')]
+    if not all(math.isfinite(t) and t > 0 for t in times):
+        fail(f'bench stages: times {times}')
+    print(f'bench stages ({BENCH_STAGE_CUT}): ' + json.dumps(out),
+          flush=True)
 
 
 #: Phases 10 and 11: the transformer encoders at their published widths
@@ -3923,13 +4463,22 @@ def main() -> int:
     )
     rn50_pipelined = phase('17 resnet50 pipelined', phase_resnet50_pipelined,
                            torch, kt)
+    phase('18 resnet50 ekfac grid', phase_resnet50_ekfac_grid, torch, kt)
+    rn50_fused = dict(
+        rn50, name='fused_eigen_precondition, ResNet-50 buckets, fused '
+        'training path with AdaptiveDamping (phase 19)',
+        launches=phase('19 resnet50 fused', phase_resnet50_fused, torch,
+                       kt),
+    )
+    phase('bench stages', phase_bench_stages, torch, kt)
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
           flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': [entry, sharded, gpt, rn50, vit, bert,
                                   rn50_lr, rn50_stagger, rn50_adaptive,
-                                  rn50_overlap, rn50_pipelined]}),
+                                  rn50_overlap, rn50_pipelined,
+                                  rn50_fused]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

@@ -14,7 +14,11 @@ and as its plain PyTorch version on CPU tensors; without the predivided
 eigenvalues, a matmul chain), inverse (damped Cholesky) and iterative
 (warm-started Newton–Schulz); eigen also runs randomized low-rank
 (``lowrank_rank``) and EKFAC (``ekfac``, with a drift-triggered refresh,
-:class:`AdaptiveRefresh`).  ``accumulation_steps`` accumulates
+:class:`AdaptiveRefresh`, on every KAISA grid).  ``make_train_step`` and
+``train_loop`` run the forward, backward, K-FAC and optimizer steps in
+one call and feed Levenberg–Marquardt damping
+(:class:`AdaptiveDamping`); ``last_step_info`` holds each step's
+``vg_sum``.  ``accumulation_steps`` accumulates
 micro-batches between steps; ``stagger_refresh`` spreads a refresh over
 several steps, optionally choosing shards by drift
 (:class:`AdaptiveRefreshConfig`); ``factor_comm='bf16_triu'``
@@ -28,6 +32,7 @@ lists what is not ported yet.
 """
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch import ops
+from kfac_pytorch_tpu_torch.adaptive import AdaptiveDamping
 from kfac_pytorch_tpu_torch.adaptive import AdaptiveRefresh
 from kfac_pytorch_tpu_torch.enums import AssignmentStrategy
 from kfac_pytorch_tpu_torch.enums import ComputeMethod

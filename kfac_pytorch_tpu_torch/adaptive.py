@@ -1,9 +1,27 @@
-"""Curvature-drift signals: the EKFAC drift-triggered refresh and the
-per-layer drift feed of the adaptive staggered refresh.
+"""Feedback controllers: Levenberg–Marquardt damping, the EKFAC
+drift-triggered refresh and the per-layer drift feed of the adaptive
+staggered refresh.
 
-Port of ``AdaptiveRefresh`` (``kfac_pytorch_tpu/adaptive.py:154-251``)
-and ``drift_info`` (``:272-394``), with the port's own copy of the
-digest helpers of ``kfac_pytorch_tpu/consistency.py:167-262``.
+Port of ``AdaptiveDamping`` (``kfac_pytorch_tpu/adaptive.py:36-148``),
+``AdaptiveRefresh`` (``:154-251``) and ``drift_info`` (``:272-394``),
+with the port's own copy of the digest helpers of
+``kfac_pytorch_tpu/consistency.py:167-262``.
+
+:class:`AdaptiveDamping` is the LM rule of Martens & Grosse (2015,
+§6.5): compare the *observed* loss change of a step with the change the
+damped quadratic model *predicts*, and lower the damping when the model
+is trustworthy (``rho`` near 1) or raise it when it is not.  With the
+update ``delta = -lr * pg``, ``pg = (F + lambda I)^-1 g``,
+
+    M(delta) - M(0) = -lr * <g, pg> + 0.5 * lr^2 * <pg, (F+lambda I) pg>
+                    = (-lr + 0.5 * lr^2) * <g, pg>
+
+because ``(F + lambda I) pg = g``; ``<g, pg>`` is
+``precond.last_step_info['vg_sum']``.  (Under kl-clip the identity is
+approximate.)  The controller is a callable ``(step) -> float``, so it
+takes the ``damping`` slot; ``make_train_step`` and ``train_loop`` feed
+it (one loss-only forward on the same batch every ``interval`` steps),
+``step()`` does not, and says so once.
 A fixed ``inv_update_steps`` answers "how stale is the basis?" with a
 clock.  EKFAC's scale grid answers it with a measurement: ``skron``
 starts at the refresh seed ``dg ⊗ da`` and drifts as the projected
@@ -33,6 +51,126 @@ from typing import Any, Mapping, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+class AdaptiveDamping:
+    """LM damping controller: ``damping=AdaptiveDamping(...)``.
+
+    Every :attr:`interval` steps the fused training path evaluates the
+    loss at the updated parameters on the same batch and calls
+    :meth:`update` with the observed and predicted reductions.  The rule
+    (Martens & Grosse 2015, §6.5, eq. 32):
+
+    * ``rho = observed / predicted``  (both negative for a good step)
+    * ``rho > 3/4``  -> damping ``*= decay``  (model trusted; default
+      ``decay = 0.95 ** interval`` mirrors the paper's per-step
+      ``omega1`` applied once per adaptation window)
+    * ``rho < 1/4``  -> damping ``/= decay``
+    * otherwise unchanged.
+
+    A non-finite or positive-predicted ratio (numerical trouble) raises
+    damping, the conservative direction.
+
+    Args:
+        initial: starting damping value.
+        interval: adaptation period in steps (T in the paper, their
+            experiments use 5).  Each adaptation costs one loss-only
+            forward; its share of a step on the card is measured by
+            ``chip_smoke.py`` phase 19 (``PERF.md``).  Raise it to
+            cheapen.
+        decay: multiplicative decrease factor in (0, 1); ``None`` uses
+            ``0.95 ** interval``.
+        min_damping / max_damping: clamp bounds.
+        lower / upper: the ``rho`` thresholds (1/4, 3/4 in the paper).
+    """
+
+    def __init__(
+        self,
+        initial: float = 0.001,
+        *,
+        interval: int = 5,
+        decay: float | None = None,
+        min_damping: float = 1e-8,
+        max_damping: float = 10.0,
+        lower: float = 0.25,
+        upper: float = 0.75,
+    ) -> None:
+        if interval < 1:
+            raise ValueError(f'interval must be >= 1, got {interval}')
+        if decay is not None and not 0.0 < decay < 1.0:
+            raise ValueError(f'decay must be in (0, 1), got {decay}')
+        if not 0.0 < min_damping <= initial <= max_damping:
+            raise ValueError(
+                f'need 0 < min_damping <= initial <= max_damping, got '
+                f'{min_damping} / {initial} / {max_damping}',
+            )
+        self._damping = float(initial)
+        self.interval = int(interval)
+        self.decay = float(decay) if decay is not None else 0.95 ** interval
+        self.min_damping = float(min_damping)
+        self.max_damping = float(max_damping)
+        self.lower = float(lower)
+        self.upper = float(upper)
+        #: Last observed reduction ratio (None until the first update).
+        self.rho: float | None = None
+
+    @property
+    def damping(self) -> float:
+        return self._damping
+
+    def __call__(self, step: int) -> float:
+        """Callable-hyperparameter protocol: current damping value."""
+        return self._damping
+
+    def should_adapt(self, step: int) -> bool:
+        """True when the engine should observe this step (0-indexed;
+        step ``interval-1, 2*interval-1, ...`` so the first window has a
+        full interval of training behind it)."""
+        return (step + 1) % self.interval == 0
+
+    def update(
+        self,
+        observed_reduction: float,
+        predicted_reduction: float,
+    ) -> float:
+        """Apply the LM rule; returns the new damping value.
+
+        Args:
+            observed_reduction: ``f(theta + delta) - f(theta)``
+                (negative when the step reduced the loss).
+            predicted_reduction: ``M(delta) - M(0)`` from the damped
+                quadratic model (see the module docstring), negative for
+                any descent direction.
+        """
+        if (
+            not math.isfinite(observed_reduction)
+            or not math.isfinite(predicted_reduction)
+            or predicted_reduction >= 0.0
+        ):
+            # Model predicts non-descent or numbers went bad: distrust.
+            self.rho = None
+            self._damping = min(
+                self._damping / self.decay, self.max_damping,
+            )
+            return self._damping
+        rho = observed_reduction / predicted_reduction
+        self.rho = rho
+        if rho > self.upper:
+            self._damping = max(
+                self._damping * self.decay, self.min_damping,
+            )
+        elif rho < self.lower:
+            self._damping = min(
+                self._damping / self.decay, self.max_damping,
+            )
+        return self._damping
+
+    def __repr__(self) -> str:
+        return (
+            f'AdaptiveDamping(damping={self._damping:.3g}, '
+            f'interval={self.interval}, decay={self.decay:.3g}, '
+            f'rho={None if self.rho is None else round(self.rho, 4)})'
+        )
 
 
 class AdaptiveRefresh:
@@ -191,7 +329,8 @@ def drift_info(
     * ``adaptive/sketch``: ``[n, 3]`` f32 ``(fro², max-abs,
       ns_residual)``, the last the layer's Newton–Schulz residual under
       ``compute_method='iterative'`` (its bucket slot's, the larger of
-      the A and G sides), else 0.
+      the A and G sides), else 0;
+    * ``adaptive/checked``: a 1, the emission marker.
 
     Layers go in ``sorted(layer_states)`` order.  ``buckets`` are this
     rank's stacks of the bucket ``layouts`` (its grid column's slots).
@@ -253,4 +392,8 @@ def drift_info(
         dist.all_reduce(vec, op=dist.ReduceOp.MAX)
         digest = vec[:2 * n].reshape(n, 2)
         sketch = vec[2 * n:].to(torch.int32).view(torch.float32).reshape(n, 3)
-    return {'adaptive/digest': digest, 'adaptive/sketch': sketch}
+    return {
+        'adaptive/checked': torch.ones((), dtype=torch.int32, device=device),
+        'adaptive/digest': digest,
+        'adaptive/sketch': sketch,
+    }

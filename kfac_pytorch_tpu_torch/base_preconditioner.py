@@ -319,6 +319,14 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             if adaptive is not None:
                 controller = self._adaptive_controller_for(adaptive)
         self.last_kl_scale: torch.Tensor | None = None
+        # The fused path's forward module (the front end puts a
+        # DistributedDataParallel wrapper here), and the parameters
+        # outside every registered layer, which join vg_sum as |g|^2.
+        self._train_module = capture.model
+        uncovered = set(cov_rep['uncovered'])
+        self._uncovered_params = [
+            p for n, p in capture.model.named_parameters() if n in uncovered
+        ]
         self._init_engine(
             factor_update_steps=factor_update_steps,
             inv_update_steps=inv_update_steps,
@@ -370,6 +378,23 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         self._capture.armed = on
         if not on:
             self._capture.clear()
+
+    def _capture_armed(self, on: bool) -> bool:
+        """Switch the capture hooks without dropping what they hold;
+        returns the previous switch."""
+        was, self._capture.armed = self._capture.armed, on
+        return was
+
+    def _capture_module(self) -> torch.nn.Module:
+        return self._capture.model
+
+    def _bn_buffers(self) -> list[torch.Tensor]:
+        """The buffers of the model's batch-norm modules (running
+        statistics, batch counters), which a training-mode forward
+        moves."""
+        norm = torch.nn.modules.batchnorm._NormBase
+        return [b for m in self._capture.model.modules()
+                if isinstance(m, norm) for b in m.buffers(recurse=False)]
 
     def reset_batch(self) -> None:
         """Drop the micro-batch sums and any held captures (JAX
@@ -445,9 +470,9 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
                               .to(self.factor_dtype))
                 calls.append((a_rows, g_rows, a_norm, g_norm))
                 n_rows += a.shape[0]
-        key, slot = self._second_order.local_slot(name)
+        key, _ = self.plan.slot_of[name]
         contrib = self._second_order.ekfac_contrib(
-            self.buckets[key], slot, calls,
+            self.buckets[key], name, calls,
         )
         g_new = torch.stack(g_list).mean(0)
         if scale != 1:
@@ -749,17 +774,36 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
     @torch.no_grad()
     def _precondition(
         self, damping: float, kl_clip: float | None, lr: float,
-    ) -> None:
-        """Precondition every registered layer's ``.grad`` in place."""
+    ) -> torch.Tensor:
+        """Precondition every registered layer's ``.grad`` in place, and
+        return ``vg_sum``: the f32 ``<raw grad, final grad>`` over every
+        trainable parameter (JAX ``_tree_vdot``, ``engine.py:74-90``),
+        each registered layer's taken on its combined gradient before
+        the write-back, each other parameter's as ``|g|^2`` (its gradient
+        is final as it is), the squares of one ``_foreach_norm`` over
+        them all (a few launches for ResNet-50's 107 BatchNorm
+        parameters, not one each); terms summed in one reduction,
+        registered layers first."""
         combined = {
             name: helper.get_grad() for name, helper in self.helpers.items()
         }
         out, scale = self.precondition_combined(
             combined, damping, kl_clip, lr,
         )
+        terms = [torch.vdot(combined[name].reshape(-1).float(),
+                            out[name].reshape(-1).float())
+                 for name in self.helpers]
+        rest = [p.grad.reshape(-1).float() for p in self._uncovered_params
+                if p.grad is not None]
+        if rest:
+            norms = torch.stack(torch._foreach_norm(rest))
+            terms.append(torch.sum(norms * norms))
         for name, helper in self.helpers.items():
             helper.set_grad(out[name])
         self.last_kl_scale = scale
+        if not terms:
+            return torch.zeros((), device=self.device)
+        return torch.stack(terms).sum()
 
     def precondition_combined(
         self,
@@ -852,19 +896,38 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         return self._second_order.ekfac_divergence(self.buckets)
 
     def _ekfac_scales(self) -> dict[str, torch.Tensor] | None:
-        """The scale grids by bucket key, ``None`` without EKFAC."""
+        """The scale grids by bucket key, every slot of the bucket
+        (``[L, g, a]``), ``None`` without EKFAC.  On a grid with several
+        columns each rank holds its column's, so the grids are gathered
+        over the grid row: a collective every rank must call."""
         if not self.ekfac:
             return None
-        return {k: bs.skron for k, bs in self.buckets.items()
-                if bs.skron is not None} or None
+        keys = [b.key for b in self.plan.buckets
+                if self.buckets[b.key].skron is not None]
+        full = collectives.all_gather_stacks(
+            [self.buckets[k].skron for k in keys], self.grid.row_group,
+        )
+        return dict(zip(keys, full)) or None
+
+    def _ekfac_scale_shapes(self) -> dict[str, tuple[int, ...]]:
+        """The shapes :meth:`_ekfac_scales` returns, without a
+        collective."""
+        if not self.ekfac:
+            return {}
+        return {b.key: (b.n_slots, b.g_pad, b.a_pad)
+                for b in self.plan.buckets
+                if self.buckets[b.key].skron is not None}
 
     def _with_ekfac_scales(self, scales) -> None:
-        """Install saved scale grids (checked by the engine) on
-        ``self.device``."""
+        """Install saved scale grids (checked by the engine, every slot
+        of each bucket) on ``self.device``: this rank's column of
+        them."""
         for key, skron in scales.items():
-            self.buckets[key].skron = torch.as_tensor(skron).to(
-                device=self.device, dtype=torch.float32,
-            )
+            seg = self.plan.bucket(key).seg
+            first = self.grid.col * seg
+            self.buckets[key].skron = torch.as_tensor(skron)[
+                first:first + seg
+            ].to(device=self.device, dtype=torch.float32)
 
     @torch.no_grad()
     def _restore_factors(self, layers) -> None:

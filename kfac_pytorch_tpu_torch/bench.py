@@ -45,10 +45,30 @@ Three stages of the JAX bench run only when named too, through
   ``torch.distributed`` with several ranks the run shards at HYBRID-OPT
   (0.5).
 
-The K-FAC time is amortized as ``time_kfac_cycles`` does it
-(``bench.py:97-116``): after a warm-up, the run is aligned to an
-inverse-update boundary, whole cycles of ``inv_update_steps`` steps are
-timed, each ended by ``torch.cuda.synchronize()``, and the least per-step
+Three more stages of the JAX bench (``ROADMAP.md`` item 6):
+
+* ``micro_mlp`` (``bench.py:234-308``): the 3x512 MLP (two hidden
+  layers of 512, 10 classes) at batch 128, factor 10, inv 100, damping
+  0.001; ``sgd_ms``, ``kfac_ms`` and their ``ratio``;
+* ``inverse_root`` (``bench.py:641-750``): per ``[L, n, n]`` stack of
+  the JAX stage's shapes (16x64, 8x128, 4x256; synthetic SPD stacks at
+  condition number 1e4), the refresh kernels' times: batched ``eigh``,
+  the Cholesky damped inverse, Newton–Schulz cold (bootstrap depth) and
+  warm (warm depth, seeded with the previous interval's exact root,
+  after a 2% aligned eigenvalue drift), with the residuals; ``shapes``
+  and ``warm_vs_eigh_speedup_min``/``_max``;
+* ``secondary_rn50_inverse`` (``bench.py:1889``): the headline
+  configuration with ``compute_method='inverse'``, one cycle, no SGD
+  run; ``kfac_ms``.
+
+The configurations' K-FAC steps (``measure``: the headline, the
+secondary ones, ``micro_mlp`` and ``secondary_rn50_inverse``) are timed
+through the fused path, ``KFACPreconditioner.train_loop`` (forward,
+backward, ``step()`` and the optimizer step in one call), as the JAX
+bench times its ``train_loop``.  The K-FAC time is amortized as
+``time_kfac_cycles`` does it (``bench.py:97-116``): after a warm-up, the
+run is aligned to an inverse-update boundary, whole cycles of
+``inv_update_steps`` steps are timed, each ended by ``torch.cuda.synchronize()``, and the least per-step
 mean over the cycles is kept.  The SGD step is timed the same way, after
 ``SGD_WARMUP`` steps, as the least mean over ``SGD_WINDOWS`` windows of
 ``sgd_iters`` steps.  The last line of the output is one JSON object
@@ -65,15 +85,18 @@ On the card::
         resnet50_lowrank512 resnet50_ekfac
     python -m kfac_pytorch_tpu_torch.bench --configs stagger_flatness \
         adaptive_refresh precond_tail
+    python -m kfac_pytorch_tpu_torch.bench --configs micro_mlp \
+        inverse_root secondary_rn50_inverse
 
-It raises without a card unless ``--device cpu`` is given.  The
-JAX bench's micro-MLP stage and its MFU are not carried over
-(``ROADMAP.md`` Queue A item 6).
+It raises without a card unless ``--device cpu`` is given.  The JAX
+bench's MFU fields and its ``PEAK_TFLOPS`` (a TPU figure) are not
+carried over.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from typing import Any, Callable, Sequence
 
@@ -148,34 +171,39 @@ def time_kfac_cycles(step_fn: Callable[[], Any], precond: Any,
     return best
 
 
+def _next_token_loss(logits: torch.Tensor,
+                     tokens: torch.Tensor) -> torch.Tensor:
+    return F.cross_entropy(
+        logits[:, :-1].reshape(-1, logits.shape[-1]),
+        tokens[:, 1:].reshape(-1),
+    )
+
+
 def _setup(cfg: dict, device: torch.device):
-    """``(model, inputs, loss of (model, inputs))`` of one configuration,
-    the batch made from seed 1."""
+    """``(model, args, loss_args, loss_fn)`` of one configuration, the
+    batch made from seed 1: the loss is ``loss_fn(model(*args),
+    *loss_args)``, the fused path's form."""
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     if cfg['model'].startswith('gpt'):
         model = getattr(models, cfg['model'])(device=device, seed=0)
         tokens = torch.randint(0, model.config.vocab_size, cfg['batch'],
                                generator=gen, device=device)
-
-        def loss_of(m, batch):
-            logits = m(batch)
-            return F.cross_entropy(
-                logits[:, :-1].reshape(-1, logits.shape[-1]),
-                batch[:, 1:].reshape(-1),
-            )
-        return model, tokens, loss_of
-    model = getattr(models, cfg['model'])(
-        num_classes=cfg['classes'], device=device, seed=0,
-    )
-    x = torch.randn(cfg['batch'], 3, cfg['image'], cfg['image'],
-                    generator=gen, device=device)
+        return model, (tokens,), (tokens,), _next_token_loss
+    if cfg['model'] == 'mlp':
+        torch.manual_seed(2)
+        model = models.MLP(cfg['width'], cfg['features']).to(device)
+        x = torch.randn(cfg['batch'], cfg['width'], generator=gen,
+                        device=device)
+    else:
+        model = getattr(models, cfg['model'])(
+            num_classes=cfg['classes'], device=device, seed=0,
+        )
+        x = torch.randn(cfg['batch'], 3, cfg['image'], cfg['image'],
+                        generator=gen, device=device)
     y = torch.randint(0, cfg['classes'], (cfg['batch'],), generator=gen,
                       device=device)
-
-    def loss_of(m, batch):
-        return F.cross_entropy(m(batch[0]), batch[1])
-    return model, (x, y), loss_of
+    return model, (x,), (y,), F.cross_entropy
 
 
 def measure(
@@ -192,28 +220,31 @@ def measure(
     inv_steps = cfg['inv_steps'] if inv_steps is None else inv_steps
     cycles = cfg['cycles'] if cycles is None else cycles
     sgd_iters = cfg['sgd_iters']
-    model, batch, loss_of = _setup(cfg, device)
+    model, args, loss_args, loss_fn = _setup(cfg, device)
     model.train()
 
-    sgd = torch.optim.SGD(model.parameters(), lr=cfg['lr'])
+    t_sgd = None
+    if not cfg.get('skip_sgd'):
+        sgd = torch.optim.SGD(model.parameters(), lr=cfg['lr'])
 
-    def sgd_step():
-        sgd.zero_grad(set_to_none=True)
-        loss = loss_of(model, batch)
-        loss.backward()
-        sgd.step()
-        return loss
+        def sgd_step():
+            sgd.zero_grad(set_to_none=True)
+            loss = loss_fn(model(*args), *loss_args)
+            loss.backward()
+            sgd.step()
+            return loss
 
-    for _ in range(SGD_WARMUP):
-        sgd_step()
-    t_sgd = float('inf')
-    for _ in range(SGD_WINDOWS):
-        _sync(device)
-        t0 = time.perf_counter()
-        for _ in range(sgd_iters):
+        for _ in range(SGD_WARMUP):
             sgd_step()
-        _sync(device)
-        t_sgd = min(t_sgd, (time.perf_counter() - t0) / sgd_iters)
+        t_sgd = float('inf')
+        for _ in range(SGD_WINDOWS):
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(sgd_iters):
+                sgd_step()
+            _sync(device)
+            t_sgd = min(t_sgd, (time.perf_counter() - t0) / sgd_iters)
+        del sgd
 
     precond = KFACPreconditioner(
         model, factor_update_steps=cfg['factor_steps'],
@@ -221,14 +252,10 @@ def measure(
         **cfg.get('kfac_kw', {}),
     )
     opt = torch.optim.SGD(model.parameters(), lr=cfg['lr'])
+    loop = precond.train_loop(opt, loss_fn)
 
     def kfac_step():
-        opt.zero_grad(set_to_none=True)
-        loss = loss_of(model, batch)
-        loss.backward()
-        precond.step()
-        opt.step()
-        return loss
+        return loop.step(*args, loss_args=loss_args)[0]
 
     # Warm every variant: step 0 refreshes, steps up to the factor
     # interval run without factors, the next one with.
@@ -236,9 +263,10 @@ def measure(
         kfac_step()
     _sync(device)
     t_kfac = time_kfac_cycles(kfac_step, precond, inv_steps, cycles, device)
-    out = {'sgd_ms': t_sgd * 1e3, 'kfac_ms': t_kfac * 1e3,
-           'inv_steps': inv_steps, 'cycles': cycles}
-    del precond, opt, sgd, model
+    out = {'sgd_ms': None if t_sgd is None else t_sgd * 1e3,
+           'kfac_ms': t_kfac * 1e3, 'inv_steps': inv_steps,
+           'cycles': cycles}
+    del precond, opt, loop, model
     if device.type == 'cuda':
         torch.cuda.empty_cache()
     return out
@@ -473,11 +501,147 @@ def measure_precond_tail(
     }
 
 
-#: The refresh-cadence and tail stages: name -> measure function.
+#: The JAX bench's micro stage (``bench.py:234-308``).
+MICRO_MLP = dict(
+    model='mlp', width=512, features=(512, 512, 10), classes=10,
+    batch=128, factor_steps=10, inv_steps=100, damping=0.001, lr=0.1,
+    sgd_iters=30, cycles=3,
+)
+
+
+def measure_micro_mlp(device: torch.device | str = 'cuda', *,
+                      inv_steps: int | None = None,
+                      cycles: int | None = None) -> dict[str, Any]:
+    """The smallest K-FAC/SGD ratio: the 3x512 MLP at batch 128, factor
+    10, inv 100 (JAX ``measure_micro_mlp``); ``sgd_ms``, ``kfac_ms``
+    (amortized over whole cycles) and ``ratio``."""
+    res = measure(MICRO_MLP, device, inv_steps=inv_steps, cycles=cycles)
+    return {
+        'config': f"MLP 512x{MICRO_MLP['features']} b{MICRO_MLP['batch']}, "
+                  f"factor={MICRO_MLP['factor_steps']} "
+                  f"inv={res['inv_steps']} x {res['cycles']} cycles",
+        'sgd_ms': res['sgd_ms'],
+        'kfac_ms': res['kfac_ms'],
+        'ratio': res['kfac_ms'] / res['sgd_ms'],
+    }
+
+
+def measure_secondary_rn50_inverse(
+    device: torch.device | str = 'cuda', *,
+    inv_steps: int | None = None, cycles: int | None = None,
+) -> dict[str, Any]:
+    """The headline configuration with ``compute_method='inverse'``, one
+    cycle, no SGD run (JAX ``secondary_rn50_inverse``); ``kfac_ms``."""
+    cfg = dict(CONFIGS['resnet50'], cycles=1, skip_sgd=True,
+               kfac_kw=dict(compute_method='inverse'))
+    res = measure(cfg, device, inv_steps=inv_steps, cycles=cycles)
+    return {
+        'config': f"factor=10 inv={res['inv_steps']} x {res['cycles']} "
+                  "cycle(s), compute_method='inverse'",
+        'kfac_ms': res['kfac_ms'],
+    }
+
+
+def measure_inverse_root(
+    device: torch.device | str = 'cuda',
+    *,
+    shapes: Sequence[tuple[int, int]] = ((16, 64), (8, 128), (4, 256)),
+    damping: float = 1e-3,
+    cond: float = 1e4,
+    iters: int = 10,
+    drift: float = 0.02,
+) -> dict[str, Any]:
+    """The refresh kernels on ``[L, n, n]`` stacks (JAX
+    ``measure_inverse_root``): batched ``eigh``, the Cholesky damped
+    inverse (:func:`~kfac_pytorch_tpu_torch.ops.batched_damped_inv`) and
+    Newton–Schulz (:func:`~kfac_pytorch_tpu_torch.ops.\
+batched_newton_schulz_inverse`) cold at bootstrap depth and warm at warm
+    depth, on synthetic SPD stacks ``Q diag(e) Q^T`` with ``e`` log-spaced
+    from 1 to ``1/cond``.  The warm case is the engine's steady state:
+    the seed is the exact root of the previous interval's stack and the
+    timed stack drifts from it by a relative ``drift`` of each
+    eigenvalue (aligned drift, which the warm gate accepts).  Each time
+    is the least mean over 3 runs of ``iters`` calls, ended by a
+    synchronize; the residuals ride along."""
+    from kfac_pytorch_tpu_torch import ops
+
+    device = torch.device(device)
+    cfg = ops.IterativeConfig()
+
+    def spd_pair(seed, L, n):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        q, _ = torch.linalg.qr(torch.randn(L, n, n, generator=gen,
+                                           device=device))
+        eigs = torch.logspace(0.0, -math.log10(cond), n,
+                              device=device)[None, :]
+        jitter = 1.0 + drift * (2.0 * torch.rand(
+            L, n, generator=gen, device=device) - 1.0)
+        prev = (q * eigs[:, None, :]) @ q.mT
+        cur = (q * (eigs * jitter)[:, None, :]) @ q.mT
+        return prev, cur
+
+    def time_fn(fn, *args):
+        fn(*args)
+        _sync(device)
+        best = float('inf')
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(*args)
+            _sync(device)
+            best = min(best, (time.perf_counter() - t0) / iters)
+        return best * 1e3
+
+    def chol(s):
+        return ops.batched_damped_inv(s, damping)
+
+    def cold(s):
+        return ops.batched_newton_schulz_inverse(
+            s, damping, iters=cfg.bootstrap_iters, tol=cfg.tol)
+
+    def warm(s, w):
+        return ops.batched_newton_schulz_inverse(
+            s, damping, iters=cfg.warm_iters, warm_start=w, tol=cfg.tol,
+            warm_restart_gate=cfg.warm_restart_gate)
+
+    per_shape = []
+    for i, (L, n) in enumerate(shapes):
+        prev, stack = spd_pair(i, L, n)
+        seed = chol(prev)
+        per_shape.append({
+            'shape': f'[{L}, {n}, {n}]',
+            'eigh_ms': time_fn(torch.linalg.eigh, stack),
+            'cholesky_ms': time_fn(chol, stack),
+            'ns_cold_ms': time_fn(cold, stack),
+            'ns_warm_ms': time_fn(warm, stack, seed),
+            'ns_cold_res': float(torch.max(cold(stack).residual)),
+            'ns_warm_res': float(torch.max(warm(stack, seed).residual)),
+            'ns_warm_iters': cfg.warm_iters,
+            'ns_bootstrap_iters': cfg.bootstrap_iters,
+        })
+    speedups = [s['eigh_ms'] / s['ns_warm_ms'] for s in per_shape]
+    return {
+        'config': f'damping={damping} cond={cond:g} '
+                  f'warm_iters={cfg.warm_iters} '
+                  f'bootstrap_iters={cfg.bootstrap_iters} '
+                  f'drift={drift:g} relative aligned eigenvalue '
+                  'jitter per interval',
+        'shapes': per_shape,
+        'warm_vs_eigh_speedup_min': min(speedups),
+        'warm_vs_eigh_speedup_max': max(speedups),
+        'tol': cfg.tol,
+    }
+
+
+#: The stages: name -> measure function.
 STAGES: dict[str, Callable[..., dict]] = {
     'stagger_flatness': measure_stagger_flatness,
     'adaptive_refresh': measure_adaptive_refresh,
     'precond_tail': measure_precond_tail,
+    'micro_mlp': measure_micro_mlp,
+    'inverse_root': measure_inverse_root,
+    'secondary_rn50_inverse': measure_secondary_rn50_inverse,
 }
 
 

@@ -31,7 +31,16 @@ and backward are enqueued, and is installed at the top of the next
 :meth:`KFACEngineMixin.step`.
 
 The call sequence is PyTorch's: ``loss.backward(); precond.step();
-optimizer.step()``.  Under EKFAC the step's factor update also moves the
+optimizer.step()``.  Every step leaves :attr:`KFACEngineMixin.\
+last_step_info`, device tensors read back only when the caller reads
+them: ``vg_sum`` (``<raw grad, final grad>`` over every trainable
+parameter, ``engine.py:74-90``), and on factor steps ``ekfac_divergence``
+under EKFAC and the adaptive cadence's drift feed.  The fused path
+(:meth:`KFACEngineMixin.make_train_step`, :meth:`KFACEngineMixin.\
+train_loop`; ``engine.py:2027-2125, 2746-2899``) runs the forward,
+backward, this step and the optimizer step in one call and feeds an
+:class:`~kfac_pytorch_tpu_torch.adaptive.AdaptiveDamping` in the
+``damping`` slot.  Under EKFAC the step's factor update also moves the
 scale grids, and with an :class:`~kfac_pytorch_tpu_torch.adaptive.
 AdaptiveRefresh` the drift read after a factor step can request a
 refresh at the next step, off the cadence (``engine.py:733-738,
@@ -43,18 +52,23 @@ decompositions, which a restore recomputes), in the JAX payload's keys.
 from __future__ import annotations
 
 import contextlib
+import logging
 from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kfac_pytorch_tpu_torch import ops
+from kfac_pytorch_tpu_torch.adaptive import AdaptiveDamping
 from kfac_pytorch_tpu_torch.hyperparams import resolve
 from kfac_pytorch_tpu_torch.hyperparams import validate_damping
 from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
 from kfac_pytorch_tpu_torch.scheduler import overlap_defer_action
 from kfac_pytorch_tpu_torch.scheduler import post_restore_bootstrapped
 from kfac_pytorch_tpu_torch.scheduler import stagger_refresh_action
+
+logger = logging.getLogger(__name__)
 
 #: The schedulable hyperparameters a checkpoint holds (when not callable).
 HYPERPARAM_KEYS = (
@@ -239,7 +253,12 @@ class KFACEngineMixin:
     shard)``, under ``adaptive`` ``_adaptive_drift_emit()``, under
     ``overlap_comm`` ``_issue_deferred_refresh(pending, damping)`` and
     ``_install_refresh(state)``, and arm their capture through
-    ``_arm_capture(bool)``.
+    ``_arm_capture(bool)``.  ``_precondition`` returns the step's
+    ``vg_sum``; ``_ekfac_scale_shapes()`` gives the shapes of
+    ``_ekfac_scales()`` without a collective; the fused path runs the
+    module ``_train_module`` and switches the capture through
+    ``_capture_armed(bool)``, which holds no capture, and
+    ``_bn_buffers()`` lists the buffers a training-mode forward moves.
     """
 
     def _init_engine(
@@ -258,6 +277,14 @@ class KFACEngineMixin:
     ) -> None:
         if not callable(damping):
             validate_damping(damping)
+        # LM damping feedback: an AdaptiveDamping in the damping slot is
+        # fed by the fused path (make_train_step, train_loop); step()
+        # says once that it does not feed it.
+        self._adaptive_damping = (
+            damping if isinstance(damping, AdaptiveDamping) else None
+        )
+        self._warned_adaptive_unfed = False
+        self._last_step_info: dict[str, torch.Tensor] | None = None
         # The deferred refresh (overlap_comm): the descriptor the last
         # step deferred, ('inv',) or ('shard', k), and its work in
         # flight, issued at that step's end and installed at the top of
@@ -304,6 +331,21 @@ class KFACEngineMixin:
     def steps(self) -> int:
         """Completed :meth:`step` calls."""
         return self._steps
+
+    @property
+    def last_step_info(self) -> dict[str, torch.Tensor] | None:
+        """Device tensors of the latest step (no host sync until a value
+        is read), ``None`` before the first: ``vg_sum``, the f32
+        ``<raw grad, final grad>`` over every trainable parameter (the
+        final gradient carries the kl-clip scale; a parameter the
+        preconditioner does not register contributes ``|g|^2``), the
+        kl-clip and quadratic-model inner product; on factor steps
+        ``ekfac_divergence`` under EKFAC and the drift feed
+        (``adaptive/checked``, ``adaptive/sketch``, ``adaptive/digest``)
+        under the adaptive cadence, whose counters
+        (``adaptive/*_total``, ``adaptive/shard<k>/*``) ride every
+        step."""
+        return self._last_step_info
 
     @property
     def last_ekfac_divergence(self) -> torch.Tensor | None:
@@ -521,7 +563,18 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         ``.grad`` (call after ``backward()``, before the optimizer).
 
         Under ``overlap_comm`` it first installs the refresh the previous
-        step deferred, and it ends by issuing the one this step defers."""
+        step deferred, and it ends by issuing the one this step defers.
+        An :class:`~kfac_pytorch_tpu_torch.adaptive.AdaptiveDamping` is
+        not fed here (the step never sees the updated parameters); the
+        first call says so once (JAX ``engine.py:1902-1920``)."""
+        self._step()
+        self._warn_adaptive_unfed(
+            'step()' if getattr(self, 'accumulation_steps', 1) == 1
+            else 'accumulated step()',
+        )
+
+    def _step(self) -> None:
+        """The body of :meth:`step`, shared with the fused path."""
         update_factors, update_inverses, shard, deferred, pending = (
             self._overlap_plan()
         )
@@ -538,7 +591,9 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             self._iter_bootstrapped = True
         elif shard is not None:
             self._refresh_shard(self.damping, shard)
-        self._precondition(self.damping, self.kl_clip, self.lr)
+        info = {'vg_sum': self._precondition(
+            self.damping, self.kl_clip, self.lr,
+        )}
         if self._adaptive_controller is not None and update_factors:
             # The factor EMAs move only on factor steps.
             drift = self._adaptive_drift_emit()
@@ -546,6 +601,7 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
                 self._adaptive_last_drift = (
                     drift['adaptive/sketch'], drift['adaptive/digest'],
                 )
+                info.update(drift)
         self._overlap_commit(pending)
         if update_inverses:
             self._stagger_bootstrapped = True
@@ -557,11 +613,14 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             )
         else:
             self._last_refresh = 'full' if update_inverses else shard
+        divergence = self._ekfac_divergence() if update_factors else None
+        if divergence is not None:
+            info['ekfac_divergence'] = divergence
+        self._last_step_info = self._adaptive_finish(info)
         step_index = self._steps
         self._steps += 1
         self._post_step_refresh_feed(
-            self._ekfac_divergence() if update_factors else None,
-            step_index, update_factors,
+            divergence, step_index, update_factors,
             update_inverses or deferred is not None,
         )
         # Arm (or disarm) the hooks for the NEXT forward/backward.
@@ -573,6 +632,178 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             self._overlap_inflight = self._issue_deferred_refresh(
                 pending, self.damping,
             )
+
+    def _adaptive_finish(
+        self, info: dict[str, torch.Tensor],
+    ) -> dict[str, torch.Tensor]:
+        """The adaptive cadence's decision counters added to the step's
+        info (JAX ``_adaptive_finish``, ``engine.py:895-918``); ``info``
+        as it is without the controller."""
+        ctl = self._adaptive_controller
+        if ctl is None:
+            return info
+        totals = ctl.counters()
+        for name in ('skipped', 'early', 'forced', 'scheduled'):
+            info[f'adaptive/{name}_total'] = totals[name]
+        info['adaptive/budget_clamped_total'] = totals['budget_clamped']
+        for k in range(ctl.n_shards):
+            info[f'adaptive/shard{k}/skipped'] = ctl.skipped[k]
+            info[f'adaptive/shard{k}/early'] = ctl.early[k]
+            info[f'adaptive/shard{k}/forced'] = ctl.forced[k]
+            info[f'adaptive/shard{k}/age'] = ctl.ages[k]
+        return info
+
+    def _warn_adaptive_unfed(self, path: str) -> None:
+        """One-time warning (JAX ``engine.py:1902-1920``): an
+        AdaptiveDamping adapts only on the fused path, where the updated
+        parameters are visible; on ``step()`` the optimizer update
+        happens outside the engine, so the controller must be fed by
+        hand, and silently frozen damping is the failure this flags."""
+        if self._adaptive_damping is None or self._warned_adaptive_unfed:
+            return
+        self._warned_adaptive_unfed = True
+        logger.warning(
+            'damping=AdaptiveDamping(...) is not auto-fed on the %s '
+            'path (the engine never sees the updated parameters). '
+            'Either use make_train_step()/train_loop(), or call '
+            'controller.update(observed_reduction, predicted_reduction) '
+            'yourself each interval using last_step_info["vg_sum"] '
+            '(predicted = (-lr + lr**2/2) * vg_sum); otherwise damping '
+            'stays frozen at its current value.', path,
+        )
+
+    # -- the fused training path ------------------------------------------
+
+    def make_train_step(
+        self,
+        optimizer: torch.optim.Optimizer,
+        loss_fn: Callable[..., Any],
+        merge_updates: Any = None,
+    ) -> Callable[..., tuple[torch.Tensor, Any]]:
+        """The K-FAC step and the optimizer step in one call (JAX
+        ``make_train_step``, ``engine.py:2027-2125``).
+
+        ``loss_fn(model_output, *loss_args)`` returns the loss or
+        ``(loss, aux)``, as the JAX ``loss_fn`` does.  The returned
+        ``train_step(*args, loss_args=()) -> (loss, aux)`` runs, in
+        order: ``optimizer.zero_grad()``, the forward ``model(*args)``
+        (through the ``DistributedDataParallel`` wrapper when the
+        preconditioner was given one), the backward, :meth:`step`'s body
+        and ``optimizer.step()``; then it feeds an
+        :class:`~kfac_pytorch_tpu_torch.adaptive.AdaptiveDamping` in the
+        ``damping`` slot at its adaptation steps (:meth:`_maybe_adapt_\
+damping`).  The returned loss is the step's (detached), before the
+        update.
+
+        JAX's ``merge_updates`` has no counterpart: BatchNorm's running
+        statistics update in place during the forward.  Gradient
+        accumulation runs through the backward passes and :meth:`step`
+        (``accumulation_steps > 1`` raises here, as in JAX).
+        """
+        if merge_updates is not None:
+            raise NotImplementedError(
+                'merge_updates has no counterpart in the PyTorch package: '
+                "a module's mutable state (BatchNorm's running statistics) "
+                'updates in place during the forward, so there is nothing '
+                'to merge',
+            )
+        model = self._train_module
+
+        def train_step(*args: Any, loss_args: tuple = ()):
+            if getattr(self, 'accumulation_steps', 1) != 1:
+                raise RuntimeError(
+                    'make_train_step runs one forward and backward per '
+                    'step: with accumulation_steps > 1 run the backward '
+                    'passes yourself and call step()',
+                )
+            optimizer.zero_grad()
+            loss, aux = _split_loss(loss_fn(model(*args), *loss_args))
+            loss.backward()
+            step_index = self._steps
+            self._step()
+            optimizer.step()
+            loss = loss.detach()
+            self._maybe_adapt_damping(
+                step_index, loss, self._last_step_info, args, loss_args,
+                loss_fn,
+            )
+            return loss, aux
+
+        return train_step
+
+    def train_loop(
+        self,
+        optimizer: torch.optim.Optimizer,
+        loss_fn: Callable[..., Any],
+        merge_updates: Any = None,
+    ) -> 'KFACTrainLoop':
+        """The fused path as a loop object (JAX ``train_loop``,
+        ``engine.py:2127``)::
+
+            loop = precond.train_loop(optimizer, loss_fn)
+            for x, y in batches:
+                loss, aux = loop.step(x, loss_args=(y,))
+            model_sd, optimizer_sd, kfac_sd = loop.carry
+        """
+        return KFACTrainLoop(self, optimizer, loss_fn, merge_updates)
+
+    @torch.no_grad()
+    def _loss_only(
+        self, args: tuple, loss_args: tuple, loss_fn: Callable[..., Any],
+    ) -> torch.Tensor:
+        """The loss at the current (updated) parameters on ``args``, with
+        no gradient, no capture and no trace in the model's state: the
+        capture is switched off for the forward, and the buffers a
+        training-mode forward moves (BatchNorm's running statistics and
+        counters) are restored bit for bit afterwards, as Flax's
+        loss-only pass discards its batch-stat updates.  The forward
+        runs the bare module, not a ``DistributedDataParallel`` wrapper,
+        so it issues no collective of its own."""
+        module = self._capture_module()
+        saved = [(b, b.clone()) for b in self._bn_buffers()]
+        armed = self._capture_armed(False)
+        try:
+            loss, _ = _split_loss(loss_fn(module(*args), *loss_args))
+        finally:
+            self._capture_armed(armed)
+            for b, v in saved:
+                b.copy_(v)
+        return loss.detach()
+
+    def _maybe_adapt_damping(
+        self,
+        step_index: int,
+        loss_before: torch.Tensor,
+        info: Mapping[str, torch.Tensor],
+        args: tuple,
+        loss_args: tuple,
+        loss_fn: Callable[..., Any],
+    ) -> None:
+        """Feed the LM controller at its adaptation steps (JAX
+        ``engine.py:1930-1961``).
+
+        Observed reduction: the same batch's loss at the updated
+        parameters (:meth:`_loss_only`) minus the step's loss.  Predicted
+        reduction: ``(-lr + lr^2/2) * vg_sum`` from the damped quadratic
+        model, with the ``lr`` of the step that made the update (the
+        counter has already moved).  Across ranks both losses are
+        averaged over the world first (one all-reduce), so every rank
+        feeds the controller the same numbers and keeps the same damping.
+        """
+        ad = self._adaptive_damping
+        if ad is None or not ad.should_adapt(step_index):
+            return
+        losses = torch.stack([
+            loss_before.float().reshape(()),
+            self._loss_only(args, loss_args, loss_fn).float().reshape(()),
+        ])
+        if dist.is_available() and dist.is_initialized():
+            dist.all_reduce(losses)
+            losses = losses / dist.get_world_size()
+        before, after = losses.tolist()
+        lr = float(resolve(self._lr, step_index))
+        predicted = (-lr + 0.5 * lr * lr) * float(info['vg_sum'])
+        ad.update(after - before, predicted)
 
     def _post_step_refresh_feed(
         self,
@@ -753,7 +984,7 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         """Check saved scale grids against this configuration's both
         ways (a slot left at the reseed would be an unsignalled mixed
         state; ``engine.py:1300-1337``) and install them."""
-        current = self._ekfac_scales() or {}
+        current = self._ekfac_scale_shapes()
         missing = set(current) - set(scales)
         if missing:
             raise ValueError(
@@ -768,11 +999,11 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
                     'ekfac_scales: no EKFAC scale slot for bucket '
                     f'{name!r} in this configuration',
                 )
-            if tuple(slot.shape) != tuple(np.shape(saved)):
+            if tuple(slot) != tuple(np.shape(saved)):
                 raise ValueError(
                     f'ekfac_scales: shape mismatch for bucket {name!r}: '
                     f'saved {tuple(np.shape(saved))} vs state '
-                    f'{tuple(slot.shape)}',
+                    f'{tuple(slot)}',
                 )
         self._with_ekfac_scales(scales)
 
@@ -825,8 +1056,72 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
     def _adaptive_drift_emit(self) -> dict[str, torch.Tensor]:
         return {}
 
+    def _capture_module(self) -> torch.nn.Module:
+        raise NotImplementedError
+
+    def _capture_armed(self, on: bool) -> bool:
+        raise NotImplementedError
+
+    def _bn_buffers(self) -> list[torch.Tensor]:
+        return []
+
     def _ekfac_scales(self) -> Mapping[str, torch.Tensor] | None:
         return None
 
+    def _ekfac_scale_shapes(self) -> Mapping[str, tuple[int, ...]]:
+        return {}
+
     def _with_ekfac_scales(self, scales: Mapping[str, Any]) -> None:
         raise NotImplementedError
+
+
+def _split_loss(result: Any) -> tuple[torch.Tensor, Any]:
+    """``loss_fn``'s result as ``(loss, aux)``, ``aux`` ``None`` when it
+    returned the loss alone (JAX ``base_preconditioner.py:1495-1498``)."""
+    if isinstance(result, tuple):
+        return result
+    return result, None
+
+
+class KFACTrainLoop:
+    """The fused training path as a loop (JAX ``KFACTrainLoop``,
+    ``engine.py:2746-2899``).
+
+    The JAX loop carries ``(variables, opt_state, kfac_state)`` as a flat
+    tuple of leaves so each step dispatches one compiled program.  Torch
+    keeps that state in place, in the model, the optimizer and the
+    preconditioner, so there is no carry to build: :meth:`step` is
+    :meth:`KFACEngineMixin.make_train_step`'s step, the same code, and
+    :attr:`carry` returns the three state dicts.
+    """
+
+    def __init__(
+        self,
+        precond: KFACEngineMixin,
+        optimizer: torch.optim.Optimizer,
+        loss_fn: Callable[..., Any],
+        merge_updates: Any = None,
+    ) -> None:
+        if getattr(precond, 'accumulation_steps', 1) != 1:
+            raise RuntimeError(
+                'train_loop runs one forward and backward per step: with '
+                'accumulation_steps > 1 run the backward passes yourself '
+                'and call step()',
+            )
+        self._precond = precond
+        self._optimizer = optimizer
+        self._step_fn = precond.make_train_step(
+            optimizer, loss_fn, merge_updates,
+        )
+
+    def step(self, *args: Any, loss_args: tuple = ()) -> tuple[Any, Any]:
+        """One fused K-FAC + optimizer step; returns ``(loss, aux)``."""
+        return self._step_fn(*args, loss_args=loss_args)
+
+    @property
+    def carry(self) -> tuple[dict, dict, dict]:
+        """``(model state dict, optimizer state dict, preconditioner
+        state dict)``."""
+        p = self._precond
+        return (p._capture_module().state_dict(),
+                self._optimizer.state_dict(), p.state_dict())

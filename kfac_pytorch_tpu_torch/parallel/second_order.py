@@ -36,7 +36,14 @@ matmuls, while exact buckets keep ``dgda`` and the fused kernel) and
 EKFAC (``ekfac``: every bucket keeps ``da``/``dg`` and a scale grid
 ``skron [seg, g, a]``, reseeded to ``dg ⊗ da`` at each refresh and moved
 every factor step by :meth:`BucketedSecondOrder.ekfac_update`;
-:mod:`~kfac_pytorch_tpu_torch.ops.ekfac`).
+:mod:`~kfac_pytorch_tpu_torch.ops.ekfac`).  A rank captures rows for
+every layer, but on a grid with several columns holds only its column's
+bases, so under EKFAC each refresh also gathers every column's ``qa``
+and ``qg`` over the grid row and keeps their occupied slots as
+``basis_qa``/``basis_qg`` (the JAX program replicates ``qa[slot]`` for
+each projection instead, ``second_order.py:1416-1417``); the scale
+contributions then ride the factor all-reduce as under COMM-OPT, and
+each rank keeps its column's scales.
 
 With a :class:`~kfac_pytorch_tpu_torch.parallel.bucketing.StaggerPlan`
 (``stagger_refresh``), :meth:`BucketedSecondOrder.compute_shard`
@@ -99,8 +106,11 @@ class BucketSecond:
     ka]`` / ``qg [seg, g, kg]`` (``k`` the rank on a truncated side, the
     padded dim on an exact one), ``da``/``dg`` and the trailing-spectrum
     means ``sa``/``sg`` ``[seg]`` of the truncated sides.  EKFAC:
-    ``da``/``dg`` and ``skron [seg, g, a]`` (f32), the scale grid.
-    Fields a method does not use are ``None``.
+    ``da``/``dg`` and ``skron [seg, g, a]`` (f32), the scale grid, and
+    on a grid with several columns ``basis_qa [n, a, a]`` /
+    ``basis_qg [n, g, g]``, the eigenvectors of the bucket's ``n``
+    occupied slots in every column, which project the rows of every
+    layer.  Fields a method does not use are ``None``.
     """
 
     qa: torch.Tensor | None = None
@@ -120,6 +130,8 @@ class BucketSecond:
     iter_stale_a: torch.Tensor | None = None
     iter_stale_g: torch.Tensor | None = None
     skron: torch.Tensor | None = None
+    basis_qa: torch.Tensor | None = None
+    basis_qg: torch.Tensor | None = None
 
     def tensors(self) -> dict[str, torch.Tensor]:
         """The fields that are set, in declaration order."""
@@ -255,6 +267,13 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             self._slot_dims[b.key] = (tuple(d[0] for d in dims),
                                       tuple(d[1] for d in dims))
             self._bucket_seed[b.key] = zlib.crc32(b.key.encode())
+        #: Under EKFAC on a grid with several columns: each layer's
+        #: index among its bucket's occupied slots, in slot order, which
+        #: is its row of the gathered ``basis_qa``/``basis_qg``.
+        self._basis_slot = {
+            n: i for b in plan.buckets
+            for i, n in enumerate(n for n in b.slots if n is not None)
+        }
         self.plan = plan
         self.grid = grid
         self.compute_method = compute_method
@@ -328,11 +347,26 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         return out
 
     def init_buckets(self) -> dict[str, BucketSecond]:
-        """Zeroed stacked second-order state (this rank's slots)."""
-        return {
+        """Zeroed stacked second-order state (this rank's slots; under
+        EKFAC on a grid with several columns also the zero bases of every
+        occupied slot, which the first factor step projects through, as
+        the JAX program projects through its zero stacks)."""
+        out = {
             b.key: BucketSecond(**self._zero_fields(b, b.seg))
             for b in self.plan.buckets
         }
+        if self.ekfac and self.grid.cols > 1:
+            for b in self.plan.buckets:
+                n = sum(name is not None for name in b.slots)
+                out[b.key].basis_qa = torch.zeros(
+                    (n, b.a_pad, b.a_pad), dtype=self.inv_dtype,
+                    device=self.device,
+                )
+                out[b.key].basis_qg = torch.zeros(
+                    (n, b.g_pad, b.g_pad), dtype=self.inv_dtype,
+                    device=self.device,
+                )
+        return out
 
     def _stack_bucket_factors(
         self,
@@ -507,10 +541,10 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             shares, [b.seg for b in self.plan.buckets], grid.col_group,
             [[n in IDENTITY_PADDED for n in ns] for ns in names],
         )
-        return {
+        return self._with_ekfac_bases({
             b.key: BucketSecond(**dict(zip(ns, share)))
             for b, ns, share in zip(self.plan.buckets, names, shares)
-        }
+        }, [b.key for b in self.plan.buckets])
 
     def compute_shard(
         self,
@@ -593,6 +627,38 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
                 )
                 for n, t in zip(ns, share)
             })
+        # The buckets the shard touches in any column: the same on every
+        # rank, so the row gather of their bases is too.
+        return self._with_ekfac_bases(out, [
+            b.key for b in self.plan.buckets
+            if self.stagger.shards[shard].get(b.key)
+        ])
+
+    def _with_ekfac_bases(
+        self, buckets: dict[str, BucketSecond], keys: Sequence[str],
+    ) -> dict[str, BucketSecond]:
+        """Under EKFAC on a grid with several columns: ``buckets`` with
+        every column's ``qa``/``qg`` of the buckets ``keys`` gathered
+        over the grid row (one all-gather) and kept at their occupied
+        slots only, in slot order, as ``basis_qa``/``basis_qg`` (a
+        column's padding slots are zero blocks that no layer projects
+        through); ``buckets`` as they are otherwise.  Which buckets are
+        gathered depends on the plan and the shard only, so every rank
+        issues the same gather."""
+        if not (self.ekfac and self.grid.cols > 1) or not keys:
+            return buckets
+        stacks = [t for k in keys for t in (buckets[k].qa, buckets[k].qg)]
+        full = collectives.all_gather_stacks(stacks, self.grid.row_group)
+        out = dict(buckets)
+        for i, k in enumerate(keys):
+            occ = torch.tensor(
+                [j for j, n in enumerate(self.plan.bucket(k).slots)
+                 if n is not None], device=self.device,
+            )
+            out[k] = dataclasses.replace(
+                buckets[k], basis_qa=full[2 * i].index_select(0, occ),
+                basis_qg=full[2 * i + 1].index_select(0, occ),
+            )
         return out
 
     def _grad_stack(
@@ -764,19 +830,26 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
     def ekfac_contrib(
         self,
         bs: BucketSecond,
-        slot: int,
+        name: str,
         calls: Sequence[tuple[torch.Tensor, torch.Tensor, float, float]],
     ) -> torch.Tensor:
-        """One layer's ``[g_pad, a_pad]`` scale contribution from its
-        calls' ``(a_rows, g_rows, a_norm, g_norm)``, projected in the
-        current basis of local slot ``slot``; a module called several
-        times contributes the mean over its calls.  The basis rows past
-        the layer's dims are sliced off, which equals zero-padding the
-        rows, so pure-pad directions get zero scale (their gradient is
-        zero too)."""
+        """Layer ``name``'s ``[g_pad, a_pad]`` scale contribution from
+        its calls' ``(a_rows, g_rows, a_norm, g_norm)``, projected in its
+        slot's current basis (any column's: on a grid with several
+        columns its row of the gathered ``basis_qa``/``basis_qg``; ``bs``
+        is its bucket's state); a module called several times contributes
+        the mean over its calls.  The basis rows past the layer's dims
+        are sliced off, which equals zero-padding the rows, so pure-pad
+        directions get zero scale (their gradient is zero too)."""
+        if bs.basis_qa is not None:
+            i = self._basis_slot[name]
+            qa, qg = bs.basis_qa[i], bs.basis_qg[i]
+        else:
+            _, slot = self.plan.slot_of[name]
+            qa, qg = bs.qa[slot], bs.qg[slot]
         contribs = [
             ops.ekfac_scale_contrib(
-                ar, gr, bs.qa[slot][:ar.shape[1]], bs.qg[slot][:gr.shape[1]],
+                ar, gr, qa[:ar.shape[1]], qg[:gr.shape[1]],
                 a_norm=an, g_norm=gn,
             )
             for ar, gr, an, gn in calls
@@ -814,9 +887,32 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
         the logical entries of occupied slots (a device scalar).  Padded
         dims are masked out: their seed is the identity pad's eigenvalue
         1 while their projections are zero, so they would read as drift.
+
+        Each rank sums its column's slots per bucket, the ``(num, den)``
+        pairs of every column are gathered over the grid row (a no-op on
+        a grid of one column), and every rank adds them in (bucket,
+        column) order: the same bits on every rank, so a drift-triggered
+        refresh is decided alike everywhere.
         """
+        parts = torch.stack(self._ekfac_drift_terms(buckets))
+        (every,) = collectives.all_gather_stacks(
+            [parts], self.grid.row_group,
+        )
+        every = every.view(self.grid.cols, *parts.shape)
         num = torch.zeros((), device=self.device)
         den = torch.zeros((), device=self.device)
+        for i in range(parts.shape[0]):
+            for c in range(self.grid.cols):
+                num = num + every[c, i, 0]
+                den = den + every[c, i, 1]
+        return torch.sqrt(num / (den + 1e-30))
+
+    def _ekfac_drift_terms(
+        self, buckets: Mapping[str, BucketSecond],
+    ) -> list[torch.Tensor]:
+        """Per bucket with scales, ``[sum ||S - seed||^2, sum ||seed||^2]``
+        over this rank's column slots (:meth:`ekfac_divergence`)."""
+        terms = []
         for b in self.plan.buckets:
             bs = buckets[b.key]
             if bs.skron is None:
@@ -841,9 +937,9 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
             seed = bs.dg.float()[:, :, None] * bs.da.float()[:, None, :]
             seed = seed * mask
             drift = bs.skron * mask - seed
-            num = num + torch.sum(drift * drift)
-            den = den + torch.sum(seed * seed)
-        return torch.sqrt(num / (den + 1e-30))
+            terms.append(torch.stack([torch.sum(drift * drift),
+                                      torch.sum(seed * seed)]))
+        return terms
 
     def memory_usage(self, buckets: Mapping[str, BucketSecond]) -> int:
         """Bytes of stacked second-order state on this rank: every field

@@ -87,7 +87,6 @@ from kfac_pytorch_tpu_torch.enums import DistributedStrategy
 from kfac_pytorch_tpu_torch.enums import resolve_grad_worker_fraction
 from kfac_pytorch_tpu_torch.ops import IterativeConfig
 from kfac_pytorch_tpu_torch.parallel.mesh import data_world
-from kfac_pytorch_tpu_torch.parallel.mesh import grid_shape
 
 
 def _unported(option: str, item: str) -> NotImplementedError:
@@ -174,10 +173,13 @@ MultiHeadDotProductAttention`; the ``nn.Linear`` inside
         ekfac: eigen only: EKFAC (:mod:`~kfac_pytorch_tpu_torch.ops.\
 ekfac`), the eigenbasis refreshed at the cadence and the scales
             re-estimated from each factor step's rows; linear and conv2d
-            layers only; exclusive with ``lowrank_rank``.  Across ranks
-            COMM-OPT only (``grid.cols == 1``): a grid with more columns
-            raises ``NotImplementedError`` (``ROADMAP.md`` Queue A item
-            10b).
+            layers only; exclusive with ``lowrank_rank``.  Runs on every
+            KAISA grid: with several columns each refresh also gathers
+            every column's eigenbases over the grid row, so a rank
+            projects the rows of every layer it captured
+            (:class:`~kfac_pytorch_tpu_torch.parallel.second_order.\
+BucketedSecondOrder`), and ``state_dict(include_ekfac_scales=True)``
+            gathers the scales (every rank calls it).
         adaptive_refresh: an :class:`~kfac_pytorch_tpu_torch.adaptive.\
 AdaptiveRefresh` that requests a refresh when the EKFAC scales drift
             (needs ``ekfac``).
@@ -446,18 +448,10 @@ make_pipeline_order`'s order (descending gather bytes), so the next
         self.grad_worker_fraction, self.distributed_strategy = (
             resolve_grad_worker_fraction(grad_worker_fraction, data_world())
         )
-        rows, cols = grid_shape(data_world(), self.grad_worker_fraction)
-        if ekfac and cols > 1:
-            raise NotImplementedError(
-                f'ekfac on a KAISA grid with {cols} columns ({rows}x{cols}) '
-                'is not ported to the PyTorch package yet: a rank holds '
-                "only its column's eigenbases, and the scale contributions "
-                'of the other columns\' layers need them (ROADMAP.md Queue '
-                'A item 10b); use COMM-OPT (grad_worker_fraction=1)',
-            )
         self.assignment_strategy = assignment_strategy
         self.colocate_factors = colocate_factors
         self.skip_layers = tuple(skip_layers)
+        wrapper = model
         if isinstance(model, nn.parallel.DistributedDataParallel):
             model = model.module
         capture = ModelCapture(
@@ -501,3 +495,5 @@ make_pipeline_order`'s order (descending gather bytes), so the next
             pipeline_grads=pipeline_grads,
             loglevel=loglevel,
         )
+        # The fused path's forward and backward go through the wrapper.
+        self._train_module = wrapper

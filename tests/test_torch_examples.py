@@ -15,6 +15,8 @@ the JAX package's.
   model raises.
 * ``bench.measure`` at ``device='cpu'`` on a tiny configuration gives
   finite positive times, and the result line carries ``bench.py``'s
+  keys; the ``micro_mlp``, ``inverse_root`` and
+  ``secondary_rn50_inverse`` stages at tiny sizes carry the JAX stages'
   keys.
 * Without a card and without ``--device cpu`` the trainers and the bench
   raise.
@@ -385,6 +387,55 @@ def test_bench_eigen_variants_on_the_cpu(name, monkeypatch):
     assert d[f'{name}_sgd_ms'] > 0 and d[f'{name}_kfac_ms_amortized'] > 0
     assert math.isfinite(d[f'{name}_ratio'])
     assert line['value'] is None
+
+
+def test_bench_micro_mlp_on_the_cpu(monkeypatch):
+    """The JAX bench's ``micro_mlp`` stage at a tiny size (the MLP cut
+    to widths 16, inv 2): the JAX stage's keys, finite times."""
+    monkeypatch.setattr(bench, 'MICRO_MLP', dict(
+        bench.MICRO_MLP, width=16, features=(16, 16, 10), batch=8,
+        factor_steps=1, inv_steps=2, sgd_iters=2, cycles=1))
+    d = bench.run(['micro_mlp'], 'cpu')['detail']['micro_mlp']
+    assert set(d) == {'config', 'sgd_ms', 'kfac_ms', 'ratio'}
+    assert d['sgd_ms'] > 0 and d['kfac_ms'] > 0
+    assert d['ratio'] == pytest.approx(d['kfac_ms'] / d['sgd_ms'])
+    assert bench.MICRO_MLP['factor_steps'] == 1
+    json.dumps(d)
+
+
+def test_bench_inverse_root_on_the_cpu():
+    """The JAX bench's ``inverse_root`` stage at two tiny stacks: the
+    JAX stage's keys, finite times, both Newton–Schulz roots within the
+    iteration's tolerance."""
+    d = bench.measure_inverse_root('cpu', shapes=((2, 8), (1, 16)),
+                                   iters=1)
+    assert set(d) == {'config', 'shapes', 'warm_vs_eigh_speedup_min',
+                      'warm_vs_eigh_speedup_max', 'tol'}
+    assert [s['shape'] for s in d['shapes']] == ['[2, 8, 8]',
+                                                  '[1, 16, 16]']
+    for s in d['shapes']:
+        assert set(s) == {'shape', 'eigh_ms', 'cholesky_ms', 'ns_cold_ms',
+                          'ns_warm_ms', 'ns_cold_res', 'ns_warm_res',
+                          'ns_warm_iters', 'ns_bootstrap_iters'}
+        assert all(s[k] > 0 for k in ('eigh_ms', 'cholesky_ms',
+                                      'ns_cold_ms', 'ns_warm_ms'))
+        assert s['ns_cold_res'] < d['tol'] and s['ns_warm_res'] < d['tol']
+    assert d['warm_vs_eigh_speedup_min'] <= d['warm_vs_eigh_speedup_max']
+    assert 'inverse_root' in bench.STAGES
+    json.dumps(d)
+
+
+def test_bench_secondary_rn50_inverse_on_the_cpu(monkeypatch):
+    """The JAX bench's ``secondary_rn50_inverse`` stage with the headline
+    cut to ResNet-20 at batch 4 on 16x16, inv 2: ``kfac_ms`` and no SGD
+    run."""
+    monkeypatch.setitem(bench.CONFIGS, 'resnet50', dict(
+        bench.CONFIGS['resnet50'], model='resnet20', batch=4, image=16,
+        classes=10, factor_steps=1, inv_steps=2))
+    d = bench.run(['secondary_rn50_inverse'], 'cpu')['detail'][
+        'secondary_rn50_inverse']
+    assert set(d) == {'config', 'kfac_ms'}
+    assert d['kfac_ms'] > 0 and "'inverse'" in d['config']
 
 
 # -- no card ---------------------------------------------------------------
