@@ -194,8 +194,8 @@ fails:
     on the side stream) beside phase 14's in-band ones;
 17. the pipelined gradient gather on ResNet-50 at world 4 on one card
     over gloo (phase 5's spawn), 8 images per rank: under HYBRID-OPT and
-    MEM-OPT, factor 10, inv 100, 11 steps with the synchronous tail and
-    11 with ``pipeline_grads=True`` (cuDNN deterministic): the pipelined
+    MEM-OPT, factor 10, inv 100, 7 steps with the synchronous tail and
+    7 with ``pipeline_grads=True`` (cuDNN deterministic): the pipelined
     run's preconditioned gradients and parameters bitwise the
     synchronous run's at every step, parameters bitwise equal across
     ranks, 21 launches a step on every rank, finite falling losses; the
@@ -205,13 +205,13 @@ fails:
     cadence and the pending decisions identical on every rank.  The
     kernels line's entry is timed at rank 0's HYBRID-OPT shard shapes.
 18. EKFAC across the grid on ResNet-50 at world 4 on one card over
-    gloo, 8 images per rank, factor 1, inv 4, 6 steps under COMM-OPT,
+    gloo, 8 images per rank, factor 1, inv 3, 4 steps under COMM-OPT,
     HYBRID-OPT and MEM-OPT (the last two stepped with COMM-OPT's
     preconditioned gradients, so all three see the same weights; cuDNN
     deterministic): the grids' losses and preconditioned gradients
     within 1e-4 of COMM-OPT's, ``ekfac_divergence`` bitwise on every
     rank, no fused-kernel launch, finite falling losses, and a
-    state-dict round trip at ``cols > 1`` (saved before step 5)
+    state-dict round trip at ``cols > 1`` (saved before step 1)
     resuming bitwise.  Prints the counted bytes of the three designs of
     EKFAC with several columns at both grids and the second-order bytes
     a rank holds;
@@ -223,7 +223,30 @@ fails:
     (losses, damping, ``rho``, ``vg_sum``, parameters and BatchNorm
     buffers), 21 launches a step, finite falling losses, the damping
     moved.  Prints the damping and ``rho`` sequences and the loss-only
-    forward's device time as a share of the step.
+    forward's device time as a share of the step;
+20. the numerical-health guardrails on ResNet-50 with phase 9's batch,
+    factor 1, inv 3, ``train_loop`` with SGD momentum: ``HealthConfig()``
+    bitwise the guardrails off over 6 steps, then a NaN pixel at step 7
+    skipped (parameters, momentum, BatchNorm buffers and factor EMAs
+    bitwise unchanged, ``vg_sum`` 0); an injection run (inv 2) that
+    fails two slots (one of ``a576g64``'s three, the one of
+    ``a2176g1024``): the first attempt only (retries, no fallback), with
+    one layer's factors poisoned (``factor_resets`` 2), then every
+    attempt (a fallback, then quarantine after 2 refreshes); the
+    quarantined slots' gradients their raw gradients bitwise behind the
+    fused kernel; 21 launches a step.  Prints the median step health on
+    and off and the host reads a step and a refresh;
+21. the cross-replica consistency guard on ResNet-50 at world 4 on one
+    card over gloo, HYBRID-OPT, 8 images per rank, frozen weights,
+    ``ConsistencyConfig(cadence=2, quarantine_after=2)``, 13 steps: one
+    flipped bit of rank 1's factor EMA and of rank 2's ``qa`` slot
+    counted exactly and repaired (a follow-up check clean) with the
+    bootstrap flags down; the slot flipped again quarantined on the
+    ranks of its grid column; one rank's drifted damping counted, not
+    repaired; ``repair='detect'`` counting and leaving the divergence;
+    the same counters on every rank; the sharded kernel 21 times a
+    step.  Prints the check step's extra time over a plain step and the
+    bytes each check gathers.
 
 Then the bench's ``micro_mlp``, ``inverse_root`` and
 ``secondary_rn50_inverse`` stages run once (the K-FAC ones at inv 20,
@@ -2707,7 +2730,7 @@ def recorded_steps(precond, actions):
 def step_spread(step_s):
     """``(p50, p95, max)`` in ms of host-clock step times (linear
     interpolation, as the bench's percentile)."""
-    from kfac_pytorch_tpu_torch.bench import percentile
+    from kfac_pytorch_tpu_torch.tracing import percentile
 
     ordered = sorted(t * 1e3 for t in step_s)
     return (percentile(ordered, 0.5), percentile(ordered, 0.95),
@@ -3437,10 +3460,11 @@ def phase_resnet50_overlap(torch, kt):
 #: with ``pipeline_grads=True`` under each strategy; then one pass of
 #: ``RN50_PIPE_OVERLAP_STEPS`` steps with ``overlap_comm`` and
 #: ``pipeline_grads`` together under HYBRID-OPT at factor 5, inv 5 (the
-#: refresh due at 5 installed at 6).  The steps are cut (11: the factor
-#: steps 0 and 10; the overlap pass to 7, factor steps every fifth) to
-#: keep the phase near a minute and a half; the widths are ResNet-50's.
-RN50_PIPE_STEPS = 11
+#: refresh due at 5 installed at 6).  The steps are cut (7, from 11 when
+#: phases 20 and 21 came: the factor step 0 and six steps on its
+#: factors; the overlap pass to 7, factor steps every fifth) to keep the
+#: phase near a minute; the widths are ResNet-50's.
+RN50_PIPE_STEPS = 7
 RN50_PIPE_OVERLAP_STEPS = 7
 RN50_PIPE_STRATEGIES = ('HYBRID_OPT', 'MEM_OPT')
 RN50_PIPE_OVERLAP_HP = dict(RN50_HP, factor_update_steps=5,
@@ -3691,15 +3715,16 @@ def phase_resnet50_pipelined(torch, kt):
 
 
 #: Phase 18: EKFAC across the grid (ROADMAP item 10b), ResNet-50 at
-#: world 4 on one card over gloo, 8 images a rank, factor 1, inv 4 (cut
-#: from inv 5 and 8 steps for time); the round trip saves before step
-#: ``RN50_GRID_SAVE`` and resumes the last five steps, across the
-#: refresh of step 4.  The save follows the refresh of step 0: a state
-#: dict carries the factors, not the bases, and the restore recomputes
-#: the bases from them, which gives the saved run's bits only while the
-#: factors are those the last refresh decomposed.
-RN50_GRID_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=4)
-RN50_GRID_STEPS = 6
+#: world 4 on one card over gloo, 8 images a rank, factor 1, inv 3 (cut
+#: from inv 5 and 8 steps, then from inv 4 and 6 steps, for time); the
+#: round trip saves before step ``RN50_GRID_SAVE`` and resumes the last
+#: three steps, across the refresh of step 3.  The save follows the
+#: refresh of step 0: a state dict carries the factors, not the bases,
+#: and the restore recomputes the bases from them, which gives the saved
+#: run's bits only while the factors are those the last refresh
+#: decomposed.
+RN50_GRID_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=3)
+RN50_GRID_STEPS = 4
 RN50_GRID_SAVE = 1
 RN50_GRID_STRATEGIES = ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT')
 #: The EKFAC trajectory tolerance (``tests/test_torch_ekfac.py``).
@@ -3960,7 +3985,7 @@ def phase_resnet50_ekfac_grid(torch, kt):
     model) within ``RN50_GRID_TOL`` of COMM-OPT's, ``ekfac_divergence``
     bitwise equal on all four ranks at every step, no fused-kernel
     launch, finite falling losses, and the state-dict round trip (saved
-    before step ``RN50_GRID_SAVE``, resumed across the refresh of step 4)
+    before step ``RN50_GRID_SAVE``, resumed across the refresh of step 3)
     resuming bitwise.  The losses are held to the same bar, but under
     this feeding the weights, and so the losses, equal COMM-OPT's by
     construction: that gate only shows the feeding took (it reads 0).  Prints the three designs'
@@ -4187,6 +4212,496 @@ def phase_resnet50_fused(torch, kt):
           f'{statistics.median(runs["train_loop"]["step_ms"][1:]):.4f} ms',
           flush=True)
     return launches
+
+
+#: Phase 20: the numerical-health guardrails on ResNet-50 (phase 9's
+#: batch), a factor update every step so that the bad batch meets a
+#: factor update, refreshes every 3 steps (every 2 in the injection run):
+#: cut from phase 9's cadence to fit its budget.  The injection run fails
+#: two slots: one of a bucket with three slots (``a576g64``) and the one
+#: slot of a wide bucket (``a2176g1024``).
+RN50_HEALTH_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=3)
+RN50_HEALTH_STEPS = 6   # the health-off and health-on runs compared
+RN50_HEALTH_NAN = 7     # the bad batch of the health-on run
+RN50_HEALTH_INJECT = (('a576g64', 1), ('a2176g1024', 0))
+RN50_HEALTH_Q_AFTER = 2
+#: ``(model, classes)`` of phase 20 (a CPU rehearsal takes a smaller one,
+#: with its own ``RN50_HEALTH_INJECT``).
+HEALTH_MODEL = ('resnet50', 1000)
+
+
+def health_model(torch, kt):
+    """Phase 20's model and its batch (phase 9's, labels within the
+    model's classes)."""
+    name, classes = HEALTH_MODEL
+    model = getattr(kt.models, name)(num_classes=classes, device=DEVICE,
+                                     seed=0)
+    x, y = rn50_batch(torch)
+    return model, x, y % classes
+
+
+def rn50_health_run(torch, kt, health, steps, nan_at=None):
+    """``steps`` steps of ResNet-50 through ``train_loop`` (SGD momentum
+    0.9) from phase 9's weights and batch; ``nan_at`` plants one NaN
+    pixel in that step's batch and checks what the step must leave
+    alone.  Returns losses, parameters, step times, launches and the
+    health counters."""
+    import torch.nn.functional as F
+
+    model, x, y = health_model(torch, kt)
+    precond = kt.KFACPreconditioner(model, health=health, **RN50_HEALTH_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=RN50_HEALTH_HP['lr'],
+                          momentum=0.9)
+    loop = precond.train_loop(opt, F.cross_entropy)
+    out = dict(losses=[], step_ms=[], syncs=[], nan={})
+    kt.ops.fused_eigen_precondition.launches = 0
+    for t in range(steps):
+        xb = x
+        if t == nan_at:
+            xb = x.clone()
+            xb[0, 0, 0, 0] = float('nan')
+            before = dict(
+                params=[p.detach().clone() for p in model.parameters()],
+                momentum=[s['momentum_buffer'].clone()
+                          for s in opt.state.values()],
+                buffers=[b.clone() for b in model.buffers()],
+                factors=[t.clone() for st in precond.layers.values()
+                         for t in (st.a_factor, st.g_factor)])
+        syncs = precond.health_host_syncs
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        s.record()
+        loss, _ = loop.step(xb, loss_args=(y,))
+        e.record()
+        e.synchronize()
+        out['step_ms'].append(s.elapsed_time(e))
+        out['syncs'].append(precond.health_host_syncs - syncs)
+        out['losses'].append(float(loss))
+        if t == nan_at:
+            after = dict(
+                params=list(model.parameters()),
+                momentum=[s['momentum_buffer'] for s in opt.state.values()],
+                buffers=list(model.buffers()),
+                factors=[t for st in precond.layers.values()
+                         for t in (st.a_factor, st.g_factor)])
+            out['nan'] = {k: all(torch.equal(a, b) for a, b in
+                                 zip(before[k], after[k])) for k in before}
+            out['nan']['vg_sum'] = float(precond.last_step_info['vg_sum'])
+            out['nan']['info'] = {
+                k: int(v) for k, v in precond.last_step_info.items()
+                if k.startswith('health/')}
+    torch.cuda.synchronize()
+    out['launches'] = kt.ops.fused_eigen_precondition.launches
+    out['buckets'] = kernel_buckets(precond)
+    out['params'] = torch.cat([p.detach().reshape(-1)
+                               for p in model.parameters()])
+    out['info'] = {k: int(v) for k, v in precond.last_step_info.items()
+                   if k.startswith('health/')} if health else {}
+    del loop, opt, precond, model
+    gc.collect()
+    return out
+
+
+def rn50_health_injection(torch, kt):
+    """The injection run: refreshes at 0, 2, 4 and 6 (inv 2) through
+    ``step()``.  The first refresh is clean; before step 2 both slots'
+    first attempt is made to fail and one layer's factors are poisoned;
+    before steps 4 and 6 every attempt fails.  Returns the counters after
+    each refresh step, the launches, and the step-6 checks of the
+    quarantined slots."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    model, x, y = health_model(torch, kt)
+    cfg = kt.HealthConfig(quarantine_after=RN50_HEALTH_Q_AFTER)
+    precond = kt.KFACPreconditioner(
+        model, health=cfg, **dict(RN50_HEALTH_HP, inv_update_steps=2))
+    opt = torch.optim.SGD(model.parameters(), lr=RN50_HEALTH_HP['lr'],
+                          momentum=0.9)
+    slot_of = {v: k for k, v in precond.plan.slot_of.items()}
+    names = [slot_of[s] for s in RN50_HEALTH_INJECT]
+    poisoned = next(n for n in sorted(precond.helpers) if n not in names)
+
+    def inject(attempts):
+        # The test harness's knob: the injection of the next refreshes
+        # (the configuration is frozen; both holders take the new one).
+        new = dataclasses.replace(
+            cfg, inject_eigh_failures=attempts,
+            inject_eigh_layers=RN50_HEALTH_INJECT)
+        precond.health = new
+        precond._second_order.health = new
+
+    out = dict(info={}, syncs={}, check={})
+    launches = 0
+    for t in range(7):
+        if t == 2:
+            inject(1)
+            kt.testing.poison_factors(precond, poisoned)
+        elif t == 4:
+            inject(cfg.max_eigh_retries + 1)
+        opt.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+        raw = {n: precond.helpers[n].get_grad().clone() for n in names}
+        syncs = precond.health_host_syncs
+        kt.ops.fused_eigen_precondition.launches = 0
+        precond.step()
+        launches += kt.ops.fused_eigen_precondition.launches
+        out['syncs'][t] = precond.health_host_syncs - syncs
+        out['info'][t] = {k: int(v) for k, v in
+                          precond.last_step_info.items()
+                          if k.startswith('health/')}
+        if t == 6:
+            scale = precond.last_kl_scale
+            out['check']['raw_bitwise'] = all(
+                torch.equal(precond.helpers[n].get_grad(),
+                            (raw[n].float() * scale).to(raw[n].dtype))
+                for n in names)
+            out['check']['masks'] = {
+                k: precond.buckets[k].quarantined.tolist()
+                for k, _ in RN50_HEALTH_INJECT}
+            # The other slots of the quarantined buckets against the
+            # same state preconditioned without the masks (kl-clip off,
+            # so no global scale couples the slots).
+            combined = {n: h.get_grad() for n, h in precond.helpers.items()}
+            so = precond._second_order
+            quarantined, _ = so.precondition(
+                precond.buckets, combined, precond.damping, None,
+                precond.lr)
+            clear = {k: dataclasses.replace(
+                bs, quarantined=torch.zeros_like(bs.quarantined))
+                for k, bs in precond.buckets.items()}
+            plain, _ = so.precondition(clear, combined, precond.damping,
+                                       None, precond.lr)
+            err = 0.0
+            for key, slot in RN50_HEALTH_INJECT:
+                for i, n in enumerate(precond.plan.bucket(key).slots):
+                    if n is None or i == slot:
+                        continue
+                    err = max(err, rel_frob(quarantined[n], plain[n]))
+            out['check']['others_err'] = err
+        opt.step()
+    torch.cuda.synchronize()
+    out['launches'] = launches
+    out['names'] = names
+    del opt, precond, model
+    gc.collect()
+    return out
+
+
+def phase_resnet50_health(torch, kt):
+    """Phase 20: ``health=HealthConfig()`` on ResNet-50 (budget 30 s).
+    Gates: the health-on run bitwise the health-off run over
+    ``RN50_HEALTH_STEPS`` steps (losses and final parameters); the NaN
+    batch of step ``RN50_HEALTH_NAN`` skipped (``steps_skipped`` 1,
+    ``step_ok`` 0, ``vg_sum`` 0; parameters, momentum, BatchNorm buffers
+    and factor EMAs bitwise unchanged) and the next step finite; in the
+    injection run the first failed attempt recovered by a retry with no
+    fallback, the poisoned layer's two factors reset (``factor_resets``
+    2), then every attempt failing: a fallback at the first such refresh
+    and both slots quarantined at the second; the quarantined slots'
+    gradients their raw gradients bitwise (times the kl-clip scale), the
+    other slots of their buckets within 1e-5 of the same state
+    preconditioned without the masks; 21 kernel launches a step in every
+    run.  Prints the median step health on and off and the host reads a
+    step and a refresh."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        off = rn50_health_run(torch, kt, None, RN50_HEALTH_STEPS)
+        on = rn50_health_run(torch, kt, kt.HealthConfig(),
+                             RN50_HEALTH_NAN + 2, nan_at=RN50_HEALTH_NAN)
+        inj = rn50_health_injection(torch, kt)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    per_step = off['buckets'] if DEVICE == 'cuda' else 0
+    if DEVICE == 'cuda' and HEALTH_MODEL[0] == 'resnet50' and per_step != 21:
+        fail(f'resnet50 health: {per_step} buckets keep dgda, not 21')
+    for label, run, steps in (('off', off, RN50_HEALTH_STEPS),
+                              ('on', on, RN50_HEALTH_NAN + 2),
+                              ('injection', inj, 7)):
+        if run['launches'] != steps * per_step:
+            fail(f'resnet50 health {label}: {run["launches"]} launches, '
+                 f'expected {steps * per_step}')
+    n = RN50_HEALTH_STEPS
+    if on['losses'][:n] != off['losses']:
+        fail(f'resnet50 health: the health-on losses {on["losses"][:n]} '
+             f'differ from the health-off run\'s {off["losses"]}')
+    if not all(map(math.isfinite, off['losses'])) or not (
+            off['losses'][-1] < off['losses'][0]):
+        fail(f'resnet50 health: losses {off["losses"]}')
+    nan = on['nan']
+    info = nan['info']
+    if not (all(nan[k] for k in ('params', 'momentum', 'buffers', 'factors'))
+            and nan['vg_sum'] == 0.0 and info['health/steps_skipped'] == 1
+            and info['health/step_ok'] == 0):
+        fail(f'resnet50 health: the NaN batch was not skipped cleanly: '
+             f'{nan}')
+    if not (math.isfinite(on['losses'][-1])
+            and on['info']['health/step_ok'] == 1):
+        fail(f'resnet50 health: the step after the NaN batch: '
+             f'{on["losses"][-1]}, {on["info"]}')
+    i2, i4, i6 = inj['info'][2], inj['info'][4], inj['info'][6]
+    if not (inj['info'][0]['health/eigh_retries'] == 0
+            and i2['health/eigh_retries'] == 2
+            and i2['health/eigh_fallbacks'] == 0
+            and i2['health/factor_resets'] == 2
+            and i4['health/eigh_fallbacks'] == 2
+            and i4['health/quarantined_layers'] == 0
+            and i6['health/eigh_fallbacks'] == 4
+            and i6['health/quarantined_layers'] == 2):
+        fail(f'resnet50 health injection: counters {inj["info"]}')
+    check = inj['check']
+    masks = [check['masks'][k][s] for k, s in RN50_HEALTH_INJECT]
+    if not (all(masks) and check['raw_bitwise']
+            and check['others_err'] <= 1e-5):
+        fail(f'resnet50 health injection: the quarantined slots: {check}')
+    off_ms = statistics.median(
+        t for i, t in enumerate(off['step_ms']) if i % 3)
+    on_ms = statistics.median(
+        t for i, t in enumerate(on['step_ms'][:n]) if i % 3)
+    refresh_syncs = sorted({on['syncs'][i] for i in range(0, n, 3)})
+    print(f'resnet50 health: health on bitwise health off over {n} steps '
+          f'(losses and final parameters, factor 1, inv 3, train_loop with '
+          f'SGD momentum); {per_step} launches a step in every run; the NaN '
+          f'pixel at step {RN50_HEALTH_NAN} skipped: parameters, momentum, '
+          f'BatchNorm buffers and factor EMAs bitwise unchanged, vg_sum 0, '
+          f'counters {info}; median non-refresh step (CUDA events) health '
+          f'off {off_ms:.4f} ms, on {on_ms:.4f} ms (on/off '
+          f'{on_ms / off_ms:.4f}); host reads a non-refresh step '
+          f'{sorted(set(on["syncs"][i] for i in range(n) if i % 3))}, a '
+          f'refresh step {refresh_syncs}', flush=True)
+    print(f'resnet50 health injection (inv 2, slots {RN50_HEALTH_INJECT} = '
+          f'{inj["names"]}, quarantine_after {RN50_HEALTH_Q_AFTER}): '
+          f'counters after the refreshes at 0, 2, 4, 6: '
+          + json.dumps({t: inj['info'][t] for t in (0, 2, 4, 6)})
+          + f'; host reads at those steps '
+          f'{[inj["syncs"][t] for t in (0, 2, 4, 6)]}; quarantined slots '
+          f'bitwise their raw gradients times the kl-clip scale; the other '
+          f'slots of their buckets against the unmasked state max relative '
+          f'Frobenius {check["others_err"]:.3e}', flush=True)
+    return on['launches'] + off['launches'] + inj['launches']
+
+
+#: Phase 21: the cross-replica consistency guard at world 4 on one card
+#: over gloo, HYBRID-OPT (2x2), ResNet-50 with 8 images a rank on frozen
+#: weights (no optimizer step, so a corrupted rank's gradients cannot
+#: move the model), cadence 2, one factor update and one refresh at
+#: step 0 (factor and inv 100: the checks, not the refresh, are timed).
+RN50_CONS_HP = dict(RN50_HP, factor_update_steps=100, inv_update_steps=100)
+RN50_CONS_STEPS = 13
+RN50_CONS_Q_AFTER = 2
+RN50_CONS_TIMEOUT_S = 300
+#: ``(model, classes)`` of phase 21 (a CPU rehearsal takes a smaller one).
+CONS_MODEL = ('resnet50', 1000)
+#: The bucket whose first slot of grid column 0 rank 2 corrupts.
+CONS_FLIP_KEY = 'a576g64'
+
+
+def consistency_rank(rank, world, backend, device_type, workdir, image,
+                     batch, model_name):
+    """One rank of phase 21; writes ``cons{rank}.pt`` to ``workdir``.
+    Checks at even steps; the faults (rank 1 flips a bit of the first
+    layer's A factor, rank 2 of the first slot of its column of
+    ``CONS_FLIP_KEY``'s ``qa``): both before step 4, the slot again
+    before step 6 (two consecutive strikes: quarantine), nothing before
+    8, rank 3's damping drifted for step 10, then ``repair='detect'``
+    with rank 1's flip before step 12.  After every check one more check
+    of the final state counts what is left."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+
+    if device_type == 'cuda':
+        dev = torch.device(
+            'cuda',
+            rank % torch.cuda.device_count() if backend == 'nccl' else 0,
+        )
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        dev = torch.device('cpu')
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=240),
+    )
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn(batch, 3, image, image, generator=gen, device=dev)
+    y = torch.randint(0, model_name[1], (batch,), generator=gen, device=dev)
+    q = batch // world
+    xl, yl = x[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
+    model = getattr(kt.models, model_name[0])(device=dev, seed=0)
+    ddp = torch.nn.parallel.DistributedDataParallel(
+        model, device_ids=None if dev.index is None else [dev.index])
+    cfg = kt.ConsistencyConfig(cadence=2, quarantine_after=RN50_CONS_Q_AFTER)
+    precond = kt.KFACPreconditioner(
+        ddp, grad_worker_fraction=kt.DistributedStrategy.HYBRID_OPT,
+        consistency=cfg, **RN50_CONS_HP)
+    first = sorted(precond.layers)[0]
+    seg = precond.plan.bucket(CONS_FLIP_KEY).seg
+
+    def flip_layer():
+        st = precond.layers[first]
+        st.a_factor = kt.testing.desync_replica(st.a_factor, 1)
+
+    def flip_slot():
+        kt.testing.desync_slot(precond, CONS_FLIP_KEY, 0, 'qa', replica=2)
+
+    def sync():
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+
+    fused = kt.ops.fused_eigen_precondition
+    fused.launches = 0
+    rec = dict(info={}, after={}, flags={}, step_ms=[], masks={},
+               check_ms={})
+    for t in range(RN50_CONS_STEPS):
+        if t == 4:
+            flip_layer()
+            flip_slot()
+        elif t == 6:
+            flip_slot()
+        elif t in (10, 11) and rank == 3:
+            precond._damping = RN50_CONS_HP['damping'] * (
+                1.01 if t == 10 else 1.0)
+        elif t == 12:
+            precond._consistency = dataclasses.replace(cfg, repair='detect')
+            flip_layer()
+        sync()
+        t0 = time.perf_counter()
+        ddp.zero_grad()
+        F.cross_entropy(ddp(xl), yl).backward()
+        precond.step()
+        sync()
+        rec['step_ms'].append((time.perf_counter() - t0) * 1e3)
+        info = precond.last_step_info
+        if t % 2 == 0:
+            rec['info'][t] = {k: int(v) for k, v in info.items()
+                              if k.startswith('consistency/')
+                              and not k.startswith('consistency/bucket/')}
+            rec['flags'][t] = (precond._stagger_bootstrapped,
+                               precond._iter_bootstrapped,
+                               precond._overlap_bootstrapped)
+            rec['masks'][t] = precond.buckets[CONS_FLIP_KEY].quarantined[
+                :seg].tolist()
+            rec['bytes'] = precond.last_consistency_check.gathered_bytes
+            # One more check of the final state: clean after a repair,
+            # still divergent after a detect-only check.
+            fused_before = fused.launches
+            sync()
+            t0 = time.perf_counter()
+            again = precond._consistency_check({
+                'damping': precond.damping,
+                'factor_decay': precond.factor_decay,
+                'kl_clip': precond.kl_clip, 'lr': precond.lr})
+            rec['check_ms'][t] = (time.perf_counter() - t0) * 1e3
+            rec['after'][t] = int(again.info()['consistency/mismatches'])
+            fused.launches = fused_before
+    sync()
+    rec['launches'] = fused.launches
+    rec['buckets'] = kernel_buckets(precond)
+    rec['grid'] = (precond.grid.rows, precond.grid.cols)
+    rec['col'] = precond.grid.col
+    torch.save(rec, os.path.join(workdir, f'cons{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_resnet50_consistency(torch, kt):
+    """Phase 21: four ranks of :func:`consistency_rank` (budget 45 s).
+    Gates on every rank, all reading the same counters: the checks at 0
+    and 2 clean; at 4 exactly one layer and one slot mismatching,
+    repaired (the follow-up check clean) and the next refresh forced to
+    a bootstrap (the three flags down); at 6 the slot again (strike 2 =
+    ``quarantine_after``): quarantined on the two ranks of grid column 0,
+    still at 8 (clean); at 10 an ``hp`` mismatch counted and nothing
+    repaired; at 12 under ``repair='detect'`` the layer counted and left
+    divergent (the follow-up check still counts it); the sharded kernel
+    launched 21 times a step on every rank.  Prints the check step's
+    extra time over a plain step and the bytes each check gathered."""
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    world = KAISA_WORLD
+    backend = default_backend(world) if DEVICE == 'cuda' else 'gloo'
+    ranks = spawn_ranks(torch, consistency_rank, world, backend,
+                        (RN50_IMAGE, RN50_BATCH, CONS_MODEL),
+                        RN50_CONS_TIMEOUT_S, 'resnet50 consistency', 'cons')
+    label = 'resnet50 consistency'
+    per_step = ranks[0]['buckets'] if DEVICE == 'cuda' else 0
+    if DEVICE == 'cuda' and CONS_MODEL[0] == 'resnet50' and per_step != 21:
+        fail(f'{label}: {per_step} buckets keep dgda, not 21')
+    ref = ranks[0]['info']
+    for i, r in enumerate(ranks):
+        if r['info'] != ref:
+            fail(f'{label}: rank {i} counters {r["info"]} differ from rank '
+                 f'0\'s {ref}')
+        if r['launches'] != RN50_CONS_STEPS * per_step:
+            fail(f'{label} rank {i}: {r["launches"]} launches, expected '
+                 f'{RN50_CONS_STEPS * per_step}')
+        if r['grid'] != (2, 2):
+            fail(f'{label} rank {i}: grid {r["grid"]}')
+        after = r['after']
+        if after != {0: 0, 2: 0, 4: 0, 6: 0, 8: 0, 10: 1, 12: 1}:
+            fail(f'{label} rank {i}: follow-up check mismatches {after}')
+        if r['flags'][4] != (False, False, False) or r['flags'][2] != (
+                True, True, True):
+            fail(f'{label} rank {i}: the bootstrap flags {r["flags"]}')
+        n = len(r['masks'][6])
+        want_mask = ([True] + [False] * (n - 1) if r['col'] == 0
+                     else [False] * n)
+        if r['masks'][4] != [False] * n or r['masks'][6] != want_mask or (
+                r['masks'][8] != want_mask):
+            fail(f'{label} rank {i}: quarantine masks {r["masks"]}')
+    c = {t: ref[t] for t in ref}
+    ok = (
+        c[0]['consistency/mismatches'] == 0
+        and c[2]['consistency/mismatches'] == 0
+        and c[4]['consistency/layer_mismatches'] == 1
+        and c[4]['consistency/bucket_mismatches'] == 1
+        and c[4]['consistency/mismatches'] == 2
+        and c[4]['consistency/repairs_total'] == 1
+        and c[4]['consistency/strikes_max'] == 1
+        and c[6]['consistency/layer_mismatches'] == 0
+        and c[6]['consistency/bucket_mismatches'] == 1
+        and c[6]['consistency/strikes_max'] == 2
+        and c[6]['consistency/quarantines_total'] == 1
+        and c[8]['consistency/mismatches'] == 0
+        and c[8]['consistency/strikes_max'] == 0
+        and c[10]['consistency/hp_mismatches'] == 1
+        and c[10]['consistency/mismatches'] == 1
+        and c[10]['consistency/repairs_total'] == 2
+        and c[12]['consistency/layer_mismatches'] == 1
+        and c[12]['consistency/mismatches'] == 1
+        and c[12]['consistency/repairs_total'] == 2
+        and c[12]['consistency/detections_total'] == 4
+        and c[12]['consistency/checks_total'] == 7
+    )
+    if not ok:
+        fail(f'{label}: counters {c}')
+    plain = statistics.median(t for r in ranks
+                              for s, t in enumerate(r['step_ms'])
+                              if s % 2 and s > 1)
+    check = statistics.median(r['step_ms'][2] for r in ranks)
+    alone = statistics.median(r['check_ms'][t] for r in ranks
+                              for t in (2, 4, 6, 8))
+    print(f'{label}: world {world}, backend {backend}, grid 2x2, batch '
+          f'{RN50_BATCH // world} per rank at {RN50_IMAGE}x{RN50_IMAGE}, '
+          f'frozen weights, cadence 2, quarantine_after {RN50_CONS_Q_AFTER}; '
+          f'the same counters on every rank: '
+          + json.dumps({t: c[t] for t in (4, 6, 10, 12)})
+          + f'; {per_step} sharded launches a step on every rank; the clean '
+          f'check step 2 {check:.4f} ms against the median plain step '
+          f'{plain:.4f} ms (extra {check - plain:.4f} ms; host clock around '
+          f'a synchronized step, one shared card); a check by itself (the '
+          f'follow-up checks of steps 2-8, synchronized before and after, '
+          f'median over ranks) {alone:.4f} ms; each check gathered '
+          f'{ranks[0]["bytes"]} bytes into every rank', flush=True)
+    return sum(r['launches'] for r in ranks)
 
 
 #: The three JAX bench stages of ``bench.py`` item 6, cut in steps (the
@@ -4470,6 +4985,19 @@ def main() -> int:
         launches=phase('19 resnet50 fused', phase_resnet50_fused, torch,
                        kt),
     )
+    rn50_health = dict(
+        rn50, name='fused_eigen_precondition, ResNet-50 buckets, health '
+        'guardrails: a NaN batch, injected eigh failures, quarantined slots '
+        '(phase 20)',
+        launches=phase('20 resnet50 health', phase_resnet50_health, torch,
+                       kt),
+    )
+    rn50_consistency = dict(
+        rn50_pipelined, name='fused_eigen_precondition_sharded, ResNet-50 '
+        'at world 4, the cross-replica consistency guard (phase 21)',
+        launches=phase('21 resnet50 consistency', phase_resnet50_consistency,
+                       torch, kt),
+    )
     phase('bench stages', phase_bench_stages, torch, kt)
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
@@ -4478,7 +5006,8 @@ def main() -> int:
     print(json.dumps({'kernels': [entry, sharded, gpt, rn50, vit, bert,
                                   rn50_lr, rn50_stagger, rn50_adaptive,
                                   rn50_overlap, rn50_pipelined,
-                                  rn50_fused]}),
+                                  rn50_fused, rn50_health,
+                                  rn50_consistency]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

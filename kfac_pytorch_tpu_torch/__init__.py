@@ -25,18 +25,26 @@ several steps, optionally choosing shards by drift
 compresses the factor all-reduce; ``bucketed=False`` runs the
 replicated per-layer engine; ``state_dict``/``load_state_dict``
 checkpoint and resume, and :class:`LambdaParamScheduler` schedules the
-hyperparameters.  The models are the CIFAR ResNets, the ImageNet
+hyperparameters.  ``health=HealthConfig(...)`` turns on the
+numerical-health guardrails (step-skip, decomposition retries, fallback
+and quarantine, factor self-healing) and ``consistency=
+ConsistencyConfig(...)`` the cross-replica consistency guard;
+``testing`` holds their fault injectors and ``tracing`` the event tally.  The models are the CIFAR ResNets, the ImageNet
 ResNets and the GPT; ``examples/`` holds the CIFAR and ImageNet
 trainers and ``bench`` the K-FAC/SGD step-time bench.  ``ROADMAP.md``
 lists what is not ported yet.
 """
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch import ops
+from kfac_pytorch_tpu_torch import testing
+from kfac_pytorch_tpu_torch import tracing
 from kfac_pytorch_tpu_torch.adaptive import AdaptiveDamping
 from kfac_pytorch_tpu_torch.adaptive import AdaptiveRefresh
+from kfac_pytorch_tpu_torch.consistency import ConsistencyConfig
 from kfac_pytorch_tpu_torch.enums import AssignmentStrategy
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.enums import DistributedStrategy
+from kfac_pytorch_tpu_torch.health import HealthConfig
 from kfac_pytorch_tpu_torch.ops import IterativeConfig
 from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig

@@ -78,15 +78,31 @@ the next step; ``pipeline_grads`` issues each bucket's gradient gather
 as soon as the bucket is rotated (``BucketedSecondOrder.precondition``).
 Both need the bucketed stage; ``overlap_comm`` excludes ``lowrank_rank``
 and ``ekfac`` (JAX ``base_preconditioner.py:293-336``).
+
+``health`` (:mod:`~kfac_pytorch_tpu_torch.health`) gates every factor
+update on a finiteness verdict over the step's gradients (and the loss
+on the fused path with one rank) and the factor means after the factor
+all-reduce, the same tensors on every rank, so every rank reaches the
+same verdict; a bad step leaves the EMAs bitwise, zeroes the gradients
+before the precondition and counts the skip.  At refresh time a
+non-finite EMA is reset to its identity seed, and the decompositions run
+under bounded retries with fallback and quarantine
+(``BucketedSecondOrder.compute``; a diagonal-A layer falls back to its
+last good ``G`` decomposition, or to the identity).  ``consistency``
+(:mod:`~kfac_pytorch_tpu_torch.consistency`) digests and compares the
+replicated state at its cadence (the engine walks the ladder).
 """
 from __future__ import annotations
 
 import logging
 from typing import Any
 
+import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch import adaptive as adaptive_lib
+from kfac_pytorch_tpu_torch import consistency as consistency_lib
+from kfac_pytorch_tpu_torch import health as health_lib
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.capture import ModelCapture
 from kfac_pytorch_tpu_torch.engine import KFACEngineMixin
@@ -194,6 +210,8 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         factor_comm: str | None = None,
         overlap_comm: bool = False,
         pipeline_grads: bool = False,
+        health: health_lib.HealthConfig | None = None,
+        consistency: consistency_lib.ConsistencyConfig | None = None,
         loglevel: int = logging.DEBUG,
     ) -> None:
         if accumulation_steps < 1:
@@ -313,12 +331,18 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
                 lowrank_oversample=lowrank_oversample,
                 lowrank_power_iters=lowrank_power_iters, ekfac=ekfac,
                 stagger=self.stagger, pipeline_grads=pipeline_grads,
+                health=health, quarantine_masks=consistency is not None,
             )
             self.iterative_config = self._second_order.iterative
             self.buckets = self._second_order.init_buckets()
             if adaptive is not None:
                 controller = self._adaptive_controller_for(adaptive)
         self.last_kl_scale: torch.Tensor | None = None
+        #: The health knobs (``None``: the guardrails are off) and their
+        #: device counters.
+        self.health = health
+        self._health = (health_lib.init_health_state(self.device)
+                        if health is not None else None)
         # The fused path's forward module (the front end puts a
         # DistributedDataParallel wrapper here), and the parameters
         # outside every registered layer, which join vg_sum as |g|^2.
@@ -338,6 +362,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             stagger_refresh=stagger_refresh,
             adaptive_controller=controller,
             overlap_comm=overlap_comm,
+            consistency=consistency,
         )
         # The side stream of the deferred refresh, made at its first use.
         self._side_stream = None
@@ -483,7 +508,9 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         )
 
     @torch.no_grad()
-    def _update_factors(self, first_update: bool) -> None:
+    def _update_factors(
+        self, first_update: bool, loss: torch.Tensor | None = None,
+    ) -> torch.Tensor | None:
         """Fold the step's statistics into the factor EMAs: the last
         captured pass first, then each layer's mean over its
         micro-batches.  Across ranks the means are averaged over the
@@ -493,6 +520,13 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         :meth:`reset_batch`) keeps its EMA.  Under EKFAC the layers'
         mean scale contributions ride the same all-reduce, and the scale
         EMA follows the factor EMA (a count of 0 keeps the scales).
+
+        Under health the step's verdict (:meth:`_health_verdict` over the
+        gradients, ``loss`` and the averaged contributions) gates every
+        EMA with ``torch.where`` (a bad step leaves them bitwise), the
+        identity seed is chosen on the device from
+        ``factor_updates_applied``, and the verdict is returned (``None``
+        without health).
         """
         if self.accumulation_steps == 1 or self._capture.pending():
             self._fold_captures()
@@ -559,23 +593,53 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             new_s = factors[2 * m:]
             counts = [tuple(sums[2 * n + i * k:2 * n + (i + 1) * k])
                       for i in range(n)]
+        ok = None
+        if self.health is not None:
+            h = self._health
+            ok = self._health_verdict(loss, [new_a, new_g, new_s])
+            first_update = h.factor_updates_applied == 0
+            h.factor_updates_applied = (
+                h.factor_updates_applied + ok.to(torch.int32))
+
+        def ema(old, new):
+            out = ops.ema_update_factor(old, new, decay, first_update)
+            return out if ok is None else torch.where(ok, out, old)
+
         for name, a_new, g_new, (a_count, g_count, *_) in zip(
             self.helpers, new_a, new_g, counts,
         ):
             st = self.layers[name]
             if a_count > 0:
-                st.a_factor = ops.ema_update_factor(
-                    st.a_factor, a_new, decay, first_update,
-                )
+                st.a_factor = ema(st.a_factor, a_new)
             if g_count > 0:
-                st.g_factor = ops.ema_update_factor(
-                    st.g_factor, g_new, decay, first_update,
-                )
+                st.g_factor = ema(st.g_factor, g_new)
         if self.ekfac:
             self._second_order.ekfac_update(self.buckets, {
                 name: s_new for name, s_new, c in zip(
                     self.helpers, new_s, counts) if c[2] > 0
-            }, decay)
+            }, decay, **({} if ok is None else {'ok': ok}))
+        return ok
+
+    def _param_grads(self) -> list[torch.Tensor]:
+        """The gradients of every parameter of the model that has one."""
+        return [p.grad for p in self._capture.model.parameters()
+                if p.grad is not None]
+
+    def _health_verdict(
+        self, loss: torch.Tensor | None, extra: Any = (),
+    ) -> torch.Tensor:
+        """The step's finiteness verdict (a 0-d bool on the device, one
+        fused reduction: :func:`~kfac_pytorch_tpu_torch.health.\
+tree_all_finite`) over the gradients, ``extra`` (the averaged factor
+        contributions on factor steps) and the loss.  Across ranks the
+        gradients and the contributions are the same on every rank (DDP's
+        all-reduce and the factor all-reduce carry a bad local batch to
+        all of them), so the verdict is too; the loss is local, so it
+        joins the verdict on one rank only."""
+        tree = [self._param_grads(), extra]
+        if loss is not None and self.grid.world == 1:
+            tree.append(loss)
+        return health_lib.tree_all_finite(tree, device=self.device)
 
     @staticmethod
     def _mean(total, count: int, like: torch.Tensor) -> torch.Tensor:
@@ -609,10 +673,47 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         if not self.bucketed:
             self._refresh_replicated(damping)
             return
-        self._install_refresh(self._refresh_state(
-            self.layers, self.buckets, damping, None,
-            self._refresh_needs_bootstrap(), self._last_inv_step,
-        ))
+        args = (self.layers, self.buckets, damping, None,
+                self._refresh_needs_bootstrap(), self._last_inv_step)
+        if self.health is None:
+            self._install_refresh(self._refresh_state(*args))
+            return
+        self._sanitize_factor_emas()
+        stats = {}
+        self._install_refresh(self._refresh_state(*args, health_stats=stats))
+        h = self._health
+        h.eigh_retries = h.eigh_retries + stats['retries']
+        h.eigh_fallbacks = h.eigh_fallbacks + stats['fallbacks']
+        # The current count (a successful refresh lifts a quarantine),
+        # not a tally.
+        h.quarantined_layers = stats['quarantined']
+        self._health_host_syncs += stats.get('host_reads', 0)
+
+    def _sanitize_factor_emas(self) -> None:
+        """Factor self-healing at refresh time (JAX
+        ``_sanitize_factor_emas``, ``base_preconditioner.py:1039-1081``):
+        a non-finite EMA (a poisoned restore, f32 overflow) is reset to
+        its identity seed (ones for a diagonal A) and counted in
+        ``factor_resets``.  One fused verdict over every factor and one
+        host read of it (counted), the refresh being a host sync point
+        anyway; the EMAs are the same on every rank, so is the reset."""
+        factors = [t for st in self.layers.values()
+                   for t in (st.a_factor, st.g_factor)]
+        norms = torch.stack(torch._foreach_norm(factors, ord=float('inf')))
+        bad = (~torch.isfinite(norms)).cpu().tolist()
+        self._health_host_syncs += 1
+        resets = 0
+        for i, (name, st) in enumerate(self.layers.items()):
+            for side, flag in zip(('a', 'g'), bad[2 * i:2 * i + 2]):
+                if not flag:
+                    continue
+                f = getattr(st, f'{side}_factor')
+                seed = (torch.ones_like(f) if f.ndim == 1 else torch.eye(
+                    f.shape[-1], dtype=f.dtype, device=f.device))
+                setattr(st, f'{side}_factor', seed)
+                resets += 1
+        if resets:
+            self._health.factor_resets = self._health.factor_resets + resets
 
     @torch.no_grad()
     def _refresh_shard(self, damping: float, shard: int) -> None:
@@ -631,21 +732,38 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         shard: int | None = None,
         bootstrap: bool = False,
         sketch_step: int = 0,
+        health_stats: dict | None = None,
     ) -> tuple[dict, dict]:
         """``(diagonal-A fields by layer, bucket stacks)`` of a refresh
         from ``layers``' factor EMAs and the ``prev`` stacks (the
         monolithic refresh, or stagger shard ``shard``), built into new
         objects: nothing of ``self`` is read or written but the plan and
-        the method."""
+        the method.  Under health ``health_stats`` receives the refresh's
+        counters (``BucketedSecondOrder.compute``), the diagonal-A
+        layers' retries and fallbacks added."""
         diag = {}
+        guard = {} if health_stats is None else {
+            'health_stats': health_stats}
         if shard is None or shard == 0:
-            diag = {name: self._diag_fields(name, layers[name], damping)
+            diag = {name: self._diag_fields(name, layers[name], damping,
+                                            **guard)
                     for name in self.diag_layers}
         if shard is None:
+            bucket_stats = {}
             buckets = self._second_order.compute(
                 layers, damping, prev=prev, bootstrap=bootstrap,
                 sketch_step=sketch_step,
+                **({} if health_stats is None else {
+                    'health_stats': bucket_stats}),
             )
+            if health_stats is not None:
+                for key in ('retries', 'fallbacks'):
+                    bucket_stats[key] = (bucket_stats[key]
+                                         + health_stats.get(key, 0))
+                bucket_stats['host_reads'] = (
+                    bucket_stats.get('host_reads', 0)
+                    + health_stats.get('host_reads', 0))
+                health_stats.update(bucket_stats)
         else:
             buckets = self._second_order.compute_shard(
                 layers, damping, shard, prev,
@@ -739,6 +857,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
 
     def _diag_fields(
         self, name: str, st: LayerKFACState, damping: float,
+        health_stats: dict | None = None,
     ) -> dict[str, torch.Tensor]:
         """One diagonal-A layer's decompositions from ``st``'s factors:
         G by ``eigh`` (eigen) or a damped Cholesky inverse (inverse and
@@ -746,7 +865,11 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         inverse for a helper with non-symmetric factors; the ``[V]``
         diagonal is snapshotted (``da``, or ``a_inv = 1 / (a +
         damping)``), so until the next refresh the layer preconditions
-        with it and not with the moving EMA."""
+        with it and not with the moving EMA.  Under health the G side
+        runs :meth:`_diag_fields_guarded`."""
+        if health_stats is not None:
+            return self._diag_fields_guarded(name, st, damping,
+                                             health_stats)
         sym = self.helpers[name].symmetric_factors
         if self.compute_method == ComputeMethod.EIGEN:
             eig = (ops.compute_factor_eigen if sym
@@ -761,6 +884,82 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             a_inv=(1.0 / (st.a_factor.float() + damping)).to(self.inv_dtype),
         )
 
+    def _diag_fields_guarded(
+        self, name: str, st: LayerKFACState, damping: float, stats: dict,
+    ) -> dict[str, torch.Tensor]:
+        """:meth:`_diag_fields` under health (JAX ``refresh_diag_guarded``,
+        ``base_preconditioner.py:1150-1270``): the G decomposition runs
+        under bounded retries and falls back to the layer's last good one;
+        with none (never refreshed, or a general eig sanitized to zeros)
+        to the identity, so the layer keeps the per-column ``A`` scaling
+        instead of freezing.  Targeted injection (``inject_eigh_layers``)
+        speaks bucket coordinates and leaves these layers alone."""
+        import dataclasses
+
+        sym = self.helpers[name].symmetric_factors
+        cfg = self.health
+        if cfg.inject_eigh_layers is not None:
+            cfg = dataclasses.replace(cfg, inject_eigh_failures=0)
+        g = st.g_factor
+        eye = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
+        if self.compute_method == ComputeMethod.EIGEN:
+            eig = (ops.compute_factor_eigen if sym
+                   else ops.compute_factor_eig_general)
+
+            def attempt(jitter):
+                if jitter == 0.0:
+                    q, d = eig(g, self.inv_dtype)
+                else:
+                    q, d = eig(g + jitter * eye, self.inv_dtype)
+                    d = torch.clamp(d.float() - jitter, min=0.0).to(
+                        self.inv_dtype)
+                if not sym:
+                    # The general eig sanitizes its failures to zeros; a
+                    # zero Q is no eigenbasis, so it reads as a failure.
+                    dead = torch.all(q == 0)
+                    q = torch.where(dead, torch.full_like(q, float('nan')),
+                                    q)
+                    d = torch.where(dead, torch.full_like(d, float('nan')),
+                                    d)
+                return d, q
+
+            (dg, qg), ok, r = health_lib.run_with_recovery(
+                attempt, damping, cfg, stats=stats,
+            )
+            fb_q = torch.eye(qg.shape[-1], dtype=qg.dtype, device=qg.device)
+            fb_d = torch.ones_like(dg)
+            if st.qg is not None:
+                dead = torch.all(st.qg == 0)
+                fb_q = torch.where(dead, fb_q, st.qg)
+                fb_d = torch.where(dead, fb_d, st.dg)
+            fields = dict(qg=torch.where(ok, qg, fb_q),
+                          dg=torch.where(ok, dg, fb_d),
+                          da=st.a_factor.to(self.inv_dtype, copy=True))
+        else:
+            inv = (ops.compute_factor_inv if sym
+                   else ops.compute_factor_inv_general)
+
+            def attempt(jitter):
+                d = damping if jitter == 0.0 else float(
+                    np.float32(damping) + np.float32(jitter))
+                return (inv(g, d, self.inv_dtype),)
+
+            (g_inv,), ok, r = health_lib.run_with_recovery(
+                attempt, damping, cfg, stats=stats,
+            )
+            fb = eye.to(g_inv.dtype)
+            if st.g_inv is not None:
+                fb = torch.where(torch.all(st.g_inv == 0), fb, st.g_inv)
+            fields = dict(
+                g_inv=torch.where(ok, g_inv, fb),
+                a_inv=(1.0 / (st.a_factor.float() + damping)).to(
+                    self.inv_dtype),
+            )
+        stats['retries'] = stats.get('retries', 0) + r
+        stats['fallbacks'] = stats.get('fallbacks', 0) + (~ok).to(
+            torch.int32)
+        return fields
+
     def _refresh_needs_bootstrap(self) -> bool:
         """Whether the next refresh runs the iterative method's deep
         cold-capable depth: until the first refresh of a run, and after
@@ -774,6 +973,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
     @torch.no_grad()
     def _precondition(
         self, damping: float, kl_clip: float | None, lr: float,
+        step_ok: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Precondition every registered layer's ``.grad`` in place, and
         return ``vg_sum``: the f32 ``<raw grad, final grad>`` over every
@@ -783,10 +983,27 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         is final as it is), the squares of one ``_foreach_norm`` over
         them all (a few launches for ResNet-50's 107 BatchNorm
         parameters, not one each); terms summed in one reduction,
-        registered layers first."""
+        registered layers first.
+
+        With the health verdict ``step_ok`` every gradient is zeroed
+        before the precondition when it is False (JAX
+        ``_health_finish_step``): the combined gradients and the other
+        parameters' ``.grad``, one select per dtype
+        (:func:`~kfac_pytorch_tpu_torch.health.zero_unless`), so a bad
+        batch gives a zero update and ``vg_sum`` 0; bitwise unchanged
+        when True."""
         combined = {
             name: helper.get_grad() for name, helper in self.helpers.items()
         }
+        if step_ok is not None:
+            names = list(combined)
+            combined = dict(zip(names, health_lib.zero_unless(
+                step_ok, [combined[n] for n in names])))
+            rest = [p.grad for p in self._uncovered_params
+                    if p.grad is not None]
+            if rest:
+                torch._foreach_copy_(rest,
+                                     health_lib.zero_unless(step_ok, rest))
         out, scale = self.precondition_combined(
             combined, damping, kl_clip, lr,
         )
@@ -884,6 +1101,34 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
 
     def _checkpoint_layer_states(self) -> dict[str, LayerKFACState]:
         return self.layers
+
+    def _health_config(self) -> health_lib.HealthConfig | None:
+        return self.health
+
+    def _health_state(self) -> health_lib.HealthState | None:
+        return self._health
+
+    def _consistency_check(
+        self, hp: dict[str, float],
+    ) -> consistency_lib.CheckResult:
+        """Digest and compare every replicated surface: the layer states
+        over the world, each bucket slot over its grid column
+        (:func:`~kfac_pytorch_tpu_torch.consistency.check`, one
+        all-gather, collective)."""
+        return consistency_lib.check(
+            self.layers, self.buckets, self.plan, hp, self.grid,
+            include_hp=self._consistency.include_hyperparams,
+        )
+
+    def _consistency_repair(self, result: consistency_lib.CheckResult):
+        """Broadcast the canonical replica of every divergent surface
+        (collective); returns ``(layer mask, {bucket: [L] mask})``."""
+        return consistency_lib.repair_state(
+            result, self.layers, self.buckets, self.plan, self.grid,
+        )
+
+    def _consistency_quarantine(self, masks: dict) -> None:
+        consistency_lib.apply_quarantine(self.buckets, masks, self.grid)
 
     def _symmetric_layers(self) -> set[str]:
         return {n for n, h in self.helpers.items() if h.symmetric_factors}

@@ -106,6 +106,7 @@ import torch.nn.functional as F
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
+from kfac_pytorch_tpu_torch.tracing import percentile
 from kfac_pytorch_tpu_torch.utils.backend import environment_summary
 
 METRIC = 'kfac_step_overhead_resnet50_imagenet_b32'
@@ -270,16 +271,6 @@ def measure(
     if device.type == 'cuda':
         torch.cuda.empty_cache()
     return out
-
-
-def percentile(ordered: Sequence[float], q: float) -> float:
-    """Linear-interpolation percentile of a sorted sample (the JAX
-    package's ``tracing.percentile``)."""
-    pos = q * (len(ordered) - 1)
-    lo = int(pos)
-    hi = min(lo + 1, len(ordered) - 1)
-    frac = pos - lo
-    return ordered[lo] * (1.0 - frac) + ordered[hi] * frac
 
 
 def _mlp_step(model, precond, opt, x, y):

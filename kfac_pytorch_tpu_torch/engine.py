@@ -44,7 +44,15 @@ backward, this step and the optimizer step in one call and feeds an
 scale grids, and with an :class:`~kfac_pytorch_tpu_torch.adaptive.
 AdaptiveRefresh` the drift read after a factor step can request a
 refresh at the next step, off the cadence (``engine.py:733-738,
-1368-1390``).  Checkpoints follow ``engine.py:102-292,2482-2700``:
+1368-1390``).  Under health (:mod:`~kfac_pytorch_tpu_torch.health`) each step's
+verdict gates the factor EMAs and zeroes a bad step's gradients before
+the precondition (no host read on :meth:`KFACEngineMixin.step`; the
+fused path reads it once to skip the optimizer step), and ``health/*``
+counters join ``last_step_info``.  Under the consistency guard
+(:mod:`~kfac_pytorch_tpu_torch.consistency`) every ``cadence``-th step
+ends with a cross-replica check, and :meth:`KFACEngineMixin.\
+_consistency_finish` walks the repair ladder (``engine.py:920-1075``).
+Checkpoints follow ``engine.py:102-292,2482-2700``:
 :meth:`KFACEngineMixin.state_dict` holds the step counter, the
 non-callable hyperparameters and the factor EMAs (never the
 decompositions, which a restore recomputes), in the JAX payload's keys.
@@ -59,7 +67,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from kfac_pytorch_tpu_torch import consistency as consistency_lib
+from kfac_pytorch_tpu_torch import health as health_lib
 from kfac_pytorch_tpu_torch import ops
+from kfac_pytorch_tpu_torch import tracing
 from kfac_pytorch_tpu_torch.adaptive import AdaptiveDamping
 from kfac_pytorch_tpu_torch.hyperparams import resolve
 from kfac_pytorch_tpu_torch.hyperparams import validate_damping
@@ -274,9 +285,26 @@ class KFACEngineMixin:
         stagger_refresh: int | None = None,
         adaptive_controller: Any = None,
         overlap_comm: bool = False,
+        consistency: Any = None,
     ) -> None:
         if not callable(damping):
             validate_damping(damping)
+        # The cross-replica consistency guard: its knobs, the ladder of
+        # consecutive disagreeing checks per surface, and the host
+        # counters surfaced as consistency/*_total on check steps.
+        self._consistency = consistency
+        self._consistency_ladder = (
+            health_lib.EscalationLadder(consistency.quarantine_after)
+            if consistency is not None else None
+        )
+        self._consistency_totals = {
+            'checks': 0, 'detections': 0, 'repairs': 0, 'quarantines': 0,
+        }
+        #: The latest check's verdicts (``consistency.CheckResult``).
+        self.last_consistency_check = None
+        # Host reads of the health verdicts: the retry rounds and the
+        # factor reset at refresh time, the fused path's skip decision.
+        self._health_host_syncs = 0
         # LM damping feedback: an AdaptiveDamping in the damping slot is
         # fed by the fused path (make_train_step, train_loop); step()
         # says once that it does not feed it.
@@ -344,8 +372,18 @@ class KFACEngineMixin:
         (``adaptive/checked``, ``adaptive/sketch``, ``adaptive/digest``)
         under the adaptive cadence, whose counters
         (``adaptive/*_total``, ``adaptive/shard<k>/*``) ride every
-        step."""
+        step; under health the ``health/*`` counters
+        (:data:`~kfac_pytorch_tpu_torch.health.HEALTH_INFO_KEYS`) every
+        step, and under the consistency guard the ``consistency/*``
+        verdict and ladder counters on check steps."""
         return self._last_step_info
+
+    @property
+    def health_host_syncs(self) -> int:
+        """Host reads of the health verdicts so far: one per bucket and
+        retry round plus one for the factor reset at each refresh, and
+        one a step on the fused path (whether to run the optimizer)."""
+        return self._health_host_syncs
 
     @property
     def last_ekfac_divergence(self) -> torch.Tensor | None:
@@ -573,16 +611,26 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             else 'accumulated step()',
         )
 
-    def _step(self) -> None:
-        """The body of :meth:`step`, shared with the fused path."""
+    def _step(self, loss: torch.Tensor | None = None) -> None:
+        """The body of :meth:`step`, shared with the fused path (which
+        passes the step's ``loss`` for the health verdict)."""
         update_factors, update_inverses, shard, deferred, pending = (
             self._overlap_plan()
         )
+        check = self._consistency_due()
         if deferred is not None:
             self._overlap_collect(deferred)
+        ok = None
+        guarded = self._health_config() is not None
         if update_factors:
-            self._update_factors(first_update=not self._factors_initialized)
+            first_update = not self._factors_initialized
+            if guarded:
+                ok = self._update_factors(first_update, loss=loss)
+            else:
+                self._update_factors(first_update=first_update)
             self._factors_initialized = True
+        elif guarded:
+            ok = self._health_verdict(loss)
         if update_inverses:
             # Recorded first: the refresh draws its low-rank sketches
             # for this step, and a checkpoint keeps it to draw them again.
@@ -591,9 +639,28 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             self._iter_bootstrapped = True
         elif shard is not None:
             self._refresh_shard(self.damping, shard)
+        if ok is not None:
+            # JAX _health_finish_step: the skip counter and the verdict;
+            # the gradients are zeroed by the precondition below.
+            h = self._health_state()
+            h.steps_skipped = h.steps_skipped + (~ok).to(torch.int32)
+            h.last_step_ok = ok
+        # The verdict is passed only under health, so the unguarded call
+        # keeps its signature.
+        extra = {} if ok is None else {'step_ok': ok}
         info = {'vg_sum': self._precondition(
-            self.damping, self.kl_clip, self.lr,
+            self.damping, self.kl_clip, self.lr, **extra,
         )}
+        if ok is not None:
+            info.update(health_lib.step_info(self._health_state()))
+        if check:
+            # Over the final state: what the next cadence window
+            # preconditions through.
+            self.last_consistency_check = self._consistency_check({
+                'damping': self.damping, 'factor_decay': self.factor_decay,
+                'kl_clip': self.kl_clip, 'lr': self.lr,
+            })
+            info.update(self.last_consistency_check.info())
         if self._adaptive_controller is not None and update_factors:
             # The factor EMAs move only on factor steps.
             drift = self._adaptive_drift_emit()
@@ -606,6 +673,9 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         if update_inverses:
             self._stagger_bootstrapped = True
             self._overlap_bootstrapped = True
+        # After the bootstrap flags: a repair's forced bootstrap must not
+        # be undone by the refresh bookkeeping of this step.
+        info = self._consistency_finish(info)
         if deferred is not None:
             self._last_refresh = (
                 'overlap_inv' if deferred[0] == 'inv'
@@ -625,13 +695,93 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         )
         # Arm (or disarm) the hooks for the NEXT forward/backward.
         self._arm_capture(self._step_gating()[0])
-        if pending is not None:
+        if pending is not None and self._overlap_pending is not None:
             # The issue point: after the counter moved, so the deferred
             # refresh takes the next step's damping, as the JAX refresh
             # reads the hyperparameters of the program it runs in.
             self._overlap_inflight = self._issue_deferred_refresh(
                 pending, self.damping,
             )
+
+    def _consistency_due(self) -> bool:
+        """Whether this step ends with a cross-replica check (every
+        ``cadence``-th step; never without the guard)."""
+        c = self._consistency
+        return c is not None and self._steps % c.cadence == 0
+
+    def _consistency_finish(
+        self, info: dict[str, torch.Tensor],
+    ) -> dict[str, torch.Tensor]:
+        """Walk the repair ladder after a check (JAX ``engine.py:
+        963-1075``); ``info`` as it is on other steps.
+
+        The verdict is already on the host (the check's one read).  On a
+        state mismatch: with ``repair='broadcast'`` the canonical replica
+        of every divergent surface is broadcast, and the next refresh is
+        forced to a monolithic bootstrap (the stagger, warm-start and
+        deferral flags drop, a pending deferred refresh is dropped);
+        then per slot the strikes of consecutive disagreeing checks are
+        noted, and a slot that crosses ``quarantine_after`` is
+        quarantined to SGD.  A hyperparameter-only mismatch is counted,
+        never repaired (host values).  Every rank walks the same ladder
+        from the same verdicts.  Adds ``consistency/*_total`` and
+        ``consistency/strikes_max``, and counts ``tracing`` events."""
+        cfg = self._consistency
+        if cfg is None or 'consistency/mismatches' not in info:
+            return info
+        result = self.last_consistency_check
+        ladder = self._consistency_ladder
+        totals = self._consistency_totals
+        totals['checks'] += 1
+        mismatches = int(info['consistency/mismatches'])
+        hp_mismatches = int(info['consistency/hp_mismatches'])
+        if mismatches == 0:
+            ladder.reset_all()
+        elif mismatches == hp_mismatches:
+            totals['detections'] += 1
+            tracing.count_event('consistency_mismatch')
+            tracing.count_event('consistency_hp_mismatch')
+        else:
+            totals['detections'] += 1
+            tracing.count_event('consistency_mismatch')
+            if hp_mismatches:
+                tracing.count_event('consistency_hp_mismatch')
+            if cfg.repair == 'broadcast':
+                layer_mask, bucket_masks = self._consistency_repair(result)
+                totals['repairs'] += 1
+                tracing.count_event('consistency_repair')
+                self._stagger_bootstrapped = False
+                self._iter_bootstrapped = False
+                self._overlap_bootstrapped = False
+                self._overlap_pending = None
+            else:
+                layer_mask, bucket_masks, _ = consistency_lib.mismatch_masks(
+                    result)
+            for i, name in enumerate(result.layer_names):
+                ladder.note(('layer', name), bool(layer_mask[i]))
+            for i, key in enumerate(result.basis_keys):
+                ladder.note(('basis', key), bool(result.basis_mask[i]))
+            crossed = {}
+            for key, mask in bucket_masks.items():
+                q = np.zeros(mask.shape, bool)
+                for slot in range(mask.shape[0]):
+                    if ladder.note(('bucket', key, slot), bool(mask[slot])):
+                        q[slot] = True
+                if q.any():
+                    crossed[key] = q
+            if crossed:
+                self._consistency_quarantine(crossed)
+                totals['quarantines'] += int(
+                    sum(int(m.sum()) for m in crossed.values()))
+                tracing.count_event('consistency_quarantine')
+        info = dict(info)
+        info.update({
+            f'consistency/{k}_total': torch.tensor(v, dtype=torch.int32)
+            for k, v in totals.items()
+        })
+        info['consistency/strikes_max'] = torch.tensor(
+            ladder.max_strikes(), dtype=torch.int32)
+        return info
 
     def _adaptive_finish(
         self, info: dict[str, torch.Tensor],
@@ -699,6 +849,13 @@ damping`).  The returned loss is the step's (detached), before the
         statistics update in place during the forward.  Gradient
         accumulation runs through the backward passes and :meth:`step`
         (``accumulation_steps > 1`` raises here, as in JAX).
+
+        Under health a step whose verdict fails leaves the parameters,
+        the optimizer state and BatchNorm's running buffers bitwise as
+        they were (JAX ``engine.py:1982-2020``): the buffers are
+        snapshotted before the forward, the verdict is read on the host
+        once a step (``health_host_syncs``), and on a bad step
+        ``optimizer.step()`` is not run and the buffers are restored.
         """
         if merge_updates is not None:
             raise NotImplementedError(
@@ -717,11 +874,22 @@ damping`).  The returned loss is the step's (detached), before the
                     'passes yourself and call step()',
                 )
             optimizer.zero_grad()
+            guarded = self._health_config() is not None
+            saved = self._buffer_snapshot() if guarded else None
             loss, aux = _split_loss(loss_fn(model(*args), *loss_args))
             loss.backward()
             step_index = self._steps
-            self._step()
-            optimizer.step()
+            self._step(loss=loss.detach())
+            if not guarded:
+                optimizer.step()
+            else:
+                self._health_host_syncs += 1
+                if bool(self._health_state().last_step_ok):
+                    optimizer.step()
+                else:
+                    bufs, copies = saved
+                    if bufs:
+                        torch._foreach_copy_(bufs, copies)
             loss = loss.detach()
             self._maybe_adapt_damping(
                 step_index, loss, self._last_step_info, args, loss_args,
@@ -746,6 +914,22 @@ damping`).  The returned loss is the step's (detached), before the
             model_sd, optimizer_sd, kfac_sd = loop.carry
         """
         return KFACTrainLoop(self, optimizer, loss_fn, merge_updates)
+
+    @torch.no_grad()
+    def _buffer_snapshot(self) -> tuple[list, list]:
+        """``(buffers, copies)`` of the buffers a training-mode forward
+        moves, the copies by one ``_foreach_mul`` by 1 per dtype (bitwise;
+        a few launches instead of one per buffer)."""
+        bufs = self._bn_buffers()
+        copies: list = [None] * len(bufs)
+        groups: dict = {}
+        for i, b in enumerate(bufs):
+            groups.setdefault((b.device, b.dtype), []).append(i)
+        for idx in groups.values():
+            for i, c in zip(idx, torch._foreach_mul(
+                    [bufs[i] for i in idx], 1)):
+                copies[i] = c
+        return bufs, copies
 
     @torch.no_grad()
     def _loss_only(
@@ -940,6 +1124,10 @@ damping`).  The returned loss is the step's (detached), before the
         if ar_sd is not None and self._adaptive_refresh is not None:
             self._adaptive_refresh.load_state_dict(ar_sd)
         self._refresh_requested = False
+        # Consistency strikes count consecutive live checks; a restore
+        # replaces the state, so the streak restarts (JAX engine.py:2620).
+        if self._consistency_ladder is not None:
+            self._consistency_ladder.reset_all()
         # A pending deferred refresh was scheduled against the state
         # before the restore: it is dropped, never checkpointed (JAX
         # engine.py:2599-2604), and the restore invariant below decides
@@ -961,6 +1149,13 @@ damping`).  The returned loss is the step's (detached), before the
         if layers is not None:
             self._restore_factors(layers)
             self._factors_initialized = True
+            h = self._health_state()
+            if h is not None:
+                # The restored EMAs are running averages: the next factor
+                # step must not reseed them from the identity (JAX
+                # engine.py:2629-2640).
+                h.factor_updates_applied = torch.clamp(
+                    h.factor_updates_applied, min=1)
             if compute_inverses:
                 self._iter_bootstrapped = False
                 self._refresh(self.damping)
@@ -1064,6 +1259,24 @@ damping`).  The returned loss is the step's (detached), before the
 
     def _bn_buffers(self) -> list[torch.Tensor]:
         return []
+
+    def _health_config(self) -> Any:
+        return None
+
+    def _health_state(self) -> Any:
+        return None
+
+    def _health_verdict(self, loss: torch.Tensor | None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _consistency_check(self, hp: dict[str, float]) -> Any:
+        raise NotImplementedError
+
+    def _consistency_repair(self, result: Any) -> Any:
+        raise NotImplementedError
+
+    def _consistency_quarantine(self, masks: dict) -> None:
+        raise NotImplementedError
 
     def _ekfac_scales(self) -> Mapping[str, torch.Tensor] | None:
         return None

@@ -48,6 +48,7 @@ from kfac_pytorch_tpu_torch.ops.fused_precond import (
 from kfac_pytorch_tpu_torch.ops.fused_precond import (
     fused_eigen_precondition_sharded_reference,
 )
+from kfac_pytorch_tpu_torch.ops.fused_precond import substitute_quarantined
 from kfac_pytorch_tpu_torch.ops.inverse import batched_damped_inv
 from kfac_pytorch_tpu_torch.ops.inverse import compute_factor_inv
 from kfac_pytorch_tpu_torch.ops.inverse import compute_factor_inv_general

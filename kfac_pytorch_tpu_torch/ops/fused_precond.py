@@ -20,6 +20,14 @@ the clip terms over the rank's grid row.
 :func:`fused_eigen_precondition_sharded_async` launches the same kernel
 and issues that gather asynchronously (``pipeline_grads``), returning the
 gather's handle.
+
+Under the numerical-health guardrails and the consistency guard a slot
+may be quarantined to identity preconditioning: the sharded forms take
+the bucket's ``quarantined`` mask and run
+:func:`substitute_quarantined` on the kernel's output before the row
+gather (the JAX package runs its matmul chain instead of its kernel
+there; the kernel's per-slot clip terms make the substitution exact
+after it).
 """
 from __future__ import annotations
 
@@ -161,12 +169,41 @@ def fused_eigen_precondition(
 fused_eigen_precondition.launches = 0
 
 
+def substitute_quarantined(
+    pg: torch.Tensor,
+    clip: torch.Tensor,
+    g: torch.Tensor,
+    quarantined: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Identity preconditioning of the quarantined slots (JAX
+    ``second_order.py:1737-1763``): ``pg[l] = g[l]`` and ``clip[l] =
+    <g[l], g[l]>`` where ``quarantined[l]``, the kernel's (or the
+    chain's) output elsewhere, bit for bit.  ``g`` is the f32 gradient
+    stack."""
+    q = quarantined.to(device=pg.device, dtype=torch.bool)
+    gf = g.float()
+    pg = torch.where(q[:, None, None], gf, pg)
+    clip = torch.where(q, torch.sum(gf * gf, dim=(1, 2)), clip)
+    return pg, clip
+
+
+def _kernel_then_substitute(g, qa, qg, dgda, quarantined, raw, fn):
+    pg, clip = fn(g, qa, qg, dgda)
+    if quarantined is not None:
+        pg, clip = substitute_quarantined(
+            pg, clip, g if raw is None else raw, quarantined,
+        )
+    return pg, clip
+
+
 def fused_eigen_precondition_sharded(
     g: torch.Tensor,
     qa: torch.Tensor,
     qg: torch.Tensor,
     dgda: torch.Tensor,
     group=None,
+    quarantined: torch.Tensor | None = None,
+    raw: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """KAISA phases 3 and 4 for one bucket.
 
@@ -175,6 +212,11 @@ def fused_eigen_precondition_sharded(
             bucket stacks (the operands of :func:`fused_eigen_precondition`).
         group: the rank's grid row (ranks ordered by column), or ``None``
             for a grid of one column: nothing to gather.
+        quarantined: the slice's ``[seg]`` quarantine mask, or ``None``:
+            :func:`substitute_quarantined` runs on the kernel's output
+            before the gather.
+        raw: the f32 gradient slice the substitution takes (default
+            ``g``; the caller passes it when ``g`` is bf16).
 
     Returns:
         ``(pg [cols * seg, gp, ap] f32, clip [cols * seg] f32)``, every
@@ -184,7 +226,8 @@ def fused_eigen_precondition_sharded(
     ``fused_eigen_precondition.launches``; CPU tensors run the plain
     version).
     """
-    pg, clip = fused_eigen_precondition(g, qa, qg, dgda)
+    pg, clip = _kernel_then_substitute(g, qa, qg, dgda, quarantined, raw,
+                                       fused_eigen_precondition)
     return collectives.all_gather_preconditioned(pg, clip, group)
 
 
@@ -194,13 +237,16 @@ def fused_eigen_precondition_sharded_async(
     qg: torch.Tensor,
     dgda: torch.Tensor,
     group=None,
+    quarantined: torch.Tensor | None = None,
+    raw: torch.Tensor | None = None,
 ) -> collectives.GatherHandle:
     """:func:`fused_eigen_precondition_sharded` with the row gather issued
     asynchronously: the kernel runs on the local slice (counted as one
     launch), then the gather is issued and its handle returned; the
     handle's ``wait()`` gives the ``(pg, clip)`` the synchronous form
     returns, bit for bit.  ``group=None`` gives a handle already done."""
-    pg, clip = fused_eigen_precondition(g, qa, qg, dgda)
+    pg, clip = _kernel_then_substitute(g, qa, qg, dgda, quarantined, raw,
+                                       fused_eigen_precondition)
     return collectives.all_gather_preconditioned_async(pg, clip, group)
 
 
@@ -210,7 +256,10 @@ def fused_eigen_precondition_sharded_reference(
     qg: torch.Tensor,
     dgda: torch.Tensor,
     group=None,
+    quarantined: torch.Tensor | None = None,
+    raw: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`fused_eigen_precondition_sharded` through the plain chain."""
-    pg, clip = fused_eigen_precondition_reference(g, qa, qg, dgda)
+    pg, clip = _kernel_then_substitute(g, qa, qg, dgda, quarantined, raw,
+                                       fused_eigen_precondition_reference)
     return collectives.all_gather_preconditioned(pg, clip, group)

@@ -14,15 +14,26 @@ def ema_update_factor(
     factor: torch.Tensor,
     new: torch.Tensor,
     alpha: float,
-    first_update: bool,
+    first_update: bool | torch.Tensor,
 ) -> torch.Tensor:
     """Exponential moving average update of a Kronecker factor.
 
     On the first update the running average starts from the identity
     (all ones for a diagonal ``[n]`` factor), so the result is ``alpha * I + (1 - alpha) * new``; afterwards
-    ``alpha * old + (1 - alpha) * new``.
+    ``alpha * old + (1 - alpha) * new``.  ``first_update`` may be a
+    0-d bool tensor (the health guardrails decide it on the device), in
+    which case the identity is selected with ``torch.where``: the same
+    bits as the host branch.
     """
-    if first_update and new.ndim == 1:  # a diagonal factor's identity
+    if isinstance(first_update, torch.Tensor):
+        if new.ndim == 1:
+            eye = torch.ones_like(factor)
+        else:
+            eye = torch.eye(
+                new.shape[-1], dtype=factor.dtype, device=factor.device,
+            ).expand_as(factor)
+        old = torch.where(first_update, eye, factor)
+    elif first_update and new.ndim == 1:  # a diagonal factor's identity
         old = torch.ones_like(factor)
     elif first_update:
         old = torch.eye(

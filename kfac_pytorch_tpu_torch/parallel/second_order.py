@@ -61,6 +61,23 @@ moves; every handle is waited on before the kl-clip sum, whose terms are
 added in plan order, so the result is the synchronous tail's, bit for
 bit.
 
+With a :class:`~kfac_pytorch_tpu_torch.health.HealthConfig` (``health``)
+each exact bucket's decomposition runs under bounded, escalating retries
+(:func:`~kfac_pytorch_tpu_torch.health.run_with_recovery`, JAX
+``second_order.py:735-932``); a slot that still fails falls back to its
+last-good decomposition and counts toward quarantine
+(:func:`~kfac_pytorch_tpu_torch.health.merge_with_prev`).  The per-slot
+verdicts and retry rounds ride the decomposition gather over the column,
+so every rank of a column merges alike, and one small gather over the row
+gives every rank the counters of every column.  A quarantined slot is
+preconditioned by the identity (``pg = g``, clip term ``<g, g>``), on the
+rank's column right after the fused kernel or the rotation and before the
+row gather (:func:`~kfac_pytorch_tpu_torch.ops.fused_precond.\
+substitute_quarantined`); with no slot quarantined the tail is bitwise
+the unguarded one.  The consistency guard
+(:mod:`~kfac_pytorch_tpu_torch.consistency`) keeps the same masks
+(``quarantine_masks``), carried through every refresh without health.
+
 On one device the grid is ``1 x 1`` and no collective runs.
 """
 from __future__ import annotations
@@ -69,8 +86,10 @@ import dataclasses
 import zlib
 from typing import Mapping, Sequence
 
+import numpy as np
 import torch
 
+from kfac_pytorch_tpu_torch import health as health_lib
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.ops import lowrank as lowrank_ops
@@ -110,7 +129,11 @@ class BucketSecond:
     on a grid with several columns ``basis_qa [n, a, a]`` /
     ``basis_qg [n, g, g]``, the eigenvectors of the bucket's ``n``
     occupied slots in every column, which project the rows of every
-    layer.  Fields a method does not use are ``None``.
+    layer.  With health guardrails or the consistency guard:
+    ``fail_count [seg] i32`` (consecutive failed refreshes),
+    ``quarantined [seg] bool`` (identity preconditioning) and ``ever_ok
+    [seg] bool`` (a refresh ever succeeded).  Fields a method does not
+    use are ``None``.
     """
 
     qa: torch.Tensor | None = None
@@ -132,6 +155,9 @@ class BucketSecond:
     skron: torch.Tensor | None = None
     basis_qa: torch.Tensor | None = None
     basis_qg: torch.Tensor | None = None
+    fail_count: torch.Tensor | None = None
+    quarantined: torch.Tensor | None = None
+    ever_ok: torch.Tensor | None = None
 
     def tensors(self) -> dict[str, torch.Tensor]:
         """The fields that are set, in declaration order."""
@@ -157,6 +183,30 @@ def _pad_grad(grad: torch.Tensor, g_pad: int, a_pad: int) -> torch.Tensor:
     if go == g_pad and ga == a_pad:
         return grad
     return torch.nn.functional.pad(grad, (0, a_pad - ga, 0, g_pad - go))
+
+
+def _eigh(stack: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` of a stack under health: a slot whose
+    decomposition raises (the solver did not converge) comes out NaN, as
+    JAX's ``eigh`` leaves it, and the others are decomposed one by one."""
+    try:
+        return torch.linalg.eigh(stack)
+    except RuntimeError:
+        ds, qs = [], []
+        for f in stack:
+            try:
+                d, q = torch.linalg.eigh(f)
+            except RuntimeError:
+                d = torch.full(f.shape[:1], float('nan'), device=f.device)
+                q = torch.full_like(f, float('nan'))
+            ds.append(d)
+            qs.append(q)
+        return torch.stack(ds), torch.stack(qs)
+
+
+def _f32_add(a: float, b: float) -> float:
+    """``a + b`` rounded in f32, as the JAX package adds two f32 scalars."""
+    return float(np.float32(a) + np.float32(b))
 
 
 class BucketedSecondOrder:
@@ -192,6 +242,11 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         pipeline_grads: run :meth:`precondition`'s tail bucket by bucket
             in :attr:`pipeline_order`, each row gather issued
             asynchronously after its bucket's rotation.
+        health: the numerical-health knobs (exact methods; exclusive
+            with ``lowrank_rank`` and ``stagger``).
+        quarantine_masks: keep the per-slot quarantine masks without
+            ``health`` (the consistency guard), carried through every
+            refresh as they are.
     """
 
     def __init__(
@@ -212,6 +267,8 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         ekfac: bool = False,
         stagger: StaggerPlan | None = None,
         pipeline_grads: bool = False,
+        health: health_lib.HealthConfig | None = None,
+        quarantine_masks: bool = False,
     ) -> None:
         grid = KaisaGrid(rows=1, cols=1, rank=0) if grid is None else grid
         if grid.cols != plan.n_cols:
@@ -237,6 +294,15 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             raise ValueError(
                 'stagger_refresh and lowrank_rank are mutually exclusive',
             )
+        if health is not None and (lowrank_rank is not None
+                                   or stagger is not None):
+            raise ValueError(
+                'health guardrails cover the exact refresh of every slot; '
+                'lowrank_rank and stagger_refresh are exclusive with them',
+            )
+        self.health = health
+        #: Whether the buckets keep fail_count/quarantined/ever_ok.
+        self.masks = health is not None or bool(quarantine_masks)
         self.stagger = stagger
         #: The pipelined tail's bucket issue order (``None``: the
         #: synchronous tail).
@@ -355,6 +421,15 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             b.key: BucketSecond(**self._zero_fields(b, b.seg))
             for b in self.plan.buckets
         }
+        if self.masks:
+            for b in self.plan.buckets:
+                bs = out[b.key]
+                bs.fail_count = torch.zeros(
+                    (b.seg,), dtype=torch.int32, device=self.device)
+                bs.quarantined = torch.zeros(
+                    (b.seg,), dtype=torch.bool, device=self.device)
+                bs.ever_ok = torch.zeros(
+                    (b.seg,), dtype=torch.bool, device=self.device)
         if self.ekfac and self.grid.cols > 1:
             for b in self.plan.buckets:
                 n = sum(name is not None for name in b.slots)
@@ -451,41 +526,143 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         if self.compute_method == ComputeMethod.EIGEN:
             if any(self._lowrank[b.key]):
                 return self._compute_lowrank(b, A, G, slots, sketch_step)
-            qa, da = ops.compute_factor_eigen(A, self.inv_dtype)
-            qg, dg = ops.compute_factor_eigen(G, self.inv_dtype)
-            if self.ekfac:
-                # The scale grid restarts at the Kronecker eigenvalue
-                # grid, plain K-FAC's scales in the fresh basis (the old
-                # EMA lived in the old basis).
-                skron = dg.float()[:, :, None] * da.float()[:, None, :]
-                return dict(qa=qa, qg=qg, da=da, dg=dg, skron=skron)
-            if not self.bucket_prediv(b.key):
-                return dict(qa=qa, qg=qg, da=da, dg=dg)
-            return dict(
-                qa=qa, qg=qg, dgda=ops.compute_dgda(dg, da, damping),
-                bake_damping=torch.full(
-                    (A.shape[0],), damping, device=A.device,
-                ),
-            )
+            da, qa = torch.linalg.eigh(A.float())
+            dg, qg = torch.linalg.eigh(G.float())
+            return self._eigen_fields(b, qa, da, qg, dg, damping)
         if self.compute_method == ComputeMethod.INVERSE:
             return dict(
                 a_inv=ops.batched_damped_inv(A, damping).to(self.inv_dtype),
                 g_inv=ops.batched_damped_inv(G, damping).to(self.inv_dtype),
             )
+        return self._iterative_fields(
+            self._iterative_refresh(A, G, damping, warm, iters))
+
+    def _eigen_fields(self, b, qa, da, qg, dg, damping):
+        """The eigen fields of a share from its f32 eigenpairs: ``Q`` in
+        ``inv_dtype``, eigenvalues cast and clamped at zero
+        (:func:`~kfac_pytorch_tpu_torch.ops.compute_factor_eigen`), then
+        EKFAC's reseeded scales, the kept eigenvalues, or ``dgda``."""
+        qa, qg = qa.to(self.inv_dtype), qg.to(self.inv_dtype)
+        da = torch.clamp(da.to(self.inv_dtype), min=0.0)
+        dg = torch.clamp(dg.to(self.inv_dtype), min=0.0)
+        if self.ekfac:
+            # The scale grid restarts at the Kronecker eigenvalue grid,
+            # plain K-FAC's scales in the fresh basis (the old EMA lived
+            # in the old basis).
+            skron = dg.float()[:, :, None] * da.float()[:, None, :]
+            return dict(qa=qa, qg=qg, da=da, dg=dg, skron=skron)
+        if not self.bucket_prediv(b.key):
+            return dict(qa=qa, qg=qg, da=da, dg=dg)
+        return dict(
+            qa=qa, qg=qg, dgda=ops.compute_dgda(dg, da, damping),
+            bake_damping=torch.full(
+                (qa.shape[0],), damping, device=qa.device,
+            ),
+        )
+
+    def _iterative_refresh(self, A, G, damping, warm, iters):
+        """One Newton–Schulz refresh of a share as JAX's flat 8-tuple
+        ``(a_inv, g_inv, res_a, res_g, bound_a, bound_g, stale_a,
+        stale_g)``, the form the health retries merge per slot."""
         cfg = self.iterative
         out = {}
         for side, stack, seed in zip('ag', (A, G), warm or (None, None)):
-            r = ops.batched_newton_schulz_inverse(
+            out[side] = ops.batched_newton_schulz_inverse(
                 stack, damping, iters=iters,
                 warm_start=None if seed is None else seed.float(),
                 tol=cfg.tol, warm_restart_gate=cfg.warm_restart_gate,
                 compute_dtype=cfg.compute_dtype,
             )
-            out[f'{side}_inv'] = r.inv.to(self.inv_dtype)
-            out[f'iter_res_{side}'] = r.residual
-            out[f'iter_bound_{side}'] = r.bound
-            out[f'iter_stale_{side}'] = r.unconverged_iters
-        return out
+        ra, rg = out['a'], out['g']
+        return (ra.inv, rg.inv, ra.residual, rg.residual, ra.bound,
+                rg.bound, ra.unconverged_iters, rg.unconverged_iters)
+
+    def _iterative_fields(self, outs) -> dict[str, torch.Tensor]:
+        a_inv, g_inv, res_a, res_g, bound_a, bound_g, stale_a, stale_g = outs
+        return dict(
+            a_inv=a_inv.to(self.inv_dtype), g_inv=g_inv.to(self.inv_dtype),
+            iter_res_a=res_a, iter_res_g=res_g, iter_bound_a=bound_a,
+            iter_bound_g=bound_g, iter_stale_a=stale_a, iter_stale_g=stale_g,
+        )
+
+    def _inject_mask(self, b: BucketLayout, first: int, n: int):
+        """The health injection mask of a share (``n`` slots from global
+        slot ``first`` of bucket ``b``): ``None`` when injection targets
+        every slot, else host ``[n]`` bool (JAX ``_inject_mask``,
+        ``second_order.py:630-654``)."""
+        cfg = self.health
+        if cfg.inject_eigh_layers is None:
+            return None
+        mask = np.zeros((b.n_slots,), bool)
+        for key, slot in cfg.inject_eigh_layers:
+            if key == b.key:
+                mask[slot] = True
+        return mask[first:first + n]
+
+    def _decompose_guarded(
+        self,
+        b: BucketLayout,
+        A: torch.Tensor,
+        G: torch.Tensor,
+        damping: float,
+        warm: tuple[torch.Tensor, torch.Tensor] | None,
+        iters: int,
+        first: int,
+        stats: dict,
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """Phase 1 of one share under health (JAX ``second_order.py:
+        808-899, 993-1060``): the method's fields from the best attempt
+        per slot, and ``[n, 2]`` i32 ``(ok, rounds)`` per slot, ``rounds``
+        the retry rounds the slot went into still failing.  Attempt 0 is
+        the unguarded decomposition itself; a retry adds ``jitter`` to the
+        diagonal (eigen, subtracted from the eigenvalues after) or to the
+        damping (inverse, iterative).  The iterative verdict is finite
+        roots and both residuals within ``tol``."""
+        cfg = self.health
+        n = A.shape[0]
+        mask = self._inject_mask(b, first, n)
+        verdict_fn = None
+        if self.compute_method == ComputeMethod.EIGEN:
+            eye_a = torch.eye(A.shape[-1], device=A.device)
+            eye_g = torch.eye(G.shape[-1], device=G.device)
+
+            def attempt(jitter):
+                if jitter == 0.0:
+                    da, qa = _eigh(A.float())
+                    dg, qg = _eigh(G.float())
+                    return da, qa, dg, qg
+                da, qa = _eigh(A.float() + jitter * eye_a)
+                dg, qg = _eigh(G.float() + jitter * eye_g)
+                return da - jitter, qa, dg - jitter, qg
+        elif self.compute_method == ComputeMethod.INVERSE:
+            def attempt(jitter):
+                d = damping if jitter == 0.0 else _f32_add(damping, jitter)
+                return (ops.batched_damped_inv(A, d),
+                        ops.batched_damped_inv(G, d))
+        else:
+            tol = self.iterative.tol
+
+            def attempt(jitter):
+                d = damping if jitter == 0.0 else _f32_add(damping, jitter)
+                return self._iterative_refresh(A, G, d, warm, iters)
+
+            def verdict_fn(outs):
+                fin = health_lib.stacked_all_finite(outs[:2], n)
+                return fin & (outs[2] <= tol) & (outs[3] <= tol)
+        outs, ok, _ = health_lib.run_with_recovery(
+            attempt, damping, cfg, n_layers=n, inject_mask=mask,
+            verdict_fn=verdict_fn, stats=stats,
+        )
+        rounds = stats.pop('slot_rounds')
+        if self.compute_method == ComputeMethod.EIGEN:
+            da, qa, dg, qg = outs
+            fields = self._eigen_fields(b, qa, da, qg, dg, damping)
+        elif self.compute_method == ComputeMethod.INVERSE:
+            fields = dict(a_inv=outs[0].to(self.inv_dtype),
+                          g_inv=outs[1].to(self.inv_dtype))
+        else:
+            fields = self._iterative_fields(outs)
+        return fields, torch.stack([ok.to(torch.int32), rounds], dim=1)
 
     def compute(
         self,
@@ -494,10 +671,23 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         prev: Mapping[str, BucketSecond] | None = None,
         bootstrap: bool = False,
         sketch_step: int = 0,
+        health_stats: dict | None = None,
     ) -> dict[str, BucketSecond]:
         """Recompute this rank's decompositions (inverse-update step):
         phase 1 on this rank's share of its column, phase 2 over the
         column.
+
+        Under health (``prev`` then required) each share runs
+        :meth:`_decompose_guarded`; its per-slot ``(ok, rounds)`` ride the
+        column gather, every rank of the column merges the column with
+        ``prev`` (:func:`~kfac_pytorch_tpu_torch.health.merge_with_prev`),
+        and ``health_stats`` receives the device counters of the whole
+        bucket stacks, every column's slots (one gather over the row):
+        ``retries`` (per bucket the most rounds any slot needed, summed),
+        ``fallbacks`` (slots still failing) and ``quarantined`` (slots
+        quarantined now), with ``host_reads``, the verdict reads of the
+        retry rounds.  With the masks but no health (the consistency
+        guard) ``prev``'s masks carry through as they are.
 
         Low-rank buckets draw their sketches for ``sketch_step`` (the
         inverse-update step) and each slot's index in the whole bucket
@@ -515,12 +705,24 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             iterative_refresh_iters(self.iterative, not bootstrap)
             if self.iterative is not None else 0
         )
+        guarded = self.health is not None
+        if self.masks and prev is None:
+            raise ValueError(
+                'compute() needs the prev buckets under health or the '
+                'consistency guard (the fallback and the quarantine '
+                'masks carry through the refresh)',
+            )
+        stats = {} if health_stats is None else health_stats
         names, shares = [], []
         for b in self.plan.buckets:
             start, stop = collectives.share_bounds(b.seg, grid.rows, grid.row)
             mine = self.local_slots(b)[start:stop]
+            verdict = None
             if not mine:  # a short column: this rank's share is empty
                 fields = self._zero_fields(b, 0)
+                if guarded:
+                    verdict = torch.zeros((0, 2), dtype=torch.int32,
+                                          device=self.device)
             else:
                 A, G = self._stack_bucket_factors(b, mine, layers)
                 warm = None
@@ -528,23 +730,71 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
                     pb = prev[b.key]
                     warm = (pb.a_inv[start:stop], pb.g_inv[start:stop])
                 first = grid.col * b.seg + start
-                fields = self._decompose(
-                    b, A, G, damping, warm, iters,
-                    range(first, first + len(mine)), sketch_step,
-                )
+                if guarded:
+                    fields, verdict = self._decompose_guarded(
+                        b, A, G, damping, warm, iters, first, stats,
+                    )
+                else:
+                    fields = self._decompose(
+                        b, A, G, damping, warm, iters,
+                        range(first, first + len(mine)), sketch_step,
+                    )
             # Declaration order: a bucket's fields are the same on every
-            # rank (low-rank and exact buckets keep different ones).
+            # rank (low-rank and exact buckets keep different ones); the
+            # health verdicts ride last.
             share = BucketSecond(**fields).tensors()
+            if verdict is not None:
+                share['verdict'] = verdict
             names.append(tuple(share))
             shares.append(tuple(share.values()))
         shares = collectives.all_gather_decompositions(
             shares, [b.seg for b in self.plan.buckets], grid.col_group,
             [[n in IDENTITY_PADDED for n in ns] for ns in names],
         )
-        return self._with_ekfac_bases({
-            b.key: BucketSecond(**dict(zip(ns, share)))
-            for b, ns, share in zip(self.plan.buckets, names, shares)
-        }, [b.key for b in self.plan.buckets])
+        out, columns = {}, []
+        for b, ns, share in zip(self.plan.buckets, names, shares):
+            fields = dict(zip(ns, share))
+            verdict = fields.pop('verdict', None)
+            bs = BucketSecond(**fields)
+            if verdict is not None:
+                ok = verdict[:, 0].bool()
+                bs = health_lib.merge_with_prev(bs, prev[b.key], ok,
+                                                self.health)
+                columns.append(torch.stack(
+                    [verdict[:, 0], verdict[:, 1],
+                     bs.quarantined.to(torch.int32)], dim=1))
+            elif self.masks:
+                pb = prev[b.key]
+                bs.fail_count = pb.fail_count
+                bs.quarantined = pb.quarantined
+                bs.ever_ok = pb.ever_ok
+            out[b.key] = bs
+        if guarded:
+            stats.update(self._health_counters(columns))
+        return self._with_ekfac_bases(
+            out, [b.key for b in self.plan.buckets])
+
+    def _health_counters(
+        self, columns: Sequence[torch.Tensor],
+    ) -> dict[str, torch.Tensor]:
+        """The refresh's health counters over every slot of every bucket
+        from each bucket's ``[seg, 3]`` ``(ok, rounds, quarantined)`` of
+        this rank's column, gathered over the row (no collective with one
+        column): the same device scalars on every rank."""
+        (full,) = collectives.all_gather_stacks(
+            [torch.cat(columns)], self.grid.row_group,
+        )
+        full = full.view(self.grid.cols, -1, 3)
+        retries = torch.zeros((), dtype=torch.int32, device=self.device)
+        offset = 0
+        for b in self.plan.buckets:
+            retries = retries + full[:, offset:offset + b.seg, 1].max()
+            offset += b.seg
+        return dict(
+            retries=retries,
+            fallbacks=(1 - full[..., 0]).sum().to(torch.int32),
+            quarantined=full[..., 2].sum().to(torch.int32),
+        )
 
     def compute_shard(
         self,
@@ -743,7 +993,8 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
         eigen goes through the fused kernel's sharded entry point, which
         takes the per-slot sums from the kernel (``Σ v1 ⊙ v2`` in the
         eigenbasis); every other bucket through :meth:`_rotate_bucket`
-        and the row gather."""
+        and the row gather.  A quarantine mask (health, consistency)
+        substitutes the identity on the column before the gather."""
         g = self._grad_stack(b, combined_grads)
         row = self.grid.row_group
         if bs.dgda is not None:
@@ -751,12 +1002,15 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
                 t.to(self.precond_dtype).contiguous()
                 for t in (g, bs.qa, bs.qg, bs.dgda)
             ]
+            kw = dict(group=row, quarantined=bs.quarantined, raw=g)
             if pipelined:
                 return ops.fused_eigen_precondition_sharded_async(
-                    *args, group=row,
+                    *args, **kw,
                 )
-            return ops.fused_eigen_precondition_sharded(*args, group=row)
+            return ops.fused_eigen_precondition_sharded(*args, **kw)
         pg, clip = self._rotate_bucket(b, bs, g, damping)
+        if bs.quarantined is not None:
+            pg, clip = ops.substitute_quarantined(pg, clip, g, bs.quarantined)
         if pipelined:
             return collectives.all_gather_preconditioned_async(pg, clip, row)
         return collectives.all_gather_preconditioned(pg, clip, row)
@@ -863,21 +1117,24 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
         buckets: Mapping[str, BucketSecond],
         contribs: Mapping[str, torch.Tensor],
         decay: float,
+        ok: torch.Tensor | None = None,
     ) -> None:
         """EMA of the scale grids, in place of each bucket's ``skron``:
         ``decay * old + (1 - decay) * contrib`` for every layer in
         ``contribs`` (its mean contribution of the step); a slot without
-        one keeps its scales."""
+        one keeps its scales, and with the health verdict ``ok`` False
+        every slot does."""
         for b in self.plan.buckets:
             bs = buckets[b.key]
             names = self.local_slots(b)
             if bs.skron is None or not any(n in contribs for n in names):
                 continue
-            bs.skron = torch.stack([
+            new = torch.stack([
                 decay * old + (1.0 - decay) * contribs[n]
                 if n in contribs else old
                 for n, old in zip(names, bs.skron)
             ])
+            bs.skron = new if ok is None else torch.where(ok, new, bs.skron)
 
     def ekfac_divergence(
         self, buckets: Mapping[str, BucketSecond],

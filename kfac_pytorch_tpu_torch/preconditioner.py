@@ -64,6 +64,14 @@ on a side CUDA stream while the next forward and backward are enqueued
 ``pipeline_grads=True`` issues each bucket's gradient gather across
 ranks as soon as that bucket is rotated.
 
+The guardrails of the JAX package run on the same main path, the fused
+kernel included::
+
+    precond = KFACPreconditioner(
+        model, health=HealthConfig(),            # step-skip, retries,
+        consistency=ConsistencyConfig(cadence=10),  # cross-rank checks
+    )
+
 Every JAX option this slice does not port raises ``NotImplementedError``
 naming its ``ROADMAP.md`` item; none is silently ignored.  The JAX
 ``loss_fn``/``apply_kwargs`` have no counterpart: the caller runs the
@@ -81,10 +89,12 @@ from torch import nn
 from kfac_pytorch_tpu_torch.base_preconditioner import BaseKFACPreconditioner
 from kfac_pytorch_tpu_torch.capture import DEFAULT_LAYER_TYPES
 from kfac_pytorch_tpu_torch.capture import ModelCapture
+from kfac_pytorch_tpu_torch.consistency import ConsistencyConfig
 from kfac_pytorch_tpu_torch.enums import AssignmentStrategy
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
 from kfac_pytorch_tpu_torch.enums import DistributedStrategy
 from kfac_pytorch_tpu_torch.enums import resolve_grad_worker_fraction
+from kfac_pytorch_tpu_torch.health import HealthConfig
 from kfac_pytorch_tpu_torch.ops import IterativeConfig
 from kfac_pytorch_tpu_torch.parallel.mesh import data_world
 
@@ -222,6 +232,25 @@ make_pipeline_order`'s order (descending gather bytes), so the next
             applied after every gather is waited on, with the clip terms
             summed in plan order, so the result is the synchronous
             tail's bit for bit.  Bucketed only.
+        health: a :class:`~kfac_pytorch_tpu_torch.health.HealthConfig`
+            turns on the numerical-health guardrails
+            (:mod:`~kfac_pytorch_tpu_torch.health`): a non-finite step
+            is skipped (the factor EMAs kept bitwise, the gradients
+            zeroed; on the fused path no optimizer step either), a failed
+            decomposition retries with escalated jitter, falls back to
+            the last good one and quarantines its slot to SGD, and a
+            non-finite factor EMA is reset at refresh time; counters in
+            ``last_step_info['health/*']``.  The fused kernel stays on:
+            a quarantined slot's output is replaced after it.  Bucketed
+            only; exclusive with ``lowrank_rank``, ``stagger_refresh``
+            and ``overlap_comm``.
+        consistency: a :class:`~kfac_pytorch_tpu_torch.consistency.\
+ConsistencyConfig` turns on the cross-replica consistency guard: every
+            ``cadence`` steps the replicated state is digested and
+            compared across ranks, and a divergence is repaired by
+            broadcast, re-bootstrapped and, if it persists, quarantined
+            (``last_step_info['consistency/*']``).  Bucketed only;
+            exclusive with ``lowrank_rank``.
         factor_comm: ``'bf16_triu'`` reduces the symmetric factors of
             linear and conv2d layers as packed upper triangles summed in
             bf16 (lossy; about a quarter of the dense bytes); other
@@ -419,11 +448,48 @@ make_pipeline_order`'s order (descending gather bytes), so the next
                     stacklevel=2,
                 )
                 factor_comm = None
+        # The guardrails' exclusions (JAX base_preconditioner.py:337-385).
+        if health is not None:
+            if bucketed is False:
+                raise ValueError(
+                    'health guardrails require the bucketed second-'
+                    'order stage (the per-slot quarantine masks live in '
+                    'the bucket stacks) — drop bucketed=False or '
+                    'health',
+                )
+            if lowrank_rank is not None:
+                raise ValueError(
+                    'health and lowrank_rank are mutually exclusive: '
+                    'the randomized decomposition is not health-'
+                    'instrumented yet',
+                )
+            if not isinstance(health, HealthConfig):
+                raise TypeError(
+                    f'health must be a HealthConfig or None, got '
+                    f'{type(health).__name__}',
+                )
+        if consistency is not None:
+            if not isinstance(consistency, ConsistencyConfig):
+                raise TypeError(
+                    'consistency must be a ConsistencyConfig or None, '
+                    f'got {type(consistency).__name__}',
+                )
+            if bucketed is False:
+                raise ValueError(
+                    'the consistency guard requires the bucketed '
+                    'second-order stage (its digests and quarantine '
+                    'masks live in the bucket stacks) — drop '
+                    'bucketed=False or consistency',
+                )
+            if lowrank_rank is not None:
+                raise ValueError(
+                    'consistency and lowrank_rank are mutually '
+                    'exclusive: the truncated decomposition path has '
+                    'no per-slot quarantine masks',
+                )
         unported = [
             ('topology', topology is not None, 'item 29'),
-            ('health', health is not None, 'item 19'),
-            ('consistency', consistency is not None, 'item 21'),
-            ('watchdog', watchdog is not None, 'item 21'),
+            ('watchdog', watchdog is not None, 'item 21b'),
             ('observe', observe is not None, 'item 23'),
             ('flight', flight is not None, 'item 23'),
             ('compile_budget', compile_budget is not None, 'item 31'),
@@ -493,6 +559,8 @@ make_pipeline_order`'s order (descending gather bytes), so the next
             factor_comm=factor_comm,
             overlap_comm=overlap_comm,
             pipeline_grads=pipeline_grads,
+            health=health,
+            consistency=consistency,
             loglevel=loglevel,
         )
         # The fused path's forward and backward go through the wrapper.

@@ -4,9 +4,11 @@ Port of ``MetricsWriter`` and ``ProgressMeter``
 (``kfac_pytorch_tpu/utils/metrics.py:113,272``): every scalar goes to an
 append-only ``metrics.jsonl`` (``{"tag", "value", "step", "time"}`` per
 line), mirrored to TensorBoard through ``torch.utils.tensorboard`` when
-that imports; only rank 0 of ``torch.distributed`` writes.  The health,
-observe and watchdog scalars of the JAX module wait for the subsystems
-that produce them (``ROADMAP.md`` Queue A items 19, 21 and 23).
+that imports; only rank 0 of ``torch.distributed`` writes.
+:func:`health_scalars` flattens the ``health/*`` counters of
+``last_step_info`` for ``metrics.jsonl``; the observe and watchdog
+scalars of the JAX module wait for the subsystems that produce them
+(``ROADMAP.md`` Queue A items 21b and 23).
 """
 from __future__ import annotations
 
@@ -31,6 +33,29 @@ def flatten_scalars(
         else:
             out[key] = float(value)
     return out
+
+
+def _prefixed_scalars(
+    last_step_info: Mapping[str, Any] | None, prefix: str,
+) -> dict[str, float]:
+    if not last_step_info:
+        return {}
+    return {
+        tag: value
+        for tag, value in flatten_scalars(last_step_info).items()
+        if tag.startswith(prefix)
+    }
+
+
+def health_scalars(
+    last_step_info: Mapping[str, Any] | None,
+) -> dict[str, float]:
+    """The ``health/*`` counters of ``precond.last_step_info`` as host
+    floats (JAX ``utils/metrics.py:70-83``; one host read per value, so
+    sample at the logging cadence), empty when the guardrails are off.
+    Host-side events are tallied in :func:`kfac_pytorch_tpu_torch.\
+tracing.get_events`."""
+    return _prefixed_scalars(last_step_info, 'health/')
 
 
 def _rank() -> int:

@@ -57,7 +57,8 @@ def test_scan_finds_the_port():
                    'examples/cnn_utils/datasets.py',
                    'examples/cnn_utils/engine.py',
                    'examples/cnn_utils/optimizers.py', 'ops/lowrank.py',
-                   'ops/ekfac.py', 'adaptive.py'):
+                   'ops/ekfac.py', 'adaptive.py', 'health.py',
+                   'consistency.py', 'tracing.py', 'testing.py'):
         assert port / module in files, module
 
 

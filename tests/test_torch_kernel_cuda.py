@@ -10,7 +10,10 @@ Tolerance: f32 at ``tests/test_pallas.py``'s bar (``rtol 1e-5, atol
 1e-4``) for orthonormal eigenbases, where every intermediate is O(1)
 and the two sides differ only in summation order; clips bitwise equal
 across two runs (the kernel sums without atomics); bf16 operands
-within a mean relative error of 1e-3 of the plain bf16 chain.
+within a mean relative error of 1e-3 of the plain bf16 chain.  Under a
+quarantine mask (the health guardrails and the consistency guard) the
+sharded entry point substitutes the identity after the kernel: the
+quarantined slots are the raw gradient bit for bit.
 """
 from __future__ import annotations
 
@@ -88,3 +91,85 @@ def test_kernel_matches_plain_on_card(L, gp, ap, dtype):
         return
     torch.testing.assert_close(pg, want_pg, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(clip, want_clip, rtol=1e-5, atol=1e-3)
+
+
+#: ResNet-32's six bucket stacks, f32 and bf16, for the quarantine
+#: substitution behind the kernel.
+QUARANTINE_CASES = [
+    (9, 64, 576), (1, 64, 320), (9, 32, 320), (11, 32, 192), (1, 32, 128),
+    (1, 32, 32),
+]
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('L,gp,ap', QUARANTINE_CASES)
+def test_kernel_with_quarantine_matches_plain_on_card(L, gp, ap, dtype):
+    """The sharded entry point (no gather on one rank) with a quarantine
+    mask: the kernel, then the identity substitution on its output,
+    against the plain chain with the same mask.  Quarantined slots are
+    the f32 gradient bit for bit, with the clip term ``<g, g>``; the
+    other slots are the kernel's own output bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    from kfac_pytorch_tpu_torch.ops import fused_eigen_precondition_sharded
+    from kfac_pytorch_tpu_torch.ops import (
+        fused_eigen_precondition_sharded_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _inputs(L, gp, ap, 'cuda', seed=L + gp + ap + 1)
+    raw = args[0]
+    if dtype == 'bf16':
+        args = [a.to(torch.bfloat16) for a in args]
+    mask = torch.zeros(L, dtype=torch.bool, device='cuda')
+    mask[::2] = True
+    before = fused_eigen_precondition.launches
+    pg, clip = fused_eigen_precondition_sharded(*args, quarantined=mask,
+                                                raw=raw)
+    torch.cuda.synchronize()
+    assert fused_eigen_precondition.launches == before + 1
+    kpg, kclip = fused_eigen_precondition(*args)
+    want_pg, want_clip = fused_eigen_precondition_sharded_reference(
+        *args, quarantined=mask, raw=raw)
+    q = mask.cpu()
+    assert torch.equal(pg[q], raw[q])
+    assert torch.equal(clip[q], torch.sum(raw * raw, dim=(1, 2))[q])
+    assert torch.equal(pg[~q], kpg[~q]) and torch.equal(clip[~q], kclip[~q])
+    if dtype == 'bf16':
+        err = (pg - want_pg).abs().mean() / want_pg.abs().mean()
+        assert float(err) < 1e-3
+        return
+    torch.testing.assert_close(pg, want_pg, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(clip, want_clip, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_health_verdict_on_card(dtype):
+    """The step verdict's fused reduction (``torch._foreach_norm`` with
+    ``ord=inf`` over ResNet-50-like tensor sizes) on CUDA tensors: a NaN
+    or an infinity in any one tensor, at any position, fails it (the
+    multi-tensor kernel propagates NaN into the max), and the zeroing
+    select is bitwise where the verdict passes."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from kfac_pytorch_tpu_torch import health
+
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    sizes = [(64, 3, 7, 7), (64,), (256, 64, 1, 1), (1000, 2048), (1000,),
+             (512, 512, 3, 3), (7,), (1,)]
+    tensors = [torch.randn(s, generator=gen, device='cuda').to(dtype)
+               for s in sizes]
+    ok = health.tree_all_finite(tensors)
+    assert bool(ok)
+    zeroed = health.zero_unless(ok, tensors)
+    assert all(torch.equal(a, b) for a, b in zip(zeroed, tensors))
+    for k in range(len(sizes)):
+        for value in (float('nan'), float('inf'), float('-inf')):
+            bad = [t.clone() for t in tensors]
+            flat = bad[k].view(-1)
+            flat[(k * 7919) % flat.numel()] = value
+            verdict = health.tree_all_finite(bad)
+            assert not bool(verdict), (k, value)
+            assert all(float(t.abs().sum()) == 0.0
+                       for t in health.zero_unless(verdict, bad))

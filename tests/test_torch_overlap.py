@@ -421,8 +421,8 @@ def test_validation_matches_jax():
         with pytest.raises(ValueError, match=word) as got:
             KFACPreconditioner(TinyModel(), overlap_comm=True, **pkw)
         assert str(got.value) == str(want.value)
-    # health alone is still not ported.
-    with pytest.raises(NotImplementedError, match='item 19'):
+    # health alone is ported (item 19): a non-config is JAX's TypeError.
+    with pytest.raises(TypeError, match='HealthConfig'):
         KFACPreconditioner(TinyModel(), health=object())
 
 

@@ -221,7 +221,7 @@ def test_validation():
         KFACPreconditioner(net, stagger_refresh=2, lowrank_rank=8, **HP)
     with pytest.raises(ValueError, match='health'):
         KFACPreconditioner(net, stagger_refresh=2, health=object(), **HP)
-    with pytest.raises(NotImplementedError, match='item 19'):
+    with pytest.raises(TypeError, match='HealthConfig'):
         KFACPreconditioner(net, health=object(), **HP)
     KFACPreconditioner(net, stagger_refresh=2, ekfac=True, **HP)
 
