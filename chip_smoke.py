@@ -246,7 +246,34 @@ fails:
     repaired; ``repair='detect'`` counting and leaving the divergence;
     the same counters on every rank; the sharded kernel 21 times a
     step.  Prints the check step's extra time over a plain step and the
-    bytes each check gathers.
+    bytes each check gathers;
+22. streaming checkpoints on ResNet-50 (phase 9's widths and batch,
+    factor 1, inv 4, SGD momentum): ``elastic.save_streaming`` after
+    step 2 with the model and SGD state as extras, training on to step
+    5 and a second save cut short (``testing.corrupt_checkpoint``); a
+    fresh model and preconditioner ``restore_streaming`` (the walk skips
+    and names the cut generation) and replay steps 3-5: parameters and
+    the first replayed step's preconditioned gradients bitwise the
+    uninterrupted run's, no ``eigh`` call and no decomposition kernel
+    (``torch.profiler``) between the restore and that step, 21 fused
+    launches on it, the kernel against its plain version on the
+    restored stacks.  Then a resize: world 4 at MEM-OPT (four columns)
+    on one card over gloo, 8 images a rank, saves after step 1; world 2
+    at HYBRID-OPT (two columns) restores: the factor EMAs and every
+    transplanted slot bitwise the saved values, the bootstrap flags
+    down, the sharded kernel on the transplanted stacks (against its
+    plain version through the grid row), the next due refresh forced to
+    the monolithic bootstrap.  Prints the generation's bytes, the save
+    and restore times, the slot counts and one monolithic refresh time;
+23. the trajectory watchdog on ResNet-50 through ``train_loop``: a
+    finite poison of every factor EMA (x1e-4, once) detected at a check
+    through ``vg_sum``, softened (rung 1), then
+    rolled back (rung 2) onto the newest ``healthy`` generation with
+    the factor EMAs, stacks, model and SGD state bitwise as saved, the
+    damping and kl-clip escalated on re-entry, a clean replay with 21
+    fused launches a step, one host read per check; then two ranks
+    (ResNet-32, gloo) with different local losses take the same rungs
+    through one all-reduce per check.
 
 Then the bench's ``micro_mlp``, ``inverse_root`` and
 ``secondary_rn50_inverse`` stages run once (the K-FAC ones at inv 20,
@@ -4879,6 +4906,765 @@ def phase_bert(torch, kt):
     return launches
 
 
+#: Phase 22: streaming checkpoints on ResNet-50 (phase 9's widths and
+#: batch, f32, TF32 off), a factor update every step and a refresh every
+#: 4 (at 0 and 4).  The single-card run saves the generation after step
+#: 2, trains to step 5 and saves again; a fresh model and preconditioner
+#: restore (the second generation cut short, so the walk skips it) and
+#: replay steps 3-5.
+RN50_ELASTIC_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=4)
+RN50_ELASTIC_STEPS = 6
+RN50_ELASTIC_SAVE = 3  # steps done at the save: the replay starts at 3
+#: The resize: four spawned ranks on one card over gloo at MEM-OPT (1x4,
+#: four columns; HYBRID-OPT at world 4 keeps the two columns of world 2,
+#: so its restore would install the stacks as they are), frozen weights,
+#: 8 images a rank, steps 0-1 (the bootstrap at 0, stagger shard 1 at 1),
+#: then the save; ranks 0-1 restore at HYBRID-OPT (1x2) and run steps
+#: 2-4: 2 and 3 through the transplanted stacks, 4 the next due refresh,
+#: which the resize forces to the monolithic bootstrap (shard 0 of
+#: ``stagger_refresh=2`` otherwise).
+RN50_RESIZE_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=4,
+                      stagger_refresh=2)
+RN50_RESIZE_SAVE = 2
+RN50_RESIZE_STOP = 5
+RN50_RESIZE_WORLDS = (4, 2)
+RN50_RESIZE_TIMEOUT_S = 300
+#: ``(model, classes)`` of phases 22-23 (a CPU rehearsal takes a smaller
+#: one).
+ELASTIC_MODEL = ('resnet50', 1000)
+
+
+def elastic_model(torch, kt, hp, seed, optimizer=True):
+    """ResNet-50 (``ELASTIC_MODEL``), SGD with momentum 0.9 and a
+    preconditioner with ``hp``."""
+    name, classes = ELASTIC_MODEL
+    model = getattr(kt.models, name)(num_classes=classes, device=DEVICE,
+                                     seed=seed)
+    opt = (torch.optim.SGD(model.parameters(), lr=hp['lr'], momentum=0.9)
+           if optimizer else None)
+    return model, opt, kt.KFACPreconditioner(model, **hp)
+
+
+def cuda_kernel_names(torch, prof) -> set:
+    """Names of the CUDA kernels a profiler session saw, without their
+    argument lists."""
+    return {evt.name.replace('(anonymous namespace)::', '').split('(')[0]
+            for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def profile_session(torch, fn):
+    """``(fn's result, CUDA kernel names)`` from one ``torch.profiler``
+    session of the card's activity only (an empty set off the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEVICE != 'cuda':
+        return fn(), set()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, cuda_kernel_names(torch, prof)
+
+
+def eigh_kernel_names(torch) -> set:
+    """cuSOLVER's kernels of ``torch.linalg.eigh`` on the bucket sides'
+    kind of input (a batch of 64-wide and one 1024-wide f32 SPD
+    matrices), from the profiler: every kernel it launches but copies,
+    memsets, PyTorch's own (``at::native``) and the BLAS (cuBLAS and
+    CUTLASS GEMMs, which a plain step runs too)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    mats = [torch.randn(2, 64, 96, generator=gen, device=DEVICE),
+            torch.randn(1, 1024, 1536, generator=gen, device=DEVICE)]
+    spd = [m @ m.mT for m in mats]
+    _, names = profile_session(torch, lambda: [torch.linalg.eigh(a)
+                                               for a in spd])
+    generic = ('Memcpy', 'Memset', 'at::native', 'cublas', 'cutlass', 'gemm')
+    return {n for n in names if not any(g in n for g in generic)}
+
+
+def restored_kernel_check(torch, kt, precond, raw, group=None):
+    """The fused kernel (the sharded form with a ``group``) against its
+    plain version on the live stacks of every bucket that keeps ``dgda``,
+    twice: with the raw gradient stacks ``raw``, and with unit-Gaussian
+    gradients, phase 2's inputs, where ``rtol 1e-5, atol 1e-4`` binds on
+    ``pg`` (``atol 1e-3`` on the clip terms, whose sums are larger);
+    the launches are not counted.  Returns the largest absolute errors
+    of ``pg`` and the largest ``|pg|`` of the plain version, for both:
+    ``{'raw': (err, max_want), 'gauss': (err, max_want)}``."""
+    from kfac_pytorch_tpu_torch.ops import fused_precond as fp
+
+    kernel = kt.ops.fused_eigen_precondition
+    count = kernel.launches
+    so = precond._second_order
+    gen = torch.Generator(device=precond.device)
+    gen.manual_seed(23)
+    out = {'raw': (0.0, 0.0), 'gauss': (0.0, 0.0)}
+    for b in precond.plan.buckets:
+        bs = precond.buckets[b.key]
+        if bs.dgda is None:
+            continue
+        g_raw = so._grad_stack(b, raw).contiguous()
+        g_unit = torch.randn(g_raw.shape, generator=gen,
+                             device=precond.device)
+        for kind, g, atol_clip in (('raw', g_raw, 1e-4),
+                                   ('gauss', g_unit, 1e-3)):
+            args = [t.contiguous() for t in (g, bs.qa, bs.qg, bs.dgda)]
+            if group is None:
+                got = kernel(*args)
+                want = fp.fused_eigen_precondition_reference(*args)
+            else:
+                got = fp.fused_eigen_precondition_sharded(*args, group=group)
+                want = fp.fused_eigen_precondition_sharded_reference(
+                    *args, group=group)
+            for g_, w, atol in zip(got, want, (1e-4, atol_clip)):
+                if not torch.allclose(g_, w, rtol=1e-5, atol=atol):
+                    fail(f'elastic: the kernel on the restored {b.key} '
+                         f'stacks with {kind} gradients differs from its '
+                         f'plain version by {float((g_ - w).abs().max()):.3e}'
+                         f' (max |plain| {float(w.abs().max()):.3e})')
+            err, top = out[kind]
+            out[kind] = (max(err, float((got[0] - want[0]).abs().max())),
+                         max(top, float(want[0].abs().max())))
+    kernel.launches = count
+    return out
+
+
+def kernel_check_text(check) -> str:
+    """:func:`restored_kernel_check`'s result as a phase line reads it."""
+    return '; '.join(
+        f'{kind} gradients max abs err {err:.3e} at max |pg| {top:.3e}'
+        for kind, (err, top) in check.items())
+
+
+def elastic_replay(torch, kt, workdir, x, y):
+    """Restore the newest valid generation of ``workdir`` into a fresh
+    model, SGD and preconditioner and replay steps ``RN50_ELASTIC_SAVE``
+    to the end.  The restore and the first replayed step run in one
+    profiler session with ``torch.linalg.eigh`` spied on; step 5 (no
+    refresh) in another, the plain-step baseline.  Returns the final
+    parameters, the first step's gradients and the checks."""
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch import elastic
+    from kfac_pytorch_tpu_torch.engine import load_training_extras
+
+    model, opt, precond = elastic_model(torch, kt, RN50_ELASTIC_HP, seed=1)
+    kernel = kt.ops.fused_eigen_precondition
+    out = {}
+    eigh_calls = []
+    real_eigh = torch.linalg.eigh
+
+    def spy(*a, **k):
+        eigh_calls.append(1)
+        return real_eigh(*a, **k)
+
+    def restore_and_first_step():
+        t0 = time.perf_counter()
+        info = elastic.restore_streaming(workdir, precond)
+        load_training_extras(model, opt, info['extras'])
+        if DEVICE == 'cuda':
+            torch.cuda.synchronize()
+        out['restore_s'] = time.perf_counter() - t0
+        opt.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+        raw = {n: h.get_grad().clone() for n, h in precond.helpers.items()}
+        kernel.launches = 0
+        precond.step()
+        out['first_launches'] = kernel.launches
+        out['grads'] = [p.grad.detach().clone() for p in model.parameters()]
+        opt.step()
+        return info, raw
+
+    torch.cuda.synchronize()
+    torch.linalg.eigh = spy
+    try:
+        (info, raw), out['restore_kernels'] = profile_session(
+            torch, restore_and_first_step)
+    finally:
+        torch.linalg.eigh = real_eigh
+    out['eigh_calls'] = len(eigh_calls)
+    out['info'] = {k: v for k, v in info.items() if k != 'extras'}
+    out['kernel_check'] = restored_kernel_check(torch, kt, precond, raw)
+    launches = out['first_launches']
+    for t in range(RN50_ELASTIC_SAVE + 1, RN50_ELASTIC_STEPS):
+        opt.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+        kernel.launches = 0
+        precond.step()
+        launches += kernel.launches
+        opt.step()
+    out['launches'] = launches
+    out['params'] = [p.detach().clone() for p in model.parameters()]
+    out['buckets'] = kernel_buckets(precond)
+    # One monolithic refresh for scale (CUDA events).
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    s.record()
+    precond._refresh(precond.damping)
+    e.record()
+    e.synchronize()
+    out['refresh_ms'] = s.elapsed_time(e)
+    del model, opt, precond
+    gc.collect()
+    return out
+
+
+def rn50_elastic_single(torch, kt, workdir):
+    """Phase 22's single-card part: the uninterrupted run with its two
+    saves, the second cut short, then :func:`elastic_replay`."""
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch import elastic
+    from kfac_pytorch_tpu_torch.engine import training_extras
+
+    x, y = rn50_batch(torch)
+    y = y % ELASTIC_MODEL[1]
+    model, opt, precond = elastic_model(torch, kt, RN50_ELASTIC_HP, seed=0)
+    out = {}
+    for t in range(RN50_ELASTIC_STEPS):
+        opt.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+        precond.step()
+        if t == RN50_ELASTIC_SAVE:
+            out['grads'] = [p.grad.detach().clone()
+                            for p in model.parameters()]
+        opt.step()
+        if precond.steps == RN50_ELASTIC_SAVE:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = elastic.save_streaming(
+                workdir, precond, extras=training_extras(model, opt))
+            out['save_s'] = time.perf_counter() - t0
+            out['gen'] = gen
+            out['bytes'] = elastic.generation_bytes(gen)
+            out['shards'] = len(os.listdir(gen)) - 1
+            print(f'resnet50 elastic: saved {out["bytes"]} bytes in '
+                  f'{out["save_s"]:.3f} s', flush=True)
+    out['params'] = [p.detach().clone() for p in model.parameters()]
+    torn = elastic.save_streaming(workdir, precond,
+                                  extras=training_extras(model, opt))
+    out['torn_files'] = kt.testing.corrupt_checkpoint(torn)
+    out['torn'] = os.path.basename(torn)
+    del model, opt, precond
+    gc.collect()
+    torch.cuda.empty_cache()
+    out['eigh_kernels'] = eigh_kernel_names(torch)
+    for attempt in range(3):
+        replay = elastic_replay(torch, kt, workdir, x, y)
+        print(f'resnet50 elastic: restored in {replay["restore_s"]:.3f} s',
+              flush=True)
+        if DEVICE != 'cuda' or any('precond_forward' in n for n in
+                                   replay['restore_kernels']):
+            break
+        print(f'resnet50 elastic: profiler session {attempt} saw no fused '
+              f'kernel ({len(replay["restore_kernels"])} kernels); '
+              'replaying again', flush=True)
+    else:
+        fail('resnet50 elastic: three profiler sessions of the restore saw '
+             'no fused kernel')
+    return out, replay
+
+
+def elastic_rank(rank, world, backend, device_type, workdir, image, batch,
+                 model_name):
+    """One rank of phase 22's resize; writes ``resize{rank}.pt``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch import elastic
+    from kfac_pytorch_tpu_torch.parallel.bucketing import signature_slot_map
+
+    def device():
+        if device_type != 'cuda':
+            return torch.device('cpu')
+        dev = torch.device(
+            'cuda',
+            rank % torch.cuda.device_count() if backend == 'nccl' else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return dev
+
+    def sync():
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+
+    def engine(w, strategy):
+        model = getattr(kt.models, model_name[0])(
+            num_classes=model_name[1], device=dev, seed=0)
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=None if dev.index is None else [dev.index])
+        return ddp, kt.KFACPreconditioner(
+            ddp, grad_worker_fraction=strategy, **RN50_RESIZE_HP)
+
+    def local(w):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        x = torch.randn(batch, 3, image, image, generator=gen, device=dev)
+        y = torch.randint(0, model_name[1], (batch,), generator=gen,
+                          device=dev)
+        q = batch // w
+        return x[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
+
+    dev = device()
+    save_world, restore_world = RN50_RESIZE_WORLDS
+    gen_dir = os.path.join(workdir, 'gens')
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_a', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=240))
+    ddp, precond = engine(save_world, kt.DistributedStrategy.MEM_OPT)
+    xl, yl = local(save_world)
+    for _ in range(RN50_RESIZE_SAVE):
+        ddp.zero_grad()
+        F.cross_entropy(ddp(xl), yl).backward()
+        precond.step()
+    sync()
+    t0 = time.perf_counter()
+    gen = elastic.save_streaming(gen_dir, precond)
+    rec = dict(save_s=time.perf_counter() - t0,
+               saved_grid=(precond.grid.rows, precond.grid.cols))
+    del ddp, precond
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank >= restore_world:
+        torch.save(rec, os.path.join(workdir, f'resize{rank}.pt'))
+        return
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_b', rank=rank,
+        world_size=restore_world, timeout=datetime.timedelta(seconds=240))
+    ddp, precond = engine(restore_world, kt.DistributedStrategy.HYBRID_OPT)
+    sync()
+    t0 = time.perf_counter()
+    info = elastic.restore_streaming(gen_dir, precond)
+    sync()
+    rec['restore_s'] = time.perf_counter() - t0
+    rec['info'] = {k: v for k, v in info.items() if k != 'extras'}
+    rec['grid'] = (precond.grid.rows, precond.grid.cols)
+    rec['flags'] = (precond._stagger_bootstrapped,
+                    precond._iter_bootstrapped,
+                    precond._overlap_bootstrapped)
+    # The restacked EMAs and the transplanted slots of this rank's
+    # column against the saved per-layer values, bit for bit.
+    meta, shards = elastic._load_generation(gen)
+    saved_sig = meta['topology']['signature']
+    slot_of = signature_slot_map(saved_sig)
+    saved_pads = {b['key']: sum(n is None for n in b['slots'])
+                  for b in saved_sig['buckets']}
+    layers = shards['layers.npz']
+    rec['factors_bitwise'] = all(
+        np.array_equal(st.a_factor.cpu().numpy(),
+                       layers[f'{n}::a_factor'])
+        and np.array_equal(st.g_factor.cpu().numpy(),
+                           layers[f'{n}::g_factor'])
+        for n, st in precond.layers.items())
+    slots = dict(occupied=0, bitwise=0, pads=0, donated=0, synthesized=0)
+    for b in precond.plan.buckets:
+        saved = shards[f'bucket-{b.key}.npz']
+        live = precond.buckets[b.key].stack_fields()
+        for i, name in enumerate(b.column_slots(precond.grid.col)):
+            if name is None:
+                slots['pads'] += 1
+                slots['donated' if saved_pads[b.key] else 'synthesized'] += 1
+                continue
+            _, oslot = slot_of[name]
+            slots['occupied'] += 1
+            slots['bitwise'] += all(
+                np.array_equal(t[i].cpu().numpy(), saved[f][oslot])
+                for f, t in live.items())
+    rec['slots'] = slots
+    rec['saved_slots'] = sum(len(b['slots']) for b in saved_sig['buckets'])
+    rec['live_slots'] = sum(b.n_slots for b in precond.plan.buckets)
+    del shards, layers
+    kernel = kt.ops.fused_eigen_precondition
+    xl, yl = local(restore_world)
+    rec['refresh'] = []
+    launches = 0
+    for t in range(RN50_RESIZE_SAVE, RN50_RESIZE_STOP):
+        ddp.zero_grad()
+        F.cross_entropy(ddp(xl), yl).backward()
+        raw = {n: h.get_grad().clone() for n, h in precond.helpers.items()}
+        kernel.launches = 0
+        precond.step()
+        launches += kernel.launches
+        rec['refresh'].append(precond.last_refresh)
+        if t == RN50_RESIZE_SAVE:
+            rec['kernel_check'] = restored_kernel_check(
+                torch, kt, precond, raw, group=precond.grid.row_group)
+    sync()
+    rec['launches'] = launches
+    rec['buckets'] = kernel_buckets(precond)
+    torch.save(rec, os.path.join(workdir, f'resize{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_resnet50_elastic(torch, kt):
+    """Phase 22: streaming checkpoints (budget 45 s).  Single card: the
+    replay from the generation saved after step 2 ends bitwise equal to
+    the uninterrupted run (parameters after step 5 and the first replayed
+    step's preconditioned gradients, cuDNN deterministic); the walk skips
+    the cut-short newer generation and names it; between the restore and
+    the first replayed step no ``torch.linalg.eigh`` call and none of
+    the kernels ``eigh`` launches (:func:`eigh_kernel_names`) runs, while
+    the fused kernel does, 21 launches, and matches its plain version on the restored
+    stacks (:func:`restored_kernel_check`).  Resize: world 4 at MEM-OPT saves, world 2 at HYBRID-OPT
+    restores: every occupied slot of each rank's column and every factor
+    EMA bitwise the saved values, the bootstrap flags down, steps 2-3
+    through the transplanted stacks with the sharded kernel (21 launches
+    a step a rank, held against its plain version through the row), step
+    4 the forced monolithic refresh.  Returns the launches of both."""
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    label = 'resnet50 elastic'
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix='elastic_') as workdir:
+            full, replay = rn50_elastic_single(torch, kt, workdir)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    per_step = replay['buckets'] if DEVICE == 'cuda' else 0
+    if DEVICE == 'cuda' and ELASTIC_MODEL[0] == 'resnet50' and per_step != 21:
+        fail(f'{label}: {per_step} buckets keep dgda, not 21')
+    info = replay['info']
+    if not (info['generation'] == f'gen-{RN50_ELASTIC_SAVE:08d}'
+            and [s['generation'] for s in info['skipped']] == [full['torn']]
+            and info['decompositions_installed'] and not info['recomputed']
+            and not info['resized']):
+        fail(f'{label}: restore info {info}')
+    if not all(torch.equal(a, b) for a, b in zip(full['params'],
+                                                 replay['params'])):
+        fail(f'{label}: the replayed parameters differ from the '
+             'uninterrupted run\'s')
+    if not all(torch.equal(a, b) for a, b in zip(full['grads'],
+                                                 replay['grads'])):
+        fail(f'{label}: the first replayed step\'s preconditioned '
+             'gradients differ from the uninterrupted run\'s')
+    if replay['first_launches'] != per_step or replay['launches'] != (
+            RN50_ELASTIC_STEPS - RN50_ELASTIC_SAVE) * per_step:
+        fail(f'{label}: launches {replay["first_launches"]} on the first '
+             f'replayed step, {replay["launches"]} in all')
+    solver = full['eigh_kernels']
+    seen = solver & replay['restore_kernels']
+    if replay['eigh_calls'] or seen or (DEVICE == 'cuda' and not solver):
+        fail(f'{label}: between the restore and the first replayed step '
+             f'{replay["eigh_calls"]} eigh calls and decomposition kernels '
+             f'{sorted(seen)} (eigh\'s kernels: {sorted(solver)})')
+    print(f'{label}: ResNet-50 batch {RN50_BATCH} at {RN50_IMAGE}x'
+          f'{RN50_IMAGE}, factor 1, inv 4; generation after step '
+          f'{RN50_ELASTIC_SAVE - 1}: {full["bytes"]} bytes in '
+          f'{full["shards"]} files (counted by its manifest), save '
+          f'{full["save_s"]:.3f} s; restore {replay["restore_s"]:.3f} s '
+          f'(walk, CRC checks, install, model and SGD state loaded; '
+          f'skipped {info["skipped"][0]["generation"]}: '
+          f'{info["skipped"][0]["error"][:80]}); replayed steps '
+          f'{RN50_ELASTIC_SAVE}-{RN50_ELASTIC_STEPS - 1} bitwise the '
+          f'uninterrupted run (parameters, first-step gradients); '
+          f'{replay["eigh_calls"]} eigh calls and no decomposition kernel '
+          f'between the restore and the first replayed step (of the '
+          f'{len(solver)} eigh launches: {sorted(solver)[:4]}...); '
+          f'fused kernel launches {replay["first_launches"]} on that step, '
+          f'{replay["launches"]} in the replay, against its plain version '
+          f'on the restored stacks: '
+          f'{kernel_check_text(replay["kernel_check"])}; one monolithic '
+          f'refresh {replay["refresh_ms"]:.3f} ms (CUDA events)', flush=True)
+    single_launches = replay['launches']
+    checks = [replay['kernel_check']]
+    del full, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    world = RN50_RESIZE_WORLDS[0]
+    backend = default_backend(world) if DEVICE == 'cuda' else 'gloo'
+    ranks = spawn_ranks(torch, elastic_rank, world, backend,
+                        (RN50_IMAGE, RN50_BATCH, ELASTIC_MODEL),
+                        RN50_RESIZE_TIMEOUT_S, 'resnet50 resize', 'resize')
+    label = 'resnet50 resize'
+    restored = ranks[:RN50_RESIZE_WORLDS[1]]
+    steps = RN50_RESIZE_STOP - RN50_RESIZE_SAVE
+    for i, r in enumerate(restored):
+        s = r['slots']
+        if not (r['info']['resized'] and not r['info']['recomputed']
+                and r['saved_grid'] == (1, 4) and r['grid'] == (1, 2)
+                and r['flags'] == (False, False, False)
+                and r['factors_bitwise'] and s['bitwise'] == s['occupied']
+                and r['refresh'] == [None, None, 'full']):
+            fail(f'{label} rank {i}: {r}')
+        if DEVICE == 'cuda' and r['launches'] != steps * r['buckets']:
+            fail(f'{label} rank {i}: {r["launches"]} launches, expected '
+                 f'{steps} x {r["buckets"]}')
+    occupied = sum(r['slots']['occupied'] for r in restored)
+    print(f'{label}: world {world} MEM-OPT (1x4) saved after step '
+          f'{RN50_RESIZE_SAVE - 1} in {ranks[0]["save_s"]:.3f} s (rank 0 '
+          f'writes after the row gathers); world {RN50_RESIZE_WORLDS[1]} '
+          f'HYBRID-OPT (1x2) restored in '
+          f'{[round(r["restore_s"], 3) for r in restored]} s; '
+          f'{ranks[0]["saved_slots"]} saved slots -> '
+          f'{restored[0]["live_slots"]} live: {occupied} occupied slots '
+          f'transplanted bitwise, pads per rank '
+          f'{[r["slots"]["pads"] for r in restored]} (donated '
+          f'{[r["slots"]["donated"] for r in restored]}, synthesized '
+          f'{[r["slots"]["synthesized"] for r in restored]}); factor EMAs '
+          f'bitwise; bootstrap flags down; refreshes at steps '
+          f'{RN50_RESIZE_SAVE}-{RN50_RESIZE_STOP - 1}: '
+          f'{restored[0]["refresh"]}; sharded kernel launches '
+          f'{[r["launches"] for r in restored]} ({steps} steps x '
+          f'{restored[0]["buckets"]} buckets a rank), against its plain '
+          f'version through the row on the transplanted stacks: '
+          + ' / '.join(kernel_check_text(r['kernel_check'])
+                       for r in restored), flush=True)
+    checks += [r['kernel_check'] for r in restored]
+    return (single_launches + sum(r['launches'] for r in restored),
+            max(err for c in checks for err, _ in c.values()))
+
+
+#: Phase 23: the trajectory watchdog on ResNet-50 (phase 22's widths,
+#: factor 1, inv 4), fed by ``train_loop``: a check every 2 steps over a
+#: window of 4, a generation every 4 steps, stamped ``healthy`` after 4
+#: clean steps beyond it.  The fault: every factor EMA times 1e-4
+#: (``testing.poison_factors``, finite) just before the refresh of step 8,
+#: once (a replay after the rollback does not meet it again): ``vg_sum``
+#: jumps ~30x, the check at step 10 softens (rung 1), the one at 12 rolls
+#: back (rung 2) onto gen-4, the newest stamped generation.  A bad-data
+#: span (``testing.bad_batch_span``) moves neither the loss nor
+#: ``vg_sum`` here: inputs x 50 are normalized away by the first
+#: BatchNorm, and shuffled labels move the loss by under 20%.
+RN50_WATCH_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=4)
+RN50_WATCH = dict(window=4, check_every=2, save_every=4, clearance=4,
+                  retain=3)
+RN50_WATCH_POISON = (8, 1e-4)  # (step, scale)
+RN50_WATCH_FIRST = 12  # the first pass ends at the rollback's check
+RN50_WATCH_STEPS = 10  # the replay from gen-4 ends here
+#: The two-rank part: CIFAR ResNet-32 at 64 images a rank over gloo on
+#: the one card; rank 0 feeds its loss times 1e5 at the check of step 6.
+WATCH_RANK_STEPS = 8
+WATCH_RANK_SPIKE = 6
+WATCH_RANK_TIMEOUT_S = 180
+
+
+def watchdog_snapshot(precond, extras):
+    """Clones of what a generation holds: factor EMAs, stack fields and
+    the caller's extras."""
+    return dict(
+        factors={n: (st.a_factor.clone(), st.g_factor.clone())
+                 for n, st in precond.layers.items()},
+        stacks={k: {f: t.clone() for f, t in bs.stack_fields().items()}
+                for k, bs in precond.buckets.items()},
+        extras={k: v.detach().clone() for k, v in extras.items()})
+
+
+def watchdog_landing(torch, precond, model, opt, snap) -> dict:
+    """Which parts of the live state equal ``snap`` bit for bit."""
+    from kfac_pytorch_tpu_torch.engine import training_extras
+
+    live = training_extras(model, opt)
+    return dict(
+        factors=all(torch.equal(precond.layers[n].a_factor, a)
+                    and torch.equal(precond.layers[n].g_factor, g)
+                    for n, (a, g) in snap['factors'].items()),
+        stacks=all(torch.equal(precond.buckets[k].stack_fields()[f], t)
+                   for k, fields in snap['stacks'].items()
+                   for f, t in fields.items()),
+        model_and_sgd=set(live) == set(snap['extras']) and all(
+            torch.equal(live[k], v) for k, v in snap['extras'].items()))
+
+
+def watchdog_rank(rank, world, backend, device_type, workdir):
+    """One rank of phase 23's two-rank part; writes ``watch{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+
+    if device_type == 'cuda':
+        dev = torch.device(
+            'cuda',
+            rank % torch.cuda.device_count() if backend == 'nccl' else 0)
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device('cpu')
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10 + rank)  # each rank its own local batch
+    x = torch.randn(BATCH // 2, 3, 32, 32, generator=gen, device=dev)
+    y = torch.randint(0, 10, (BATCH // 2,), generator=gen, device=dev)
+    model = kt.models.resnet32(device=dev, seed=0)
+    ddp = torch.nn.parallel.DistributedDataParallel(
+        model, device_ids=None if dev.index is None else [dev.index])
+    precond = kt.KFACPreconditioner(
+        ddp, watchdog=kt.WatchdogConfig(window=4, check_every=2,
+                                        rollback_after=1, park_after=3),
+        **TRAIN_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    step = precond.make_train_step(opt, F.cross_entropy)
+    rec = dict(rungs=[], losses=[])
+    for t in range(WATCH_RANK_STEPS):
+        loss, _ = step(x, loss_args=(y,))
+        fed = loss * (1e5 if rank == 0 and t + 1 == WATCH_RANK_SPIKE
+                      else 1.0)
+        precond.watchdog_step(fed)
+        rec['rungs'].append(int(precond.last_step_info['watchdog/rung']))
+        rec['losses'].append(float(loss))
+    w = precond.watchdog
+    rec.update(checks=w.totals['checks'], all_reduces=w.all_reduces,
+               host_syncs=w.host_syncs, totals=dict(w.totals))
+    torch.save(rec, os.path.join(workdir, f'watch{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_resnet50_watchdog(torch, kt):
+    """Phase 23: the trajectory watchdog (budget 45 s), the fault of
+    ``RN50_WATCH_POISON``.  Gates: the first
+    dirty check at step 10 (rung 1, damping and kl-clip softened), the
+    next at 12 (rung 2) rolling back onto the newest ``healthy``
+    generation (gen-4) with the factor EMAs, the stacks, the model and
+    SGD state bitwise as saved; re-entry at 10x the damping and 0.1x the
+    kl-clip of the saved run; the replay clean, 21 kernel launches each
+    of its steps; one host read per check, no all-reduce at world 1.
+    Two ranks (ResNet-32, gloo) with different local losses, rank 0's
+    spiking: the same rungs on both, rung 1 at the spike's check, one
+    all-reduce per check.  Returns the launches of the ResNet-50 run."""
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch import elastic
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    label = 'resnet50 watchdog'
+    kernel = kt.ops.fused_eigen_precondition
+    x, y = rn50_batch(torch)
+    y = y % ELASTIC_MODEL[1]
+    poison_at, scale = RN50_WATCH_POISON
+    saved = {}
+    real_save = elastic.save_streaming
+
+    def spy(directory, p, **kw):
+        path = real_save(directory, p, **kw)
+        saved[p.steps] = watchdog_snapshot(p, kw['extras'])
+        return path
+
+    with tempfile.TemporaryDirectory(prefix='watchdog_') as save_dir:
+        cfg = kt.WatchdogConfig(save_dir=save_dir, **RN50_WATCH)
+        model, opt, precond = elastic_model(
+            torch, kt, dict(RN50_WATCH_HP, watchdog=cfg), seed=0)
+        loop = precond.train_loop(opt, F.cross_entropy)
+        elastic.save_streaming = spy
+        log, rolled, landing, reentry = [], None, None, None
+        replay_steps = replay_launches = 0
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        try:
+            while len(log) < 40 and precond.steps < (
+                    RN50_WATCH_FIRST if rolled is None else RN50_WATCH_STEPS):
+                t = precond.steps
+                if t == poison_at and rolled is None:
+                    kt.testing.poison_factors(
+                        precond, tuple(precond.layers), scale=scale)
+                before = kernel.launches
+                loss, _ = loop.step(x, loss_args=(y,))
+                info = precond.last_step_info
+                log.append(dict(step=t + 1, loss=float(loss),
+                                vg_sum=float(info['vg_sum']),
+                                checked=int(info['watchdog/checked']),
+                                dirty=int(info['watchdog/dirty']),
+                                rung=int(info['watchdog/rung'])))
+                if rolled is not None:
+                    replay_steps += 1
+                    replay_launches += kernel.launches - before
+                if loop.last_rollback is not None and rolled is None:
+                    rolled = loop.last_rollback
+                    landing = watchdog_landing(
+                        torch, precond, model, opt,
+                        saved[rolled['target_step']])
+                    reentry = (precond._damping, precond._kl_clip)
+            torch.cuda.synchronize()
+            launches = kernel.launches
+            stamps = [(os.path.basename(g), s) for g, s in
+                      elastic.list_generations(save_dir, stamps=True)]
+        finally:
+            elastic.save_streaming = real_save
+        w = precond.watchdog
+        per_step = kernel_buckets(precond) if DEVICE == 'cuda' else 0
+        host_syncs, all_reduces, totals = (w.host_syncs, w.all_reduces,
+                                           dict(w.totals))
+        del loop, model, opt, precond, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    checks = [e for e in log if e['checked']]
+    dirty = [e for e in checks if e['dirty']]
+    hp = RN50_WATCH_HP
+    if not (rolled is not None and dirty and dirty[0]['step'] == 10
+            and dirty[0]['rung'] == 1 and len(dirty) >= 2
+            and dirty[1]['step'] == 12 and dirty[1]['rung'] == 2
+            and rolled['target_step'] == 4
+            and rolled['health_stamp'] == 'healthy'):
+        fail(f'{label}: checks {checks}, rollback {rolled}')
+    if not all(landing.values()):
+        fail(f'{label}: the landing on {rolled["generation"]} is not bitwise: '
+             f'{landing}')
+    want = (hp['damping'] * cfg.soften_damping,
+            hp['kl_clip'] * cfg.soften_kl_clip)
+    if reentry != want:
+        fail(f'{label}: re-entry damping and kl-clip {reentry}, expected '
+             f'{want}')
+    if any(e['dirty'] for e in checks[len(checks) - replay_steps // 2:]):
+        fail(f'{label}: a dirty check in the replay: {checks}')
+    if DEVICE == 'cuda' and (per_step != 21 or replay_launches != (
+            replay_steps * per_step) or launches != len(log) * per_step):
+        fail(f'{label}: launches {launches} over {len(log)} steps, '
+             f'{replay_launches} over the {replay_steps} replayed steps, '
+             f'{per_step} a step')
+    if host_syncs != totals['checks'] or all_reduces != 0:
+        fail(f'{label}: {host_syncs} host reads and {all_reduces} '
+             f'all-reduces over {totals["checks"]} checks')
+    vgs = [float(f'{e["vg_sum"]:.4g}') for e in log[:12]]
+    print(f'{label}: ResNet-50 batch {RN50_BATCH}, train_loop with SGD '
+          f'momentum, watchdog {RN50_WATCH}; factor EMAs x{scale} before '
+          f'step {poison_at}: vg_sum {vgs}; '
+          f'detected at the '
+          f'check of step {dirty[0]["step"]} (rung {dirty[0]["rung"]}, '
+          f'soften), rung {dirty[1]["rung"]} at step {dirty[1]["step"]}: '
+          f'rolled back onto '
+          f'{rolled["generation"]} (stamp {rolled["health_stamp"]}), bitwise '
+          f'{landing}; re-entry damping {reentry[0]:.6g} kl-clip '
+          f'{reentry[1]:.6g}; {replay_steps} replayed steps, clean, '
+          f'{replay_launches} fused launches in them ({launches} in the '
+          f'run); generations {stamps}; totals {totals}; host reads '
+          f'{host_syncs} = checks, all-reduces {all_reduces} (world 1)',
+          flush=True)
+
+    backend = default_backend(2) if DEVICE == 'cuda' else 'gloo'
+    ranks = spawn_ranks(torch, watchdog_rank, 2, backend, (),
+                        WATCH_RANK_TIMEOUT_S, 'watchdog ranks', 'watch')
+    label = 'watchdog ranks'
+    r0, r1 = ranks
+    if not (r0['rungs'] == r1['rungs'] and r0['totals'] == r1['totals']
+            and r0['rungs'][WATCH_RANK_SPIKE - 1] == 1
+            and r0['losses'] != r1['losses']):
+        fail(f'{label}: rungs {r0["rungs"]} vs {r1["rungs"]}, totals '
+             f'{r0["totals"]} vs {r1["totals"]}')
+    for r in ranks:
+        if not r['all_reduces'] == r['host_syncs'] == r['checks']:
+            fail(f'{label}: {r["all_reduces"]} all-reduces, '
+                 f'{r["host_syncs"]} host reads, {r["checks"]} checks')
+    print(f'{label}: ResNet-32, 2 ranks over {backend}, {BATCH // 2} images '
+          f'a rank (local losses differ: rank 0 '
+          f'{[round(v, 4) for v in r0["losses"][:3]]}, rank 1 '
+          f'{[round(v, 4) for v in r1["losses"][:3]]}); rank 0 fed its loss '
+          f'x 1e5 at step {WATCH_RANK_SPIKE}: rungs on both ranks '
+          f'{r0["rungs"]}; {r0["checks"]} checks, {r0["all_reduces"]} '
+          f'all-reduces and {r0["host_syncs"]} host reads on each rank',
+          flush=True)
+    return launches
+
+
 def device_record(torch) -> dict:
     """The last line: ``{"ok": true, "device": {...}}``."""
     return {'ok': True, 'device': {
@@ -4998,6 +5784,19 @@ def main() -> int:
         launches=phase('21 resnet50 consistency', phase_resnet50_consistency,
                        torch, kt),
     )
+    launches, err = phase('22 resnet50 elastic', phase_resnet50_elastic,
+                          torch, kt)
+    rn50_elastic = dict(
+        rn50, name='fused_eigen_precondition and its sharded form, '
+        'ResNet-50 buckets, streaming restore and world 4 -> 2 resize '
+        '(phase 22)', launches=launches, max_abs_err=err,
+    )
+    rn50_watchdog = dict(
+        rn50, name='fused_eigen_precondition, ResNet-50 buckets, trajectory '
+        'watchdog: detection, rollback and replay (phase 23)',
+        launches=phase('23 resnet50 watchdog', phase_resnet50_watchdog,
+                       torch, kt),
+    )
     phase('bench stages', phase_bench_stages, torch, kt)
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
@@ -5007,7 +5806,8 @@ def main() -> int:
                                   rn50_lr, rn50_stagger, rn50_adaptive,
                                   rn50_overlap, rn50_pipelined,
                                   rn50_fused, rn50_health,
-                                  rn50_consistency]}),
+                                  rn50_consistency, rn50_elastic,
+                                  rn50_watchdog]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

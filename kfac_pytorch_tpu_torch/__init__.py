@@ -28,12 +28,16 @@ checkpoint and resume, and :class:`LambdaParamScheduler` schedules the
 hyperparameters.  ``health=HealthConfig(...)`` turns on the
 numerical-health guardrails (step-skip, decomposition retries, fallback
 and quarantine, factor self-healing) and ``consistency=
-ConsistencyConfig(...)`` the cross-replica consistency guard;
+ConsistencyConfig(...)`` the cross-replica consistency guard, and
+``watchdog=WatchdogConfig(...)`` the trajectory watchdog; ``elastic``
+saves and restores streaming checkpoints (no recompute on restore, any
+world size) and ``utils.checkpoint`` the monolithic rotation;
 ``testing`` holds their fault injectors and ``tracing`` the event tally.  The models are the CIFAR ResNets, the ImageNet
 ResNets and the GPT; ``examples/`` holds the CIFAR and ImageNet
 trainers and ``bench`` the K-FAC/SGD step-time bench.  ``ROADMAP.md``
 lists what is not ported yet.
 """
+from kfac_pytorch_tpu_torch import elastic
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch import testing
@@ -49,3 +53,4 @@ from kfac_pytorch_tpu_torch.ops import IterativeConfig
 from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
 from kfac_pytorch_tpu_torch.scheduler import LambdaParamScheduler
+from kfac_pytorch_tpu_torch.watchdog import WatchdogConfig

@@ -90,7 +90,9 @@ under bounded retries with fallback and quarantine
 (``BucketedSecondOrder.compute``; a diagonal-A layer falls back to its
 last good ``G`` decomposition, or to the identity).  ``consistency``
 (:mod:`~kfac_pytorch_tpu_torch.consistency`) digests and compares the
-replicated state at its cadence (the engine walks the ladder).
+replicated state at its cadence (the engine walks the ladder), and the
+trajectory watchdog (:mod:`~kfac_pytorch_tpu_torch.watchdog`) parks the
+model through the same quarantine masks.
 """
 from __future__ import annotations
 
@@ -212,6 +214,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         pipeline_grads: bool = False,
         health: health_lib.HealthConfig | None = None,
         consistency: consistency_lib.ConsistencyConfig | None = None,
+        watchdog: Any = None,
         loglevel: int = logging.DEBUG,
     ) -> None:
         if accumulation_steps < 1:
@@ -331,7 +334,10 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
                 lowrank_oversample=lowrank_oversample,
                 lowrank_power_iters=lowrank_power_iters, ekfac=ekfac,
                 stagger=self.stagger, pipeline_grads=pipeline_grads,
-                health=health, quarantine_masks=consistency is not None,
+                health=health,
+                # The consistency guard's and the watchdog's quarantine.
+                quarantine_masks=(consistency is not None
+                                  or watchdog is not None),
             )
             self.iterative_config = self._second_order.iterative
             self.buckets = self._second_order.init_buckets()
@@ -363,6 +369,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             adaptive_controller=controller,
             overlap_comm=overlap_comm,
             consistency=consistency,
+            watchdog=watchdog,
         )
         # The side stream of the deferred refresh, made at its first use.
         self._side_stream = None
@@ -1101,6 +1108,28 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
 
     def _checkpoint_layer_states(self) -> dict[str, LayerKFACState]:
         return self.layers
+
+    def _layer_field_shapes(self, name: str) -> dict[str, tuple[int, ...]]:
+        """The decompositions layer ``name`` keeps outside the bucket
+        stacks, by shape (in ``inv_dtype``; a streaming checkpoint
+        installs them as they are): a diagonal-A layer's ``qg``/``dg``/
+        ``da`` (eigen) or ``g_inv``/``a_inv``; on the replicated engine
+        every layer's ``qa``/``qg`` with ``dgda`` or ``da``/``dg``
+        (eigen), or ``a_inv``/``g_inv``; none for a layer of the
+        stacks."""
+        st = self.layers[name]
+        a, g = st.a_factor.shape[0], st.g_factor.shape[0]
+        eigen = self.compute_method == ComputeMethod.EIGEN
+        if self.helpers[name].diagonal_a:
+            return ({'qg': (g, g), 'dg': (g,), 'da': (a,)} if eigen
+                    else {'g_inv': (g, g), 'a_inv': (a,)})
+        if self.bucketed:
+            return {}
+        if not eigen:
+            return {'a_inv': (a, a), 'g_inv': (g, g)}
+        if self.prediv_eigenvalues:
+            return {'qa': (a, a), 'qg': (g, g), 'dgda': (g, a)}
+        return {'qa': (a, a), 'qg': (g, g), 'da': (a,), 'dg': (g,)}
 
     def _health_config(self) -> health_lib.HealthConfig | None:
         return self.health

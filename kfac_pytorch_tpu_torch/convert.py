@@ -26,7 +26,8 @@ gives the name map, for comparing reports that name parameters.
 :func:`jax_kfac_state_dict_to_torch` carries a JAX
 ``KFACPreconditioner.state_dict(...)`` across, so a JAX run resumes in
 the port; an embedding's ``[V]`` diagonal A factor goes across as it
-is.
+is.  :func:`jax_generation_to_torch` does the same for a JAX streaming
+checkpoint generation (:mod:`kfac_pytorch_tpu_torch.elastic`).
 """
 from __future__ import annotations
 
@@ -129,4 +130,66 @@ def jax_kfac_state_dict_to_torch(sd: Mapping[str, Any]) -> dict[str, Any]:
             name.replace('/', '.'): {k: factor(v) for k, v in f.items()}
             for name, f in sd['layers'].items()
         }
+    return out
+
+
+def jax_generation_to_torch(src: str, dst: str) -> str:
+    """A JAX streaming generation (``kfac_pytorch_tpu.elastic.\
+save_streaming``'s ``gen-<step>/``) rewritten for the port, as
+    ``dst/<the generation's name>``; returns that path.
+
+    Layer names go from ``/`` to ``.`` in ``layers.npz`` and in
+    ``meta.json``'s layout signature, and the manifest's bytes and CRC32s
+    of the two rewritten files are recomputed; the bucket shards, the
+    health counters and the caller's extras are copied as they are (the
+    formats are the same).  The source is verified against its own
+    manifest first, so a torn or corrupt generation raises here
+    (naming the artifact) instead of coming out valid.  The port then
+    restores ``dst`` through :func:`kfac_pytorch_tpu_torch.elastic.\
+restore_streaming`, at any world size.
+    """
+    import io
+    import json
+    import os
+    import shutil
+    import zlib
+
+    from kfac_pytorch_tpu_torch import elastic
+
+    src = os.path.abspath(src)
+    manifest = elastic._verify_generation(src)
+    out = os.path.join(os.path.abspath(dst), os.path.basename(src))
+    tmp = f'{out}.tmp-{os.getpid()}'
+    if os.path.isdir(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    shards = {}
+    for name in manifest['shards']:
+        path, target = os.path.join(src, name), os.path.join(tmp, name)
+        if name == 'layers.npz':
+            with np.load(path) as npz:
+                arrays = {k.replace('/', '.'): npz[k] for k in npz.files}
+            buf = io.BytesIO()
+            np.savez(buf, **arrays)
+            data = buf.getvalue()
+        elif name == elastic.META_NAME:
+            with open(path) as fh:
+                meta = json.load(fh)
+            sig = (meta.get('topology') or {}).get('signature')
+            for bucket in (sig or {}).get('buckets', ()):
+                bucket['slots'] = [None if n is None else n.replace('/', '.')
+                                   for n in bucket['slots']]
+            data = json.dumps(meta, indent=1, sort_keys=True).encode()
+        else:
+            with open(path, 'rb') as fh:
+                data = fh.read()
+        with open(target, 'wb') as fh:
+            fh.write(data)
+        shards[name] = {'bytes': len(data), 'crc32': zlib.crc32(data)}
+    with open(os.path.join(tmp, elastic.MANIFEST_NAME), 'w') as fh:
+        json.dump(dict(manifest, shards=shards), fh, indent=1,
+                  sort_keys=True)
+    if os.path.isdir(out):
+        shutil.rmtree(out)
+    os.replace(tmp, out)
     return out

@@ -55,7 +55,12 @@ _consistency_finish` walks the repair ladder (``engine.py:920-1075``).
 Checkpoints follow ``engine.py:102-292,2482-2700``:
 :meth:`KFACEngineMixin.state_dict` holds the step counter, the
 non-callable hyperparameters and the factor EMAs (never the
-decompositions, which a restore recomputes), in the JAX payload's keys.
+decompositions, which a restore recomputes), in the JAX payload's keys;
+the streaming generations of :mod:`~kfac_pytorch_tpu_torch.elastic` keep
+the decompositions too.  With a trajectory watchdog
+(:mod:`~kfac_pytorch_tpu_torch.watchdog`) the caller feeds
+:meth:`KFACEngineMixin.watchdog_step` after each step, and
+:class:`KFACTrainLoop` does it itself.
 """
 from __future__ import annotations
 
@@ -286,6 +291,7 @@ class KFACEngineMixin:
         adaptive_controller: Any = None,
         overlap_comm: bool = False,
         consistency: Any = None,
+        watchdog: Any = None,
     ) -> None:
         if not callable(damping):
             validate_damping(damping)
@@ -353,7 +359,41 @@ class KFACEngineMixin:
         # has produced roots in every slot (scheduler.
         # iterative_refresh_iters reads it; inert for the other methods).
         self._iter_bootstrapped = False
+        # The trajectory watchdog (None: off), fed by watchdog_step.
+        self._watchdog_config = watchdog
+        self._watchdog = None
+        if watchdog is not None:
+            from kfac_pytorch_tpu_torch.watchdog import TrajectoryWatchdog
+
+            self._watchdog = TrajectoryWatchdog(watchdog, self)
         self._arm_capture(self._step_gating()[0])
+
+    @property
+    def watchdog(self) -> Any:
+        """The :class:`~kfac_pytorch_tpu_torch.watchdog.\
+TrajectoryWatchdog` (``None`` without ``watchdog=``)."""
+        return self._watchdog
+
+    def watchdog_step(
+        self, loss: Any,
+        extras: (Mapping[str, Any] | Callable[[], Mapping[str, Any]]
+                 | None) = None,
+    ) -> dict[str, Any] | None:
+        """Feed the trajectory watchdog one completed step (JAX
+        ``engine.py:582-604``): call it once a step after the optimizer
+        step, with the step's loss (a device scalar is fine: it is read
+        back at the check cadence) and, when the watchdog saves, the flat
+        ``str -> tensor`` ``extras`` to keep in each generation (the
+        model's ``state_dict()``, the optimizer's moments), or a
+        zero-argument callable returning them, called only on a step
+        that saves.  Returns
+        ``None``, or after a rung-2 rollback its info: the step counter
+        is the restored one and ``info['extras']`` holds the restored
+        arrays for the caller to load back.  ``None`` without a
+        watchdog."""
+        if self._watchdog is None:
+            return None
+        return self._watchdog.update(loss, extras)
 
     @property
     def steps(self) -> int:
@@ -1296,6 +1336,57 @@ def _split_loss(result: Any) -> tuple[torch.Tensor, Any]:
     return result, None
 
 
+def training_extras(
+    model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+) -> dict[str, torch.Tensor]:
+    """The model's ``state_dict()`` (``model/<name>``) and the tensors of
+    the optimizer's per-parameter state (``opt/<index>/<key>``, the index
+    counting the parameters of every group in order), as the flat
+    ``extras`` of a streaming generation: references, nothing copied."""
+    out = {f'model/{k}': v for k, v in model.state_dict().items()}
+    params = [p for g in optimizer.param_groups for p in g['params']]
+    for i, p in enumerate(params):
+        for k, v in optimizer.state.get(p, {}).items():
+            if isinstance(v, torch.Tensor):
+                out[f'opt/{i}/{k}'] = v
+    return out
+
+
+@torch.no_grad()
+def load_training_extras(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    extras: Mapping[str, torch.Tensor],
+) -> None:
+    """Load :func:`training_extras` back: the model strictly, and each
+    parameter's optimizer state tensors (a parameter whose state the
+    extras do not hold loses its tensors, as it had none then)."""
+    model.load_state_dict({k[len('model/'):]: v for k, v in extras.items()
+                           if k.startswith('model/')})
+    params = [p for g in optimizer.param_groups for p in g['params']]
+    saved: dict[int, dict[str, torch.Tensor]] = {}
+    for k, v in extras.items():
+        if k.startswith('opt/'):
+            _, i, key = k.split('/', 2)
+            saved.setdefault(int(i), {})[key] = v
+    for i, p in enumerate(params):
+        state = optimizer.state.get(p)
+        if state is None:
+            if i not in saved:
+                continue
+            state = optimizer.state[p] = {}
+        for key in [k for k, v in state.items()
+                    if isinstance(v, torch.Tensor) and k not in
+                    saved.get(i, {})]:
+            del state[key]
+        for key, v in saved.get(i, {}).items():
+            live = state.get(key)
+            if isinstance(live, torch.Tensor) and live.shape == v.shape:
+                live.copy_(v)
+            else:
+                state[key] = v.to(p.device).clone()
+
+
 class KFACTrainLoop:
     """The fused training path as a loop (JAX ``KFACTrainLoop``,
     ``engine.py:2746-2899``).
@@ -1306,6 +1397,13 @@ class KFACTrainLoop:
     preconditioner, so there is no carry to build: :meth:`step` is
     :meth:`KFACEngineMixin.make_train_step`'s step, the same code, and
     :attr:`carry` returns the three state dicts.
+
+    With a trajectory watchdog the loop feeds it after every step
+    (:meth:`KFACEngineMixin.watchdog_step`, with the model and optimizer
+    state as the generation's extras, :func:`training_extras`) and loads
+    a rollback's extras back into the model and the optimizer, which the
+    JAX loop leaves to its caller; :attr:`last_rollback` holds the
+    latest rollback's info.
     """
 
     def __init__(
@@ -1326,10 +1424,25 @@ class KFACTrainLoop:
         self._step_fn = precond.make_train_step(
             optimizer, loss_fn, merge_updates,
         )
+        self.last_rollback: dict[str, Any] | None = None
 
     def step(self, *args: Any, loss_args: tuple = ()) -> tuple[Any, Any]:
-        """One fused K-FAC + optimizer step; returns ``(loss, aux)``."""
-        return self._step_fn(*args, loss_args=loss_args)
+        """One fused K-FAC + optimizer step; returns ``(loss, aux)``.
+        With a watchdog, the step then feeds it, and a rollback loads the
+        restored model and optimizer state back."""
+        loss, aux = self._step_fn(*args, loss_args=loss_args)
+        p = self._precond
+        if p.watchdog is not None:
+            model = p._capture_module()
+            rolled = p.watchdog_step(
+                loss, extras=lambda: training_extras(model, self._optimizer),
+            )
+            if rolled is not None:
+                self.last_rollback = rolled
+                if rolled.get('extras') is not None:
+                    load_training_extras(model, self._optimizer,
+                                         rolled['extras'])
+        return loss, aux
 
     @property
     def carry(self) -> tuple[dict, dict, dict]:

@@ -1,6 +1,6 @@
 """Shape bucketing and slot layout for stacked K-FAC layer state.
 
-Port of ``kfac_pytorch_tpu/parallel/bucketing.py:43-193,259-335``.
+Port of ``kfac_pytorch_tpu/parallel/bucketing.py:43-335``.
 Layers are grouped into buckets of equal padded factor shape
 ``(a_pad, g_pad)`` so each bucket's decompositions and rotations run as
 one batched call over an ``[L, n, n]`` stack.  Bucket keys, bucket
@@ -15,7 +15,8 @@ padded; that is the JAX layout and is kept as it is.
 :func:`make_stagger_plan` partitions every bucket slot into ``K``
 cost-balanced refresh shards for ``stagger_refresh=K``, and
 :func:`make_pipeline_order` orders the buckets for the pipelined gradient
-gather of ``pipeline_grads``.
+gather of ``pipeline_grads``, and :func:`layout_signature` /
+:func:`signature_slot_map` describe a plan to the streaming checkpoints.
 """
 from __future__ import annotations
 
@@ -224,3 +225,43 @@ def make_pipeline_order(plan: BucketPlan) -> tuple[str, ...]:
             key=lambda b: (-float(b.n_slots * b.g_pad * b.a_pad), b.key),
         )
     )
+
+
+def layout_signature(plan: BucketPlan) -> dict:
+    """JSON-portable fingerprint of a plan's bucket and slot layout (JAX
+    ``parallel/bucketing.py:219-244``).
+
+    The streaming checkpoints (:mod:`kfac_pytorch_tpu_torch.elastic`)
+    save it beside the stacked curvature state: equal signatures mean
+    the saved ``[L, ...]`` stacks drop straight into the live buckets,
+    unequal ones that the restore transplants them slot by slot.  The
+    port's plans are the JAX package's, so for the same model and
+    ``n_cols`` the signatures are equal once JAX's ``/`` in layer names
+    reads ``.``.
+    """
+    return {
+        'n_cols': plan.n_cols,
+        'buckets': [
+            {
+                'key': b.key,
+                'a_pad': b.a_pad,
+                'g_pad': b.g_pad,
+                'seg': b.seg,
+                'slots': list(b.slots),
+            }
+            for b in plan.buckets
+        ],
+    }
+
+
+def signature_slot_map(signature: Mapping) -> dict[str, tuple[str, int]]:
+    """Layer name -> ``(bucket key, slot index)`` of a saved
+    :func:`layout_signature` (JAX ``parallel/bucketing.py:247-258``): the
+    saved side's ``BucketPlan.slot_of``, which finds a layer's rows in
+    stacks saved at any world size."""
+    out: dict[str, tuple[str, int]] = {}
+    for bucket in signature['buckets']:
+        for i, name in enumerate(bucket['slots']):
+            if name is not None:
+                out[name] = (bucket['key'], i)
+    return out

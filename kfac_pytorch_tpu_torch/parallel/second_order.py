@@ -106,6 +106,9 @@ from kfac_pytorch_tpu_torch.state import LayerKFACState
 #: and its blocks are square; every other field, and the thin low-rank
 #: eigenvector stacks, pad with zeros.
 IDENTITY_PADDED = frozenset({'qa', 'qg', 'a_inv', 'g_inv'})
+#: Fields rebuilt from the others (EKFAC's bases of every column's
+#: occupied slots), which a checkpoint does not keep.
+DERIVED_FIELDS = frozenset({'basis_qa', 'basis_qg'})
 
 
 @dataclasses.dataclass
@@ -165,6 +168,13 @@ class BucketSecond:
             f.name: getattr(self, f.name) for f in dataclasses.fields(self)
             if getattr(self, f.name) is not None
         }
+
+    def stack_fields(self) -> dict[str, torch.Tensor]:
+        """The set fields a checkpoint keeps: all but the
+        :data:`DERIVED_FIELDS`, in declaration order (JAX's
+        ``BucketSecond`` fields, by the same names)."""
+        return {k: v for k, v in self.tensors().items()
+                if k not in DERIVED_FIELDS}
 
 
 def _pad_factor(factor: torch.Tensor, pad: int) -> torch.Tensor:
@@ -1078,6 +1088,60 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
                 go, ga = combined_grads[name].shape
                 out[name] = pg[i, :go, :ga].to(combined_grads[name].dtype)
         return out, scale
+
+    # -- checkpoints ----------------------------------------------------
+
+    def gather_stacks(
+        self, buckets: Mapping[str, BucketSecond],
+    ) -> dict[str, dict[str, torch.Tensor]]:
+        """Every bucket's :meth:`BucketSecond.stack_fields` over all
+        ``L`` slots: each rank's column gathered over its grid row in plan
+        order (one all-gather per dtype, a collective every rank calls;
+        none on a grid of one column).  Bool masks travel as ``uint8``."""
+        names, stacks = [], []
+        for b in self.plan.buckets:
+            for field, t in buckets[b.key].stack_fields().items():
+                names.append((b.key, field, t.dtype))
+                stacks.append(t.to(torch.uint8) if t.dtype == torch.bool
+                              else t)
+        full = collectives.all_gather_stacks(stacks, self.grid.row_group)
+        out: dict[str, dict[str, torch.Tensor]] = {}
+        for (key, field, dtype), t in zip(names, full):
+            out.setdefault(key, {})[field] = (
+                t.bool() if dtype == torch.bool else t)
+        return out
+
+    def install_stacks(
+        self,
+        full: Mapping[str, Mapping[str, object]],
+        like: Mapping[str, BucketSecond],
+    ) -> dict[str, BucketSecond]:
+        """Bucket stacks from every bucket's full ``[L, ...]`` saved
+        fields (numpy arrays or tensors): this rank's column of each, in
+        the dtype of ``like``'s field (a bf16 stack is saved widened to
+        f32, so the cast back is exact) on :attr:`device`; under EKFAC on
+        a grid with several columns the bases of the occupied slots are
+        taken from the full ``qa``/``qg``, as a refresh gathers them.  No
+        decomposition runs."""
+        out = {}
+        for b in self.plan.buckets:
+            first = self.grid.col * b.seg
+            tmpl = like[b.key]
+            kw = {}
+            for field, arr in full[b.key].items():
+                t = torch.as_tensor(arr)
+                kw[field] = t[first:first + b.seg].to(
+                    device=self.device, dtype=getattr(tmpl, field).dtype,
+                ).contiguous()
+            if self.ekfac and self.grid.cols > 1:
+                occ = [j for j, n in enumerate(b.slots) if n is not None]
+                for side in ('qa', 'qg'):
+                    kw[f'basis_{side}'] = torch.as_tensor(
+                        full[b.key][side])[occ].to(
+                        device=self.device, dtype=kw[side].dtype,
+                    ).contiguous()
+            out[b.key] = BucketSecond(**kw)
+        return out
 
     # -- EKFAC scales ---------------------------------------------------
 

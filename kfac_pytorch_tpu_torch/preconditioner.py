@@ -70,7 +70,13 @@ kernel included::
     precond = KFACPreconditioner(
         model, health=HealthConfig(),            # step-skip, retries,
         consistency=ConsistencyConfig(cadence=10),  # cross-rank checks
+        watchdog=WatchdogConfig(save_dir='gens', save_every=50),
     )
+
+Streaming checkpoints (``elastic.save_streaming`` /
+``restore_streaming``: no recompute on restore, any world size) and the
+monolithic rotation (``utils.checkpoint.save_rotating`` /
+``restore_latest_valid``) save and restore the preconditioner.
 
 Every JAX option this slice does not port raises ``NotImplementedError``
 naming its ``ROADMAP.md`` item; none is silently ignored.  The JAX
@@ -251,6 +257,15 @@ ConsistencyConfig` turns on the cross-replica consistency guard: every
             broadcast, re-bootstrapped and, if it persists, quarantined
             (``last_step_info['consistency/*']``).  Bucketed only;
             exclusive with ``lowrank_rank``.
+        watchdog: a :class:`~kfac_pytorch_tpu_torch.watchdog.\
+WatchdogConfig` turns on the trajectory watchdog
+            (:mod:`~kfac_pytorch_tpu_torch.watchdog`): fed each step by
+            :meth:`watchdog_step` (``train_loop`` feeds it itself), it
+            softens damping and kl-clip, rolls back to the newest
+            ``healthy`` streaming generation, or parks the model on SGD
+            through the quarantine masks (``last_step_info['watchdog/*']``).
+            Bucketed only; exclusive with ``lowrank_rank`` and with a
+            callable ``damping`` or ``kl_clip``.
         factor_comm: ``'bf16_triu'`` reduces the symmetric factors of
             linear and conv2d layers as packed upper triangles summed in
             bf16 (lossy; about a quarter of the dense bytes); other
@@ -487,9 +502,47 @@ ConsistencyConfig` turns on the cross-replica consistency guard: every
                     'exclusive: the truncated decomposition path has '
                     'no per-slot quarantine masks',
                 )
+        if watchdog is not None:
+            # The JAX checks (base_preconditioner.py:384-427): the park
+            # rung quarantines through the bucket stacks' masks, and the
+            # soften rung writes the stored constant hyperparameters.
+            from kfac_pytorch_tpu_torch.watchdog import WatchdogConfig
+
+            if not isinstance(watchdog, WatchdogConfig):
+                raise TypeError(
+                    'watchdog must be a WatchdogConfig or None, got '
+                    f'{type(watchdog).__name__}',
+                )
+            if bucketed is False:
+                raise ValueError(
+                    'the trajectory watchdog requires the bucketed '
+                    'second-order stage (its park rung quarantines '
+                    'through the bucket stacks) — drop bucketed=False '
+                    'or watchdog',
+                )
+            if lowrank_rank is not None:
+                raise ValueError(
+                    'watchdog and lowrank_rank are mutually exclusive: '
+                    'the truncated decomposition path has no per-slot '
+                    'quarantine masks to park through',
+                )
+            if callable(damping):
+                raise ValueError(
+                    'the watchdog softens damping in place (rung 1 / '
+                    'escalated re-entry), which a callable damping — a '
+                    'schedule or AdaptiveDamping — would overwrite '
+                    'each step; pass a constant damping or drop the '
+                    'watchdog',
+                )
+            if callable(kl_clip):
+                raise ValueError(
+                    'the watchdog tightens kl_clip in place (rung 1), '
+                    'which a callable kl_clip would overwrite each '
+                    'step; pass a constant (or None) kl_clip or drop '
+                    'the watchdog',
+                )
         unported = [
             ('topology', topology is not None, 'item 29'),
-            ('watchdog', watchdog is not None, 'item 21b'),
             ('observe', observe is not None, 'item 23'),
             ('flight', flight is not None, 'item 23'),
             ('compile_budget', compile_budget is not None, 'item 31'),
@@ -561,6 +614,7 @@ ConsistencyConfig` turns on the cross-replica consistency guard: every
             pipeline_grads=pipeline_grads,
             health=health,
             consistency=consistency,
+            watchdog=watchdog,
             loglevel=loglevel,
         )
         # The fused path's forward and backward go through the wrapper.

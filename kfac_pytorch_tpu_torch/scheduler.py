@@ -1,14 +1,14 @@
 """Hyperparameter scheduling, the refresh cadences and the iterative
 method's warm-start rule.
 
-Port of ``kfac_pytorch_tpu/scheduler.py`` without the watchdog cadence
-(``ROADMAP.md`` Queue A item 21):
+Port of ``kfac_pytorch_tpu/scheduler.py``:
 :class:`AdaptiveRefreshConfig` and :class:`AdaptiveRefreshController`
 (``:33-405``, the drift-adaptive staggered refresh),
 :func:`stagger_refresh_action` (``:409-470``),
 :func:`post_restore_bootstrapped` (``:472-517``),
 :func:`overlap_defer_action` (``:523-578``, ``overlap_comm``),
-:func:`iterative_refresh_iters` (``:614-634``) and
+:func:`watchdog_check_action` (``:581-612``, the trajectory watchdog's
+cadence), :func:`iterative_refresh_iters` (``:614-634``) and
 :class:`LambdaParamScheduler` (``:637-734``).  The decisions are host
 arithmetic on step counts and on the drift read back from the card.
 """
@@ -444,6 +444,26 @@ def overlap_defer_action(
     if shard_due is not None:
         return False, ('shard', shard_due)
     return False, None
+
+
+def watchdog_check_action(
+    step: int,
+    *,
+    check_every: int,
+    parked: bool = False,
+) -> bool:
+    """Whether the trajectory watchdog
+    (:mod:`kfac_pytorch_tpu_torch.watchdog`) runs its verdict after this
+    step: after every ``check_every``-th completed step (``step`` counts
+    completed steps).  Each check is the watchdog's one host read of the
+    scalars it retained since the last (and, across ranks, its one
+    all-reduce); between checks it only keeps references.  ``parked``,
+    the terminal rung, keeps the cadence: checks still run and count,
+    nothing escalates."""
+    del parked  # the cadence is the same parked or not
+    if check_every < 1:
+        raise ValueError(f'check_every must be >= 1, got {check_every}')
+    return step > 0 and step % check_every == 0
 
 
 def iterative_refresh_iters(config: Any, bootstrapped: bool) -> int:

@@ -3,9 +3,12 @@
 Port of the injectors of ``kfac_pytorch_tpu/testing.py``:
 :func:`bitflip` (one flipped bit, the silent-data-corruption model),
 :func:`desync_replica` (a corruption on one rank only),
-:func:`poison_factors` (non-finite or scaled factor EMAs) and
+:func:`poison_factors` (non-finite or scaled factor EMAs),
 :func:`eigh_failure_config` (a :class:`~kfac_pytorch_tpu_torch.health.\
-HealthConfig` that forces decomposition failures).  The JAX package
+HealthConfig` that forces decomposition failures), :func:`nan_batch` (a
+NaN input), :func:`bad_batch_span` (a finite bad-data span, the
+watchdog's fault), and the storage faults :func:`torn_jsonl` and
+:func:`corrupt_checkpoint` (a save cut off mid-write).  The JAX package
 threads its state through functions, so its injectors return a new
 state; the port's state lives in the preconditioner, so
 :func:`poison_factors` and :func:`desync_slot` write into it.
@@ -13,7 +16,10 @@ state; the port's state lives in the preconditioner, so
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Callable
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -21,11 +27,15 @@ import torch.distributed as dist
 from kfac_pytorch_tpu_torch.health import HealthConfig
 
 __all__ = [
+    'bad_batch_span',
     'bitflip',
+    'corrupt_checkpoint',
     'desync_replica',
     'desync_slot',
     'eigh_failure_config',
+    'nan_batch',
     'poison_factors',
+    'torn_jsonl',
 ]
 
 
@@ -165,3 +175,108 @@ def eigh_failure_config(
         inject_eigh_layers=inject_layers,
         **overrides,
     )
+
+
+def nan_batch(
+    x: torch.Tensor,
+    index: Any = (0,),
+    *,
+    replica: int | None = None,
+    world: int | None = None,
+) -> torch.Tensor:
+    """A copy of ``x`` with a NaN at ``index`` (JAX ``testing.py:
+    130-165``): one element reaches the loss, every gradient and every
+    factor contribution, as a corrupt record would.  ``replica`` offsets
+    the leading index into replica ``replica``'s block of a ``world``-way
+    split of the batch, so only that rank's share carries it."""
+    if replica is not None:
+        if world is None:
+            raise ValueError('nan_batch(replica=...) needs world=')
+        if x.shape[0] % world != 0:
+            raise ValueError(
+                f'batch dim {x.shape[0]} does not split over world={world}',
+            )
+        if not 0 <= replica < world:
+            raise ValueError(f'replica {replica} out of range [0, {world})')
+        shard = x.shape[0] // world
+        index = (replica * shard + index[0],) + tuple(index[1:])
+    out = x.clone()
+    out[tuple(index)] = float('nan')
+    return out
+
+
+def bad_batch_span(
+    start: int,
+    steps: int,
+    *,
+    scale: float | None = 50.0,
+    label_shuffle: bool = False,
+    seed: int = 0,
+) -> Callable[[int, torch.Tensor, torch.Tensor],
+              tuple[torch.Tensor, torch.Tensor]]:
+    """A step-indexed finite bad-data injector (JAX ``testing.py:
+    168-220``): ``corrupt(step, x, y)`` returns, for ``start <= step <
+    start + steps``, the inputs times ``scale`` and/or the labels
+    permuted (``label_shuffle``, seeded by ``seed + step`` with numpy, so
+    the JAX and port drills draw the same permutation), and outside the
+    span ``x`` and ``y`` themselves.  Every value stays finite and every
+    rank sees the same damage, so health and the consistency guard pass
+    it; only the trajectory watchdog sees it."""
+    if steps < 1:
+        raise ValueError('steps must be >= 1')
+    if scale is None and not label_shuffle:
+        raise ValueError(
+            'bad_batch_span needs scale and/or label_shuffle — an injector '
+            'that changes nothing would make every drill built on it '
+            'vacuous',
+        )
+
+    def corrupt(step: int, x: torch.Tensor, y: torch.Tensor):
+        if not start <= step < start + steps:
+            return x, y
+        if scale is not None:
+            x = x * scale
+        if label_shuffle:
+            perm = np.random.default_rng(seed + step).permutation(y.shape[0])
+            y = y[torch.as_tensor(perm, device=y.device)]
+        return x, y
+
+    return corrupt
+
+
+def torn_jsonl(path: str, drop_bytes: int = 8) -> int:
+    """Cut a JSONL file inside its last record, as a killed writer leaves
+    it (JAX ``testing.py:409-434``): ``drop_bytes`` from the end, keeping
+    at least one byte of the last record.  Returns the bytes removed."""
+    size = os.path.getsize(path)
+    with open(path, 'rb') as fh:
+        data = fh.read()
+    stripped = data.rstrip(b'\n')
+    if not stripped:
+        raise ValueError(f'{path!r} has no record to tear')
+    last_start = stripped.rfind(b'\n') + 1
+    keep = max(last_start + 1, len(stripped) - drop_bytes)
+    keep = min(keep, len(stripped) - 1)
+    with open(path, 'r+b') as fh:
+        fh.truncate(keep)
+    return size - keep
+
+
+def corrupt_checkpoint(path: str, keep_fraction: float = 0.25) -> int:
+    """Truncate every non-empty file under ``path`` to ``keep_fraction``
+    of its bytes, a save that died mid-write (JAX ``testing.py:
+    437-459``); a monolithic checkpoint then fails to load and a streaming
+    generation its manifest check.  Returns the files touched."""
+    n = 0
+    for root, _, files in os.walk(path):
+        for name in files:
+            fp = os.path.join(root, name)
+            size = os.path.getsize(fp)
+            if size == 0:
+                continue
+            with open(fp, 'r+b') as fh:
+                fh.truncate(max(1, int(size * keep_fraction)))
+            n += 1
+    if n == 0:
+        raise ValueError(f'no files to corrupt under {path!r}')
+    return n

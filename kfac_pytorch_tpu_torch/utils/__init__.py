@@ -1,2 +1,2 @@
-"""Utilities of the PyTorch port: the environment summary and the
-metrics writer."""
+"""Utilities of the PyTorch port: the environment summary, the metrics
+writer and the monolithic checkpoints (``utils.checkpoint``)."""

@@ -5,10 +5,10 @@ Port of ``MetricsWriter`` and ``ProgressMeter``
 append-only ``metrics.jsonl`` (``{"tag", "value", "step", "time"}`` per
 line), mirrored to TensorBoard through ``torch.utils.tensorboard`` when
 that imports; only rank 0 of ``torch.distributed`` writes.
-:func:`health_scalars` flattens the ``health/*`` counters of
-``last_step_info`` for ``metrics.jsonl``; the observe and watchdog
-scalars of the JAX module wait for the subsystems that produce them
-(``ROADMAP.md`` Queue A items 21b and 23).
+:func:`health_scalars` and :func:`watchdog_scalars` flatten the
+``health/*`` and ``watchdog/*`` counters of ``last_step_info`` for
+``metrics.jsonl``; the observe scalars of the JAX module wait for the
+monitor that produces them (``ROADMAP.md`` Queue A item 23).
 """
 from __future__ import annotations
 
@@ -56,6 +56,16 @@ def health_scalars(
     Host-side events are tallied in :func:`kfac_pytorch_tpu_torch.\
 tracing.get_events`."""
     return _prefixed_scalars(last_step_info, 'health/')
+
+
+def watchdog_scalars(
+    last_step_info: Mapping[str, Any] | None,
+) -> dict[str, float]:
+    """The ``watchdog/*`` counters of ``precond.last_step_info`` as host
+    floats (JAX ``utils/metrics.py:98-110``).  They are CPU tensors the
+    host wrote, so reading them syncs no device; empty without a
+    watchdog."""
+    return _prefixed_scalars(last_step_info, 'watchdog/')
 
 
 def _rank() -> int:

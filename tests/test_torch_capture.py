@@ -206,7 +206,7 @@ def test_step_without_backward_raises():
     (dict(use_pallas=True), 'Queue B item 1'),
 ])
 def test_unported_options_raise(kwargs, item):
-    if item in PORTED or {'health', 'consistency'} & set(kwargs):
+    if item in PORTED or {'health', 'consistency', 'watchdog'} & set(kwargs):
         check_ported_option(kwargs)
         return
     with pytest.raises(NotImplementedError, match=item):
@@ -215,9 +215,9 @@ def test_unported_options_raise(kwargs, item):
 
 #: Queue A items ported since these cases were written: each case now
 #: checks the option's ported behaviour (the default ``inv_update_steps``
-#: is 1, below ``stagger_refresh=2``).  ``health`` (item 19) and
-#: ``consistency`` (item 21's first half) are ported too; the watchdog,
-#: item 21's second half, still raises (its message names item 21b).
+#: is 1, below ``stagger_refresh=2``).  ``health`` (item 19),
+#: ``consistency`` (item 21's first half) and the watchdog (item 21b) are
+#: ported too: a wrong config type raises ``TypeError``.
 PORTED = ('item 4b', 'item 13', 'item 15', 'item 16', 'item 17', 'item 18')
 
 
@@ -249,12 +249,14 @@ def check_ported_option(kwargs):
         precond = KFACPreconditioner(Tiny(), **kwargs)
         assert precond._second_order.pipeline_order == tuple(
             b.key for b in precond.plan.buckets)
-    elif 'health' in kwargs or 'consistency' in kwargs:
+    elif {'health', 'consistency', 'watchdog'} & set(kwargs):
         from kfac_pytorch_tpu_torch import ConsistencyConfig
         from kfac_pytorch_tpu_torch import HealthConfig
+        from kfac_pytorch_tpu_torch import WatchdogConfig
 
-        name = 'health' if 'health' in kwargs else 'consistency'
-        config = HealthConfig if name == 'health' else ConsistencyConfig
+        (name,) = {'health', 'consistency', 'watchdog'} & set(kwargs)
+        config = {'health': HealthConfig, 'consistency': ConsistencyConfig,
+                  'watchdog': WatchdogConfig}[name]
         with pytest.raises(TypeError, match=config.__name__):
             KFACPreconditioner(Tiny(), **kwargs)
         precond = KFACPreconditioner(Tiny(), **{name: config()})

@@ -14,6 +14,13 @@
 * A resume on the CPU equals the uninterrupted run bit for bit: saved
   right after a refresh step, the restore's recompute decomposes the
   same factor EMAs the saving run held.
+* The monolithic rotation (``utils.checkpoint``): ``save_rotating``
+  keeps the newest ``retain`` members; ``restore_latest_valid`` skips a
+  truncated, zero-byte, empty, misplaced, NaN-poisoned or
+  zero-damping member, naming it, and restores the previous one, a
+  failed candidate leaving the preconditioner as it was;
+  ``validate_payload`` names the failing check and layer; a transient
+  ``OSError`` retries and, when it persists, skips the save.
 * The iterative method's restore recomputes its roots cold at bootstrap
   depth (30 iterations), where the saving run held warm roots (3
   iterations from the previous interval's): on ``TinyModel`` they agree
@@ -26,6 +33,8 @@
 from __future__ import annotations
 
 import copy
+import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -361,3 +370,169 @@ def test_iterative_restore_roots_match_the_saved_run():
         assert depths == [30] * (2 * n)
     finally:
         ops.batched_newton_schulz_inverse = orig
+
+
+# -- the monolithic rotation ------------------------------------------------
+
+
+def lenet_run(steps, seed=0):
+    torch.manual_seed(seed)
+    net = LeNet(image_size=16)
+    precond = KFACPreconditioner(net, **HP)
+    for x, y in lenet_batches(steps):
+        net.zero_grad()
+        F.cross_entropy(net(torch_x(x)), torch.from_numpy(y)).backward()
+        precond.step()
+    return net, precond
+
+
+def test_save_rotating_keeps_the_newest(tmp_path):
+    from kfac_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    net, precond = lenet_run(1)
+    for step in range(4):
+        path = ckpt.save_rotating(str(tmp_path), precond, step=step,
+                                  retain=2)
+        assert os.path.basename(path) == f'ckpt-{step:08d}'
+    members = ckpt.list_checkpoints(str(tmp_path))
+    assert [os.path.basename(m) for m in members] == [
+        'ckpt-00000002', 'ckpt-00000003']
+    assert os.listdir(members[-1]) == [ckpt.PAYLOAD_NAME]
+    assert sorted(os.listdir(tmp_path)) == [
+        'ckpt-00000002', 'ckpt-00000003']
+    payload = ckpt.load_payload(members[-1])
+    assert payload['steps'] == 1 and set(payload['layers']) == set(
+        precond.layers)
+
+
+def _poison_payload(path, **changes):
+    from kfac_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    payload = ckpt.load_payload(path)
+    payload.update(changes)
+    if 'nan' in changes:
+        del payload['nan']
+        payload['layers']['fc1']['A'] = torch.full_like(
+            payload['layers']['fc1']['A'], float('nan'))
+    torch.save(payload, os.path.join(path, ckpt.PAYLOAD_NAME))
+
+
+FAULTS = {
+    'truncated': lambda p: kt_testing().corrupt_checkpoint(p),
+    'zero_byte': lambda p: open(os.path.join(p, 'preconditioner.pt'),
+                                'wb').close(),
+    'empty_dir': lambda p: os.remove(os.path.join(p, 'preconditioner.pt')),
+    'not_a_dir': lambda p: (shutil.rmtree(p), open(p, 'w').write('x')),
+    'nan_factor': lambda p: _poison_payload(p, nan=True),
+    'zero_damping': lambda p: _poison_payload(p, damping=0.0),
+}
+
+
+def kt_testing():
+    from kfac_pytorch_tpu_torch import testing
+
+    return testing
+
+
+@pytest.mark.parametrize('fault', sorted(FAULTS))
+def test_restore_latest_valid_skips_a_bad_member(tmp_path, fault):
+    from kfac_pytorch_tpu_torch import tracing
+    from kfac_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    _, precond = lenet_run(2)
+    ckpt.save_rotating(str(tmp_path), precond, step=1)
+    good = {n: st.a_factor.clone() for n, st in precond.layers.items()}
+    _, later = lenet_run(3, seed=1)
+    newest = ckpt.save_rotating(str(tmp_path), later, step=2)
+    FAULTS[fault](newest)
+    tracing.clear_trace()
+    _, fresh = lenet_run(1, seed=2)
+    path = ckpt.restore_latest_valid(str(tmp_path), fresh)
+    assert os.path.basename(path) == 'ckpt-00000001'
+    assert fresh.steps == 2
+    assert all(torch.equal(fresh.layers[n].a_factor, a)
+               for n, a in good.items())
+    assert tracing.get_events()['checkpoint_fallback'] == 1
+
+
+def test_restore_latest_valid_raises_when_nothing_survives(tmp_path):
+    from kfac_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    _, precond = lenet_run(2)
+    with pytest.raises(ckpt.CheckpointValidationError, match='no checkpoints'):
+        ckpt.restore_latest_valid(str(tmp_path), precond)
+    path = ckpt.save_rotating(str(tmp_path), precond)
+    _poison_payload(path, nan=True)
+    _, fresh = lenet_run(1, seed=2)
+    before = {n: st.a_factor.clone() for n, st in fresh.layers.items()}
+    with pytest.raises(ckpt.CheckpointValidationError,
+                       match='no valid checkpoint'):
+        ckpt.restore_latest_valid(str(tmp_path), fresh)
+    assert fresh.steps == 1
+    assert all(torch.equal(fresh.layers[n].a_factor, a)
+               for n, a in before.items())
+    # Without the finiteness check the poisoned member loads.
+    ckpt.restore_latest_valid(str(tmp_path), fresh, check_finite=False,
+                              compute_inverses=False)
+    assert fresh.steps == 2
+
+
+@pytest.mark.parametrize('change,match', [
+    (dict(steps=None), 'not an integer'),
+    (dict(damping=0.0), 'saved damping'),
+    (dict(layers={'nope': {}}), 'unregistered layers'),
+    (dict(layers='x'), 'not a mapping'),
+    ('drop_steps', "missing the 'steps'"),
+    ('bad_shape', "'fc1'"),
+    ('nan', "factor A of layer 'fc1'"),
+], ids=['steps', 'damping', 'unregistered', 'layers_type', 'no_steps',
+        'shape', 'nan'])
+def test_validate_payload_names_the_fault(change, match):
+    from kfac_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    _, precond = lenet_run(1)
+    payload = precond.state_dict()
+    ckpt.validate_payload(payload, precond)
+    if change == 'drop_steps':
+        del payload['steps']
+    elif change == 'bad_shape':
+        payload['layers']['fc1']['A'] = torch.zeros(3, 3)
+    elif change == 'nan':
+        payload['layers']['fc1']['A'] = torch.full_like(
+            payload['layers']['fc1']['A'], float('nan'))
+    else:
+        payload.update(change)
+    with pytest.raises(ckpt.CheckpointValidationError, match=match):
+        ckpt.validate_payload(payload, precond)
+
+
+def test_retry_transient_save():
+    from kfac_pytorch_tpu_torch import tracing
+    from kfac_pytorch_tpu_torch.utils import checkpoint as ckpt
+
+    calls, sleeps = [], []
+
+    def flaky():
+        calls.append(1)
+        if len(calls) < 3:
+            raise OSError('EIO')
+        return 'done'
+
+    assert ckpt.retry_transient_save(flaky, sleep=sleeps.append) == 'done'
+    assert len(calls) == 3 and len(sleeps) == 2
+    tracing.clear_trace()
+
+    def broken():
+        raise OSError('ENOSPC')
+
+    assert ckpt.retry_transient_save(broken, retries=1,
+                                     sleep=sleeps.append) is None
+    assert tracing.get_events()['checkpoint_save_failed'] == 1
+
+    def bug():
+        raise KeyError('not weather')
+
+    with pytest.raises(KeyError):
+        ckpt.retry_transient_save(bug, sleep=sleeps.append)
+    with pytest.raises(ValueError):
+        ckpt.retry_transient_save(bug, retries=-1)

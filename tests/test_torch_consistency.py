@@ -205,8 +205,22 @@ def test_exclusions_raise_jax_errors(kwargs, error):
 
 
 def test_watchdog_names_its_item():
-    with pytest.raises(NotImplementedError, match='item 21b'):
+    """The watchdog (Queue A item 21b) is ported: a config of the wrong
+    type raises the JAX engine's ``TypeError``, and a ``WatchdogConfig``
+    builds the quarantine masks the consistency guard shares."""
+    from kfac_pytorch_tpu.models.tiny import TinyModel as JaxTiny
+    from kfac_pytorch_tpu.preconditioner import (
+        KFACPreconditioner as JaxPreconditioner,
+    )
+
+    with pytest.raises(TypeError) as want:
+        JaxPreconditioner(JaxTiny(), loss_fn=None, watchdog=object())
+    with pytest.raises(TypeError) as got:
         kt.KFACPreconditioner(TinyModel(), watchdog=object())
+    assert str(got.value) == str(want.value)
+    precond = kt.KFACPreconditioner(TinyModel(),
+                                    watchdog=kt.WatchdogConfig())
+    assert all(bs.quarantined is not None for bs in precond.buckets.values())
 
 
 # -- one rank ----------------------------------------------------------------

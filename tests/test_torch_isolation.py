@@ -1,7 +1,8 @@
 """Isolation guard: the PyTorch port never imports JAX or the JAX package.
 
 An AST scan of every module of ``kfac_pytorch_tpu_torch/`` (the
-trainers and the bench included) and of ``chip_smoke.py`` fails on any
+trainers and the bench included), of ``chip_smoke.py`` and of the chip
+probes in ``chip_probes/`` fails on any
 import of ``jax``, ``jaxlib``, ``flax``, ``optax`` or
 ``kfac_pytorch_tpu[.*]``; a fresh interpreter that imports the whole
 port, or parses the trainers' and the bench's command lines, must add
@@ -25,7 +26,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'kfac_pytorch_tpu')
 
 def _port_files() -> list[Path]:
     files = sorted((ROOT / 'kfac_pytorch_tpu_torch').rglob('*.py'))
-    return files + [ROOT / 'chip_smoke.py']
+    return (files + [ROOT / 'chip_smoke.py']
+            + sorted((ROOT / 'chip_probes').glob('*.py')))
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -58,7 +60,8 @@ def test_scan_finds_the_port():
                    'examples/cnn_utils/engine.py',
                    'examples/cnn_utils/optimizers.py', 'ops/lowrank.py',
                    'ops/ekfac.py', 'adaptive.py', 'health.py',
-                   'consistency.py', 'tracing.py', 'testing.py'):
+                   'consistency.py', 'tracing.py', 'testing.py',
+                   'elastic.py', 'watchdog.py', 'utils/checkpoint.py'):
         assert port / module in files, module
 
 

@@ -13,7 +13,9 @@ across two runs (the kernel sums without atomics); bf16 operands
 within a mean relative error of 1e-3 of the plain bf16 chain.  Under a
 quarantine mask (the health guardrails and the consistency guard) the
 sharded entry point substitutes the identity after the kernel: the
-quarantined slots are the raw gradient bit for bit.
+quarantined slots are the raw gradient bit for bit.  A step after a
+streaming restore runs the kernel on the restored stacks with no
+``eigh``, bitwise the uninterrupted run.
 """
 from __future__ import annotations
 
@@ -173,3 +175,82 @@ def test_health_verdict_on_card(dtype):
             assert not bool(verdict), (k, value)
             assert all(float(t.abs().sum()) == 0.0
                        for t in health.zero_unless(verdict, bad))
+
+
+def test_restore_then_step_on_card(tmp_path):
+    """A streaming generation (``elastic.save_streaming``) restored into a
+    fresh LeNet engine on the card installs the saved stacks with no
+    ``eigh``; the next step launches the kernel once per bucket that keeps
+    ``dgda``, gives the uninterrupted run's preconditioned gradients bit
+    for bit, and the kernel on the restored stacks matches its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _restore_then_step(tmp_path)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _restore_then_step(tmp_path):
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch import elastic
+    from kfac_pytorch_tpu_torch.models import LeNet
+
+    hp = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
+              kl_clip=0.001, lr=0.1)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    x = torch.randn(16, 1, 12, 12, generator=gen, device='cuda')
+    y = torch.randint(0, 10, (16,), generator=gen, device='cuda')
+
+    def engine(seed):
+        torch.manual_seed(seed)
+        model = LeNet(image_size=12).cuda()
+        return model, kt.KFACPreconditioner(model, **hp)
+
+    def step(model, precond):
+        model.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+        precond.step()
+        return [p.grad.clone() for p in model.parameters()]
+
+    model, precond = engine(0)
+    for _ in range(4):
+        step(model, precond)
+    elastic.save_streaming(str(tmp_path), precond)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    want = step(model, precond)
+    model, fresh = engine(1)
+    model.load_state_dict(weights)
+    calls = []
+    real = torch.linalg.eigh
+    torch.linalg.eigh = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        info = elastic.restore_streaming(str(tmp_path), fresh)
+        before = fused_eigen_precondition.launches
+        got = step(model, fresh)
+    finally:
+        torch.linalg.eigh = real
+    launched = fused_eigen_precondition.launches - before
+    assert not calls and info['decompositions_installed']
+    so = fresh._second_order
+    assert launched == sum(so.bucket_prediv(b.key)
+                           for b in fresh.plan.buckets) > 0
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    for b in fresh.plan.buckets:
+        bs = fresh.buckets[b.key]
+        if bs.dgda is None:
+            continue
+        g = torch.randn(bs.dgda.shape, generator=gen, device='cuda')
+        pg, clip = fused_eigen_precondition(g, bs.qa, bs.qg, bs.dgda)
+        want_pg, want_clip = fused_eigen_precondition_reference(
+            g, bs.qa, bs.qg, bs.dgda)
+        torch.testing.assert_close(pg, want_pg, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(clip, want_clip, rtol=1e-5, atol=1e-3)
