@@ -180,8 +180,8 @@ fails:
     the synchronous stacks after ``t - 1``, the preconditioned gradients
     bitwise equal off the due steps and different on them, the factor
     EMAs equal; then phase 14's configuration (factor 1, inv 10, SGD with
-    momentum), 32 steps: monolithic (the bootstrap in band at 0, the
-    refreshes due at 10, 20 and 30 installed at 11, 21 and 31), the same
+    momentum), 22 steps: monolithic (the bootstrap in band at 0, the
+    refreshes due at 10 and 20 installed at 11 and 21), the same
     run under ``torch.profiler`` around each deferred refresh (how much of
     the side stream's device time ran while another stream ran), and
     staggered at ``stagger_refresh=5`` (each shard one step after its
@@ -194,8 +194,8 @@ fails:
     on the side stream) beside phase 14's in-band ones;
 17. the pipelined gradient gather on ResNet-50 at world 4 on one card
     over gloo (phase 5's spawn), 8 images per rank: under HYBRID-OPT and
-    MEM-OPT, factor 10, inv 100, 7 steps with the synchronous tail and
-    7 with ``pipeline_grads=True`` (cuDNN deterministic): the pipelined
+    MEM-OPT, factor 10, inv 100, 4 steps with the synchronous tail and
+    4 with ``pipeline_grads=True`` (cuDNN deterministic): the pipelined
     run's preconditioned gradients and parameters bitwise the
     synchronous run's at every step, parameters bitwise equal across
     ranks, 21 launches a step on every rank, finite falling losses; the
@@ -205,7 +205,7 @@ fails:
     cadence and the pending decisions identical on every rank.  The
     kernels line's entry is timed at rank 0's HYBRID-OPT shard shapes.
 18. EKFAC across the grid on ResNet-50 at world 4 on one card over
-    gloo, 8 images per rank, factor 1, inv 3, 4 steps under COMM-OPT,
+    gloo, 8 images per rank, factor 1, inv 2, 3 steps under COMM-OPT,
     HYBRID-OPT and MEM-OPT (the last two stepped with COMM-OPT's
     preconditioned gradients, so all three see the same weights; cuDNN
     deterministic): the grids' losses and preconditioned gradients
@@ -250,7 +250,8 @@ fails:
 22. streaming checkpoints on ResNet-50 (phase 9's widths and batch,
     factor 1, inv 4, SGD momentum): ``elastic.save_streaming`` after
     step 2 with the model and SGD state as extras, training on to step
-    5 and a second save cut short (``testing.corrupt_checkpoint``); a
+    5 and a second save cut short before its manifest (its first
+    shard, truncated by ``testing.corrupt_checkpoint``); a
     fresh model and preconditioner ``restore_streaming`` (the walk skips
     and names the cut generation) and replay steps 3-5: parameters and
     the first replayed step's preconditioned gradients bitwise the
@@ -273,7 +274,33 @@ fails:
     damping and kl-clip escalated on re-entry, a clean replay with 21
     fused launches a step, one host read per check; then two ranks
     (ResNet-32, gloo) with different local losses take the same rungs
-    through one all-reduce per check.
+    through one all-reduce per check;
+24. observe and flight on ResNet-50 (phase 9's widths and batch, factor
+    1, inv 3, kl-clip 0.001, 7 steps through ``train_loop``), off and
+    with ``ObserveConfig(monitor=True, annotate=True, timeline=True)``
+    and ``FlightConfig(window=8, flush_every=4)``: parameters and the last
+    step's gradients bitwise equal; ``observe/kl_nu`` and
+    ``observe/precond_grad_norm`` within 1e-5 of the plain version's on
+    the same stacks and raw gradients; the Kronecker extremes within the
+    eigen gate of a float64 ``eigvalsh`` of the factor EMAs; under
+    ``torch.profiler`` every fused-kernel launch inside
+    ``kfac/precondition`` and every ``eigh`` kernel inside
+    ``kfac/eigh_refresh``; observe adds one synchronize a step (the
+    timeline) and flight one device-to-host copy per flush; the
+    ``profile_phases`` times and the on-against-off step delta;
+25. the runtime and a rank death: four ranks on the card over gloo up
+    through ``runtime.initialize_distributed`` (CIFAR ResNet-32, 32
+    images a rank, HYBRID-OPT, factor 1, inv 3, monitor, health, a
+    streaming generation every 2 steps, flight), the ledger's rows equal
+    to the bytes the collectives moved on a step without and one with a
+    factor update; after an uninterrupted reference run rank 3 is
+    SIGKILLed once ``gen-4`` is committed: ranks 0-2 exit 87 within
+    grace + 2 heartbeat intervals + 1 s, ``rank_death.json`` names rank
+    3, every postmortem validates and rank 3's last snapshot equals the
+    reference series bitwise; two fresh ranks restart at world 2 (1x2,
+    the saved two-column layout), ``restore_streaming`` the generation
+    and run a step with the sharded kernel held against its plain
+    version.
 
 Then the bench's ``micro_mlp``, ``inverse_root`` and
 ``secondary_rn50_inverse`` stages run once (the K-FAC ones at inv 20,
@@ -308,6 +335,8 @@ import gc
 import json
 import math
 import os
+import queue
+import shutil
 import statistics
 import sys
 import tempfile
@@ -438,7 +467,7 @@ def precond_bound_cuda_core(L, gp, ap):
     return max(nbytes / HBM_BYTES_PER_S, (mm + ew) / F32_FLOPS) * 1e3
 
 
-def kernel_device_times(torch, fn, sessions: int = 3, calls: int = 3):
+def kernel_device_times(torch, fn, sessions: int = 5, calls: int = 3):
     """``([(kernel, device ms)], sessions used)`` of every CUDA kernel
     one call of ``fn`` issues, from ``torch.profiler`` (CUPTI sees
     kernels launched through ctypes).  A profiler session now and then
@@ -530,20 +559,92 @@ def step_bound_cuda_core(timed):
     return sum(precond_bound_cuda_core(*shape) for shape, *_ in timed)
 
 
-def profile_case(torch, kernel, args, shape, at_most=None):
+#: ``[(process, requests, replies)]``: the fresh process that profiles
+#: a call once this one's profiler has stopped delivering (at most one).
+PROFILE_WORKER: list = []
+PROFILE_WORKER_TIMEOUT_S = 180
+
+
+def profile_worker(requests, replies):
+    """A fresh process's profiler: for each ``(kernel, (L, gp, ap),
+    seed)`` request, :func:`kernel_device_times` of one call of the
+    named ``kfac_pytorch_tpu_torch.ops`` kernel on :func:`make_case`'s
+    operands (the same seed gives the caller's operands), until
+    ``None``."""
+    import torch
+
+    import kfac_pytorch_tpu_torch as kt
+
+    while (req := requests.get()) is not None:
+        name, (L, gp, ap), seed = req
+        kernel = getattr(kt.ops, name)
+        args = make_case(torch, L, gp, ap, seed=seed)
+        replies.put(kernel_device_times(torch, lambda: kernel(*args)))
+        del args
+        torch.cuda.empty_cache()
+
+
+def fresh_kernel_device_times(torch, name, shape, seed):
+    """:func:`kernel_device_times` in :func:`profile_worker`, started at
+    the first call.  After phases 16-17 this process's profiler sessions
+    came up empty at every first try of a call, and once at five tries
+    in a row (the cause is not known), while a new process's sessions
+    never did."""
+    import torch.multiprocessing as mp
+
+    if not PROFILE_WORKER:
+        ctx = mp.get_context('spawn')
+        requests, replies = ctx.Queue(), ctx.Queue()
+        proc = ctx.Process(target=profile_worker, args=(requests, replies),
+                           daemon=True)
+        proc.start()
+        PROFILE_WORKER.append((proc, requests, replies))
+    proc, requests, replies = PROFILE_WORKER[0]
+    requests.put((name, tuple(shape), seed))
+    deadline = time.time() + PROFILE_WORKER_TIMEOUT_S
+    while proc.is_alive() and time.time() < deadline:
+        try:
+            return replies.get(timeout=1.0)
+        except queue.Empty:
+            pass
+    fail(f'profile {shape}: the fresh profiling process gave no answer '
+         f'(exit code {proc.exitcode}, {PROFILE_WORKER_TIMEOUT_S} s allowed)')
+
+
+def stop_profile_worker():
+    """Stop :func:`profile_worker` if it was started."""
+    while PROFILE_WORKER:
+        proc, requests, _ = PROFILE_WORKER.pop()
+        requests.put(None)
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def profile_case(torch, kernel, args, shape, seed, at_most=None):
     """One line with the device time of each CUDA kernel one call issued
     (the names carry the tiling: ``Tile<rows, cols, ...>`` for the fused
     pair, ``wide_pass`` for the large-gp chain); returns how many there
-    were.  Fails if the profiler saw none, or more than ``at_most``."""
+    were.  ``args`` are :func:`make_case`'s operands for ``seed``.  When
+    no session here sees a kernel, the same call on the same operands is
+    profiled in a fresh process.  Fails if neither profiler saw a kernel,
+    or if a call issued more than ``at_most``."""
     L, gp, ap = shape
     seen, sessions = kernel_device_times(torch, lambda: kernel(*args))
+    where = f'profiler session {sessions}'
+    if not seen:
+        seen, fresh = fresh_kernel_device_times(torch, kernel.__name__,
+                                                shape, seed)
+        where = (f'no kernel in {sessions} sessions here; a fresh '
+                 f'process\'s session {fresh}')
     if not seen:
         fail(f'profile {shape}: the profiler saw no CUDA kernel in the '
-             f'call ({sessions} sessions)')
+             f'call ({sessions} sessions here, {fresh} in a fresh process)')
     per = ', '.join(f'{name} {ms:.5f} ms' for name, ms in seen)
     print(f'profile L={L} gp={gp} ap={ap}: {len(seen)} kernels per call: '
           f'{per}; sum {sum(ms for _, ms in seen):.5f} ms (torch.profiler, '
-          f'medians over three f32 calls, profiler session {sessions})',
+          f'medians over three f32 calls, {where})',
           flush=True)
     if at_most is not None and len(seen) > at_most:
         fail(f'profile {shape}: {len(seen)} kernels per call on the path '
@@ -598,7 +699,7 @@ def check_case(torch, kernel, plain, shape, seed, at_most):
           f'{precond_bound_cuda_core(L, gp, ap):.6f} | bf16 '
           f'mean_rel_err_vs_f32={rel32:.3e} kernel_ms={ms16:.5f} '
           f'bound_ms={bound16:.6f}', flush=True)
-    n = profile_case(torch, kernel, args, shape, at_most=at_most)
+    n = profile_case(torch, kernel, args, shape, seed, at_most=at_most)
     return err, (shape, ms, plain_ms, library_ms), n, args
 
 
@@ -1575,7 +1676,7 @@ def phase_sharded_kernel(torch, kt):
               flush=True)
         # Without a row group the sharded form is the local kernel call.
         per_call.append(profile_case(torch, sharded, args, (L, gp, ap),
-                                     at_most=2))
+                                     200 + i, at_most=2))
     entry = step_entry('fused_eigen_precondition_sharded',
                        'kfac_pytorch_tpu/ops/pallas_precond.py:151', timed,
                        max_err, per_call)
@@ -3075,10 +3176,11 @@ def phase_resnet50_adaptive(torch, kt):
 #: shift check freezes the weights (no optimizer step: the same weights
 #: and batch every step, as JAX's ``run_pair``), factor 1, inv 5; the
 #: training runs take phase 14's configuration (factor 1, inv 10, SGD
-#: with momentum 0.9), 32 steps, monolithic and at ``stagger_refresh=5``.
+#: with momentum 0.9), 22 steps (cut from 32 for phases 24-25), monolithic and at
+#: ``stagger_refresh=5``.
 RN50_SHIFT_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=5)
 RN50_SHIFT_STEPS = 12
-RN50_OVERLAP_STEPS = 32
+RN50_OVERLAP_STEPS = 22
 #: The staggered run is saved after this step (shard 2, due at step 12,
 #: pending) and restored by fresh objects.
 RN50_OVERLAP_SAVE = 12
@@ -3358,8 +3460,8 @@ def rn50_overlap_restore(torch, kt, run):
 def phase_resnet50_overlap(torch, kt):
     """Phase 16: ResNet-50 with ``overlap_comm=True``.  The shift check on
     frozen weights (:func:`rn50_overlap_shift`); a monolithic training run
-    (factor 1, inv 10, 32 steps: the bootstrap in band at 0, the refreshes
-    due at 10, 20 and 30 installed at 11, 21 and 31), timed, then the
+    (factor 1, inv 10, 22 steps: the bootstrap in band at 0, the refreshes
+    due at 10 and 20 installed at 11 and 21), timed, then the
     same run again under ``torch.profiler`` around each deferred refresh
     for its side-stream concurrency; a staggered one (``stagger_refresh=
     5``: each shard one step after its due step), whose state after step
@@ -3391,9 +3493,7 @@ def phase_resnet50_overlap(torch, kt):
           f'launches {launches} (21 x {RN50_OVERLAP_STEPS}); steps 1-'
           f'{RN50_OVERLAP_STEPS - 1} (host clock, current stream '
           f'synchronized): p50 {p50:.4f} ms, p95 {p95:.4f} ms, max '
-          f'{mx:.4f} ms; steps 1-30: '
-          + '{:.4f} / {:.4f} / {:.4f} ms'.format(
-              *step_spread(mono['step_s'][1:31]))
+          f'{mx:.4f} ms'
           + (' against phase 14\'s synchronous monolithic run (steps 1-30) '
              '{:.4f} / {:.4f} / {:.4f} ms'.format(*ref) if ref else '')
           + '; the steps that install a refresh: '
@@ -3409,7 +3509,7 @@ def phase_resnet50_overlap(torch, kt):
     gc.collect()
     torch.cuda.empty_cache()
     prof = overlap_train(torch, kt, f'{label}, profiled', RN50_OVERLAP_STEPS,
-                         profile_at=(10, 20, 30))
+                         profile_at=(10, 20))
     parts = []
     for due, found in sorted(prof['windows'].items()):
         if found is None:
@@ -3444,7 +3544,7 @@ def phase_resnet50_overlap(torch, kt):
     if stag['actions'] != want:
         fail(f'{label}: refreshes {stag["actions"]}, expected {want}')
     launches_stag = stag['launches']
-    p50, p95, mx = step_spread(stag['step_s'][1:31])
+    p50, p95, mx = step_spread(stag['step_s'][1:])
     ref = RN50_STAGGER_TIMES.get('stagger')
     by_shard: dict[int, list] = {}
     for step, shard, ms in stag['deferred_ms']:
@@ -3452,7 +3552,8 @@ def phase_resnet50_overlap(torch, kt):
     ref_shards = RN50_STAGGER_TIMES.get('shards', {})
     print(f'{label}: losses {stag["losses"][0]:.6f} -> '
           f'{stag["losses"][-1]:.6f}; refreshes {stag["actions"]}; launches '
-          f'{launches_stag}; steps 1-30 p50 {p50:.4f} ms, p95 {p95:.4f} ms, '
+          f'{launches_stag}; steps 1-{RN50_OVERLAP_STEPS - 1} p50 '
+          f'{p50:.4f} ms, p95 {p95:.4f} ms, '
           f'max {mx:.4f} ms'
           + (' against phase 14\'s synchronous staggered run '
              '{:.4f} / {:.4f} / {:.4f} ms'.format(*ref) if ref else '')
@@ -3488,10 +3589,11 @@ def phase_resnet50_overlap(torch, kt):
 #: ``RN50_PIPE_OVERLAP_STEPS`` steps with ``overlap_comm`` and
 #: ``pipeline_grads`` together under HYBRID-OPT at factor 5, inv 5 (the
 #: refresh due at 5 installed at 6).  The steps are cut (7, from 11 when
-#: phases 20 and 21 came: the factor step 0 and six steps on its
-#: factors; the overlap pass to 7, factor steps every fifth) to keep the
-#: phase near a minute; the widths are ResNet-50's.
-RN50_PIPE_STEPS = 7
+#: phases 20 and 21 came, then 4 when phases 24 and 25 came: the factor
+#: step 0 and three steps on its factors; the overlap pass to 7, factor
+#: steps every fifth) to keep the phase near a minute; the widths are
+#: ResNet-50's.
+RN50_PIPE_STEPS = 4
 RN50_PIPE_OVERLAP_STEPS = 7
 RN50_PIPE_STRATEGIES = ('HYBRID_OPT', 'MEM_OPT')
 RN50_PIPE_OVERLAP_HP = dict(RN50_HP, factor_update_steps=5,
@@ -3742,16 +3844,17 @@ def phase_resnet50_pipelined(torch, kt):
 
 
 #: Phase 18: EKFAC across the grid (ROADMAP item 10b), ResNet-50 at
-#: world 4 on one card over gloo, 8 images a rank, factor 1, inv 3 (cut
-#: from inv 5 and 8 steps, then from inv 4 and 6 steps, for time); the
-#: round trip saves before step ``RN50_GRID_SAVE`` and resumes the last
-#: three steps, across the refresh of step 3.  The save follows the
+#: world 4 on one card over gloo, 8 images a rank, factor 1, inv 2 (cut
+#: from inv 5 and 8 steps, then from inv 4 and 6 steps, then from inv 3
+#: and 4 steps, for time); the round trip saves before step
+#: ``RN50_GRID_SAVE`` and resumes the last two steps, across the refresh
+#: of step 2.  The save follows the
 #: refresh of step 0: a state dict carries the factors, not the bases,
 #: and the restore recomputes the bases from them, which gives the saved
 #: run's bits only while the factors are those the last refresh
 #: decomposed.
-RN50_GRID_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=3)
-RN50_GRID_STEPS = 4
+RN50_GRID_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=2)
+RN50_GRID_STEPS = 3
 RN50_GRID_SAVE = 1
 RN50_GRID_STRATEGIES = ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT')
 #: The EKFAC trajectory tolerance (``tests/test_torch_ekfac.py``).
@@ -4012,7 +4115,7 @@ def phase_resnet50_ekfac_grid(torch, kt):
     model) within ``RN50_GRID_TOL`` of COMM-OPT's, ``ekfac_divergence``
     bitwise equal on all four ranks at every step, no fused-kernel
     launch, finite falling losses, and the state-dict round trip (saved
-    before step ``RN50_GRID_SAVE``, resumed across the refresh of step 3)
+    before step ``RN50_GRID_SAVE``, resumed across the refresh of step 2)
     resuming bitwise.  The losses are held to the same bar, but under
     this feeding the weights, and so the losses, equal COMM-OPT's by
     construction: that gate only shows the feeding took (it reads 0).  Prints the three designs'
@@ -5142,8 +5245,13 @@ def rn50_elastic_single(torch, kt, workdir):
             print(f'resnet50 elastic: saved {out["bytes"]} bytes in '
                   f'{out["save_s"]:.3f} s', flush=True)
     out['params'] = [p.detach().clone() for p in model.parameters()]
-    torn = elastic.save_streaming(workdir, precond,
-                                  extras=training_extras(model, opt))
+    # The second save, cut short before its manifest: the generation
+    # directory holds its first shard, truncated, as a save killed while
+    # writing it leaves it (a whole second 1.5 GB save cost ~6 s).
+    torn = os.path.join(workdir, f'gen-{precond.steps:08d}')
+    os.makedirs(torn)
+    shutil.copyfile(os.path.join(out['gen'], 'layers.npz'),
+                    os.path.join(torn, 'layers.npz'))
     out['torn_files'] = kt.testing.corrupt_checkpoint(torn)
     out['torn'] = os.path.basename(torn)
     del model, opt, precond
@@ -5665,6 +5773,819 @@ def phase_resnet50_watchdog(torch, kt):
     return launches
 
 
+#: Phase 24: observe and flight on ImageNet ResNet-50 (phase 9's widths
+#: and batch, f32, TF32 off): factor 1, inv 3, kl-clip 0.001, 7 steps a
+#: run, refreshes at steps 0, 3 and 6; the flight recorder flushes after
+#: step 3 (``flush_every=4``).  Steps 3-4 run under ``torch.profiler`` in
+#: both runs (the refresh of step 3 and the flush after it inside the
+#: window; a refresh's ``eigh`` alone is ~48,000 CUDA kernels).
+RN50_OBS_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=3)
+RN50_OBS_STEPS = 7
+RN50_OBS_WINDOW = (3, 5)
+RN50_OBS_FLIGHT = dict(window=8, flush_every=4)
+OBSERVE_MODEL = ('resnet50', 1000)
+#: The fused kernel's CUDA kernels, by a part of their names.
+FUSED_KERNEL_NAMES = ('precond_forward', 'precond_back', 'wide_pass')
+
+
+def kernel_ranges(trace_path, prefix='kfac/'):
+    """``[(kernel name, [enclosing range names])]`` of every CUDA kernel
+    of a ``torch.profiler`` chrome trace: a kernel is inside a
+    ``record_function`` range when the host call that launched it (the
+    CUDA API event of its correlation id) lies inside the range on the
+    same thread."""
+    with open(trace_path) as fh:
+        events = json.load(fh)['traceEvents']
+    ranges = [e for e in events if e.get('cat') == 'user_annotation'
+              and e.get('name', '').startswith(prefix)]
+    launches = {e['args']['correlation']: e for e in events
+                if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                and 'correlation' in e.get('args', {})}
+    out = []
+    for k in events:
+        if k.get('cat') != 'kernel':
+            continue
+        host = launches.get(k.get('args', {}).get('correlation'))
+        inside = [] if host is None else [
+            r['name'] for r in ranges
+            if r['tid'] == host['tid'] and r['pid'] == host['pid']
+            and r['ts'] <= host['ts'] <= r['ts'] + r['dur']]
+        name = k['name'].replace('(anonymous namespace)::', '')
+        out.append((name.split('(')[0], inside))
+    return out
+
+
+def trace_host_reads(trace_path) -> dict:
+    """Device-to-host copies and ``cudaDeviceSynchronize`` calls of a
+    chrome trace: the host reads a window made."""
+    with open(trace_path) as fh:
+        events = json.load(fh)['traceEvents']
+    return dict(
+        dtoh=sum(1 for e in events if e.get('cat') == 'gpu_memcpy'
+                 and 'DtoH' in e.get('name', '')),
+        device_syncs=sum(1 for e in events if e.get('cat') == 'cuda_runtime'
+                         and e.get('name') == 'cudaDeviceSynchronize'),
+    )
+
+
+def observe_run(torch, kt, observe, workdir):
+    """One 7-step ResNet-50 run through ``train_loop`` (SGD momentum 0.9,
+    cuDNN deterministic); with ``observe`` also the flight recorder, and a
+    spy on the last step's precondition that keeps its raw combined
+    gradients, factor EMAs and stacks.  Steps in ``RN50_OBS_WINDOW`` run
+    under the profiler (trace in ``workdir``).  Returns the parameters,
+    the last step's gradients, the step times, the kernel launches, the
+    trace's path and, observed, the engine."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from kfac_pytorch_tpu_torch.observe import FlightConfig
+
+    name, classes = OBSERVE_MODEL
+    model = getattr(kt.models, name)(num_classes=classes, device=DEVICE,
+                                     seed=0)
+    x, y = rn50_batch(torch)
+    y = y % classes
+    flight = None if observe is None else FlightConfig(
+        path=os.path.join(workdir, 'postmortem.json'), **RN50_OBS_FLIGHT)
+    precond = kt.KFACPreconditioner(model, observe=observe, flight=flight,
+                                    **RN50_OBS_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=RN50_OBS_HP['lr'],
+                          momentum=0.9)
+    loop = precond.train_loop(opt, F.cross_entropy)
+    out = {'step_s': []}
+    if observe is not None:
+        real = precond._precondition
+
+        def spy(*a, **k):
+            if precond.steps == RN50_OBS_STEPS - 1:
+                out['raw'] = {n: h.get_grad().clone()
+                              for n, h in precond.helpers.items()}
+                out['factors'] = {n: (st.a_factor.clone(),
+                                      st.g_factor.clone())
+                                  for n, st in precond.layers.items()}
+                out['stacks'] = dict(precond.buckets)
+            return real(*a, **k)
+
+        precond._precondition = spy
+    kernel = kt.ops.fused_eigen_precondition
+    trace = os.path.join(workdir, f'trace_{"on" if observe else "off"}.json')
+    prof = None
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    for t in range(RN50_OBS_STEPS):
+        if t == RN50_OBS_WINDOW[0] and DEVICE == 'cuda':
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        loop.step(x, loss_args=(y,))
+        torch.cuda.synchronize()
+        out['step_s'].append(time.perf_counter() - t0)
+        if t == RN50_OBS_WINDOW[1] - 1 and prof is not None:
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(trace)
+            out['trace'] = trace
+    out['launches'] = kernel.launches
+    out['params'] = [p.detach().clone() for p in model.parameters()]
+    out['grads'] = [p.grad.detach().clone() for p in model.parameters()]
+    out['buckets'] = kernel_buckets(precond)
+    if observe is None:
+        del loop, model, opt, precond
+    else:
+        out.update(precond=precond, model=model, x=x, y=y)
+        precond.flight.disarm()
+    gc.collect()
+    return out
+
+
+def observe_plain_check(torch, kt, on):
+    """The last step's ``observe/kl_nu`` and ``observe/precond_grad_norm``
+    against the plain version on the same stacks and raw gradients:
+    ``(kl_nu error, norm error, max |pg|, the plain scale)``, relative."""
+    from kfac_pytorch_tpu_torch import ops
+    from kfac_pytorch_tpu_torch.ops import fused_precond as fp
+
+    precond, raw, stacks = on['precond'], on['raw'], on['stacks']
+    so = precond._second_order
+    hp = RN50_OBS_HP
+    terms, pgs = [], []
+    for b in precond.plan.buckets:
+        bs = stacks[b.key]
+        g = so._grad_stack(b, raw).contiguous()
+        pg, clip = fp.fused_eigen_precondition_reference(g, bs.qa, bs.qg,
+                                                         bs.dgda)
+        terms.append(torch.sum(clip) * hp['lr'] ** 2)
+        for i, name in enumerate(b.slots):
+            if name is not None:
+                go, ga = raw[name].shape
+                pgs.append(pg[i, :go, :ga])
+    scale = ops.kl_clip_scale(terms, hp['kl_clip'])
+    sq = sum(torch.sum((p * scale) ** 2) for p in pgs)
+    sq = sq + sum(torch.sum(p.grad.float() ** 2)
+                  for p in precond._uncovered_params)
+    info = precond.last_step_info
+    nu, norm = float(info['observe/kl_nu']), float(
+        info['observe/precond_grad_norm'])
+    want_nu, want_norm = float(scale), float(torch.sqrt(sq))
+    top = max(float(p.abs().max()) for p in pgs)
+    return (abs(nu - want_nu) / abs(want_nu),
+            abs(norm - want_norm) / abs(want_norm), top, want_nu)
+
+
+def observe_spectrum_check(torch, on):
+    """``observe/kron_min``/``kron_max`` against the float64 ``eigvalsh``
+    of the factor EMAs the last refresh decomposed (a prediv bucket's
+    Kronecker spectrum is ``da_i dg_j``): ``(errors relative to the
+    largest eigenvalue, the gate, the f64 extremes)``."""
+    lo = hi = None
+    n = 0
+    for a, g in on['factors'].values():
+        da = torch.linalg.eigvalsh(a.double()).clamp(min=0.0)
+        dg = torch.linalg.eigvalsh(g.double()).clamp(min=0.0)
+        n = max(n, a.shape[-1], g.shape[-1])
+        lo_l, hi_l = float(da[0] * dg[0]), float(da[-1] * dg[-1])
+        lo = lo_l if lo is None else min(lo, lo_l)
+        hi = hi_l if hi is None else max(hi, hi_l)
+    info = on['precond'].last_step_info
+    got_lo, got_hi = (float(info['observe/kron_min']),
+                      float(info['observe/kron_max']))
+    gate = eigen_gate(n)
+    return ((abs(got_lo - lo) / hi, abs(got_hi - hi) / hi), gate,
+            (lo, hi), (got_lo, got_hi))
+
+
+def observe_bucket_diagnosis(torch, on) -> dict:
+    """Per bucket: the monitor's Kronecker maximum, the f64 one of its
+    layers, and per side the eigenpairs the support mask keeps against
+    the logical dims (a failure's evidence)."""
+    from kfac_pytorch_tpu_torch.observe import monitor
+
+    precond = on['precond']
+    so = precond._second_order
+    out = {}
+    for b in precond.plan.buckets:
+        bs = on['stacks'][b.key]
+        _, st = so._bucket_stats(b, bs)
+        a_dims, g_dims, occ = so._monitor_masks(b)
+        f64 = 0.0
+        for name in b.slots:
+            if name is not None:
+                a, g = on['factors'][name]
+                f64 = max(f64, float(torch.linalg.eigvalsh(a.double())[-1]
+                                     * torch.linalg.eigvalsh(g.double())[-1]))
+        out[b.key] = dict(
+            kron_max=float(st['kron_max']), f64=f64,
+            a_kept=monitor.support_mask(bs.qa, a_dims).sum(-1).tolist(),
+            a_dims=a_dims.tolist(),
+            g_kept=monitor.support_mask(bs.qg, g_dims).sum(-1).tolist(),
+            g_dims=g_dims.tolist())
+    return out
+
+
+def phase_resnet50_observe(torch, kt):
+    """Phase 24: observe and flight on ResNet-50 (budget 45 s).  Off and
+    on (``ObserveConfig(monitor=True, annotate=True, timeline=True)``,
+    ``FlightConfig(window=8, flush_every=4)``), 7 steps each: (a)
+    parameters and the last step's preconditioned gradients bitwise
+    equal; (b) ``observe/kl_nu`` and ``observe/precond_grad_norm`` within
+    1e-5 of the plain version's on the same stacks and raw gradients; (c)
+    the Kronecker extremes within the eigen gate of a float64
+    ``eigvalsh`` of the factor EMAs the last refresh decomposed; (d)
+    under the profiler (steps 3-4), every fused-kernel launch inside
+    ``kfac/precondition`` and every kernel of ``eigh``
+    (:func:`eigh_kernel_names`) inside ``kfac/eigh_refresh``; (e) on the
+    same window, observe-on adds one ``cudaDeviceSynchronize`` a step (the
+    timeline) and the flight recorder one device-to-host copy per flush,
+    nothing else; (f) ``profile_phases`` and the on-against-off step
+    delta.  Returns the on run's launches."""
+    from kfac_pytorch_tpu_torch.observe import ObserveConfig
+    from kfac_pytorch_tpu_torch.observe import timeline
+
+    import torch.nn.functional as F
+
+    label = 'resnet50 observe'
+    marks = [('start', time.perf_counter())]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix='observe_') as workdir:
+            off = observe_run(torch, kt, None, workdir)
+            marks.append(('off run', time.perf_counter()))
+            on = observe_run(torch, kt, ObserveConfig(
+                monitor=True, annotate=True, timeline=True), workdir)
+            marks.append(('on run', time.perf_counter()))
+            eigh_names = eigh_kernel_names(torch) if DEVICE == 'cuda' else set()
+            attributed = (kernel_ranges(on['trace'])
+                          if 'trace' in on else [])
+            reads = ((trace_host_reads(off['trace']),
+                      trace_host_reads(on['trace']))
+                     if 'trace' in on else None)
+            marks.append(('traces', time.perf_counter()))
+            precond, model = on['precond'], on['model']
+            x, y = on['x'], on['y']
+            flight = precond.flight
+            pm = kt.observe.flight.read_postmortem(flight.last_dump['path'])
+            problems = kt.observe.flight.validate_postmortem(
+                pm, min_subsystems=1)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if not (all(torch.equal(a, b) for a, b in zip(off['params'],
+                                                  on['params']))
+            and all(torch.equal(a, b) for a, b in zip(off['grads'],
+                                                      on['grads']))):
+        fail(f'{label}: observe and flight on are not bitwise off '
+             '(parameters or the last step\'s gradients)')
+    per_step = on['buckets'] if DEVICE == 'cuda' else 0
+    if DEVICE == 'cuda' and (per_step != 21 or on['launches'] != (
+            RN50_OBS_STEPS * per_step) or off['launches'] != on['launches']):
+        fail(f'{label}: launches {on["launches"]} on, {off["launches"]} off '
+             f'({per_step} a step)')
+    nu_err, norm_err, top, nu = observe_plain_check(torch, kt, on)
+    marks.append(('plain check', time.perf_counter()))
+    if nu_err > 1e-5 or norm_err > 1e-5:
+        fail(f'{label}: observe/kl_nu err {nu_err:.3e}, precond_grad_norm '
+             f'err {norm_err:.3e} against the plain version (max |pg| '
+             f'{top:.3e})')
+    (lo_err, hi_err), gate, want, got = observe_spectrum_check(torch, on)
+    marks.append(('f64 eigvalsh', time.perf_counter()))
+    if lo_err > gate or hi_err > gate:
+        fail(f'{label}: kron extremes {got} against f64 {want}: errors '
+             f'{lo_err:.3e}, {hi_err:.3e} of the largest (gate {gate:.3e}); '
+             f'per bucket {observe_bucket_diagnosis(torch, on)}')
+    fused = [inside for name, inside in attributed
+             if any(k in name for k in FUSED_KERNEL_NAMES)]
+    solver = [(name, inside) for name, inside in attributed
+              if name in eigh_names]
+    if DEVICE == 'cuda':
+        outside = [n for n, inside in solver
+                   if 'kfac/eigh_refresh' not in inside]
+        if not fused or not all('kfac/precondition' in r for r in fused):
+            fail(f'{label}: fused kernels outside kfac/precondition: '
+                 f'{sum("kfac/precondition" not in r for r in fused)} of '
+                 f'{len(fused)}')
+        if not solver or outside:
+            fail(f'{label}: {len(solver)} eigh kernels, outside '
+                 f'kfac/eigh_refresh: {sorted(set(outside))[:4]}')
+        window = RN50_OBS_WINDOW[1] - RN50_OBS_WINDOW[0]
+        flushes = sum((t + 1) % RN50_OBS_FLIGHT['flush_every'] == 0
+                      for t in range(*RN50_OBS_WINDOW))
+        extra = {k: reads[1][k] - reads[0][k] for k in reads[0]}
+        if extra != {'dtoh': flushes, 'device_syncs': window}:
+            fail(f'{label}: host reads on minus off over steps '
+                 f'{RN50_OBS_WINDOW}: {extra} (off {reads[0]}, on '
+                 f'{reads[1]}); expected {flushes} copies, {window} syncs')
+    if (flight.host_syncs != flight.dumps_total or problems
+            or precond.timeline.syncs != RN50_OBS_STEPS):
+        fail(f'{label}: flight reads {flight.host_syncs}, dumps '
+             f'{flight.dumps_total}, postmortem {problems}, timeline syncs '
+             f'{precond.timeline.syncs}')
+
+    def fwd_bwd():
+        model.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+
+    phases, total = timeline.profile_phases(precond, fwd_bwd, iters=1)
+    marks.append(('profile_phases', time.perf_counter()))
+    plain = [1, 2]
+    d_plain = (statistics.median(on['step_s'][t] for t in plain)
+               - statistics.median(off['step_s'][t] for t in plain)) * 1e3
+    tl = precond.timeline.summary()
+    print(f'{label}: ResNet-50 batch {RN50_BATCH} at {RN50_IMAGE}x'
+          f'{RN50_IMAGE}, factor 1, inv 3, kl-clip '
+          f'{RN50_OBS_HP["kl_clip"]}, {RN50_OBS_STEPS} steps; observe '
+          '(monitor, annotate, timeline) and flight '
+          f'{RN50_OBS_FLIGHT} bitwise off (parameters, last gradients); '
+          f'{on["launches"]} fused launches; kl_nu {nu:.6g} err '
+          f'{nu_err:.3e}, precond_grad_norm err {norm_err:.3e} (max |pg| '
+          f'{top:.3e}) against the plain version; kron_min/max '
+          f'{got[0]:.6g}/{got[1]:.6g} against f64 {want[0]:.6g}/'
+          f'{want[1]:.6g}: errors {lo_err:.3e}/{hi_err:.3e} of the largest '
+          f'(gate {gate:.3e})', flush=True)
+    if reads is not None:
+        print(f'{label}: profiled steps {RN50_OBS_WINDOW[0]}-'
+              f'{RN50_OBS_WINDOW[1] - 1}: {len(fused)} fused-kernel kernels, '
+              f'all inside kfac/precondition; {len(solver)} eigh kernels '
+              f'({len(eigh_names)} names from a probe eigh), all inside '
+              f'kfac/eigh_refresh; host reads off {reads[0]}, on {reads[1]}: '
+              f'+1 synchronize a step (the timeline), +1 copy per flush '
+              f'(flight host_syncs {flight.host_syncs} over '
+              f'{flight.dumps_total} flushes)', flush=True)
+    print(f'{label}: profile_phases (1 iteration after a warm one) '
+          + ', '.join(f'{k} {v * 1e3:.3f} ms' for k, v in phases.items())
+          + f'; total {total * 1e3:.3f} ms; sum/total '
+          f'{sum(phases.values()) / total:.4f}; step on minus off '
+          f'{d_plain:.3f} ms (median of plain steps 1-2; on '
+          f'{[round(v * 1e3, 3) for v in on["step_s"]]} ms, off '
+          f'{[round(v * 1e3, 3) for v in off["step_s"]]} ms); timeline '
+          + json.dumps({k: round(v['p50'] * 1e3, 3) for k, v in tl.items()})
+          + ' ms p50; the phase\'s parts '
+          + ', '.join(f'{name} {t - prev:.2f} s' for (_, prev), (name, t)
+                      in zip(marks, marks[1:])), flush=True)
+    launches = on['launches']
+    del on, off, precond, model, flight
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: Phase 25: the runtime and a rank death.  Four ranks on the one card
+#: over gloo, CIFAR ResNet-32 at 32 images a rank, HYBRID-OPT, factor 1,
+#: inv 3, the Observe monitor, health guardrails, the watchdog saving a
+#: streaming generation every 2 steps, the flight recorder (window 8,
+#: flushes every 2 steps), heartbeats every 0.25 s with a 2 s grace.
+RT_WORLD = 4
+RT_BATCH = 32
+RT_HP = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
+             kl_clip=0.001, lr=0.1)
+RT_INTERVAL_S = 0.25
+RT_GRACE_S = 2.0
+RT_REF_STEPS = 4  # rank 3's last snapshot holds steps 1-4
+RT_KILL_AFTER = 4  # rank 3 dies once gen-4 is committed
+RT_TIMEOUT_S = 240
+RT_LEDGER_HP = dict(RT_HP, factor_update_steps=2, inv_update_steps=100)
+#: The ledger row each collective of the port counts under: the
+#: innermost caller of these names.
+LEDGER_LABELS = {
+    'all_reduce_mean': 'factor_allreduce',
+    'all_reduce_sum_triu': 'factor_allreduce',
+    'all_gather_decompositions': 'inverse_row_allgather',
+    'all_gather_preconditioned': 'grad_col_allgather',
+    'all_gather_preconditioned_async': 'grad_col_allgather',
+    'curvature_stats': 'observe_extremes',
+}
+
+
+class CollectiveBytes:
+    """Wraps ``torch.distributed``'s collectives: each call's result bytes
+    (an all-reduce's buffer, an all-gather's output) under the ledger
+    phase of the ``parallel/collectives.py`` function (or monitor) that
+    issued it (:data:`LEDGER_LABELS`)."""
+
+    def __init__(self, dist) -> None:
+        self.dist, self.counts, self.saved = dist, {}, {}
+        for name in ('all_reduce', 'all_gather_into_tensor', 'all_gather',
+                     'broadcast'):
+            self.saved[name] = getattr(dist, name)
+            setattr(dist, name, self._wrap(self.saved[name]))
+
+    def _wrap(self, fn):
+        def wrapped(*args, **kw):
+            out = args[0]
+            nbytes = (sum(t.numel() * t.element_size() for t in out)
+                      if isinstance(out, list)
+                      else out.numel() * out.element_size())
+            frame, label = sys._getframe(1), 'other'
+            while frame is not None:
+                if frame.f_code.co_name in LEDGER_LABELS:
+                    label = LEDGER_LABELS[frame.f_code.co_name]
+                    break
+                frame = frame.f_back
+            self.counts[label] = self.counts.get(label, 0) + nbytes
+            return fn(*args, **kw)
+        return wrapped
+
+    def take(self) -> dict:
+        out, self.counts = self.counts, {}
+        return out
+
+    def close(self) -> None:
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def rt_device(torch, device_type):
+    if device_type != 'cuda':
+        return torch.device('cpu')
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    return dev
+
+
+def rt_engine(torch, kt, dev, rank, hp, **kw):
+    """ResNet-32 in DDP, its HYBRID-OPT preconditioner, SGD, the local
+    batch of ``rank``."""
+    model = kt.models.resnet32(device=dev, seed=0)
+    ddp = torch.nn.parallel.DistributedDataParallel(
+        model, device_ids=None if dev.index is None else [dev.index])
+    precond = kt.KFACPreconditioner(
+        ddp, grad_worker_fraction=kt.DistributedStrategy.HYBRID_OPT,
+        **hp, **kw)
+    opt = torch.optim.SGD(model.parameters(), lr=hp['lr'], momentum=0.9)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30 + rank)
+    x = torch.randn(RT_BATCH, 3, 32, 32, generator=gen, device=dev)
+    y = torch.randint(0, 10, (RT_BATCH,), generator=gen, device=dev)
+    return model, ddp, precond, opt, x, y
+
+
+def rt_ledger_check(torch, kt, dev, rank):
+    """Phase 25 (b): a step without a factor update (1) and a factor step
+    (2) of a HYBRID-OPT engine with the monitor (factor 2, inv 100): per
+    step, the bytes the port's collectives moved by ledger phase, and the
+    ledger's payloads of the rows that fire."""
+    import dataclasses
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch.observe import ObserveConfig
+    from kfac_pytorch_tpu_torch.observe import costs
+
+    model, ddp, precond, opt, x, y = rt_engine(
+        torch, kt, dev, rank, RT_LEDGER_HP,
+        observe=ObserveConfig(monitor=True, annotate=False))
+    rows = [dataclasses.asdict(r) for r in costs.ledger_for(precond)]
+    counter = CollectiveBytes(dist)
+    out = []
+    try:
+        for t in range(3):
+            ddp.zero_grad()
+            F.cross_entropy(ddp(x), y).backward()
+            factor = precond._step_gating()[0]
+            counter.take()
+            precond.step()
+            moved = counter.take()
+            if t == 0:
+                continue
+            fired = {'step'} | ({'factor_step'} if factor else set())
+            want = {r['phase']: r['payload_bytes'] for r in rows
+                    if r['cadence'] in fired and r['collective'] != 'host'}
+            out.append(dict(step=t, factor=factor, moved=moved, want=want))
+    finally:
+        counter.close()
+    del model, ddp, precond, opt
+    return out, rows
+
+
+def rt_train(torch, kt, dev, rank, workdir, tag, steps, marker=None):
+    """The phase's main path on one rank: ``steps`` steps (``None``: until
+    the process ends) through ``train_loop`` (the watchdog saves
+    generations into ``<tag>/gens``, the flight recorder dumps into
+    ``<tag>``); per step ``loss`` and every scalar of ``last_step_info``
+    as floats, the series a flight recorder keeps; ``marker`` gets the
+    step count and the launches after each step."""
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch.observe import FlightConfig
+    from kfac_pytorch_tpu_torch.observe import ObserveConfig
+
+    root = os.path.join(workdir, tag)
+    flight = None if marker is None else FlightConfig(
+        path=os.path.join(root, 'postmortem.json'), window=8, flush_every=2)
+    model, ddp, precond, opt, x, y = rt_engine(
+        torch, kt, dev, rank, RT_HP,
+        observe=ObserveConfig(monitor=True, annotate=False),
+        health=kt.HealthConfig(),
+        watchdog=kt.WatchdogConfig(save_dir=os.path.join(root, 'gens'),
+                                   save_every=2, check_every=2),
+        flight=flight)
+    loop = precond.train_loop(opt, F.cross_entropy)
+    kernel = kt.ops.fused_eigen_precondition
+    kernel.launches = 0
+    series = {}
+    t = 0
+    while steps is None or t < steps:
+        loss, _ = loop.step(x, loss_args=(y,))
+        t += 1
+        if marker is None:
+            series[precond.steps] = dict(
+                {k: float(v) for k, v in precond.last_step_info.items()},
+                loss=float(loss))
+        else:
+            tmp = f'{marker}.tmp'
+            with open(tmp, 'w') as fh:
+                json.dump(dict(steps=precond.steps,
+                               launches=kernel.launches), fh)
+            os.replace(tmp, marker)
+    return series, kernel.launches
+
+
+def runtime_death_rank(rank, world, device_type, workdir, port):
+    """One rank of phase 25's world 4: up through
+    ``runtime.initialize_distributed``, the ledger check, an uninterrupted
+    reference run, then the main run until the process ends (rank 3 is
+    SIGKILLed by the parent; the others are ended by the runtime's
+    monitor, exit 87).  Writes ``rt{rank}.pt`` before the main run."""
+    import torch
+    import torch.distributed as dist
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch import runtime
+
+    dev = rt_device(torch, device_type)
+    cfg = runtime.RuntimeConfig(
+        coordinator=f'127.0.0.1:{port}', num_processes=world,
+        process_id=rank, init_deadline_s=90.0,
+        heartbeat_dir=os.path.join(workdir, 'hb'),
+        heartbeat_interval_s=RT_INTERVAL_S, heartbeat_grace_s=RT_GRACE_S)
+    rt = runtime.DistributedRuntime(cfg)
+    rec = dict(attempts=rt.initialize())
+    runtime.install(rt)
+    rec['backend'] = dist.get_backend()
+    rec['ledger'], rec['rows'] = rt_ledger_check(torch, kt, dev, rank)
+    rec['reference'], rec['ref_launches'] = rt_train(
+        torch, kt, dev, rank, workdir, 'ref', RT_REF_STEPS)
+    torch.save(rec, os.path.join(workdir, f'rt{rank}.pt'))
+    rt.barrier('main-run')
+    try:
+        rt_train(torch, kt, dev, rank, workdir, 'death', None,
+                 marker=os.path.join(workdir, f'death-step{rank}'))
+    except RuntimeError:
+        # Gloo may raise "connection closed by peer" at once; the
+        # runtime's monitor ends the process (EXIT_RANK_DEATH).
+        time.sleep(60)
+
+
+def runtime_restart_rank(rank, world, device_type, workdir, port):
+    """One rank of phase 25's restart at world 2: started beside the world
+    of 4 (it imports and opens the card meanwhile) and waiting for the
+    parent's ``go`` file, then up through the runtime, ``restore_streaming``
+    of the newest committed generation of the world-4 run, one step, and
+    the sharded kernel against its plain version on the restored stacks.
+    Writes ``restart{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch import elastic
+    from kfac_pytorch_tpu_torch import runtime
+    from kfac_pytorch_tpu_torch.engine import load_training_extras
+    from kfac_pytorch_tpu_torch.observe import ObserveConfig
+
+    dev = rt_device(torch, device_type)
+    go = os.path.join(workdir, 'go')
+    deadline = time.monotonic() + RT_TIMEOUT_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise SystemExit(f'restart rank {rank}: no go file')
+        time.sleep(0.05)
+    cfg = runtime.RuntimeConfig(
+        coordinator=f'127.0.0.1:{port}', num_processes=world,
+        process_id=rank, init_deadline_s=90.0)
+    rt = runtime.DistributedRuntime(cfg)
+    rec = dict(attempts=rt.initialize())
+    runtime.install(rt)
+    model, ddp, precond, opt, x, y = rt_engine(
+        torch, kt, dev, rank, RT_HP,
+        observe=ObserveConfig(monitor=True, annotate=False),
+        health=kt.HealthConfig())
+    info = elastic.restore_streaming(
+        os.path.join(workdir, 'death', 'gens'), precond)
+    load_training_extras(model, opt, info['extras'])
+    rec['info'] = {k: v for k, v in info.items() if k != 'extras'}
+    rec['grid'] = (precond.grid.rows, precond.grid.cols)
+    ddp.zero_grad()
+    F.cross_entropy(ddp(x), y).backward()
+    raw = {n: h.get_grad().clone() for n, h in precond.helpers.items()}
+    kernel = kt.ops.fused_eigen_precondition
+    kernel.launches = 0
+    precond.step()
+    rec['launches'] = kernel.launches
+    rec['buckets'] = kernel_buckets(precond)
+    rec['finite'] = all(bool(torch.isfinite(p.grad).all())
+                        for p in model.parameters())
+    rec['kernel_check'] = restored_kernel_check(
+        torch, kt, precond, raw, group=precond.grid.row_group)
+    torch.save(rec, os.path.join(workdir, f'restart{rank}.pt'))
+    rt.barrier('done')
+    rt.shutdown()
+    dist.destroy_process_group()
+
+
+def rt_wait(procs, deadline, poll_s=0.02):
+    """Exit codes and exit times (``time.monotonic``) of ``procs``, polled
+    until all have exited or ``deadline``; stragglers are killed."""
+    codes, times = [None] * len(procs), [None] * len(procs)
+    while time.monotonic() < deadline and None in codes:
+        for i, p in enumerate(procs):
+            if codes[i] is None and not p.is_alive():
+                times[i] = time.monotonic()
+                p.join()
+                codes[i] = p.exitcode
+        time.sleep(poll_s)
+    for i, p in enumerate(procs):
+        if codes[i] is None:
+            p.kill()
+            p.join()
+            codes[i] = 'hung'
+    return codes, times
+
+
+def shard_entry(torch, kt, n_cols, name, seed):
+    """The sharded form timed alone on one rank's shard of each ResNet-32
+    bucket on a grid of ``n_cols`` columns (column 0's slots; no gather),
+    against its plain version: a kernels-line entry summed over one
+    step's calls."""
+    from kfac_pytorch_tpu_torch.capture import ModelCapture
+    from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan
+
+    sharded = kt.ops.fused_eigen_precondition_sharded
+    plain = kt.ops.fused_eigen_precondition_sharded_reference
+    helpers = ModelCapture(kt.models.resnet32(device=DEVICE)).helpers
+    shapes = [(b.seg, b.g_pad, b.a_pad)
+              for b in make_bucket_plan(helpers, n_cols=n_cols).buckets]
+    timed, max_err = [], 0.0
+    for i, (L, gp, ap) in enumerate(shapes):
+        args = make_case(torch, L, gp, ap, seed=seed + i)
+        pg, _ = sharded(*args)
+        want, _ = plain(*args)
+        torch.cuda.synchronize()
+        bad = (pg - want).abs() > 1e-4 + 1e-5 * want.abs()
+        if not torch.isfinite(pg).all() or bool(bad.any()):
+            fail(f'{name} {(L, gp, ap)}: kernel disagrees with plain')
+        max_err = max(max_err, float((pg - want).abs().max()))
+        timed.append(((L, gp, ap), *time_case(torch, sharded, plain, args)))
+    entry = step_entry(name, 'kfac_pytorch_tpu/ops/pallas_precond.py:151',
+                       timed, max_err, [])
+    entry['shard_shapes'] = shapes
+    return entry
+
+
+def phase_runtime(torch, kt):
+    """Phase 25: the runtime and a rank death (budget 45 s).  Four ranks
+    come up through ``runtime.initialize_distributed`` (a), and hold the
+    cost ledger's rows to the bytes the port's collectives moved on a
+    step without a factor update and on a factor step (b); after an
+    uninterrupted reference run, the parent SIGKILLs rank 3 once it has
+    committed ``gen-4`` (c): ranks 0-2 exit 87 within grace + 2 intervals
+    + 1 s of the kill, ``rank_death.json`` names rank 3, every survivor's
+    ``postmortem.json`` (trigger ``peer_death``) and rank 3's last
+    periodic snapshot validate, and rank 3's window equals the reference
+    run's series bit for bit; two fresh ranks restart at world 2 (d),
+    ``restore_streaming`` the newest committed generation, run a step
+    through the sharded kernel and hold it against its plain version
+    (unit-Gaussian and raw gradients).  HYBRID-OPT keeps two columns at
+    world 2 (1x2) as at world 4 (2x2), so the bucket layout is the saved
+    one and the stacks install as saved; phase 22 covers the transplant
+    across layouts.  Returns ``(launches, max abs err)``."""
+    import torch.multiprocessing as mp
+
+    from kfac_pytorch_tpu_torch import runtime
+    from kfac_pytorch_tpu_torch.observe import flight as flight_lib
+
+    label = 'runtime'
+    ctx = mp.get_context('spawn')
+    with tempfile.TemporaryDirectory(prefix='runtime_') as workdir:
+        port, port2 = kt.testing.free_port(), kt.testing.free_port()
+        # Daemonic: a failed phase ends the script, which ends them.
+        procs = [ctx.Process(target=runtime_death_rank, daemon=True,
+                             args=(r, RT_WORLD, DEVICE, workdir, port))
+                 for r in range(RT_WORLD)]
+        restart = [ctx.Process(target=runtime_restart_rank, daemon=True,
+                               args=(r, 2, DEVICE, workdir, port2))
+                   for r in range(2)]
+        for p in procs + restart:
+            p.start()
+        marker = os.path.join(workdir, f'death-step{RT_WORLD - 1}')
+        deadline = time.monotonic() + RT_TIMEOUT_S
+        victim = None
+        while time.monotonic() < deadline:
+            if os.path.exists(marker):
+                with open(marker) as fh:
+                    victim = json.load(fh)
+                if victim['steps'] >= RT_KILL_AFTER:
+                    break
+            if any(not p.is_alive() for p in procs):
+                break
+            time.sleep(0.02)
+        if victim is None or victim['steps'] < RT_KILL_AFTER:
+            for p in procs + restart:
+                p.kill()
+                p.join()
+            fail(f'{label}: rank {RT_WORLD - 1} never reached step '
+                 f'{RT_KILL_AFTER} (exit codes '
+                 f'{[p.exitcode for p in procs]})')
+        procs[-1].kill()
+        t_kill = time.monotonic()
+        codes, times = rt_wait(procs, t_kill + 30.0)
+        bound = RT_GRACE_S + 2 * RT_INTERVAL_S + 1.0
+        latency = [None if t is None else t - t_kill for t in times[:-1]]
+        if codes[:-1] != [runtime.EXIT_RANK_DEATH] * (RT_WORLD - 1) or any(
+                lat is None or lat > bound for lat in latency):
+            fail(f'{label}: survivors exited {codes[:-1]} after '
+                 f'{latency} s (bound {bound} s); the victim {codes[-1]}')
+        recs = [torch.load(os.path.join(workdir, f'rt{r}.pt'))
+                for r in range(RT_WORLD)]
+        with open(os.path.join(workdir, 'hb', 'rank_death.json')) as fh:
+            death = json.load(fh)
+        death_dir = os.path.join(workdir, 'death')
+        pms = [flight_lib.read_postmortem(
+            os.path.join(death_dir, f'postmortem.p{r}.json'))
+            for r in range(RT_WORLD)]
+        last = []
+        for r in range(RT_WORLD):
+            with open(os.path.join(workdir, f'death-step{r}')) as fh:
+                last.append(json.load(fh))
+        with open(os.path.join(workdir, 'go'), 'w') as fh:
+            fh.write('restart')
+        rcodes, _ = rt_wait(restart, time.monotonic() + RT_TIMEOUT_S)
+        if rcodes != [0, 0]:
+            fail(f'{label}: the world-2 restart exited {rcodes}')
+        rrecs = [torch.load(os.path.join(workdir, f'restart{r}.pt'))
+                 for r in range(2)]
+    if death['dead_ranks'] != [RT_WORLD - 1]:
+        fail(f'{label}: rank_death.json {death}')
+    for r, pm in enumerate(pms):
+        want = 'peer_death' if r < RT_WORLD - 1 else 'periodic'
+        problems = flight_lib.validate_postmortem(pm, expect_trigger=want)
+        if problems:
+            fail(f'{label}: rank {r} postmortem: {problems}')
+    ref = recs[-1]['reference']
+    window = pms[-1]['steps']
+    mismatched = [s['step'] for s in window
+                  if {k: v for k, v in s.items() if k != 'time'}
+                  != dict(ref.get(s['step'], {}), step=s['step'])]
+    if mismatched or not window:
+        fail(f'{label}: rank {RT_WORLD - 1}\'s last snapshot differs from '
+             f'the uninterrupted run at steps {mismatched}')
+    for r, rec in enumerate(recs):
+        for step in rec['ledger']:
+            if step['moved'] != step['want']:
+                fail(f'{label} rank {r} ledger step {step["step"]}: moved '
+                     f'{step["moved"]}, ledger {step["want"]}')
+    for r, rec in enumerate(rrecs):
+        if not (rec['info']['decompositions_installed']
+                and not rec['info']['recomputed'] and rec['grid'] == (1, 2)
+                and rec['info']['generation'] == f'gen-{RT_KILL_AFTER:08d}'
+                and rec['finite'] and (DEVICE != 'cuda'
+                                       or rec['launches'] == rec['buckets'])):
+            fail(f'{label}: restart rank {r}: {rec}')
+    launches = (sum(rec['ref_launches'] for rec in recs)
+                + sum(m['launches'] for m in last)
+                + sum(rec['launches'] for rec in rrecs))
+    err = max(e for rec in rrecs for e, _ in rec['kernel_check'].values())
+    print(f'{label}: world {RT_WORLD} over {recs[0]["backend"]} on one '
+          f'card, ResNet-32 {RT_BATCH} images a rank, HYBRID-OPT, factor '
+          f'1, inv 3; init attempts {[r["attempts"] for r in recs]}; '
+          'ledger rows equal the bytes moved: '
+          + '; '.join(f'step {s["step"]} ({"factor" if s["factor"] else "no factor"}) '
+                      + json.dumps(s['moved'])
+                      for s in recs[0]['ledger'])
+          + f'; rank {RT_WORLD - 1} SIGKILLed after step '
+          f'{victim["steps"]} (gen-{RT_KILL_AFTER} committed): survivors '
+          f'exit {codes[:-1]} after {[round(v, 3) for v in latency]} s '
+          f'(bound {bound} s); rank_death.json {death["dead_ranks"]}; '
+          f'postmortems valid (triggers '
+          f'{[pm["trigger"]["name"] for pm in pms]}); rank '
+          f'{RT_WORLD - 1}\'s window steps {[s["step"] for s in window]} '
+          'bitwise the uninterrupted run; restart at world 2: '
+          f'{rrecs[0]["info"]["generation"]} restored onto grid '
+          f'{rrecs[0]["grid"]} (the 2x2 grid\'s two-column layout: the '
+          'stacks install as saved; resized '
+          f'{rrecs[0]["info"]["resized"]}), init attempts '
+          f'{[r["attempts"] for r in rrecs]}, {rrecs[0]["launches"]} '
+          'sharded launches a rank on its step, against its plain version '
+          'through the row: '
+          + ' / '.join(kernel_check_text(r['kernel_check']) for r in rrecs),
+          flush=True)
+    return launches, err
+
+
 def device_record(torch) -> dict:
     """The last line: ``{"ok": true, "device": {...}}``."""
     return {'ok': True, 'device': {
@@ -5797,7 +6718,20 @@ def main() -> int:
         launches=phase('23 resnet50 watchdog', phase_resnet50_watchdog,
                        torch, kt),
     )
+    rn50_observe = dict(
+        rn50, name='fused_eigen_precondition, ResNet-50 buckets, observed '
+        '(monitor, profiler ranges, timeline) and flight-recorded (phase 24)',
+        launches=phase('24 resnet50 observe', phase_resnet50_observe, torch,
+                       kt),
+    )
+    launches, err = phase('25 runtime', phase_runtime, torch, kt)
+    rt_kernel = shard_entry(
+        torch, kt, 2, 'fused_eigen_precondition_sharded, ResNet-32 at world '
+        '4 (HYBRID-OPT) under the runtime, a rank death and the world-2 '
+        'restart (phase 25)', 900)
+    rt_kernel.update(launches=launches, max_abs_err=err)
     phase('bench stages', phase_bench_stages, torch, kt)
+    stop_profile_worker()
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
           + f'; total since start {time.perf_counter() - t_start:.2f} s',
           flush=True)
@@ -5807,7 +6741,7 @@ def main() -> int:
                                   rn50_overlap, rn50_pipelined,
                                   rn50_fused, rn50_health,
                                   rn50_consistency, rn50_elastic,
-                                  rn50_watchdog]}),
+                                  rn50_watchdog, rn50_observe, rt_kernel]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

@@ -32,6 +32,11 @@ ConsistencyConfig(...)`` the cross-replica consistency guard, and
 ``watchdog=WatchdogConfig(...)`` the trajectory watchdog; ``elastic``
 saves and restores streaming checkpoints (no recompute on restore, any
 world size) and ``utils.checkpoint`` the monolithic rotation;
+``observe`` holds the monitor, the profiler ranges and timeline, the
+cost ledger, the emission sinks and the flight recorder
+(``observe=ObserveConfig(...)``, ``flight=FlightConfig(...)``), and
+``runtime`` the bounded multi-process init, barriers and rank-death
+detection;
 ``testing`` holds their fault injectors and ``tracing`` the event tally.  The models are the CIFAR ResNets, the ImageNet
 ResNets and the GPT; ``examples/`` holds the CIFAR and ImageNet
 trainers and ``bench`` the K-FAC/SGD step-time bench.  ``ROADMAP.md``
@@ -39,7 +44,9 @@ lists what is not ported yet.
 """
 from kfac_pytorch_tpu_torch import elastic
 from kfac_pytorch_tpu_torch import models
+from kfac_pytorch_tpu_torch import observe
 from kfac_pytorch_tpu_torch import ops
+from kfac_pytorch_tpu_torch import runtime
 from kfac_pytorch_tpu_torch import testing
 from kfac_pytorch_tpu_torch import tracing
 from kfac_pytorch_tpu_torch.adaptive import AdaptiveDamping

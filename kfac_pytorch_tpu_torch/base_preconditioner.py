@@ -215,6 +215,8 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
         health: health_lib.HealthConfig | None = None,
         consistency: consistency_lib.ConsistencyConfig | None = None,
         watchdog: Any = None,
+        observe: Any = None,
+        flight: Any = None,
         loglevel: int = logging.DEBUG,
     ) -> None:
         if accumulation_steps < 1:
@@ -370,7 +372,11 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             overlap_comm=overlap_comm,
             consistency=consistency,
             watchdog=watchdog,
+            observe=observe,
+            flight=flight,
         )
+        if self._second_order is not None:
+            self._second_order.annotate = self._annotate()
         # The side stream of the deferred refresh, made at its first use.
         self._side_stream = None
 
@@ -808,9 +814,14 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
             if self._side_stream is None:
                 self._side_stream = torch.cuda.Stream(self.device)
             stream = self._side_stream
-        return DeferredRefresh(
-            lambda: self._refresh_state(*args), self.device, stream,
-        )
+        name = ('overlap/refresh' if shard is None
+                else f'overlap/refresh/shard{shard}')
+
+        def run():
+            with self._scope(name):
+                return self._refresh_state(*args)
+
+        return DeferredRefresh(run, self.device, stream)
 
     def _stagger_shard_empty(self, shard: int) -> bool:
         """Whether a stagger shard holds nothing to refresh (shard 0 is
@@ -981,7 +992,8 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
     def _precondition(
         self, damping: float, kl_clip: float | None, lr: float,
         step_ok: torch.Tensor | None = None,
-    ) -> torch.Tensor:
+        return_info: bool = False,
+    ) -> Any:
         """Precondition every registered layer's ``.grad`` in place, and
         return ``vg_sum``: the f32 ``<raw grad, final grad>`` over every
         trainable parameter (JAX ``_tree_vdot``, ``engine.py:74-90``),
@@ -998,7 +1010,16 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
         parameters' ``.grad``, one select per dtype
         (:func:`~kfac_pytorch_tpu_torch.health.zero_unless`), so a bad
         batch gives a zero update and ``vg_sum`` 0; bitwise unchanged
-        when True."""
+        when True.
+
+        With ``return_info`` (the observe monitor) it returns ``(vg_sum,
+        info)``, ``info`` the ``observe/*`` side statistics (JAX
+        ``base_preconditioner.py:1384-1474`` and ``engine.py:1547``):
+        ``observe/kl_nu``, the kl-clip scale the step applied (on the
+        fused path the scale built from the kernel's ``clip[l]`` sums: no
+        second reduction), and ``observe/grad_norm`` /
+        ``observe/precond_grad_norm`` over every parameter's raw and
+        final gradient (a registered layer's as its combined gradient)."""
         combined = {
             name: helper.get_grad() for name, helper in self.helpers.items()
         }
@@ -1022,12 +1043,23 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
         if rest:
             norms = torch.stack(torch._foreach_norm(rest))
             terms.append(torch.sum(norms * norms))
+        info = {}
+        if return_info:
+            from kfac_pytorch_tpu_torch.observe import monitor
+
+            rest = [p.grad for p in self._uncovered_params
+                    if p.grad is not None]
+            info = monitor.kl_nu_stat(scale)
+            info.update(monitor.grad_stats(
+                [combined[n] for n in self.helpers] + rest,
+                [out[n] for n in self.helpers] + rest,
+            ))
         for name, helper in self.helpers.items():
             helper.set_grad(out[name])
         self.last_kl_scale = scale
-        if not terms:
-            return torch.zeros((), device=self.device)
-        return torch.stack(terms).sum()
+        vg_sum = (torch.stack(terms).sum() if terms
+                  else torch.zeros((), device=self.device))
+        return (vg_sum, info) if return_info else vg_sum
 
     def precondition_combined(
         self,
@@ -1266,6 +1298,39 @@ _coverage_report`): registered / skipped / unsupported counters, the
         every uncovered parameter named.  Registration runs when the
         preconditioner is built, so the report is never empty here."""
         return dict(self._capture.coverage)
+
+    def _step_info_static(self) -> dict[str, torch.Tensor]:
+        """The coverage report's headline numbers as ``observe/coverage/*``
+        constants (JAX ``base_preconditioner.py:1779-1815``), only when
+        the full-coverage helpers are registered.  The engine adds them
+        only under ``observe`` (JAX adds them on every step of such a
+        registration), so an unobserved step keeps its key set.  There is
+        no ``observe/pallas_fallback`` key: the CUDA kernel never falls
+        back."""
+        cov_rep = self._capture.coverage
+        if not (cov_rep and self._uses_coverage_helpers()):
+            return {}
+        return {
+            'observe/coverage/registered': torch.tensor(
+                cov_rep['registered'], dtype=torch.int32),
+            'observe/coverage/skipped': torch.tensor(
+                cov_rep['skipped'], dtype=torch.int32),
+            'observe/coverage/unsupported': torch.tensor(
+                cov_rep['unsupported'], dtype=torch.int32),
+            'observe/coverage/tied': torch.tensor(
+                cov_rep['tied'], dtype=torch.int32),
+            'observe/coverage/param_fraction': torch.tensor(
+                cov_rep['param_fraction'], dtype=torch.float32),
+        }
+
+    def _observe_state_stats(self, damping: float) -> dict[str, Any]:
+        """Spectrum extremes off the bucket stacks (JAX
+        ``base_preconditioner.py:1993``; never a fresh decomposition;
+        meaningful after the first refresh), none on the replicated
+        engine."""
+        if not self.bucketed:
+            return {}
+        return self._second_order.curvature_stats(self.buckets, damping)
 
     def _uses_coverage_helpers(self) -> bool:
         """Whether any registered layer rides the full-coverage helpers

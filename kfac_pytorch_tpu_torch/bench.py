@@ -88,9 +88,20 @@ On the card::
     python -m kfac_pytorch_tpu_torch.bench --configs micro_mlp \
         inverse_root secondary_rn50_inverse
 
-It raises without a card unless ``--device cpu`` is given.  The JAX
-bench's MFU fields and its ``PEAK_TFLOPS`` (a TPU figure) are not
-carried over.
+It raises without a card unless ``--device cpu`` is given.
+
+The JAX bench's MFU fields (``bench.py:1205, 1414-1421, 2058``) keep
+their names: ``sgd_mfu_vs_bf16_peak`` is the SGD step's counted FLOPs
+(:func:`~kfac_pytorch_tpu_torch.observe.costs.compiled_costs` of one SGD
+step) over its time, and ``kfac_mfu_vs_bf16_peak`` the K-FAC plain
+step's (forward, backward and precondition, the fused kernel's FLOPs
+from its shapes: :func:`~kfac_pytorch_tpu_torch.observe.costs.\
+step_variant_costs`) over the amortized K-FAC step time, both as a share
+of the card's dense BF16 peak from NVIDIA's data sheet
+(:data:`BF16_PEAK_TFLOPS`, keyed by ``torch.cuda.get_device_name()``;
+an unknown card, or the CPU, gives ``null`` beside its name).  The
+configurations' ``*_sgd_gflops_per_step`` and
+``*_kfac_plain_gflops_per_step`` are the counts.
 """
 from __future__ import annotations
 
@@ -104,12 +115,20 @@ import torch
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import models
+from kfac_pytorch_tpu_torch.observe.costs import compiled_costs
+from kfac_pytorch_tpu_torch.observe.costs import step_variant_costs
 from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
 from kfac_pytorch_tpu_torch.tracing import percentile
 from kfac_pytorch_tpu_torch.utils.backend import environment_summary
 
 METRIC = 'kfac_step_overhead_resnet50_imagenet_b32'
+#: Dense BF16 tensor-core peak (TFLOP/s, no sparsity) by card name, from
+#: NVIDIA's data sheets; the MFU fields divide by it.
+BF16_PEAK_TFLOPS = {
+    # H100 SXM5 80GB (NVIDIA H100 Tensor Core GPU data sheet), at 700 W.
+    'NVIDIA H100 80GB HBM3': 989.0,
+}
 TARGET = 1.5
 WARMUP = 3
 SGD_WARMUP = 10
@@ -214,9 +233,11 @@ def measure(
     inv_steps: int | None = None,
     cycles: int | None = None,
 ) -> dict[str, Any]:
-    """``{'sgd_ms', 'kfac_ms', 'inv_steps', 'cycles'}`` of one
-    configuration (a :data:`CONFIGS` entry or one of that form);
-    ``inv_steps`` and ``cycles`` override the entry's."""
+    """``{'sgd_ms', 'kfac_ms', 'inv_steps', 'cycles', 'sgd_flops',
+    'kfac_plain_flops'}`` of one configuration (a :data:`CONFIGS` entry
+    or one of that form); ``inv_steps`` and ``cycles`` override the
+    entry's.  The FLOPs are counted after the timing, on the same
+    batch (``None`` for the SGD step when it is skipped)."""
     device = torch.device(device)
     inv_steps = cfg['inv_steps'] if inv_steps is None else inv_steps
     cycles = cfg['cycles'] if cycles is None else cycles
@@ -224,7 +245,7 @@ def measure(
     model, args, loss_args, loss_fn = _setup(cfg, device)
     model.train()
 
-    t_sgd = None
+    t_sgd = sgd_flops = None
     if not cfg.get('skip_sgd'):
         sgd = torch.optim.SGD(model.parameters(), lr=cfg['lr'])
 
@@ -245,6 +266,7 @@ def measure(
                 sgd_step()
             _sync(device)
             t_sgd = min(t_sgd, (time.perf_counter() - t0) / sgd_iters)
+        sgd_flops = compiled_costs(sgd_step)['flops']
         del sgd
 
     precond = KFACPreconditioner(
@@ -264,9 +286,16 @@ def measure(
         kfac_step()
     _sync(device)
     t_kfac = time_kfac_cycles(kfac_step, precond, inv_steps, cycles, device)
+
+    def forward_backward():
+        opt.zero_grad(set_to_none=True)
+        loss_fn(model(*args), *loss_args).backward()
+
+    kfac_flops = step_variant_costs(precond, forward_backward)['plain']
     out = {'sgd_ms': None if t_sgd is None else t_sgd * 1e3,
            'kfac_ms': t_kfac * 1e3, 'inv_steps': inv_steps,
-           'cycles': cycles}
+           'cycles': cycles, 'sgd_flops': sgd_flops,
+           'kfac_plain_flops': kfac_flops['flops']}
     del precond, opt, loop, model
     if device.type == 'cuda':
         torch.cuda.empty_cache()
@@ -653,6 +682,27 @@ def result_line(results: dict[str, dict | None], env: dict) -> dict:
             f"{cfg.get('note', name)}; timed inv={res['inv_steps']} x "
             f"{res['cycles']} cycles" if res else None
         )
+        for key in ('sgd', 'kfac_plain'):
+            flops = res.get(f'{key}_flops') if res else None
+            detail[f'{name}_{key}_gflops_per_step'] = (
+                None if flops is None else flops / 1e9)
+    device = env.get('device')
+    peak = BF16_PEAK_TFLOPS.get(device)
+    detail['bf16_peak'] = {
+        'device': device, 'tflops': peak,
+        'source': ('NVIDIA data sheet, dense BF16' if peak is not None
+                   else 'no published figure for this device'),
+    }
+    head = results.get('resnet50')
+
+    def mfu(flops_key, ms_key):
+        if not head or peak is None or not head.get(flops_key) or not (
+                head.get(ms_key)):
+            return None
+        return head[flops_key] / (head[ms_key] * 1e-3) / (peak * 1e12)
+
+    detail['sgd_mfu_vs_bf16_peak'] = mfu('sgd_flops', 'sgd_ms')
+    detail['kfac_mfu_vs_bf16_peak'] = mfu('kfac_plain_flops', 'kfac_ms')
     detail['env'] = env
     ratio = detail.get('resnet50_ratio')
     return {

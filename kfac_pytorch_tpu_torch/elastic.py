@@ -237,7 +237,12 @@ def stamp_generation(gen: str, stamp: str = HEALTH_STAMP_HEALTHY) -> None:
         ElasticCheckpointError: a torn generation (no manifest) or an
             unreadable meta or manifest.
     """
+    from kfac_pytorch_tpu_torch import runtime
+
     _read_stamp_files(gen)
+    # The cross-process commit point: every rank checked the generation
+    # before rank 0 rewrites it.
+    runtime.commit_point('elastic/stamp')
     if _rank() == 0:
         _write_stamp(gen, stamp)
     if _distributed():
@@ -450,6 +455,13 @@ def save_streaming(
             shutil.rmtree(path, ignore_errors=True)
         return gen
 
+    from kfac_pytorch_tpu_torch import runtime
+
+    # The cross-process commit point: every rank has fed the gathers
+    # above; rank 0 is about to make the generation durable (manifest
+    # last), so a rank that died mid-save surfaces as a named timeout or
+    # death instead of a hung save.
+    runtime.commit_point('elastic/commit')
     result = None
     if _rank() == 0:
         result = retry_transient_save(

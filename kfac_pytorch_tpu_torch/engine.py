@@ -61,11 +61,29 @@ the decompositions too.  With a trajectory watchdog
 (:mod:`~kfac_pytorch_tpu_torch.watchdog`) the caller feeds
 :meth:`KFACEngineMixin.watchdog_step` after each step, and
 :class:`KFACTrainLoop` does it itself.
+
+Observability (:mod:`~kfac_pytorch_tpu_torch.observe`, JAX
+``engine.py:1436-1556``): with ``ObserveConfig(annotate=True)`` the
+step's phases run inside ``torch.profiler.record_function('kfac/<phase>')``
+ranges (``capture`` or ``forward_backward`` on the fused path,
+``factor_ema``, ``eigh_refresh``, ``precondition``, the deferred
+refresh's ``overlap/refresh`` and ``overlap/collect``), with
+``monitor=True`` the ``observe/*`` statistics join ``last_step_info``
+(device tensors: the kl-clip ``nu`` read off the clip reduction the step
+already performs, the gradient norms, the spectrum extremes of the
+stacks), and with ``timeline=True`` every step is timed under its variant
+with one synchronize.  A flight recorder (``flight=``) is fed by
+:meth:`KFACEngineMixin.flight_step` (and by :class:`KFACTrainLoop`).
+With neither, the step is the unobserved one, bit for bit, with the same
+``last_step_info`` keys.  The engine's cross-process commit points
+(:func:`~kfac_pytorch_tpu_torch.runtime.commit_point`) are no-ops
+without an installed runtime.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
+import time
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -75,10 +93,12 @@ import torch.distributed as dist
 from kfac_pytorch_tpu_torch import consistency as consistency_lib
 from kfac_pytorch_tpu_torch import health as health_lib
 from kfac_pytorch_tpu_torch import ops
+from kfac_pytorch_tpu_torch import runtime
 from kfac_pytorch_tpu_torch import tracing
 from kfac_pytorch_tpu_torch.adaptive import AdaptiveDamping
 from kfac_pytorch_tpu_torch.hyperparams import resolve
 from kfac_pytorch_tpu_torch.hyperparams import validate_damping
+from kfac_pytorch_tpu_torch.observe import timeline as observe_timeline
 from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
 from kfac_pytorch_tpu_torch.scheduler import overlap_defer_action
 from kfac_pytorch_tpu_torch.scheduler import post_restore_bootstrapped
@@ -292,9 +312,23 @@ class KFACEngineMixin:
         overlap_comm: bool = False,
         consistency: Any = None,
         watchdog: Any = None,
+        observe: Any = None,
+        flight: Any = None,
     ) -> None:
         if not callable(damping):
             validate_damping(damping)
+        # Observability (None: off, the unobserved step).  The whole-step
+        # timeline exists only under timeline=True: its honest timing
+        # costs one synchronize a step.
+        self._observe = observe
+        self._timeline = (
+            observe_timeline.StepTimeline(observe.timeline_history)
+            if observe is not None and observe.timeline else None
+        )
+        # The step variants run so far (host names, JAX's step/<variant>
+        # without the prefix) and the latest one.
+        self._variants_run: set[str] = set()
+        self._last_variant: str | None = None
         # The cross-replica consistency guard: its knobs, the ladder of
         # consecutive disagreeing checks per surface, and the host
         # counters surfaced as consistency/*_total on check steps.
@@ -366,7 +400,94 @@ class KFACEngineMixin:
             from kfac_pytorch_tpu_torch.watchdog import TrajectoryWatchdog
 
             self._watchdog = TrajectoryWatchdog(watchdog, self)
+        # The flight recorder (None: off), fed by flight_step.
+        self._flight_config = flight
+        self._flight = None
+        if flight is not None:
+            from kfac_pytorch_tpu_torch.observe.flight import FlightRecorder
+
+            self._flight = FlightRecorder(flight, self)
         self._arm_capture(self._step_gating()[0])
+
+    @property
+    def observe(self) -> Any:
+        """The :class:`~kfac_pytorch_tpu_torch.observe.ObserveConfig`
+        (``None``: observability off)."""
+        return self._observe
+
+    @property
+    def timeline(self) -> Any:
+        """The whole-step :class:`~kfac_pytorch_tpu_torch.observe.\
+StepTimeline` (``None`` unless ``ObserveConfig(timeline=True)``)."""
+        return self._timeline
+
+    @property
+    def flight(self) -> Any:
+        """The :class:`~kfac_pytorch_tpu_torch.observe.flight.\
+FlightRecorder` (``None``: flight recording off)."""
+        return self._flight
+
+    def flight_step(self, loss: Any = None) -> None:
+        """Feed the flight recorder one completed step (JAX
+        ``engine.py:613-625``): call it once a step after the optimizer
+        step (and after :meth:`watchdog_step`, so the ring records the
+        step's final counters).  ``loss`` may be a device scalar: the
+        recorder keeps it unread until its next flush.  A no-op without
+        ``flight=``."""
+        if self._flight is not None:
+            self._flight.record(loss)
+
+    def _annotate(self) -> bool:
+        return self._observe is not None and self._observe.annotate
+
+    def _scope(self, name: str):
+        """``record_function('kfac/<name>')`` under annotate, else a
+        no-op."""
+        return observe_timeline.scope(name, self._annotate())
+
+    @staticmethod
+    def _step_variant(
+        update_factors: bool,
+        update_inverses: bool,
+        refresh_shard: int | None = None,
+        deferred: tuple | None = None,
+        check_consistency: bool = False,
+    ) -> str:
+        """The JAX engine's step-variant name (``engine.py:1843-1866``):
+        ``inv``, or ``plain``/``factor`` with ``+shard<k>``,
+        ``+overlap_inv`` or ``+overlap_shard<k>``; ``+consistency`` on a
+        check step."""
+        if update_inverses:
+            name = 'inv'
+        else:
+            base = 'factor' if update_factors else 'plain'
+            if refresh_shard is not None:
+                name = f'{base}+shard{refresh_shard}'
+            elif deferred is not None:
+                suffix = (
+                    'overlap_inv' if deferred[0] == 'inv'
+                    else f'overlap_shard{deferred[1]}'
+                )
+                name = f'{base}+{suffix}'
+            else:
+                name = base
+        if check_consistency:
+            name += '+consistency'
+        return name
+
+    def _timed(self, fn: Callable[..., Any], *args: Any) -> Any:
+        """Run one step, recording it in the timeline when there is one:
+        a ``kfac/step`` range, one synchronize, the wall time under
+        ``step/<variant>`` of the step that ran.  A bare call otherwise."""
+        tl = self._timeline
+        if tl is None:
+            return fn(*args)
+        with observe_timeline.annotation('step'):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            tl.sync()
+            tl.record('step/' + self._last_variant, time.perf_counter() - t0)
+        return out
 
     @property
     def watchdog(self) -> Any:
@@ -645,7 +766,7 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         An :class:`~kfac_pytorch_tpu_torch.adaptive.AdaptiveDamping` is
         not fed here (the step never sees the updated parameters); the
         first call says so once (JAX ``engine.py:1902-1920``)."""
-        self._step()
+        self._timed(self._step)
         self._warn_adaptive_unfed(
             'step()' if getattr(self, 'accumulation_steps', 1) == 1
             else 'accumulated step()',
@@ -658,16 +779,26 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             self._overlap_plan()
         )
         check = self._consistency_due()
+        self._last_variant = self._step_variant(
+            update_factors, update_inverses, shard, deferred, check)
+        self._variants_run.add(self._last_variant)
+        monitor = self._observe is not None and self._observe.monitor
+        # The collect point of a deferred refresh: its install and the
+        # precondition that first reads it (range only).
+        collect = (self._scope('overlap/collect') if deferred is not None
+                   else contextlib.nullcontext())
         if deferred is not None:
-            self._overlap_collect(deferred)
+            with collect:
+                self._overlap_collect(deferred)
         ok = None
         guarded = self._health_config() is not None
         if update_factors:
             first_update = not self._factors_initialized
-            if guarded:
-                ok = self._update_factors(first_update, loss=loss)
-            else:
-                self._update_factors(first_update=first_update)
+            with self._scope('factor_ema'):
+                if guarded:
+                    ok = self._update_factors(first_update, loss=loss)
+                else:
+                    self._update_factors(first_update=first_update)
             self._factors_initialized = True
         elif guarded:
             ok = self._health_verdict(loss)
@@ -675,10 +806,12 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             # Recorded first: the refresh draws its low-rank sketches
             # for this step, and a checkpoint keeps it to draw them again.
             self._last_inv_step = self._steps
-            self._refresh(self.damping)
+            with self._scope('eigh_refresh'):
+                self._refresh(self.damping)
             self._iter_bootstrapped = True
         elif shard is not None:
-            self._refresh_shard(self.damping, shard)
+            with self._scope(f'eigh_refresh/shard{shard}'):
+                self._refresh_shard(self.damping, shard)
         if ok is not None:
             # JAX _health_finish_step: the skip counter and the verdict;
             # the gradients are zeroed by the precondition below.
@@ -688,22 +821,35 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         # The verdict is passed only under health, so the unguarded call
         # keeps its signature.
         extra = {} if ok is None else {'step_ok': ok}
-        info = {'vg_sum': self._precondition(
-            self.damping, self.kl_clip, self.lr, **extra,
-        )}
+        if monitor:
+            extra['return_info'] = True
+        with collect, self._scope('precondition'):
+            out = self._precondition(
+                self.damping, self.kl_clip, self.lr, **extra,
+            )
+        vg_sum, obs_info = out if monitor else (out, {})
+        info = {'vg_sum': vg_sum}
+        if self._observe is not None:
+            info.update(self._step_info_static())
         if ok is not None:
             info.update(health_lib.step_info(self._health_state()))
+        if monitor:
+            info.update(obs_info)
+            info.update(self._observe_state_stats(self.damping))
         if check:
             # Over the final state: what the next cadence window
             # preconditions through.
-            self.last_consistency_check = self._consistency_check({
-                'damping': self.damping, 'factor_decay': self.factor_decay,
-                'kl_clip': self.kl_clip, 'lr': self.lr,
-            })
+            with self._scope('consistency'):
+                self.last_consistency_check = self._consistency_check({
+                    'damping': self.damping,
+                    'factor_decay': self.factor_decay,
+                    'kl_clip': self.kl_clip, 'lr': self.lr,
+                })
             info.update(self.last_consistency_check.info())
         if self._adaptive_controller is not None and update_factors:
             # The factor EMAs move only on factor steps.
-            drift = self._adaptive_drift_emit()
+            with self._scope('adaptive'):
+                drift = self._adaptive_drift_emit()
             if drift:
                 self._adaptive_last_drift = (
                     drift['adaptive/sketch'], drift['adaptive/digest'],
@@ -769,6 +915,9 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         cfg = self._consistency
         if cfg is None or 'consistency/mismatches' not in info:
             return info
+        # The cross-process commit point: every rank is about to walk the
+        # same ladder from the same verdict (its repairs are collective).
+        runtime.commit_point('consistency/host_sync')
         result = self.last_consistency_check
         ladder = self._consistency_ladder
         totals = self._consistency_totals
@@ -907,6 +1056,9 @@ damping`).  The returned loss is the step's (detached), before the
         model = self._train_module
 
         def train_step(*args: Any, loss_args: tuple = ()):
+            return self._timed(run, args, loss_args)
+
+        def run(args: tuple, loss_args: tuple):
             if getattr(self, 'accumulation_steps', 1) != 1:
                 raise RuntimeError(
                     'make_train_step runs one forward and backward per '
@@ -916,8 +1068,10 @@ damping`).  The returned loss is the step's (detached), before the
             optimizer.zero_grad()
             guarded = self._health_config() is not None
             saved = self._buffer_snapshot() if guarded else None
-            loss, aux = _split_loss(loss_fn(model(*args), *loss_args))
-            loss.backward()
+            with self._scope('capture' if self._step_gating()[0]
+                             else 'forward_backward'):
+                loss, aux = _split_loss(loss_fn(model(*args), *loss_args))
+                loss.backward()
             step_index = self._steps
             self._step(loss=loss.detach())
             if not guarded:
@@ -1321,6 +1475,12 @@ damping`).  The returned loss is the step's (detached), before the
     def _ekfac_scales(self) -> Mapping[str, torch.Tensor] | None:
         return None
 
+    def _step_info_static(self) -> dict[str, torch.Tensor]:
+        return {}
+
+    def _observe_state_stats(self, damping: float) -> dict[str, Any]:
+        return {}
+
     def _ekfac_scale_shapes(self) -> Mapping[str, tuple[int, ...]]:
         return {}
 
@@ -1403,7 +1563,8 @@ class KFACTrainLoop:
     state as the generation's extras, :func:`training_extras`) and loads
     a rollback's extras back into the model and the optimizer, which the
     JAX loop leaves to its caller; :attr:`last_rollback` holds the
-    latest rollback's info.
+    latest rollback's info.  With a flight recorder the loop then feeds
+    it the step's loss (:meth:`KFACEngineMixin.flight_step`).
     """
 
     def __init__(
@@ -1442,6 +1603,7 @@ class KFACTrainLoop:
                 if rolled.get('extras') is not None:
                     load_training_extras(model, self._optimizer,
                                          rolled['extras'])
+        p.flight_step(loss)
         return loss, aux
 
     @property

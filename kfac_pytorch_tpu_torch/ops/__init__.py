@@ -29,6 +29,7 @@ from kfac_pytorch_tpu_torch.ops.eigen import compute_factor_eigen
 from kfac_pytorch_tpu_torch.ops.eigen import EigenFactors
 from kfac_pytorch_tpu_torch.ops.eigen import precondition_grad_eigen
 from kfac_pytorch_tpu_torch.ops.eigen import precondition_grad_eigen_diag_a
+from kfac_pytorch_tpu_torch.ops.eigen import symmetric_eigh
 from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_divergence
 from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_divergence_info
 from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_scale_contrib

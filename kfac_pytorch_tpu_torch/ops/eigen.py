@@ -4,7 +4,10 @@ Port of ``kfac_pytorch_tpu/ops/eigen.py``: decompositions in float32,
 eigenvalues clamped to ``>= 0``, and the two-sided preconditioning
 ``qg @ ((qg^T @ grad @ qa) / (outer(dg, da) + damping)) @ qa^T``.
 :func:`compute_factor_eig_general` is the general-eig escape hatch of
-helpers with non-symmetric factors.
+helpers with non-symmetric factors.  Every symmetric decomposition goes
+through :func:`symmetric_eigh`, which on CUDA checks each result and
+redoes a failed matrix shifted by its mean eigenvalue (cuSOLVER's f32
+``eigh`` fails on near-multiples of the identity).
 """
 from __future__ import annotations
 
@@ -24,16 +27,89 @@ class EigenFactors(NamedTuple):
     d: torch.Tensor
 
 
+def symmetric_eigh(
+    m: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(eigenvalues, eigenvectors)`` of a symmetric matrix or stack, as
+    ``torch.linalg.eigh`` returns them, with cuSOLVER's failures redone.
+
+    cuSOLVER's f32 ``eigh`` returns a wrong decomposition of a matrix
+    within ~1e-8 of a multiple of the identity, which is what a factor EMA
+    is in its first steps from the identity seed, or for a layer whose
+    output gradients are tiny: on an H100 a 1024-wide G factor of
+    ResNet-50 whose eigenvalues all lie at 0.69834 came back with one at
+    165.2 and an eigen-residual of 626 (``chip_smoke.py`` phase 24 found
+    it through the Observe monitor's Kronecker extremes).  Decomposed as
+    ``M - mu I``, ``mu`` its mean eigenvalue, with ``mu`` added back
+    (:func:`_shifted_eigh`), the same matrix gives the float64 spectrum to
+    1e-15.  So on a CUDA tensor each matrix is decomposed plainly and its
+    residual ``max|M Q - Q diag(d)|`` computed in float64 (TF32 settings
+    do not reach it); one whose residual exceeds ``max(1e-3, 8 n eps)`` of
+    ``max|M|`` (a sound f32 decomposition stays near ``n eps``) is
+    decomposed again shifted and counted in the ``eigh_shifted_redo``
+    event.  The shift is kept for the failures: on the card it costs
+    accuracy elsewhere, in the small eigenvalues' eigenvectors of
+    well-spread factors (a damped inverse's action 1e-4 from float64
+    instead of 1e-6, ResNet-32) and on factors within 1e-3 of a multiple
+    of the identity that cuSOLVER decomposes soundly (a low-rank
+    ResNet-50 bucket's exact side 2.3e-4 from float64 against under
+    1e-4).  The check reads one flag back to the host per call (``eigh``
+    synchronizes already).  A CPU tensor takes the plain call, which
+    LAPACK gets right, so CPU results stay the JAX package's.
+    """
+    if m.device.type != 'cuda':
+        return torch.linalg.eigh(m)
+    n = m.shape[-1]
+    d, q = _checked_eigh(m.reshape(-1, n, n))
+    return d.reshape(m.shape[:-1]), q.reshape(m.shape)
+
+
+def _checked_eigh(mb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`symmetric_eigh`'s CUDA path on any device, for an ``[k, n,
+    n]`` stack: ``torch.linalg.eigh``, then each matrix whose float64
+    eigen-residual fails the bar decomposed again shifted."""
+    n = mb.shape[-1]
+    db, qb = torch.linalg.eigh(mb)
+    bar = max(1e-3, 8 * n * float(torch.finfo(torch.float32).eps))
+    # Chunks of at most 2^25 f64 elements (256 MB) a stack.
+    step = max(1, (1 << 25) // (n * n))
+    bad = []
+    for i in range(0, mb.shape[0], step):
+        m64, q64 = mb[i:i + step].double(), qb[i:i + step].double()
+        resid = (m64 @ q64 - q64 * db[i:i + step].double()[:, None, :])
+        bad.append(resid.abs().amax(dim=(1, 2))
+                   > bar * m64.abs().amax(dim=(1, 2)))
+    idx = torch.cat(bad).nonzero().flatten()
+    if idx.numel() == 0:
+        return db, qb
+    from kfac_pytorch_tpu_torch import tracing
+
+    tracing.count_event('eigh_shifted_redo', n=int(idx.numel()))
+    ds, qs = _shifted_eigh(mb.index_select(0, idx))
+    return (db.index_copy(0, idx, ds.to(db.dtype)),
+            qb.index_copy(0, idx, qs.to(qb.dtype)))
+
+
+def _shifted_eigh(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh(m - mu I)`` with ``mu``, the mean of each
+    matrix's diagonal, added back to the eigenvalues (the eigenvectors are
+    the same, the spectrum moves by ``mu``)."""
+    mu = torch.diagonal(m, dim1=-2, dim2=-1).mean(-1)
+    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+    d, q = torch.linalg.eigh(m - mu[..., None, None] * eye)
+    return d + mu[..., None], q
+
+
 def compute_factor_eigen(
     factor: torch.Tensor,
     inv_dtype: torch.dtype = torch.float32,
 ) -> EigenFactors:
     """Eigendecompose a symmetric factor (or a stack of them).
 
-    ``torch.linalg.eigh`` in f32, cast to ``inv_dtype``, eigenvalues
+    :func:`symmetric_eigh` in f32, cast to ``inv_dtype``, eigenvalues
     clamped at zero.
     """
-    d, q = torch.linalg.eigh(factor.float())
+    d, q = symmetric_eigh(factor.float())
     return EigenFactors(
         q=q.to(inv_dtype), d=torch.clamp(d.to(inv_dtype), min=0.0),
     )

@@ -30,6 +30,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from kfac_pytorch_tpu_torch.ops.eigen import symmetric_eigh
+
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
     """``t`` in f32, or in its own dtype if that is wider."""
@@ -100,7 +102,7 @@ def randomized_eigh(
     n = factor.shape[-1]
     a = _wide(factor)
     if k + oversample >= n:
-        d, q = torch.linalg.eigh(a)
+        d, q = symmetric_eigh(a)
         return LowRankEigen(
             q=q, d=torch.clamp(d, min=0.0),
             sigma=a.new_zeros(a.shape[:-2]),
@@ -282,7 +284,7 @@ def decompose_stack(
             seed=seed, side=side, step=step, slots=slots,
             effective_dims=effective_dims,
         )
-    d, q = torch.linalg.eigh(_wide(stack))
+    d, q = symmetric_eigh(_wide(stack))
     return LowRankEigen(
         q=q, d=torch.clamp(d, min=0.0), sigma=d.new_zeros(stack.shape[:-2]),
     )

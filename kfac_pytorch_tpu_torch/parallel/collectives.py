@@ -12,7 +12,9 @@ issued by hand:
 * :func:`all_gather_decompositions` — phase 2: a column's ranks each
   decompose a share of the column's slots and gather the rest;
 * :func:`all_gather_preconditioned` — phase 4: a row's ranks each
-  precondition their column's slots and gather the other columns'.
+  precondition their column's slots and gather the other columns';
+* :func:`all_reduce_max` — the observe monitor's spectrum extremes over a
+  grid row (a rank holds only its column's slots).
 
 :func:`all_gather_stacks_async` and :func:`all_gather_preconditioned_async`
 issue the same gathers with ``async_op=True`` (``pipeline_grads``): they
@@ -80,6 +82,17 @@ def all_reduce_mean(
             numel = tensors[i].numel()
             out[i] = flat[offset:offset + numel].view(tensors[i].shape)
             offset += numel
+    return out
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max of ``t`` over the ranks of ``group``, one
+    ``all_reduce(MAX)`` (a new tensor); a group of ``None`` or of one rank
+    moves nothing and returns ``t``."""
+    if not _gathers(group):
+        return t
+    out = t.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 

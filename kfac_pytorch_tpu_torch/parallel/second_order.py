@@ -92,6 +92,8 @@ import torch
 from kfac_pytorch_tpu_torch import health as health_lib
 from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch.enums import ComputeMethod
+from kfac_pytorch_tpu_torch.observe import monitor as observe_monitor
+from kfac_pytorch_tpu_torch.observe import timeline as observe_timeline
 from kfac_pytorch_tpu_torch.ops import lowrank as lowrank_ops
 from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketLayout
@@ -196,16 +198,17 @@ def _pad_grad(grad: torch.Tensor, g_pad: int, a_pad: int) -> torch.Tensor:
 
 
 def _eigh(stack: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``torch.linalg.eigh`` of a stack under health: a slot whose
-    decomposition raises (the solver did not converge) comes out NaN, as
-    JAX's ``eigh`` leaves it, and the others are decomposed one by one."""
+    """:func:`~kfac_pytorch_tpu_torch.ops.symmetric_eigh` of a stack under
+    health: a slot whose decomposition raises (the solver did not
+    converge) comes out NaN, as JAX's ``eigh`` leaves it, and the others
+    are decomposed one by one."""
     try:
-        return torch.linalg.eigh(stack)
+        return ops.symmetric_eigh(stack)
     except RuntimeError:
         ds, qs = [], []
         for f in stack:
             try:
-                d, q = torch.linalg.eigh(f)
+                d, q = ops.symmetric_eigh(f)
             except RuntimeError:
                 d = torch.full(f.shape[:1], float('nan'), device=f.device)
                 q = torch.full_like(f, float('nan'))
@@ -360,6 +363,18 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         self.inv_dtype = inv_dtype
         self.precond_dtype = precond_dtype
         self.device = torch.device(device)
+        #: ``record_function`` ranges around the refresh's and the
+        #: precondition's parts (``ObserveConfig(annotate=True)``; set by
+        #: the engine).
+        self.annotate = False
+        # The observe monitor's per-bucket constants: the column's logical
+        # dims and occupancy on the device, and the support masks of the
+        # current eigenvector stacks (_monitor_masks, _support_masks).
+        self._masks: dict = {}
+        self._support_cache: dict = {}
+
+    def _scope(self, name: str):
+        return observe_timeline.scope(name, self.annotate)
 
     def local_slots(self, b: BucketLayout) -> tuple[str | None, ...]:
         """The slots of bucket ``b`` this rank holds: its column's."""
@@ -536,8 +551,8 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         if self.compute_method == ComputeMethod.EIGEN:
             if any(self._lowrank[b.key]):
                 return self._compute_lowrank(b, A, G, slots, sketch_step)
-            da, qa = torch.linalg.eigh(A.float())
-            dg, qg = torch.linalg.eigh(G.float())
+            da, qa = ops.symmetric_eigh(A.float())
+            dg, qg = ops.symmetric_eigh(G.float())
             return self._eigen_fields(b, qa, da, qg, dg, damping)
         if self.compute_method == ComputeMethod.INVERSE:
             return dict(
@@ -734,21 +749,23 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
                     verdict = torch.zeros((0, 2), dtype=torch.int32,
                                           device=self.device)
             else:
-                A, G = self._stack_bucket_factors(b, mine, layers)
+                with self._scope('factor_stack_assembly'):
+                    A, G = self._stack_bucket_factors(b, mine, layers)
                 warm = None
                 if prev is not None and self.iterative is not None:
                     pb = prev[b.key]
                     warm = (pb.a_inv[start:stop], pb.g_inv[start:stop])
                 first = grid.col * b.seg + start
-                if guarded:
-                    fields, verdict = self._decompose_guarded(
-                        b, A, G, damping, warm, iters, first, stats,
-                    )
-                else:
-                    fields = self._decompose(
-                        b, A, G, damping, warm, iters,
-                        range(first, first + len(mine)), sketch_step,
-                    )
+                with self._scope(self._method_scope()):
+                    if guarded:
+                        fields, verdict = self._decompose_guarded(
+                            b, A, G, damping, warm, iters, first, stats,
+                        )
+                    else:
+                        fields = self._decompose(
+                            b, A, G, damping, warm, iters,
+                            range(first, first + len(mine)), sketch_step,
+                        )
             # Declaration order: a bucket's fields are the same on every
             # rank (low-rank and exact buckets keep different ones); the
             # health verdicts ride last.
@@ -757,10 +774,11 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
                 share['verdict'] = verdict
             names.append(tuple(share))
             shares.append(tuple(share.values()))
-        shares = collectives.all_gather_decompositions(
-            shares, [b.seg for b in self.plan.buckets], grid.col_group,
-            [[n in IDENTITY_PADDED for n in ns] for ns in names],
-        )
+        with self._scope('inverse_row_allgather'):
+            shares = collectives.all_gather_decompositions(
+                shares, [b.seg for b in self.plan.buckets], grid.col_group,
+                [[n in IDENTITY_PADDED for n in ns] for ns in names],
+            )
         out, columns = {}, []
         for b, ns, share in zip(self.plan.buckets, names, shares):
             fields = dict(zip(ns, share))
@@ -865,18 +883,20 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
                     pb = prev[b.key]
                     sel = torch.tensor(mine, device=self.device)
                     warm = (pb.a_inv[sel], pb.g_inv[sel])
-                fields = self._decompose(
-                    b, A, G, damping, warm, iters,
-                    [first + i for i in mine], 0,
-                )
+                with self._scope(f'{self._method_scope()}/shard{shard}'):
+                    fields = self._decompose(
+                        b, A, G, damping, warm, iters,
+                        [first + i for i in mine], 0,
+                    )
             share = BucketSecond(**fields).tensors()
             picked.append((b, local))
             names.append(tuple(share))
             shares.append(tuple(share.values()))
-        shares = collectives.all_gather_decompositions(
-            shares, [len(local) for _, local in picked], grid.col_group,
-            [[n in IDENTITY_PADDED for n in ns] for ns in names],
-        )
+        with self._scope('inverse_row_allgather'):
+            shares = collectives.all_gather_decompositions(
+                shares, [len(local) for _, local in picked], grid.col_group,
+                [[n in IDENTITY_PADDED for n in ns] for ns in names],
+            )
         out = dict(prev)
         for (b, local), ns, share in zip(picked, names, shares):
             bs = prev[b.key]
@@ -1005,7 +1025,8 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
         eigenbasis); every other bucket through :meth:`_rotate_bucket`
         and the row gather.  A quarantine mask (health, consistency)
         substitutes the identity on the column before the gather."""
-        g = self._grad_stack(b, combined_grads)
+        with self._scope('grad_stack_assembly'):
+            g = self._grad_stack(b, combined_grads)
         row = self.grid.row_group
         if bs.dgda is not None:
             args = [
@@ -1088,6 +1109,132 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
                 go, ga = combined_grads[name].shape
                 out[name] = pg[i, :go, :ga].to(combined_grads[name].dtype)
         return out, scale
+
+    # -- the observe monitor ---------------------------------------------
+
+    def _method_scope(self) -> str:
+        return {ComputeMethod.EIGEN: 'eigh',
+                ComputeMethod.INVERSE: 'cholesky',
+                ComputeMethod.ITERATIVE: 'newton_schulz'}[self.compute_method]
+
+    def _bucket_stats(
+        self, b: BucketLayout, bs: BucketSecond,
+    ) -> tuple[str, dict[str, torch.Tensor]] | None:
+        """``(kind, stats)`` of this rank's column of bucket ``b``
+        (:mod:`~kfac_pytorch_tpu_torch.observe.monitor`), ``None`` for a
+        bucket that carries no spectrum (inverse)."""
+        a_dims, g_dims, occupied = self._monitor_masks(b)
+        if bs.da is not None and bs.dg is not None:
+            return 'eigen', observe_monitor.eigen_stack_stats(
+                bs.da, bs.dg, bs.qa, bs.qg, a_dims, g_dims, occupied,
+                masks=self._support_masks(b, bs, observe_monitor.eigen_masks))
+        if bs.dgda is not None:
+            return 'prediv', observe_monitor.prediv_stack_stats(
+                bs.dgda, bs.qa, bs.qg, a_dims, g_dims, occupied,
+                bs.bake_damping,
+                mask=self._support_masks(b, bs, observe_monitor.prediv_mask))
+        if bs.iter_res_a is not None:
+            return 'iterative', observe_monitor.iterative_stack_stats(
+                bs.iter_res_a, bs.iter_res_g, bs.iter_bound_a,
+                bs.iter_bound_g, bs.iter_stale_a, bs.iter_stale_g,
+                occupied)
+        return None
+
+    def _monitor_masks(self, b: BucketLayout):
+        """``(a_dims, g_dims, occupied)`` of this rank's column of bucket
+        ``b`` on the device, made once (a host copy each step would stall
+        the host)."""
+        cache = self._masks
+        if b.key not in cache:
+            first = self.grid.col * b.seg
+            a_dims, g_dims = self._slot_dims[b.key]
+            cache[b.key] = (
+                torch.tensor(a_dims[first:first + b.seg], device=self.device),
+                torch.tensor(g_dims[first:first + b.seg], device=self.device),
+                torch.tensor([n is not None for n in self.local_slots(b)],
+                             dtype=torch.bool, device=self.device),
+            )
+        return cache[b.key]
+
+    def _support_masks(self, b: BucketLayout, bs: BucketSecond, make):
+        """``make(qa, qg, a_dims, g_dims, occupied)`` of bucket ``b``, kept
+        until its eigenvector stacks change (a refresh or an install gives
+        new tensors, an in-place write moves their version counter): the
+        support masks read every eigenvector once, which a step need not
+        pay again between refreshes."""
+        cache = self._support_cache
+        hit = cache.get(b.key)
+        stamp = (bs.qa._version, bs.qg._version)
+        if hit is None or hit[0] is not bs.qa or hit[1] is not bs.qg or (
+                hit[2] != stamp):
+            hit = (bs.qa, bs.qg, stamp, make(bs.qa, bs.qg,
+                                             *self._monitor_masks(b)))
+            cache[b.key] = hit
+        return hit[3]
+
+    @staticmethod
+    def _reduced_keys(kind: str, stats: Mapping[str, torch.Tensor]):
+        """The keys of one bucket's stats reduced across the row: an
+        eigen bucket's Kronecker extremes are products of its per-side
+        extremes, so those are reduced and the products rebuilt."""
+        return [k for k in sorted(stats)
+                if not (kind == 'eigen' and k.startswith('kron_'))]
+
+    def curvature_extremes_layout(
+        self, buckets: Mapping[str, BucketSecond],
+    ) -> list[tuple[str, str]]:
+        """``(bucket key, stat)`` of each entry of the vector
+        :meth:`curvature_stats` reduces over the row, in order (the same
+        on every rank: it depends on the fields the method keeps)."""
+        out = []
+        for b in self.plan.buckets:
+            kind_stats = self._bucket_stats(b, buckets[b.key])
+            if kind_stats is not None:
+                out += [(b.key, k) for k in self._reduced_keys(*kind_stats)]
+        return out
+
+    def curvature_stats(
+        self, buckets: Mapping[str, BucketSecond], damping: float,
+    ) -> dict[str, torch.Tensor]:
+        """The ``observe/*`` spectrum statistics of every bucket (JAX
+        ``second_order.py:1293-1345``), from the stacks the state holds —
+        never a fresh ``eigh``: eigen buckets the per-side extremes
+        (``observe/eig_{a,g}_{min,max}``) and the Kronecker extremes,
+        prediv buckets the Kronecker extremes inverted out of ``dgda``
+        with the per-slot ``bake_damping`` of their refresh, iterative
+        buckets the Newton–Schulz evidence (``observe/iter_*``); inverse
+        buckets carry no spectrum.  Pad dims and empty slots are masked.
+
+        A rank holds only its grid column's slots, so with ``cols > 1``
+        the per-bucket extremes (the minima negated) ride one
+        ``all_reduce(MAX)`` of one ``[k]`` f32 vector over the grid row
+        (:func:`~kfac_pytorch_tpu_torch.parallel.collectives.\
+all_reduce_max`, the same order on every rank; billed as
+        ``observe_extremes`` in the cost ledger), after which every rank
+        holds JAX's global extremes; none with one column.  Device
+        tensors, no host read.
+        """
+        per_bucket = []
+        for b in self.plan.buckets:
+            kind_stats = self._bucket_stats(b, buckets[b.key])
+            if kind_stats is not None:
+                per_bucket.append(kind_stats)
+        if self.grid.cols > 1 and per_bucket:
+            layout = [(i, k) for i, (kind, st) in enumerate(per_bucket)
+                      for k in self._reduced_keys(kind, st)]
+            vec = torch.stack([
+                -per_bucket[i][1][k] if k.endswith('_min')
+                else per_bucket[i][1][k] for i, k in layout
+            ])
+            vec = collectives.all_reduce_max(vec, self.grid.row_group)
+            for j, (i, k) in enumerate(layout):
+                per_bucket[i][1][k] = -vec[j] if k.endswith('_min') else vec[j]
+            for kind, st in per_bucket:
+                if kind == 'eigen':
+                    st['kron_min'] = st['eig_a_min'] * st['eig_g_min']
+                    st['kron_max'] = st['eig_a_max'] * st['eig_g_max']
+        return observe_monitor.merge_extremes(
+            [st for _, st in per_bucket], damping)
 
     # -- checkpoints ----------------------------------------------------
 

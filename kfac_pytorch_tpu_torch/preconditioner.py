@@ -73,6 +73,18 @@ kernel included::
         watchdog=WatchdogConfig(save_dir='gens', save_every=50),
     )
 
+Observability (:mod:`~kfac_pytorch_tpu_torch.observe`) and the flight
+recorder run on the same path, the fused kernel inside
+``kfac/precondition``::
+
+    precond = KFACPreconditioner(
+        model, observe=ObserveConfig(monitor=True, annotate=True),
+        flight=FlightConfig(path='logs/postmortem.json'),
+    )
+    ...                                    # each step, after opt.step():
+    precond.flight_step(loss)              # train_loop does it itself
+    observe_scalars(precond.last_step_info)   # 'observe/*' as floats
+
 Streaming checkpoints (``elastic.save_streaming`` /
 ``restore_streaming``: no recompute on restore, any world size) and the
 monolithic rotation (``utils.checkpoint.save_rotating`` /
@@ -266,6 +278,15 @@ WatchdogConfig` turns on the trajectory watchdog
             through the quarantine masks (``last_step_info['watchdog/*']``).
             Bucketed only; exclusive with ``lowrank_rank`` and with a
             callable ``damping`` or ``kl_clip``.
+        observe: an :class:`~kfac_pytorch_tpu_torch.observe.ObserveConfig`
+            turns on the profiler ranges of the step's phases
+            (``annotate``), the ``observe/*`` statistics in
+            ``last_step_info`` (``monitor``) and the whole-step timeline
+            (``timeline``, one synchronize a step).  Off, the step is the
+            unobserved one bit for bit.
+        flight: a :class:`~kfac_pytorch_tpu_torch.observe.flight.\
+FlightConfig` installs the flight recorder (``precond.flight``), fed by
+            :meth:`flight_step` (``train_loop`` feeds it itself).
         factor_comm: ``'bf16_triu'`` reduces the symmetric factors of
             linear and conv2d layers as packed upper triangles summed in
             bf16 (lossy; about a quarter of the dense bytes); other
@@ -541,10 +562,24 @@ WatchdogConfig` turns on the trajectory watchdog
                     'step; pass a constant (or None) kl_clip or drop '
                     'the watchdog',
                 )
+        if observe is not None:
+            from kfac_pytorch_tpu_torch.observe import ObserveConfig
+
+            if not isinstance(observe, ObserveConfig):
+                raise TypeError(
+                    'observe must be an ObserveConfig or None, got '
+                    f'{type(observe).__name__}',
+                )
+        if flight is not None:
+            from kfac_pytorch_tpu_torch.observe.flight import FlightConfig
+
+            if not isinstance(flight, FlightConfig):
+                raise TypeError(
+                    'flight must be a FlightConfig or None, got '
+                    f'{type(flight).__name__}',
+                )
         unported = [
             ('topology', topology is not None, 'item 29'),
-            ('observe', observe is not None, 'item 23'),
-            ('flight', flight is not None, 'item 23'),
             ('compile_budget', compile_budget is not None, 'item 31'),
         ]
         for option, requested, item in unported:
@@ -615,6 +650,8 @@ WatchdogConfig` turns on the trajectory watchdog
             health=health,
             consistency=consistency,
             watchdog=watchdog,
+            observe=observe,
+            flight=flight,
             loglevel=loglevel,
         )
         # The fused path's forward and backward go through the wrapper.

@@ -12,11 +12,25 @@ watchdog's fault), and the storage faults :func:`torn_jsonl` and
 threads its state through functions, so its injectors return a new
 state; the port's state lives in the preconditioner, so
 :func:`poison_factors` and :func:`desync_slot` write into it.
+
+The multi-process helpers of the JAX module (``testing.py:508-648``):
+:func:`free_port`, :func:`spawn_ranks` (real separate interpreters with
+the ``torch.distributed`` environment), :func:`wait_ranks` (bounded) and
+:func:`kill_rank` (the rank-death injector of
+:mod:`~kfac_pytorch_tpu_torch.runtime`), and :func:`plain_step_flops`
+(``testing.py:462``) over :func:`~kfac_pytorch_tpu_torch.observe.costs.\
+step_variant_costs`.  The JAX module's virtual-device helpers have no
+torch counterpart.
 """
 from __future__ import annotations
 
 import math
 import os
+import signal
+import socket
+import subprocess
+import threading
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -33,9 +47,14 @@ __all__ = [
     'desync_replica',
     'desync_slot',
     'eigh_failure_config',
+    'free_port',
+    'kill_rank',
     'nan_batch',
+    'plain_step_flops',
     'poison_factors',
+    'spawn_ranks',
     'torn_jsonl',
+    'wait_ranks',
 ]
 
 
@@ -280,3 +299,147 @@ def corrupt_checkpoint(path: str, keep_fraction: float = 0.25) -> int:
     if n == 0:
         raise ValueError(f'no files to corrupt under {path!r}')
     return n
+
+
+def plain_step_flops(
+    model: torch.nn.Module,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    fraction: float = 1.0,
+) -> float:
+    """FLOPs of one K-FAC plain step (no factor update, no refresh) of
+    ``model`` on ``(x, y)`` with a cross-entropy loss at KAISA fraction
+    ``fraction`` of the current ``torch.distributed`` world: the forward,
+    the backward and the precondition, counted by
+    :func:`~kfac_pytorch_tpu_torch.observe.costs.step_variant_costs` (the
+    fused kernel's FLOPs from its shapes).  The preconditioner is the JAX
+    helper's (factor 10, inv 100, damping 0.003, lr 0.1); the model's
+    ``.grad`` is left holding the step's preconditioned gradients."""
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch.observe.costs import step_variant_costs
+    from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
+
+    precond = KFACPreconditioner(
+        model, factor_update_steps=10, inv_update_steps=100,
+        damping=0.003, lr=0.1, grad_worker_fraction=fraction,
+    )
+
+    def forward_backward():
+        model.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+
+    return step_variant_costs(precond, forward_backward)['plain']['flops']
+
+
+# ----------------------------------------------------------------------
+# multi-process rank injectors (kfac_pytorch_tpu_torch/runtime.py)
+# ----------------------------------------------------------------------
+
+
+def free_port() -> int:
+    """An OS-assigned free localhost TCP port (the coordinator's)."""
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(
+    n: int,
+    argv: list[str],
+    *,
+    coordinator: str | None = None,
+    extra_env: dict[str, str] | None = None,
+    cwd: str | None = None,
+    capture: bool = True,
+) -> tuple[list[subprocess.Popen], str]:
+    """Spawn ``n`` localhost ranks of a ``torch.distributed`` world, each
+    a separate interpreter running ``argv``, with the world in the
+    environment: ``MASTER_ADDR``/``MASTER_PORT`` and ``KFAC_COORD``
+    (``host:port``, an OS-assigned free port unless ``coordinator`` is
+    given), ``KFAC_NPROCS`` and ``WORLD_SIZE``, and per rank
+    ``KFAC_RANK`` and ``RANK`` — what a
+    :class:`~kfac_pytorch_tpu_torch.runtime.RuntimeConfig` is built from.
+    Returns ``(procs, coordinator)``; the caller owns the processes
+    (:func:`wait_ranks`, :func:`kill_rank`)."""
+    if n < 1:
+        raise ValueError(f'need n >= 1 ranks, got {n}')
+    if coordinator is None:
+        coordinator = f'127.0.0.1:{free_port()}'
+    host, _, port = coordinator.rpartition(':')
+    base = dict(os.environ)
+    base.update(MASTER_ADDR=host, MASTER_PORT=port, KFAC_COORD=coordinator,
+                KFAC_NPROCS=str(n), WORLD_SIZE=str(n))
+    if extra_env:
+        base.update(extra_env)
+    procs = []
+    for rank in range(n):
+        env = dict(base, KFAC_RANK=str(rank), RANK=str(rank))
+        procs.append(subprocess.Popen(
+            argv,
+            env=env,
+            cwd=cwd,
+            stdout=subprocess.PIPE if capture else None,
+            stderr=subprocess.STDOUT if capture else None,
+            text=capture,
+        ))
+    return procs, coordinator
+
+
+def wait_ranks(
+    procs: list[subprocess.Popen],
+    timeout_s: float = 600.0,
+) -> list[tuple[int, str]]:
+    """Bounded wait for every rank; a rank still alive at the deadline is
+    SIGKILLed and reported with its (negative) return code.  Returns
+    ``[(returncode, captured_output), ...]`` in rank order."""
+    deadline = time.monotonic() + timeout_s
+    results: list[tuple[int, str]] = []
+    for proc in procs:
+        remaining = max(0.1, deadline - time.monotonic())
+        try:
+            out, _ = proc.communicate(timeout=remaining)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        results.append((proc.returncode, out or ''))
+    return results
+
+
+def kill_rank(
+    pid: int,
+    when: float | Callable[[], bool] | None = None,
+    *,
+    sig: int = signal.SIGKILL,
+    poll_s: float = 0.05,
+) -> threading.Event:
+    """SIGKILL a rank: now (``when=None``), after ``when`` seconds, or
+    once the zero-argument callable ``when`` returns true (polled every
+    ``poll_s``).  Returns an event set once the signal is sent (or the
+    process was already gone).  A rank may kill itself with
+    ``kill_rank(os.getpid())``."""
+    done = threading.Event()
+
+    def _kill() -> None:
+        try:
+            os.kill(pid, sig)
+        except (ProcessLookupError, PermissionError):
+            pass
+        done.set()
+
+    if when is None:
+        _kill()
+        return done
+
+    def _run() -> None:
+        if callable(when):
+            while not when():
+                time.sleep(poll_s)
+        else:
+            time.sleep(float(when))
+        _kill()
+
+    threading.Thread(
+        target=_run, name=f'kfac-kill-rank-{pid}', daemon=True,
+    ).start()
+    return done

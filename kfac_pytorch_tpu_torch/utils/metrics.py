@@ -7,8 +7,8 @@ line), mirrored to TensorBoard through ``torch.utils.tensorboard`` when
 that imports; only rank 0 of ``torch.distributed`` writes.
 :func:`health_scalars` and :func:`watchdog_scalars` flatten the
 ``health/*`` and ``watchdog/*`` counters of ``last_step_info`` for
-``metrics.jsonl``; the observe scalars of the JAX module wait for the
-monitor that produces them (``ROADMAP.md`` Queue A item 23).
+``metrics.jsonl``, and :func:`observe_scalars` the ``observe/*``
+monitor scalars (:mod:`kfac_pytorch_tpu_torch.observe`).
 """
 from __future__ import annotations
 
@@ -56,6 +56,15 @@ def health_scalars(
     Host-side events are tallied in :func:`kfac_pytorch_tpu_torch.\
 tracing.get_events`."""
     return _prefixed_scalars(last_step_info, 'health/')
+
+
+def observe_scalars(
+    last_step_info: Mapping[str, Any] | None,
+) -> dict[str, float]:
+    """The ``observe/*`` monitor scalars of ``precond.last_step_info`` as
+    host floats (JAX ``utils/metrics.py:85-95``; one host read per value),
+    empty when the monitor is off."""
+    return _prefixed_scalars(last_step_info, 'observe/')
 
 
 def watchdog_scalars(

@@ -49,9 +49,13 @@ listing a check decides from is read before that all-reduce and rank 0
 alone writes stamps after it, so every rank decides from the same
 listing.
 
-The ``observe/*`` signals of the JAX watchdog need the monitor of
-``ROADMAP.md`` Queue A item 23, and the zero-byte ``watchdog_check`` row
-of its cost ledger comes with it.
+``observe/*`` signals (``signals=('vg_sum', 'observe/grad_norm')``) are
+read from ``last_step_info`` when the Observe monitor is on
+(``ObserveConfig(monitor=True)``); with it off they are absent from the
+step's info and not recorded, as in the JAX package.  The cost ledger
+bills the check's all-reduce (``observe.costs``, ``watchdog_check``).
+The rollback is a cross-process commit point
+(:func:`~kfac_pytorch_tpu_torch.runtime.commit_point`).
 """
 from __future__ import annotations
 
@@ -314,13 +318,6 @@ class TrajectoryWatchdog:
     _KEY = ('trajectory',)
 
     def __init__(self, config: WatchdogConfig, precond: Any) -> None:
-        observe = [s for s in config.signals if s.startswith('observe/')]
-        if observe:
-            raise NotImplementedError(
-                f'watchdog signals {observe} read the Observe monitor, which '
-                'is not ported to the PyTorch package yet (ROADMAP.md Queue '
-                'A item 23)',
-            )
         self.config = config
         self._precond = precond
         self.ladder = EscalationLadder(config.park_after)
@@ -549,9 +546,14 @@ class TrajectoryWatchdog:
         trying the candidates newest first (a stamped generation can
         still fail verification); with none left, park."""
         from kfac_pytorch_tpu_torch import elastic
+        from kfac_pytorch_tpu_torch import runtime
 
         precond = self._precond
         decision_step = int(precond.steps)
+        # The cross-process commit point: every rank decided the rollback
+        # from the same all-reduced signal, and the restore below is
+        # collective.
+        runtime.commit_point('watchdog/rollback')
         info = target = None
         for candidate in sorted(targets, reverse=True):
             try:
@@ -624,18 +626,23 @@ class TrajectoryWatchdog:
         ``S + clearance <= clean_step`` and no dirty check since ``S``;
         rank 0 writes, every rank counts."""
         from kfac_pytorch_tpu_torch import elastic
+        from kfac_pytorch_tpu_torch import runtime
 
         clearance = self.config.effective_clearance
         writer = not _distributed() or dist.get_rank() == 0
-        for gen, stamp in listing:
-            if stamp != elastic.HEALTH_STAMP_PENDING:
-                continue
-            s = elastic.generation_step(gen)
-            if s > self._last_dirty_step and s + clearance <= clean_step:
-                if writer:
-                    elastic._write_stamp(gen, elastic.HEALTH_STAMP_HEALTHY)
-                self.totals['stamps'] += 1
-                tracing.count_event('watchdog_stamp', step=clean_step)
+        due = [gen for gen, stamp in listing
+               if stamp == elastic.HEALTH_STAMP_PENDING
+               and elastic.generation_step(gen) > self._last_dirty_step
+               and elastic.generation_step(gen) + clearance <= clean_step]
+        if due:
+            # The cross-process commit point of the stamp: every rank
+            # agreed it is due before rank 0 rewrites the files.
+            runtime.commit_point('elastic/stamp')
+        for gen in due:
+            if writer:
+                elastic._write_stamp(gen, elastic.HEALTH_STAMP_HEALTHY)
+            self.totals['stamps'] += 1
+            tracing.count_event('watchdog_stamp', step=clean_step)
 
     # -- surfacing --------------------------------------------------------------
 

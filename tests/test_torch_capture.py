@@ -206,7 +206,7 @@ def test_step_without_backward_raises():
     (dict(use_pallas=True), 'Queue B item 1'),
 ])
 def test_unported_options_raise(kwargs, item):
-    if item in PORTED or {'health', 'consistency', 'watchdog'} & set(kwargs):
+    if item in PORTED or set(GUARDS) & set(kwargs):
         check_ported_option(kwargs)
         return
     with pytest.raises(NotImplementedError, match=item):
@@ -216,9 +216,12 @@ def test_unported_options_raise(kwargs, item):
 #: Queue A items ported since these cases were written: each case now
 #: checks the option's ported behaviour (the default ``inv_update_steps``
 #: is 1, below ``stagger_refresh=2``).  ``health`` (item 19),
-#: ``consistency`` (item 21's first half) and the watchdog (item 21b) are
-#: ported too: a wrong config type raises ``TypeError``.
+#: ``consistency`` (item 21's first half), the watchdog (item 21b) and
+#: ``observe``/``flight`` (item 23) are ported too: a wrong config type
+#: raises ``TypeError``.
 PORTED = ('item 4b', 'item 13', 'item 15', 'item 16', 'item 17', 'item 18')
+#: The options that take a config object, and the config's class name.
+GUARDS = ('health', 'consistency', 'watchdog', 'observe', 'flight')
 
 
 def check_ported_option(kwargs):
@@ -249,7 +252,19 @@ def check_ported_option(kwargs):
         precond = KFACPreconditioner(Tiny(), **kwargs)
         assert precond._second_order.pipeline_order == tuple(
             b.key for b in precond.plan.buckets)
-    elif {'health', 'consistency', 'watchdog'} & set(kwargs):
+    elif {'observe', 'flight'} & set(kwargs):
+        from kfac_pytorch_tpu_torch.observe import FlightConfig
+        from kfac_pytorch_tpu_torch.observe import ObserveConfig
+
+        (name,) = {'observe', 'flight'} & set(kwargs)
+        config = {'observe': ObserveConfig, 'flight': FlightConfig}[name]
+        with pytest.raises(TypeError, match=config.__name__):
+            KFACPreconditioner(Tiny(), **kwargs)
+        value = (ObserveConfig() if name == 'observe' else FlightConfig(
+            path='unused.json', arm_atexit=False, arm_sigterm=False))
+        precond = KFACPreconditioner(Tiny(), **{name: value})
+        assert getattr(precond, name) is not None
+    elif set(GUARDS) & set(kwargs):
         from kfac_pytorch_tpu_torch import ConsistencyConfig
         from kfac_pytorch_tpu_torch import HealthConfig
         from kfac_pytorch_tpu_torch import WatchdogConfig

@@ -199,3 +199,51 @@ class TestEigen:
             )
         # Values reach 1/damping ~ 333: scale the absolute floor with it.
         close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_symmetric_eigh_shift_matches_plain_on_the_cpu(monkeypatch):
+    """``ops.symmetric_eigh`` is ``torch.linalg.eigh`` bit for bit on CPU
+    tensors (the JAX package's numerics).  Its CUDA path, run here on the
+    CPU: sound decompositions stay the plain ones bit for bit; one that
+    fails as cuSOLVER's does (an eigenvalue and its vector corrupted, as
+    the card returned them for a near-identity factor) is caught by the
+    float64 residual, counted, and redone shifted: the float64 spectrum
+    within 1e-6 of its scale and the matrix rebuilt within 1e-5."""
+    from kfac_pytorch_tpu_torch import tracing
+    from kfac_pytorch_tpu_torch.ops import eigen
+
+    rng = np.random.default_rng(0)
+    r = rng.standard_normal((4, 48, 12))
+    m = r @ r.transpose(0, 2, 1) / 12 + 1e-3 * np.eye(48)
+    m[[0, 2]] = 0.7 * np.eye(48) + 1e-8 * m[[0, 2]]
+    t = torch.tensor(m, dtype=torch.float32)
+    d0, q0 = torch.linalg.eigh(t)
+    d1, q1 = ops.symmetric_eigh(t)
+    assert torch.equal(d0, d1) and torch.equal(q0, q1)
+    d2, q2 = eigen._checked_eigh(t)
+    assert torch.equal(d0, d2) and torch.equal(q0, q2)
+    real = torch.linalg.eigh
+
+    def failing(x):
+        d, q = real(x)
+        if x.shape[0] == 4:  # the plain call; the shifted redo is sound
+            d, q = d.clone(), q.clone()
+            d[2, -1] = 165.2
+            q[2, :, -1] = 1.0 / 48 ** 0.5
+        return d, q
+
+    before = tracing.get_events().get('eigh_shifted_redo', 0)
+    monkeypatch.setattr(torch.linalg, 'eigh', failing)
+    d3, q3 = eigen._checked_eigh(t)
+    monkeypatch.setattr(torch.linalg, 'eigh', real)
+    assert tracing.get_events().get('eigh_shifted_redo', 0) == before + 1
+    want = torch.linalg.eigvalsh(t.double())
+    for i in range(4):
+        if i == 2:
+            scale = float(want[i].abs().max())
+            assert float((d3[i].double() - want[i]).abs().max()) <= (
+                1e-6 * scale)
+            back = q3[i] @ torch.diag(d3[i]) @ q3[i].mT
+            assert float((back - t[i]).abs().max()) <= 1e-5 * scale
+        else:
+            assert torch.equal(d3[i], d0[i]) and torch.equal(q3[i], q0[i])

@@ -3,8 +3,9 @@
 * The four detectors and ``detect_divergence`` give JAX's answers on the
   same numpy series, exactly (NaN, infinities, zeros, climbs, plateaus);
   ``WatchdogConfig`` takes JAX's defaults and raises JAX's errors, and
-  so do the preconditioner's exclusions; an ``observe/*`` signal raises
-  naming Queue A item 23.
+  so do the preconditioner's exclusions; an ``observe/*`` signal is
+  recorded when the Observe monitor is on and absent (not recorded, no
+  error) when it is off, as in JAX.
 * The ladder: the same loss series fed to a JAX watchdog (``TinyModel``
   on one device, the consistency guard off) and to the port's, with the
   step counters set alike before each update, gives the same rung,
@@ -168,9 +169,28 @@ def test_engine_rejections_equal_jax(kwargs, error):
 
 
 def test_observe_signals_name_item_23():
-    with pytest.raises(NotImplementedError, match='item 23'):
-        kt.KFACPreconditioner(TinyModel(), watchdog=kt.WatchdogConfig(
-            signals=('vg_sum', 'observe/grad_norm')))
+    """Queue A item 23 is ported: an ``observe/*`` signal is read from
+    ``last_step_info`` with the monitor on, and is simply absent with it
+    off (JAX ``watchdog.py:141-152``)."""
+    from kfac_pytorch_tpu_torch.observe import ObserveConfig
+
+    cfg = kt.WatchdogConfig(signals=('vg_sum', 'observe/grad_norm'),
+                            check_every=2)
+    x = torch.randn(4, 10)
+    for observe, want in ((None, {'loss', 'vg_sum'}),
+                          (ObserveConfig(), {'loss', 'vg_sum',
+                                             'observe/grad_norm'})):
+        torch.manual_seed(0)
+        model = TinyModel()
+        p = kt.KFACPreconditioner(model, watchdog=cfg, observe=observe)
+        for _ in range(2):
+            model.zero_grad()
+            loss = model(x).square().mean()
+            loss.backward()
+            p.step()
+            p.watchdog_step(loss.detach())
+        assert set(p.watchdog._history) == want
+        assert p.watchdog.totals['checks'] == 1
 
 
 # -- the ladder against JAX ----------------------------------------------------
