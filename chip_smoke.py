@@ -205,7 +205,7 @@ fails:
     cadence and the pending decisions identical on every rank.  The
     kernels line's entry is timed at rank 0's HYBRID-OPT shard shapes.
 18. EKFAC across the grid on ResNet-50 at world 4 on one card over
-    gloo, 8 images per rank, factor 1, inv 2, 3 steps under COMM-OPT,
+    gloo, 8 images per rank, factor 1, inv 2, 2 steps under COMM-OPT,
     HYBRID-OPT and MEM-OPT (the last two stepped with COMM-OPT's
     preconditioned gradients, so all three see the same weights; cuDNN
     deterministic): the grids' losses and preconditioned gradients
@@ -300,7 +300,37 @@ fails:
     reference series bitwise; two fresh ranks restart at world 2 (1x2,
     the saved two-column layout), ``restore_streaming`` the generation
     and run a step with the sharded kernel held against its plain
-    version.
+    version;
+26. the MoE flavour (``gpt.MoEKFACPreconditioner``): the JAX MoE test
+    harness at Switch-Base-8 widths (``d_model`` 768, ``d_ff`` 3072, 8
+    experts, capacity factor 1.25, 8 classes; one MoE layer) on seeded
+    features ``[4, 2048, 768]``, f32, factor 1, inv 3, 6 steps on one
+    card (a finite falling loss, every fused call on the expert stacks
+    ``[8, 3072, 769]`` and ``[8, 768, 3073]`` and the dense layers
+    against its plain version, 30 launches, the eigen gate on every
+    stack at the refresh step 3), then 3 steps over four gloo ranks of
+    one expert group (2 experts a rank): the losses and each rank's
+    expert gradients within 1e-5 of the one-card run;
+27. the GPipe flavour (``gpt.PipelineKFACPreconditioner``): a 4-stage
+    ``PipelineLM`` of 3 GPT blocks a stage at GPT-125M widths, f32,
+    batch 4 x 2048, ``M = 4``, factor 1, inv 3, 5 steps in one process
+    holding every stage, then over four gloo ranks, one stage each:
+    losses within 1e-5, stage factors within 1e-5 and first-step
+    gradients within 1e-4 (relative) of the one process, every fused
+    call against plain, 12 launches a step in the one process and a
+    rank, every hand-off ``mb * T * D * 4`` bytes.  Phases 26 and 27
+    print each worst ``pg`` and ``clip`` error beside the largest plain
+    ``|pg|`` and ``|clip|``.
+
+Phase 8 ends with a remat pass: GPT-125M with ``remat=True`` against
+``remat=False`` (3 steps, SDPA held to its math backend, whose backward
+is deterministic where the memory-efficient kernel's is not): losses,
+factor EMAs and final gradients bitwise, the launches equal, the peak
+memory of both.  The kernel is then held against its plain version at
+the shapes of phases 26 and 27 (their kernels-line entries) and timed at
+the expert stacks' aligned neighbours ``[8, 3072, 768]`` and ``[8, 768,
+3072]`` and on the expert stacks' operands zero-padded to ``ap`` 776 and
+3080 (held against the unpadded plain version).
 
 Then the bench's ``micro_mlp``, ``inverse_root`` and
 ``secondary_rn50_inverse`` stages run once (the K-FAC ones at inv 20,
@@ -742,21 +772,24 @@ def phase_kernels(torch, ops):
     return [entry] + paths
 
 
-def bucket_entry(torch, kernel, plain, label, cases, seed):
+def bucket_entry(torch, kernel, plain, label, cases, seed, counts=None,
+                 what='buckets'):
     """The kernels-line entry of one model's path: :func:`check_case` at
     each of its bucket shapes (at most two CUDA kernels per call for
-    ``gp <= 64``, four above), times summed over one step's calls, and a
-    ``kernel <label>:`` line that names the buckets where the cuBLAS
-    chain is faster."""
+    ``gp <= 64``, four above), times summed over one step's calls (a
+    shape's ``counts`` entry calls, default one each), and a ``kernel
+    <label>:`` line that names the buckets where the cuBLAS chain is
+    faster."""
+    counts = counts or [1] * len(cases)
     err, timed, per_call = 0.0, [], []
-    for i, shape in enumerate(cases):
+    for i, (shape, count) in enumerate(zip(cases, counts)):
         e, t, n, _ = check_case(torch, kernel, plain, shape, seed + i,
                                 2 if shape[1] <= 64 else 4)
         err = max(err, e)
-        timed.append(t)
-        per_call.append(n)
+        timed += [t] * count
+        per_call += [n] * count
         torch.cuda.empty_cache()
-    out = step_entry(f'fused_eigen_precondition, {label} buckets',
+    out = step_entry(f'fused_eigen_precondition, {label} {what}',
                      'kfac_pytorch_tpu/ops/pallas_precond.py:43', timed, err,
                      per_call)
     out['shapes'] = cases
@@ -765,7 +798,7 @@ def bucket_entry(torch, kernel, plain, label, cases, seed):
              bound_ms=precond_bound(*shape, 4)[0])
         for shape, ms, plain_ms, lib_ms in timed
     ]
-    print(f'kernel {label}: one step\'s {len(cases)} calls: '
+    print(f'kernel {label}: one step\'s {len(timed)} calls: '
           f'{out["ms"]:.5f} ms issued one by one; plain '
           f'{out["plain_ms"]:.5f} ms; cuBLAS chain {out["library_ms"]:.5f} '
           f'ms; bound {out["bound_ms"]:.6f} ms ({out["bound_by"]}), '
@@ -3846,15 +3879,16 @@ def phase_resnet50_pipelined(torch, kt):
 #: Phase 18: EKFAC across the grid (ROADMAP item 10b), ResNet-50 at
 #: world 4 on one card over gloo, 8 images a rank, factor 1, inv 2 (cut
 #: from inv 5 and 8 steps, then from inv 4 and 6 steps, then from inv 3
-#: and 4 steps, for time); the round trip saves before step
-#: ``RN50_GRID_SAVE`` and resumes the last two steps, across the refresh
-#: of step 2.  The save follows the
+#: and 4 steps, then from 3 steps when phases 26 and 27 came, for time);
+#: the round trip saves before step ``RN50_GRID_SAVE`` and resumes the
+#: last step (``tests/test_torch_ekfac_grid.py`` holds a resume across
+#: a later refresh on the grids against JAX).  The save follows the
 #: refresh of step 0: a state dict carries the factors, not the bases,
 #: and the restore recomputes the bases from them, which gives the saved
 #: run's bits only while the factors are those the last refresh
 #: decomposed.
 RN50_GRID_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=2)
-RN50_GRID_STEPS = 3
+RN50_GRID_STEPS = 2
 RN50_GRID_SAVE = 1
 RN50_GRID_STRATEGIES = ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT')
 #: The EKFAC trajectory tolerance (``tests/test_torch_ekfac.py``).
@@ -4115,7 +4149,7 @@ def phase_resnet50_ekfac_grid(torch, kt):
     model) within ``RN50_GRID_TOL`` of COMM-OPT's, ``ekfac_divergence``
     bitwise equal on all four ranks at every step, no fused-kernel
     launch, finite falling losses, and the state-dict round trip (saved
-    before step ``RN50_GRID_SAVE``, resumed across the refresh of step 2)
+    before step ``RN50_GRID_SAVE``, the last step resumed)
     resuming bitwise.  The losses are held to the same bar, but under
     this feeding the weights, and so the losses, equal COMM-OPT's by
     construction: that gate only shows the feeding took (it reads 0).  Prints the three designs'
@@ -6194,10 +6228,13 @@ class CollectiveBytes:
             setattr(self.dist, name, fn)
 
 
-def rt_device(torch, device_type):
+def rt_device(torch, device_type, rank=0, backend='gloo'):
+    """The rank's device with TF32 off and cuDNN deterministic: the
+    rank's own card on NCCL, ``cuda:0`` for every rank over gloo."""
     if device_type != 'cuda':
         return torch.device('cpu')
-    dev = torch.device('cuda', 0)
+    dev = torch.device(
+        'cuda', rank % torch.cuda.device_count() if backend == 'nccl' else 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6586,6 +6623,620 @@ def phase_runtime(torch, kt):
     return launches, err
 
 
+# -- phase 8's remat pass; phases 26-27: the MoE and GPipe flavours ------
+
+REMAT_STEPS = 3
+#: Switch-Base-8 widths (Fedus et al. 2021, ``google/switch-base-8``) on
+#: the JAX MoE test harness ``TinyMoEModel``; depth cut to one MoE layer.
+MOE_CFG = dict(n_experts=8, d_model=768, d_ff=3072, capacity_factor=1.25)
+MOE_FEATURES = (4, 2048, 768)  # 8192 tokens: capacity 1280 an expert
+MOE_CLASSES = 8
+MOE_HP = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
+              kl_clip=0.001, lr=0.1)
+MOE_STEPS = 6
+MOE_WORLD = 4  # one expert group: 2 experts a rank
+MOE_RANK_STEPS = 3
+MOE_TIMEOUT_S = 300
+#: GPT-125M widths as a 4-stage GPipe LM of 3 blocks a stage.
+PIPE_LM = dict(vocab_size=50304, n_stages=4, blocks_per_stage=3,
+               n_heads=12, d_model=768, d_ff=3072, max_seq_len=2048)
+PIPE_LM_BATCH = (4, 2048)
+PIPE_LM_M = 4
+PIPE_LM_HP = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
+                  kl_clip=0.001, lr=0.1)
+PIPE_LM_STEPS = 5
+PIPE_LM_TIMEOUT_S = 400
+FLAVOUR_SGD_LR = 0.1
+
+
+def sync_device(torch, dev) -> None:
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+class KernelCheck:
+    """Installed as ``ops.fused_eigen_precondition`` while a flavour
+    runs: each call launches the kernel (the real function counts it)
+    and holds its ``pg`` and ``clip`` against the plain version on the
+    same inputs (``rtol 1e-5, atol 1e-4``; the plain calls launch no
+    kernel).  ``worst`` is the largest absolute ``pg`` error and
+    ``clip_worst`` the largest ``clip`` one; ``pg_max`` and ``clip_max``
+    the largest plain ``|pg|`` and ``|clip|``, which say how far below a
+    typical value ``atol`` sits; ``shapes`` the ``(L, gp, ap)`` seen."""
+
+    def __init__(self, ops):
+        self.ops, self.real = ops, ops.fused_eigen_precondition
+        self.plain = ops.fused_eigen_precondition_reference
+        self.worst, self.bad, self.shapes = 0.0, [], []
+        self.clip_worst = self.pg_max = self.clip_max = 0.0
+
+    def __call__(self, g, qa, qg, dgda):
+        pg, clip = self.real(g, qa, qg, dgda)
+        want_pg, want_clip = self.plain(g, qa, qg, dgda)
+        err = float((pg - want_pg).abs().max())
+        off = (pg - want_pg).abs() > 1e-4 + 1e-5 * want_pg.abs()
+        clip_off = (clip - want_clip).abs() > 1e-4 + 1e-5 * want_clip.abs()
+        shape = tuple(g.shape)
+        if bool(off.any()) or bool(clip_off.any()) or not bool(
+                pg.isfinite().all()):
+            self.bad.append((shape, err))
+        self.worst = max(self.worst, err)
+        self.clip_worst = max(self.clip_worst,
+                              float((clip - want_clip).abs().max()))
+        self.pg_max = max(self.pg_max, float(want_pg.abs().max()))
+        self.clip_max = max(self.clip_max, float(want_clip.abs().max()))
+        if shape not in self.shapes:
+            self.shapes.append(shape)
+        return pg, clip
+
+    def __enter__(self):
+        self.ops.fused_eigen_precondition = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_eigen_precondition = self.real
+
+    def summary(self) -> dict:
+        return dict(worst=self.worst, clip_worst=self.clip_worst,
+                    pg_max=self.pg_max, clip_max=self.clip_max,
+                    bad=self.bad, shapes=self.shapes)
+
+
+def check_line(checks) -> str:
+    """The worst ``pg`` and ``clip`` errors of :class:`KernelCheck`
+    summaries beside the largest plain ``|pg|`` and ``|clip|``."""
+    def top(k):
+        return max(c[k] for c in checks)
+    return (f'worst |pg - plain| {top("worst"):.3e} (max |pg| '
+            f'{top("pg_max"):.3e}), worst |clip - plain| '
+            f'{top("clip_worst"):.3e} (max |clip| {top("clip_max"):.3e}); '
+            'atol 1e-4, rtol 1e-5')
+
+
+def stack_eigen_check(torch, precond, label):
+    """Every layer stack's decomposition on the refresh step: the
+    eigen-residual ``|F Q - Q diag(Q^T F Q)| / |F|`` within the card's
+    gate ``max(1e-4, 4 n eps)`` and ``|Q^T Q - I| < 1e-3``.  Returns the
+    worst residual as a share of its gate."""
+    worst = 0.0
+    for name, st in precond.layers.items():
+        for f, q in ((st.a_factor, st.qa), (st.g_factor, st.qg)):
+            f, q = f.float(), q.float()
+            d = torch.diagonal(q.mT @ f @ q, dim1=-2, dim2=-1)
+            resid = rel_frob(f @ q, q * d[..., None, :])
+            eye = torch.eye(q.shape[-1], device=q.device)
+            orth = float((q.mT @ q - eye).abs().max())
+            gate = eigen_gate(q.shape[-1])
+            if not (resid <= gate and orth < 1e-3):
+                fail(f'{label}: {name} {tuple(q.shape)} eigen residual '
+                     f'{resid:.3e} (gate {gate:.3e}), |Q^T Q - I| {orth:.3e}')
+            worst = max(worst, resid / gate)
+    return worst
+
+
+def gpt_remat_run(torch, kt, remat):
+    """``REMAT_STEPS`` K-FAC steps of GPT-125M with SGD at phase 8's
+    batch (default coverage, refresh at step 0); returns the losses, the
+    factor EMAs, the final ``.grad``, the fused launches, the peak memory
+    and the seconds."""
+    import torch.nn.functional as F
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = getattr(kt.models, GPT_MODEL)(device=DEVICE, seed=0, remat=remat)
+    tokens = gpt_tokens(torch, model.config.vocab_size)
+    precond = kt.KFACPreconditioner(model, **GPT_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=GPT_HP['lr'])
+    kt.ops.fused_eigen_precondition.launches = 0
+    losses = []
+    for _ in range(REMAT_STEPS):
+        opt.zero_grad()
+        logits = model(tokens)
+        loss = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               tokens[:, 1:].reshape(-1))
+        del logits
+        loss.backward()
+        precond.step()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    return dict(
+        losses=torch.stack(losses),
+        factors={n: (st.a_factor, st.g_factor)
+                 for n, st in precond.layers.items()},
+        grads={n: p.grad for n, p in model.named_parameters()},
+        launches=kt.ops.fused_eigen_precondition.launches,
+        peak=torch.cuda.max_memory_allocated(),
+        seconds=time.perf_counter() - t0)
+
+
+def remat_differences(torch, a, b):
+    """``(tensors compared, [(name, relative error)] of those not
+    bitwise equal)`` between two :func:`gpt_remat_run` results."""
+    pairs = [('loss', a['losses'], b['losses'])]
+    for n, (fa, fg) in a['factors'].items():
+        pairs += [(f'{n} A', fa, b['factors'][n][0]),
+                  (f'{n} G', fg, b['factors'][n][1])]
+    pairs += [(f'{n}.grad', g, b['grads'][n]) for n, g in a['grads'].items()]
+    return len(pairs), [(n, rel_frob(y, x)) for n, x, y in pairs
+                        if not torch.equal(x, y)]
+
+
+def gpt_remat_pass(torch, kt):
+    """Phase 8's remat pass (budget 20 s): :func:`gpt_remat_run` with
+    ``remat=True`` against ``remat=False`` from seed 0: the losses, every
+    factor EMA and the final ``.grad`` bitwise, the fused kernel's
+    launches equal; ``torch.cuda.max_memory_allocated`` of both.  Both
+    runs hold ``scaled_dot_product_attention`` to its math backend: the
+    memory-efficient kernel's backward is not deterministic, so two
+    ``remat=False`` runs differ with it."""
+    from torch.nn.attention import SDPBackend
+    from torch.nn.attention import sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.MATH):
+        plain = gpt_remat_run(torch, kt, False)
+        remat = gpt_remat_run(torch, kt, True)
+    n, differ = remat_differences(torch, plain, remat)
+    worst = max([e for _, e in differ], default=0.0)
+    if worst > 1e-6 or plain['launches'] != remat['launches']:
+        fail(f'gpt remat: {len(differ)} of {n} tensors differ from '
+             f'remat=False (worst {differ[:3]}), launches '
+             f'{remat["launches"]} vs {plain["launches"]}')
+    print(f'gpt remat: {GPT_MODEL} batch {GPT_BATCH[0]} x {GPT_BATCH[1]}, '
+          f'{REMAT_STEPS} steps, SDPA math backend, remat=True vs '
+          f'remat=False: {n - len(differ)} of {n} tensors (losses, factor '
+          'EMAs, final .grad) bitwise'
+          + (f', worst of the rest {worst:.3e} relative ({differ[:3]})'
+             if differ else '')
+          + f'; fused launches {remat["launches"]} both; '
+          f'torch.cuda.max_memory_allocated {plain["peak"]} bytes plain, '
+          f'{remat["peak"]} bytes remat '
+          f'({remat["peak"] / plain["peak"]:.3f}x); '
+          f'{plain["seconds"]:.2f} s plain, {remat["seconds"]:.2f} s remat',
+          flush=True)
+    del plain, remat, differ
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_model(torch, kt, dev, expert_group=None):
+    from kfac_pytorch_tpu_torch.models.moe import MoEConfig
+    from kfac_pytorch_tpu_torch.models.moe import tiny_moe_model
+
+    return tiny_moe_model(MoEConfig(**MOE_CFG), MOE_FEATURES[2],
+                          MOE_CLASSES, device=dev, seed=0,
+                          expert_group=expert_group)
+
+
+def moe_batch(torch, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    x = torch.randn(*MOE_FEATURES, generator=gen, device=dev)
+    y = torch.randint(0, MOE_CLASSES, (MOE_FEATURES[0],), generator=gen,
+                      device=dev)
+    return x, y
+
+
+def moe_xent(out, labels):
+    import torch.nn.functional as F
+
+    logits, aux = out
+    return F.cross_entropy(logits, labels) + 0.01 * aux
+
+
+def expert_grads(model):
+    moe = model.moe
+    return {n: getattr(moe, n).grad.detach().cpu().clone()
+            for n in ('w_in', 'b_in', 'w_out', 'b_out')}
+
+
+def moe_rank(rank, world, backend, device_type, workdir):
+    """One rank of phase 26's expert group (``X = world``); writes
+    ``moe{rank}.pt``: losses, expert gradients and launches of
+    ``MOE_RANK_STEPS`` steps, the kernel check."""
+    import torch
+    import torch.distributed as dist
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch.gpt import MoEKFACPreconditioner
+    from kfac_pytorch_tpu_torch.parallel.mesh import axis_groups
+
+    dev = rt_device(torch, device_type, rank, backend)
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    grid = axis_groups(1, world)
+    model = moe_model(torch, kt, dev, expert_group=grid.inner_group)
+    precond = MoEKFACPreconditioner(model, moe_xent, **MOE_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=FLAVOUR_SGD_LR)
+    x, y = moe_batch(torch, dev)
+    out = dict(losses=[], grads=[], offset=model.moe.expert_offset,
+               local=model.moe.local_experts)
+    kt.ops.fused_eigen_precondition.launches = 0
+    with KernelCheck(kt.ops) as check:
+        for _ in range(MOE_RANK_STEPS):
+            out['losses'].append(float(precond.step(x, loss_args=(y,))))
+            out['grads'].append(expert_grads(model))
+            opt.step()
+    sync_device(torch, dev)
+    out.update(launches=kt.ops.fused_eigen_precondition.launches,
+               **check.summary())
+    torch.save(out, os.path.join(workdir, f'moe{rank}.pt'))
+    dist.destroy_process_group()
+
+
+def phase_moe(torch, kt):
+    """Phase 26 (budget 60 s): the expert-parallel MoE flavour.  The JAX
+    MoE test harness (``inproj`` -> ``MoEMLP`` -> residual -> ``head``)
+    at Switch-Base-8 widths (``d_model`` 768, ``d_ff`` 3072, 8 experts,
+    capacity factor 1.25, 8 classes; depth cut to one MoE layer) on
+    seeded features ``[4, 2048, 768]`` (8192 tokens, capacity 1280),
+    f32, TF32 off.  One card: ``MOE_STEPS`` steps, factor 1, inv 3:
+    a finite falling loss; every fused call (the expert stacks
+    ``[8, 3072, 769]`` and ``[8, 768, 3073]``, the dense layers as
+    stacks of one) against its plain version; launches = steps x 5; the
+    eigen gate on every stack at the refresh step 3.  Then four ranks
+    over gloo on the card (one expert group, 2 experts a rank,
+    ``MOE_RANK_STEPS`` steps from the same weights): each step's loss
+    within 1e-5 of the one-card run's and each rank's expert gradients
+    within 1e-5 (relative Frobenius) of the one-card slice.  Returns
+    ``(one-card launches, worst kernel error)``."""
+    from kfac_pytorch_tpu_torch.gpt import MoEKFACPreconditioner
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    dev = torch.device(DEVICE)
+    model = moe_model(torch, kt, dev)
+    precond = MoEKFACPreconditioner(model, moe_xent, **MOE_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=FLAVOUR_SGD_LR)
+    x, y = moe_batch(torch, dev)
+    losses, ref, step_s, gate_share = [], [], [], None
+    kt.ops.fused_eigen_precondition.launches = 0
+    with KernelCheck(kt.ops) as check:
+        for step in range(MOE_STEPS):
+            sync_device(torch, dev)
+            t0 = time.perf_counter()
+            loss = precond.step(x, loss_args=(y,))
+            sync_device(torch, dev)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if step < MOE_RANK_STEPS:
+                ref.append(expert_grads(model))
+            if step == MOE_HP['inv_update_steps']:
+                gate_share = stack_eigen_check(torch, precond, 'moe')
+            opt.step()
+    launches = kt.ops.fused_eigen_precondition.launches
+    n_layers = len(precond.layers)
+    want = MOE_STEPS * n_layers if DEVICE == 'cuda' else 0
+    E, D, Fd = (MOE_CFG[k] for k in ('n_experts', 'd_model', 'd_ff'))
+    stacks = {(E, Fd, D + 1), (E, D, Fd + 1)}
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail(f'moe: losses {losses}')
+    if check.bad or launches != want or not stacks <= set(check.shapes):
+        fail(f'moe: kernel vs plain off at {check.bad[:4]}, launches '
+             f'{launches} (want {want}), shapes {check.shapes}')
+    print(f'moe: TinyMoEModel at Switch-Base-8 widths, {n_layers} K-FAC '
+          f'layers ({sorted(precond.layers)}), features {MOE_FEATURES}; '
+          f'losses {[round(v, 6) for v in losses]}; fused launches '
+          f'{launches} ({MOE_STEPS} steps x {n_layers}), shapes '
+          f'{check.shapes}, {check_line([check.summary()])}; eigen '
+          f'residual at step {MOE_HP["inv_update_steps"]} at most '
+          f'{gate_share:.3f} of the gate; step times '
+          f'{[round(s * 1e3, 2) for s in step_s]} ms (host clock, '
+          f'synchronized, refreshes at 0 and 3); memory_usage '
+          f'{precond.memory_usage()}', flush=True)
+    del model, precond, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    backend = default_backend(MOE_WORLD) if DEVICE == 'cuda' else 'gloo'
+    ranks = spawn_ranks(torch, moe_rank, MOE_WORLD, backend, (),
+                        MOE_TIMEOUT_S, 'moe', 'moe')
+    worst_loss = worst_grad = 0.0
+    for r, res in enumerate(ranks):
+        if res['bad'] or res['launches'] != MOE_RANK_STEPS * n_layers * (
+                DEVICE == 'cuda'):
+            fail(f'moe rank {r}: kernel vs plain off at {res["bad"][:4]}, '
+                 f'launches {res["launches"]}')
+        rows = slice(res['offset'], res['offset'] + res['local'])
+        for step in range(MOE_RANK_STEPS):
+            worst_loss = max(worst_loss, abs(res['losses'][step]
+                                             - losses[step])
+                             / abs(losses[step]))
+            for n, g in res['grads'][step].items():
+                worst_grad = max(worst_grad, rel_frob(g, ref[step][n][rows]))
+    if not (worst_loss <= 1e-5 and worst_grad <= 1e-5):
+        fail(f'moe world {MOE_WORLD}: loss {worst_loss:.3e} and expert '
+             f'gradients {worst_grad:.3e} relative from the one-card run')
+    print(f'moe world {MOE_WORLD} ({backend}, one expert group, '
+          f'{ranks[0]["local"]} experts a rank, {MOE_RANK_STEPS} steps): '
+          f'losses within {worst_loss:.3e} and expert gradients within '
+          f'{worst_grad:.3e} (relative) of the one-card run; launches '
+          f'{[r["launches"] for r in ranks]}, {check_line(ranks)}, shapes '
+          f'{ranks[0]["shapes"]}', flush=True)
+    return launches, max([check.worst] + [r['worst'] for r in ranks])
+
+
+def pipe_lm_batch(torch, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    vocab = PIPE_LM['vocab_size']
+    tokens = torch.randint(0, vocab, PIPE_LM_BATCH, generator=gen,
+                           device=dev)
+    labels = torch.randint(0, vocab, PIPE_LM_BATCH, generator=gen,
+                           device=dev)
+    return tokens, labels
+
+
+def pipe_lm_loss(logits, labels):
+    import torch.nn.functional as F
+
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+
+
+def stage_snapshot(model, precond, stages):
+    """CPU copies of the factors of ``stages`` (stack rows) and of every
+    gradient, keyed by name."""
+    factors = {n: (st.a_factor.cpu(), st.g_factor.cpu())
+               for n, st in precond.layers.items()}
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters()
+             if not n.startswith('stages.')
+             or int(n.split('.')[1]) in stages}
+    return factors, grads
+
+
+def pipe_rank(rank, world, backend, device_type, workdir):
+    """One rank of phase 27 (stage ``rank``); writes ``plm{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch.gpt import PipelineKFACPreconditioner
+    from kfac_pytorch_tpu_torch.models.pipeline import PipeLMConfig
+    from kfac_pytorch_tpu_torch.models.pipeline import pipeline_lm
+    from kfac_pytorch_tpu_torch.parallel.mesh import axis_groups
+
+    dev = rt_device(torch, device_type, rank, backend)
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    grid = axis_groups(world, 1)
+    model = pipeline_lm(PipeLMConfig(**PIPE_LM), grid=grid, device=dev,
+                        seed=0)
+    precond = PipelineKFACPreconditioner(
+        model, pipe_lm_loss, n_microbatches=PIPE_LM_M, grid=grid,
+        **PIPE_LM_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=FLAVOUR_SGD_LR)
+    tokens, labels = pipe_lm_batch(torch, dev)
+    out = dict(losses=[], step_s=[], stage=grid.outer)
+    kt.ops.fused_eigen_precondition.launches = 0
+    with KernelCheck(kt.ops) as check:
+        for step in range(PIPE_LM_STEPS):
+            sync_device(torch, dev)
+            t0 = time.perf_counter()
+            out['losses'].append(float(precond.step(tokens, labels)))
+            sync_device(torch, dev)
+            out['step_s'].append(time.perf_counter() - t0)
+            if step == 0:
+                out['factors'], out['grads'] = stage_snapshot(
+                    model, precond, [grid.outer])
+            opt.step()
+    out.update(launches=kt.ops.fused_eigen_precondition.launches,
+               handoffs=precond.links.handoff_bytes, **check.summary())
+    torch.save(out, os.path.join(workdir, f'plm{rank}.pt'))
+    dist.destroy_process_group()
+
+
+def phase_pipeline(torch, kt):
+    """Phase 27 (budget 75 s): the GPipe flavour.  ``PipeLMConfig`` at
+    GPT-125M widths (vocab 50304, 4 stages of 3 blocks, 12 heads,
+    ``d_model`` 768, ``d_ff`` 3072, 2048 positions), f32, TF32 off,
+    batch 4 x 2048, ``M = 4``, factor 1, inv 3, ``PIPE_LM_STEPS`` steps
+    with SGD.  First one process holding every stage
+    (``apply_sequential``, the stacks ``[4, ...]``); then four ranks over
+    gloo on the card, one stage each, from the same weights.  Gates:
+    each step's loss within 1e-5 (relative) of the one-process run's;
+    each rank's stage factors after step 0 within 1e-5 and its
+    first-step preconditioned gradients within 1e-4 (relative
+    Frobenius); every fused call against its plain version (the stage
+    layers ``[4 | 1, 2304|768|3072, 769]`` and ``[4 | 1, 768, 3073]``,
+    each of these shapes seen and no other); launches = steps x 12 in
+    the one process (counted from 0 just before its loop) and a rank;
+    every activation handed off ``mb * T * D * 4`` bytes, ``M`` a step
+    from each stage but the last.  Returns
+    ``(launches over the ranks, worst kernel error)``."""
+    from kfac_pytorch_tpu_torch.gpt import PipelineKFACPreconditioner
+    from kfac_pytorch_tpu_torch.models.pipeline import PipeLMConfig
+    from kfac_pytorch_tpu_torch.models.pipeline import pipeline_lm
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    dev = torch.device(DEVICE)
+    cfg = PipeLMConfig(**PIPE_LM)
+    model = pipeline_lm(cfg, device=dev, seed=0)
+    precond = PipelineKFACPreconditioner(
+        model, pipe_lm_loss, n_microbatches=PIPE_LM_M, **PIPE_LM_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=FLAVOUR_SGD_LR)
+    tokens, labels = pipe_lm_batch(torch, dev)
+    losses, step_s = [], []
+    per_step = 4 * cfg.blocks_per_stage * (DEVICE == 'cuda')
+    S, D, Fd = cfg.n_stages, cfg.d_model, cfg.d_ff
+    stacks = {(S, 3 * D, D + 1), (S, D, D + 1), (S, Fd, D + 1),
+              (S, D, Fd + 1)}
+    kt.ops.fused_eigen_precondition.launches = 0
+    with KernelCheck(kt.ops) as check:
+        for step in range(PIPE_LM_STEPS):
+            sync_device(torch, dev)
+            t0 = time.perf_counter()
+            losses.append(float(precond.step(tokens, labels)))
+            sync_device(torch, dev)
+            step_s.append(time.perf_counter() - t0)
+            if step == 0:
+                factors, grads = stage_snapshot(model, precond,
+                                                range(cfg.n_stages))
+            opt.step()
+    one_launches = kt.ops.fused_eigen_precondition.launches
+    if (check.bad or one_launches != PIPE_LM_STEPS * per_step
+            or set(check.shapes) != stacks
+            or not (all(map(math.isfinite, losses))
+                    and losses[-1] < losses[0])):
+        fail(f'pipeline one process: losses {losses}, kernel vs plain off '
+             f'at {check.bad[:4]}, launches {one_launches} (want '
+             f'{PIPE_LM_STEPS * per_step}), shapes {check.shapes} (want '
+             f'{sorted(stacks)})')
+    print(f'pipeline: PipeLMConfig at GPT-125M widths ({cfg.n_stages} '
+          f'stages x {cfg.blocks_per_stage} blocks), batch '
+          f'{PIPE_LM_BATCH[0]} x {PIPE_LM_BATCH[1]}, M={PIPE_LM_M}; one '
+          f'process holding every stage: losses '
+          f'{[round(v, 6) for v in losses]}, step times '
+          f'{[round(s * 1e3, 2) for s in step_s]} ms (host clock, '
+          f'synchronized), fused launches {one_launches} ({per_step} a '
+          f'step) on the stacks {check.shapes}, '
+          f'{check_line([check.summary()])}', flush=True)
+    del model, precond, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    world = cfg.n_stages
+    backend = default_backend(world) if DEVICE == 'cuda' else 'gloo'
+    ranks = spawn_ranks(torch, pipe_rank, world, backend, (),
+                        PIPE_LM_TIMEOUT_S, 'pipeline', 'plm')
+    mb = PIPE_LM_BATCH[0] // PIPE_LM_M
+    handoff = mb * PIPE_LM_BATCH[1] * cfg.d_model * 4
+    worst = dict(loss=0.0, factor=0.0, grad=0.0)
+    for r, res in enumerate(ranks):
+        s = res['stage']
+        sends = PIPE_LM_STEPS * PIPE_LM_M if s < world - 1 else 0
+        if (res['bad'] or res['launches'] != PIPE_LM_STEPS * per_step
+                or set(res['shapes']) != {(1, *x[1:]) for x in stacks}
+                or res['handoffs'] != [handoff] * sends):
+            fail(f'pipeline rank {r}: kernel vs plain off at '
+                 f'{res["bad"][:4]}, launches {res["launches"]}, shapes '
+                 f'{res["shapes"]}, hand-offs '
+                 f'{sorted(set(res["handoffs"]))} x {len(res["handoffs"])}')
+        for step, loss in enumerate(res['losses']):
+            worst['loss'] = max(worst['loss'],
+                                abs(loss - losses[step]) / abs(losses[step]))
+        for n, (a, g) in res['factors'].items():
+            worst['factor'] = max(worst['factor'],
+                                  rel_frob(a, factors[n][0][s:s + 1]),
+                                  rel_frob(g, factors[n][1][s:s + 1]))
+        for n, g in res['grads'].items():
+            worst['grad'] = max(worst['grad'], rel_frob(g, grads[n]))
+    if not (worst['loss'] <= 1e-5 and worst['factor'] <= 1e-5
+            and worst['grad'] <= 1e-4):
+        fail(f'pipeline world {world}: against one process {worst}')
+    times = [statistics.median(r['step_s'][1:]) for r in ranks]
+    print(f'pipeline world {world} ({backend}, one stage a rank): losses '
+          f'within {worst["loss"]:.3e}, stage factors within '
+          f'{worst["factor"]:.3e}, first-step gradients within '
+          f'{worst["grad"]:.3e} (relative) of one process; launches '
+          f'{[r["launches"] for r in ranks]} ({per_step} a step a rank); '
+          f'hand-offs {handoff} bytes each (mb*T*D*4), '
+          f'{[len(r["handoffs"]) for r in ranks]} a rank; '
+          f'{check_line(ranks)}; median '
+          f'step {[round(t * 1e3, 2) for t in times]} ms by rank (host '
+          'clock; a correctness path on one shared card, not a scaling '
+          'result)', flush=True)
+    return (sum(r['launches'] for r in ranks),
+            max([check.worst] + [r['worst'] for r in ranks]))
+
+
+#: ``(L, gp, ap)`` of the flavours' fused calls: phase 26's five layer
+#: stacks (the expert stacks unaligned: ``ap`` 769 and 3073) and phase
+#: 27's per rank (each shape three times a step, once a block); then the
+#: aligned neighbours of the expert stacks, timed beside them.
+MOE_CASES = [(8, 3072, 769), (8, 768, 3073), (1, 768, 769), (1, 8, 768),
+             (1, 8, 769)]
+PIPE_LM_CASES = [(1, 2304, 769), (1, 768, 769), (1, 3072, 769),
+                 (1, 768, 3073)]
+ALIGNED_NEIGHBOURS = [((8, 3072, 769), (8, 3072, 768)),
+                      ((8, 768, 3073), (8, 768, 3072))]
+
+
+def pad_a_side(torch, g, qa, dgda, to=8):
+    """The operands with ``ap`` zero-padded to a multiple of ``to`` (the
+    kernel's aligned path needs ``gp`` and ``ap`` multiples of 8, and
+    16-byte pointers): zero gradient and ``dgda`` columns, ``qa`` with
+    zero rows and columns.  Exact: the padded columns of ``qgᵀ·g·qa``
+    meet zero ``dgda``, and the padded rows of ``qa`` give ``pg`` zero
+    columns, so ``pg[..., :ap]`` and ``clip`` are the unpadded ones."""
+    import torch.nn.functional as F
+
+    p = -qa.shape[-1] % to
+    return F.pad(g, (0, p)), F.pad(qa, (0, p, 0, p)), F.pad(dgda, (0, p))
+
+
+def aligned_neighbour_times(torch, kernel, plain):
+    """The kernel at the expert stacks' unaligned shapes, at the same
+    operands zero-padded to aligned rows (:func:`pad_a_side`; alone, and
+    with the gradient's pad and the ``pg`` slice a step would add) and at
+    their aligned neighbours, on the same operands' kind (one line
+    each).  Fails if the padded call's ``pg`` or ``clip`` is off the
+    unpadded plain version's by more than ``atol 1e-4, rtol 1e-5``."""
+    import torch.nn.functional as F
+
+    for i, (odd, even) in enumerate(ALIGNED_NEIGHBOURS):
+        row = []
+        for shape in (odd, even):
+            args = make_case(torch, *shape, seed=950 + i)
+            row.append((shape, time_ms(torch, lambda: kernel(*args)),
+                        precond_bound(*shape, 4)[0]))
+            if shape != odd:
+                del args
+                continue
+            g, qa, qg, dgda = args
+            gp_, qa_p, dgda_p = pad_a_side(torch, g, qa, dgda)
+            want_pg, want_clip = plain(*args)
+            pg, clip = kernel(gp_, qa_p, qg, dgda_p)
+            err = float((pg[..., :odd[2]] - want_pg).abs().max())
+            clip_err = float((clip - want_clip).abs().max())
+            if (bool((pg[..., :odd[2]] - want_pg).abs().gt(
+                    1e-4 + 1e-5 * want_pg.abs()).any())
+                    or bool(pg[..., odd[2]:].ne(0).any())
+                    or clip_err > 1e-4 + 1e-5 * float(want_clip.abs().max())):
+                fail(f'kernel padded {odd}: |pg - plain| {err:.3e}, |clip '
+                     f'- plain| {clip_err:.3e}, padded columns nonzero '
+                     f'{bool(pg[..., odd[2]:].ne(0).any())}')
+            padded = tuple(gp_.shape)
+            pad_ms = time_ms(torch, lambda: kernel(gp_, qa_p, qg, dgda_p))
+            step_ms = time_ms(torch, lambda: kernel(
+                F.pad(g, (0, padded[2] - odd[2])), qa_p, qg,
+                dgda_p)[0][..., :odd[2]].contiguous())
+            padded_row = (f'{odd} padded to {padded}: kernel_ms='
+                          f'{pad_ms:.5f}, with the gradient pad and the pg '
+                          f'slice {step_ms:.5f} ms, |pg - plain| {err:.3e}, '
+                          f'|clip - plain| {clip_err:.3e}')
+            del args, g, qa, qg, dgda, gp_, qa_p, dgda_p, pg, clip
+            del want_pg, want_clip
+        print('kernel unaligned vs aligned: ' + '; '.join(
+            f'{s} kernel_ms={ms:.5f} bound_ms={b:.6f} share={b / ms:.3f}'
+            for s, ms, b in row) + f'; {padded_row}', flush=True)
+        torch.cuda.empty_cache()
+
+
 def device_record(torch) -> dict:
     """The last line: ``{"ok": true, "device": {...}}``."""
     return {'ok': True, 'device': {
@@ -6656,6 +7307,7 @@ def main() -> int:
     phase('6 methods', phase_methods, torch, kt)
     phase('7 resume', phase_resume, torch, kt)
     gpt['launches'] = phase('8 gpt', phase_gpt, torch, kt)
+    phase('8 gpt remat', gpt_remat_pass, torch, kt)
     rn50['launches'] = phase('9 resnet50', phase_resnet50, torch, kt)
     vit['launches'] = phase('10 vit', phase_vit, torch, kt)
     bert['launches'] = phase('11 bert', phase_bert, torch, kt)
@@ -6730,6 +7382,21 @@ def main() -> int:
         '4 (HYBRID-OPT) under the runtime, a rank death and the world-2 '
         'restart (phase 25)', 900)
     rt_kernel.update(launches=launches, max_abs_err=err)
+    kernel = kt.ops.fused_eigen_precondition
+    plain = kt.ops.fused_eigen_precondition_reference
+    launches, err = phase('26 moe', phase_moe, torch, kt)
+    moe_kernel = bucket_entry(
+        torch, kernel, plain, 'MoE expert and dense layers (phase 26)',
+        MOE_CASES, 960, what='stacks')
+    moe_kernel.update(launches=launches,
+                      max_abs_err=max(err, moe_kernel['max_abs_err']))
+    launches, err = phase('27 pipeline', phase_pipeline, torch, kt)
+    pipe_kernel = bucket_entry(
+        torch, kernel, plain, 'GPipe stage layers of one rank of four '
+        '(phase 27)', PIPE_LM_CASES, 970, counts=[3] * 4, what='stacks')
+    pipe_kernel.update(launches=launches,
+                       max_abs_err=max(err, pipe_kernel['max_abs_err']))
+    aligned_neighbour_times(torch, kernel, plain)
     phase('bench stages', phase_bench_stages, torch, kt)
     stop_profile_worker()
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
@@ -6741,7 +7408,8 @@ def main() -> int:
                                   rn50_overlap, rn50_pipelined,
                                   rn50_fused, rn50_health,
                                   rn50_consistency, rn50_elastic,
-                                  rn50_watchdog, rn50_observe, rt_kernel]}),
+                                  rn50_watchdog, rn50_observe, rt_kernel,
+                                  moe_kernel, pipe_kernel]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

@@ -37,12 +37,15 @@ cost ledger, the emission sinks and the flight recorder
 (``observe=ObserveConfig(...)``, ``flight=FlightConfig(...)``), and
 ``runtime`` the bounded multi-process init, barriers and rank-death
 detection;
-``testing`` holds their fault injectors and ``tracing`` the event tally.  The models are the CIFAR ResNets, the ImageNet
-ResNets and the GPT; ``examples/`` holds the CIFAR and ImageNet
+``testing`` holds their fault injectors and ``tracing`` the event tally.
+``gpt`` holds the MoE and GPipe flavours (``MoEKFACPreconditioner``,
+``PipelineKFACPreconditioner``).  The models are the CIFAR ResNets, the
+ImageNet ResNets, the GPT, the MoE model and the pipeline LM; ``examples/`` holds the CIFAR and ImageNet
 trainers and ``bench`` the K-FAC/SGD step-time bench.  ``ROADMAP.md``
 lists what is not ported yet.
 """
 from kfac_pytorch_tpu_torch import elastic
+from kfac_pytorch_tpu_torch import gpt
 from kfac_pytorch_tpu_torch import models
 from kfac_pytorch_tpu_torch import observe
 from kfac_pytorch_tpu_torch import ops

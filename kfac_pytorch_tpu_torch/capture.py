@@ -59,6 +59,7 @@ from kfac_pytorch_tpu_torch.layers.helpers import DenseHelper
 from kfac_pytorch_tpu_torch.layers.helpers import EmbedHelper
 from kfac_pytorch_tpu_torch.layers.helpers import LayerHelper
 from kfac_pytorch_tpu_torch.models.layers import DenseGeneral
+from kfac_pytorch_tpu_torch.models.layers import recomputing
 
 #: The JAX package's kinds; ``layernorm`` and ``dense_general`` (the
 #: multi-head attention projections) are the opt-in full-coverage ones.
@@ -431,7 +432,8 @@ class ModelCapture:
         ), None
 
     def _recording(self, module: nn.Module) -> bool:
-        return self.armed and module.training and torch.is_grad_enabled()
+        return (self.armed and module.training and torch.is_grad_enabled()
+                and not recomputing())
 
     def _make_pre_hook(self, store: str, name: str, weight=None):
         """Records ``inputs[0]`` into ``self.<store>[name]``; a tied head

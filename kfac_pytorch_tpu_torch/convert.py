@@ -16,22 +16,29 @@ modules carry the Flax module names:
   ``num_batches_tracked`` set to 0;
 * Embed ``embedding [V, D]`` -> ``weight [V, D]``;
 * a bare parameter (the positional tables ``wpe`` and ``pos_embed``,
-  the ViT's ``cls``) -> itself.
+  the ViT's ``cls``, the MoE experts' ``[E, D, F]`` ``w_in``/``b_in``/
+  ``w_out``/``b_out``) -> itself.
 
 So a JAX ResNet-50's ``params`` and ``batch_stats`` load strictly into
 the port's ``resnet50``, a JAX GPT's into ``gpt_125m``, a ViT's into
-``vit_b16`` and a BERT's into ``bert_large``.  :func:`flax_to_torch_names`
-gives the name map, for comparing reports that name parameters.
+``vit_b16``, a BERT's into ``bert_large`` and a MoE model's into the
+port's of the same layout; :func:`shard_experts` cuts it to a rank's
+experts, and :func:`pipeline_lm_state_dict` turns a JAX ``PipelineLM``'s
+``[S, ...]`` stage stacks into a rank's stage (or every stage).
+:func:`flax_to_torch_names` gives the name map, for comparing reports
+that name parameters.
 
 :func:`jax_kfac_state_dict_to_torch` carries a JAX
 ``KFACPreconditioner.state_dict(...)`` across, so a JAX run resumes in
 the port; an embedding's ``[V]`` diagonal A factor goes across as it
-is.  :func:`jax_generation_to_torch` does the same for a JAX streaming
+is, and the MoE and pipeline flavours' whole ``[E, ...]``/``[S, ...]``
+stacks too (a rank's ``load_state_dict`` takes its experts or its
+stage).  :func:`jax_generation_to_torch` does the same for a JAX streaming
 checkpoint generation (:mod:`kfac_pytorch_tpu_torch.elastic`).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -109,6 +116,54 @@ def flax_to_torch_names(variables: Mapping[str, Any]) -> dict[str, str]:
     """
     return {path: name for path, name, _ in _convert(variables)
             if path is not None}
+
+
+def shard_experts(
+    state_dict: Mapping[str, torch.Tensor], n_experts: int,
+    expert_group_size: int, index: int,
+) -> dict[str, torch.Tensor]:
+    """A full model's state dict with every expert parameter (``w_in``,
+    ``b_in``, ``w_out``, ``b_out`` of ``n_experts`` rows) cut to the
+    rows that rank ``index`` of an expert group of ``expert_group_size``
+    holds."""
+    per = n_experts // expert_group_size
+    names = {'w_in', 'b_in', 'w_out', 'b_out'}
+    return {
+        k: (v[index * per:(index + 1) * per]
+            if k.rsplit('.', 1)[-1] in names and v.shape[0] == n_experts
+            else v)
+        for k, v in state_dict.items()
+    }
+
+
+def _map_leaves(fn, tree: Mapping[str, Any]) -> dict[str, Any]:
+    return {k: _map_leaves(fn, v) if isinstance(v, Mapping) else fn(v)
+            for k, v in tree.items()}
+
+
+def _leaves(tree: Mapping[str, Any]):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, Mapping) else (v,)
+
+
+def pipeline_lm_state_dict(
+    params: Mapping[str, Any], stages: Sequence[int] | None = None,
+) -> dict[str, torch.Tensor]:
+    """A JAX ``PipelineLM``'s params (``{'embed', 'stages', 'head'}``,
+    each stage leaf ``[S, ...]``) as the state dict of the port's
+    :class:`~kfac_pytorch_tpu_torch.models.pipeline.PipelineLM` holding
+    ``stages`` (default every stage): stage ``s``'s blocks from the
+    ``[s]`` slices under ``stages.<s>.``, ``embed`` and ``head`` as they
+    are."""
+    emb, head = params['embed'], params['head']
+    out = {'embed.wte': _t(emb['wte']), 'embed.wpe': _t(emb['wpe']),
+           'head.scale': _t(head['scale']), 'head.bias': _t(head['bias'])}
+    n = np.shape(next(_leaves(params['stages'])))[0]
+    for s in range(n) if stages is None else stages:
+        stage = _map_leaves(lambda a, s=s: np.asarray(a)[s], params['stages'])
+        for _, name, t in _convert({'params': stage}):
+            out[f'stages.{s}.{name}'] = t
+    return out
 
 
 def jax_kfac_state_dict_to_torch(sd: Mapping[str, Any]) -> dict[str, Any]:

@@ -295,6 +295,18 @@ class KFACEngineMixin:
     module ``_train_module`` and switches the capture through
     ``_capture_armed(bool)``, which holds no capture, and
     ``_bn_buffers()`` lists the buffers a training-mode forward moves.
+
+    These are JAX's flavour hooks (``engine.py:14-40``) in torch form:
+    ``_update_factors`` is ``_apply_ema`` over the captured
+    contributions, ``_refresh`` ``_second_order_refresh``,
+    ``_precondition`` ``_precondition_grads``, ``_restore_factors`` and
+    ``_checkpoint_layer_states`` the same, and ``_forward_backward(args,
+    loss_args, loss_fn)`` the fused path's ``_loss_grads_and_captured``/
+    ``_loss_and_grads_plain`` (the bucketed engine runs the module and
+    ``loss.backward()``; the MoE and pipeline flavours of
+    :mod:`kfac_pytorch_tpu_torch.gpt` run their own forward and backward
+    and share this engine's cadence, hyperparameters, accumulation,
+    checkpoints and ``train_loop``).
     """
 
     def _init_engine(
@@ -1053,8 +1065,6 @@ damping`).  The returned loss is the step's (detached), before the
                 'updates in place during the forward, so there is nothing '
                 'to merge',
             )
-        model = self._train_module
-
         def train_step(*args: Any, loss_args: tuple = ()):
             return self._timed(run, args, loss_args)
 
@@ -1070,8 +1080,7 @@ damping`).  The returned loss is the step's (detached), before the
             saved = self._buffer_snapshot() if guarded else None
             with self._scope('capture' if self._step_gating()[0]
                              else 'forward_backward'):
-                loss, aux = _split_loss(loss_fn(model(*args), *loss_args))
-                loss.backward()
+                loss, aux = self._forward_backward(args, loss_args, loss_fn)
             step_index = self._steps
             self._step(loss=loss.detach())
             if not guarded:
@@ -1092,6 +1101,21 @@ damping`).  The returned loss is the step's (detached), before the
             return loss, aux
 
         return train_step
+
+    def _forward_backward(
+        self, args: tuple, loss_args: tuple, loss_fn: Callable[..., Any],
+    ) -> tuple[torch.Tensor, Any]:
+        """The fused step's forward and backward, ``(loss, aux)``: the
+        flavour hook of JAX's ``_loss_grads_and_captured`` and
+        ``_loss_and_grads_plain`` (the capture records only when armed,
+        on factor steps).  The bucketed engine runs ``model(*args)``
+        (through the ``DistributedDataParallel`` wrapper when given one)
+        and ``loss.backward()``; the MoE and pipeline flavours
+        (:mod:`kfac_pytorch_tpu_torch.gpt`) run their own."""
+        loss, aux = _split_loss(
+            loss_fn(self._train_module(*args), *loss_args))
+        loss.backward()
+        return loss, aux
 
     def train_loop(
         self,

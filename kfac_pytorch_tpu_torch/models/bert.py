@@ -14,7 +14,9 @@ no type ids, so the default builds none).
 
 A boolean ``mask [B, T]`` (True where a token is real) puts ``-1e9``
 into the masked keys' attention logits, as an additive f32 mask, and
-into the masked positions' start and end logits.  Compute dtypes follow
+into the masked positions' start and end logits.  ``remat=True``
+checkpoints each block, as Flax's ``nn.remat(EncoderBlock)``.  Compute
+dtypes follow
 :mod:`kfac_pytorch_tpu_torch.models.gpt`.
 """
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch import nn
 from kfac_pytorch_tpu_torch.models.layers import Dense
 from kfac_pytorch_tpu_torch.models.layers import Embed
 from kfac_pytorch_tpu_torch.models.layers import LayerNorm
+from kfac_pytorch_tpu_torch.models.layers import remat_call
 from kfac_pytorch_tpu_torch.models.layers import resolve_device
 from kfac_pytorch_tpu_torch.models.layers import split_heads_attention
 
@@ -53,12 +56,6 @@ class BertConfig:
     remat: bool = False
 
     def __post_init__(self) -> None:
-        if self.remat:
-            raise NotImplementedError(
-                'remat is not ported to the PyTorch package yet (ROADMAP.md '
-                'Queue A item 26): a recomputed forward would run the '
-                'capture hooks twice',
-            )
         if self.d_model % self.n_heads:
             raise ValueError(
                 f'd_model {self.d_model} is not a multiple of n_heads '
@@ -149,7 +146,9 @@ class BertForQA(nn.Module):
                                     device=mask.device)
             attn_mask = attn_mask.masked_fill(~mask, MASKED)[:, None, None]
         for name in self.block_names:
-            x = getattr(self, name)(x, attn_mask)
+            block = getattr(self, name)
+            x = (remat_call(block, x, attn_mask) if cfg.remat
+                 else block(x, attn_mask))
         spans = self.qa_head(x).float()
         start, end = spans[..., 0], spans[..., 1]
         if mask is not None:

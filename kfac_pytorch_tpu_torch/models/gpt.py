@@ -20,6 +20,8 @@ so an f32 model and a bf16 one run the same code:
 * attention takes its softmax in f32 (``scaled_dot_product_attention``
   on f32 operands, ``q`` scaled in its own dtype first);
 * GELU is the tanh approximation (Flax ``nn.gelu``'s default);
+* ``remat=True`` checkpoints each block (:func:`~kfac_pytorch_tpu_torch.\
+models.layers.remat_call`, Flax's ``nn.remat(Block)``);
 * the head casts ``x`` to the parameter dtype and then, as Flax's
   ``Embed.attend`` does, both operands to ``compute_dtype``; the logits
   are returned in f32.
@@ -41,6 +43,7 @@ from kfac_pytorch_tpu_torch.layers.coverage import TiedAttend
 from kfac_pytorch_tpu_torch.models.layers import Dense
 from kfac_pytorch_tpu_torch.models.layers import Embed
 from kfac_pytorch_tpu_torch.models.layers import LayerNorm
+from kfac_pytorch_tpu_torch.models.layers import remat_call
 from kfac_pytorch_tpu_torch.models.layers import resolve_device
 from kfac_pytorch_tpu_torch.models.layers import split_heads_attention
 
@@ -74,12 +77,6 @@ class GPTConfig:
                 "attention_impl='ring' and seq_axis are not ported to the "
                 'PyTorch package yet (ROADMAP.md Queue A item 27: ring '
                 'attention)',
-            )
-        if self.remat:
-            raise NotImplementedError(
-                'remat is not ported to the PyTorch package yet (ROADMAP.md '
-                'Queue A item 26): a recomputed forward would run the '
-                'capture hooks twice',
             )
         if self.d_model % self.n_heads:
             raise ValueError(
@@ -166,7 +163,8 @@ class GPT(nn.Module):
         x = self.wte(tokens) + self.wpe[None, :T].to(cfg.dtype)
         x = self.drop(x)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = remat_call(block, x) if cfg.remat else block(x)
         x = self.ln_f(x)
         logits = self.head(x.to(cfg.param_dtype), self.wte.weight)
         return logits.float()

@@ -15,7 +15,9 @@ projection a module call, with Flax's multi-axis kernels
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any, Sequence
 
 import torch
@@ -38,6 +40,41 @@ def resolve_device(device: Any) -> Any:
             'CPU',
         )
     return 'cuda'
+
+
+_REMAT = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether this thread is inside a rematerialized block's recompute
+    (:func:`remat_call`'s backward), where the K-FAC capture records
+    nothing: the first forward already recorded the block's inputs and
+    put its gradient hooks on the outputs that the backward reaches."""
+    return getattr(_REMAT, 'depth', 0) > 0
+
+
+@contextlib.contextmanager
+def _recompute_scope():
+    _REMAT.depth = getattr(_REMAT, 'depth', 0) + 1
+    try:
+        yield
+    finally:
+        _REMAT.depth -= 1
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recompute_scope()
+
+
+def remat_call(module: nn.Module, *args: Any) -> Any:
+    """``module(*args)`` under activation checkpointing, as Flax's
+    ``nn.remat`` applies it to a block: only the inputs are kept, and the
+    backward runs the forward again (``torch.utils.checkpoint`` without
+    reentrancy), marked by :func:`recomputing` for the capture hooks."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=_remat_contexts)
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -105,13 +142,14 @@ class Dense(nn.Linear):
     ``dtype``): input, weight and bias are cast before the product."""
 
     def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype) -> None:
-        super().__init__(in_features, out_features)
+                 compute_dtype: torch.dtype, bias: bool = True) -> None:
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+        bias = None if self.bias is None else self.bias.to(cd)
+        return F.linear(x.to(cd), self.weight.to(cd), bias)
 
 
 class Conv2d(nn.Conv2d):

@@ -1,7 +1,7 @@
 """Small test models: port of ``kfac_pytorch_tpu/models/tiny.py``.
 
-``TinyModel``, ``MLP`` and ``LeNet`` carry the Flax models' module
-names, so
+``TinyModel``, ``MLP``, ``LeNet`` and ``CoverageLM`` carry the Flax
+models' module names, so
 :func:`kfac_pytorch_tpu_torch.convert.flax_to_torch_state_dict` maps
 their variables one to one.  None has BatchNorm, so a data-parallel
 run normalizes nothing per rank and matches the global-batch run.
@@ -11,6 +11,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from kfac_pytorch_tpu_torch.layers.coverage import TiedAttend
+from kfac_pytorch_tpu_torch.models.layers import Dense
+from kfac_pytorch_tpu_torch.models.layers import DenseGeneral
+from kfac_pytorch_tpu_torch.models.layers import Embed
+from kfac_pytorch_tpu_torch.models.layers import LayerNorm
 
 
 class TinyModel(nn.Module):
@@ -71,3 +77,32 @@ class LeNet(nn.Module):
         x = F.relu(self.fc1(x))
         x = F.relu(self.fc2(x))
         return self.fc3(x)
+
+
+class CoverageLM(nn.Module):
+    """Tiny LM with every full-coverage layer kind at once: a tied
+    embedding (the ``wte`` lookup and a
+    :class:`~kfac_pytorch_tpu_torch.layers.coverage.TiedAttend` head on
+    the sequence mean), LayerNorm pairs, a per-head ``DenseGeneral``
+    ``qk`` (``[d, 2, d/2]``) and a Dense ``fc`` over the sequence axis.
+    ``layer_types=('linear', 'embedding', 'layernorm', 'dense_general')``
+    with ``tied_weights=('wte',)`` covers every parameter.
+    ``forward(tokens [B, T]) -> logits [B, vocab]``."""
+
+    def __init__(self, vocab: int = 32, d: int = 16) -> None:
+        super().__init__()
+        f32 = torch.float32
+        self.vocab, self.d = vocab, d
+        self.wte = Embed(vocab, d, f32)
+        self.ln_in = LayerNorm(d, f32)
+        self.qk = DenseGeneral(d, (2, d // 2), compute_dtype=f32)
+        self.fc = Dense(d, d, f32)
+        self.ln_f = LayerNorm(d, f32)
+        self.head = TiedAttend('wte', dtype=f32)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.ln_in(self.wte(tokens))
+        x = self.qk(x)
+        x = x.reshape(*x.shape[:-2], self.d)
+        x = self.ln_f(F.gelu(self.fc(x), approximate='tanh'))
+        return self.head(x.mean(dim=1), self.wte.weight)

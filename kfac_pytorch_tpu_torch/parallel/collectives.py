@@ -51,6 +51,20 @@ def group_size(group) -> int:
     return dist.get_world_size(group)
 
 
+def group_extent(group) -> int:
+    """Ranks in ``group``, where ``None`` is one rank (an axis of extent
+    1 gets no group), unlike :func:`group_size`'s default group."""
+    return 1 if group is None else group_size(group)
+
+
+def mean_over(tensors: Sequence[torch.Tensor], group) -> list[torch.Tensor]:
+    """:func:`all_reduce_mean` over ``group``, where ``None`` is one rank
+    (:func:`group_extent`): the tensors themselves."""
+    if group_extent(group) == 1:
+        return list(tensors)
+    return all_reduce_mean(tensors, group)
+
+
 def _gathers(group) -> bool:
     return group is not None and group_size(group) > 1
 

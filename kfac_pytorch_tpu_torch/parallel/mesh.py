@@ -138,3 +138,67 @@ def kaisa_grid(grad_worker_fraction: float) -> KaisaGrid:
         rows=rows, cols=cols, rank=rank,
         row_group=row_group, col_group=col_group,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroups:
+    """One rank's place on a two-axis ``[n_outer, n_inner]`` grid of the
+    default process group: rank ``k`` sits at ``outer = k // n_inner``
+    and ``inner = k % n_inner``, the order of JAX's
+    ``Mesh(devices.reshape(n_outer, n_inner), (outer, inner))``.
+
+    Attributes:
+        outer_group: the ranks sharing this rank's ``inner`` index,
+            ordered by ``outer``; ``None`` when ``n_outer == 1``.
+        inner_group: the ranks sharing this rank's ``outer`` index,
+            ordered by ``inner``; ``None`` when ``n_inner == 1``.
+    """
+
+    n_outer: int
+    n_inner: int
+    rank: int = 0
+    outer_group: Any = None
+    inner_group: Any = None
+
+    @property
+    def outer(self) -> int:
+        return self.rank // self.n_inner
+
+    @property
+    def inner(self) -> int:
+        return self.rank % self.n_inner
+
+    def outer_ranks(self) -> list[int]:
+        """The ranks of :attr:`outer_group`, by ``outer``."""
+        return [o * self.n_inner + self.inner for o in range(self.n_outer)]
+
+
+def axis_groups(n_outer: int, n_inner: int) -> AxisGroups:
+    """Build this rank's two axes over the default process group
+    (``n_outer * n_inner`` must be its size).  Every rank creates every
+    outer group and then every inner group, in the same order; an axis of
+    extent 1 gets none.  Without ``torch.distributed`` the grid must be
+    ``1 x 1``."""
+    world = data_world()
+    if n_outer * n_inner != world:
+        raise ValueError(
+            f'a {n_outer} x {n_inner} grid needs {n_outer * n_inner} ranks, '
+            f'the world has {world}',
+        )
+    if world == 1:
+        return AxisGroups(1, 1)
+    rank = dist.get_rank()
+    outer_group = inner_group = None
+    if n_outer > 1:
+        for i in range(n_inner):
+            ranks = [o * n_inner + i for o in range(n_outer)]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                outer_group = g
+    if n_inner > 1:
+        for o in range(n_outer):
+            ranks = [o * n_inner + i for i in range(n_inner)]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                inner_group = g
+    return AxisGroups(n_outer, n_inner, rank, outer_group, inner_group)

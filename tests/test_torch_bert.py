@@ -7,7 +7,7 @@
   ``type_embedding`` flag), ``atol 1e-5``; masked positions hold
   ``-1e9``.
 * The default registration of the 8 Dense layers and ``qa_head``
-  (``tests/test_bert.py``'s count); ``remat=True`` raises.
+  (``tests/test_bert.py``'s count); ``remat=True`` runs.
 * A 3-step full-coverage ``KFACPreconditioner`` trajectory (Dense,
   ``wte`` with its ``[V]`` diagonal A, the 5 LayerNorms) against the
   JAX ``step``, ``type_ids=None`` as ``examples/squad_bert.py`` passes
@@ -117,8 +117,13 @@ def test_registers_all_dense_layers():
 
 
 def test_remat_raises():
-    with pytest.raises(NotImplementedError, match='item 26'):
-        bert_tiny(device='cpu', remat=True)
+    """``remat=True`` used to raise (item 26); it now builds and gives
+    the ``remat=False`` logits bitwise (``tests/test_torch_remat.py``
+    holds the gradients and factors)."""
+    tokens = torch.arange(16).reshape(2, 8)
+    out = [bert_tiny(device='cpu', remat=r)(tokens) for r in (False, True)]
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
 
 
 def test_full_coverage_trajectory_matches_jax():

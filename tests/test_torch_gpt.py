@@ -261,7 +261,7 @@ def test_legacy_dense_embedding_a_loads_through_its_diagonal(init):
 @pytest.mark.parametrize('kw,exc,match', [
     (dict(attention_impl='ring'), NotImplementedError, 'item 27'),
     (dict(seq_axis='model'), NotImplementedError, 'item 27'),
-    (dict(remat=True), NotImplementedError, 'item 26'),
+    (dict(d_model=30, n_heads=4), ValueError, 'multiple of n_heads'),
     (dict(attention_impl='flash'), ValueError, 'attention_impl'),
 ])
 def test_unported_model_options_raise(kw, exc, match):

@@ -50,7 +50,11 @@ def _inputs(L, gp, ap, device, seed=0):
 #: Then ImageNet ResNet-50's 21 bucket stacks, bf16 at two.  Then two
 #: of BERT-large's: ``qa_head`` (``a1152g32``, the two-launch narrow path
 #: at ``ap`` 1152) and ``fc_out`` (``a4224g1024``, at L=2), bf16 at the
-#: first.
+#: first.  Then the MoE flavour's stacks at Switch-Base-8 widths (the
+#: expert stacks ``[8, 3072, 769]`` and ``[8, 768, 3073]``, the dense
+#: layers as stacks of one) and the GPipe flavour's stage layers at
+#: GPT-125M widths, unpadded (``ap`` 769 and 3073: the unaligned load
+#: path), bf16 at two.
 CASES = [
     (9, 64, 576, 'f32'), (1, 64, 320, 'f32'), (9, 32, 320, 'f32'),
     (11, 32, 192, 'f32'), (1, 32, 128, 'f32'), (1, 32, 32, 'f32'),
@@ -68,6 +72,10 @@ CASES = [
     (4, 256, 64, 'f32'), (1, 64, 192, 'f32'), (1, 64, 64, 'f32'),
     (3, 512, 4608, 'bf16'), (4, 256, 64, 'bf16'),
     (1, 32, 1152, 'f32'), (2, 1024, 4224, 'f32'), (1, 32, 1152, 'bf16'),
+    (8, 3072, 769, 'f32'), (8, 768, 3073, 'f32'), (1, 768, 769, 'f32'),
+    (1, 8, 768, 'f32'), (1, 8, 769, 'f32'), (1, 2304, 769, 'f32'),
+    (1, 3072, 769, 'f32'), (1, 768, 3073, 'f32'), (8, 3072, 769, 'bf16'),
+    (1, 768, 3073, 'bf16'),
 ]
 
 
@@ -373,3 +381,58 @@ def test_symmetric_eigh_near_identity_on_card():
     assert float((q.mT @ q - eye).abs().max()) < 1e-3
     d0, q0 = torch.linalg.eigh(m)
     assert torch.equal(d[3], d0[3]) and torch.equal(q[3], q0[3])
+
+
+def test_flavours_on_card():
+    """The MoE and GPipe flavours (one process, tiny widths) on the card
+    against the same run on the CPU: the fused kernel launched once a
+    layer a step, the losses and preconditioned gradients within 1e-4
+    relative (cuSOLVER against LAPACK on identity-seeded factors)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch.gpt import MoEKFACPreconditioner
+    from kfac_pytorch_tpu_torch.gpt import PipelineKFACPreconditioner
+    from kfac_pytorch_tpu_torch.models.moe import MoEConfig
+    from kfac_pytorch_tpu_torch.models.moe import tiny_moe_model
+    from kfac_pytorch_tpu_torch.models.pipeline import PipeLMConfig
+    from kfac_pytorch_tpu_torch.models.pipeline import pipeline_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = dict(factor_update_steps=1, inv_update_steps=1, damping=0.003)
+
+    # Built on the CPU and copied: the card's generator draws other
+    # weights.
+    def moe(device):
+        model = tiny_moe_model(MoEConfig(4, 16, 32), 12,
+                               device='cpu').to(device)
+        x = torch.randn(8, 6, 12, generator=torch.Generator().manual_seed(1))
+        y = torch.arange(8) % 8
+        return model, MoEKFACPreconditioner(
+            model, lambda o, t: F.cross_entropy(o[0], t) + 0.01 * o[1],
+            **hp), (x.to(device),), (y.to(device),)
+
+    def pipe(device):
+        model = pipeline_lm(PipeLMConfig(n_stages=2, max_seq_len=16),
+                            device='cpu').to(device)
+        tok = torch.arange(64).reshape(4, 16) % 256
+        return model, PipelineKFACPreconditioner(
+            model, lambda o, t: F.cross_entropy(o.reshape(-1, 256),
+                                                t.reshape(-1)),
+            n_microbatches=2, **hp), (tok.to(device),), (tok.to(device),)
+
+    for build in (moe, pipe):
+        out = {}
+        for device in ('cpu', 'cuda'):
+            model, precond, args, loss_args = build(device)
+            fused_eigen_precondition.launches = 0
+            loss = precond.step(*args, loss_args=loss_args)
+            out[device] = (float(loss), {n: p.grad.cpu() for n, p in
+                                         model.named_parameters()},
+                           fused_eigen_precondition.launches)
+        assert out['cuda'][2] == len(precond.layers)
+        assert abs(out['cuda'][0] - out['cpu'][0]) <= 1e-5
+        for n, g in out['cpu'][1].items():
+            err = float((out['cuda'][1][n] - g).norm() / g.norm())
+            assert err <= 1e-4, (build.__name__, n, err)
