@@ -309,28 +309,54 @@ fails:
     ``[8, 3072, 769]`` and ``[8, 768, 3073]`` and the dense layers
     against its plain version, 30 launches, the eigen gate on every
     stack at the refresh step 3), then 3 steps over four gloo ranks of
-    one expert group (2 experts a rank): the losses and each rank's
-    expert gradients within 1e-5 of the one-card run;
+    one expert group (2 experts a rank, in phase 28's spawn): the losses
+    and each rank's expert gradients within 1e-5 of the one-card run;
 27. the GPipe flavour (``gpt.PipelineKFACPreconditioner``): a 4-stage
     ``PipelineLM`` of 3 GPT blocks a stage at GPT-125M widths, f32,
     batch 4 x 2048, ``M = 4``, factor 1, inv 3, 5 steps in one process
-    holding every stage, then over four gloo ranks, one stage each:
+    holding every stage, then over four gloo ranks, one stage each (in
+    phase 28's spawn):
     losses within 1e-5, stage factors within 1e-5 and first-step
     gradients within 1e-4 (relative) of the one process, every fused
     call against plain, 12 launches a step in the one process and a
     rank, every hand-off ``mb * T * D * 4`` bytes.  Phases 26 and 27
     print each worst ``pg`` and ``clip`` error beside the largest plain
-    ``|pg|`` and ``|clip|``.
+    ``|pg|`` and ``|clip|``.  Their unaligned stacks (``ap`` 769 and
+    3073) reach the kernel zero-padded to multiples of 8
+    (``gpt/stacked.py``); each line gives one step's calls' time
+    unpadded and as the path makes them (the gradient padded, ``pg``
+    sliced), beside the 28.20 and 20.70 ms the unpadded path took before
+    the padding (H100 80GB HBM3, 700 W);
+28. GPT's sequence- and tensor-parallel paths, in one spawn of four
+    gloo ranks on the card (the same spawn runs phases 26 and 27's
+    ranks first), at GPT-125M's widths (vocab 50304, 12
+    layers, 12 heads, 768/3072), f32, batch 4 x 2048, factor 1, inv 3:
+    (a) the ring GPT over a sequence group of 4 (512 tokens a rank)
+    under ``KFACPreconditioner`` (MEM-OPT: COMM-OPT's gathered
+    decompositions on every rank do not fit four ranks on one card) and
+    DDP, 3 steps; (b)
+    ``gpt.GPTKFACPreconditioner`` on a ``('data', 'model')`` grid of
+    ``2 x 2`` (the dense layers tensor-parallel, DDP over the data
+    group, MEM-OPT), 1 step at the default (no ``dgda``: 0 launches)
+    and 1 with ``compute_eigenvalue_outer_product=True``.  Each is held
+    against one process of the port on the same batch and weights (run
+    here while the ranks do phases 26 and 27's work): the losses and the
+    step-0 factors within 1e-4, the first step's preconditioned
+    gradients within the card's eigen gate ``max(1e-4, 4 n eps)`` of
+    each layer's widest factor (two runs' f32 ``eigh`` of a factor that
+    wide agree only that far), all relative Frobenius; every rank's
+    factors and gradients bitwise its peers'; every fused call against
+    its plain version; one layer's ring attention output within 1e-5 of
+    the single-block path; the rotation and gather bytes and times,
+    step times and launches.
 
 Phase 8 ends with a remat pass: GPT-125M with ``remat=True`` against
 ``remat=False`` (3 steps, SDPA held to its math backend, whose backward
 is deterministic where the memory-efficient kernel's is not): losses,
 factor EMAs and final gradients bitwise, the launches equal, the peak
 memory of both.  The kernel is then held against its plain version at
-the shapes of phases 26 and 27 (their kernels-line entries) and timed at
-the expert stacks' aligned neighbours ``[8, 3072, 768]`` and ``[8, 768,
-3072]`` and on the expert stacks' operands zero-padded to ``ap`` 776 and
-3080 (held against the unpadded plain version).
+the (padded) shapes of phases 26 and 27 and at phase 28's, their
+kernels-line entries.
 
 Then the bench's ``micro_mlp``, ``inverse_root`` and
 ``secondary_rn50_inverse`` stages run once (the K-FAC ones at inv 20,
@@ -2120,12 +2146,13 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
 
 
 def spawn_ranks(torch, target, world, backend, args, timeout_s, label,
-                stem):
+                stem, meanwhile=None):
     """Run ``target(rank, world, backend, DEVICE, workdir, *args)`` in
     ``world`` spawned processes, each writing ``{stem}{rank}.pt`` to a
-    temporary ``workdir``; kill any still alive after ``timeout_s`` and
-    fail naming ``label`` if one hung or exited non-zero; return the
-    ranks' saved reports in rank order."""
+    temporary ``workdir``; ``meanwhile()``, when given, runs here while
+    they do; kill any still alive after ``timeout_s`` (or when
+    ``meanwhile`` fails) and fail naming ``label`` if one hung or
+    exited non-zero; return the ranks' saved reports in rank order."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context('spawn')
@@ -2137,13 +2164,17 @@ def spawn_ranks(torch, target, world, backend, args, timeout_s, label,
         for p in procs:
             p.start()
         deadline = time.time() + timeout_s
-        for p in procs:
-            p.join(max(1.0, deadline - time.time()))
-        hung = [i for i, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
+        try:
+            if meanwhile is not None:
+                meanwhile()
+            for p in procs:
+                p.join(max(1.0, deadline - time.time()))
+        finally:
+            hung = [i for i, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
         if hung:
             fail(f'{label} ranks {hung} did not finish in {timeout_s} s')
         codes = [p.exitcode for p in procs]
@@ -6634,9 +6665,7 @@ MOE_CLASSES = 8
 MOE_HP = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
               kl_clip=0.001, lr=0.1)
 MOE_STEPS = 6
-MOE_WORLD = 4  # one expert group: 2 experts a rank
 MOE_RANK_STEPS = 3
-MOE_TIMEOUT_S = 300
 #: GPT-125M widths as a 4-stage GPipe LM of 3 blocks a stage.
 PIPE_LM = dict(vocab_size=50304, n_stages=4, blocks_per_stage=3,
                n_heads=12, d_model=768, d_ff=3072, max_seq_len=2048)
@@ -6645,7 +6674,6 @@ PIPE_LM_M = 4
 PIPE_LM_HP = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
                   kl_clip=0.001, lr=0.1)
 PIPE_LM_STEPS = 5
-PIPE_LM_TIMEOUT_S = 400
 FLAVOUR_SGD_LR = 0.1
 
 
@@ -6688,6 +6716,17 @@ class KernelCheck:
         if shape not in self.shapes:
             self.shapes.append(shape)
         return pg, clip
+
+    @property
+    def launches(self) -> int:
+        """The real function's count (``ops.fused_precond``'s kernel
+        counts through its module global, which this check replaces while
+        it is installed there)."""
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.real.launches = n
 
     def __enter__(self):
         self.ops.fused_eigen_precondition = self
@@ -6852,21 +6891,13 @@ def expert_grads(model):
             for n in ('w_in', 'b_in', 'w_out', 'b_out')}
 
 
-def moe_rank(rank, world, backend, device_type, workdir):
-    """One rank of phase 26's expert group (``X = world``); writes
-    ``moe{rank}.pt``: losses, expert gradients and launches of
+def moe_rank(torch, kt, dev, world):
+    """One rank of phase 26's expert group (``X = world``), run in phase
+    28's spawn: losses, expert gradients and launches of
     ``MOE_RANK_STEPS`` steps, the kernel check."""
-    import torch
-    import torch.distributed as dist
-
-    import kfac_pytorch_tpu_torch as kt
     from kfac_pytorch_tpu_torch.gpt import MoEKFACPreconditioner
     from kfac_pytorch_tpu_torch.parallel.mesh import axis_groups
 
-    dev = rt_device(torch, device_type, rank, backend)
-    dist.init_process_group(
-        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=300))
     grid = axis_groups(1, world)
     model = moe_model(torch, kt, dev, expert_group=grid.inner_group)
     precond = MoEKFACPreconditioner(model, moe_xent, **MOE_HP)
@@ -6883,8 +6914,7 @@ def moe_rank(rank, world, backend, device_type, workdir):
     sync_device(torch, dev)
     out.update(launches=kt.ops.fused_eigen_precondition.launches,
                **check.summary())
-    torch.save(out, os.path.join(workdir, f'moe{rank}.pt'))
-    dist.destroy_process_group()
+    return out
 
 
 def phase_moe(torch, kt):
@@ -6897,14 +6927,12 @@ def phase_moe(torch, kt):
     a finite falling loss; every fused call (the expert stacks
     ``[8, 3072, 769]`` and ``[8, 768, 3073]``, the dense layers as
     stacks of one) against its plain version; launches = steps x 5; the
-    eigen gate on every stack at the refresh step 3.  Then four ranks
-    over gloo on the card (one expert group, 2 experts a rank,
-    ``MOE_RANK_STEPS`` steps from the same weights): each step's loss
-    within 1e-5 of the one-card run's and each rank's expert gradients
-    within 1e-5 (relative Frobenius) of the one-card slice.  Returns
-    ``(one-card launches, worst kernel error)``."""
+    eigen gate on every stack at the refresh step 3.  Its four ranks
+    (one expert group, 2 experts a rank, ``MOE_RANK_STEPS`` steps from
+    the same weights) run in phase 28's spawn (:func:`moe_rank`,
+    :func:`moe_world_check`).  Returns the one-card run's launches,
+    worst kernel error, losses, expert gradients and layer count."""
     from kfac_pytorch_tpu_torch.gpt import MoEKFACPreconditioner
-    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
 
     dev = torch.device(DEVICE)
     model = moe_model(torch, kt, dev)
@@ -6930,7 +6958,8 @@ def phase_moe(torch, kt):
     n_layers = len(precond.layers)
     want = MOE_STEPS * n_layers if DEVICE == 'cuda' else 0
     E, D, Fd = (MOE_CFG[k] for k in ('n_experts', 'd_model', 'd_ff'))
-    stacks = {(E, Fd, D + 1), (E, D, Fd + 1)}
+    stacks = {aligned((E, Fd, D + 1)), aligned((E, D, Fd + 1))}
+    before, after = padding_times(torch, kt, MOE_CASES, None, 980)
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         fail(f'moe: losses {losses}')
     if check.bad or launches != want or not stacks <= set(check.shapes):
@@ -6940,7 +6969,10 @@ def phase_moe(torch, kt):
           f'layers ({sorted(precond.layers)}), features {MOE_FEATURES}; '
           f'losses {[round(v, 6) for v in losses]}; fused launches '
           f'{launches} ({MOE_STEPS} steps x {n_layers}), shapes '
-          f'{check.shapes}, {check_line([check.summary()])}; eigen '
+          f'{check.shapes} (the unaligned ones zero-padded to multiples '
+          f'of 8), {check_line([check.summary()])}; one step\'s five '
+          f'calls {before:.5f} ms unpadded, {after:.5f} ms padded as the '
+          f'path calls them (before the padding, unpadded: 28.20 ms); eigen '
           f'residual at step {MOE_HP["inv_update_steps"]} at most '
           f'{gate_share:.3f} of the gate; step times '
           f'{[round(s * 1e3, 2) for s in step_s]} ms (host clock, '
@@ -6949,10 +6981,16 @@ def phase_moe(torch, kt):
     del model, precond, opt
     gc.collect()
     torch.cuda.empty_cache()
+    return dict(launches=launches, worst=check.worst, losses=losses,
+                ref=ref, n_layers=n_layers)
 
-    backend = default_backend(MOE_WORLD) if DEVICE == 'cuda' else 'gloo'
-    ranks = spawn_ranks(torch, moe_rank, MOE_WORLD, backend, (),
-                        MOE_TIMEOUT_S, 'moe', 'moe')
+
+def moe_world_check(one, ranks, backend):
+    """Phase 26's four ranks (run in phase 28's spawn) against the
+    one-card run ``one``: each step's loss and each rank's expert
+    gradients within 1e-5; launches = steps x layers.  Returns the worst
+    kernel error."""
+    losses, ref, n_layers = one['losses'], one['ref'], one['n_layers']
     worst_loss = worst_grad = 0.0
     for r, res in enumerate(ranks):
         if res['bad'] or res['launches'] != MOE_RANK_STEPS * n_layers * (
@@ -6967,15 +7005,15 @@ def phase_moe(torch, kt):
             for n, g in res['grads'][step].items():
                 worst_grad = max(worst_grad, rel_frob(g, ref[step][n][rows]))
     if not (worst_loss <= 1e-5 and worst_grad <= 1e-5):
-        fail(f'moe world {MOE_WORLD}: loss {worst_loss:.3e} and expert '
+        fail(f'moe world {len(ranks)}: loss {worst_loss:.3e} and expert '
              f'gradients {worst_grad:.3e} relative from the one-card run')
-    print(f'moe world {MOE_WORLD} ({backend}, one expert group, '
+    print(f'moe world {len(ranks)} ({backend}, one expert group, '
           f'{ranks[0]["local"]} experts a rank, {MOE_RANK_STEPS} steps): '
           f'losses within {worst_loss:.3e} and expert gradients within '
           f'{worst_grad:.3e} (relative) of the one-card run; launches '
           f'{[r["launches"] for r in ranks]}, {check_line(ranks)}, shapes '
           f'{ranks[0]["shapes"]}', flush=True)
-    return launches, max([check.worst] + [r['worst'] for r in ranks])
+    return max(r['worst'] for r in ranks)
 
 
 def pipe_lm_batch(torch, dev):
@@ -7008,21 +7046,15 @@ def stage_snapshot(model, precond, stages):
     return factors, grads
 
 
-def pipe_rank(rank, world, backend, device_type, workdir):
-    """One rank of phase 27 (stage ``rank``); writes ``plm{rank}.pt``."""
-    import torch
-    import torch.distributed as dist
-
-    import kfac_pytorch_tpu_torch as kt
+def pipe_rank(torch, kt, dev, world):
+    """One rank of phase 27 (the stage of its rank), run in phase 28's
+    spawn: losses, step times, the stage's first-step factors and
+    gradients, launches, hand-offs and the kernel check."""
     from kfac_pytorch_tpu_torch.gpt import PipelineKFACPreconditioner
     from kfac_pytorch_tpu_torch.models.pipeline import PipeLMConfig
     from kfac_pytorch_tpu_torch.models.pipeline import pipeline_lm
     from kfac_pytorch_tpu_torch.parallel.mesh import axis_groups
 
-    dev = rt_device(torch, device_type, rank, backend)
-    dist.init_process_group(
-        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
-        world_size=world, timeout=datetime.timedelta(seconds=300))
     grid = axis_groups(world, 1)
     model = pipeline_lm(PipeLMConfig(**PIPE_LM), grid=grid, device=dev,
                         seed=0)
@@ -7046,8 +7078,7 @@ def pipe_rank(rank, world, backend, device_type, workdir):
             opt.step()
     out.update(launches=kt.ops.fused_eigen_precondition.launches,
                handoffs=precond.links.handoff_bytes, **check.summary())
-    torch.save(out, os.path.join(workdir, f'plm{rank}.pt'))
-    dist.destroy_process_group()
+    return out
 
 
 def phase_pipeline(torch, kt):
@@ -7057,21 +7088,21 @@ def phase_pipeline(torch, kt):
     batch 4 x 2048, ``M = 4``, factor 1, inv 3, ``PIPE_LM_STEPS`` steps
     with SGD.  First one process holding every stage
     (``apply_sequential``, the stacks ``[4, ...]``); then four ranks over
-    gloo on the card, one stage each, from the same weights.  Gates:
+    gloo on the card, one stage each, from the same weights (in phase
+    28's spawn: :func:`pipe_rank`, :func:`pipeline_world_check`).  Gates:
     each step's loss within 1e-5 (relative) of the one-process run's;
     each rank's stage factors after step 0 within 1e-5 and its
     first-step preconditioned gradients within 1e-4 (relative
     Frobenius); every fused call against its plain version (the stage
     layers ``[4 | 1, 2304|768|3072, 769]`` and ``[4 | 1, 768, 3073]``,
-    each of these shapes seen and no other); launches = steps x 12 in
-    the one process (counted from 0 just before its loop) and a rank;
-    every activation handed off ``mb * T * D * 4`` bytes, ``M`` a step
-    from each stage but the last.  Returns
-    ``(launches over the ranks, worst kernel error)``."""
+    zero-padded to ``ap`` 776 and 3080, each of these shapes seen and no
+    other); launches = steps x 12 in the one process (counted from 0
+    just before its loop) and a rank; every activation handed off ``mb *
+    T * D * 4`` bytes, ``M`` a step from each stage but the last.
+    Returns what :func:`pipeline_world_check` holds the ranks to."""
     from kfac_pytorch_tpu_torch.gpt import PipelineKFACPreconditioner
     from kfac_pytorch_tpu_torch.models.pipeline import PipeLMConfig
     from kfac_pytorch_tpu_torch.models.pipeline import pipeline_lm
-    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
 
     dev = torch.device(DEVICE)
     cfg = PipeLMConfig(**PIPE_LM)
@@ -7083,8 +7114,9 @@ def phase_pipeline(torch, kt):
     losses, step_s = [], []
     per_step = 4 * cfg.blocks_per_stage * (DEVICE == 'cuda')
     S, D, Fd = cfg.n_stages, cfg.d_model, cfg.d_ff
-    stacks = {(S, 3 * D, D + 1), (S, D, D + 1), (S, Fd, D + 1),
-              (S, D, Fd + 1)}
+    stacks = {aligned(x) for x in ((S, 3 * D, D + 1), (S, D, D + 1),
+                                   (S, Fd, D + 1), (S, D, Fd + 1))}
+    before, after = padding_times(torch, kt, PIPE_LM_CASES, [3] * 4, 990)
     kt.ops.fused_eigen_precondition.launches = 0
     with KernelCheck(kt.ops) as check:
         for step in range(PIPE_LM_STEPS):
@@ -7113,16 +7145,26 @@ def phase_pipeline(torch, kt):
           f'{[round(v, 6) for v in losses]}, step times '
           f'{[round(s * 1e3, 2) for s in step_s]} ms (host clock, '
           f'synchronized), fused launches {one_launches} ({per_step} a '
-          f'step) on the stacks {check.shapes}, '
-          f'{check_line([check.summary()])}', flush=True)
+          f'step) on the stacks {check.shapes} (zero-padded to multiples '
+          f'of 8), {check_line([check.summary()])}; one rank\'s twelve '
+          f'calls a step {before:.5f} ms unpadded, {after:.5f} ms padded '
+          f'as the path calls them (before the padding, unpadded: 20.70 '
+          'ms)',
+          flush=True)
     del model, precond, opt
     gc.collect()
     torch.cuda.empty_cache()
+    return dict(losses=losses, factors=factors, grads=grads, stacks=stacks,
+                per_step=per_step, worst=check.worst, cfg=cfg)
 
+
+def pipeline_world_check(one, ranks, backend):
+    """Phase 27's four ranks (one stage each, run in phase 28's spawn)
+    against the one-process run ``one`` (:func:`phase_pipeline`'s
+    gates).  Returns ``(launches over the ranks, worst kernel error)``."""
+    losses, factors, grads = one['losses'], one['factors'], one['grads']
+    stacks, per_step, cfg = one['stacks'], one['per_step'], one['cfg']
     world = cfg.n_stages
-    backend = default_backend(world) if DEVICE == 'cuda' else 'gloo'
-    ranks = spawn_ranks(torch, pipe_rank, world, backend, (),
-                        PIPE_LM_TIMEOUT_S, 'pipeline', 'plm')
     mb = PIPE_LM_BATCH[0] // PIPE_LM_M
     handoff = mb * PIPE_LM_BATCH[1] * cfg.d_model * 4
     worst = dict(loss=0.0, factor=0.0, grad=0.0)
@@ -7161,80 +7203,488 @@ def phase_pipeline(torch, kt):
           'clock; a correctness path on one shared card, not a scaling '
           'result)', flush=True)
     return (sum(r['launches'] for r in ranks),
-            max([check.worst] + [r['worst'] for r in ranks]))
+            max(r['worst'] for r in ranks))
 
 
-#: ``(L, gp, ap)`` of the flavours' fused calls: phase 26's five layer
-#: stacks (the expert stacks unaligned: ``ap`` 769 and 3073) and phase
-#: 27's per rank (each shape three times a step, once a block); then the
-#: aligned neighbours of the expert stacks, timed beside them.
+def aligned(shape):
+    """``(L, gp, ap)`` with ``gp`` and ``ap`` rounded up to multiples of
+    8: the stack the flavours hand the kernel (``gpt/stacked.py``)."""
+    L, gp, ap = shape
+    return (L, gp + -gp % 8, ap + -ap % 8)
+
+
+def padding_times(torch, kt, cases, counts, seed):
+    """One step's flavour calls at ``cases`` (``counts`` calls each,
+    default one): ``(ms unpadded, ms as the path makes them)``, the
+    latter through ``StackedKFAC._fused`` itself (the gradient padded
+    and ``pg`` sliced each call; ``qa``, ``qg`` and ``dgda`` padded once,
+    as once a refresh).  Fails if the path's ``pg`` or ``clip`` is off
+    the unpadded plain version's by more than ``atol 1e-4, rtol
+    1e-5``.  Zeros on the CPU."""
+    import types
+
+    from kfac_pytorch_tpu_torch.gpt.stacked import StackedKFAC
+    from kfac_pytorch_tpu_torch.gpt.stacked import StackState
+
+    if DEVICE != 'cuda':
+        return 0.0, 0.0
+    kernel = kt.ops.fused_eigen_precondition
+    plain = kt.ops.fused_eigen_precondition_reference
+    counts = counts or [1] * len(cases)
+    before = after = 0.0
+    for i, (shape, n) in enumerate(zip(cases, counts)):
+        g, qa, qg, dgda = make_case(torch, *shape, seed=seed + i)
+        holder = types.SimpleNamespace(_padded={})
+        st = StackState(a_factor=None, g_factor=None, qa=qa, qg=qg,
+                        dgda=dgda)
+
+        def path():
+            return StackedKFAC._fused(holder, 'case', st, g)
+        pg, clip = path()
+        want_pg, want_clip = plain(g, qa, qg, dgda)
+        if (bool((pg - want_pg).abs().gt(1e-4 + 1e-5 * want_pg.abs()).any())
+                or bool((clip - want_clip).abs().gt(
+                    1e-4 + 1e-5 * want_clip.abs()).any())):
+            fail(f'padded path {shape}: |pg - plain| '
+                 f'{float((pg - want_pg).abs().max()):.3e}')
+        before += n * time_ms(torch, lambda: kernel(g, qa, qg, dgda))
+        after += n * time_ms(torch, path)
+        del g, qa, qg, dgda, pg, clip, want_pg, want_clip, holder, st
+        torch.cuda.empty_cache()
+    return before, after
+
+
+#: Phase 28: GPT-125M's widths, f32; the batch is phase 8's.
+SEQ_HP = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
+              kl_clip=0.001, lr=0.1)
+SEQ_WORLD = 4
+#: Steps of (a) and of each pass of (b), cut for the card run's time
+#: (spawned ranks on one card run gloo through host memory, 5-16 s a
+#: step): the step-0 refresh and, for the ring, two steps on its
+#: decompositions; each TP pass one step.
+SEQ_STEPS = 3
+TP_STEPS = 1
+SEQ_TIMEOUT_S = 600
+SEQ_TOL = 1e-4
+SEQ_ATTN_TOL = 1e-5
+
+
+def seq_model(torch, kt, dev, **kw):
+    """GPT-125M (phase 8's ``GPT_MODEL``) in f32 compute from seed 0."""
+    return getattr(kt.models, GPT_MODEL)(device=dev, seed=0,
+                                         dtype=torch.float32, **kw)
+
+
+def seq_batch(torch, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(28)
+    vocab = 256 if GPT_MODEL == 'gpt_tiny' else 50304
+    return torch.randint(0, vocab, GPT_BATCH, generator=gen, device=dev)
+
+
+def layer_digest(torch, tensors):
+    """``[n, 2]`` f64 sums and sums of squares: equal digests across
+    ranks say their tensors agree (bitwise, in practice)."""
+    return torch.stack([torch.stack([t.double().sum(),
+                                     t.double().square().sum()])
+                        for t in tensors]).cpu()
+
+
+def seq_grad_gate(precond, name: str) -> float:
+    """The card's cuSOLVER gate for a parameter's preconditioned
+    gradient: ``eigen_gate`` of its layer's widest factor (two separate
+    runs' f32 ``eigh`` of a factor that wide agree only to about ``4 n
+    eps``), ``SEQ_TOL`` for a parameter outside every registered layer
+    (its raw gradient)."""
+    st = precond.layers.get(name.rsplit('.', 1)[0])
+    if st is None:
+        return SEQ_TOL
+    return max(SEQ_TOL, eigen_gate(max(st.a_factor.shape[0],
+                                       st.g_factor.shape[0])))
+
+
+def seq_errors(torch, precond, params, ref, shard=None):
+    """The worst relative Frobenius errors of this rank's factors and
+    gradients against the one-process reference (its gradients sharded
+    as ``shard(full) -> this rank's state dict`` when given); the
+    gradients' as ``(share of the gate, error, name)``."""
+    worst_f, worst_g = (0.0, None), (0.0, 0.0, None)
+    for name, st in precond.layers.items():
+        a, g = ref['factors'][name]
+        worst_f = max(worst_f,
+                      (rel_frob(st.a_factor, a.to(st.a_factor)), name + ' A'),
+                      (rel_frob(st.g_factor, g.to(st.g_factor)), name + ' G'))
+    want = ref['grads'] if shard is None else shard(ref['grads'])
+    for name, p in params:
+        err = rel_frob(p.grad, want[name].to(p.grad))
+        worst_g = max(worst_g,
+                      (err / seq_grad_gate(precond, name), err, name))
+    return worst_f, worst_g
+
+
+def seq_train(torch, kt, dev, ddp, model, precond, batch, loss_fn, steps,
+              ref, shard=None):
+    """``steps`` K-FAC steps with SGD, the fused calls checked against
+    plain; per step the loss and the synchronized step time, the first
+    step's errors against ``ref`` (``None`` on ranks that only digest)
+    and the digests of its factors and gradients; the launches."""
+    opt = torch.optim.SGD(model.parameters(), lr=SEQ_HP['lr'])
+    out = dict(losses=[], step_s=[])
+    fused = kt.ops.fused_eigen_precondition
+    sync_device(torch, dev)
+    fused.launches = 0
+    with KernelCheck(kt.ops.fused_precond) as check:
+        for step in range(steps):
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = loss_fn(ddp(batch[0]), batch[1])
+            loss.backward()
+            if step == 0 and ref is not None:
+                want = (ref['raw'] if shard is None
+                        else shard(ref['raw']))
+                out['raw_err'] = max(
+                    (rel_frob(p.grad, want[n].to(p.grad)), n)
+                    for n, p in model.named_parameters())
+            precond.step()
+            sync_device(torch, dev)
+            out['step_s'].append(time.perf_counter() - t0)
+            out['losses'].append(float(loss.detach()))
+            if step == 0:
+                params = list(model.named_parameters())
+                out['digest'] = layer_digest(
+                    torch, [t for st in precond.layers.values()
+                            for t in (st.a_factor, st.g_factor)]
+                    + [p.grad for _, p in params])
+                if ref is not None:
+                    out['factor_err'], out['grad_err'] = seq_errors(
+                        torch, precond, params, ref, shard)
+            opt.step()
+    sync_device(torch, dev)
+    out.update(launches=fused.launches, **check.summary())
+    return out
+
+
+def seq_ring_check(torch, dev, links):
+    """One layer's ring attention (``[4, 2048, 12, 64]``, causal, f32)
+    on this rank's quarter against the single-block path on the whole
+    sequence (on rank 0, after an all-gather of the quarters); the time
+    of one rotation of the ``[2, 4, 512, 12, 64]`` K/V block."""
+    import torch.distributed as dist
+
+    from kfac_pytorch_tpu_torch.parallel import ring_attention as ra
+
+    B, T = GPT_BATCH
+    H, D = (2, 16) if GPT_MODEL == 'gpt_tiny' else (12, 64)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(280)
+    q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev)
+               for _ in range(3))
+    t = T // links.n
+    cols = slice(links.index * t, (links.index + 1) * t)
+    with torch.no_grad():
+        out = ra.ring_self_attention(q[:, cols], k[:, cols], v[:, cols],
+                                     causal=True, links=links)
+        parts = [torch.empty_like(out) for _ in range(links.n)]
+        dist.all_gather(parts, out.contiguous(), group=links.group)
+        err = None
+        if links.index == 0:
+            full = ra.ring_self_attention(q, k, v, causal=True)
+            err = float((torch.cat(parts, 1) - full).abs().max())
+            del full
+        kv = torch.stack([k[:, cols], v[:, cols]])
+        sync_device(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            links.shift(kv, toward_lower=True)
+        sync_device(torch, dev)
+    return (err, (time.perf_counter() - t0) / 5 * 1e3,
+            kv.numel() * kv.element_size(), (B, T, H, D))
+
+
+def world_rank(rank, world, backend, device_type, workdir, ref_path):
+    """One rank of phase 28's spawn: phase 26's expert group
+    (:func:`moe_rank`) and phase 27's stage (:func:`pipe_rank`), then (a)
+    the ring GPT over a sequence group of ``world`` and (b)
+    ``GPTKFACPreconditioner`` on a ``2 x 2`` (data, model) grid, default
+    then prediv; ranks 0 and 1 hold their first step against the
+    one-process reference at ``ref_path``; writes ``seq{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch.gpt import GPTKFACPreconditioner
+    from kfac_pytorch_tpu_torch.models.gpt import shard_state_dict
+    from kfac_pytorch_tpu_torch.parallel import tensor as tp_lib
+    from kfac_pytorch_tpu_torch.parallel.mesh import axis_groups
+    from kfac_pytorch_tpu_torch.parallel.ring_attention import \
+        sequence_links
+
+    # Four ranks' activations and K-FAC state share one card: segments
+    # that grow in place keep the freed attention blocks reusable.
+    os.environ['PYTORCH_CUDA_ALLOC_CONF'] = 'expandable_segments:True'
+    dev = rt_device(torch, device_type, rank, backend)
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=400))
+    DDP = torch.nn.parallel.DistributedDataParallel
+    res = {}
+    for name, body in (('moe', moe_rank), ('pipe', pipe_rank)):
+        res[name] = body(torch, kt, dev, world)
+        gc.collect()
+        torch.cuda.empty_cache()
+    tokens = seq_batch(torch, dev)
+    B, T = tokens.shape
+    # The parent writes the one-process reference while phases 26 and
+    # 27's ranks run, and renames it into place once its memory is free.
+    deadline = time.time() + SEQ_TIMEOUT_S
+    while not os.path.exists(ref_path):
+        if time.time() > deadline:
+            raise TimeoutError(f'no reference at {ref_path}')
+        time.sleep(0.2)
+    ref = torch.load(ref_path, map_location='cpu') if rank < 2 else None
+
+    # (a) The ring over a sequence group of ``world``.
+    grid = axis_groups(1, world, names=('data', 'seq'))
+    links = sequence_links(grid, 'seq')
+    model = seq_model(torch, kt, dev, attention_impl='ring', seq_axis='seq',
+                      seq_links=links)
+    ddp = DDP(model)
+    precond = kt.KFACPreconditioner(
+        ddp, grad_worker_fraction=kt.DistributedStrategy.MEM_OPT, **SEQ_HP)
+    t = T // world
+    cols = slice(rank * t, (rank + 1) * t)
+    targets = torch.cat([tokens[:, 1:],
+                         torch.full((B, 1), -100, device=dev)], 1)
+    count = B * (T - 1)
+
+    def ring_loss(logits, y):
+        return world * F.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), y.reshape(-1),
+            ignore_index=-100, reduction='sum') / count
+
+    res['ring'] = seq_train(
+        torch, kt, dev, ddp, model, precond,
+        (tokens[:, cols], targets[:, cols]), ring_loss, SEQ_STEPS,
+        ref if rank == 0 else None)
+    res['ring'].update(rotations=links.rotations,
+                       rotated_bytes=links.sent_bytes,
+                       buckets=kernel_buckets(precond))
+    res['n_layers'] = model.config.n_layers
+    del model, ddp, precond
+    gc.collect()
+    torch.cuda.empty_cache()
+    (res['attn_err'], res['rotation_ms'], res['rotation_bytes'],
+     res['attn_shape']) = seq_ring_check(torch, dev, links)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) GPTKFACPreconditioner on a (data, model) grid of 2 x 2.
+    mesh = axis_groups(2, 2, names=('data', 'model'))
+    rows = slice(mesh.outer * B // 2, (mesh.outer + 1) * B // 2)
+
+    def lm_loss(logits, y):
+        return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               y[:, 1:].reshape(-1))
+
+    for label, prediv in (('tp default', False), ('tp prediv', True)):
+        model = seq_model(torch, kt, dev, tp_group=mesh.group('model'))
+        ddp = DDP(model, process_group=mesh.group('data'))
+        precond = GPTKFACPreconditioner(
+            ddp, mesh=mesh, compute_eigenvalue_outer_product=prediv,
+            **SEQ_HP)
+        tp_lib.reset_gather_stats()
+        res[label] = seq_train(
+            torch, kt, dev, ddp, model, precond,
+            (tokens[rows], tokens[rows]), lm_loss, TP_STEPS,
+            ref if rank < 2 else None,
+            lambda full: shard_state_dict(full, mesh.inner, 2))
+        res[label].update(
+            gathers={k: list(v) for k, v in tp_lib.GATHER_STATS.items()},
+            grid=(precond.grid.rows, precond.grid.cols))
+        del model, ddp, precond
+        gc.collect()
+        torch.cuda.empty_cache()
+    x = torch.randn(B // 2, T, 3 * 768 // 2, device=dev)
+    sync_device(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tp_lib.gather_features(x, mesh.group('model'), parts=3)
+    sync_device(torch, dev)
+    res['gather_ms'] = (time.perf_counter() - t0) / 5 * 1e3
+    res['gather_bytes'] = 2 * x.numel() * x.element_size()
+    torch.save(res, os.path.join(workdir, f'seq{rank}.pt'))
+    dist.destroy_process_group()
+
+
+def seq_reference(torch, kt, path, out):
+    """The one-process run both paths are held to: the dense GPT-125M
+    (f32, SDPA) under ``KFACPreconditioner`` on the whole batch, SGD;
+    saves the factors and the raw and preconditioned gradients after
+    step 0 to ``path`` (written aside and renamed into place, once the
+    card memory is freed), and puts the losses and step times in
+    ``out``."""
+    import torch.nn.functional as F
+
+    dev = torch.device(DEVICE)
+    model = seq_model(torch, kt, dev)
+    precond = kt.KFACPreconditioner(model, **SEQ_HP)
+    opt = torch.optim.SGD(model.parameters(), lr=SEQ_HP['lr'])
+    tokens = seq_batch(torch, dev)
+    ref, losses, step_s = {}, [], []
+    for step in range(SEQ_STEPS):
+        sync_device(torch, dev)
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        logits = model(tokens)
+        loss = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               tokens[:, 1:].reshape(-1))
+        del logits
+        loss.backward()
+        if step == 0:
+            ref['raw'] = {n: p.grad.cpu()
+                          for n, p in model.named_parameters()}
+        precond.step()
+        sync_device(torch, dev)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        if step == 0:
+            ref['factors'] = {n: (st.a_factor.cpu(), st.g_factor.cpu())
+                              for n, st in precond.layers.items()}
+            ref['grads'] = {n: p.grad.cpu()
+                            for n, p in model.named_parameters()}
+        opt.step()
+    del model, precond, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(ref, path + '.part')
+    os.replace(path + '.part', path)
+    out.update(losses=losses, step_s=step_s)
+
+
+def phase_seq_tp(torch, kt, moe, pipe):
+    """Phase 28 (budget 150 s; module docstring) and the four-rank parts
+    of phases 26 and 27 in the same spawn, held to the one-card runs
+    ``moe`` and ``pipe`` (:func:`moe_world_check`,
+    :func:`pipeline_world_check`).  Returns the kernels-line entries'
+    inputs: the MoE ranks' worst kernel error, the GPipe ranks' launches
+    and worst error, and the ring's and the TP prediv pass's launches,
+    shapes and worst error."""
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    workdir = tempfile.mkdtemp(prefix='seq_ref_')
+    try:
+        path = os.path.join(workdir, 'ref.pt')
+        one = {}
+        backend = (default_backend(SEQ_WORLD) if DEVICE == 'cuda'
+                   else 'gloo')
+        ranks = spawn_ranks(
+            torch, world_rank, SEQ_WORLD, backend, (path,), SEQ_TIMEOUT_S,
+            'seq/tp', 'seq',
+            meanwhile=lambda: seq_reference(torch, kt, path, one))
+        losses, ref_s = one['losses'], one['step_s']
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    moe_worst = moe_world_check(moe, [r['moe'] for r in ranks], backend)
+    pipe_launches, pipe_worst = pipeline_world_check(
+        pipe, [r['pipe'] for r in ranks], backend)
+    cuda = DEVICE == 'cuda'
+    print(f'seq/tp reference: {GPT_MODEL} f32, batch {GPT_BATCH[0]} x '
+          f'{GPT_BATCH[1]}, one process, KFACPreconditioner: losses '
+          f'{[round(v, 6) for v in losses]}, step times '
+          f'{[round(s * 1e3, 2) for s in ref_s]} ms', flush=True)
+    worst = 0.0
+    for label, steps in (('ring', SEQ_STEPS), ('tp default', TP_STEPS),
+                         ('tp prediv', TP_STEPS)):
+        runs = [r[label] for r in ranks]
+        for r, run in enumerate(runs):
+            if not torch.equal(run['digest'], runs[0]['digest'] if label ==
+                               'ring' else runs[r % 2]['digest']):
+                fail(f'{label} rank {r}: factors or gradients differ from '
+                     'its peers\'')
+            if run['bad']:
+                fail(f'{label} rank {r}: kernel vs plain off at '
+                     f'{run["bad"][:4]}')
+        if label == 'ring':
+            got = [sum(r['losses'][i] for r in runs) / SEQ_WORLD
+                   for i in range(steps)]
+            want_launches = steps * runs[0]['buckets'] * cuda
+            launches_ok = all(r['launches'] == want_launches for r in runs)
+        else:
+            got = [(runs[0]['losses'][i] + runs[2]['losses'][i]) / 2
+                   for i in range(steps)]
+            launches_ok = all((r['launches'] > 0) == (cuda and label ==
+                                                       'tp prediv')
+                              for r in runs)
+        loss_err = max(abs(g - w) / abs(w) for g, w in zip(got, losses))
+        checked = [r for r in runs if 'factor_err' in r]
+        f_err, f_at = max(r['factor_err'] for r in checked)
+        g_share, g_err, g_at = max(r['grad_err'] for r in checked)
+        worst = max([worst] + [r['worst'] for r in runs])
+        if not (loss_err <= SEQ_TOL and f_err <= SEQ_TOL
+                and g_share <= 1 and launches_ok):
+            fail(f'{label}: losses {loss_err:.3e}, factors {f_err:.3e} '
+                 f'({f_at}) from one process (gate {SEQ_TOL}), first-step '
+                 f'gradients {g_err:.3e} ({g_at}, {g_share:.3f} of its '
+                 'eigen gate); launches '
+                 f'{[r["launches"] for r in runs]}')
+        med = [round(statistics.median(r['step_s'][1:] or r['step_s']) * 1e3,
+                     2) for r in runs]
+        extra = ''
+        if label == 'ring':
+            extra = (f'; rotations {runs[0]["rotations"]} a rank '
+                     f'({runs[0]["rotated_bytes"]} bytes handed on, '
+                     f'forward and backward), one rotation of '
+                     f'{ranks[0]["rotation_bytes"]} bytes '
+                     f'{ranks[0]["rotation_ms"]:.3f} ms')
+        else:
+            fac, grd = runs[0]['gathers']['factor'], runs[0]['gathers']['grad']
+            extra = (f'; grid {runs[0]["grid"]} a model index; gathered '
+                     f'{fac[1] / steps / ranks[0]["n_layers"]:.0f} bytes a '
+                     'block a factor '
+                     f'step ({fac[0] // steps} gathers a step), '
+                     f'{grd[1] / steps:.0f} bytes of weight gradients a step '
+                     f'({grd[0] // steps} gathers); one qkv output gather '
+                     f'of {ranks[0]["gather_bytes"]} bytes '
+                     f'{ranks[0]["gather_ms"]:.3f} ms')
+        print(f'{label} (world {SEQ_WORLD}, {backend}): losses '
+              f'{[round(v, 6) for v in got]} within {loss_err:.3e}, step-0 '
+              f'factors within {f_err:.3e} ({f_at}; gate {SEQ_TOL}), '
+              f'first-step gradients within {g_err:.3e} ({g_at}, '
+              f'{g_share:.3f} of its eigen gate max(1e-4, 4 n eps)) of one '
+              'process, the raw gradients before the preconditioner within '
+              f'{max(r["raw_err"] for r in checked)[0]:.3e} '
+              f'({max(r["raw_err"] for r in checked)[1]}); relative '
+              'Frobenius; '
+              'every rank\'s '
+              f'digests equal its peers\'; fused launches '
+              f'{[r["launches"] for r in runs]}'
+              + (' (no dgda at the default, as in JAX)'
+                 if label == 'tp default' else '')
+              + f' on {runs[0]["shapes"]}, {check_line(runs)}; median '
+              f'step {med} ms by rank (host clock, synchronized; a '
+              f'correctness path on one shared card){extra}', flush=True)
+    err = ranks[0]['attn_err']
+    if not err <= SEQ_ATTN_TOL:
+        fail(f'ring attention: {err:.3e} from the single-block path')
+    print(f'ring attention: one layer {list(ranks[0]["attn_shape"])} '
+          f'causal over {SEQ_WORLD} ranks within {err:.3e} (max abs) of the '
+          f'single-block path (gate {SEQ_ATTN_TOL})', flush=True)
+    return dict(moe_worst=moe_worst, pipe_launches=pipe_launches,
+                pipe_worst=pipe_worst,
+                ring_launches=sum(r['ring']['launches'] for r in ranks),
+                ring_shapes=ranks[0]['ring']['shapes'],
+                tp_launches=sum(r['tp prediv']['launches'] for r in ranks),
+                tp_shapes=ranks[0]['tp prediv']['shapes'], worst=worst)
+
+
+#: ``(L, gp, ap)`` of the flavours' stacks: phase 26's five layers (the
+#: expert stacks unaligned: ``ap`` 769 and 3073, padded on the path) and
+#: phase 27's per rank (each shape three times a step, once a block).
 MOE_CASES = [(8, 3072, 769), (8, 768, 3073), (1, 768, 769), (1, 8, 768),
              (1, 8, 769)]
 PIPE_LM_CASES = [(1, 2304, 769), (1, 768, 769), (1, 3072, 769),
                  (1, 768, 3073)]
-ALIGNED_NEIGHBOURS = [((8, 3072, 769), (8, 3072, 768)),
-                      ((8, 768, 3073), (8, 768, 3072))]
-
-
-def pad_a_side(torch, g, qa, dgda, to=8):
-    """The operands with ``ap`` zero-padded to a multiple of ``to`` (the
-    kernel's aligned path needs ``gp`` and ``ap`` multiples of 8, and
-    16-byte pointers): zero gradient and ``dgda`` columns, ``qa`` with
-    zero rows and columns.  Exact: the padded columns of ``qgᵀ·g·qa``
-    meet zero ``dgda``, and the padded rows of ``qa`` give ``pg`` zero
-    columns, so ``pg[..., :ap]`` and ``clip`` are the unpadded ones."""
-    import torch.nn.functional as F
-
-    p = -qa.shape[-1] % to
-    return F.pad(g, (0, p)), F.pad(qa, (0, p, 0, p)), F.pad(dgda, (0, p))
-
-
-def aligned_neighbour_times(torch, kernel, plain):
-    """The kernel at the expert stacks' unaligned shapes, at the same
-    operands zero-padded to aligned rows (:func:`pad_a_side`; alone, and
-    with the gradient's pad and the ``pg`` slice a step would add) and at
-    their aligned neighbours, on the same operands' kind (one line
-    each).  Fails if the padded call's ``pg`` or ``clip`` is off the
-    unpadded plain version's by more than ``atol 1e-4, rtol 1e-5``."""
-    import torch.nn.functional as F
-
-    for i, (odd, even) in enumerate(ALIGNED_NEIGHBOURS):
-        row = []
-        for shape in (odd, even):
-            args = make_case(torch, *shape, seed=950 + i)
-            row.append((shape, time_ms(torch, lambda: kernel(*args)),
-                        precond_bound(*shape, 4)[0]))
-            if shape != odd:
-                del args
-                continue
-            g, qa, qg, dgda = args
-            gp_, qa_p, dgda_p = pad_a_side(torch, g, qa, dgda)
-            want_pg, want_clip = plain(*args)
-            pg, clip = kernel(gp_, qa_p, qg, dgda_p)
-            err = float((pg[..., :odd[2]] - want_pg).abs().max())
-            clip_err = float((clip - want_clip).abs().max())
-            if (bool((pg[..., :odd[2]] - want_pg).abs().gt(
-                    1e-4 + 1e-5 * want_pg.abs()).any())
-                    or bool(pg[..., odd[2]:].ne(0).any())
-                    or clip_err > 1e-4 + 1e-5 * float(want_clip.abs().max())):
-                fail(f'kernel padded {odd}: |pg - plain| {err:.3e}, |clip '
-                     f'- plain| {clip_err:.3e}, padded columns nonzero '
-                     f'{bool(pg[..., odd[2]:].ne(0).any())}')
-            padded = tuple(gp_.shape)
-            pad_ms = time_ms(torch, lambda: kernel(gp_, qa_p, qg, dgda_p))
-            step_ms = time_ms(torch, lambda: kernel(
-                F.pad(g, (0, padded[2] - odd[2])), qa_p, qg,
-                dgda_p)[0][..., :odd[2]].contiguous())
-            padded_row = (f'{odd} padded to {padded}: kernel_ms='
-                          f'{pad_ms:.5f}, with the gradient pad and the pg '
-                          f'slice {step_ms:.5f} ms, |pg - plain| {err:.3e}, '
-                          f'|clip - plain| {clip_err:.3e}')
-            del args, g, qa, qg, dgda, gp_, qa_p, dgda_p, pg, clip
-            del want_pg, want_clip
-        print('kernel unaligned vs aligned: ' + '; '.join(
-            f'{s} kernel_ms={ms:.5f} bound_ms={b:.6f} share={b / ms:.3f}'
-            for s, ms, b in row) + f'; {padded_row}', flush=True)
-        torch.cuda.empty_cache()
 
 
 def device_record(torch) -> dict:
@@ -7384,19 +7834,34 @@ def main() -> int:
     rt_kernel.update(launches=launches, max_abs_err=err)
     kernel = kt.ops.fused_eigen_precondition
     plain = kt.ops.fused_eigen_precondition_reference
-    launches, err = phase('26 moe', phase_moe, torch, kt)
+    moe = phase('26 moe', phase_moe, torch, kt)
+    pipe = phase('27 pipeline', phase_pipeline, torch, kt)
+    world = phase('28 seq/tp, 26-27 world 4', phase_seq_tp, torch, kt, moe,
+                  pipe)
     moe_kernel = bucket_entry(
         torch, kernel, plain, 'MoE expert and dense layers (phase 26)',
-        MOE_CASES, 960, what='stacks')
-    moe_kernel.update(launches=launches,
-                      max_abs_err=max(err, moe_kernel['max_abs_err']))
-    launches, err = phase('27 pipeline', phase_pipeline, torch, kt)
+        [aligned(x) for x in MOE_CASES], 960,
+        what='stacks, zero-padded to multiples of 8')
+    moe_kernel.update(launches=moe['launches'], max_abs_err=max(
+        moe['worst'], world['moe_worst'], moe_kernel['max_abs_err']))
     pipe_kernel = bucket_entry(
         torch, kernel, plain, 'GPipe stage layers of one rank of four '
-        '(phase 27)', PIPE_LM_CASES, 970, counts=[3] * 4, what='stacks')
-    pipe_kernel.update(launches=launches,
-                       max_abs_err=max(err, pipe_kernel['max_abs_err']))
-    aligned_neighbour_times(torch, kernel, plain)
+        '(phase 27)', [aligned(x) for x in PIPE_LM_CASES], 970,
+        counts=[3] * 4, what='stacks, zero-padded to multiples of 8')
+    pipe_kernel.update(launches=world['pipe_launches'], max_abs_err=max(
+        pipe['worst'], world['pipe_worst'], pipe_kernel['max_abs_err']))
+    ring_kernel = bucket_entry(
+        torch, kernel, plain, 'GPT-125M ring over a sequence group of 4, '
+        'one rank\'s MEM-OPT column (phase 28)', world['ring_shapes'], 1000,
+        what='bucket slices')
+    ring_kernel.update(launches=world['ring_launches'], max_abs_err=max(
+        world['worst'], ring_kernel['max_abs_err']))
+    tp_kernel = bucket_entry(
+        torch, kernel, plain, 'GPT-125M GPTKFACPreconditioner prediv on a '
+        '2 x 2 (data, model) grid, one rank\'s MEM-OPT column (phase 28)',
+        world['tp_shapes'], 1010, what='bucket slices')
+    tp_kernel.update(launches=world['tp_launches'], max_abs_err=max(
+        world['worst'], tp_kernel['max_abs_err']))
     phase('bench stages', phase_bench_stages, torch, kt)
     stop_profile_worker()
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
@@ -7409,7 +7874,8 @@ def main() -> int:
                                   rn50_fused, rn50_health,
                                   rn50_consistency, rn50_elastic,
                                   rn50_watchdog, rn50_observe, rt_kernel,
-                                  moe_kernel, pipe_kernel]}),
+                                  moe_kernel, pipe_kernel, ring_kernel,
+                                  tp_kernel]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

@@ -39,8 +39,12 @@ cost ledger, the emission sinks and the flight recorder
 detection;
 ``testing`` holds their fault injectors and ``tracing`` the event tally.
 ``gpt`` holds the MoE and GPipe flavours (``MoEKFACPreconditioner``,
-``PipelineKFACPreconditioner``).  The models are the CIFAR ResNets, the
-ImageNet ResNets, the GPT, the MoE model and the pipeline LM; ``examples/`` holds the CIFAR and ImageNet
+``PipelineKFACPreconditioner``) and the tensor-parallel
+``GPTKFACPreconditioner`` with ``mpu``; ``parallel`` the ring attention
+and Megatron's tensor-parallel layers of the sequence- and
+tensor-parallel GPT.  The models are the CIFAR ResNets, the ImageNet
+ResNets, the GPT, the MoE model and the pipeline LM; ``examples/``
+holds the CIFAR and ImageNet
 trainers and ``bench`` the K-FAC/SGD step-time bench.  ``ROADMAP.md``
 lists what is not ported yet.
 """

@@ -17,7 +17,9 @@ sum after the buckets'.  A tied embedding's factors are the mean of the
 lookup's and the attend call's contributions, the attend's with the
 roles swapped.
 
-Across ranks the world is the default ``torch.distributed`` group, and
+Across ranks the world is the default ``torch.distributed`` group (or
+the data group of :class:`~kfac_pytorch_tpu_torch.gpt.\
+GPTKFACPreconditioner`: ``grid.group``), and
 every rank is assumed to differentiate the mean loss of its own local
 batch, as under ``DistributedDataParallel``.  Its captured output
 gradients are then ``world`` times those of the global batch's mean
@@ -308,7 +310,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             if factor_comm is not None and h.supports_ekfac
             and h.symmetric_factors and not h.diagonal_a
         )
-        self.grid = kaisa_grid(grad_worker_fraction)
+        self.grid = self._make_grid(grad_worker_fraction)
         self.plan = None
         self._second_order = None
         self.stagger = None
@@ -400,6 +402,11 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             config, layer_names=tuple(sorted(self.helpers)),
             shard_layers=shard_layers,
         )
+
+    def _make_grid(self, grad_worker_fraction: float):
+        """The KAISA grid over the default process group (a flavour
+        with a data group builds it over that)."""
+        return kaisa_grid(grad_worker_fraction)
 
     def __repr__(self) -> str:
         return '\n'.join([
@@ -582,6 +589,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
                 packed = collectives.all_reduce_sum_triu(
                     [new_a[i] / world for i in comp]
                     + [new_g[i] / world for i in comp],
+                    group=self.grid.group,
                 )
                 for j, i in enumerate(comp):
                     new_a[i] = packed[j].to(new_a[i].dtype)
@@ -589,7 +597,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
             dense = [i for i in range(n) if i not in comp]
             *factors, stats = collectives.all_reduce_mean(
                 [new_a[i] for i in dense] + [new_g[i] for i in dense]
-                + new_s + [stats],
+                + new_s + [stats], self.grid.group,
             )
             sums = [round(v * world) for v in stats.tolist()]
             if any(world * s2 != s1 * s1

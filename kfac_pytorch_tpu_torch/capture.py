@@ -9,7 +9,9 @@ the mechanism of the original torch library:
   ``nn.Conv2d``, ``nn.Embedding``, ``nn.LayerNorm`` and the port's
   :class:`~kfac_pytorch_tpu_torch.models.layers.DenseGeneral`
   (``skip_layers`` regexes skip by name or class name; ``kfac_approx``
-  picks expand or reduce per linear and ``dense_general`` layer).  A
+  picks expand or reduce per linear and ``dense_general`` layer; a
+  tensor-parallel ``nn.Linear`` shard gets the helper of its full layer,
+  :mod:`~kfac_pytorch_tpu_torch.layers.tensor`).  A
   layer it cannot precondition is rejected with a reason and a warning,
   and trains on its raw gradient; among them the ``nn.Linear``
   submodules of ``torch.nn.MultiheadAttention``, whose forward never
@@ -58,8 +60,10 @@ from kfac_pytorch_tpu_torch.layers.helpers import ConvHelper
 from kfac_pytorch_tpu_torch.layers.helpers import DenseHelper
 from kfac_pytorch_tpu_torch.layers.helpers import EmbedHelper
 from kfac_pytorch_tpu_torch.layers.helpers import LayerHelper
+from kfac_pytorch_tpu_torch.layers.tensor import parallel_dense_helper
 from kfac_pytorch_tpu_torch.models.layers import DenseGeneral
 from kfac_pytorch_tpu_torch.models.layers import recomputing
+from kfac_pytorch_tpu_torch.parallel.tensor import ParallelDense
 
 #: The JAX package's kinds; ``layernorm`` and ``dense_general`` (the
 #: multi-head attention projections) are the opt-in full-coverage ones.
@@ -349,6 +353,14 @@ class ModelCapture:
     def _make_helper(
         self, kind: str, name: str, module: nn.Module,
     ) -> tuple[LayerHelper | None, str | None]:
+        if kind == 'linear' and isinstance(module, ParallelDense):
+            # The full layer behind a tensor-parallel shard.
+            if self._approx_for(name, module)[0] != 'expand':
+                return None, (
+                    "kfac_approx='reduce' on a tensor-parallel layer (its "
+                    'helper gathers the expand rows)'
+                )
+            return parallel_dense_helper(name, module), None
         if kind == 'linear':
             mode, explicit = self._approx_for(name, module)
             cls = (KfacReduceHelper if mode == 'reduce'

@@ -25,8 +25,12 @@ the port's ``resnet50``, a JAX GPT's into ``gpt_125m``, a ViT's into
 port's of the same layout; :func:`shard_experts` cuts it to a rank's
 experts, and :func:`pipeline_lm_state_dict` turns a JAX ``PipelineLM``'s
 ``[S, ...]`` stage stacks into a rank's stage (or every stage).
-:func:`flax_to_torch_names` gives the name map, for comparing reports
-that name parameters.
+:func:`flax_to_tp_state_dict` turns a JAX GPT's full ``params`` into one
+model rank's state dict of the tensor-parallel ``GPT(...,
+tp_group=...)`` (``qkv`` split by heads, ``fc_in`` by rows, ``proj`` and
+``fc_out`` by columns; :func:`flax_to_torch_state_dict` stays the
+unsharded path).  :func:`flax_to_torch_names` gives the name map, for
+comparing reports that name parameters.
 
 :func:`jax_kfac_state_dict_to_torch` carries a JAX
 ``KFACPreconditioner.state_dict(...)`` across, so a JAX run resumes in
@@ -134,6 +138,17 @@ def shard_experts(
             else v)
         for k, v in state_dict.items()
     }
+
+
+def flax_to_tp_state_dict(
+    variables: Mapping[str, Any], rank: int, tp: int,
+) -> dict[str, torch.Tensor]:
+    """A JAX GPT's ``{'params': ...}`` as the state dict of rank
+    ``rank`` of a ``tp``-way tensor-parallel port GPT
+    (:func:`~kfac_pytorch_tpu_torch.models.gpt.shard_state_dict`)."""
+    from kfac_pytorch_tpu_torch.models.gpt import shard_state_dict
+
+    return shard_state_dict(flax_to_torch_state_dict(variables), rank, tp)
 
 
 def _map_leaves(fn, tree: Mapping[str, Any]) -> dict[str, Any]:

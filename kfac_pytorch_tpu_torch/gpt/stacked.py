@@ -33,7 +33,15 @@ package's global ones.  Then:
   :func:`~kfac_pytorch_tpu_torch.ops.fused_eigen_precondition` on the
   ``[L, dout, din]`` stack (the hand-written kernel on CUDA tensors, its
   plain version on the CPU) and takes the kl-clip term from the kernel's
-  per-slot ``clip``; the low-rank and EKFAC branches are the JAX
+  per-slot ``clip``.  A stack whose ``dout`` or ``din`` is not a multiple
+  of 8 (the MoE experts' and the GPipe stages' bias column: ``din`` 769,
+  3073) reaches the kernel zero-padded to the next multiple of 8, where
+  it takes the kernel's aligned load path: ``qa``, ``qg`` and ``dgda``
+  padded once a refresh (a cache beside the layer state, which stays
+  unpadded, as the JAX-format checkpoints are), the gradient padded and
+  ``pg`` sliced back each step.  The padding is exact: padded rows and
+  columns of ``qgᵀ·g·qa`` meet zero ``dgda``, so ``pg`` and ``clip`` are
+  the unpadded ones.  The low-rank and EKFAC branches are the JAX
   package's matmul chains; the kl-clip sum adds the replicated layers'
   terms once and all-reduces the sharded layers' over ``shard_group``.
 """
@@ -157,7 +165,7 @@ PipelineKFACPreconditioner` (module docstring).
         if isinstance(damping, AdaptiveDamping):
             raise NotImplementedError(
                 'AdaptiveDamping is not ported to the MoE and pipeline '
-                'flavours (ROADMAP.md Queue A, slice 6): its loss-only '
+                'flavours (ROADMAP.md Queue A item 25c): its loss-only '
                 'forward needs the flavour\'s own forward',
             )
         if lowrank_rank is not None and lowrank_rank < 1:
@@ -173,6 +181,8 @@ PipelineKFACPreconditioner` (module docstring).
         self.inv_dtype = inv_dtype
         self.accumulation_steps = int(accumulation_steps)
         self.device = device
+        #: layer -> ``((qa, qg, dgda), padded copies)`` (:meth:`_fused`).
+        self._padded: dict[str, tuple] = {}
         self.factor_group = factor_group
         self.shard_group = shard_group
         self.specs = {s.name: s for s in specs}
@@ -419,9 +429,7 @@ PipelineKFACPreconditioner` (module docstring).
                 pg = qg @ (v1 / (st.skron + damping)) @ qa.mT
                 term = ops.grad_scale_sum(pg, g, lr)
             else:
-                pg, clip = ops.fused_eigen_precondition(
-                    g, qa.contiguous(), qg.contiguous(),
-                    st.dgda.float().contiguous())
+                pg, clip = self._fused(name, st, g)
                 term = torch.sum(clip) * lr2
             pre[name] = pg
             (sharded if spec.sharded else replicated).append(term)
@@ -432,6 +440,34 @@ PipelineKFACPreconditioner` (module docstring).
         for name, pg in pre.items():
             self.specs[name].set_grad(pg if scale is None else pg * scale)
         return vg_sum
+
+    def _fused(self, name: str, st: StackState,
+               g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The fused kernel on one layer's stack, zero-padded to
+        multiples of 8 where ``g``'s sides are not (module docstring).
+        The padded ``qa``, ``qg`` and ``dgda`` are cached per layer and
+        rebuilt when the state holds other decompositions (a refresh or a
+        restore installs new tensors)."""
+        gp, ap = g.shape[-2:]
+        pad_g, pad_a = -gp % 8, -ap % 8
+        if not (pad_g or pad_a):
+            return ops.fused_eigen_precondition(
+                g, st.qa.float().contiguous(), st.qg.float().contiguous(),
+                st.dgda.float().contiguous())
+        key = (st.qa, st.qg, st.dgda)
+        hit = self._padded.get(name)
+        if hit is None or any(a is not b for a, b in zip(hit[0], key)):
+            pad = torch.nn.functional.pad
+            hit = (key, (
+                pad(st.qa.float(), (0, pad_a, 0, pad_a)).contiguous(),
+                pad(st.qg.float(), (0, pad_g, 0, pad_g)).contiguous(),
+                pad(st.dgda.float(), (0, pad_a, 0, pad_g)).contiguous(),
+            ))
+            self._padded[name] = hit
+        qa, qg, dgda = hit[1]
+        g = torch.nn.functional.pad(g, (0, pad_a, 0, pad_g))
+        pg, clip = ops.fused_eigen_precondition(g, qa, qg, dgda)
+        return pg[..., :gp, :ap], clip
 
     def _vg_sum(self, replicated, sharded, device) -> torch.Tensor:
         """Replicated terms once, sharded ones summed over the shard

@@ -11,3 +11,5 @@ from kfac_pytorch_tpu_torch.layers.helpers import ConvHelper
 from kfac_pytorch_tpu_torch.layers.helpers import DenseHelper
 from kfac_pytorch_tpu_torch.layers.helpers import EmbedHelper
 from kfac_pytorch_tpu_torch.layers.helpers import LayerHelper
+from kfac_pytorch_tpu_torch.layers.tensor import ColumnParallelHelper
+from kfac_pytorch_tpu_torch.layers.tensor import RowParallelHelper

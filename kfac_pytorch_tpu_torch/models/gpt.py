@@ -29,6 +29,24 @@ models.layers.remat_call`, Flax's ``nn.remat(Block)``);
 Parameters are ``param_dtype`` (f32).  The head is a
 :class:`~kfac_pytorch_tpu_torch.layers.TiedAttend` module, so K-FAC can
 capture the tied call (``tied_weights=('wte',)``).
+
+``attention_impl='ring'`` runs the attention of
+:mod:`~kfac_pytorch_tpu_torch.parallel.ring_attention` (JAX's ``'dense'``
+is that module's single-block path; the port's ``'dense'`` is
+``scaled_dot_product_attention`` on the same f32 operands).  With
+``seq_links`` (:func:`~kfac_pytorch_tpu_torch.parallel.ring_attention.\
+sequence_links`, the counterpart of JAX's ``seq_axis``) each rank of the
+sequence group holds the shard ``[B, T/n]`` of the tokens, adds the
+positions ``wpe[idx T/n : (idx + 1) T/n]`` and rings K/V over the
+group; ``seq_axis`` keeps its name for parity and needs ``'ring'``.
+
+With ``tp_group`` the four dense layers of a block are Megatron's
+(:mod:`~kfac_pytorch_tpu_torch.parallel.tensor`): ``qkv`` and ``fc_in``
+column-parallel (``qkv`` split by heads), ``proj`` and ``fc_out``
+row-parallel, each rank attending with its ``n_heads / tp`` heads; the
+weights are the unsharded model's of the same seed, sharded
+(:func:`shard_state_dict`).  Without a group the layers are the plain
+:class:`~kfac_pytorch_tpu_torch.models.layers.Dense`.
 """
 from __future__ import annotations
 
@@ -46,6 +64,14 @@ from kfac_pytorch_tpu_torch.models.layers import LayerNorm
 from kfac_pytorch_tpu_torch.models.layers import remat_call
 from kfac_pytorch_tpu_torch.models.layers import resolve_device
 from kfac_pytorch_tpu_torch.models.layers import split_heads_attention
+from kfac_pytorch_tpu_torch.parallel.ring_attention import RingLinks
+from kfac_pytorch_tpu_torch.parallel.ring_attention import \
+    ring_self_attention
+from kfac_pytorch_tpu_torch.parallel.tensor import ColumnParallelDense
+from kfac_pytorch_tpu_torch.parallel.tensor import RowParallelDense
+from kfac_pytorch_tpu_torch.parallel.tensor import group_rank_size
+from kfac_pytorch_tpu_torch.parallel.tensor import local_heads
+from kfac_pytorch_tpu_torch.parallel.tensor import shard_dense_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +98,10 @@ class GPTConfig:
                 "attention_impl must be 'dense' or 'ring', got "
                 f'{self.attention_impl!r}',
             )
-        if self.attention_impl == 'ring' or self.seq_axis is not None:
-            raise NotImplementedError(
-                "attention_impl='ring' and seq_axis are not ported to the "
-                'PyTorch package yet (ROADMAP.md Queue A item 27: ring '
-                'attention)',
+        if self.seq_axis is not None and self.attention_impl != 'ring':
+            raise ValueError(
+                "seq_axis requires attention_impl='ring' (dense attention "
+                'never shards the sequence dimension)',
             )
         if self.d_model % self.n_heads:
             raise ValueError(
@@ -91,31 +116,57 @@ class GPTConfig:
 
 class Attention(nn.Module):
     """Causal multi-head self-attention: ``qkv`` projection, softmax
-    attention in f32, ``proj``."""
+    attention in f32 (this rank's heads under ``tp_group``; ring
+    attention over ``seq_links`` with ``attention_impl='ring'``),
+    ``proj``."""
 
-    def __init__(self, config: GPTConfig) -> None:
+    def __init__(self, config: GPTConfig, seq_links: RingLinks | None = None,
+                 tp_group: Any = None) -> None:
         super().__init__()
         self.config = config
+        self.seq_links = seq_links
         d, cd = config.d_model, config.dtype
-        self.qkv = Dense(d, 3 * d, cd)
-        self.proj = Dense(d, d, cd)
+        self.n_heads = local_heads(config.n_heads, tp_group)
+        self.width = self.n_heads * config.head_dim
+        if tp_group is None:
+            self.qkv = Dense(d, 3 * d, cd)
+            self.proj = Dense(d, d, cd)
+        else:
+            self.qkv = ColumnParallelDense(d, 3 * d, cd, tp_group, parts=3)
+            self.proj = RowParallelDense(d, d, cd, tp_group)
         self.drop = nn.Dropout(config.dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        q, k, v = self.qkv(x).split(cfg.d_model, dim=-1)
-        out = split_heads_attention(q, k, v, cfg.n_heads, is_causal=True)
+        q, k, v = self.qkv(x).split(self.width, dim=-1)
+        if cfg.attention_impl == 'ring':
+            B, T, _ = q.shape
+            shape = (B, T, self.n_heads, cfg.head_dim)
+            out = ring_self_attention(
+                q.reshape(shape), k.reshape(shape), v.reshape(shape),
+                causal=True, links=self.seq_links,
+            ).reshape(B, T, self.width)
+        else:
+            out = split_heads_attention(q, k, v, self.n_heads,
+                                        is_causal=True)
         return self.drop(self.proj(out))
 
 
 class MLP(nn.Module):
-    """``fc_in``, tanh GELU, ``fc_out``."""
+    """``fc_in``, tanh GELU, ``fc_out`` (column- and row-parallel under
+    ``tp_group``)."""
 
-    def __init__(self, config: GPTConfig) -> None:
+    def __init__(self, config: GPTConfig, tp_group: Any = None) -> None:
         super().__init__()
         cd = config.dtype
-        self.fc_in = Dense(config.d_model, config.d_ff, cd)
-        self.fc_out = Dense(config.d_ff, config.d_model, cd)
+        if tp_group is None:
+            self.fc_in = Dense(config.d_model, config.d_ff, cd)
+            self.fc_out = Dense(config.d_ff, config.d_model, cd)
+        else:
+            self.fc_in = ColumnParallelDense(config.d_model, config.d_ff,
+                                             cd, tp_group)
+            self.fc_out = RowParallelDense(config.d_ff, config.d_model, cd,
+                                           tp_group)
         self.drop = nn.Dropout(config.dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -126,12 +177,13 @@ class MLP(nn.Module):
 class Block(nn.Module):
     """Pre-LN transformer block."""
 
-    def __init__(self, config: GPTConfig) -> None:
+    def __init__(self, config: GPTConfig, seq_links: RingLinks | None = None,
+                 tp_group: Any = None) -> None:
         super().__init__()
         self.ln_1 = LayerNorm(config.d_model, config.dtype)
-        self.attn = Attention(config)
+        self.attn = Attention(config, seq_links, tp_group)
         self.ln_2 = LayerNorm(config.d_model, config.dtype)
-        self.mlp = MLP(config)
+        self.mlp = MLP(config, tp_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x))
@@ -140,11 +192,23 @@ class Block(nn.Module):
 
 class GPT(nn.Module):
     """Decoder-only LM: ``forward(tokens [B, T]) -> logits [B, T, V]``
-    in f32."""
+    in f32 (with ``seq_links``, the rank's token shard and its logits).
 
-    def __init__(self, config: GPTConfig) -> None:
+    Args:
+        config: the hyperparameters.
+        seq_links: the rank's ring over its sequence group (``'ring'``
+            only); ``None`` holds the whole sequence.
+        tp_group: the model group of the tensor-parallel layers.
+    """
+
+    def __init__(self, config: GPTConfig, seq_links: RingLinks | None = None,
+                 tp_group: Any = None) -> None:
         super().__init__()
+        if seq_links is not None and config.attention_impl != 'ring':
+            raise ValueError("seq_links requires attention_impl='ring'")
         self.config = config
+        self.seq_links = seq_links
+        self.tp_group = tp_group
         cd = config.dtype
         self.wte = Embed(config.vocab_size, config.d_model, cd)
         self.wpe = nn.Parameter(
@@ -153,14 +217,15 @@ class GPT(nn.Module):
         self.drop = nn.Dropout(config.dropout_rate)
         self.block_names = [f'h_{i}' for i in range(config.n_layers)]
         for name in self.block_names:
-            self.add_module(name, Block(config))
+            self.add_module(name, Block(config, seq_links, tp_group))
         self.ln_f = LayerNorm(config.d_model, cd)
         self.head = TiedAttend('wte', dtype=cd)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         T = tokens.shape[1]
-        x = self.wte(tokens) + self.wpe[None, :T].to(cfg.dtype)
+        at = 0 if self.seq_links is None else self.seq_links.index * T
+        x = self.wte(tokens) + self.wpe[None, at:at + T].to(cfg.dtype)
         x = self.drop(x)
         for name in self.block_names:
             block = getattr(self, name)
@@ -186,25 +251,57 @@ def init_weights(model: GPT, generator: torch.Generator) -> None:
         model.wpe.normal_(0.0, 0.01, generator=generator)
 
 
-def _build(config: GPTConfig, device: Any, seed: int) -> GPT:
-    model = GPT(config).to(device=resolve_device(device),
-                           dtype=config.param_dtype)
+#: The tensor-parallel layers of a block: ``(name, split, parts)``.
+TP_LAYERS = (('attn.qkv', 'column', 3), ('attn.proj', 'row', 1),
+             ('mlp.fc_in', 'column', 1), ('mlp.fc_out', 'row', 1))
+
+
+def shard_state_dict(sd: dict[str, torch.Tensor], rank: int,
+                     tp: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s state dict of a ``tp``-way tensor-parallel GPT
+    from the unsharded one: ``qkv`` split by heads, ``fc_in`` by rows,
+    ``proj`` and ``fc_out`` by columns (biases whole); the rest whole."""
+    out = dict(sd)
+    for key in sd:
+        for layer, split, parts in TP_LAYERS:
+            if key.endswith(f'.{layer}.weight'):
+                stem = key[:-len('weight')]
+                w, b = shard_dense_state(sd[key], sd[stem + 'bias'], split,
+                                         rank, tp, parts)
+                out[key], out[stem + 'bias'] = w.contiguous(), b.contiguous()
+    return out
+
+
+def _build(config: GPTConfig, device: Any, seed: int,
+           seq_links: RingLinks | None = None, tp_group: Any = None) -> GPT:
+    device = resolve_device(device)
+    model = GPT(config, seq_links=seq_links, tp_group=tp_group).to(
+        device=device, dtype=config.param_dtype)
+    if tp_group is not None:
+        # The unsharded model's draws, sharded: any tp gives the same
+        # logical weights.
+        full = _build(config, device, seed)
+        rank, tp = group_rank_size(tp_group)
+        model.load_state_dict(shard_state_dict(full.state_dict(), rank, tp))
+        return model
     gen = torch.Generator(device=model.wpe.device)
     gen.manual_seed(seed)
     init_weights(model, gen)
     return model
 
 
-def gpt_125m(device=None, seed: int = 0, **overrides: Any) -> GPT:
+def gpt_125m(device=None, seed: int = 0, seq_links: RingLinks | None = None,
+             tp_group: Any = None, **overrides: Any) -> GPT:
     """GPT-NeoX small: vocab 50304, 12 layers, 12 heads, ``d_model``
     768, ``d_ff`` 3072, 2048 positions, bf16 compute."""
-    return _build(GPTConfig(**overrides), device, seed)
+    return _build(GPTConfig(**overrides), device, seed, seq_links, tp_group)
 
 
-def gpt_tiny(device=None, seed: int = 0, **overrides: Any) -> GPT:
+def gpt_tiny(device=None, seed: int = 0, seq_links: RingLinks | None = None,
+             tp_group: Any = None, **overrides: Any) -> GPT:
     """Test scale: vocab 256, 2 layers, 2 heads, ``d_model`` 32,
     ``d_ff`` 64, 128 positions, f32 compute."""
     defaults = dict(vocab_size=256, n_layers=2, n_heads=2, d_model=32,
                     d_ff=64, max_seq_len=128, dtype=torch.float32)
     defaults.update(overrides)
-    return _build(GPTConfig(**defaults), device, seed)
+    return _build(GPTConfig(**defaults), device, seed, seq_links, tp_group)

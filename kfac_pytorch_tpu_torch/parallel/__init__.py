@@ -1,7 +1,9 @@
 """Bucketing, the KAISA grid and collectives, the bucketed second-order
-stage, and the GPipe schedule."""
+stage, the GPipe schedule, ring attention and tensor parallelism."""
 from kfac_pytorch_tpu_torch.parallel import collectives
 from kfac_pytorch_tpu_torch.parallel import pipeline
+from kfac_pytorch_tpu_torch.parallel import ring_attention
+from kfac_pytorch_tpu_torch.parallel import tensor
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketLayout
 from kfac_pytorch_tpu_torch.parallel.bucketing import BucketPlan
 from kfac_pytorch_tpu_torch.parallel.bucketing import make_bucket_plan

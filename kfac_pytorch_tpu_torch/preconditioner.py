@@ -477,7 +477,7 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
                     'dense, mixing compressed and uncompressed '
                     'statistics of the same rows',
                 )
-            if data_world() == 1:
+            if self._data_world() == 1:
                 warnings.warn(
                     'factor_comm has no collective to compress without '
                     'several torch.distributed ranks; ignoring.',
@@ -600,7 +600,8 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
                 'tensors its plain version (ROADMAP.md Queue B item 1)',
             )
         self.grad_worker_fraction, self.distributed_strategy = (
-            resolve_grad_worker_fraction(grad_worker_fraction, data_world())
+            resolve_grad_worker_fraction(grad_worker_fraction,
+                                         self._data_world())
         )
         self.assignment_strategy = assignment_strategy
         self.colocate_factors = colocate_factors
@@ -656,3 +657,8 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
         )
         # The fused path's forward and backward go through the wrapper.
         self._train_module = wrapper
+
+    def _data_world(self) -> int:
+        """The K-FAC world's size: the default process group's (a
+        flavour with a data group counts that)."""
+        return data_world()
