@@ -153,10 +153,10 @@ fails:
     for, off the cadence; the drift at every factor step, the stage
     medians and the ``ekfac scales`` stage;
 14. the staggered refresh on ResNet-50: phase 9's batch, a factor update
-    every step, inv 10, ``stagger_refresh=5``, 31 steps, then the same
-    31 steps monolithic.  Gates: the cadence (the monolithic bootstrap
+    every step, inv 10, ``stagger_refresh=5``, 21 steps, then the same
+    21 steps monolithic.  Gates: the cadence (the monolithic bootstrap
     at step 0, then shard ``s % 10`` at every phase below 5: shards 1-4
-    at steps 1-4, 0-4 at 10-14, 20-24 and 30; never a monolithic refresh
+    at steps 1-4, 0-4 at 10-14 and 20; never a monolithic refresh
     again), 21 kernel launches a step, finite falling losses, the
     shard-0 step against a plain rerun; on the last factors, a sweep of
     the five shards against one monolithic refresh (every slot's ``dgda``
@@ -334,7 +334,7 @@ fails:
     (a) the ring GPT over a sequence group of 4 (512 tokens a rank)
     under ``KFACPreconditioner`` (MEM-OPT: COMM-OPT's gathered
     decompositions on every rank do not fit four ranks on one card) and
-    DDP, 3 steps; (b)
+    DDP, 2 steps; (b)
     ``gpt.GPTKFACPreconditioner`` on a ``('data', 'model')`` grid of
     ``2 x 2`` (the dense layers tensor-parallel, DDP over the data
     group, MEM-OPT), 1 step at the default (no ``dgda``: 0 launches)
@@ -348,7 +348,37 @@ fails:
     factors and gradients bitwise its peers'; every fused call against
     its plain version; one layer's ring attention output within 1e-5 of
     the single-block path; the rotation and gather bytes and times,
-    step times and launches.
+    step times and launches.  (c) Phase 30b in the same spawn: the
+    tensor-parallel ``BertForQA`` at BERT-large's widths (vocab 30522,
+    16 heads, 1024/4096; depth cut to 4 blocks for the run's time), f32,
+    on the same ``2 x 2`` grid under ``GPTKFACPreconditioner`` with
+    prediv, 2 steps on 4 real-text QA examples of 384 positions, held to
+    one process of the same depth and seed by (b)'s gates (the bias of
+    the last LayerNorm, zero in exact arithmetic, against its scale's
+    gradient); launches = steps x buckets a rank; the gathered bytes.
+29. the port's ``tiny_gpt_lm`` example (``run()``, SGD then K-FAC with
+    the curvature monitor) at GPT-125M's widths (12 layers, 768, ``d_ff``
+    1536, vocab 256, 1024 positions), batch 32, full coverage, lr 0.01,
+    factor 1, inv 10, 12 steps on ``examples/data/real_text.npz``: finite falling
+    losses, launches = steps x buckets, every fused call against plain;
+30. the port's ``squad_bert`` example (``train()``) at BERT-large's
+    widths and depth on the real-text QA task, batch 4 x 384, in one
+    process under ``GPTKFACPreconditioner``, factor 1, inv 3: 2 steps at
+    the default (no ``dgda``: 0 launches, as in JAX), 3 with prediv
+    (launches = steps x buckets, every fused call against plain), the
+    checkpoints written; the step and refresh times.
+
+The rank work of phases 5, 17, 18, 21, 22 (the resize) and 23 (its two
+ranks) runs in one spawn of four processes right after phase 4
+(``spawn_shared``: each phase with its own process groups and reports;
+a failure names its phase); each phase's gates then read its ranks'
+reports where the phase stands.  Phases 26 and 27 end with an adaptive
+pass: ``AdaptiveDamping`` through ``make_train_step`` (an adaptation
+every step, the ``rho`` band cut to 0.5 so each moves the damping), 2
+steps in one process and at world 4 (in phase 28's spawn): finite
+losses, the damping moved, bitwise the same on every rank, launches =
+steps x layers, every fused call against plain on the padded stacks,
+the loss-only forward's time beside the step's.
 
 Phase 8 ends with a remat pass: GPT-125M with ``remat=True`` against
 ``remat=False`` (3 steps, SDPA held to its math backend, whose backward
@@ -381,7 +411,8 @@ tensor against ``numpy.linalg.eig``.
 
 A ``phases:`` line gives each phase's time.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the
+The line before the last is one JSON object ``{"kernels": [...]}`` (with
+phases 26-27's adaptive passes, 29, 30 and 30b among its entries); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -798,19 +829,30 @@ def phase_kernels(torch, ops):
     return [entry] + paths
 
 
+#: ``(L, gp, ap) -> (max abs err, (shape, ms, plain_ms, library_ms),
+#: kernels per call)`` of every :func:`check_case` of :func:`bucket_entry`.
+CASES_SEEN: dict = {}
+
+
 def bucket_entry(torch, kernel, plain, label, cases, seed, counts=None,
                  what='buckets'):
     """The kernels-line entry of one model's path: :func:`check_case` at
     each of its bucket shapes (at most two CUDA kernels per call for
-    ``gp <= 64``, four above), times summed over one step's calls (a
+    ``gp <= 64``, four above; a shape an earlier entry checked keeps
+    that check and its times), times summed over one step's calls (a
     shape's ``counts`` entry calls, default one each), and a ``kernel
     <label>:`` line that names the buckets where the cuBLAS chain is
     faster."""
     counts = counts or [1] * len(cases)
+    cases = [tuple(shape) for shape in cases]
     err, timed, per_call = 0.0, [], []
     for i, (shape, count) in enumerate(zip(cases, counts)):
-        e, t, n, _ = check_case(torch, kernel, plain, shape, seed + i,
-                                2 if shape[1] <= 64 else 4)
+        if shape in CASES_SEEN:
+            e, t, n = CASES_SEEN[shape]
+        else:
+            e, t, n, _ = check_case(torch, kernel, plain, shape, seed + i,
+                                    2 if shape[1] <= 64 else 4)
+            CASES_SEEN[shape] = (e, t, n)
         err = max(err, e)
         timed += [t] * count
         per_call += [n] * count
@@ -2184,10 +2226,140 @@ def spawn_ranks(torch, target, world, backend, args, timeout_s, label,
                 for r in range(world)]
 
 
-def phase_kaisa(torch, kt):
-    """Four ranks on the KAISA grid; returns the kernel's launches over
-    the checked passes (every rank, every strategy) and the MEM-OPT
-    gradient gather's time per step over its timing pass (all calls)."""
+def multi_rank_plan() -> dict:
+    """The rank work of the multi-rank phases that share one spawn
+    (:func:`spawn_shared`), in the order its ranks run it: phase key ->
+    ``(label, target, world, args, timeout_s, stem)``.  Phase 25 keeps a
+    spawn of its own (a rank is killed and the world restarts), and
+    phases 26-28 share another (:func:`phase_seq_tp`)."""
+    return {
+        '5': ('kaisa', kaisa_rank, KAISA_WORLD, (), KAISA_TIMEOUT_S,
+              'rank'),
+        '17': ('resnet50 pipelined', pipeline_rank, KAISA_WORLD,
+               (RN50_IMAGE, RN50_BATCH, PIPE_MODEL), RN50_PIPE_TIMEOUT_S,
+               'pipe'),
+        '18': ('resnet50 ekfac grid', ekfac_grid_rank, KAISA_WORLD,
+               (RN50_IMAGE, RN50_BATCH, GRID_MODEL), RN50_GRID_TIMEOUT_S,
+               'grid'),
+        '21': ('resnet50 consistency', consistency_rank, KAISA_WORLD,
+               (RN50_IMAGE, RN50_BATCH, CONS_MODEL), RN50_CONS_TIMEOUT_S,
+               'cons'),
+        '22': ('resnet50 resize', elastic_rank, RN50_RESIZE_WORLDS[0],
+               (RN50_IMAGE, RN50_BATCH, ELASTIC_MODEL),
+               RN50_RESIZE_TIMEOUT_S, 'resize'),
+        '23': ('watchdog ranks', watchdog_rank, 2, (), WATCH_RANK_TIMEOUT_S,
+               'watch'),
+    }
+
+
+def plan_backend(world: int) -> str:
+    from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
+
+    return default_backend(world) if DEVICE == 'cuda' else 'gloo'
+
+
+def spawn_alone(torch, key):
+    """One phase's ranks in a spawn of their own (:func:`spawn_ranks`):
+    the phase functions' path when no shared spawn gave them reports."""
+    label, target, world, args, timeout_s, stem = multi_rank_plan()[key]
+    return spawn_ranks(torch, target, world, plan_backend(world), args,
+                       timeout_s, label, stem)
+
+
+def shared_rank(rank, device_type, workdir, entries):
+    """One process of :func:`spawn_shared`: each entry's target in turn
+    (on the ranks below its world), in a directory of its own, so each
+    phase makes its own process groups and writes its own reports.  A
+    failure is written to ``<stem><rank>.error`` before it is raised, so
+    the parent names the phase.  Between phases the backend flags a
+    phase sets are put back and the card's cache is emptied."""
+    import traceback
+
+    import torch
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    for label, target, n, phase_backend, args, stem in entries:
+        sub = os.path.join(workdir, stem)
+        if rank < n:
+            try:
+                target(rank, n, phase_backend, device_type, sub, *args)
+            except BaseException:
+                with open(os.path.join(sub, f'{stem}{rank}.error'),
+                          'w') as f:
+                    f.write(traceback.format_exc())
+                raise
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        gc.collect()
+        if device_type == 'cuda':
+            torch.cuda.empty_cache()
+
+
+def spawn_shared(torch, keys=None):
+    """The ranks of the phases ``keys`` of :func:`multi_rank_plan`
+    (default all) in one spawn of four processes (:func:`shared_rank`),
+    which pay the start, the imports and the card's context once.
+    Returns ``{key: the ranks' reports}``; fails naming the phase whose
+    rank failed or hung (a failed rank ends the spawn at once)."""
+    import torch.multiprocessing as mp
+
+    plan = multi_rank_plan()
+    keys = list(plan) if keys is None else list(keys)
+    entries = [(plan[k][0], plan[k][1], plan[k][2], plan_backend(plan[k][2]),
+                plan[k][3], plan[k][5]) for k in keys]
+    world = max(plan[k][2] for k in keys)
+    timeout_s = sum(plan[k][4] for k in keys)
+    ctx = mp.get_context('spawn')
+    with tempfile.TemporaryDirectory(prefix='ranks_') as workdir:
+        for entry in entries:
+            os.makedirs(os.path.join(workdir, entry[5]))
+        procs = [ctx.Process(target=shared_rank,
+                             args=(rank, DEVICE, workdir, entries))
+                 for rank in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + timeout_s
+        try:
+            while time.time() < deadline and any(p.is_alive()
+                                                 for p in procs):
+                if any(p.exitcode for p in procs if not p.is_alive()):
+                    break
+                time.sleep(0.2)
+        finally:
+            alive = [i for i, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        for label, _, n, _, _, stem in entries:
+            for r in range(n):
+                err = os.path.join(workdir, stem, f'{stem}{r}.error')
+                if os.path.exists(err):
+                    with open(err) as f:
+                        text = f.read().strip().splitlines()
+                    fail(f'{label} rank {r} failed: {text[-1]} (exit codes '
+                         f'{codes})')
+        if alive or any(codes):
+            pending = next((e[0] for e in entries if not all(
+                os.path.exists(os.path.join(workdir, e[5], f'{e[5]}{r}.pt'))
+                for r in range(e[2]))), 'shared spawn')
+            fail(f'{pending} ranks {alive} did not finish in {timeout_s} s'
+                 if alive else f'{pending}: ranks exited with {codes}')
+        return {k: [torch.load(os.path.join(workdir, e[5], f'{e[5]}{r}.pt'))
+                    for r in range(e[2])]
+                for k, e in zip(keys, entries)}
+
+
+def phase_kaisa(torch, kt, ranks=None):
+    """Four ranks on the KAISA grid (``ranks``: their reports from the
+    shared spawn, :func:`spawn_shared`; ``None`` spawns them here);
+    returns the kernel's launches over the checked passes (every rank,
+    every strategy) and the MEM-OPT gradient gather's time per step over
+    its timing pass (all calls)."""
     from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
 
     world = KAISA_WORLD
@@ -2202,8 +2374,8 @@ def phase_kaisa(torch, kt):
     print(f'kaisa: world {world}, backend {backend} ({where}); the times '
           'below are correctness-path times, not a scaling result',
           flush=True)
-    ranks = spawn_ranks(torch, kaisa_rank, world, backend, (),
-                        KAISA_TIMEOUT_S, 'kaisa', 'rank')
+    if ranks is None:
+        ranks = spawn_alone(torch, '5')
     total_launches = 0
     mem_gather_ms = None
     for strategy in KAISA_STRATEGIES:
@@ -2880,11 +3052,12 @@ def phase_resnet50_ekfac(torch, kt):
 
 #: Phase 14: ResNet-50 with the staggered refresh, a factor update every
 #: step, a refresh interval of 10 split into ``RN50_STAGGER`` shards;
-#: 31 steps staggered, then the same 31 monolithic.
+#: 21 steps staggered, then the same 21 monolithic (cut from 31 for
+#: phases 29-30, for time).
 RN50_STAGGER_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=10)
 RN50_STAGGER = 5
-RN50_STAGGER_STEPS = 31
-RN50_STAGGER_CHECK = 30  # the last refresh (shard 0): the kernel vs a rerun
+RN50_STAGGER_STEPS = 21
+RN50_STAGGER_CHECK = 20  # the last refresh (shard 0): the kernel vs a rerun
 #: The checkpoint of phase 14's resume, and the last resumed step.
 RN50_STAGGER_SAVE = 12
 RN50_STAGGER_RESUME_TO = 16
@@ -3801,8 +3974,9 @@ def pipeline_rank(rank, world, backend, device_type, workdir, image, batch,
     dist.destroy_process_group()
 
 
-def phase_resnet50_pipelined(torch, kt):
-    """Phase 17: four ranks of :func:`pipeline_rank` on the card.  Gates,
+def phase_resnet50_pipelined(torch, kt, ranks=None):
+    """Phase 17: four ranks of :func:`pipeline_rank` on the card
+    (``ranks``: their reports from :func:`spawn_shared`).  Gates,
     per strategy: the pipelined run's preconditioned gradients and
     parameters bitwise equal to the synchronous run's at every step,
     parameters bitwise equal across ranks (a checksum every step, the
@@ -3821,9 +3995,8 @@ def phase_resnet50_pipelined(torch, kt):
           f'{RN50_BATCH // world} per rank at {RN50_IMAGE}x{RN50_IMAGE}; '
           'times are correctness-path times on one shared card, not a '
           'scaling result', flush=True)
-    ranks = spawn_ranks(torch, pipeline_rank, world, backend,
-                        (RN50_IMAGE, RN50_BATCH, PIPE_MODEL),
-                        RN50_PIPE_TIMEOUT_S, 'resnet50 pipelined', 'pipe')
+    if ranks is None:
+        ranks = spawn_alone(torch, '17')
     launches = 0
     n_buckets = ranks[0]['HYBRID_OPT']['sync']['n_buckets']
     if PIPE_MODEL[0] == 'resnet50' and n_buckets != 21:
@@ -4167,8 +4340,9 @@ def ekfac_grid_rank(rank, world, backend, device_type, workdir, image,
     dist.destroy_process_group()
 
 
-def phase_resnet50_ekfac_grid(torch, kt):
-    """Phase 18: four ranks of :func:`ekfac_grid_rank` on the card, EKFAC
+def phase_resnet50_ekfac_grid(torch, kt, ranks=None):
+    """Phase 18: four ranks of :func:`ekfac_grid_rank` on the card
+    (``ranks``: their reports from :func:`spawn_shared`), EKFAC
     on ResNet-50 under COMM-OPT, HYBRID-OPT and MEM-OPT.  The grids with
     several columns step their weights with COMM-OPT's preconditioned
     gradients, so all three see the same weights at every step (a free
@@ -4204,9 +4378,8 @@ def phase_resnet50_ekfac_grid(torch, kt):
               'rank; factor_step and refresh are bytes received, held the '
               'second-order state, in_flight the receive buffers): '
               + json.dumps(counted), flush=True)
-    ranks = spawn_ranks(torch, ekfac_grid_rank, world, backend,
-                        (RN50_IMAGE, RN50_BATCH, GRID_MODEL),
-                        RN50_GRID_TIMEOUT_S, 'resnet50 ekfac grid', 'grid')
+    if ranks is None:
+        ranks = spawn_alone(torch, '18')
     for strategy in RN50_GRID_STRATEGIES:
         runs = [r[strategy] for r in ranks]
         label = f'resnet50 ekfac grid {strategy}'
@@ -4807,8 +4980,9 @@ def consistency_rank(rank, world, backend, device_type, workdir, image,
     dist.destroy_process_group()
 
 
-def phase_resnet50_consistency(torch, kt):
-    """Phase 21: four ranks of :func:`consistency_rank` (budget 45 s).
+def phase_resnet50_consistency(torch, kt, ranks=None):
+    """Phase 21: four ranks of :func:`consistency_rank` (budget 45 s;
+    ``ranks``: their reports from :func:`spawn_shared`).
     Gates on every rank, all reading the same counters: the checks at 0
     and 2 clean; at 4 exactly one layer and one slot mismatching,
     repaired (the follow-up check clean) and the next refresh forced to
@@ -4823,9 +4997,8 @@ def phase_resnet50_consistency(torch, kt):
 
     world = KAISA_WORLD
     backend = default_backend(world) if DEVICE == 'cuda' else 'gloo'
-    ranks = spawn_ranks(torch, consistency_rank, world, backend,
-                        (RN50_IMAGE, RN50_BATCH, CONS_MODEL),
-                        RN50_CONS_TIMEOUT_S, 'resnet50 consistency', 'cons')
+    if ranks is None:
+        ranks = spawn_alone(torch, '21')
     label = 'resnet50 consistency'
     per_step = ranks[0]['buckets'] if DEVICE == 'cuda' else 0
     if DEVICE == 'cuda' and CONS_MODEL[0] == 'resnet50' and per_step != 21:
@@ -5475,8 +5648,9 @@ def elastic_rank(rank, world, backend, device_type, workdir, image, batch,
     dist.destroy_process_group()
 
 
-def phase_resnet50_elastic(torch, kt):
-    """Phase 22: streaming checkpoints (budget 45 s).  Single card: the
+def phase_resnet50_elastic(torch, kt, ranks=None):
+    """Phase 22: streaming checkpoints (budget 45 s; ``ranks``: the
+    resize ranks' reports from :func:`spawn_shared`).  Single card: the
     replay from the generation saved after step 2 ends bitwise equal to
     the uninterrupted run (parameters after step 5 and the first replayed
     step's preconditioned gradients, cuDNN deterministic); the walk skips
@@ -5553,9 +5727,8 @@ def phase_resnet50_elastic(torch, kt):
 
     world = RN50_RESIZE_WORLDS[0]
     backend = default_backend(world) if DEVICE == 'cuda' else 'gloo'
-    ranks = spawn_ranks(torch, elastic_rank, world, backend,
-                        (RN50_IMAGE, RN50_BATCH, ELASTIC_MODEL),
-                        RN50_RESIZE_TIMEOUT_S, 'resnet50 resize', 'resize')
+    if ranks is None:
+        ranks = spawn_alone(torch, '22')
     label = 'resnet50 resize'
     restored = ranks[:RN50_RESIZE_WORLDS[1]]
     steps = RN50_RESIZE_STOP - RN50_RESIZE_SAVE
@@ -5693,8 +5866,9 @@ def watchdog_rank(rank, world, backend, device_type, workdir):
     dist.destroy_process_group()
 
 
-def phase_resnet50_watchdog(torch, kt):
-    """Phase 23: the trajectory watchdog (budget 45 s), the fault of
+def phase_resnet50_watchdog(torch, kt, ranks=None):
+    """Phase 23 (``ranks``: the two ranks' reports from
+    :func:`spawn_shared`): the trajectory watchdog (budget 45 s), the fault of
     ``RN50_WATCH_POISON``.  Gates: the first
     dirty check at step 10 (rung 1, damping and kl-clip softened), the
     next at 12 (rung 2) rolling back onto the newest ``healthy``
@@ -5814,8 +5988,8 @@ def phase_resnet50_watchdog(torch, kt):
           flush=True)
 
     backend = default_backend(2) if DEVICE == 'cuda' else 'gloo'
-    ranks = spawn_ranks(torch, watchdog_rank, 2, backend, (),
-                        WATCH_RANK_TIMEOUT_S, 'watchdog ranks', 'watch')
+    if ranks is None:
+        ranks = spawn_alone(torch, '23')
     label = 'watchdog ranks'
     r0, r1 = ranks
     if not (r0['rungs'] == r1['rungs'] and r0['totals'] == r1['totals']
@@ -6675,6 +6849,14 @@ PIPE_LM_HP = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
                   kl_clip=0.001, lr=0.1)
 PIPE_LM_STEPS = 5
 FLAVOUR_SGD_LR = 0.1
+#: The flavours' adaptive passes (phases 26-27): ``AdaptiveDamping``
+#: through ``make_train_step``, an adaptation every step, so the
+#: controller adapts at both of the pass's steps; its ``rho`` band is cut
+#: to the one point 0.5, so every adaptation moves the damping (in the
+#: paper's band [1/4, 3/4] a step may leave it; the pass checks the feed
+#: and the ranks' agreement, not the band).
+ADAPT_STEPS = 2
+ADAPT_DAMPING = dict(initial=0.003, interval=1, lower=0.5, upper=0.5)
 
 
 def sync_device(torch, dev) -> None:
@@ -6891,6 +7073,81 @@ def expert_grads(model):
             for n in ('w_in', 'b_in', 'w_out', 'b_out')}
 
 
+def adaptive_pass(torch, kt, dev, model, make_precond, args, loss_args):
+    """``ADAPT_STEPS`` fused steps of a flavour (``make_train_step``,
+    SGD) under ``AdaptiveDamping(**ADAPT_DAMPING)``, every
+    fused call held against its plain version: per step the loss, the
+    damping in force after it and the synchronized step time; the
+    loss-only forwards' times (synchronized); the launches (counted from
+    0 just before the steps) and the kernel check."""
+    ad = kt.AdaptiveDamping(**ADAPT_DAMPING)
+    precond = make_precond(ad)
+    step = precond.make_train_step(
+        torch.optim.SGD(model.parameters(), lr=FLAVOUR_SGD_LR))
+    real = precond._loss_only
+    loss_only_s = []
+
+    def timed(*a):
+        sync_device(torch, dev)
+        t0 = time.perf_counter()
+        out = real(*a)
+        sync_device(torch, dev)
+        loss_only_s.append(time.perf_counter() - t0)
+        return out
+
+    precond._loss_only = timed
+    out = dict(losses=[], damping=[], step_s=[], start=ad.damping,
+               n_layers=len(precond.layers))
+    sync_device(torch, dev)
+    kt.ops.fused_eigen_precondition.launches = 0
+    with KernelCheck(kt.ops) as check:
+        for _ in range(ADAPT_STEPS):
+            t0 = time.perf_counter()
+            loss, _ = step(*args, loss_args=loss_args)
+            sync_device(torch, dev)
+            out['step_s'].append(time.perf_counter() - t0)
+            out['losses'].append(float(loss))
+            out['damping'].append(ad.damping)
+    out.update(launches=kt.ops.fused_eigen_precondition.launches,
+               loss_only_s=loss_only_s, **check.summary())
+    return out
+
+
+def adaptive_gate(label, runs, stacks):
+    """The gates of the adaptive passes ``runs`` (one a rank): finite
+    losses, the damping moved from its start, every rank's damping after
+    every step bitwise rank 0's, launches = steps x layers, every fused
+    call within the kernel's bar, every stack it saw padded to multiples
+    of 8 and ``stacks`` among them; and the line they print.  Returns
+    the launches over the runs and the worst ``pg`` error."""
+    first = runs[0]
+    for r, run in enumerate(runs):
+        want = ADAPT_STEPS * run['n_layers'] * (DEVICE == 'cuda')
+        if not (all(map(math.isfinite, run['losses']))
+                and any(d != run['start'] for d in run['damping'])
+                and run['damping'] == first['damping']
+                and run['launches'] == want and not run['bad']
+                and stacks <= set(run['shapes'])
+                and all(aligned(x) == x for x in run['shapes'])):
+            fail(f'{label} rank {r}: losses {run["losses"]}, damping '
+                 f'{run["damping"]} (rank 0 {first["damping"]}, start '
+                 f'{run["start"]}), launches {run["launches"]} (want '
+                 f'{want}), kernel vs plain off at {run["bad"][:4]}, '
+                 f'shapes {run["shapes"]}')
+    step = statistics.median(t for r in runs for t in r['step_s']) * 1e3
+    fwd = statistics.median(t for r in runs for t in r['loss_only_s']) * 1e3
+    print(f'{label}: AdaptiveDamping({ADAPT_DAMPING}) '
+          f'through make_train_step, {ADAPT_STEPS} steps on '
+          f'{len(runs)} rank(s): damping {first["damping"]} (from '
+          f'{first["start"]}), bitwise equal on every rank; losses '
+          f'{[round(v, 6) for v in first["losses"]]}; fused launches '
+          f'{[r["launches"] for r in runs]} ({ADAPT_STEPS} steps x '
+          f'{first["n_layers"]}) on {first["shapes"]}, '
+          f'{check_line(runs)}; median step {step:.2f} ms, the loss-only '
+          f'forward {fwd:.2f} ms (host clock, synchronized)', flush=True)
+    return sum(r['launches'] for r in runs), max(r['worst'] for r in runs)
+
+
 def moe_rank(torch, kt, dev, world):
     """One rank of phase 26's expert group (``X = world``), run in phase
     28's spawn: losses, expert gradients and launches of
@@ -6914,6 +7171,13 @@ def moe_rank(torch, kt, dev, world):
     sync_device(torch, dev)
     out.update(launches=kt.ops.fused_eigen_precondition.launches,
                **check.summary())
+    del model, precond, opt
+    model = moe_model(torch, kt, dev, expert_group=grid.inner_group)
+    out['adaptive'] = adaptive_pass(
+        torch, kt, dev, model,
+        lambda ad: MoEKFACPreconditioner(model, moe_xent,
+                                         **dict(MOE_HP, damping=ad)),
+        (x,), (y,))
     return out
 
 
@@ -6981,8 +7245,21 @@ def phase_moe(torch, kt):
     del model, precond, opt
     gc.collect()
     torch.cuda.empty_cache()
+    model = moe_model(torch, kt, dev)
+    adaptive = adaptive_pass(
+        torch, kt, dev, model,
+        lambda ad: MoEKFACPreconditioner(model, moe_xent,
+                                         **dict(MOE_HP, damping=ad)),
+        (x,), (y,))
+    adaptive_launches, adaptive_worst = adaptive_gate(
+        'moe adaptive', [adaptive], stacks)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return dict(launches=launches, worst=check.worst, losses=losses,
-                ref=ref, n_layers=n_layers)
+                ref=ref, n_layers=n_layers, adaptive=adaptive,
+                adaptive_launches=adaptive_launches,
+                adaptive_worst=adaptive_worst, stacks=stacks)
 
 
 def moe_world_check(one, ranks, backend):
@@ -7013,6 +7290,12 @@ def moe_world_check(one, ranks, backend):
           f'{worst_grad:.3e} (relative) of the one-card run; launches '
           f'{[r["launches"] for r in ranks]}, {check_line(ranks)}, shapes '
           f'{ranks[0]["shapes"]}', flush=True)
+    launches, worst = adaptive_gate(
+        f'moe adaptive world {len(ranks)} ({backend})',
+        [r['adaptive'] for r in ranks],
+        {(ranks[0]['local'], *x[1:]) for x in one['stacks']})
+    one['adaptive_launches'] += launches
+    one['adaptive_worst'] = max(one['adaptive_worst'], worst)
     return max(r['worst'] for r in ranks)
 
 
@@ -7078,6 +7361,15 @@ def pipe_rank(torch, kt, dev, world):
             opt.step()
     out.update(launches=kt.ops.fused_eigen_precondition.launches,
                handoffs=precond.links.handoff_bytes, **check.summary())
+    del model, precond, opt
+    model = pipeline_lm(PipeLMConfig(**PIPE_LM), grid=grid, device=dev,
+                        seed=0)
+    out['adaptive'] = adaptive_pass(
+        torch, kt, dev, model,
+        lambda ad: PipelineKFACPreconditioner(
+            model, pipe_lm_loss, n_microbatches=PIPE_LM_M, grid=grid,
+            **dict(PIPE_LM_HP, damping=ad)),
+        (tokens,), (labels,))
     return out
 
 
@@ -7154,8 +7446,22 @@ def phase_pipeline(torch, kt):
     del model, precond, opt
     gc.collect()
     torch.cuda.empty_cache()
+    model = pipeline_lm(cfg, device=dev, seed=0)
+    adaptive = adaptive_pass(
+        torch, kt, dev, model,
+        lambda ad: PipelineKFACPreconditioner(
+            model, pipe_lm_loss, n_microbatches=PIPE_LM_M,
+            **dict(PIPE_LM_HP, damping=ad)),
+        (tokens,), (labels,))
+    adaptive_launches, adaptive_worst = adaptive_gate(
+        'pipeline adaptive', [adaptive], stacks)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return dict(losses=losses, factors=factors, grads=grads, stacks=stacks,
-                per_step=per_step, worst=check.worst, cfg=cfg)
+                per_step=per_step, worst=check.worst, cfg=cfg,
+                adaptive_launches=adaptive_launches,
+                adaptive_worst=adaptive_worst)
 
 
 def pipeline_world_check(one, ranks, backend):
@@ -7202,6 +7508,11 @@ def pipeline_world_check(one, ranks, backend):
           f'step {[round(t * 1e3, 2) for t in times]} ms by rank (host '
           'clock; a correctness path on one shared card, not a scaling '
           'result)', flush=True)
+    launches, worst = adaptive_gate(
+        f'pipeline adaptive world {world} ({backend})',
+        [r['adaptive'] for r in ranks], {(1, *x[1:]) for x in stacks})
+    one['adaptive_launches'] += launches
+    one['adaptive_worst'] = max(one['adaptive_worst'], worst)
     return (sum(r['launches'] for r in ranks),
             max(r['worst'] for r in ranks))
 
@@ -7260,13 +7571,51 @@ SEQ_HP = dict(factor_update_steps=1, inv_update_steps=3, damping=0.003,
 SEQ_WORLD = 4
 #: Steps of (a) and of each pass of (b), cut for the card run's time
 #: (spawned ranks on one card run gloo through host memory, 5-16 s a
-#: step): the step-0 refresh and, for the ring, two steps on its
-#: decompositions; each TP pass one step.
-SEQ_STEPS = 3
+#: step): the step-0 refresh and, for the ring, one step on its
+#: decompositions (two until phases 29-30 came); each TP pass one step.
+SEQ_STEPS = 2
 TP_STEPS = 1
 SEQ_TIMEOUT_S = 600
 SEQ_TOL = 1e-4
 SEQ_ATTN_TOL = 1e-5
+
+
+#: Phase 30b: BERT-large's widths (vocab 30522, 16 heads, 1024/4096),
+#: f32 compute, with the depth cut to ``BERT_TP_LAYERS`` blocks for the
+#: card run's time; ``BERT_TP_BATCH`` real-text QA examples of
+#: ``BERT_TP_SEQ`` positions (half a data rank), ``SEQ_HP``, prediv,
+#: ``BERT_TP_STEPS`` steps.
+BERT_TP_MODEL = 'bert_large'
+BERT_TP_LAYERS = 4
+BERT_TP_BATCH = 4
+BERT_TP_SEQ = 384
+BERT_TP_STEPS = 2
+
+
+def bert_tp_model(torch, kt, dev, tp_group=None):
+    """Phase 30b's BERT from seed 0 (sharded over ``tp_group``)."""
+    return getattr(kt.models, BERT_TP_MODEL)(
+        device=dev, seed=0, dtype=torch.float32, n_layers=BERT_TP_LAYERS,
+        max_seq_len=BERT_TP_SEQ, tp_group=tp_group)
+
+
+def bert_tp_batch(torch, dev):
+    """``(tokens, mask, starts, ends)`` of the squad example's real-text
+    QA task, on the card."""
+    from kfac_pytorch_tpu_torch.examples.squad_bert import build_realtext_qa
+
+    tokens, starts, ends, mask = build_realtext_qa(
+        BERT_TP_SEQ, n_examples=BERT_TP_BATCH, seed=30)
+    return (torch.from_numpy(tokens).long().to(dev),
+            torch.from_numpy(mask).to(dev),
+            torch.from_numpy(starts).long().to(dev),
+            torch.from_numpy(ends).long().to(dev))
+
+
+def bert_tp_loss(out, targets):
+    from kfac_pytorch_tpu_torch.examples.squad_bert import span_loss
+
+    return span_loss(out, *targets)[0]
 
 
 def seq_model(torch, kt, dev, **kw):
@@ -7303,11 +7652,16 @@ def seq_grad_gate(precond, name: str) -> float:
                                        st.g_factor.shape[0])))
 
 
-def seq_errors(torch, precond, params, ref, shard=None):
+def seq_errors(torch, precond, params, ref, shard=None, zero=()):
     """The worst relative Frobenius errors of this rank's factors and
     gradients against the one-process reference (its gradients sharded
     as ``shard(full) -> this rank's state dict`` when given); the
-    gradients' as ``(share of the gate, error, name)``."""
+    gradients' as ``(share of the gate, error, name)``.  A parameter in
+    ``zero`` has a gradient that is zero in exact arithmetic (the bias of
+    BERT's last LayerNorm, whose output gradient is ``qa_head``'s kernel
+    times softmax gradients that each sum to zero over a row), so its
+    relative error is rounding over rounding: its error is taken against
+    the norm of its LayerNorm's scale gradient instead."""
     worst_f, worst_g = (0.0, None), (0.0, 0.0, None)
     for name, st in precond.layers.items():
         a, g = ref['factors'][name]
@@ -7316,14 +7670,19 @@ def seq_errors(torch, precond, params, ref, shard=None):
                       (rel_frob(st.g_factor, g.to(st.g_factor)), name + ' G'))
     want = ref['grads'] if shard is None else shard(ref['grads'])
     for name, p in params:
-        err = rel_frob(p.grad, want[name].to(p.grad))
+        if name in zero:
+            scale = want[name.rsplit('.', 1)[0] + '.weight'].to(p.grad)
+            err = float((p.grad - want[name].to(p.grad)).norm()
+                        / scale.norm())
+        else:
+            err = rel_frob(p.grad, want[name].to(p.grad))
         worst_g = max(worst_g,
                       (err / seq_grad_gate(precond, name), err, name))
     return worst_f, worst_g
 
 
 def seq_train(torch, kt, dev, ddp, model, precond, batch, loss_fn, steps,
-              ref, shard=None):
+              ref, shard=None, zero=()):
     """``steps`` K-FAC steps with SGD, the fused calls checked against
     plain; per step the loss and the synchronized step time, the first
     step's errors against ``ref`` (``None`` on ranks that only digest)
@@ -7357,7 +7716,7 @@ def seq_train(torch, kt, dev, ddp, model, precond, batch, loss_fn, steps,
                     + [p.grad for _, p in params])
                 if ref is not None:
                     out['factor_err'], out['grad_err'] = seq_errors(
-                        torch, precond, params, ref, shard)
+                        torch, precond, params, ref, shard, zero)
             opt.step()
     sync_device(torch, dev)
     out.update(launches=fused.launches, **check.summary())
@@ -7401,19 +7760,23 @@ def seq_ring_check(torch, dev, links):
             kv.numel() * kv.element_size(), (B, T, H, D))
 
 
-def world_rank(rank, world, backend, device_type, workdir, ref_path):
+def world_rank(rank, world, backend, device_type, workdir, ref_path,
+               bert_ref_path):
     """One rank of phase 28's spawn: phase 26's expert group
     (:func:`moe_rank`) and phase 27's stage (:func:`pipe_rank`), then (a)
     the ring GPT over a sequence group of ``world`` and (b)
     ``GPTKFACPreconditioner`` on a ``2 x 2`` (data, model) grid, default
-    then prediv; ranks 0 and 1 hold their first step against the
-    one-process reference at ``ref_path``; writes ``seq{rank}.pt``."""
+    then prediv, then (c) phase 30b's tensor-parallel BERT on the same
+    grid; ranks 0 and 1 hold their first step against the one-process
+    references at ``ref_path`` and ``bert_ref_path``; writes
+    ``seq{rank}.pt``."""
     import torch
     import torch.distributed as dist
     import torch.nn.functional as F
 
     import kfac_pytorch_tpu_torch as kt
     from kfac_pytorch_tpu_torch.gpt import GPTKFACPreconditioner
+    from kfac_pytorch_tpu_torch.models import bert as bert_lib
     from kfac_pytorch_tpu_torch.models.gpt import shard_state_dict
     from kfac_pytorch_tpu_torch.parallel import tensor as tp_lib
     from kfac_pytorch_tpu_torch.parallel.mesh import axis_groups
@@ -7435,14 +7798,17 @@ def world_rank(rank, world, backend, device_type, workdir, ref_path):
         torch.cuda.empty_cache()
     tokens = seq_batch(torch, dev)
     B, T = tokens.shape
-    # The parent writes the one-process reference while phases 26 and
-    # 27's ranks run, and renames it into place once its memory is free.
-    deadline = time.time() + SEQ_TIMEOUT_S
-    while not os.path.exists(ref_path):
-        if time.time() > deadline:
-            raise TimeoutError(f'no reference at {ref_path}')
-        time.sleep(0.2)
-    ref = torch.load(ref_path, map_location='cpu') if rank < 2 else None
+    # The parent writes the one-process references while phases 26 and
+    # 27's ranks run, and renames each into place once its memory is free.
+    def reference(path):
+        deadline = time.time() + SEQ_TIMEOUT_S
+        while not os.path.exists(path):
+            if time.time() > deadline:
+                raise TimeoutError(f'no reference at {path}')
+            time.sleep(0.2)
+        return torch.load(path, map_location='cpu') if rank < 2 else None
+
+    ref = reference(ref_path)
 
     # (a) The ring over a sequence group of ``world``.
     grid = axis_groups(1, world, names=('data', 'seq'))
@@ -7513,33 +7879,82 @@ def world_rank(rank, world, backend, device_type, workdir, ref_path):
     sync_device(torch, dev)
     res['gather_ms'] = (time.perf_counter() - t0) / 5 * 1e3
     res['gather_bytes'] = 2 * x.numel() * x.element_size()
+    del x, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Phase 30b: the tensor-parallel BERT on the same grid, prediv.
+    ref = reference(bert_ref_path)
+    model = bert_tp_model(torch, kt, dev, tp_group=mesh.group('model'))
+    ddp = DDP(model, process_group=mesh.group('data'))
+    precond = GPTKFACPreconditioner(
+        ddp, mesh=mesh, compute_eigenvalue_outer_product=True, **SEQ_HP)
+    tokens, mask, starts, ends = bert_tp_batch(torch, dev)
+    half = BERT_TP_BATCH // 2
+    rows = slice(mesh.outer * half, (mesh.outer + 1) * half)
+    tp_lib.reset_gather_stats()
+    res['bert tp'] = seq_train(
+        torch, kt, dev, lambda x: ddp(x[0], None, x[1]), model, precond,
+        ((tokens[rows], mask[rows]), (starts[rows], ends[rows])),
+        bert_tp_loss, BERT_TP_STEPS, ref,
+        lambda full: bert_lib.shard_state_dict(full, mesh.inner, 2),
+        zero=(f'h_{BERT_TP_LAYERS - 1}.ln_mlp.bias',))
+    res['bert tp'].update(
+        gathers={k: list(v) for k, v in tp_lib.GATHER_STATS.items()},
+        grid=(precond.grid.rows, precond.grid.cols),
+        buckets=kernel_buckets(precond), n_layers=BERT_TP_LAYERS)
+    del model, ddp, precond
     torch.save(res, os.path.join(workdir, f'seq{rank}.pt'))
     dist.destroy_process_group()
 
 
 def seq_reference(torch, kt, path, out):
-    """The one-process run both paths are held to: the dense GPT-125M
-    (f32, SDPA) under ``KFACPreconditioner`` on the whole batch, SGD;
-    saves the factors and the raw and preconditioned gradients after
-    step 0 to ``path`` (written aside and renamed into place, once the
-    card memory is freed), and puts the losses and step times in
-    ``out``."""
+    """The one-process run phase 28's paths are held to: the dense
+    GPT-125M (f32, SDPA) under ``KFACPreconditioner`` on the whole batch,
+    SGD (:func:`reference_run`)."""
     import torch.nn.functional as F
 
     dev = torch.device(DEVICE)
     model = seq_model(torch, kt, dev)
-    precond = kt.KFACPreconditioner(model, **SEQ_HP)
-    opt = torch.optim.SGD(model.parameters(), lr=SEQ_HP['lr'])
     tokens = seq_batch(torch, dev)
+
+    def loss_of():
+        logits = model(tokens)
+        return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               tokens[:, 1:].reshape(-1))
+
+    reference_run(torch, path, out, model,
+                  kt.KFACPreconditioner(model, **SEQ_HP), loss_of, SEQ_STEPS)
+
+
+def bert_tp_reference(torch, kt, path, out):
+    """The one-process run phase 30b is held to: the same BERT whole under
+    ``GPTKFACPreconditioner`` with prediv on the whole batch, SGD."""
+    from kfac_pytorch_tpu_torch.gpt import GPTKFACPreconditioner
+
+    dev = torch.device(DEVICE)
+    model = bert_tp_model(torch, kt, dev)
+    tokens, mask, starts, ends = bert_tp_batch(torch, dev)
+    precond = GPTKFACPreconditioner(
+        model, compute_eigenvalue_outer_product=True, **SEQ_HP)
+    reference_run(torch, path, out, model, precond,
+                  lambda: bert_tp_loss(model(tokens, None, mask),
+                                       (starts, ends)), BERT_TP_STEPS)
+
+
+def reference_run(torch, path, out, model, precond, loss_of, steps):
+    """``steps`` K-FAC steps with SGD of a one-process reference; saves
+    the factors and the raw and preconditioned gradients after step 0
+    to ``path`` (written aside and renamed into place, once the card
+    memory is freed), and puts the losses and step times in ``out``."""
+    dev = torch.device(DEVICE)
+    opt = torch.optim.SGD(model.parameters(), lr=SEQ_HP['lr'])
     ref, losses, step_s = {}, [], []
-    for step in range(SEQ_STEPS):
+    for step in range(steps):
         sync_device(torch, dev)
         t0 = time.perf_counter()
         opt.zero_grad()
-        logits = model(tokens)
-        loss = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
-                               tokens[:, 1:].reshape(-1))
-        del logits
+        loss = loss_of()
         loss.backward()
         if step == 0:
             ref['raw'] = {n: p.grad.cpu()
@@ -7575,13 +7990,18 @@ def phase_seq_tp(torch, kt, moe, pipe):
     workdir = tempfile.mkdtemp(prefix='seq_ref_')
     try:
         path = os.path.join(workdir, 'ref.pt')
-        one = {}
+        bert_path = os.path.join(workdir, 'bert_ref.pt')
+        one, bert_one = {}, {}
         backend = (default_backend(SEQ_WORLD) if DEVICE == 'cuda'
                    else 'gloo')
+
+        def references():
+            seq_reference(torch, kt, path, one)
+            bert_tp_reference(torch, kt, bert_path, bert_one)
+
         ranks = spawn_ranks(
-            torch, world_rank, SEQ_WORLD, backend, (path,), SEQ_TIMEOUT_S,
-            'seq/tp', 'seq',
-            meanwhile=lambda: seq_reference(torch, kt, path, one))
+            torch, world_rank, SEQ_WORLD, backend, (path, bert_path),
+            SEQ_TIMEOUT_S, 'seq/tp', 'seq', meanwhile=references)
         losses, ref_s = one['losses'], one['step_s']
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -7593,10 +8013,18 @@ def phase_seq_tp(torch, kt, moe, pipe):
           f'{GPT_BATCH[1]}, one process, KFACPreconditioner: losses '
           f'{[round(v, 6) for v in losses]}, step times '
           f'{[round(s * 1e3, 2) for s in ref_s]} ms', flush=True)
+    print(f'bert tp reference: BERT-large widths, {BERT_TP_LAYERS} blocks, '
+          f'f32, batch {BERT_TP_BATCH} x {BERT_TP_SEQ}, one process, '
+          f'GPTKFACPreconditioner with prediv: losses '
+          f'{[round(v, 6) for v in bert_one["losses"]]}, step times '
+          f'{[round(s * 1e3, 2) for s in bert_one["step_s"]]} ms',
+          flush=True)
     worst = 0.0
     for label, steps in (('ring', SEQ_STEPS), ('tp default', TP_STEPS),
-                         ('tp prediv', TP_STEPS)):
+                         ('tp prediv', TP_STEPS),
+                         ('bert tp', BERT_TP_STEPS)):
         runs = [r[label] for r in ranks]
+        want_losses = bert_one['losses'] if label == 'bert tp' else losses
         for r, run in enumerate(runs):
             if not torch.equal(run['digest'], runs[0]['digest'] if label ==
                                'ring' else runs[r % 2]['digest']):
@@ -7610,13 +8038,18 @@ def phase_seq_tp(torch, kt, moe, pipe):
                    for i in range(steps)]
             want_launches = steps * runs[0]['buckets'] * cuda
             launches_ok = all(r['launches'] == want_launches for r in runs)
+        elif label == 'bert tp':
+            got = [(runs[0]['losses'][i] + runs[2]['losses'][i]) / 2
+                   for i in range(steps)]
+            launches_ok = all(r['launches'] == steps * r['buckets'] * cuda
+                              for r in runs)
         else:
             got = [(runs[0]['losses'][i] + runs[2]['losses'][i]) / 2
                    for i in range(steps)]
             launches_ok = all((r['launches'] > 0) == (cuda and label ==
                                                        'tp prediv')
                               for r in runs)
-        loss_err = max(abs(g - w) / abs(w) for g, w in zip(got, losses))
+        loss_err = max(abs(g - w) / abs(w) for g, w in zip(got, want_losses))
         checked = [r for r in runs if 'factor_err' in r]
         f_err, f_at = max(r['factor_err'] for r in checked)
         g_share, g_err, g_at = max(r['grad_err'] for r in checked)
@@ -7639,14 +8072,17 @@ def phase_seq_tp(torch, kt, moe, pipe):
                      f'{ranks[0]["rotation_ms"]:.3f} ms')
         else:
             fac, grd = runs[0]['gathers']['factor'], runs[0]['gathers']['grad']
+            blocks = runs[0].get('n_layers', ranks[0]['n_layers'])
             extra = (f'; grid {runs[0]["grid"]} a model index; gathered '
-                     f'{fac[1] / steps / ranks[0]["n_layers"]:.0f} bytes a '
+                     f'{fac[1] / steps / blocks:.0f} bytes a '
                      'block a factor '
                      f'step ({fac[0] // steps} gathers a step), '
                      f'{grd[1] / steps:.0f} bytes of weight gradients a step '
-                     f'({grd[0] // steps} gathers); one qkv output gather '
-                     f'of {ranks[0]["gather_bytes"]} bytes '
-                     f'{ranks[0]["gather_ms"]:.3f} ms')
+                     f'({grd[0] // steps} gathers)')
+            if label != 'bert tp':
+                extra += (f'; one qkv output gather of '
+                          f'{ranks[0]["gather_bytes"]} bytes '
+                          f'{ranks[0]["gather_ms"]:.3f} ms')
         print(f'{label} (world {SEQ_WORLD}, {backend}): losses '
               f'{[round(v, 6) for v in got]} within {loss_err:.3e}, step-0 '
               f'factors within {f_err:.3e} ({f_at}; gate {SEQ_TOL}), '
@@ -7675,7 +8111,183 @@ def phase_seq_tp(torch, kt, moe, pipe):
                 ring_launches=sum(r['ring']['launches'] for r in ranks),
                 ring_shapes=ranks[0]['ring']['shapes'],
                 tp_launches=sum(r['tp prediv']['launches'] for r in ranks),
-                tp_shapes=ranks[0]['tp prediv']['shapes'], worst=worst)
+                tp_shapes=ranks[0]['tp prediv']['shapes'], worst=worst,
+                bert_launches=sum(r['bert tp']['launches'] for r in ranks),
+                bert_shapes=ranks[0]['bert tp']['shapes'])
+
+
+#: Phase 29: the port's ``tiny_gpt_lm`` example at GPT-125M's widths
+#: (the example's flags; its default batch 32), factor 1, inv 10, 12
+#: steps, full coverage, on ``examples/data/real_text.npz``; lr 0.01,
+#: since at these widths the example's default 0.3 sends SGD's loss from
+#: 5.57 to 83.5 in six steps on the card (and 0.03 still oscillates on a
+#: CPU run at batch 8 x 256).
+LM_EXAMPLE_ARGS = ['--layers', '12', '--d-model', '768', '--seq-len', '1024',
+                   '--full-coverage', '--factor-update-steps', '1',
+                   '--inv-update-steps', '10', '--steps', '12',
+                   '--lr', '0.01']
+
+
+def phase_tiny_gpt_lm(torch, kt):
+    """Phase 29: ``tiny_gpt_lm.run()`` twice, SGD then K-FAC
+    (``KFACPreconditioner`` with the curvature monitor on), with the
+    example's writer and emitter.  Gates: finite falling losses in both
+    runs; fused launches (counted from 0 just before the K-FAC run) =
+    steps x the buckets that keep ``dgda``; every fused call against its
+    plain version.  Returns the launches, the bucket shapes and the
+    worst error."""
+    from kfac_pytorch_tpu_torch.examples import tiny_gpt_lm
+    from kfac_pytorch_tpu_torch.observe import Emitter
+    from kfac_pytorch_tpu_torch.utils.metrics import MetricsWriter
+
+    dev = torch.device(DEVICE)
+    with tempfile.TemporaryDirectory(prefix='tiny_gpt_') as log_dir:
+        args = tiny_gpt_lm.parse_args(LM_EXAMPLE_ARGS + [
+            '--device', DEVICE, '--log-dir', log_dir])
+        kept, tails, secs = {}, {}, {}
+        with MetricsWriter(log_dir, use_tensorboard=False) as writer, \
+                Emitter.to_dir(log_dir) as emitter:
+            for tag in ('sgd', 'kfac'):
+                kept[tag] = {}
+                sync_device(torch, dev)
+                kt.ops.fused_eigen_precondition.launches = 0
+                t0 = time.perf_counter()
+                with KernelCheck(kt.ops.fused_precond) as check:
+                    tails[tag] = tiny_gpt_lm.run(
+                        tag == 'kfac', args, writer, emitter,
+                        keep=kept[tag])
+                sync_device(torch, dev)
+                secs[tag] = time.perf_counter() - t0
+                launches = kt.ops.fused_eigen_precondition.launches
+        precond = kept['kfac']['precond']
+        buckets = kernel_buckets(precond)
+        report = precond.coverage_report()
+        layers = len(precond.layers)
+    want = args.steps * buckets * (DEVICE == 'cuda')
+    losses = {tag: kept[tag]['losses'] for tag in kept}
+    for tag, run in losses.items():
+        if not (all(map(math.isfinite, run)) and run[-1] < run[0]):
+            fail(f'tiny_gpt_lm {tag}: losses {run}')
+    if launches != want or check.bad:
+        fail(f'tiny_gpt_lm: {launches} launches (want {want} = '
+             f'{args.steps} x {buckets}), kernel vs plain off at '
+             f'{check.bad[:4]}')
+    print(f'tiny_gpt_lm: the example\'s run() at {args.layers} layers x '
+          f'{args.d_model} (d_ff {2 * args.d_model}, vocab 256), batch '
+          f'{args.batch} x {args.seq_len} of real_text.npz, lr {args.lr}, '
+          f'factor 1, inv {args.inv_update_steps}, {args.steps} steps, full '
+          'coverage '
+          f'({layers} layers, uncovered {report["uncovered"]}); losses SGD '
+          f'{[round(v, 4) for v in losses["sgd"]]}, K-FAC '
+          f'{[round(v, 4) for v in losses["kfac"]]}; tail means '
+          f'{tails["sgd"]:.4f} and {tails["kfac"]:.4f}; fused launches '
+          f'{launches} ({args.steps} steps x {buckets} buckets) on '
+          f'{check.shapes}, {check_line([check.summary()])}; '
+          f'{secs["sgd"]:.2f} s and {secs["kfac"]:.2f} s for the runs '
+          '(host clock)', flush=True)
+    shapes = check.shapes
+    del kept, precond
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, shapes=shapes, worst=check.worst)
+
+
+#: Phase 30: the port's ``squad_bert`` example at BERT-large's widths and
+#: depth (the example's defaults: vocab 30522, 24 blocks, 16 heads,
+#: 1024/4096, 384 positions, batch 4, AdamW), factor 1, inv 3, one epoch
+#: of ``SQUAD_STEPS`` steps on a data file of the real-text QA task, in
+#: one process (a 1 x 1 grid).
+SQUAD_ARGS = ['--model', 'bert_large', '--seq-len', '384', '--batch-size',
+              '4', '--epochs', '1', '--kfac-factor-update-steps', '1',
+              '--kfac-inv-update-steps', '3']
+SQUAD_STEPS = 3
+
+
+def phase_squad_bert(torch, kt):
+    """Phase 30: ``squad_bert.train()`` twice: at the default (no
+    ``dgda``: no launch, as in JAX) for two steps (the schedule's least:
+    a one-step epoch leaves the cosine no step), then with
+    ``compute_eigenvalue_outer_product=True`` for ``SQUAD_STEPS``.
+    Gates: finite losses; the checkpoint written; launches = steps x the
+    buckets that keep ``dgda`` with prediv, 0 at the default; every
+    fused call against its plain version.  Prints the step and refresh
+    times (host clock, synchronized).  Returns the launches, the bucket
+    shapes and the worst error."""
+    import numpy as np
+
+    from kfac_pytorch_tpu_torch.examples import squad_bert
+    from kfac_pytorch_tpu_torch.gpt import GPTKFACPreconditioner
+
+    dev = torch.device(DEVICE)
+    seq = int(SQUAD_ARGS[SQUAD_ARGS.index('--seq-len') + 1])
+    data = squad_bert.build_realtext_qa(seq, n_examples=4 * SQUAD_STEPS)
+    refresh_s = []
+    real = GPTKFACPreconditioner._refresh
+
+    def timed(self, damping):
+        sync_device(torch, dev)
+        t0 = time.perf_counter()
+        real(self, damping)
+        sync_device(torch, dev)
+        refresh_s.append(time.perf_counter() - t0)
+
+    runs = {}
+    GPTKFACPreconditioner._refresh = timed
+    try:
+        with tempfile.TemporaryDirectory(prefix='squad_') as work:
+            for label, steps, prediv in (('default', 2, False),
+                                         ('prediv', SQUAD_STEPS, True)):
+                path = os.path.join(work, f'{label}.npz')
+                n = 4 * steps
+                np.savez(path, tokens=data[0][:n], starts=data[1][:n],
+                            ends=data[2][:n], mask=data[3][:n])
+                args = squad_bert.parse_args(SQUAD_ARGS + [
+                    '--data-file', path, '--device', DEVICE,
+                    '--log-dir', os.path.join(work, label)])
+                sync_device(torch, dev)
+                del refresh_s[:]
+                kt.ops.fused_eigen_precondition.launches = 0
+                with KernelCheck(kt.ops.fused_precond) as check:
+                    out = squad_bert.train(
+                        args, compute_eigenvalue_outer_product=prediv)
+                sync_device(torch, dev)
+                out.update(launches=kt.ops.fused_eigen_precondition.launches,
+                           buckets=kernel_buckets(out['precond']),
+                           layers=len(out['precond'].layers),
+                           refresh_s=list(refresh_s),
+                           saved=os.path.isfile(out['checkpoint']),
+                           **check.summary())
+                del out['precond']
+                runs[label] = out
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        GPTKFACPreconditioner._refresh = real
+    cuda = DEVICE == 'cuda'
+    for label, out in runs.items():
+        steps = len(out['losses'])
+        want = steps * out['buckets'] * cuda if label == 'prediv' else 0
+        if not (all(map(math.isfinite, out['losses'])) and out['saved']
+                and out['launches'] == want and not out['bad']):
+            fail(f'squad_bert {label}: losses {out["losses"]}, checkpoint '
+                 f'{out["saved"]}, launches {out["launches"]} (want {want}), '
+                 f'kernel vs plain off at {out["bad"][:4]}')
+    p = runs['prediv']
+    step_ms = statistics.median(p['step_s'][1:]) * 1e3
+    print(f'squad_bert: BERT-large (24 x 1024/4096, 16 heads, vocab 30522) '
+          f'on the real-text QA task, batch 4 x {seq}, one process, '
+          f'GPTKFACPreconditioner ({p["layers"]} layers), factor 1, inv 3, '
+          f'AdamW: at the default 2 steps, losses '
+          f'{runs["default"]["losses"]}, 0 fused launches (no dgda, as in '
+          f'JAX); with prediv {SQUAD_STEPS} steps, losses '
+          f'{[round(v, 5) for v in p["losses"]]}, fused launches '
+          f'{p["launches"]} ({SQUAD_STEPS} steps x {p["buckets"]} buckets) '
+          f'on {p["shapes"]}, {check_line([p])}; step times '
+          f'{[round(t * 1e3, 2) for t in p["step_s"]]} ms (median of steps '
+          f'1-{SQUAD_STEPS - 1} {step_ms:.2f} ms), the refresh of step 0 '
+          f'{[round(t * 1e3, 2) for t in p["refresh_s"]]} ms (host clock, '
+          'synchronized); checkpoints written', flush=True)
+    return dict(launches=p['launches'], shapes=p['shapes'], worst=p['worst'])
 
 
 #: ``(L, gp, ap)`` of the flavours' stacks: phase 26's five layers (the
@@ -7751,8 +8363,11 @@ def main() -> int:
         '1-2 kernels', phase_kernels, torch, kt.ops)
     entry['launches'] = phase('3 train', phase_train, torch, kt)
     sharded = phase('4 sharded', phase_sharded_kernel, torch, kt)
+    # The rank work of phases 5, 17, 18, 21, 22 and 23 in one spawn;
+    # each phase's gates read its ranks' reports where it stands.
+    shared = phase('5, 17, 18, 21-23 ranks', spawn_shared, torch)
     sharded['launches'], sharded['gather_ms'] = phase(
-        '5 kaisa', phase_kaisa, torch, kt,
+        '5 kaisa', phase_kaisa, torch, kt, shared['5'],
     )
     phase('6 methods', phase_methods, torch, kt)
     phase('7 resume', phase_resume, torch, kt)
@@ -7786,8 +8401,9 @@ def main() -> int:
                        torch, kt),
     )
     rn50_pipelined = phase('17 resnet50 pipelined', phase_resnet50_pipelined,
-                           torch, kt)
-    phase('18 resnet50 ekfac grid', phase_resnet50_ekfac_grid, torch, kt)
+                           torch, kt, shared['17'])
+    phase('18 resnet50 ekfac grid', phase_resnet50_ekfac_grid, torch, kt,
+          shared['18'])
     rn50_fused = dict(
         rn50, name='fused_eigen_precondition, ResNet-50 buckets, fused '
         'training path with AdaptiveDamping (phase 19)',
@@ -7805,10 +8421,10 @@ def main() -> int:
         rn50_pipelined, name='fused_eigen_precondition_sharded, ResNet-50 '
         'at world 4, the cross-replica consistency guard (phase 21)',
         launches=phase('21 resnet50 consistency', phase_resnet50_consistency,
-                       torch, kt),
+                       torch, kt, shared['21']),
     )
     launches, err = phase('22 resnet50 elastic', phase_resnet50_elastic,
-                          torch, kt)
+                          torch, kt, shared['22'])
     rn50_elastic = dict(
         rn50, name='fused_eigen_precondition and its sharded form, '
         'ResNet-50 buckets, streaming restore and world 4 -> 2 resize '
@@ -7818,7 +8434,7 @@ def main() -> int:
         rn50, name='fused_eigen_precondition, ResNet-50 buckets, trajectory '
         'watchdog: detection, rollback and replay (phase 23)',
         launches=phase('23 resnet50 watchdog', phase_resnet50_watchdog,
-                       torch, kt),
+                       torch, kt, shared['23']),
     )
     rn50_observe = dict(
         rn50, name='fused_eigen_precondition, ResNet-50 buckets, observed '
@@ -7862,6 +8478,37 @@ def main() -> int:
         world['tp_shapes'], 1010, what='bucket slices')
     tp_kernel.update(launches=world['tp_launches'], max_abs_err=max(
         world['worst'], tp_kernel['max_abs_err']))
+    moe_adaptive = dict(
+        moe_kernel, name='fused_eigen_precondition, MoE expert and dense '
+        'layers under AdaptiveDamping through make_train_step (phase 26, '
+        'one card and world 4)', launches=moe['adaptive_launches'],
+        max_abs_err=max(moe['adaptive_worst'], moe_kernel['max_abs_err']))
+    pipe_adaptive = dict(
+        pipe_kernel, name='fused_eigen_precondition, GPipe stage layers under '
+        'AdaptiveDamping through make_train_step (phase 27, one process and '
+        'world 4; timed at one rank\'s stacks)',
+        launches=pipe['adaptive_launches'],
+        max_abs_err=max(pipe['adaptive_worst'], pipe_kernel['max_abs_err']))
+    bert_tp_kernel = bucket_entry(
+        torch, kernel, plain, 'BERT-large widths (4 blocks) '
+        'GPTKFACPreconditioner prediv on a 2 x 2 (data, model) grid, one '
+        'rank\'s MEM-OPT column (phase 30b)', world['bert_shapes'], 1040,
+        what='bucket slices')
+    bert_tp_kernel.update(launches=world['bert_launches'], max_abs_err=max(
+        world['worst'], bert_tp_kernel['max_abs_err']))
+    lm = phase('29 tiny_gpt_lm', phase_tiny_gpt_lm, torch, kt)
+    lm_kernel = bucket_entry(
+        torch, kernel, plain, 'tiny_gpt_lm example at GPT-125M widths, full '
+        'coverage (phase 29)', lm['shapes'], 1020)
+    lm_kernel.update(launches=lm['launches'], max_abs_err=max(
+        lm['worst'], lm_kernel['max_abs_err']))
+    squad = phase('30 squad_bert', phase_squad_bert, torch, kt)
+    squad_kernel = bucket_entry(
+        torch, kernel, plain, 'squad_bert example, BERT-large '
+        'GPTKFACPreconditioner prediv, one process (phase 30)',
+        squad['shapes'], 1030)
+    squad_kernel.update(launches=squad['launches'], max_abs_err=max(
+        squad['worst'], squad_kernel['max_abs_err']))
     phase('bench stages', phase_bench_stages, torch, kt)
     stop_profile_worker()
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
@@ -7875,7 +8522,9 @@ def main() -> int:
                                   rn50_consistency, rn50_elastic,
                                   rn50_watchdog, rn50_observe, rt_kernel,
                                   moe_kernel, pipe_kernel, ring_kernel,
-                                  tp_kernel]}),
+                                  tp_kernel, moe_adaptive, pipe_adaptive,
+                                  bert_tp_kernel, lm_kernel,
+                                  squad_kernel]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

@@ -151,6 +151,19 @@ def flax_to_tp_state_dict(
     return shard_state_dict(flax_to_torch_state_dict(variables), rank, tp)
 
 
+def flax_bert_to_tp_state_dict(
+    variables: Mapping[str, Any], rank: int, tp: int,
+) -> dict[str, torch.Tensor]:
+    """A JAX ``BertForQA``'s ``{'params': ...}`` as the state dict of
+    rank ``rank`` of a ``tp``-way tensor-parallel port ``BertForQA``
+    (:func:`~kfac_pytorch_tpu_torch.models.bert.shard_state_dict`:
+    ``qkv``'s q, k and v blocks each cut to the rank's heads, so every
+    shard keeps the ``q|k|v`` order)."""
+    from kfac_pytorch_tpu_torch.models.bert import shard_state_dict
+
+    return shard_state_dict(flax_to_torch_state_dict(variables), rank, tp)
+
+
 def _map_leaves(fn, tree: Mapping[str, Any]) -> dict[str, Any]:
     return {k: _map_leaves(fn, v) if isinstance(v, Mapping) else fn(v)
             for k, v in tree.items()}

@@ -1188,9 +1188,9 @@ damping`).  The returned loss is the step's (detached), before the
         parameters (:meth:`_loss_only`) minus the step's loss.  Predicted
         reduction: ``(-lr + lr^2/2) * vg_sum`` from the damped quadratic
         model, with the ``lr`` of the step that made the update (the
-        counter has already moved).  Across ranks both losses are
-        averaged over the world first (one all-reduce), so every rank
-        feeds the controller the same numbers and keeps the same damping.
+        counter has already moved).  Across ranks every rank feeds the
+        controller the same numbers (:meth:`_adapt_inputs`) and keeps the
+        same damping.
         """
         ad = self._adaptive_damping
         if ad is None or not ad.should_adapt(step_index):
@@ -1199,13 +1199,22 @@ damping`).  The returned loss is the step's (detached), before the
             loss_before.float().reshape(()),
             self._loss_only(args, loss_args, loss_fn).float().reshape(()),
         ])
+        before, after, vg_sum = self._adapt_inputs(losses, info['vg_sum'])
+        lr = float(resolve(self._lr, step_index))
+        predicted = (-lr + 0.5 * lr * lr) * vg_sum
+        ad.update(after - before, predicted)
+
+    def _adapt_inputs(
+        self, losses: torch.Tensor, vg_sum: torch.Tensor,
+    ) -> tuple[float, float, float]:
+        """``(loss before, loss after, vg_sum)`` on the host, the same on
+        every rank: each rank's losses are of its own batch, so both are
+        averaged over the world (one all-reduce)."""
         if dist.is_available() and dist.is_initialized():
             dist.all_reduce(losses)
             losses = losses / dist.get_world_size()
         before, after = losses.tolist()
-        lr = float(resolve(self._lr, step_index))
-        predicted = (-lr + 0.5 * lr * lr) * float(info['vg_sum'])
-        ad.update(after - before, predicted)
+        return before, after, float(vg_sum)
 
     def _post_step_refresh_feed(
         self,

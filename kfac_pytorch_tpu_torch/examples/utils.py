@@ -20,6 +20,7 @@ import torch.nn.functional as F
 def setup(device: str | None) -> tuple[torch.device, int, int]:
     """``(device, world, rank)`` of this process.
 
+    A default process group already initialized is used as it is.
     Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) the
     default process group is initialized from the environment, NCCL when
     every rank has a card of its own and gloo otherwise.  Each rank
@@ -29,7 +30,8 @@ def setup(device: str | None) -> tuple[torch.device, int, int]:
     """
     from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
 
-    world = int(os.environ.get('WORLD_SIZE', '1'))
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get('WORLD_SIZE', '1')))
     if device == 'cpu':
         dev = torch.device('cpu')
     elif device in (None, 'cuda') or str(device).startswith('cuda'):

@@ -73,7 +73,7 @@ def _expert_spec(name, moe, sub, w, b) -> StackSpec:
     return StackSpec(
         name=name, din=din, dout=dout, stack=moe.local_experts,
         offset=moe.expert_offset, total=cfg.n_experts, sharded=True,
-        get_grad=get_grad, set_grad=set_grad,
+        get_grad=get_grad, set_grad=set_grad, params=(weight, bias),
     )
 
 
@@ -84,6 +84,7 @@ def _dense_spec(name, helper) -> StackSpec:
         sharded=False,
         get_grad=lambda: helper.get_grad()[None],
         set_grad=lambda c: helper.set_grad(c[0]),
+        params=tuple(helper.module.parameters()),
     )
 
 
@@ -217,6 +218,15 @@ moe.MoEMLP` layers (module docstring).
                 g.copy_(mean)
             loss = mean_over([loss], self.data_group)[0]
         return loss, aux
+
+    def _forward_loss(self, args, loss_args, loss_fn):
+        # The model's forward issues the step's collectives in its order:
+        # the data group's token gather, then the expert group's rows.
+        loss, _ = _split_loss(loss_fn(self.model(*args), *loss_args))
+        loss = loss.float().reshape(())
+        if group_extent(self.data_group) > 1:
+            loss = mean_over([loss], self.data_group)[0]
+        return loss
 
     def _topology_descriptor(self) -> str | None:
         return (f'experts over {group_extent(self.expert_group)} rank(s), '

@@ -58,6 +58,7 @@ def _stage_spec(name, helpers, offset, total) -> StackSpec:
         stack=len(helpers), offset=offset, total=total, sharded=True,
         get_grad=lambda: torch.stack([h.get_grad() for h in helpers]),
         set_grad=set_grad,
+        params=tuple(p for h in helpers for p in h.module.parameters()),
     )
 
 
@@ -154,6 +155,9 @@ mesh.AxisGroups` (``outer`` the stage, ``inner`` the data index);
         """One micro-batch (:meth:`StackedKFAC.accumulate`)."""
         return super().accumulate(tokens, loss_args=loss_args)
 
+    def _param_sharded(self, name: str) -> bool:
+        return name.startswith('stages.')
+
     def _arm_capture(self, on: bool) -> None:
         self._armed = on
         for c in self._captures:
@@ -192,6 +196,20 @@ mesh.AxisGroups` (``outer`` the stage, ``inner`` the data index);
             links=self.links, data_group=self.grid.inner_group,
         )
         return loss / scale, None
+
+    def _forward_loss(self, args, loss_args, loss_fn):
+        (tokens,) = args
+
+        def loss_of(logits, *a):
+            return _split_loss(loss_fn(logits, *a))[0]
+
+        if self.links is None:
+            return loss_of(self.model.apply_sequential(tokens),
+                           *loss_args).float().reshape(())
+        return self.model.pipelined_loss_only(
+            tokens, loss_of, loss_args, n_microbatches=self.n_microbatches,
+            links=self.links, data_group=self.grid.inner_group,
+        )
 
     def _topology_descriptor(self) -> str | None:
         return (f'pipe {self.grid.n_outer} x data {self.grid.n_inner}, '

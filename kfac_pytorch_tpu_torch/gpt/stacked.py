@@ -44,6 +44,14 @@ package's global ones.  Then:
   the unpadded ones.  The low-rank and EKFAC branches are the JAX
   package's matmul chains; the kl-clip sum adds the replicated layers'
   terms once and all-reduces the sharded layers' over ``shard_group``.
+
+The damping is resolved each step, so an
+:class:`~kfac_pytorch_tpu_torch.adaptive.AdaptiveDamping` in the slot
+works as on the bucketed engine: the refresh folds the value in force
+into ``dgda`` (a new tensor, so the padded cache is rebuilt), and
+``make_train_step``/``train_loop`` feed the controller from the
+flavour's loss-only forward (:meth:`StackedKFAC._loss_only`), the same
+values on every rank.
 """
 from __future__ import annotations
 
@@ -54,7 +62,6 @@ import torch
 import torch.distributed as dist
 
 from kfac_pytorch_tpu_torch import ops
-from kfac_pytorch_tpu_torch.adaptive import AdaptiveDamping
 from kfac_pytorch_tpu_torch.engine import KFACEngineMixin
 from kfac_pytorch_tpu_torch.engine import unpack_factor
 from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_scale_contrib_stacked
@@ -106,6 +113,7 @@ class StackSpec:
             every rank of it holds the same layer).
         get_grad: ``() -> [L, dout, din]`` combined gradient.
         set_grad: writes a combined gradient back into ``.grad``.
+        params: the parameters whose gradients it combines.
     """
 
     name: str
@@ -117,6 +125,7 @@ class StackSpec:
     sharded: bool
     get_grad: Callable[[], torch.Tensor]
     set_grad: Callable[[torch.Tensor], None]
+    params: tuple = ()
 
 
 class StackedKFAC(KFACEngineMixin):
@@ -162,12 +171,6 @@ PipelineKFACPreconditioner` (module docstring).
             raise ValueError('adaptive_refresh requires ekfac=True')
         if accumulation_steps < 1:
             raise ValueError('accumulation_steps must be >= 1')
-        if isinstance(damping, AdaptiveDamping):
-            raise NotImplementedError(
-                'AdaptiveDamping is not ported to the MoE and pipeline '
-                'flavours (ROADMAP.md Queue A item 25c): its loss-only '
-                'forward needs the flavour\'s own forward',
-            )
         if lowrank_rank is not None and lowrank_rank < 1:
             raise ValueError('lowrank_rank must be >= 1')
         self.model = model
@@ -186,6 +189,13 @@ PipelineKFACPreconditioner` (module docstring).
         self.factor_group = factor_group
         self.shard_group = shard_group
         self.specs = {s.name: s for s in specs}
+        covered = {id(p) for s in specs for p in s.params}
+        #: The parameters outside every layer, ``(replicated, sharded
+        #: over the shard group)``: ``vg_sum`` takes them as ``|g|^2``.
+        self._uncovered: tuple[list, list] = ([], [])
+        for name, p in model.named_parameters():
+            if id(p) not in covered and p.requires_grad:
+                self._uncovered[self._param_sharded(name)].append(p)
         self.layers: dict[str, StackState] = {}
         for s in specs:
             self.layers[s.name] = self._zero_state(s)
@@ -239,6 +249,18 @@ PipelineKFACPreconditioner` (module docstring).
         aux)``, the loss detached and averaged over the data group, with
         every gradient averaged over it."""
         raise NotImplementedError
+
+    def _forward_loss(self, args: tuple, loss_args: tuple,
+                      loss_fn: Callable[..., Any]) -> torch.Tensor:
+        """The forward of :meth:`_forward_backward` alone, with its
+        collectives in its order (called under ``torch.no_grad()``):
+        the loss, averaged over the data group, on every rank."""
+        raise NotImplementedError
+
+    def _param_sharded(self, name: str) -> bool:
+        """Whether parameter ``name`` is split over the shard group (each
+        rank holds its own); the default, replicated."""
+        return False
 
     # -- public calls ----------------------------------------------------
 
@@ -404,9 +426,16 @@ PipelineKFACPreconditioner` (module docstring).
 
     def _precondition(self, damping: float, kl_clip: float | None,
                       lr: float) -> torch.Tensor:
+        """Precondition every layer's ``.grad`` in place and return
+        ``vg_sum``: the f32 ``<raw grad, final grad>`` over every
+        trainable parameter (JAX ``_tree_vdot``), a layer's taken on its
+        combined gradient (``<g, pg>`` times the kl-clip scale), each
+        other parameter's as ``|g|^2``; the sharded layers' and
+        parameters' terms summed over the shard group."""
         pre: dict[str, torch.Tensor] = {}
-        replicated: list[torch.Tensor] = []
-        sharded: list[torch.Tensor] = []
+        # [kl-clip terms, <g, pg>] of the replicated and sharded layers.
+        replicated: list[tuple[torch.Tensor, torch.Tensor]] = []
+        sharded: list[tuple[torch.Tensor, torch.Tensor]] = []
         lr2 = float(lr) ** 2
         for name, spec in self.specs.items():
             st = self.layers[name]
@@ -423,23 +452,43 @@ PipelineKFACPreconditioner` (module docstring).
                      st.sg.float() if st.sg is not None else zeros),
                     damping, lowrank_a=lr_a, lowrank_g=lr_g,
                 )
-                term = ops.grad_scale_sum(pg, g, lr)
+                dot = torch.sum(pg * g)
             elif st.skron is not None:
                 v1 = qg.mT @ g @ qa
                 pg = qg @ (v1 / (st.skron + damping)) @ qa.mT
-                term = ops.grad_scale_sum(pg, g, lr)
+                dot = torch.sum(pg * g)
             else:
                 pg, clip = self._fused(name, st, g)
-                term = torch.sum(clip) * lr2
+                dot = torch.sum(clip)
             pre[name] = pg
-            (sharded if spec.sharded else replicated).append(term)
-        vg_sum = self._vg_sum(replicated, sharded, g.device)
+            (sharded if spec.sharded else replicated).append(
+                (dot * lr2, dot))
+        # [kl-clip sum, <g, pg>, |g|^2 of the other parameters]: the
+        # replicated terms once, the sharded ones summed over the group.
+        rep = self._vg_totals(replicated, self._uncovered[0])
+        part = self._vg_totals(sharded, self._uncovered[1])
+        if group_extent(self.shard_group) > 1:
+            dist.all_reduce(part, group=self.shard_group)
+        clip_sum, dots, squares = rep + part
         scale = None
         if kl_clip is not None:
-            scale = ops.kl_clip_scale(vg_sum, kl_clip)
+            scale = ops.kl_clip_scale(clip_sum, kl_clip)
         for name, pg in pre.items():
             self.specs[name].set_grad(pg if scale is None else pg * scale)
-        return vg_sum
+        return (dots if scale is None else dots * scale) + squares
+
+    def _vg_totals(self, layers: list, params: list) -> torch.Tensor:
+        """``[sum of kl-clip terms, sum of <g, pg>, sum of |g|^2]`` of
+        ``layers`` (``(term, dot)`` pairs) and ``params``."""
+        out = torch.zeros(3, device=self.device)
+        for term, dot in layers:
+            out[0] += term
+            out[1] += dot
+        grads = [p.grad.reshape(-1).float() for p in params
+                 if p.grad is not None]
+        if grads:
+            out[2] = torch.sum(torch.stack(torch._foreach_norm(grads)) ** 2)
+        return out
 
     def _fused(self, name: str, st: StackState,
                g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -468,20 +517,6 @@ PipelineKFACPreconditioner` (module docstring).
         g = torch.nn.functional.pad(g, (0, pad_a, 0, pad_g))
         pg, clip = ops.fused_eigen_precondition(g, qa, qg, dgda)
         return pg[..., :gp, :ap], clip
-
-    def _vg_sum(self, replicated, sharded, device) -> torch.Tensor:
-        """Replicated terms once, sharded ones summed over the shard
-        group (JAX's ``terms`` span every expert and stage)."""
-        total = torch.zeros((), device=device)
-        for t in replicated:
-            total = total + t
-        if sharded:
-            part = torch.sum(torch.stack(sharded))
-            if group_extent(self.shard_group) > 1:
-                part = part.clone()
-                dist.all_reduce(part, group=self.shard_group)
-            total = total + part
-        return total
 
     def _ekfac_divergence(self) -> torch.Tensor | None:
         """JAX ``ekfac_divergence_info`` over the whole stacks: the
@@ -564,6 +599,47 @@ PipelineKFACPreconditioner` (module docstring).
             t = torch.as_tensor(saved).to(device=self.device,
                                           dtype=torch.float32)
             self.layers[name].skron = self._local(t, self.specs[name])
+
+    # -- AdaptiveDamping's feed -----------------------------------------
+
+    @torch.no_grad()
+    def _loss_only(self, args: tuple, loss_args: tuple,
+                   loss_fn: Callable[..., Any]) -> torch.Tensor:
+        """The loss at the updated parameters on the step's batch (JAX
+        ``_loss_only``: the flavour's plain forward), through the
+        flavour's own forward (:meth:`_forward_loss`) with the capture
+        disarmed, so no factor row, accumulator or hook records
+        anything, and the buffers a training-mode forward moves restored
+        bit for bit."""
+        saved = [(b, b.clone()) for b in self._bn_buffers()]
+        armed = self._armed
+        self._arm_capture(False)
+        try:
+            loss = self._forward_loss(args, loss_args, loss_fn)
+        finally:
+            self._arm_capture(armed)
+            for b, v in saved:
+                b.copy_(v)
+        return loss.detach()
+
+    def _adapt_inputs(self, losses: torch.Tensor,
+                      vg_sum: torch.Tensor) -> tuple[float, float, float]:
+        """Every rank already holds the global losses (averaged over the
+        data group; the pipe's broadcast from its last stage) and the
+        whole ``vg_sum`` (the sharded terms summed over the shard group),
+        so rank 0's three values are broadcast over the world: every
+        rank feeds the controller the same bits."""
+        values = torch.cat([losses.float(), vg_sum.float().reshape(1)])
+        if dist.is_available() and dist.is_initialized() and (
+                dist.get_world_size() > 1):
+            dist.broadcast(values, 0)
+        before, after, vg = values.tolist()
+        return before, after, vg
+
+    def _bn_buffers(self) -> list[torch.Tensor]:
+        norm = torch.nn.modules.batchnorm._NormBase
+        return [b for m in self.model.modules()
+                if isinstance(m, norm) for b in m.buffers(recurse=False)]
 
     # -- engine hooks: the model, and no health guardrails ---------------
 

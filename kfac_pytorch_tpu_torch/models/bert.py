@@ -12,6 +12,16 @@ the factories' ``type_embedding`` flag decides, so the parameter set
 matches the Flax variables it is compared with (``squad_bert.py`` passes
 no type ids, so the default builds none).
 
+With ``tp_group`` the four dense layers of a block are Megatron's
+(:mod:`~kfac_pytorch_tpu_torch.parallel.tensor`), as
+:mod:`~kfac_pytorch_tpu_torch.models.gpt` builds them and as the JAX
+package's ``HIDDEN -> 'model'`` rules shard them: ``qkv`` (split by
+heads) and ``fc_in`` column-parallel, ``proj`` and ``fc_out``
+row-parallel, each rank attending with its ``n_heads / tp`` heads; the
+embeddings, the LayerNorms and ``qa_head`` are whole on every rank.  The
+weights are the unsharded model's of the same seed, sharded
+(:func:`shard_state_dict`).
+
 A boolean ``mask [B, T]`` (True where a token is real) puts ``-1e9``
 into the masked keys' attention logits, as an additive f32 mask, and
 into the masked positions' start and end logits.  ``remat=True``
@@ -34,6 +44,12 @@ from kfac_pytorch_tpu_torch.models.layers import LayerNorm
 from kfac_pytorch_tpu_torch.models.layers import remat_call
 from kfac_pytorch_tpu_torch.models.layers import resolve_device
 from kfac_pytorch_tpu_torch.models.layers import split_heads_attention
+from kfac_pytorch_tpu_torch.parallel.tensor import ColumnParallelDense
+from kfac_pytorch_tpu_torch.parallel.tensor import RowParallelDense
+from kfac_pytorch_tpu_torch.parallel.tensor import group_rank_size
+from kfac_pytorch_tpu_torch.parallel.tensor import local_heads
+from kfac_pytorch_tpu_torch.parallel.tensor import \
+    shard_state_dict as tensor_state_dict
 
 #: What the JAX model writes into masked logits.
 MASKED = -1e9
@@ -70,26 +86,34 @@ class BertConfig:
 class EncoderBlock(nn.Module):
     """Post-LN encoder block: ``qkv``, attention, ``proj``, then
     ``ln_attn`` of the residual sum; ``fc_in``, tanh GELU, ``fc_out``,
-    then ``ln_mlp`` of the residual sum."""
+    then ``ln_mlp`` of the residual sum (the dense layers tensor-parallel
+    over ``tp_group``)."""
 
-    def __init__(self, config: BertConfig) -> None:
+    def __init__(self, config: BertConfig, tp_group: Any = None) -> None:
         super().__init__()
         self.config = config
         d, cd = config.d_model, config.dtype
-        self.qkv = Dense(d, 3 * d, cd)
-        self.proj = Dense(d, d, cd)
+        self.n_heads = local_heads(config.n_heads, tp_group)
+        self.width = self.n_heads * config.head_dim
+        if tp_group is None:
+            self.qkv = Dense(d, 3 * d, cd)
+            self.proj = Dense(d, d, cd)
+            self.fc_in = Dense(d, config.d_ff, cd)
+            self.fc_out = Dense(config.d_ff, d, cd)
+        else:
+            self.qkv = ColumnParallelDense(d, 3 * d, cd, tp_group, parts=3)
+            self.proj = RowParallelDense(d, d, cd, tp_group)
+            self.fc_in = ColumnParallelDense(d, config.d_ff, cd, tp_group)
+            self.fc_out = RowParallelDense(config.d_ff, d, cd, tp_group)
         self.drop_attn = nn.Dropout(config.dropout_rate)
         self.ln_attn = LayerNorm(d, cd)
-        self.fc_in = Dense(d, config.d_ff, cd)
-        self.fc_out = Dense(config.d_ff, d, cd)
         self.drop_mlp = nn.Dropout(config.dropout_rate)
         self.ln_mlp = LayerNorm(d, cd)
 
     def forward(self, x: torch.Tensor,
                 attn_mask: torch.Tensor | None = None) -> torch.Tensor:
-        cfg = self.config
-        q, k, v = self.qkv(x).split(cfg.d_model, dim=-1)
-        out = split_heads_attention(q, k, v, cfg.n_heads,
+        q, k, v = self.qkv(x).split(self.width, dim=-1)
+        out = split_heads_attention(q, k, v, self.n_heads,
                                     attn_mask=attn_mask)
         x = self.ln_attn(x + self.drop_attn(self.proj(out)))
         h = F.gelu(self.fc_in(x), approximate='tanh')
@@ -104,10 +128,11 @@ class BertForQA(nn.Module):
         config: the hyperparameters.
         type_embedding: build ``tte`` (needs ``type_vocab_size``); a
             model without it raises when given ``type_ids``.
+        tp_group: the model group of the tensor-parallel layers.
     """
 
-    def __init__(self, config: BertConfig,
-                 type_embedding: bool = False) -> None:
+    def __init__(self, config: BertConfig, type_embedding: bool = False,
+                 tp_group: Any = None) -> None:
         super().__init__()
         self.config = config
         d, cd = config.d_model, config.dtype
@@ -122,7 +147,7 @@ class BertForQA(nn.Module):
         self.ln_embed = LayerNorm(d, cd)
         self.block_names = [f'h_{i}' for i in range(config.n_layers)]
         for name in self.block_names:
-            self.add_module(name, EncoderBlock(config))
+            self.add_module(name, EncoderBlock(config, tp_group))
         self.qa_head = Dense(d, 2, cd)
 
     def forward(self, tokens: torch.Tensor,
@@ -176,10 +201,31 @@ def init_weights(model: BertForQA, generator: torch.Generator) -> None:
         model.wpe.normal_(0.0, 0.01, generator=generator)
 
 
+#: The tensor-parallel layers of a block: ``(name, split, parts)``.
+TP_LAYERS = (('qkv', 'column', 3), ('proj', 'row', 1),
+             ('fc_in', 'column', 1), ('fc_out', 'row', 1))
+
+
+def shard_state_dict(sd: dict[str, torch.Tensor], rank: int,
+                     tp: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s state dict of a ``tp``-way tensor-parallel
+    ``BertForQA`` from the unsharded one: ``qkv`` split by heads,
+    ``fc_in`` by rows, ``proj`` and ``fc_out`` by columns (biases whole);
+    the rest whole."""
+    return tensor_state_dict(sd, rank, tp, TP_LAYERS)
+
+
 def _build(config: BertConfig, device: Any, seed: int,
-           type_embedding: bool) -> BertForQA:
-    model = BertForQA(config, type_embedding).to(
+           type_embedding: bool, tp_group: Any = None) -> BertForQA:
+    model = BertForQA(config, type_embedding, tp_group).to(
         device=resolve_device(device), dtype=config.param_dtype)
+    if tp_group is not None:
+        # The unsharded model's draws, sharded: any tp gives the same
+        # logical weights.
+        full = _build(config, model.wpe.device, seed, type_embedding)
+        rank, tp = group_rank_size(tp_group)
+        model.load_state_dict(shard_state_dict(full.state_dict(), rank, tp))
+        return model
     gen = torch.Generator(device=model.wpe.device)
     gen.manual_seed(seed)
     init_weights(model, gen)
@@ -187,25 +233,28 @@ def _build(config: BertConfig, device: Any, seed: int,
 
 
 def bert_large(device=None, seed: int = 0, type_embedding: bool = False,
-               **overrides: Any) -> BertForQA:
+               tp_group: Any = None, **overrides: Any) -> BertForQA:
     """BERT-large: vocab 30522, 24 layers, 16 heads, ``d_model`` 1024,
     ``d_ff`` 4096, 512 positions, bf16 compute."""
-    return _build(BertConfig(**overrides), device, seed, type_embedding)
+    return _build(BertConfig(**overrides), device, seed, type_embedding,
+                  tp_group)
 
 
 def bert_base(device=None, seed: int = 0, type_embedding: bool = False,
-              **overrides: Any) -> BertForQA:
+              tp_group: Any = None, **overrides: Any) -> BertForQA:
     """BERT-base: 12 layers, 12 heads, ``d_model`` 768, ``d_ff`` 3072."""
     defaults = dict(n_layers=12, n_heads=12, d_model=768, d_ff=3072)
     defaults.update(overrides)
-    return _build(BertConfig(**defaults), device, seed, type_embedding)
+    return _build(BertConfig(**defaults), device, seed, type_embedding,
+                  tp_group)
 
 
 def bert_tiny(device=None, seed: int = 0, type_embedding: bool = False,
-              **overrides: Any) -> BertForQA:
+              tp_group: Any = None, **overrides: Any) -> BertForQA:
     """Test scale: vocab 256, 2 layers, 2 heads, ``d_model`` 32, ``d_ff``
     64, 64 positions, f32 compute."""
     defaults = dict(vocab_size=256, n_layers=2, n_heads=2, d_model=32,
                     d_ff=64, max_seq_len=64, dtype=torch.float32)
     defaults.update(overrides)
-    return _build(BertConfig(**defaults), device, seed, type_embedding)
+    return _build(BertConfig(**defaults), device, seed, type_embedding,
+                  tp_group)

@@ -71,7 +71,8 @@ from kfac_pytorch_tpu_torch.parallel.tensor import ColumnParallelDense
 from kfac_pytorch_tpu_torch.parallel.tensor import RowParallelDense
 from kfac_pytorch_tpu_torch.parallel.tensor import group_rank_size
 from kfac_pytorch_tpu_torch.parallel.tensor import local_heads
-from kfac_pytorch_tpu_torch.parallel.tensor import shard_dense_state
+from kfac_pytorch_tpu_torch.parallel.tensor import \
+    shard_state_dict as tensor_state_dict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,15 +262,7 @@ def shard_state_dict(sd: dict[str, torch.Tensor], rank: int,
     """Rank ``rank``'s state dict of a ``tp``-way tensor-parallel GPT
     from the unsharded one: ``qkv`` split by heads, ``fc_in`` by rows,
     ``proj`` and ``fc_out`` by columns (biases whole); the rest whole."""
-    out = dict(sd)
-    for key in sd:
-        for layer, split, parts in TP_LAYERS:
-            if key.endswith(f'.{layer}.weight'):
-                stem = key[:-len('weight')]
-                w, b = shard_dense_state(sd[key], sd[stem + 'bias'], split,
-                                         rank, tp, parts)
-                out[key], out[stem + 'bias'] = w.contiguous(), b.contiguous()
-    return out
+    return tensor_state_dict(sd, rank, tp, TP_LAYERS)
 
 
 def _build(config: GPTConfig, device: Any, seed: int,

@@ -224,21 +224,48 @@ class PipelineLM(nn.Module):
         for p in shared:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        value = (loss.detach().float().reshape(()) if last
-                 else torch.zeros((), device=tokens.device))
         if links.n_stages > 1:
-            group = links.group
             flat = torch.cat([p.grad.reshape(-1) for p in shared])
-            dist.all_reduce(flat, group=group)
+            dist.all_reduce(flat, group=links.group)
             offset = 0
             for p in shared:
                 p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
                 offset += p.numel()
-            dist.broadcast(value, links.ranks[-1], group=group)
         if group_extent(data_group) > 1:
             grads = [p.grad for p in self.parameters() if p.grad is not None]
             for g, mean in zip(grads, mean_over(grads, data_group)):
                 g.copy_(mean)
+        return self._shared_loss(loss, tokens, links, data_group)
+
+    @torch.no_grad()
+    def pipelined_loss_only(
+        self,
+        tokens: torch.Tensor,
+        loss_fn: Callable[..., torch.Tensor],
+        loss_args: tuple = (),
+        *,
+        n_microbatches: int,
+        links: pp.PipeLinks,
+        data_group: Any = None,
+    ) -> torch.Tensor:
+        """:meth:`pipelined_loss`'s forward ticks and loss alone, with no
+        backward tick and no gradient: the loss averaged over the data
+        group, on every rank."""
+        self._check_grid(links)
+        _, outputs = self._run(tokens, n_microbatches, links)
+        loss = (loss_fn(self._last_stage_logits(outputs), *loss_args)
+                if links.stage == links.n_stages - 1 else None)
+        return self._shared_loss(loss, tokens, links, data_group)
+
+    @staticmethod
+    def _shared_loss(loss, tokens, links, data_group) -> torch.Tensor:
+        """The last stage's loss broadcast over the pipe group, then
+        averaged over the data group (detached)."""
+        value = (loss.detach().float().reshape(()) if loss is not None
+                 else torch.zeros((), device=tokens.device))
+        if links.n_stages > 1:
+            dist.broadcast(value, links.ranks[-1], group=links.group)
+        if group_extent(data_group) > 1:
             value = mean_over([value], data_group)[0]
         return value
 

@@ -231,6 +231,25 @@ def shard_dense_state(weight: torch.Tensor, bias: torch.Tensor,
     return shard_features(weight, rank, tp, dim=1), bias
 
 
+def shard_state_dict(
+    sd: dict[str, torch.Tensor], rank: int, tp: int,
+    layers: tuple[tuple[str, str, int], ...],
+) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s state dict of a ``tp``-way tensor-parallel model
+    from the unsharded one: every dense layer whose name ends in a
+    ``(suffix, split, parts)`` of ``layers`` is cut by
+    :func:`shard_dense_state`; the rest stays whole."""
+    out = dict(sd)
+    for key in sd:
+        for layer, split, parts in layers:
+            if key.endswith(f'.{layer}.weight'):
+                stem = key[:-len('weight')]
+                w, b = shard_dense_state(sd[key], sd[stem + 'bias'], split,
+                                         rank, tp, parts)
+                out[key], out[stem + 'bias'] = w.contiguous(), b.contiguous()
+    return out
+
+
 def local_heads(n_heads: int, group: Any) -> int:
     """Heads a rank of ``group`` holds (``n_heads / tp``)."""
     _, tp = group_rank_size(group)

@@ -56,6 +56,7 @@ def test_scan_finds_the_port():
                    'bench.py', 'utils/backend.py', 'utils/metrics.py',
                    'examples/utils.py', 'examples/cifar10_resnet.py',
                    'examples/imagenet_resnet.py',
+                   'examples/tiny_gpt_lm.py', 'examples/squad_bert.py',
                    'examples/cnn_utils/datasets.py',
                    'examples/cnn_utils/engine.py',
                    'examples/cnn_utils/optimizers.py', 'ops/lowrank.py',
@@ -114,10 +115,15 @@ def test_entry_points_load_no_jax():
         'from kfac_pytorch_tpu_torch import bench\n'
         'from kfac_pytorch_tpu_torch.examples import cifar10_resnet\n'
         'from kfac_pytorch_tpu_torch.examples import imagenet_resnet\n'
+        'from kfac_pytorch_tpu_torch.examples import squad_bert\n'
+        'from kfac_pytorch_tpu_torch.examples import tiny_gpt_lm\n'
         'cifar10_resnet.parse_args([])\n'
         'imagenet_resnet.parse_args([])\n'
+        'squad_bert.parse_args([])\n'
+        'tiny_gpt_lm.parse_args([])\n'
         'for main in (bench.main, cifar10_resnet.parse_args,\n'
-        '             imagenet_resnet.parse_args):\n'
+        '             imagenet_resnet.parse_args, squad_bert.parse_args,\n'
+        '             tiny_gpt_lm.parse_args):\n'
         '    with contextlib.redirect_stdout(io.StringIO()):\n'
         '        try:\n'
         '            main(["--help"])\n'
