@@ -367,9 +367,29 @@ fails:
     the default (no ``dgda``: 0 launches, as in JAX), 3 with prediv
     (launches = steps x buckets, every fused call against plain), the
     checkpoints written; the step and refresh times.
+31. the host C++ (``kfac_pytorch_tpu_torch/_native``, built with ``g++``
+    after the kernels, its build times printed; a failed build fails the
+    script): (a) the native KAISA greedy (both factor placements) and
+    bucket column packer against their Python twins on the registered
+    layers of ResNet-50, GPT-125M and BERT-large at worlds 4 and 64 under
+    COMM-OPT, HYBRID-OPT and MEM-OPT, and ``gather_crop_flip`` of a
+    32 x 224 x 224 x 3 f32 batch bit for bit against the numpy twin, with
+    both host times; (b) ``grad_worker_fraction='auto'`` on
+    ``PodTopology(ici_size=2, n_groups=2)``: four ranks train ResNet-50 at
+    phase 17's batch (factor 1, inv 1, the cadence at which the plan
+    leaves HYBRID-OPT) for 3 steps; the plan's payload is the same on
+    every rank (a digest all-gathered), equal to the host re-solve from
+    ``problem_for`` and valid; ``verify_assignment`` passes; the native
+    planner ran during the solve; the sharded kernel launched steps x
+    buckets on every rank, rank 0's shard shapes held against the plain
+    version; losses and parameters bitwise those of the run at the fixed
+    fraction the plan chose; the ledger's rows tagged ``'ici'``/``'dcn'``
+    by the topology, and at every step the bytes the ranks' collectives
+    moved by link class and by phase equal to the ledger's rows that
+    fired.  The placement report is printed.
 
-The rank work of phases 5, 17, 18, 21, 22 (the resize) and 23 (its two
-ranks) runs in one spawn of four processes right after phase 4
+The rank work of phases 5, 17, 18, 21, 22 (the resize), 23 (its two
+ranks) and 31 (b) runs in one spawn of four processes right after phase 4
 (``spawn_shared``: each phase with its own process groups and reports;
 a failure names its phase); each phase's gates then read its ranks'
 reports where the phase stands.  Phases 26 and 27 end with an adaptive
@@ -412,7 +432,7 @@ tensor against ``numpy.linalg.eig``.
 A ``phases:`` line gives each phase's time.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (with
-phases 26-27's adaptive passes, 29, 30 and 30b among its entries); the
+phases 26-27's adaptive passes, 29, 30, 30b and 31 among its entries); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2249,6 +2269,9 @@ def multi_rank_plan() -> dict:
                RN50_RESIZE_TIMEOUT_S, 'resize'),
         '23': ('watchdog ranks', watchdog_rank, 2, (), WATCH_RANK_TIMEOUT_S,
                'watch'),
+        '31': ('resnet50 placement', placement_rank, KAISA_WORLD,
+               (RN50_IMAGE, RN50_BATCH, PLACE_MODEL), PLACE_TIMEOUT_S,
+               'place'),
     }
 
 
@@ -6399,10 +6422,14 @@ class CollectiveBytes:
     """Wraps ``torch.distributed``'s collectives: each call's result bytes
     (an all-reduce's buffer, an all-gather's output) under the ledger
     phase of the ``parallel/collectives.py`` function (or monitor) that
-    issued it (:data:`LEDGER_LABELS`)."""
+    issued it (:data:`LEDGER_LABELS`), and with ``scope_of`` under the
+    link class of its group too (phase 31)."""
 
-    def __init__(self, dist) -> None:
+    def __init__(self, dist, scope_of=None) -> None:
         self.dist, self.counts, self.saved = dist, {}, {}
+        # With ``scope_of`` (a topology's): the labelled bytes by the
+        # link class of the group each collective ran on.
+        self.scope_of, self.scoped = scope_of, {}
         for name in ('all_reduce', 'all_gather_into_tensor', 'all_gather',
                      'broadcast'):
             self.saved[name] = getattr(dist, name)
@@ -6421,11 +6448,21 @@ class CollectiveBytes:
                     break
                 frame = frame.f_back
             self.counts[label] = self.counts.get(label, 0) + nbytes
+            if self.scope_of is not None and label != 'other':
+                group = kw.get('group')
+                ranks = (range(self.dist.get_world_size()) if group is None
+                         else self.dist.get_process_group_ranks(group))
+                scope = self.scope_of(ranks)
+                self.scoped[scope] = self.scoped.get(scope, 0) + nbytes
             return fn(*args, **kw)
         return wrapped
 
     def take(self) -> dict:
         out, self.counts = self.counts, {}
+        return out
+
+    def take_scoped(self) -> dict:
+        out, self.scoped = self.scoped, {}
         return out
 
     def close(self) -> None:
@@ -8290,6 +8327,352 @@ def phase_squad_bert(torch, kt):
     return dict(launches=p['launches'], shapes=p['shapes'], worst=p['worst'])
 
 
+#: Phase 31: the host C++ planners and data kernels (a), and
+#: ``grad_worker_fraction='auto'`` on a 2 x 2 topology (b).  (a) holds the
+#: native greedy and column packer to their Python twins on the registered
+#: layers of these models and worlds, under each named strategy.
+NATIVE_MODELS = (('ResNet-50', 'resnet50', {}),
+                 ('GPT-125M', 'gpt_125m', GPT_FULL),
+                 ('BERT-large', 'bert_large', BERT_FULL))
+NATIVE_WORLDS = (4, 64)
+#: The data kernel's batch: 32 images of 224x224x3 f32 drawn from 64.
+NATIVE_DATA = (64, 32, 224)
+#: (b): ResNet-50 at world 4, phase 17's images and batch, on two link
+#: groups of two ranks (``PodTopology(ici_size=2, n_groups=2)``, the H100
+#: data-sheet bandwidths).  Factor 1, inv 1 is the cadence at which the
+#: plan leaves HYBRID-OPT for ResNet-50 at world 4 (MEM-OPT; every
+#: cadence with ``inv_update_steps >= 2`` keeps HYBRID-OPT:
+#: ``tests/test_torch_placement.py`` and the solver on ResNet-50's
+#: layers), so each of the 3 steps refreshes.  The auto run and the run
+#: at the fraction it chose share the spawn.
+PLACE_MODEL = ('resnet50', 1000)
+PLACE_TOPOLOGY = dict(ici_size=2, n_groups=2)
+PLACE_HP = dict(RN50_HP, factor_update_steps=1, inv_update_steps=1)
+PLACE_STEPS = 3
+PLACE_TIMEOUT_S = 300
+
+
+def phase_native(torch, kt):
+    """Phase 31 (a): the native planners against their Python twins on
+    the work and bucket layouts of :data:`NATIVE_MODELS` at
+    :data:`NATIVE_WORLDS` under COMM-OPT, HYBRID-OPT and MEM-OPT (both
+    factor placements), and the data kernel's gather, crop and flip of a
+    :data:`NATIVE_DATA` batch bit for bit against the numpy twin, with
+    both host times.  The libraries were built at the start of the
+    script."""
+    import numpy as np
+
+    from kfac_pytorch_tpu_torch import _native
+    from kfac_pytorch_tpu_torch._native import data as native_data
+    from kfac_pytorch_tpu_torch.assignment import KAISAAssignment
+    from kfac_pytorch_tpu_torch.capture import DEFAULT_LAYER_TYPES
+    from kfac_pytorch_tpu_torch.capture import ModelCapture
+    from kfac_pytorch_tpu_torch.examples.cnn_utils.datasets import (
+        ArrayLoader,
+    )
+    from kfac_pytorch_tpu_torch.parallel import bucketing
+
+    if not (_native.available() and native_data.available()):
+        fail(f'native: the host libraries did not build: '
+             f'{_native.build_error()} {native_data.library.error}')
+    checked = []
+    for label, name, kw in NATIVE_MODELS:
+        model = getattr(kt.models, name)(device=DEVICE)
+        helpers = ModelCapture(
+            model, skip_layers=(),
+            layer_types=kw.get('layer_types', DEFAULT_LAYER_TYPES),
+            kfac_approx='expand',
+            tied_weights=kw.get('tied_weights', ())).helpers
+        del model
+        if DEVICE == 'cuda':
+            torch.cuda.empty_cache()
+        work = {n: {'A': float(h.a_factor_shape[0]) ** 3,
+                    'G': float(h.g_factor_shape[0]) ** 3}
+                for n, h in helpers.items()}
+        square = {n: h for n, h in helpers.items() if not h.diagonal_a}
+        for world in NATIVE_WORLDS:
+            for strategy in ('COMM_OPT', 'HYBRID_OPT', 'MEM_OPT'):
+                rows = {'COMM_OPT': world, 'HYBRID_OPT': world // 2,
+                        'MEM_OPT': 1}[strategy]
+                groups = [sorted(g) for g in sorted(
+                    KAISAAssignment.partition_grad_workers(world, rows),
+                    key=min)]
+                for colocate in (True, False):
+                    got = _native.greedy_assignment(work, groups, world,
+                                                    colocate)
+                    want = KAISAAssignment.greedy_assignment(
+                        work, groups, world, colocate)
+                    if got != want:
+                        fail(f'native: {label} world {world} {strategy} '
+                             f'colocate={colocate}: the native greedy '
+                             'differs from the Python twin')
+                cols = world // rows
+                native_plan = bucketing.make_bucket_plan(square, cols)
+                saved = _native.bucket_columns
+                _native.bucket_columns = lambda *a, **k: None
+                try:
+                    python_plan = bucketing.make_bucket_plan(square, cols)
+                finally:
+                    _native.bucket_columns = saved
+                if native_plan != python_plan:
+                    fail(f'native: {label} world {world} {strategy}: the '
+                         'native column packer differs from the Python '
+                         'twin')
+        checked.append(f'{label} ({len(work)} layers, '
+                       f'{len(native_plan.buckets)} buckets)')
+    n_src, n_batch, size = NATIVE_DATA
+    rng = np.random.default_rng(31)
+    images = rng.standard_normal((n_src, size, size, 3), dtype=np.float32)
+    idx = rng.integers(0, n_src, size=n_batch)
+    loader = ArrayLoader(images, np.zeros(n_src, np.int32), n_batch,
+                         augment=True)
+    ys, xs, flips = loader._draw_augment(n_batch, rng)
+    times = {'native': [], 'numpy': []}
+    for _ in range(5):
+        t = time.perf_counter()
+        native = native_data.gather_crop_flip(images, idx, loader.PAD, ys,
+                                              xs, flips)
+        times['native'].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        plain = loader._augment_numpy(images[idx], ys, xs, flips)
+        times['numpy'].append(time.perf_counter() - t)
+    if native is None or not np.array_equal(native.view(np.uint32),
+                                            plain.view(np.uint32)):
+        fail('native: gather_crop_flip differs from the numpy twin')
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    print(f'native: planner built in {_native.build_seconds():.2f} s, data '
+          f'kernels in {native_data.library.seconds:.2f} s (g++, this '
+          'machine); native greedy (both factor placements) and column '
+          f'packer equal to the Python twins on {", ".join(checked)} at '
+          f'worlds {list(NATIVE_WORLDS)} under COMM-OPT, HYBRID-OPT and '
+          f'MEM-OPT; gather_crop_flip of {n_batch}x{size}x{size}x3 f32 '
+          f'bitwise the numpy twin: native {med["native"]:.3f} ms, numpy '
+          f'{med["numpy"]:.3f} ms (host, median of 5, '
+          f'{native_data._threads()} threads)', flush=True)
+
+
+def placement_rank(rank, world, backend, device_type, workdir, image, batch,
+                   model_name):
+    """One rank of phase 31 (b); writes ``place{rank}.pt`` to ``workdir``
+    and raises on a failed check.  The auto run: the plan's digest
+    all-gathered, the plan solved again on the host from ``problem_for``,
+    ``validate_plan_payload`` and ``verify_assignment``, the native calls
+    of the construction, then :data:`PLACE_STEPS` steps with the bytes
+    the port's collectives moved by link class; then the same steps at
+    the fixed fraction the plan chose."""
+    import dataclasses
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch import _native
+    from kfac_pytorch_tpu_torch.observe import costs
+    from kfac_pytorch_tpu_torch.placement import apply
+    from kfac_pytorch_tpu_torch.placement import solver
+
+    dev = rt_device(torch, device_type, rank, backend)
+    dist.init_process_group(
+        backend, init_method=f'file://{workdir}/pg_init', rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300),
+    )
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn(batch, 3, image, image, generator=gen, device=dev)
+    y = torch.randint(0, model_name[1], (batch,), generator=gen, device=dev)
+    q = batch // world
+    xl, yl = x[rank * q:(rank + 1) * q], y[rank * q:(rank + 1) * q]
+    fused = kt.ops.fused_eigen_precondition
+    topo = kt.PodTopology(**PLACE_TOPOLOGY)
+
+    def checksum(flat):
+        return int(flat.view(torch.int32).to(torch.int64).sum())
+
+    def run(fraction, counter=None):
+        model = getattr(kt.models, model_name[0])(
+            num_classes=model_name[1], device=dev, seed=0)
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=None if dev.index is None else [dev.index])
+        calls = _native.calls
+        precond = kt.KFACPreconditioner(
+            ddp, grad_worker_fraction=fraction,
+            topology=topo if fraction == 'auto' else None, **PLACE_HP)
+        out = dict(native_calls=_native.calls - calls, losses=[], sums=[],
+                   moved=[], grid=(precond.grid.rows, precond.grid.cols))
+        opt = torch.optim.SGD(model.parameters(), lr=PLACE_HP['lr'],
+                              momentum=0.9)
+        fused.launches = 0
+        for _ in range(PLACE_STEPS):
+            opt.zero_grad()
+            loss = F.cross_entropy(ddp(xl), yl)
+            loss.backward()
+            gating = precond._step_gating()
+            if counter is not None:
+                counter.take(), counter.take_scoped()
+            precond.step()
+            if counter is not None:
+                out['moved'].append(dict(
+                    gating=gating, by_phase=counter.take(),
+                    by_scope=counter.take_scoped()))
+            opt.step()
+            out['losses'].append(float(loss.detach()))
+            out['sums'].append(checksum(torch.cat(
+                [p.detach().reshape(-1) for p in model.parameters()])))
+        out['launches'] = fused.launches
+        out['params'] = torch.cat([p.detach().reshape(-1).cpu()
+                                   for p in model.parameters()])
+        out['n_buckets'] = sum(precond._second_order.bucket_prediv(b.key)
+                               for b in precond.plan.buckets)
+        out['shards'] = [tuple(precond.buckets[b.key].qa.shape[:1])
+                         + (b.g_pad, b.a_pad) for b in precond.plan.buckets]
+        return out, precond, model, ddp, opt
+
+    counter = CollectiveBytes(dist, scope_of=topo.scope_of)
+    try:
+        auto, precond, *rest = run('auto', counter)
+    finally:
+        counter.close()
+    plan = precond.placement_plan
+    payload = json.dumps(apply.plan_payload(plan), sort_keys=True)
+    digest = hashlib.sha256(payload.encode()).digest()
+    mine = torch.tensor([int.from_bytes(digest[i:i + 8], 'little',
+                                        signed=True) for i in (0, 8)],
+                        dtype=torch.int64, device=dev)
+    every = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(every, mine)
+    calls = _native.calls
+    host = json.dumps(apply.plan_payload(solver.auto_placement(
+        solver.problem_for(precond), topo)), sort_keys=True)
+    apply.verify_assignment(plan, precond.assignment)
+    auto.update(
+        payload=payload, host_equal=host == payload,
+        host_native_calls=_native.calls - calls,
+        digests_equal=all(torch.equal(e, mine) for e in every),
+        problems=apply.validate_plan_payload(json.loads(payload)),
+        fraction=plan.fraction, strategy=plan.strategy,
+        n_candidates=len(plan.candidates),
+        rows=[dataclasses.asdict(r) for r in costs.ledger_for(precond)],
+        report=precond.placement_report() if rank == 0 else None,
+        descriptor=precond._topology_descriptor())
+    del precond, rest
+    if dev.type == 'cuda':
+        torch.cuda.empty_cache()
+    fixed, *rest = run(plan.fraction)
+    auto['fixed_equal'] = (fixed['losses'] == auto['losses']
+                           and fixed['sums'] == auto['sums']
+                           and torch.equal(fixed['params'], auto['params'])
+                           and fixed['grid'] == auto['grid'])
+    auto['fixed_launches'] = fixed['launches']
+    del rest, auto['params']
+    torch.save(auto, os.path.join(workdir, f'place{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_resnet50_placement(torch, kt, ranks=None):
+    """Phase 31 (b): four ranks of :func:`placement_rank` (``ranks``:
+    their reports from :func:`spawn_shared`).  Gates: every rank's plan
+    payload identical (its digest all-gathered) and equal to the plan it
+    solves again on the host from ``problem_for``; no problem from
+    ``validate_plan_payload``; ``verify_assignment`` passed; the native
+    planner ran during the solve; the sharded kernel launched steps x
+    buckets on every rank; losses and parameters bitwise equal to the run
+    at the fixed fraction the plan chose; the ledger's rows tagged by the
+    topology's rule, and at every step, per link class and per phase, the
+    bytes the ranks' collectives moved equal to the payloads of the rows
+    that fired; finite falling losses.  Prints the placement report and
+    returns the kernels-line entry, timed at rank 0's shard shapes."""
+    from kfac_pytorch_tpu_torch.observe import costs
+    from kfac_pytorch_tpu_torch.placement import apply
+
+    label = 'resnet50 placement'
+    if ranks is None:
+        ranks = spawn_alone(torch, '31')
+    r0 = ranks[0]
+    topo = kt.PodTopology(**PLACE_TOPOLOGY)
+    rows, cols = r0['grid']
+    world_s, col_s, row_s = costs.grid_scopes(topo, rows, cols)
+    want_scope = {'data': world_s, 'mesh': world_s, 'kfac_row': col_s,
+                  'kfac_col': row_s, '-': 'host'}
+    per_step = r0['n_buckets'] if DEVICE == 'cuda' else 0
+    for i, r in enumerate(ranks):
+        bad = [k for k in ('digests_equal', 'host_equal', 'fixed_equal')
+               if not r[k]]
+        if bad or r['payload'] != r0['payload'] or r['problems']:
+            fail(f'{label} rank {i}: {bad} payload problems '
+                 f'{r["problems"]}')
+        # The solve prices each candidate grid through the native greedy,
+        # and the flat model once more.
+        if (r['host_native_calls'] < r['n_candidates'] + 1
+                or r['native_calls'] < r['n_candidates'] + 1):
+            fail(f'{label} rank {i}: native calls {r["native_calls"]} in '
+                 f'the construction, {r["host_native_calls"]} in the host '
+                 'solve')
+        if r['launches'] != PLACE_STEPS * per_step or (
+                r['fixed_launches'] != r['launches']):
+            fail(f'{label} rank {i}: {r["launches"]} launches (fixed '
+                 f'{r["fixed_launches"]}), expected '
+                 f'{PLACE_STEPS * per_step}')
+        tags = {row['phase']: row['scope'] for row in r['rows']}
+        wrong = {row['phase']: row['scope'] for row in r['rows']
+                 if row['scope'] != want_scope[row['axis']]}
+        if wrong or not {'ici', 'dcn'} & set(tags.values()):
+            fail(f'{label} rank {i}: ledger scopes {tags}')
+        for t, step in enumerate(r['moved']):
+            factor, inv = step['gating']
+            fired = {'step'} | ({'factor_step'} if factor else set()) | (
+                {'inv_step'} if inv else set())
+            want_phase, want_by_scope = {}, {}
+            for row in r['rows']:
+                if row['cadence'] in fired and row['payload_bytes']:
+                    want_phase[row['phase']] = row['payload_bytes']
+                    want_by_scope[row['scope']] = (
+                        want_by_scope.get(row['scope'], 0)
+                        + row['payload_bytes'])
+            moved = {k: v for k, v in step['by_phase'].items()
+                     if k != 'other'}
+            if moved != want_phase or step['by_scope'] != want_by_scope:
+                fail(f'{label} rank {i} step {t}: moved {moved} by phase, '
+                     f'{step["by_scope"]} by scope; ledger {want_phase}, '
+                     f'{want_by_scope}')
+    losses = [statistics.fmean(v) for v in zip(*(r['losses'] for r in ranks))]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail(f'{label}: mean losses {losses}')
+    payload = json.loads(r0['payload'])
+    if apply.validate_plan_payload(payload):
+        fail(f'{label}: {apply.validate_plan_payload(payload)}')
+    print(r0['report'], flush=True)
+    print(f'{label}: ResNet-50 at world {len(ranks)} on one card, '
+          f'{RN50_BATCH // len(ranks)} images a rank at '
+          f'{RN50_IMAGE}x{RN50_IMAGE}, factor 1, inv 1, '
+          f'grad_worker_fraction=\'auto\' on {topo}: plan {rows}x{cols} '
+          f'({r0["strategy"]}, fraction {r0["fraction"]:g}; best named '
+          f'{payload["best_fixed"]["strategy"]}), the same payload on every '
+          'rank and equal to the host re-solve from problem_for, valid; '
+          f'native calls {r0["native_calls"]} in the construction; losses '
+          'and parameters bitwise the fixed-fraction run\'s at all '
+          f'{PLACE_STEPS} steps; launches {r0["launches"]} a rank; mean '
+          f'loss {losses[0]:.6f} -> {losses[-1]:.6f}; ledger scopes '
+          f'{ {row["phase"]: row["scope"] for row in r0["rows"]} }; bytes '
+          'moved by link class equal the ledger\'s at every step (rank 0: '
+          + '; '.join(f'step {t} {json.dumps(s["by_scope"])}'
+                      for t, s in enumerate(r0['moved']))
+          + f'); {r0["descriptor"]}', flush=True)
+    entry = bucket_entry(
+        torch, kt.ops.fused_eigen_precondition,
+        kt.ops.fused_eigen_precondition_reference,
+        f'ResNet-50 auto-placed {r0["strategy"]} shards (rank 0, phase 31)',
+        [tuple(c) for c in r0['shards']], 1100)
+    entry.update(
+        name='fused_eigen_precondition_sharded, ResNet-50 at world 4 on the '
+             'auto-placed grid (grad_worker_fraction=\'auto\', phase 31)',
+        replaces='kfac_pytorch_tpu/ops/pallas_precond.py:151',
+        launches=sum(r['launches'] for r in ranks))
+    return entry
+
+
 #: ``(L, gp, ap)`` of the flavours' stacks: phase 26's five layers (the
 #: expert stacks unaligned: ``ap`` 769 and 3073, padded on the path) and
 #: phase 27's per rank (each shape three times a step, once a block).
@@ -8338,6 +8721,15 @@ def main() -> int:
     _build.build_all()
     print(f'build: {time.perf_counter() - t0:.2f} s for '
           f'{len(_build.build_log)} kernel source(s)', flush=True)
+    # The host C++ (phase 31 a), before any rank needs it.
+    from kfac_pytorch_tpu_torch import _native
+    from kfac_pytorch_tpu_torch._native import data as native_data
+
+    for lib in (_native.planner, native_data.library):
+        if lib.load() is None:
+            fail(f'build: {lib.source.name} did not build: {lib.error}')
+        print(f'build: {lib.source.name}: {lib.seconds:.2f} s (g++) -> '
+              f'{lib.path}', flush=True)
     for stem, rec in _build.build_log.items():
         usage = [ln.strip() for ln in rec['log'].splitlines()
                  if 'registers' in ln or 'spill' in ln]
@@ -8363,9 +8755,9 @@ def main() -> int:
         '1-2 kernels', phase_kernels, torch, kt.ops)
     entry['launches'] = phase('3 train', phase_train, torch, kt)
     sharded = phase('4 sharded', phase_sharded_kernel, torch, kt)
-    # The rank work of phases 5, 17, 18, 21, 22 and 23 in one spawn;
+    # The rank work of phases 5, 17, 18, 21, 22, 23 and 31 in one spawn;
     # each phase's gates read its ranks' reports where it stands.
-    shared = phase('5, 17, 18, 21-23 ranks', spawn_shared, torch)
+    shared = phase('5, 17, 18, 21-23, 31 ranks', spawn_shared, torch)
     sharded['launches'], sharded['gather_ms'] = phase(
         '5 kaisa', phase_kaisa, torch, kt, shared['5'],
     )
@@ -8509,6 +8901,9 @@ def main() -> int:
         squad['shapes'], 1030)
     squad_kernel.update(launches=squad['launches'], max_abs_err=max(
         squad['worst'], squad_kernel['max_abs_err']))
+    phase('31a native', phase_native, torch, kt)
+    place_kernel = phase('31b resnet50 placement', phase_resnet50_placement,
+                         torch, kt, shared['31'])
     phase('bench stages', phase_bench_stages, torch, kt)
     stop_profile_worker()
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
@@ -8524,7 +8919,7 @@ def main() -> int:
                                   moe_kernel, pipe_kernel, ring_kernel,
                                   tp_kernel, moe_adaptive, pipe_adaptive,
                                   bert_tp_kernel, lm_kernel,
-                                  squad_kernel]}),
+                                  squad_kernel, place_kernel]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

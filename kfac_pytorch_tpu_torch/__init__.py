@@ -38,6 +38,10 @@ cost ledger, the emission sinks and the flight recorder
 ``runtime`` the bounded multi-process init, barriers and rank-death
 detection;
 ``testing`` holds their fault injectors and ``tracing`` the event tally.
+``placement`` solves the KAISA grid on a model of NVLink nodes joined by
+a network (``grad_worker_fraction='auto', topology=PodTopology(...)``),
+and ``_native`` builds the host C++ planners and data kernels with
+``g++`` at their first use.
 ``gpt`` holds the MoE and GPipe flavours (``MoEKFACPreconditioner``,
 ``PipelineKFACPreconditioner``) and the tensor-parallel
 ``GPTKFACPreconditioner`` with ``mpu``; ``parallel`` the ring attention
@@ -68,3 +72,7 @@ from kfac_pytorch_tpu_torch.preconditioner import KFACPreconditioner
 from kfac_pytorch_tpu_torch.scheduler import AdaptiveRefreshConfig
 from kfac_pytorch_tpu_torch.scheduler import LambdaParamScheduler
 from kfac_pytorch_tpu_torch.watchdog import WatchdogConfig
+# Last: the solver reads the bench's card table, which imports the
+# preconditioner.
+from kfac_pytorch_tpu_torch import placement  # noqa: E402
+from kfac_pytorch_tpu_torch.placement import PodTopology  # noqa: E402

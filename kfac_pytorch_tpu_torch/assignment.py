@@ -148,7 +148,7 @@ class KAISAAssignment(WorkAssignment):
         worker_groups = [
             sorted(ranks) for ranks in sorted(grad_worker_ranks, key=min)
         ]
-        self._inv_assignments = self.greedy_assignment(
+        self._inv_assignments = self.planned_assignment(
             work, worker_groups, world_size, colocate_factors,
         )
 
@@ -162,6 +162,29 @@ class KAISAAssignment(WorkAssignment):
             for ranks in grad_receiver_ranks:
                 if self.local_rank in ranks:
                     self._grad_receiver_groups[layer] = ranks
+
+    @classmethod
+    def planned_assignment(
+        cls,
+        work: dict[str, dict[str, float]],
+        worker_groups: list[list[int]],
+        world_size: int,
+        colocate_factors: bool,
+    ) -> dict[str, dict[str, int]]:
+        """:meth:`greedy_assignment` through the native (C++) planner of
+        :mod:`kfac_pytorch_tpu_torch._native` when it built, else (and
+        for ragged groups) through its Python twin;
+        ``tests/test_torch_native.py`` holds the two output-identical."""
+        from kfac_pytorch_tpu_torch import _native
+
+        native = _native.greedy_assignment(
+            work, worker_groups, world_size, colocate_factors,
+        )
+        if native is not None:
+            return native
+        return cls.greedy_assignment(
+            work, worker_groups, world_size, colocate_factors,
+        )
 
     @staticmethod
     def greedy_assignment(

@@ -165,6 +165,16 @@ def validate_overlap(
         )
 
 
+def compressed_layers(helpers: Any, factor_comm: str | None) -> frozenset:
+    """The layers whose factors ``factor_comm`` compresses: the linear
+    and conv2d layers (JAX ``base_preconditioner.py:886-911``)."""
+    return frozenset(
+        name for name, h in helpers.items()
+        if factor_comm is not None and h.supports_ekfac
+        and h.symmetric_factors and not h.diagonal_a
+    )
+
+
 class BaseKFACPreconditioner(KFACEngineMixin):
     """K-FAC over the layers a :class:`ModelCapture` registered.
 
@@ -303,13 +313,7 @@ StaggerPlan` of ``stagger_refresh`` (``None`` without).
                 'engine batches symmetric eigh: use bucketed=False for '
                 'the general-eig escape hatch',
             )
-        # The linear and conv2d layers, whose factors the compressed
-        # collective reduces (JAX base_preconditioner.py:886-911).
-        self._compressed = frozenset(
-            name for name, h in self.helpers.items()
-            if factor_comm is not None and h.supports_ekfac
-            and h.symmetric_factors and not h.diagonal_a
-        )
+        self._compressed = compressed_layers(self.helpers, factor_comm)
         self.grid = self._make_grid(grad_worker_fraction)
         self.plan = None
         self._second_order = None
@@ -1262,17 +1266,20 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
     def _topology_descriptor(self) -> str:
         """World and bucket layout, e.g. ``'world=4 grid=2x2
         buckets=[a576g64:10 slots, ...]'``, which a mismatched restore
-        names."""
+        names; `` pod=<topology>`` follows under a topology."""
         if self.plan is None:
             buckets = 'replicated'
         else:
             buckets = ', '.join(
                 f'{b.key}:{b.n_slots} slots' for b in self.plan.buckets
             )
-        return (
+        desc = (
             f'world={self.grid.world} grid={self.grid.rows}x'
             f'{self.grid.cols} buckets=[{buckets}]'
         )
+        if self.topology is not None:
+            desc += f' pod={self.topology}'
+        return desc
 
     def memory_usage(self) -> dict[str, int]:
         """Bytes of K-FAC state on this rank: the factor EMAs, and this

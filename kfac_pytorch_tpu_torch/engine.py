@@ -309,6 +309,50 @@ class KFACEngineMixin:
     checkpoints and ``train_loop``).
     """
 
+    #: The two-level interconnect model
+    #: (:class:`~kfac_pytorch_tpu_torch.placement.PodTopology`) that
+    #: scope-tags the comm ledger, or ``None``; host-side only.
+    topology: Any = None
+    #: The solved auto-placement plan of ``grad_worker_fraction='auto'``
+    #: (:mod:`kfac_pytorch_tpu_torch.placement`), ``None`` for a numeric
+    #: fraction: no step reads it.
+    placement_plan: Any = None
+
+    def placement_report(self) -> str:
+        """The auto-placement report of a planner-solved engine: the
+        candidate table, the chosen grid, the per-phase link scopes and
+        the per-column layout
+        (:func:`kfac_pytorch_tpu_torch.placement.apply.format_placement`),
+        then the scope-tagged comm ledger of the port's own collectives.
+        Raises ``ValueError`` without a solved plan (a numeric
+        ``grad_worker_fraction``)."""
+        if self.placement_plan is None:
+            raise ValueError(
+                'no placement plan: this engine was built with a '
+                "numeric grad_worker_fraction (pass grad_worker_"
+                "fraction='auto' with a topology= to solve one)",
+            )
+        from kfac_pytorch_tpu_torch.observe.costs import format_ledger
+        from kfac_pytorch_tpu_torch.observe.costs import ledger_for
+        from kfac_pytorch_tpu_torch.placement.apply import format_placement
+
+        report = format_placement(self.placement_plan)
+        try:
+            ledger = ledger_for(self)
+        except ValueError:
+            return report
+        return report + '\n' + format_ledger(
+            ledger, self.factor_update_steps, self.inv_update_steps,
+            consistency_steps=(
+                self._consistency.cadence
+                if self._consistency is not None else None
+            ),
+            watchdog_steps=(
+                self._watchdog_config.check_every
+                if self._watchdog_config is not None else None
+            ),
+        )
+
     def _init_engine(
         self,
         *,

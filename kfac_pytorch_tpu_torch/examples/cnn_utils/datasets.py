@@ -10,9 +10,11 @@ tree, decoded with PIL, which is imported only when such a tree exists.
 Without the data both fall back to deterministic, class-separable
 synthetic data of the same layout, so the trainers run anywhere.
 
-The JAX package gathers and augments batches in a native library
-(``kfac_pytorch_tpu/_native``, ``ROADMAP.md`` Queue A item 30); here the
-numpy version of the same crop and flip runs.
+Batches are gathered, cropped and flipped by the port's native data
+kernels (:mod:`kfac_pytorch_tpu_torch._native.data`, C++ built with
+``g++`` at first use), as the JAX package's loader does; the draws stay
+in numpy, so the numpy twin, which runs when the library did not build,
+gives the same bits.
 """
 from __future__ import annotations
 
@@ -89,13 +91,18 @@ class ArrayLoader:
             return n_local // self.batch_size
         return -(-n_local // self.batch_size)
 
-    def _augment(self, batch: np.ndarray,
-                 rng: np.random.Generator) -> np.ndarray:
-        n, h, w, _ = batch.shape
+    def _draw_augment(self, n: int, rng: np.random.Generator):
+        """One batch's crop offsets and flips, in the JAX loader's order."""
         p = self.PAD
         ys = rng.integers(0, 2 * p + 1, size=n)
         xs = rng.integers(0, 2 * p + 1, size=n)
         flips = rng.random(n) < 0.5
+        return ys, xs, flips
+
+    def _augment_numpy(self, batch, ys, xs, flips) -> np.ndarray:
+        """The numpy twin of the native ``gather_crop_flip``."""
+        n, h, w, _ = batch.shape
+        p = self.PAD
         padded = np.pad(batch, ((0, 0), (p, p), (p, p), (0, 0)),
                         mode='reflect')
         out = np.empty_like(batch)
@@ -105,15 +112,25 @@ class ArrayLoader:
         return out
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        from kfac_pytorch_tpu_torch._native import data as native_data
+
         rng = np.random.default_rng((self.seed, self._epoch))
         order = (rng.permutation(len(self.images)) if self.shuffle
                  else np.arange(len(self.images)))
         local = order[self.shard.index::self.shard.count]
         for b in range(len(self)):
             idx = local[b * self.batch_size:(b + 1) * self.batch_size]
-            batch = self.images[idx]
             if self.augment:
-                batch = self._augment(batch, rng)
+                ys, xs, flips = self._draw_augment(len(idx), rng)
+                batch = native_data.gather_crop_flip(
+                    self.images, idx, self.PAD, ys, xs, flips)
+                if batch is None:
+                    batch = self._augment_numpy(self.images[idx], ys, xs,
+                                                flips)
+            else:
+                batch = native_data.gather(self.images, idx)
+                if batch is None:
+                    batch = self.images[idx]
             yield batch, self.labels[idx]
 
 

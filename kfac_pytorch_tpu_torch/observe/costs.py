@@ -64,8 +64,16 @@ collectives differ from JAX's compiled ones, its rows differ:
 Unbilled, as in JAX: the repair broadcasts (data-dependent), the
 ``AdaptiveDamping`` loss all-reduce of the fused path, and the
 runtime's barriers (they run on the rendezvous store, not the group).
-Placement (``topology``) is not ported (``ROADMAP.md`` Queue A item 29)
-and raises.
+
+**Scopes.**  With a :class:`~kfac_pytorch_tpu_torch.placement.topology.\
+PodTopology` (``comm_ledger(topology=...)``, or a preconditioner built
+with ``topology=``) each row names the slowest link class its groups
+traverse, by JAX's rule: the world's rows (the factor all-reduce and
+the guards') the world's scope, the decomposition gather the scope of
+the grid's column groups, the gradient gather (and the port's other
+row-group collectives) the scope of its row groups.  ``'ici'`` is one
+NVLink domain, ``'dcn'`` the network between nodes; host rows stay
+``'host'``; without a topology every row is ``'flat'``.
 """
 from __future__ import annotations
 
@@ -73,13 +81,6 @@ import dataclasses
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
-
-
-def _not_ported_topology() -> NotImplementedError:
-    return NotImplementedError(
-        'topology-scoped ledgers need placement, which is not ported to '
-        'the PyTorch package yet (ROADMAP.md Queue A item 29)',
-    )
 
 
 # ----------------------------------------------------------------------
@@ -400,11 +401,10 @@ def comm_ledger(
     replace the decomposition row by one per shard, the pipelined gather
     the gradient row by one per bucket in issue order, all but the last
     ``overlapped``; ``overlap_comm`` tags the factor and decomposition
-    rows ``overlapped``).  ``topology`` raises (item 29)."""
+    rows ``overlapped``; ``topology`` scope-tags the rows, see the module
+    docstring: the bytes do not change)."""
     world = rows * cols
-    if topology is not None:
-        raise _not_ported_topology()
-    world_scope = rows_scope = cols_scope = 'flat'
+    world_scope, rows_scope, cols_scope = grid_scopes(topology, rows, cols)
 
     def decomp_bytes(shapes):
         return sum(
@@ -558,6 +558,29 @@ def comm_ledger(
             scope='host',
         ),
     ]
+
+
+def grid_scopes(topology: Any, rows: int, cols: int) -> tuple[str, str, str]:
+    """``(world, column groups, row groups)`` link classes of a
+    ``rows x cols`` grid on ``topology`` (``'flat'`` each without one);
+    raises when the topology's world is not the grid's."""
+    if topology is None:
+        return 'flat', 'flat', 'flat'
+    # Local import: placement.topology imports this module's byte models.
+    from kfac_pytorch_tpu_torch.placement.topology import grid_col_ranks
+    from kfac_pytorch_tpu_torch.placement.topology import grid_row_ranks
+
+    world = rows * cols
+    if topology.world != world:
+        raise ValueError(
+            f'topology world {topology.world} != grid world {world} '
+            f'({rows}x{cols})',
+        )
+    return (
+        topology.scope_of(range(world)),
+        topology.scope_of_sets(grid_col_ranks(rows, cols)),
+        topology.scope_of_sets(grid_row_ranks(rows, cols)),
+    )
 
 
 def cadence_events_per_step(
@@ -841,7 +864,8 @@ def ledger_for(precond: Any) -> list[CommRow]:
     decomposition gather (one row per stagger shard), the health and
     EKFAC refresh gathers, the gradient gather (one row per bucket under
     ``pipeline_grads``), ``observe_extremes``, the EKFAC drift gather,
-    the guards' rows, ``checkpoint``."""
+    the guards' rows, ``checkpoint``.  With ``precond.topology`` each
+    row is scope-tagged by its group (the module docstring)."""
     from kfac_pytorch_tpu_torch.parallel.collectives import group_size
 
     second = getattr(precond, '_second_order', None)
@@ -983,7 +1007,13 @@ def ledger_for(precond: Any) -> list[CommRow]:
         cadence='checkpoint', bytes_per_device=ckpt, payload_bytes=ckpt,
         scope='host',
     ))
-    return out
+    world_scope, rows_scope, cols_scope = grid_scopes(
+        getattr(precond, 'topology', None), rows, cols)
+    by_axis = {'data': world_scope, 'mesh': world_scope,
+               'kfac_row': rows_scope, 'kfac_col': cols_scope}
+    return [row if row.scope == 'host'
+            else dataclasses.replace(row, scope=by_axis[row.axis])
+            for row in out]
 
 
 def link_class_bytes(ledger: Sequence[CommRow]) -> dict[str, int]:

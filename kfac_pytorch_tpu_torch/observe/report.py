@@ -25,12 +25,13 @@ REQUIRED_PHASE_KEYS = PHASES
 
 
 def format_placement(plan: Any) -> str:
-    """The auto-placement report table of the JAX package: placement is
-    not ported yet, so this raises naming its ``ROADMAP.md`` item."""
-    raise NotImplementedError(
-        'placement is not ported to the PyTorch package yet (ROADMAP.md '
-        'Queue A item 29)',
+    """The auto-placement report of a solved plan
+    (:func:`kfac_pytorch_tpu_torch.placement.apply.format_placement`)."""
+    from kfac_pytorch_tpu_torch.placement.apply import (
+        format_placement as _format,
     )
+
+    return _format(plan)
 
 
 def phase_table(

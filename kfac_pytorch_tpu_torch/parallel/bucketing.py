@@ -102,7 +102,8 @@ def make_bucket_plan(
 
     Buckets are ordered by descending per-slot eigh cost
     ``a_pad^3 + g_pad^3``; layers within a bucket are sorted by name and
-    each goes to the least-loaded column.
+    each goes to the least-loaded column (the native packer of
+    :mod:`kfac_pytorch_tpu_torch._native` when it built).
     """
     if n_cols < 1:
         raise ValueError('n_cols must be >= 1')
@@ -116,6 +117,16 @@ def make_bucket_plan(
         key=lambda kv: (kv[0][0] ** 3 + kv[0][1] ** 3, kv[0]),
         reverse=True,
     )
+    # The native (C++) column packer when it built; the loop below is
+    # its Python twin (tests/test_torch_native.py holds them equal).
+    from kfac_pytorch_tpu_torch import _native
+
+    native_cols = _native.bucket_columns(
+        [len(names) for _, names in ordered],
+        [float(a ** 3 + g ** 3) for (a, g), _ in ordered],
+        n_cols,
+    )
+    flat_idx = 0
     col_loads = [0.0] * n_cols
     buckets: list[BucketLayout] = []
     slot_of: dict[str, tuple[str, int]] = {}
@@ -123,7 +134,11 @@ def make_bucket_plan(
         cost = float(a_pad ** 3 + g_pad ** 3)
         per_col: list[list[str]] = [[] for _ in range(n_cols)]
         for name in sorted(names):
-            c = min(range(n_cols), key=lambda i: (col_loads[i], i))
+            if native_cols is not None:
+                c = native_cols[flat_idx]
+                flat_idx += 1
+            else:
+                c = min(range(n_cols), key=lambda i: (col_loads[i], i))
             per_col[c].append(name)
             col_loads[c] += cost
         seg = max(1, max(len(col) for col in per_col))

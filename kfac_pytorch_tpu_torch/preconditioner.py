@@ -104,6 +104,7 @@ from typing import Any, Callable, Sequence
 import torch
 from torch import nn
 
+from kfac_pytorch_tpu_torch.assignment import KAISAAssignment
 from kfac_pytorch_tpu_torch.base_preconditioner import BaseKFACPreconditioner
 from kfac_pytorch_tpu_torch.capture import DEFAULT_LAYER_TYPES
 from kfac_pytorch_tpu_torch.capture import ModelCapture
@@ -115,6 +116,8 @@ from kfac_pytorch_tpu_torch.enums import resolve_grad_worker_fraction
 from kfac_pytorch_tpu_torch.health import HealthConfig
 from kfac_pytorch_tpu_torch.ops import IterativeConfig
 from kfac_pytorch_tpu_torch.parallel.mesh import data_world
+
+logger = logging.getLogger(__name__)
 
 
 def _unported(option: str, item: str) -> NotImplementedError:
@@ -149,7 +152,17 @@ class KFACPreconditioner(BaseKFACPreconditioner):
         grad_worker_fraction: the KAISA knob (a
             :class:`DistributedStrategy` or a float), resolved at the
             world size of ``torch.distributed``'s default group (1 when
-            it is not initialized).
+            it is not initialized), or ``'auto'``: with ``topology``,
+            every rank solves the grid on the analytic comm ledger before
+            the bucket plan and the grid are built
+            (:mod:`kfac_pytorch_tpu_torch.placement`; the plan is
+            ``placement_plan``, its report ``placement_report()``, and
+            the live ``assignment`` is checked against it); without one
+            it warns and takes HYBRID-OPT.
+        topology: a :class:`~kfac_pytorch_tpu_torch.placement.\
+PodTopology` of the world (GPUs of one NVLink node joined by the
+            network), or ``None``; it scope-tags the comm ledger and
+            prices ``'auto'``.  Its world must be the data world.
         compute_method: ``'eigen'`` (eigenbasis preconditioning),
             ``'inverse'`` (damped Cholesky inverses) or ``'iterative'``
             (the same inverses by warm-started Newton–Schulz, matmuls
@@ -327,7 +340,7 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
         iterative_config: Any = None,
         compute_eigenvalue_outer_product: bool = True,
         grad_worker_fraction: (
-            DistributedStrategy | float
+            DistributedStrategy | float | str
         ) = DistributedStrategy.COMM_OPT,
         topology: Any = None,
         mesh: Any = None,
@@ -578,13 +591,8 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
                     'flight must be a FlightConfig or None, got '
                     f'{type(flight).__name__}',
                 )
-        unported = [
-            ('topology', topology is not None, 'item 29'),
-            ('compile_budget', compile_budget is not None, 'item 31'),
-        ]
-        for option, requested, item in unported:
-            if requested:
-                raise _unported(option, f'Queue A {item}')
+        if compile_budget is not None:
+            raise _unported('compile_budget', 'Queue A item 31')
         if mesh is not None:
             raise NotImplementedError(
                 'mesh has no counterpart in the PyTorch package: the port '
@@ -599,6 +607,42 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
                 'CUDA tensors always run the fused CUDA kernel and CPU '
                 'tensors its plain version (ROADMAP.md Queue B item 1)',
             )
+        # 'auto' is solved below, once the layers are registered; the
+        # always-legal COMM-OPT stands in until then.
+        auto = False
+        if isinstance(grad_worker_fraction, str):
+            if grad_worker_fraction != 'auto':
+                raise ValueError(
+                    'grad_worker_fraction must be a float, a '
+                    "DistributedStrategy or the string 'auto'; got "
+                    f'{grad_worker_fraction!r}',
+                )
+            if topology is None:
+                warnings.warn(
+                    "grad_worker_fraction='auto' needs a topology="
+                    'PodTopology to price grids against; falling back to '
+                    'HYBRID_OPT',
+                    stacklevel=2,
+                )
+                grad_worker_fraction = DistributedStrategy.HYBRID_OPT
+            else:
+                auto = True
+                grad_worker_fraction = DistributedStrategy.COMM_OPT
+        if topology is not None:
+            from kfac_pytorch_tpu_torch.placement import PodTopology
+
+            if not isinstance(topology, PodTopology):
+                raise TypeError(
+                    'topology must be a PodTopology or None, got '
+                    f'{type(topology).__name__}',
+                )
+            if topology.world != self._data_world():
+                raise ValueError(
+                    f'topology models {topology.world} devices '
+                    f'({topology}) but the torch.distributed data world '
+                    f'is {self._data_world()}',
+                )
+        self.topology = topology
         self.grad_worker_fraction, self.distributed_strategy = (
             resolve_grad_worker_fraction(grad_worker_fraction,
                                          self._data_world())
@@ -618,6 +662,17 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
             kfac_approx=kfac_approx,
             tied_weights=tied_weights,
         )
+        if auto:
+            self._solve_placement(
+                capture, factor_update_steps=factor_update_steps,
+                inv_update_steps=inv_update_steps,
+                compute_method=compute_method,
+                prediv=compute_eigenvalue_outer_product, ekfac=ekfac,
+                factor_comm=factor_comm, factor_dtype=factor_dtype,
+                inv_dtype=inv_dtype,
+                adaptive=adaptive is not None and bucketed is not False,
+                loglevel=loglevel,
+            )
         super().__init__(
             capture,
             factor_update_steps=factor_update_steps,
@@ -657,6 +712,66 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
         )
         # The fused path's forward and backward go through the wrapper.
         self._train_module = wrapper
+        cost = 3 if assignment_strategy == AssignmentStrategy.COMPUTE else 2
+        # The KAISA inverse-worker placement of the layers, this rank's
+        # view (JAX keeps rank 0's: its processes share one program).
+        self.assignment = KAISAAssignment(
+            {name: {'A': float(h.a_factor_shape[0]) ** cost,
+                    'G': float(h.g_factor_shape[0]) ** cost}
+             for name, h in self.helpers.items()},
+            local_rank=self.grid.rank,
+            world_size=self.grid.world,
+            grad_worker_fraction=self.grad_worker_fraction,
+            colocate_factors=self.colocate_factors,
+        )
+        if self.placement_plan is not None:
+            from kfac_pytorch_tpu_torch.placement.apply import (
+                verify_assignment,
+            )
+
+            verify_assignment(self.placement_plan, self.assignment)
+
+    def _solve_placement(
+        self, capture: ModelCapture, *, factor_update_steps,
+        inv_update_steps, compute_method, prediv, ekfac, factor_comm,
+        factor_dtype, inv_dtype, adaptive, loglevel,
+    ) -> None:
+        """Solve ``grad_worker_fraction='auto'`` on the registered layers,
+        before the engine builds its bucket plan and grid from the
+        fraction; every rank solves the same plan from the same inputs.
+        The problem is :func:`~kfac_pytorch_tpu_torch.placement.solver.\
+problem_for` of the engine that this builds."""
+        from kfac_pytorch_tpu_torch.base_preconditioner import (
+            compressed_layers,
+        )
+        from kfac_pytorch_tpu_torch.hyperparams import resolve
+        from kfac_pytorch_tpu_torch.placement.apply import format_placement
+        from kfac_pytorch_tpu_torch.placement.solver import auto_placement
+        from kfac_pytorch_tpu_torch.placement.solver import problem_of
+
+        problem = problem_of(
+            capture.helpers,
+            world=self._data_world(),
+            factor_update_steps=resolve(factor_update_steps, 0),
+            inv_update_steps=resolve(inv_update_steps, 0),
+            compute_method=compute_method,
+            prediv=prediv,
+            ekfac=ekfac,
+            compressed=(compressed_layers(capture.helpers, factor_comm)
+                        if factor_comm == 'bf16_triu' else None),
+            assignment_strategy=self.assignment_strategy,
+            colocate_factors=self.colocate_factors,
+            factor_dtype=factor_dtype,
+            inv_dtype=inv_dtype,
+            adaptive=adaptive,
+        )
+        plan = auto_placement(problem, self.topology)
+        self.placement_plan = plan
+        self.grad_worker_fraction, self.distributed_strategy = (
+            resolve_grad_worker_fraction(plan.fraction, problem.world)
+        )
+        logger.log(loglevel, 'auto-placement solved:\n%s',
+                   format_placement(plan))
 
     def _data_world(self) -> int:
         """The K-FAC world's size: the default process group's (a

@@ -218,8 +218,10 @@ def test_unported_options_raise(kwargs, item):
 #: is 1, below ``stagger_refresh=2``).  ``health`` (item 19),
 #: ``consistency`` (item 21's first half), the watchdog (item 21b) and
 #: ``observe``/``flight`` (item 23) are ported too: a wrong config type
-#: raises ``TypeError``.
-PORTED = ('item 4b', 'item 13', 'item 15', 'item 16', 'item 17', 'item 18')
+#: raises ``TypeError``; so does a ``topology`` that is not a
+#: ``PodTopology`` (item 29).
+PORTED = ('item 4b', 'item 13', 'item 15', 'item 16', 'item 17', 'item 18',
+          'item 29')
 #: The options that take a config object, and the config's class name.
 GUARDS = ('health', 'consistency', 'watchdog', 'observe', 'flight')
 
@@ -264,6 +266,15 @@ def check_ported_option(kwargs):
             path='unused.json', arm_atexit=False, arm_sigterm=False))
         precond = KFACPreconditioner(Tiny(), **{name: value})
         assert getattr(precond, name) is not None
+    elif 'topology' in kwargs:
+        from kfac_pytorch_tpu_torch import PodTopology
+
+        with pytest.raises(TypeError, match='PodTopology'):
+            KFACPreconditioner(Tiny(), **kwargs)
+        precond = KFACPreconditioner(
+            Tiny(), topology=PodTopology(ici_size=1, n_groups=1))
+        assert precond.topology is not None
+        assert precond.placement_plan is None
     elif set(GUARDS) & set(kwargs):
         from kfac_pytorch_tpu_torch import ConsistencyConfig
         from kfac_pytorch_tpu_torch import HealthConfig

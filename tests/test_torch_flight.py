@@ -17,7 +17,8 @@ the JAX package's, on the CPU.
 * The report tables (``phase_table``, ``amdahl_breakdown``,
   ``amdahl_table``) equal JAX's on the same phase times, and the port's
   ``bench_payload`` passes JAX's ``validate_bench_payload`` with the same
-  fields but ``detail.env``; ``format_placement`` raises naming item 29.
+  fields but ``detail.env``; ``format_placement`` prints JAX's report of
+  the same plan.
 No test arms an ``atexit`` or SIGTERM handler.
 """
 from __future__ import annotations
@@ -190,8 +191,21 @@ def test_report_tables_match_jax():
     assert report.amdahl_table(got) == jreport.amdahl_table(want)
     assert report.amortized_phase_share(PHASES_S, 1, 3) == \
         jreport.amortized_phase_share(PHASES_S, 1, 3)
-    with pytest.raises(NotImplementedError, match='item 29'):
-        report.format_placement(None)
+    from kfac_pytorch_tpu import placement as jplacement
+
+    from kfac_pytorch_tpu_torch import placement
+
+    problem = dict(layer_names=('a', 'b', 'c'),
+                   layer_dims=((64, 64), (128, 32), (33, 10)), world=4,
+                   factor_update_steps=1, inv_update_steps=3,
+                   flops_per_second=1e12)
+    topo = dict(ici_size=2, n_groups=2, ici_gbytes_per_s=400.0,
+                dcn_gbytes_per_s=40.0)
+    got = report.format_placement(placement.auto_placement(
+        placement.PlacementProblem(**problem), placement.PodTopology(**topo)))
+    assert got == jreport.format_placement(jplacement.auto_placement(
+        jplacement.PlacementProblem(**problem),
+        jplacement.PodTopology(**topo)))
 
 
 def test_bench_payload_passes_the_jax_validator():

@@ -6,7 +6,9 @@ probes in ``chip_probes/`` fails on any
 import of ``jax``, ``jaxlib``, ``flax``, ``optax`` or
 ``kfac_pytorch_tpu[.*]``; a fresh interpreter that imports the whole
 port, or parses the trainers' and the bench's command lines, must add
-neither ``jax`` nor ``kfac_pytorch_tpu`` to ``sys.modules``.
+neither ``jax`` nor ``kfac_pytorch_tpu`` to ``sys.modules``.  The port's
+host C++ (``_native``) builds and loads from its own sources and build
+directory, never from ``kfac_pytorch_tpu/``.
 """
 from __future__ import annotations
 
@@ -62,7 +64,10 @@ def test_scan_finds_the_port():
                    'examples/cnn_utils/optimizers.py', 'ops/lowrank.py',
                    'ops/ekfac.py', 'adaptive.py', 'health.py',
                    'consistency.py', 'tracing.py', 'testing.py',
-                   'elastic.py', 'watchdog.py', 'utils/checkpoint.py'):
+                   'elastic.py', 'watchdog.py', 'utils/checkpoint.py',
+                   'placement/__init__.py', 'placement/topology.py',
+                   'placement/solver.py', 'placement/apply.py',
+                   '_native/__init__.py', '_native/data.py'):
         assert port / module in files, module
 
 
@@ -104,6 +109,42 @@ def test_importing_the_port_loads_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_native_loads_only_the_ports_files():
+    """The port's host C++ builds from its own sources into its own build
+    directory: in a fresh interpreter both libraries load, and no file
+    under ``kfac_pytorch_tpu/`` is mapped into the process."""
+    code = (
+        'import sys\n'
+        'from kfac_pytorch_tpu_torch import _native\n'
+        'from kfac_pytorch_tpu_torch._native import data\n'
+        'assert _native.available() and data.available()\n'
+        'for lib in (_native.planner, data.library):\n'
+        '    print(lib.source)\n'
+        '    print(lib.path)\n'
+        '    print(lib.lib._name)\n'
+        'maps = open("/proc/self/maps").read().split()\n'
+        'print("\\n".join(m for m in maps if m.endswith(".so")))\n'
+        'print("jax:", [n for n in sys.modules\n'
+        '               if n.split(".")[0] in ("jax", "kfac_pytorch_tpu")])\n'
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, '-c', code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.split('\n')
+    assert lines[-2] == 'jax: []'
+    port = ROOT / 'kfac_pytorch_tpu_torch'
+    for path in lines[:6]:
+        assert Path(path).resolve().is_relative_to(port), path
+    jax_package = str(ROOT / 'kfac_pytorch_tpu') + os.sep
+    assert not [p for p in lines if p.startswith(jax_package)]
+    assert sorted((port / '_native').glob('*.cc')) == [
+        port / '_native' / 'kfac_data.cc',
+        port / '_native' / 'kfac_planner.cc']
 
 
 def test_entry_points_load_no_jax():

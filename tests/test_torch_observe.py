@@ -20,7 +20,8 @@
   cadence, with ``overlap_comm`` and with ``stagger_refresh``.
 * ``comm_ledger`` rows, the amortized/exposed/hidden subtotals,
   ``format_ledger`` and ``ledger_scalars`` equal JAX's on the shared
-  designs; ``compiled_costs`` of an MLP forward equals ``2 M N K``;
+  designs, flat and scope-tagged by a two-group topology;
+  ``compiled_costs`` of an MLP forward equals ``2 M N K``;
   ``profile_phases`` times the four phases and leaves the state as it
   found it.
 * One subprocess test, four gloo ranks: under HYBRID-OPT (eigen,
@@ -430,8 +431,20 @@ def test_comm_ledger_matches_jax(design):
                       ('consistency_check_bytes', (3, 4, [2, 3, 1], 2, 2)),
                       ('adaptive_digest_bytes', (3, 2, 2))):
         assert getattr(costs, fn)(*fargs) == getattr(jcosts, fn)(*fargs)
-    with pytest.raises(NotImplementedError, match='item 29'):
-        costs.comm_ledger(*args, topology=object())
+    from kfac_pytorch_tpu.placement import PodTopology as JaxTopology
+
+    topo = dict(ici_size=2, n_groups=rows * cols // 2,
+                ici_gbytes_per_s=400.0, dcn_gbytes_per_s=40.0)
+    got = costs.comm_ledger(*args, topology=kt.PodTopology(**topo), **kw)
+    want = jcosts.comm_ledger(*args, topology=JaxTopology(**topo), **kw)
+    assert [dataclasses.asdict(r) for r in got] == [
+        dataclasses.asdict(r) for r in want]
+    assert costs.format_ledger(got, *cadence) == jcosts.format_ledger(
+        want, *cadence)
+    assert costs.ledger_scalars(got) == jcosts.ledger_scalars(want)
+    with pytest.raises(ValueError, match='topology world'):
+        costs.comm_ledger(*args, topology=kt.PodTopology(
+            ici_size=rows * cols, n_groups=2), **kw)
 
 
 def test_compiled_costs_counts_an_mlp():
