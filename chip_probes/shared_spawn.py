@@ -6,8 +6,9 @@ Run from the root of the repository on one CUDA card::
     python3 chip_probes/shared_spawn.py
 
 It builds the kernels, then runs the rank work of ``chip_smoke.py``'s
-phases 5, 17, 18, 21, 22 (the resize) and 23 (its two ranks) twice on
-the same host: each phase in a spawn of its own, one after the other
+phases 5, 17, 18, 21, 22 (the resize), 23 (its two ranks), 31 (b) and
+28 (with its one-process references in the parent) twice on the same
+host: each phase in a spawn of its own, one after the other
 (``chip_smoke.spawn_alone``), then all of them in one spawn
 (``chip_smoke.spawn_shared``), and prints each time beside the card's
 name and power limit.  The phases' gates are the script's; this probe
@@ -41,12 +42,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
     took = {}
-    for key in cs.multi_rank_plan():
+    keys = list(cs.multi_rank_plan())
+    for key in keys:
         t0 = time.perf_counter()
         cs.spawn_alone(torch, key)
         took[f'alone {key}'] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cs.spawn_shared(torch)
+    cs.spawn_shared(torch, keys)
     took['shared'] = time.perf_counter() - t0
     alone = sum(v for k, v in took.items() if k.startswith('alone'))
     print(f'shared spawn: {took["shared"]:.2f} s against {alone:.2f} s '

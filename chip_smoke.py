@@ -327,9 +327,9 @@ fails:
     unpadded and as the path makes them (the gradient padded, ``pg``
     sliced), beside the 28.20 and 20.70 ms the unpadded path took before
     the padding (H100 80GB HBM3, 700 W);
-28. GPT's sequence- and tensor-parallel paths, in one spawn of four
-    gloo ranks on the card (the same spawn runs phases 26 and 27's
-    ranks first), at GPT-125M's widths (vocab 50304, 12
+28. GPT's sequence- and tensor-parallel paths, on four gloo ranks of
+    the shared spawn (the same ranks run phases 26 and 27's four-rank
+    work first), at GPT-125M's widths (vocab 50304, 12
     layers, 12 heads, 768/3072), f32, batch 4 x 2048, factor 1, inv 3:
     (a) the ring GPT over a sequence group of 4 (512 tokens a rank)
     under ``KFACPreconditioner`` (MEM-OPT: COMM-OPT's gathered
@@ -387,15 +387,31 @@ fails:
     by the topology, and at every step the bytes the ranks' collectives
     moved by link class and by phase equal to the ledger's rows that
     fired.  The placement report is printed.
+32. the port's scripts: (a) ``profile_step``'s variant mode on ResNet-50
+    at full width (batch 32, 224x224, factor 10, inv 100; 5 timed calls
+    a window, CUDA events): the ``sgd``, ``plain``, ``factor`` and
+    ``inv`` times, the amortized time and its ratio to SGD; every time
+    finite, 21 fused-kernel launches each K-FAC call, one kernel call at
+    ResNet-50's ``a2176g1024`` slot against its plain version (``rtol
+    1e-5, atol 1e-4``); then ``profile_step``'s iterative smoke, whose
+    validator's speed pin (warm Newton-Schulz strictly faster than
+    ``eigh`` on every shape) is a claim about the card; (b)
+    ``fault_drill --elastic`` at worlds 8 -> 4
+    -> 2 (gloo ranks on the card; the mid-save kill, the bitwise
+    same-world resume, two resizes, the layers-only recompute; every leg
+    started at once, each waiting for the leg it restores from), its
+    artifact passed by the port's validator.
 
 The rank work of phases 5, 17, 18, 21, 22 (the resize), 23 (its two
-ranks) and 31 (b) runs in one spawn of four processes right after phase 4
-(``spawn_shared``: each phase with its own process groups and reports;
-a failure names its phase); each phase's gates then read its ranks'
-reports where the phase stands.  Phases 26 and 27 end with an adaptive
+ranks), 31 (b) and 28 (with 26-27 at world 4 and 30b) runs in one spawn
+of four processes right after phase 4 (``spawn_shared``: each phase with
+its own process groups and reports; a failure names its phase; phase
+28's one-process references run here once its ranks start it); each
+phase's gates then read its ranks' reports where the phase stands.
+Phases 26 and 27 end with an adaptive
 pass: ``AdaptiveDamping`` through ``make_train_step`` (an adaptation
 every step, the ``rho`` band cut to 0.5 so each moves the damping), 2
-steps in one process and at world 4 (in phase 28's spawn): finite
+steps in one process and at world 4 (in phase 28's ranks): finite
 losses, the damping moved, bitwise the same on every rank, launches =
 steps x layers, every fused call against plain on the padded stacks,
 the loss-only forward's time beside the step's.
@@ -432,7 +448,7 @@ tensor against ``numpy.linalg.eig``.
 A ``phases:`` line gives each phase's time.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` (with
-phases 26-27's adaptive passes, 29, 30, 30b and 31 among its entries); the
+phases 26-27's adaptive passes, 29, 30, 30b, 31 and 32 among its entries); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -448,6 +464,7 @@ import statistics
 import sys
 import tempfile
 import time
+from typing import Any, Callable, NamedTuple
 
 #: H100 SXM figures (NVIDIA data sheet, 700 W): HBM bytes/s, f32
 #: CUDA-core FLOP/s, dense TF32 and bf16 tensor-core FLOP/s.
@@ -2207,71 +2224,61 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
     dist.destroy_process_group()
 
 
-def spawn_ranks(torch, target, world, backend, args, timeout_s, label,
-                stem, meanwhile=None):
-    """Run ``target(rank, world, backend, DEVICE, workdir, *args)`` in
-    ``world`` spawned processes, each writing ``{stem}{rank}.pt`` to a
-    temporary ``workdir``; ``meanwhile()``, when given, runs here while
-    they do; kill any still alive after ``timeout_s`` (or when
-    ``meanwhile`` fails) and fail naming ``label`` if one hung or
-    exited non-zero; return the ranks' saved reports in rank order."""
-    import torch.multiprocessing as mp
+class RankPhase(NamedTuple):
+    """One multi-rank phase of :func:`spawn_shared`: ``target(rank, world,
+    backend, device, directory, *args)`` on ``world`` ranks, each writing
+    ``{stem}{rank}.pt`` to the phase's ``directory``.  ``args`` is a
+    tuple, or a function of the phase's directory that returns it;
+    ``env`` holds ``(name, value)`` pairs the ranks set before their
+    first CUDA allocation; ``meanwhile(torch, *args)``, when given, runs
+    in the parent once the phase's rank 0 has started, and what it
+    returns comes back beside the reports."""
 
-    ctx = mp.get_context('spawn')
-    with tempfile.TemporaryDirectory(prefix=f'{stem}_') as workdir:
-        procs = [ctx.Process(target=target,
-                             args=(rank, world, backend, DEVICE, workdir,
-                                   *args))
-                 for rank in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.time() + timeout_s
-        try:
-            if meanwhile is not None:
-                meanwhile()
-            for p in procs:
-                p.join(max(1.0, deadline - time.time()))
-        finally:
-            hung = [i for i, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        if hung:
-            fail(f'{label} ranks {hung} did not finish in {timeout_s} s')
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            fail(f'{label} ranks exited with {codes}')
-        return [torch.load(os.path.join(workdir, f'{stem}{r}.pt'))
-                for r in range(world)]
+    label: str
+    target: Callable
+    world: int
+    args: Any
+    timeout_s: float
+    stem: str
+    env: tuple = ()
+    meanwhile: Callable | None = None
 
 
-def multi_rank_plan() -> dict:
+def multi_rank_plan() -> dict[str, RankPhase]:
     """The rank work of the multi-rank phases that share one spawn
-    (:func:`spawn_shared`), in the order its ranks run it: phase key ->
-    ``(label, target, world, args, timeout_s, stem)``.  Phase 25 keeps a
-    spawn of its own (a rank is killed and the world restarts), and
-    phases 26-28 share another (:func:`phase_seq_tp`)."""
+    (:func:`spawn_shared`), in the order its ranks run it.  Phase 25
+    keeps a spawn of its own (a rank is killed and the world restarts).
+    Phase 28's ranks (with 26-27's four-rank parts and 30b) come last:
+    the parent runs their one-process references while they run
+    (:func:`seq_references`)."""
     return {
-        '5': ('kaisa', kaisa_rank, KAISA_WORLD, (), KAISA_TIMEOUT_S,
-              'rank'),
-        '17': ('resnet50 pipelined', pipeline_rank, KAISA_WORLD,
-               (RN50_IMAGE, RN50_BATCH, PIPE_MODEL), RN50_PIPE_TIMEOUT_S,
-               'pipe'),
-        '18': ('resnet50 ekfac grid', ekfac_grid_rank, KAISA_WORLD,
-               (RN50_IMAGE, RN50_BATCH, GRID_MODEL), RN50_GRID_TIMEOUT_S,
-               'grid'),
-        '21': ('resnet50 consistency', consistency_rank, KAISA_WORLD,
-               (RN50_IMAGE, RN50_BATCH, CONS_MODEL), RN50_CONS_TIMEOUT_S,
-               'cons'),
-        '22': ('resnet50 resize', elastic_rank, RN50_RESIZE_WORLDS[0],
-               (RN50_IMAGE, RN50_BATCH, ELASTIC_MODEL),
-               RN50_RESIZE_TIMEOUT_S, 'resize'),
-        '23': ('watchdog ranks', watchdog_rank, 2, (), WATCH_RANK_TIMEOUT_S,
-               'watch'),
-        '31': ('resnet50 placement', placement_rank, KAISA_WORLD,
-               (RN50_IMAGE, RN50_BATCH, PLACE_MODEL), PLACE_TIMEOUT_S,
-               'place'),
+        '5': RankPhase('kaisa', kaisa_rank, KAISA_WORLD, (), KAISA_TIMEOUT_S,
+                       'rank'),
+        '17': RankPhase('resnet50 pipelined', pipeline_rank, KAISA_WORLD,
+                        (RN50_IMAGE, RN50_BATCH, PIPE_MODEL),
+                        RN50_PIPE_TIMEOUT_S, 'pipe'),
+        '18': RankPhase('resnet50 ekfac grid', ekfac_grid_rank, KAISA_WORLD,
+                        (RN50_IMAGE, RN50_BATCH, GRID_MODEL),
+                        RN50_GRID_TIMEOUT_S, 'grid'),
+        '21': RankPhase('resnet50 consistency', consistency_rank,
+                        KAISA_WORLD, (RN50_IMAGE, RN50_BATCH, CONS_MODEL),
+                        RN50_CONS_TIMEOUT_S, 'cons'),
+        '22': RankPhase('resnet50 resize', elastic_rank,
+                        RN50_RESIZE_WORLDS[0],
+                        (RN50_IMAGE, RN50_BATCH, ELASTIC_MODEL),
+                        RN50_RESIZE_TIMEOUT_S, 'resize'),
+        '23': RankPhase('watchdog ranks', watchdog_rank, 2, (),
+                        WATCH_RANK_TIMEOUT_S, 'watch'),
+        '31': RankPhase('resnet50 placement', placement_rank, KAISA_WORLD,
+                        (RN50_IMAGE, RN50_BATCH, PLACE_MODEL),
+                        PLACE_TIMEOUT_S, 'place'),
+        # Four ranks share the card: segments that grow in place keep the
+        # freed attention blocks reusable.
+        '28': RankPhase('seq/tp', world_rank, SEQ_WORLD, seq_ref_paths,
+                        SEQ_TIMEOUT_S, 'seq',
+                        env=(('PYTORCH_CUDA_ALLOC_CONF',
+                              'expandable_segments:True'),),
+                        meanwhile=seq_references),
     }
 
 
@@ -2282,22 +2289,22 @@ def plan_backend(world: int) -> str:
 
 
 def spawn_alone(torch, key):
-    """One phase's ranks in a spawn of their own (:func:`spawn_ranks`):
-    the phase functions' path when no shared spawn gave them reports."""
-    label, target, world, args, timeout_s, stem = multi_rank_plan()[key]
-    return spawn_ranks(torch, target, world, plan_backend(world), args,
-                       timeout_s, label, stem)
+    """One phase's ranks in a spawn of their own: the phase functions'
+    path when no shared spawn gave them reports."""
+    return spawn_shared(torch, [key])[0][key]
 
 
-def shared_rank(rank, device_type, workdir, entries):
+def shared_rank(rank, device_type, workdir, entries, env):
     """One process of :func:`spawn_shared`: each entry's target in turn
     (on the ranks below its world), in a directory of its own, so each
     phase makes its own process groups and writes its own reports.  A
     failure is written to ``<stem><rank>.error`` before it is raised, so
     the parent names the phase.  Between phases the backend flags a
-    phase sets are put back and the card's cache is emptied."""
+    phase sets are put back and the card's cache is emptied.  ``env``
+    is set before the process's first CUDA allocation."""
     import traceback
 
+    os.environ.update(env)
     import torch
 
     flags = (torch.backends.cudnn.deterministic,
@@ -2306,6 +2313,8 @@ def shared_rank(rank, device_type, workdir, entries):
     for label, target, n, phase_backend, args, stem in entries:
         sub = os.path.join(workdir, stem)
         if rank < n:
+            with open(os.path.join(sub, f'started{rank}'), 'w'):
+                pass
             try:
                 target(rank, n, phase_backend, device_type, sub, *args)
             except BaseException:
@@ -2323,29 +2332,48 @@ def shared_rank(rank, device_type, workdir, entries):
 
 def spawn_shared(torch, keys=None):
     """The ranks of the phases ``keys`` of :func:`multi_rank_plan`
-    (default all) in one spawn of four processes (:func:`shared_rank`),
-    which pay the start, the imports and the card's context once.
-    Returns ``{key: the ranks' reports}``; fails naming the phase whose
-    rank failed or hung (a failed rank ends the spawn at once)."""
+    (default all) in one spawn of as many processes as the widest needs
+    (:func:`shared_rank`), which pay the start, the imports and the
+    card's context once.  A phase's ``meanwhile`` runs here once its
+    rank 0 has started it (the earlier phases' timings are then left
+    alone).  Returns ``({key: the ranks' reports}, {key: what its
+    meanwhile returned})``; fails naming the phase whose rank failed or
+    hung (a failed rank ends the spawn at once)."""
     import torch.multiprocessing as mp
 
     plan = multi_rank_plan()
     keys = list(plan) if keys is None else list(keys)
-    entries = [(plan[k][0], plan[k][1], plan[k][2], plan_backend(plan[k][2]),
-                plan[k][3], plan[k][5]) for k in keys]
-    world = max(plan[k][2] for k in keys)
-    timeout_s = sum(plan[k][4] for k in keys)
+    world = max(plan[k].world for k in keys)
+    timeout_s = sum(plan[k].timeout_s for k in keys)
+    env = {name: value for k in keys for name, value in plan[k].env}
     ctx = mp.get_context('spawn')
     with tempfile.TemporaryDirectory(prefix='ranks_') as workdir:
-        for entry in entries:
-            os.makedirs(os.path.join(workdir, entry[5]))
+        entries, args = [], {}
+        for k in keys:
+            ph = plan[k]
+            sub = os.path.join(workdir, ph.stem)
+            os.makedirs(sub)
+            args[k] = ph.args(sub) if callable(ph.args) else ph.args
+            entries.append((ph.label, ph.target, ph.world,
+                            plan_backend(ph.world), args[k], ph.stem))
         procs = [ctx.Process(target=shared_rank,
-                             args=(rank, DEVICE, workdir, entries))
+                             args=(rank, DEVICE, workdir, entries, env))
                  for rank in range(world)]
         for p in procs:
             p.start()
         deadline = time.time() + timeout_s
+        meanwhile = {}
         try:
+            for k in keys:
+                ph = plan[k]
+                if ph.meanwhile is None:
+                    continue
+                started = os.path.join(workdir, ph.stem, 'started0')
+                while (time.time() < deadline and not os.path.exists(started)
+                       and all(p.is_alive() for p in procs)):
+                    time.sleep(0.2)
+                if os.path.exists(started):
+                    meanwhile[k] = ph.meanwhile(torch, *args[k])
             while time.time() < deadline and any(p.is_alive()
                                                  for p in procs):
                 if any(p.exitcode for p in procs if not p.is_alive()):
@@ -2372,9 +2400,9 @@ def spawn_shared(torch, keys=None):
                 for r in range(e[2]))), 'shared spawn')
             fail(f'{pending} ranks {alive} did not finish in {timeout_s} s'
                  if alive else f'{pending}: ranks exited with {codes}')
-        return {k: [torch.load(os.path.join(workdir, e[5], f'{e[5]}{r}.pt'))
-                    for r in range(e[2])]
-                for k, e in zip(keys, entries)}
+        return ({k: [torch.load(os.path.join(workdir, e[5], f'{e[5]}{r}.pt'))
+                     for r in range(e[2])]
+                 for k, e in zip(keys, entries)}, meanwhile)
 
 
 def phase_kaisa(torch, kt, ranks=None):
@@ -8014,34 +8042,42 @@ def reference_run(torch, path, out, model, precond, loss_of, steps):
     out.update(losses=losses, step_s=step_s)
 
 
-def phase_seq_tp(torch, kt, moe, pipe):
-    """Phase 28 (budget 150 s; module docstring) and the four-rank parts
-    of phases 26 and 27 in the same spawn, held to the one-card runs
-    ``moe`` and ``pipe`` (:func:`moe_world_check`,
-    :func:`pipeline_world_check`).  Returns the kernels-line entries'
-    inputs: the MoE ranks' worst kernel error, the GPipe ranks' launches
-    and worst error, and the ring's and the TP prediv pass's launches,
-    shapes and worst error."""
+def seq_ref_paths(directory: str) -> tuple[str, str]:
+    """Where phase 28's ranks find the one-process references: in the
+    phase's directory of the shared spawn."""
+    return (os.path.join(directory, 'ref.pt'),
+            os.path.join(directory, 'bert_ref.pt'))
+
+
+def seq_references(torch, path, bert_path) -> dict:
+    """Phase 28's one-process references, run while its ranks run: the
+    dense GPT-125M and the whole BERT, their step-0 state saved at
+    ``path`` and ``bert_path``; returns their ``one`` and ``bert_one``
+    records."""
+    import kfac_pytorch_tpu_torch as kt
+
+    one, bert_one = {}, {}
+    seq_reference(torch, kt, path, one)
+    bert_tp_reference(torch, kt, bert_path, bert_one)
+    return dict(one=one, bert_one=bert_one)
+
+
+def phase_seq_tp(torch, kt, moe, pipe, ranks, refs):
+    """Phase 28 (module docstring) and the four-rank parts of phases 26
+    and 27 in the same ranks, held to the one-card runs ``moe`` and
+    ``pipe`` (:func:`moe_world_check`, :func:`pipeline_world_check`).
+    ``ranks``: the shared spawn's reports; ``refs``: what its
+    :func:`seq_references` returned (``None`` when they did not run).
+    Returns the kernels-line entries' inputs: the MoE ranks' worst
+    kernel error, the GPipe ranks' launches and worst error, and the
+    ring's and the TP prediv pass's launches, shapes and worst error."""
     from kfac_pytorch_tpu_torch.parallel.mesh import default_backend
 
-    workdir = tempfile.mkdtemp(prefix='seq_ref_')
-    try:
-        path = os.path.join(workdir, 'ref.pt')
-        bert_path = os.path.join(workdir, 'bert_ref.pt')
-        one, bert_one = {}, {}
-        backend = (default_backend(SEQ_WORLD) if DEVICE == 'cuda'
-                   else 'gloo')
-
-        def references():
-            seq_reference(torch, kt, path, one)
-            bert_tp_reference(torch, kt, bert_path, bert_one)
-
-        ranks = spawn_ranks(
-            torch, world_rank, SEQ_WORLD, backend, (path, bert_path),
-            SEQ_TIMEOUT_S, 'seq/tp', 'seq', meanwhile=references)
-        losses, ref_s = one['losses'], one['step_s']
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    backend = default_backend(SEQ_WORLD) if DEVICE == 'cuda' else 'gloo'
+    if refs is None:
+        fail('seq/tp: the one-process references did not run')
+    one, bert_one = refs['one'], refs['bert_one']
+    losses, ref_s = one['losses'], one['step_s']
     moe_worst = moe_world_check(moe, [r['moe'] for r in ranks], backend)
     pipe_launches, pipe_worst = pipeline_world_check(
         pipe, [r['pipe'] for r in ranks], backend)
@@ -8682,6 +8718,130 @@ PIPE_LM_CASES = [(1, 2304, 769), (1, 768, 769), (1, 3072, 769),
                  (1, 768, 3073)]
 
 
+PROFILE_MODEL = 'resnet50'  # b32, 224x224, factor 10, inv 100
+PROFILE_ITERS = 5
+PROFILE_BATCH = None  # the variant mode's own (32 for ResNet-50)
+PROFILE_IMAGE = None
+ELASTIC_DRILL_WORLDS = (8, 4, 2)
+PROFILE_CHECK = (1, 1024, 2176)  # ResNet-50's a2176g1024 slot
+
+
+def phase_profile_drill(torch, kt):
+    """Phase 32: the port's scripts on the card.  (a) ``profile_step``'s
+    variant mode on ResNet-50 at full width (batch 32, 224x224, factor
+    10, inv 100, ``PROFILE_ITERS`` timed calls a window): the four
+    variant times, the amortized time and its ratio to SGD; gates: every
+    time finite, 21 fused-kernel launches a K-FAC call of each variant,
+    and one call of the kernel at a ResNet-50 bucket shape against its
+    plain version at ``rtol 1e-5, atol 1e-4``; then the iterative, stagger
+    and phase-profile smokes, each validator passing (their timing pins,
+    the warm Newton-Schulz speed, the staggered flatness and the phases'
+    sum within 10% of the total, are the card's to hold).  (b)
+    ``fault_drill --elastic`` at worlds 8 -> 4 -> 2 (gloo ranks on
+    ``cuda:0``), its artifact passed by the port's validator.  Returns ``(launches,
+    max_abs_err)`` of the variant mode's run."""
+    from kfac_pytorch_tpu_torch.scripts import fault_drill
+    from kfac_pytorch_tpu_torch.scripts import profile_step
+
+    gc.collect()
+    kernel = kt.ops.fused_eigen_precondition
+    kernel.launches = 0
+    t = time.perf_counter()
+    payload = profile_step.run_variants(
+        PROFILE_MODEL, DEVICE, PROFILE_ITERS, batch=PROFILE_BATCH,
+        image=PROFILE_IMAGE)
+    launches = kernel.launches
+    took = time.perf_counter() - t
+    times = dict(payload['phases_ms'], sgd=payload['sgd_ms'])
+    if not all(math.isfinite(v) and v > 0 for v in times.values()):
+        fail(f'profile variants: times {times}')
+    per_call = payload['kernel_launches_per_call']
+    if DEVICE == 'cuda' and any(v != 21 for v in per_call.values()):
+        fail(f'profile variants: fused-kernel launches a call {per_call}, '
+             'expected 21 (one a ResNet-50 bucket)')
+    if DEVICE == 'cuda' and launches <= 0:
+        fail('profile variants: the fused kernel never launched')
+    args = make_case(torch, *PROFILE_CHECK, 3200)
+    got = kernel(*args)
+    want = kt.ops.fused_eigen_precondition_reference(*args)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    # The preconditioned gradient's error (the clip sums run to ~1e5 and
+    # are held relatively by the rtol above).
+    err = float((got[0] - want[0]).abs().max())
+    print(f'profile variants {PROFILE_MODEL} (b{payload["batch"]}, '
+          f'{payload["image"]}x{payload["image"]}, factor '
+          f'{payload["cadence"]["factor"]}, inv {payload["cadence"]["inv"]},'
+          f' iters {PROFILE_ITERS}): sgd {payload["sgd_ms"]} ms, plain '
+          f'{times["plain"]} ms, factor {times["factor"]} ms, inv '
+          f'{times["inv"]} ms; amortized {payload["amortized_ms"]} ms, '
+          f'ratio {payload["amortized_ratio"]}; fused-kernel launches '
+          f'{launches} ({per_call} a call); kernel at {PROFILE_CHECK} vs '
+          f'plain: preconditioned gradient max abs err {err:.3e}; '
+          f'{took:.2f} s', flush=True)
+
+    # The iterative smoke's pin (warm Newton–Schulz strictly faster than
+    # eigh on every shape) is a claim about the card: its validator runs
+    # here.
+    path = os.path.join(tempfile.mkdtemp(prefix='phase32_'),
+                        'iterative.json')
+    t = time.perf_counter()
+    if profile_step.run_iterative_smoke(path, DEVICE) != 0:
+        fail(f'iterative smoke: its validator refused {path}')
+    with open(path) as fh:
+        detail = json.load(fh)['detail']
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    print('iterative smoke: warm Newton-Schulz against eigh '
+          + ', '.join(f'{e["shape"]} {e["eigh_ms"]:.4f} / '
+                      f'{e["ns_warm_ms"]:.4f} ms' for e in detail['shapes'])
+          + f'; speedup min {detail["warm_vs_eigh_speedup_min"]:.3f}, max '
+          f'{detail["warm_vs_eigh_speedup_max"]:.3f}; valid; '
+          f'{time.perf_counter() - t:.2f} s', flush=True)
+
+    # The stagger smoke's flatness and the phase profile's sum against
+    # its total: timings, held here.
+    for name, run in (('stagger', profile_step.run_stagger_smoke),
+                      ('profile', profile_step.run_smoke)):
+        path = os.path.join(tempfile.mkdtemp(prefix='phase32_'),
+                            f'{name}.json')
+        t = time.perf_counter()
+        if run(path, DEVICE) != 0:
+            fail(f'{name} smoke: its validator refused {path}')
+        with open(path) as fh:
+            detail = json.load(fh)['detail']
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        if name == 'stagger':
+            what = (f'max/p50 monolithic {detail["mono_max_over_p50"]}, '
+                    f'staggered {detail["stag_max_over_p50"]}; ledger '
+                    f'interval ratio {detail["ledger_interval_ratio"]}')
+        else:
+            what = (f'phases {detail["phases_ms"]} ms, sum/total '
+                    f'{detail["phase_sum_vs_total"]}')
+        print(f'{name} smoke: {what}; valid; '
+              f'{time.perf_counter() - t:.2f} s', flush=True)
+
+    out = os.path.join(tempfile.mkdtemp(prefix='phase32_'), 'elastic.json')
+    t = time.perf_counter()
+    rc = fault_drill.run_elastic_drill(out, device=DEVICE,
+                                       worlds=ELASTIC_DRILL_WORLDS)
+    took = time.perf_counter() - t
+    if rc != 0 or fault_drill.validate_elastic_artifact(out) != 0:
+        fail(f'elastic drill at worlds {ELASTIC_DRILL_WORLDS}: rc {rc}, '
+             f'artifact {out}')
+    with open(out) as fh:
+        phases = json.load(fh)['phases']
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    print(f'elastic drill {ELASTIC_DRILL_WORLDS}: valid; same-world resume '
+          f'bitwise {phases["same_world_bitwise"]["bitwise_equal"]} from '
+          f'{phases["same_world_bitwise"]["restored_generation"]}; resize '
+          f'rel err {phases["resize_divergence"]["param_rel_err"]:.3e}; '
+          f'layers-only recomputed '
+          f'{phases["layers_only_recompute"]["recomputed"]} (rel err '
+          f'{phases["layers_only_recompute"]["param_rel_err"]:.3e}); '
+          f'{took:.2f} s', flush=True)
+    return launches, err
+
+
 def device_record(torch) -> dict:
     """The last line: ``{"ok": true, "device": {...}}``."""
     return {'ok': True, 'device': {
@@ -8755,9 +8915,11 @@ def main() -> int:
         '1-2 kernels', phase_kernels, torch, kt.ops)
     entry['launches'] = phase('3 train', phase_train, torch, kt)
     sharded = phase('4 sharded', phase_sharded_kernel, torch, kt)
-    # The rank work of phases 5, 17, 18, 21, 22, 23 and 31 in one spawn;
-    # each phase's gates read its ranks' reports where it stands.
-    shared = phase('5, 17, 18, 21-23, 31 ranks', spawn_shared, torch)
+    # The rank work of phases 5, 17, 18, 21, 22, 23, 31 and 28 (with 26-27
+    # at world 4 and 30b) in one spawn; each phase's gates read its
+    # ranks' reports where it stands.
+    shared, meanwhile = phase('5, 17, 18, 21-23, 31, 28 ranks',
+                              spawn_shared, torch)
     sharded['launches'], sharded['gather_ms'] = phase(
         '5 kaisa', phase_kaisa, torch, kt, shared['5'],
     )
@@ -8845,7 +9007,7 @@ def main() -> int:
     moe = phase('26 moe', phase_moe, torch, kt)
     pipe = phase('27 pipeline', phase_pipeline, torch, kt)
     world = phase('28 seq/tp, 26-27 world 4', phase_seq_tp, torch, kt, moe,
-                  pipe)
+                  pipe, shared['28'], meanwhile.get('28'))
     moe_kernel = bucket_entry(
         torch, kernel, plain, 'MoE expert and dense layers (phase 26)',
         [aligned(x) for x in MOE_CASES], 960,
@@ -8904,6 +9066,16 @@ def main() -> int:
     phase('31a native', phase_native, torch, kt)
     place_kernel = phase('31b resnet50 placement', phase_resnet50_placement,
                          torch, kt, shared['31'])
+    launches, err = phase('32 profile, elastic drill', phase_profile_drill,
+                          torch, kt)
+    # The variant mode calls the kernel on phase 9's 21 bucket shapes:
+    # its times are phase 9's timing of them, in this run.
+    rn50_profile = dict(
+        rn50, name='fused_eigen_precondition, ResNet-50 buckets, '
+        'profile_step variant mode: plain, factor and inv calls (phase 32; '
+        'ms, plain_ms, library_ms: phase 9\'s timing of the same shapes)',
+        launches=launches, max_abs_err=max(rn50['max_abs_err'], err),
+    )
     phase('bench stages', phase_bench_stages, torch, kt)
     stop_profile_worker()
     print('phases: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items())
@@ -8919,7 +9091,8 @@ def main() -> int:
                                   moe_kernel, pipe_kernel, ring_kernel,
                                   tp_kernel, moe_adaptive, pipe_adaptive,
                                   bert_tp_kernel, lm_kernel,
-                                  squad_kernel, place_kernel]}),
+                                  squad_kernel, place_kernel,
+                                  rn50_profile]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

@@ -1195,10 +1195,23 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
 
     def _consistency_repair(self, result: consistency_lib.CheckResult):
         """Broadcast the canonical replica of every divergent surface
-        (collective); returns ``(layer mask, {bucket: [L] mask})``."""
-        return consistency_lib.repair_state(
+        (collective); returns ``(layer mask, {bucket: [L] mask})``.
+
+        A rank that preconditioned through the divergent state since the
+        last check stepped differently, and this step's gradients were
+        preconditioned through it too: the model's parameters and their
+        gradients are voted on and repaired the same way
+        (:func:`~kfac_pytorch_tpu_torch.consistency.repair_replicated`),
+        so every rank takes the same optimizer step.  An optimizer's own
+        state (momentum, moments) is not the guard's to repair."""
+        masks = consistency_lib.repair_state(
             result, self.layers, self.buckets, self.plan, self.grid,
         )
+        params = [p.detach() for p in self._capture.model.parameters()]
+        grads = [p.grad.detach() for p in self._capture.model.parameters()
+                 if p.grad is not None]
+        consistency_lib.repair_replicated(params + grads)
+        return masks
 
     def _consistency_quarantine(self, masks: dict) -> None:
         consistency_lib.apply_quarantine(self.buckets, masks, self.grid)

@@ -67,6 +67,7 @@ __all__ = [
     'check_info',
     'host_replica_divergence',
     'mismatch_masks',
+    'repair_replicated',
     'repair_state',
     'sanitize',
     'stack_digest',
@@ -481,6 +482,32 @@ def repair_state(
                 _broadcast_bytes([t[s] for t in fields], src,
                                  grid.col_group)
     return result.layer_mask, dict(result.bucket_masks)
+
+
+def repair_replicated(tensors: Sequence[torch.Tensor]) -> np.ndarray:
+    """Vote over the world on each of ``tensors`` (replicated by
+    contract) and broadcast the canonical replica of every one that
+    disagrees, bitwise and in place: one ``all_gather_into_tensor`` of
+    the digests, then one broadcast a divergent tensor.  Returns the
+    mask of what disagreed.  Every rank must call it with its own copies
+    of the same tensors in the same order."""
+    mask = np.zeros(len(tensors), bool)
+    world = group_size(None)
+    if world <= 1 or not tensors:
+        return mask
+    local = torch.stack([array_digest(t) for t in tensors]).reshape(-1)
+    gathered = torch.empty(world * local.numel(), dtype=torch.int64,
+                           device=local.device)
+    dist.all_gather_into_tensor(gathered, local)
+    canon, mask = canonical_rank(
+        gathered.view(world, len(tensors), 2).cpu().numpy())
+    for i in np.flatnonzero(mask):
+        t = tensors[i]
+        flat = t.contiguous()
+        _broadcast_bytes([flat], int(canon[i]), None)
+        if flat.data_ptr() != t.data_ptr():
+            t.copy_(flat)
+    return mask
 
 
 def apply_quarantine(

@@ -231,6 +231,20 @@ save_streaming``'s ``gen-<step>/``) rewritten for the port, as
     restores ``dst`` through :func:`kfac_pytorch_tpu_torch.elastic.\
 restore_streaming`, at any world size.
     """
+    return _rename_generation(src, dst, '/', '.')
+
+
+def torch_generation_to_jax(src: str, dst: str) -> str:
+    """The port's streaming generation rewritten for the JAX package
+    (layer names from ``.`` to ``/``), as ``dst/<the generation's
+    name>``: :func:`jax_generation_to_torch` the other way."""
+    return _rename_generation(src, dst, '.', '/')
+
+
+def _rename_generation(src: str, dst: str, old: str, new: str) -> str:
+    """``src`` verified and copied to ``dst/<its name>`` with ``old``
+    replaced by ``new`` in the layer names of ``layers.npz`` and of the
+    meta's layout signature, the manifest rewritten to match."""
     import io
     import json
     import os
@@ -251,7 +265,7 @@ restore_streaming`, at any world size.
         path, target = os.path.join(src, name), os.path.join(tmp, name)
         if name == 'layers.npz':
             with np.load(path) as npz:
-                arrays = {k.replace('/', '.'): npz[k] for k in npz.files}
+                arrays = {k.replace(old, new): npz[k] for k in npz.files}
             buf = io.BytesIO()
             np.savez(buf, **arrays)
             data = buf.getvalue()
@@ -260,7 +274,7 @@ restore_streaming`, at any world size.
                 meta = json.load(fh)
             sig = (meta.get('topology') or {}).get('signature')
             for bucket in (sig or {}).get('buckets', ()):
-                bucket['slots'] = [None if n is None else n.replace('/', '.')
+                bucket['slots'] = [None if n is None else n.replace(old, new)
                                    for n in bucket['slots']]
             data = json.dumps(meta, indent=1, sort_keys=True).encode()
         else:

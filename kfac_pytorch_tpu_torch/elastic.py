@@ -55,7 +55,7 @@ import os
 import re
 import shutil
 import zlib
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -319,7 +319,9 @@ def save_streaming(
     *,
     step: int | None = None,
     retain: int = 3,
+    include_decompositions: bool = True,
     extras: Mapping[str, Any] | None = None,
+    on_shard: Callable[[str], None] | None = None,
 ) -> str | None:
     """Write generation ``<directory>/gen-<step>`` (``step`` defaults to
     ``precond.steps``) and prune committed generations beyond the newest
@@ -329,7 +331,14 @@ def save_streaming(
     layer keeps outside the stacks), ``bucket-<key>.npz`` per bucket,
     ``health.npz`` under health, ``extras.npz`` (``extras``, a flat
     ``str -> tensor`` mapping), then ``meta.json`` (born ``'pending'``)
-    and last ``MANIFEST.json``.
+    and last ``MANIFEST.json``.  ``include_decompositions=False`` saves
+    the layers only: ``layers.npz`` keeps each layer's ``a_factor`` and
+    ``g_factor`` and no bucket shard is written (nothing is gathered);
+    the meta records it, and the restore recomputes the decompositions.
+
+    ``on_shard(relative_name)`` fires on the writer after each shard is
+    published, then once for ``meta.json``, before the manifest: progress
+    reporting, and the fault drill's mid-save kill hook.
 
     Returns the generation's path, or ``None`` when the writes failed
     with an ``OSError`` on every bounded retry (the save is skipped with
@@ -352,7 +361,8 @@ def save_streaming(
     # The stacks are gathered over the grid row on every rank (a
     # collective); only rank 0, the writer, copies anything to the host.
     so = precond._second_order
-    stacks = so.gather_stacks(precond.buckets) if so is not None else {}
+    stacks = (so.gather_stacks(precond.buckets)
+              if so is not None and include_decompositions else {})
     shards: dict[str, dict[str, np.ndarray]] = {}
     if _rank() == 0:
         layer_arrays: dict[str, np.ndarray] = {}
@@ -360,7 +370,8 @@ def save_streaming(
             fields = {'a_factor': st.a_factor, 'g_factor': st.g_factor}
             # A field not computed yet is saved as the zeros the JAX
             # state starts from.
-            for fname, shape in precond._layer_field_shapes(base).items():
+            for fname, shape in (precond._layer_field_shapes(base).items()
+                                 if include_decompositions else ()):
                 t = getattr(st, fname)
                 fields[fname] = t if t is not None else torch.zeros(
                     shape, dtype=precond.inv_dtype)
@@ -393,8 +404,7 @@ def save_streaming(
         'stagger_bootstrapped': bool(precond._stagger_bootstrapped),
         'iter_bootstrapped': bool(precond._iter_bootstrapped),
         'stagger_refresh': precond._stagger_refresh,
-        # JAX's key: its save may leave the decompositions out.
-        'include_decompositions': True,
+        'include_decompositions': bool(include_decompositions),
         'hyperparams': _sanitize_hyperparams(hp),
         'adaptive_refresh': None if ar is None else ar.state_dict(),
         'topology': {
@@ -427,11 +437,15 @@ def save_streaming(
             manifest_shards[name] = {
                 'bytes': os.path.getsize(path), 'crc32': _crc32(path),
             }
+            if on_shard is not None:
+                on_shard(name)
         meta_path = os.path.join(target, META_NAME)
         _write_json(meta_path, meta)
         manifest_shards[META_NAME] = {
             'bytes': os.path.getsize(meta_path), 'crc32': _crc32(meta_path),
         }
+        if on_shard is not None:
+            on_shard(META_NAME)
         # The commit point: nothing above is visible before this rename.
         _write_json(os.path.join(target, MANIFEST_NAME), {
             'format': FORMAT_VERSION, 'step': step,

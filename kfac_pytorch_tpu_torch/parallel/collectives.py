@@ -133,7 +133,7 @@ def all_reduce_sum_triu(
     packed = [get_triu(0.5 * (f + f.mT)).to(comm_dtype) for f in factors]
     flat = torch.cat(packed)
     if group_size(group) > 1:
-        try:
+        try:  # spmd: collective-safe(the handler re-raises at once with the backend named: no rank re-enters the collective)
             dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         except (RuntimeError, ValueError) as exc:
             raise RuntimeError(
@@ -187,7 +187,7 @@ def _gather_flat(stacks, group, async_op: bool):
         if not async_op:
             dist.all_gather_into_tensor(gathered, local, group=group)
         else:
-            try:
+            try:  # spmd: collective-safe(the handler re-raises at once with the backend named: no rank re-enters the collective)
                 work = dist.all_gather_into_tensor(
                     gathered, local, group=group, async_op=True,
                 )

@@ -711,4 +711,4 @@ def commit_point(name: str, *, timeout_s: float | None = None) -> None:
     if rt is None or rt.config.num_processes <= 1:
         return
     tracing.count_event('runtime_commit_point')
-    rt.barrier(name, timeout_s=timeout_s)
+    rt.barrier(name, timeout_s=timeout_s)  # spmd: collective-safe(forwarding shim: every commit_point call site spells a literal registered tag)

@@ -362,7 +362,7 @@ def save_rotating(
 
     if _distributed():
         return attempt()
-    return retry_transient_save(
+    return retry_transient_save(  # spmd: proc0(one process only: the distributed path returned above without a retry; a one-rank retry would re-enter collectives its peers never join)
         attempt, label=f'rotating checkpoint save ({path})',
     )
 

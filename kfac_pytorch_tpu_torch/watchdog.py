@@ -556,7 +556,7 @@ class TrajectoryWatchdog:
         runtime.commit_point('watchdog/rollback')
         info = target = None
         for candidate in sorted(targets, reverse=True):
-            try:
+            try:  # spmd: collective-safe(restore_streaming raises on every rank together: rank 0's verdict is broadcast and the install faults are all-gathered before it raises, so every rank moves to the next candidate in step)
                 info = elastic.restore_streaming(
                     self.config.save_dir, precond, target_step=candidate,
                     require_stamp=elastic.HEALTH_STAMP_HEALTHY,

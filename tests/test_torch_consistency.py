@@ -23,7 +23,9 @@ on the CPU.
   damping counts an ``hp`` mismatch and repairs nothing.  The gathered
   per-rank digests equal JAX's digests of the same arrays, and JAX's
   ``_canonical_rank`` on them gives the port's masks and canonical
-  ranks.  MEM-OPT (1x4): the stacks have no replicas, so a flipped slot
+  ranks.  The repair's vote on replicated tensors (the parameters and
+  their gradients at a repair) restores each divergent one's canonical
+  bytes; a trained COMM-OPT run keeps its parameters together.  MEM-OPT (1x4): the stacks have no replicas, so a flipped slot
   goes unseen while a flipped EMA is counted.  Health on HYBRID-OPT with
   injected failures: the same ``health/*`` counters on every rank at
   every step, equal to the JAX 4-device mesh run's.
@@ -330,11 +332,12 @@ def divergence(precond) -> dict:
 
 
 def guarded_run(rank, world, weights, fraction, cfg, faults, steps,
-                damping=None, health=None, **kw):
-    """``steps`` fixed-weight steps; ``faults[t]`` runs on the
-    preconditioner before step ``t``.  Per step the consistency and
-    health info, the divergence after the step, the bootstrap flags and
-    the quarantine masks."""
+                damping=None, health=None, train_lr=None, **kw):
+    """``steps`` fixed-weight steps (with ``train_lr``, each ends with
+    ``p -= train_lr * grad``); ``faults[t]`` runs on the preconditioner
+    before step ``t``.  Per step the consistency and health info, the
+    divergence after the step, the bootstrap flags and the quarantine
+    masks (and with ``train_lr`` the parameters' divergence)."""
     model = LeNet(image_size=12)
     model.load_state_dict(weights)
     ddp = torch.nn.parallel.DistributedDataParallel(model)
@@ -352,9 +355,17 @@ def guarded_run(rank, world, weights, fraction, cfg, faults, steps,
         model.zero_grad()
         F.cross_entropy(ddp(x), y).backward()
         precond.step()
+        params = {}
+        if train_lr is not None:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.sub_(train_lr * p.grad)
+            params = consistency.host_replica_divergence(
+                {n: p.detach() for n, p in model.named_parameters()})
         info = precond.last_step_info
         res = precond.last_consistency_check
         out.append(dict(
+            params=params,
             cons=cons_info(info),
             health={k: int(v) for k, v in info.items()
                     if k.startswith('health/')},
@@ -408,6 +419,25 @@ def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
     _, report['repair'] = guarded_run(
         rank, world, weights, hybrid, cfg,
         {1: both, 3: flip_slot, 4: flip_slot}, 6)
+    # The repair's parameter vote: rank 2's copy of one tensor of three
+    # moved by one bit, rank 3's of another by a different bit.
+    torch.manual_seed(5)
+    ts = [torch.randn(3, 4), torch.randn(5), torch.randn(2, 2).t()]
+    want = [t.clone() for t in ts]
+    if rank == 2:
+        ts[0] = ttest.bitflip(ts[0], 3)
+    if rank == 3:
+        ts[2].copy_(ttest.bitflip(ts[2], 1, bit=5))
+    report['replicated'] = dict(
+        mask=consistency.repair_replicated(ts).tolist(),
+        equal=[torch.equal(t, w) for t, w in zip(ts, want)])
+    # A trained run under COMM-OPT: the flipped slot moves no rank's
+    # gradients apart (its precondition is shared over the column), so
+    # every check sees the curvature only and the parameters agree
+    # throughout; the repair leaves them bitwise as they were.
+    _, report['params'] = guarded_run(
+        rank, world, weights, 1.0, kt.ConsistencyConfig(cadence=2),
+        {1: flip_slot}, 4, train_lr=0.1)
     _, report['detect'] = guarded_run(
         rank, world, weights, hybrid,
         kt.ConsistencyConfig(cadence=1, repair='detect'), {1: both}, 3)
@@ -433,8 +463,8 @@ def run_rank(rank: int, world: int, init: Path, out: Path) -> None:
     _, report['health_retry'] = guarded_run(
         rank, world, weights, hybrid, None, {}, 1,
         health=kt.HealthConfig(inject_eigh_failures=1))
-    for run in report.values():
-        for rec in run:
+    for name, run in report.items():
+        for rec in (run if name != 'replicated' else ()):
             if rank:
                 rec.pop('arrays')
                 rec.pop('stacks')
@@ -557,6 +587,30 @@ def test_bit_flips_counted_repaired_and_rebootstrapped(ranks):
     # replica of column 0) for the slot.
     names = sorted(reports[0]['repair'][0]['arrays'])
     assert runs[0][1]['layer_canon'][names.index('conv1')] == 0
+
+
+def test_repair_votes_on_replicated_tensors(ranks):
+    """``repair_replicated``: the tensors a rank holds apart from the
+    majority (a non-contiguous one among them) are counted and take the
+    canonical replica's bytes; the others are left as they are."""
+    reports, _ = ranks
+    for r in reports:
+        assert r['replicated']['mask'] == [True, False, True]
+        assert r['replicated']['equal'] == [True, True, True]
+
+
+def test_repair_keeps_trained_parameters_together(ranks):
+    """A trained run through one rank's flipped slot: detected and
+    repaired at the next check, and the parameters, voted on at the
+    repair, agree bitwise at every step.  (The fault drill's TinyModel
+    run is the case where they had moved apart; its live test holds
+    them together after the repair.)"""
+    reports, _ = ranks
+    for r in reports:
+        run = r['params']
+        assert [rec['params'] for rec in run] == [{}] * 4
+        assert run[2]['cons']['consistency/repairs_total'] == 1
+        assert run[2]['divergence'] == {} and run[3]['divergence'] == {}
 
 
 def test_persistent_fault_is_quarantined(ranks):

@@ -25,6 +25,12 @@ package's, on the CPU.
   JAX's own one-device restore of the same generation; saved without
   its decompositions, both restores recompute them, and the gradients
   agree as closely.
+* ``include_decompositions`` and ``on_shard`` (JAX's arguments): a
+  default save's bytes equal the explicit defaults', a layers-only save
+  keeps the factor EMAs alone and restores with the recompute, the hook
+  names the shards as JAX's does, and the port's layers-only generation
+  restores in JAX (``convert.torch_generation_to_jax``) with JAX's next
+  gradients within 1e-5 of the port's own restore.
 * Four gloo ranks (subprocesses of this file) save at MEM-OPT (1x4),
   two of them restore at HYBRID-OPT (1x2): the factor EMAs and every
   transplanted slot are the saved values bit for bit, the next refresh
@@ -467,6 +473,120 @@ def test_jax_generation_without_stacks_recomputes(tmp_path, jax_lenet):
     assert not [n for n in os.listdir(gen) if n.startswith('bucket-')]
     assert jinfo['recomputed'] and info['recomputed']
     assert not info['resized'] and not info['decompositions_installed']
+
+
+def test_default_save_equals_explicit_defaults(tmp_path):
+    """``include_decompositions=True`` with an ``on_shard`` hook writes
+    the default save's bytes, file for file."""
+    model, opt, precond = lenet_engine()
+    train(model, opt, precond, 4)
+    names = []
+    a = elastic.save_streaming(str(tmp_path / 'a'), precond,
+                               extras=training_extras(model, opt))
+    b = elastic.save_streaming(str(tmp_path / 'b'), precond,
+                               extras=training_extras(model, opt),
+                               include_decompositions=True,
+                               on_shard=names.append)
+    files = sorted(os.listdir(a))
+    assert files == sorted(os.listdir(b))
+    for name in files:
+        assert (Path(a) / name).read_bytes() == (Path(b) / name).read_bytes()
+    shards = sorted(n for n in files if n.endswith('.npz'))
+    assert names == shards + ['meta.json']
+    assert json.loads((Path(a) / 'meta.json').read_text())[
+        'include_decompositions'] is True
+
+
+def test_layers_only_save(tmp_path):
+    """``include_decompositions=False``: the factor EMAs alone, no bucket
+    shard, the flag in the meta, and a restore that recomputes."""
+    model, opt, precond = lenet_engine()
+    train(model, opt, precond, 4)
+    gen = elastic.save_streaming(str(tmp_path), precond,
+                                 include_decompositions=False)
+    assert sorted(os.listdir(gen)) == ['MANIFEST.json', 'layers.npz',
+                                       'meta.json']
+    assert json.loads((Path(gen) / 'meta.json').read_text())[
+        'include_decompositions'] is False
+    with np.load(Path(gen) / 'layers.npz') as npz:
+        assert {k.rpartition('::')[2] for k in npz.files} == {
+            'a_factor', 'g_factor'}
+    _, _, fresh = lenet_engine(seed=1)
+    info = elastic.restore_streaming(str(tmp_path), fresh)
+    assert info['recomputed'] and not info['decompositions_installed']
+    for name, st in precond.layers.items():
+        assert torch.equal(fresh.layers[name].a_factor, st.a_factor)
+        assert torch.equal(fresh.layers[name].g_factor, st.g_factor)
+
+
+@pytest.mark.parametrize('include', [True, False])
+def test_on_shard_names_match_jax(tmp_path, jax_lenet, include):
+    from kfac_pytorch_tpu import elastic as jel
+
+    want = []
+    jel.save_streaming(str(tmp_path / 'jax'), jax_lenet['saver'],
+                       jax_lenet['state'], include_decompositions=include,
+                       on_shard=want.append)
+    model, opt, precond = lenet_engine()
+    train(model, opt, precond, 4)
+    got = []
+    elastic.save_streaming(str(tmp_path / 'port'), precond,
+                           include_decompositions=include,
+                           on_shard=got.append)
+    assert got == want
+    assert want[-1] == 'meta.json'
+    assert any(n.startswith('bucket-') for n in want) == include
+
+
+def test_layers_only_port_generation_restores_in_jax(tmp_path, jax_lenet):
+    """The port's layers-only generation, carried by
+    ``convert.torch_generation_to_jax``, restores in JAX with the
+    recompute; its factors are the port's, and JAX's next preconditioned
+    gradients equal the port's own restore's within 1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from kfac_pytorch_tpu import elastic as jel
+    from kfac_pytorch_tpu_torch.convert import flax_to_torch_state_dict
+    from kfac_pytorch_tpu_torch.convert import torch_generation_to_jax
+
+    jl = jax_lenet
+    x, y, variables, loader = jl['x'], jl['y'], jl['variables'], jl['loader']
+
+    def port_engine():
+        net = LeNet(image_size=12)
+        net.load_state_dict(flax_to_torch_state_dict(variables), strict=True)
+        return net, kt.KFACPreconditioner(net, **HP)
+
+    net, precond = port_engine()
+    for _ in range(4):
+        net.zero_grad()
+        F.cross_entropy(net(nchw(x)), torch.from_numpy(y)).backward()
+        precond.step()
+    gen = elastic.save_streaming(str(tmp_path / 'port'), precond,
+                                 include_decompositions=False)
+    out = torch_generation_to_jax(gen, str(tmp_path / 'jax'))
+    assert os.path.basename(out) == os.path.basename(gen)
+    lstate, jinfo = jel.restore_streaming(
+        str(tmp_path / 'jax'), loader, loader.init(variables, x))
+    assert jinfo['recomputed'] and loader.steps == 4
+    for name, st in precond.layers.items():
+        for side in ('a_factor', 'g_factor'):
+            np.testing.assert_allclose(
+                np.asarray(getattr(lstate[name.replace('.', '/')], side)),
+                getattr(st, side).numpy(), rtol=0, atol=1e-6)
+    _, _, grads, _ = loader.step(variables, lstate, x,
+                                 loss_args=(jnp.asarray(y),))
+    want = flax_to_torch_state_dict({'params': jax.tree.map(np.asarray,
+                                                            grads)})
+    net2, precond2 = port_engine()
+    info = elastic.restore_streaming(str(tmp_path / 'port'), precond2)
+    assert info['recomputed'] and precond2.steps == 4
+    F.cross_entropy(net2(nchw(x)), torch.from_numpy(y)).backward()
+    precond2.step()
+    for name, p in net2.named_parameters():
+        err = rel_err(p.grad.numpy(), want[name].numpy())
+        assert err <= 1e-5, (name, err)
 
 
 # -- a world-size resize across ranks ----------------------------------------------

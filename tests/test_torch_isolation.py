@@ -67,7 +67,11 @@ def test_scan_finds_the_port():
                    'elastic.py', 'watchdog.py', 'utils/checkpoint.py',
                    'placement/__init__.py', 'placement/topology.py',
                    'placement/solver.py', 'placement/apply.py',
-                   '_native/__init__.py', '_native/data.py'):
+                   '_native/__init__.py', '_native/data.py',
+                   'analysis/__init__.py', 'analysis/_ast.py',
+                   'analysis/collective.py', 'scripts/__init__.py',
+                   'scripts/_drill.py', 'scripts/fault_drill.py',
+                   'scripts/profile_step.py'):
         assert port / module in files, module
 
 
@@ -148,9 +152,9 @@ def test_native_loads_only_the_ports_files():
 
 
 def test_entry_points_load_no_jax():
-    """The trainers' and the bench's command lines parse, and the help of
-    each prints, in a fresh interpreter that loads neither JAX nor the
-    JAX package."""
+    """The trainers', the bench's and the drill and profile scripts'
+    command lines parse, and the help of each prints, in a fresh
+    interpreter that loads neither JAX nor the JAX package."""
     code = (
         'import sys, contextlib, io\n'
         'from kfac_pytorch_tpu_torch import bench\n'
@@ -158,13 +162,18 @@ def test_entry_points_load_no_jax():
         'from kfac_pytorch_tpu_torch.examples import imagenet_resnet\n'
         'from kfac_pytorch_tpu_torch.examples import squad_bert\n'
         'from kfac_pytorch_tpu_torch.examples import tiny_gpt_lm\n'
+        'from kfac_pytorch_tpu_torch.scripts import fault_drill\n'
+        'from kfac_pytorch_tpu_torch.scripts import profile_step\n'
+        'from kfac_pytorch_tpu_torch.analysis import collective\n'
+        'assert collective.lint_source("import torch\\n") == []\n'
         'cifar10_resnet.parse_args([])\n'
         'imagenet_resnet.parse_args([])\n'
         'squad_bert.parse_args([])\n'
         'tiny_gpt_lm.parse_args([])\n'
         'for main in (bench.main, cifar10_resnet.parse_args,\n'
         '             imagenet_resnet.parse_args, squad_bert.parse_args,\n'
-        '             tiny_gpt_lm.parse_args):\n'
+        '             tiny_gpt_lm.parse_args, fault_drill.main,\n'
+        '             profile_step.main):\n'
         '    with contextlib.redirect_stdout(io.StringIO()):\n'
         '        try:\n'
         '            main(["--help"])\n'
