@@ -72,6 +72,11 @@ def main() -> int:
     print(f'build {time.perf_counter() - t:.2f} s', flush=True)
     t = time.perf_counter()
     launches, err = cs.phase_profile_drill(torch, kt)
+    drill = cs.start_elastic_drill()
+    try:
+        cs.finish_elastic_drill(drill)
+    finally:
+        cs.stop_elastic_drill(drill)
     print(f'phase 32: launches {launches}, max abs err {err:.3e}, '
           f'{time.perf_counter() - t:.2f} s', flush=True)
     ok = True

@@ -400,14 +400,30 @@ fails:
     -> 2 (gloo ranks on the card; the mid-save kill, the bitwise
     same-world resume, two resizes, the layers-only recompute; every leg
     started at once, each waiting for the leg it restores from), its
-    artifact passed by the port's validator.
+    artifact passed by the port's validator; a process of its own that
+    runs beside phase 33.
+33. the retrace guard, the compiled tail and the sync guard, right
+    after phase 4: ResNet-50 b32 at 224x224, factor 2, inv 4, damping
+    swept over 1e-3, 3e-3, 1e-2 and the lr decayed by step, 9 steps
+    unguarded and with ``compile_budget=3`` (3 programs, 0 retraces,
+    bitwise), then ``plain`` steps under
+    ``torch.cuda.set_sync_debug_mode('error')`` and the other variants'
+    syncs counted by call site; the precondition tail under
+    ``torch.compile(fullgraph=True)`` (the eager backend on ResNet-50,
+    Inductor on ResNet-32: no graph break, one Dynamo graph, a kernel
+    launch a bucket, within the kernel gate of eager); then the eager
+    op's host cost against the direct launch.
 
 The rank work of phases 5, 17, 18, 21, 22 (the resize), 23 (its two
 ranks), 31 (b) and 28 (with 26-27 at world 4 and 30b) runs in one spawn
-of four processes right after phase 4 (``spawn_shared``: each phase with
-its own process groups and reports; a failure names its phase; phase
-28's one-process references run here once its ranks start it); each
-phase's gates then read its ranks' reports where the phase stands.
+of four processes started after phase 33 (``SharedSpawn``: each phase
+with its own process groups and reports; a failure names its phase;
+phase 28's one-process references run here as the ranks start).  While
+the ranks run, this process runs phases 30, 11, 8, 29, 10, 12-15, 19,
+20, 6, 7 and the single-card parts of 22 and 23 beside them: their gates
+are bitwise, counts and cadences, so their step times are taken on a
+shared card and host.  Each phase's gates then read its ranks' reports
+where the phase stands.
 Phases 26 and 27 end with an adaptive
 pass: ``AdaptiveDamping`` through ``make_train_step`` (an adaptation
 every step, the ``rho`` band cut to 0.5 so each moves the damping), 2
@@ -1918,7 +1934,8 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
         order, so.pipeline_order = so.pipeline_order, None
         launches = ops.fused_eigen_precondition.launches
         try:
-            want, _ = precond.precondition_combined(raw, 0.003, 0.001, 0.1)
+            want, _ = precond.precondition_combined(
+                raw, *precond._tail_hyperparams())
         finally:
             so.pipeline_order = order
             ops.fused_eigen_precondition.launches = launches
@@ -2231,8 +2248,8 @@ class RankPhase(NamedTuple):
     tuple, or a function of the phase's directory that returns it;
     ``env`` holds ``(name, value)`` pairs the ranks set before their
     first CUDA allocation; ``meanwhile(torch, *args)``, when given, runs
-    in the parent once the phase's rank 0 has started, and what it
-    returns comes back beside the reports."""
+    in the parent right after the ranks start, and what it returns comes
+    back beside the reports."""
 
     label: str
     target: Callable
@@ -2249,7 +2266,7 @@ def multi_rank_plan() -> dict[str, RankPhase]:
     (:func:`spawn_shared`), in the order its ranks run it.  Phase 25
     keeps a spawn of its own (a rank is killed and the world restarts).
     Phase 28's ranks (with 26-27's four-rank parts and 30b) come last:
-    the parent runs their one-process references while they run
+    the parent runs their one-process references as the ranks start
     (:func:`seq_references`)."""
     return {
         '5': RankPhase('kaisa', kaisa_rank, KAISA_WORLD, (), KAISA_TIMEOUT_S,
@@ -2330,52 +2347,64 @@ def shared_rank(rank, device_type, workdir, entries, env):
             torch.cuda.empty_cache()
 
 
-def spawn_shared(torch, keys=None):
+class SharedSpawn:
     """The ranks of the phases ``keys`` of :func:`multi_rank_plan`
     (default all) in one spawn of as many processes as the widest needs
     (:func:`shared_rank`), which pay the start, the imports and the
-    card's context once.  A phase's ``meanwhile`` runs here once its
-    rank 0 has started it (the earlier phases' timings are then left
-    alone).  Returns ``({key: the ranks' reports}, {key: what its
-    meanwhile returned})``; fails naming the phase whose rank failed or
-    hung (a failed rank ends the spawn at once)."""
-    import torch.multiprocessing as mp
+    card's context once.  Made, it has started the ranks and run every
+    phase's ``meanwhile`` here; the parent then goes on with phases of
+    its own while the ranks run (their gloo collectives hold the host
+    far more than the card), and :meth:`wait` joins them.  :meth:`stop`
+    kills whatever still runs and removes the ranks' directory."""
 
-    plan = multi_rank_plan()
-    keys = list(plan) if keys is None else list(keys)
-    world = max(plan[k].world for k in keys)
-    timeout_s = sum(plan[k].timeout_s for k in keys)
-    env = {name: value for k in keys for name, value in plan[k].env}
-    ctx = mp.get_context('spawn')
-    with tempfile.TemporaryDirectory(prefix='ranks_') as workdir:
-        entries, args = [], {}
-        for k in keys:
+    def __init__(self, torch, keys=None):
+        import torch.multiprocessing as mp
+
+        plan = multi_rank_plan()
+        self.torch = torch
+        self.keys = list(plan) if keys is None else list(keys)
+        world = max(plan[k].world for k in self.keys)
+        self.timeout_s = sum(plan[k].timeout_s for k in self.keys)
+        env = {name: value for k in self.keys for name, value in plan[k].env}
+        self.workdir = tempfile.mkdtemp(prefix='ranks_')
+        self.entries, args = [], {}
+        for k in self.keys:
             ph = plan[k]
-            sub = os.path.join(workdir, ph.stem)
+            sub = os.path.join(self.workdir, ph.stem)
             os.makedirs(sub)
             args[k] = ph.args(sub) if callable(ph.args) else ph.args
-            entries.append((ph.label, ph.target, ph.world,
-                            plan_backend(ph.world), args[k], ph.stem))
-        procs = [ctx.Process(target=shared_rank,
-                             args=(rank, DEVICE, workdir, entries, env))
-                 for rank in range(world)]
-        for p in procs:
+            self.entries.append((ph.label, ph.target, ph.world,
+                                 plan_backend(ph.world), args[k], ph.stem))
+        ctx = mp.get_context('spawn')
+        self.procs = [ctx.Process(target=shared_rank,
+                                  args=(rank, DEVICE, self.workdir,
+                                        self.entries, env))
+                      for rank in range(world)]
+        self.t0 = time.perf_counter()
+        self.deadline = time.time() + self.timeout_s
+        self.result = None
+        for p in self.procs:
             p.start()
-        deadline = time.time() + timeout_s
-        meanwhile = {}
+        self.meanwhile = {}
         try:
-            for k in keys:
-                ph = plan[k]
-                if ph.meanwhile is None:
-                    continue
-                started = os.path.join(workdir, ph.stem, 'started0')
-                while (time.time() < deadline and not os.path.exists(started)
-                       and all(p.is_alive() for p in procs)):
-                    time.sleep(0.2)
-                if os.path.exists(started):
-                    meanwhile[k] = ph.meanwhile(torch, *args[k])
-            while time.time() < deadline and any(p.is_alive()
-                                                 for p in procs):
+            for k in self.keys:
+                if plan[k].meanwhile is not None:
+                    self.meanwhile[k] = plan[k].meanwhile(torch, *args[k])
+        except BaseException:
+            self.stop()
+            raise
+
+    def wait(self):
+        """Joins the ranks; returns ``({key: the ranks' reports}, {key:
+        what its meanwhile returned})``; fails naming the phase whose
+        rank failed or hung (a failed rank ends the spawn at once).
+        Prints how long each phase took on rank 0."""
+        if self.result is not None:
+            return self.result
+        procs = self.procs
+        try:
+            while time.time() < self.deadline and any(p.is_alive()
+                                                      for p in procs):
                 if any(p.exitcode for p in procs if not p.is_alive()):
                     break
                 time.sleep(0.2)
@@ -2385,24 +2414,58 @@ def spawn_shared(torch, keys=None):
                 if p.is_alive():
                     p.kill()
                 p.join()
+        ended = time.perf_counter() - self.t0
         codes = [p.exitcode for p in procs]
-        for label, _, n, _, _, stem in entries:
+        for label, _, n, _, _, stem in self.entries:
             for r in range(n):
-                err = os.path.join(workdir, stem, f'{stem}{r}.error')
+                err = os.path.join(self.workdir, stem, f'{stem}{r}.error')
                 if os.path.exists(err):
                     with open(err) as f:
                         text = f.read().strip().splitlines()
                     fail(f'{label} rank {r} failed: {text[-1]} (exit codes '
                          f'{codes})')
         if alive or any(codes):
-            pending = next((e[0] for e in entries if not all(
-                os.path.exists(os.path.join(workdir, e[5], f'{e[5]}{r}.pt'))
-                for r in range(e[2]))), 'shared spawn')
-            fail(f'{pending} ranks {alive} did not finish in {timeout_s} s'
-                 if alive else f'{pending}: ranks exited with {codes}')
-        return ({k: [torch.load(os.path.join(workdir, e[5], f'{e[5]}{r}.pt'))
-                     for r in range(e[2])]
-                 for k, e in zip(keys, entries)}, meanwhile)
+            pending = next((e[0] for e in self.entries if not all(
+                os.path.exists(self.report(e[5], r)) for r in range(e[2]))),
+                'shared spawn')
+            fail(f'{pending} ranks {alive} did not finish in '
+                 f'{self.timeout_s} s' if alive
+                 else f'{pending}: ranks exited with {codes}')
+        spans = []
+        for label, _, _, _, _, stem in self.entries:
+            began = os.path.join(self.workdir, stem, 'started0')
+            took = (os.path.getmtime(self.report(stem, 0))
+                    - os.path.getmtime(began))
+            spans.append(f'{label} {took:.2f} s')
+        print(f'shared ranks: {len(procs)} processes, ended {ended:.2f} s '
+              f'after their start; rank 0 by phase: {", ".join(spans)}',
+              flush=True)
+        self.result = ({k: [self.torch.load(self.report(e[5], r))
+                            for r in range(e[2])]
+                        for k, e in zip(self.keys, self.entries)},
+                       self.meanwhile)
+        self.stop()
+        return self.result
+
+    def report(self, stem, rank):
+        return os.path.join(self.workdir, stem, f'{stem}{rank}.pt')
+
+    def stop(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def spawn_shared(torch, keys=None):
+    """:class:`SharedSpawn` of ``keys``, joined at once: returns what
+    :meth:`SharedSpawn.wait` returns."""
+    ranks = SharedSpawn(torch, keys)
+    try:
+        return ranks.wait()
+    finally:
+        ranks.stop()
 
 
 def phase_kaisa(torch, kt, ranks=None):
@@ -5701,7 +5764,8 @@ def elastic_rank(rank, world, backend, device_type, workdir, image, batch,
 
 def phase_resnet50_elastic(torch, kt, ranks=None):
     """Phase 22: streaming checkpoints (budget 45 s; ``ranks``: the
-    resize ranks' reports from :func:`spawn_shared`).  Single card: the
+    resize ranks' reports from :func:`spawn_shared`, or a function that
+    waits for them, called after the single-card part).  Single card: the
     replay from the generation saved after step 2 ends bitwise equal to
     the uninterrupted run (parameters after step 5 and the first replayed
     step's preconditioned gradients, cuDNN deterministic); the walk skips
@@ -5780,6 +5844,8 @@ def phase_resnet50_elastic(torch, kt, ranks=None):
     backend = default_backend(world) if DEVICE == 'cuda' else 'gloo'
     if ranks is None:
         ranks = spawn_alone(torch, '22')
+    elif callable(ranks):
+        ranks = ranks()
     label = 'resnet50 resize'
     restored = ranks[:RN50_RESIZE_WORLDS[1]]
     steps = RN50_RESIZE_STOP - RN50_RESIZE_SAVE
@@ -5919,7 +5985,8 @@ def watchdog_rank(rank, world, backend, device_type, workdir):
 
 def phase_resnet50_watchdog(torch, kt, ranks=None):
     """Phase 23 (``ranks``: the two ranks' reports from
-    :func:`spawn_shared`): the trajectory watchdog (budget 45 s), the fault of
+    :func:`spawn_shared`, or a function that waits for them, called after
+    the ResNet-50 run): the trajectory watchdog (budget 45 s), the fault of
     ``RN50_WATCH_POISON``.  Gates: the first
     dirty check at step 10 (rung 1, damping and kl-clip softened), the
     next at 12 (rung 2) rolling back onto the newest ``healthy``
@@ -6041,6 +6108,8 @@ def phase_resnet50_watchdog(torch, kt, ranks=None):
     backend = default_backend(2) if DEVICE == 'cuda' else 'gloo'
     if ranks is None:
         ranks = spawn_alone(torch, '23')
+    elif callable(ranks):
+        ranks = ranks()
     label = 'watchdog ranks'
     r0, r1 = ranks
     if not (r0['rungs'] == r1['rungs'] and r0['totals'] == r1['totals']
@@ -7863,8 +7932,8 @@ def world_rank(rank, world, backend, device_type, workdir, ref_path,
         torch.cuda.empty_cache()
     tokens = seq_batch(torch, dev)
     B, T = tokens.shape
-    # The parent writes the one-process references while phases 26 and
-    # 27's ranks run, and renames each into place once its memory is free.
+    # The parent writes the one-process references as the spawn starts,
+    # and renames each into place once its memory is free.
     def reference(path):
         deadline = time.time() + SEQ_TIMEOUT_S
         while not os.path.exists(path):
@@ -8050,7 +8119,7 @@ def seq_ref_paths(directory: str) -> tuple[str, str]:
 
 
 def seq_references(torch, path, bert_path) -> dict:
-    """Phase 28's one-process references, run while its ranks run: the
+    """Phase 28's one-process references, run as its ranks start: the
     dense GPT-125M and the whole BERT, their step-0 state saved at
     ``path`` and ``bert_path``; returns their ``one`` and ``bert_one``
     records."""
@@ -8736,11 +8805,9 @@ def phase_profile_drill(torch, kt):
     plain version at ``rtol 1e-5, atol 1e-4``; then the iterative, stagger
     and phase-profile smokes, each validator passing (their timing pins,
     the warm Newton-Schulz speed, the staggered flatness and the phases'
-    sum within 10% of the total, are the card's to hold).  (b)
-    ``fault_drill --elastic`` at worlds 8 -> 4 -> 2 (gloo ranks on
-    ``cuda:0``), its artifact passed by the port's validator.  Returns ``(launches,
-    max_abs_err)`` of the variant mode's run."""
-    from kfac_pytorch_tpu_torch.scripts import fault_drill
+    sum within 10% of the total, are the card's to hold).  (b), the
+    elastic drill, runs beside phase 33 (:func:`start_elastic_drill`).
+    Returns ``(launches, max_abs_err)`` of the variant mode's run."""
     from kfac_pytorch_tpu_torch.scripts import profile_step
 
     gc.collect()
@@ -8820,17 +8887,77 @@ def phase_profile_drill(torch, kt):
         print(f'{name} smoke: {what}; valid; '
               f'{time.perf_counter() - t:.2f} s', flush=True)
 
-    out = os.path.join(tempfile.mkdtemp(prefix='phase32_'), 'elastic.json')
-    t = time.perf_counter()
-    rc = fault_drill.run_elastic_drill(out, device=DEVICE,
-                                       worlds=ELASTIC_DRILL_WORLDS)
-    took = time.perf_counter() - t
-    if rc != 0 or fault_drill.validate_elastic_artifact(out) != 0:
-        fail(f'elastic drill at worlds {ELASTIC_DRILL_WORLDS}: rc {rc}, '
-             f'artifact {out}')
-    with open(out) as fh:
-        phases = json.load(fh)['phases']
-    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    return launches, err
+
+
+#: Phase 32b's drill must end within this long of its start.
+ELASTIC_DRILL_TIMEOUT_S = 600
+
+
+def start_elastic_drill():
+    """Phase 32b: ``fault_drill --elastic`` at ``ELASTIC_DRILL_WORLDS``
+    (gloo ranks on ``cuda:0``; the mid-save kill, the bitwise same-world
+    resume, two resizes, the layers-only recompute), started as a process
+    of its own, in a session of its own, so that it runs beside phase 33:
+    its ranks spend most of their time starting and opening the card.
+    Returns ``(process, artifact path, log path, start time)`` for
+    :func:`finish_elastic_drill` (or :func:`stop_elastic_drill`)."""
+    import subprocess
+
+    work = tempfile.mkdtemp(prefix='phase32_')
+    out = os.path.join(work, 'elastic.json')
+    log = os.path.join(work, 'elastic.log')
+    with open(log, 'w') as fh:
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'kfac_pytorch_tpu_torch.scripts.fault_drill',
+             '--elastic', '--device', DEVICE, '--worlds',
+             ','.join(str(w) for w in ELASTIC_DRILL_WORLDS),
+             '--json-out', out],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=fh,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, out, log, time.perf_counter()
+
+
+def stop_elastic_drill(drill) -> None:
+    """Kill the drill's whole session (its ranks too) if it still runs."""
+    import signal
+
+    proc = drill[0]
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    shutil.rmtree(os.path.dirname(drill[1]), ignore_errors=True)
+
+
+def finish_elastic_drill(drill) -> float:
+    """Wait for :func:`start_elastic_drill`'s drill, print its log, pass
+    its artifact to the port's validator and print the summary; returns
+    the drill's seconds from its start."""
+    import subprocess
+
+    from kfac_pytorch_tpu_torch.scripts import fault_drill
+
+    proc, out, log, t0 = drill
+    try:
+        rc = proc.wait(timeout=max(
+            1.0, ELASTIC_DRILL_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_elastic_drill(drill)
+        fail(f'elastic drill at worlds {ELASTIC_DRILL_WORLDS}: not done '
+             f'within {ELASTIC_DRILL_TIMEOUT_S} s')
+    took = time.perf_counter() - t0
+    with open(log) as fh:
+        print(fh.read(), end='', flush=True)
+    try:
+        if rc != 0 or fault_drill.validate_elastic_artifact(out) != 0:
+            fail(f'elastic drill at worlds {ELASTIC_DRILL_WORLDS}: rc {rc}')
+        with open(out) as fh:
+            phases = json.load(fh)['phases']
+    finally:
+        stop_elastic_drill(drill)
     print(f'elastic drill {ELASTIC_DRILL_WORLDS}: valid; same-world resume '
           f'bitwise {phases["same_world_bitwise"]["bitwise_equal"]} from '
           f'{phases["same_world_bitwise"]["restored_generation"]}; resize '
@@ -8838,8 +8965,452 @@ def phase_profile_drill(torch, kt):
           f'layers-only recomputed '
           f'{phases["layers_only_recompute"]["recomputed"]} (rel err '
           f'{phases["layers_only_recompute"]["param_rel_err"]:.3e}); '
-          f'{took:.2f} s', flush=True)
-    return launches, err
+          f'{took:.2f} s from its start (beside phase 33)', flush=True)
+    return took
+
+
+#: Phase 33: the retrace guard (33a), the compiled precondition tail
+#: (33b) and the sync guard (33c).  JAX's damping-sweep test at full
+#: width: factor 2, inv 4, damping swept by step over three values, the
+#: K-FAC lr a new value every step (``guard_lr``).
+GUARD_HP = dict(RN50_HP, factor_update_steps=2, inv_update_steps=4)
+GUARD_DAMPINGS = (1e-3, 3e-3, 1e-2)
+GUARD_STEPS = 9  # every (damping, variant) pairing occurs
+GUARD_BUDGET = 3  # plain, factor and inv
+#: 33c's steps after the sweep: step -> sync debug mode.
+SYNC_STEPS = {9: 'error', 10: 'warn', 11: 'error', 12: 'warn', 13: 'error'}
+#: 33b's contrast: the compiled tail called with Python-float lrs.
+FLOAT_LRS = (0.1, 0.05, 0.02)
+#: The eager op's host cost: calls timed on the host, no sync between.
+HOST_CALLS = 2000
+
+
+def guard_damping(step: int) -> float:
+    return GUARD_DAMPINGS[step % len(GUARD_DAMPINGS)]
+
+
+def guard_lr(step: int) -> float:
+    """The K-FAC lr, a new value every step (a per-step schedule, as a
+    trainer's decay is): every step makes a new canonical scalar."""
+    return GUARD_HP['lr'] / (1 + step)
+
+
+def guard_engine(torch, kt, model_name, budget):
+    """A fresh model (seed 0) and its K-FAC engine under ``GUARD_HP``
+    with the damping sweep; ``budget`` attaches the retrace guard."""
+    if model_name == 'resnet50':
+        model = kt.models.resnet50(device=DEVICE, seed=0)
+    else:
+        model = kt.models.resnet32(device=DEVICE, seed=0)
+    hp = dict(GUARD_HP, damping=guard_damping, lr=guard_lr)
+    precond = kt.KFACPreconditioner(model, compile_budget=budget, **hp)
+    opt = torch.optim.SGD(model.parameters(), lr=GUARD_HP['lr'],
+                          momentum=0.9)
+    return model, precond, opt
+
+
+def guard_step(torch, model, precond, opt, batch, keep=False):
+    """One step as a user runs it; returns ``(loss, gradients after
+    the K-FAC step or None, host seconds of precond.step())``."""
+    import torch.nn.functional as F
+
+    opt.zero_grad(set_to_none=True)
+    loss = F.cross_entropy(model(batch[0]), batch[1])
+    loss.backward()
+    t0 = time.perf_counter()
+    precond.step()
+    host_s = time.perf_counter() - t0
+    grads = [p.grad.clone() for p in model.parameters()] if keep else None
+    opt.step()
+    return loss.detach(), grads, host_s
+
+
+def compile_tail(torch, precond, backend, keep):
+    """Replace the engine's bucket tail by ``torch.compile(fullgraph=
+    True)`` of it in the step variants ``keep`` (the engine's
+    ``_last_variant``), the eager tail in the others; returns
+    ``(compiled, launches of each compiled call by variant, the eager
+    tail, a retrace guard over the compiled calls' inputs)``.  The guard
+    signs what Dynamo compiles against: one key, the tail's inputs."""
+    from kfac_pytorch_tpu_torch.analysis.retrace import RetraceGuard
+
+    so = precond._second_order
+    eager = so.precondition
+    compiled = torch.compile(eager, fullgraph=True, backend=backend)
+    tail_guard = RetraceGuard()
+    launches: dict = {}
+    kernel = precond_kernel()
+
+    def tail(buckets, grads, damping, kl_clip, lr, extra_clip_terms=()):
+        variant = precond._last_variant
+        if variant not in keep:
+            return eager(buckets, grads, damping, kl_clip, lr,
+                         extra_clip_terms)
+        tail_guard.observe_call(
+            'precondition_tail',
+            (buckets, grads, damping, kl_clip, lr, extra_clip_terms), {})
+        before = kernel.launches
+        out = compiled(buckets, grads, damping, kl_clip, lr,
+                       extra_clip_terms)
+        launches.setdefault(variant, []).append(kernel.launches - before)
+        return out
+
+    so.precondition = tail
+    return compiled, launches, eager, tail_guard
+
+
+def precond_kernel():
+    from kfac_pytorch_tpu_torch.ops import fused_precond
+
+    return fused_precond.fused_eigen_precondition
+
+
+def tail_gate(torch, precond, model, batch, compiled, eager, label):
+    """The compiled tail against the eager tail on one fresh gradient of
+    ``batch`` at the engine's state, every layer within the kernel gate
+    (``rtol 1e-5, atol 1e-4``); returns ``(max abs err, compiled ms,
+    eager ms, the gate's args)`` (CUDA events, the tail alone)."""
+    import torch.nn.functional as F
+
+    model.zero_grad(set_to_none=True)
+    F.cross_entropy(model(batch[0]), batch[1]).backward()
+    grads = {n: h.get_grad() for n, h in precond.helpers.items()}
+    damping, kl_clip, lr = precond._tail_hyperparams()
+    args = (precond.buckets, grads, damping, kl_clip, lr)
+    with torch.no_grad():  # as the step calls it: no recompile
+        want, want_scale = eager(*args)
+        got, scale = compiled(*args)
+    worst = 0.0
+    for name, w in want.items():
+        diff = (got[name] - w).abs()
+        worst = max(worst, float(diff.max()))
+        if bool((diff > 1e-4 + 1e-5 * w.abs()).any()):
+            fail(f'{label}: the compiled tail disagrees with the eager tail '
+                 f'at {name} (max abs err {float(diff.max()):.3e})')
+    if not torch.allclose(scale, want_scale, rtol=1e-5, atol=0):
+        fail(f'{label}: kl-clip scale {float(scale)} != '
+             f'{float(want_scale)}')
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: compiled(*args), reps=10)
+        eager_ms = time_ms(torch, lambda: eager(*args), reps=10)
+    model.zero_grad(set_to_none=True)
+    return worst, ms, eager_ms, args
+
+
+def sync_sites(records) -> dict:
+    """``{'file:line': count}`` of the synchronizing calls ``'warn'``
+    reported (each warning names the Python line that made the call)."""
+    sites: dict = {}
+    for w in records:
+        if 'synchroniz' not in str(w.message):
+            continue
+        site = f'{os.path.relpath(w.filename)}:{w.lineno}'
+        sites[site] = sites.get(site, 0) + 1
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def phase_guard(torch, kt):
+    """33a and 33c: ResNet-50 b32 at 224x224, factor 2, inv 4, the damping
+    swept over ``GUARD_DAMPINGS`` and the lr decayed by step for
+    ``GUARD_STEPS`` steps, once unguarded and once with ``compile_budget=3``: 3 programs, 0
+    retraces, and every step's loss and gradients bitwise the unguarded
+    run's.  Then the guarded engine steps on with each ``plain`` step (a
+    new lr each) under ``torch.cuda.set_sync_debug_mode('error')`` and the ``factor``
+    and ``inv`` steps under ``'warn'``, their syncs counted by call
+    site.  Returns the guarded run's kernel launches."""
+    deterministic = torch.backends.cudnn.deterministic
+    # Two runs bitwise: cuDNN's default convolution backward sums in no
+    # fixed order.
+    torch.backends.cudnn.deterministic = True
+    try:
+        return guard_runs(torch, kt)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def guard_runs(torch, kt):
+    """:func:`phase_guard`'s runs (cuDNN deterministic)."""
+    import warnings
+
+    batch = rn50_batch(torch)
+    runs = []
+    for budget in (None, GUARD_BUDGET):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, precond, opt = guard_engine(torch, kt, 'resnet50', budget)
+        kernel = precond_kernel()
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        out = []
+        for _ in range(GUARD_STEPS):
+            out.append(guard_step(torch, model, precond, opt, batch,
+                                  keep=True))
+        torch.cuda.synchronize()
+        launches = kernel.launches
+        if budget is None:
+            runs.append(out)
+            del model, precond, opt
+            continue
+        for i, ((la, ga, _), (lb, gb, _)) in enumerate(zip(runs[0], out)):
+            if not (torch.equal(la, lb)
+                    and all(torch.equal(a, b) for a, b in zip(ga, gb))):
+                fail(f'guard: step {i} of the guarded run is not bitwise '
+                     'the unguarded run\'s')
+        guard = precond.retrace_guard
+        if (guard.compiles, guard.retraces) != (GUARD_BUDGET, 0):
+            fail(f'guard: {guard.compiles} programs and {guard.retraces} '
+                 f'retraces, expected {GUARD_BUDGET} and 0:\n'
+                 + guard.report())
+        if launches != GUARD_STEPS * len(RN50_CASES):
+            fail(f'guard: {launches} kernel launches, expected '
+                 f'{GUARD_STEPS} x {len(RN50_CASES)}')
+        host = {b: statistics.median([s for _, _, s in r[1::2]])
+                for b, r in zip(('unguarded', 'guarded'), (runs[0], out))}
+        print(f'guard resnet50: {GUARD_STEPS} steps, damping swept over '
+              f'{list(GUARD_DAMPINGS)}, K-FAC lr {GUARD_HP["lr"]}/(1+step): '
+              f'{guard.compiles} programs '
+              f'{guard.keys()}, {guard.retraces} retraces, losses '
+              f'{[round(float(l), 5) for l, _, _ in out]} bitwise the '
+              f'unguarded run\'s with every gradient; {launches} kernel '
+              'launches; median host time of precond.step() on plain '
+              f'steps: unguarded {host["unguarded"] * 1e3:.3f} ms, guarded '
+              f'{host["guarded"] * 1e3:.3f} ms', flush=True)
+        del runs, out
+        # 33c on the guarded engine.
+        opt_sites: dict = {}
+        for step_index, mode in SYNC_STEPS.items():
+            if precond.steps != step_index:
+                fail(f'sync: engine at step {precond.steps}, expected '
+                     f'{step_index}')
+            variant = precond._step_variant(*precond._step_gating())
+            with warnings.catch_warnings(record=True) as records:
+                warnings.simplefilter('always')
+                torch.cuda.set_sync_debug_mode(mode)
+                try:
+                    try:
+                        import torch.nn.functional as F
+
+                        opt.zero_grad(set_to_none=True)
+                        loss = F.cross_entropy(model(batch[0]), batch[1])
+                        loss.backward()
+                        precond.step()
+                    except RuntimeError as exc:
+                        fail(f'sync: {variant} step {step_index} made a '
+                             f'host sync under \'error\': {exc}')
+                finally:
+                    torch.cuda.set_sync_debug_mode('default')
+                sites = sync_sites(records)
+            with warnings.catch_warnings(record=True) as records:
+                warnings.simplefilter('always')
+                torch.cuda.set_sync_debug_mode('warn')
+                try:
+                    opt.step()
+                finally:
+                    torch.cuda.set_sync_debug_mode('default')
+                for site, n in sync_sites(records).items():
+                    opt_sites[site] = opt_sites.get(site, 0) + n
+            torch.cuda.synchronize()
+            if mode == 'error':
+                print(f'sync resnet50 {variant} step {step_index}: forward, '
+                      'backward and precond.step() under '
+                      'set_sync_debug_mode(\'error\'), K-FAC lr '
+                      f'{guard_lr(step_index):.6g} new this step: no host '
+                      'sync', flush=True)
+            else:
+                print(f'sync resnet50 {variant} step {step_index} under '
+                      f'\'warn\': {sum(sites.values())} host syncs by call '
+                      f'site: {json.dumps(sites)}', flush=True)
+        print(f'sync resnet50: optimizer.step() (SGD, momentum 0.9) under '
+              f'\'warn\' over {len(SYNC_STEPS)} steps: '
+              f'{sum(opt_sites.values())} host syncs {json.dumps(opt_sites)}',
+              flush=True)
+        if (guard.compiles, guard.retraces) != (GUARD_BUDGET, 0):
+            fail(f'guard: {guard.compiles} programs after the sync steps')
+        del model, precond, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    return None
+
+
+def phase_compiled_tail(torch, kt, model_name, backend, keep,
+                        float_sweep=False):
+    """33b: the bucket tail under ``torch.compile(fullgraph=True,
+    backend=backend)`` in the step variants ``keep``, over the damping
+    sweep (``GUARD_STEPS`` steps of ``GUARD_HP``, guarded): no graph
+    break, Dynamo's graphs equal the programs a retrace guard counts over
+    the compiled calls' inputs (the sweep adds none: damping reaches the
+    tail as a canonical 0-d tensor), each compiled call launches the
+    kernel once per bucket, and the compiled tail is within the kernel
+    gate of the eager tail.  With ``float_sweep`` the same tail is then
+    called with ``FLOAT_LRS`` as Python floats, and the graphs that adds
+    are printed.  Returns ``(launches, max abs err, compiled ms,
+    eager ms)``."""
+    from torch._dynamo.utils import counters
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._dynamo.reset()
+    if backend == 'inductor':
+        import torch._inductor.config
+
+        # Compile in this process: no pool of compile workers outlives
+        # the phase.
+        torch._inductor.config.compile_threads = 1
+    model, precond, opt = guard_engine(torch, kt, model_name, GUARD_BUDGET)
+    if model_name == 'resnet50':
+        batch = rn50_batch(torch)
+    else:
+        batch = fixed_batch(torch)
+    n_buckets = len(precond.plan.buckets)
+    compiled, per_call, eager, tail_guard = compile_tail(
+        torch, precond, backend, keep)
+    graphs0 = counters['stats']['unique_graphs']
+    breaks0 = sum(counters['graph_break'].values())
+    kernel = precond_kernel()
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(GUARD_STEPS):
+        guard_step(torch, model, precond, opt, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel.launches
+    graphs = counters['stats']['unique_graphs'] - graphs0
+    breaks = sum(counters['graph_break'].values()) - breaks0
+    guard = precond.retrace_guard
+    label = f'compiled tail {model_name} ({backend})'
+    if breaks:
+        fail(f'{label}: {breaks} graph breaks')
+    if set(per_call) != set(keep):
+        fail(f'{label}: compiled calls in {sorted(per_call)}, expected '
+             f'{sorted(keep)}')
+    if graphs != tail_guard.compiles or tail_guard.retraces:
+        fail(f'{label}: Dynamo made {graphs} graphs over the sweep; the '
+             f'guard counts {tail_guard.compiles} programs and '
+             f'{tail_guard.retraces} retraces of the tail\'s inputs:\n'
+             + tail_guard.report())
+    bad = {v: c for v, c in per_call.items() if set(c) != {n_buckets}}
+    if bad:
+        fail(f'{label}: kernel launches per compiled call {bad}, expected '
+             f'{n_buckets}')
+    if launches != GUARD_STEPS * n_buckets:
+        fail(f'{label}: {launches} launches over {GUARD_STEPS} steps')
+    if (guard.compiles, guard.retraces) != (GUARD_BUDGET, 0):
+        fail(f'{label}: the engine guard has {guard.compiles} programs and '
+             f'{guard.retraces} retraces')
+    worst, ms, eager_ms, args = tail_gate(torch, precond, model, batch,
+                                          compiled, eager, label)
+    calls = {v: len(c) for v, c in per_call.items()}
+    print(f'{label}: {n_buckets} buckets, compiled with fullgraph=True in '
+          f'the variants {calls} (calls each): {breaks} graph breaks, '
+          f'{graphs} Dynamo graph(s) = the {tail_guard.compiles} program(s) '
+          f'a retrace guard counts over the compiled calls\' inputs over '
+          f'the damping sweep {list(GUARD_DAMPINGS)} (the engine\'s guard: '
+          f'{guard.compiles} step-variant programs, {guard.retraces} '
+          f'retraces); {n_buckets} launches a compiled call, {launches} '
+          f'over {GUARD_STEPS} steps ({seconds:.2f} s, the compile '
+          f'included); compiled tail {ms:.5f} ms against eager '
+          f'{eager_ms:.5f} ms a call; max abs err against eager '
+          f'{worst:.3e}', flush=True)
+    if float_sweep:
+        # The prediv tail reads no damping; lr enters every clip term.
+        before = counters['stats']['unique_graphs']
+        buckets, grads, damping, kl_clip, _ = args
+        with torch.no_grad():
+            for lr in FLOAT_LRS:
+                compiled(buckets, grads, damping, kl_clip, lr)
+        torch.cuda.synchronize()
+        print(f'{label}: the same tail with lr as a Python float over '
+              f'{list(FLOAT_LRS)} adds '
+              f'{counters["stats"]["unique_graphs"] - before} Dynamo '
+              'graph(s) (a canonical 0-d tensor adds none)', flush=True)
+    del model, precond, opt, compiled, args
+    torch._dynamo.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, worst, ms, eager_ms
+
+
+def op_host_cost(torch, kt):
+    """Host microseconds a call of the kernel through the custom op
+    against the direct ``ctypes`` launch (the path before the op), on
+    ``(1, 32, 32)`` operands, ``HOST_CALLS`` calls each, no sync between
+    calls, interleaved op / direct / op / direct."""
+    from kfac_pytorch_tpu_torch.ops import fused_precond
+
+    args = make_case(torch, 1, 32, 32, seed=1100)
+    fns = {'op': lambda: fused_precond.fused_eigen_precondition(*args),
+           'direct': lambda: fused_precond._launch_kernel(*args)}
+    got: dict = {k: [] for k in fns}
+    for name in ('op', 'direct', 'op', 'direct'):
+        fn = fns[name]
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        got[name].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    print(f'kernel host: {statistics.mean(got["op"]):.2f} us a call through '
+          'kfac_torch::fused_eigen_precond against '
+          f'{statistics.mean(got["direct"]):.2f} us for the direct ctypes '
+          f'launch (L=1 gp=32 ap=32, {HOST_CALLS} calls, two rounds each: '
+          f'{got})', flush=True)
+    return got
+
+
+def phase_analysis(torch, kt, rn32, rn50, drill=None):
+    """Phase 33: the retrace guard and the sync guard on ResNet-50 (33a,
+    33c), the compiled precondition tail on ResNet-32 with Inductor and
+    on ResNet-50 with the eager backend (33b), then, once ``drill`` (phase
+    32b's elastic drill, :func:`start_elastic_drill`, running beside
+    33a-b) has ended, the op's host cost on a quiet host.  Returns the
+    kernels-line entries."""
+    import torch._dynamo
+
+    if torch._dynamo.config.suppress_errors:
+        fail('phase 33: torch._dynamo.config.suppress_errors is on')
+    took = {}
+    t0 = time.perf_counter()
+    guard_launches = phase_guard(torch, kt)
+    took['33a+c guard, syncs'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tail50 = phase_compiled_tail(torch, kt, 'resnet50', 'eager',
+                                 ('plain', 'factor', 'inv'), float_sweep=True)
+    took['33b resnet50 eager'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tail32 = phase_compiled_tail(torch, kt, 'resnet32', 'inductor',
+                                 ('plain', 'factor'))
+    took['33b resnet32 inductor'] = time.perf_counter() - t0
+    if drill is not None:
+        t0 = time.perf_counter()
+        finish_elastic_drill(drill)
+        took['32b elastic drill, its rest'] = time.perf_counter() - t0
+    host = op_host_cost(torch, kt)
+    print('phase 33: ' + ', '.join(f'{k} {v:.2f} s' for k, v in took.items()),
+          flush=True)
+    guarded = dict(
+        rn50, name='fused_eigen_precondition through kfac_torch::'
+        'fused_eigen_precond, ResNet-50 buckets, retrace-guarded steps over '
+        'a damping sweep (phase 33a; ms, plain_ms, library_ms: phase 2\'s '
+        'timing of the same shapes)', launches=guard_launches,
+        op_host_us=statistics.mean(host['op']),
+        direct_host_us=statistics.mean(host['direct']))
+    compiled50 = dict(
+        rn50, name='fused_eigen_precondition through kfac_torch::'
+        'fused_eigen_precond, ResNet-50 buckets, precondition tail under '
+        'torch.compile(fullgraph=True, backend=\'eager\') (phase 33b)',
+        launches=tail50[0], max_abs_err=max(rn50['max_abs_err'], tail50[1]),
+        tail_ms=tail50[2], eager_tail_ms=tail50[3])
+    compiled32 = dict(
+        rn32, name='fused_eigen_precondition through kfac_torch::'
+        'fused_eigen_precond, ResNet-32 buckets, precondition tail under '
+        'torch.compile(fullgraph=True) with Inductor (phase 33b)',
+        launches=tail32[0], max_abs_err=max(rn32['max_abs_err'], tail32[1]),
+        tail_ms=tail32[2], eager_tail_ms=tail32[3])
+    return [guarded, compiled50, compiled32]
 
 
 def device_record(torch) -> dict:
@@ -8915,39 +9486,97 @@ def main() -> int:
         '1-2 kernels', phase_kernels, torch, kt.ops)
     entry['launches'] = phase('3 train', phase_train, torch, kt)
     sharded = phase('4 sharded', phase_sharded_kernel, torch, kt)
+    # Early: the guard, the compiled tail and the sync guard read the
+    # kernel entries of phases 1-2.  Phase 32b's elastic drill runs beside
+    # it (its ranks mostly start and open the card; phase 33's gates are
+    # bitwise, counts and syncs, not times).
+    drill = start_elastic_drill()
+    try:
+        analysis = phase('33 guard, compiled tail, syncs; 32b elastic drill',
+                         phase_analysis, torch, kt, entry, rn50, drill)
+    finally:
+        stop_elastic_drill(drill)
     # The rank work of phases 5, 17, 18, 21, 22, 23, 31 and 28 (with 26-27
-    # at world 4 and 30b) in one spawn; each phase's gates read its
-    # ranks' reports where it stands.
-    shared, meanwhile = phase('5, 17, 18, 21-23, 31, 28 ranks',
-                              spawn_shared, torch)
+    # at world 4 and 30b) in one spawn, started here (phase 28's
+    # one-process references run first).  While its ranks run, the
+    # one-card phases whose gates are bitwise, counts and cadences run
+    # beside them, heaviest first, the card's cache emptied after each;
+    # phases 22 and 23 come last and wait for their ranks after their own
+    # run.  The timed phases (kernels 1-2 and the padding times of 26-27,
+    # 9's stages and bench, 16's side stream, 24's on-off, 25's death
+    # detection, 31a's host times, 32) run with the card to themselves.
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = phase('shared ranks start, 28 references', SharedSpawn, torch)
+
+    def beside(name, fn, *args):
+        out = phase(name, fn, *args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    try:
+        squad = beside('30 squad_bert', phase_squad_bert, torch, kt)
+        bert['launches'] = beside('11 bert', phase_bert, torch, kt)
+        gpt['launches'] = beside('8 gpt', phase_gpt, torch, kt)
+        beside('8 gpt remat', gpt_remat_pass, torch, kt)
+        lm = beside('29 tiny_gpt_lm', phase_tiny_gpt_lm, torch, kt)
+        vit['launches'] = beside('10 vit', phase_vit, torch, kt)
+        rn50_lr['launches'] = beside('12 resnet50 lowrank',
+                                     phase_resnet50_lowrank, torch, kt)
+        ekfac_launches = beside('13 resnet50 ekfac', phase_resnet50_ekfac,
+                                torch, kt)
+        print(f'resnet50 ekfac: the fused kernel launched {ekfac_launches} '
+              'times (EKFAC keeps no dgda)', flush=True)
+        rn50_stagger = dict(
+            rn50, name='fused_eigen_precondition, ResNet-50 buckets, '
+            'staggered refresh (phase 14)',
+            launches=beside('14 resnet50 stagger', phase_resnet50_stagger,
+                            torch, kt),
+        )
+        rn50_adaptive = dict(
+            rn50, name='fused_eigen_precondition, ResNet-50 buckets, '
+            'drift-adaptive staggered refresh (phase 15)',
+            launches=beside('15 resnet50 adaptive', phase_resnet50_adaptive,
+                            torch, kt),
+        )
+        rn50_fused = dict(
+            rn50, name='fused_eigen_precondition, ResNet-50 buckets, fused '
+            'training path with AdaptiveDamping (phase 19)',
+            launches=beside('19 resnet50 fused', phase_resnet50_fused, torch,
+                            kt),
+        )
+        rn50_health = dict(
+            rn50, name='fused_eigen_precondition, ResNet-50 buckets, health '
+            'guardrails: a NaN batch, injected eigh failures, quarantined '
+            'slots (phase 20)',
+            launches=beside('20 resnet50 health', phase_resnet50_health,
+                            torch, kt),
+        )
+        beside('6 methods', phase_methods, torch, kt)
+        beside('7 resume', phase_resume, torch, kt)
+        launches, err = beside('22 resnet50 elastic (then its ranks)',
+                               phase_resnet50_elastic, torch, kt,
+                               lambda: ranks.wait()[0]['22'])
+        rn50_elastic = dict(
+            rn50, name='fused_eigen_precondition and its sharded form, '
+            'ResNet-50 buckets, streaming restore and world 4 -> 2 resize '
+            '(phase 22)', launches=launches, max_abs_err=err,
+        )
+        rn50_watchdog = dict(
+            rn50, name='fused_eigen_precondition, ResNet-50 buckets, '
+            'trajectory watchdog: detection, rollback and replay (phase 23)',
+            launches=beside('23 resnet50 watchdog', phase_resnet50_watchdog,
+                            torch, kt, lambda: ranks.wait()[0]['23']),
+        )
+        shared, meanwhile = phase('shared ranks, the rest of the wait',
+                                  ranks.wait)
+    finally:
+        ranks.stop()
     sharded['launches'], sharded['gather_ms'] = phase(
         '5 kaisa', phase_kaisa, torch, kt, shared['5'],
     )
-    phase('6 methods', phase_methods, torch, kt)
-    phase('7 resume', phase_resume, torch, kt)
-    gpt['launches'] = phase('8 gpt', phase_gpt, torch, kt)
-    phase('8 gpt remat', gpt_remat_pass, torch, kt)
     rn50['launches'] = phase('9 resnet50', phase_resnet50, torch, kt)
-    vit['launches'] = phase('10 vit', phase_vit, torch, kt)
-    bert['launches'] = phase('11 bert', phase_bert, torch, kt)
-    rn50_lr['launches'] = phase('12 resnet50 lowrank',
-                                phase_resnet50_lowrank, torch, kt)
-    ekfac_launches = phase('13 resnet50 ekfac', phase_resnet50_ekfac,
-                           torch, kt)
-    print(f'resnet50 ekfac: the fused kernel launched {ekfac_launches} '
-          'times (EKFAC keeps no dgda)', flush=True)
-    rn50_stagger = dict(
-        rn50, name='fused_eigen_precondition, ResNet-50 buckets, staggered '
-        'refresh (phase 14)',
-        launches=phase('14 resnet50 stagger', phase_resnet50_stagger,
-                       torch, kt),
-    )
-    rn50_adaptive = dict(
-        rn50, name='fused_eigen_precondition, ResNet-50 buckets, '
-        'drift-adaptive staggered refresh (phase 15)',
-        launches=phase('15 resnet50 adaptive', phase_resnet50_adaptive,
-                       torch, kt),
-    )
     rn50_overlap = dict(
         rn50, name='fused_eigen_precondition, ResNet-50 buckets, deferred '
         'refresh on a side stream (phase 16)',
@@ -8958,37 +9587,11 @@ def main() -> int:
                            torch, kt, shared['17'])
     phase('18 resnet50 ekfac grid', phase_resnet50_ekfac_grid, torch, kt,
           shared['18'])
-    rn50_fused = dict(
-        rn50, name='fused_eigen_precondition, ResNet-50 buckets, fused '
-        'training path with AdaptiveDamping (phase 19)',
-        launches=phase('19 resnet50 fused', phase_resnet50_fused, torch,
-                       kt),
-    )
-    rn50_health = dict(
-        rn50, name='fused_eigen_precondition, ResNet-50 buckets, health '
-        'guardrails: a NaN batch, injected eigh failures, quarantined slots '
-        '(phase 20)',
-        launches=phase('20 resnet50 health', phase_resnet50_health, torch,
-                       kt),
-    )
     rn50_consistency = dict(
         rn50_pipelined, name='fused_eigen_precondition_sharded, ResNet-50 '
         'at world 4, the cross-replica consistency guard (phase 21)',
         launches=phase('21 resnet50 consistency', phase_resnet50_consistency,
                        torch, kt, shared['21']),
-    )
-    launches, err = phase('22 resnet50 elastic', phase_resnet50_elastic,
-                          torch, kt, shared['22'])
-    rn50_elastic = dict(
-        rn50, name='fused_eigen_precondition and its sharded form, '
-        'ResNet-50 buckets, streaming restore and world 4 -> 2 resize '
-        '(phase 22)', launches=launches, max_abs_err=err,
-    )
-    rn50_watchdog = dict(
-        rn50, name='fused_eigen_precondition, ResNet-50 buckets, trajectory '
-        'watchdog: detection, rollback and replay (phase 23)',
-        launches=phase('23 resnet50 watchdog', phase_resnet50_watchdog,
-                       torch, kt, shared['23']),
     )
     rn50_observe = dict(
         rn50, name='fused_eigen_precondition, ResNet-50 buckets, observed '
@@ -9050,13 +9653,11 @@ def main() -> int:
         what='bucket slices')
     bert_tp_kernel.update(launches=world['bert_launches'], max_abs_err=max(
         world['worst'], bert_tp_kernel['max_abs_err']))
-    lm = phase('29 tiny_gpt_lm', phase_tiny_gpt_lm, torch, kt)
     lm_kernel = bucket_entry(
         torch, kernel, plain, 'tiny_gpt_lm example at GPT-125M widths, full '
         'coverage (phase 29)', lm['shapes'], 1020)
     lm_kernel.update(launches=lm['launches'], max_abs_err=max(
         lm['worst'], lm_kernel['max_abs_err']))
-    squad = phase('30 squad_bert', phase_squad_bert, torch, kt)
     squad_kernel = bucket_entry(
         torch, kernel, plain, 'squad_bert example, BERT-large '
         'GPTKFACPreconditioner prediv, one process (phase 30)',
@@ -9066,8 +9667,7 @@ def main() -> int:
     phase('31a native', phase_native, torch, kt)
     place_kernel = phase('31b resnet50 placement', phase_resnet50_placement,
                          torch, kt, shared['31'])
-    launches, err = phase('32 profile, elastic drill', phase_profile_drill,
-                          torch, kt)
+    launches, err = phase('32 profile', phase_profile_drill, torch, kt)
     # The variant mode calls the kernel on phase 9's 21 bucket shapes:
     # its times are phase 9's timing of them, in this run.
     rn50_profile = dict(
@@ -9092,7 +9692,7 @@ def main() -> int:
                                   tp_kernel, moe_adaptive, pipe_adaptive,
                                   bert_tp_kernel, lm_kernel,
                                   squad_kernel, place_kernel,
-                                  rn50_profile]}),
+                                  rn50_profile, *analysis]}),
           flush=True)
     print(json.dumps(device_record(torch)), flush=True)
     return 0

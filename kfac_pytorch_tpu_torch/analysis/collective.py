@@ -72,9 +72,9 @@ import os
 import re
 from typing import Iterable, Iterator
 
-from kfac_pytorch_tpu_torch.analysis._ast import _dotted
-from kfac_pytorch_tpu_torch.analysis._ast import _last
-from kfac_pytorch_tpu_torch.analysis._ast import _ModuleIndex
+from ._ast import _dotted
+from ._ast import _last
+from ._ast import _ModuleIndex
 
 __all__ = [
     'BARRIER_TAG_ORDER',

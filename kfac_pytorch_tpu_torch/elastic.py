@@ -1062,7 +1062,7 @@ def _install_generation(
         # the monolithic restore refresh, at the iterative method's
         # bootstrap depth (collective across ranks).
         precond._iter_bootstrapped = False
-        precond._refresh(precond.damping)
+        precond._restore_refresh()
         recomputed = True
 
     # The saved stagger flag speaks of the saving engine's shard

@@ -3,8 +3,12 @@ checkpoints.
 
 Port of the single-device core of ``KFACEngineMixin``
 (``kfac_pytorch_tpu/engine.py``).  The JAX engine dispatches one of four
-compiled programs per step; here the step body runs eagerly, in the
-order of ``engine.py:1463-1556``:
+compiled programs per step; here the step body runs eagerly, through one
+dispatch point under the same variant keys
+(:meth:`KFACEngineMixin._dispatch`, where a retrace guard,
+:mod:`~kfac_pytorch_tpu_torch.analysis.retrace`, signs what each variant
+reads), with the hyperparameters as canonical 0-d tensors, in the order
+of ``engine.py:1463-1556``:
 
 1. on factor-update steps, factor contributions from the captured
    activations and output gradients, folded into the EMAs (the first
@@ -96,6 +100,9 @@ from kfac_pytorch_tpu_torch import ops
 from kfac_pytorch_tpu_torch import runtime
 from kfac_pytorch_tpu_torch import tracing
 from kfac_pytorch_tpu_torch.adaptive import AdaptiveDamping
+from kfac_pytorch_tpu_torch.analysis.retrace import RetraceGuard
+from kfac_pytorch_tpu_torch.analysis.retrace import attach_guard
+from kfac_pytorch_tpu_torch.hyperparams import canonical_scalar
 from kfac_pytorch_tpu_torch.hyperparams import resolve
 from kfac_pytorch_tpu_torch.hyperparams import validate_damping
 from kfac_pytorch_tpu_torch.observe import timeline as observe_timeline
@@ -370,9 +377,14 @@ class KFACEngineMixin:
         watchdog: Any = None,
         observe: Any = None,
         flight: Any = None,
+        compile_budget: int | None = None,
     ) -> None:
         if not callable(damping):
             validate_damping(damping)
+        self.compile_budget = compile_budget
+        self._retrace_guard: RetraceGuard | None = None
+        if compile_budget is not None:
+            self.enable_retrace_guard(budget=compile_budget)
         # Observability (None: off, the unobserved step).  The whole-step
         # timeline exists only under timeline=True: its honest timing
         # costs one synchronize a step.
@@ -495,6 +507,124 @@ FlightRecorder` (``None``: flight recording off)."""
 
     def _annotate(self) -> bool:
         return self._observe is not None and self._observe.annotate
+
+    @property
+    def retrace_guard(self) -> RetraceGuard | None:
+        """The installed retrace guard (``None``: unguarded)."""
+        return self._retrace_guard
+
+    def enable_retrace_guard(
+        self,
+        budget: int | None = None,
+        strict: bool = False,
+    ) -> RetraceGuard:
+        """Attach program accounting to this engine's dispatch point (JAX
+        ``engine.py:628-660``).
+
+        Every dispatch then records the abstract signature of what its
+        program reads under its key: a new signature under a known key
+        is a retrace (``strict=True`` raises
+        :class:`~kfac_pytorch_tpu_torch.analysis.retrace.RetraceError`
+        with a per-leaf diff), and more than ``budget`` step-variant
+        programs raise
+        :class:`~kfac_pytorch_tpu_torch.analysis.retrace.\
+CompileBudgetError` with the registry, both before the step runs.  It
+        only observes: a guarded step gives the unguarded step's bits.
+        ``budget=None`` keeps the engine's ``compile_budget``; attaching
+        again installs a fresh guard."""
+        if budget is None:
+            budget = self.compile_budget
+        self._retrace_guard = attach_guard(self, budget=budget, strict=strict)
+        return self._retrace_guard
+
+    def _dispatch(
+        self,
+        key: Any,
+        run: Callable[[], Any],
+        inputs: Callable[[], Any] | None = None,
+    ) -> Any:
+        """The engine's one dispatch point (JAX ``_cached_jit``,
+        ``engine.py:1560-1573``): ``run()`` under ``key`` (a step-variant
+        tuple, or a service program's name).  The step runs eagerly, so
+        there is no program to cache.  ``inputs()`` gives what the
+        program reads; it is called only when a guard is attached, which
+        records its signature under ``key`` before ``run`` starts.
+        Detached, nothing is gathered."""
+        guard = self._retrace_guard
+        if guard is not None and inputs is not None:
+            guard.observe_call(key, (inputs(),), {})
+        return run()
+
+    def _hyperparams(self) -> dict[str, torch.Tensor]:
+        """The hyperparameters the step's device work reads, as canonical
+        0-d f32 tensors on the engine's device (JAX
+        ``engine.py:1091-1113``): ``damping``, ``lr`` and ``kl_clip``
+        unless it is ``None``, all read by the precondition tail
+        (:func:`~kfac_pytorch_tpu_torch.hyperparams.canonical_scalar`:
+        made once a value, by a fill kernel, no host sync)."""
+        device = getattr(self, 'device', 'cpu')
+        hp = {
+            'damping': canonical_scalar(self.damping, device),
+            'lr': canonical_scalar(self.lr, device),
+        }
+        kl_clip = self.kl_clip
+        if kl_clip is not None:
+            hp['kl_clip'] = canonical_scalar(kl_clip, device)
+        return hp
+
+    def _tail_hyperparams(self) -> tuple[Any, Any, Any]:
+        """``(damping, kl_clip, lr)`` as the step's precondition tail
+        takes them (canonical tensors; ``kl_clip`` ``None`` when off)."""
+        hp = self._hyperparams()
+        return hp['damping'], hp.get('kl_clip'), hp['lr']
+
+    def _variant_state(self) -> dict[str, Any]:
+        """The K-FAC state a step variant reads and writes: the layers'
+        factor EMAs and decompositions, the bucket stacks, the health
+        counters (what the guard and the contract pass sign)."""
+        state = {'layers': getattr(self, 'layers', {}),
+                 'buckets': getattr(self, 'buckets', {})}
+        health = self._health_state()
+        if health is not None:
+            state['health'] = health
+        return state
+
+    def _variant_inputs(
+        self, hp: Mapping[str, Any], update_factors: bool,
+        update_inverses: bool,
+    ) -> dict[str, Any]:
+        """What a step variant reads, for a guard to sign: every
+        trainable parameter's gradient (the registered layers' and the
+        rest, which ``vg_sum`` reads), the K-FAC state, the tail's
+        hyperparameters ``hp`` and the host values the factor and
+        refresh stages branch on (``factor_decay``, ``first_update``,
+        and ``sketch_step`` on a low-rank refresh step), signed as the
+        0-d tensors JAX's program takes."""
+        device = getattr(self, 'device', 'cpu')
+        grads = {
+            name: p.grad
+            for name, p in self._capture_module().named_parameters()
+            if p.requires_grad
+        }
+        hp = dict(hp)
+        hp['factor_decay'] = canonical_scalar(self.factor_decay, device)
+        hp['first_update'] = canonical_scalar(
+            bool(update_factors and not self._factors_initialized), device)
+        if update_inverses and getattr(self, 'lowrank_rank', None) is not None:
+            hp['sketch_step'] = canonical_scalar(int(self._steps), device)
+        return {'grads': grads, 'state': self._variant_state(), 'hp': hp}
+
+    def _restore_refresh(self, key: str = 'restore_refresh') -> None:
+        """A restore's monolithic refresh, dispatched as the service
+        program ``key`` (recorded by a guard, exempt from its budget)."""
+        self._dispatch(
+            key, lambda: self._refresh(self.damping),
+            inputs=lambda: {
+                'state': self._variant_state(),
+                'hp': {'damping': canonical_scalar(
+                    self.damping, getattr(self, 'device', 'cpu'))},
+            },
+        )
 
     def _scope(self, name: str):
         """``record_function('kfac/<name>')`` under annotate, else a
@@ -805,7 +935,9 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             return None, None
         self._adaptive_host_syncs += 1
         sketch, digest = self._adaptive_last_drift
-        return sketch.cpu().numpy(), digest.cpu().numpy()
+        # The adaptive cadence's one read, at opportunity steps (counted).
+        return (sketch.cpu().numpy(),  # torchlint: allow(host-sync)
+                digest.cpu().numpy())  # torchlint: allow(host-sync)
 
     @property
     def adaptive_host_syncs(self) -> int:
@@ -830,11 +962,33 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
 
     def _step(self, loss: torch.Tensor | None = None) -> None:
         """The body of :meth:`step`, shared with the fused path (which
-        passes the step's ``loss`` for the health verdict)."""
+        passes the step's ``loss`` for the health verdict).
+
+        The step is planned on the host, then dispatched under its
+        variant key ``(update_factors, update_inverses, refresh_shard,
+        deferred, check_consistency)`` (:meth:`_dispatch`)."""
         update_factors, update_inverses, shard, deferred, pending = (
             self._overlap_plan()
         )
         check = self._consistency_due()
+        key = (update_factors, update_inverses, shard, deferred, check)
+        hp = self._hyperparams()
+        self._dispatch(
+            key,
+            lambda: self._step_body(key, hp, pending, loss),
+            inputs=lambda: self._variant_inputs(
+                hp, update_factors, update_inverses),
+        )
+
+    def _step_body(
+        self,
+        key: tuple,
+        hp: Mapping[str, torch.Tensor],
+        pending: tuple | None,
+        loss: torch.Tensor | None,
+    ) -> None:
+        """One planned step's work (the program of variant ``key``)."""
+        update_factors, update_inverses, shard, deferred, check = key
         self._last_variant = self._step_variant(
             update_factors, update_inverses, shard, deferred, check)
         self._variants_run.add(self._last_variant)
@@ -881,7 +1035,7 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             extra['return_info'] = True
         with collect, self._scope('precondition'):
             out = self._precondition(
-                self.damping, self.kl_clip, self.lr, **extra,
+                hp['damping'], hp.get('kl_clip'), hp['lr'], **extra,
             )
         vg_sum, obs_info = out if monitor else (out, {})
         info = {'vg_sum': vg_sum}
@@ -978,8 +1132,12 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
         ladder = self._consistency_ladder
         totals = self._consistency_totals
         totals['checks'] += 1
-        mismatches = int(info['consistency/mismatches'])
-        hp_mismatches = int(info['consistency/hp_mismatches'])
+        counts = (info['consistency/mismatches'],
+                  info['consistency/hp_mismatches'])
+        # CPU counts built from the host verdict (CheckResult.info): no
+        # device read.
+        mismatches = int(counts[0])  # torchlint: allow(host-sync)
+        hp_mismatches = int(counts[1])  # torchlint: allow(host-sync)
         if mismatches == 0:
             ladder.reset_all()
         elif mismatches == hp_mismatches:
@@ -992,7 +1150,11 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
             if hp_mismatches:
                 tracing.count_event('consistency_hp_mismatch')
             if cfg.repair == 'broadcast':
-                layer_mask, bucket_masks = self._consistency_repair(result)
+                layer_mask, bucket_masks = self._dispatch(
+                    ('consistency', 'repair'),
+                    lambda: self._consistency_repair(result),
+                    inputs=lambda: (self._variant_state(), result),
+                )
                 totals['repairs'] += 1
                 tracing.count_event('consistency_repair')
                 self._stagger_bootstrapped = False
@@ -1000,8 +1162,11 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
                 self._overlap_bootstrapped = False
                 self._overlap_pending = None
             else:
-                layer_mask, bucket_masks, _ = consistency_lib.mismatch_masks(
-                    result)
+                layer_mask, bucket_masks, _ = self._dispatch(
+                    ('consistency', 'masks'),
+                    lambda: consistency_lib.mismatch_masks(result),
+                    inputs=lambda: (result,),
+                )
             for i, name in enumerate(result.layer_names):
                 ladder.note(('layer', name), bool(layer_mask[i]))
             for i, key in enumerate(result.basis_keys):
@@ -1015,7 +1180,11 @@ stagger_refresh_action` keeps the first due refresh monolithic and then
                 if q.any():
                     crossed[key] = q
             if crossed:
-                self._consistency_quarantine(crossed)
+                self._dispatch(
+                    ('consistency', 'quarantine'),
+                    lambda: self._consistency_quarantine(crossed),
+                    inputs=lambda: (self._variant_state(), bucket_masks),
+                )
                 totals['quarantines'] += int(
                     sum(int(m.sum()) for m in crossed.values()))
                 tracing.count_event('consistency_quarantine')
@@ -1239,9 +1408,13 @@ damping`).  The returned loss is the step's (detached), before the
         ad = self._adaptive_damping
         if ad is None or not ad.should_adapt(step_index):
             return
+        loss_after = self._dispatch(
+            'loss_only', lambda: self._loss_only(args, loss_args, loss_fn),
+            inputs=lambda: {'args': args, 'loss_args': loss_args},
+        )
         losses = torch.stack([
             loss_before.float().reshape(()),
-            self._loss_only(args, loss_args, loss_fn).float().reshape(()),
+            loss_after.float().reshape(()),
         ])
         before, after, vg_sum = self._adapt_inputs(losses, info['vg_sum'])
         lr = float(resolve(self._lr, step_index))
@@ -1429,7 +1602,7 @@ damping`).  The returned loss is the step's (detached), before the
                     h.factor_updates_applied, min=1)
             if compute_inverses:
                 self._iter_bootstrapped = False
-                self._refresh(self.damping)
+                self._restore_refresh()
                 if scales is not None:
                     self._restore_ekfac_scales(scales)
             # The restore invariant: only a restore-time recompute lets

@@ -223,7 +223,7 @@ KFACPreconditioner`'s, with the JAX class's defaults.
                 st.a_factor = _identity_like(st.a_factor)
                 st.g_factor = _identity_like(st.g_factor)
         if compute_inverses:
-            self._refresh(self.damping)
+            self._restore_refresh('gpt_restore_refresh')
         self._arm_capture(self._step_gating()[0])
 
 

@@ -436,7 +436,7 @@ PipelineKFACPreconditioner` (module docstring).
         # [kl-clip terms, <g, pg>] of the replicated and sharded layers.
         replicated: list[tuple[torch.Tensor, torch.Tensor]] = []
         sharded: list[tuple[torch.Tensor, torch.Tensor]] = []
-        lr2 = float(lr) ** 2
+        lr2 = ops.lr_squared(lr)
         for name, spec in self.specs.items():
             st = self.layers[name]
             g = spec.get_grad().float().contiguous()

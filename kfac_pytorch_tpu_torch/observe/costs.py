@@ -7,14 +7,11 @@ K-FAC step costs:
   ``torch.utils.flop_counter.FlopCounterMode`` (the JAX module reads
   XLA's cost analysis of a compiled program; torch has none, so the call
   runs).  The mode sees the aten operators (matmuls, convolutions and
-  their backward passes); it does not see the fused CUDA kernel, a
-  ``ctypes`` call (``ops/fused_precond.py``), so with ``precond=`` the
-  kernel's FLOPs are added from its shapes, as ``chip_smoke.py``'s
-  ``precond_work`` counts them: ``4·L·gp·ap·(gp+ap)`` for the four
-  contractions plus ``3·L·gp·ap`` elementwise, per launch.  On CPU
-  tensors the kernel's plain version runs aten matmuls, which the mode
-  counts itself.  cuSOLVER's ``eigh`` has no FLOP formula and is not
-  counted.  ``bytes_accessed`` is ``-1.0``, the JAX contract for a field
+  their backward passes) and the fused kernel's custom op
+  (``kfac_torch::fused_eigen_precond``, ``ops/fused_precond.py``), whose
+  registered formula counts its four contractions,
+  ``4·L·gp·ap·(gp+ap)``, on every device.  cuSOLVER's ``eigh`` has no
+  FLOP formula and is not counted.  ``bytes_accessed`` is ``-1.0``, the JAX contract for a field
   the backend does not report.
 * :func:`comm_ledger` is the JAX module's analytic per-phase table of
   the KAISA grid from the bucket plan, the ``(rows, cols)`` grid shape
@@ -88,54 +85,21 @@ import torch
 # ----------------------------------------------------------------------
 
 
-def fused_kernel_flops(L: int, gp: int, ap: int) -> int:
-    """FLOPs of one fused-kernel call on ``[L, gp, ap]``: the four
-    contractions and the three elementwise products (scale, clip)."""
-    return 4 * L * gp * ap * (gp + ap) + 3 * L * gp * ap
-
-
-def _kernel_step_flops(precond: Any) -> tuple[int, int]:
-    """``(FLOPs, calls)`` of one step's fused-kernel calls on this rank:
-    every bucket that keeps ``dgda``, on its column slice."""
-    flops = calls = 0
-    plan = getattr(precond, 'plan', None)
-    for b in () if plan is None else plan.buckets:
-        if precond.buckets[b.key].dgda is not None:
-            flops += fused_kernel_flops(b.seg, b.g_pad, b.a_pad)
-            calls += 1
-    return flops, calls
-
-
-def compiled_costs(
-    fn: Callable[..., Any], *args: Any, precond: Any = None,
-) -> dict[str, float]:
+def compiled_costs(fn: Callable[..., Any], *args: Any) -> dict[str, float]:
     """Counted cost of one call ``fn(*args)``: ``{'flops',
     'bytes_accessed'}``.
 
-    The call runs under ``FlopCounterMode``.  The fused kernel's launches
-    during it (``fused_eigen_precondition.launches``) add its FLOPs from
-    ``precond``'s bucket shapes (a launch without ``precond`` raises: the
-    shapes are unknown).  ``bytes_accessed`` is ``-1.0`` (not reported).
+    The call runs under ``FlopCounterMode``; the fused kernel's custom op
+    (``kfac_torch::fused_eigen_precond``) carries its own formula, its
+    four contractions, on every device.  ``bytes_accessed`` is ``-1.0``
+    (not reported).
     """
     from torch.utils.flop_counter import FlopCounterMode
 
-    from kfac_pytorch_tpu_torch.ops import fused_precond
-
-    kernel = fused_precond.fused_eigen_precondition
-    before = kernel.launches
     with FlopCounterMode(display=False) as counter:
         fn(*args)
-    flops = float(counter.get_total_flops())
-    launched = kernel.launches - before
-    if launched:
-        if precond is None:
-            raise ValueError(
-                'the fused kernel launched during compiled_costs: pass '
-                'precond= so its FLOPs can be counted from its shapes',
-            )
-        step_flops, calls = _kernel_step_flops(precond)
-        flops += step_flops * launched / max(calls, 1)
-    return {'flops': flops, 'bytes_accessed': -1.0}
+    return {'flops': float(counter.get_total_flops()),
+            'bytes_accessed': -1.0}
 
 
 def step_variant_costs(
@@ -166,7 +130,7 @@ def step_variant_costs(
                 precond._step()
 
             try:
-                out[name] = compiled_costs(one_step, precond=precond)
+                out[name] = compiled_costs(one_step)
             finally:
                 del precond._refresh_plan
     finally:

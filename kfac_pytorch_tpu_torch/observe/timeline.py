@@ -169,7 +169,7 @@ def _phase_hooks(precond: Any, forward_backward: Callable[[], Any]):
         precond._refresh(precond.damping)
 
     def pre():
-        precond._precondition(precond.damping, precond.kl_clip, precond.lr)
+        precond._precondition(*precond._tail_hyperparams())
 
     return {'capture': capture, 'factor_ema': ema, 'eigh_refresh': refresh,
             'precondition': pre}

@@ -35,6 +35,9 @@ from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_divergence_info
 from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_scale_contrib
 from kfac_pytorch_tpu_torch.ops.ekfac import ekfac_scale_contrib_stacked
 from kfac_pytorch_tpu_torch.ops.fused_precond import (
+    fused_eigen_precond_op,
+)
+from kfac_pytorch_tpu_torch.ops.fused_precond import (
     fused_eigen_precondition,
 )
 from kfac_pytorch_tpu_torch.ops.fused_precond import (
@@ -81,3 +84,4 @@ from kfac_pytorch_tpu_torch.ops.triu import NonSquareTensorError
 from kfac_pytorch_tpu_torch.ops.update import ema_update_factor
 from kfac_pytorch_tpu_torch.ops.update import grad_scale_sum
 from kfac_pytorch_tpu_torch.ops.update import kl_clip_scale
+from kfac_pytorch_tpu_torch.ops.update import lr_squared

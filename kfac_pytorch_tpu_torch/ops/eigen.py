@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 logger = logging.getLogger(__name__)
 
@@ -55,16 +56,21 @@ def symmetric_eigh(
     ResNet-50 bucket's exact side 2.3e-4 from float64 against under
     1e-4).  The check reads one flag back to the host per call (``eigh``
     synchronizes already).  A CPU tensor takes the plain call, which
-    LAPACK gets right, so CPU results stay the JAX package's.
+    LAPACK gets right, so CPU results stay the JAX package's; so does a
+    fake tensor (a contract dry run has no values to check).
     """
-    if m.device.type != 'cuda':
+    if m.device.type != 'cuda' or is_fake(m):
         return torch.linalg.eigh(m)
     n = m.shape[-1]
     d, q = _checked_eigh(m.reshape(-1, n, n))
     return d.reshape(m.shape[:-1]), q.reshape(m.shape)
 
 
-def _checked_eigh(mb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+# The float64 residual and the read of the failed slots are the check
+# itself: one read a refresh, where eigh synchronizes already.
+def _checked_eigh(  # torchlint: allow(f64-promotion, host-sync)
+    mb: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`symmetric_eigh`'s CUDA path on any device, for an ``[k, n,
     n]`` stack: ``torch.linalg.eigh``, then each matrix whose float64
     eigen-residual fails the bar decomposed again shifted."""
@@ -137,7 +143,8 @@ def compute_factor_eig_general(
     not a poisoned one), logged once per event and counted in
     ``compute_factor_eig_general.nonfinite``.
     """
-    f = factor.detach().float().cpu().numpy()
+    # The general eig runs on the host by design (JAX: a pure_callback).
+    f = factor.detach().float().cpu().numpy()  # torchlint: allow(host-sync)
     try:
         if not np.isfinite(f).all():
             raise np.linalg.LinAlgError('non-finite factor input')

@@ -6,12 +6,16 @@ Port of ``kfac_pytorch_tpu/ops/pallas_precond.py`` (the TPU kernel
     v1 = qg^T g qa ;  v2 = v1 * dgda ;  pg = qg v2 qa^T
     clip[l] = sum(v1 * v2)          (== <pg[l], g[l]>)
 
-On CUDA tensors :func:`fused_eigen_precondition` launches the
-hand-written kernel ``csrc/fused_eigen_precond.cu`` (built on first use
-by :mod:`._build`); on CPU tensors it runs
-:func:`fused_eigen_precondition_reference`, the plain PyTorch chain.
-A CUDA launch that fails raises — it never falls back.  Unlike the TPU
-kernel there is no shape gate: every ``(gp, ap)`` is taken.
+:func:`fused_eigen_precondition` calls the custom op
+``kfac_torch::fused_eigen_precond`` (:func:`fused_eigen_precond_op`):
+on CUDA tensors it launches the hand-written kernel
+``csrc/fused_eigen_precond.cu`` (built on first use by :mod:`._build`),
+on CPU tensors it runs :func:`fused_eigen_precondition_reference`, the
+plain PyTorch chain, and its fake implementation gives the output shapes
+to ``FakeTensorMode`` and ``torch.compile``, so the precondition tail
+traces through the kernel with no graph break.  A CUDA build or launch
+that fails raises — it never falls back.  Unlike the TPU kernel there
+is no shape gate: every ``(gp, ap)`` is taken.
 
 :func:`fused_eigen_precondition_sharded` is the KAISA form (the JAX
 package's ``shard_map`` over the grid's column axis): the same kernel on
@@ -34,6 +38,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from kfac_pytorch_tpu_torch.ops import _build
 from kfac_pytorch_tpu_torch.parallel import collectives
@@ -108,33 +113,16 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def fused_eigen_precondition(
+def _launch_kernel(
     g: torch.Tensor,
     qa: torch.Tensor,
     qg: torch.Tensor,
     dgda: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``qg @ ((qg^T @ g @ qa) * dgda) @ qa^T`` per stacked layer.
-
-    Args:
-        g: ``[L, gp, ap]`` combined gradients (f32 or bf16).
-        qa: ``[L, ap, ap]`` A-factor eigenvectors.
-        qg: ``[L, gp, gp]`` G-factor eigenvectors.
-        dgda: ``[L, gp, ap]`` predivided eigenvalue outer product.
-
-    Returns:
-        ``(pg [L, gp, ap] f32, clip [L] f32)`` with
-        ``clip[l] == <pg[l], g[l]>``.
-
-    CUDA tensors launch the kernel on the current stream (and count one
-    launch in ``fused_eigen_precondition.launches``); CPU tensors run
-    the plain version.
-    """
-    _check(g, qa, qg, dgda)
-    if g.device.type == 'cpu':
-        return fused_eigen_precondition_reference(g, qa, qg, dgda)
-    if g.device.type != 'cuda':
-        raise ValueError(f'unsupported device {g.device}')
+    """One launch of the hand-written kernel on the current stream (the
+    CUDA kernel of :func:`fused_eigen_precond_op`); counts the launch in
+    ``fused_eigen_precondition.launches``.  A build or launch failure
+    raises."""
     for name, t in (('g', g), ('qa', qa), ('qg', qg), ('dgda', dgda)):
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
@@ -162,6 +150,76 @@ def fused_eigen_precondition(
         )
     fused_eigen_precondition.launches += 1
     return pg, clip
+
+
+@torch.library.custom_op('kfac_torch::fused_eigen_precond', mutates_args=())
+def fused_eigen_precond_op(
+    g: torch.Tensor,
+    qa: torch.Tensor,
+    qg: torch.Tensor,
+    dgda: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``kfac_torch::fused_eigen_precond``: the kernel as a custom op, so
+    ``torch.compile`` and ``FakeTensorMode`` trace through it (a
+    ``ctypes`` call is opaque to both).  CUDA runs the hand-written
+    kernel, CPU the plain chain; any other device has no kernel."""
+    raise NotImplementedError(
+        f'kfac_torch::fused_eigen_precond has no kernel for {g.device}',
+    )
+
+
+fused_eigen_precond_op.register_kernel('cuda')(_launch_kernel)
+
+
+@fused_eigen_precond_op.register_kernel('cpu')
+def _cpu_kernel(g, qa, qg, dgda):
+    return fused_eigen_precondition_reference(g, qa, qg, dgda)
+
+
+@fused_eigen_precond_op.register_fake
+def _fake_kernel(g, qa, qg, dgda):
+    L, gp, ap = g.shape
+    return (g.new_empty((L, gp, ap), dtype=torch.float32),
+            g.new_empty((L,), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.kfac_torch.fused_eigen_precond)
+def _kernel_flops(g_shape, qa_shape, qg_shape, dgda_shape, *args,
+                  **kwargs) -> int:
+    """The four contractions (``FlopCounterMode``'s count for the same
+    chain of batched products) and the three elementwise products (the
+    ``dgda`` scale and the clip's product and sum)."""
+    L, gp, ap = g_shape
+    return 4 * L * gp * ap * (gp + ap) + 3 * L * gp * ap
+
+
+def fused_eigen_precondition(
+    g: torch.Tensor,
+    qa: torch.Tensor,
+    qg: torch.Tensor,
+    dgda: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``qg @ ((qg^T @ g @ qa) * dgda) @ qa^T`` per stacked layer.
+
+    Args:
+        g: ``[L, gp, ap]`` combined gradients (f32 or bf16).
+        qa: ``[L, ap, ap]`` A-factor eigenvectors.
+        qg: ``[L, gp, gp]`` G-factor eigenvectors.
+        dgda: ``[L, gp, ap]`` predivided eigenvalue outer product.
+
+    Returns:
+        ``(pg [L, gp, ap] f32, clip [L] f32)`` with
+        ``clip[l] == <pg[l], g[l]>``.
+
+    Goes through the custom op ``kfac_torch::fused_eigen_precond``: CUDA
+    tensors launch the kernel on the current stream (and count one
+    launch in ``fused_eigen_precondition.launches``); CPU tensors run
+    the plain version.
+    """
+    _check(g, qa, qg, dgda)
+    if g.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {g.device}')
+    return fused_eigen_precond_op(g, qa, qg, dgda)
 
 
 #: Kernel launches since the count was last set to 0 (CPU calls run the

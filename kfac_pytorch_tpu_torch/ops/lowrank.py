@@ -168,7 +168,8 @@ def precondition_grad_lowrank(
     def r(t: torch.Tensor) -> torch.Tensor:  # cdt operand, f32 product
         return _wide(t.to(cdt))
 
-    lam = float(damping)
+    # A canonical 0-d tensor stays on the device (no host read).
+    lam = damping if isinstance(damping, torch.Tensor) else float(damping)
     gr = r(grad)
     qa_c, qg_c = r(qa), r(qg)
     da, dg = _wide(da), _wide(dg)

@@ -44,16 +44,25 @@ def ema_update_factor(
     return alpha * old + (1.0 - alpha) * new.to(factor.dtype)
 
 
+def lr_squared(lr: float | torch.Tensor) -> float | torch.Tensor:
+    """``lr^2``: an f32 product of a canonical 0-d tensor (as JAX squares
+    its canonical f32 scalar), a host product of a Python number."""
+    if isinstance(lr, torch.Tensor):
+        return lr ** 2
+    return float(lr) ** 2
+
+
 def grad_scale_sum(
-    precond_grad: torch.Tensor, grad: torch.Tensor, lr: float,
+    precond_grad: torch.Tensor, grad: torch.Tensor,
+    lr: float | torch.Tensor,
 ) -> torch.Tensor:
     """One layer's term of ``sum(precon_grad * grad) * lr^2``, in f32."""
-    return torch.sum(precond_grad.float() * grad.float()) * float(lr) ** 2
+    return torch.sum(precond_grad.float() * grad.float()) * lr_squared(lr)
 
 
 def kl_clip_scale(
     vg_terms: Sequence[torch.Tensor] | torch.Tensor,
-    kl_clip: float,
+    kl_clip: float | torch.Tensor,
 ) -> torch.Tensor:
     """Gradient scale factor from the kl-clip heuristic.
 
@@ -62,7 +71,7 @@ def kl_clip_scale(
     """
     if isinstance(vg_terms, (list, tuple)):
         if not vg_terms:
-            return torch.tensor(1.0)
+            return torch.tensor(1.0, dtype=torch.float32)
         vg_sum = torch.sum(torch.stack([t.float() for t in vg_terms]))
     else:
         vg_sum = vg_terms.float()

@@ -566,8 +566,13 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         """The eigen fields of a share from its f32 eigenpairs: ``Q`` in
         ``inv_dtype``, eigenvalues cast and clamped at zero
         (:func:`~kfac_pytorch_tpu_torch.ops.compute_factor_eigen`), then
-        EKFAC's reseeded scales, the kept eigenvalues, or ``dgda``."""
-        qa, qg = qa.to(self.inv_dtype), qg.to(self.inv_dtype)
+        EKFAC's reseeded scales, the kept eigenvalues, or ``dgda``.  The
+        bases are kept row-major: cuSOLVER returns them column-major
+        (and a shifted redo row-major), so every refresh would otherwise
+        hand the tail stacks of another layout, which the kernel copies
+        and a compiled tail recompiles for."""
+        qa = qa.to(self.inv_dtype).contiguous()
+        qg = qg.to(self.inv_dtype).contiguous()
         da = torch.clamp(da.to(self.inv_dtype), min=0.0)
         dg = torch.clamp(dg.to(self.inv_dtype), min=0.0)
         if self.ekfac:
@@ -1050,9 +1055,9 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
         self,
         buckets: Mapping[str, BucketSecond],
         combined_grads: Mapping[str, torch.Tensor],
-        damping: float,
-        kl_clip: float | None,
-        lr: float,
+        damping: float | torch.Tensor,
+        kl_clip: float | torch.Tensor | None,
+        lr: float | torch.Tensor,
         extra_clip_terms: Sequence[torch.Tensor] = (),
     ) -> tuple[dict[str, torch.Tensor], torch.Tensor | None]:
         """Precondition all layers' combined gradients at once.
@@ -1061,7 +1066,10 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
         None)``; the returned grads already carry the scale.  Every rank
         returns every layer.  ``damping`` is the live damping, which the
         non-prediv eigen path divides by.  Scaling after the row gather
-        gives the same bits as scaling before it.
+        gives the same bits as scaling before it.  The engine passes
+        ``damping``, ``kl_clip`` and ``lr`` as canonical 0-d f32 tensors
+        (:func:`~kfac_pytorch_tpu_torch.hyperparams.canonical_scalar`):
+        the tail is one traceable program whatever their values.
         ``extra_clip_terms`` are the ``<pg, g> * lr^2`` terms of layers
         preconditioned outside the stacks (diagonal A), summed after the
         buckets' terms, as ``second_order.py:1575`` of the JAX package
@@ -1091,8 +1099,8 @@ precondition_grad_lowrank` on every slot at once and sum ``pg ⊙ g``;
             }
             for key, handle in handles.items():
                 stacked[key], clips[key] = handle.wait()
-        terms = [torch.sum(clips[b.key]) * float(lr) ** 2
-                 for b in self.plan.buckets]
+        lr2 = ops.lr_squared(lr)
+        terms = [torch.sum(clips[b.key]) * lr2 for b in self.plan.buckets]
         terms.extend(extra_clip_terms)
         scale = (
             ops.kl_clip_scale(terms, kl_clip) if kl_clip is not None

@@ -120,13 +120,6 @@ from kfac_pytorch_tpu_torch.parallel.mesh import data_world
 logger = logging.getLogger(__name__)
 
 
-def _unported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f'{option} is not ported to the PyTorch package yet '
-        f'(ROADMAP.md {item})',
-    )
-
-
 class KFACPreconditioner(BaseKFACPreconditioner):
     """K-FAC preconditioner for ``nn.Linear``/``nn.Conv2d`` layers, and
     on request ``nn.Embedding`` (diagonal A) and ``nn.LayerNorm``
@@ -300,6 +293,14 @@ WatchdogConfig` turns on the trajectory watchdog
         flight: a :class:`~kfac_pytorch_tpu_torch.observe.flight.\
 FlightConfig` installs the flight recorder (``precond.flight``), fed by
             :meth:`flight_step` (``train_loop`` feeds it itself).
+        compile_budget: the most step-variant programs this engine may
+            dispatch: attaches a
+            :class:`~kfac_pytorch_tpu_torch.analysis.retrace.RetraceGuard`
+            (``precond.retrace_guard``; ``enable_retrace_guard(budget,
+            strict)`` attaches one later), which raises
+            ``CompileBudgetError`` before the variant over the budget
+            runs.  The guard only observes: the steps are the unguarded
+            steps, bit for bit.
         factor_comm: ``'bf16_triu'`` reduces the symmetric factors of
             linear and conv2d layers as packed upper triangles summed in
             bf16 (lossy; about a quarter of the dense bytes); other
@@ -591,8 +592,6 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
                     'flight must be a FlightConfig or None, got '
                     f'{type(flight).__name__}',
                 )
-        if compile_budget is not None:
-            raise _unported('compile_budget', 'Queue A item 31')
         if mesh is not None:
             raise NotImplementedError(
                 'mesh has no counterpart in the PyTorch package: the port '
@@ -708,6 +707,7 @@ FlightConfig` installs the flight recorder (``precond.flight``), fed by
             watchdog=watchdog,
             observe=observe,
             flight=flight,
+            compile_budget=compile_budget,
             loglevel=loglevel,
         )
         # The fused path's forward and backward go through the wrapper.

@@ -225,7 +225,7 @@ def run_variants(
         F.cross_entropy(model(x), y).backward()
 
     def pre() -> None:
-        precond._precondition(precond.damping, precond.kl_clip, precond.lr)
+        precond._precondition(*precond._tail_hyperparams())
 
     def plain():
         fwd_bwd(False)
@@ -966,7 +966,7 @@ def _smoke_rank(kind: str, spec: dict) -> None:
         for name, model, p in (('sync', off_m, off_p),
                                ('pipelined', on_m, on_p)):
             fwd_bwd_of(model)()
-            p._precondition(p.damping, p.kl_clip, p.lr)
+            p._precondition(*p._tail_hyperparams())
             grads[name] = [q.grad.detach().clone()
                            for q in model.parameters()]
         detail['parity'] = {
@@ -984,7 +984,7 @@ def _smoke_rank(kind: str, spec: dict) -> None:
                 fwd_bwd_of(model)()
 
                 def pre(p=p):
-                    p._precondition(p.damping, p.kl_clip, p.lr)
+                    p._precondition(*p._tail_hyperparams())
                     torch.cuda.synchronize()
 
                 times[name] = bench_fn(pre, 5, dev)

@@ -219,9 +219,10 @@ def test_unported_options_raise(kwargs, item):
 #: ``consistency`` (item 21's first half), the watchdog (item 21b) and
 #: ``observe``/``flight`` (item 23) are ported too: a wrong config type
 #: raises ``TypeError``; so does a ``topology`` that is not a
-#: ``PodTopology`` (item 29).
+#: ``PodTopology`` (item 29).  ``compile_budget`` (item 31) attaches the
+#: retrace guard.
 PORTED = ('item 4b', 'item 13', 'item 15', 'item 16', 'item 17', 'item 18',
-          'item 29')
+          'item 29', 'item 31')
 #: The options that take a config object, and the config's class name.
 GUARDS = ('health', 'consistency', 'watchdog', 'observe', 'flight')
 
@@ -266,6 +267,11 @@ def check_ported_option(kwargs):
             path='unused.json', arm_atexit=False, arm_sigterm=False))
         precond = KFACPreconditioner(Tiny(), **{name: value})
         assert getattr(precond, name) is not None
+    elif 'compile_budget' in kwargs:
+        precond = KFACPreconditioner(Tiny(), **kwargs)
+        assert precond.retrace_guard is not None
+        assert precond.retrace_guard.budget == kwargs['compile_budget']
+        assert precond.compile_budget == kwargs['compile_budget']
     elif 'topology' in kwargs:
         from kfac_pytorch_tpu_torch import PodTopology
 

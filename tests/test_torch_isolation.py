@@ -69,9 +69,11 @@ def test_scan_finds_the_port():
                    'placement/solver.py', 'placement/apply.py',
                    '_native/__init__.py', '_native/data.py',
                    'analysis/__init__.py', 'analysis/_ast.py',
-                   'analysis/collective.py', 'scripts/__init__.py',
+                   'analysis/collective.py', 'analysis/signature.py',
+                   'analysis/retrace.py', 'analysis/contracts.py',
+                   'analysis/lint.py', 'scripts/__init__.py',
                    'scripts/_drill.py', 'scripts/fault_drill.py',
-                   'scripts/profile_step.py'):
+                   'scripts/profile_step.py', 'scripts/lint_torch.py'):
         assert port / module in files, module
 
 
@@ -164,6 +166,7 @@ def test_entry_points_load_no_jax():
         'from kfac_pytorch_tpu_torch.examples import tiny_gpt_lm\n'
         'from kfac_pytorch_tpu_torch.scripts import fault_drill\n'
         'from kfac_pytorch_tpu_torch.scripts import profile_step\n'
+        'from kfac_pytorch_tpu_torch.scripts import lint_torch\n'
         'from kfac_pytorch_tpu_torch.analysis import collective\n'
         'assert collective.lint_source("import torch\\n") == []\n'
         'cifar10_resnet.parse_args([])\n'
@@ -173,7 +176,7 @@ def test_entry_points_load_no_jax():
         'for main in (bench.main, cifar10_resnet.parse_args,\n'
         '             imagenet_resnet.parse_args, squad_bert.parse_args,\n'
         '             tiny_gpt_lm.parse_args, fault_drill.main,\n'
-        '             profile_step.main):\n'
+        '             profile_step.main, lint_torch.main):\n'
         '    with contextlib.redirect_stdout(io.StringIO()):\n'
         '        try:\n'
         '            main(["--help"])\n'

@@ -436,3 +436,80 @@ def test_flavours_on_card():
         for n, g in out['cpu'][1].items():
             err = float((out['cuda'][1][n] - g).norm() / g.norm())
             assert err <= 1e-4, (build.__name__, n, err)
+
+
+@pytest.mark.parametrize('L,gp,ap', [(9, 64, 576), (2, 256, 1152),
+                                     (3, 512, 4608)])
+def test_custom_op_compiled_matches_eager_kernel_on_card(L, gp, ap):
+    """The kernel through ``kfac_torch::fused_eigen_precond`` under
+    ``torch.compile(fullgraph=True)`` (Inductor): the eager kernel's
+    output within the gate, one counted launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    from torch import _dynamo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _inputs(L, gp, ap, 'cuda', seed=L * gp + ap)
+    lr = torch.tensor(0.1, dtype=torch.float32, device='cuda')
+
+    def tail(g, qa, qg, dgda, lr):
+        pg, clip = fused_eigen_precondition(g, qa, qg, dgda)
+        return pg, torch.sum(clip) * lr ** 2
+
+    _dynamo.reset()
+    try:
+        compiled = torch.compile(tail, fullgraph=True)
+        want = tail(*args, lr)
+        before = fused_eigen_precondition.launches
+        got = compiled(*args, lr)
+        got = compiled(*args, lr)
+        torch.cuda.synchronize()
+        assert fused_eigen_precondition.launches - before == 2
+    finally:
+        _dynamo.reset()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=1e-5)
+
+
+def test_plain_steps_have_no_host_sync_on_card():
+    """JAX's transfer-guard pin in torch: after a warm-up cycle, the
+    ``plain`` steps of a LeNet engine run under
+    ``torch.cuda.set_sync_debug_mode('error')`` (any synchronizing CUDA
+    call raises), with a per-step lr schedule, so every step makes a new
+    canonical scalar."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    import torch.nn.functional as F
+
+    import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch.models import LeNet
+
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    x = torch.randn(16, 1, 12, 12, generator=gen, device='cuda')
+    y = torch.randint(0, 10, (16,), generator=gen, device='cuda')
+    torch.manual_seed(0)
+    model = LeNet(image_size=12).cuda()
+    precond = kt.KFACPreconditioner(model, factor_update_steps=4,
+                                    inv_update_steps=8,
+                                    lr=lambda s: 0.1 / (1 + s))
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        F.cross_entropy(model(x), y).backward()
+        precond.step()
+
+    for _ in range(9):
+        step()
+    assert precond.steps % 4 == 1
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(3):  # plain steps 9, 10, 11
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    assert precond.steps == 12

@@ -624,8 +624,9 @@ def test_bad_fraction_string_and_topology_type_raise():
     with pytest.raises(ValueError, match='data world'):
         KFACPreconditioner(MLP(32, FEATURES), grad_worker_fraction='auto',
                            topology=PodTopology(ici_size=2, n_groups=2))
-    with pytest.raises(NotImplementedError, match='item 31'):
-        KFACPreconditioner(MLP(32, FEATURES), compile_budget=4)
+    # compile_budget (item 31) is ported: it attaches the retrace guard.
+    precond = KFACPreconditioner(MLP(32, FEATURES), compile_budget=4)
+    assert precond.retrace_guard.budget == 4
 
 
 # ----------------------------------------------------------------------
