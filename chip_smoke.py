@@ -455,7 +455,27 @@ gradients, within the eigen gate) and with the adaptive cadence (every
 rank decides the same), and under each strategy with
 ``pipeline_grads=True`` (every step's pipelined tail bitwise the
 synchronous tail on the same state; the asynchronous row gathers, none
-under COMM-OPT).  Phase 6 also runs the replicated engine
+under COMM-OPT).
+
+The collective audit (``kfac_pytorch_tpu_torch/analysis/audit.py``)
+adds no step: its recorder wraps the checked passes of phase 5 (every
+strategy, method and option), phase 17's HYBRID-OPT pipelined pass and
+its overlap pass, and phase 31 b's ``'auto'`` run, with DDP's gradient
+all-reduce through the audit's comm hook (DDP's default all-reduce; in
+phases 17 and 31 b every run, as their bits are compared).  Each audited
+pass prints one ``audit`` line: per program (step variant) the recorded
+bytes of each pinned class against ``ledger_for``'s rows, the wire
+dtypes, whether the schedule digests are equal on the four ranks, the
+peak memory per program and rank (each rank is one process of the four
+sharing the card), the interleaving of threads and communicators, the
+pipelined gathers' order and the ICI containment where they apply; any
+violation fails the script.  All of it is gloo on one card: nothing runs
+NCCL across cards.  Phase 9's bench line carries the prediction blocks
+(``expected``, ``expected_vs_measured``: the FLOP model's ratio at the
+timed cadence beside the measured one, a model, not a measurement), and
+a ``bench expected_vs_measured`` line repeats them.
+
+Phase 6 also runs the replicated engine
 (``bucketed=False``: eigen, eigen without prediv, inverse; no kernel
 launch; the refresh step against the bucketed engine from the same
 factors) and ``compute_factor_eig_general`` on a non-symmetric card
@@ -475,6 +495,7 @@ import json
 import math
 import os
 import queue
+import re
 import shutil
 import statistics
 import sys
@@ -1941,14 +1962,20 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
             ops.fused_eigen_precondition.launches = launches
         return all(torch.equal(got[n], w) for n, w in want.items())
 
-    def train(strategy, method='eigen', inv=10, **kfac_kw):
+    audit_reports = {}
+
+    def train(strategy, method='eigen', inv=10, audit=None, **kfac_kw):
         """``KAISA_STEPS`` steps from the seeded weights; the launches
         are counted from 0 over exactly these steps.  A pipelined run
-        holds every step against :func:`tail_check`."""
+        holds every step against :func:`tail_check`.  With ``audit`` (a
+        lane name: the checked passes) each step's collectives, forward
+        to ``step()``, are recorded (:class:`StepAudit`) and
+        ``audit_reports[audit]`` holds the rank's lane report."""
         model = kt.models.resnet32(device=dev, seed=0)
         ddp = torch.nn.parallel.DistributedDataParallel(
             model, device_ids=None if dev.index is None else [dev.index],
         )
+        recorder = None if audit is None else StepAudit(dev, ddp)
         precond = kt.KFACPreconditioner(
             ddp, factor_update_steps=1, inv_update_steps=inv, damping=0.003,
             kl_clip=0.001, lr=0.1, compute_method=method,
@@ -1965,12 +1992,16 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
         for step in range(KAISA_STEPS):
             t0 = time.perf_counter()
             opt.zero_grad()
+            if recorder is not None:
+                recorder.begin()
             loss = F.cross_entropy(ddp(xl), yl)
             loss.backward()
             if step == CHECK_STEP or pipelined:
                 run['raw'] = {n: h.get_grad().clone()
                               for n, h in precond.helpers.items()}
             precond.step()
+            if recorder is not None:
+                recorder.end(precond)
             if pipelined:
                 run['tails_equal'].append(tail_check(precond, run['raw'], {
                     n: h.get_grad() for n, h in precond.helpers.items()}))
@@ -1995,6 +2026,8 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
             run['equal'].append(all(torch.equal(flat, o) for o in every))
         run['launches'] = ops.fused_eigen_precondition.launches
         run['async_gathers'] = async_gathers[0]
+        if recorder is not None:
+            audit_reports[audit] = recorder.report(audit, precond, world)
         return run
 
     def single_rerun(precond, run, label):
@@ -2047,7 +2080,7 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
         train(strategy)
         timing['on'] = False
         times = {k: list(v) for k, v in timings.items()}
-        run = train(strategy)
+        run = train(strategy, audit=f'resnet32 {strategy.lower()}')
         precond, losses, launches = run['precond'], run['losses'], \
             run['launches']
         n_buckets = len(precond.plan.buckets)
@@ -2109,7 +2142,8 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
             torch.cuda.empty_cache()
     for strategy, method in KAISA_METHOD_RUNS:
         label = f'{strategy} {method} rank {rank}'
-        run = train(strategy, method)
+        run = train(strategy, method,
+                    audit=f'resnet32 {strategy.lower()} {method}')
         if not all(math.isfinite(v) for v in run['losses']):
             raise RuntimeError(f'{label}: non-finite loss {run["losses"]}')
         if not all(run['equal']):
@@ -2140,7 +2174,8 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
         train(strategy, factor_comm='bf16_triu')
         timing['on'] = False
         reduce_s = list(timings['factor all-reduce'])
-        run = train(strategy, factor_comm='bf16_triu')
+        run = train(strategy, factor_comm='bf16_triu',
+                    audit=f'resnet32 {strategy.lower()} bf16_triu')
         precond = run['precond']
         checked(run, label, len(precond.plan.buckets))
         worst = 0.0
@@ -2171,7 +2206,8 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
     # against one monolithic refresh, compared by their action on the
     # check step's raw gradients (eigen gate at the widest pad, 576).
     label = f'HYBRID_OPT stagger rank {rank}'
-    run = train('HYBRID_OPT', inv=4, stagger_refresh=2)
+    run = train('HYBRID_OPT', inv=4, stagger_refresh=2,
+                audit='resnet32 hybrid_opt stagger2')
     precond = run['precond']
     checked(run, label, len(precond.plan.buckets))
     want_actions = stagger_cadence(KAISA_STEPS, 4, 2)
@@ -2198,7 +2234,8 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
     label = f'HYBRID_OPT adaptive rank {rank}'
     run = train('HYBRID_OPT', inv=4, stagger_refresh=2,
                 adaptive=kt.AdaptiveRefreshConfig(
-                    threshold=0.2, staleness_factor=3, record_events=True))
+                    threshold=0.2, staleness_factor=3, record_events=True),
+                audit='resnet32 hybrid_opt adaptive')
     precond = run['precond']
     checked(run, label, len(precond.plan.buckets))
     ctl = precond.adaptive_controller
@@ -2215,7 +2252,8 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
     # column).
     for strategy in KAISA_STRATEGIES:
         label = f'{strategy} pipelined rank {rank}'
-        run = train(strategy, pipeline_grads=True)
+        run = train(strategy, pipeline_grads=True,
+                    audit=f'resnet32 {strategy.lower()} pipelined')
         precond = run['precond']
         n_buckets = len(precond.plan.buckets)
         checked(run, label, n_buckets)
@@ -2236,6 +2274,7 @@ def kaisa_rank(rank, world, backend, device_type, workdir):
             order=precond._second_order.pipeline_order,
         )
         del run, precond
+    report['audit'] = audit_reports
     torch.save(report, os.path.join(workdir, f'rank{rank}.pt'))
     dist.barrier()
     dist.destroy_process_group()
@@ -2636,6 +2675,7 @@ def phase_kaisa(torch, kt, ranks=None):
               'per-step tail check)', flush=True)
     if [s[1][0] for s in ranks[0]['MEM_OPT']['shards']] != MEM_OPT_SEGS:
         fail(f'MEM-OPT shards {ranks[0]["MEM_OPT"]["shards"]}')
+    audit_lines('phase 5', [r['audit'] for r in ranks])
     return total_launches, mem_gather_ms
 
 
@@ -2810,11 +2850,19 @@ def phase_resnet50(torch, kt):
     line = bench.run(['resnet50', 'resnet32_cifar'], DEVICE, **RN50_BENCH)
     print(f'bench (inv {RN50_BENCH["inv_steps"]}, {RN50_BENCH["cycles"]} '
           f'cycle): {json.dumps(line)}', flush=True)
+    evm = line['detail']['expected_vs_measured']
+    print('bench expected_vs_measured (expected_ratio and the MFU are the '
+          'FLOP model at the timed cadence, measured_ratio this run\'s): '
+          + json.dumps(evm), flush=True)
     for name in ('resnet50', 'resnet32_cifar'):
         d = line['detail']
         if not (d[f'{name}_sgd_ms'] > 0 and d[f'{name}_kfac_ms_amortized']
                 > 0 and math.isfinite(d[f'{name}_ratio'])):
             fail(f'bench {name}: {d}')
+        e = evm.get(name) or {}
+        if not (e.get('expected_ratio', 0) > 1 and e.get('measured_ratio')
+                == d[f'{name}_ratio']):
+            fail(f'bench {name}: expected_vs_measured {e}')
     return launches
 
 
@@ -3966,6 +4014,7 @@ def pipeline_rank(rank, world, backend, device_type, workdir, image, batch,
     import torch.nn.functional as F
 
     import kfac_pytorch_tpu_torch as kt
+    from kfac_pytorch_tpu_torch.analysis.audit import grad_sync_hook
 
     if device_type == 'cuda':
         dev = torch.device(
@@ -4000,11 +4049,17 @@ def pipeline_rank(rank, world, backend, device_type, workdir, image, batch,
         """Exact and order-free: the int64 sum of the f32 bit patterns."""
         return flat.view(torch.int32).to(torch.int64).sum()
 
-    def run(strategy, hp, ref=None, steps=RN50_PIPE_STEPS, **kfac_kw):
+    def run(strategy, hp, ref=None, steps=RN50_PIPE_STEPS, audit=None,
+            **kfac_kw):
         model = getattr(kt.models, model_name[0])(device=dev, seed=0)
         ddp = torch.nn.parallel.DistributedDataParallel(
             model, device_ids=None if dev.index is None else [dev.index],
         )
+        # Every run through the audit's comm hook (DDP's default
+        # all-reduce): the pipelined run's bits are held to the
+        # synchronous one's.
+        ddp.register_comm_hook(None, grad_sync_hook)
+        recorder = None if audit is None else StepAudit(dev)
         precond = kt.KFACPreconditioner(
             ddp, grad_worker_fraction=kt.DistributedStrategy[strategy],
             **hp, **kfac_kw)
@@ -4027,9 +4082,13 @@ def pipeline_rank(rank, world, backend, device_type, workdir, image, batch,
         for step in range(steps):
             t0 = time.perf_counter()
             opt.zero_grad()
+            if recorder is not None:
+                recorder.begin()
             loss = F.cross_entropy(ddp(xl), yl)
             loss.backward()
             precond.step()
+            if recorder is not None:
+                recorder.end(precond)
             grads = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
             opt.step()
             sync(dev)
@@ -4061,16 +4120,20 @@ def pipeline_rank(rank, world, backend, device_type, workdir, image, batch,
         out['shards'] = [tuple(precond.buckets[b.key].qa.shape[:1])
                          + (b.g_pad, b.a_pad) for b in precond.plan.buckets]
         out['order'] = precond._second_order.pipeline_order
+        if recorder is not None:
+            audits[audit] = recorder.report(audit, precond, world)
         del precond, ddp, model, opt, every
         return out
 
-    report = {}
+    report, audits = {}, {}
     keep = ('step_s', 'losses', 'pending', 'actions', 'mismatch',
             'ranks_equal', 'launches', 'final_equal', 'tail_s',
             'n_buckets', 'grid', 'shards', 'order')
     for strategy in RN50_PIPE_STRATEGIES:
         ref = run(strategy, RN50_HP)
-        pipe = run(strategy, RN50_HP, ref=ref, pipeline_grads=True)
+        pipe = run(strategy, RN50_HP, ref=ref, pipeline_grads=True,
+                   audit=('resnet50 hybrid_opt pipelined'
+                          if strategy == 'HYBRID_OPT' else None))
         report[strategy] = {
             'sync': {k: ref[k] for k in keep},
             'pipe': {k: pipe[k] for k in keep},
@@ -4080,8 +4143,10 @@ def pipeline_rank(rank, world, backend, device_type, workdir, image, batch,
             torch.cuda.empty_cache()
     both = run('HYBRID_OPT', RN50_PIPE_OVERLAP_HP,
                steps=RN50_PIPE_OVERLAP_STEPS, overlap_comm=True,
-               pipeline_grads=True)
+               pipeline_grads=True,
+               audit='resnet50 hybrid_opt overlap+pipelined')
     report['overlap'] = {k: both[k] for k in keep}
+    report['audit'] = audits
     del both
     torch.save(report, os.path.join(workdir, f'pipe{rank}.pt'))
     dist.barrier()
@@ -4182,6 +4247,7 @@ def phase_resnet50_pipelined(torch, kt, ranks=None):
           f'pending decisions {runs[0]["pending"]} identical on every rank; '
           f'mean loss {losses[0]:.6f} -> {losses[-1]:.6f}; median step '
           f'{step_ms:.4f} ms', flush=True)
+    audit_lines('phase 17', [r['audit'] for r in ranks])
     cases = [tuple(c) for c in ranks[0]['HYBRID_OPT']['pipe']['shards']]
     entry = bucket_entry(torch, kt.ops.fused_eigen_precondition,
                          kt.ops.fused_eigen_precondition_reference,
@@ -6503,68 +6569,84 @@ RT_REF_STEPS = 4  # rank 3's last snapshot holds steps 1-4
 RT_KILL_AFTER = 4  # rank 3 dies once gen-4 is committed
 RT_TIMEOUT_S = 240
 RT_LEDGER_HP = dict(RT_HP, factor_update_steps=2, inv_update_steps=100)
-#: The ledger row each collective of the port counts under: the
-#: innermost caller of these names.
-LEDGER_LABELS = {
-    'all_reduce_mean': 'factor_allreduce',
-    'all_reduce_sum_triu': 'factor_allreduce',
-    'all_gather_decompositions': 'inverse_row_allgather',
-    'all_gather_preconditioned': 'grad_col_allgather',
-    'all_gather_preconditioned_async': 'grad_col_allgather',
-    'curvature_stats': 'observe_extremes',
-}
+#: Where the audited passes' collectives run (phases 5, 17, 31 b).
+AUDIT_BACKEND = ('gloo, four ranks sharing one card: nothing here runs '
+                 'NCCL across cards')
 
 
-class CollectiveBytes:
-    """Wraps ``torch.distributed``'s collectives: each call's result bytes
-    (an all-reduce's buffer, an all-gather's output) under the ledger
-    phase of the ``parallel/collectives.py`` function (or monitor) that
-    issued it (:data:`LEDGER_LABELS`), and with ``scope_of`` under the
-    link class of its group too (phase 31)."""
+class StepAudit:
+    """The collective audit's recorder
+    (:class:`kfac_pytorch_tpu_torch.analysis.audit.CollectiveRecorder`,
+    the port's one recorder) around a rank's steps: ``begin()`` before
+    the step's forward (or its ``step()``), ``end(precond)`` after
+    ``step()`` files the window under the engine's step variant (the
+    first step as ``bootstrap``, DDP's first bucket order).  With ``ddp``
+    its gradient all-reduce runs through the audit's comm hook (DDP's
+    default all-reduce, recorded as ``grad_sync``); on CUDA each window's
+    peak memory is read.  :meth:`report` closes it and returns the
+    rank's lane report."""
 
-    def __init__(self, dist, scope_of=None) -> None:
-        self.dist, self.counts, self.saved = dist, {}, {}
-        # With ``scope_of`` (a topology's): the labelled bytes by the
-        # link class of the group each collective ran on.
-        self.scope_of, self.scoped = scope_of, {}
-        for name in ('all_reduce', 'all_gather_into_tensor', 'all_gather',
-                     'broadcast'):
-            self.saved[name] = getattr(dist, name)
-            setattr(dist, name, self._wrap(self.saved[name]))
+    def __init__(self, dev, ddp=None) -> None:
+        from kfac_pytorch_tpu_torch.analysis import audit
 
-    def _wrap(self, fn):
-        def wrapped(*args, **kw):
-            out = args[0]
-            nbytes = (sum(t.numel() * t.element_size() for t in out)
-                      if isinstance(out, list)
-                      else out.numel() * out.element_size())
-            frame, label = sys._getframe(1), 'other'
-            while frame is not None:
-                if frame.f_code.co_name in LEDGER_LABELS:
-                    label = LEDGER_LABELS[frame.f_code.co_name]
-                    break
-                frame = frame.f_back
-            self.counts[label] = self.counts.get(label, 0) + nbytes
-            if self.scope_of is not None and label != 'other':
-                group = kw.get('group')
-                ranks = (range(self.dist.get_world_size()) if group is None
-                         else self.dist.get_process_group_ranks(group))
-                scope = self.scope_of(ranks)
-                self.scoped[scope] = self.scoped.get(scope, 0) + nbytes
-            return fn(*args, **kw)
-        return wrapped
+        self.audit = audit
+        self.rec = audit.CollectiveRecorder().__enter__()
+        if ddp is not None:
+            self.rec.hook(ddp)
+        self.dev = dev if dev.type == 'cuda' else None
+        self.steps = 0
 
-    def take(self) -> dict:
-        out, self.counts = self.counts, {}
-        return out
+    def begin(self) -> None:
+        self.rec.begin(self.dev)
 
-    def take_scoped(self) -> dict:
-        out, self.scoped = self.scoped, {}
-        return out
+    def end(self, precond) -> dict:
+        variant = precond._last_variant
+        prog = self.rec.end('bootstrap' if self.steps == 0 else variant,
+                            variant)
+        self.steps += 1
+        return prog
 
     def close(self) -> None:
-        for name, fn in self.saved.items():
-            setattr(self.dist, name, fn)
+        self.rec.__exit__()
+
+    def report(self, lane, precond, world) -> dict:
+        self.close()
+        return self.audit.lane_report(lane, precond, self.rec, world)
+
+
+def bytes_by_phase(calls) -> dict:
+    """Result bytes of recorded calls by ledger phase (the decomposition
+    gather under ``inverse_row_allgather``; compute markers, DDP's
+    ``grad_sync`` and unlabelled calls left out)."""
+    from kfac_pytorch_tpu_torch.analysis.audit import LEDGER_PHASE
+
+    out = {}
+    for c in calls:
+        if c.op == 'marker' or c.cls in ('grad_sync', 'other'):
+            continue
+        phase = LEDGER_PHASE.get(c.cls, c.cls)
+        out[phase] = out.get(phase, 0) + c.nbytes
+    return out
+
+
+def audit_lines(label, per_rank) -> None:
+    """Merge the ranks' lane reports (``per_rank[r]``: lane -> report),
+    print one ``audit`` line a lane (recorded bytes against the ledger per
+    program and class, wire dtypes, digests across the ranks, peak memory
+    per program and rank, interleavings) and fail on a violation."""
+    from kfac_pytorch_tpu_torch.analysis import audit
+
+    payload = audit.merge_rank_reports(per_rank, pins=False)
+    for lane, lp in payload['lanes'].items():
+        mine = re.compile(rf'(rank \d+: )?{re.escape(lane)}[/:]')
+        print(f'audit {label} {lane}: ' + json.dumps(dict(
+            audit.lane_summary(lp), world=len(per_rank),
+            backend=AUDIT_BACKEND,
+            memory_note='peak per process (the ranks share the card)',
+            violations=[v for v in payload['violations']
+                        if mine.match(v)])), flush=True)
+    if payload['violations']:
+        fail(f'audit {label}: {payload["violations"][:5]}')
 
 
 def rt_device(torch, device_type, rank=0, backend='gloo'):
@@ -6615,16 +6697,16 @@ def rt_ledger_check(torch, kt, dev, rank):
         torch, kt, dev, rank, RT_LEDGER_HP,
         observe=ObserveConfig(monitor=True, annotate=False))
     rows = [dataclasses.asdict(r) for r in costs.ledger_for(precond)]
-    counter = CollectiveBytes(dist)
+    counter = StepAudit(dev)
     out = []
     try:
         for t in range(3):
             ddp.zero_grad()
             F.cross_entropy(ddp(x), y).backward()
             factor = precond._step_gating()[0]
-            counter.take()
+            counter.begin()
             precond.step()
-            moved = counter.take()
+            moved = bytes_by_phase(counter.end(precond)['calls'])
             if t == 0:
                 continue
             fired = {'step'} | ({'factor_step'} if factor else set())
@@ -8574,6 +8656,7 @@ def placement_rank(rank, world, backend, device_type, workdir, image, batch,
 
     import kfac_pytorch_tpu_torch as kt
     from kfac_pytorch_tpu_torch import _native
+    from kfac_pytorch_tpu_torch.analysis.audit import grad_sync_hook
     from kfac_pytorch_tpu_torch.observe import costs
     from kfac_pytorch_tpu_torch.placement import apply
     from kfac_pytorch_tpu_torch.placement import solver
@@ -8595,11 +8678,23 @@ def placement_rank(rank, world, backend, device_type, workdir, image, batch,
     def checksum(flat):
         return int(flat.view(torch.int32).to(torch.int64).sum())
 
-    def run(fraction, counter=None):
+    def by_scope(calls):
+        """The ledger phases' bytes by the link class of their groups."""
+        out = {}
+        for c in calls:
+            if c.op != 'marker' and c.cls not in ('grad_sync', 'other'):
+                scope = topo.scope_of(c.ranks)
+                out[scope] = out.get(scope, 0) + c.nbytes
+        return out
+
+    def run(fraction, audited=False):
         model = getattr(kt.models, model_name[0])(
             num_classes=model_name[1], device=dev, seed=0)
         ddp = torch.nn.parallel.DistributedDataParallel(
             model, device_ids=None if dev.index is None else [dev.index])
+        # Both runs through the audit's comm hook (DDP's default
+        # all-reduce): their bits are compared.
+        ddp.register_comm_hook(None, grad_sync_hook)
         calls = _native.calls
         precond = kt.KFACPreconditioner(
             ddp, grad_worker_fraction=fraction,
@@ -8608,19 +8703,21 @@ def placement_rank(rank, world, backend, device_type, workdir, image, batch,
                    moved=[], grid=(precond.grid.rows, precond.grid.cols))
         opt = torch.optim.SGD(model.parameters(), lr=PLACE_HP['lr'],
                               momentum=0.9)
+        counter = StepAudit(dev) if audited else None
         fused.launches = 0
         for _ in range(PLACE_STEPS):
             opt.zero_grad()
+            if counter is not None:
+                counter.begin()
             loss = F.cross_entropy(ddp(xl), yl)
             loss.backward()
             gating = precond._step_gating()
-            if counter is not None:
-                counter.take(), counter.take_scoped()
             precond.step()
             if counter is not None:
+                window = counter.end(precond)['calls']
                 out['moved'].append(dict(
-                    gating=gating, by_phase=counter.take(),
-                    by_scope=counter.take_scoped()))
+                    gating=gating, by_phase=bytes_by_phase(window),
+                    by_scope=by_scope(window)))
             opt.step()
             out['losses'].append(float(loss.detach()))
             out['sums'].append(checksum(torch.cat(
@@ -8632,13 +8729,12 @@ def placement_rank(rank, world, backend, device_type, workdir, image, batch,
                                for b in precond.plan.buckets)
         out['shards'] = [tuple(precond.buckets[b.key].qa.shape[:1])
                          + (b.g_pad, b.a_pad) for b in precond.plan.buckets]
+        if counter is not None:
+            out['audit'] = {'resnet50 auto': counter.report(
+                'resnet50 auto', precond, world)}
         return out, precond, model, ddp, opt
 
-    counter = CollectiveBytes(dist, scope_of=topo.scope_of)
-    try:
-        auto, precond, *rest = run('auto', counter)
-    finally:
-        counter.close()
+    auto, precond, *rest = run('auto', audited=True)
     plan = precond.placement_plan
     payload = json.dumps(apply.plan_payload(plan), sort_keys=True)
     digest = hashlib.sha256(payload.encode()).digest()
@@ -8745,6 +8841,7 @@ def phase_resnet50_placement(torch, kt, ranks=None):
     losses = [statistics.fmean(v) for v in zip(*(r['losses'] for r in ranks))]
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         fail(f'{label}: mean losses {losses}')
+    audit_lines('phase 31b', [r['audit'] for r in ranks])
     payload = json.loads(r0['payload'])
     if apply.validate_plan_payload(payload):
         fail(f'{label}: {apply.validate_plan_payload(payload)}')

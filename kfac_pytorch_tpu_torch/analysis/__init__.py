@@ -19,13 +19,22 @@
   rank-divergence lint over ``torch.distributed`` call sites, with
   reasoned ``# spmd:`` pragmas.
 
+* **collective audit** (:mod:`~kfac_pytorch_tpu_torch.analysis.audit`,
+  the counterpart of JAX's ``hlo`` and ``audit``): every collective of
+  each step variant recorded on gloo ranks, held to the comm ledger byte
+  for byte per class, with the wire dtypes, the schedule digests across
+  ranks and JAX's schedule pins, the interleaving of threads and
+  communicators, placement containment and peak memory.  JAX's donation
+  audit and HLO brackets have no counterpart (eager calls).
+
 CLI: ``python -m kfac_pytorch_tpu_torch.scripts.lint_torch`` (``--check``
-/ ``--contracts`` / ``--spmd`` / ``--list-rules``).  JAX's compiled-HLO
-audit (``hlo``, ``audit``) and sharding contracts (``sharding``) read
-XLA programs and have no counterpart here.
+/ ``--contracts`` / ``--spmd`` / ``--list-rules`` / ``--comm-audit`` /
+``--comm-audit-validate``).  JAX's sharding contracts (``sharding``)
+read GSPMD layouts and have no counterpart here: the port has none.
 """
 from __future__ import annotations
 
+from kfac_pytorch_tpu_torch.analysis import audit
 from kfac_pytorch_tpu_torch.analysis import collective
 from kfac_pytorch_tpu_torch.analysis import contracts
 from kfac_pytorch_tpu_torch.analysis import lint
@@ -48,6 +57,7 @@ __all__ = [
     'RetraceGuard',
     'abstract_signature',
     'attach_guard',
+    'audit',
     'collective',
     'contracts',
     'diff_signatures',

@@ -237,14 +237,19 @@ class _InlineRefresh:
     """``overlap.DeferredRefresh`` run at once in the calling thread."""
 
     def __init__(self, fn: Callable[[], Any], device: Any,
-                 stream: Any = None) -> None:
+                 stream: Any = None,
+                 finish: Callable[[Any], Any] | None = None) -> None:
         with torch.no_grad():
             self._result = fn()
+        self._finish = finish
 
     def join(self) -> None:
         pass
 
     def wait(self) -> Any:
+        if self._finish is not None:
+            with torch.no_grad():
+                self._result, self._finish = self._finish(self._result), None
         return self._result
 
 

@@ -766,14 +766,17 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
         bootstrap: bool = False,
         sketch_step: int = 0,
         health_stats: dict | None = None,
-    ) -> tuple[dict, dict]:
+        defer_gather: bool = False,
+    ) -> tuple[dict, Any]:
         """``(diagonal-A fields by layer, bucket stacks)`` of a refresh
         from ``layers``' factor EMAs and the ``prev`` stacks (the
         monolithic refresh, or stagger shard ``shard``), built into new
         objects: nothing of ``self`` is read or written but the plan and
         the method.  Under health ``health_stats`` receives the refresh's
         counters (``BucketedSecondOrder.compute``), the diagonal-A
-        layers' retries and fallbacks added."""
+        layers' retries and fallbacks added.  With ``defer_gather`` the
+        stacks are a :class:`~kfac_pytorch_tpu_torch.parallel.\
+second_order.PendingGather` whose call runs the column gather."""
         diag = {}
         guard = {} if health_stats is None else {
             'health_stats': health_stats}
@@ -785,7 +788,7 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
             bucket_stats = {}
             buckets = self._second_order.compute(
                 layers, damping, prev=prev, bootstrap=bootstrap,
-                sketch_step=sketch_step,
+                sketch_step=sketch_step, defer_gather=defer_gather,
                 **({} if health_stats is None else {
                     'health_stats': bucket_stats}),
             )
@@ -799,7 +802,7 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
                 health_stats.update(bucket_stats)
         else:
             buckets = self._second_order.compute_shard(
-                layers, damping, shard, prev,
+                layers, damping, shard, prev, defer_gather=defer_gather,
             )
         return diag, buckets
 
@@ -821,7 +824,14 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
         reads the ones this step left), and the new state is built on a
         worker thread, on the side stream on CUDA.  A deferred monolithic
         refresh is never the bootstrap, so the iterative method runs it
-        at warm depth."""
+        at warm depth.
+
+        The worker decomposes this rank's shares only; the column gather
+        runs in :meth:`DeferredRefresh.wait`, on the thread that collects
+        (the main thread at the collect point), so every rank issues it
+        at the same place in its own sequence of collectives (NCCL
+        launches the kernels of different communicators in one order on
+        every rank; from the worker it raced DDP's all-reduce)."""
         layers = {
             name: LayerKFACState(a_factor=st.a_factor, g_factor=st.g_factor)
             for name, st in self.layers.items()
@@ -839,9 +849,16 @@ tree_all_finite`) over the gradients, ``extra`` (the averaged factor
 
         def run():
             with self._scope(name):
-                return self._refresh_state(*args)
+                # health_stats None (no health under overlap_comm), the
+                # gather deferred to the collect point.
+                return self._refresh_state(*args, None, True)
 
-        return DeferredRefresh(run, self.device, stream)
+        def gather(state):
+            diag, pending = state
+            with self._scope(name):
+                return diag, pending()
+
+        return DeferredRefresh(run, self.device, stream, finish=gather)
 
     def _stagger_shard_empty(self, shard: int) -> bool:
         """Whether a stagger shard holds nothing to refresh (shard 0 is

@@ -102,12 +102,27 @@ of the card's dense BF16 peak from NVIDIA's data sheet
 an unknown card, or the CPU, gives ``null`` beside its name).  The
 configurations' ``*_sgd_gflops_per_step`` and
 ``*_kfac_plain_gflops_per_step`` are the counts.
+
+The line also carries the JAX bench's prediction blocks
+(``bench.py:756-1423``), each a model and marked ``'kind': 'model'``:
+``detail['expected']`` (:func:`compute_expected`: the SGD FLOPs counted
+on fake tensors as XLA's cost analysis counts them, the registered
+layers' dims, and :func:`predict_ratio` per JAX variant),
+``detail['kaisa_scaling']`` (:func:`predict_kaisa_scaling`, the
+comm-aware :func:`predict_comm_aware_scaling` at one link rate, and
+:func:`comm_model_2level`: 4 nodes of 8 cards, NVLink inside a node,
+InfiniBand between) and ``detail['expected_vs_measured']`` (per measured
+configuration, the model's ratio at the cadence the run timed beside the
+measured one).  The rates are arguments; their defaults are the H100 SXM5
+data sheet's (989 TFLOP/s dense BF16 at 700 W, 450 GB/s NVLink and 50
+GB/s InfiniBand a GPU) at JAX's achieved share of 0.30, never a TPU's.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import re
 import time
 from typing import Any, Callable, Sequence
 
@@ -665,9 +680,489 @@ STAGES: dict[str, Callable[..., dict]] = {
 }
 
 
-def result_line(results: dict[str, dict | None], env: dict) -> dict:
+# ---------------------------------------------------------------------------
+# Predictions (the JAX bench's ``bench.py:756-1423``): models, not
+# measurements.  Every number of these blocks is arithmetic on counted
+# FLOPs and ledger bytes at declared rates.
+# ---------------------------------------------------------------------------
+
+#: Operation counts of the decompositions (JAX ``FLOP_MODEL``): ``eigh``
+#: ~9 n^3, the Cholesky damped inverse ~1 n^3, a randomized range finder
+#: pass 2 n^2 l.
+FLOP_MODEL = {
+    'eigh_n3': 9.0,
+    'cholesky_inv_n3': 1.0,
+    'lowrank_pass_coeff': 2.0,
+}
+#: The achieved share of the peak converting model FLOPs to seconds in
+#: the comm-aware models (JAX ``ASSUMED_MFU``).
+ASSUMED_MFU = 0.30
+#: The card the defaults describe: its dense BF16 peak
+#: (:data:`BF16_PEAK_TFLOPS`) and the per-GPU link rates of
+#: :class:`~kfac_pytorch_tpu_torch.placement.PodTopology` (NVLink 450
+#: GB/s inside a node, InfiniBand 50 GB/s between nodes; data sheets).
+DEFAULT_CARD = 'NVIDIA H100 80GB HBM3'
+NVLINK_GBYTES_PER_S = 450.0
+INFINIBAND_GBYTES_PER_S = 50.0
+#: The port's configuration -> the JAX bench's variant of the same run.
+VARIANT_OF = {
+    'resnet50': 'headline_rn50_imagenet',
+    'secondary_rn50_inverse': 'secondary_rn50_inverse',
+    'resnet50_lowrank512': 'secondary_rn50_lowrank512',
+    'resnet50_ekfac': 'secondary_rn50_ekfac',
+    'resnet32_cifar': 'secondary_rn32_cifar',
+    'micro_mlp': 'micro_mlp',
+}
+
+
+def _fake_mode():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return FakeTensorMode()
+
+
+def _model_builder(name: str) -> Callable[[], torch.nn.Module]:
+    """A builder of the bench model ``name`` (``'resnet50'``,
+    ``'resnet32'``, ``'mlp'``) that allocates nothing outside a fake
+    mode (the class constructors, no ``.to(device)``)."""
+    if name == 'resnet50':
+        from kfac_pytorch_tpu_torch.models.resnet import ResNet
+
+        return lambda: ResNet((3, 4, 6, 3), num_classes=1000)
+    if name == 'resnet32':
+        from kfac_pytorch_tpu_torch.models.cifar_resnet import CifarResNet
+
+        return lambda: CifarResNet((5, 5, 5), num_classes=10)
+    if name == 'mlp':
+        return lambda: models.MLP(MICRO_MLP['width'], MICRO_MLP['features'])
+    raise ValueError(f'no bench model {name!r}')
+
+
+def registration_dims(
+    model: torch.nn.Module | Callable[[], torch.nn.Module],
+    example_shape: Sequence[int],
+    **kfac_kw: Any,
+) -> list[tuple[int, int, int]]:
+    """Per registered layer, in registration order, ``(a_dim, g_dim,
+    rows_per_example)`` (JAX ``_registration_dims``): the factor sides and
+    the covariance rows one example gives (output positions for a conv, 1
+    for a dense layer on ``[1, features]``).
+
+    ``model`` is a module builder (or a module whose parameters are fake
+    or on ``meta``); it is built and registered by a
+    :class:`~kfac_pytorch_tpu_torch.preconditioner.KFACPreconditioner`
+    under ``FakeTensorMode`` and run once on a fake ``example_shape``
+    input: nothing is computed or allocated."""
+    dims: dict[str, tuple[int, int, int]] = {}
+    with _fake_mode():
+        module = model() if not isinstance(model, torch.nn.Module) else model
+        precond = KFACPreconditioner(module, **kfac_kw)
+        handles = []
+        for name, helper in precond.helpers.items():
+            a = helper.a_factor_shape[0]
+            g = helper.g_factor_shape[0]
+
+            def hook(mod, args, out, name=name, a=a, g=g):
+                # g output features (a conv's channels): the rest of
+                # the output are its rows.
+                dims[name] = (a, g, out.numel() // g)
+            handles.append(helper.module.register_forward_hook(hook))
+        try:
+            module(torch.empty(tuple(example_shape)))
+        finally:
+            for h in handles:
+                h.remove()
+    return [dims[name] for name in precond.helpers]
+
+
+def sgd_step_flops(name: str, batch: int, image: int | None = None) -> float:
+    """Counted FLOPs of one SGD step of the bench model ``name`` at
+    ``batch`` (forward, cross entropy, backward, the update), on fake
+    tensors, by :func:`~kfac_pytorch_tpu_torch.observe.costs.\
+compiled_costs` with ``count='all'`` (XLA's cost-analysis model: only
+    the convolution taps that meet the input, and the elementwise work)."""
+    with _fake_mode():
+        module = _model_builder(name)()
+        shape = ((batch, 3, image, image) if image is not None
+                 else (batch, MICRO_MLP['width']))
+        x = torch.empty(shape)
+        y = torch.zeros(batch, dtype=torch.long)
+        opt = torch.optim.SGD(module.parameters(), lr=0.1)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            F.cross_entropy(module(x), y).backward()
+            opt.step()
+        return compiled_costs(step, count='all')['flops']
+
+
+def predict_ratio(sgd_flops, dims, factor_steps, inv_steps,
+                  method='eigen', lowrank_rank=None, lowrank_oversample=32,
+                  lowrank_power_iters=2, ekfac=False, batch=1):
+    """Predicted K-FAC/SGD step-time ratio of one variant (JAX
+    ``predict_ratio``, the same formula): amortized K-FAC FLOPs are the
+    SGD FLOPs, the per-step rotations, the factor updates over
+    ``factor_steps`` and the decompositions over ``inv_steps``, at equal
+    achieved FLOP/s."""
+    from kfac_pytorch_tpu_torch.ops.lowrank import lowrank_engages
+
+    em = FLOP_MODEL
+    pre = fac = inv = 0.0
+    for a, g, rows in dims:
+        n_rows = rows * batch
+        fac += 2.0 * n_rows * (a * a + g * g)
+        if ekfac:
+            fac += 2.0 * n_rows * (a * a + g * g)
+        if method == 'inverse':
+            pre += 2.0 * (g * g * a + g * a * a)
+            inv += em['cholesky_inv_n3'] * (a ** 3 + g ** 3)
+        elif lowrank_rank is not None:
+            eng_a = lowrank_engages(a, lowrank_rank, lowrank_oversample)
+            eng_g = lowrank_engages(g, lowrank_rank, lowrank_oversample)
+            la = lowrank_rank if eng_a else a
+            lg = lowrank_rank if eng_g else g
+            pre += 2.0 * (lg * g * a + lg * a * la
+                          + g * lg * la + g * la * a)
+            passes = 2 * lowrank_power_iters + 2
+            for n, eng in ((a, eng_a), (g, eng_g)):
+                if eng:
+                    sk = lowrank_rank + lowrank_oversample
+                    inv += (em['lowrank_pass_coeff'] * passes * n * n * sk
+                            + em['eigh_n3'] * sk ** 3)
+                else:
+                    inv += em['eigh_n3'] * n ** 3
+        else:
+            pre += 4.0 * (g * g * a + g * a * a)
+            inv += em['eigh_n3'] * (a ** 3 + g ** 3)
+    kfac_flops = sgd_flops + pre + fac / factor_steps + inv / inv_steps
+    return {
+        'expected_ratio': round(kfac_flops / sgd_flops, 4),
+        'kfac_flops_per_step_amortized': kfac_flops,
+        'precondition_flops': pre,
+        'factor_flops_per_update': fac,
+        'decomp_flops_per_update': inv,
+    }
+
+
+def predict_kaisa_scaling(sgd_flops, dims, factor_steps, inv_steps,
+                          batch, world_sizes=(1, 2, 4, 8, 16, 32),
+                          method='eigen'):
+    """Per-device K-FAC/SGD ratio against the world size per strategy
+    under weak scaling (JAX ``predict_kaisa_scaling``): the decompositions
+    spread over the world, the rotations over the ``1/f`` columns, the
+    factor updates stay per device; no communication."""
+    comp = predict_ratio(sgd_flops, dims, factor_steps, inv_steps,
+                         method=method, batch=batch)
+    pre = comp['precondition_flops']
+    fac = comp['factor_flops_per_update']
+    inv = comp['decomp_flops_per_update']
+    out = {}
+    for w in world_sizes:
+        strategies = {'comm_opt': 1.0}
+        if w > 1:
+            strategies['mem_opt'] = 1.0 / w
+        if w >= 4:
+            strategies['hybrid_opt'] = 0.5
+        row = {}
+        for name, frac in strategies.items():
+            n_cols = max(1, round(1.0 / frac)) if w > 1 else 1
+            n_cols = min(n_cols, w)
+            per_device = (sgd_flops + pre / n_cols + fac / factor_steps
+                          + inv / (w * inv_steps))
+            row[name] = round(per_device / sgd_flops, 4)
+        out[f'world_{w}'] = row
+    return out
+
+
+def predict_comm_aware_scaling(sgd_flops, dims, factor_steps, inv_steps,
+                               batch, world_sizes=(2, 4, 8, 16, 32),
+                               method='eigen', topology=None, *,
+                               peak_tflops=None, assumed_mfu=ASSUMED_MFU,
+                               link_gbytes_per_s=NVLINK_GBYTES_PER_S):
+    """:func:`predict_kaisa_scaling` with each strategy's amortized wire
+    bytes (the port's ``observe/costs.comm_ledger`` at each grid) priced
+    at ``link_gbytes_per_s`` (flat) or, with a ``topology`` template,
+    through each row's slowest link on ``topology.with_world(w)``, plus the
+    placement solver's fraction as an ``auto`` row (JAX
+    ``predict_comm_aware_scaling``, the same formula and fields).  Model
+    FLOPs become seconds at ``peak_tflops`` (default the H100's dense BF16
+    peak) times ``assumed_mfu``; the SGD side pays its own gradient ring
+    all-reduce."""
+    from kfac_pytorch_tpu_torch.observe.costs import (
+        amortized_bytes_per_step,
+        cadence_events_per_step,
+        comm_ledger,
+        ring_allreduce_bytes,
+    )
+    from kfac_pytorch_tpu_torch.parallel.mesh import grid_shape
+    from kfac_pytorch_tpu_torch.placement.solver import (
+        PlacementProblem,
+        auto_placement,
+        bucket_shapes_for,
+    )
+
+    if peak_tflops is None:
+        peak_tflops = BF16_PEAK_TFLOPS[DEFAULT_CARD]
+    comp = predict_ratio(sgd_flops, dims, factor_steps, inv_steps,
+                         method=method, batch=batch)
+    pre = comp['precondition_flops']
+    fac = comp['factor_flops_per_update']
+    inv = comp['decomp_flops_per_update']
+    flops_per_s = peak_tflops * 1e12 * assumed_mfu
+    bytes_per_s = link_gbytes_per_s * 1e9
+    layer_dims = [(a, g) for a, g, _ in dims]
+    grad_bytes = sum(a * g * 4 for a, g in layer_dims)
+
+    def amortized_comm_s(ledger, topo):
+        if topo is None:
+            return amortized_bytes_per_step(
+                ledger, factor_steps, inv_steps) / bytes_per_s
+        total = 0.0
+        for lrow in ledger:
+            events = cadence_events_per_step(lrow.cadence, factor_steps,
+                                             inv_steps)
+            if not events:
+                continue
+            total += (lrow.bytes_per_device * events
+                      / topo.bandwidth(lrow.scope))
+        return total
+
+    def strategy_ratio(w, frac, topo, sgd_s):
+        rows_, cols = grid_shape(w, frac)
+        ledger = comm_ledger(bucket_shapes_for(layer_dims, cols), layer_dims,
+                             rows_, cols, compute_method=method,
+                             topology=topo)
+        kfac_comm_s = amortized_comm_s(ledger, topo)
+        kfac_flops = pre / cols + fac / factor_steps + inv / (w * inv_steps)
+        total = sgd_s + kfac_flops / flops_per_s + kfac_comm_s
+        return total / sgd_s, {
+            'ratio': round(total / sgd_s, 4),
+            'kfac_comm_ms': round(kfac_comm_s * 1e3, 4),
+            'comm_fraction_of_overhead': round(
+                kfac_comm_s / (kfac_flops / flops_per_s + kfac_comm_s), 4),
+        }
+
+    out: dict[str, Any] = {}
+    crossover = None
+    diverged_worlds: list[int] = []
+    auto_wins: list[int] = []
+    for w in world_sizes:
+        topo = None if topology is None else topology.with_world(w)
+        strategies = {'comm_opt': 1.0, 'mem_opt': 1.0 / w}
+        if w >= 4:
+            strategies['hybrid_opt'] = 0.5
+        sgd_wire = ring_allreduce_bytes(grad_bytes, w)
+        sgd_bw = (bytes_per_s if topo is None
+                  else topo.bandwidth(topo.scope_of(range(w))))
+        sgd_s = sgd_flops / flops_per_s + sgd_wire / sgd_bw
+        row: dict[str, Any] = {}
+        raw: dict[str, float] = {}
+        for name, frac in strategies.items():
+            raw[name], row[name] = strategy_ratio(w, frac, topo, sgd_s)
+        if topo is not None:
+            plan = auto_placement(
+                PlacementProblem(
+                    layer_names=tuple(f'l{i}' for i in range(len(layer_dims))),
+                    layer_dims=tuple(layer_dims), world=w,
+                    factor_update_steps=factor_steps,
+                    inv_update_steps=inv_steps, compute_method=method,
+                    flops_per_second=flops_per_s,
+                ),
+                topo,
+            )
+            auto_raw, auto_row = strategy_ratio(w, plan.fraction, topo, sgd_s)
+            row['auto'] = {**auto_row, 'fraction': plan.fraction,
+                           'grid': f'{plan.grad_workers}x{plan.n_cols}',
+                           'strategy': plan.strategy}
+            if plan.strategy == 'auto':
+                diverged_worlds.append(w)
+            if auto_raw < min(raw.values()):
+                auto_wins.append(w)
+        if crossover is None and (row['comm_opt']['ratio']
+                                  < row['mem_opt']['ratio']):
+            crossover = w
+        out[f'world_{w}'] = row
+    out['crossover'] = {
+        'comm_beats_mem_at_world': crossover,
+        'note': ('smallest modeled world where COMM-OPT beats MEM-OPT end '
+                 'to end; null = MEM-OPT wins everywhere modeled at '
+                 f'{link_gbytes_per_s:g} GB/s'),
+    }
+    if topology is not None:
+        out['planner'] = {
+            'topology_template': topology.describe(),
+            'diverges_from_named_at_worlds': diverged_worlds,
+            'auto_beats_all_fixed_at_worlds': auto_wins,
+            'note': ('diverges = worlds where auto_placement picked a '
+                     'fraction that is none of COMM/HYBRID/MEM; beats = '
+                     'worlds where it prices strictly below the best '
+                     'fixed strategy under the same formula'),
+        }
+    return out
+
+
+def comm_model_2level(flops50, dims50, *, peak_tflops=None,
+                      assumed_mfu=ASSUMED_MFU,
+                      intra_gbytes_per_s=NVLINK_GBYTES_PER_S,
+                      inter_gbytes_per_s=INFINIBAND_GBYTES_PER_S,
+                      group_size=8, n_groups=4) -> dict:
+    """The two-level model (JAX ``_comm_model_2level``): ``n_groups``
+    nodes of ``group_size`` cards, ``intra_gbytes_per_s`` inside a node
+    (NVLink) and ``inter_gbytes_per_s`` between nodes (InfiniBand), worlds
+    up to 64, the headline cadence (factor 10, inv 100) for eigen and
+    inverse and the refresh-dense one (factor 1, inv 10) for eigen."""
+    from kfac_pytorch_tpu_torch.placement import PodTopology
+
+    if peak_tflops is None:
+        peak_tflops = BF16_PEAK_TFLOPS[DEFAULT_CARD]
+    topo = PodTopology(ici_size=group_size, n_groups=n_groups,
+                       ici_gbytes_per_s=intra_gbytes_per_s,
+                       dcn_gbytes_per_s=inter_gbytes_per_s)
+    kw = dict(batch=32, world_sizes=(2, 4, 8, 16, 32, 64), topology=topo,
+              peak_tflops=peak_tflops, assumed_mfu=assumed_mfu)
+    return {
+        'kind': 'model',
+        'constants': {
+            'intra_node_gbytes_per_s': intra_gbytes_per_s,
+            'inter_node_gbytes_per_s': inter_gbytes_per_s,
+            'cards_per_node': group_size, 'nodes': n_groups,
+            'assumed_mfu': assumed_mfu, 'peak_tflops': peak_tflops,
+        },
+        'eigen': predict_comm_aware_scaling(flops50, dims50, 10, 100,
+                                            method='eigen', **kw),
+        'inverse': predict_comm_aware_scaling(flops50, dims50, 10, 100,
+                                              method='inverse', **kw),
+        'eigen_refresh_dense': predict_comm_aware_scaling(
+            flops50, dims50, 1, 10, method='eigen', **kw),
+    }
+
+
+_EXPECTED_CACHE: dict[tuple, dict] = {}
+
+
+def compute_expected(*, peak_tflops=None, assumed_mfu=ASSUMED_MFU) -> dict:
+    """The prediction blocks at the bench's configurations (JAX
+    ``compute_expected``): SGD FLOPs counted on fake tensors
+    (:func:`sgd_step_flops`), registration dims (:func:`registration_dims`),
+    the per-variant :func:`predict_ratio`, the KAISA scaling curves and
+    both communication models.  All of it is a model; nothing here is
+    measured.  Computed once per process for each set of arguments (the
+    MLP's widths included)."""
+    if peak_tflops is None:
+        peak_tflops = BF16_PEAK_TFLOPS[DEFAULT_CARD]
+    key = (peak_tflops, assumed_mfu, MICRO_MLP['width'],
+           tuple(MICRO_MLP['features']))
+    if key not in _EXPECTED_CACHE:
+        _EXPECTED_CACHE[key] = _compute_expected(peak_tflops, assumed_mfu)
+    return _EXPECTED_CACHE[key]
+
+
+def _compute_expected(peak_tflops, assumed_mfu) -> dict:
+    flops = {
+        'resnet50_imagenet_b32': sgd_step_flops('resnet50', 32, 224),
+        'resnet32_cifar_b128': sgd_step_flops('resnet32', 128, 32),
+        'micro_mlp_b128': sgd_step_flops('mlp', 128),
+    }
+    dims = {
+        'resnet50': registration_dims(_model_builder('resnet50'),
+                                      (1, 3, 224, 224)),
+        'resnet32': registration_dims(_model_builder('resnet32'),
+                                      (1, 3, 32, 32)),
+        'mlp': registration_dims(_model_builder('mlp'),
+                                 (1, MICRO_MLP['width'])),
+    }
+    f50, d50 = flops['resnet50_imagenet_b32'], dims['resnet50']
+    inputs = {
+        'headline_rn50_imagenet': (f50, d50, 10, 100, dict(batch=32)),
+        'secondary_rn50_inverse': (f50, d50, 10, 100,
+                                   dict(method='inverse', batch=32)),
+        'secondary_rn50_lowrank512': (f50, d50, 10, 100,
+                                      dict(lowrank_rank=512, batch=32)),
+        'secondary_rn50_ekfac': (f50, d50, 10, 100,
+                                 dict(ekfac=True, batch=32)),
+        'secondary_rn32_cifar': (flops['resnet32_cifar_b128'],
+                                 dims['resnet32'], 1, 10, dict(batch=128)),
+        'micro_mlp': (flops['micro_mlp_b128'], dims['mlp'], 10, 100,
+                      dict(batch=128)),
+    }
+    out = {
+        'kind': 'model',
+        'basis': ('counted SGD FLOPs (fake tensors, valid convolution taps '
+                  'and elementwise work) + analytic K-FAC FLOPs; equal '
+                  'achieved FLOP/s for both steps, memory traffic ignored'),
+        'flop_model_constants': dict(FLOP_MODEL),
+        'sgd_flops': flops,
+        'variants': {name: predict_ratio(f, d, fs, inv, **kw)
+                     for name, (f, d, fs, inv, kw) in inputs.items()},
+        'inputs': {name: {'sgd_flops': f, 'dims': d, 'factor_steps': fs,
+                          'inv_steps': inv, 'kw': kw}
+                   for name, (f, d, fs, inv, kw) in inputs.items()},
+    }
+    out['kaisa_scaling'] = {
+        'kind': 'model',
+        'config': ('ResNet-50 b32 a card (weak scaling), factor=10 '
+                   'inv=100'),
+        'comm_model': {
+            'kind': 'model',
+            'constants': {'link_gbytes_per_s': NVLINK_GBYTES_PER_S,
+                          'assumed_mfu': assumed_mfu,
+                          'peak_tflops': peak_tflops},
+            'eigen': predict_comm_aware_scaling(
+                f50, d50, 10, 100, batch=32, method='eigen',
+                peak_tflops=peak_tflops, assumed_mfu=assumed_mfu),
+            'inverse': predict_comm_aware_scaling(
+                f50, d50, 10, 100, batch=32, method='inverse',
+                peak_tflops=peak_tflops, assumed_mfu=assumed_mfu),
+        },
+        'comm_model_2level': comm_model_2level(
+            f50, d50, peak_tflops=peak_tflops, assumed_mfu=assumed_mfu),
+        'eigen': predict_kaisa_scaling(f50, d50, 10, 100, batch=32,
+                                       method='eigen'),
+        'inverse': predict_kaisa_scaling(f50, d50, 10, 100, batch=32,
+                                         method='inverse'),
+    }
+    return out
+
+
+def expected_vs_measured(expected, results, peak_tflops=None) -> dict:
+    """Per measured configuration with a JAX variant (:data:`VARIANT_OF`):
+    the model's ratio at the cadence the run measured (``expected_ratio``,
+    a model), the measured ratio, and the MFU the model's FLOPs imply at
+    the measured K-FAC time (JAX ``_expected_vs_measured``)."""
+    out = {}
+    for name, res in results.items():
+        variant = VARIANT_OF.get(name)
+        if variant is None or not isinstance(res, dict):
+            continue
+        inp = expected['inputs'][variant]
+        # The stages give their cadence in their 'config' text only.
+        timed = re.search(r'inv=(\d+)', str(res.get('config', '')))
+        inv_steps = (res.get('inv_steps') or (timed and int(timed[1]))
+                     or inp['inv_steps'])
+        pred = predict_ratio(inp['sgd_flops'], inp['dims'],
+                             inp['factor_steps'], inv_steps, **inp['kw'])
+        kfac_ms, sgd_ms = res.get('kfac_ms'), res.get('sgd_ms')
+        flops = pred['kfac_flops_per_step_amortized']
+        out[name] = {
+            'variant': variant,
+            'cadence': f'factor={inp["factor_steps"]} inv={inv_steps}',
+            'expected_ratio': pred['expected_ratio'],
+            'measured_ratio': (kfac_ms / sgd_ms if kfac_ms and sgd_ms
+                               else None),
+            'kfac_mfu_vs_bf16_peak': (
+                flops / (kfac_ms * 1e-3) / (peak_tflops * 1e12)
+                if kfac_ms and peak_tflops else None),
+        }
+    return out
+
+
+def result_line(results: dict[str, dict | None], env: dict,
+                expected: dict | None = None) -> dict:
     """The JSON line: ``bench.py``'s keys from the per-configuration
-    results (``None`` for a configuration not run)."""
+    results (``None`` for a configuration not run), and with ``expected``
+    (:func:`compute_expected`) the model blocks: ``detail['expected']``,
+    ``detail['kaisa_scaling']`` and ``detail['expected_vs_measured']``,
+    each marked ``'kind': 'model'``."""
     detail: dict[str, Any] = {}
     for name, res in results.items():
         if name in STAGES:
@@ -703,6 +1198,15 @@ def result_line(results: dict[str, dict | None], env: dict) -> dict:
 
     detail['sgd_mfu_vs_bf16_peak'] = mfu('sgd_flops', 'sgd_ms')
     detail['kfac_mfu_vs_bf16_peak'] = mfu('kfac_plain_flops', 'kfac_ms')
+    if expected is not None:
+        detail['expected'] = {k: v for k, v in expected.items()
+                              if k not in ('inputs', 'kaisa_scaling')}
+        detail['kaisa_scaling'] = expected['kaisa_scaling']
+        detail['expected_vs_measured'] = {
+            'kind': 'model beside measurement: expected_ratio and the MFU '
+                    'are model numbers, measured_ratio is this run\'s',
+            **expected_vs_measured(expected, results, peak),
+        }
     detail['env'] = env
     ratio = detail.get('resnet50_ratio')
     return {
@@ -716,7 +1220,8 @@ def result_line(results: dict[str, dict | None], env: dict) -> dict:
 
 def run(names: Sequence[str], device: torch.device | str = 'cuda',
         **overrides: Any) -> dict:
-    """Measure the named configurations in turn and return the line."""
+    """Measure the named configurations in turn and return the line,
+    with the prediction blocks (:func:`compute_expected`)."""
     results = {
         name: (STAGES[name](device) if name in STAGES
                else measure(CONFIGS[name], device, **overrides))
@@ -727,7 +1232,7 @@ def run(names: Sequence[str], device: torch.device | str = 'cuda',
         'matmul': torch.backends.cuda.matmul.allow_tf32,
         'cudnn': torch.backends.cudnn.allow_tf32,
     }
-    return result_line(results, env)
+    return result_line(results, env, compute_expected())
 
 
 def main(argv: Sequence[str] | None = None) -> int:

@@ -85,21 +85,134 @@ import torch
 # ----------------------------------------------------------------------
 
 
-def compiled_costs(fn: Callable[..., Any], *args: Any) -> dict[str, float]:
+def compiled_costs(
+    fn: Callable[..., Any], *args: Any, count: str = 'matmul',
+) -> dict[str, float]:
     """Counted cost of one call ``fn(*args)``: ``{'flops',
     'bytes_accessed'}``.
 
-    The call runs under ``FlopCounterMode``; the fused kernel's custom op
+    ``count='matmul'``: the call runs under ``FlopCounterMode``, which
+    counts the matmuls, convolutions and their backward passes at every
+    kernel tap; the fused kernel's custom op
     (``kfac_torch::fused_eigen_precond``) carries its own formula, its
-    four contractions, on every device.  ``bytes_accessed`` is ``-1.0``
-    (not reported).
+    four contractions, on every device.  ``count='all'``: XLA's cost
+    analysis model, which the JAX package reads (:class:`HloFlopCounter`):
+    a convolution counts only the taps that meet the input (not the
+    zero padding), and the elementwise and reduction work counts too.
+    ``bytes_accessed`` is ``-1.0`` (not reported).
     """
+    if count == 'all':
+        with HloFlopCounter() as counter:
+            fn(*args)
+        return {'flops': float(counter.flops), 'bytes_accessed': -1.0}
+    if count != 'matmul':
+        raise ValueError(f"count must be 'matmul' or 'all', got {count!r}")
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as counter:
         fn(*args)
     return {'flops': float(counter.get_total_flops()),
             'bytes_accessed': -1.0}
+
+
+def _valid_taps(size: int, k: int, stride: int, pad: int, dil: int,
+                out: int) -> int:
+    """(output, kernel) pairs of one spatial dimension whose input index
+    lies inside the unpadded input."""
+    return sum(1 for o in range(out) for j in range(k)
+               if 0 <= o * stride - pad + j * dil < size)
+
+
+def _conv_macs(x_shape, w_shape, out_shape, stride, padding, dilation,
+               groups) -> int:
+    taps = 1
+    for d in range(len(w_shape) - 2):
+        taps *= _valid_taps(x_shape[2 + d], w_shape[2 + d], stride[d],
+                            padding[d], dilation[d], out_shape[2 + d])
+    return x_shape[0] * w_shape[0] * (x_shape[1] // groups) * taps
+
+
+class HloFlopCounter:
+    """Counts one call's FLOPs as XLA's cost analysis does (a context
+    manager; ``flops`` after it): a convolution and each
+    of its backward products ``2 x`` the multiply-adds whose input index
+    is inside the unpadded input; matmuls by ``FlopCounterMode``'s
+    formulas (the fused kernel's custom op included); one FLOP per output
+    element of a pointwise op (two for an ``add`` with ``alpha``, the SGD
+    update's multiply and add); one per input element of a reduction and
+    of a (log-)softmax and the loss; training-mode batch norm 6 per
+    element forward and 7 backward (XLA's counts of Flax's
+    ``BatchNorm``).  Views, copies and allocations count 0."""
+
+    BN_FORWARD = 6
+    BN_BACKWARD = 7
+    REDUCTIONS = frozenset({
+        'sum', 'mean', 'amax', 'amin', 'max', 'min', 'var', 'var_mean',
+        '_softmax', '_log_softmax', '_softmax_backward_data',
+        '_log_softmax_backward_data', 'nll_loss_forward',
+        'nll_loss_backward',
+    })
+
+    def __init__(self) -> None:
+        self.flops = 0
+        self._mode = None
+
+    def __enter__(self) -> 'HloFlopCounter':
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                counter.flops += counter._op_flops(func, args, kwargs, out)
+                return out
+
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self._mode.__exit__(*exc)
+        self._mode = None
+
+    def _op_flops(self, func, args, kwargs, out) -> int:
+        import torch.utils._pytree as pytree
+        from torch.utils.flop_counter import flop_registry
+        from torch.utils.flop_counter import get_shape
+
+        aten = torch.ops.aten
+        name = func.overloadpacket.__name__
+        if func is aten.convolution.default:
+            x, w, bias, stride, pad, dil, _, _, groups = args
+            macs = _conv_macs(x.shape, w.shape, out.shape, stride, pad, dil,
+                              groups)
+            return 2 * macs + (out.numel() if bias is not None else 0)
+        if func is aten.convolution_backward.default:
+            go, x, w, _, stride, pad, dil, _, _, groups, mask = args
+            macs = _conv_macs(x.shape, w.shape, go.shape, stride, pad, dil,
+                              groups)
+            return (2 * macs * (int(mask[0]) + int(mask[1]))
+                    + (go.numel() if mask[2] else 0))
+        formula = flop_registry.get(func) or flop_registry.get(
+            func.overloadpacket)
+        if formula is not None:
+            a, kw, o = pytree.tree_map(get_shape, (args, kwargs, out))
+            return int(formula(*a, **kw, out_val=o))
+        if name in ('native_batch_norm', '_native_batch_norm_legit',
+                    '_native_batch_norm_legit_functional'):
+            return self.BN_FORWARD * args[0].numel()
+        if name == 'native_batch_norm_backward':
+            return self.BN_BACKWARD * args[0].numel()
+        if name in self.REDUCTIONS:
+            return args[0].numel()
+        if torch.Tag.pointwise in func.tags:
+            outs = out if isinstance(out, (tuple, list)) else [out]
+            n = sum(t.numel() for t in outs
+                    if isinstance(t, torch.Tensor) and t.is_floating_point())
+            return n * (2 if kwargs.get('alpha', 1) != 1 else 1)
+        return 0
 
 
 def step_variant_costs(

@@ -37,16 +37,17 @@ has waited on the side stream; every tensor the refresh hands over gets
 ``record_stream`` on the collecting stream, so the caching allocator
 reuses none of it under a live kernel.
 
-*Collectives.*  Across ranks the refresh's column gathers run in the
-worker while the main thread runs DDP's all-reduce over the world.  They
-are different process groups (the KAISA grid's groups come from
-``dist.new_group``), and within each group every rank issues its
-collectives in the same order.  Gloo runs each group's work on its own
-threads, so the two interleave freely.  NCCL asks that kernels of
-different communicators be launched in the same order on every rank; the
-port does not order the worker's gathers against DDP's buckets, which is
-safe while both can be resident on the card at once and is not measured
-on NCCL.
+*Collectives.*  The worker issues none.  It decomposes the rank's
+shares; the column gather runs in :meth:`DeferredRefresh.wait` through
+``finish``, on the collecting thread (the main thread at the collect
+point), after the side stream's work.  NCCL asks that kernels of
+different communicators be launched in the same order on every rank.
+Issued from the worker, the gathers raced the main thread's DDP
+all-reduce over the world, and the collective audit
+(``analysis/audit.py``, lane ``hybrid_overlap``) recorded ranks that
+interleaved the two differently; at the collect point every rank issues
+them at the same place in its sequence.  The values are the same, so
+the one-step shift is unchanged bit for bit.
 
 On the CPU the worker thread runs the same code with no stream.  A
 refresh that raises in the worker raises again at the collect point.
@@ -71,9 +72,11 @@ class DeferredRefresh:
         fn: Callable[[], Any],
         device: torch.device,
         stream: Any = None,
+        finish: Callable[[Any], Any] | None = None,
     ) -> None:
         self._device = device
         self._stream = stream
+        self._finish = finish
         self._result: Any = None
         self._error: BaseException | None = None
         self._event = None
@@ -109,8 +112,9 @@ class DeferredRefresh:
         self._thread.join()
 
     def wait(self) -> Any:
-        """Join the worker and return its state; raises if the refresh
-        raised."""
+        """Join the worker and return its state, passed through
+        ``finish`` on this thread when one was given; raises if the
+        refresh raised."""
         self._thread.join()
         if self._error is not None:
             raise RuntimeError(
@@ -123,6 +127,8 @@ class DeferredRefresh:
             for t in tensors_of(self._result):
                 if t.device.type == 'cuda':
                     t.record_stream(current)
+        if self._finish is not None:
+            self._result, self._finish = self._finish(self._result), None
         return self._result
 
 

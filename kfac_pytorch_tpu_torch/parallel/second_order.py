@@ -179,6 +179,23 @@ class BucketSecond:
                 if k not in DERIVED_FIELDS}
 
 
+class PendingGather:
+    """A refresh whose shares are decomposed and whose column gather is
+    still to come: calling it gathers (on the caller's thread and current
+    stream) and returns the new stacks.  :meth:`tensors` lists the
+    shares, so a caller on another stream can ``record_stream`` them."""
+
+    def __init__(self, finish, shares) -> None:
+        self._finish = finish
+        self._shares = [t for share in shares for t in share]
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        return {str(i): t for i, t in enumerate(self._shares)}
+
+    def __call__(self) -> dict[str, BucketSecond]:
+        return self._finish()
+
+
 def _pad_factor(factor: torch.Tensor, pad: int) -> torch.Tensor:
     """Embed a factor in the top-left of a ``pad x pad`` identity."""
     d = factor.shape[-1]
@@ -702,10 +719,13 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         bootstrap: bool = False,
         sketch_step: int = 0,
         health_stats: dict | None = None,
-    ) -> dict[str, BucketSecond]:
+        defer_gather: bool = False,
+    ) -> dict[str, BucketSecond] | PendingGather:
         """Recompute this rank's decompositions (inverse-update step):
         phase 1 on this rank's share of its column, phase 2 over the
-        column.
+        column.  With ``defer_gather`` phase 2 is left to the caller: a
+        :class:`PendingGather` whose call gathers and returns the stacks
+        (the deferred refresh issues it on the main thread).
 
         Under health (``prev`` then required) each share runs
         :meth:`_decompose_guarded`; its per-slot ``(ok, rounds)`` ride the
@@ -779,9 +799,19 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
                 share['verdict'] = verdict
             names.append(tuple(share))
             shares.append(tuple(share.values()))
+        pending = PendingGather(
+            lambda: self._finish_compute(names, shares, prev, stats),
+            shares)
+        return pending if defer_gather else pending()
+
+    def _finish_compute(self, names, shares, prev, stats):
+        """Phase 2 of :meth:`compute`: the column gather of every
+        bucket's shares, the health merge, the EKFAC bases."""
+        guarded = self.health is not None
         with self._scope('inverse_row_allgather'):
             shares = collectives.all_gather_decompositions(
-                shares, [b.seg for b in self.plan.buckets], grid.col_group,
+                shares, [b.seg for b in self.plan.buckets],
+                self.grid.col_group,
                 [[n in IDENTITY_PADDED for n in ns] for ns in names],
             )
         out, columns = {}, []
@@ -835,7 +865,8 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
         damping: float,
         shard: int,
         prev: Mapping[str, BucketSecond],
-    ) -> dict[str, BucketSecond]:
+        defer_gather: bool = False,
+    ) -> dict[str, BucketSecond] | PendingGather:
         """Re-decompose one stagger shard's slots (JAX ``compute_shard``,
         ``second_order.py:1075-1230``) and scatter them into ``prev``'s
         stacks at their slot indices; every other slot passes through.
@@ -897,9 +928,18 @@ lowrank_engages`) to its top ``lowrank_rank`` eigenpairs.
             picked.append((b, local))
             names.append(tuple(share))
             shares.append(tuple(share.values()))
+        pending = PendingGather(
+            lambda: self._finish_shard(shard, picked, names, shares, prev),
+            shares)
+        return pending if defer_gather else pending()
+
+    def _finish_shard(self, shard, picked, names, shares, prev):
+        """Phase 2 of :meth:`compute_shard`: the column gather and the
+        scatter into ``prev``'s stacks."""
         with self._scope('inverse_row_allgather'):
             shares = collectives.all_gather_decompositions(
-                shares, [len(local) for _, local in picked], grid.col_group,
+                shares, [len(local) for _, local in picked],
+                self.grid.col_group,
                 [[n in IDENTITY_PADDED for n in ns] for ns in names],
             )
         out = dict(prev)

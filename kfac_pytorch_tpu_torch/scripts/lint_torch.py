@@ -22,6 +22,17 @@ lint (JAX ``scripts/lint_jax.py``).
     The SPMD collective lint (:mod:`kfac_pytorch_tpu_torch.analysis.\
 collective`); defaults to the whole package.
 
+``--comm-audit OUT.json [--device cpu|cuda]``
+    The collective audit (:mod:`kfac_pytorch_tpu_torch.analysis.audit`):
+    8 gloo ranks (JAX's world; on ``cuda`` they share card 0) run JAX's
+    14 lanes and record every collective; the payload is written to
+    ``OUT.json`` and printed as a table.  Exit 1 on a violation.
+
+``--comm-audit-validate PATH [--baseline PATH]``
+    Re-check a payload from its stored entries (digests, rank schedules,
+    wire dtypes, parity, pins); with ``--baseline`` also the memory
+    drift gate.  Exit 1 on an error.
+
 ``--list-rules``
     The rule ids and one-line descriptions.
 
@@ -170,6 +181,37 @@ def run_contracts() -> int:
     return rc
 
 
+def run_comm_audit(out: str, device: str) -> int:
+    import json
+
+    from kfac_pytorch_tpu_torch.analysis import audit
+
+    payload = audit.run_audit(device=device)
+    with open(out, 'w') as fh:
+        json.dump(payload, fh)
+    print(audit.format_payload(payload))
+    return 0 if payload['verified'] else 1
+
+
+def run_comm_audit_validate(path: str, baseline: str | None) -> int:
+    import json
+
+    from kfac_pytorch_tpu_torch.analysis import audit
+
+    with open(path) as fh:
+        payload = json.load(fh)
+    base = None
+    if baseline is not None:
+        with open(baseline) as fh:
+            base = json.load(fh)
+    errs = audit.check_payload(payload, base)
+    for e in errs:
+        print(e)
+    print(f'comm-audit: {"valid" if not errs else f"{len(errs)} error(s)"} '
+          f'({path})')
+    return 1 if errs else 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     mode = ap.add_mutually_exclusive_group(required=True)
@@ -181,7 +223,20 @@ def main(argv: list[str] | None = None) -> int:
                       help='SPMD collective lint (default: the package)')
     mode.add_argument('--list-rules', action='store_true',
                       help='print the rule ids')
+    mode.add_argument('--comm-audit', metavar='OUT',
+                      help='record the collectives of every audit lane')
+    mode.add_argument('--comm-audit-validate', metavar='PATH',
+                      help='re-check a collective audit payload')
+    ap.add_argument('--device', default='cpu',
+                    help="the audit ranks' device: cpu (default) or cuda")
+    ap.add_argument('--baseline', default=None,
+                    help='a payload to hold peak memory against')
     args = ap.parse_args(argv)
+    if args.comm_audit:
+        return run_comm_audit(args.comm_audit, args.device)
+    if args.comm_audit_validate:
+        return run_comm_audit_validate(args.comm_audit_validate,
+                                       args.baseline)
     if args.check:
         return run_check(args.check)
     if args.spmd is not None:
