@@ -786,8 +786,9 @@ def stop_profile_worker():
 def profile_case(torch, kernel, args, shape, seed, at_most=None):
     """One line with the device time of each CUDA kernel one call issued
     (the names carry the tiling: ``Tile<rows, cols, ...>`` for the fused
-    pair, ``wide_pass`` for the large-gp chain); returns how many there
-    were.  ``args`` are :func:`make_case`'s operands for ``seed``.  When
+    pair, ``wgmma_pass<..., BN, pass, ...>`` for the large-gp chain on
+    TMA-addressable rows, ``wide_pass`` for the others); returns how many
+    there were.  ``args`` are :func:`make_case`'s operands for ``seed``.  When
     no session here sees a kernel, the same call on the same operands is
     profiled in a fresh process.  Fails if neither profiler saw a kernel,
     or if a call issued more than ``at_most``."""
@@ -813,12 +814,34 @@ def profile_case(torch, kernel, args, shape, seed, at_most=None):
     return len(seen)
 
 
+def case_routes(torch, shape):
+    """``'f32 route/bf16 route'`` of a call at ``shape`` (``pair``,
+    ``wgmma`` or ``cp.async``: ``fused_precond.kernel_route``), failing
+    if the built kernel's own rule answers otherwise (on the card; a CPU
+    rehearsal has no kernel to ask)."""
+    from kfac_pytorch_tpu_torch.ops import fused_precond
+
+    _, gp, ap = shape
+    routes = []
+    for dtype in (torch.float32, torch.bfloat16):
+        route = fused_precond.kernel_route(gp, ap, dtype)
+        built = (fused_precond.library_route(gp, ap, dtype)
+                 if DEVICE == 'cuda' else route)
+        if route != built:
+            fail(f'case {shape} {dtype}: the kernel takes route {built}, '
+                 f'kernel_route says {route}')
+        routes.append(route)
+    return '/'.join(routes)
+
+
 def check_case(torch, kernel, plain, shape, seed, at_most):
     """One bucket shape: the kernel against plain in f32 and bf16, two
-    runs bitwise equal, times, a ``case`` line and a ``profile`` line
-    held to ``at_most`` kernels.  Returns ``(max abs err, (shape, ms,
-    plain_ms, library_ms), kernels per call, args)``."""
+    runs bitwise equal, times, a ``case`` line (with the route each dtype
+    takes) and a ``profile`` line held to ``at_most`` kernels.  Returns
+    ``(max abs err, (shape, ms, plain_ms, library_ms), kernels per call,
+    args)``."""
     L, gp, ap = shape
+    routes = case_routes(torch, shape)
     args = make_case(torch, L, gp, ap, seed=seed)
     pg, clip = kernel(*args)
     pg2, clip2 = kernel(*args)
@@ -852,7 +875,8 @@ def check_case(torch, kernel, plain, shape, seed, at_most):
     ms16 = time_ms(torch, lambda: kernel(*bf))
     bound = precond_bound(L, gp, ap, 4)[0]
     bound16 = precond_bound(L, gp, ap, 2)[0]
-    print(f'case L={L} gp={gp} ap={ap}: f32 max_abs_err={err:.3e} '
+    print(f'case L={L} gp={gp} ap={ap}: route={routes} '
+          f'f32 max_abs_err={err:.3e} '
           f'clip_rel_err={clip_err:.3e} kernel_ms={ms:.5f} '
           f'plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} '
           f'bound_ms={bound:.6f} share_of_bound={bound / ms:.3f} '
@@ -862,6 +886,10 @@ def check_case(torch, kernel, plain, shape, seed, at_most):
           f'bound_ms={bound16:.6f}', flush=True)
     n = profile_case(torch, kernel, args, shape, seed, at_most=at_most)
     return err, (shape, ms, plain_ms, library_ms), n, args
+
+
+#: The cp.async route's case of phase 2 (gp > 64, rows TMA cannot take).
+UNALIGNED_CASE = (2, 257, 769)
 
 
 def phase_kernels(torch, ops):
@@ -884,6 +912,10 @@ def phase_kernels(torch, ops):
     entry = step_entry('fused_eigen_precondition',
                        'kfac_pytorch_tpu/ops/pallas_precond.py:43', timed,
                        max_err, per_call)
+    # A gp > 64 shape whose rows TMA cannot take (ap = 769, as the
+    # unpadded GPipe and MoE stacks have): the cp.async route, held
+    # against plain in f32 and bf16 like every case.
+    check_case(torch, kernel, plain, UNALIGNED_CASE, 300, 4)
     entry['kernel_ms'] = entry['ms']
     entry['graph_ms'] = graph_ms(torch, step_calls)
     print(f'kernel: one step\'s {len(step_calls)} calls: {entry["ms"]:.5f} '
@@ -937,7 +969,8 @@ def bucket_entry(torch, kernel, plain, label, cases, seed, counts=None,
     out['shapes'] = cases
     out['per_bucket'] = [
         dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-             bound_ms=precond_bound(*shape, 4)[0])
+             bound_ms=precond_bound(*shape, 4)[0],
+             share_of_bound=precond_bound(*shape, 4)[0] / ms)
         for shape, ms, plain_ms, lib_ms in timed
     ]
     print(f'kernel {label}: one step\'s {len(timed)} calls: '
@@ -6210,7 +6243,8 @@ RN50_OBS_WINDOW = (3, 5)
 RN50_OBS_FLIGHT = dict(window=8, flush_every=4)
 OBSERVE_MODEL = ('resnet50', 1000)
 #: The fused kernel's CUDA kernels, by a part of their names.
-FUSED_KERNEL_NAMES = ('precond_forward', 'precond_back', 'wide_pass')
+FUSED_KERNEL_NAMES = ('precond_forward', 'precond_back', 'wgmma_pass',
+                      'wide_pass')
 
 
 def kernel_ranges(trace_path, prefix='kfac/'):

@@ -8,19 +8,12 @@
 //     v1 = qg^T g qa ;  v2 = v1 * dgda ;  pg = qg v2 qa^T
 //     clip[l] = sum(v1 * v2)            (== <pg, g>, orthogonal invariance)
 //
-// What bounds it on an H100.  One ResNet-32 step (six bucket calls) is
-// ~1.07 GFLOP over ~24 MB of f32 operands.  On the f32 CUDA cores that
-// is ~16 us of arithmetic; with f32-exact products on the tensor cores
-// (3xTF32, below: three TF32 products per f32 product at 495 TFLOP/s)
-// ~6.5 us, so the bytes (~7.2 us at 3.35 TB/s) set the bound.  Every
-// bucket but a576g64 is so small that two dependent launches (~5 us)
-// take longer than its bytes: at these sizes the launches and the
-// length of each block's K loop are what cost.
+// Three routes, chosen by shape before any launch (route_of):
 //
-// Design: two launches per call.  The Pallas kernel holds a whole slot
-// in VMEM; a Hopper block has 227 KB of shared memory.  For gp <= 64
-// (every ResNet-32 bucket) a column stripe of the [gp, ap]
-// intermediate fits, so the chain is reassociated as
+// 1. gp <= 64 (every ResNet-32 bucket): the fused pair, two launches.
+//    The Pallas kernel holds a whole slot in VMEM; a Hopper block has
+//    227 KB of shared memory, and for gp <= 64 a column stripe of the
+//    [gp, ap] intermediate fits, so the chain is reassociated as
 //
 //     forward, one block per (slot l, column tile n of BN columns):
 //         W = g[l] qa[l][:, n]          (gp x BN, K = ap, streamed)
@@ -33,52 +26,86 @@
 //         block m = 0 of slot l sums the slot's clip partials in tile
 //         order (stream order has every partial written by then).
 //
-// qg^T (g qa) and qg (v2 qa^T) are within f32 rounding of the Pallas
-// kernel's (qg^T g) qa and (qg v2) qa^T, and need one scratch plane
-// instead of three.  Row tiles are 32 (gp <= 32) or 64 (gp <= 64) rows
-// by BN = 32 columns, so a576g64 puts 18 x 9 = 162 blocks on 132 SMs.
-// Larger gp (ResNet-50's a4608g512) does not fit a stripe: four
-// launches of one 128x128-tile tensor-core GEMM, W and Y spilled to
-// scratch (W into pg's own buffer), the clip sum folded into the last.
+//    Row tiles are 32 (gp <= 32) or 64 rows by BN = 32 columns.  One
+//    ResNet-32 step (six calls, ~1.07 GFLOP over ~24 MB) is bound by its
+//    bytes (~7.2 us at 3.35 TB/s), and every bucket but a576g64 is so
+//    small that two dependent launches (~5 us) and each block's K-loop
+//    latency are what cost.  So this pair runs `mma.sync` (m16n8k8
+//    TF32): its 16-row fragments suit gp = 32, where a 64-row `wgmma`
+//    tile would be half masked, and each thread gathers them in any
+//    order from padded rows (row strides of 4 or 8 words mod 32;
+//    K-contiguous f32 tiles by `ldmatrix`).  Operands stream through a
+//    three-stage ring of 16-byte `cp.async` copies, 64 deep.
 //
-// The K loops stream their operand tiles through a three-stage ring of
-// 16-byte `cp.async` copies in dynamic shared memory, so the next
-// slices load while the tensor cores work on this one; qg's copy rides
-// in the first group.  Slices are 64 deep for the fused kernels (fewer
-// ring turns for their short K loops) and 32 for the wide tiles, whose
-// stages are four times larger.  Shapes whose rows are not 16-byte
-// multiples (or unaligned pointers) take a masked element-by-element
-// copy in the same kernels.  Edges and padding are zero-filled, so
-// every (gp, ap) runs.
+// 2. gp > 64 on rows of 16-byte multiples (f32 gp, ap multiples of 4,
+//    bf16 of 8) from 16-byte aligned bases: four passes, each one
+//    persistent kernel of TMA-fed `wgmma` (namespace wg):
 //
-// Numerics.  f32 operands: 3xTF32.  x = hi + lo with hi = x rounded to
-// TF32 (nearest, ties away: the cvt.rna.tf32.f32 rule, done with two
-// integer ops instead of the cvt) and lo = x - hi, exact in f32, of
-// which the MMA reads the TF32 part; a b is formed as a_lo b_hi +
-// a_hi b_lo + a_hi b_hi with f32 accumulation, within f32 rounding of
-// an f32 product (plain 1xTF32 would miss the 1e-4 gate).
-// The tensor cores' accumulation does not round to nearest, so each
-// 32-deep chunk of K sums into fresh accumulators that are added in
-// f32.  bf16 operands are exact in TF32, so a bf16 x bf16 product takes
-// one TF32 product and a bf16 x f32 one two; as in the TPU kernel, v2
-// is rounded to bf16 before the back-rotation.
+//     P1  W^T = qa^T g^T     M = ap, N = gp, K = ap  -> pg's buffer
+//     P2  v2 = (qg^T W) * dgda, clip partials    M = gp, N = ap, K = gp
+//     P3  Y = v2 qa^T, stored transposed         M = gp, N = ap, K = ap
+//     P4  pg = qg Y, and the clip sums           M = gp, N = ap, K = gp
 //
-// Why `mma.sync` (m16n8k8 TF32) and not `wgmma`: TF32 `wgmma` reads A
-// and B from shared memory only K-major, and the forward products
-// contract qa and qg over their row index; `mma.sync` fragments are
-// gathered by each thread in any order from padded rows (row strides
-// of 4 or 8 words mod 32, no bank conflicts; K-contiguous f32 tiles by
-// `ldmatrix`).  Its 16-row tiles also suit gp = 32, where a 64-row
-// `wgmma` tile would be half masked.  At ResNet-32's sizes the calls
-// are bound by launches and by each block's K-loop latency, not by the
-// MMA rate.
+//    BERT-large's fc_out call is ~2.2 TFLOP of f32 products: at three
+//    TF32 products each (3xTF32, below) 13 ms of the tensor cores'
+//    495 TFLOP/s against <1 ms of its bytes, so the passes are bound by
+//    the tensor cores' rate, which only `wgmma` reaches.  TF32 `wgmma`
+//    reads B, and A from shared memory, only K-major.  Each pass is
+//    arranged so that its B is K-major in device memory (g, W^T, qa, Y^T
+//    rows), and A goes through registers: each consumer thread reads its
+//    A fragments from the landed tile in whatever order device memory
+//    holds it (qa and qg are contracted over their row index in P1 and
+//    P2), so no transposed copy of a basis is ever made.
 //
-// Sums use no atomics: each block reduces its tile in a fixed order and
-// the clip partials are summed in tile order, so two runs give the same
-// bits.
+//    A block of three warpgroups sits on each SM and walks a fixed order
+//    of (slot, m tile, n tile, K part) items.  Warpgroup 2 produces: one
+//    lane keeps three stages of TMA loads in flight in a four-stage ring
+//    (mbarrier-completed), and three warps split each landed B tile once,
+//    as soon as it lands, into its TF32 lo part (a tile beside it; the
+//    MMA reads hi from the landed tile itself, see Numerics).  Two
+//    consumer warpgroups take 64 rows each of a 128 x BN tile (BN = 128,
+//    or 32 where N = ap <= 64, so ap = 32 runs unmasked tiles) and issue
+//    m64nBNk8 `wgmma`s from registers (A) and descriptors (B); setmaxnreg
+//    moves the producers' registers to the consumers' accumulators.  On
+//    an H100 a split made by the producer's single TMA lane one stage
+//    ahead took half of BERT-large's fc_out time; three splitter warps
+//    running ahead of the consumers took it from 27.4 to 21.4 ms
+//    (PERF.md).  Where a pass has few tiles, K is split in a fixed
+//    number of parts (plan_pass); the launch is then cooperative, the
+//    parts are stored, the grid synchronises, and each tile's parts are
+//    summed in part order before its epilogue.
+//
+// 3. gp > 64 on other rows (e.g. ap = 769, 3073 of the unpadded GPipe
+//    and MoE stacks): TMA cannot address them, so the same four products
+//    run as launches of one 128x128-tile `mma.sync` GEMM through the
+//    `cp.async` ring with masked edges (wide_pass), W and Y spilled to
+//    scratch, the clip sum folded into the last.  Every (gp, ap) runs.
+//
+// Numerics.  f32 operands: 3xTF32, a b ~ a_lo b_hi + a_hi b_lo + a_hi
+// b_hi with f32 accumulation, within f32 rounding of an f32 product
+// (plain 1xTF32 would miss the 1e-4 gate).  The pair and route 3 round
+// hi to TF32 by the cvt.rna.tf32.f32 rule (nearest, ties away; two
+// integer ops) and leave the MMA to read lo's TF32 part; route 2
+// truncates both: hi = x's top 19 bits, lo = (x - hi)'s, written as
+// exact TF32 values, except B's hi, which the MMA reads from the raw f32
+// tile by the same truncation (an H100 gives the same results to the
+// 1e-5 gate with hi written out, and rounding there would miss it).  The tensor cores' sum does
+// not round to nearest, so K is summed in chunks into fresh
+// accumulators that are added in f32: 32 deep in the pair and route 3,
+// 128 (four ring stages, scale-d = 0 at each chunk's first product) in
+// route 2.  bf16 operands are exact in TF32, so a bf16 x bf16 product
+// takes one TF32 product and a bf16 x f32 one two; as in the TPU kernel,
+// v2 is rounded to bf16 before the back-rotation.
+//
+// Sums use no atomics: each block reduces its tile in a fixed order, the
+// clip partials are summed in tile order and split-K parts in part order,
+// so two runs give the same bits.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -567,8 +594,8 @@ __global__ void __launch_bounds__(Cfg::THREADS)
 
 enum Epilogue { kStore = 0, kScale = 1, kClip = 2 };
 
-// One K-streamed product per slot for gp > 64: C[l] (M x N) = A[l] B[l]
-// on 128x128 tiles.  kScale: C = v2 = (A B) * D rounded to TD, plus the
+// One K-streamed product per slot for gp > 64 on rows TMA cannot take
+// (route 3): C[l] (M x N) = A[l] B[l] on 128x128 tiles.  kScale: C = v2 = (A B) * D rounded to TD, plus the
 // tile's clip partial.  kClip: store, and block (0, 0) of each slot
 // sums the slot's partials (the kScale pass's tiles, same grid) in
 // order.
@@ -720,19 +747,803 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+
+// ---------------------------------------------------------------------
+// The gp > 64 route: four persistent passes of TMA-fed `wgmma`.
+//
+// Each pass is C[l] (M x N) = A[l] B[l] over every slot, A M x K and B
+// K x N.  B is always K-major in device memory (its rows are K-
+// contiguous), so TMA lands it in the 128-byte swizzle `wgmma` reads; A
+// goes through registers, read from its landed tile in whichever order
+// device memory holds it (TF32 `wgmma` takes A from shared memory only
+// K-major, and P1 and P2 contract qa and qg over their row index).
+namespace wg {
+
+constexpr int BM = 128;           // tile rows: two consumer warpgroups of 64
+constexpr int BK = 32;            // K of one ring stage (one 128-byte f32 row)
+constexpr int kRing = 4;          // ring stages
+constexpr int kChunkSlices = 4;   // stages per accumulation chunk (K = 128)
+constexpr int kConsumers = 256;   // warpgroups 0 and 1
+constexpr int kProducers = 128;   // warpgroup 2
+constexpr int kThreads = kConsumers + kProducers;
+// Registers a thread of each role holds after setmaxnreg: the launch
+// gives every thread 65536 / 384 = 168 (rounded to 8); the producers
+// hand theirs over to the consumers' accumulators.
+constexpr int kProducerRegs = 72;
+constexpr int kConsumerRegs = 216;
+constexpr int kSplitters = kProducers - 32;  // warps 1-3 of warpgroup 2
+static_assert(kProducers * kProducerRegs + kConsumers * kConsumerRegs <=
+                  kThreads * 168,
+              "setmaxnreg moves registers, it makes none");
+constexpr int kMaxSplit = 8;
+
+enum Epi { kStore = 0, kStoreT = 1, kScale = 2, kClip = 3 };
+
+struct Args {
+  float* C;            // the pass's output
+  const void* D;       // kScale: dgda
+  float* partials;     // clip partials, [L][clip_tiles]
+  float* clip;         // kClip: the per-slot sums
+  float* split_ws;     // split > 1: [split][L][M][N] partial products
+  int L, M, N, K;
+  int tiles_m, tiles_n, split;
+  int clip_tiles;      // tiles per slot of the kScale pass
+};
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(saddr(b)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  const uint32_t a = saddr(b);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(saddr(b)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(saddr(b)), "r"(bytes) : "memory");
+}
+// One box of a rank-3 tensor map at (c0, c1, c2), innermost first, into
+// shared memory; completes `bytes` of the barrier's transaction count.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(saddr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// The two consumer warpgroups' own barrier (the producers run on).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+// Registers an asynchronous `wgmma` reads or writes are pinned here, after
+// its wait: the compiler neither reads them earlier nor reuses them.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
+}
+
+// Byte offset of `byte` in row `row` of a tile of 128-byte rows in the
+// 128-byte swizzle TMA writes and `wgmma` reads: 16-byte chunk c of row
+// r sits at chunk c ^ (r % 8).
+__device__ __forceinline__ int sw128(int row, int byte) {
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// `wgmma` descriptor of a K-major tile in the 128-byte swizzle: 8-row
+// groups 1024 bytes apart; a k8 step is +32 bytes (+2 in the field).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((saddr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t tf32_trunc(float x) {
+  return __float_as_uint(x) & 0xffffe000u;
+}
+// The rest of x below its TF32 truncation (exact in f32), truncated.
+__device__ __forceinline__ uint32_t tf32_lo(float x) {
+  return tf32_trunc(x - __uint_as_float(tf32_trunc(x)));
+}
+// x ~ hi + lo, both TF32 values: hi is x truncated to TF32, lo is the
+// rest (exact in f32) truncated to TF32.  Where x is exact in TF32 (a
+// bf16 value), hi = x and lo is unused.
+template <bool EXACT>
+__device__ __forceinline__ void split_tr(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+  hi = EXACT ? __float_as_uint(x) : tf32_trunc(x);
+  lo = EXACT ? 0u : tf32_lo(x);
+}
+
+// d (m64 x n32, f32) += a (m64 x k8 TF32, registers) * b (k8 x n32 TF32,
+// shared memory by descriptor); scale_d = 0 starts the sum afresh.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (m64 x n128, f32) += a (m64 x k8 TF32, registers) * b (k8 x n128 TF32,
+// shared memory by descriptor); scale_d = 0 starts the sum afresh.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Shared memory of a pass: kRing stages of (A tile, B tile, D tile),
+// then the barriers and the consumers' reduction scratch.  The A and B
+// tiles are as TMA lands them (f32 B is read as its TF32 hi part by the
+// MMA's truncation); the D tile holds B's TF32 lo part (f32 B) or B
+// widened to f32 (bf16 B).  Every tile starts on a 1024-byte boundary.
+template <typename TA, typename TB, int BN>
+struct Smem {
+  static constexpr int A_BYTES = BM * BK * static_cast<int>(sizeof(TA));
+  static constexpr int B_BYTES = BN * BK * static_cast<int>(sizeof(TB));
+  static constexpr int D_BYTES = BN * 128;
+  static constexpr int STAGE = A_BYTES + B_BYTES + D_BYTES;
+  static constexpr int BAR = kRing * STAGE;
+  static constexpr int RED = BAR + 3 * kRing * 8;
+  static constexpr int BYTES = RED + 8 * 4 + 1024;  // + alignment slack
+  static_assert(STAGE % 1024 == 0, "tiles on 1024-byte boundaries");
+};
+
+// Element (i, k) of the landed A tile (M x K = 128 x 32).  f32 K-major:
+// one 128-byte-swizzled [i][k] box; f32 M-major: four [k][32 i] boxes,
+// each 128-byte-swizzled; bf16: one unswizzled box, [i][k] or [k][i].
+template <typename TA, bool A_KM>
+__device__ __forceinline__ float a_elem(const unsigned char* t, int i, int k) {
+  if constexpr (sizeof(TA) == 4) {
+    const int off = A_KM ? sw128(i, k * 4)
+                         : (i >> 5) * 4096 + sw128(k, (i & 31) * 4);
+    return *reinterpret_cast<const float*>(t + off);
+  } else {
+    const int off = A_KM ? i * 64 + k * 2 : k * 256 + i * 2;
+    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(t + off));
+  }
+}
+
+// A splitter thread's share of one landed B tile (BN x 32, K-major):
+// f32 B gives its lo part, trunc(x - trunc(x)), to D; bf16 B is widened
+// into D.  D and the f32 tile share the swizzle.
+template <typename TB, int BN>
+__device__ __forceinline__ void split_b(unsigned char* b, unsigned char* d,
+                                        int idx) {
+#pragma unroll 4
+  for (int q = idx; q < BN * 8; q += kSplitters) {
+    const int row = q >> 3;
+    const int off = sw128(row, (q & 7) * 16);
+    if constexpr (sizeof(TB) == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(b + off);
+      float4 lo;
+      lo.x = __uint_as_float(tf32_lo(x.x));
+      lo.y = __uint_as_float(tf32_lo(x.y));
+      lo.z = __uint_as_float(tf32_lo(x.z));
+      lo.w = __uint_as_float(tf32_lo(x.w));
+      *reinterpret_cast<float4*>(d + off) = lo;
+    } else {
+      const uint2 raw =
+          *reinterpret_cast<const uint2*>(b + row * 64 + (q & 7) * 8);
+      float4 hi;
+      hi.x = __uint_as_float(raw.x << 16);
+      hi.y = __uint_as_float(raw.x & 0xffff0000u);
+      hi.z = __uint_as_float(raw.y << 16);
+      hi.w = __uint_as_float(raw.y & 0xffff0000u);
+      *reinterpret_cast<float4*>(d + off) = hi;
+    }
+  }
+}
+
+// A work item: one K part of one output tile.  Items run tile by tile,
+// n fastest, the parts of a tile next to each other; part s of split S
+// takes K stages [s nk / S, (s + 1) nk / S).
+struct Item {
+  int l, m0, n0, part, k0, k1, tile;
+};
+template <int BN>
+__device__ __forceinline__ Item item_of(int w, const Args& p, int nk) {
+  Item it;
+  it.part = w % p.split;
+  it.tile = w / p.split;
+  const int nt = it.tile % p.tiles_n;
+  const int mt = (it.tile / p.tiles_n) % p.tiles_m;
+  it.l = it.tile / (p.tiles_n * p.tiles_m);
+  it.m0 = mt * BM;
+  it.n0 = nt * BN;
+  it.k0 = it.part * nk / p.split;
+  it.k1 = (it.part + 1) * nk / p.split;
+  return it;
+}
+
+// Two neighbouring outputs (r, c), (r, c + 1) of slot l: the epilogue.
+template <int EPI, typename TD>
+__device__ __forceinline__ void emit2(const Args& p, int l, int r, int c,
+                                      float v0, float v1, float& cp) {
+  const long long plane = static_cast<long long>(p.M) * p.N;
+  float* C = p.C + l * plane;
+  if constexpr (EPI == kStoreT) {
+    C[static_cast<long long>(c) * p.M + r] = v0;
+    C[static_cast<long long>(c + 1) * p.M + r] = v1;
+  } else {
+    const long long off = static_cast<long long>(r) * p.N + c;
+    if constexpr (EPI == kScale) {
+      const TD* D = static_cast<const TD*>(p.D) + l * plane;
+      const float x0 = v0 * load_f(D[off]);
+      const float x1 = v1 * load_f(D[off + 1]);
+      cp = fmaf(v0, x0, cp);
+      cp = fmaf(v1, x1, cp);
+      v0 = round_to<TD>(x0);
+      v1 = round_to<TD>(x1);
+    }
+    *reinterpret_cast<float2*>(C + off) = make_float2(v0, v1);
+  }
+}
+
+// Sum of the 256 consumer threads' `v` in a fixed order; valid in thread 0.
+__device__ __forceinline__ float consumers_sum(float v, float* red, int tid) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((tid & 31) == 0) red[tid >> 5] = v;
+  consumers_sync();
+  float s = 0.0f;
+  if (tid == 0)
+    for (int w = 0; w < kConsumers / 32; ++w) s += red[w];
+  consumers_sync();
+  return s;
+}
+
+// One pass.  Warpgroup 2 produces: lane 0 of its first warp keeps the
+// ring's TMA loads in flight, and its other three warps split each
+// landed B tile once, as soon as it lands.  Warpgroups 0 and 1 consume,
+// each taking 64 rows of the 128 x BN tile: A fragments into registers
+// (split into TF32 hi and lo there), then per k8 step lo*hi + hi*lo +
+// hi*hi on `wgmma` (fewer for bf16 operands).  Every kChunkSlices
+// stages the chunk's fresh accumulators are added to the tile's in f32.
+// With split > 1 (a launch that is cooperative), the K parts are
+// stored, the grid synchronises, and each tile's parts are summed in
+// part order before the epilogue.
+template <typename TA, bool A_KM, bool A_EX, typename TB, int BN, int EPI,
+          typename TD>
+__global__ void __launch_bounds__(kThreads, 1)
+    wgmma_pass(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b, const Args p) {
+  using S = Smem<TA, TB, BN>;
+  constexpr bool B_EX = sizeof(TB) == 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* ready = full + kRing;
+  uint64_t* empty = ready + kRing;
+  float* red = reinterpret_cast<float*>(smem + S::RED);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], kSplitters);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles = p.L * p.tiles_m * p.tiles_n;
+  const int items = tiles * p.split;
+  const int nk = (p.K + BK - 1) / BK;
+
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    const int ptid = tid - kConsumers;
+    if (ptid < 32) {
+      if constexpr (EPI == kClip) {
+        // The kScale pass's clip partials, summed per slot in tile order.
+        for (int l = blockIdx.x * 32 + ptid; l < p.L; l += gridDim.x * 32) {
+          float s = 0.0f;
+          for (int t = 0; t < p.clip_tiles; ++t)
+            s += p.partials[static_cast<long long>(l) * p.clip_tiles + t];
+          p.clip[l] = s;
+        }
+      }
+      if (ptid == 0) {
+        int loads = 0;
+        for (int w = blockIdx.x; w < items; w += gridDim.x) {
+          const Item it = item_of<BN>(w, p, nk);
+          for (int kk = it.k0; kk < it.k1; ++kk, ++loads) {
+            const int st = loads % kRing;
+            mbar_wait(&empty[st], ((loads / kRing) & 1) ^ 1);
+            mbar_expect_tx(&full[st], S::A_BYTES + S::B_BYTES);
+            unsigned char* a = smem + st * S::STAGE;
+            const int k = kk * BK;
+            if constexpr (A_KM) {
+              tma_load(a, &map_a, &full[st], k, it.m0, it.l);
+            } else if constexpr (sizeof(TA) == 4) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                tma_load(a + q * 4096, &map_a, &full[st], it.m0 + 32 * q, k,
+                         it.l);
+            } else {
+              tma_load(a, &map_a, &full[st], it.m0, k, it.l);
+            }
+            tma_load(a + S::A_BYTES, &map_b, &full[st], k, it.n0, it.l);
+          }
+        }
+      }
+      __syncwarp();
+    } else {
+      int splits = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const Item it = item_of<BN>(w, p, nk);
+        for (int k = it.k0; k < it.k1; ++k, ++splits) {
+          const int st = splits % kRing;
+          mbar_wait(&full[st], (splits / kRing) & 1);
+          unsigned char* b = smem + st * S::STAGE + S::A_BYTES;
+          split_b<TB, BN>(b, b + S::B_BYTES, ptid - 32);
+          fence_proxy_async();
+          mbar_arrive(&ready[st]);
+        }
+      }
+    }
+    if (p.split > 1) cooperative_groups::this_grid().sync();
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kConsumerRegs));
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // This thread's fragment rows row and row + 8 of the 128-row tile;
+  // element e of k8 step j is (row + 8 (e & 1), 8 j + t + 4 (e >> 1)).
+  const int row = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + g;
+  int slices = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const Item it = item_of<BN>(w, p, nk);
+    float acc[BN / 2], part[BN / 2];
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[e] = part[e] = 0.0f;
+    const int ns = it.k1 - it.k0;
+    for (int s = 0; s < ns; ++s, ++slices) {
+      const int st = slices % kRing;
+      mbar_wait(&ready[st], (slices / kRing) & 1);
+      const unsigned char* a = smem + st * S::STAGE;
+      const unsigned char* b = a + S::A_BYTES;
+      const unsigned char* d = b + S::B_BYTES;
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = a_elem<TA, A_KM>(a, row + 8 * (e & 1),
+                                           8 * j + t + 4 * (e >> 1));
+          split_tr<A_EX>(x, ah[j][e], al[j][e]);
+        }
+      const uint64_t hi = sw128_desc(B_EX ? d : b);
+      const uint64_t lo = sw128_desc(d);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int keep = (s % kChunkSlices != 0 || j != 0) ? 1 : 0;
+        if constexpr (!A_EX) {
+          wgmma_tf32(part, al[j], hi + 2 * j, keep);
+          keep = 1;
+        }
+        if constexpr (!B_EX) {
+          wgmma_tf32(part, ah[j], lo + 2 * j, keep);
+          keep = 1;
+        }
+        wgmma_tf32(part, ah[j], hi + 2 * j, keep);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(part);
+      pin(ah);
+      pin(al);
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (s % kChunkSlices == kChunkSlices - 1 || s == ns - 1) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) acc[e] += part[e];
+      }
+    }
+    // Fragment (row, col) of acc[4 j + 2 h + e]: row + 8 h, 8 j + 2 t + e.
+    float cp = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = it.m0 + row + 8 * h;
+        const int c = it.n0 + 8 * j + 2 * t;
+        if (r >= p.M || c >= p.N) continue;
+        const float v0 = acc[4 * j + 2 * h];
+        const float v1 = acc[4 * j + 2 * h + 1];
+        if (p.split > 1) {
+          // The part as the epilogue will write it: [N][M] for kStoreT.
+          float* ws = p.split_ws +
+                      (static_cast<long long>(it.part) * p.L + it.l) * p.M *
+                          p.N;
+          if constexpr (EPI == kStoreT) {
+            ws[static_cast<long long>(c) * p.M + r] = v0;
+            ws[static_cast<long long>(c + 1) * p.M + r] = v1;
+          } else {
+            *reinterpret_cast<float2*>(ws + static_cast<long long>(r) * p.N +
+                                       c) = make_float2(v0, v1);
+          }
+        } else {
+          emit2<EPI, TD>(p, it.l, r, c, v0, v1, cp);
+        }
+      }
+    }
+    if (EPI == kScale && p.split == 1) {
+      const float s = consumers_sum(cp, red, tid);
+      if (tid == 0) {
+        const int per = p.tiles_m * p.tiles_n;
+        p.partials[static_cast<long long>(it.l) * per + it.tile % per] = s;
+      }
+    }
+  }
+
+  if (p.split > 1) {
+    cooperative_groups::this_grid().sync();
+    // Each tile's parts summed in part order, four neighbours a thread
+    // (along the output's contiguous axis: Y^T's rows for kStoreT).
+    const long long part_stride = static_cast<long long>(p.L) * p.M * p.N;
+    for (int tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+      const Item it = item_of<BN>(tl * p.split, p, nk);
+      const long long slot = static_cast<long long>(it.l) * p.M * p.N;
+      float cp = 0.0f;
+      for (int q = tid; q < BM * BN / 4; q += kConsumers) {
+        const int r = EPI == kStoreT ? it.m0 + 4 * (q % (BM / 4))
+                                     : it.m0 + q / (BN / 4);
+        const int c = EPI == kStoreT ? it.n0 + q / (BM / 4)
+                                     : it.n0 + 4 * (q % (BN / 4));
+        if (r >= p.M || c >= p.N) continue;
+        const long long off = EPI == kStoreT
+                                  ? static_cast<long long>(c) * p.M + r
+                                  : static_cast<long long>(r) * p.N + c;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int s = 0; s < kMaxSplit; ++s) {
+          if (s >= p.split) break;
+          const float4 x = *reinterpret_cast<const float4*>(
+              p.split_ws + s * part_stride + slot + off);
+          v.x += x.x;
+          v.y += x.y;
+          v.z += x.z;
+          v.w += x.w;
+        }
+        if constexpr (EPI == kStoreT) {
+          *reinterpret_cast<float4*>(p.C + slot + off) = v;
+        } else {
+          emit2<EPI, TD>(p, it.l, r, c, v.x, v.y, cp);
+          emit2<EPI, TD>(p, it.l, r, c + 2, v.z, v.w, cp);
+        }
+      }
+      if (EPI == kScale) {
+        const float s = consumers_sum(cp, red, tid);
+        if (tid == 0) {
+          const int per = p.tiles_m * p.tiles_n;
+          p.partials[static_cast<long long>(it.l) * per + it.tile % per] = s;
+        }
+      }
+    }
+  }
+}
+
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (the
+// library links no libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A rank-3 map of [L][rows][inner] (element type f32 or bf16), boxes of
+// box_inner x box_rows x 1; the 128-byte swizzle for f32, none for bf16.
+// Out-of-range box elements land as zeros.
+cudaError_t make_map(CUtensorMap* m, bool bf16, const void* base, int inner,
+                     int rows, int L, int box_inner, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t eb = bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(L)};
+  const cuuint64_t strides[2] = {dims[0] * eb, dims[0] * dims[1] * eb};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      m, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      bf16 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// SMs of the current device (asked once per device).
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (dev < 64 && counts[dev]) return counts[dev];
+  int n = 132;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < 64) counts[dev] = n;
+  return n;
+}
+
+// The tiling of one pass: BN, the tile grid, the K split and the
+// persistent grid.  K is split only where the tiles fill at most half
+// the SMs, into the S parts (each at least one accumulation chunk deep,
+// at most kMaxSplit) that minimise waves(S) * stages per part +
+// kSplitCost, waves(S) = ceil(tiles S / SMs), and only if that is under
+// three quarters of the unsplit cost.  kSplitCost prices the
+// cooperative launch, grid barrier and part sums in stages of products;
+// on an H100 splits into parts of a few stages lost to the whole pass
+// (PERF.md).
+constexpr int kSplitCost = 13;
+struct Plan {
+  int bn, tiles_m, tiles_n, split, grid;
+};
+Plan plan_pass(int L, int M, int N, int K, int bn, int sms) {
+  Plan pl{};
+  pl.bn = bn;
+  pl.tiles_m = (M + BM - 1) / BM;
+  pl.tiles_n = (N + bn - 1) / bn;
+  const long long tiles = static_cast<long long>(L) * pl.tiles_m * pl.tiles_n;
+  const int nk = (K + BK - 1) / BK;
+  const int most = 2 * tiles <= sms
+                       ? std::max(1, std::min(kMaxSplit, nk / kChunkSlices))
+                       : 1;
+  long long best = nk;  // one wave, unsplit
+  pl.split = 1;
+  for (int s = 2; s <= most; ++s) {
+    const long long waves = (tiles * s + sms - 1) / sms;
+    const long long cost = waves * ((nk + s - 1) / s) + kSplitCost;
+    if (cost < best) {
+      best = cost;
+      pl.split = s;
+    }
+  }
+  if (4 * best > 3 * nk) pl.split = 1;
+  pl.grid = static_cast<int>(std::min<long long>(tiles * pl.split, sms));
+  return pl;
+}
+
+// The four passes of a call and where each lives in the workspace.
+struct Chain {
+  Plan p1, p2, p3, p4;
+  long long split_at, partials_at, floats;
+};
+Chain chain_of(int L, int gp, int ap) {
+  const int sms = sm_count();
+  const int bn = ap <= 64 ? 32 : 128;
+  Chain c{};
+  c.p1 = plan_pass(L, ap, gp, ap, 128, sms);
+  c.p2 = plan_pass(L, gp, ap, gp, bn, sms);
+  c.p3 = plan_pass(L, gp, ap, ap, bn, sms);
+  c.p4 = plan_pass(L, gp, ap, gp, bn, sms);
+  const int most = std::max(std::max(c.p1.split, c.p2.split),
+                            std::max(c.p3.split, c.p4.split));
+  const long long plane = static_cast<long long>(L) * gp * ap;
+  c.split_at = 2 * plane;
+  c.partials_at = c.split_at + (most > 1 ? most * plane : 0);
+  c.floats = c.partials_at +
+             static_cast<long long>(L) * c.p2.tiles_m * c.p2.tiles_n;
+  return c;
+}
+
+template <typename TA, bool A_KM, bool A_EX, typename TB, int EPI,
+          typename TD, int BN>
+cudaError_t run_pass_bn(const TA* A, int a_inner, int a_rows, const TB* B,
+                        int b_inner, int b_rows, Args args, const Plan& pl,
+                        cudaStream_t stream) {
+  using S = Smem<TA, TB, BN>;
+  constexpr auto kernel = wgmma_pass<TA, A_KM, A_EX, TB, BN, EPI, TD>;
+  constexpr bool a16 = sizeof(TA) == 2;
+  CUtensorMap ma, mb;
+  cudaError_t err;
+  if ((err = make_map(&ma, a16, A, a_inner, a_rows, args.L,
+                      A_KM ? 32 : (a16 ? BM : 32), A_KM ? BM : BK)))
+    return err;
+  if ((err = make_map(&mb, sizeof(TB) == 2, B, b_inner, b_rows, args.L, BK,
+                      BN)))
+    return err;
+  if ((err = allow_smem<kernel>(S::BYTES))) return err;
+  args.tiles_m = pl.tiles_m;
+  args.tiles_n = pl.tiles_n;
+  args.split = pl.split;
+  if (pl.split == 1) {
+    kernel<<<pl.grid, kThreads, S::BYTES, stream>>>(ma, mb, args);
+    return cudaGetLastError();
+  }
+  void* params[] = {&ma, &mb, &args};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3(pl.grid), dim3(kThreads), params,
+                                     S::BYTES, stream);
+}
+
+template <typename TA, bool A_KM, bool A_EX, typename TB, int EPI,
+          typename TD>
+cudaError_t run_pass(const TA* A, int a_inner, int a_rows, const TB* B,
+                     int b_inner, int b_rows, const Args& args,
+                     const Plan& pl, cudaStream_t stream) {
+  if (pl.bn == 32)
+    return run_pass_bn<TA, A_KM, A_EX, TB, EPI, TD, 32>(
+        A, a_inner, a_rows, B, b_inner, b_rows, args, pl, stream);
+  return run_pass_bn<TA, A_KM, A_EX, TB, EPI, TD, 128>(
+      A, a_inner, a_rows, B, b_inner, b_rows, args, pl, stream);
+}
+
+// The chain for gp > 64 on shapes TMA takes:
+//   P1  W^T = qa^T g^T   (M = ap, N = gp, K = ap; A = qa M-major)
+//   P2  v2 = (qg^T W) * dgda, clip partials   (A = qg M-major, B = W^T)
+//   P3  Y = v2 qa^T, stored as Y^T            (A = v2, B = qa, K-major)
+//   P4  pg = qg Y, and the clip sums          (A = qg K-major, B = Y^T)
+// W^T lives in pg's buffer until P4 overwrites it.
+template <typename T>
+int launch_chain(const T* g, const T* qa, const T* qg, const T* dgda,
+                 float* pg, float* clip, float* ws, int L, int gp, int ap,
+                 cudaStream_t stream) {
+  constexpr bool BF = sizeof(T) == 2;
+  const Chain c = chain_of(L, gp, ap);
+  const long long plane = static_cast<long long>(L) * gp * ap;
+  float* v2 = ws;
+  float* yt = ws + plane;
+  Args a{};
+  a.split_ws = ws + c.split_at;
+  a.partials = ws + c.partials_at;
+  a.clip = clip;
+  a.L = L;
+  a.clip_tiles = c.p2.tiles_m * c.p2.tiles_n;
+  cudaError_t err;
+  a.C = pg;
+  a.M = ap; a.N = gp; a.K = ap;
+  if ((err = run_pass<T, false, BF, T, kStore, T>(qa, ap, ap, g, ap, gp, a,
+                                                  c.p1, stream)))
+    return err;
+  a.C = v2;
+  a.D = dgda;
+  a.M = gp; a.N = ap; a.K = gp;
+  if ((err = run_pass<T, false, BF, float, kScale, T>(qg, gp, gp, pg, gp, ap,
+                                                      a, c.p2, stream)))
+    return err;
+  a.C = yt;
+  a.M = gp; a.N = ap; a.K = ap;
+  if ((err = run_pass<float, true, BF, T, kStoreT, T>(v2, ap, gp, qa, ap, ap,
+                                                      a, c.p3, stream)))
+    return err;
+  a.C = pg;
+  a.M = gp; a.N = ap; a.K = gp;
+  return run_pass<T, true, BF, float, kClip, T>(qg, gp, gp, yt, gp, ap, a,
+                                                c.p4, stream);
+}
+
+// TMA takes rows of 16-byte multiples from 16-byte aligned bases.
+template <typename T>
+bool takes(int gp, int ap) {
+  const int per = 16 / static_cast<int>(sizeof(T));
+  return gp > 64 && gp % per == 0 && ap % per == 0;
+}
+
+}  // namespace wg
+
+// The route a call takes: 0 the fused pair (gp <= 64), 1 the wgmma chain,
+// 2 the cp.async chain (gp > 64 on rows TMA cannot take).  Chosen by
+// shape and alignment before any launch.
+template <typename T>
+int route_of(int gp, int ap, bool ptrs_aligned) {
+  if (gp <= 64) return 0;
+  return wg::takes<T>(gp, ap) && ptrs_aligned ? 1 : 2;
+}
+
 template <typename T>
 int launch(const T* g, const T* qa, const T* qg, const T* dgda, float* pg,
            float* clip, float* ws, int L, int gp, int ap,
            cudaStream_t stream) {
+  const bool ptrs = aligned16(g) && aligned16(qa) && aligned16(qg) &&
+                    aligned16(dgda) && aligned16(pg) && aligned16(ws);
+  const int route = route_of<T>(gp, ap, ptrs);
+  if (route == 1)
+    return wg::launch_chain<T>(g, qa, qg, dgda, pg, clip, ws, L, gp, ap,
+                               stream);
   int rows, cols, kernels;
   tiling(gp, &rows, &cols, &kernels);
   const long long plane = static_cast<long long>(L) * gp * ap;
   float* v2 = ws;
-  float* y = ws + plane;  // wide tiling only
+  float* y = ws + plane;  // the cp.async chain only
   float* partials = ws + (kernels == 2 ? 1 : 2) * plane;
-  const int aligned = gp % 8 == 0 && ap % 8 == 0 && aligned16(g) &&
-                      aligned16(qa) && aligned16(qg) && aligned16(dgda) &&
-                      aligned16(pg) && aligned16(ws);
+  const int aligned = gp % 8 == 0 && ap % 8 == 0 && ptrs;
   if (gp <= 32)
     return launch_fused<T, Tile32>(g, qa, qg, dgda, pg, clip, v2, partials,
                                    L, gp, ap, aligned, stream);
@@ -747,16 +1558,26 @@ int launch(const T* g, const T* qa, const T* qg, const T* dgda, float* pg,
 
 extern "C" {
 
-// f32 elements of the workspace a call needs: the v2 plane [L, gp, ap]
-// (plus the Y plane when gp > 64), then the clip partials, one per
-// block of the pass that writes them.
+// f32 elements of the workspace a call needs.  gp <= 64: the v2 plane
+// [L, gp, ap], then one clip partial per block of the forward kernel.
+// gp > 64: the larger of the two chains' needs: the v2 and Y planes,
+// then (wgmma chain) the split-K partial products of the pass that
+// splits K most, or (cp.async chain) nothing, then the clip partials.
 long long kfac_fused_eigen_precond_workspace(int L, int gp, int ap) {
   int rows, cols, kernels;
   tiling(gp, &rows, &cols, &kernels);
   const long long plane = static_cast<long long>(L) * gp * ap;
   const long long tiles = static_cast<long long>((ap + cols - 1) / cols) *
                           (kernels == 2 ? 1 : (gp + rows - 1) / rows);
-  return (kernels == 2 ? 1 : 2) * plane + L * tiles;
+  const long long need = (kernels == 2 ? 1 : 2) * plane + L * tiles;
+  if (gp <= 64) return need;
+  return std::max(need, wg::chain_of(L, gp, ap).floats);
+}
+
+// The route of a call with 16-byte aligned operands (route_of above).
+int kfac_fused_eigen_precond_route(int gp, int ap, int dtype) {
+  return dtype == 1 ? route_of<__nv_bfloat16>(gp, ap, true)
+                    : route_of<float>(gp, ap, true);
 }
 
 // dtype: 0 = float32 operands, 1 = bfloat16 operands.  pg [L, gp, ap] and

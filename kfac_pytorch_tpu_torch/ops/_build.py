@@ -24,9 +24,15 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_ROOT = PACKAGE_DIR / '_build'
+#: ``--split-compile=0`` runs the device code's optimisation and
+#: assembly on every core: the fused kernel's source, with its fourteen
+#: ``wgmma`` pass instantiations, took about twice as long to build
+#: without it on the H100 machine's 8 cores (``chip_smoke.py``'s
+#: ``build:`` line, ``PERF.md``), to the same registers and no spills.
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a',
     '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+    '--split-compile=0',
 )
 
 _lock = threading.Lock()

@@ -15,7 +15,8 @@ plain PyTorch chain, and its fake implementation gives the output shapes
 to ``FakeTensorMode`` and ``torch.compile``, so the precondition tail
 traces through the kernel with no graph break.  A CUDA build or launch
 that fails raises — it never falls back.  Unlike the TPU kernel there
-is no shape gate: every ``(gp, ap)`` is taken.
+is no shape gate: every ``(gp, ap)`` is taken, by one of three routes
+chosen by shape before the launch (:func:`kernel_route`).
 
 :func:`fused_eigen_precondition_sharded` is the KAISA form (the JAX
 package's ``shard_map`` over the grid's column axis): the same kernel on
@@ -100,6 +101,31 @@ def _check(g, qa, qg, dgda) -> None:
         )
 
 
+#: The kernel's routes, by the number ``csrc/fused_eigen_precond.cu``'s
+#: ``kfac_fused_eigen_precond_route`` gives them.
+ROUTES = ('pair', 'wgmma', 'cp.async')
+
+
+def kernel_route(gp: int, ap: int, dtype: torch.dtype) -> str:
+    """The route a CUDA call on contiguous (16-byte aligned) operands of
+    ``[L, gp, ap]`` takes, chosen by shape before any launch:
+
+    * ``'pair'``: ``gp <= 64``, the fused forward/back pair (two CUDA
+      kernels, ``mma.sync``);
+    * ``'wgmma'``: ``gp > 64`` on rows TMA can address (``gp`` and ``ap``
+      multiples of 4 for f32, of 8 for bf16): four persistent passes of
+      TMA-fed ``wgmma`` (four CUDA kernels);
+    * ``'cp.async'``: ``gp > 64`` on other rows: four ``mma.sync``
+      passes fed by ``cp.async`` with masked edges.
+
+    The kernel's own rule (``kfac_fused_eigen_precond_route``) in
+    Python, so the CPU tests reach it."""
+    if gp <= 64:
+        return 'pair'
+    per = 16 // (4 if dtype == torch.float32 else 2)
+    return 'wgmma' if gp % per == 0 and ap % per == 0 else 'cp.async'
+
+
 def _kernel_library() -> ctypes.CDLL:
     lib = _build.load_library('fused_eigen_precond')
     fn = lib.kfac_fused_eigen_precond
@@ -110,7 +136,18 @@ def _kernel_library() -> ctypes.CDLL:
         ws = lib.kfac_fused_eigen_precond_workspace
         ws.argtypes = [i, i, i]
         ws.restype = ctypes.c_longlong
+        route = lib.kfac_fused_eigen_precond_route
+        route.argtypes = [i, i, i]
+        route.restype = i
     return lib
+
+
+def library_route(gp: int, ap: int, dtype: torch.dtype) -> str:
+    """:func:`kernel_route` as the built library answers it (builds the
+    kernel on first use; for the card's tests and ``chip_smoke.py``)."""
+    lib = _kernel_library()
+    return ROUTES[lib.kfac_fused_eigen_precond_route(
+        gp, ap, _DTYPE_CODES[dtype])]
 
 
 def _launch_kernel(
@@ -131,8 +168,9 @@ def _launch_kernel(
     with torch.cuda.device(g.device):
         pg = torch.empty((L, gp, ap), dtype=torch.float32, device=g.device)
         clip = torch.empty((L,), dtype=torch.float32, device=g.device)
-        # The v2 plane and the clip partials (plus a second plane when
-        # gp > 64), as the kernel sizes them.
+        # The v2 plane and the clip partials (plus the Y plane and the
+        # split-K partial products when gp > 64), as the kernel sizes
+        # them.
         workspace = torch.empty(
             (lib.kfac_fused_eigen_precond_workspace(L, gp, ap),),
             dtype=torch.float32, device=g.device,

@@ -203,3 +203,123 @@ def test_kernel_arithmetic_matches_jax_kernel(L, gp, ap):
         one = _tf32_rna(g) @ _tf32_rna(qa)
         exact = g.double() @ qa.double()
         assert float((one.double() - exact).abs().max()) > 1e-4
+
+
+#: The wgmma route's constants (``csrc/fused_eigen_precond.cu``,
+#: namespace ``wg``): tile rows, K per ring stage, stages per accumulation
+#: chunk, the most K parts, a split's cost in stages, the H100's SMs.
+WG_BM, WG_BK, WG_CHUNK, WG_MAX_SPLIT, WG_SPLIT_COST, WG_SMS = (
+    128, 32, 4, 8, 13, 132)
+
+
+def _wg_split(L, M, N, K, bn, sms=WG_SMS):
+    """``plan_pass``'s K split: only where the tiles fill at most half the
+    SMs, the least-cost S (each part at least one chunk deep) of
+    ``waves(S) * stages per part + split cost``, if under three quarters
+    of the unsplit stages."""
+    tiles = L * -(-M // WG_BM) * -(-N // bn)
+    nk = -(-K // WG_BK)
+    most = max(1, min(WG_MAX_SPLIT, nk // WG_CHUNK)) if 2 * tiles <= sms else 1
+    best, split = nk, 1
+    for s in range(2, most + 1):
+        cost = -(-tiles * s // sms) * -(-nk // s) + WG_SPLIT_COST
+        if cost < best:
+            best, split = cost, s
+    return split if 4 * best <= 3 * nk else 1
+
+
+def _wg_mm(a, b, split, exact_a=False, exact_b=False):
+    """``a @ b`` ([L, M, K] by [L, K, N]) as a wgmma pass forms it: hi and
+    lo both truncated to TF32 (``hi = trunc(x)``, ``lo = trunc(x - hi)``;
+    a bf16 value is its own hi), K in ``split`` parts of whole 32-deep
+    stages, each part in 128-deep chunks of ``lo*hi + hi*lo + hi*hi``
+    summed in order, the parts summed in part order."""
+    K = a.shape[-1]
+    nk = -(-K // WG_BK)
+    a_hi = a if exact_a else _tf32_trunc(a)
+    b_hi = b if exact_b else _tf32_trunc(b)
+    a_lo = _tf32_trunc(a - a_hi)
+    b_lo = _tf32_trunc(b - b_hi)
+    out = None
+    for s in range(split):
+        k0 = s * nk // split * WG_BK
+        k1 = min((s + 1) * nk // split * WG_BK, K)
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        for c0 in range(k0, k1, WG_CHUNK * WG_BK):
+            ks = slice(c0, min(c0 + WG_CHUNK * WG_BK, k1))
+            chunk = a_hi[..., ks] @ b_hi[..., ks, :]
+            if not exact_a:
+                chunk = a_lo[..., ks] @ b_hi[..., ks, :] + chunk
+            if not exact_b:
+                chunk = a_hi[..., ks] @ b_lo[..., ks, :] + chunk
+            acc = acc + chunk
+        out = acc if out is None else out + acc
+    return out
+
+
+def _wide_arithmetic(g, qa, qg, dgda):
+    """The wgmma route's chain (gp > 64, f32 operands) as it runs:
+    ``W^T = qa^T g^T``, ``v1 = qg^T W``, ``Y = v2 qa^T``, ``pg = qg Y``,
+    each pass split and chunked as above, and the clip term summed per
+    128 x BN tile, the tiles in order."""
+    L, gp, ap = g.shape
+    bn = 32 if ap <= 64 else 128
+    wt = _wg_mm(qa.mT, g.mT, _wg_split(L, ap, gp, ap, 128))
+    v1 = _wg_mm(qg.mT, wt.mT, _wg_split(L, gp, ap, gp, bn))
+    v2 = v1 * dgda
+    prod = v1 * v2
+    clip = torch.zeros(L)
+    for m0 in range(0, gp, WG_BM):
+        for n0 in range(0, ap, bn):
+            clip = clip + prod[:, m0:m0 + WG_BM, n0:n0 + bn].sum(dim=(1, 2))
+    y = _wg_mm(v2, qa.mT, _wg_split(L, gp, ap, ap, bn))
+    pg = _wg_mm(qg, y, _wg_split(L, gp, ap, gp, bn))
+    return pg, clip
+
+
+@pytest.mark.parametrize('shape,split', [
+    # P1 of the card tests' split-K case and of ResNet-50's a1152g128
+    # and a1024g512 (few tiles, long K); none at a512g1024's 16 stages,
+    # a second partial wave of 136 tiles (a2176g1024), BERT-large's
+    # fc_out or where K is one stage deep.
+    ((2, 1152, 128, 1152, 128), 6), ((4, 1152, 128, 1152, 128), 3),
+    ((1, 1024, 512, 1024, 128), 4), ((1, 512, 1024, 512, 128), 1),
+    ((1, 2176, 1024, 2176, 128), 1), ((24, 4224, 1024, 4224, 128), 1),
+    ((1, 128, 32, 32, 32), 1),
+])
+def test_wgmma_split_rule(shape, split):
+    assert _wg_split(*shape) == split
+
+
+@pytest.mark.parametrize('L,gp,ap', [
+    (2, 96, 160), (1, 128, 32), (3, 72, 136), (1, 96, 1152),
+])
+def test_wide_arithmetic_matches_jax_kernel(L, gp, ap):
+    # The wgmma route's numbers (truncated 3xTF32 split, the P1-P4
+    # reassociation, 128-deep chunks, split-K parts in order) against the
+    # Pallas kernel at the card's f32 gate.
+    arrays = rand_inputs(L, gp, ap, seed=11 * L + gp + ap)
+    want_pg, want_clip = jax_fused(
+        *[jnp.asarray(a) for a in arrays], interpret=True,
+    )
+    pg, clip = _wide_arithmetic(*torch_args(arrays))
+    np.testing.assert_allclose(
+        pg.numpy(), np.asarray(want_pg), rtol=1e-5, atol=1e-4,
+    )
+    np.testing.assert_allclose(
+        clip.numpy(), np.asarray(want_clip), rtol=1e-5,
+    )
+
+
+@pytest.mark.parametrize('gp,ap,dtype,route', [
+    (32, 32, torch.float32, 'pair'), (64, 576, torch.bfloat16, 'pair'),
+    (65, 64, torch.float32, 'cp.async'), (128, 1152, torch.float32, 'wgmma'),
+    (1024, 32, torch.bfloat16, 'wgmma'), (257, 769, torch.float32, 'cp.async'),
+    (768, 3076, torch.float32, 'wgmma'), (768, 3076, torch.bfloat16, 'cp.async'),
+])
+def test_kernel_route_by_shape(gp, ap, dtype, route):
+    # TMA takes rows of 16-byte multiples: gp and ap multiples of 4 (f32)
+    # or 8 (bf16) above gp = 64; the fused pair below.
+    from kfac_pytorch_tpu_torch.ops.fused_precond import kernel_route
+
+    assert kernel_route(gp, ap, dtype) == route

@@ -54,7 +54,11 @@ def _inputs(L, gp, ap, device, seed=0):
 #: expert stacks ``[8, 3072, 769]`` and ``[8, 768, 3073]``, the dense
 #: layers as stacks of one) and the GPipe flavour's stage layers at
 #: GPT-125M widths, unpadded (``ap`` 769 and 3073: the unaligned load
-#: path), bf16 at two.
+#: path), bf16 at two.  Then the wgmma route's own cases: a K split over
+#: few tiles (``(2, 128, 1152)``), a second partial wave of 136 tiles
+#: (``(1, 1024, 2176)`` in bf16 too), 32-wide tiles at ``ap = 32``
+#: (BERT's LayerNorms) and a gp > 64 shape whose rows TMA cannot take
+#: (``(2, 257, 769)``, the cp.async route), each in f32 and bf16.
 CASES = [
     (9, 64, 576, 'f32'), (1, 64, 320, 'f32'), (9, 32, 320, 'f32'),
     (11, 32, 192, 'f32'), (1, 32, 128, 'f32'), (1, 32, 32, 'f32'),
@@ -76,7 +80,27 @@ CASES = [
     (1, 8, 768, 'f32'), (1, 8, 769, 'f32'), (1, 2304, 769, 'f32'),
     (1, 3072, 769, 'f32'), (1, 768, 3073, 'f32'), (8, 3072, 769, 'bf16'),
     (1, 768, 3073, 'bf16'),
+    (2, 128, 1152, 'f32'), (2, 128, 1152, 'bf16'), (1, 1024, 2176, 'bf16'),
+    (49, 1024, 32, 'f32'), (49, 1024, 32, 'bf16'), (2, 257, 769, 'f32'),
+    (2, 257, 769, 'bf16'),
 ]
+
+
+@pytest.mark.parametrize('gp,ap', [
+    (32, 32), (64, 576), (128, 1152), (1024, 32), (257, 769), (3072, 769),
+    (768, 3076), (768, 3080),
+])
+def test_kernel_route_matches_library_on_card(gp, ap):
+    """``kernel_route`` (the Python rule the CPU tests reach) gives the
+    route the built kernel takes, for f32 and bf16 operands."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the route is read from the built '
+                    'kernel')
+    from kfac_pytorch_tpu_torch.ops import fused_precond
+
+    for dtype in (torch.float32, torch.bfloat16):
+        assert (fused_precond.library_route(gp, ap, dtype)
+                == fused_precond.kernel_route(gp, ap, dtype))
 
 
 @pytest.mark.parametrize('L,gp,ap,dtype', CASES)
@@ -346,7 +370,8 @@ def test_observed_step_on_card(tmp_path):
     path = str(tmp_path / 'trace.json')
     prof.export_chrome_trace(path)
     fused = [inside for name, inside in kernel_ranges(path)
-             if 'precond_' in name or 'wide_pass' in name]
+             if 'precond_' in name or 'wgmma_pass' in name
+             or 'wide_pass' in name]
     assert launches == len(precond.plan.buckets)
     assert fused and all('kfac/precondition' in r for r in fused), fused
 
@@ -409,25 +434,30 @@ def test_flavours_on_card():
                                device='cpu').to(device)
         x = torch.randn(8, 6, 12, generator=torch.Generator().manual_seed(1))
         y = torch.arange(8) % 8
-        return model, MoEKFACPreconditioner(
+        precond = MoEKFACPreconditioner(
             model, lambda o, t: F.cross_entropy(o[0], t) + 0.01 * o[1],
-            **hp), (x.to(device),), (y.to(device),)
+            **hp)
+        return model, precond, lambda: precond.step(
+            x.to(device), loss_args=(y.to(device),))
 
     def pipe(device):
         model = pipeline_lm(PipeLMConfig(n_stages=2, max_seq_len=16),
                             device='cpu').to(device)
         tok = torch.arange(64).reshape(4, 16) % 256
-        return model, PipelineKFACPreconditioner(
+        precond = PipelineKFACPreconditioner(
             model, lambda o, t: F.cross_entropy(o.reshape(-1, 256),
                                                 t.reshape(-1)),
-            n_microbatches=2, **hp), (tok.to(device),), (tok.to(device),)
+            n_microbatches=2, **hp)
+        # The pipeline's step takes its loss arguments positionally.
+        return model, precond, lambda: precond.step(tok.to(device),
+                                                    tok.to(device))
 
     for build in (moe, pipe):
         out = {}
         for device in ('cpu', 'cuda'):
-            model, precond, args, loss_args = build(device)
+            model, precond, step = build(device)
             fused_eigen_precondition.launches = 0
-            loss = precond.step(*args, loss_args=loss_args)
+            loss = step()
             out[device] = (float(loss), {n: p.grad.cpu() for n, p in
                                          model.named_parameters()},
                            fused_eigen_precondition.launches)
