@@ -14,7 +14,10 @@ ResNet-32's six bucket calls issued one by one and as one CUDA graph
 (``chip_smoke.time_ms``/``graph_ms``, the ``kernel:`` line's numbers),
 the host microseconds of a call through the custom op and of the direct
 launch (``chip_smoke.op_host_cost``), and the ms of a call at each shape
-given (f32, ``chip_smoke.make_case`` operands).  Nothing is checked here:
+given (``chip_smoke.make_case`` operands in f32, then cast to bf16: keys
+``L,gp,ap`` and ``L,gp,ap bf16``), issued one by one and replayed as a
+CUDA graph (``... graph``: device time without the host's cost of
+issuing the call, which decides the eager time of the small calls).  Nothing is checked here:
 ``chip_smoke.py`` holds each tree's kernel against its plain version.
 """
 from __future__ import annotations
@@ -50,7 +53,13 @@ out['direct_host_us'] = sum(host['direct']) / len(host['direct'])
 for arg in sys.argv[2:]:
     shape = tuple(int(x) for x in arg.split(','))
     args = cs.make_case(torch, *shape, seed=7)
-    out[arg] = cs.time_ms(torch, lambda: kernel(*args))
+    for key in (arg, arg + ' bf16'):
+        if key.endswith('bf16'):
+            args = [a.to(torch.bfloat16) for a in args]
+        out[key] = cs.time_ms(torch, lambda: kernel(*args))
+        out[key + ' graph'] = cs.graph_ms(torch, [lambda: kernel(*args)])
+    del args
+    torch.cuda.empty_cache()
 print(json.dumps(out))
 '''
 
@@ -61,7 +70,7 @@ def main(argv):
     for name, tree in (('parent', parent), ('change', here),
                        ('change', here), ('parent', parent)):
         proc = subprocess.run([sys.executable, '-c', TURN, tree, *shapes],
-                              capture_output=True, text=True, timeout=600)
+                              capture_output=True, text=True, timeout=900)
         if proc.returncode:
             print(name, 'failed:', proc.stderr[-3000:], flush=True)
             return 1

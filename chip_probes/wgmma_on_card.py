@@ -8,17 +8,19 @@ Run from the root of the repository::
     python3 chip_probes/wgmma_on_card.py 24,1024,4224 1,1024,2176
     python3 chip_probes/wgmma_on_card.py --variants 'A=-DNAME=1' \\
         'B=-DNAME=2' 24,1024,4224
+    python3 chip_probes/wgmma_on_card.py --source other.cu --variants ...
 
 The first form builds the kernels (``ops/_build.py``) and, per shape,
 holds the kernel against its plain version in f32 (``rtol 1e-5, atol
 1e-4``) and bf16 (mean relative error 1e-3), with two runs bitwise
 equal, then prints the kernel's and the cuBLAS chain's times (CUDA
-events) and each CUDA kernel's device time in one f32 call
-(``torch.profiler``).  The second compiles
+events) and each CUDA kernel's device time in one call of each dtype
+(``torch.profiler``), with the route and order each dtype takes.  The second compiles
 ``csrc/fused_eigen_precond.cu`` once per ``NAME=flags`` (``nvcc`` with
 ``ops/_build.NVCC_FLAGS`` and those flags, into ``chiprun_out/var/``),
 loads each library through ``ctypes`` and times them at each shape in
-turns (a, b, ..., b, a; the least of two), after the same checks.
+turns (a, b, ..., b, a; the least of two), after the same checks;
+``--source`` builds another copy of the source instead.
 Nothing here is part of ``chip_smoke.py``.
 """
 from __future__ import annotations
@@ -36,6 +38,7 @@ if ROOT not in sys.path:
 import torch  # noqa: E402
 
 from kfac_pytorch_tpu_torch.ops import _build  # noqa: E402
+from kfac_pytorch_tpu_torch.ops import fused_precond  # noqa: E402
 from kfac_pytorch_tpu_torch.ops import fused_eigen_precondition  # noqa: E402
 from kfac_pytorch_tpu_torch.ops import (  # noqa: E402
     fused_eigen_precondition_reference as plain,
@@ -171,6 +174,10 @@ def main(argv):
          '--format=csv,noheader'], capture_output=True, text=True,
     ).stdout.strip(), flush=True)
     variants = {}
+    global SOURCE
+    if argv and argv[0] == '--source':
+        SOURCE = os.path.abspath(argv[1])
+        argv = argv[2:]
     if argv and argv[0] == '--variants':
         argv = argv[1:]
         while argv and '=' in argv[0]:
@@ -208,11 +215,16 @@ def main(argv):
                 line += ' cublas_ms=' + format(time_ms(
                     lambda: qg @ ((qg.mT @ g @ qa) * dgda) @ qa.mT, reps),
                     '.4f')
+            if not variants:
+                # (A checkout from before the bf16 route has no order.)
+                order = getattr(fused_precond, 'kernel_order',
+                                lambda *_: 'g.qa')
+                line += (f' route={fused_precond.kernel_route(gp, ap, dtype)}'
+                         f' order={order(gp, ap, dtype)}')
             print(line, flush=True)
-            if dtype == torch.float32:
-                for name, kernel in kernels.items():
-                    print(f'   {name} passes: {pass_times(kernel, args)}',
-                          flush=True)
+            for name, kernel in kernels.items():
+                print(f'   {name} passes: {pass_times(kernel, args)}',
+                      flush=True)
         del args32, args
         torch.cuda.empty_cache()
     print(f'bad {bad}', flush=True)

@@ -608,16 +608,27 @@ def precond_work(L, gp, ap, itemsize):
 def precond_bound(L, gp, ap, itemsize):
     """``(bound_ms, bytes_ms, ops_ms)`` of one fused call.  The
     operations take the least time of a result as exact as the plain
-    version's: for f32 operands the f32 CUDA-core FMA rate or 3xTF32 on
+    version's.  f32 operands: the f32 CUDA-core FMA rate or 3xTF32 on
     the tensor cores (three TF32 products per f32 product), whichever is
-    less; for bf16 operands the bf16 tensor-core rate."""
+    less.  bf16 operands: the TPU kernel keeps every intermediate in f32
+    (only ``v2`` is rounded), so of the four contractions two are bf16 x
+    bf16, at the bf16 tensor-core rate, and two multiply a bf16 basis by
+    an f32 intermediate, each at the cheaper exact form: three bf16
+    products (an f32 value is the sum of three bf16 values) or two TF32
+    products.  The association that makes the larger contraction of
+    each half bf16 x bf16 is counted (the kernel's, by shape).  The
+    elementwise products run at the f32 CUDA-core rate."""
     nbytes, mm, ew = precond_work(L, gp, ap, itemsize)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if itemsize == 4:
         t_ops = min((mm + ew) / F32_FLOPS,
                     3 * mm / TF32_FLOPS + ew / F32_FLOPS) * 1e3
     else:
-        t_ops = (mm + ew) / BF16_FLOPS * 1e3
+        pure = 4 * L * gp * ap * max(gp, ap)
+        mixed = mm - pure
+        t_ops = (pure / BF16_FLOPS
+                 + mixed * min(3 / BF16_FLOPS, 2 / TF32_FLOPS)
+                 + ew / F32_FLOPS) * 1e3
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
@@ -681,8 +692,34 @@ def make_case(torch, L, gp, ap, seed, device=None):
 
 
 def library_chain(g, qa, qg, dgda):
-    """The cuBLAS ``torch.matmul`` chain of the same function."""
-    return qg @ ((qg.mT @ g @ qa) * dgda) @ qa.mT
+    """The cuBLAS chain of the same function.  f32 operands: the
+    ``torch.matmul`` chain.  bf16 operands: the kernel's association
+    (``fused_precond.kernel_order``), the bf16 x bf16 products with f32
+    outputs (``torch.bmm(..., out_dtype=torch.float32)``), the products
+    of a basis and an f32 intermediate in f32 (TF32 off, as every phase
+    sets it), ``v2`` rounded to bf16 as the kernel and the TPU kernel
+    round it.  (A CPU rehearsal has no ``bmm.dtype``: it widens the
+    operands, the same values.)"""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops.fused_precond import kernel_order
+
+    if g.dtype == torch.float32:
+        return qg @ ((qg.mT @ g @ qa) * dgda) @ qa.mT
+
+    def mm16(a, b):
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return a.float() @ b.float()
+
+    L, gp, ap = g.shape
+    if kernel_order(gp, ap, g.dtype) == 'qgT.g':
+        v1 = mm16(qg.mT, g) @ qa.float()
+        v2 = (v1 * dgda.float()).to(torch.bfloat16)
+        return mm16(qg, v2) @ qa.float().mT
+    v1 = qg.float().mT @ mm16(g, qa)
+    v2 = (v1 * dgda.float()).to(torch.bfloat16)
+    return qg.float() @ mm16(v2, qa.mT)
 
 
 def time_case(torch, kernel, plain, args):
@@ -692,13 +729,27 @@ def time_case(torch, kernel, plain, args):
             time_ms(torch, lambda: library_chain(*args)))
 
 
-def step_entry(name, replaces, timed, max_err, kernels_per_call):
+def bf16_sums(timed16):
+    """One step's bf16 calls summed: ``timed16`` holds ``((L, gp, ap),
+    ms, plain_ms, library_ms)`` per call of bf16 operands."""
+    bound = sum(precond_bound(*shape, 2)[0] for shape, *_ in timed16)
+    ms = sum(t[1] for t in timed16)
+    return {'ms': ms, 'plain_ms': sum(t[2] for t in timed16),
+            'bound_ms': bound, 'share_of_bound': bound / ms,
+            'library_ms': sum(t[3] for t in timed16)}
+
+
+def step_entry(name, replaces, timed, max_err, kernels_per_call,
+               timed16=None):
     """A kernels-line entry summed over one step's f32 calls; ``timed``
     holds ``((L, gp, ap), ms, plain_ms, library_ms)`` per call and
-    ``kernels_per_call`` the CUDA kernels the profiler saw in each."""
+    ``kernels_per_call`` the CUDA kernels the profiler saw in each.
+    ``timed16``, the same calls on bf16 operands, adds their sums as
+    ``bf16`` (:func:`bf16_sums`)."""
     bounds = [precond_bound(L, gp, ap, 4) for (L, gp, ap), *_ in timed]
     t_bytes = sum(b[1] for b in bounds)
     t_ops = sum(b[2] for b in bounds)
+    extra = {} if timed16 is None else {'bf16': bf16_sums(timed16)}
     return {
         'name': name,
         'route': 'cuda',
@@ -712,6 +763,7 @@ def step_entry(name, replaces, timed, max_err, kernels_per_call):
         'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
         'library_ms': sum(t[3] for t in timed),
         'kernels_per_call': kernels_per_call,
+        **extra,
     }
 
 
@@ -737,15 +789,16 @@ def profile_worker(requests, replies):
     import kfac_pytorch_tpu_torch as kt
 
     while (req := requests.get()) is not None:
-        name, (L, gp, ap), seed = req
+        name, (L, gp, ap), seed, dtype = req
         kernel = getattr(kt.ops, name)
-        args = make_case(torch, L, gp, ap, seed=seed)
+        args = [a.to(getattr(torch, dtype))
+                for a in make_case(torch, L, gp, ap, seed=seed)]
         replies.put(kernel_device_times(torch, lambda: kernel(*args)))
         del args
         torch.cuda.empty_cache()
 
 
-def fresh_kernel_device_times(torch, name, shape, seed):
+def fresh_kernel_device_times(torch, name, shape, seed, dtype='float32'):
     """:func:`kernel_device_times` in :func:`profile_worker`, started at
     the first call.  After phases 16-17 this process's profiler sessions
     came up empty at every first try of a call, and once at five tries
@@ -761,7 +814,7 @@ def fresh_kernel_device_times(torch, name, shape, seed):
         proc.start()
         PROFILE_WORKER.append((proc, requests, replies))
     proc, requests, replies = PROFILE_WORKER[0]
-    requests.put((name, tuple(shape), seed))
+    requests.put((name, tuple(shape), seed, dtype))
     deadline = time.time() + PROFILE_WORKER_TIMEOUT_S
     while proc.is_alive() and time.time() < deadline:
         try:
@@ -783,21 +836,26 @@ def stop_profile_worker():
             proc.join()
 
 
-def profile_case(torch, kernel, args, shape, seed, at_most=None):
+def profile_case(torch, kernel, args, shape, seed, at_most=None,
+                 kind=None):
     """One line with the device time of each CUDA kernel one call issued
     (the names carry the tiling: ``Tile<rows, cols, ...>`` for the fused
-    pair, ``wgmma_pass<..., BN, pass, ...>`` for the large-gp chain on
-    TMA-addressable rows, ``wide_pass`` for the others); returns how many
-    there were.  ``args`` are :func:`make_case`'s operands for ``seed``.  When
-    no session here sees a kernel, the same call on the same operands is
-    profiled in a fresh process.  Fails if neither profiler saw a kernel,
-    or if a call issued more than ``at_most``."""
+    pair, ``wg::wgmma_pass<A_KM, BN, pass>`` for the large-gp f32 chain
+    and ``wgb::bf16_pass<A_MN, A planes, B_MN, B planes, MSUB, pass>``
+    for the bf16 one on TMA-addressable rows, ``wide_pass`` for the
+    others); returns how many there were.  ``args`` are :func:`make_case`'s
+    operands for ``seed``, f32 or cast to bf16.  When no session here
+    sees a kernel, the same call on the same operands is profiled in a
+    fresh process.  Fails if neither profiler saw a kernel, if a call
+    issued more than ``at_most``, or if a kernel's name does not hold
+    ``kind`` (when given)."""
     L, gp, ap = shape
+    dtype = str(args[0].dtype).removeprefix('torch.')
     seen, sessions = kernel_device_times(torch, lambda: kernel(*args))
     where = f'profiler session {sessions}'
     if not seen:
         seen, fresh = fresh_kernel_device_times(torch, kernel.__name__,
-                                                shape, seed)
+                                                shape, seed, dtype)
         where = (f'no kernel in {sessions} sessions here; a fresh '
                  f'process\'s session {fresh}')
     if not seen:
@@ -806,42 +864,51 @@ def profile_case(torch, kernel, args, shape, seed, at_most=None):
     per = ', '.join(f'{name} {ms:.5f} ms' for name, ms in seen)
     print(f'profile L={L} gp={gp} ap={ap}: {len(seen)} kernels per call: '
           f'{per}; sum {sum(ms for _, ms in seen):.5f} ms (torch.profiler, '
-          f'medians over three f32 calls, {where})',
+          f'medians over three {dtype} calls, {where})',
           flush=True)
     if at_most is not None and len(seen) > at_most:
-        fail(f'profile {shape}: {len(seen)} kernels per call on the path '
-             f'(at most {at_most})')
+        fail(f'profile {shape} {dtype}: {len(seen)} kernels per call on the '
+             f'path (at most {at_most})')
+    if kind is not None and not all(kind in name for name, _ in seen):
+        fail(f'profile {shape} {dtype}: kernels {[n for n, _ in seen]}, '
+             f'expected every one to be a {kind}')
     return len(seen)
 
 
 def case_routes(torch, shape):
-    """``'f32 route/bf16 route'`` of a call at ``shape`` (``pair``,
-    ``wgmma`` or ``cp.async``: ``fused_precond.kernel_route``), failing
-    if the built kernel's own rule answers otherwise (on the card; a CPU
-    rehearsal has no kernel to ask)."""
+    """``('f32 route/bf16 route', bf16 order)`` of a call at ``shape``
+    (``pair``, ``wgmma`` or ``cp.async``: ``fused_precond.kernel_route``;
+    ``g.qa`` or ``qgT.g``: ``kernel_order``), failing if the built
+    kernel's own rules answer otherwise (on the card; a CPU rehearsal
+    has no kernel to ask).  Every f32 call forms ``g qa`` first."""
     from kfac_pytorch_tpu_torch.ops import fused_precond
 
     _, gp, ap = shape
-    routes = []
+    routes, orders = [], []
     for dtype in (torch.float32, torch.bfloat16):
         route = fused_precond.kernel_route(gp, ap, dtype)
-        built = (fused_precond.library_route(gp, ap, dtype)
-                 if DEVICE == 'cuda' else route)
-        if route != built:
+        order = fused_precond.kernel_order(gp, ap, dtype)
+        built = ((fused_precond.library_route(gp, ap, dtype),
+                  fused_precond.library_order(gp, ap, dtype))
+                 if DEVICE == 'cuda' else (route, order))
+        if (route, order) != built:
             fail(f'case {shape} {dtype}: the kernel takes route {built}, '
-                 f'kernel_route says {route}')
+                 f'kernel_route and kernel_order say {(route, order)}')
         routes.append(route)
-    return '/'.join(routes)
+        orders.append(order)
+    return '/'.join(routes), orders[1]
 
 
 def check_case(torch, kernel, plain, shape, seed, at_most):
     """One bucket shape: the kernel against plain in f32 and bf16, two
-    runs bitwise equal, times, a ``case`` line (with the route each dtype
-    takes) and a ``profile`` line held to ``at_most`` kernels.  Returns
-    ``(max abs err, (shape, ms, plain_ms, library_ms), kernels per call,
-    args)``."""
+    runs bitwise equal, times of both dtypes, a ``case`` line (with the
+    route each dtype takes and the bf16 order) and a ``profile`` line
+    held to ``at_most`` kernels, and on the bf16 ``wgmma`` route one for
+    the bf16 call, every kernel a ``wgb::bf16_pass``.  Returns ``(max abs
+    err, (shape, ms, plain_ms, library_ms), kernels per call, args,
+    (shape, bf16 ms, plain_ms, library_ms))``."""
     L, gp, ap = shape
-    routes = case_routes(torch, shape)
+    routes, order16 = case_routes(torch, shape)
     args = make_case(torch, L, gp, ap, seed=seed)
     pg, clip = kernel(*args)
     pg2, clip2 = kernel(*args)
@@ -872,7 +939,7 @@ def check_case(torch, kernel, plain, shape, seed, at_most):
              f'{rel16:.3e} vs plain bf16')
     del pg, pg2, want_pg, pg16, pg16b, want16
     ms, plain_ms, library_ms = time_case(torch, kernel, plain, args)
-    ms16 = time_ms(torch, lambda: kernel(*bf))
+    ms16, plain16, library16 = time_case(torch, kernel, plain, bf)
     bound = precond_bound(L, gp, ap, 4)[0]
     bound16 = precond_bound(L, gp, ap, 2)[0]
     print(f'case L={L} gp={gp} ap={ap}: route={routes} '
@@ -881,11 +948,18 @@ def check_case(torch, kernel, plain, shape, seed, at_most):
           f'plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} '
           f'bound_ms={bound:.6f} share_of_bound={bound / ms:.3f} '
           f'bound_cuda_core_ms='
-          f'{precond_bound_cuda_core(L, gp, ap):.6f} | bf16 '
-          f'mean_rel_err_vs_f32={rel32:.3e} kernel_ms={ms16:.5f} '
-          f'bound_ms={bound16:.6f}', flush=True)
+          f'{precond_bound_cuda_core(L, gp, ap):.6f} | bf16 order={order16} '
+          f'mean_rel_err_vs_f32={rel32:.3e} mean_rel_err_vs_plain='
+          f'{rel16:.3e} kernel_ms={ms16:.5f} plain_ms={plain16:.5f} '
+          f'library_ms={library16:.5f} bound_ms={bound16:.6f} '
+          f'share_of_bound={bound16 / ms16:.3f}', flush=True)
     n = profile_case(torch, kernel, args, shape, seed, at_most=at_most)
-    return err, (shape, ms, plain_ms, library_ms), n, args
+    if routes.endswith('/wgmma'):
+        profile_case(torch, kernel, bf, shape, seed, at_most=at_most,
+                     kind='wgb::bf16_pass')
+    del bf
+    return (err, (shape, ms, plain_ms, library_ms), n, args,
+            (shape, ms16, plain16, library16))
 
 
 #: The cp.async route's case of phase 2 (gp > 64, rows TMA cannot take).
@@ -902,16 +976,18 @@ def phase_kernels(torch, ops):
     kernel = ops.fused_eigen_precondition
     plain = ops.fused_eigen_precondition_reference
     max_err = 0.0
-    step_calls, timed, per_call = [], [], []
+    step_calls, timed, timed16, per_call = [], [], [], []
     for i, shape in enumerate(MAIN_PATH_CASES):
-        err, t, n, args = check_case(torch, kernel, plain, shape, 100 + i, 2)
+        err, t, n, args, t16 = check_case(torch, kernel, plain, shape,
+                                          100 + i, 2)
         step_calls.append(lambda a=args: kernel(*a))
         timed.append(t)
+        timed16.append(t16)
         per_call.append(n)
         max_err = max(max_err, err)
     entry = step_entry('fused_eigen_precondition',
                        'kfac_pytorch_tpu/ops/pallas_precond.py:43', timed,
-                       max_err, per_call)
+                       max_err, per_call, timed16)
     # A gp > 64 shape whose rows TMA cannot take (ap = 769, as the
     # unpadded GPipe and MoE stacks have): the cp.async route, held
     # against plain in f32 and bf16 like every case.
@@ -951,35 +1027,48 @@ def bucket_entry(torch, kernel, plain, label, cases, seed, counts=None,
     faster."""
     counts = counts or [1] * len(cases)
     cases = [tuple(shape) for shape in cases]
-    err, timed, per_call = 0.0, [], []
+    err, timed, timed16, per_call = 0.0, [], [], []
     for i, (shape, count) in enumerate(zip(cases, counts)):
         if shape in CASES_SEEN:
-            e, t, n = CASES_SEEN[shape]
+            e, t, n, t16 = CASES_SEEN[shape]
         else:
-            e, t, n, _ = check_case(torch, kernel, plain, shape, seed + i,
-                                    2 if shape[1] <= 64 else 4)
-            CASES_SEEN[shape] = (e, t, n)
+            e, t, n, _, t16 = check_case(torch, kernel, plain, shape,
+                                         seed + i,
+                                         2 if shape[1] <= 64 else 4)
+            CASES_SEEN[shape] = (e, t, n, t16)
         err = max(err, e)
         timed += [t] * count
+        timed16 += [t16] * count
         per_call += [n] * count
         torch.cuda.empty_cache()
     out = step_entry(f'fused_eigen_precondition, {label} {what}',
                      'kfac_pytorch_tpu/ops/pallas_precond.py:43', timed, err,
-                     per_call)
+                     per_call, timed16)
     out['shapes'] = cases
     out['per_bucket'] = [
         dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              bound_ms=precond_bound(*shape, 4)[0],
-             share_of_bound=precond_bound(*shape, 4)[0] / ms)
-        for shape, ms, plain_ms, lib_ms in timed
+             share_of_bound=precond_bound(*shape, 4)[0] / ms,
+             bf16_ms=ms16, bf16_library_ms=lib16,
+             bf16_bound_ms=precond_bound(*shape, 2)[0],
+             bf16_share_of_bound=precond_bound(*shape, 2)[0] / ms16)
+        for (shape, ms, plain_ms, lib_ms), (_, ms16, _, lib16)
+        in zip(timed, timed16)
     ]
+    b16 = out['bf16']
     print(f'kernel {label}: one step\'s {len(timed)} calls: '
           f'{out["ms"]:.5f} ms issued one by one; plain '
           f'{out["plain_ms"]:.5f} ms; cuBLAS chain {out["library_ms"]:.5f} '
           f'ms; bound {out["bound_ms"]:.6f} ms ({out["bound_by"]}), '
           f'CUDA-core bound {step_bound_cuda_core(timed):.6f} ms; kernels '
           f'per call {per_call}; buckets where cuBLAS is faster: '
-          + str([shape for shape, ms, _, lib in timed if lib < ms]),
+          + str([shape for shape, ms, _, lib in timed if lib < ms])
+          + f' | bf16: {b16["ms"]:.5f} ms; plain {b16["plain_ms"]:.5f} ms; '
+          f'cuBLAS chain {b16["library_ms"]:.5f} ms; bound '
+          f'{b16["bound_ms"]:.6f} ms; share_of_bound '
+          f'{b16["share_of_bound"]:.3f}; buckets where the cuBLAS chain is '
+          'faster: '
+          + str([shape for shape, ms, _, lib in timed16 if lib < ms]),
           flush=True)
     return out
 
@@ -5332,6 +5421,11 @@ BERT_MASKED = 64  # the last positions of rows 0 and 1
 BERT_STEPS = 7
 BERT_CHECK_STEP = 5  # the second refresh
 BERT_FULL = dict(layer_types=('linear', 'embedding', 'layernorm'))
+#: The bf16 pass: the JAX package's accelerator defaults
+#: (``precond_dtype`` and ``cov_dtype`` bf16; f32 parameters, TF32 off),
+#: the refresh at step 0 only.
+BERT_BF16_STEPS = 3
+BERT_BF16 = dict(BERT_FULL, precond_dtype='bfloat16', cov_dtype='bfloat16')
 
 
 def report_coverage(label, precond, want_uncovered):
@@ -5410,29 +5504,12 @@ def phase_bert(torch, kt):
     type ids (as ``examples/squad_bert.py`` passes none), span loss on
     random starts and ends, full coverage (96 Dense layers, ``qa_head``
     and 49 LayerNorms in six buckets, ``wte`` on the diagonal side path),
-    ``BERT_STEPS`` steps with refreshes at 0 and ``BERT_CHECK_STEP``.
-    Returns the kernel launches."""
-    import torch.nn.functional as F
-
-    model = getattr(kt.models, BERT_MODEL)(device=DEVICE, seed=0)
+    ``BERT_STEPS`` steps with refreshes at 0 and ``BERT_CHECK_STEP``;
+    then the same model at the JAX package's accelerator precision
+    (:func:`bert_bf16_pass`).  Returns the kernel launches of both."""
+    model, fwd_bwd = bert_model(torch, kt)
     cfg = model.config
     B, T = BERT_BATCH
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(5)
-    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
-                           device=DEVICE)
-    mask = torch.ones(B, T, dtype=torch.bool, device=DEVICE)
-    mask[:2, T - BERT_MASKED:] = False
-    starts, ends = torch.randint(0, T - BERT_MASKED, (2, B), generator=gen,
-                                 device=DEVICE)
-
-    def fwd_bwd():
-        start, end = model(tokens, None, mask)
-        loss = (F.cross_entropy(start, starts)
-                + F.cross_entropy(end, ends)) / 2
-        loss.backward()
-        return loss.detach()
-
     run = train_path(torch, kt, 'bert', model, fwd_bwd, BERT_HP, BERT_STEPS,
                      BERT_CHECK_STEP, **BERT_FULL)
     precond = run['precond']
@@ -5455,7 +5532,100 @@ def phase_bert(torch, kt):
                 f'; the refresh step {BERT_CHECK_STEP} included')
     report_coverage('bert', precond, ['wpe'])
     launches = run['launches']
-    del run, precond, model
+    del run, precond, model, fwd_bwd
+    torch.cuda.empty_cache()
+    return launches + bert_bf16_pass(torch, kt)
+
+
+def bert_model(torch, kt):
+    """``(model, fwd_bwd)`` of phase 11: BERT-large from seed 0 and the
+    span loss of its fixed batch (``fwd_bwd()`` runs the forward and
+    backward passes and returns the detached loss)."""
+    import torch.nn.functional as F
+
+    model = getattr(kt.models, BERT_MODEL)(device=DEVICE, seed=0)
+    cfg = model.config
+    B, T = BERT_BATCH
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=DEVICE)
+    mask = torch.ones(B, T, dtype=torch.bool, device=DEVICE)
+    mask[:2, T - BERT_MASKED:] = False
+    starts, ends = torch.randint(0, T - BERT_MASKED, (2, B), generator=gen,
+                                 device=DEVICE)
+
+    def fwd_bwd():
+        start, end = model(tokens, None, mask)
+        loss = (F.cross_entropy(start, starts)
+                + F.cross_entropy(end, ends)) / 2
+        loss.backward()
+        return loss.detach()
+
+    return model, fwd_bwd
+
+
+def bert_bf16_pass(torch, kt):
+    """Phase 11's second run: BERT-large as above with ``precond_dtype``
+    and ``cov_dtype`` bf16 (the JAX package's defaults on its
+    accelerator), ``BERT_BF16_STEPS`` steps with the refresh at step 0
+    only.  Prints one ``bert bf16:`` line: the losses (finite and
+    falling, :func:`train_path`), the launches (one a bucket a step)
+    and each bucket's route and order (every ``gp > 64`` bucket on the
+    bf16 ``wgmma`` route, as the built kernel answers), the
+    ``precondition`` stage median and the kernel's ms a step, and the
+    time of the casts of every bucket's ``qa``, ``qg`` and ``dgda`` to
+    bf16 that each step makes before the kernel
+    (``second_order._bucket_tail``; CUDA events, mean of 20).  Returns
+    the launches."""
+    from kfac_pytorch_tpu_torch.ops import fused_precond
+
+    model, fwd_bwd = bert_model(torch, kt)
+    kw = {k: getattr(torch, v) if k.endswith('_dtype') else v
+          for k, v in BERT_BF16.items()}
+    run = train_path(torch, kt, 'bert bf16', model, fwd_bwd, BERT_HP,
+                     BERT_BF16_STEPS, **kw)
+    precond = run['precond']
+    shapes = check_plan('bert bf16', precond, BERT_CASES,
+                        BERT_MODEL == 'bert_large')
+    routes = []
+    for L, gp, ap in shapes:
+        route = fused_precond.kernel_route(gp, ap, torch.bfloat16)
+        order = fused_precond.kernel_order(gp, ap, torch.bfloat16)
+        if DEVICE == 'cuda' and (
+                route != fused_precond.library_route(gp, ap, torch.bfloat16)
+                or order != fused_precond.library_order(gp, ap,
+                                                        torch.bfloat16)):
+            fail(f'bert bf16: bucket {(L, gp, ap)}: kernel_route/order '
+                 f'{route}/{order} disagree with the built kernel')
+        if gp > 64 and route != 'wgmma':
+            fail(f'bert bf16: bucket {(L, gp, ap)} takes route {route}')
+        routes.append(f'{(L, gp, ap)} {route} {order}')
+    stacks = [bs for bs in precond.buckets.values() if bs.dgda is not None]
+
+    def casts():
+        return [t.to(torch.bfloat16).contiguous()
+                for bs in stacks for t in (bs.qa, bs.qg, bs.dgda)]
+
+    cast_ms = time_ms(torch, casts)
+    losses = run['losses']
+    ms = {k: v[0] for k, v in run['stage_ms'].items()}
+    print(f'bert bf16: precond_dtype=cov_dtype=bfloat16, f32 parameters, '
+          f'TF32 off, {BERT_BF16_STEPS} steps, refresh at step 0: losses '
+          f'{[round(v, 5) for v in losses]}; launches {run["launches"]} '
+          f'({kernel_buckets(precond)} buckets x {BERT_BF16_STEPS} steps); '
+          f'buckets {routes}; median step '
+          f'{statistics.median(run["step_s"][1:]) * 1e3:.4f} ms (steps '
+          f'1-{BERT_BF16_STEPS - 1}); stage medians (CUDA events): factors '
+          f'{ms["factors (cov+EMA)"]:.4f} ms, precondition '
+          f'{ms["precondition"]:.4f} ms, the kernel a step '
+          f'{statistics.median(run["kernel_step_ms"]):.4f} ms (median of '
+          f'{len(run["kernel_step_ms"])}); refresh '
+          f'{run["refresh_ms"][0]:.2f} ms; the per-step casts of qa, qg and '
+          f'dgda to bf16 ({len(stacks)} buckets) {cast_ms:.4f} ms',
+          flush=True)
+    launches = run['launches']
+    del run, precond, model, fwd_bwd, stacks
     torch.cuda.empty_cache()
     return launches
 
@@ -6244,7 +6414,7 @@ RN50_OBS_FLIGHT = dict(window=8, flush_every=4)
 OBSERVE_MODEL = ('resnet50', 1000)
 #: The fused kernel's CUDA kernels, by a part of their names.
 FUSED_KERNEL_NAMES = ('precond_forward', 'precond_back', 'wgmma_pass',
-                      'wide_pass')
+                      'bf16_pass', 'wide_pass')
 
 
 def kernel_ranges(trace_path, prefix='kfac/'):

@@ -39,7 +39,7 @@
 //
 // 2. gp > 64 on rows of 16-byte multiples (f32 gp, ap multiples of 4,
 //    bf16 of 8) from 16-byte aligned bases: four passes, each one
-//    persistent kernel of TMA-fed `wgmma` (namespace wg):
+//    persistent kernel of TMA-fed `wgmma`.  f32 operands (namespace wg):
 //
 //     P1  W^T = qa^T g^T     M = ap, N = gp, K = ap  -> pg's buffer
 //     P2  v2 = (qg^T W) * dgda, clip partials    M = gp, N = ap, K = gp
@@ -75,6 +75,16 @@
 //    parts are stored, the grid synchronises, and each tile's parts are
 //    summed in part order before its epilogue.
 //
+//    bf16 operands (namespace wgb) run on bf16 `wgmma` at twice TF32's
+//    rate, both operands read from shared memory by descriptor in either
+//    major order, so no pass has a register path or a split.  The
+//    association is chosen by shape: where ap >= gp, X = g qa first and
+//    X = v2 qa^T in the back rotation; where gp > ap, the TPU kernel's
+//    X = qg^T g and X = qg v2.  So the larger contraction of each half
+//    is bf16 x bf16 (P1, P3); the other (P2, P4) multiplies a bf16 basis
+//    by the f32 X, which P1 and P3 write as three bf16 planes that sum
+//    to it exactly, three bf16 products.  v2 is a bf16 plane.
+//
 // 3. gp > 64 on other rows (e.g. ap = 769, 3073 of the unpadded GPipe
 //    and MoE stacks): TMA cannot address them, so the same four products
 //    run as launches of one 128x128-tile `mma.sync` GEMM through the
@@ -93,9 +103,11 @@
 // not round to nearest, so K is summed in chunks into fresh
 // accumulators that are added in f32: 32 deep in the pair and route 3,
 // 128 (four ring stages, scale-d = 0 at each chunk's first product) in
-// route 2.  bf16 operands are exact in TF32, so a bf16 x bf16 product
-// takes one TF32 product and a bf16 x f32 one two; as in the TPU kernel,
-// v2 is rounded to bf16 before the back-rotation.
+// route 2's f32 passes.  bf16 operands: the pair and route 3 take them
+// as TF32 (exact), one TF32 product for bf16 x bf16 and two for bf16 x
+// f32; route 2's bf16 passes as above, each K part summed in one
+// accumulator.  As in the TPU kernel, v2 is rounded to bf16 before the
+// back-rotation.
 //
 // Sums use no atomics: each block reduces its tile in a fixed order, the
 // clip partials are summed in tile order and split-K parts in part order,
@@ -749,7 +761,8 @@ bool aligned16(const void* p) {
 
 
 // ---------------------------------------------------------------------
-// The gp > 64 route: four persistent passes of TMA-fed `wgmma`.
+// The gp > 64 route for f32 operands: four persistent passes of TMA-fed
+// TF32 `wgmma` (the bf16 operands' route is namespace wgb, below).
 //
 // Each pass is C[l] (M x N) = A[l] B[l] over every slot, A M x K and B
 // K x N.  B is always K-major in device memory (its rows are K-
@@ -938,13 +951,13 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
 
 // Shared memory of a pass: kRing stages of (A tile, B tile, D tile),
 // then the barriers and the consumers' reduction scratch.  The A and B
-// tiles are as TMA lands them (f32 B is read as its TF32 hi part by the
-// MMA's truncation); the D tile holds B's TF32 lo part (f32 B) or B
-// widened to f32 (bf16 B).  Every tile starts on a 1024-byte boundary.
-template <typename TA, typename TB, int BN>
+// tiles are as TMA lands them (B is read as its TF32 hi part by the
+// MMA's truncation); the D tile holds B's TF32 lo part.  Every tile
+// starts on a 1024-byte boundary.
+template <int BN>
 struct Smem {
-  static constexpr int A_BYTES = BM * BK * static_cast<int>(sizeof(TA));
-  static constexpr int B_BYTES = BN * BK * static_cast<int>(sizeof(TB));
+  static constexpr int A_BYTES = BM * BK * 4;
+  static constexpr int B_BYTES = BN * BK * 4;
   static constexpr int D_BYTES = BN * 128;
   static constexpr int STAGE = A_BYTES + B_BYTES + D_BYTES;
   static constexpr int BAR = kRing * STAGE;
@@ -953,49 +966,33 @@ struct Smem {
   static_assert(STAGE % 1024 == 0, "tiles on 1024-byte boundaries");
 };
 
-// Element (i, k) of the landed A tile (M x K = 128 x 32).  f32 K-major:
-// one 128-byte-swizzled [i][k] box; f32 M-major: four [k][32 i] boxes,
-// each 128-byte-swizzled; bf16: one unswizzled box, [i][k] or [k][i].
-template <typename TA, bool A_KM>
+// Element (i, k) of the landed A tile (M x K = 128 x 32).  K-major: one
+// 128-byte-swizzled [i][k] box; M-major: four [k][32 i] boxes, each
+// 128-byte-swizzled.
+template <bool A_KM>
 __device__ __forceinline__ float a_elem(const unsigned char* t, int i, int k) {
-  if constexpr (sizeof(TA) == 4) {
-    const int off = A_KM ? sw128(i, k * 4)
-                         : (i >> 5) * 4096 + sw128(k, (i & 31) * 4);
-    return *reinterpret_cast<const float*>(t + off);
-  } else {
-    const int off = A_KM ? i * 64 + k * 2 : k * 256 + i * 2;
-    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(t + off));
-  }
+  const int off = A_KM ? sw128(i, k * 4)
+                       : (i >> 5) * 4096 + sw128(k, (i & 31) * 4);
+  return *reinterpret_cast<const float*>(t + off);
 }
 
-// A splitter thread's share of one landed B tile (BN x 32, K-major):
-// f32 B gives its lo part, trunc(x - trunc(x)), to D; bf16 B is widened
-// into D.  D and the f32 tile share the swizzle.
-template <typename TB, int BN>
+// A splitter thread's share of one landed B tile (BN x 32, K-major): its
+// lo part, trunc(x - trunc(x)), to D.  D and the B tile share the
+// swizzle.
+template <int BN>
 __device__ __forceinline__ void split_b(unsigned char* b, unsigned char* d,
                                         int idx) {
 #pragma unroll 4
   for (int q = idx; q < BN * 8; q += kSplitters) {
     const int row = q >> 3;
     const int off = sw128(row, (q & 7) * 16);
-    if constexpr (sizeof(TB) == 4) {
-      const float4 x = *reinterpret_cast<const float4*>(b + off);
-      float4 lo;
-      lo.x = __uint_as_float(tf32_lo(x.x));
-      lo.y = __uint_as_float(tf32_lo(x.y));
-      lo.z = __uint_as_float(tf32_lo(x.z));
-      lo.w = __uint_as_float(tf32_lo(x.w));
-      *reinterpret_cast<float4*>(d + off) = lo;
-    } else {
-      const uint2 raw =
-          *reinterpret_cast<const uint2*>(b + row * 64 + (q & 7) * 8);
-      float4 hi;
-      hi.x = __uint_as_float(raw.x << 16);
-      hi.y = __uint_as_float(raw.x & 0xffff0000u);
-      hi.z = __uint_as_float(raw.y << 16);
-      hi.w = __uint_as_float(raw.y & 0xffff0000u);
-      *reinterpret_cast<float4*>(d + off) = hi;
-    }
+    const float4 x = *reinterpret_cast<const float4*>(b + off);
+    float4 lo;
+    lo.x = __uint_as_float(tf32_lo(x.x));
+    lo.y = __uint_as_float(tf32_lo(x.y));
+    lo.z = __uint_as_float(tf32_lo(x.z));
+    lo.w = __uint_as_float(tf32_lo(x.w));
+    *reinterpret_cast<float4*>(d + off) = lo;
   }
 }
 
@@ -1021,7 +1018,7 @@ __device__ __forceinline__ Item item_of(int w, const Args& p, int nk) {
 }
 
 // Two neighbouring outputs (r, c), (r, c + 1) of slot l: the epilogue.
-template <int EPI, typename TD>
+template <int EPI>
 __device__ __forceinline__ void emit2(const Args& p, int l, int r, int c,
                                       float v0, float v1, float& cp) {
   const long long plane = static_cast<long long>(p.M) * p.N;
@@ -1032,13 +1029,13 @@ __device__ __forceinline__ void emit2(const Args& p, int l, int r, int c,
   } else {
     const long long off = static_cast<long long>(r) * p.N + c;
     if constexpr (EPI == kScale) {
-      const TD* D = static_cast<const TD*>(p.D) + l * plane;
-      const float x0 = v0 * load_f(D[off]);
-      const float x1 = v1 * load_f(D[off + 1]);
+      const float* D = static_cast<const float*>(p.D) + l * plane;
+      const float x0 = v0 * D[off];
+      const float x1 = v1 * D[off + 1];
       cp = fmaf(v0, x0, cp);
       cp = fmaf(v1, x1, cp);
-      v0 = round_to<TD>(x0);
-      v1 = round_to<TD>(x1);
+      v0 = x0;
+      v1 = x1;
     }
     *reinterpret_cast<float2*>(C + off) = make_float2(v0, v1);
   }
@@ -1062,18 +1059,16 @@ __device__ __forceinline__ float consumers_sum(float v, float* red, int tid) {
 // landed B tile once, as soon as it lands.  Warpgroups 0 and 1 consume,
 // each taking 64 rows of the 128 x BN tile: A fragments into registers
 // (split into TF32 hi and lo there), then per k8 step lo*hi + hi*lo +
-// hi*hi on `wgmma` (fewer for bf16 operands).  Every kChunkSlices
+// hi*hi on `wgmma`.  Every kChunkSlices
 // stages the chunk's fresh accumulators are added to the tile's in f32.
 // With split > 1 (a launch that is cooperative), the K parts are
 // stored, the grid synchronises, and each tile's parts are summed in
 // part order before the epilogue.
-template <typename TA, bool A_KM, bool A_EX, typename TB, int BN, int EPI,
-          typename TD>
+template <bool A_KM, int BN, int EPI>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_pass(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_b, const Args p) {
-  using S = Smem<TA, TB, BN>;
-  constexpr bool B_EX = sizeof(TB) == 2;
+  using S = Smem<BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
@@ -1124,13 +1119,11 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int k = kk * BK;
             if constexpr (A_KM) {
               tma_load(a, &map_a, &full[st], k, it.m0, it.l);
-            } else if constexpr (sizeof(TA) == 4) {
+            } else {
 #pragma unroll
               for (int q = 0; q < 4; ++q)
                 tma_load(a + q * 4096, &map_a, &full[st], it.m0 + 32 * q, k,
                          it.l);
-            } else {
-              tma_load(a, &map_a, &full[st], it.m0, k, it.l);
             }
             tma_load(a + S::A_BYTES, &map_b, &full[st], k, it.n0, it.l);
           }
@@ -1145,7 +1138,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int st = splits % kRing;
           mbar_wait(&full[st], (splits / kRing) & 1);
           unsigned char* b = smem + st * S::STAGE + S::A_BYTES;
-          split_b<TB, BN>(b, b + S::B_BYTES, ptid - 32);
+          split_b<BN>(b, b + S::B_BYTES, ptid - 32);
           fence_proxy_async();
           mbar_arrive(&ready[st]);
         }
@@ -1181,25 +1174,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float x = a_elem<TA, A_KM>(a, row + 8 * (e & 1),
-                                           8 * j + t + 4 * (e >> 1));
-          split_tr<A_EX>(x, ah[j][e], al[j][e]);
+          const float x = a_elem<A_KM>(a, row + 8 * (e & 1),
+                                       8 * j + t + 4 * (e >> 1));
+          split_tr<false>(x, ah[j][e], al[j][e]);
         }
-      const uint64_t hi = sw128_desc(B_EX ? d : b);
+      const uint64_t hi = sw128_desc(b);
       const uint64_t lo = sw128_desc(d);
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        int keep = (s % kChunkSlices != 0 || j != 0) ? 1 : 0;
-        if constexpr (!A_EX) {
-          wgmma_tf32(part, al[j], hi + 2 * j, keep);
-          keep = 1;
-        }
-        if constexpr (!B_EX) {
-          wgmma_tf32(part, ah[j], lo + 2 * j, keep);
-          keep = 1;
-        }
-        wgmma_tf32(part, ah[j], hi + 2 * j, keep);
+        const int keep = (s % kChunkSlices != 0 || j != 0) ? 1 : 0;
+        wgmma_tf32(part, al[j], hi + 2 * j, keep);
+        wgmma_tf32(part, ah[j], lo + 2 * j, 1);
+        wgmma_tf32(part, ah[j], hi + 2 * j, 1);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -1236,7 +1223,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                        c) = make_float2(v0, v1);
           }
         } else {
-          emit2<EPI, TD>(p, it.l, r, c, v0, v1, cp);
+          emit2<EPI>(p, it.l, r, c, v0, v1, cp);
         }
       }
     }
@@ -1281,8 +1268,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         if constexpr (EPI == kStoreT) {
           *reinterpret_cast<float4*>(p.C + slot + off) = v;
         } else {
-          emit2<EPI, TD>(p, it.l, r, c, v.x, v.y, cp);
-          emit2<EPI, TD>(p, it.l, r, c + 2, v.z, v.w, cp);
+          emit2<EPI>(p, it.l, r, c, v.x, v.y, cp);
+          emit2<EPI>(p, it.l, r, c + 2, v.z, v.w, cp);
         }
       }
       if (EPI == kScale) {
@@ -1325,27 +1312,26 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A rank-3 map of [L][rows][inner] (element type f32 or bf16), boxes of
-// box_inner x box_rows x 1; the 128-byte swizzle for f32, none for bf16.
+// A rank-3 map of [L][rows][inner] (elements of `eb` bytes: f32 or
+// bf16), boxes of box_inner x box_rows x 1 in the 128-byte swizzle.
 // Out-of-range box elements land as zeros.
-cudaError_t make_map(CUtensorMap* m, bool bf16, const void* base, int inner,
+cudaError_t make_map(CUtensorMap* m, int eb, const void* base, int inner,
                      int rows, int L, int box_inner, int box_rows) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t eb = bf16 ? 2 : 4;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(L)};
-  const cuuint64_t strides[2] = {dims[0] * eb, dims[0] * dims[1] * eb};
+  const cuuint64_t strides[2] = {dims[0] * static_cast<cuuint64_t>(eb),
+                                 dims[0] * dims[1] * static_cast<cuuint64_t>(eb)};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(
-      m, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      m, eb == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
       3, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      bf16 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1362,10 +1348,11 @@ int sm_count() {
   return n;
 }
 
-// The tiling of one pass: BN, the tile grid, the K split and the
-// persistent grid.  K is split only where the tiles fill at most half
-// the SMs, into the S parts (each at least one accumulation chunk deep,
-// at most kMaxSplit) that minimise waves(S) * stages per part +
+// The tiling of one pass (BM x bn tiles, K in ring stages of bk): BN,
+// the tile grid, the K split and the persistent grid.  K is split only
+// where the tiles fill at most half the SMs, into the S parts (each at
+// least 128 deep, at most kMaxSplit) that minimise waves(S) * stages
+// per part +
 // kSplitCost, waves(S) = ceil(tiles S / SMs), and only if that is under
 // three quarters of the unsplit cost.  kSplitCost prices the
 // cooperative launch, grid barrier and part sums in stages of products;
@@ -1375,15 +1362,15 @@ constexpr int kSplitCost = 13;
 struct Plan {
   int bn, tiles_m, tiles_n, split, grid;
 };
-Plan plan_pass(int L, int M, int N, int K, int bn, int sms) {
+Plan plan_pass(int L, int M, int N, int K, int bm, int bn, int bk, int sms) {
   Plan pl{};
   pl.bn = bn;
-  pl.tiles_m = (M + BM - 1) / BM;
+  pl.tiles_m = (M + bm - 1) / bm;
   pl.tiles_n = (N + bn - 1) / bn;
   const long long tiles = static_cast<long long>(L) * pl.tiles_m * pl.tiles_n;
-  const int nk = (K + BK - 1) / BK;
+  const int nk = (K + bk - 1) / bk;
   const int most = 2 * tiles <= sms
-                       ? std::max(1, std::min(kMaxSplit, nk / kChunkSlices))
+                       ? std::max(1, std::min(kMaxSplit, nk / (128 / bk)))
                        : 1;
   long long best = nk;  // one wave, unsplit
   pl.split = 1;
@@ -1409,10 +1396,10 @@ Chain chain_of(int L, int gp, int ap) {
   const int sms = sm_count();
   const int bn = ap <= 64 ? 32 : 128;
   Chain c{};
-  c.p1 = plan_pass(L, ap, gp, ap, 128, sms);
-  c.p2 = plan_pass(L, gp, ap, gp, bn, sms);
-  c.p3 = plan_pass(L, gp, ap, ap, bn, sms);
-  c.p4 = plan_pass(L, gp, ap, gp, bn, sms);
+  c.p1 = plan_pass(L, ap, gp, ap, BM, 128, BK, sms);
+  c.p2 = plan_pass(L, gp, ap, gp, BM, bn, BK, sms);
+  c.p3 = plan_pass(L, gp, ap, ap, BM, bn, BK, sms);
+  c.p4 = plan_pass(L, gp, ap, gp, BM, bn, BK, sms);
   const int most = std::max(std::max(c.p1.split, c.p2.split),
                             std::max(c.p3.split, c.p4.split));
   const long long plane = static_cast<long long>(L) * gp * ap;
@@ -1423,21 +1410,18 @@ Chain chain_of(int L, int gp, int ap) {
   return c;
 }
 
-template <typename TA, bool A_KM, bool A_EX, typename TB, int EPI,
-          typename TD, int BN>
-cudaError_t run_pass_bn(const TA* A, int a_inner, int a_rows, const TB* B,
-                        int b_inner, int b_rows, Args args, const Plan& pl,
-                        cudaStream_t stream) {
-  using S = Smem<TA, TB, BN>;
-  constexpr auto kernel = wgmma_pass<TA, A_KM, A_EX, TB, BN, EPI, TD>;
-  constexpr bool a16 = sizeof(TA) == 2;
+template <bool A_KM, int EPI, int BN>
+cudaError_t run_pass_bn(const float* A, int a_inner, int a_rows,
+                        const float* B, int b_inner, int b_rows, Args args,
+                        const Plan& pl, cudaStream_t stream) {
+  using S = Smem<BN>;
+  constexpr auto kernel = wgmma_pass<A_KM, BN, EPI>;
   CUtensorMap ma, mb;
   cudaError_t err;
-  if ((err = make_map(&ma, a16, A, a_inner, a_rows, args.L,
-                      A_KM ? 32 : (a16 ? BM : 32), A_KM ? BM : BK)))
+  if ((err = make_map(&ma, 4, A, a_inner, a_rows, args.L, 32,
+                      A_KM ? BM : BK)))
     return err;
-  if ((err = make_map(&mb, sizeof(TB) == 2, B, b_inner, b_rows, args.L, BK,
-                      BN)))
+  if ((err = make_map(&mb, 4, B, b_inner, b_rows, args.L, BK, BN)))
     return err;
   if ((err = allow_smem<kernel>(S::BYTES))) return err;
   args.tiles_m = pl.tiles_m;
@@ -1453,29 +1437,26 @@ cudaError_t run_pass_bn(const TA* A, int a_inner, int a_rows, const TB* B,
                                      S::BYTES, stream);
 }
 
-template <typename TA, bool A_KM, bool A_EX, typename TB, int EPI,
-          typename TD>
-cudaError_t run_pass(const TA* A, int a_inner, int a_rows, const TB* B,
+template <bool A_KM, int EPI>
+cudaError_t run_pass(const float* A, int a_inner, int a_rows, const float* B,
                      int b_inner, int b_rows, const Args& args,
                      const Plan& pl, cudaStream_t stream) {
   if (pl.bn == 32)
-    return run_pass_bn<TA, A_KM, A_EX, TB, EPI, TD, 32>(
-        A, a_inner, a_rows, B, b_inner, b_rows, args, pl, stream);
-  return run_pass_bn<TA, A_KM, A_EX, TB, EPI, TD, 128>(
-      A, a_inner, a_rows, B, b_inner, b_rows, args, pl, stream);
+    return run_pass_bn<A_KM, EPI, 32>(A, a_inner, a_rows, B, b_inner, b_rows,
+                                      args, pl, stream);
+  return run_pass_bn<A_KM, EPI, 128>(A, a_inner, a_rows, B, b_inner, b_rows,
+                                     args, pl, stream);
 }
 
-// The chain for gp > 64 on shapes TMA takes:
+// The f32 chain for gp > 64 on shapes TMA takes:
 //   P1  W^T = qa^T g^T   (M = ap, N = gp, K = ap; A = qa M-major)
 //   P2  v2 = (qg^T W) * dgda, clip partials   (A = qg M-major, B = W^T)
 //   P3  Y = v2 qa^T, stored as Y^T            (A = v2, B = qa, K-major)
 //   P4  pg = qg Y, and the clip sums          (A = qg K-major, B = Y^T)
 // W^T lives in pg's buffer until P4 overwrites it.
-template <typename T>
-int launch_chain(const T* g, const T* qa, const T* qg, const T* dgda,
-                 float* pg, float* clip, float* ws, int L, int gp, int ap,
-                 cudaStream_t stream) {
-  constexpr bool BF = sizeof(T) == 2;
+int launch_chain(const float* g, const float* qa, const float* qg,
+                 const float* dgda, float* pg, float* clip, float* ws, int L,
+                 int gp, int ap, cudaStream_t stream) {
   const Chain c = chain_of(L, gp, ap);
   const long long plane = static_cast<long long>(L) * gp * ap;
   float* v2 = ws;
@@ -1489,24 +1470,23 @@ int launch_chain(const T* g, const T* qa, const T* qg, const T* dgda,
   cudaError_t err;
   a.C = pg;
   a.M = ap; a.N = gp; a.K = ap;
-  if ((err = run_pass<T, false, BF, T, kStore, T>(qa, ap, ap, g, ap, gp, a,
-                                                  c.p1, stream)))
+  if ((err = run_pass<false, kStore>(qa, ap, ap, g, ap, gp, a, c.p1,
+                                    stream)))
     return err;
   a.C = v2;
   a.D = dgda;
   a.M = gp; a.N = ap; a.K = gp;
-  if ((err = run_pass<T, false, BF, float, kScale, T>(qg, gp, gp, pg, gp, ap,
-                                                      a, c.p2, stream)))
+  if ((err = run_pass<false, kScale>(qg, gp, gp, pg, gp, ap, a, c.p2,
+                                    stream)))
     return err;
   a.C = yt;
   a.M = gp; a.N = ap; a.K = ap;
-  if ((err = run_pass<float, true, BF, T, kStoreT, T>(v2, ap, gp, qa, ap, ap,
-                                                      a, c.p3, stream)))
+  if ((err = run_pass<true, kStoreT>(v2, ap, gp, qa, ap, ap, a, c.p3,
+                                    stream)))
     return err;
   a.C = pg;
   a.M = gp; a.N = ap; a.K = gp;
-  return run_pass<T, true, BF, float, kClip, T>(qg, gp, gp, yt, gp, ap, a,
-                                                c.p4, stream);
+  return run_pass<true, kClip>(qg, gp, gp, yt, gp, ap, a, c.p4, stream);
 }
 
 // TMA takes rows of 16-byte multiples from 16-byte aligned bases.
@@ -1517,6 +1497,596 @@ bool takes(int gp, int ap) {
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------
+// The gp > 64 route for bf16 operands: four persistent passes of bf16
+// `wgmma` (m64n128k16, or m64n64k16 where ap <= 64; f32 sums), both
+// operands read from shared memory by descriptor.  bf16 `wgmma` takes A and B in either major order, so
+// every tile is read as TMA lands it (128-byte swizzle, 64 bf16 a row),
+// whichever index the pass contracts: no registers, no widening, no
+// split on the consumers' path.
+//
+// Every pass computes an [L][gp][ap] output C = A B.  The products of
+// two bf16 operands run once; a bf16 basis times an f32 intermediate X
+// runs as three, X = hi + mid + lo, three bf16 planes that sum to X
+// exactly, written by the epilogue of the pass that produces X.  The
+// association is chosen by shape so that the larger contraction of
+// each half of the chain is the bf16 x bf16 one:
+//
+//   order 0 (ap >= gp)                 order 1 (gp > ap, the TPU's)
+//   P1  X = g qa          (K = ap)     X = qg^T g        (K = gp)
+//   P2  v2 = (qg^T X) dgda (K = gp)    v2 = (X qa) dgda  (K = ap)
+//   P3  X = v2 qa^T       (K = ap)     X = qg v2         (K = gp)
+//   P4  pg = qg X         (K = gp)     pg = X qa^T       (K = ap)
+//
+// P1 and P3 are single-plane passes on 256 x 128 tiles (two consumer
+// warpgroups of 128 rows, two m64 products each) where those fill a
+// wave of the SMs, else 128 x 128; P2 and P4 read three planes of one
+// operand and take 128 x 128 tiles; all are 64 columns wide where
+// ap <= 64.  On an H100 the passes are bound by their TMA loads: at
+// BERT-large's fc_out a build without the products took as long as the
+// whole (PERF.md).  v2 is stored as a bf16 plane (the TPU kernel rounds
+// it to the operand type before the back rotation).  Sums run over the
+// whole K part in one accumulator:
+// at bf16's gate (1e-3) the tensor cores' truncating sum is far inside
+// (~K/16 truncations of 2^-24 each).  The persistent items, the
+// producer's TMA ring, the fixed-order sums and the split-K rule are
+// wg's.
+namespace wgb {
+
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::saddr;
+using wg::tma_load;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
+using bf16 = __nv_bfloat16;
+
+constexpr int BK = 64;     // K of one ring stage: one 128-byte bf16 row
+constexpr int kRingBytes = 196608;
+constexpr int kConsumers = wg::kConsumers;
+constexpr int kThreads = wg::kThreads;
+// The producer warpgroup only issues TMA (one lane); its registers go
+// to the consumers' accumulators.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(wg::kProducers * kProducerRegs + kConsumers * kConsumerRegs <=
+                  kThreads * 168,
+              "setmaxnreg moves registers, it makes none");
+
+enum Epi { kSplit3 = 0, kScale = 1, kClip = 2 };
+
+struct Args {
+  void* C;             // kSplit3: planes [3][L][M][N] bf16; kScale: v2
+                       // [L][M][N] bf16; kClip: pg [L][M][N] f32
+  const bf16* D;       // kScale: dgda
+  float* partials;     // clip partials, [L][clip_tiles]
+  float* clip;         // kClip: the per-slot sums
+  float* split_ws;     // split > 1: [split][L][M][N] partial products
+  int L, M, N, K;
+  int tiles_m, tiles_n, split;
+  int clip_tiles;      // tiles per slot of the kScale pass
+};
+
+// Shared memory of a pass: kRing stages of (A planes, B planes), then
+// the barriers and the consumers' reduction scratch.  A plane of A is
+// BM x 64 bf16: K-major one [BM][64] box, M-major BM / 64 boxes of
+// [64 k][64 m]; a plane of B is BN x 64: K-major one [BN][64] box,
+// N-major BN / 64 [64 k][64 n] boxes.  Every box lands 128-byte
+// swizzled on a 1024-byte boundary.
+template <int MSUB, int BN, int A_PL, int B_PL>
+struct Smem {
+  static constexpr int BM = 128 * MSUB;
+  static constexpr int A_PLANE = BM * 128;
+  static constexpr int B_PLANE = BN * 128;
+  static constexpr int STAGE = A_PL * A_PLANE + B_PL * B_PLANE;
+  static constexpr int kRing = std::min(6, kRingBytes / STAGE);
+  static constexpr int BAR = kRing * STAGE;
+  static constexpr int RED = BAR + 2 * kRing * 8;
+  static constexpr int BYTES = RED + 8 * 4 + 1024;  // + alignment slack
+  static_assert(kRing >= 2, "a ring of at least two stages");
+};
+
+// `wgmma` descriptor of a 128-byte-swizzled tile: `lbo` the byte stride
+// between 64-wide MN blocks (MN-major only), `sbo` between 8-row groups.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (m64 x n64, f32) += a (m64 x k16) * b (k16 x n64), bf16 from shared
+// memory (the tiles of ap <= 64).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %34, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "n"(TA), "n"(TB), "r"(1));
+}
+
+// d (m64 x n128, f32) += a (m64 x k16) * b (k16 x n128), bf16 from
+// shared memory; TA / TB = 1 for an M- / N-major operand.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %66, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "n"(TA), "n"(TB), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// A work item: as wg::Item, on this pass's tiles.
+struct Item {
+  int l, m0, n0, part, k0, k1, tile;
+};
+template <int BM, int BN>
+__device__ __forceinline__ Item item_of(int w, const Args& p, int nk) {
+  Item it;
+  it.part = w % p.split;
+  it.tile = w / p.split;
+  const int nt = it.tile % p.tiles_n;
+  const int mt = (it.tile / p.tiles_n) % p.tiles_m;
+  it.l = it.tile / (p.tiles_n * p.tiles_m);
+  it.m0 = mt * BM;
+  it.n0 = nt * BN;
+  it.k0 = it.part * nk / p.split;
+  it.k1 = (it.part + 1) * nk / p.split;
+  return it;
+}
+
+// Two neighbouring outputs (r, c), (r, c + 1) of slot l: the epilogue.
+template <int EPI>
+__device__ __forceinline__ void emit2(const Args& p, int l, int r, int c,
+                                      float v0, float v1, float& cp) {
+  const long long plane = static_cast<long long>(p.M) * p.N;
+  const long long off = l * plane + static_cast<long long>(r) * p.N + c;
+  if constexpr (EPI == kSplit3) {
+    // v = hi + mid + lo exactly: each part is the rest of the one
+    // before it (exact in f32) rounded to bf16.
+    bf16* C = static_cast<bf16*>(p.C);
+    const long long stride = static_cast<long long>(p.L) * plane;
+    float x0 = v0, x1 = v1;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      *reinterpret_cast<__nv_bfloat162*>(C + q * stride + off) = h;
+      x0 -= __low2float(h);
+      x1 -= __high2float(h);
+    }
+  } else if constexpr (EPI == kScale) {
+    const __nv_bfloat162 d =
+        *reinterpret_cast<const __nv_bfloat162*>(p.D + off);
+    const float x0 = v0 * __low2float(d);
+    const float x1 = v1 * __high2float(d);
+    cp = fmaf(v0, x0, cp);
+    cp = fmaf(v1, x1, cp);
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.C) + off) =
+        __floats2bfloat162_rn(x0, x1);
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(p.C) + off) =
+        make_float2(v0, v1);
+  }
+}
+
+// One pass, C = A B over A_PL planes of A and B_PL of B (one side has
+// one).  A_MN: A is M-major in device memory (A(m, k) at [k][m]); B_MN:
+// B is N-major (B(k, n) at [k][n]).  Lane 0 of warpgroup 2 keeps the
+// ring's TMA loads in flight; warpgroups 0 and 1 each take MSUB 64-row
+// slices of the BM x BN tile and issue, per k16 step, one `wgmma` a
+// slice and plane pair, keeping one stage's group in flight.  With
+// split > 1 (a cooperative launch) the K parts are stored, the grid
+// synchronises, and each tile's parts are summed in part order before
+// the epilogue.
+template <bool A_MN, int A_PL, bool B_MN, int B_PL, int MSUB, int BN,
+          int EPI>
+__global__ void __launch_bounds__(kThreads, 1)
+    bf16_pass(const __grid_constant__ CUtensorMap map_a,
+              const __grid_constant__ CUtensorMap map_b, const Args p) {
+  using S = Smem<MSUB, BN, A_PL, B_PL>;
+  constexpr int BM = S::BM;
+  constexpr int kRing = S::kRing;
+  constexpr int PL = A_PL > B_PL ? A_PL : B_PL;
+  static_assert(A_PL == 1 || B_PL == 1, "one side has one plane");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* empty = full + kRing;
+  float* red = reinterpret_cast<float*>(smem + S::RED);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles = p.L * p.tiles_m * p.tiles_n;
+  const int items = tiles * p.split;
+  const int nk = (p.K + BK - 1) / BK;
+
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    const int ptid = tid - kConsumers;
+    if (ptid < 32) {
+      if constexpr (EPI == kClip) {
+        // The kScale pass's clip partials, summed per slot in tile order.
+        for (int l = blockIdx.x * 32 + ptid; l < p.L; l += gridDim.x * 32) {
+          float s = 0.0f;
+          for (int t = 0; t < p.clip_tiles; ++t)
+            s += p.partials[static_cast<long long>(l) * p.clip_tiles + t];
+          p.clip[l] = s;
+        }
+      }
+      if (ptid == 0) {
+        int loads = 0;
+        for (int w = blockIdx.x; w < items; w += gridDim.x) {
+          const Item it = item_of<BM, BN>(w, p, nk);
+          for (int kk = it.k0; kk < it.k1; ++kk, ++loads) {
+            const int st = loads % kRing;
+            mbar_wait(&empty[st], ((loads / kRing) & 1) ^ 1);
+            mbar_expect_tx(&full[st], S::STAGE);
+            unsigned char* a = smem + st * S::STAGE;
+            unsigned char* b = a + A_PL * S::A_PLANE;
+            const int k = kk * BK;
+            // Plane q of slot l is slot q L + l of the planes' map.
+#pragma unroll
+            for (int q = 0; q < A_PL; ++q) {
+              unsigned char* dst = a + q * S::A_PLANE;
+              if constexpr (A_MN) {
+#pragma unroll
+                for (int h = 0; h < BM / 64; ++h)
+                  tma_load(dst + h * 8192, &map_a, &full[st], it.m0 + 64 * h,
+                           k, q * p.L + it.l);
+              } else {
+                tma_load(dst, &map_a, &full[st], k, it.m0, q * p.L + it.l);
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < B_PL; ++q) {
+              unsigned char* dst = b + q * S::B_PLANE;
+              if constexpr (B_MN) {
+#pragma unroll
+                for (int h = 0; h < BN / 64; ++h)
+                  tma_load(dst + h * 8192, &map_b, &full[st], it.n0 + 64 * h,
+                           k, q * p.L + it.l);
+              } else {
+                tma_load(dst, &map_b, &full[st], k, it.n0, q * p.L + it.l);
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+    if (p.split > 1) cooperative_groups::this_grid().sync();
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kConsumerRegs));
+  const int wgi = tid >> 7;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // This thread's fragment row of slice i: row(i) and row(i) + 8.
+  const int row = ((tid >> 5) & 3) * 16 + g;
+  int slices = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const Item it = item_of<BM, BN>(w, p, nk);
+    float acc[MSUB][BN / 2];
+#pragma unroll
+    for (int i = 0; i < MSUB; ++i)
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc[i][e] = 0.0f;
+    const int ns = it.k1 - it.k0;
+    for (int s = 0; s < ns; ++s, ++slices) {
+      const int st = slices % kRing;
+      mbar_wait(&full[st], (slices / kRing) & 1);
+      const uint32_t a = saddr(smem + st * S::STAGE);
+      const uint32_t b = a + A_PL * S::A_PLANE;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+#pragma unroll
+        for (int i = 0; i < MSUB; ++i) {
+          const int slice = wgi * MSUB + i;  // 64-row slice of the tile
+#pragma unroll
+          for (int q = 0; q < PL; ++q) {
+            const uint32_t ap = a + (A_PL > 1 ? q : 0) * S::A_PLANE;
+            const uint32_t bp = b + (B_PL > 1 ? q : 0) * S::B_PLANE;
+            // K-major: a k16 step is 32 bytes along the swizzled row;
+            // MN-major: 16 rows of 128 bytes.
+            const uint64_t da =
+                A_MN ? desc(ap + slice * 8192 + j * 2048, 8192, 1024)
+                     : desc(ap + slice * 8192 + j * 32, 16, 1024);
+            const uint64_t db = B_MN ? desc(bp + j * 2048, 8192, 1024)
+                                     : desc(bp + j * 32, 16, 1024);
+            wgmma_bf16<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc[i], da, db);
+          }
+        }
+      }
+      wgmma_commit();
+      // The stage before this one is read once its group is done.
+      if (s > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty[(slices + kRing - 1) % kRing]);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MSUB; ++i) wg::pin(acc[i]);
+    if (ns > 0 && lane == 0) mbar_arrive(&empty[(slices + kRing - 1) % kRing]);
+    // Fragment (row, col) of acc[i][4 j + 2 h + e]: slice i's row + 8 h,
+    // 8 j + 2 t + e.
+    float cp = 0.0f;
+#pragma unroll
+    for (int i = 0; i < MSUB; ++i) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = it.m0 + (wgi * MSUB + i) * 64 + row + 8 * h;
+          const int c = it.n0 + 8 * j + 2 * t;
+          if (r >= p.M || c >= p.N) continue;
+          const float v0 = acc[i][4 * j + 2 * h];
+          const float v1 = acc[i][4 * j + 2 * h + 1];
+          if (p.split > 1) {
+            float* ws = p.split_ws +
+                        (static_cast<long long>(it.part) * p.L + it.l) *
+                            p.M * p.N;
+            *reinterpret_cast<float2*>(ws + static_cast<long long>(r) * p.N +
+                                       c) = make_float2(v0, v1);
+          } else {
+            emit2<EPI>(p, it.l, r, c, v0, v1, cp);
+          }
+        }
+      }
+    }
+    if (EPI == kScale && p.split == 1) {
+      const float s = wg::consumers_sum(cp, red, tid);
+      if (tid == 0) {
+        const int per = p.tiles_m * p.tiles_n;
+        p.partials[static_cast<long long>(it.l) * per + it.tile % per] = s;
+      }
+    }
+  }
+
+  if (p.split > 1) {
+    cooperative_groups::this_grid().sync();
+    // Each tile's parts summed in part order, four neighbours a thread.
+    const long long part_stride = static_cast<long long>(p.L) * p.M * p.N;
+    for (int tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+      const Item it = item_of<BM, BN>(tl * p.split, p, nk);
+      const long long slot = static_cast<long long>(it.l) * p.M * p.N;
+      float cp = 0.0f;
+      for (int q = tid; q < BM * BN / 4; q += kConsumers) {
+        const int r = it.m0 + q / (BN / 4);
+        const int c = it.n0 + 4 * (q % (BN / 4));
+        if (r >= p.M || c >= p.N) continue;
+        const long long off = static_cast<long long>(r) * p.N + c;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int s = 0; s < wg::kMaxSplit; ++s) {
+          if (s >= p.split) break;
+          const float4 x = *reinterpret_cast<const float4*>(
+              p.split_ws + s * part_stride + slot + off);
+          v.x += x.x;
+          v.y += x.y;
+          v.z += x.z;
+          v.w += x.w;
+        }
+        emit2<EPI>(p, it.l, r, c, v.x, v.y, cp);
+        emit2<EPI>(p, it.l, r, c + 2, v.z, v.w, cp);
+      }
+      if (EPI == kScale) {
+        const float s = wg::consumers_sum(cp, red, tid);
+        if (tid == 0) {
+          const int per = p.tiles_m * p.tiles_n;
+          p.partials[static_cast<long long>(it.l) * per + it.tile % per] = s;
+        }
+      }
+    }
+  }
+}
+
+// The four passes of a call, their order and where each lives in the
+// workspace: the X planes (3 L gp ap bf16) and the v2 plane (L gp ap
+// bf16) fill two f32 planes, then the split-K parts and the clip
+// partials.
+struct Chain {
+  int order;  // 0: X = g qa first; 1: X = qg^T g first
+  int msub;   // 64-row slices a warpgroup takes in P1 and P3
+  int bn;     // tile columns: 64 where ap <= 64, else 128
+  wg::Plan p1, p2, p3, p4;
+  long long split_at, partials_at, floats;
+};
+Chain chain_of(int L, int gp, int ap) {
+  const int sms = wg::sm_count();
+  Chain c{};
+  c.order = gp > ap ? 1 : 0;
+  const int k13 = c.order ? gp : ap;  // P1 and P3 contract this
+  const int k24 = c.order ? ap : gp;
+  // 256-row tiles in P1 and P3 where 256 x 128 tiles fill a wave of the
+  // SMs, else 128 rows (on an H100, 128 x 128 and 128 x 256 tiles were
+  // slower there, PERF.md); 64 columns where ap <= 64, which 128-wide
+  // tiles would half waste.
+  const long long tiles256 =
+      static_cast<long long>(L) * ((gp + 255) / 256) * ((ap + 127) / 128);
+  c.msub = tiles256 >= sms ? 2 : 1;
+  c.bn = ap <= 64 ? 64 : 128;
+  c.p1 = wg::plan_pass(L, gp, ap, k13, 128 * c.msub, c.bn, BK, sms);
+  c.p2 = wg::plan_pass(L, gp, ap, k24, 128, c.bn, BK, sms);
+  c.p3 = wg::plan_pass(L, gp, ap, k13, 128 * c.msub, c.bn, BK, sms);
+  c.p4 = wg::plan_pass(L, gp, ap, k24, 128, c.bn, BK, sms);
+  const int most = std::max(std::max(c.p1.split, c.p2.split),
+                            std::max(c.p3.split, c.p4.split));
+  const long long plane = static_cast<long long>(L) * gp * ap;
+  c.split_at = 2 * plane;
+  c.partials_at = c.split_at + (most > 1 ? most * plane : 0);
+  c.floats = c.partials_at +
+             static_cast<long long>(L) * c.p2.tiles_m * c.p2.tiles_n;
+  return c;
+}
+
+// One pass on operands A (a_rows x a_inner a slot, as device memory
+// holds them) and B: their tensor maps (A_PL L or B_PL L slots of 64-wide
+// boxes), then the launch, cooperative where K is split.
+template <bool A_MN, int A_PL, bool B_MN, int B_PL, int MSUB, int BN,
+          int EPI>
+cudaError_t run_pass(const bf16* A, int a_inner, int a_rows, const bf16* B,
+                     int b_inner, int b_rows, Args args, const wg::Plan& pl,
+                     cudaStream_t stream) {
+  using S = Smem<MSUB, BN, A_PL, B_PL>;
+  constexpr auto kernel = bf16_pass<A_MN, A_PL, B_MN, B_PL, MSUB, BN, EPI>;
+  CUtensorMap ma, mb;
+  cudaError_t err;
+  if ((err = wg::make_map(&ma, 2, A, a_inner, a_rows, A_PL * args.L, 64,
+                          A_MN ? 64 : S::BM)))
+    return err;
+  if ((err = wg::make_map(&mb, 2, B, b_inner, b_rows, B_PL * args.L, 64,
+                          B_MN ? 64 : BN)))
+    return err;
+  if ((err = allow_smem<kernel>(S::BYTES))) return err;
+  args.tiles_m = pl.tiles_m;
+  args.tiles_n = pl.tiles_n;
+  args.split = pl.split;
+  if (pl.split == 1) {
+    kernel<<<pl.grid, kThreads, S::BYTES, stream>>>(ma, mb, args);
+    return cudaGetLastError();
+  }
+  void* params[] = {&ma, &mb, &args};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3(pl.grid), dim3(kThreads), params,
+                                     S::BYTES, stream);
+}
+
+// The chain with MSUB-slice tiles in P1 and P3, BN columns in all four.
+// Operands by (pointer, inner extent, rows) as device memory holds them:
+// g, dgda, v2 and the X planes [gp][ap], qa [ap][ap], qg [gp][gp].
+template <int MSUB, int BN>
+int run_chain(const Chain& c, const bf16* g, const bf16* qa, const bf16* qg,
+              const bf16* dgda, float* pg, bf16* x, bf16* v2, Args a,
+              int gp, int ap, cudaStream_t stream) {
+  cudaError_t err;
+  if (c.order == 0) {
+    a.C = x;
+    a.K = ap;
+    if ((err = run_pass<false, 1, true, 1, MSUB, BN, kSplit3>(
+             g, ap, gp, qa, ap, ap, a, c.p1, stream)))
+      return err;
+    a.C = v2;
+    a.D = dgda;
+    a.K = gp;
+    if ((err = run_pass<true, 1, true, 3, 1, BN, kScale>(
+             qg, gp, gp, x, ap, gp, a, c.p2, stream)))
+      return err;
+    a.C = x;
+    a.K = ap;
+    if ((err = run_pass<false, 1, false, 1, MSUB, BN, kSplit3>(
+             v2, ap, gp, qa, ap, ap, a, c.p3, stream)))
+      return err;
+    a.C = pg;
+    a.K = gp;
+    return run_pass<false, 1, true, 3, 1, BN, kClip>(qg, gp, gp, x, ap, gp,
+                                                     a, c.p4, stream);
+  }
+  a.C = x;
+  a.K = gp;
+  if ((err = run_pass<true, 1, true, 1, MSUB, BN, kSplit3>(
+           qg, gp, gp, g, ap, gp, a, c.p1, stream)))
+    return err;
+  a.C = v2;
+  a.D = dgda;
+  a.K = ap;
+  if ((err = run_pass<false, 3, true, 1, 1, BN, kScale>(
+           x, ap, gp, qa, ap, ap, a, c.p2, stream)))
+    return err;
+  a.C = x;
+  a.K = gp;
+  if ((err = run_pass<false, 1, true, 1, MSUB, BN, kSplit3>(
+           qg, gp, gp, v2, ap, gp, a, c.p3, stream)))
+    return err;
+  a.C = pg;
+  a.K = ap;
+  return run_pass<false, 3, false, 1, 1, BN, kClip>(x, ap, gp, qa, ap, ap,
+                                                    a, c.p4, stream);
+}
+
+int launch_chain(const bf16* g, const bf16* qa, const bf16* qg,
+                 const bf16* dgda, float* pg, float* clip, float* ws, int L,
+                 int gp, int ap, cudaStream_t stream) {
+  const Chain c = chain_of(L, gp, ap);
+  const long long plane = static_cast<long long>(L) * gp * ap;
+  bf16* x = reinterpret_cast<bf16*>(ws);  // hi, mid, lo planes
+  bf16* v2 = x + 3 * plane;
+  Args a{};
+  a.split_ws = ws + c.split_at;
+  a.partials = ws + c.partials_at;
+  a.clip = clip;
+  a.L = L;
+  a.M = gp;
+  a.N = ap;
+  a.clip_tiles = c.p2.tiles_m * c.p2.tiles_n;
+  if (c.bn == 64)
+    return c.msub == 2
+               ? run_chain<2, 64>(c, g, qa, qg, dgda, pg, x, v2, a, gp, ap,
+                                  stream)
+               : run_chain<1, 64>(c, g, qa, qg, dgda, pg, x, v2, a, gp, ap,
+                                  stream);
+  if (c.msub == 2)
+    return run_chain<2, 128>(c, g, qa, qg, dgda, pg, x, v2, a, gp, ap,
+                             stream);
+  return run_chain<1, 128>(c, g, qa, qg, dgda, pg, x, v2, a, gp, ap, stream);
+}
+
+}  // namespace wgb
 
 // The route a call takes: 0 the fused pair (gp <= 64), 1 the wgmma chain,
 // 2 the cp.async chain (gp > 64 on rows TMA cannot take).  Chosen by
@@ -1534,9 +2104,14 @@ int launch(const T* g, const T* qa, const T* qg, const T* dgda, float* pg,
   const bool ptrs = aligned16(g) && aligned16(qa) && aligned16(qg) &&
                     aligned16(dgda) && aligned16(pg) && aligned16(ws);
   const int route = route_of<T>(gp, ap, ptrs);
-  if (route == 1)
-    return wg::launch_chain<T>(g, qa, qg, dgda, pg, clip, ws, L, gp, ap,
+  if (route == 1) {
+    if constexpr (sizeof(T) == 2)
+      return wgb::launch_chain(g, qa, qg, dgda, pg, clip, ws, L, gp, ap,
                                stream);
+    else
+      return wg::launch_chain(g, qa, qg, dgda, pg, clip, ws, L, gp, ap,
+                              stream);
+  }
   int rows, cols, kernels;
   tiling(gp, &rows, &cols, &kernels);
   const long long plane = static_cast<long long>(L) * gp * ap;
@@ -1571,13 +2146,23 @@ long long kfac_fused_eigen_precond_workspace(int L, int gp, int ap) {
                           (kernels == 2 ? 1 : (gp + rows - 1) / rows);
   const long long need = (kernels == 2 ? 1 : 2) * plane + L * tiles;
   if (gp <= 64) return need;
-  return std::max(need, wg::chain_of(L, gp, ap).floats);
+  return std::max(need, std::max(wg::chain_of(L, gp, ap).floats,
+                                 wgb::chain_of(L, gp, ap).floats));
 }
 
 // The route of a call with 16-byte aligned operands (route_of above).
 int kfac_fused_eigen_precond_route(int gp, int ap, int dtype) {
   return dtype == 1 ? route_of<__nv_bfloat16>(gp, ap, true)
                     : route_of<float>(gp, ap, true);
+}
+
+// Which product a call with 16-byte aligned operands forms first: 0 the
+// gradient times qa (W = g qa), 1 qg^T times the gradient (the bf16
+// wgmma route where gp > ap: wgb::chain_of).
+int kfac_fused_eigen_precond_order(int gp, int ap, int dtype) {
+  return dtype == 1 && route_of<__nv_bfloat16>(gp, ap, true) == 1 && gp > ap
+             ? 1
+             : 0;
 }
 
 // dtype: 0 = float32 operands, 1 = bfloat16 operands.  pg [L, gp, ap] and

@@ -114,7 +114,8 @@ def kernel_route(gp: int, ap: int, dtype: torch.dtype) -> str:
       kernels, ``mma.sync``);
     * ``'wgmma'``: ``gp > 64`` on rows TMA can address (``gp`` and ``ap``
       multiples of 4 for f32, of 8 for bf16): four persistent passes of
-      TMA-fed ``wgmma`` (four CUDA kernels);
+      TMA-fed ``wgmma`` (four CUDA kernels), TF32 for f32 operands and
+      bf16 for bf16 operands (:func:`kernel_order`);
     * ``'cp.async'``: ``gp > 64`` on other rows: four ``mma.sync``
       passes fed by ``cp.async`` with masked edges.
 
@@ -124,6 +125,30 @@ def kernel_route(gp: int, ap: int, dtype: torch.dtype) -> str:
         return 'pair'
     per = 16 // (4 if dtype == torch.float32 else 2)
     return 'wgmma' if gp % per == 0 and ap % per == 0 else 'cp.async'
+
+
+#: The chain's two associations, by the number
+#: ``kfac_fused_eigen_precond_order`` gives them.
+ORDERS = ('g.qa', 'qgT.g')
+
+
+def kernel_order(gp: int, ap: int, dtype: torch.dtype) -> str:
+    """Which product a CUDA call on contiguous operands forms first,
+    chosen by shape before any launch:
+
+    * ``'g.qa'``: ``W = g qa``, then ``qg^T W`` (and ``Y = v2 qa^T``, then
+      ``qg Y``): every f32 call, the pair and ``cp.async`` routes, and the
+      bf16 ``wgmma`` route where ``ap >= gp``;
+    * ``'qgT.g'``: ``U = qg^T g``, then ``U qa`` (and ``Z = qg v2``, then
+      ``Z qa^T``), the TPU kernel's order: the bf16 ``wgmma`` route where
+      ``gp > ap``.
+
+    On the bf16 ``wgmma`` route the larger contraction of each half of
+    the chain is then always bf16 x bf16.  The kernel's own rule
+    (``kfac_fused_eigen_precond_order``) in Python."""
+    bf16_wgmma = (dtype == torch.bfloat16
+                  and kernel_route(gp, ap, dtype) == 'wgmma')
+    return ORDERS[1] if bf16_wgmma and gp > ap else ORDERS[0]
 
 
 def _kernel_library() -> ctypes.CDLL:
@@ -136,9 +161,10 @@ def _kernel_library() -> ctypes.CDLL:
         ws = lib.kfac_fused_eigen_precond_workspace
         ws.argtypes = [i, i, i]
         ws.restype = ctypes.c_longlong
-        route = lib.kfac_fused_eigen_precond_route
-        route.argtypes = [i, i, i]
-        route.restype = i
+        for name in ('route', 'order'):
+            rule = getattr(lib, f'kfac_fused_eigen_precond_{name}')
+            rule.argtypes = [i, i, i]
+            rule.restype = i
     return lib
 
 
@@ -147,6 +173,13 @@ def library_route(gp: int, ap: int, dtype: torch.dtype) -> str:
     kernel on first use; for the card's tests and ``chip_smoke.py``)."""
     lib = _kernel_library()
     return ROUTES[lib.kfac_fused_eigen_precond_route(
+        gp, ap, _DTYPE_CODES[dtype])]
+
+
+def library_order(gp: int, ap: int, dtype: torch.dtype) -> str:
+    """:func:`kernel_order` as the built library answers it."""
+    lib = _kernel_library()
+    return ORDERS[lib.kfac_fused_eigen_precond_order(
         gp, ap, _DTYPE_CODES[dtype])]
 
 

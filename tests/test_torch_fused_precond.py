@@ -212,14 +212,15 @@ WG_BM, WG_BK, WG_CHUNK, WG_MAX_SPLIT, WG_SPLIT_COST, WG_SMS = (
     128, 32, 4, 8, 13, 132)
 
 
-def _wg_split(L, M, N, K, bn, sms=WG_SMS):
-    """``plan_pass``'s K split: only where the tiles fill at most half the
-    SMs, the least-cost S (each part at least one chunk deep) of
-    ``waves(S) * stages per part + split cost``, if under three quarters
-    of the unsplit stages."""
-    tiles = L * -(-M // WG_BM) * -(-N // bn)
-    nk = -(-K // WG_BK)
-    most = max(1, min(WG_MAX_SPLIT, nk // WG_CHUNK)) if 2 * tiles <= sms else 1
+def _wg_split(L, M, N, K, bn, sms=WG_SMS, bm=WG_BM, bk=WG_BK):
+    """``plan_pass``'s K split of ``bm x bn`` tiles and ``bk``-deep
+    stages: only where the tiles fill at most half the SMs, the
+    least-cost S (each part at least 128 deep) of ``waves(S) * stages
+    per part + split cost``, if under three quarters of the unsplit
+    stages."""
+    tiles = L * -(-M // bm) * -(-N // bn)
+    nk = -(-K // bk)
+    most = max(1, min(WG_MAX_SPLIT, nk // (128 // bk))) if 2 * tiles <= sms else 1
     best, split = nk, 1
     for s in range(2, most + 1):
         cost = -(-tiles * s // sms) * -(-nk // s) + WG_SPLIT_COST
@@ -309,6 +310,207 @@ def test_wide_arithmetic_matches_jax_kernel(L, gp, ap):
     np.testing.assert_allclose(
         clip.numpy(), np.asarray(want_clip), rtol=1e-5,
     )
+
+
+#: The bf16 wgmma route's tiles (namespace ``wgb``): K per ring stage,
+#: columns (64 where ``ap <= 64``), and the rows of the three-plane
+#: passes (P2, P4).
+WGB_BK, WGB_BN, WGB_BM_PLANES = 64, 128, 128
+
+
+def _wgb_single_bm(L, gp, ap, sms=WG_SMS):
+    """``wgb::chain_of``'s tile rows for the single-plane passes (P1, P3):
+    256 where 256 x 128 tiles fill a wave of the SMs, else 128."""
+    return 256 if L * -(-gp // 256) * -(-ap // WGB_BN) >= sms else 128
+
+
+def _wgb_bn(ap):
+    """``wgb::chain_of``'s tile columns: 64 where ``ap <= 64``."""
+    return 64 if ap <= 64 else WGB_BN
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest, ties to even), back in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _split3(x: torch.Tensor) -> list[torch.Tensor]:
+    """The three bf16 planes the kernel writes for an f32 ``x``: each the
+    rest of ``x`` after the ones before it, rounded to bf16."""
+    planes = []
+    for _ in range(3):
+        planes.append(_bf16_round(x))
+        x = x - planes[-1]
+    return planes
+
+
+def _wgb_mm(a_planes, b_planes, split):
+    """``sum_q a_q @ b_q`` ([L, M, K] by [L, K, N], bf16 values in f32)
+    as a bf16 wgmma pass forms it: every product of two bf16 values
+    exact, K in ``split`` parts of whole 64-deep stages, each part one
+    f32 sum, the parts summed in part order."""
+    K = a_planes[0].shape[-1]
+    nk = -(-K // WGB_BK)
+    pairs = list(zip(a_planes * len(b_planes) if len(a_planes) == 1
+                     else a_planes,
+                     b_planes * len(a_planes) if len(b_planes) == 1
+                     else b_planes))
+    out = None
+    for s in range(split):
+        ks = slice(s * nk // split * WGB_BK,
+                   min((s + 1) * nk // split * WGB_BK, K))
+        acc = sum(a[..., ks] @ b[..., ks, :] for a, b in pairs)
+        out = acc if out is None else out + acc
+    return out
+
+
+def _wgb_arithmetic(g, qa, qg, dgda):
+    """The bf16 wgmma route's chain (gp > 64, bf16 operands) as it runs:
+    the order chosen by shape (``kernel_order``), the f32 intermediate
+    of P1 and P3 as three bf16 planes, ``v2`` a bf16 plane, each pass's
+    K split by the split rule, the clip term summed per 128 x 128 tile
+    of P2, the tiles in order."""
+    from kfac_pytorch_tpu_torch.ops.fused_precond import kernel_order
+
+    g, qa, qg, dgda = (t.float() for t in (g, qa, qg, dgda))
+    L, gp, ap = g.shape
+    gfirst = kernel_order(gp, ap, torch.bfloat16) == 'g.qa'
+    k13, k24 = (ap, gp) if gfirst else (gp, ap)
+
+    bn = _wgb_bn(ap)
+
+    def split(K, bm):
+        return _wg_split(L, gp, ap, K, bn, bm=bm, bk=WGB_BK)
+
+    s1 = split(k13, _wgb_single_bm(L, gp, ap))
+    s2 = split(k24, WGB_BM_PLANES)
+    if gfirst:
+        x = _split3(_wgb_mm([g], [qa], s1))
+        v1 = _wgb_mm([qg.mT], x, s2)
+    else:
+        x = _split3(_wgb_mm([qg.mT], [g], s1))
+        v1 = _wgb_mm(x, [qa], s2)
+    v2 = v1 * dgda
+    prod = v1 * v2
+    clip = torch.zeros(L)
+    for m0 in range(0, gp, WGB_BM_PLANES):
+        for n0 in range(0, ap, bn):
+            clip = clip + prod[:, m0:m0 + WGB_BM_PLANES,
+                               n0:n0 + bn].sum(dim=(1, 2))
+    v2 = _bf16_round(v2)
+    if gfirst:
+        x = _split3(_wgb_mm([v2], [qa.mT], s1))
+        pg = _wgb_mm([qg], x, s2)
+    else:
+        x = _split3(_wgb_mm([qg], [v2], s1))
+        pg = _wgb_mm(x, [qa.mT], s2)
+    return pg, clip
+
+
+def test_split3_is_exact():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(
+        (rng.normal(size=4096) * 10.0 ** rng.integers(-6, 6, 4096))
+        .astype(np.float32))
+    hi, mid, lo = _split3(x)
+    for part in (hi, mid, lo):
+        assert torch.equal(part, _bf16_round(part))
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+
+
+@pytest.mark.parametrize('L,gp,ap', [
+    (2, 96, 160), (2, 160, 96), (1, 128, 1152), (1, 1152, 128),
+    (3, 256, 64),
+])
+def test_bf16_wgmma_arithmetic_matches_jax_kernel(L, gp, ap):
+    # The bf16 wgmma route's numbers (the order by shape, three bf16
+    # planes of each f32 intermediate, the bf16 v2 plane, split-K parts
+    # in order) against the Pallas kernel on bf16 operands, at the
+    # card's bf16 gate: mean relative error 1e-3 against plain bf16.
+    arrays = rand_inputs(L, gp, ap, seed=13 * L + gp + ap)
+    want_pg, want_clip = jax_fused(
+        *[jnp.asarray(a, jnp.bfloat16) for a in arrays], interpret=True,
+    )
+    want_pg = torch.from_numpy(np.array(want_pg, dtype=np.float32))
+    pg, clip = _wgb_arithmetic(*torch_args(arrays, torch.bfloat16))
+    err = float((pg - want_pg).abs().mean() / want_pg.abs().mean())
+    assert err < 1e-3
+    np.testing.assert_allclose(
+        clip.numpy(), np.asarray(want_clip), rtol=1e-3,
+    )
+    # The plain bf16 chain (f32 products of the widened operands) within
+    # the same gate.
+    plain, _ = fused_eigen_precondition_reference(
+        *torch_args(arrays, torch.bfloat16))
+    assert float((pg - plain).abs().mean() / plain.abs().mean()) < 1e-3
+
+
+@pytest.mark.parametrize('shape,bm,split', [
+    # P1 of (1, 128, 2304) (one 128-row tile, 18 columns, 36 stages);
+    # none at BERT-large's fc_out and fc_in, ResNet-50's a1152g128 or
+    # a P2 at fc_out.
+    ((1, 128, 2304, 2304), 128, 6), ((24, 1024, 4224, 4224), 256, 1),
+    ((24, 4096, 1152, 4096), 256, 1), ((4, 128, 1152, 1152), 128, 1),
+    ((24, 1024, 4224, 1024), WGB_BM_PLANES, 1),
+])
+def test_bf16_wgmma_split_rule(shape, bm, split):
+    L, M, N, K = shape
+    assert _wg_split(L, M, N, K, WGB_BN, bm=bm, bk=WGB_BK) == split
+
+
+@pytest.mark.parametrize('shape,bm', [
+    # 256-row tiles where they fill the 132 SMs: BERT-large's fc_out
+    # (3168 tiles) and fc_in, GPT-125M's fc_out (12 x 3 x 25); 128 rows
+    # at ResNet-50's a1152g128 (36 tiles) and a2176g1024 (68).
+    ((24, 1024, 4224), 256), ((24, 4096, 1152), 256), ((12, 768, 3200), 256),
+    ((4, 128, 1152), 128), ((1, 1024, 2176), 128), ((1, 128, 2304), 128),
+])
+def test_bf16_single_pass_tile_rows(shape, bm):
+    assert _wgb_single_bm(*shape) == bm
+
+
+@pytest.mark.parametrize('ap,bn', [(32, 64), (64, 64), (72, 128), (4224, 128)])
+def test_bf16_tile_columns(ap, bn):
+    # 64-wide tiles where 128-wide ones would be half or more masked.
+    assert _wgb_bn(ap) == bn
+
+
+@pytest.mark.parametrize('gp,ap,dtype,order', [
+    (1024, 4224, torch.bfloat16, 'g.qa'), (4096, 1152, torch.bfloat16, 'qgT.g'),
+    (1024, 4224, torch.float32, 'g.qa'), (4096, 1152, torch.float32, 'g.qa'),
+    (1152, 1152, torch.bfloat16, 'g.qa'), (1024, 32, torch.bfloat16, 'qgT.g'),
+    (64, 32, torch.bfloat16, 'g.qa'), (768, 3076, torch.bfloat16, 'g.qa'),
+    (3073, 768, torch.bfloat16, 'g.qa'),
+])
+def test_kernel_order_by_shape(gp, ap, dtype, order):
+    # The bf16 wgmma route (gp > 64, rows of 16-byte multiples) forms
+    # qg^T g first where gp > ap; every other call g qa.
+    from kfac_pytorch_tpu_torch.ops.fused_precond import kernel_order
+
+    assert kernel_order(gp, ap, dtype) == order
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / 'chip_smoke.py'
+    spec = importlib.util.spec_from_file_location('chip_smoke_bound', path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize('shape,bound_ms', [
+    ((24, 1024, 4224), 3.07), ((24, 4096, 1152), 3.46),
+])
+def test_bf16_bound(shape, bound_ms):
+    # bf16 x bf16 products (the larger contraction of each half) at the
+    # bf16 rate, bf16 x f32 ones at three bf16 products each (cheaper
+    # than two TF32 products); f32 calls keep their bound.
+    cs = _chip_smoke()
+    assert round(cs.precond_bound(*shape, 2)[0], 2) == bound_ms
+    assert cs.precond_bound(*shape, 2)[2] > cs.precond_bound(*shape, 2)[1]
 
 
 @pytest.mark.parametrize('gp,ap,dtype,route', [

@@ -91,8 +91,9 @@ CASES = [
     (768, 3076), (768, 3080),
 ])
 def test_kernel_route_matches_library_on_card(gp, ap):
-    """``kernel_route`` (the Python rule the CPU tests reach) gives the
-    route the built kernel takes, for f32 and bf16 operands."""
+    """``kernel_route`` and ``kernel_order`` (the Python rules the CPU
+    tests reach) give the route and order the built kernel takes, for f32
+    and bf16 operands."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the route is read from the built '
                     'kernel')
@@ -101,6 +102,8 @@ def test_kernel_route_matches_library_on_card(gp, ap):
     for dtype in (torch.float32, torch.bfloat16):
         assert (fused_precond.library_route(gp, ap, dtype)
                 == fused_precond.kernel_route(gp, ap, dtype))
+        assert (fused_precond.library_order(gp, ap, dtype)
+                == fused_precond.kernel_order(gp, ap, dtype))
 
 
 @pytest.mark.parametrize('L,gp,ap,dtype', CASES)
@@ -125,6 +128,45 @@ def test_kernel_matches_plain_on_card(L, gp, ap, dtype):
         return
     torch.testing.assert_close(pg, want_pg, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(clip, want_clip, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize('L,gp,ap,order', [
+    # BERT-large's fc_out (ap >= gp: g qa first) and fc_in (gp > ap: qg^T
+    # g first) at L = 2; a pass whose K is split over few tiles (P1 of
+    # one 18-column tile row, 36 stages deep).
+    (2, 1024, 4224, 'g.qa'), (2, 4096, 1152, 'qgT.g'),
+    (1, 128, 2304, 'g.qa'),
+])
+def test_bf16_wgmma_route_on_card(L, gp, ap, order):
+    """The bf16 ``wgmma`` route: the route and order the built library
+    answers, the bf16 gate against the plain bf16 chain (mean relative
+    error 1e-3), clips within ``rtol 1e-3``, two runs bitwise equal, and
+    at most four CUDA kernels a call, every one a ``wgb::bf16_pass``."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    from torch.profiler import ProfilerActivity, profile
+
+    from kfac_pytorch_tpu_torch.ops import fused_precond
+
+    dtype = torch.bfloat16
+    assert fused_precond.library_route(gp, ap, dtype) == 'wgmma'
+    assert fused_precond.library_order(gp, ap, dtype) == order
+    assert fused_precond.kernel_order(gp, ap, dtype) == order
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [a.to(dtype) for a in _inputs(L, gp, ap, 'cuda', seed=gp + ap)]
+    pg, clip = fused_eigen_precondition(*args)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pg2, clip2 = fused_eigen_precondition(*args)
+        torch.cuda.synchronize()
+    want_pg, want_clip = fused_eigen_precondition_reference(*args)
+    assert torch.equal(clip, clip2) and torch.equal(pg, pg2)
+    err = (pg - want_pg).abs().mean() / want_pg.abs().mean()
+    assert float(err) < 1e-3
+    torch.testing.assert_close(clip, want_clip, rtol=1e-3, atol=1e-3)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(names) <= 4
+    assert all('wgb::bf16_pass' in name for name in names), names
 
 
 #: ResNet-32's six bucket stacks, f32 and bf16, for the quarantine
